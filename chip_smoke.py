@@ -4,7 +4,8 @@
 
 Phases (each raises on failure; nothing is caught):
 
-1. build the CUDA kernel from ``rabia_tpu_torch/csrc`` with nvcc (sm_90a);
+1. build both CUDA kernels from ``rabia_tpu_torch/csrc`` with nvcc
+   (sm_90a), one nvcc per source, started together;
 2. hold the fused-window kernel against its plain PyTorch version, bit for
    bit, on random votes over all four codes: R in {1,3,4,5,7}, ragged S,
    odd T, a misaligned view, with and without the phase plane, through the
@@ -17,14 +18,28 @@ Phases (each raises on failure; nothing is caught):
    packed window;
 5. the serving lane at full width: ``MeshEngine`` over 4096 shards x 5
    replicas — SET/GET on every shard, replica snapshots, decision logs,
-   minority and majority crashes, heal, checkpoint/restore.
+   minority and majority crashes, heal, checkpoint/restore;
+6. hold the kv-window kernel against its plain PyTorch version, bit for
+   bit: random tables and ops over all four kinds, full shards, versions
+   near the wrap, S in {17, 1000, 4096}, P in {1, 7, 64}, op widths below
+   the table's, W in {1, 16}; every output plane and the untouched input
+   table are compared;
+7. the device-resident KV lane at full width: a ``device_store=True``
+   engine beside a host-lane engine (``VectorShardedKV`` replicas) over
+   4096 shards x 5 replicas, window 16, 64-slot tables (32 B keys, 64 B
+   values): 64 SET waves fill every slot, then GET waves, mixed
+   SET/GET/DEL/EXISTS waves, an overflow (dirty -> rollback -> demote),
+   clean waves until re-promotion, a majority crash (stall, demote) and
+   heal; every response frame, the slot counters, the decision logs and
+   all replica stores are compared with the host engine's.
 
-The kernel's launch count is reset just before phases 4-5 (the main
-path) and read just after. The last lines are a ``{"kernels": ...}``
-JSON line, the card's name and power limit as nvidia-smi reports them,
+The launch counts are reset just before phases 4-5 and 7 (the main path)
+and read just after. The last lines are a ``{"kernels": ...}`` JSON line
+(phase 8), the card's name and power limit as nvidia-smi reports them,
 and ``{"ok": true, "device": {...}}``. Exits non-zero without a GPU.
 
-Phases 3-5 also run on the CPU at a small size (tests/test_torch_slice.py).
+Phases 3-5 and 7 also run on the CPU at a small size
+(tests/test_torch_slice.py).
 """
 
 from __future__ import annotations
@@ -34,16 +49,20 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 from rabia_tpu_torch import ClusterKernel, MeshEngine, MeshPhaseKernel
+from rabia_tpu_torch.apps.vector_kv import VectorShardedKV
+from rabia_tpu_torch.core.blocks import build_block
 from rabia_tpu_torch.core.errors import RabiaError
 from rabia_tpu_torch.core.state_machine import InMemoryStateMachine
 from rabia_tpu_torch.core.types import ABSENT, V1, quorum_size
-from rabia_tpu_torch.kernel import cuda_build, fused_window, packed_window
+from rabia_tpu_torch.kernel import cuda_build, fused_window, kv_window, packed_window
 
 S_FULL, R_FULL, T_FULL = 4096, 5, 32768  # BASELINE.json config 3 geometry, bench.py depth
 CHAIN = 32
+P_FULL = 64  # the reference DeviceKVTable's per_shard_capacity (32 B keys, 64 B values)
 
 
 def _check(cond: bool, what: str) -> None:
@@ -141,6 +160,92 @@ def decision_core(device, S: int, R: int, T: int, seed: int = 4):
     return k, bufs, alive, worst
 
 
+# -- phase 6 -----------------------------------------------------------------
+
+
+def random_kv_case(gen, S: int, P: int, K4: int, VW4: int, W: int, ku4: int, vwu4: int,
+                   device, *, p_used: float = 0.6, kinds=(0, 1, 2, 3, 4)):
+    """A random device table (keys unique per shard, stale words in free
+    slots, versions near the i32 wrap on some shards) and a random
+    window of ops whose keys are drawn from the same key space, so ops
+    hit, miss, fill and overflow shards. Returns (table, ops, depth)."""
+
+    def ri(lo, hi, shape, dtype=torch.int64):
+        return torch.randint(lo, hi, shape, generator=gen, device=device, dtype=dtype)
+
+    def key_words(ids):  # ids i64[...] -> (klen bytes, words i32[..., K4])
+        nw = 1 + ids % K4
+        j = torch.arange(K4, device=device)
+        w = (ids[..., None] * 2654435761 + j * 40503 + 7) & 0x7FFFFFFF
+        w = torch.where(j < nw[..., None], w ^ (j & 1) << 30, 0)
+        return (4 * nw).to(torch.int32), w.to(torch.int32)
+
+    ids = torch.rand((S, 2 * P), generator=gen, device=device).argsort(1)[:, :P]
+    klen, keyw = key_words(ids)
+    # the empty key (a legal key of the host store) in slot 0 of some shards
+    empty = torch.rand(S, generator=gen, device=device) < 0.1
+    klen[:, 0] = torch.where(empty, 0, klen[:, 0])
+    keyw[:, 0] = torch.where(empty[:, None], 0, keyw[:, 0])
+    used = torch.rand((S, P), generator=gen, device=device) < p_used
+    ver = ri(0, 2**31 - 1, (S, P), torch.int32)
+    valw = ri(-(2**31), 2**31 - 1, (S, P, VW4), torch.int32)
+    vlen = ri(0, 4 * VW4 + 1, (S, P), torch.int32)
+    sver = torch.where(torch.rand(S, generator=gen, device=device) < 0.2,
+                       ri(2**31 - 2 - W, 2**31 - 1, (S,)), ri(0, 2**20, (S,))).to(torch.int32)
+    table = kv_window.KVTable(used, keyw, klen, ver, valw, vlen, sver)
+
+    kind = torch.tensor(kinds, dtype=torch.int8, device=device)[ri(0, len(kinds), (W, S))]
+    op_ids = ri(0, 2 * P, (W, S))
+    op_ids = (op_ids // K4) * K4 + op_ids % ku4  # keys no wider than ku4 words
+    op_klen, op_kw = key_words(op_ids)
+    op_klen = torch.where(kind == 0, ri(0, 4 * ku4 + 1, (W, S), torch.int32), op_klen)
+    blank = (torch.rand((W, S), generator=gen, device=device) < 0.05) & (kind >= 2)
+    op_klen = torch.where(blank, 0, op_klen)  # reads of the empty key
+    op_kw = torch.where(blank[..., None], 0, op_kw)
+    op_vlen = torch.where(kind == 1, ri(0, 4 * vwu4 + 1, (W, S), torch.int32), 0)
+    vwin = ri(-(2**31), 2**31 - 1, (W, S, vwu4), torch.int32)
+    ops = (kind, op_klen.to(torch.int16), op_vlen.to(torch.int16),
+           op_kw[..., :ku4].contiguous(), vwin)
+    depth = int(ri(0, W + 1, ()))
+    return table, ops, depth
+
+
+def kv_kernel_vs_plain(device) -> int:
+    """The kv_window kernel against its plain version, every output plane
+    and the untouched input table compared; returns the largest absolute
+    difference seen (must be 0)."""
+    gen = torch.Generator(device=device).manual_seed(6)
+    worst = 0
+    K4, VW4 = 8, 16  # the reference's DeviceKVTable defaults: 32 B keys, 64 B values
+    for S in (17, 1000, 4096):
+        for P in (1, 7, 64):
+            for W in (1, 16):
+                for ku4, vwu4 in ((K4, VW4), (2, 4), (1, 1)):
+                    for p_used, kinds in ((0.6, (0, 1, 2, 3, 4)), (1.0, (1, 2)), (0.3, (0, 2))):
+                        table, ops, depth = random_kv_case(
+                            gen, S, P, K4, VW4, W, ku4, vwu4, device, p_used=p_used, kinds=kinds
+                        )
+                        before = [x.clone() for x in table]
+                        want = kv_window.kv_window_plain(table, *ops, depth, want_reads=True)
+                        got = kv_window.KV_WINDOW(table, *ops, depth, want_reads=True)
+                        torch.cuda.synchronize(device)
+                        planes = [*zip(want[0], got[0]), (want[1], got[1]), *zip(want[2], got[2])]
+                        planes += list(zip(before, table))
+                        for a, b in planes:
+                            worst = max(worst, _max_err(a, b))
+                            _check(torch.equal(a, b),
+                                   f"kv_window kernel != plain at S={S} P={P} W={W} "
+                                   f"ku4={ku4} vwu4={vwu4} kinds={kinds}")
+                        # read-only form (lookup): no output table
+                        none, over, reads = kv_window.KV_WINDOW(
+                            table, *ops, depth, want_table=False, want_reads=True)
+                        torch.cuda.synchronize(device)
+                        _check(none is None and torch.equal(over, want[1])
+                               and all(torch.equal(a, b) for a, b in zip(reads, want[2])),
+                               "kv_window read-only form differs")
+    return worst
+
+
 def _time_ms(fn, reps: int) -> float:
     fn()  # warm
     start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -151,6 +256,55 @@ def _time_ms(fn, reps: int) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def _graph_ms(fn, reps: int) -> float:
+    """Device time of one call of ``fn``: the call is captured once in a
+    CUDA graph and replayed ``reps`` times between CUDA events, so the
+    host's time to launch it is not counted."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm: library load and allocator pools
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def _device_busy(fn, reps: int, kernel: str = "") -> dict:
+    """Wall and device time of one call of ``fn`` under torch.profiler:
+    ``wall_ms`` is the host clock around calls that end in a synchronize,
+    ``device_ms`` the sum of the traced device activities (kernels and
+    copies), ``kernel_ms`` the part whose name contains ``kernel``. The
+    device times are None when the trace holds no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+    dev_us = kern_us = 0.0
+    for e in prof.key_averages():
+        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+            t = getattr(e, "self_device_time_total", 0)
+            dev_us += t
+            kern_us += t if kernel and kernel in e.key else 0
+    per = lambda us: us / 1e3 / reps if dev_us else None  # noqa: E731
+    return {"wall_ms": wall_ms, "device_ms": per(dev_us), "kernel_ms": per(kern_us)}
 
 
 # -- phase 5 -----------------------------------------------------------------
@@ -217,6 +371,164 @@ def serving_lane(device, S: int, R: int, window: int = 16) -> dict:
     }
 
 
+# -- phase 7 -----------------------------------------------------------------
+
+
+def _set_op(key: bytes, val: bytes) -> bytes:
+    return b"\x01" + len(key).to_bytes(2, "little") + key + val
+
+
+def _key_op(code: int, key: bytes) -> bytes:
+    return bytes((code,)) + len(key).to_bytes(2, "little") + key
+
+
+def _key(s: int, j: int) -> bytes:
+    """Key j of shard s, 9 to 32 bytes long."""
+    return (b"k%d.%d." % (j, s)).ljust(8 + (j * 7 + s) % 25, b"x")
+
+
+def _value(rng, w: int, s: int) -> bytes:
+    """0 to 64 bytes; about one value in twenty is not UTF-8."""
+    n = int(rng.integers(0, 65))
+    v = (b"v%d.%d." % (w, s) * 8)[:n]
+    return v[:-1] + b"\xff" if n and rng.random() < 0.05 else v
+
+
+def _snapshot_sans_clock(sm) -> bytes:
+    """A replica's store snapshot with the wall-clock stamps zeroed (the
+    two lanes write their rows at different times). Zeroes them in place."""
+    st = sm.store
+    st.created[:] = 0.0
+    st.updated[:] = 0.0
+    for ent in st._overflow.values():
+        ent[2] = ent[3] = 0.0
+    return st.snapshot_bytes()
+
+
+def device_kv_lane(device, S: int, R: int, window: int = 16, P: int = P_FULL, seed: int = 7):
+    """A device_store=True engine and a host-lane engine, both over
+    VectorShardedKV replicas, driven with the same blocks and compared
+    (see phase 7 in the module doc). Returns (stats, device engine)."""
+    rng = np.random.default_rng(seed)
+    shards = list(range(S))
+
+    def make(device_store: bool) -> MeshEngine:
+        return MeshEngine(
+            lambda: VectorShardedKV(S, capacity=max(1 << 16, 4 * S * P)), S, R,
+            window=window, device=device, device_store=device_store,
+            device_store_kw={"per_shard_capacity": P}, device_store_repromote=2,
+        )
+
+    dev, host = make(True), make(False)
+    pairs = []  # (device future, host future) per block
+
+    def both(blocks) -> tuple[float, float]:
+        """Submit + flush on each engine; returns the two wall times."""
+        out = []
+        for eng in (dev, host):
+            t0 = time.perf_counter()
+            fs = [eng.submit_block(b) for b in blocks]
+            eng.flush()
+            out.append((fs, time.perf_counter() - t0))
+        pairs.extend(zip(out[0][0], out[1][0]))
+        return out[0][1], out[1][1]
+
+    def wave(ops) -> object:
+        return build_block(shards, [[op] for op in ops])
+
+    def lane_is(active: bool, what: str) -> None:
+        _check(dev.device_lane_active == active,
+               f"device lane {'inactive' if active else 'active'} {what}")
+
+    # a. fill every slot of every shard: 64 full-width SET waves
+    fill = [wave([_set_op(_key(s, j), _value(rng, j, s)) for s in shards]) for j in range(P)]
+    dev_s, host_s = both(fill)
+    lane_is(True, "after the SET waves")
+    stats = {"set_ops": P * S, "device_set_s": dev_s, "host_set_s": host_s,
+             "device_set_ops_per_s": P * S / dev_s, "host_set_ops_per_s": P * S / host_s}
+    # b. GET waves, some of keys never set
+    gets = [wave([_key_op(2, _key(s, int(rng.integers(0, P + 8)))) for s in shards])
+            for _ in range(16)]
+    dev_s, host_s = both(gets)
+    lane_is(True, "after the GET waves")
+    stats.update(device_get_ops_per_s=16 * S / dev_s, host_get_ops_per_s=16 * S / host_s)
+
+    # c. mixed waves: per op SET (of a known key), GET, DEL, EXISTS; shard
+    # 0 never deletes, so it stays full for the overflow below
+    def mixed_op(w, s):
+        j = int(rng.integers(0, P + 8))
+        k = int(rng.integers(0, 4 if s else 3))
+        if k == 0:
+            return _set_op(_key(s, j % P), _value(rng, 100 + w, s))
+        return _key_op((2, 4, 3)[k - 1], _key(s, j))
+
+    mixed = [wave([mixed_op(w, s) for s in shards]) for w in range(16)]
+    dev_s, host_s = both(mixed)
+    lane_is(True, "after the mixed waves")
+    stats.update(device_mixed_ops_per_s=16 * S / dev_s, host_mixed_ops_per_s=16 * S / host_s)
+
+    # d. a fresh key on full shard 0: overflow -> dirty -> rollback -> demote
+    both([wave([_set_op(b"fresh", b"!")] + [_key_op(2, _key(s, 0)) for s in shards[1:]])])
+    lane_is(False, "after the overflow")
+
+    # e. clean waves until the lane re-promotes (shard 0 back to P keys)
+    both([wave([_key_op(3, b"fresh")] + [_key_op(4, _key(s, 1)) for s in shards[1:]])])
+    for w in range(8):
+        both([wave([_set_op(_key(s, w), _value(rng, 200 + w, s)) for s in shards])])
+        if dev.device_lane_active:
+            break
+    lane_is(True, "after the clean waves (no re-promotion)")
+    stats["repromoted_after_waves"] = w + 1
+
+    # f. majority crash: the flush stalls, the block parks; heal commits it
+    for eng in (dev, host):
+        for r in range(R - quorum_size(R) + 1):
+            eng.crash_replica(R - 1 - r)
+    crash_block = wave([_set_op(_key(s, 2), b"crash") for s in shards])
+    parked = []
+    for eng in (dev, host):
+        parked.append(eng.submit_block(crash_block))
+        stalled = False
+        try:
+            eng.flush(max_cycles=3)
+        except RabiaError:
+            stalled = True
+        _check(stalled and not parked[-1].done(), "flush under a majority crash did not stall")
+    for eng in (dev, host):
+        for r in range(R):
+            eng.heal_replica(r)
+        eng.flush()
+    pairs.append(tuple(parked))
+    lane_is(False, "after the majority crash")
+
+    # g. heal: clean waves until the lane re-promotes again
+    for w in range(8):
+        both([wave([_set_op(_key(s, 3 + w), _value(rng, 300 + w, s)) for s in shards])])
+        if dev.device_lane_active:
+            break
+    lane_is(True, "after the heal (no re-promotion)")
+
+    # every response frame byte-equal
+    for i, (fd, fh) in enumerate(pairs):
+        _check([list(map(bytes, g)) for g in fd.result()]
+               == [list(map(bytes, g)) for g in fh.result()], f"responses of block {i} differ")
+    _check(bool((dev.next_slot == host.next_slot).all()) and dev.decided_v1 == host.decided_v1,
+           "slot counters differ")
+    for s in sorted({0, 1, S // 2, S - 1}):
+        logs = [{slot: (v, b.id, [c.data for c in b.commands])
+                 for slot, (v, b) in eng.decisions_for(s).items()} for eng in (dev, host)]
+        _check(logs[0] == logs[1], f"decision logs of shard {s} differ")
+    # the device table into the replicas: every store equals the host lane's
+    dev.sync_to_host()
+    lane_is(False, "after sync_to_host")
+    want = _snapshot_sans_clock(host.sms[0])
+    for eng in (dev, host):
+        for sm in eng.sms:
+            _check(_snapshot_sans_clock(sm) == want, "replica store differs from the host lane's")
+    stats.update(blocks=len(pairs), entries=len(host.sms[0].store), cycles=dev.cycles)
+    return stats, dev
+
+
 # -- the run -----------------------------------------------------------------
 
 
@@ -242,12 +554,15 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
     print(f"card: {smi}")
 
-    # 1. build
+    # 1. build both kernels (one nvcc per source, started together)
     t0 = time.perf_counter()
-    lib = cuda_build.build(["fused_window"])["fused_window"]
+    libs = cuda_build.build(["fused_window", "kv_window"])
     fused_window.FUSED_WINDOW.load()
-    print(f"phase 1 build: {time.perf_counter() - t0:.2f} s ({lib.name})")
-    print(lib.with_suffix(".log").read_text().strip())
+    kv_window.KV_WINDOW.load()
+    print(f"phase 1 build: {time.perf_counter() - t0:.2f} s "
+          f"({', '.join(p.name for p in libs.values())})")
+    for lib in libs.values():
+        print(lib.with_suffix(".log").read_text().strip())
 
     # 2. kernel vs plain, many shapes
     t0 = time.perf_counter()
@@ -260,8 +575,15 @@ def main() -> int:
     print(f"phase 3 slot_pipeline == slot_pipeline_fused at S={S_FULL} R={R_FULL} T=64 "
           f"({time.perf_counter() - t0:.2f} s)")
 
+    # 6. kv-window kernel vs plain (before the main path: these launches
+    # compare the kernel with its plain version and are not counted)
+    t0 = time.perf_counter()
+    err6 = kv_kernel_vs_plain(device)
+    print(f"phase 6 kv_window kernel vs plain: max_abs_err {err6} ({time.perf_counter() - t0:.2f} s)")
+
     # ---- the main path: counts reset just before, read just after ----
     fused_window.FUSED_WINDOW.launches = 0
+    kv_window.KV_WINDOW.launches = 0
     t0 = time.perf_counter()
     k, bufs, alive, err4 = decision_core(device, S_FULL, R_FULL, T_FULL)
     kernel_ms = _time_ms(
@@ -269,9 +591,14 @@ def main() -> int:
         CHAIN,
     )
     lane = serving_lane(device, S_FULL, R_FULL)
+    t7 = time.perf_counter()
+    kv_lane, kv_eng = device_kv_lane(device, S_FULL, R_FULL)
+    t7 = time.perf_counter() - t7
     launches = fused_window.FUSED_WINDOW.launches
+    kv_launches = kv_window.KV_WINDOW.launches
     main_s = time.perf_counter() - t0
     _check(launches > 0, "the main path never launched the fused window kernel")
+    _check(kv_launches > 0, "the main path never launched the kv window kernel")
     # ---- end of the main path ----
 
     q = quorum_size(R_FULL)
@@ -287,7 +614,7 @@ def main() -> int:
     votes_api, alive_api = votes.permute(1, 2, 0).contiguous(), alive.t().contiguous()
     api_ms = _time_ms(lambda i=0: fused_window.window(votes_api, alive_api, q), 4)
     api_plain_ms = _time_ms(lambda i=0: fused_window.closed_form_window(votes_api, alive_api, q), 2)
-    del votes_api, packed
+    del votes_api, packed, bufs
     # one serving-lane window on the device (16 slots, 2 queued per shard)
     mk = MeshPhaseKernel(S_FULL, R_FULL, device=device)
     wvotes = torch.zeros((16, S_FULL, R_FULL), dtype=torch.int8, device=device)
@@ -296,8 +623,34 @@ def main() -> int:
     wbase = torch.zeros(S_FULL, dtype=torch.int32, device=device)
     window_ms = _time_ms(lambda i=0: mk.slot_window(wvotes, walive, wbase, n_slots=16), 10)
 
-    R, T, S = votes.shape
+    # the kv window at the lane's shapes: a full random table (every op
+    # scans all P slots), W=16 mixed ops at the table's widths
+    gen = torch.Generator(device=device).manual_seed(8)
+    K4, VW4, W = 8, 16, 16
+    table, ops, _ = random_kv_case(gen, S_FULL, P_FULL, K4, VW4, W, K4, VW4, device, p_used=1.0)
+    kv_call = lambda i=0: kv_window.KV_WINDOW(table, *ops, W, want_reads=True)  # noqa: E731
+    kv_ms = _graph_ms(kv_call, 50)  # device time of the kernel alone
+    kv_call_ms = _time_ms(kv_call, 20)  # one wrapper call, host launch time included
+    kv_plain_ms = _time_ms(lambda i=0: kv_window.kv_window_plain(table, *ops, W, want_reads=True), 3)
+    tbl_bytes = sum(x.numel() * x.element_size() for x in table)
+    op_bytes = sum(x.numel() * x.element_size() for x in ops)
+    read_bytes = W * S_FULL * (1 + 4 + 4 + 4 * VW4) + S_FULL
     rate = _card_rate_bytes_per_s(name)
+    kv_bound_ms = (2 * tbl_bytes + op_bytes + read_bytes) / rate * 1e3
+    # one whole SET window of the device lane (upload, slot_window, kernel,
+    # flags) on the phase-7 table
+    dkv = kv_eng._dev
+    set_ops = dkv.pack_window([
+        build_block(range(S_FULL), [[_set_op(_key(s, j), b"timed")] for s in range(S_FULL)])
+        for j in range(W)
+    ])
+    lane_alive = np.ones((S_FULL, R_FULL), bool)
+    lane_base = np.zeros(S_FULL, np.int32)
+    lane_call = lambda i=0: dkv.decide_apply(lane_alive, lane_base, W, set_ops, W=W)  # noqa: E731
+    lane_prof = _device_busy(lane_call, 10, kernel="kv_window")
+    slot_prof = _device_busy(lambda i=0: mk.slot_window(wvotes, walive, wbase, n_slots=16), 10)
+
+    R, T, S = votes.shape
     nbytes = R * T * S + R * S + T * S
     bound_ms = nbytes / rate * 1e3
     bound_phase_ms = (nbytes + 4 * T * S) / rate * 1e3
@@ -312,7 +665,28 @@ def main() -> int:
     device_share = window_ms * lane["first_flush_cycles"] / (lane["first_flush_s"] * 1e3)
     print(f"phase 5 serving lane S={S_FULL} R={R_FULL} window=16: {json.dumps(lane)}; "
           f"slot_window on the device {window_ms:.4f} ms, {device_share:.2%} of the first submit+flush")
-    print(f"main path: {launches} fused-window launches, {main_s:.2f} s")
+    print(f"phase 7 device KV lane S={S_FULL} R={R_FULL} window=16 P={P_FULL}: "
+          f"{json.dumps(kv_lane)} ({t7:.2f} s)")
+    print(f"phase 7 kv_window S={S_FULL} P={P_FULL} W={W} mixed, full table: {kv_ms:.4f} ms on the "
+          f"device (CUDA graph replay), bytes bound {kv_bound_ms:.4f} ms "
+          f"({kv_bound_ms / kv_ms:.1%} of it); one wrapper call {kv_call_ms:.4f} ms; "
+          f"plain {kv_plain_ms:.3f} ms")
+
+    def _fmt(p):
+        dev = "device not measured" if p["device_ms"] is None else (
+            f"device {p['device_ms']:.4f} ms ({p['device_ms'] / p['wall_ms']:.1%} busy)")
+        return f"wall {p['wall_ms']:.4f} ms, {dev}"
+
+    print(f"phase 7 one device-lane SET window (upload, slot_window, kv_window, flags) under "
+          f"the profiler: {_fmt(lane_prof)}"
+          + ("" if lane_prof["kernel_ms"] is None else f", kv_window {lane_prof['kernel_ms']:.4f} ms"))
+    print(f"phase 7 slot_window alone (S={S_FULL} R={R_FULL} 16 slots) under the profiler: "
+          f"{_fmt(slot_prof)}; its share of the lane window: "
+          f"{slot_prof['wall_ms'] / lane_prof['wall_ms']:.1%} of the wall"
+          + ("" if None in (slot_prof["device_ms"], lane_prof["device_ms"]) else
+             f", {slot_prof['device_ms'] / lane_prof['device_ms']:.1%} of the device time"))
+    print(f"main path: {launches} fused-window launches, {kv_launches} kv-window launches, "
+          f"{main_s:.2f} s")
 
     kernels = [{
         "name": "fused_window",
@@ -326,13 +700,23 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": "bytes",
         "library_ms": None,  # no single PyTorch call computes the quorum tally
+    }, {
+        "name": "kv_window",
+        "route": "cuda",
+        "source": "rabia_tpu_torch/csrc/kv_window.cu",
+        "replaces": "rabia_tpu/apps/device_kv.py:1218",
+        "launches": kv_launches,
+        "max_abs_err": err6,
+        "ms": kv_ms,
+        "plain_ms": kv_plain_ms,
+        "bound_ms": kv_bound_ms,
+        "bound_by": "bytes",
+        "library_ms": None,  # no single PyTorch call computes an associative match-and-update
     }]
     print(json.dumps({"kernels": kernels}))
     print(smi)
-    print(json.dumps({
-        "ok": True,
-        "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()},
-    }))
+    # the run used one device, cuda:0
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": 1}}))
     return 0
 
 

@@ -1,11 +1,11 @@
 """rabia_tpu_torch: the PyTorch/CUDA port of rabia_tpu.
 
 Same layout as the reference package (``core/``, ``kernel/``,
-``parallel/``). It imports torch and numpy, never jax and nothing of
-``rabia_tpu``. Entry points (``ClusterKernel``, ``MeshPhaseKernel``,
-``MeshEngine``) run on CUDA unless the caller passes ``device="cpu"``;
-the one CUDA kernel (``csrc/fused_window.cu``) builds with nvcc at its
-first launch.
+``parallel/``, ``apps/``). It imports torch and numpy, never jax and
+nothing of ``rabia_tpu``. Entry points (``ClusterKernel``,
+``MeshPhaseKernel``, ``MeshEngine``) run on CUDA unless the caller passes
+``device="cpu"``; the CUDA kernels (``csrc/fused_window.cu``,
+``csrc/kv_window.cu``) build with nvcc at their first launch.
 """
 
 from rabia_tpu_torch.kernel.phase_driver import ClusterKernel, ClusterState

@@ -12,12 +12,17 @@ bytes, so neither package imports the other:
   ``MeshPhaseState``;
 - ``engine_state_from_jax`` builds the port's ``PersistedEngineState``
   from the plain fields of a reference ``MeshEngine.checkpoint()``, so a
-  reference engine's checkpoint restores into a port engine.
+  reference engine's checkpoint restores into a port engine;
+- ``device_table_from_numpy`` / ``device_table_to_numpy`` convert the
+  seven arrays of a device KV table (a reference ``DeviceKVTable.state``
+  fetched as numpy, u32 words and all) to and from the port's
+  ``KVTable``, so a reference table loads into the port and the two are
+  compared field by field.
 """
 
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Mapping, Optional
 
 import numpy as np
 import torch
@@ -25,6 +30,7 @@ import torch
 from rabia_tpu_torch.core.device import DeviceLike
 from rabia_tpu_torch.core.persistence import PersistedEngineState
 from rabia_tpu_torch.core.state_machine import Snapshot
+from rabia_tpu_torch.kernel.kv_window import KVTable
 from rabia_tpu_torch.kernel.phase_driver import ClusterState
 from rabia_tpu_torch.parallel.mesh import MeshPhaseState
 
@@ -106,3 +112,37 @@ def engine_state_from_jax(ckpt: Mapping) -> PersistedEngineState:
         per_shard_phase=list(committed),
         per_shard_committed=committed,
     )
+
+
+def device_table_from_numpy(fields, device: DeviceLike, n_shards: Optional[int] = None) -> KVTable:
+    """A ``KVTable`` on ``device`` from the seven table arrays: a mapping
+    keyed by ``KVTable`` field names, or a sequence in the reference's
+    ``DeviceKVTable.state`` order (used, key words, key length, version,
+    value words, value length, shard version). Key and value words keep
+    their bits as int32. ``n_shards`` drops the shard columns past it
+    (the reference pads its shards to its mesh)."""
+    if isinstance(fields, Mapping):
+        arrays = [fields[name] for name in KVTable._fields]
+    else:
+        arrays = list(fields)
+        if len(arrays) != len(KVTable._fields):
+            raise ValueError(f"expected {len(KVTable._fields)} table arrays, got {len(arrays)}")
+    out = []
+    for name, a in zip(KVTable._fields, arrays):
+        a = np.asarray(a)
+        if n_shards is not None:
+            a = a[:n_shards]
+        if name == "used":
+            a = a.astype(bool)
+        elif a.dtype.itemsize == 4:
+            a = a.view(np.int32)
+        else:
+            a = a.astype(np.int32)
+        out.append(torch.from_numpy(np.ascontiguousarray(a)).to(device))
+    return KVTable(*out)
+
+
+def device_table_to_numpy(table: KVTable) -> dict[str, np.ndarray]:
+    """The seven table arrays as numpy, keyed by ``KVTable`` field name
+    (key and value words as int32 bit patterns)."""
+    return {name: getattr(table, name).cpu().numpy() for name in KVTable._fields}

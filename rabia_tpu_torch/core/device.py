@@ -4,9 +4,49 @@ from __future__ import annotations
 
 from typing import Optional, Union
 
+import numpy as np
 import torch
 
 DeviceLike = Union[str, torch.device, None]
+
+
+def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array on ``device``, as a copy. To a card it goes through
+    pinned memory without blocking the host: an upload must not wait for
+    the work already queued on the stream."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.clone()
+
+
+class HostFetch:
+    """Device tensors copied to the host without blocking the caller. On
+    a card the copies go into pinned buffers behind the work already
+    queued on the stream, and an event marks their end; ``result()``
+    waits for that event alone and returns numpy arrays."""
+
+    __slots__ = ("_host", "_event")
+
+    def __init__(self, *tensors: torch.Tensor) -> None:
+        self._event = None
+        if tensors[0].device.type == "cuda":
+            self._host = []
+            for t in tensors:
+                h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                h.copy_(t, non_blocking=True)
+                self._host.append(h)
+            self._event = torch.cuda.Event()
+            self._event.record()
+        else:
+            self._host = list(tensors)
+
+    def result(self):
+        """The arrays (one array when one tensor was fetched)."""
+        if self._event is not None:
+            self._event.synchronize()
+        out = [h.numpy() for h in self._host]
+        return out[0] if len(out) == 1 else tuple(out)
 
 
 def resolve_device(device: Optional[DeviceLike] = None) -> torch.device:

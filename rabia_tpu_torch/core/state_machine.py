@@ -78,6 +78,20 @@ class StateMachine(abc.ABC):
         """Cheap human-readable state digest (for logs/tests)."""
 
 
+class VectorStateMachine(abc.ABC):
+    """Optional bulk-apply capability for the engine's block lane: a
+    :class:`StateMachine` that also implements this receives a whole
+    decided :class:`~rabia_tpu_torch.core.blocks.PayloadBlock` wave in one
+    call. Responses must stay a pure function of the applied commands."""
+
+    @abc.abstractmethod
+    def apply_block(self, block, idxs, want_responses: bool = True):
+        """Apply covered-shard indices ``idxs`` (numpy int array) of
+        ``block`` in order; return one response list per index, or None
+        when ``want_responses`` is False (follower replicas discard
+        responses — implementations may skip building them)."""
+
+
 class InMemoryStateMachine(StateMachine):
     """Dict state machine parsing SET/GET/DEL text commands:
       ``SET <key> <value>`` -> "OK"

@@ -130,6 +130,9 @@ class CommandBatch:
     commands: tuple[Command, ...]
     timestamp: float = field(default_factory=time.time)
     shard: ShardId = ShardId(0)
+    # per-client (bid_bytes16, op_lo, op_hi) ids that ride a coalesced
+    # block entry (core/blocks.py); not part of equality or repr
+    aliases: tuple = field(default=(), compare=False, repr=False)
 
     @staticmethod
     def new(

@@ -1,0 +1,142 @@
+// Per-op math of the device KV table's window programs, shared by the
+// CUDA kernel (kv_window.cu) and a plain host build (g++) that the CPU
+// tests check against the reference's XLA programs.
+//
+// The table of one shard is P slots: used, key words [K4], key length,
+// version, value words [VW4], value length; plus the shard version
+// counter. One op per (wave t, shard s) has a kind (0 none, 1 SET,
+// 2 GET, 3 DEL, 4 EXISTS), a key (klen bytes, ku4 words; words past ku4
+// read as zero, so prefix equality is full-key equality against the
+// zero-tailed stored keys) and a value (vlen bytes, vwu4 words). Waves
+// apply in order; every read sees the wave-entry state:
+//
+//   match  = lowest used slot whose key length and every key word equal
+//   found  = match exists
+//   rfound = found and kind >= GET and klen > 0         (read output)
+//   GET    = found and kind == GET: ver/vlen/value of the match
+//   DEL    = present and kind == DEL and found: free the match, sver += 1
+//   SET    = present and kind == SET: target the match, else the lowest
+//            free slot; with neither the shard overflows and nothing
+//            changes; else sver += 1 and the slot takes the key, the
+//            value, and the version sver
+//
+// "present" is t < depth (the waves the window decides). Keys are unique
+// among a shard's used slots: SET updates the matching slot and inserts
+// only when none matches, so the programs keep that invariant.
+#pragma once
+
+#include <stdint.h>
+
+#if defined(__CUDACC__)
+#define KV_HD __host__ __device__ __forceinline__
+#else
+#define KV_HD inline
+#endif
+
+namespace kvw {
+
+constexpr int KIND_NONE = 0, KIND_SET = 1, KIND_GET = 2, KIND_DEL = 3, KIND_EXISTS = 4;
+
+// i32 version arithmetic wraps (the reference's int32 counters do).
+KV_HD int32_t bump(int32_t v) { return static_cast<int32_t>(static_cast<uint32_t>(v) + 1u); }
+
+// Word j of an op's key or value, zero past its bucketed width wu.
+KV_HD int32_t op_word(const int32_t* w, int j, int wu) { return j < wu ? w[j] : 0; }
+
+// Does a used slot hold the op's key? Slot word j is slot_kw[j * stride];
+// op_kw holds the op's K4 words (already zero past its width).
+KV_HD bool key_matches(bool used, int32_t slot_klen, const int32_t* slot_kw, int stride,
+                       int32_t klen, const int32_t* op_kw, int K4) {
+    if (!used || slot_klen != klen) return false;
+    for (int j = 0; j < K4; ++j) {
+        if (slot_kw[j * stride] != op_kw[j]) return false;
+    }
+    return true;
+}
+
+// What one op does, from its kind, presence, key length, the lowest
+// matching slot and the lowest free slot (-1 for none).
+struct Step {
+    bool rfound;    // read output: found and kind >= GET and klen > 0
+    bool get_hit;   // GET reads the matching slot's version and value
+    bool del_hit;   // DEL frees the matching slot and bumps sver
+    bool apply;     // SET writes `slot` and bumps sver
+    bool overflow;  // SET of a fresh key on a full shard
+    int slot;
+};
+
+KV_HD Step wave_step(int kind, bool present, int32_t klen, int match, int first_free) {
+    Step r;
+    const bool found = match >= 0;
+    const bool is_set = present && kind == KIND_SET;
+    const bool full = first_free < 0;
+    r.rfound = found && kind >= KIND_GET && klen > 0;
+    r.get_hit = found && kind == KIND_GET;
+    r.del_hit = present && kind == KIND_DEL && found;
+    r.apply = is_set && (found || !full);
+    r.overflow = is_set && !found && full;
+    r.slot = found ? match : first_free;
+    return r;
+}
+
+// Where one shard's op planes and outputs live in the [W, S, ...] planes.
+KV_HD int64_t op_index(int t, int64_t S, int64_t s) { return static_cast<int64_t>(t) * S + s; }
+
+// The window for one shard, serially, in place on row-major [S, P, ...]
+// table arrays (the host build's definition of the kernel's result).
+// The read planes may be null; when given they are written for every
+// (wave, shard): zero where the op reads nothing.
+KV_HD void scan_shard(int64_t s, int W, int depth, int64_t S, int P, int K4, int VW4,
+                      int ku4, int vwu4,
+                      uint8_t* used, int32_t* keyw, int32_t* klen, int32_t* ver,
+                      int32_t* valw, int32_t* vlen, int32_t* sver,
+                      const int8_t* kind, const int16_t* op_klen, const int16_t* op_vlen,
+                      const int32_t* op_kw, const int32_t* op_vw,
+                      uint8_t* overflow, uint8_t* r_found, int32_t* r_ver, int32_t* r_vlen,
+                      int32_t* r_val, int32_t* key_scratch) {
+    uint8_t* u = used + s * P;
+    int32_t* kw = keyw + s * P * K4;
+    int32_t* kl = klen + s * P;
+    int32_t* vr = ver + s * P;
+    int32_t* vw = valw + s * P * VW4;
+    int32_t* vl = vlen + s * P;
+    int32_t sv = sver[s];
+    bool over = false;
+    for (int t = 0; t < W; ++t) {
+        const int64_t o = op_index(t, S, s);
+        const int k = kind[o];
+        const int32_t kl_t = op_klen[o];
+        for (int j = 0; j < K4; ++j) key_scratch[j] = op_word(op_kw + o * ku4, j, ku4);
+        int match = -1, first_free = -1;
+        for (int p = 0; p < P; ++p) {
+            if (match < 0 && key_matches(u[p] != 0, kl[p], kw + p * K4, 1, kl_t, key_scratch, K4))
+                match = p;
+            if (first_free < 0 && !u[p]) first_free = p;
+        }
+        const Step st = wave_step(k, t < depth, kl_t, match, first_free);
+        if (r_found) {
+            r_found[o] = st.rfound;
+            r_ver[o] = st.get_hit ? vr[match] : 0;
+            r_vlen[o] = st.get_hit ? vl[match] : 0;
+            for (int j = 0; j < VW4; ++j) r_val[o * VW4 + j] = st.get_hit ? vw[match * VW4 + j] : 0;
+        }
+        if (st.del_hit) {
+            u[match] = 0;
+            sv = bump(sv);
+        }
+        if (st.apply) {
+            sv = bump(sv);
+            u[st.slot] = 1;
+            kl[st.slot] = kl_t;
+            vl[st.slot] = op_vlen[o];
+            vr[st.slot] = sv;
+            for (int j = 0; j < K4; ++j) kw[st.slot * K4 + j] = key_scratch[j];
+            for (int j = 0; j < VW4; ++j) vw[st.slot * VW4 + j] = op_word(op_vw + o * vwu4, j, vwu4);
+        }
+        over = over || st.overflow;
+    }
+    sver[s] = sv;
+    overflow[s] = over;
+}
+
+}  // namespace kvw

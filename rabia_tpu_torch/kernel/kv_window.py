@@ -1,0 +1,269 @@
+"""The device KV table's wave scan: plain PyTorch and the CUDA kernel.
+
+One window of W waves over a table of S shards x P slots (see
+``csrc/kv_window.cuh`` for the per-op rules). Every program of
+:class:`~rabia_tpu_torch.apps.device_kv.DeviceKVTable` is this scan with
+its own kind plane: a SET window passes kind 1 for every op, a lookup
+kind 2 where the key is non-empty, a mixed window its real kinds.
+
+``kv_window_plain`` is the plain PyTorch version (a loop over the waves,
+each wave vectorised over the shards). ``KV_WINDOW`` wraps the
+hand-written kernel ``csrc/kv_window.cu`` that replaces the wave scans of
+the reference's XLA programs (``_apply_set_wave`` under ``_build_fused``,
+``_build_lookup``, ``_build_mixed`` in ``rabia_tpu/apps/device_kv.py``).
+``window`` dispatches on the tensor's device alone: a CUDA table goes to
+the kernel (or the wrapper raises), a CPU table to the plain version.
+
+Both are functional: they return a fresh table and never write the
+input, so a dirty window rolls back by keeping the old table. Key and
+value words are int32 bit patterns (equality and selects are exact).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple, Optional
+
+import torch
+
+from rabia_tpu_torch.kernel import cuda_build
+
+I8, I16, I32 = torch.int8, torch.int16, torch.int32
+KIND_SET, KIND_GET, KIND_DEL = 1, 2, 3  # 4 is EXISTS: a read, like GET
+
+
+class KVTable(NamedTuple):
+    """The device table: one row of P slots per shard."""
+
+    used: torch.Tensor  # bool[S, P]
+    keyw: torch.Tensor  # i32[S, P, K4] key words
+    klen: torch.Tensor  # i32[S, P]
+    ver: torch.Tensor  # i32[S, P]
+    valw: torch.Tensor  # i32[S, P, VW4] value words
+    vlen: torch.Tensor  # i32[S, P]
+    sver: torch.Tensor  # i32[S] shard version counter
+
+
+class WindowReads(NamedTuple):
+    """Per (wave, shard) read outputs; ver/vlen/val are zero except
+    where a GET found its key."""
+
+    found: torch.Tensor  # bool[W, S] found, for GET/DEL/EXISTS with a key
+    ver: torch.Tensor  # i32[W, S]
+    vlen: torch.Tensor  # i32[W, S]
+    val: torch.Tensor  # i32[W, S, VW4]
+
+
+def _pad_words(w: torch.Tensor, width: int) -> torch.Tensor:
+    """Op words zero-padded to the table width (zero tails keep prefix
+    equality equal to full-key equality)."""
+    if w.shape[-1] == width:
+        return w
+    out = torch.zeros(w.shape[:-1] + (width,), dtype=I32, device=w.device)
+    out[..., : w.shape[-1]] = w
+    return out
+
+
+def kv_window_plain(
+    table: KVTable,
+    kind: torch.Tensor,  # i8[W, S]
+    klen: torch.Tensor,  # i16[W, S]
+    vlen: torch.Tensor,  # i16[W, S]
+    kwin: torch.Tensor,  # i32[W, S, Ku4]
+    vwin: torch.Tensor,  # i32[W, S, VWu4]
+    depth: int,
+    *,
+    want_table: bool = True,
+    want_reads: bool = False,
+) -> tuple[Optional[KVTable], torch.Tensor, Optional[WindowReads]]:
+    """The wave scan in plain PyTorch. Returns ``(new table or None,
+    overflow bool[S], reads or None)``."""
+    used, keyw, kl, ver, valw, vl, sver = table
+    S, P, K4 = keyw.shape
+    VW4 = valw.shape[2]
+    W = kind.shape[0]
+    dev = keyw.device
+    kw_full = _pad_words(kwin, K4)
+    vw_full = _pad_words(vwin, VW4)
+    slots = torch.arange(P, device=dev)
+    rows = torch.arange(S, device=dev)
+    overflow = torch.zeros(S, dtype=torch.bool, device=dev)
+    reads = None
+    if want_reads:
+        reads = WindowReads(
+            torch.zeros((W, S), dtype=torch.bool, device=dev),
+            torch.zeros((W, S), dtype=I32, device=dev),
+            torch.zeros((W, S), dtype=I32, device=dev),
+            torch.zeros((W, S, VW4), dtype=I32, device=dev),
+        )
+    for t in range(W):
+        k = kind[t].to(I32)
+        kt = klen[t].to(I32)
+        kwt, vwt = kw_full[t], vw_full[t]
+        eq = used & (kl == kt[:, None]) & (keyw == kwt[:, None, :]).all(-1)  # [S, P]
+        found = eq.any(1)
+        # argmax on bool is refused by torch; int8 keeps "first maximum"
+        match = eq.to(I8).argmax(1)
+        if reads is not None:  # reads see the wave-entry state
+            hit = found & (k == KIND_GET)
+            reads.found[t] = found & (k >= KIND_GET) & (kt > 0)
+            reads.ver[t] = torch.where(hit, ver[rows, match], 0)
+            reads.vlen[t] = torch.where(hit, vl[rows, match], 0)
+            reads.val[t] = torch.where(hit[:, None], valw[rows, match], 0)
+        if t >= depth:
+            continue  # a wave outside the window applies nothing
+        del_hit = (k == KIND_DEL) & found
+        used = used & ~(eq & del_hit[:, None])
+        sver = sver + del_hit.to(I32)
+        is_set = k == KIND_SET
+        free = ~used
+        full = ~free.any(1)
+        slot = torch.where(found, match, free.to(I8).argmax(1))
+        apply = is_set & (found | ~full)
+        overflow |= is_set & ~found & full
+        onehot = (slots[None, :] == slot[:, None]) & apply[:, None]  # [S, P]
+        oh3 = onehot[:, :, None]
+        new_ver = sver + 1  # int32: wraps like the reference's counters
+        used = used | onehot
+        keyw = torch.where(oh3, kwt[:, None, :], keyw)
+        kl = torch.where(onehot, kt[:, None], kl)
+        ver = torch.where(onehot, new_ver[:, None], ver)
+        valw = torch.where(oh3, vwt[:, None, :], valw)
+        vl = torch.where(onehot, vlen[t].to(I32)[:, None], vl)
+        sver = torch.where(apply, new_ver, sver)
+    new = KVTable(used, keyw, kl, ver, valw, vl, sver) if want_table else None
+    return new, overflow, reads
+
+
+def _check_args(table: KVTable, kind, klen, vlen, kwin, vwin, depth: int) -> None:
+    used = table.used
+    if used.dtype != torch.bool or used.dim() != 2:
+        raise ValueError(f"table.used must be bool[S, P], got {used.dtype}{list(used.shape)}")
+    S, P = used.shape
+    if table.keyw.dtype != I32 or table.keyw.dim() != 3 or table.keyw.shape[:2] != (S, P):
+        raise ValueError(f"table.keyw must be int32[{S}, {P}, K4], got "
+                         f"{table.keyw.dtype}{list(table.keyw.shape)}")
+    if table.valw.dtype != I32 or table.valw.dim() != 3 or table.valw.shape[:2] != (S, P):
+        raise ValueError(f"table.valw must be int32[{S}, {P}, VW4], got "
+                         f"{table.valw.dtype}{list(table.valw.shape)}")
+    for name in ("klen", "ver", "vlen"):
+        x = getattr(table, name)
+        if x.dtype != I32 or tuple(x.shape) != (S, P):
+            raise ValueError(f"table.{name} must be int32[{S}, {P}], got {x.dtype}{list(x.shape)}")
+    if table.sver.dtype != I32 or tuple(table.sver.shape) != (S,):
+        raise ValueError(f"table.sver must be int32[{S}], got {table.sver.dtype}{list(table.sver.shape)}")
+    if kind.dtype != I8 or kind.dim() != 2 or kind.shape[1] != S:
+        raise ValueError(f"kind must be int8[W, {S}], got {kind.dtype}{list(kind.shape)}")
+    W = kind.shape[0]
+    for name, x in (("klen", klen), ("vlen", vlen)):
+        if x.dtype != I16 or tuple(x.shape) != (W, S):
+            raise ValueError(f"{name} must be int16[{W}, {S}], got {x.dtype}{list(x.shape)}")
+    K4, VW4 = table.keyw.shape[2], table.valw.shape[2]
+    for name, x, width in (("kwin", kwin, K4), ("vwin", vwin, VW4)):
+        if x.dtype != I32 or x.dim() != 3 or x.shape[:2] != (W, S) or x.shape[2] > width:
+            raise ValueError(f"{name} must be int32[{W}, {S}, <= {width}], got "
+                             f"{x.dtype}{list(x.shape)}")
+    if not 0 <= depth <= W:
+        raise ValueError(f"depth {depth} outside 0..{W}")
+    tensors = [*table, kind, klen, vlen, kwin, vwin]
+    if any(x.device != used.device for x in tensors):
+        raise ValueError("the table and the op planes lie on different devices")
+    if not all(x.is_contiguous() for x in tensors):
+        raise ValueError("kv window kernel needs contiguous tables and op planes")
+
+
+def _ptrs(tensors) -> ctypes.Array:
+    return (ctypes.c_void_p * len(tensors))(
+        *[None if x is None else x.data_ptr() for x in tensors]
+    )
+
+
+class KVWindowKernel:
+    """ctypes wrapper of ``kvw_window`` (csrc/kv_window.cu).
+
+    ``launches`` counts kernel launches; it grows by one exactly where
+    the kernel is launched. The library builds on the first call."""
+
+    def __init__(self) -> None:
+        self.launches = 0
+        self._lib = None
+        self._fn = None
+
+    def load(self):
+        """Build (if needed) and bind the library; returns the C function."""
+        if self._fn is None:
+            path = cuda_build.build(["kv_window"])["kv_window"]
+            lib = ctypes.CDLL(str(path))
+            fn = lib.kvw_window
+            vpp = ctypes.POINTER(ctypes.c_void_p)
+            fn.argtypes = [vpp, vpp, vpp, vpp, ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            self._lib, self._fn = lib, fn
+        return self._fn
+
+    def __call__(
+        self,
+        table: KVTable,
+        kind: torch.Tensor,
+        klen: torch.Tensor,
+        vlen: torch.Tensor,
+        kwin: torch.Tensor,
+        vwin: torch.Tensor,
+        depth: int,
+        *,
+        want_table: bool = True,
+        want_reads: bool = False,
+    ) -> tuple[Optional[KVTable], torch.Tensor, Optional[WindowReads]]:
+        _check_args(table, kind, klen, vlen, kwin, vwin, depth)
+        dev = table.used.device
+        if dev.type != "cuda":
+            raise ValueError(f"kv window kernel needs CUDA tensors, got {dev}")
+        fn = self.load()
+        S, P, K4 = table.keyw.shape
+        VW4 = table.valw.shape[2]
+        W = kind.shape[0]
+        out = KVTable(*(torch.empty_like(x) for x in table)) if want_table else None
+        overflow = torch.empty(S, dtype=torch.bool, device=dev)
+        reads = None
+        if want_reads:
+            reads = WindowReads(
+                torch.empty((W, S), dtype=torch.bool, device=dev),
+                torch.empty((W, S), dtype=I32, device=dev),
+                torch.empty((W, S), dtype=I32, device=dev),
+                torch.empty((W, S, VW4), dtype=I32, device=dev),
+            )
+        if S:
+            tin = [table.used.view(torch.uint8), *table[1:]]
+            tout = [None] * 7 if out is None else [out.used.view(torch.uint8), *out[1:]]
+            rd = [overflow.view(torch.uint8)] + (
+                [None] * 4 if reads is None
+                else [reads.found.view(torch.uint8), reads.ver, reads.vlen, reads.val]
+            )
+            dims = (ctypes.c_longlong * 8)(
+                S, W, depth, P, K4, VW4, kwin.shape[2], vwin.shape[2]
+            )
+            with torch.cuda.device(dev):
+                stream = torch.cuda.current_stream().cuda_stream
+                err = fn(_ptrs(tin), _ptrs(tout), _ptrs([kind, klen, vlen, kwin, vwin]),
+                         _ptrs(rd), dims, stream)
+            if err != 0:
+                raise RuntimeError(f"kv window kernel launch failed: cudaError {err}")
+            self.launches += 1
+        return out, overflow, reads
+
+
+KV_WINDOW = KVWindowKernel()
+
+
+def window(table: KVTable, kind, klen, vlen, kwin, vwin, depth: int, *,
+           want_table: bool = True, want_reads: bool = False):
+    """The wave scan: the CUDA kernel for a CUDA table, the plain version
+    for a CPU table."""
+    dev = table.used.device
+    if dev.type == "cuda":
+        return KV_WINDOW(table, kind, klen, vlen, kwin, vwin, depth,
+                         want_table=want_table, want_reads=want_reads)
+    if dev.type == "cpu":
+        return kv_window_plain(table, kind, klen, vlen, kwin, vwin, depth,
+                               want_table=want_table, want_reads=want_reads)
+    raise ValueError(f"no kv window for device {dev}")

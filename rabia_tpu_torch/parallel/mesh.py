@@ -11,7 +11,7 @@ replica axis, so it runs unchanged on a leading batch of slots:
 state instead of mapping over them.
 
 Multi-device meshes (``make_mesh``, ``ShardedClusterKernel``) are not
-ported yet (ROADMAP Queue 1, item 1).
+ported yet (ROADMAP Queue 1, item 5).
 """
 
 from __future__ import annotations

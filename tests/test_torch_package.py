@@ -41,7 +41,7 @@ def test_imports_with_jax_and_reference_blocked():
         timeout=120,
     )
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 10  # every submodule was walked
+    assert int(out.stdout.split()[-1]) >= 18  # every submodule was walked
 
 
 @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: p.name)
@@ -83,13 +83,20 @@ def test_entry_points_default_to_cuda_and_never_fall_back(name):
 
 def test_unported_engine_lanes_are_refused_not_ignored():
     from rabia_tpu_torch import MeshEngine
+    from rabia_tpu_torch.apps.vector_kv import VectorShardedKV
+    from rabia_tpu_torch.core.errors import ValidationError
     from rabia_tpu_torch.core.state_machine import InMemoryStateMachine
 
     for kw in (
-        {"device_store": True},
         {"device_read_lane": True},
         {"latency_target_ms": 50.0},
         {"mesh": object()},
     ):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             MeshEngine(InMemoryStateMachine, 4, 3, device="cpu", **kw)
+    # the device-resident KV lane is ported: it needs replicas it can
+    # demote to, and runs on them
+    with pytest.raises(ValidationError, match="VectorShardedKV"):
+        MeshEngine(InMemoryStateMachine, 4, 3, device="cpu", device_store=True)
+    eng = MeshEngine(lambda: VectorShardedKV(4), 4, 3, device="cpu", device_store=True)
+    assert eng.device_lane_active

@@ -1,8 +1,9 @@
 """The whole slice at a small size on the CPU: the twin of chip_smoke.py's
-phases 3-5 (protocol vs fused entry, the decision core checked against
-both plain windows, the MeshEngine serving lane), run by the same code
+phases 3-5 and 7 (protocol vs fused entry, the decision core checked
+against both plain windows, the MeshEngine serving lane, the
+device-resident KV lane beside the host block lane), run by the same code
 with device="cpu" at S=16, R=5. The same phases on the card are the
-cuda-marked test at the end."""
+cuda-marked tests at the end."""
 
 from __future__ import annotations
 
@@ -12,7 +13,7 @@ import torch
 
 import chip_smoke
 from rabia_tpu_torch.core.types import ABSENT, V0, V1
-from rabia_tpu_torch.kernel import fused_window
+from rabia_tpu_torch.kernel import fused_window, kv_window
 
 torch.set_num_threads(1)  # tiny tensors: one thread keeps parallel test workers off each other
 
@@ -41,6 +42,15 @@ def test_serving_lane_cpu():
     assert lane["first_flush_cycles"] == 1  # SET+GET per shard fit one window
     assert lane["throughput_applied"] == 4 * S
     assert fused_window.FUSED_WINDOW.launches == before  # no kernel on the CPU
+
+
+def test_device_kv_lane_cpu():
+    before = kv_window.KV_WINDOW.launches
+    stats, eng = chip_smoke.device_kv_lane("cpu", S, R)
+    assert stats["blocks"] == 102 and stats["entries"] > 0
+    assert not eng.device_lane_active  # sync_to_host demoted it at the end
+    assert eng.device.type == "cpu" and eng._dev.state.used.device.type == "cpu"
+    assert kv_window.KV_WINDOW.launches == before  # no kernel on the CPU
 
 
 @pytest.fixture
@@ -72,3 +82,11 @@ def test_slice_on_card(cuda):
     _, _, _, err = chip_smoke.decision_core(cuda, 256, R, 128)
     assert err == 0 and fused_window.FUSED_WINDOW.launches == before + 2
     chip_smoke.serving_lane(cuda, 64, R)
+
+
+@pytest.mark.cuda
+def test_device_kv_lane_on_card(cuda):
+    assert chip_smoke.kv_kernel_vs_plain(cuda) == 0
+    before = kv_window.KV_WINDOW.launches
+    stats, _ = chip_smoke.device_kv_lane(cuda, 64, R)
+    assert stats["blocks"] == 102 and kv_window.KV_WINDOW.launches > before
