@@ -4,12 +4,17 @@
 
 Phases (each raises on failure; nothing is caught):
 
-1. build both CUDA kernels from ``rabia_tpu_torch/csrc`` with nvcc
+1. build the three CUDA kernels from ``rabia_tpu_torch/csrc`` with nvcc
    (sm_90a), one nvcc per source, started together;
 2. hold the fused-window kernel against its plain PyTorch version, bit for
    bit, on random votes over all four codes: R in {1,3,4,5,7}, ragged S,
    odd T, a misaligned view, with and without the phase plane, through the
    replica-major and the [T,S,R] entries;
+2b. hold the mesh-window kernel (``slot_window`` / ``slot_pipeline``)
+   against the plain loop over ``phase_step``, bit for bit: R in
+   {1,3,4,5,7,64}, ragged S, T in {1,16}, max_phases in {1,4,8}, coin_p1
+   in {0,0.5,1}, votes over all four codes, crash masks with a
+   quorum-less shard, per-shard bases near 2^31-1 (``base + t`` wraps);
 3. hold the scanned protocol (``ClusterKernel.slot_pipeline``) against the
    fused entry on the card (S=4096, R=5, T=64, random votes, crash mask);
 4. the decision core at full width (S=4096, R=5, T=32768 replica-major
@@ -21,9 +26,11 @@ Phases (each raises on failure; nothing is caught):
    minority and majority crashes, heal, checkpoint/restore;
 6. hold the kv-window kernel against its plain PyTorch version, bit for
    bit: random tables and ops over all four kinds, full shards, versions
-   near the wrap, S in {17, 1000, 4096}, P in {1, 7, 64}, op widths below
-   the table's, W in {1, 16}; every output plane and the untouched input
-   table are compared;
+   near the wrap, S in {17, 1000, 4096}, P in {1, 7, 64}, key and value
+   widths of 8 and 16 words and odd ones (3 and 5, 4 and 7), op widths
+   below the table's, W in {1, 16}, and wider tables and longer windows
+   (P of 130 and 200, W of 40 and 70); every output plane and the
+   untouched input table are compared;
 7. the device-resident KV lane at full width: a ``device_store=True``
    engine beside a host-lane engine (``VectorShardedKV`` replicas) over
    4096 shards x 5 replicas, window 16, 64-slot tables (32 B keys, 64 B
@@ -33,8 +40,8 @@ Phases (each raises on failure; nothing is caught):
    heal; every response frame, the slot counters, the decision logs and
    all replica stores are compared with the host engine's.
 
-The launch counts are reset just before phases 4-5 and 7 (the main path)
-and read just after. The last lines are a ``{"kernels": ...}`` JSON line
+The launch counts of the three kernels are reset just before phases 4-5
+and 7 (the main path) and read just after. The last lines are a ``{"kernels": ...}`` JSON line
 (phase 8), the card's name and power limit as nvidia-smi reports them,
 and ``{"ok": true, "device": {...}}``. Exits non-zero without a GPU.
 
@@ -58,11 +65,14 @@ from rabia_tpu_torch.core.blocks import build_block
 from rabia_tpu_torch.core.errors import RabiaError
 from rabia_tpu_torch.core.state_machine import InMemoryStateMachine
 from rabia_tpu_torch.core.types import ABSENT, V1, quorum_size
-from rabia_tpu_torch.kernel import cuda_build, fused_window, kv_window, packed_window
+from rabia_tpu_torch.kernel import cuda_build, fused_window, kv_window, mesh_window, packed_window
 
 S_FULL, R_FULL, T_FULL = 4096, 5, 32768  # BASELINE.json config 3 geometry, bench.py depth
 CHAIN = 32
 P_FULL = 64  # the reference DeviceKVTable's per_shard_capacity (32 B keys, 64 B values)
+# int32 operations/s of an H100 SXM: 132 SMs x 64 INT32 lanes x 1.98 GHz
+# (the Hopper white paper's per-SM unit count and the SXM boost clock)
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
 
 
 def _check(cond: bool, what: str) -> None:
@@ -117,6 +127,61 @@ def kernel_vs_plain(device) -> int:
             _check(torch.equal(d, wd) and torch.equal(p, wp), f"[T,S,R] entry differs at R={R} S={S}")
             _check(torch.equal(wd, want_d), "plain layouts disagree")
     return worst
+
+
+# -- phase 2b ----------------------------------------------------------------
+
+
+def mesh_case(gen, S: int, R: int, T: int, device):
+    """Votes over all four codes (every third shard split V0/V1, so the
+    coin decides), a crash mask (random deaths, shard 0 without a
+    quorum) and per-shard bases, half of them near the int32 wrap."""
+    votes = _random_votes((T, S, R), gen, device)
+    votes[:, 1::3] = torch.randint(0, 2, votes[:, 1::3].shape, generator=gen, device=device,
+                                   dtype=torch.int8)
+    alive = _alive((S, R), gen, device, p_dead=0.2)
+    alive[0, : quorum_size(R)] = False
+    base = torch.randint(0, 1000, (S,), generator=gen, device=device, dtype=torch.int32)
+    base[::2] = 2**31 - 1 - torch.randint(0, T, base[::2].shape, generator=gen, device=device,
+                                          dtype=torch.int32)
+    return votes, alive, base
+
+
+def mesh_kernel_vs_plain(device) -> int:
+    """The mesh-window kernel against the plain loop over ``phase_step``;
+    returns the largest absolute difference seen (must be 0)."""
+    gen = torch.Generator(device=device).manual_seed(21)
+    worst = 0
+    for R in (1, 3, 4, 5, 7, 64):
+        for S in (17, 1000, 4096):
+            for T in (1, 16):
+                votes, alive, base = mesh_case(gen, S, R, T, device)
+                for max_phases in (1, 4, 8):
+                    for p1 in (0.0, 0.5, 1.0):
+                        mk = MeshPhaseKernel(S, R, coin_p1=p1, seed=S + R, device=device)
+                        want = mk.decide_slots_plain(votes, alive, base, max_phases)
+                        got = mesh_window.MESH_WINDOW(votes, alive, base, seed=mk.seed,
+                                                      coin_p1=p1, max_phases=max_phases)
+                        torch.cuda.synchronize(device)
+                        worst = max(worst, _max_err(got, want))
+                        _check(torch.equal(got, want),
+                               f"mesh window kernel != plain at R={R} S={S} T={T} "
+                               f"max_phases={max_phases} coin_p1={p1}")
+                        _check(bool((want[:, 0] == ABSENT).all()), "a quorum-less shard decided")
+    return worst
+
+
+def mesh_work(mk, votes, alive, base, max_phases: int) -> tuple[int, int]:
+    """(phases, coin flips) that the window's entries need: an entry with
+    a live replica runs phases until its deciding one (or max_phases); a
+    phase that decides nothing flips the coin. Counted with the plain
+    loop at each depth."""
+    live = alive.any(-1)[None, :]
+    undecided = [live.expand(votes.shape[:2])]
+    for k in range(1, max_phases + 1):
+        undecided.append(live & (mk.decide_slots_plain(votes, alive, base, k) == ABSENT))
+    phases = sum(int(u.sum()) for u in undecided[:-1])
+    return phases, sum(int(u.sum()) for u in undecided[1:])
 
 
 # -- phase 3 -----------------------------------------------------------------
@@ -210,39 +275,57 @@ def random_kv_case(gen, S: int, P: int, K4: int, VW4: int, W: int, ku4: int, vwu
     return table, ops, depth
 
 
+def _kv_case_vs_plain(gen, device, S, P, K4, VW4, W, ku4, vwu4, p_used, kinds) -> int:
+    """One random case through the kv_window kernel and its plain version,
+    every output plane and the untouched input table compared, and the
+    read-only form; returns the largest absolute difference (must be 0)."""
+    table, ops, depth = random_kv_case(
+        gen, S, P, K4, VW4, W, ku4, vwu4, device, p_used=p_used, kinds=kinds
+    )
+    before = [x.clone() for x in table]
+    want = kv_window.kv_window_plain(table, *ops, depth, want_reads=True)
+    got = kv_window.KV_WINDOW(table, *ops, depth, want_reads=True)
+    torch.cuda.synchronize(device)
+    planes = [*zip(want[0], got[0]), (want[1], got[1]), *zip(want[2], got[2])]
+    planes += list(zip(before, table))
+    worst = 0
+    for a, b in planes:
+        worst = max(worst, _max_err(a, b))
+        _check(torch.equal(a, b),
+               f"kv_window kernel != plain at S={S} P={P} K4={K4} "
+               f"VW4={VW4} W={W} ku4={ku4} vwu4={vwu4} kinds={kinds}")
+    # read-only form (lookup): no output table
+    none, over, reads = kv_window.KV_WINDOW(table, *ops, depth, want_table=False, want_reads=True)
+    torch.cuda.synchronize(device)
+    _check(none is None and torch.equal(over, want[1])
+           and all(torch.equal(a, b) for a, b in zip(reads, want[2])),
+           "kv_window read-only form differs")
+    return worst
+
+
 def kv_kernel_vs_plain(device) -> int:
     """The kv_window kernel against its plain version, every output plane
     and the untouched input table compared; returns the largest absolute
     difference seen (must be 0)."""
     gen = torch.Generator(device=device).manual_seed(6)
     worst = 0
-    K4, VW4 = 8, 16  # the reference's DeviceKVTable defaults: 32 B keys, 64 B values
-    for S in (17, 1000, 4096):
+    # the reference's DeviceKVTable defaults (32 B keys, 64 B values) at
+    # every S; odd widths (padded key rows, unaligned rows) at ragged S
+    shapes = [(S, 8, 16) for S in (17, 1000, 4096)]
+    shapes += [(S, K4, VW4) for S in (17, 1000) for K4, VW4 in ((3, 5), (4, 7))]
+    for S, K4, VW4 in shapes:
         for P in (1, 7, 64):
             for W in (1, 16):
-                for ku4, vwu4 in ((K4, VW4), (2, 4), (1, 1)):
+                for ku4, vwu4 in ((K4, VW4), (min(2, K4), min(4, VW4)), (1, 1)):
                     for p_used, kinds in ((0.6, (0, 1, 2, 3, 4)), (1.0, (1, 2)), (0.3, (0, 2))):
-                        table, ops, depth = random_kv_case(
-                            gen, S, P, K4, VW4, W, ku4, vwu4, device, p_used=p_used, kinds=kinds
-                        )
-                        before = [x.clone() for x in table]
-                        want = kv_window.kv_window_plain(table, *ops, depth, want_reads=True)
-                        got = kv_window.KV_WINDOW(table, *ops, depth, want_reads=True)
-                        torch.cuda.synchronize(device)
-                        planes = [*zip(want[0], got[0]), (want[1], got[1]), *zip(want[2], got[2])]
-                        planes += list(zip(before, table))
-                        for a, b in planes:
-                            worst = max(worst, _max_err(a, b))
-                            _check(torch.equal(a, b),
-                                   f"kv_window kernel != plain at S={S} P={P} W={W} "
-                                   f"ku4={ku4} vwu4={vwu4} kinds={kinds}")
-                        # read-only form (lookup): no output table
-                        none, over, reads = kv_window.KV_WINDOW(
-                            table, *ops, depth, want_table=False, want_reads=True)
-                        torch.cuda.synchronize(device)
-                        _check(none is None and torch.equal(over, want[1])
-                               and all(torch.equal(a, b) for a, b in zip(reads, want[2])),
-                               "kv_window read-only form differs")
+                        worst = max(worst, _kv_case_vs_plain(
+                            gen, device, S, P, K4, VW4, W, ku4, vwu4, p_used, kinds))
+    # tables wider than 64 slots (the kernel's masks then live in shared
+    # memory) and windows longer than 32 waves (staged in chunks)
+    for S, P, K4, VW4, W in ((33, 130, 8, 16, 16), (33, 64, 8, 16, 40), (9, 200, 3, 5, 70)):
+        for p_used, kinds in ((0.6, (0, 1, 2, 3, 4)), (1.0, (1, 2))):
+            worst = max(worst, _kv_case_vs_plain(
+                gen, device, S, P, K4, VW4, W, K4, VW4, p_used, kinds))
     return worst
 
 
@@ -554,11 +637,12 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
     print(f"card: {smi}")
 
-    # 1. build both kernels (one nvcc per source, started together)
+    # 1. build the three kernels (one nvcc per source, started together)
     t0 = time.perf_counter()
-    libs = cuda_build.build(["fused_window", "kv_window"])
+    libs = cuda_build.build(["fused_window", "kv_window", "mesh_window"])
     fused_window.FUSED_WINDOW.load()
     kv_window.KV_WINDOW.load()
+    mesh_window.MESH_WINDOW.load()
     print(f"phase 1 build: {time.perf_counter() - t0:.2f} s "
           f"({', '.join(p.name for p in libs.values())})")
     for lib in libs.values():
@@ -568,6 +652,12 @@ def main() -> int:
     t0 = time.perf_counter()
     err2 = kernel_vs_plain(device)
     print(f"phase 2 kernel vs plain: max_abs_err {err2} ({time.perf_counter() - t0:.2f} s)")
+
+    # 2b. mesh-window kernel vs plain (not counted: before the main path)
+    t0 = time.perf_counter()
+    err2b = mesh_kernel_vs_plain(device)
+    print(f"phase 2b mesh_window kernel vs plain: max_abs_err {err2b} "
+          f"({time.perf_counter() - t0:.2f} s)")
 
     # 3. protocol vs kernel
     t0 = time.perf_counter()
@@ -584,6 +674,7 @@ def main() -> int:
     # ---- the main path: counts reset just before, read just after ----
     fused_window.FUSED_WINDOW.launches = 0
     kv_window.KV_WINDOW.launches = 0
+    mesh_window.MESH_WINDOW.launches = 0
     t0 = time.perf_counter()
     k, bufs, alive, err4 = decision_core(device, S_FULL, R_FULL, T_FULL)
     kernel_ms = _time_ms(
@@ -596,9 +687,11 @@ def main() -> int:
     t7 = time.perf_counter() - t7
     launches = fused_window.FUSED_WINDOW.launches
     kv_launches = kv_window.KV_WINDOW.launches
+    mesh_launches = mesh_window.MESH_WINDOW.launches
     main_s = time.perf_counter() - t0
     _check(launches > 0, "the main path never launched the fused window kernel")
     _check(kv_launches > 0, "the main path never launched the kv window kernel")
+    _check(mesh_launches > 0, "the main path never launched the mesh window kernel")
     # ---- end of the main path ----
 
     q = quorum_size(R_FULL)
@@ -622,6 +715,20 @@ def main() -> int:
     walive = torch.ones((S_FULL, R_FULL), dtype=torch.bool, device=device)
     wbase = torch.zeros(S_FULL, dtype=torch.int32, device=device)
     window_ms = _time_ms(lambda i=0: mk.slot_window(wvotes, walive, wbase, n_slots=16), 10)
+    # the mesh-window kernel at the lane's shapes (16 slots, 2 voted V1)
+    mw_call = lambda i=0: mesh_window.MESH_WINDOW(  # noqa: E731
+        wvotes, walive, wbase, seed=mk.seed, coin_p1=mk.coin_p1, max_phases=4)
+    mw_ms = _graph_ms(mw_call, 200)  # device time of the kernel alone
+    mw_call_ms = _time_ms(mw_call, 50)  # one wrapper call, host launch time included
+    mw_plain_ms = _time_ms(lambda i=0: mk.decide_slots_plain(wvotes, walive, wbase, 4), 10)
+    mw_err = _max_err(mw_call(), mk.decide_slots_plain(wvotes, walive, wbase, 4))
+    mw_phases, mw_coins = mesh_work(mk, wvotes, walive, wbase, 4)
+    mw_bytes = wvotes.numel() + walive.numel() + 4 * wbase.numel() + wvotes.shape[0] * S_FULL
+    # integer operations: fold R votes and alive flags into masks (3 a
+    # replica), 10 a phase (tallies, selects), 24 a coin (4 hash rounds)
+    mw_ops = wvotes.shape[0] * S_FULL * 3 * R_FULL + 10 * mw_phases + 24 * mw_coins
+    mw_bytes_ms = mw_bytes / _card_rate_bytes_per_s(name) * 1e3
+    mw_ops_ms = mw_ops / INT32_OPS_PER_S * 1e3
 
     # the kv window at the lane's shapes: a full random table (every op
     # scans all P slots), W=16 mixed ops at the table's widths
@@ -685,8 +792,12 @@ def main() -> int:
           f"{slot_prof['wall_ms'] / lane_prof['wall_ms']:.1%} of the wall"
           + ("" if None in (slot_prof["device_ms"], lane_prof["device_ms"]) else
              f", {slot_prof['device_ms'] / lane_prof['device_ms']:.1%} of the device time"))
+    print(f"phase 7 mesh_window S={S_FULL} R={R_FULL} T=16: {mw_ms:.4f} ms on the device (CUDA "
+          f"graph replay), one wrapper call {mw_call_ms:.4f} ms, plain {mw_plain_ms:.3f} ms; "
+          f"bound {max(mw_bytes_ms, mw_ops_ms):.5f} ms (bytes {mw_bytes} -> {mw_bytes_ms:.5f} ms, "
+          f"int ops {mw_ops} -> {mw_ops_ms:.5f} ms; {mw_phases} phases, {mw_coins} coins)")
     print(f"main path: {launches} fused-window launches, {kv_launches} kv-window launches, "
-          f"{main_s:.2f} s")
+          f"{mesh_launches} mesh-window launches, {main_s:.2f} s")
 
     kernels = [{
         "name": "fused_window",
@@ -712,11 +823,23 @@ def main() -> int:
         "bound_ms": kv_bound_ms,
         "bound_by": "bytes",
         "library_ms": None,  # no single PyTorch call computes an associative match-and-update
+    }, {
+        "name": "mesh_window",
+        "route": "cuda",
+        "source": "rabia_tpu_torch/csrc/mesh_window.cu",
+        "replaces": "rabia_tpu/parallel/mesh.py:353",
+        "launches": mesh_launches,
+        "max_abs_err": max(err2b, mw_err),
+        "ms": mw_ms,
+        "plain_ms": mw_plain_ms,
+        "bound_ms": max(mw_bytes_ms, mw_ops_ms),
+        "bound_by": "bytes" if mw_bytes_ms >= mw_ops_ms else "operations",
+        "library_ms": None,  # no single PyTorch call runs the weak-MVC phases
     }]
     print(json.dumps({"kernels": kernels}))
     print(smi)
-    # the run used one device, cuda:0
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": 1}}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                             "count": torch.cuda.device_count()}}))
     return 0
 
 

@@ -7,26 +7,56 @@
 // (lookup_window) and `step_body` scanned by `_build_mixed`
 // (mixed_apply). A SET window passes kind 1 for every op, a lookup
 // kind 2 where the key is non-empty and no output table, a mixed window
-// its real kinds. The per-op math is kv_window.cuh.
+// its real kinds. The per-op rules are kv_window.cuh.
 //
 // Bound: bytes. A window reads the table once and writes a fresh copy
 // (the programs are functional: a dirty window rolls back by keeping
 // the input table), reads the op planes once, and writes the read
 // planes when asked for. At S=4096, P=64, K=32 B, VW=64 B that is
-// ~28 MB of table each way, ~56 MB, ~17 us at the H100 SXM's 3.35 TB/s;
-// the compares are a few integer operations per byte.
+// ~28 MB of table each way and ~11 MB of op and read planes, ~20 us at
+// the H100 SXM's 3.35 TB/s; the compares are a few integer operations
+// per byte.
 //
-// Design: one warp per shard. The warp stages its shard's P slots in
-// shared memory (key words word-major, so the 32 lanes comparing 32
-// slots read 32 banks), then runs the W waves in order: the op's words
-// are staged once, each lane compares the slots it owns, and two warp
-// ballots give the lowest matching and the lowest free slot; the
-// warp-uniform step (kv_window.cuh) then reads, frees or writes one
-// slot, its words split over the lanes. The shard's rows leave in one
-// coalesced pass at the end. Shards never share a slot, so the warps
-// run without block-wide barriers.
+// Design: one warp per shard, every byte it touches staged in shared
+// memory at once, and a wave loop that is a short chain of bit
+// operations in registers.
+//   1. Staging. Lane 0 issues the shard's table planes (keys, values,
+//      lengths, versions, used flags: ~7 KB at the lane's shapes) as TMA
+//      1D bulk copies completing on one mbarrier; the lanes issue all W
+//      op key and value rows (S rows apart in the op planes) as cp.async
+//      pieces, and load the op scalars and the shard version into
+//      registers. A plane that is not 16-byte sized and aligned
+//      moves as cp.async pieces instead (4-byte ones where its rows are
+//      not whole 16-byte pieces). Key and value rows sit in shared memory
+//      rounded up to whole 16-byte pieces, zero-padded, so every later
+//      access is a 16-byte one. The warp waits once.
+//   2. Candidates. Before the waves, every op's key is compared with
+//      every slot's key and every earlier op's: a 32-bit tag of each row
+//      first (lane i holds op i's; lane l slots l and l + 32), the full
+//      rows where the tags agree. The result is bitmasks: cand[i] holds
+//      the slots whose key is op i's; the used slots are one more.
+//   3. Waves. Op i's match is the lowest set bit of used & cand[i], the
+//      free slot the lowest clear bit of used; the warp-uniform step
+//      (kv_window.cuh) then frees a slot or marks it written by wave i.
+//      A SET that puts a fresh key into slot p sets or clears bit p of
+//      every later op's cand, by whether that op's key is this one. No
+//      wave compares keys or moves a row: a GET records the slot it read
+//      and that slot's writer then, and after the loop all lanes write
+//      the read planes (16-byte stores of the value rows) and then copy
+//      each written slot's last SET rows into place.
+//   4. Out. The fresh table leaves as TMA bulk stores of the staged
+//      planes (16-byte or 4-byte stores where a plane is not bulk-sized
+//      and aligned); a read-only window writes no table.
+// Waves are staged 32 at a time; at the lane's W=16 there is one chunk.
+// Tables wider than 64 slots keep their masks in shared memory and move
+// rows in place as the waves go (chunk_wide). Measured on an H100 (see
+// PERF.md), the lane's W=16 mixed window runs at about half its bytes
+// bound: a warp's copies and its waves' dependent chain overlap only
+// with other warps'.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <mutex>
 
 #include "kv_window.cuh"
 
@@ -73,115 +103,712 @@ struct Reads {
 struct Dims {
     int64_t S;
     int W, depth, P, K4, VW4, ku4, vwu4;
+    int K4p, VW4p;  // key and value rows in shared memory: whole 16-byte pieces
+    int MW;         // 64-bit words of a slot bitmask
+    int wc;         // waves staged at once (<= 32)
 };
 
-// Shared-memory words one warp needs for one shard (used bytes rounded
-// up to whole words).
-__host__ __device__ inline int64_t warp_words(const Dims& d) {
-    return static_cast<int64_t>(d.P) * (d.K4 + d.VW4 + 3) + d.K4 + d.VW4 + (d.P + 3) / 4;
+__host__ __device__ inline int64_t align16(int64_t x) { return (x + 15) / 16 * 16; }
+
+// Byte offsets of one warp's shared-memory regions, each 16-byte aligned.
+struct Layout {
+    int64_t bar, umask, keys, vals, klen, ver, vlen, used, opk, opv, orec, cand, total;
+};
+
+__host__ __device__ inline Layout layout(const Dims& d) {
+    const int64_t P = d.P, wc = d.wc;
+    Layout L;
+    L.bar = 0;
+    L.umask = 16;                                 // u64[MW]: used slots, and every p >= P
+    L.keys = L.umask + align16(8 * d.MW);         // i32[P, K4p]
+    L.vals = L.keys + align16(4 * P * d.K4p);     // i32[P, VW4p]
+    L.klen = L.vals + align16(4 * P * d.VW4p);    // i32[P]
+    L.ver = L.klen + align16(4 * P);              // i32[P]
+    L.vlen = L.ver + align16(4 * P);              // i32[P]
+    L.used = L.vlen + align16(4 * P);             // u8[P]
+    L.opk = L.used + align16(P);                  // i32[wc, K4p], zero past ku4
+    L.opv = L.opk + align16(4 * wc * d.K4p);      // i32[wc, VW4p], zero past vwu4
+    L.orec = L.opv + align16(4 * wc * d.VW4p);    // int4[wc]: kind, klen, vlen
+    L.cand = L.orec + 16 * wc;                    // u64[wc, MW]
+    L.total = L.cand + align16(8 * wc * d.MW);
+    return L;
 }
 
-__global__ void kv_window_kernel(Table in, OutTable out, Ops ops, Reads rd, Dims d) {
-    extern __shared__ int32_t smem[];
-    const int lane = threadIdx.x & 31;
-    const int warp = threadIdx.x >> 5;
-    const int64_t s = static_cast<int64_t>(blockIdx.x) * (blockDim.x >> 5) + warp;
-    if (s >= d.S) return;  // whole warps only: no block-wide barrier follows
-    const int P = d.P, K4 = d.K4, VW4 = d.VW4;
+// ---- PTX: shared addresses, TMA bulk copies, cp.async, the mbarrier ----
 
-    int32_t* base = smem + warp * warp_words(d);
-    int32_t* keyk = base;            // [K4, P] word-major
-    int32_t* valw = keyk + P * K4;   // [P, VW4] row-major
-    int32_t* klen = valw + P * VW4;  // [P]
-    int32_t* ver = klen + P;
-    int32_t* vlen = ver + P;
-    int32_t* opk = vlen + P;  // [K4] the current op's key words
-    int32_t* opv = opk + K4;  // [VW4] its value words
-    uint8_t* used = reinterpret_cast<uint8_t*>(opv + VW4);
+__device__ __forceinline__ uint32_t sptr(const void* p) {
+    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
-    // stage the shard: coalesced reads of each row-major plane
-    const int32_t* gk = in.keyw + s * P * K4;
-    for (int i = lane; i < P * K4; i += 32) keyk[(i % K4) * P + i / K4] = gk[i];
-    const int32_t* gv = in.valw + s * P * VW4;
-    for (int i = lane; i < P * VW4; i += 32) valw[i] = gv[i];
-    for (int p = lane; p < P; p += 32) {
-        used[p] = in.used[s * P + p];
-        klen[p] = in.klen[s * P + p];
-        ver[p] = in.ver[s * P + p];
-        vlen[p] = in.vlen[s * P + p];
-    }
-    int32_t sver = in.sver[s];
-    bool overflow = false;
-    __syncwarp();
+__device__ __forceinline__ bool aligned16(const void* p) {
+    return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
 
-    for (int t = 0; t < d.W; ++t) {
-        const int64_t o = kvw::op_index(t, d.S, s);
-        const int kind = ops.kind[o];
-        const int32_t kl_t = ops.klen[o];
-        for (int j = lane; j < K4; j += 32) opk[j] = kvw::op_word(ops.kw + o * d.ku4, j, d.ku4);
-        for (int j = lane; j < VW4; j += 32) opv[j] = kvw::op_word(ops.vw + o * d.vwu4, j, d.vwu4);
-        __syncwarp();
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes, uint32_t bar) {
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+        ::"r"(sptr(dst)), "l"(src), "r"(bytes), "r"(bar)
+        : "memory");
+}
 
-        int match = -1, first_free = -1;
-        for (int p0 = 0; p0 < P; p0 += 32) {
-            const int p = p0 + lane;
-            const bool in_range = p < P;
-            const bool u = in_range && used[p];
-            const bool m = in_range && kvw::key_matches(u, in_range ? klen[p] : 0, keyk + p, P,
-                                                         kl_t, opk, K4);
-            const unsigned bm = __ballot_sync(FULL, m);
-            const unsigned bf = __ballot_sync(FULL, in_range && !u);
-            if (match < 0 && bm) match = p0 + __ffs(bm) - 1;
-            if (first_free < 0 && bf) first_free = p0 + __ffs(bf) - 1;
-            if (match >= 0 && first_free >= 0) break;  // warp-uniform
+__device__ __forceinline__ void bulk_store(void* dst, const void* src, uint32_t bytes) {
+    asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+                 ::"l"(dst), "r"(sptr(src)), "r"(bytes)
+                 : "memory");
+}
+
+__device__ __forceinline__ void async16(void* dst, const void* src) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(sptr(dst)), "l"(src)
+                 : "memory");
+}
+
+__device__ __forceinline__ void async4(void* dst, const void* src) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(sptr(dst)), "l"(src)
+                 : "memory");
+}
+
+__device__ __forceinline__ bool bar_try_wait(uint32_t bar, uint32_t parity) {
+    uint32_t done;
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    return done != 0;
+}
+
+// ---- moving planes between device and shared memory ----
+
+// Can `rows` rows of `rw` words at `src` move as one bulk copy into rows
+// of `ds` words? Only where the rows are unpadded and the run is
+// 16-byte sized and aligned.
+__device__ __forceinline__ bool bulk_ok(const void* g, int rows, int rw, int ds) {
+    return rw == ds && (4LL * rows * rw) % 16 == 0 && aligned16(g);
+}
+
+// rows x rw words from contiguous src into shared rows of ds words, as
+// cp.async pieces over the lanes: 16 bytes where the rows are whole
+// 16-byte pieces on both sides, else 4 bytes. Pad words rw..ds-1 are
+// zeroed.
+__device__ void async_rows(int32_t* dst, const int32_t* src, int rows, int rw, int ds, int lane) {
+    if (rw % 4 == 0 && ds % 4 == 0 && aligned16(src)) {
+        const int per_row = rw / 4, n = rows * per_row;
+        for (int i = lane; i < n; i += 32) {
+            const int r = i / per_row, c = i - r * per_row;
+            async16(dst + r * ds + 4 * c, src + r * rw + 4 * c);
         }
-        const kvw::Step st = kvw::wave_step(kind, t < d.depth, kl_t, match, first_free);
+    } else {
+        const int n = rows * rw;
+        for (int i = lane; i < n; i += 32) {
+            const int r = i / rw;
+            async4(dst + r * ds + (i - r * rw), src + i);
+        }
+    }
+    const int pad = ds - rw, np = rows * pad;
+    for (int i = lane; i < np; i += 32) {
+        const int r = i / pad;
+        dst[r * ds + rw + (i - r * pad)] = 0;
+    }
+}
 
-        if (rd.found != nullptr) {  // reads see the wave-entry state
-            if (lane == 0) {
-                rd.found[o] = st.rfound;
-                rd.ver[o] = st.get_hit ? ver[match] : 0;
-                rd.vlen[o] = st.get_hit ? vlen[match] : 0;
+// rows x rw words from shared rows of ds words to contiguous dst: 16-byte
+// stores where both sides allow, else 4-byte ones.
+__device__ void store_rows(int32_t* dst, const int32_t* src, int rows, int rw, int ds, int lane) {
+    if (rw % 4 == 0 && ds % 4 == 0 && aligned16(dst)) {
+        const int per_row = rw / 4, n = rows * per_row;
+        for (int i = lane; i < n; i += 32) {
+            const int r = i / per_row, c = i - r * per_row;
+            *reinterpret_cast<int4*>(dst + r * rw + 4 * c) =
+                *reinterpret_cast<const int4*>(src + r * ds + 4 * c);
+        }
+        return;
+    }
+    const int n = rows * rw;
+    for (int i = lane; i < n; i += 32) {
+        const int r = i / rw;
+        dst[i] = src[r * ds + (i - r * rw)];
+    }
+}
+
+// ---- key compares ----
+
+// A 32-bit tag of a key row (K4p words, whole 16-byte pieces) and its
+// length: equal keys have equal tags, so only rows whose tags agree are
+// compared in full.
+__device__ __forceinline__ uint32_t key_tag(const int32_t* row, int K4p, int32_t klen) {
+    const int4* r = reinterpret_cast<const int4*>(row);
+    uint32_t h = static_cast<uint32_t>(klen);
+    for (int c = 0; c < K4p / 4; ++c) {
+        const int4 x = r[c];
+        h = h * 0x9E3779B1u + static_cast<uint32_t>(x.x);
+        h = h * 0x9E3779B1u + static_cast<uint32_t>(x.y);
+        h = h * 0x9E3779B1u + static_cast<uint32_t>(x.z);
+        h = h * 0x9E3779B1u + static_cast<uint32_t>(x.w);
+    }
+    return h;
+}
+
+__device__ __forceinline__ bool rows_equal(const int32_t* a, const int32_t* b, int K4p) {
+    const int4* x = reinterpret_cast<const int4*>(a);
+    const int4* y = reinterpret_cast<const int4*>(b);
+    int diff = 0;
+    for (int c = 0; c < K4p / 4; ++c) {
+        const int4 u = x[c], v = y[c];
+        diff |= (u.x ^ v.x) | (u.y ^ v.y) | (u.z ^ v.z) | (u.w ^ v.w);
+    }
+    return diff == 0;
+}
+
+// One warp's shard in shared memory (see Layout).
+struct Smem {
+    uint64_t* umask;
+    int32_t* keys;
+    int32_t* vals;
+    int32_t* klen;
+    int32_t* ver;
+    int32_t* vlen;
+    uint8_t* used;
+    int32_t* opk;
+    int32_t* opv;
+    int4* orec;
+    uint64_t* cand;
+};
+
+__device__ __forceinline__ uint64_t shfl64(uint64_t v, int src) {
+    const uint32_t lo = __shfl_sync(FULL, static_cast<uint32_t>(v), src);
+    const uint32_t hi = __shfl_sync(FULL, static_cast<uint32_t>(v >> 32), src);
+    return (static_cast<uint64_t>(hi) << 32) | lo;
+}
+
+// A chunk of nw waves on a table of at most 64 slots: lane l owns slots
+// l and l + 32, lane i (< nw) owns wave t0 + i. The wave loop is register
+// bookkeeping only: the used mask U (uniform), each wave's candidate mask
+// (held by the wave's lane), each slot's source (-1: the staged row, else
+// the chunk's last SET wave that wrote it, held by the slot's lane). The
+// read outputs and the written rows move after the loop, over all lanes.
+__device__ void chunk_small(const Smem& m, const Dims& d, const Reads& rd, int64_t s, int t0,
+                           int nw, int4 rec, int lane, uint64_t& U, int32_t& sver,
+                           bool& overflow) {
+    const int P = d.P, K4p = d.K4p, VW4p = d.VW4p, VW4 = d.VW4;
+    const int pA = lane, pB = lane + 32;
+    const bool hasA = pA < P, hasB = pB < P;
+
+    // ---- 2. candidates: tags compared all at once, then rows in full ----
+    const uint32_t my_tag = lane < nw ? key_tag(m.opk + lane * K4p, K4p, rec.y) : 0u;
+    const uint32_t tagA = hasA ? key_tag(m.keys + pA * K4p, K4p, m.klen[pA]) : 0u;
+    const uint32_t tagB = hasB ? key_tag(m.keys + pB * K4p, K4p, m.klen[pB]) : 0u;
+    uint64_t cmine = 0;  // lane i: the slots whose tag is op i's
+    uint32_t ve = 0;     // lane i: the earlier ops whose tag is op i's
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+        if (i >= nw) break;
+        const uint32_t ti = __shfl_sync(FULL, my_tag, i);
+        const uint32_t lo = __ballot_sync(FULL, hasA && tagA == ti);
+        const uint32_t hi = __ballot_sync(FULL, hasB && tagB == ti);
+        if (lane == i) cmine = (static_cast<uint64_t>(hi) << 32) | lo;
+        ve |= (i < lane && lane < nw && my_tag == ti) ? 1u << i : 0u;
+    }
+    // ... of which those whose key is op i's, row for row
+    for (uint64_t v = cmine; v != 0; v &= v - 1) {
+        const int p = __ffsll(static_cast<long long>(v)) - 1;
+        if (m.klen[p] != rec.y || !rows_equal(m.keys + p * K4p, m.opk + lane * K4p, K4p))
+            cmine &= ~(uint64_t{1} << p);
+    }
+    uint32_t eqrow = 0;
+    for (uint32_t v = ve; v != 0; v &= v - 1) {
+        const int i = __ffs(v) - 1;
+        if (rec.y == m.orec[i].y && rows_equal(m.opk + lane * K4p, m.opk + i * K4p, K4p))
+            eqrow |= 1u << i;
+    }
+
+    // ---- 3. the waves ----
+    int srcA = -1, srcB = -1;
+    int r_slot = -1, r_src = -1;  // lane i: the slot wave i's GET read, and its source then
+    bool r_found = false;
+    int32_t wver = 0;  // lane i: the version wave i's SET gave its slot
+    const int kind_kl = rec.y * 256 + (rec.x & 0xFF);  // lane i: op i's kind and key length
+    for (int i = 0; i < nw; ++i) {
+        const uint64_t c = shfl64(cmine, i);
+        const int kk = __shfl_sync(FULL, kind_kl, i);
+        const int kind = static_cast<int8_t>(kk & 0xFF), kl = kk >> 8;
+        const uint64_t hit = U & c;
+        const int match = hit != 0 ? __ffsll(static_cast<long long>(hit)) - 1 : -1;
+        int free_slot = -1;  // only a SET of a fresh key looks for one
+        if (kind == kvw::KIND_SET && match < 0 && ~U != 0)
+            free_slot = __ffsll(static_cast<long long>(~U)) - 1;
+        const kvw::Step st = kvw::wave_step(kind, t0 + i < d.depth, kl, match, free_slot);
+        if (lane == i) r_found = st.rfound;
+        if (st.get_hit) {
+            const int msrc = __shfl_sync(FULL, match >= 32 ? srcB : srcA, match & 31);
+            if (lane == i) {
+                r_slot = match;
+                r_src = msrc;
             }
-            for (int j = lane; j < VW4; j += 32)
-                rd.val[o * VW4 + j] = st.get_hit ? valw[match * VW4 + j] : 0;
         }
         if (st.del_hit) {
-            if (lane == 0) used[match] = 0;
+            U &= ~(uint64_t{1} << match);
             sver = kvw::bump(sver);
         }
         if (st.apply) {
             sver = kvw::bump(sver);
             const int p = st.slot;
-            for (int j = lane; j < K4; j += 32) keyk[j * P + p] = opk[j];
-            for (int j = lane; j < VW4; j += 32) valw[p * VW4 + j] = opv[j];
+            const uint64_t bit = uint64_t{1} << p;
+            U |= bit;
+            if (lane == (p & 31)) (p >= 32 ? srcB : srcA) = i;
+            if (lane == i) wver = sver;
+            if (match < 0 && lane > i)  // a fresh key in slot p
+                cmine = (eqrow >> i) & 1u ? (cmine | bit) : (cmine & ~bit);
+        }
+        overflow = overflow || st.overflow;
+    }
+
+    // ---- the read planes, from the wave-entry rows ----
+    if (rd.found != nullptr) {
+        const int src_c = r_src < 0 ? 0 : r_src;
+        const int32_t sv = __shfl_sync(FULL, wver, src_c);
+        const int32_t sl = __shfl_sync(FULL, rec.z, src_c);
+        if (lane < nw) {
+            const int64_t o = kvw::op_index(t0 + lane, d.S, s);
+            const int slot_c = r_slot < 0 ? 0 : r_slot;
+            rd.found[o] = r_found;
+            rd.ver[o] = r_slot < 0 ? 0 : (r_src < 0 ? m.ver[slot_c] : sv);
+            rd.vlen[o] = r_slot < 0 ? 0 : (r_src < 0 ? m.vlen[slot_c] : sl);
+        }
+        const bool vec = VW4 % 4 == 0 && aligned16(rd.val);
+        const int per_row = vec ? VW4 / 4 : VW4, n = nw * per_row;
+        for (int q0 = 0; q0 < n; q0 += 32) {  // piece q of wave q / per_row's row
+            const int q = q0 + lane;
+            const int i = min(q / per_row, nw - 1), c = q - (q / per_row) * per_row;
+            const int rs = __shfl_sync(FULL, r_slot, i), rsrc = __shfl_sync(FULL, r_src, i);
+            if (q >= n) continue;
+            const int32_t* row = rs < 0 ? nullptr : rsrc < 0 ? m.vals + rs * VW4p : m.opv + rsrc * VW4p;
+            const int64_t o = kvw::op_index(t0 + i, d.S, s);
+            if (vec) {
+                reinterpret_cast<int4*>(rd.val + o * VW4)[c] =
+                    row == nullptr ? make_int4(0, 0, 0, 0) : reinterpret_cast<const int4*>(row)[c];
+            } else {
+                rd.val[o * VW4 + c] = row == nullptr ? 0 : row[c];
+            }
+        }
+    }
+    __syncwarp();  // the staged rows are read; now the written slots take their rows
+
+    // ---- the slots the chunk wrote take their last SET's rows ----
+    if (!__any_sync(FULL, srcA >= 0 || srcB >= 0)) return;
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+        const int p = lane + 32 * k, src = k ? srcB : srcA;
+        const int src_c = src < 0 ? 0 : src;
+        const int32_t sv = __shfl_sync(FULL, wver, src_c);
+        const int32_t sk = __shfl_sync(FULL, rec.y, src_c);
+        const int32_t sl = __shfl_sync(FULL, rec.z, src_c);
+        if (src < 0) continue;
+        for (int c = 0; c < K4p / 4; ++c)
+            reinterpret_cast<int4*>(m.keys + p * K4p)[c] =
+                reinterpret_cast<const int4*>(m.opk + src * K4p)[c];
+        for (int c = 0; c < VW4p / 4; ++c)
+            reinterpret_cast<int4*>(m.vals + p * VW4p)[c] =
+                reinterpret_cast<const int4*>(m.opv + src * VW4p)[c];
+        m.klen[p] = sk;
+        m.vlen[p] = sl;
+        m.ver[p] = sv;
+    }
+    __syncwarp();
+}
+
+// A chunk of nw waves on a table of any width: the masks live in shared
+// memory (MW words a mask), and each wave moves its rows in place.
+__device__ void chunk_wide(const Smem& m, const Dims& d, const Reads& rd, int64_t s, int t0,
+                          int nw, int lane, int32_t& sver, bool& overflow) {
+    const int P = d.P, K4p = d.K4p, VW4p = d.VW4p, VW4 = d.VW4, MW = d.MW;
+
+    // ---- 2. candidates ----
+    // lane a < nw: op a's tag, and bit b < a of eqrow where op b's key is op a's
+    const int my_kl = lane < nw ? m.orec[lane].y : 0;
+    const uint32_t my_tag = lane < nw ? key_tag(m.opk + lane * K4p, K4p, my_kl) : 0u;
+    uint32_t eqrow = 0;
+    for (int b = 0; b + 1 < nw; ++b) {
+        const uint32_t tb = __shfl_sync(FULL, my_tag, b);
+        bool c = lane < nw && b < lane && tb == my_tag;
+        if (__any_sync(FULL, c)) {
+            c = c && m.orec[b].y == my_kl && rows_equal(m.opk + lane * K4p, m.opk + b * K4p, K4p);
+            eqrow |= c ? 1u << b : 0u;
+        }
+    }
+    // cand[i]: the slots whose key is op i's (32 slots a ballot)
+    uint32_t* cand32 = reinterpret_cast<uint32_t*>(m.cand);
+    for (int k = 0; k < 2 * MW; ++k) {
+        const int p = lane + 32 * k;
+        const int32_t kl_p = p < P ? m.klen[p] : 0;
+        const uint32_t tag_p = p < P ? key_tag(m.keys + p * K4p, K4p, kl_p) : 0u;
+        for (int i = 0; i < nw; ++i) {
+            const uint32_t ti = __shfl_sync(FULL, my_tag, i);
+            bool c = p < P && tag_p == ti;
+            unsigned bits = __ballot_sync(FULL, c);
+            if (bits != 0) {
+                c = c && kl_p == m.orec[i].y && rows_equal(m.keys + p * K4p, m.opk + i * K4p, K4p);
+                bits = __ballot_sync(FULL, c);
+            }
+            if (lane == 0) cand32[i * 2 * MW + k] = bits;
+        }
+    }
+    __syncwarp();
+
+    // ---- 3. the waves: shared memory and registers only ----
+    for (int i = 0; i < nw; ++i) {
+        const int t = t0 + i;
+        const int4 rec = m.orec[i];
+        const uint64_t* ci = m.cand + i * MW;
+        int match = -1, free_slot = -1;
+        for (int j = 0; j < MW; ++j) {
+            const uint64_t u = m.umask[j];
+            const uint64_t hit = u & ci[j];
+            if (match < 0 && hit != 0) match = 64 * j + __ffsll(static_cast<long long>(hit)) - 1;
+            if (free_slot < 0 && ~u != 0)
+                free_slot = 64 * j + __ffsll(static_cast<long long>(~u)) - 1;
+            if (match >= 0 && free_slot >= 0) break;
+        }
+        const kvw::Step st = kvw::wave_step(rec.x, t < d.depth, rec.y, match, free_slot);
+        const int64_t o = kvw::op_index(t, d.S, s);
+        if (rd.found != nullptr) {  // reads see the wave-entry state
+            const int mm = st.get_hit ? match : 0;
+            if (VW4 % 4 == 0 && aligned16(rd.val)) {
+                int4* dst = reinterpret_cast<int4*>(rd.val + o * VW4);
+                const int4* src = reinterpret_cast<const int4*>(m.vals + mm * VW4p);
+                for (int c = lane; c < VW4 / 4; c += 32)
+                    dst[c] = st.get_hit ? src[c] : make_int4(0, 0, 0, 0);
+            } else {
+                for (int j = lane; j < VW4; j += 32)
+                    rd.val[o * VW4 + j] = st.get_hit ? m.vals[mm * VW4p + j] : 0;
+            }
             if (lane == 0) {
-                used[p] = 1;
-                klen[p] = kl_t;
-                vlen[p] = ops.vlen[o];
-                ver[p] = sver;
+                rd.found[o] = st.rfound;
+                rd.ver[o] = st.get_hit ? m.ver[mm] : 0;
+                rd.vlen[o] = st.get_hit ? m.vlen[mm] : 0;
+            }
+        }
+        if (st.del_hit) {
+            if (lane == 0) m.umask[match >> 6] &= ~(uint64_t{1} << (match & 63));
+            sver = kvw::bump(sver);
+        }
+        if (st.apply) {  // the slot takes the op's key and value rows, in place
+            sver = kvw::bump(sver);
+            const int p = st.slot;
+            const int kc = K4p / 4, vc = VW4p / 4;
+            for (int c = lane; c < kc + vc; c += 32) {
+                if (c < kc) {
+                    reinterpret_cast<int4*>(m.keys + p * K4p)[c] =
+                        reinterpret_cast<const int4*>(m.opk + i * K4p)[c];
+                } else {
+                    reinterpret_cast<int4*>(m.vals + p * VW4p)[c - kc] =
+                        reinterpret_cast<const int4*>(m.opv + i * VW4p)[c - kc];
+                }
+            }
+            const uint64_t bit = uint64_t{1} << (p & 63);
+            if (lane == 0) {
+                m.klen[p] = rec.y;
+                m.vlen[p] = rec.z;
+                m.ver[p] = sver;
+                m.umask[p >> 6] |= bit;
+            }
+            if (match < 0 && lane > i && lane < nw) {  // a fresh key in slot p
+                uint64_t& w = m.cand[lane * MW + (p >> 6)];
+                w = (eqrow >> i) & 1u ? (w | bit) : (w & ~bit);
             }
         }
         overflow = overflow || st.overflow;
         __syncwarp();
     }
+}
+
+constexpr int MAX_WARPS_PER_BLOCK = 8;
+
+__device__ __forceinline__ Smem region_at(uint8_t* base, const Layout& L) {
+    return Smem{reinterpret_cast<uint64_t*>(base + L.umask),
+                reinterpret_cast<int32_t*>(base + L.keys),
+                reinterpret_cast<int32_t*>(base + L.vals),
+                reinterpret_cast<int32_t*>(base + L.klen),
+                reinterpret_cast<int32_t*>(base + L.ver),
+                reinterpret_cast<int32_t*>(base + L.vlen),
+                base + L.used,
+                reinterpret_cast<int32_t*>(base + L.opk),
+                reinterpret_cast<int32_t*>(base + L.opv),
+                reinterpret_cast<int4*>(base + L.orec),
+                reinterpret_cast<uint64_t*>(base + L.cand)};
+}
+
+// Issue the copies of one chunk of waves' op rows (all nw of them at
+// once) into m.opk / m.opv as cp.async pieces, zero past the op widths.
+// Returns lane i's op record (kind, klen, vlen), loaded into registers;
+// the caller commits the cp.async group, waits, and stores the records
+// in m.orec.
+__device__ int4 issue_ops(const Smem& m, const Ops& ops, const Dims& d, int64_t s, int t0,
+                          int nw, int lane) {
+    const int K4p = d.K4p, VW4p = d.VW4p;
+    int4 rec = make_int4(0, 0, 0, 0);
+    if (lane < nw) {
+        const int64_t o = kvw::op_index(t0 + lane, d.S, s);
+        rec = make_int4(ops.kind[o], ops.klen[o], ops.vlen[o], 0);
+    }
+    const bool k16 = d.ku4 % 4 == 0 && aligned16(ops.kw);
+    const int kpr = k16 ? d.ku4 / 4 : d.ku4;  // pieces a key row
+    for (int i = lane; i < nw * kpr; i += 32) {
+        const int w = i / kpr, c = i - w * kpr;
+        const int32_t* row = ops.kw + kvw::op_index(t0 + w, d.S, s) * d.ku4;
+        if (k16) async16(m.opk + w * K4p + 4 * c, row + 4 * c);
+        else async4(m.opk + w * K4p + c, row + c);
+    }
+    const bool v16 = d.vwu4 % 4 == 0 && aligned16(ops.vw);
+    const int vpr = v16 ? d.vwu4 / 4 : d.vwu4;
+    for (int i = lane; i < nw * vpr; i += 32) {
+        const int w = i / vpr, c = i - w * vpr;
+        const int32_t* row = ops.vw + kvw::op_index(t0 + w, d.S, s) * d.vwu4;
+        if (v16) async16(m.opv + w * VW4p + 4 * c, row + 4 * c);
+        else async4(m.opv + w * VW4p + c, row + c);
+    }
+    for (int i = lane; i < nw * (K4p - d.ku4); i += 32) {
+        const int w = i / (K4p - d.ku4);
+        m.opk[w * K4p + d.ku4 + (i - w * (K4p - d.ku4))] = 0;
+    }
+    for (int i = lane; i < nw * (VW4p - d.vwu4); i += 32) {
+        const int w = i / (VW4p - d.vwu4);
+        m.opv[w * VW4p + d.vwu4 + (i - w * (VW4p - d.vwu4))] = 0;
+    }
+    return rec;
+}
+
+// What a staged shard leaves in registers: lane i's op record of the
+// first chunk, and the shard version.
+struct Staged {
+    int4 rec;
+    int32_t sver;
+};
+
+// Issue every copy that brings shard s into shared memory, and wait for
+// none: the table's planes as TMA bulk copies completing on the mbarrier
+// (cp.async pieces where a plane is not 16-byte sized and aligned), the
+// first chunk's op rows as cp.async pieces (one cp.async group with the
+// table's pieces), the op scalars and the shard version as loads into
+// registers.
+__device__ Staged stage(const Smem& m, uint32_t bar, const Table& in, const Ops& ops,
+                        const Dims& d, int64_t s, int lane) {
+    const int P = d.P, K4 = d.K4, VW4 = d.VW4, K4p = d.K4p, VW4p = d.VW4p;
+    const int32_t* g_keys = in.keyw + s * P * K4;
+    const int32_t* g_vals = in.valw + s * P * VW4;
+    const int32_t* g_klen = in.klen + s * P;
+    const int32_t* g_ver = in.ver + s * P;
+    const int32_t* g_vlen = in.vlen + s * P;
+    const uint8_t* g_used = in.used + s * P;
+    const bool b_keys = bulk_ok(g_keys, P, K4, K4p);
+    const bool b_vals = bulk_ok(g_vals, P, VW4, VW4p);
+    const bool b_lens = bulk_ok(g_klen, 1, P, P) && aligned16(g_ver) && aligned16(g_vlen);
+    const bool b_used = P % 16 == 0 && aligned16(g_used);
+    if (lane == 0) {
+        const uint32_t tx = (b_keys ? 4u * P * K4 : 0u) + (b_vals ? 4u * P * VW4 : 0u) +
+                            (b_lens ? 12u * P : 0u) + (b_used ? static_cast<uint32_t>(P) : 0u);
+        asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(tx)
+                     : "memory");
+        if (b_keys) bulk_load(m.keys, g_keys, 4u * P * K4, bar);
+        if (b_vals) bulk_load(m.vals, g_vals, 4u * P * VW4, bar);
+        if (b_lens) {
+            bulk_load(m.klen, g_klen, 4u * P, bar);
+            bulk_load(m.ver, g_ver, 4u * P, bar);
+            bulk_load(m.vlen, g_vlen, 4u * P, bar);
+        }
+        if (b_used) bulk_load(m.used, g_used, static_cast<uint32_t>(P), bar);
+    }
+    if (!b_keys) async_rows(m.keys, g_keys, P, K4, K4p, lane);
+    if (!b_vals) async_rows(m.vals, g_vals, P, VW4, VW4p, lane);
+    if (!b_lens) {
+        async_rows(m.klen, g_klen, 1, P, P, lane);
+        async_rows(m.ver, g_ver, 1, P, P, lane);
+        async_rows(m.vlen, g_vlen, 1, P, P, lane);
+    }
+    if (!b_used) {
+        for (int p = lane; p < P; p += 32) m.used[p] = g_used[p];
+    }
+    Staged st;
+    st.sver = in.sver[s];
+    st.rec = d.W > 0 ? issue_ops(m, ops, d, s, 0, min(d.wc, d.W), lane) : make_int4(0, 0, 0, 0);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    return st;
+}
+
+// The window on one staged shard: the waves with their read planes, then
+// the fresh table, out of shared memory by TMA bulk stores (16-byte or
+// 4-byte stores where a plane is not bulk-sized and aligned).
+template <bool SMALL>
+__device__ void window(const Smem& m, const Staged& staged, const OutTable& out,
+                       const Ops& ops, const Reads& rd, const Dims& d, int64_t s, int lane) {
+    const int P = d.P, K4 = d.K4, VW4 = d.VW4, K4p = d.K4p, VW4p = d.VW4p;
+    int4 rec = staged.rec;
+    int32_t sver = staged.sver;
+    if (lane < min(d.wc, d.W)) m.orec[lane] = rec;
+    __syncwarp();
+
+    // the used slots as a bitmask; bits past P read as used, so never as free
+    uint64_t U = 0;  // SMALL: in registers, uniform over the warp
+    for (int k = 0; k < 2 * d.MW; ++k) {
+        const int p = lane + 32 * k;
+        const unsigned b = __ballot_sync(FULL, p >= P || m.used[p] != 0);
+        if (SMALL) U |= static_cast<uint64_t>(b) << (32 * k);
+        else if (lane == 0) reinterpret_cast<uint32_t*>(m.umask)[k] = b;
+    }
+    __syncwarp();
+
+    bool overflow = false;
+    for (int t0 = 0; t0 < d.W; t0 += d.wc) {
+        const int nw = min(d.wc, d.W - t0);
+        if (t0 > 0) {  // a later chunk's op rows, staged now
+            __syncwarp();  // the last chunk is done with its op rows
+            rec = issue_ops(m, ops, d, s, t0, nw, lane);
+            asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+            if (lane < nw) m.orec[lane] = rec;
+            __syncwarp();
+        }
+        if constexpr (SMALL) chunk_small(m, d, rd, s, t0, nw, rec, lane, U, sver, overflow);
+        else chunk_wide(m, d, rd, s, t0, nw, lane, sver, overflow);
+    }
 
     if (lane == 0) rd.overflow[s] = overflow;
-    if (out.used == nullptr) return;  // read-only window: the input stays the table
-    int32_t* ok = out.keyw + s * P * K4;
-    for (int i = lane; i < P * K4; i += 32) ok[i] = keyk[(i % K4) * P + i / K4];
-    int32_t* ov = out.valw + s * P * VW4;
-    for (int i = lane; i < P * VW4; i += 32) ov[i] = valw[i];
-    for (int p = lane; p < P; p += 32) {
-        out.used[s * P + p] = used[p];
-        out.klen[s * P + p] = klen[p];
-        out.ver[s * P + p] = ver[p];
-        out.vlen[s * P + p] = vlen[p];
+    if (out.used == nullptr) return;  // a read-only window writes no table
+    for (int p = lane; p < P; p += 32)
+        m.used[p] = ((SMALL ? U : m.umask[p >> 6]) >> (p & 63)) & 1u;
+    // the bulk stores read shared memory through the async proxy, after
+    // the generic writes of every lane
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncwarp();
+    int32_t* o_keys = out.keyw + s * P * K4;
+    int32_t* o_vals = out.valw + s * P * VW4;
+    int32_t* o_klen = out.klen + s * P;
+    int32_t* o_ver = out.ver + s * P;
+    int32_t* o_vlen = out.vlen + s * P;
+    uint8_t* o_used = out.used + s * P;
+    const bool bo_keys = bulk_ok(o_keys, P, K4, K4p);
+    const bool bo_vals = bulk_ok(o_vals, P, VW4, VW4p);
+    const bool bo_lens = bulk_ok(o_klen, 1, P, P) && aligned16(o_ver) && aligned16(o_vlen);
+    const bool bo_used = P % 16 == 0 && aligned16(o_used);
+    if (lane == 0) {
+        if (bo_keys) bulk_store(o_keys, m.keys, 4u * P * K4);
+        if (bo_vals) bulk_store(o_vals, m.vals, 4u * P * VW4);
+        if (bo_lens) {
+            bulk_store(o_klen, m.klen, 4u * P);
+            bulk_store(o_ver, m.ver, 4u * P);
+            bulk_store(o_vlen, m.vlen, 4u * P);
+        }
+        if (bo_used) bulk_store(o_used, m.used, static_cast<uint32_t>(P));
+        asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+        out.sver[s] = sver;
     }
-    if (lane == 0) out.sver[s] = sver;
+    if (!bo_keys) store_rows(o_keys, m.keys, P, K4, K4p, lane);
+    if (!bo_vals) store_rows(o_vals, m.vals, P, VW4, VW4p, lane);
+    if (!bo_lens) {
+        store_rows(o_klen, m.klen, 1, P, P, lane);
+        store_rows(o_ver, m.ver, 1, P, P, lane);
+        store_rows(o_vlen, m.vlen, 1, P, P, lane);
+    }
+    if (!bo_used) {
+        for (int p = lane; p < P; p += 32) o_used[p] = m.used[p];
+    }
+    if (lane == 0) {
+        // shared memory must outlive the bulk stores' reads of it
+        asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+    }
+}
+
+// One warp a shard. SMALL: tables of at most 64 slots (chunk_small);
+// else chunk_wide. At most 128 registers a thread: a tighter cap spills
+// in the wave loop, which costs more than the warps it would add.
+template <bool SMALL>
+__global__ void __launch_bounds__(32 * MAX_WARPS_PER_BLOCK, 2)
+kv_window_kernel(Table in, OutTable out, Ops ops, Reads rd, Dims d) {
+    extern __shared__ __align__(16) uint8_t smem[];
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int64_t s = static_cast<int64_t>(blockIdx.x) * (blockDim.x >> 5) + warp;
+    if (s >= d.S) return;  // whole warps only: no block-wide barrier follows
+    const Layout L = layout(d);
+    uint8_t* base = smem + warp * L.total;
+    const uint32_t bar = sptr(base + L.bar);
+    if (lane == 0) {
+        asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar) : "memory");
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncwarp();  // the mbarrier is initialised before any lane waits on it
+    const Smem m = region_at(base, L);
+    const Staged staged = stage(m, bar, in, ops, d, s, lane);
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    // the one wait for the bulk copies; a lost transaction count would
+    // spin forever, so fail the launch after about a second instead
+    for (const long long t_start = clock64(); !bar_try_wait(bar, 0);) {
+        if (clock64() - t_start > (1LL << 31)) __trap();
+    }
+    __syncwarp();
+    window<SMALL>(m, staged, out, ops, rd, d, s, lane);
 }
 
 constexpr int64_t MAX_SMEM = 227 * 1024;  // a block's shared memory on Hopper
+
+// Warps a block for one instantiation at `per_warp` bytes of shared
+// memory a warp: the count with the most warps resident on an SM, as the
+// runtime reports it (registers, shared memory and its per-block
+// reservation). 0 where one warp does not fit.
+template <bool SMALL>
+int warps_per_block(int64_t per_warp) {
+    auto kernel = kv_window_kernel<SMALL>;
+    if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(MAX_SMEM)) != cudaSuccess ||
+        cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared) != cudaSuccess) {
+        return 0;
+    }
+    int best = 0, best_resident = 0;
+    for (int w = 1; w <= MAX_WARPS_PER_BLOCK && w * per_warp <= MAX_SMEM; ++w) {
+        int nb = 0;
+        if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&nb, kernel, 32 * w,
+                                                          static_cast<size_t>(w * per_warp)) !=
+            cudaSuccess) {
+            return 0;
+        }
+        if (nb * w > best_resident) {
+            best = w;
+            best_resident = nb * w;
+        }
+    }
+    return best;
+}
+
+template <bool SMALL>
+int launch(Table in, OutTable out, Ops ops, Reads rd, Dims d, cudaStream_t stream) {
+    // the warps a block for the last (device, bytes a warp) of this
+    // instantiation
+    static std::mutex mu;
+    static int64_t memo_bytes = -1;
+    static int memo_dev = -1, memo_warps = 0;
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess) return static_cast<int>(cudaGetLastError());
+    const int64_t per_warp = layout(d).total;
+    int warps;
+    {
+        std::lock_guard<std::mutex> lock(mu);
+        if (memo_bytes != per_warp || memo_dev != dev) {
+            memo_warps = warps_per_block<SMALL>(per_warp);
+            memo_bytes = per_warp, memo_dev = dev;
+        }
+        warps = memo_warps;
+    }
+    if (warps == 0) {
+        cudaGetLastError();  // clear a refused attribute or query
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+    const int64_t blocks = (d.S + warps - 1) / warps;
+    kv_window_kernel<SMALL><<<static_cast<unsigned>(blocks), 32 * warps,
+                              static_cast<size_t>(per_warp * warps), stream>>>(in, out, ops, rd, d);
+    return static_cast<int>(cudaGetLastError());
+}
 
 }  // namespace
 
@@ -192,7 +819,8 @@ constexpr int64_t MAX_SMEM = 227 * 1024;  // a block's shared memory on Hopper
 // then found u8[W,S], ver/vlen i32[W,S], val i32[W,S,VW4] (those four
 // may be null). dims: S, W, depth, P, K4, VW4, ku4, vwu4. All
 // contiguous. Launches on `stream`, returns cudaGetLastError() (0 on
-// success); does not synchronise.
+// success; cudaErrorInvalidValue where one shard does not fit in a
+// block's shared memory); does not synchronise.
 extern "C" int kvw_window(void* const* table, void* const* out, void* const* ops,
                           void* const* reads, const long long* dims, void* stream) {
     Dims d;
@@ -209,17 +837,11 @@ extern "C" int kvw_window(void* const* table, void* const* out, void* const* ops
         return static_cast<int>(cudaErrorInvalidValue);
     }
     if (d.S == 0) return 0;
-    const int64_t per_warp = warp_words(d) * 4;
-    if (per_warp > MAX_SMEM) return static_cast<int>(cudaErrorInvalidValue);
-    int warps = static_cast<int>(MAX_SMEM / 4 / per_warp);
-    if (warps > 4) warps = 4;
-    const int64_t smem = per_warp * warps;
-    if (smem > 48 * 1024) {
-        cudaError_t e = cudaFuncSetAttribute(kv_window_kernel,
-                                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                             static_cast<int>(smem));
-        if (e != cudaSuccess) return static_cast<int>(e);
-    }
+    d.K4p = (d.K4 + 3) / 4 * 4;
+    d.VW4p = (d.VW4 + 3) / 4 * 4;
+    d.MW = (d.P + 63) / 64;
+    d.wc = d.W < 32 ? (d.W > 0 ? d.W : 1) : 32;
+    while (d.wc > 1 && layout(d).total > MAX_SMEM) d.wc /= 2;
     Table in{static_cast<const uint8_t*>(table[0]), static_cast<const int32_t*>(table[1]),
              static_cast<const int32_t*>(table[2]), static_cast<const int32_t*>(table[3]),
              static_cast<const int32_t*>(table[4]), static_cast<const int32_t*>(table[5]),
@@ -234,8 +856,6 @@ extern "C" int kvw_window(void* const* table, void* const* out, void* const* ops
     Reads rd{static_cast<uint8_t*>(reads[0]), static_cast<uint8_t*>(reads[1]),
              static_cast<int32_t*>(reads[2]), static_cast<int32_t*>(reads[3]),
              static_cast<int32_t*>(reads[4])};
-    const int64_t blocks = (d.S + warps - 1) / warps;
-    kv_window_kernel<<<static_cast<unsigned>(blocks), 32 * warps, static_cast<size_t>(smem),
-                       static_cast<cudaStream_t>(stream)>>>(in, o, op, rd, d);
-    return static_cast<int>(cudaGetLastError());
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    return d.P <= 64 ? launch<true>(in, o, op, rd, d, st) : launch<false>(in, o, op, rd, d, st);
 }

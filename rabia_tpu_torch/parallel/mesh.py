@@ -6,9 +6,12 @@ of (shard, replica) state and a phase exchanges votes with two
 ``all_gather``s over the replica axis; on one device the whole ``[S, R]``
 tensor is local, so each exchange is a read of the full replica row.
 Every step is elementwise over (shard, replica) with a reduction over the
-replica axis, so it runs unchanged on a leading batch of slots:
-``slot_window`` evaluates its T independent slots as one ``[T, S, R]``
-state instead of mapping over them.
+replica axis, so it runs unchanged on a leading batch of slots: the plain
+window (``decide_slots_plain``) evaluates its T independent slots as one
+``[T, S, R]`` state instead of mapping over them. On a card,
+``slot_window`` and ``slot_pipeline`` are one launch of the CUDA kernel
+of :mod:`rabia_tpu_torch.kernel.mesh_window`; ``phase_step`` stays plain
+PyTorch, the specification the kernel and the plain window are held to.
 
 Multi-device meshes (``make_mesh``, ``ShardedClusterKernel``) are not
 ported yet (ROADMAP Queue 1, item 5).
@@ -22,6 +25,7 @@ import torch
 
 from rabia_tpu_torch.core.device import DeviceLike, resolve_device
 from rabia_tpu_torch.core.types import ABSENT, V0, V1, VQUESTION, f_plus_1, quorum_size
+from rabia_tpu_torch.kernel import mesh_window
 from rabia_tpu_torch.kernel.phase_driver import _coin_bits, _pick
 
 I8 = torch.int8
@@ -112,9 +116,12 @@ class MeshPhaseKernel:
         """Put an array (numpy or tensor) on this kernel's device."""
         return torch.as_tensor(arr, device=self.device)
 
-    def _decide_slots(self, votes, alive, slots, max_phases: int) -> torch.Tensor:
-        """Run ``max_phases`` phases on T independent slots at once;
-        ``slots`` is i32[T, S]. Returns decided i8[T, S]."""
+    def decide_slots_plain(self, votes, alive, base_slots, max_phases: int) -> torch.Tensor:
+        """Run ``max_phases`` phases on T independent slots at once, plain
+        PyTorch; entry ``t`` of shard ``s`` is slot ``base_slots[s] + t``
+        (int32, wrapping). Returns decided i8[T, S]."""
+        offsets = torch.arange(votes.shape[0], dtype=I32, device=self.device)
+        slots = base_slots.to(I32)[None, :] + offsets[:, None]
         st = MeshPhaseState(
             slot=slots[:, :, None].expand(votes.shape).contiguous(),
             phase=torch.zeros(votes.shape, dtype=I32, device=self.device),
@@ -129,6 +136,19 @@ class MeshPhaseKernel:
         concrete = torch.where(st.decided == ABSENT, -1, st.decided)
         best = concrete.amax(-1)
         return torch.where(best < 0, ABSENT, best).to(I8)
+
+    def _decide_slots(self, votes, alive, base_slots, max_phases: int) -> torch.Tensor:
+        """The window: the CUDA kernel for CUDA tensors, the plain loop
+        for CPU tensors."""
+        if votes.device.type == "cuda":
+            return mesh_window.MESH_WINDOW(
+                votes.to(I8).contiguous(), alive.to(torch.bool).contiguous(),
+                base_slots.to(I32).contiguous(),
+                seed=self.seed, coin_p1=self.coin_p1, max_phases=max_phases,
+            )
+        if votes.device.type == "cpu":
+            return self.decide_slots_plain(votes, alive, base_slots, max_phases)
+        raise ValueError(f"no mesh window for device {votes.device}")
 
     def _check(self, initial_votes: torch.Tensor, n_slots: int) -> None:
         if tuple(initial_votes.shape) != (n_slots, self.S, self.R):
@@ -152,12 +172,8 @@ class MeshPhaseKernel:
         ``start_slot_index`` offsets the slot numbering (and therefore the
         coin stream)."""
         self._check(initial_votes, n_slots)
-        slots = torch.arange(
-            start_slot_index, start_slot_index + n_slots, dtype=I32, device=self.device
-        )
-        return self._decide_slots(
-            initial_votes, alive, slots[:, None].expand(n_slots, self.S), max_phases
-        )
+        base = torch.full((self.S,), start_slot_index, dtype=I32, device=self.device)
+        return self._decide_slots(initial_votes, alive, base, max_phases)
 
     def slot_window(
         self,
@@ -173,6 +189,4 @@ class MeshPhaseKernel:
         a shard's coin stream never depends on other shards' progress.
         Returns decided i8[T, S]."""
         self._check(initial_votes, n_slots)
-        offsets = torch.arange(n_slots, dtype=I32, device=self.device)
-        slots = base_slots.to(I32)[None, :] + offsets[:, None]
-        return self._decide_slots(initial_votes, alive, slots, max_phases)
+        return self._decide_slots(initial_votes, alive, base_slots, max_phases)

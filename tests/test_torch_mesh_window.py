@@ -1,0 +1,195 @@
+"""The mesh-window kernel's per-(slot, shard) header against the
+reference's ``MeshPhaseKernel.slot_window`` and ``slot_pipeline`` and the
+port's plain window.
+
+``csrc/mesh_window.cuh`` is built for the host with g++ and run on the
+same inputs as the reference's XLA programs (on its 8-device CPU test
+mesh) and the port's plain loop over ``phase_step``: votes split over all
+four codes (so the common coin decides), crash masks with a quorum-less
+shard, coin probabilities 0, 0.5 and 1, and per-shard bases near 2^31-1
+so that ``base + t`` wraps. The wrapper's refusals and the CPU dispatch
+are checked too. Tolerance: exact equality (decisions are codes)."""
+
+from __future__ import annotations
+
+import ctypes
+import shutil
+import subprocess
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from rabia_tpu.parallel import MeshPhaseKernel as RefMesh
+from rabia_tpu.parallel import make_mesh
+from rabia_tpu_torch.core.types import ABSENT, f_plus_1, quorum_size
+from rabia_tpu_torch.kernel import cuda_build, mesh_window
+from rabia_tpu_torch.kernel.phase_driver import coin_threshold
+from rabia_tpu_torch.parallel import MeshPhaseKernel
+
+torch.set_num_threads(1)  # tiny tensors: one thread keeps parallel test workers off each other
+
+S, T = 16, 6  # S fills the reference's 8-device CPU mesh
+
+_HOST_SHIM = r"""
+#include "mesh_window.cuh"
+extern "C" void mw_host(const int8_t* votes, const uint8_t* alive, const int32_t* base,
+                        int8_t* out, long long T, long long S, int R, int quorum, int f1,
+                        unsigned seed, unsigned threshold, int max_phases) {
+    for (int t = 0; t < T; ++t)
+        for (long long s = 0; s < S; ++s)
+            out[t * S + s] = mw::decide_entry(votes, alive, base, S, R, t, s, quorum, f1,
+                                              seed, threshold, max_phases);
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def host_window(tmp_path_factory):
+    """The kernel's header compiled for the host with g++. Returns
+    ``run(votes, alive, base, seed, p1, max_phases) -> decided i8[T, S]``."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("g++ not installed: the header's host build cannot run")
+    d = tmp_path_factory.mktemp("mw_host")
+    (d / "shim.cpp").write_text(_HOST_SHIM)
+    lib = d / "libmw_host.so"
+    subprocess.run(
+        [gxx, "-std=c++17", "-O2", "-shared", "-fPIC", f"-I{cuda_build.CSRC}",
+         "-o", str(lib), str(d / "shim.cpp")],
+        check=True, capture_output=True, timeout=120,
+    )
+    fn = ctypes.CDLL(str(lib)).mw_host
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 3 + [
+        ctypes.c_uint, ctypes.c_uint, ctypes.c_int]
+    fn.restype = None
+
+    def run(votes, alive, base, seed, p1, max_phases):
+        votes = np.ascontiguousarray(votes, np.int8)
+        alive = np.ascontiguousarray(alive, np.uint8)
+        base = np.ascontiguousarray(base, np.int32)
+        Tn, Sn, R = votes.shape
+        out = np.empty((Tn, Sn), np.int8)
+        fn(votes.ctypes.data, alive.ctypes.data, base.ctypes.data, out.ctypes.data, Tn, Sn, R,
+           quorum_size(R), f_plus_1(R), seed & 0xFFFFFFFF, coin_threshold(p1), max_phases)
+        return out
+
+    return run
+
+
+def _inputs(seed: int, R: int, Sn: int = S, Tn: int = T):
+    """Votes over all four codes, a crash mask (a dead column, random
+    deaths, shard 0 without a quorum) and bases near the int32 wrap on
+    half the shards."""
+    rng = np.random.default_rng(seed)
+    votes = rng.integers(0, 4, size=(Tn, Sn, R)).astype(np.int8)
+    votes[:, 1::3] = rng.integers(0, 2, size=votes[:, 1::3].shape)  # split V0/V1: the coin
+    alive = rng.random((Sn, R)) >= 0.2
+    if R > 2:
+        alive[:, -1] = False
+    alive[0, : quorum_size(R)] = False  # shard 0 has lost its quorum
+    base = rng.integers(0, 1000, size=Sn).astype(np.int64)
+    base[::2] = 2**31 - 1 - rng.integers(0, Tn, size=base[::2].shape)
+    return votes, alive, base.astype(np.int32)
+
+
+@pytest.mark.parametrize("p1", [0.0, 0.5, 1.0])
+@pytest.mark.parametrize("R", [1, 3, 5, 7, 33])
+def test_header_matches_reference_slot_window(host_window, R, p1):
+    seed = 10 * R + int(2 * p1)
+    votes, alive, base = _inputs(seed, R)
+    ref = RefMesh(S, R, make_mesh(), coin_p1=p1, seed=seed)
+    want = np.asarray(ref.slot_window(
+        jnp.asarray(votes), ref.place(jnp.asarray(alive)), jnp.asarray(base),
+        n_slots=T, max_phases=4,
+    ))
+    got = host_window(votes, alive, base, seed, p1, 4)
+    np.testing.assert_array_equal(got, want)
+    assert (want[:, 0] == ABSENT).all()  # the quorum-less shard never decides
+
+
+@pytest.mark.parametrize("max_phases", [1, 4])
+def test_header_matches_reference_slot_pipeline(host_window, max_phases):
+    R, seed, start = 5, 40 + max_phases, 2**31 - 3  # slot numbers wrap inside the window
+    votes, alive, _ = _inputs(seed, R)
+    ref = RefMesh(S, R, make_mesh(), seed=seed)
+    want = np.asarray(ref.slot_pipeline(
+        jnp.asarray(votes), ref.place(jnp.asarray(alive)), T,
+        max_phases=max_phases, start_slot_index=start,
+    ))
+    got = host_window(votes, alive, np.full(S, start, np.int32), seed, 0.5, max_phases)
+    np.testing.assert_array_equal(got, want)
+    port = MeshPhaseKernel(S, R, seed=seed, device="cpu").slot_pipeline(
+        torch.from_numpy(votes), torch.from_numpy(alive), T,
+        max_phases=max_phases, start_slot_index=start,
+    )
+    np.testing.assert_array_equal(port.numpy(), want)
+
+
+@pytest.mark.parametrize("p1", [0.0, 0.5, 1.0])
+@pytest.mark.parametrize("max_phases", [0, 1, 4])
+@pytest.mark.parametrize("R", [1, 3, 4, 5, 7, 33, 64])
+def test_header_matches_plain_window(host_window, R, max_phases, p1):
+    seed = 7 * R + max_phases
+    votes, alive, base = _inputs(seed, R, Sn=37, Tn=5)
+    k = MeshPhaseKernel(37, R, coin_p1=p1, seed=seed, device="cpu")
+    want = k.decide_slots_plain(
+        torch.from_numpy(votes), torch.from_numpy(alive), torch.from_numpy(base), max_phases
+    ).numpy()
+    np.testing.assert_array_equal(host_window(votes, alive, base, seed, p1, max_phases), want)
+    assert (want[:, 0] == ABSENT).all()  # the quorum-less shard never decides
+    if max_phases == 0:
+        assert (want == ABSENT).all()
+    elif max_phases == 4 and p1 == 0.5:
+        assert {0, 1} <= set(np.unique(want))  # the coin went both ways
+
+
+def test_cpu_dispatch_takes_the_plain_loop(monkeypatch):
+    R = 5
+    votes, alive, base = _inputs(3, R)
+    k = MeshPhaseKernel(S, R, seed=3, device="cpu")
+    want = k.decide_slots_plain(
+        torch.from_numpy(votes), torch.from_numpy(alive), torch.from_numpy(base), 4)
+    calls = []
+    plain = k.decide_slots_plain
+    monkeypatch.setattr(k, "decide_slots_plain", lambda *a: calls.append(1) or plain(*a))
+
+    def no_kernel(*a, **kw):
+        raise AssertionError("the kernel was called for CPU tensors")
+
+    monkeypatch.setattr(mesh_window, "MESH_WINDOW", no_kernel)
+    got = k.slot_window(torch.from_numpy(votes), torch.from_numpy(alive),
+                        torch.from_numpy(base), n_slots=T)
+    assert torch.equal(got, want) and calls == [1]
+    got = k.slot_pipeline(torch.from_numpy(votes), torch.from_numpy(alive), T)
+    assert got.shape == (T, S) and calls == [1, 1]
+
+
+def test_wrapper_refusals():
+    kern = mesh_window.MeshWindowKernel()
+    kw = dict(seed=0, coin_p1=0.5, max_phases=4)
+    votes = torch.zeros((2, 3, 5), dtype=torch.int8)
+    alive = torch.ones((3, 5), dtype=torch.bool)
+    base = torch.zeros(3, dtype=torch.int32)
+    with pytest.raises(ValueError, match="1..64 replicas"):
+        kern(torch.zeros((2, 3, 65), dtype=torch.int8), torch.ones((3, 65), dtype=torch.bool),
+             base, **kw)
+    with pytest.raises(ValueError, match="votes must be int8"):
+        kern(votes.to(torch.int32), alive, base, **kw)
+    with pytest.raises(ValueError, match="votes must be int8"):
+        kern(votes[0], alive, base, **kw)
+    with pytest.raises(ValueError, match="alive must be bool"):
+        kern(votes, alive.to(torch.int8), base, **kw)
+    with pytest.raises(ValueError, match="alive must be bool"):
+        kern(votes, alive[:2], base, **kw)
+    with pytest.raises(ValueError, match="base_slots must be int32"):
+        kern(votes, alive, base.to(torch.int64), **kw)
+    with pytest.raises(ValueError, match="max_phases"):
+        kern(votes, alive, base, seed=0, coin_p1=0.5, max_phases=-1)
+    with pytest.raises(ValueError, match="contiguous"):
+        kern(votes.transpose(0, 1).contiguous().transpose(0, 1), alive, base, **kw)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        kern(votes, alive, base, **kw)
+    assert kern.launches == 0 and kern._fn is None  # nothing was built or launched

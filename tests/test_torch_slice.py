@@ -13,7 +13,8 @@ import torch
 
 import chip_smoke
 from rabia_tpu_torch.core.types import ABSENT, V0, V1
-from rabia_tpu_torch.kernel import fused_window, kv_window
+from rabia_tpu_torch.kernel import fused_window, kv_window, mesh_window
+from rabia_tpu_torch.parallel import MeshPhaseKernel
 
 torch.set_num_threads(1)  # tiny tensors: one thread keeps parallel test workers off each other
 
@@ -75,13 +76,30 @@ def test_kernel_matches_plain_on_card(cuda, S, R):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("S,R,T", [(17, 1, 1), (1000, 3, 16), (4096, 5, 16), (4096, 7, 16), (999, 64, 3)])
+@pytest.mark.parametrize("max_phases", [1, 4])
+def test_mesh_window_matches_plain_on_card(cuda, S, R, T, max_phases):
+    g = torch.Generator(device=cuda).manual_seed(S + R + T)
+    votes, alive, base = chip_smoke.mesh_case(g, S, R, T, cuda)
+    mk = MeshPhaseKernel(S, R, seed=S, device=cuda)
+    want = mk.decide_slots_plain(votes, alive, base, max_phases)
+    before = mesh_window.MESH_WINDOW.launches
+    got = mk.slot_window(votes, alive, base, n_slots=T, max_phases=max_phases)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and mesh_window.MESH_WINDOW.launches == before + 1
+
+
+@pytest.mark.cuda
 def test_slice_on_card(cuda):
     assert chip_smoke.kernel_vs_plain(cuda) == 0
+    assert chip_smoke.mesh_kernel_vs_plain(cuda) == 0
     chip_smoke.protocol_vs_fused(cuda, 256, R, 16)
     before = fused_window.FUSED_WINDOW.launches
     _, _, _, err = chip_smoke.decision_core(cuda, 256, R, 128)
     assert err == 0 and fused_window.FUSED_WINDOW.launches == before + 2
+    before = mesh_window.MESH_WINDOW.launches
     chip_smoke.serving_lane(cuda, 64, R)
+    assert mesh_window.MESH_WINDOW.launches > before
 
 
 @pytest.mark.cuda
