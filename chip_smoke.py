@@ -4,12 +4,14 @@
 
 Phases (each raises on failure; nothing is caught):
 
-1. build the three CUDA kernels from ``rabia_tpu_torch/csrc`` with nvcc
-   (sm_90a), one nvcc per source, started together;
-2. hold the fused-window kernel against its plain PyTorch version, bit for
-   bit, on random votes over all four codes: R in {1,3,4,5,7}, ragged S,
-   odd T, a misaligned view, with and without the phase plane, through the
-   replica-major and the [T,S,R] entries;
+1. build the CUDA sources of ``rabia_tpu_torch/csrc`` with nvcc (sm_90a),
+   one nvcc per source, started together: the fused-window kernels
+   (replica-major and [T,S,R]), the kv-window kernel (with and without
+   the folded decision) and the mesh-window kernel;
+2. hold both fused-window kernels against their plain PyTorch versions,
+   bit for bit, on random votes over all four codes: R in
+   {1,3,4,5,7,8}, S in {17,1000,4096}, odd T, a view that starts one
+   byte into a buffer, with and without the phase plane;
 2b. hold the mesh-window kernel (``slot_window`` / ``slot_pipeline``)
    against the plain loop over ``phase_step``, bit for bit: R in
    {1,3,4,5,7,64}, ragged S, T in {1,16}, max_phases in {1,4,8}, coin_p1
@@ -30,7 +32,12 @@ Phases (each raises on failure; nothing is caught):
    widths of 8 and 16 words and odd ones (3 and 5, 4 and 7), op widths
    below the table's, W in {1, 16}, and wider tables and longer windows
    (P of 130 and 200, W of 40 and 70); every output plane and the
-   untouched input table are compared;
+   untouched input table are compared. Then the same kernel with the
+   window's decision folded in, against the plain composition (mesh
+   window, wave scan, flags): SET (no kind plane), mixed and read-only
+   windows, crash masks with quorum-less and all-dead shards, bases near
+   2^31-1, depth in {0,1,W}, max_phases in {0,1,4}, W in {1,16,40,70},
+   every output plane, the flags and the untouched input table;
 7. the device-resident KV lane at full width: a ``device_store=True``
    engine beside a host-lane engine (``VectorShardedKV`` replicas) over
    4096 shards x 5 replicas, window 16, 64-slot tables (32 B keys, 64 B
@@ -40,9 +47,15 @@ Phases (each raises on failure; nothing is caught):
    heal; every response frame, the slot counters, the decision logs and
    all replica stores are compared with the host engine's.
 
-The launch counts of the three kernels are reset just before phases 4-5
-and 7 (the main path) and read just after. The last lines are a ``{"kernels": ...}`` JSON line
-(phase 8), the card's name and power limit as nvidia-smi reports them,
+The launch counts of the four kernels are reset just before phases 4-5
+and 7 (the main path) and read just after; phase 4 drives both
+fused-window entries (replica-major at full depth, and
+``ClusterKernel.slot_pipeline_fused`` on [T,S,R] votes at full depth and
+at ``__graft_entry__``'s T=8 beside ``slot_pipeline``). After it, phase 7
+checks that one ``decide_apply``, ``lookup_window`` and ``mixed_apply``
+each launch the kv-window kernel once and the mesh-window kernel never,
+and the kernels are timed. The last lines are a ``{"kernels": ...}``
+JSON line, the card's name and power limit as nvidia-smi reports them,
 and ``{"ok": true, "device": {...}}``. Exits non-zero without a GPU.
 
 Phases 3-5 and 7 also run on the CPU at a small size
@@ -95,38 +108,48 @@ def _max_err(a: torch.Tensor, b: torch.Tensor) -> int:
 # -- phase 2 -----------------------------------------------------------------
 
 
-def kernel_vs_plain(device) -> int:
-    """The kernel against the plain closed form at ragged and misaligned
-    shapes; returns the largest absolute difference seen (must be 0)."""
+def kernel_vs_plain(device) -> tuple[int, int]:
+    """Both fused-window kernels against the plain closed forms at ragged
+    and misaligned shapes; returns the largest absolute difference seen
+    by the replica-major and by the [T, S, R] kernel (both must be 0)."""
     gen = torch.Generator(device=device).manual_seed(2)
-    worst = 0
-    for R in (1, 3, 4, 5, 7):
+    worst = worst_tsr = 0
+
+    def shifted(x):  # the same values, starting one byte into a buffer
+        buf = torch.empty(x.numel() + 1, dtype=torch.int8, device=device)
+        out = buf[1:].view(x.shape)
+        out.copy_(x)
+        return out
+
+    for R in (1, 3, 4, 5, 7, 8):
         q = quorum_size(R)
         for S, T in ((17, 33), (1000, 7), (4096, 65)):
             votes = _random_votes((R, T, S), gen, device)
             alive = _alive((R, S), gen, device)
             want_d, want_p = fused_window.closed_form_window_rmajor(votes, alive, q)
-            # misaligned: the same votes starting one byte into a buffer
-            buf = torch.empty(votes.numel() + 1, dtype=torch.int8, device=device)
-            shifted = buf[1:].view(R, T, S)
-            shifted.copy_(votes)
-            for v in (votes, shifted):
+            for v in (votes, shifted(votes)):
                 d, p = fused_window.FUSED_WINDOW(v, alive, q, want_phase=True)
                 d2 = fused_window.FUSED_WINDOW(v, alive, q, want_phase=False)
                 torch.cuda.synchronize(device)
                 worst = max(worst, _max_err(d, want_d), _max_err(p, want_p), _max_err(d2, want_d))
                 _check(torch.equal(d, want_d) and torch.equal(p, want_p) and torch.equal(d2, want_d),
                        f"kernel != plain at R={R} S={S} T={T}")
-            # the [T, S, R] entry (transposed, then the same kernel)
+            # the [T, S, R] kernel on the same votes, read in place
             votes_api = votes.permute(1, 2, 0).contiguous()
             alive_api = alive.t().contiguous()
-            d, p = fused_window.window(votes_api, alive_api, q)
             wd, wp = fused_window.closed_form_window(votes_api, alive_api, q)
-            torch.cuda.synchronize(device)
-            worst = max(worst, _max_err(d, wd), _max_err(p, wp))
-            _check(torch.equal(d, wd) and torch.equal(p, wp), f"[T,S,R] entry differs at R={R} S={S}")
             _check(torch.equal(wd, want_d), "plain layouts disagree")
-    return worst
+            for v in (votes_api, shifted(votes_api)):
+                d, p = fused_window.FUSED_WINDOW_TSR(v, alive_api, q, want_phase=True)
+                d2 = fused_window.FUSED_WINDOW_TSR(v, alive_api, q, want_phase=False)
+                d3, p3 = fused_window.window(v, alive_api, q)
+                torch.cuda.synchronize(device)
+                worst_tsr = max(worst_tsr, _max_err(d, wd), _max_err(p, wp), _max_err(d2, wd),
+                                _max_err(d3, wd), _max_err(p3, wp))
+                _check(torch.equal(d, wd) and torch.equal(p, wp) and torch.equal(d2, wd)
+                       and torch.equal(d3, wd) and torch.equal(p3, wp),
+                       f"[T,S,R] kernel != plain at R={R} S={S} T={T}")
+    return worst, worst_tsr
 
 
 # -- phase 2b ----------------------------------------------------------------
@@ -222,6 +245,26 @@ def decision_core(device, S: int, R: int, T: int, seed: int = 4):
         )
         _check(torch.equal(packed_window.unpack_codes(packed, S), dec),
                "decision core != plain packed window")
+    return k, bufs, alive, worst
+
+
+def decision_core_tsr(device, S: int, R: int, T: int, seed: int = 5):
+    """One window through ``ClusterKernel.slot_pipeline_fused`` on [T, S, R]
+    votes (the [T, S, R] kernel, reading them in place) on each of two
+    buffers, every decision and phase checked against the plain closed
+    form on the device. Returns (kernel, votes buffers, alive, max error)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    k = ClusterKernel(S, R, seed=seed, device=device)
+    bufs = [_random_votes((T, S, R), gen, device) for _ in range(2)]
+    alive = _alive((S, R), gen, device, p_dead=0.2)
+    worst = 0
+    for votes in bufs:
+        dec, ph = k.slot_pipeline_fused(votes, alive, T)
+        want_d, want_p = fused_window.closed_form_window(votes, alive, k.quorum)
+        worst = max(worst, _max_err(dec, want_d), _max_err(ph, want_p))
+        _check(torch.equal(dec, want_d) and torch.equal(ph, want_p),
+               "[T,S,R] decision core != plain closed form")
+        del want_d, want_p
     return k, bufs, alive, worst
 
 
@@ -329,6 +372,60 @@ def kv_kernel_vs_plain(device) -> int:
     return worst
 
 
+def decide_kernel_vs_plain(device) -> int:
+    """The kv-window kernel with the window's decision folded in against
+    the plain composition (mesh window, wave scan, flags), every output
+    plane, the flags and the untouched input table compared; returns the
+    largest absolute difference seen (must be 0)."""
+    gen = torch.Generator(device=device).manual_seed(16)
+    worst, i = 0, 0
+    for S, P, K4, VW4 in ((17, 64, 8, 16), (4096, 64, 8, 16), (33, 130, 3, 5)):
+        for W in (1, 16, 40, 70):
+            for depth in sorted({0, 1, W}):
+                for max_phases in (0, 1, 4):
+                    i += 1
+                    R = (1, 5, 7)[i % 3]
+                    mode = ("set", "mixed", "lookup")[(i // 3) % 3]
+                    kinds = {"set": (1,), "mixed": (0, 1, 2, 3, 4), "lookup": (0, 2)}[mode]
+                    table, ops, _ = random_kv_case(gen, S, P, K4, VW4, W, K4, VW4, device,
+                                                   kinds=kinds)
+                    kind = None if mode == "set" else ops[0]
+                    mk = MeshPhaseKernel(S, R, coin_p1=(0.0, 0.5, 1.0)[i % 3], seed=S + i,
+                                         device=device)
+                    _, alive, base = mesh_case(gen, S, R, 1, device)
+                    if i % 2:  # healthy: every wave can decide V1
+                        alive = torch.ones_like(alive)
+                    else:  # shard 0 has no quorum (mesh_case), shard 1 no replica
+                        alive[1 % S] = False
+                    before = [x.clone() for x in table]
+                    kw = dict(want_table=mode != "lookup", want_reads=mode != "set")
+                    want = kv_window.decide_window_plain(mk, table, kind, *ops[1:], depth, alive,
+                                                         base, max_phases, **kw)
+                    got = kv_window.KV_WINDOW.decide(table, kind, *ops[1:], depth, alive, base,
+                                                     seed=mk.seed, coin_p1=mk.coin_p1,
+                                                     max_phases=max_phases, **kw)
+                    torch.cuda.synchronize(device)
+                    want, got = _flat(want), _flat(got)
+                    _check(len(want) == len(got), "decide window outputs differ in kind")
+                    for a, b in [*zip(before, table), *zip(want, got)]:
+                        worst = max(worst, _max_err(a, b))
+                        _check(torch.equal(a, b),
+                               f"kv_window with the decision != plain at S={S} P={P} W={W} "
+                               f"depth={depth} max_phases={max_phases} R={R} mode={mode}")
+    return worst
+
+
+def _flat(outputs) -> list:
+    """The tensors of a window's outputs (tables and reads unpacked)."""
+    out = []
+    for x in outputs:
+        if isinstance(x, tuple):
+            out.extend(x)
+        elif x is not None:
+            out.append(x)
+    return out
+
+
 def _time_ms(fn, reps: int) -> float:
     fn()  # warm
     start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -381,13 +478,17 @@ def _device_busy(fn, reps: int, kernel: str = "") -> dict:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / reps
     dev_us = kern_us = 0.0
+    kernels = 0
     for e in prof.key_averages():
         if str(getattr(e, "device_type", "")).endswith("CUDA"):
             t = getattr(e, "self_device_time_total", 0)
             dev_us += t
             kern_us += t if kernel and kernel in e.key else 0
+            if not e.key.startswith(("Memcpy", "Memset")):
+                kernels += e.count
     per = lambda us: us / 1e3 / reps if dev_us else None  # noqa: E731
-    return {"wall_ms": wall_ms, "device_ms": per(dev_us), "kernel_ms": per(kern_us)}
+    return {"wall_ms": wall_ms, "device_ms": per(dev_us), "kernel_ms": per(kern_us),
+            "kernels": kernels / reps if dev_us else None}
 
 
 # -- phase 5 -----------------------------------------------------------------
@@ -637,10 +738,11 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
     print(f"card: {smi}")
 
-    # 1. build the three kernels (one nvcc per source, started together)
+    # 1. build the three sources (one nvcc per source, started together)
     t0 = time.perf_counter()
     libs = cuda_build.build(["fused_window", "kv_window", "mesh_window"])
     fused_window.FUSED_WINDOW.load()
+    fused_window.FUSED_WINDOW_TSR.load()
     kv_window.KV_WINDOW.load()
     mesh_window.MESH_WINDOW.load()
     print(f"phase 1 build: {time.perf_counter() - t0:.2f} s "
@@ -650,8 +752,9 @@ def main() -> int:
 
     # 2. kernel vs plain, many shapes
     t0 = time.perf_counter()
-    err2 = kernel_vs_plain(device)
-    print(f"phase 2 kernel vs plain: max_abs_err {err2} ({time.perf_counter() - t0:.2f} s)")
+    err2, err2_tsr = kernel_vs_plain(device)
+    print(f"phase 2 fused_window kernels vs plain: max_abs_err {err2} (replica-major), "
+          f"{err2_tsr} ([T,S,R]) ({time.perf_counter() - t0:.2f} s)")
 
     # 2b. mesh-window kernel vs plain (not counted: before the main path)
     t0 = time.perf_counter()
@@ -670,9 +773,14 @@ def main() -> int:
     t0 = time.perf_counter()
     err6 = kv_kernel_vs_plain(device)
     print(f"phase 6 kv_window kernel vs plain: max_abs_err {err6} ({time.perf_counter() - t0:.2f} s)")
+    t0 = time.perf_counter()
+    err6_fold = decide_kernel_vs_plain(device)
+    print(f"phase 6 kv_window with the decision vs plain: max_abs_err {err6_fold} "
+          f"({time.perf_counter() - t0:.2f} s)")
 
     # ---- the main path: counts reset just before, read just after ----
     fused_window.FUSED_WINDOW.launches = 0
+    fused_window.FUSED_WINDOW_TSR.launches = 0
     kv_window.KV_WINDOW.launches = 0
     mesh_window.MESH_WINDOW.launches = 0
     t0 = time.perf_counter()
@@ -681,15 +789,21 @@ def main() -> int:
         lambda i=0: k.slot_pipeline_fused_rmajor(bufs[i % 2], alive, T_FULL, want_phase=False),
         CHAIN,
     )
+    tk, tbufs, talive, err4_tsr = decision_core_tsr(device, S_FULL, R_FULL, T_FULL)
+    tsr_ms = _time_ms(lambda i=0: tk.slot_pipeline_fused(tbufs[i % 2], talive, T_FULL), CHAIN)
+    # __graft_entry__'s shapes: the scanned protocol and the fused entry agree
+    protocol_vs_fused(device, S_FULL, R_FULL, 8)
     lane = serving_lane(device, S_FULL, R_FULL)
     t7 = time.perf_counter()
     kv_lane, kv_eng = device_kv_lane(device, S_FULL, R_FULL)
     t7 = time.perf_counter() - t7
     launches = fused_window.FUSED_WINDOW.launches
+    tsr_launches = fused_window.FUSED_WINDOW_TSR.launches
     kv_launches = kv_window.KV_WINDOW.launches
     mesh_launches = mesh_window.MESH_WINDOW.launches
     main_s = time.perf_counter() - t0
     _check(launches > 0, "the main path never launched the fused window kernel")
+    _check(tsr_launches > 0, "the main path never launched the [T,S,R] fused window kernel")
     _check(kv_launches > 0, "the main path never launched the kv window kernel")
     _check(mesh_launches > 0, "the main path never launched the mesh window kernel")
     # ---- end of the main path ----
@@ -703,11 +817,19 @@ def main() -> int:
     packed = [packed_window.pack_codes(b) for b in bufs]
     alive_p = packed_window.pack_alive(alive)
     packed_ms = _time_ms(lambda i=0: packed_window.packed_window_rmajor(packed[i % 2], alive_p, q), 4)
-    # the [T, S, R] entry (the port of pallas_window): relayout + same kernel
-    votes_api, alive_api = votes.permute(1, 2, 0).contiguous(), alive.t().contiguous()
-    api_ms = _time_ms(lambda i=0: fused_window.window(votes_api, alive_api, q), 4)
-    api_plain_ms = _time_ms(lambda i=0: fused_window.closed_form_window(votes_api, alive_api, q), 2)
-    del votes_api, packed, bufs
+    # the [T, S, R] kernel beside the path it replaces (a relayout to
+    # replica-major, then the replica-major kernel with phase), in turns
+    talive_rm = talive.t().contiguous()
+    relayout = lambda i=0: fused_window.FUSED_WINDOW(  # noqa: E731
+        tbufs[i % 2].permute(2, 0, 1).contiguous(), talive_rm, q)
+    tsr_call = lambda i=0: fused_window.FUSED_WINDOW_TSR(tbufs[i % 2], talive, q)  # noqa: E731
+    relayout_ms = [_time_ms(relayout, 8)]
+    tsr_turns = [_time_ms(tsr_call, CHAIN), _time_ms(tsr_call, CHAIN)]
+    relayout_ms.append(_time_ms(relayout, 8))
+    tsr_nophase_ms = _time_ms(
+        lambda i=0: fused_window.FUSED_WINDOW_TSR(tbufs[i % 2], talive, q, want_phase=False), CHAIN)
+    api_plain_ms = _time_ms(lambda i=0: fused_window.closed_form_window(tbufs[i % 2], talive, q), 2)
+    del packed, bufs, tbufs
     # one serving-lane window on the device (16 slots, 2 queued per shard)
     mk = MeshPhaseKernel(S_FULL, R_FULL, device=device)
     wvotes = torch.zeros((16, S_FULL, R_FULL), dtype=torch.int8, device=device)
@@ -715,10 +837,15 @@ def main() -> int:
     walive = torch.ones((S_FULL, R_FULL), dtype=torch.bool, device=device)
     wbase = torch.zeros(S_FULL, dtype=torch.int32, device=device)
     window_ms = _time_ms(lambda i=0: mk.slot_window(wvotes, walive, wbase, n_slots=16), 10)
-    # the mesh-window kernel at the lane's shapes (16 slots, 2 voted V1)
+    # the mesh-window kernel at the lane's shapes (16 slots, 2 voted V1),
+    # beside an empty kernel at the same grid: the floor of a launch
     mw_call = lambda i=0: mesh_window.MESH_WINDOW(  # noqa: E731
         wvotes, walive, wbase, seed=mk.seed, coin_p1=mk.coin_p1, max_phases=4)
-    mw_ms = _graph_ms(mw_call, 200)  # device time of the kernel alone
+    empty_call = lambda i=0: mesh_window.MESH_WINDOW.empty(16, S_FULL, device)  # noqa: E731
+    mw_turns = [_graph_ms(mw_call, 200)]  # device time of the kernel alone
+    empty_turns = [_graph_ms(empty_call, 200), _graph_ms(empty_call, 200)]
+    mw_turns.append(_graph_ms(mw_call, 200))
+    mw_ms = min(mw_turns)
     mw_call_ms = _time_ms(mw_call, 50)  # one wrapper call, host launch time included
     mw_plain_ms = _time_ms(lambda i=0: mk.decide_slots_plain(wvotes, walive, wbase, 4), 10)
     mw_err = _max_err(mw_call(), mk.decide_slots_plain(wvotes, walive, wbase, 4))
@@ -731,30 +858,71 @@ def main() -> int:
     mw_ops_ms = mw_ops / INT32_OPS_PER_S * 1e3
 
     # the kv window at the lane's shapes: a full random table (every op
-    # scans all P slots), W=16 mixed ops at the table's widths
+    # scans all P slots), W=16 mixed ops at the table's widths; alone and
+    # with the window's decision folded in, in turns
     gen = torch.Generator(device=device).manual_seed(8)
     K4, VW4, W = 8, 16, 16
     table, ops, _ = random_kv_case(gen, S_FULL, P_FULL, K4, VW4, W, K4, VW4, device, p_used=1.0)
     kv_call = lambda i=0: kv_window.KV_WINDOW(table, *ops, W, want_reads=True)  # noqa: E731
-    kv_ms = _graph_ms(kv_call, 50)  # device time of the kernel alone
+    fold_call = lambda i=0: kv_window.KV_WINDOW.decide(  # noqa: E731
+        table, *ops, W, walive, wbase, seed=mk.seed, coin_p1=mk.coin_p1, max_phases=4,
+        want_reads=True)
+    kv_turns = [_graph_ms(kv_call, 50)]  # device time of the kernel alone
+    fold_turns = [_graph_ms(fold_call, 50), _graph_ms(fold_call, 50)]
+    kv_turns.append(_graph_ms(kv_call, 50))
+    kv_ms, fold_ms = min(kv_turns), min(fold_turns)
     kv_call_ms = _time_ms(kv_call, 20)  # one wrapper call, host launch time included
+    fold_call_ms = _time_ms(fold_call, 20)
     kv_plain_ms = _time_ms(lambda i=0: kv_window.kv_window_plain(table, *ops, W, want_reads=True), 3)
+    fold_plain_ms = _time_ms(lambda i=0: kv_window.decide_window_plain(
+        mk, table, *ops, W, walive, wbase, 4, want_reads=True), 3)
+    fold_err = max(_max_err(a, b) for a, b in zip(
+        _flat(kv_window.decide_window_plain(mk, table, *ops, W, walive, wbase, 4, want_reads=True)),
+        _flat(fold_call())))
     tbl_bytes = sum(x.numel() * x.element_size() for x in table)
     op_bytes = sum(x.numel() * x.element_size() for x in ops)
     read_bytes = W * S_FULL * (1 + 4 + 4 + 4 * VW4) + S_FULL
+    decide_bytes = walive.numel() + 4 * wbase.numel() + 4 * 3  # alive, base, flags
     rate = _card_rate_bytes_per_s(name)
     kv_bound_ms = (2 * tbl_bytes + op_bytes + read_bytes) / rate * 1e3
-    # one whole SET window of the device lane (upload, slot_window, kernel,
-    # flags) on the phase-7 table
+    fold_bound_ms = (2 * tbl_bytes + op_bytes + read_bytes + decide_bytes) / rate * 1e3
+
+    # the device lane's three programs on the phase-7 table: each is one
+    # kv-window launch and no mesh-window launch
     dkv = kv_eng._dev
-    set_ops = dkv.pack_window([
-        build_block(range(S_FULL), [[_set_op(_key(s, j), b"timed")] for s in range(S_FULL)])
-        for j in range(W)
-    ])
     lane_alive = np.ones((S_FULL, R_FULL), bool)
     lane_base = np.zeros(S_FULL, np.int32)
-    lane_call = lambda i=0: dkv.decide_apply(lane_alive, lane_base, W, set_ops, W=W)  # noqa: E731
-    lane_prof = _device_busy(lane_call, 10, kernel="kv_window")
+    shards = range(S_FULL)
+    set_ops = dkv.pack_window([
+        build_block(shards, [[_set_op(_key(s, j), b"timed")] for s in shards]) for j in range(W)
+    ])
+    get_ops = dkv.pack_get_window([
+        build_block(shards, [[_key_op(2, _key(s, j))] for s in shards]) for j in range(W)
+    ])
+    mixed_kind, mixed_ops = dkv.pack_mixed_window([
+        build_block(shards, [[_key_op((2, 3, 4)[(j + s) % 3], _key(s, j)) if (j + s) % 4
+                              else _set_op(_key(s, j), b"m")] for s in shards])
+        for j in range(W)
+    ])
+    get_waves = np.nonzero((mixed_kind >= 2).any(axis=1))[0].astype(np.int32)
+    programs = {
+        "decide_apply": lambda i=0: dkv.decide_apply(lane_alive, lane_base, W, set_ops, W=W),
+        "lookup_window": lambda i=0: dkv.lookup_window(lane_alive, lane_base, W, get_ops, W=W),
+        "mixed_apply": lambda i=0: dkv.mixed_apply(lane_alive, lane_base, W, mixed_kind,
+                                                   get_waves, mixed_ops, W=W),
+    }
+    for what, call in programs.items():
+        kv0, mw0 = kv_window.KV_WINDOW.launches, mesh_window.MESH_WINDOW.launches
+        out = call()
+        torch.cuda.synchronize(device)
+        _check(kv_window.KV_WINDOW.launches == kv0 + 1 and mesh_window.MESH_WINDOW.launches == mw0,
+               f"{what} did not launch the kv-window kernel exactly once and the mesh window never")
+        flags = out[0] if what == "lookup_window" else out[1]
+        _check(bool((flags == 1).all()) if what == "lookup_window" else flags.tolist() == [1, 0, 0],
+               f"{what}: a clean window reported flags {flags.tolist()}")
+    # one whole SET window of the device lane (one upload, one launch) on
+    # the phase-7 table, under the profiler
+    lane_prof = _device_busy(programs["decide_apply"], 10, kernel="kv_window")
     slot_prof = _device_busy(lambda i=0: mk.slot_window(wvotes, walive, wbase, n_slots=16), 10)
 
     R, T, S = votes.shape
@@ -764,40 +932,58 @@ def main() -> int:
     print(f"phase 4 decision core S={S} R={R} T={T}: kernel {kernel_ms:.4f} ms/window "
           f"({T * S / kernel_ms * 1e3:.4g} decisions/s, {nbytes / kernel_ms / 1e6:.1f} GB/s, "
           f"{bound_ms / kernel_ms:.1%} of the {bound_ms:.4f} ms bytes bound), "
-          f"with phase {phase_ms:.4f} ms (bound {bound_phase_ms:.4f} ms), "
+          f"with phase {phase_ms:.4f} ms ({bound_phase_ms / phase_ms:.1%} of the "
+          f"{bound_phase_ms:.4f} ms bound), "
           f"plain closed form {plain_ms:.3f} ms, plain packed window {packed_ms:.3f} ms, "
           f"max_abs_err {err4}")
-    print(f"phase 4 [T,S,R] entry (relayout + kernel, with phase) {api_ms:.4f} ms, "
-          f"plain closed_form_window {api_plain_ms:.3f} ms")
+    tsr_bytes = nbytes + 4 * T * S
+    tsr_best = min(tsr_turns)
+    print(f"phase 4 [T,S,R] entry (slot_pipeline_fused, with phase) S={S} R={R} T={T}: "
+          f"{tsr_ms:.4f} ms/window through the entry; kernel "
+          f"{' / '.join(f'{x:.4f}' for x in tsr_turns)} ms ({tsr_bytes / tsr_best / 1e6:.1f} GB/s, "
+          f"{bound_phase_ms / tsr_best:.1%} of the {bound_phase_ms:.4f} ms bytes bound; the "
+          f"replica-major kernel with phase: {bound_phase_ms / phase_ms:.1%}), "
+          f"without phase {tsr_nophase_ms:.4f} ms ({bound_ms / tsr_nophase_ms:.1%} of "
+          f"{bound_ms:.4f} ms); the relayout path it replaces "
+          f"{' / '.join(f'{x:.4f}' for x in relayout_ms)} ms (in turns: relayout, kernel, kernel, "
+          f"relayout); plain closed_form_window {api_plain_ms:.3f} ms; max_abs_err {err4_tsr}")
     device_share = window_ms * lane["first_flush_cycles"] / (lane["first_flush_s"] * 1e3)
     print(f"phase 5 serving lane S={S_FULL} R={R_FULL} window=16: {json.dumps(lane)}; "
           f"slot_window on the device {window_ms:.4f} ms, {device_share:.2%} of the first submit+flush")
     print(f"phase 7 device KV lane S={S_FULL} R={R_FULL} window=16 P={P_FULL}: "
           f"{json.dumps(kv_lane)} ({t7:.2f} s)")
-    print(f"phase 7 kv_window S={S_FULL} P={P_FULL} W={W} mixed, full table: {kv_ms:.4f} ms on the "
-          f"device (CUDA graph replay), bytes bound {kv_bound_ms:.4f} ms "
-          f"({kv_bound_ms / kv_ms:.1%} of it); one wrapper call {kv_call_ms:.4f} ms; "
-          f"plain {kv_plain_ms:.3f} ms")
+    print(f"phase 7 kv_window S={S_FULL} P={P_FULL} W={W} mixed, full table, device time (CUDA "
+          f"graph replay), in turns (alone, fold, fold, alone): alone "
+          f"{kv_turns[0]:.4f} / {kv_turns[1]:.4f} ms, with the decision folded in "
+          f"{fold_turns[0]:.4f} / {fold_turns[1]:.4f} ms ({fold_ms / kv_ms - 1:+.1%}); "
+          f"bytes bound {kv_bound_ms:.4f} ms ({kv_bound_ms / kv_ms:.1%} alone, "
+          f"{fold_bound_ms / fold_ms:.1%} with the fold); one wrapper call {kv_call_ms:.4f} ms "
+          f"alone, {fold_call_ms:.4f} ms with the fold; plain {kv_plain_ms:.3f} ms alone, "
+          f"{fold_plain_ms:.3f} ms with the plain decision")
 
     def _fmt(p):
         dev = "device not measured" if p["device_ms"] is None else (
-            f"device {p['device_ms']:.4f} ms ({p['device_ms'] / p['wall_ms']:.1%} busy)")
+            f"device {p['device_ms']:.4f} ms ({p['device_ms'] / p['wall_ms']:.1%} busy), "
+            f"{p['kernels']:g} kernels a call")
         return f"wall {p['wall_ms']:.4f} ms, {dev}"
 
-    print(f"phase 7 one device-lane SET window (upload, slot_window, kv_window, flags) under "
-          f"the profiler: {_fmt(lane_prof)}"
+    print(f"phase 7 decide_apply, lookup_window, mixed_apply: one kv-window launch and no "
+          f"mesh-window launch each")
+    print(f"phase 7 one device-lane SET window (one upload, one kv_window launch with the "
+          f"decision) under the profiler: {_fmt(lane_prof)}"
           + ("" if lane_prof["kernel_ms"] is None else f", kv_window {lane_prof['kernel_ms']:.4f} ms"))
-    print(f"phase 7 slot_window alone (S={S_FULL} R={R_FULL} 16 slots) under the profiler: "
-          f"{_fmt(slot_prof)}; its share of the lane window: "
-          f"{slot_prof['wall_ms'] / lane_prof['wall_ms']:.1%} of the wall"
-          + ("" if None in (slot_prof["device_ms"], lane_prof["device_ms"]) else
-             f", {slot_prof['device_ms'] / lane_prof['device_ms']:.1%} of the device time"))
-    print(f"phase 7 mesh_window S={S_FULL} R={R_FULL} T=16: {mw_ms:.4f} ms on the device (CUDA "
-          f"graph replay), one wrapper call {mw_call_ms:.4f} ms, plain {mw_plain_ms:.3f} ms; "
+    print(f"phase 7 slot_window alone (S={S_FULL} R={R_FULL} 16 slots; the queue and host block "
+          f"lanes) under the profiler: {_fmt(slot_prof)}")
+    print(f"phase 7 mesh_window S={S_FULL} R={R_FULL} T=16: device time (CUDA graph replay), in "
+          f"turns (window, empty, empty, window): {mw_turns[0]:.4f} / {empty_turns[0]:.4f} / "
+          f"{empty_turns[1]:.4f} / {mw_turns[1]:.4f} ms; the window {mw_ms - min(empty_turns):+.4f} "
+          f"ms over an empty kernel at its grid; one wrapper call {mw_call_ms:.4f} ms, "
+          f"plain {mw_plain_ms:.3f} ms; "
           f"bound {max(mw_bytes_ms, mw_ops_ms):.5f} ms (bytes {mw_bytes} -> {mw_bytes_ms:.5f} ms, "
           f"int ops {mw_ops} -> {mw_ops_ms:.5f} ms; {mw_phases} phases, {mw_coins} coins)")
-    print(f"main path: {launches} fused-window launches, {kv_launches} kv-window launches, "
-          f"{mesh_launches} mesh-window launches, {main_s:.2f} s")
+    print(f"main path: {launches} fused-window launches, {tsr_launches} [T,S,R] fused-window "
+          f"launches, {kv_launches} kv-window launches, {mesh_launches} mesh-window launches, "
+          f"{main_s:.2f} s")
 
     kernels = [{
         "name": "fused_window",
@@ -812,15 +998,27 @@ def main() -> int:
         "bound_by": "bytes",
         "library_ms": None,  # no single PyTorch call computes the quorum tally
     }, {
+        "name": "fused_window_tsr",
+        "route": "cuda",
+        "source": "rabia_tpu_torch/csrc/fused_window.cu",
+        "replaces": "rabia_tpu/kernel/fused_window.py:213",
+        "launches": tsr_launches,
+        "max_abs_err": max(err2_tsr, err4_tsr),
+        "ms": tsr_best,
+        "plain_ms": api_plain_ms,
+        "bound_ms": bound_phase_ms,
+        "bound_by": "bytes",
+        "library_ms": None,  # no single PyTorch call computes the quorum tally
+    }, {
         "name": "kv_window",
         "route": "cuda",
         "source": "rabia_tpu_torch/csrc/kv_window.cu",
         "replaces": "rabia_tpu/apps/device_kv.py:1218",
         "launches": kv_launches,
-        "max_abs_err": err6,
-        "ms": kv_ms,
-        "plain_ms": kv_plain_ms,
-        "bound_ms": kv_bound_ms,
+        "max_abs_err": max(err6, err6_fold, fold_err),
+        "ms": fold_ms,  # with the decision folded in, as the device lane launches it
+        "plain_ms": fold_plain_ms,
+        "bound_ms": fold_bound_ms,
         "bound_by": "bytes",
         "library_ms": None,  # no single PyTorch call computes an associative match-and-update
     }, {

@@ -2,10 +2,12 @@
 
 The port of the reference package's ``rabia_tpu/apps/device_kv.py``
 (row-packed windows). The table of every shard lives on the device, and
-one window is one consensus ``slot_window`` followed by one wave scan
-that applies every decided op (``kernel/kv_window.py``: the CUDA kernel
-``csrc/kv_window.cu`` for a CUDA table, its plain PyTorch version for a
-CPU table). Per window only a 12-byte flag vector, and for reads the
+one window decides its slots (the consensus ``slot_window``) and then
+scans its waves, applying every decided op (``kernel/kv_window.py``
+``decide_window``: one launch of the CUDA kernel ``csrc/kv_window.cu``
+for a CUDA table, which folds the decision in; the plain PyTorch
+composition for a CPU table). A window's host arrays go to the device
+as one copy. Per window only a 12-byte flag vector, and for reads the
 found bits and versions, need to come back to the host: SET versions
 are derived on the host from a mirror of the shard counters.
 
@@ -41,10 +43,9 @@ import torch
 
 from rabia_tpu_torch.apps.kvstore import _result_bin
 from rabia_tpu_torch.apps.vector_kv import _RESP_DT, _USED, VectorKVStore
-from rabia_tpu_torch.core.device import to_device
-from rabia_tpu_torch.core.types import V1
+from rabia_tpu_torch.core.device import to_device, to_device_all
 from rabia_tpu_torch.kernel import kv_window
-from rabia_tpu_torch.kernel.kv_window import KIND_GET, KIND_SET, KVTable
+from rabia_tpu_torch.kernel.kv_window import KIND_GET, VERSION_WRAP, KVTable
 
 __all__ = [
     "DeviceKVTable",
@@ -55,7 +56,6 @@ __all__ = [
 ]
 
 _SET_HDR = 3  # binary op: u8 opcode + u16 klen + key + value
-VERSION_WRAP = 2**31 - 2  # a shard counter this high demotes (i32 table)
 
 
 def _bucket(n: int, lo: int = 4) -> int:
@@ -350,38 +350,27 @@ class DeviceKVTable:
 
     # -- the programs ----------------------------------------------------------
 
-    def _all_v1(self, alive, base, depth: int, W: int, max_phases: int) -> torch.Tensor:
-        """Decide the window's slots (every live replica proposes V1 for
-        the ``depth`` waves that carry ops) and reduce to one bool: did
-        every op's slot decide V1?"""
-        k = self.kernel
-        votes = torch.zeros((W, self.S, k.R), dtype=torch.int8, device=self.device)
-        votes[:depth] = V1
-        decided = k.slot_window(
-            votes, to_device(alive, self.device), to_device(base, self.device),
-            n_slots=W, max_phases=max_phases,
-        )
-        return (decided[:depth] == V1).all()
-
-    def _flags(self, all_v1, overflow, new: KVTable) -> torch.Tensor:
-        """i32[3]: ``[all_v1, overflow, version near the i32 wrap]``."""
-        return torch.stack([
-            all_v1, overflow.any(), (new.sver >= VERSION_WRAP).any()
-        ]).to(torch.int32)
-
-    def _op_planes(self, klen, vlen, kwin, vwin, W: int):
-        """Upload one window's op planes, padded with empty waves to W."""
+    def _window(self, alive, base, depth: int, kind: Optional[np.ndarray], klen, vlen, kwin,
+                vwin, W: int, max_phases: int, state: Optional[KVTable], *,
+                want_table: bool = True, want_reads: bool = False):
+        """Upload one window's host arrays (op planes padded with empty
+        waves to W) in one copy, then decide and apply it
+        (:func:`kv_window.decide_window`; ``kind`` None: every op is a
+        SET). Returns ``(new table or None, overflow, reads, flags)``."""
         def pad(a):
             if a.shape[0] == W:
                 return a
             return np.concatenate([a, np.zeros((W - a.shape[0],) + a.shape[1:], a.dtype)])
 
-        dev = self.device
-        return (
-            to_device(pad(klen), dev),
-            to_device(pad(vlen), dev),
-            to_device(pad(kwin).view(np.int32), dev),
-            to_device(pad(vwin).view(np.int32), dev),
+        host = [np.asarray(alive, bool), np.asarray(base, np.int32), pad(klen), pad(vlen),
+                pad(kwin).view(np.int32), pad(vwin).view(np.int32)]
+        if kind is not None:
+            host.append(pad(kind))
+        dev = to_device_all(host, self.device)
+        return kv_window.decide_window(
+            self.kernel, self.state if state is None else state,
+            dev[6] if kind is not None else None, *dev[2:6], depth, dev[0], dev[1], max_phases,
+            want_table=want_table, want_reads=want_reads,
         )
 
     def decide_apply(self, alive, base, depth: int, ops: DeviceWindowOps, W: int,
@@ -391,12 +380,8 @@ class DeviceKVTable:
         ver_overflow]``. The caller adopts ``new_state`` only when the
         flags are clean; the input state is never written, so a dirty
         window rolls back by keeping it."""
-        state = self.state if state is None else state
-        all_v1 = self._all_v1(alive, base, depth, W, max_phases)
-        klen, vlen, kwin, vwin = self._op_planes(*ops, W)
-        kind = torch.full((W, self.S), KIND_SET, dtype=torch.int8, device=self.device)
-        new, overflow, _ = kv_window.window(state, kind, klen, vlen, kwin, vwin, depth)
-        return new, self._flags(all_v1, overflow, new)
+        new, _, _, flags = self._window(alive, base, depth, None, *ops, W, max_phases, state)
+        return new, flags
 
     def lookup_window(self, alive, base, depth: int, ops, W: int,
                       max_phases: int = 4, state: Optional[KVTable] = None):
@@ -404,16 +389,14 @@ class DeviceKVTable:
         current table), read-only. ``ops`` is ``(klen i16[W,S], kwin
         u32[W,S,Ku4])``. Returns device tensors ``(all_v1 i32, found[W,S],
         ver[W,S], vlen[W,S], val_words[W,S,VW4])``."""
-        state = self.state if state is None else state
-        all_v1 = self._all_v1(alive, base, depth, W, max_phases)
-        klen_np, kwin_np = ops
-        vlen_np = np.zeros_like(klen_np)
-        vwin_np = np.zeros(klen_np.shape + (1,), np.uint32)
-        klen, vlen, kwin, vwin = self._op_planes(klen_np, vlen_np, kwin_np, vwin_np, W)
-        kind = torch.where(klen > 0, KIND_GET, 0).to(torch.int8)
-        _, _, reads = kv_window.window(state, kind, klen, vlen, kwin, vwin, depth,
-                                       want_table=False, want_reads=True)
-        return (all_v1.to(torch.int32), *reads)
+        klen, kwin = ops
+        kind = np.where(klen > 0, KIND_GET, 0).astype(np.int8)
+        vwin = np.zeros(klen.shape + (1,), np.uint32)
+        _, _, reads, flags = self._window(
+            alive, base, depth, kind, klen, np.zeros_like(klen), kwin, vwin, W, max_phases, state,
+            want_table=False, want_reads=True,
+        )
+        return (flags[0], *reads)
 
     def mixed_apply(self, alive, base, depth: int, kind: np.ndarray, get_waves: np.ndarray,
                     ops: DeviceWindowOps, W: int, max_phases: int = 4,
@@ -423,14 +406,8 @@ class DeviceKVTable:
         ``meta`` i32[2, Gp, S] (``[0]`` = version, ``[1]`` =
         ``(vlen << 1) | found``) and ``gval`` i32[Gp, S, VW4], gathered to
         the ``get_waves`` rows padded to a power of two Gp."""
-        state = self.state if state is None else state
-        all_v1 = self._all_v1(alive, base, depth, W, max_phases)
-        klen, vlen, kwin, vwin = self._op_planes(*ops, W)
-        kind_p = np.zeros((W, self.S), np.int8)
-        kind_p[: kind.shape[0]] = kind
-        new, overflow, reads = kv_window.window(
-            state, to_device(kind_p, self.device), klen, vlen, kwin, vwin, depth,
-            want_reads=True,
+        new, _, reads, flags = self._window(
+            alive, base, depth, kind, *ops, W, max_phases, state, want_reads=True,
         )
         Gp = 1
         while Gp < max(1, len(get_waves)):
@@ -442,7 +419,7 @@ class DeviceKVTable:
             reads.ver.index_select(0, g),
             (reads.vlen.index_select(0, g) << 1) | reads.found.index_select(0, g).to(torch.int32),
         ])
-        return new, self._flags(all_v1, overflow, new), meta, reads.val.index_select(0, g)
+        return new, flags, meta, reads.val.index_select(0, g)
 
     def adopt(self, new_state: KVTable) -> None:
         self.state = new_state

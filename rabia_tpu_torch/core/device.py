@@ -20,6 +20,38 @@ def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
     return t.clone()
 
 
+_TORCH_DTYPES = {
+    np.dtype(np.bool_): torch.bool,
+    np.dtype(np.int8): torch.int8,
+    np.dtype(np.uint8): torch.uint8,
+    np.dtype(np.int16): torch.int16,
+    np.dtype(np.int32): torch.int32,
+    np.dtype(np.int64): torch.int64,
+}
+
+
+def to_device_all(arrays, device: torch.device) -> list[torch.Tensor]:
+    """Host arrays on ``device`` as one copy: their bytes are packed into
+    one buffer (each at a 16-byte boundary; pinned memory for a card),
+    which goes over in one transfer that does not block the host, and
+    each array comes back as a view of the device buffer."""
+    arrays = [np.ascontiguousarray(a) for a in arrays]
+    offsets, n = [], 0
+    for a in arrays:
+        offsets.append(n)
+        n += (a.nbytes + 15) // 16 * 16
+    on_card = device.type == "cuda"
+    host = torch.empty(max(n, 16), dtype=torch.uint8, pin_memory=on_card)
+    hv = host.numpy()
+    for a, o in zip(arrays, offsets):
+        hv[o : o + a.nbytes] = a.reshape(-1).view(np.uint8)
+    buf = host.to(device, non_blocking=True) if on_card else host
+    return [
+        buf[o : o + a.nbytes].view(_TORCH_DTYPES[a.dtype]).view(a.shape)
+        for a, o in zip(arrays, offsets)
+    ]
+
+
 class HostFetch:
     """Device tensors copied to the host without blocking the caller. On
     a card the copies go into pinned buffers behind the work already

@@ -1,7 +1,9 @@
-// Fault-free slot window as one CUDA kernel for Hopper (sm_90a).
+// Fault-free slot window as CUDA kernels for Hopper (sm_90a), one for
+// each vote layout.
 //
-// Replaces the TPU kernel `pallas_window_rmajor` (and, through a
-// transpose in the wrapper, `pallas_window`) of
+// Replaces the TPU kernels `pallas_window_rmajor` (replica-major votes,
+// fused_window_kernel below) and `pallas_window` ([T, S, R] votes,
+// fused_window_tsr_kernel at the bottom) of
 // rabia_tpu/kernel/fused_window.py: the closed-form quorum tally that the
 // scanned weak-MVC pipeline collapses to under full delivery.
 //
@@ -22,6 +24,8 @@
 // and T work.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <atomic>
 
 #include "fused_window.cuh"
 
@@ -110,4 +114,208 @@ extern "C" int rw_fused_window(const void* votes, const void* alive, void* dec, 
         static_cast<int8_t*>(dec), static_cast<int32_t*>(ph), R, T, S,
         static_cast<uint32_t>(quorum));
     return static_cast<int>(cudaGetLastError());
+}
+
+// ---- the [T, S, R] layout ----
+//
+// Replaces `pallas_window` (rabia_tpu/kernel/fused_window.py), which on
+// the TPU relayouts the votes to replica-major (R sits on the 128-lane
+// axis there) and runs the replica-major kernel. Hopper needs no
+// relayout: the 16 shards x R replicas of one slot row's chunk are 16*R
+// contiguous bytes, R 16-byte vectors whenever S is a multiple of 16.
+//
+// Bound: bytes. R*T*S + R*S bytes in, T*S decision bytes out, plus
+// 4*T*S phase bytes when asked for: at R=5, S=4096, T=32768 with phase
+// 1.342 GB, 0.40 ms at the H100 SXM's 3.35 TB/s. The integer work is
+// about three byte permutes per transposed word on top of the
+// replica-major tally, below the bytes time.
+//
+// Design: one thread per chunk of 16 shards, walking slot rows with a
+// stride. It transposes its chunk's alive row once (fused_window.cuh),
+// then for each row transposes its R vote vectors word by word in
+// registers straight into the replica-major tally. A warp's 32 chunks
+// are 32*16*R contiguous bytes, and a warp whose chunks are whole moves
+// them through shared memory: R load instructions of 512 contiguous
+// bytes each, then every lane reads its own R vectors back; its phases
+// (4 vectors a lane) go out the same way, through a swizzled buffer, as
+// 4 stores of 512 contiguous bytes. (Per-lane vectors 16*R and 64 bytes
+// apart fill half a sector an instruction, and measured slower: PERF.md.)
+// Decisions leave as one 16-byte vector a lane. A chunk cut by the end of
+// a row, or not 16-byte aligned, loads and stores bytewise: the same
+// math, so any S and T and a misaligned view work.
+
+namespace {
+
+// 4*R words of the n*R bytes at p (pad past them): R vector loads where
+// the chunk is whole and aligned.
+template <int R>
+__device__ __forceinline__ void load_chunk(const uint8_t* p, int n, uint32_t* w, uint8_t pad) {
+    if (n == rw::LANES && aligned16(p)) {
+        const uint4* p4 = reinterpret_cast<const uint4*>(p);
+#pragma unroll
+        for (int j = 0; j < R; ++j) {
+            const uint4 x = __ldg(p4 + j);
+            w[4 * j] = x.x; w[4 * j + 1] = x.y; w[4 * j + 2] = x.z; w[4 * j + 3] = x.w;
+        }
+    } else {
+        rw::load_bytes(p, n * R, w, 4 * R, pad);
+    }
+}
+
+// The warp's 32*R vote vectors at pw (16-byte aligned), lane l loading
+// vectors l, l + 32, ..., into `buf`; then each lane takes its own R.
+template <int R>
+__device__ __forceinline__ void load_warp_row(const uint4* pw, uint4* buf, int lane, uint32_t* w) {
+#pragma unroll
+    for (int j = 0; j < R; ++j) buf[32 * j + lane] = __ldg(pw + 32 * j + lane);
+    __syncwarp();
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+        const uint4 x = buf[R * lane + j];
+        w[4 * j] = x.x; w[4 * j + 1] = x.y; w[4 * j + 2] = x.z; w[4 * j + 3] = x.w;
+    }
+    __syncwarp();
+}
+
+__device__ __forceinline__ int4 phase_vec(uint32_t d) {
+    return make_int4(rw::phase_of(d, 0), rw::phase_of(d, 1), rw::phase_of(d, 2),
+                     rw::phase_of(d, 3));
+}
+
+// The warp's 32*16 phases at pw (16-byte aligned): lane l's vector k
+// goes to buf[4l + (k ^ swz(l))], so each quarter warp's stores and reads
+// hit eight distinct 16-byte bank groups; then store k of lane l writes
+// vector 32k + l.
+__device__ __forceinline__ int swz(int l) { return (l >> 1) & 3; }
+
+__device__ __forceinline__ void store_warp_phases(int4* pw, int4* buf, int lane, const uint32_t d[4]) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) buf[4 * lane + (k ^ swz(lane))] = phase_vec(d[k]);
+    __syncwarp();
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+        const int g = 32 * k + lane, src = g >> 2;
+        pw[g] = buf[4 * src + ((g & 3) ^ swz(src))];
+    }
+    __syncwarp();
+}
+
+template <int R>
+__global__ void __launch_bounds__(256)
+fused_window_tsr_kernel(const int8_t* __restrict__ votes, const uint8_t* __restrict__ alive,
+                        int8_t* __restrict__ dec, int32_t* __restrict__ ph,
+                        int64_t T, int64_t S, uint32_t q) {
+    // a warp's vote vectors of one row, or its phase vectors
+    constexpr int BUF = 32 * R > 128 ? 32 * R : 128;
+    __shared__ uint4 bufs[256 / 32 * BUF];
+    const int64_t chunks = (S + rw::LANES - 1) / rw::LANES;
+    const int64_t c = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+    if (c >= chunks) return;
+    const int lane = threadIdx.x & 31;
+    uint4* buf = bufs + ((threadIdx.y * blockDim.x + threadIdx.x) >> 5) * BUF;
+    const bool warp_whole = (c - lane + 32) * rw::LANES <= S;  // uniform over the warp
+    const int64_t s0 = c * rw::LANES;
+    const int n = static_cast<int>(S - s0 < rw::LANES ? S - s0 : rw::LANES);
+    uint32_t a[4 * R], at[4][R];
+    load_chunk<R>(alive + s0 * R, n, a, 0);
+    rw::transpose_alive<R>(a, at);
+    const int64_t stride = static_cast<int64_t>(gridDim.y) * blockDim.y;
+    for (int64_t t = static_cast<int64_t>(blockIdx.y) * blockDim.y + threadIdx.y; t < T;
+         t += stride) {
+        const int64_t off = t * S + s0, warp_off = off - lane * rw::LANES;
+        uint32_t v[4 * R], d[4];
+        const int8_t* pv = votes + warp_off * R;
+        if (warp_whole && aligned16(pv)) {
+            load_warp_row<R>(reinterpret_cast<const uint4*>(pv), buf, lane, v);
+        } else {
+            load_chunk<R>(reinterpret_cast<const uint8_t*>(votes + off * R), n, v, rw::CODE_ABSENT);
+        }
+        rw::decide_rows<R>(v, at, q, d);
+
+        int8_t* dp = dec + off;
+        if (n == rw::LANES && aligned16(dp)) {
+            *reinterpret_cast<uint4*>(dp) = make_uint4(d[0], d[1], d[2], d[3]);
+        } else {
+            rw::store_dec_lanes(dp, n, d);
+        }
+        if (ph == nullptr) continue;
+        int32_t* pp = ph + off;
+        if (warp_whole && aligned16(ph + warp_off)) {
+            store_warp_phases(reinterpret_cast<int4*>(ph + warp_off), reinterpret_cast<int4*>(buf),
+                              lane, d);
+        } else if (n == rw::LANES && aligned16(pp)) {
+#pragma unroll
+            for (int k = 0; k < 4; ++k) reinterpret_cast<int4*>(pp)[k] = phase_vec(d[k]);
+        } else {
+            rw::store_phase_lanes(pp, n, d);
+        }
+    }
+}
+
+// The card's SM count, read once.
+int sm_count() {
+    static std::atomic<int> sms{0};
+    int v = sms.load();
+    if (v == 0) {
+        int dev = 0;
+        if (cudaGetDevice(&dev) != cudaSuccess ||
+            cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) {
+            v = 0;
+        }
+        sms.store(v);
+    }
+    return v;
+}
+
+template <int R>
+int launch_tsr(const int8_t* votes, const uint8_t* alive, int8_t* dec, int32_t* ph,
+               int64_t T, int64_t S, uint32_t q, cudaStream_t stream) {
+    // x: chunks of a row (a warp's chunks neighbour), y: rows. About 16
+    // blocks an SM walk the rows, each thread an equal share, so a
+    // thread's transposed alive row serves many rows.
+    const int64_t chunks = (S + rw::LANES - 1) / rw::LANES;
+    const int bx = static_cast<int>(chunks >= 256 ? 256 : (chunks + 31) / 32 * 32);
+    const int by = 256 / bx;
+    const int64_t gx = (chunks + bx - 1) / bx;
+    const int sms = sm_count();
+    if (sms == 0) return static_cast<int>(cudaGetLastError());
+    const int64_t rows_y = (T + by - 1) / by;
+    const int64_t slots_y = (16LL * sms + gx - 1) / gx;  // blocks along y that fill the card
+    const int64_t per = (rows_y + slots_y - 1) / slots_y;
+    int64_t gy = (rows_y + per - 1) / per;
+    if (gy > 65535) gy = 65535;  // the stride loop covers the rest
+    if (gx > 0x7FFFFFFF) return static_cast<int>(cudaErrorInvalidValue);
+    fused_window_tsr_kernel<R><<<dim3(static_cast<unsigned>(gx), static_cast<unsigned>(gy)),
+                                 dim3(bx, by), 0, stream>>>(votes, alive, dec, ph, T, S, q);
+    return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// votes: int8[T, S, R], alive: uint8[S, R] holding 0/1, dec: int8[T, S],
+// ph: int32[T, S] or null. All contiguous; votes may start at any byte.
+// 1 <= R <= 8. Launches on `stream` and returns cudaGetLastError() (0 on
+// success); does not synchronise.
+extern "C" int rw_fused_window_tsr(const void* votes, const void* alive, void* dec, void* ph,
+                                   int R, long long T, long long S, int quorum, void* stream) {
+    if (R < 1 || R > rw::MAX_R || quorum < 1 || quorum > rw::MAX_QUORUM || T < 0 || S < 0) {
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+    if (T == 0 || S == 0) return 0;
+    const auto* v = static_cast<const int8_t*>(votes);
+    const auto* a = static_cast<const uint8_t*>(alive);
+    auto* d = static_cast<int8_t*>(dec);
+    auto* p = static_cast<int32_t*>(ph);
+    const auto q = static_cast<uint32_t>(quorum);
+    const auto st = static_cast<cudaStream_t>(stream);
+    switch (R) {
+        case 1: return launch_tsr<1>(v, a, d, p, T, S, q, st);
+        case 2: return launch_tsr<2>(v, a, d, p, T, S, q, st);
+        case 3: return launch_tsr<3>(v, a, d, p, T, S, q, st);
+        case 4: return launch_tsr<4>(v, a, d, p, T, S, q, st);
+        case 5: return launch_tsr<5>(v, a, d, p, T, S, q, st);
+        case 6: return launch_tsr<6>(v, a, d, p, T, S, q, st);
+        case 7: return launch_tsr<7>(v, a, d, p, T, S, q, st);
+        default: return launch_tsr<8>(v, a, d, p, T, S, q, st);
+    }
 }

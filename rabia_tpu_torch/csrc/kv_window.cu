@@ -53,12 +53,32 @@
 // PERF.md), the lane's W=16 mixed window runs at about half its bytes
 // bound: a warp's copies and its waves' dependent chain overlap only
 // with other warps'.
+//
+// Decide and apply in one launch (kvw_decide_window). The reference's
+// device programs also decide the window's slots first, with
+// MeshPhaseKernel.slot_window on votes that are V1 from every replica
+// for the waves that carry ops, and reduce to flags i32[3] = [all waves
+// decided V1, any overflow, any version at the wrap]. Here that is part
+// of the same kernel: the shard's alive row and base load as its copies
+// are issued, and while the copies are in flight lane i of the shard's
+// warp decides wave t0 + i with the header math of mesh_window.cuh
+// (mw::decide_v1_wave: row_masks, coin_prefix, slot_of, decide,
+// unchanged), from the alive row and a row of V1 votes in shared memory
+// (no vote tensor exists); one ballot reduces the chunk. Each warp ORs
+// its shard's flag bits (kv_window.cuh) into a scratch word; the last
+// block to finish, counted on a scratch counter after a fence, writes
+// the three flags and clears both words, so the scratch is zero between
+// launches (and across CUDA-graph replays). The fold costs about 4%
+// of the window's device time (PERF.md): a few registers, and a fence
+// and an atomic a block, so its launch takes the largest block that
+// keeps the most warps resident.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <mutex>
 
 #include "kv_window.cuh"
+#include "mesh_window.cuh"
 
 namespace {
 
@@ -85,7 +105,7 @@ struct OutTable {
 };
 
 struct Ops {
-    const int8_t* kind;
+    const int8_t* kind;  // null: every op is a SET
     const int16_t* klen;
     const int16_t* vlen;
     const int32_t* kw;
@@ -106,13 +126,25 @@ struct Dims {
     int K4p, VW4p;  // key and value rows in shared memory: whole 16-byte pieces
     int MW;         // 64-bit words of a slot bitmask
     int wc;         // waves staged at once (<= 32)
+    int R;          // replicas of the folded decision; 0 without one
+};
+
+// The window's decision, folded into the launch (kvw_decide_window).
+struct Decide {
+    const uint8_t* alive;  // u8[S, R], 0/1
+    const int32_t* base;   // i32[S]: wave t of shard s is slot base[s] + t
+    int quorum, f1, max_phases;
+    uint32_t seed, threshold;
+    int32_t* flags;      // i32[3] out
+    uint32_t* scratch;   // u32[2]: blocks done, OR of shard flag bits; zero between launches
 };
 
 __host__ __device__ inline int64_t align16(int64_t x) { return (x + 15) / 16 * 16; }
 
 // Byte offsets of one warp's shared-memory regions, each 16-byte aligned.
 struct Layout {
-    int64_t bar, umask, keys, vals, klen, ver, vlen, used, opk, opv, orec, cand, total;
+    int64_t bar, umask, keys, vals, klen, ver, vlen, used, alive, v1row, opk, opv, orec, cand,
+        total;
 };
 
 __host__ __device__ inline Layout layout(const Dims& d) {
@@ -126,7 +158,9 @@ __host__ __device__ inline Layout layout(const Dims& d) {
     L.ver = L.klen + align16(4 * P);              // i32[P]
     L.vlen = L.ver + align16(4 * P);              // i32[P]
     L.used = L.vlen + align16(4 * P);             // u8[P]
-    L.opk = L.used + align16(P);                  // i32[wc, K4p], zero past ku4
+    L.alive = L.used + align16(P);                // u8[R]: the shard's alive row
+    L.v1row = L.alive + align16(d.R);             // i8[R]: V1 votes
+    L.opk = L.v1row + align16(d.R);               // i32[wc, K4p], zero past ku4
     L.opv = L.opk + align16(4 * wc * d.K4p);      // i32[wc, VW4p], zero past vwu4
     L.orec = L.opv + align16(4 * wc * d.VW4p);    // int4[wc]: kind, klen, vlen
     L.cand = L.orec + 16 * wc;                    // u64[wc, MW]
@@ -272,6 +306,8 @@ struct Smem {
     int32_t* ver;
     int32_t* vlen;
     uint8_t* used;
+    uint8_t* alive;
+    int8_t* v1row;
     int32_t* opk;
     int32_t* opv;
     int4* orec;
@@ -535,6 +571,8 @@ __device__ __forceinline__ Smem region_at(uint8_t* base, const Layout& L) {
                 reinterpret_cast<int32_t*>(base + L.ver),
                 reinterpret_cast<int32_t*>(base + L.vlen),
                 base + L.used,
+                base + L.alive,
+                reinterpret_cast<int8_t*>(base + L.v1row),
                 reinterpret_cast<int32_t*>(base + L.opk),
                 reinterpret_cast<int32_t*>(base + L.opv),
                 reinterpret_cast<int4*>(base + L.orec),
@@ -552,7 +590,8 @@ __device__ int4 issue_ops(const Smem& m, const Ops& ops, const Dims& d, int64_t 
     int4 rec = make_int4(0, 0, 0, 0);
     if (lane < nw) {
         const int64_t o = kvw::op_index(t0 + lane, d.S, s);
-        rec = make_int4(ops.kind[o], ops.klen[o], ops.vlen[o], 0);
+        rec = make_int4(ops.kind != nullptr ? ops.kind[o] : kvw::KIND_SET, ops.klen[o],
+                        ops.vlen[o], 0);
     }
     const bool k16 = d.ku4 % 4 == 0 && aligned16(ops.kw);
     const int kpr = k16 ? d.ku4 / 4 : d.ku4;  // pieces a key row
@@ -640,9 +679,10 @@ __device__ Staged stage(const Smem& m, uint32_t bar, const Table& in, const Ops&
 
 // The window on one staged shard: the waves with their read planes, then
 // the fresh table, out of shared memory by TMA bulk stores (16-byte or
-// 4-byte stores where a plane is not bulk-sized and aligned).
+// 4-byte stores where a plane is not bulk-sized and aligned). Returns the
+// shard's overflow and version-wrap flag bits (the same on every lane).
 template <bool SMALL>
-__device__ void window(const Smem& m, const Staged& staged, const OutTable& out,
+__device__ uint32_t window(const Smem& m, const Staged& staged, const OutTable& out,
                        const Ops& ops, const Reads& rd, const Dims& d, int64_t s, int lane) {
     const int P = d.P, K4 = d.K4, VW4 = d.VW4, K4p = d.K4p, VW4p = d.VW4p;
     int4 rec = staged.rec;
@@ -675,7 +715,8 @@ __device__ void window(const Smem& m, const Staged& staged, const OutTable& out,
     }
 
     if (lane == 0) rd.overflow[s] = overflow;
-    if (out.used == nullptr) return;  // a read-only window writes no table
+    const uint32_t bits = kvw::shard_flags(true, overflow, sver);
+    if (out.used == nullptr) return bits;  // a read-only window writes no table
     for (int p = lane; p < P; p += 32)
         m.used[p] = ((SMALL ? U : m.umask[p >> 6]) >> (p & 63)) & 1u;
     // the bulk stores read shared memory through the async proxy, after
@@ -718,36 +759,83 @@ __device__ void window(const Smem& m, const Staged& staged, const OutTable& out,
         // shared memory must outlive the bulk stores' reads of it
         asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
     }
+    return bits;
+}
+
+// Did every wave below depth of shard s decide V1? Lane i decides wave
+// t0 + i of each chunk of 32 from the alive row (a0, a1: lanes r and
+// r + 32 hold replica r's and r + 32's flag, loaded before the shard's
+// copies were issued) and a V1 row, both put in shared memory; a ballot
+// reduces each chunk.
+__device__ bool decide_shard(const Smem& m, const Dims& d, const Decide& dc, int64_t s,
+                             int lane, uint8_t a0, uint8_t a1, int32_t base) {
+    if (lane < d.R) m.alive[lane] = a0;
+    if (lane + 32 < d.R) m.alive[lane + 32] = a1;
+    for (int r = lane; r < d.R; r += 32) m.v1row[r] = static_cast<int8_t>(mw::V1);
+    __syncwarp();
+    bool all_v1 = true;
+    for (int t0 = 0; t0 < d.depth; t0 += 32) {
+        const int t = t0 + lane;
+        const bool v1 = t >= d.depth ||
+                        mw::decide_v1_wave(m.v1row, m.alive, d.R, base, static_cast<uint32_t>(s),
+                                           t, dc.quorum, dc.f1, dc.seed, dc.threshold,
+                                           dc.max_phases) == mw::V1;
+        all_v1 = __all_sync(FULL, v1) && all_v1;
+    }
+    return all_v1;
 }
 
 // One warp a shard. SMALL: tables of at most 64 slots (chunk_small);
-// else chunk_wide. At most 128 registers a thread: a tighter cap spills
-// in the wave loop, which costs more than the warps it would add.
-template <bool SMALL>
+// else chunk_wide. FOLD: the launch also decides the window and writes
+// its flags. At most 128 registers a thread: a tighter cap spills in the
+// wave loop, which costs more than the warps it would add.
+template <bool SMALL, bool FOLD>
 __global__ void __launch_bounds__(32 * MAX_WARPS_PER_BLOCK, 2)
-kv_window_kernel(Table in, OutTable out, Ops ops, Reads rd, Dims d) {
+kv_window_kernel(Table in, OutTable out, Ops ops, Reads rd, Dims d, Decide dc) {
     extern __shared__ __align__(16) uint8_t smem[];
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
     const int64_t s = static_cast<int64_t>(blockIdx.x) * (blockDim.x >> 5) + warp;
-    if (s >= d.S) return;  // whole warps only: no block-wide barrier follows
-    const Layout L = layout(d);
-    uint8_t* base = smem + warp * L.total;
-    const uint32_t bar = sptr(base + L.bar);
-    if (lane == 0) {
-        asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar) : "memory");
-        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    if (s < d.S) {  // whole warps: no block-wide barrier inside
+        const Layout L = layout(d);
+        uint8_t* base = smem + warp * L.total;
+        const uint32_t bar = sptr(base + L.bar);
+        if (lane == 0) {
+            asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar) : "memory");
+            asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+        }
+        __syncwarp();  // the mbarrier is initialised before any lane waits on it
+        const Smem m = region_at(base, L);
+        // the decision's inputs load while the shard's copies are issued
+        const uint8_t a0 = FOLD && lane < d.R ? dc.alive[s * d.R + lane] : 0;
+        const uint8_t a1 = FOLD && lane + 32 < d.R ? dc.alive[s * d.R + lane + 32] : 0;
+        const int32_t b = FOLD ? dc.base[s] : 0;
+        const Staged staged = stage(m, bar, in, ops, d, s, lane);
+        // the decision runs while the shard's copies are in flight
+        const bool all_v1 = FOLD ? decide_shard(m, d, dc, s, lane, a0, a1, b) : true;
+        asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+        // the one wait for the bulk copies; a lost transaction count would
+        // spin forever, so fail the launch after about a second instead
+        for (const long long t_start = clock64(); !bar_try_wait(bar, 0);) {
+            if (clock64() - t_start > (1LL << 31)) __trap();
+        }
+        __syncwarp();
+        const uint32_t bits = window<SMALL>(m, staged, out, ops, rd, d, s, lane) |
+                              kvw::shard_flags(all_v1, false, 0);
+        if (FOLD && lane == 0 && bits != 0) atomicOr(dc.scratch + 1, bits);
     }
-    __syncwarp();  // the mbarrier is initialised before any lane waits on it
-    const Smem m = region_at(base, L);
-    const Staged staged = stage(m, bar, in, ops, d, s, lane);
-    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-    // the one wait for the bulk copies; a lost transaction count would
-    // spin forever, so fail the launch after about a second instead
-    for (const long long t_start = clock64(); !bar_try_wait(bar, 0);) {
-        if (clock64() - t_start > (1LL << 31)) __trap();
+    if (!FOLD) return;
+    // the last block to finish writes the flags and clears the scratch
+    __syncthreads();
+    if (threadIdx.x == 0) {
+        // the block's flag bits (ordered before this thread by the
+        // barrier) before its count, as a grid-wide barrier orders them
+        __threadfence();
+        if (atomicAdd(dc.scratch, 1u) == gridDim.x - 1) {
+            __threadfence();
+            kvw::window_flags(atomicExch(dc.scratch + 1, 0u), dc.flags);
+            atomicExch(dc.scratch, 0u);
+        }
     }
-    __syncwarp();
-    window<SMALL>(m, staged, out, ops, rd, d, s, lane);
 }
 
 constexpr int64_t MAX_SMEM = 227 * 1024;  // a block's shared memory on Hopper
@@ -756,9 +844,9 @@ constexpr int64_t MAX_SMEM = 227 * 1024;  // a block's shared memory on Hopper
 // memory a warp: the count with the most warps resident on an SM, as the
 // runtime reports it (registers, shared memory and its per-block
 // reservation). 0 where one warp does not fit.
-template <bool SMALL>
+template <bool SMALL, bool FOLD>
 int warps_per_block(int64_t per_warp) {
-    auto kernel = kv_window_kernel<SMALL>;
+    auto kernel = kv_window_kernel<SMALL, FOLD>;
     if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(MAX_SMEM)) != cudaSuccess ||
         cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
@@ -773,7 +861,9 @@ int warps_per_block(int64_t per_warp) {
             cudaSuccess) {
             return 0;
         }
-        if (nb * w > best_resident) {
+        // the most warps resident; the fold takes the largest block that
+        // gets there, as each of its blocks ends with a fence and an atomic
+        if (nb * w > best_resident || (FOLD && nb * w == best_resident)) {
             best = w;
             best_resident = nb * w;
         }
@@ -781,8 +871,8 @@ int warps_per_block(int64_t per_warp) {
     return best;
 }
 
-template <bool SMALL>
-int launch(Table in, OutTable out, Ops ops, Reads rd, Dims d, cudaStream_t stream) {
+template <bool SMALL, bool FOLD>
+int launch(Table in, OutTable out, Ops ops, Reads rd, Dims d, Decide dc, cudaStream_t stream) {
     // the warps a block for the last (device, bytes a warp) of this
     // instantiation
     static std::mutex mu;
@@ -795,7 +885,7 @@ int launch(Table in, OutTable out, Ops ops, Reads rd, Dims d, cudaStream_t strea
     {
         std::lock_guard<std::mutex> lock(mu);
         if (memo_bytes != per_warp || memo_dev != dev) {
-            memo_warps = warps_per_block<SMALL>(per_warp);
+            memo_warps = warps_per_block<SMALL, FOLD>(per_warp);
             memo_bytes = per_warp, memo_dev = dev;
         }
         warps = memo_warps;
@@ -805,25 +895,17 @@ int launch(Table in, OutTable out, Ops ops, Reads rd, Dims d, cudaStream_t strea
         return static_cast<int>(cudaErrorInvalidValue);
     }
     const int64_t blocks = (d.S + warps - 1) / warps;
-    kv_window_kernel<SMALL><<<static_cast<unsigned>(blocks), 32 * warps,
-                              static_cast<size_t>(per_warp * warps), stream>>>(in, out, ops, rd, d);
+    kv_window_kernel<SMALL, FOLD><<<static_cast<unsigned>(blocks), 32 * warps,
+                                    static_cast<size_t>(per_warp * warps), stream>>>(
+        in, out, ops, rd, d, dc);
     return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-// table/out: 7 pointers each (used u8[S,P], keyw i32[S,P,K4], klen, ver
-// i32[S,P], valw i32[S,P,VW4], vlen i32[S,P], sver i32[S]); out may be
-// all null for a read-only window. ops: kind i8[W,S], klen/vlen
-// i16[W,S], kw i32[W,S,ku4], vw i32[W,S,vwu4]. reads: overflow u8[S],
-// then found u8[W,S], ver/vlen i32[W,S], val i32[W,S,VW4] (those four
-// may be null). dims: S, W, depth, P, K4, VW4, ku4, vwu4. All
-// contiguous. Launches on `stream`, returns cudaGetLastError() (0 on
-// success; cudaErrorInvalidValue where one shard does not fit in a
-// block's shared memory); does not synchronise.
-extern "C" int kvw_window(void* const* table, void* const* out, void* const* ops,
-                          void* const* reads, const long long* dims, void* stream) {
-    Dims d;
+// The arguments of both entries, unpacked and checked; returns 0 or a
+// cudaError. The table's column order: used u8[S,P], keyw i32[S,P,K4],
+// klen, ver i32[S,P], valw i32[S,P,VW4], vlen i32[S,P], sver i32[S].
+int unpack(void* const* table, void* const* out, void* const* ops, void* const* reads,
+           const long long* dims, Table& in, OutTable& o, Ops& op, Reads& rd, Dims& d) {
     d.S = dims[0];
     d.W = static_cast<int>(dims[1]);
     d.depth = static_cast<int>(dims[2]);
@@ -833,29 +915,82 @@ extern "C" int kvw_window(void* const* table, void* const* out, void* const* ops
     d.ku4 = static_cast<int>(dims[6]);
     d.vwu4 = static_cast<int>(dims[7]);
     if (d.S < 0 || d.W < 0 || d.P < 1 || d.K4 < 1 || d.VW4 < 1 || d.ku4 < 0 || d.ku4 > d.K4 ||
-        d.vwu4 < 0 || d.vwu4 > d.VW4) {
+        d.vwu4 < 0 || d.vwu4 > d.VW4 || d.depth < 0 || d.depth > d.W) {
         return static_cast<int>(cudaErrorInvalidValue);
     }
-    if (d.S == 0) return 0;
     d.K4p = (d.K4 + 3) / 4 * 4;
     d.VW4p = (d.VW4 + 3) / 4 * 4;
     d.MW = (d.P + 63) / 64;
     d.wc = d.W < 32 ? (d.W > 0 ? d.W : 1) : 32;
+    d.R = 0;
+    in = Table{static_cast<const uint8_t*>(table[0]), static_cast<const int32_t*>(table[1]),
+               static_cast<const int32_t*>(table[2]), static_cast<const int32_t*>(table[3]),
+               static_cast<const int32_t*>(table[4]), static_cast<const int32_t*>(table[5]),
+               static_cast<const int32_t*>(table[6])};
+    o = OutTable{static_cast<uint8_t*>(out[0]), static_cast<int32_t*>(out[1]),
+                 static_cast<int32_t*>(out[2]), static_cast<int32_t*>(out[3]),
+                 static_cast<int32_t*>(out[4]), static_cast<int32_t*>(out[5]),
+                 static_cast<int32_t*>(out[6])};
+    op = Ops{static_cast<const int8_t*>(ops[0]), static_cast<const int16_t*>(ops[1]),
+             static_cast<const int16_t*>(ops[2]), static_cast<const int32_t*>(ops[3]),
+             static_cast<const int32_t*>(ops[4])};
+    rd = Reads{static_cast<uint8_t*>(reads[0]), static_cast<uint8_t*>(reads[1]),
+               static_cast<int32_t*>(reads[2]), static_cast<int32_t*>(reads[3]),
+               static_cast<int32_t*>(reads[4])};
+    return 0;
+}
+
+template <bool FOLD>
+int run(Table in, OutTable o, Ops op, Reads rd, Dims d, Decide dc, cudaStream_t st) {
     while (d.wc > 1 && layout(d).total > MAX_SMEM) d.wc /= 2;
-    Table in{static_cast<const uint8_t*>(table[0]), static_cast<const int32_t*>(table[1]),
-             static_cast<const int32_t*>(table[2]), static_cast<const int32_t*>(table[3]),
-             static_cast<const int32_t*>(table[4]), static_cast<const int32_t*>(table[5]),
-             static_cast<const int32_t*>(table[6])};
-    OutTable o{static_cast<uint8_t*>(out[0]), static_cast<int32_t*>(out[1]),
-               static_cast<int32_t*>(out[2]), static_cast<int32_t*>(out[3]),
-               static_cast<int32_t*>(out[4]), static_cast<int32_t*>(out[5]),
-               static_cast<int32_t*>(out[6])};
-    Ops op{static_cast<const int8_t*>(ops[0]), static_cast<const int16_t*>(ops[1]),
-           static_cast<const int16_t*>(ops[2]), static_cast<const int32_t*>(ops[3]),
-           static_cast<const int32_t*>(ops[4])};
-    Reads rd{static_cast<uint8_t*>(reads[0]), static_cast<uint8_t*>(reads[1]),
-             static_cast<int32_t*>(reads[2]), static_cast<int32_t*>(reads[3]),
-             static_cast<int32_t*>(reads[4])};
-    const cudaStream_t st = static_cast<cudaStream_t>(stream);
-    return d.P <= 64 ? launch<true>(in, o, op, rd, d, st) : launch<false>(in, o, op, rd, d, st);
+    return d.P <= 64 ? launch<true, FOLD>(in, o, op, rd, d, dc, st)
+                     : launch<false, FOLD>(in, o, op, rd, d, dc, st);
+}
+
+}  // namespace
+
+// table/out: 7 pointers each (see unpack); out may be all null for a
+// read-only window. ops: kind i8[W,S] (null: every op is a SET),
+// klen/vlen i16[W,S], kw i32[W,S,ku4], vw i32[W,S,vwu4]. reads: overflow
+// u8[S], then found u8[W,S], ver/vlen i32[W,S], val i32[W,S,VW4] (those
+// four may be null). dims: S, W, depth, P, K4, VW4, ku4, vwu4. All
+// contiguous. Launches on `stream`, returns cudaGetLastError() (0 on
+// success; cudaErrorInvalidValue where one shard does not fit in a
+// block's shared memory); does not synchronise.
+extern "C" int kvw_window(void* const* table, void* const* out, void* const* ops,
+                          void* const* reads, const long long* dims, void* stream) {
+    Table in;
+    OutTable o;
+    Ops op;
+    Reads rd;
+    Dims d;
+    if (const int err = unpack(table, out, ops, reads, dims, in, o, op, rd, d)) return err;
+    if (d.S == 0) return 0;
+    return run<false>(in, o, op, rd, d, Decide{}, static_cast<cudaStream_t>(stream));
+}
+
+// kvw_window, plus the window's decision in the same launch. decide: alive
+// u8[S,R] (0/1), base i32[S], flags i32[3] (out), scratch u32[2] (zero
+// before the launch; the launch leaves it zero). params: R (1..64),
+// quorum, f1, max_phases, seed (32 bits), coin threshold.
+extern "C" int kvw_decide_window(void* const* table, void* const* out, void* const* ops,
+                                 void* const* reads, const long long* dims,
+                                 void* const* decide, const long long* params, void* stream) {
+    Table in;
+    OutTable o;
+    Ops op;
+    Reads rd;
+    Dims d;
+    if (const int err = unpack(table, out, ops, reads, dims, in, o, op, rd, d)) return err;
+    d.R = static_cast<int>(params[0]);
+    Decide dc{static_cast<const uint8_t*>(decide[0]), static_cast<const int32_t*>(decide[1]),
+              static_cast<int>(params[1]), static_cast<int>(params[2]),
+              static_cast<int>(params[3]), static_cast<uint32_t>(params[4]),
+              static_cast<uint32_t>(params[5]), static_cast<int32_t*>(decide[2]),
+              static_cast<uint32_t*>(decide[3])};
+    if (d.R < 1 || d.R > mw::MAX_REPLICAS || dc.max_phases < 0 || dc.alive == nullptr ||
+        dc.base == nullptr || dc.flags == nullptr || dc.scratch == nullptr || d.S == 0) {
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+    return run<true>(in, o, op, rd, d, dc, static_cast<cudaStream_t>(stream));
 }

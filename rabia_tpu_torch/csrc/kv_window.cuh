@@ -79,6 +79,26 @@ KV_HD Step wave_step(int kind, bool present, int32_t klen, int match, int first_
     return r;
 }
 
+// ---- the window's flags, when one launch decides and applies ----
+//
+// i32[3] = [every wave below depth decided V1, a shard overflowed, a
+// shard's version counter reached VERSION_WRAP]. Each shard contributes
+// bits whose OR over the shards is the reduction: bit 0 is the inverse
+// of the shard's all-V1.
+constexpr int32_t VERSION_WRAP = 2147483646;  // 2^31 - 2: the lane demotes at it
+constexpr uint32_t FLAG_NOT_ALL_V1 = 1u, FLAG_OVERFLOW = 2u, FLAG_WRAP = 4u;
+
+KV_HD uint32_t shard_flags(bool all_v1, bool overflow, int32_t sver) {
+    return (all_v1 ? 0u : FLAG_NOT_ALL_V1) | (overflow ? FLAG_OVERFLOW : 0u) |
+           (sver >= VERSION_WRAP ? FLAG_WRAP : 0u);
+}
+
+KV_HD void window_flags(uint32_t bits, int32_t* flags) {
+    flags[0] = (bits & FLAG_NOT_ALL_V1) ? 0 : 1;
+    flags[1] = (bits & FLAG_OVERFLOW) ? 1 : 0;
+    flags[2] = (bits & FLAG_WRAP) ? 1 : 0;
+}
+
 // Where one shard's op planes and outputs live in the [W, S, ...] planes.
 KV_HD int64_t op_index(int t, int64_t S, int64_t s) { return static_cast<int64_t>(t) * S + s; }
 

@@ -73,6 +73,10 @@ mesh_window_kernel(const int8_t* votes, const uint8_t* alive, const int32_t* bas
         static_cast<int8_t>(mw::decide(m, p.quorum, p.f1, prefix, p.threshold, p.max_phases));
 }
 
+// Does nothing: launched at the window's shape, it is the floor of a
+// launch of its own, which chip_smoke.py times beside the window.
+__global__ void empty_kernel() {}
+
 }  // namespace
 
 // votes i8[T, S, R], alive u8[S, R] (0 or 1), base i32[S], decided
@@ -103,5 +107,14 @@ extern "C" int mw_window(const void* votes, const void* alive, const void* base,
                          static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int8_t*>(votes), static_cast<const uint8_t*>(alive),
         static_cast<const int32_t*>(base), static_cast<int8_t*>(decided), p);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// The empty kernel at the grid mw_window launches for T x S; returns
+// cudaGetLastError().
+extern "C" int mw_empty(long long T, long long S, void* stream) {
+    const long long blocks = (S + BLOCK - 1) / BLOCK * T;
+    if (blocks < 1 || blocks > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
+    empty_kernel<<<static_cast<unsigned>(blocks), BLOCK, 0, static_cast<cudaStream_t>(stream)>>>();
     return static_cast<int>(cudaGetLastError());
 }

@@ -110,6 +110,19 @@ MW_HD int decide(Masks m, int quorum, int f1, uint32_t prefix, uint32_t threshol
     return ABSENT;
 }
 
+// Wave t of shard `shard` in the device KV lane's window
+// (DeviceKVTable): every replica votes V1 for the waves that carry ops,
+// so such a wave decides from `v1_row`, R bytes of V1, like any window
+// entry. (The empty waves after them carry V0 votes; nothing reads their
+// decisions.)
+MW_HD int decide_v1_wave(const int8_t* v1_row, const uint8_t* alive_row, int R, int32_t base,
+                         uint32_t shard, int t, int quorum, int f1, uint32_t seed,
+                         uint32_t threshold, int max_phases) {
+    const Masks m = row_masks(v1_row, alive_row, R);
+    const uint32_t prefix = coin_prefix(seed, shard, slot_of(base, t));
+    return decide(m, quorum, f1, prefix, threshold, max_phases);
+}
+
 // Window entry (t, s) of votes i8[T, S, R], alive u8[S, R], base i32[S].
 MW_HD int8_t decide_entry(const int8_t* votes, const uint8_t* alive, const int32_t* base,
                           int64_t S, int R, int t, int64_t s, int quorum, int f1,

@@ -1,6 +1,8 @@
 """Device kernels of the port: the weak-MVC phase driver, the fused
-fault-free window (CUDA kernel + plain version), the packed window and
-the device KV table's wave scan (CUDA kernel + plain version)."""
+fault-free window (CUDA kernels for both vote layouts + plain versions),
+the packed window, the mesh window (CUDA kernel) and the device KV
+table's wave scan (CUDA kernel, with the window's decision folded in +
+plain versions)."""
 
 from rabia_tpu_torch.kernel.phase_driver import (  # noqa: F401
     R1_WAIT,

@@ -13,10 +13,12 @@ with ``c1``/``c0`` the V1/V0 votes of alive replicas, and the phase 0
 where decided, -1 where not.
 
 This module holds the plain PyTorch versions (``closed_form_window``,
-``closed_form_window_rmajor``) and the wrapper of the hand-written CUDA
-kernel (``csrc/fused_window.cu``) that replaces the TPU kernel
-``pallas_window_rmajor``. ``window`` and ``window_rmajor`` dispatch on
-the tensor's device alone: a CUDA tensor goes to the kernel (or the
+``closed_form_window_rmajor``) and the wrappers of the two hand-written
+CUDA kernels of ``csrc/fused_window.cu``: ``FUSED_WINDOW`` on
+replica-major votes replaces the TPU kernel ``pallas_window_rmajor``,
+``FUSED_WINDOW_TSR`` on ``[T, S, R]`` votes (read in place, no relayout)
+replaces ``pallas_window``. ``window`` and ``window_rmajor`` dispatch on
+the tensor's device alone: a CUDA tensor goes to its kernel (or the
 wrapper raises), a CPU tensor to the plain version.
 """
 
@@ -80,10 +82,13 @@ def closed_form_window_rmajor(
 
 
 class FusedWindowKernel:
-    """ctypes wrapper of ``rw_fused_window`` (csrc/fused_window.cu).
+    """ctypes wrapper of ``rw_fused_window`` (csrc/fused_window.cu), the
+    replica-major kernel.
 
     ``launches`` counts kernel launches; it grows by one exactly where
     the kernel is launched. The library builds on the first call."""
+
+    symbol = "rw_fused_window"
 
     def __init__(self) -> None:
         self.launches = 0
@@ -95,7 +100,7 @@ class FusedWindowKernel:
         if self._fn is None:
             path = cuda_build.build(["fused_window"])["fused_window"]
             lib = ctypes.CDLL(str(path))
-            fn = lib.rw_fused_window
+            fn = getattr(lib, self.symbol)
             fn.argtypes = [
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                 ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
@@ -104,6 +109,35 @@ class FusedWindowKernel:
             fn.restype = ctypes.c_int
             self._lib, self._fn = lib, fn
         return self._fn
+
+    def _launch(self, votes, alive, R: int, T: int, S: int, quorum: int, want_phase: bool):
+        """Checks shared by both layouts, then one launch; returns the
+        decision plane and the phase plane (or None)."""
+        if not 1 <= R <= MAX_REPLICAS:
+            raise ValueError(f"fused window kernel takes 1..{MAX_REPLICAS} replicas, got R={R}")
+        if not 1 <= quorum <= MAX_QUORUM:
+            raise ValueError(f"quorum {quorum} outside 1..{MAX_QUORUM}")
+        if alive.device != votes.device:
+            raise ValueError("the votes and alive lie on different devices")
+        if not (votes.is_contiguous() and alive.is_contiguous()):
+            raise ValueError("fused window kernel needs contiguous votes and alive")
+        if votes.device.type != "cuda":
+            raise ValueError(f"fused window kernel needs a CUDA tensor, got {votes.device}")
+        fn = self.load()
+        dec = torch.empty((T, S), dtype=I8, device=votes.device)
+        ph = torch.empty((T, S), dtype=I32, device=votes.device) if want_phase else None
+        if dec.numel():
+            with torch.cuda.device(votes.device):
+                stream = torch.cuda.current_stream().cuda_stream
+                err = fn(
+                    votes.data_ptr(), alive.view(torch.uint8).data_ptr(),
+                    dec.data_ptr(), ph.data_ptr() if ph is not None else None,
+                    R, T, S, quorum, stream,
+                )
+            if err != 0:
+                raise RuntimeError(f"fused window kernel launch failed: cudaError {err}")
+            self.launches += 1
+        return dec, ph
 
     def __call__(
         self,
@@ -117,38 +151,39 @@ class FusedWindowKernel:
                 f"votes_rm must be int8[R, T, S], got {votes_rm.dtype}{list(votes_rm.shape)}"
             )
         R, T, S = votes_rm.shape
-        if not 1 <= R <= MAX_REPLICAS:
-            raise ValueError(f"fused window kernel takes 1..{MAX_REPLICAS} replicas, got R={R}")
-        if not 1 <= quorum <= MAX_QUORUM:
-            raise ValueError(f"quorum {quorum} outside 1..{MAX_QUORUM}")
         if alive_rm.dtype != torch.bool or tuple(alive_rm.shape) != (R, S):
             raise ValueError(
                 f"alive_rm must be bool[{R}, {S}], got {alive_rm.dtype}{list(alive_rm.shape)}"
             )
-        if alive_rm.device != votes_rm.device:
-            raise ValueError("votes_rm and alive_rm lie on different devices")
-        if not (votes_rm.is_contiguous() and alive_rm.is_contiguous()):
-            raise ValueError("fused window kernel needs contiguous votes_rm and alive_rm")
-        if votes_rm.device.type != "cuda":
-            raise ValueError(f"fused window kernel needs a CUDA tensor, got {votes_rm.device}")
-        fn = self.load()
-        dec = torch.empty((T, S), dtype=I8, device=votes_rm.device)
-        ph = torch.empty((T, S), dtype=I32, device=votes_rm.device) if want_phase else None
-        if dec.numel():
-            with torch.cuda.device(votes_rm.device):
-                stream = torch.cuda.current_stream().cuda_stream
-                err = fn(
-                    votes_rm.data_ptr(), alive_rm.view(torch.uint8).data_ptr(),
-                    dec.data_ptr(), ph.data_ptr() if ph is not None else None,
-                    R, T, S, quorum, stream,
-                )
-            if err != 0:
-                raise RuntimeError(f"fused window kernel launch failed: cudaError {err}")
-            self.launches += 1
+        dec, ph = self._launch(votes_rm, alive_rm, R, T, S, quorum, want_phase)
+        return (dec, ph) if want_phase else dec
+
+
+class FusedWindowTSRKernel(FusedWindowKernel):
+    """ctypes wrapper of ``rw_fused_window_tsr`` (csrc/fused_window.cu),
+    the kernel that reads ``[T, S, R]`` votes in place (the port of
+    ``pallas_window``). Its own ``launches`` count, as above."""
+
+    symbol = "rw_fused_window_tsr"
+
+    def __call__(
+        self,
+        votes: torch.Tensor,  # i8[T, S, R], contiguous (any byte offset), on CUDA
+        alive: torch.Tensor,  # bool[S, R], contiguous, same device
+        quorum: int,
+        want_phase: bool = True,
+    ) -> tuple[torch.Tensor, torch.Tensor] | torch.Tensor:
+        if votes.dtype != I8 or votes.dim() != 3:
+            raise ValueError(f"votes must be int8[T, S, R], got {votes.dtype}{list(votes.shape)}")
+        T, S, R = votes.shape
+        if alive.dtype != torch.bool or tuple(alive.shape) != (S, R):
+            raise ValueError(f"alive must be bool[{S}, {R}], got {alive.dtype}{list(alive.shape)}")
+        dec, ph = self._launch(votes, alive, R, T, S, quorum, want_phase)
         return (dec, ph) if want_phase else dec
 
 
 FUSED_WINDOW = FusedWindowKernel()
+FUSED_WINDOW_TSR = FusedWindowTSRKernel()
 
 
 def window_rmajor(
@@ -171,13 +206,11 @@ def window(
     alive: torch.Tensor,  # bool[S, R]
     quorum: int,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The closed form on the API ``[T, S, R]`` layout. On CUDA the votes
-    are laid out replica-major and the same kernel runs; producers that
-    can build replica-major votes should call :func:`window_rmajor`."""
+    """The closed form on the API ``[T, S, R]`` layout: the kernel that
+    reads the votes in place for a CUDA tensor, the plain version for a
+    CPU tensor."""
     if votes.device.type == "cuda":
-        return FUSED_WINDOW(
-            votes.permute(2, 0, 1).contiguous(), alive.t().contiguous(), quorum
-        )
+        return FUSED_WINDOW_TSR(votes, alive, quorum)
     if votes.device.type == "cpu":
         return closed_form_window(votes, alive, quorum)
     raise ValueError(f"no fused window for device {votes.device}")

@@ -14,6 +14,14 @@ the reference's XLA programs (``_apply_set_wave`` under ``_build_fused``,
 ``window`` dispatches on the tensor's device alone: a CUDA table goes to
 the kernel (or the wrapper raises), a CPU table to the plain version.
 
+The device lane's programs also decide the window first (every replica
+votes V1 for the waves that carry ops) and reduce to flags ``i32[3] =
+[all_v1, overflow, version near the wrap]``. ``decide_window`` does both
+in one launch on a card (``KV_WINDOW.decide``: the mesh window's math
+folded into the same kernel); its plain version ``decide_window_plain``
+is the composition of the plain mesh window, ``kv_window_plain`` and the
+flag reduction.
+
 Both are functional: they return a fresh table and never write the
 input, so a dirty window rolls back by keeping the old table. Key and
 value words are int32 bit patterns (equality and selects are exact).
@@ -26,10 +34,14 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from rabia_tpu_torch.core.types import V1, f_plus_1, quorum_size
 from rabia_tpu_torch.kernel import cuda_build
+from rabia_tpu_torch.kernel.phase_driver import coin_threshold
 
 I8, I16, I32 = torch.int8, torch.int16, torch.int32
 KIND_SET, KIND_GET, KIND_DEL = 1, 2, 3  # 4 is EXISTS: a read, like GET
+VERSION_WRAP = 2**31 - 2  # a shard counter this high demotes (i32 table)
+MAX_REPLICAS = 64  # csrc/mesh_window.cuh: one bit per replica in a uint64_t
 
 
 class KVTable(NamedTuple):
@@ -66,7 +78,7 @@ def _pad_words(w: torch.Tensor, width: int) -> torch.Tensor:
 
 def kv_window_plain(
     table: KVTable,
-    kind: torch.Tensor,  # i8[W, S]
+    kind: Optional[torch.Tensor],  # i8[W, S]; None: every op is a SET
     klen: torch.Tensor,  # i16[W, S]
     vlen: torch.Tensor,  # i16[W, S]
     kwin: torch.Tensor,  # i32[W, S, Ku4]
@@ -81,8 +93,10 @@ def kv_window_plain(
     used, keyw, kl, ver, valw, vl, sver = table
     S, P, K4 = keyw.shape
     VW4 = valw.shape[2]
-    W = kind.shape[0]
+    W = klen.shape[0]
     dev = keyw.device
+    if kind is None:
+        kind = torch.full((W, S), KIND_SET, dtype=I8, device=dev)
     kw_full = _pad_words(kwin, K4)
     vw_full = _pad_words(vwin, VW4)
     slots = torch.arange(P, device=dev)
@@ -152,9 +166,9 @@ def _check_args(table: KVTable, kind, klen, vlen, kwin, vwin, depth: int) -> Non
             raise ValueError(f"table.{name} must be int32[{S}, {P}], got {x.dtype}{list(x.shape)}")
     if table.sver.dtype != I32 or tuple(table.sver.shape) != (S,):
         raise ValueError(f"table.sver must be int32[{S}], got {table.sver.dtype}{list(table.sver.shape)}")
-    if kind.dtype != I8 or kind.dim() != 2 or kind.shape[1] != S:
+    if kind is not None and (kind.dtype != I8 or kind.dim() != 2 or kind.shape[1] != S):
         raise ValueError(f"kind must be int8[W, {S}], got {kind.dtype}{list(kind.shape)}")
-    W = kind.shape[0]
+    W = klen.shape[0] if kind is None else kind.shape[0]
     for name, x in (("klen", klen), ("vlen", vlen)):
         if x.dtype != I16 or tuple(x.shape) != (W, S):
             raise ValueError(f"{name} must be int16[{W}, {S}], got {x.dtype}{list(x.shape)}")
@@ -165,7 +179,7 @@ def _check_args(table: KVTable, kind, klen, vlen, kwin, vwin, depth: int) -> Non
                              f"{x.dtype}{list(x.shape)}")
     if not 0 <= depth <= W:
         raise ValueError(f"depth {depth} outside 0..{W}")
-    tensors = [*table, kind, klen, vlen, kwin, vwin]
+    tensors = [*table, klen, vlen, kwin, vwin] + ([] if kind is None else [kind])
     if any(x.device != used.device for x in tensors):
         raise ValueError("the table and the op planes lie on different devices")
     if not all(x.is_contiguous() for x in tensors):
@@ -179,49 +193,46 @@ def _ptrs(tensors) -> ctypes.Array:
 
 
 class KVWindowKernel:
-    """ctypes wrapper of ``kvw_window`` (csrc/kv_window.cu).
+    """ctypes wrapper of ``kvw_window`` and ``kvw_decide_window``
+    (csrc/kv_window.cu): the window, and the window with its decision in
+    the same launch (:meth:`decide`).
 
-    ``launches`` counts kernel launches; it grows by one exactly where
-    the kernel is launched. The library builds on the first call."""
+    ``launches`` counts kernel launches of both entries; it grows by one
+    exactly where the kernel is launched. The library builds on the first
+    call."""
 
     def __init__(self) -> None:
         self.launches = 0
         self._lib = None
         self._fn = None
+        self._decide_fn = None
+        self._scratch: dict[torch.device, torch.Tensor] = {}
 
     def load(self):
-        """Build (if needed) and bind the library; returns the C function."""
+        """Build (if needed) and bind the library; returns the C function
+        of the plain window."""
         if self._fn is None:
             path = cuda_build.build(["kv_window"])["kv_window"]
             lib = ctypes.CDLL(str(path))
-            fn = lib.kvw_window
             vpp = ctypes.POINTER(ctypes.c_void_p)
-            fn.argtypes = [vpp, vpp, vpp, vpp, ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p]
+            llp = ctypes.POINTER(ctypes.c_longlong)
+            fn = lib.kvw_window
+            fn.argtypes = [vpp, vpp, vpp, vpp, llp, ctypes.c_void_p]
             fn.restype = ctypes.c_int
-            self._lib, self._fn = lib, fn
+            dfn = lib.kvw_decide_window
+            dfn.argtypes = [vpp, vpp, vpp, vpp, llp, vpp, llp, ctypes.c_void_p]
+            dfn.restype = ctypes.c_int
+            self._lib, self._fn, self._decide_fn = lib, fn, dfn
         return self._fn
 
-    def __call__(
-        self,
-        table: KVTable,
-        kind: torch.Tensor,
-        klen: torch.Tensor,
-        vlen: torch.Tensor,
-        kwin: torch.Tensor,
-        vwin: torch.Tensor,
-        depth: int,
-        *,
-        want_table: bool = True,
-        want_reads: bool = False,
-    ) -> tuple[Optional[KVTable], torch.Tensor, Optional[WindowReads]]:
-        _check_args(table, kind, klen, vlen, kwin, vwin, depth)
+    def _launch(self, table, kind, klen, vlen, kwin, vwin, depth, want_table, want_reads,
+                entry, extra=()):
+        """Allocate the outputs and launch ``entry`` with the window's
+        arguments followed by ``extra``."""
         dev = table.used.device
-        if dev.type != "cuda":
-            raise ValueError(f"kv window kernel needs CUDA tensors, got {dev}")
-        fn = self.load()
         S, P, K4 = table.keyw.shape
         VW4 = table.valw.shape[2]
-        W = kind.shape[0]
+        W = klen.shape[0]
         out = KVTable(*(torch.empty_like(x) for x in table)) if want_table else None
         overflow = torch.empty(S, dtype=torch.bool, device=dev)
         reads = None
@@ -244,12 +255,91 @@ class KVWindowKernel:
             )
             with torch.cuda.device(dev):
                 stream = torch.cuda.current_stream().cuda_stream
-                err = fn(_ptrs(tin), _ptrs(tout), _ptrs([kind, klen, vlen, kwin, vwin]),
-                         _ptrs(rd), dims, stream)
+                err = entry(_ptrs(tin), _ptrs(tout), _ptrs([kind, klen, vlen, kwin, vwin]),
+                            _ptrs(rd), dims, *extra, stream)
             if err != 0:
                 raise RuntimeError(f"kv window kernel launch failed: cudaError {err}")
             self.launches += 1
         return out, overflow, reads
+
+    def __call__(
+        self,
+        table: KVTable,
+        kind: Optional[torch.Tensor],
+        klen: torch.Tensor,
+        vlen: torch.Tensor,
+        kwin: torch.Tensor,
+        vwin: torch.Tensor,
+        depth: int,
+        *,
+        want_table: bool = True,
+        want_reads: bool = False,
+    ) -> tuple[Optional[KVTable], torch.Tensor, Optional[WindowReads]]:
+        _check_args(table, kind, klen, vlen, kwin, vwin, depth)
+        dev = table.used.device
+        if dev.type != "cuda":
+            raise ValueError(f"kv window kernel needs CUDA tensors, got {dev}")
+        fn = self.load()
+        return self._launch(table, kind, klen, vlen, kwin, vwin, depth, want_table, want_reads, fn)
+
+    def decide(
+        self,
+        table: KVTable,
+        kind: Optional[torch.Tensor],
+        klen: torch.Tensor,
+        vlen: torch.Tensor,
+        kwin: torch.Tensor,
+        vwin: torch.Tensor,
+        depth: int,
+        alive: torch.Tensor,  # bool[S, R]
+        base: torch.Tensor,  # i32[S]: wave t of shard s is slot base[s] + t
+        *,
+        seed: int,
+        coin_p1: float,
+        max_phases: int,
+        want_table: bool = True,
+        want_reads: bool = False,
+    ) -> tuple[Optional[KVTable], torch.Tensor, Optional[WindowReads], torch.Tensor]:
+        """The window with its decision, one launch. Returns ``(new table
+        or None, overflow bool[S], reads or None, flags i32[3])``.
+
+        The flags' scratch words are cached per device and left zero by
+        every launch, so windows on one device must not run on two
+        streams at once."""
+        _check_args(table, kind, klen, vlen, kwin, vwin, depth)
+        S = table.used.shape[0]
+        if alive.dtype != torch.bool or alive.dim() != 2 or alive.shape[0] != S:
+            raise ValueError(f"alive must be bool[{S}, R], got {alive.dtype}{list(alive.shape)}")
+        R = alive.shape[1]
+        if not 1 <= R <= MAX_REPLICAS:
+            raise ValueError(f"the window's decision takes 1..{MAX_REPLICAS} replicas, got R={R}")
+        if base.dtype != I32 or tuple(base.shape) != (S,):
+            raise ValueError(f"base must be int32[{S}], got {base.dtype}{list(base.shape)}")
+        if max_phases < 0:
+            raise ValueError(f"max_phases must be >= 0, got {max_phases}")
+        if S == 0:
+            raise ValueError("the window's decision needs at least one shard")
+        dev = table.used.device
+        if alive.device != dev or base.device != dev:
+            raise ValueError("the table, alive and base lie on different devices")
+        if not (alive.is_contiguous() and base.is_contiguous()):
+            raise ValueError("kv window kernel needs contiguous alive and base")
+        if dev.type != "cuda":
+            raise ValueError(f"kv window kernel needs CUDA tensors, got {dev}")
+        self.load()
+        scratch = self._scratch.get(dev)
+        if scratch is None:
+            scratch = self._scratch[dev] = torch.zeros(2, dtype=I32, device=dev)
+        flags = torch.empty(3, dtype=I32, device=dev)
+        params = (ctypes.c_longlong * 6)(
+            R, quorum_size(R), f_plus_1(R), max_phases, int(seed) & 0xFFFFFFFF,
+            coin_threshold(coin_p1),
+        )
+        out, overflow, reads = self._launch(
+            table, kind, klen, vlen, kwin, vwin, depth, want_table, want_reads, self._decide_fn,
+            (_ptrs([alive.view(torch.uint8), base, flags, scratch]), params),
+        )
+        return out, overflow, reads, flags
 
 
 KV_WINDOW = KVWindowKernel()
@@ -266,4 +356,41 @@ def window(table: KVTable, kind, klen, vlen, kwin, vwin, depth: int, *,
     if dev.type == "cpu":
         return kv_window_plain(table, kind, klen, vlen, kwin, vwin, depth,
                                want_table=want_table, want_reads=want_reads)
+    raise ValueError(f"no kv window for device {dev}")
+
+
+def decide_window_plain(mesh, table: KVTable, kind, klen, vlen, kwin, vwin, depth: int,
+                        alive: torch.Tensor, base: torch.Tensor, max_phases: int, *,
+                        want_table: bool = True, want_reads: bool = False):
+    """The device lane's window in plain PyTorch: every live replica of
+    ``mesh`` (a ``MeshPhaseKernel``) votes V1 for the ``depth`` waves that
+    carry ops, the plain mesh window decides them, the plain wave scan
+    applies the window, and the flags reduce both. Returns what
+    :meth:`KVWindowKernel.decide` returns; the flags are ``i32[3] =
+    [all_v1, overflow anywhere, a shard version at the wrap]``."""
+    W, S = klen.shape
+    votes = torch.zeros((W, S, alive.shape[1]), dtype=I8, device=klen.device)
+    votes[:depth] = V1
+    decided = mesh.decide_slots_plain(votes, alive, base, max_phases)
+    all_v1 = (decided[:depth] == V1).all()
+    new, overflow, reads = kv_window_plain(table, kind, klen, vlen, kwin, vwin, depth,
+                                           want_reads=want_reads)
+    flags = torch.stack([all_v1, overflow.any(), (new.sver >= VERSION_WRAP).any()]).to(I32)
+    return (new if want_table else None), overflow, reads, flags
+
+
+def decide_window(mesh, table: KVTable, kind, klen, vlen, kwin, vwin, depth: int,
+                  alive: torch.Tensor, base: torch.Tensor, max_phases: int, *,
+                  want_table: bool = True, want_reads: bool = False):
+    """The device lane's window, decided and applied: one kernel launch
+    for a CUDA table, the plain version for a CPU table. ``mesh`` (a
+    ``MeshPhaseKernel``) gives the coin's seed and probability."""
+    dev = table.used.device
+    if dev.type == "cuda":
+        return KV_WINDOW.decide(table, kind, klen, vlen, kwin, vwin, depth, alive, base,
+                                seed=mesh.seed, coin_p1=mesh.coin_p1, max_phases=max_phases,
+                                want_table=want_table, want_reads=want_reads)
+    if dev.type == "cpu":
+        return decide_window_plain(mesh, table, kind, klen, vlen, kwin, vwin, depth, alive, base,
+                                   max_phases, want_table=want_table, want_reads=want_reads)
     raise ValueError(f"no kv window for device {dev}")

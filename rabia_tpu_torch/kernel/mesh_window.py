@@ -50,8 +50,20 @@ class MeshWindowKernel:
                 ctypes.c_uint, ctypes.c_uint, ctypes.c_int, ctypes.c_void_p,
             ]
             fn.restype = ctypes.c_int
+            lib.mw_empty.argtypes = [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p]
+            lib.mw_empty.restype = ctypes.c_int
             self._lib, self._fn = lib, fn
         return self._fn
+
+    def empty(self, T: int, S: int, device) -> None:
+        """Launch an empty kernel at the grid the window takes for T x S:
+        the floor of a launch of its own, for timing beside the window.
+        Not counted in ``launches``."""
+        self.load()
+        with torch.cuda.device(device):
+            err = self._lib.mw_empty(T, S, torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"empty kernel launch failed: cudaError {err}")
 
     def __call__(
         self,

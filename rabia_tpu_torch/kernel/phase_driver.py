@@ -432,10 +432,11 @@ class ClusterKernel:
     ) -> tuple[torch.Tensor, torch.Tensor]:
         """Fault-free fast path, bit-identical to
         ``slot_pipeline(votes, alive, T)`` at the default two rounds per
-        slot: the closed-form quorum tally. CUDA tensors run the fused
-        CUDA kernel; CPU tensors the plain PyTorch closed form."""
+        slot: the closed-form quorum tally. CUDA tensors run the CUDA
+        kernel that reads the ``[T, S, R]`` votes in place; CPU tensors
+        the plain PyTorch closed form."""
         self._check_slots(initial_votes, n_slots)
-        alive = torch.broadcast_to(alive, (self.S, self.R))
+        alive = torch.broadcast_to(alive, (self.S, self.R)).contiguous()
         return fused_window.window(initial_votes, alive, self.quorum)
 
     def slot_pipeline_fused_rmajor(

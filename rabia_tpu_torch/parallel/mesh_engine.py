@@ -24,7 +24,9 @@ Three lanes:
 - the device-resident KV lane (``device_store=True`` over
   ``VectorShardedKV`` replicas): the KV table lives on the device
   (:class:`~rabia_tpu_torch.apps.device_kv.DeviceKVTable`) and each
-  window is decided and applied there. Windows pipeline
+  window is decided and applied there, in one kernel launch on a card
+  (the window's decision is folded into the kv-window kernel, so this
+  lane makes no ``slot_window`` call). Windows pipeline
   ``device_store_inflight`` deep: window k+1 dispatches on window k's
   unresolved output table while k's 12-byte flags travel to pinned host
   memory, and futures settle when a window resolves. Work outside the

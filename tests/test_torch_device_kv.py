@@ -8,7 +8,10 @@ for byte (with their envelope rejections), ``decide_apply``,
 version-wrap flag, a crashed quorum, DEL of a missing key, a GET after a
 DEL in the same window), and ``dump`` / ``upload_from`` / ``sync_into``.
 The kernel's per-op header (``csrc/kv_window.cuh``), built with g++, runs
-the same cases. n_shards = 8 fills the reference's 8-device CPU mesh, so
+the same cases; with the mesh window's header it also runs the decision
+that the kernel folds into the same launch, held against the reference's
+flags (quorum-less and all-dead shards, depth 0, max_phases 0, windows
+longer than 32 waves, bases near 2^31-1). n_shards = 8 fills the reference's 8-device CPU mesh, so
 neither side pads. Tolerance: exact equality (every output is an integer
 or bytes)."""
 
@@ -34,7 +37,9 @@ from rabia_tpu_torch import convert
 from rabia_tpu_torch.apps import vector_kv
 from rabia_tpu_torch.apps.device_kv import DeviceKVTable
 from rabia_tpu_torch.core.blocks import build_block
-from rabia_tpu_torch.kernel import cuda_build, kv_window
+from rabia_tpu_torch.core.types import f_plus_1, quorum_size
+from rabia_tpu_torch.kernel import cuda_build, kv_window, mesh_window
+from rabia_tpu_torch.kernel.phase_driver import coin_threshold
 from rabia_tpu_torch.parallel.mesh import MeshPhaseKernel
 
 torch.set_num_threads(1)  # tiny tensors: one thread keeps parallel test workers off each other
@@ -175,6 +180,83 @@ def host_scan(tmp_path_factory):
                       over, found, rver, rvlen, rval)))
         return [used.astype(bool), keyw, kl, ver, valw, vl, sver], over.astype(bool), (
             found.astype(bool), rver, rvlen, rval)
+
+    return run
+
+
+_FOLD_SHIM = r"""
+#include "kv_window.cuh"
+#include "mesh_window.cuh"
+extern "C" void fold_host(long long S, int W, int depth, int P, int K4, int VW4, int ku4, int vwu4,
+                          uint8_t* used, int32_t* keyw, int32_t* klen, int32_t* ver,
+                          int32_t* valw, int32_t* vlen, int32_t* sver,
+                          const int8_t* kind, const int16_t* op_klen, const int16_t* op_vlen,
+                          const int32_t* op_kw, const int32_t* op_vw, uint8_t* overflow,
+                          const uint8_t* alive, const int32_t* base, int R, int quorum, int f1,
+                          unsigned seed, unsigned threshold, int max_phases, int32_t* flags) {
+    int32_t scratch[64];
+    int8_t v1_row[mw::MAX_REPLICAS];
+    for (int r = 0; r < R; ++r) v1_row[r] = mw::V1;
+    uint32_t bits = 0;
+    for (long long s = 0; s < S; ++s) {
+        kvw::scan_shard(s, W, depth, S, P, K4, VW4, ku4, vwu4, used, keyw, klen, ver, valw,
+                        vlen, sver, kind, op_klen, op_vlen, op_kw, op_vw, overflow, nullptr,
+                        nullptr, nullptr, nullptr, scratch);
+        bool all_v1 = true;
+        for (int t = 0; t < depth; ++t)
+            all_v1 = all_v1 && mw::decide_v1_wave(v1_row, alive + s * R, R, base[s], (uint32_t)s,
+                                                  t, quorum, f1, seed, threshold,
+                                                  max_phases) == mw::V1;
+        bits |= kvw::shard_flags(all_v1, overflow[s] != 0, sver[s]);
+    }
+    kvw::window_flags(bits, flags);
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def host_fold(tmp_path_factory):
+    """The per-shard decide-and-reduce that the kernel folds into its
+    launch (``mw::decide_v1_wave`` and the flag bits of kv_window.cuh),
+    with the wave scan, compiled for the host with g++. Returns ``(new
+    arrays, flags i32[3])`` of one SET window."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("g++ not installed: the header's host build cannot run")
+    d = tmp_path_factory.mktemp("fold_host")
+    (d / "shim.cpp").write_text(_FOLD_SHIM)
+    lib = d / "libfold_host.so"
+    subprocess.run(
+        [gxx, "-std=c++17", "-O2", "-shared", "-fPIC", f"-I{cuda_build.CSRC}",
+         "-o", str(lib), str(d / "shim.cpp")],
+        check=True, capture_output=True, timeout=120,
+    )
+    fn = ctypes.CDLL(str(lib)).fold_host
+    fn.argtypes = ([ctypes.c_longlong] + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 15
+                   + [ctypes.c_int] * 3 + [ctypes.c_uint] * 2 + [ctypes.c_int, ctypes.c_void_p])
+    fn.restype = None
+
+    def run(arrays, ops, Wn, depth, alive, base, max_phases, seed=0, p1=0.5):
+        used, keyw, kl, ver, valw, vl, sver = (np.array(_np(a), copy=True) for a in arrays)
+        used = used.astype(np.uint8)
+        S, P_, K4 = keyw.shape
+        VW4 = valw.shape[2]
+        kind = np.full((Wn, S), kv_window.KIND_SET, np.int8)
+        klen, vlen = _pad(ops.klen, Wn), _pad(ops.vlen, Wn)
+        kwin = np.ascontiguousarray(_np(_pad(ops.kwin, Wn)))
+        vwin = np.ascontiguousarray(_np(_pad(ops.vwin, Wn)))
+        alive = np.ascontiguousarray(alive, np.uint8)
+        base = np.ascontiguousarray(base, np.int32)
+        R_ = alive.shape[1]
+        over = np.zeros(S, np.uint8)
+        flags = np.zeros(3, np.int32)
+        ptr = lambda a: a.ctypes.data  # noqa: E731
+        fn(S, Wn, depth, P_, K4, VW4, kwin.shape[2], vwin.shape[2],
+           *map(ptr, (used, keyw, kl, ver, valw, vl, sver, kind, klen, vlen, kwin, vwin, over,
+                      alive, base)),
+           R_, quorum_size(R_), f_plus_1(R_), seed & 0xFFFFFFFF, coin_threshold(p1), max_phases,
+           ptr(flags))
+        return [used.astype(bool), keyw, kl, ver, valw, vl, sver], flags
 
     return run
 
@@ -526,3 +608,129 @@ def test_plain_version_matches_header_on_random_cases(host_scan):
         np.testing.assert_array_equal(over.numpy(), h_over)
         for a, b in zip(reads, h_reads):
             np.testing.assert_array_equal(a.numpy(), b)
+
+
+# -- the decision folded into the window --------------------------------------------
+
+
+def _fold_alive(kind: str) -> np.ndarray:
+    a = np.ones((N, R), bool)
+    if kind == "quorumless":  # shard 3 keeps one replica of three: no quorum
+        a[3, 1:] = False
+    elif kind == "all_dead":  # every replica of shard 5 is dead
+        a[5] = False
+    elif kind == "crash":
+        a[:, 1:] = False
+    return a
+
+
+FOLD_CASES = {
+    # name: (seed, W, depth, max_phases, alive, bases near the wrap, table options)
+    "quorumless": (31, W, W, 4, "quorumless", False, {}),
+    "all_dead": (32, W, W, 4, "all_dead", False, {}),
+    "depth_0": (33, W, 0, 4, "crash", False, {}),
+    "max_phases_0": (34, W, 2, 0, "healthy", False, {}),
+    "long_window": (35, 40, 40, 1, "healthy", True, {"full_shards": (0,)}),
+    "long_partial": (36, 40, 33, 4, "quorumless", True, {"wrap_shards": (2,)}),
+    "base_wrap": (37, W, W, 4, "healthy", True, {"wrap_shards": (4,)}),
+}
+
+
+@pytest.mark.parametrize("name", sorted(FOLD_CASES))
+def test_folded_decision_matches_reference_flags(port_table, ref_table, host_fold, name):
+    """One SET window decided and applied: the reference's program, the
+    port's plain composition (``decide_window_plain`` behind
+    ``decide_apply``) and the g++ build of the per-shard decide-and-reduce
+    that the kernel folds in agree on the table and the flags."""
+    seed, Wn, depth, max_phases, alive_kind, near_wrap, opts = FOLD_CASES[name]
+    rng = np.random.default_rng(seed)
+    arrays = _random_table(rng, **opts)
+    _load(port_table, ref_table, arrays)
+    pb, rb = _both(_blocks(rng, max(depth, 1), kinds=(1,)))
+    pops, rops = port_table.pack_window(pb), ref_table.pack_window(rb)
+    base = rng.integers(0, 50, N).astype(np.int64)
+    if near_wrap:  # base + t wraps inside the window on half the shards
+        base[::2] = 2**31 - 1 - rng.integers(0, Wn, size=N // 2)
+    base = base.astype(np.int32)
+    alive = _fold_alive(alive_kind)
+    new, flags = port_table.decide_apply(alive, base, depth, pops, W=Wn, max_phases=max_phases)
+    rnew, rflags = ref_table.decide_apply(alive, base, depth, rops, W=Wn, max_phases=max_phases)
+    rflags = np.asarray(rflags)
+    np.testing.assert_array_equal(flags.numpy(), rflags)
+    _assert_state(new, rnew)
+    got, hflags = host_fold(arrays, pops, Wn, depth, alive, base, max_phases)
+    np.testing.assert_array_equal(hflags, rflags)
+    for a, b in zip(got, rnew):
+        np.testing.assert_array_equal(a, _np(b))
+    want_all_v1 = depth == 0 or (alive_kind == "healthy" and max_phases > 0)
+    assert rflags[0] == int(want_all_v1)
+
+
+def test_cpu_tables_take_the_plain_composition(port_table, monkeypatch):
+    """On the CPU every program goes through ``decide_window_plain`` once
+    and neither kernel is reached (launch counts flat)."""
+    rng = np.random.default_rng(41)
+    port_table.state = convert.device_table_from_numpy(_random_table(rng), "cpu")
+    calls = []
+    plain = kv_window.decide_window_plain
+    monkeypatch.setattr(kv_window, "decide_window_plain",
+                        lambda *a, **kw: calls.append(1) or plain(*a, **kw))
+    before = kv_window.KV_WINDOW.launches, mesh_window.MESH_WINDOW.launches
+    alive, base = np.ones((N, R), bool), np.zeros(N, np.int32)
+    pb, _ = _both(_blocks(rng, W, kinds=(1,)))
+    port_table.decide_apply(alive, base, W, port_table.pack_window(pb), W=W)
+    pb, _ = _both(_blocks(rng, W, kinds=(2,)))
+    port_table.lookup_window(alive, base, W, port_table.pack_get_window(pb), W=W)
+    pb, _ = _both(_blocks(rng, W))
+    kind, ops = port_table.pack_mixed_window(pb)
+    port_table.mixed_apply(alive, base, W, kind, np.arange(W, dtype=np.int32), ops, W=W)
+    assert calls == [1, 1, 1]
+    assert (kv_window.KV_WINDOW.launches, mesh_window.MESH_WINDOW.launches) == before
+
+
+class TestDecideWrapperChecks:
+    def _args(self, S=4, R_=5):
+        table, ops = TestWrapperChecks()._args(S=S)
+        alive = torch.ones((S, R_), dtype=torch.bool)
+        base = torch.zeros(S, dtype=torch.int32)
+        return table, ops, alive, base
+
+    def _call(self, table, ops, alive, base, **kw):
+        args = dict(seed=0, coin_p1=0.5, max_phases=4)
+        args.update(kw)
+        return kv_window.KV_WINDOW.decide(table, *ops, 2, alive, base, **args)
+
+    def test_rejects_wrong_dtype_and_shape(self):
+        table, ops, alive, base = self._args()
+        with pytest.raises(ValueError, match="alive must be bool"):
+            self._call(table, ops, alive.to(torch.uint8), base)
+        with pytest.raises(ValueError, match="alive must be bool"):
+            self._call(table, ops, alive[:3], base)
+        with pytest.raises(ValueError, match="base must be int32"):
+            self._call(table, ops, alive, base.to(torch.int64))
+        with pytest.raises(ValueError, match="base must be int32"):
+            self._call(table, ops, alive, base[:3])
+        with pytest.raises(ValueError, match="kind must be int8"):
+            self._call(table, (ops[0].to(torch.int32), *ops[1:]), alive, base)
+        with pytest.raises(ValueError, match="max_phases"):
+            self._call(table, ops, alive, base, max_phases=-1)
+        with pytest.raises(ValueError, match="contiguous"):
+            self._call(table, ops, alive.t().contiguous().t(), base)
+
+    def test_rejects_too_many_replicas(self):
+        table, ops, alive, base = self._args(R_=65)
+        with pytest.raises(ValueError, match="1..64 replicas"):
+            self._call(table, ops, alive, base)
+
+    def test_cpu_tensor_never_reaches_the_kernel(self):
+        table, ops, alive, base = self._args()
+        before = kv_window.KV_WINDOW.launches
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            self._call(table, ops, alive, base)
+        mk = MeshPhaseKernel(4, 5, device="cpu")
+        new, over, reads, flags = kv_window.decide_window(
+            mk, table, None, *ops[1:], 2, alive, base, 4, want_reads=True)  # the plain path
+        assert new.used.shape == (4, 3) and reads.val.shape == (2, 4, 16)
+        assert flags.tolist() == [1, 0, 0]
+        assert kv_window.KV_WINDOW.launches == before
+        assert kv_window.KVWindowKernel()._decide_fn is None  # nothing was built

@@ -91,7 +91,7 @@ def test_mesh_window_matches_plain_on_card(cuda, S, R, T, max_phases):
 
 @pytest.mark.cuda
 def test_slice_on_card(cuda):
-    assert chip_smoke.kernel_vs_plain(cuda) == 0
+    assert chip_smoke.kernel_vs_plain(cuda) == (0, 0)  # replica-major, [T,S,R]
     assert chip_smoke.mesh_kernel_vs_plain(cuda) == 0
     chip_smoke.protocol_vs_fused(cuda, 256, R, 16)
     before = fused_window.FUSED_WINDOW.launches
@@ -105,6 +105,58 @@ def test_slice_on_card(cuda):
 @pytest.mark.cuda
 def test_device_kv_lane_on_card(cuda):
     assert chip_smoke.kv_kernel_vs_plain(cuda) == 0
+    assert chip_smoke.decide_kernel_vs_plain(cuda) == 0
     before = kv_window.KV_WINDOW.launches
     stats, _ = chip_smoke.device_kv_lane(cuda, 64, R)
     assert stats["blocks"] == 102 and kv_window.KV_WINDOW.launches > before
+
+
+@pytest.mark.cuda
+def test_device_lane_window_is_one_kv_launch_on_card(cuda):
+    """One decide_apply on a card launches the kv-window kernel once (the
+    decision folded in) and the mesh-window kernel never; its table and
+    flags equal the plain composition's."""
+    from rabia_tpu_torch.apps.device_kv import DeviceKVTable
+    from rabia_tpu_torch.core.blocks import build_block
+
+    S_, W = 64, 16
+    mk = MeshPhaseKernel(S_, R, device=cuda)
+    dkv = DeviceKVTable(S_, mk)
+    ops = dkv.pack_window([
+        build_block(range(S_), [[chip_smoke._set_op(chip_smoke._key(s, j), b"v")] for s in range(S_)])
+        for j in range(W)
+    ])
+    alive, base = np.ones((S_, R), bool), np.zeros(S_, np.int32)
+    kv0, mw0 = kv_window.KV_WINDOW.launches, mesh_window.MESH_WINDOW.launches
+    new, flags = dkv.decide_apply(alive, base, W, ops, W=W)
+    torch.cuda.synchronize()
+    assert kv_window.KV_WINDOW.launches == kv0 + 1 and mesh_window.MESH_WINDOW.launches == mw0
+    assert flags.tolist() == [1, 0, 0]
+    mk_cpu = MeshPhaseKernel(S_, R, device="cpu")
+    cpu = DeviceKVTable(S_, mk_cpu)
+    want, want_flags = cpu.decide_apply(alive, base, W, ops, W=W)
+    assert want_flags.tolist() == flags.tolist()
+    for a, b in zip(want, new):
+        assert torch.equal(a, b.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,R", [(17, 1), (1000, 3), (4096, 5), (1000, 8)])
+def test_tsr_kernel_matches_plain_on_card(cuda, S, R):
+    """The [T, S, R] kernel reads the votes in place (no relayout), also
+    from a view one byte into a buffer, and equals the plain closed form."""
+    g = torch.Generator(device=cuda).manual_seed(S + R)
+    T = 33
+    votes = torch.randint(0, 4, (T, S, R), generator=g, device=cuda, dtype=torch.int8)
+    alive = torch.rand((S, R), generator=g, device=cuda) < 0.7
+    q = R // 2 + 1
+    want_d, want_p = fused_window.closed_form_window(votes, alive, q)
+    buf = torch.empty(votes.numel() + 1, dtype=torch.int8, device=cuda)
+    shifted = buf[1:].view(T, S, R)
+    shifted.copy_(votes)
+    for v in (votes, shifted):
+        before = fused_window.FUSED_WINDOW_TSR.launches
+        d, p = fused_window.window(v, alive, q)
+        torch.cuda.synchronize()
+        assert torch.equal(d, want_d) and torch.equal(p, want_p)
+        assert fused_window.FUSED_WINDOW_TSR.launches == before + 1
