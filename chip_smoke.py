@@ -45,10 +45,27 @@ Phases (each raises on failure; nothing is caught):
    SET/GET/DEL/EXISTS waves, an overflow (dirty -> rollback -> demote),
    clean waves until re-promotion, a majority crash (stall, demote) and
    heal; every response frame, the slot counters, the decision logs and
-   all replica stores are compared with the host engine's.
+   all replica stores are compared with the host engine's;
+8. the dictionary form and the read lane: before the main path, the
+   kv-window kernel on dictionary-form ops (the plain window; with the
+   decision as SET, mixed and lookup windows) and its read-only probe in
+   both forms, against their plain versions (ragged S, P in {7, 64,
+   130}, D in {1, 2, 17, 32}, ranks past D, W in {16, 40}); on the main
+   path, ``decide_apply``, ``lookup_window``, ``mixed_apply`` and
+   ``lookup_only`` in the row and the dictionary form on phase 7's table
+   (one launch of their form each, no mesh launch), and a
+   ``device_read_lane=True`` engine beside a device-lane engine without
+   it and a host-lane engine at 4096 shards x 5 replicas: phase 7's fill,
+   then groups of 9 GET blocks and 1 SET block, flushed, under a uniform
+   and a Zipf(1.2) key stream; reads take no slot and every response
+   equals the other lanes'. Then the dictionary SET window (fill and
+   Zipf streams) beside the row form and the probe beside the lookup
+   window are timed by graph replay, and the packers' host time and
+   upload bytes are measured.
 
-The launch counts of the four kernels are reset just before phases 4-5
-and 7 (the main path) and read just after; phase 4 drives both
+The launch counts of the four kernels (the kv-window kernel's by form)
+are reset just before phases 4-5, 7 and 8 (the main path) and read just
+after; phase 4 drives both
 fused-window entries (replica-major at full depth, and
 ``ClusterKernel.slot_pipeline_fused`` on [T,S,R] votes at full depth and
 at ``__graft_entry__``'s T=8 beside ``slot_pipeline``). After it, phase 7
@@ -58,7 +75,7 @@ and the kernels are timed. The last lines are a ``{"kernels": ...}``
 JSON line, the card's name and power limit as nvidia-smi reports them,
 and ``{"ok": true, "device": {...}}``. Exits non-zero without a GPU.
 
-Phases 3-5 and 7 also run on the CPU at a small size
+Phases 3-5, 7 and 8's lanes also run on the CPU at a small size
 (tests/test_torch_slice.py).
 """
 
@@ -73,6 +90,7 @@ import numpy as np
 import torch
 
 from rabia_tpu_torch import ClusterKernel, MeshEngine, MeshPhaseKernel
+from rabia_tpu_torch.apps.device_kv import DeviceDictOps
 from rabia_tpu_torch.apps.vector_kv import VectorShardedKV
 from rabia_tpu_torch.core.blocks import build_block
 from rabia_tpu_torch.core.errors import RabiaError
@@ -415,6 +433,26 @@ def decide_kernel_vs_plain(device) -> int:
     return worst
 
 
+def random_dict_case(gen, S: int, P: int, K4: int, VW4: int, W: int, ku4: int, vwu4: int, D: int,
+                     device, *, p_used: float = 0.6, kinds=(0, 1, 2, 3, 4)):
+    """``random_kv_case``'s table and a window in the dictionary form:
+    each shard's D rows are ``random_kv_case``'s ops of D waves, and the
+    ranks pick among them (about one in thirty is D, which names no row).
+    Returns (table, kind i8[W, S], (dkl, dvl, dk, dv), idx u8[W, S],
+    depth)."""
+    table, rows, _ = random_kv_case(gen, S, P, K4, VW4, D, ku4, vwu4, device, p_used=p_used,
+                                    kinds=kinds)
+    _, klen, vlen, kw, vw = rows
+    dict_ops = (klen.t().contiguous(), vlen.t().contiguous(), kw.transpose(0, 1).contiguous(),
+                vw.transpose(0, 1).contiguous())
+    idx = torch.randint(0, D, (W, S), generator=gen, device=device)
+    idx = torch.where(torch.rand((W, S), generator=gen, device=device) < 0.03, D, idx)
+    kind = torch.tensor(kinds, dtype=torch.int8, device=device)[
+        torch.randint(0, len(kinds), (W, S), generator=gen, device=device)]
+    depth = int(torch.randint(0, W + 1, (), generator=gen, device=device))
+    return table, kind, dict_ops, idx.to(torch.uint8), depth
+
+
 def _flat(outputs) -> list:
     """The tensors of a window's outputs (tables and reads unpacked)."""
     out = []
@@ -424,6 +462,65 @@ def _flat(outputs) -> list:
         elif x is not None:
             out.append(x)
     return out
+
+
+# -- phase 8 -----------------------------------------------------------------
+
+
+def dict_kernel_vs_plain(device) -> int:
+    """The kv-window kernel on dictionary-form ops (plain window, with the
+    decision as SET, mixed and lookup windows) and the read-only probe in
+    both forms, against their plain versions: every output plane, the
+    flags and the untouched input table. Ragged S, P of 7, 64 and 130, D
+    in {1, 2, 17, 32}, W of 16 and 40, op widths at and below the
+    table's. Returns the largest absolute difference seen (must be 0)."""
+    gen = torch.Generator(device=device).manual_seed(18)
+    worst, i = 0, 0
+    for S, P, K4, VW4 in ((17, 7, 8, 16), (1000, 64, 8, 16), (33, 130, 3, 5)):
+        for D in (1, 2, 17, 32):
+            for W in (16, 40):
+                i += 1
+                ku4, vwu4 = (K4, VW4) if i % 2 else (min(2, K4), min(4, VW4))
+                table, kind, dops, idx, depth = random_dict_case(gen, S, P, K4, VW4, W, ku4, vwu4,
+                                                                 D, device)
+                keys_only = (dops[0], None, dops[2], None)
+                before = [x.clone() for x in table]
+                cases = [("window", kv_window.kv_window_plain(table, kind, *dops, depth, idx=idx,
+                                                              want_reads=True),
+                          kv_window.KV_WINDOW(table, kind, *dops, depth, idx=idx, want_reads=True))]
+                R = (1, 5, 7)[i % 3]
+                mk = MeshPhaseKernel(S, R, coin_p1=(0.0, 0.5, 1.0)[i % 3], seed=S + i,
+                                     device=device)
+                _, alive, base = mesh_case(gen, S, R, 1, device)
+                if i % 2:
+                    alive = torch.ones_like(alive)
+                for mode, k, planes, kw in (
+                    ("set", None, dops, {}),
+                    ("mixed", kind, dops, {"want_reads": True}),
+                    ("lookup", kv_window.KIND_GET, keys_only,
+                     {"want_table": False, "want_reads": True}),
+                ):
+                    cases.append((mode, kv_window.decide_window_plain(
+                        mk, table, k, *planes, depth, alive, base, 4, idx=idx, **kw),
+                        kv_window.KV_WINDOW.decide(
+                            table, k, *planes, depth, alive, base, seed=mk.seed,
+                            coin_p1=mk.coin_p1, max_phases=4, idx=idx, **kw)))
+                probe = {"want_table": False, "want_reads": True}
+                rows = kv_window.expand_dict(idx, *keys_only)
+                for form, planes, ix in (("probe", keys_only, idx), ("probe rows", rows, None)):
+                    cases.append((form, kv_window.kv_window_plain(
+                        table, kv_window.KIND_GET, *planes, 0, idx=ix, **probe),
+                        kv_window.KV_WINDOW(table, kv_window.KIND_GET, *planes, 0, idx=ix, **probe)))
+                torch.cuda.synchronize(device)
+                for mode, want, got in cases:
+                    want, got = _flat(want), _flat(got)
+                    _check(len(want) == len(got), f"dictionary window outputs differ in kind ({mode})")
+                    for a, b in [*zip(before, table), *zip(want, got)]:
+                        worst = max(worst, _max_err(a, b))
+                        _check(torch.equal(a, b),
+                               f"kv_window {mode} on the dictionary form != plain at S={S} P={P} "
+                               f"D={D} W={W} depth={depth} ku4={ku4} vwu4={vwu4} R={R}")
+    return worst
 
 
 def _time_ms(fn, reps: int) -> float:
@@ -713,6 +810,189 @@ def device_kv_lane(device, S: int, R: int, window: int = 16, P: int = P_FULL, se
     return stats, dev
 
 
+def lane_programs(dkv, S: int, R: int, W: int = 16) -> dict:
+    """``decide_apply``, ``lookup_window``, ``mixed_apply`` and
+    ``lookup_only`` through a device table (on its current table, read
+    and written functionally: nothing is adopted), each in the row form
+    and in the dictionary form: each call must be one kv-window launch
+    of its form and no mesh-window launch, and a clean window's flags
+    must be clean. Returns the packed windows, for timing."""
+    alive, base = np.ones((S, R), bool), np.zeros(S, np.int32)
+    shards = range(S)
+    set_blocks = [build_block(shards, [[_set_op(_key(s, j), b"timed")] for s in shards])
+                  for j in range(W)]
+    get_blocks = [build_block(shards, [[_key_op(2, _key(s, j))] for s in shards]) for j in range(W)]
+    mixed_blocks = [build_block(shards, [[_key_op((2, 3, 4)[(j + s) % 3], _key(s, j)) if (j + s) % 4
+                                          else _set_op(_key(s, j), b"m")] for s in shards])
+                    for j in range(W)]
+    win = {
+        "set rows": dkv.pack_window(set_blocks), "set dict": dkv.pack_window_dict(set_blocks),
+        "get rows": dkv.pack_get_window(get_blocks), "get dict": dkv.pack_get_window_auto(get_blocks),
+        "mixed rows": dkv.pack_mixed_window(mixed_blocks),
+        "mixed dict": dkv.pack_mixed_window_auto(mixed_blocks)[:2],
+    }
+    _check(all(isinstance(win[f"{k} dict"], DeviceDictOps) or isinstance(win[f"{k} dict"][1],
+                                                                         DeviceDictOps)
+               for k in ("set", "get", "mixed")), "a W=16 window was not packed as a dictionary")
+    for form in ("rows", "dict"):
+        kind, mixed = win[f"mixed {form}"]
+        get_waves = np.nonzero((kind >= 2).any(axis=1))[0].astype(np.int32)
+        calls = {
+            "decide_apply": lambda: dkv.decide_apply(alive, base, W, win[f"set {form}"], W=W),
+            "lookup_window": lambda: dkv.lookup_window(alive, base, W, win[f"get {form}"], W=W),
+            "mixed_apply": lambda: dkv.mixed_apply(alive, base, W, kind, get_waves, mixed, W=W),
+            "lookup_only": lambda: dkv.lookup_only(win[f"get {form}"], W=W),
+        }
+        for what, call in calls.items():
+            key = form + ("" if what == "lookup_only" else "+decide")
+            counts, mw0 = dict(kv_window.KV_WINDOW.counts), mesh_window.MESH_WINDOW.launches
+            out = call()
+            torch.cuda.synchronize()
+            counts[key] += 1
+            _check(kv_window.KV_WINDOW.counts == counts
+                   and mesh_window.MESH_WINDOW.launches == mw0,
+                   f"{what} ({form}) was not one kv-window launch of its form and no mesh launch")
+            if what == "lookup_only":
+                _check(bool(out[0].any()), f"{what} ({form}) found nothing")
+                continue
+            flags = out[0] if what == "lookup_window" else out[1]
+            _check(bool((flags == 1).all()) if what == "lookup_window"
+                   else flags.tolist() == [1, 0, 0],
+                   f"{what} ({form}): a clean window reported flags {flags.tolist()}")
+    return win
+
+
+def _zipf_keys(rng, n: int, S: int, P: int) -> np.ndarray:
+    """Key ranks i64[n, S] of each shard's P keys under Zipf(1.2)
+    (BASELINE config 5's ``zipf_s``), rank 0 the hottest."""
+    w = 1.0 / np.arange(1, P + 1) ** 1.2
+    return rng.choice(P, size=(n, S), p=w / w.sum())
+
+
+def device_read_lane(device, S: int, R: int, window: int = 16, P: int = P_FULL, seed: int = 9,
+                     groups: int = 4):
+    """The read lane at full width: a ``device_read_lane=True`` engine, a
+    device-lane engine with the read lane off, and a host block-lane
+    engine, all filled with phase 7's 64 SET waves, then driven with a
+    90/10 GET/SET stream of full-width blocks (groups of 9 GET blocks and
+    1 SET block, a flush after each group) under two key streams:
+    phase 7's (uniform keys, some never set, a fresh value per op) and a
+    Zipf(1.2) one (a key repeats its value within a group). Every
+    response of the read lane equals the read-lane-off engine's; the
+    first group of each stream is also held against the host lane (whose
+    GETs are Python per op; the later groups give it their SET block
+    only, so the stores stay equal). Returns (stats, read-lane engine)."""
+    rng = np.random.default_rng(seed)
+    shards = list(range(S))
+
+    def make(device_store: bool, read_lane: bool = False) -> MeshEngine:
+        return MeshEngine(
+            lambda: VectorShardedKV(S, capacity=max(1 << 16, 4 * S * P)), S, R,
+            window=window, device=device, device_store=device_store,
+            device_store_kw={"per_shard_capacity": P}, device_read_lane=read_lane,
+        )
+
+    lane, slots, host = make(True, True), make(True), make(False)
+
+    def wave(ops) -> object:
+        return build_block(shards, [[op] for op in ops])
+
+    fill = [wave([_set_op(_key(s, j), _value(rng, j, s)) for s in shards]) for j in range(P)]
+    for eng in (lane, slots, host):
+        for b in fill:
+            eng.submit_block(b)
+        eng.flush()
+    stats = {}
+    for stream in ("uniform", "zipf"):
+        grps = []
+        for g in range(groups):
+            if stream == "uniform":
+                ks = rng.integers(0, P + 8, (10, S))
+                vals = [_value(rng, 400 + g, s) for s in shards]
+            else:
+                ks = _zipf_keys(rng, 10, S, P)
+                vals = [b"z%d.%d" % (g, int(ks[9, s])) for s in shards]
+            grp = [wave([_key_op(2, _key(s, int(ks[i, s]))) for s in shards]) for i in range(9)]
+            grp.append(wave([_set_op(_key(s, int(ks[9, s]) % P), vals[s]) for s in shards]))
+            grps.append(grp)
+        futs, secs = {}, {}
+        before = (lane.read_lane_stats(), lane.decided_v1, slots.decided_v1)
+        for name, eng in (("lane", lane), ("slots", slots), ("host", host)):
+            futs[name] = []
+            t0 = time.perf_counter()
+            for g, grp in enumerate(grps):
+                sent = grp if name != "host" or g == 0 else grp[-1:]
+                futs[name].append([eng.submit_block(b) for b in sent])
+                eng.flush()
+            secs[name] = time.perf_counter() - t0
+        for g in range(groups):
+            for fl, fs in zip(futs["lane"][g], futs["slots"][g]):
+                _check([list(map(bytes, x)) for x in fl.result()]
+                       == [list(map(bytes, x)) for x in fs.result()],
+                       f"read lane responses differ from the consensus GET window's ({stream}, "
+                       f"group {g})")
+        for fl, fh in zip(futs["lane"][0], futs["host"][0]):
+            _check([list(map(bytes, x)) for x in fl.result()]
+                   == [list(map(bytes, x)) for x in fh.result()],
+                   f"read lane responses differ from the host lane's ({stream})")
+        rl = lane.read_lane_stats()
+        read_slots = lane.decided_v1 - before[1] - groups * S  # the SET blocks take S each
+        _check(read_slots == 0, f"probe reads consumed {read_slots} slots ({stream})")
+        _check(rl["probe"] - before[0]["probe"] == groups * 9 * S,
+               f"not every GET was served off consensus ({stream})")
+        _check(slots.decided_v1 - before[2] == groups * 10 * S, "the read-lane-off engine's slots")
+        ops = groups * 10 * S
+        stats[stream] = {
+            "ops": ops, "probe_windows": rl["probe_windows"] - before[0]["probe_windows"],
+            "read_slots": read_slots, "fallback": rl["fallback"] - before[0]["fallback"],
+            "lane_ops_per_s": ops / secs["lane"], "lane_off_ops_per_s": ops / secs["slots"],
+        }
+    for eng in (lane, slots, host):
+        _check(eng.device_lane_active == (eng is not host), "a device lane demoted")
+    # every store equal after the streams
+    for eng in (lane, slots):
+        eng.sync_to_host()
+    want = _snapshot_sans_clock(host.sms[0])
+    for eng in (lane, slots):
+        _check(_snapshot_sans_clock(eng.sms[0]) == want, "a store differs from the host lane's")
+    return stats, lane
+
+
+def pack_costs(dkv, S: int, P: int = P_FULL, W: int = 16, seed: int = 10, reps: int = 5) -> dict:
+    """Host ms of the packers and the op-plane bytes a window uploads, row
+    form against the ``_auto`` (dictionary) packers, for a SET and a GET
+    window of W full-width blocks under phase 7's fill stream (every op a
+    distinct row) and the Zipf(1.2) stream."""
+    rng = np.random.default_rng(seed)
+    shards = range(S)
+    out = {}
+    for stream in ("fill", "zipf"):
+        ks = (np.broadcast_to(np.arange(W)[:, None], (W, S)) if stream == "fill"
+              else _zipf_keys(rng, W, S, P))
+        sets = [build_block(shards, [[_set_op(_key(s, int(ks[t, s])),
+                                               b"z%d" % ks[t, s] if stream == "zipf"
+                                               else _value(rng, t, s))] for s in shards])
+                for t in range(W)]
+        gets = [build_block(shards, [[_key_op(2, _key(s, int(ks[t, s])))] for s in shards])
+                for t in range(W)]
+        for what, blocks, rows_fn, auto_fn, values in (
+            ("set", sets, dkv.pack_window, dkv.pack_window_auto, True),
+            ("get", gets, dkv.pack_get_window, dkv.pack_get_window_auto, False),
+        ):
+            row = {}
+            for form, fn in (("rows", rows_fn), ("auto", auto_fn)):
+                t0 = time.perf_counter()
+                for _ in range(reps):
+                    ops = fn(blocks)
+                row[f"{form}_host_ms"] = (time.perf_counter() - t0) * 1e3 / reps
+                row[f"{form}_upload_bytes"] = sum(
+                    a.nbytes for a in dkv._host_ops(ops, W, values) if a is not None)
+                if form == "auto":
+                    row["D"] = int(ops.dkl.shape[1]) if isinstance(ops, DeviceDictOps) else None
+            out[f"{stream} {what}"] = row
+    return out
+
+
 # -- the run -----------------------------------------------------------------
 
 
@@ -777,11 +1057,16 @@ def main() -> int:
     err6_fold = decide_kernel_vs_plain(device)
     print(f"phase 6 kv_window with the decision vs plain: max_abs_err {err6_fold} "
           f"({time.perf_counter() - t0:.2f} s)")
+    t0 = time.perf_counter()
+    err8 = dict_kernel_vs_plain(device)
+    print(f"phase 8 kv_window on the dictionary form (window, SET/mixed/lookup with the "
+          f"decision) and the read-only probe vs plain: max_abs_err {err8} "
+          f"({time.perf_counter() - t0:.2f} s)")
 
     # ---- the main path: counts reset just before, read just after ----
     fused_window.FUSED_WINDOW.launches = 0
     fused_window.FUSED_WINDOW_TSR.launches = 0
-    kv_window.KV_WINDOW.launches = 0
+    kv_window.KV_WINDOW.reset_counts()
     mesh_window.MESH_WINDOW.launches = 0
     t0 = time.perf_counter()
     k, bufs, alive, err4 = decision_core(device, S_FULL, R_FULL, T_FULL)
@@ -797,14 +1082,23 @@ def main() -> int:
     t7 = time.perf_counter()
     kv_lane, kv_eng = device_kv_lane(device, S_FULL, R_FULL)
     t7 = time.perf_counter() - t7
+    # the device table's programs in both forms, one launch of their form each
+    win = lane_programs(kv_eng._dev, S_FULL, R_FULL)
+    t8 = time.perf_counter()
+    read_lane, rl_eng = device_read_lane(device, S_FULL, R_FULL)
+    t8 = time.perf_counter() - t8
     launches = fused_window.FUSED_WINDOW.launches
     tsr_launches = fused_window.FUSED_WINDOW_TSR.launches
-    kv_launches = kv_window.KV_WINDOW.launches
+    kv_counts = dict(kv_window.KV_WINDOW.counts)
     mesh_launches = mesh_window.MESH_WINDOW.launches
     main_s = time.perf_counter() - t0
     _check(launches > 0, "the main path never launched the fused window kernel")
     _check(tsr_launches > 0, "the main path never launched the [T,S,R] fused window kernel")
-    _check(kv_launches > 0, "the main path never launched the kv window kernel")
+    _check(kv_counts["rows+decide"] > 0, "the main path never launched the kv window kernel")
+    _check(kv_counts["dict+decide"] > 0,
+           "the main path never launched the kv window kernel on the dictionary form")
+    _check(kv_counts["dict"] + kv_counts["rows"] > 0,
+           "the main path never launched the kv window kernel's read-only probe")
     _check(mesh_launches > 0, "the main path never launched the mesh window kernel")
     # ---- end of the main path ----
 
@@ -887,42 +1181,89 @@ def main() -> int:
     kv_bound_ms = (2 * tbl_bytes + op_bytes + read_bytes) / rate * 1e3
     fold_bound_ms = (2 * tbl_bytes + op_bytes + read_bytes + decide_bytes) / rate * 1e3
 
-    # the device lane's three programs on the phase-7 table: each is one
-    # kv-window launch and no mesh-window launch
+    # the dictionary form and the probe on the phase-7 table, at the lane's
+    # shapes: the SET window with the decision on phase 7's fill stream (D
+    # = W: every op its own row) and on the Zipf stream, beside the row
+    # form, in turns; the probe beside the lookup window's kernel
     dkv = kv_eng._dev
     lane_alive = np.ones((S_FULL, R_FULL), bool)
     lane_base = np.zeros(S_FULL, np.int32)
-    shards = range(S_FULL)
-    set_ops = dkv.pack_window([
-        build_block(shards, [[_set_op(_key(s, j), b"timed")] for s in shards]) for j in range(W)
-    ])
-    get_ops = dkv.pack_get_window([
-        build_block(shards, [[_key_op(2, _key(s, j))] for s in shards]) for j in range(W)
-    ])
-    mixed_kind, mixed_ops = dkv.pack_mixed_window([
-        build_block(shards, [[_key_op((2, 3, 4)[(j + s) % 3], _key(s, j)) if (j + s) % 4
-                              else _set_op(_key(s, j), b"m")] for s in shards])
-        for j in range(W)
-    ])
-    get_waves = np.nonzero((mixed_kind >= 2).any(axis=1))[0].astype(np.int32)
-    programs = {
-        "decide_apply": lambda i=0: dkv.decide_apply(lane_alive, lane_base, W, set_ops, W=W),
-        "lookup_window": lambda i=0: dkv.lookup_window(lane_alive, lane_base, W, get_ops, W=W),
-        "mixed_apply": lambda i=0: dkv.mixed_apply(lane_alive, lane_base, W, mixed_kind,
-                                                   get_waves, mixed_ops, W=W),
-    }
-    for what, call in programs.items():
-        kv0, mw0 = kv_window.KV_WINDOW.launches, mesh_window.MESH_WINDOW.launches
-        out = call()
-        torch.cuda.synchronize(device)
-        _check(kv_window.KV_WINDOW.launches == kv0 + 1 and mesh_window.MESH_WINDOW.launches == mw0,
-               f"{what} did not launch the kv-window kernel exactly once and the mesh window never")
-        flags = out[0] if what == "lookup_window" else out[1]
-        _check(bool((flags == 1).all()) if what == "lookup_window" else flags.tolist() == [1, 0, 0],
-               f"{what}: a clean window reported flags {flags.tolist()}")
+    costs = pack_costs(dkv, S_FULL)
+    zrng = np.random.default_rng(11)
+    zk = _zipf_keys(zrng, W, S_FULL, P_FULL)
+    zipf_sets = dkv.pack_window_dict([
+        build_block(range(S_FULL), [[_set_op(_key(s, int(zk[t, s])), b"z%d" % zk[t, s])]
+                                    for s in range(S_FULL)]) for t in range(W)])
+    state = dkv.state
+
+    def on_card(ops, values=True):
+        return dkv._upload(dkv._host_ops(ops, W, values))
+
+    fill_rows, fill_dict, zipf_dict = (on_card(win["set rows"]), on_card(win["set dict"]),
+                                       on_card(zipf_sets))
+    decide_kw = dict(seed=mk.seed, coin_p1=mk.coin_p1, max_phases=4)
+
+    def set_call(planes):
+        idx, klen, vlen, kw, vw = planes
+        return lambda i=0: kv_window.KV_WINDOW.decide(state, None, klen, vlen, kw, vw, W, walive,
+                                                      wbase, idx=idx, **decide_kw)
+
+    row_call, dict_call, zdict_call = set_call(fill_rows), set_call(fill_dict), set_call(zipf_dict)
+    set_turns = {"rows": [_graph_ms(row_call, 50)], "dict": [], "zipf": []}
+    for _ in range(2):
+        set_turns["dict"].append(_graph_ms(dict_call, 50))
+        set_turns["zipf"].append(_graph_ms(zdict_call, 50))
+    set_turns["rows"].append(_graph_ms(row_call, 50))
+    dict_ms, zdict_ms = min(set_turns["dict"]), min(set_turns["zipf"])
+    dict_plain_ms = _time_ms(lambda i=0: kv_window.decide_window_plain(
+        mk, state, None, *fill_dict[1:], W, walive, wbase, 4, idx=fill_dict[0]), 3)
+    dict_err = 0
+    for planes in (fill_dict, zipf_dict):
+        got = set_call(planes)()
+        want = kv_window.decide_window_plain(mk, state, None, *planes[1:], W, walive, wbase, 4,
+                                             idx=planes[0])
+        dict_err = max([dict_err] + [_max_err(a, b) for a, b in zip(_flat(want), _flat(got))])
+    # the probe on the GET window of lane_programs (D = 16), beside the lookup window's kernel
+    gidx, gklen, _, gkw, _ = on_card(win["get dict"], values=False)
+    _, rklen, _, rkw, _ = on_card(win["get rows"], values=False)
+    probe_kw = dict(want_table=False, want_reads=True)
+    probe_call = lambda i=0: kv_window.KV_WINDOW(  # noqa: E731
+        state, kv_window.KIND_GET, gklen, None, gkw, None, 0, idx=gidx, **probe_kw)
+    lookup_call = lambda i=0: kv_window.KV_WINDOW.decide(  # noqa: E731
+        state, kv_window.KIND_GET, rklen, None, rkw, None, W, walive, wbase, **decide_kw,
+        **probe_kw)
+    probe_turns, lookup_turns = [_graph_ms(probe_call, 50)], []
+    for _ in range(2):
+        lookup_turns.append(_graph_ms(lookup_call, 50))
+    probe_turns.append(_graph_ms(probe_call, 50))
+    probe_ms = min(probe_turns)
+    probe_plain_ms = _time_ms(lambda i=0: kv_window.kv_window_plain(
+        state, kv_window.KIND_GET, gklen, None, gkw, None, 0, idx=gidx, **probe_kw), 3)
+    probe_want = kv_window.kv_window_plain(state, kv_window.KIND_GET, gklen, None, gkw, None, 0,
+                                           idx=gidx, **probe_kw)
+    probe_err = max(_max_err(a, b) for a, b in zip(_flat(probe_want), _flat(probe_call())))
+    probe_prof = _device_busy(lambda i=0: dkv.lookup_only(win["get dict"], W=W), 10,
+                              kernel="kv_window")
+    # bounds: each input byte read once, each output byte written once
+    nbytes = lambda xs: sum(x.numel() * x.element_size() for x in xs if x is not None)  # noqa: E731
+    dict_bound_ms = (2 * tbl_bytes + nbytes(fill_dict) + S_FULL + decide_bytes) / rate * 1e3
+    zdict_bound_ms = (2 * tbl_bytes + nbytes(zipf_dict) + S_FULL + decide_bytes) / rate * 1e3
+    # the probe reads the shards' used flags, keys and key lengths, and for
+    # each distinct slot a GET finds, its version, value length and value
+    found, ver = probe_want[2].found, probe_want[2].ver
+    hit_slots = len({(int(s), int(v)) for s, v in zip(
+        *(x.cpu().numpy() for x in (torch.nonzero(found)[:, 1], ver[found])))})
+    probe_in = (state.used.numel() + 4 * (state.keyw.numel() + state.klen.numel())
+                + hit_slots * (8 + 4 * state.valw.shape[2]))
+    probe_out = W * S_FULL * (1 + 4 + 4 + 4 * state.valw.shape[2]) + S_FULL
+    probe_bound_ms = (probe_in + nbytes((gidx, gklen, gkw)) + probe_out) / rate * 1e3
+
     # one whole SET window of the device lane (one upload, one launch) on
     # the phase-7 table, under the profiler
-    lane_prof = _device_busy(programs["decide_apply"], 10, kernel="kv_window")
+    lane_prof = _device_busy(lambda i=0: dkv.decide_apply(
+        lane_alive, lane_base, W, win["set dict"], W=W), 10, kernel="kv_window")
+    rows_prof = _device_busy(lambda i=0: dkv.decide_apply(
+        lane_alive, lane_base, W, win["set rows"], W=W), 10, kernel="kv_window")
     slot_prof = _device_busy(lambda i=0: mk.slot_window(wvotes, walive, wbase, n_slots=16), 10)
 
     R, T, S = votes.shape
@@ -967,11 +1308,31 @@ def main() -> int:
             f"{p['kernels']:g} kernels a call")
         return f"wall {p['wall_ms']:.4f} ms, {dev}"
 
-    print(f"phase 7 decide_apply, lookup_window, mixed_apply: one kv-window launch and no "
-          f"mesh-window launch each")
+    print("phase 7 decide_apply, lookup_window, mixed_apply, lookup_only: one kv-window launch "
+          "of their form and no mesh-window launch each, in the row and the dictionary form")
+    print(f"phase 8 read lane S={S_FULL} R={R_FULL} window=16 P={P_FULL}, 90/10 GET/SET groups: "
+          f"{json.dumps(read_lane)} ({t8:.2f} s)")
+    print(f"phase 8 packers (host ms a window of 16 full-width blocks, op-plane upload bytes; "
+          f"rows vs auto): {json.dumps(costs)}")
+    print(f"phase 8 kv_window SET with the decision S={S_FULL} P={P_FULL} W={W}, full table, "
+          f"device time (CUDA graph replay), in turns (rows, dict, zipf, dict, zipf, rows): rows "
+          f"{set_turns['rows'][0]:.4f} / {set_turns['rows'][1]:.4f} ms, dictionary D=16 "
+          f"{set_turns['dict'][0]:.4f} / {set_turns['dict'][1]:.4f} ms "
+          f"({dict_bound_ms / dict_ms:.1%} of its {dict_bound_ms:.4f} ms bytes bound), "
+          f"Zipf dictionary D={int(zipf_dict[1].shape[1])} {set_turns['zipf'][0]:.4f} / "
+          f"{set_turns['zipf'][1]:.4f} ms ({zdict_bound_ms / zdict_ms:.1%} of "
+          f"{zdict_bound_ms:.4f} ms); plain {dict_plain_ms:.3f} ms; max_abs_err {dict_err}")
+    print(f"phase 8 lookup_only probe S={S_FULL} W={W} D={int(gklen.shape[1])}, device time "
+          f"(CUDA graph replay), in turns (probe, lookup, lookup, probe): "
+          f"{probe_turns[0]:.4f} / {lookup_turns[0]:.4f} / {lookup_turns[1]:.4f} / "
+          f"{probe_turns[1]:.4f} ms; bytes bound {probe_bound_ms:.5f} ms ({hit_slots} slots "
+          f"read); plain {probe_plain_ms:.3f} ms; one lookup_only call under the profiler: "
+          f"{_fmt(probe_prof)}; max_abs_err {probe_err}")
     print(f"phase 7 one device-lane SET window (one upload, one kv_window launch with the "
-          f"decision) under the profiler: {_fmt(lane_prof)}"
-          + ("" if lane_prof["kernel_ms"] is None else f", kv_window {lane_prof['kernel_ms']:.4f} ms"))
+          f"decision, dictionary form) under the profiler: {_fmt(lane_prof)}"
+          + ("" if lane_prof["kernel_ms"] is None else f", kv_window {lane_prof['kernel_ms']:.4f} ms")
+          + f"; the row form {_fmt(rows_prof)}"
+          + ("" if rows_prof["kernel_ms"] is None else f", kv_window {rows_prof['kernel_ms']:.4f} ms"))
     print(f"phase 7 slot_window alone (S={S_FULL} R={R_FULL} 16 slots; the queue and host block "
           f"lanes) under the profiler: {_fmt(slot_prof)}")
     print(f"phase 7 mesh_window S={S_FULL} R={R_FULL} T=16: device time (CUDA graph replay), in "
@@ -982,8 +1343,8 @@ def main() -> int:
           f"bound {max(mw_bytes_ms, mw_ops_ms):.5f} ms (bytes {mw_bytes} -> {mw_bytes_ms:.5f} ms, "
           f"int ops {mw_ops} -> {mw_ops_ms:.5f} ms; {mw_phases} phases, {mw_coins} coins)")
     print(f"main path: {launches} fused-window launches, {tsr_launches} [T,S,R] fused-window "
-          f"launches, {kv_launches} kv-window launches, {mesh_launches} mesh-window launches, "
-          f"{main_s:.2f} s")
+          f"launches, kv-window launches {json.dumps(kv_counts)}, {mesh_launches} mesh-window "
+          f"launches, {main_s:.2f} s")
 
     kernels = [{
         "name": "fused_window",
@@ -1014,13 +1375,37 @@ def main() -> int:
         "route": "cuda",
         "source": "rabia_tpu_torch/csrc/kv_window.cu",
         "replaces": "rabia_tpu/apps/device_kv.py:1218",
-        "launches": kv_launches,
+        "launches": kv_counts["rows+decide"],
         "max_abs_err": max(err6, err6_fold, fold_err),
         "ms": fold_ms,  # with the decision folded in, as the device lane launches it
         "plain_ms": fold_plain_ms,
         "bound_ms": fold_bound_ms,
         "bound_by": "bytes",
         "library_ms": None,  # no single PyTorch call computes an associative match-and-update
+    }, {
+        "name": "kv_window_dict",
+        "route": "cuda",
+        "source": "rabia_tpu_torch/csrc/kv_window.cu",
+        "replaces": "rabia_tpu/apps/device_kv.py:1003",
+        "launches": kv_counts["dict+decide"],
+        "max_abs_err": max(err8, dict_err),
+        "ms": dict_ms,  # SET window with the decision, D = W = 16 (phase 7's fill stream)
+        "plain_ms": dict_plain_ms,
+        "bound_ms": dict_bound_ms,
+        "bound_by": "bytes",
+        "library_ms": None,  # no single PyTorch call computes an associative match-and-update
+    }, {
+        "name": "kv_window_probe",
+        "route": "cuda",
+        "source": "rabia_tpu_torch/csrc/kv_window.cu",
+        "replaces": "rabia_tpu/apps/device_kv.py:850",
+        "launches": kv_counts["dict"] + kv_counts["rows"],
+        "max_abs_err": max(err8, probe_err),
+        "ms": probe_ms,
+        "plain_ms": probe_plain_ms,
+        "bound_ms": probe_bound_ms,
+        "bound_by": "bytes",
+        "library_ms": None,  # no single PyTorch call matches keys against a slot table
     }, {
         "name": "mesh_window",
         "route": "cuda",

@@ -27,10 +27,15 @@ of the key and value bytes, zero past their length):
 
 Matching is a full-key compare against all P slots of the op's shard, so
 slot layout differs from the host store but the observable key ->
-(value, version) mapping cannot. Not ported yet: the dictionary-
-compressed uploads and the consensus-free ``lookup_only`` read window
-(ROADMAP Queue 1, items 1-2). The window packers are the reference's numpy path (its
-``RABIA_PY_DEVPACK=1`` path), byte for byte.
+(value, version) mapping cannot. The window packers are the reference's
+numpy path (its ``RABIA_PY_DEVPACK=1`` path), byte for byte, including
+its dictionary form (:class:`DeviceDictOps`: each shard's distinct op
+rows once, and a rank per (wave, shard)), which the ``*_auto`` packers
+choose whenever a window has at most 32 distinct rows per shard: at the
+lane's window of 16 that is every window. Every program takes either
+form; the kernel reads the dictionary in place. ``lookup_only`` is the
+consensus-free read window of the read lane: no decision, no slot, no
+output table.
 """
 
 from __future__ import annotations
@@ -48,6 +53,7 @@ from rabia_tpu_torch.kernel import kv_window
 from rabia_tpu_torch.kernel.kv_window import KIND_GET, VERSION_WRAP, KVTable
 
 __all__ = [
+    "DeviceDictOps",
     "DeviceKVTable",
     "DeviceWindowOps",
     "GetFrameGroups",
@@ -56,6 +62,22 @@ __all__ = [
 ]
 
 _SET_HDR = 3  # binary op: u8 opcode + u16 klen + key + value
+
+# fixed odd multipliers of the dictionary packer's 64-bit row hash (a
+# collision is caught by the full byte compare, never trusted)
+_HASH_W = np.random.default_rng(0x5EED).integers(1, 2**62, 4, dtype=np.uint64) * 2 + 1
+
+
+def _fold_words(a: np.ndarray) -> np.ndarray:
+    """Polynomial fold of a u8[..., B] byte plane into u64[...], viewed
+    as native u32/u64 words (B is a power of two >= 4), mod 2^64."""
+    mul = np.uint64(0x9E3779B97F4A7C15)
+    w = a.view(np.uint64) if a.shape[-1] % 8 == 0 else a.view(np.uint32)
+    h = np.zeros(a.shape[:-1], np.uint64)
+    for j in range(w.shape[-1]):
+        h *= mul
+        h += w[..., j]
+    return h
 
 
 def _bucket(n: int, lo: int = 4) -> int:
@@ -75,6 +97,29 @@ class DeviceWindowOps(NamedTuple):
     vlen: np.ndarray  # i16[W, S]
     kwin: np.ndarray  # u32[W, S, Ku/4]
     vwin: np.ndarray  # u32[W, S, VWu/4]
+
+
+class DeviceDictOps(NamedTuple):
+    """One window dictionary-compressed for upload (host numpy arrays):
+    each shard's distinct (key, value) rows once (D rows a shard) and a
+    rank per (wave, shard). A GET row is a key with an empty value."""
+
+    idx: np.ndarray  # u8[W, S] within-shard dictionary rank
+    dkl: np.ndarray  # i16[S, D] key lengths
+    dvl: np.ndarray  # i16[S, D] value lengths
+    dk: np.ndarray  # u32[S, D, Ku/4] key words
+    dv: np.ndarray  # u32[S, D, VWu/4] value words
+
+
+def _pad_dict_idx(ops: DeviceDictOps, W: int) -> DeviceDictOps:
+    """Pad the rank plane to the window's W waves with rank 0. Rank 0
+    names a real dictionary row: the SET and mixed programs leave pad
+    waves out by depth, while ``lookup_only`` (which has no depth) reads
+    row 0's key on them, as the reference's probe does."""
+    if ops.idx.shape[0] < W:
+        pad = np.zeros((W - ops.idx.shape[0], ops.idx.shape[1]), np.uint8)
+        ops = ops._replace(idx=np.concatenate([ops.idx, pad]))
+    return ops
 
 
 def _get_frame(found: bool, ver: int, val: bytes) -> bytes:
@@ -348,66 +393,226 @@ class DeviceKVTable:
             return None
         return g[1], np.ascontiguousarray(g[3]).view(np.uint32)
 
-    # -- the programs ----------------------------------------------------------
+    def pack_window_dict(self, blocks, max_dict: int = 32) -> Optional[DeviceDictOps]:
+        """Dictionary-compress a SET window: per-shard distinct (key,
+        value) rows and a rank per (wave, shard); None when outside the
+        envelope, over ``max_dict`` rows in a shard, or when the byte
+        compare finds a hash collision (the caller then packs rows)."""
+        g = self._gather_window(blocks, "set")
+        if g is None:
+            return None
+        return self._dict_from_gathered(g, max_dict)
 
-    def _window(self, alive, base, depth: int, kind: Optional[np.ndarray], klen, vlen, kwin,
-                vwin, W: int, max_phases: int, state: Optional[KVTable], *,
-                want_table: bool = True, want_reads: bool = False):
-        """Upload one window's host arrays (op planes padded with empty
-        waves to W) in one copy, then decide and apply it
-        (:func:`kv_window.decide_window`; ``kind`` None: every op is a
-        SET). Returns ``(new table or None, overflow, reads, flags)``."""
-        def pad(a):
-            if a.shape[0] == W:
-                return a
-            return np.concatenate([a, np.zeros((W - a.shape[0],) + a.shape[1:], a.dtype)])
-
-        host = [np.asarray(alive, bool), np.asarray(base, np.int32), pad(klen), pad(vlen),
-                pad(kwin).view(np.int32), pad(vwin).view(np.int32)]
-        if kind is not None:
-            host.append(pad(kind))
-        dev = to_device_all(host, self.device)
-        return kv_window.decide_window(
-            self.kernel, self.state if state is None else state,
-            dev[6] if kind is not None else None, *dev[2:6], depth, dev[0], dev[1], max_phases,
-            want_table=want_table, want_reads=want_reads,
+    @staticmethod
+    def _dict_from_gathered(g: tuple, max_dict: int = 32) -> Optional[DeviceDictOps]:
+        """The dictionary form of a gathered window. Rows are told apart
+        by a 64-bit hash sorted per shard; every op is then compared byte
+        for byte with the row its rank names, so the result never rides
+        on the hash: a collision returns None."""
+        _kind, klen_w, vlen_w, kwin_w, vwin_w = g
+        W, S = klen_w.shape
+        h = klen_w.astype(np.uint64) * _HASH_W[0]
+        h += vlen_w.astype(np.uint64) * _HASH_W[1]
+        h += _fold_words(kwin_w) * _HASH_W[2]
+        h += _fold_words(vwin_w) * _HASH_W[3]
+        if bool((h == h[:1]).all()):
+            # every wave repeats its shard's one row: D = 1, wave 0 the
+            # representative, no sort (the same full compare follows)
+            ok = (
+                (klen_w == klen_w[:1]).all()
+                and (vlen_w == vlen_w[:1]).all()
+                and (kwin_w == kwin_w[:1]).all()
+                and (vwin_w == vwin_w[:1]).all()
+            )
+            if not bool(ok):
+                return None
+            # copies: views would pin the whole [W, S, *] gather planes
+            return DeviceDictOps(
+                np.zeros((W, S), np.uint8),
+                klen_w[:1].T.copy(),
+                vlen_w[:1].T.copy(),
+                kwin_w[0][:, None].copy().view(np.uint32),
+                vwin_w[0][:, None].copy().view(np.uint32),
+            )
+        h = np.ascontiguousarray(h.T)  # [S, W]
+        o = np.argsort(h, axis=1, kind="stable")
+        hs = np.take_along_axis(h, o, axis=1)
+        new = np.ones((S, W), bool)
+        new[:, 1:] = hs[:, 1:] != hs[:, :-1]
+        rank_sorted = np.cumsum(new, axis=1) - 1  # [S, W]
+        D = int(rank_sorted[:, -1].max()) + 1
+        if D > max_dict:
+            return None
+        rank = np.empty((S, W), np.int64)
+        np.put_along_axis(rank, o, rank_sorted, axis=1)
+        # representative wave of each (shard, row): its first occurrence
+        rep_t = np.zeros((S, D), np.int64)
+        s_new, pos_new = np.nonzero(new)
+        rep_t[s_new, rank_sorted[s_new, pos_new]] = o[s_new, pos_new]
+        s_cols = np.arange(S)[:, None]
+        dkl = klen_w[rep_t, s_cols]  # [S, D]
+        dvl = vlen_w[rep_t, s_cols]
+        dkb = kwin_w[rep_t, s_cols]  # [S, D, ku]
+        dvb = vwin_w[rep_t, s_cols]
+        rank_ts = rank.T  # [W, S]
+        sc = np.arange(S)[None, :]
+        ok = (
+            (klen_w == dkl[sc, rank_ts]).all()
+            and (vlen_w == dvl[sc, rank_ts]).all()
+            and (kwin_w == dkb[sc, rank_ts]).all()
+            and (vwin_w == dvb[sc, rank_ts]).all()
+        )
+        if not bool(ok):
+            return None
+        return DeviceDictOps(
+            np.ascontiguousarray(rank_ts.astype(np.uint8)),
+            np.ascontiguousarray(dkl),
+            np.ascontiguousarray(dvl),
+            np.ascontiguousarray(dkb).view(np.uint32),
+            np.ascontiguousarray(dvb).view(np.uint32),
         )
 
-    def decide_apply(self, alive, base, depth: int, ops: DeviceWindowOps, W: int,
-                     max_phases: int = 4, state: Optional[KVTable] = None):
-        """One decide+apply SET window. Returns device tensors
-        ``(new_state, flags)`` with ``flags`` i32[3] ``[all_v1, overflow,
+    def pack_window_auto(self, blocks):
+        """A SET window in the dictionary form when it has at most 32
+        distinct rows per shard, else the row form; None demotes. One
+        gather serves both attempts."""
+        g = self._gather_window(blocks, "set")
+        if g is None:
+            return None
+        d = self._dict_from_gathered(g)
+        return d if d is not None else self._rows_from_gathered(g)
+
+    def pack_mixed_window_auto(self, blocks) -> Optional[tuple]:
+        """A mixed window in the dictionary form where it pays, else the
+        row form; None demotes. Returns ``(kind, ops, vlen_plane,
+        vwin_plane)``: the two planes are the full per-wave value planes,
+        which the engine's host-side value segments need whatever form
+        the ops travel in."""
+        g = self._gather_window(blocks, "mixed")
+        if g is None:
+            return None
+        kind_w, klen_w, vlen_w, kwin_w, _ = g
+        vwin_u32 = np.ascontiguousarray(g[4]).view(np.uint32)
+        d = self._dict_from_gathered(g)
+        if d is not None:
+            return kind_w, d, vlen_w, vwin_u32
+        ops = DeviceWindowOps(klen_w, vlen_w, np.ascontiguousarray(kwin_w).view(np.uint32),
+                              vwin_u32)
+        return kind_w, ops, vlen_w, vwin_u32
+
+    def pack_get_window_auto(self, blocks):
+        """A GET window in the dictionary form where the keys repeat
+        enough, else the row pair ``(klen, kwin)``; None demotes."""
+        g = self._gather_window(blocks, "get")
+        if g is None:
+            return None
+        d = self._dict_from_gathered(g)
+        if d is not None:
+            return d
+        return g[1], np.ascontiguousarray(g[3]).view(np.uint32)
+
+    # -- the programs ----------------------------------------------------------
+
+    @staticmethod
+    def _host_ops(ops, W: int, values: bool = True) -> list:
+        """A window's op planes as host arrays in the kernel's order
+        ``[idx, klen, vlen, kwin, vwin]`` (words as int32): a
+        :class:`DeviceDictOps` with its ranks padded to W
+        (:func:`_pad_dict_idx`), or row planes (a :class:`DeviceWindowOps`
+        or a lookup's ``(klen, kwin)`` pair) padded with empty waves to W.
+        ``idx`` is None for the row form; ``vlen`` and ``vwin`` are None
+        without ``values`` or for a lookup pair."""
+        if isinstance(ops, DeviceDictOps):
+            ops = _pad_dict_idx(ops, W)
+            planes = [ops.idx, ops.dkl, ops.dvl, ops.dk, ops.dv]
+        else:
+            def pad(a):
+                if a.shape[0] >= W:
+                    return a
+                return np.concatenate([a, np.zeros((W - a.shape[0],) + a.shape[1:], a.dtype)])
+
+            klen, vlen, kwin, vwin = ops if len(ops) == 4 else (ops[0], None, ops[1], None)
+            planes = [None, pad(klen), None if vlen is None else pad(vlen), pad(kwin),
+                      None if vwin is None else pad(vwin)]
+        if not values:
+            planes[2] = planes[4] = None
+        return [a if a is None or a.dtype != np.uint32 else a.view(np.int32) for a in planes]
+
+    def _upload(self, arrays: list) -> list:
+        """Host arrays on the device as one copy; None stays None."""
+        sent = iter(to_device_all([a for a in arrays if a is not None], self.device))
+        return [None if a is None else next(sent) for a in arrays]
+
+    def _window(self, alive, base, depth: int, kind, ops, W: int, max_phases: int,
+                state: Optional[KVTable], *, values: bool = True, want_table: bool = True,
+                want_reads: bool = False):
+        """Upload one window's host arrays (ops of either form, padded to
+        W waves) in one copy, then decide and apply it
+        (:func:`kv_window.decide_window`). ``kind``: an i8[W', S] plane,
+        None (every op a SET) or ``KIND_GET`` (a read of every non-empty
+        key). Returns ``(new table or None, overflow, reads, flags)``."""
+        planes = self._host_ops(ops, W, values)
+        plane = kind if isinstance(kind, np.ndarray) else None
+        if plane is not None and plane.shape[0] < W:
+            plane = np.concatenate([plane, np.zeros((W - plane.shape[0], plane.shape[1]),
+                                                    plane.dtype)])
+        dev = self._upload([np.asarray(alive, bool), np.asarray(base, np.int32), plane, *planes])
+        alive_d, base_d, plane_d, idx, klen, vlen, kwin, vwin = dev
+        return kv_window.decide_window(
+            self.kernel, self.state if state is None else state,
+            plane_d if plane is not None else kind, klen, vlen, kwin, vwin, depth, alive_d,
+            base_d, max_phases, idx=idx, want_table=want_table, want_reads=want_reads,
+        )
+
+    def decide_apply(self, alive, base, depth: int, ops, W: int, max_phases: int = 4,
+                     state: Optional[KVTable] = None):
+        """One decide+apply SET window on :class:`DeviceWindowOps` or
+        :class:`DeviceDictOps`. Returns device tensors ``(new_state,
+        flags)`` with ``flags`` i32[3] ``[all_v1, overflow,
         ver_overflow]``. The caller adopts ``new_state`` only when the
         flags are clean; the input state is never written, so a dirty
         window rolls back by keeping it."""
-        new, _, _, flags = self._window(alive, base, depth, None, *ops, W, max_phases, state)
+        new, _, _, flags = self._window(alive, base, depth, None, ops, W, max_phases, state)
         return new, flags
 
     def lookup_window(self, alive, base, depth: int, ops, W: int,
                       max_phases: int = 4, state: Optional[KVTable] = None):
         """One consensus+lookup GET window against ``state`` (default the
         current table), read-only. ``ops`` is ``(klen i16[W,S], kwin
-        u32[W,S,Ku4])``. Returns device tensors ``(all_v1 i32, found[W,S],
-        ver[W,S], vlen[W,S], val_words[W,S,VW4])``."""
-        klen, kwin = ops
-        kind = np.where(klen > 0, KIND_GET, 0).astype(np.int8)
-        vwin = np.zeros(klen.shape + (1,), np.uint32)
+        u32[W,S,Ku4])`` or a :class:`DeviceDictOps`, of which only the
+        key dictionary is uploaded. Returns device tensors ``(all_v1 i32,
+        found[W,S], ver[W,S], vlen[W,S], val_words[W,S,VW4])``."""
         _, _, reads, flags = self._window(
-            alive, base, depth, kind, klen, np.zeros_like(klen), kwin, vwin, W, max_phases, state,
+            alive, base, depth, KIND_GET, ops, W, max_phases, state, values=False,
             want_table=False, want_reads=True,
         )
         return (flags[0], *reads)
 
+    def lookup_only(self, ops, W: int, state: Optional[KVTable] = None):
+        """One consensus-free read window (the read lane's probe) against
+        ``state`` (default the current table): ``ops`` as
+        :meth:`lookup_window` takes them, padded to W waves. No decision,
+        no slot, no output table: one read-only kernel launch on a card.
+        Returns device tensors ``(found[W,S], ver[W,S], vlen[W,S],
+        val_words[W,S,VW4])``. A dictionary window's pad waves carry rank
+        0 and so read row 0's key, as the reference's probe does."""
+        idx, klen, _, kwin, _ = self._upload(self._host_ops(ops, W, values=False))
+        _, _, reads = kv_window.window(
+            self.state if state is None else state, KIND_GET, klen, None, kwin, None, 0,
+            idx=idx, want_table=False, want_reads=True,
+        )
+        return tuple(reads)
+
     def mixed_apply(self, alive, base, depth: int, kind: np.ndarray, get_waves: np.ndarray,
-                    ops: DeviceWindowOps, W: int, max_phases: int = 4,
-                    state: Optional[KVTable] = None):
+                    ops, W: int, max_phases: int = 4, state: Optional[KVTable] = None):
         """One mixed decide+apply+lookup window (SET/GET/DEL/EXISTS per
-        op). Returns device tensors ``(new_state, flags, meta, gval)``:
-        ``meta`` i32[2, Gp, S] (``[0]`` = version, ``[1]`` =
-        ``(vlen << 1) | found``) and ``gval`` i32[Gp, S, VW4], gathered to
-        the ``get_waves`` rows padded to a power of two Gp."""
+        op) on :class:`DeviceWindowOps` or :class:`DeviceDictOps`. Returns
+        device tensors ``(new_state, flags, meta, gval)``: ``meta`` i32[2,
+        Gp, S] (``[0]`` = version, ``[1]`` = ``(vlen << 1) | found``) and
+        ``gval`` i32[Gp, S, VW4], gathered to the ``get_waves`` rows
+        padded to a power of two Gp."""
         new, _, reads, flags = self._window(
-            alive, base, depth, kind, *ops, W, max_phases, state, want_reads=True,
+            alive, base, depth, kind, ops, W, max_phases, state, want_reads=True,
         )
         Gp = 1
         while Gp < max(1, len(get_waves)):

@@ -5,9 +5,19 @@
 // rabia_tpu/apps/device_kv.py: `_apply_set_wave` scanned by
 // `_build_fused` (decide_apply), the lookup scan of `_build_lookup`
 // (lookup_window) and `step_body` scanned by `_build_mixed`
-// (mixed_apply). A SET window passes kind 1 for every op, a lookup
-// kind 2 where the key is non-empty and no output table, a mixed window
-// its real kinds. The per-op rules are kv_window.cuh.
+// (mixed_apply), and of the consensus-free probe `_build_lookup_only`
+// (lookup_only). A SET window passes no kind plane (every op a SET), a
+// lookup and the probe no kind plane either (a read of every non-empty
+// key) and no output table, a mixed window its real kinds. The per-op
+// rules are kv_window.cuh.
+//
+// The op rows come in the row form ([W, S, ...] planes) or in the
+// reference's dictionary form (`_build_fused_dict` and the `D` branches
+// of `_build_lookup`, `_build_lookup_only` and `_build_mixed`): each
+// shard's D distinct rows ([S, D, ...] planes) and a rank u8[W, S]. The
+// only place that reads op rows, issue_ops, takes each wave's row from
+// kvw::op_row, so the dictionary is read in place; the rest of the
+// kernel does not see the form.
 //
 // Bound: bytes. A window reads the table once and writes a fresh copy
 // (the programs are functional: a dirty window rolls back by keeping
@@ -105,11 +115,12 @@ struct OutTable {
 };
 
 struct Ops {
-    const int8_t* kind;  // null: every op is a SET
-    const int16_t* klen;
-    const int16_t* vlen;
-    const int32_t* kw;
-    const int32_t* vw;
+    const int8_t* kind;  // [W, S]; null: every op is kvw::implied_kind(kind_all)
+    const int16_t* klen;  // [W, S], or [S, D] with idx
+    const int16_t* vlen;  // as klen; null: every value is empty
+    const int32_t* kw;    // [W, S, ku4], or [S, D, ku4] with idx
+    const int32_t* vw;    // as kw with vwu4; null where vwu4 is 0
+    const uint8_t* idx;   // [W, S] dictionary ranks; null: the row form
 };
 
 struct Reads {
@@ -123,6 +134,8 @@ struct Reads {
 struct Dims {
     int64_t S;
     int W, depth, P, K4, VW4, ku4, vwu4;
+    int D;          // dictionary rows a shard (with Ops::idx)
+    int kind_all;   // the kind of every op without a kind plane (SET or GET)
     int K4p, VW4p;  // key and value rows in shared memory: whole 16-byte pieces
     int MW;         // 64-bit words of a slot bitmask
     int wc;         // waves staged at once (<= 32)
@@ -579,36 +592,62 @@ __device__ __forceinline__ Smem region_at(uint8_t* base, const Layout& L) {
                 reinterpret_cast<uint64_t*>(base + L.cand)};
 }
 
+// nw op rows of rw words into shared rows of ds words as cp.async pieces
+// (16 bytes where the rows allow, else 4). The row form (idx null): wave
+// w's row is row0 + w * S of src, as in the [W, S, rw] planes. The
+// dictionary form: lane w holds wave w's row in my_row (-1: no row, the
+// shared row is zeroed), passed to the lanes that copy it.
+__device__ void async_op_rows(int32_t* dst, const int32_t* src, const uint8_t* idx, int64_t row0,
+                              int64_t S, int64_t my_row, int nw, int rw, int ds, int lane) {
+    const bool v16 = rw % 4 == 0 && aligned16(src);
+    const int per_row = v16 ? rw / 4 : rw, n = nw * per_row;
+    if (idx == nullptr) {
+        for (int i = lane; i < n; i += 32) {
+            const int w = i / per_row, c = i - w * per_row;
+            const int32_t* row = src + (row0 + w * S) * rw;
+            if (v16) async16(dst + w * ds + 4 * c, row + 4 * c);
+            else async4(dst + w * ds + c, row + c);
+        }
+        return;
+    }
+    for (int i0 = 0; i0 < n; i0 += 32) {  // piece i of row i / per_row
+        const int i = i0 + lane;
+        const int w = min(i / per_row, nw - 1), c = i - (i / per_row) * per_row;
+        const int64_t row = static_cast<int64_t>(shfl64(static_cast<uint64_t>(my_row), w));
+        if (i >= n) continue;
+        int32_t* to = dst + w * ds + (v16 ? 4 * c : c);
+        if (row < 0) {
+            if (v16) *reinterpret_cast<int4*>(to) = make_int4(0, 0, 0, 0);
+            else *to = 0;
+        } else if (v16) {
+            async16(to, src + row * rw + 4 * c);
+        } else {
+            async4(to, src + row * rw + c);
+        }
+    }
+}
+
 // Issue the copies of one chunk of waves' op rows (all nw of them at
-// once) into m.opk / m.opv as cp.async pieces, zero past the op widths.
-// Returns lane i's op record (kind, klen, vlen), loaded into registers;
-// the caller commits the cp.async group, waits, and stores the records
-// in m.orec.
+// once) into m.opk / m.opv as cp.async pieces, zero past the op widths;
+// each wave's row is kvw::op_row's, in either form. Returns lane i's op
+// record (kind, klen, vlen), loaded into registers; the caller commits
+// the cp.async group, waits, and stores the records in m.orec.
 __device__ int4 issue_ops(const Smem& m, const Ops& ops, const Dims& d, int64_t s, int t0,
                           int nw, int lane) {
     const int K4p = d.K4p, VW4p = d.VW4p;
     int4 rec = make_int4(0, 0, 0, 0);
+    int64_t my_row = -1;
     if (lane < nw) {
         const int64_t o = kvw::op_index(t0 + lane, d.S, s);
-        rec = make_int4(ops.kind != nullptr ? ops.kind[o] : kvw::KIND_SET, ops.klen[o],
-                        ops.vlen[o], 0);
+        my_row = kvw::op_row(ops.idx, d.D, t0 + lane, d.S, s);
+        const int32_t kl = my_row < 0 ? 0 : ops.klen[my_row];
+        const int32_t vl = my_row < 0 || ops.vlen == nullptr ? 0 : ops.vlen[my_row];
+        rec = make_int4(ops.kind != nullptr ? ops.kind[o] : kvw::implied_kind(d.kind_all, kl), kl,
+                        vl, 0);
     }
-    const bool k16 = d.ku4 % 4 == 0 && aligned16(ops.kw);
-    const int kpr = k16 ? d.ku4 / 4 : d.ku4;  // pieces a key row
-    for (int i = lane; i < nw * kpr; i += 32) {
-        const int w = i / kpr, c = i - w * kpr;
-        const int32_t* row = ops.kw + kvw::op_index(t0 + w, d.S, s) * d.ku4;
-        if (k16) async16(m.opk + w * K4p + 4 * c, row + 4 * c);
-        else async4(m.opk + w * K4p + c, row + c);
-    }
-    const bool v16 = d.vwu4 % 4 == 0 && aligned16(ops.vw);
-    const int vpr = v16 ? d.vwu4 / 4 : d.vwu4;
-    for (int i = lane; i < nw * vpr; i += 32) {
-        const int w = i / vpr, c = i - w * vpr;
-        const int32_t* row = ops.vw + kvw::op_index(t0 + w, d.S, s) * d.vwu4;
-        if (v16) async16(m.opv + w * VW4p + 4 * c, row + 4 * c);
-        else async4(m.opv + w * VW4p + c, row + c);
-    }
+    const int64_t row0 = kvw::op_index(t0, d.S, s);
+    async_op_rows(m.opk, ops.kw, ops.idx, row0, d.S, my_row, nw, d.ku4, K4p, lane);
+    async_op_rows(m.opv, ops.vw, ops.idx, row0, d.S, my_row, nw, d.vwu4, VW4p, lane);
     for (int i = lane; i < nw * (K4p - d.ku4); i += 32) {
         const int w = i / (K4p - d.ku4);
         m.opk[w * K4p + d.ku4 + (i - w * (K4p - d.ku4))] = 0;
@@ -914,8 +953,12 @@ int unpack(void* const* table, void* const* out, void* const* ops, void* const* 
     d.VW4 = static_cast<int>(dims[5]);
     d.ku4 = static_cast<int>(dims[6]);
     d.vwu4 = static_cast<int>(dims[7]);
+    d.D = static_cast<int>(dims[8]);
+    d.kind_all = static_cast<int>(dims[9]);
     if (d.S < 0 || d.W < 0 || d.P < 1 || d.K4 < 1 || d.VW4 < 1 || d.ku4 < 0 || d.ku4 > d.K4 ||
-        d.vwu4 < 0 || d.vwu4 > d.VW4 || d.depth < 0 || d.depth > d.W) {
+        d.vwu4 < 0 || d.vwu4 > d.VW4 || d.depth < 0 || d.depth > d.W || d.D < 0 ||
+        (d.kind_all != kvw::KIND_SET && d.kind_all != kvw::KIND_GET) || ops[1] == nullptr ||
+        (ops[4] == nullptr && d.vwu4 != 0) || (ops[5] != nullptr && d.D < 1)) {
         return static_cast<int>(cudaErrorInvalidValue);
     }
     d.K4p = (d.K4 + 3) / 4 * 4;
@@ -933,7 +976,7 @@ int unpack(void* const* table, void* const* out, void* const* ops, void* const* 
                  static_cast<int32_t*>(out[6])};
     op = Ops{static_cast<const int8_t*>(ops[0]), static_cast<const int16_t*>(ops[1]),
              static_cast<const int16_t*>(ops[2]), static_cast<const int32_t*>(ops[3]),
-             static_cast<const int32_t*>(ops[4])};
+             static_cast<const int32_t*>(ops[4]), static_cast<const uint8_t*>(ops[5])};
     rd = Reads{static_cast<uint8_t*>(reads[0]), static_cast<uint8_t*>(reads[1]),
                static_cast<int32_t*>(reads[2]), static_cast<int32_t*>(reads[3]),
                static_cast<int32_t*>(reads[4])};
@@ -950,11 +993,14 @@ int run(Table in, OutTable o, Ops op, Reads rd, Dims d, Decide dc, cudaStream_t 
 }  // namespace
 
 // table/out: 7 pointers each (see unpack); out may be all null for a
-// read-only window. ops: kind i8[W,S] (null: every op is a SET),
-// klen/vlen i16[W,S], kw i32[W,S,ku4], vw i32[W,S,vwu4]. reads: overflow
-// u8[S], then found u8[W,S], ver/vlen i32[W,S], val i32[W,S,VW4] (those
-// four may be null). dims: S, W, depth, P, K4, VW4, ku4, vwu4. All
-// contiguous. Launches on `stream`, returns cudaGetLastError() (0 on
+// read-only window. ops: kind i8[W,S] (null: every op is of kind_all:
+// 1 a SET, 2 a read of every non-empty key), klen/vlen i16[W,S],
+// kw i32[W,S,ku4], vw i32[W,S,vwu4], idx (null for this row form); or,
+// with idx u8[W,S], the dictionary form: klen/vlen i16[S,D], kw
+// i32[S,D,ku4], vw i32[S,D,vwu4]. vlen may be null (empty values), vw
+// null with vwu4 0. reads: overflow u8[S], then found u8[W,S], ver/vlen
+// i32[W,S], val i32[W,S,VW4] (those four may be null). dims: S, W,
+// depth, P, K4, VW4, ku4, vwu4, D, kind_all. All contiguous. Launches on `stream`, returns cudaGetLastError() (0 on
 // success; cudaErrorInvalidValue where one shard does not fit in a
 // block's shared memory); does not synchronise.
 extern "C" int kvw_window(void* const* table, void* const* out, void* const* ops,

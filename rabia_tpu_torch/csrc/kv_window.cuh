@@ -23,6 +23,13 @@
 // "present" is t < depth (the waves the window decides). Keys are unique
 // among a shard's used slots: SET updates the matching slot and inserts
 // only when none matches, so the programs keep that invariant.
+//
+// An op's key and value come in one of two forms (op_row): the row form,
+// [W, S, ...] planes with one row per (wave, shard), or the dictionary
+// form, [S, D, ...] planes with each shard's D distinct rows and a rank
+// idx u8[W, S] naming the row of each (wave, shard). A window without a
+// kind plane gives every op one kind (implied_kind): a SET, or a read of
+// every non-empty key (the lookups).
 #pragma once
 
 #include <stdint.h>
@@ -99,21 +106,41 @@ KV_HD void window_flags(uint32_t bits, int32_t* flags) {
     flags[2] = (bits & FLAG_WRAP) ? 1 : 0;
 }
 
-// Where one shard's op planes and outputs live in the [W, S, ...] planes.
+// Where one shard's kind and outputs live in the [W, S, ...] planes.
 KV_HD int64_t op_index(int t, int64_t S, int64_t s) { return static_cast<int64_t>(t) * S + s; }
 
+// The row of op (wave t, shard s) in its key and value planes: row
+// op_index(t, S, s) of the [W, S, ...] planes (idx null: the row form),
+// else row s * D + idx[t, s] of the [S, D, ...] dictionary planes. A rank
+// at or past D names no row (-1): the op is empty (key and value of
+// length 0), as the reference's one-hot expansion over D gives zeros.
+KV_HD int64_t op_row(const uint8_t* idx, int D, int t, int64_t S, int64_t s) {
+    const int64_t o = op_index(t, S, s);
+    if (idx == nullptr) return o;
+    const int r = idx[o];
+    return r < D ? s * D + r : -1;
+}
+
+// The kind of an op in a window without a kind plane: every op a SET
+// (kind_all == KIND_SET), or a read of every non-empty key (KIND_GET).
+KV_HD int implied_kind(int kind_all, int32_t klen) {
+    return kind_all == KIND_GET ? (klen > 0 ? KIND_GET : KIND_NONE) : KIND_SET;
+}
+
 // The window for one shard, serially, in place on row-major [S, P, ...]
-// table arrays (the host build's definition of the kernel's result).
-// The read planes may be null; when given they are written for every
-// (wave, shard): zero where the op reads nothing.
-KV_HD void scan_shard(int64_t s, int W, int depth, int64_t S, int P, int K4, int VW4,
-                      int ku4, int vwu4,
-                      uint8_t* used, int32_t* keyw, int32_t* klen, int32_t* ver,
-                      int32_t* valw, int32_t* vlen, int32_t* sver,
-                      const int8_t* kind, const int16_t* op_klen, const int16_t* op_vlen,
-                      const int32_t* op_kw, const int32_t* op_vw,
-                      uint8_t* overflow, uint8_t* r_found, int32_t* r_ver, int32_t* r_vlen,
-                      int32_t* r_val, int32_t* key_scratch) {
+// table arrays (the host build's definition of the kernel's result), on
+// ops of either form (op_row; D is ignored without idx). kind may be
+// null (implied_kind of kind_all), op_vlen null (every value empty) and
+// op_vw null with vwu4 0. The read planes may be null; when given they
+// are written for every (wave, shard): zero where the op reads nothing.
+KV_HD void scan_shard_ops(int64_t s, int W, int depth, int64_t S, int P, int K4, int VW4,
+                          int ku4, int vwu4, int D, int kind_all,
+                          uint8_t* used, int32_t* keyw, int32_t* klen, int32_t* ver,
+                          int32_t* valw, int32_t* vlen, int32_t* sver,
+                          const int8_t* kind, const uint8_t* idx, const int16_t* op_klen,
+                          const int16_t* op_vlen, const int32_t* op_kw, const int32_t* op_vw,
+                          uint8_t* overflow, uint8_t* r_found, int32_t* r_ver, int32_t* r_vlen,
+                          int32_t* r_val, int32_t* key_scratch) {
     uint8_t* u = used + s * P;
     int32_t* kw = keyw + s * P * K4;
     int32_t* kl = klen + s * P;
@@ -124,9 +151,12 @@ KV_HD void scan_shard(int64_t s, int W, int depth, int64_t S, int P, int K4, int
     bool over = false;
     for (int t = 0; t < W; ++t) {
         const int64_t o = op_index(t, S, s);
-        const int k = kind[o];
-        const int32_t kl_t = op_klen[o];
-        for (int j = 0; j < K4; ++j) key_scratch[j] = op_word(op_kw + o * ku4, j, ku4);
+        const int64_t row = op_row(idx, D, t, S, s);
+        const int32_t kl_t = row < 0 ? 0 : op_klen[row];
+        const int32_t vl_t = row < 0 || op_vlen == nullptr ? 0 : op_vlen[row];
+        const int k = kind != nullptr ? kind[o] : implied_kind(kind_all, kl_t);
+        for (int j = 0; j < K4; ++j)
+            key_scratch[j] = row < 0 ? 0 : op_word(op_kw + row * ku4, j, ku4);
         int match = -1, first_free = -1;
         for (int p = 0; p < P; ++p) {
             if (match < 0 && key_matches(u[p] != 0, kl[p], kw + p * K4, 1, kl_t, key_scratch, K4))
@@ -148,15 +178,30 @@ KV_HD void scan_shard(int64_t s, int W, int depth, int64_t S, int P, int K4, int
             sv = bump(sv);
             u[st.slot] = 1;
             kl[st.slot] = kl_t;
-            vl[st.slot] = op_vlen[o];
+            vl[st.slot] = vl_t;
             vr[st.slot] = sv;
             for (int j = 0; j < K4; ++j) kw[st.slot * K4 + j] = key_scratch[j];
-            for (int j = 0; j < VW4; ++j) vw[st.slot * VW4 + j] = op_word(op_vw + o * vwu4, j, vwu4);
+            for (int j = 0; j < VW4; ++j)
+                vw[st.slot * VW4 + j] = row < 0 ? 0 : op_word(op_vw + row * vwu4, j, vwu4);
         }
         over = over || st.overflow;
     }
     sver[s] = sv;
     overflow[s] = over;
+}
+
+// scan_shard_ops on row-form ops with a kind plane.
+KV_HD void scan_shard(int64_t s, int W, int depth, int64_t S, int P, int K4, int VW4,
+                      int ku4, int vwu4,
+                      uint8_t* used, int32_t* keyw, int32_t* klen, int32_t* ver,
+                      int32_t* valw, int32_t* vlen, int32_t* sver,
+                      const int8_t* kind, const int16_t* op_klen, const int16_t* op_vlen,
+                      const int32_t* op_kw, const int32_t* op_vw,
+                      uint8_t* overflow, uint8_t* r_found, int32_t* r_ver, int32_t* r_vlen,
+                      int32_t* r_val, int32_t* key_scratch) {
+    scan_shard_ops(s, W, depth, S, P, K4, VW4, ku4, vwu4, 0, KIND_SET, used, keyw, klen, ver,
+                   valw, vlen, sver, kind, nullptr, op_klen, op_vlen, op_kw, op_vw, overflow,
+                   r_found, r_ver, r_vlen, r_val, key_scratch);
 }
 
 }  // namespace kvw

@@ -3,8 +3,16 @@
 One window of W waves over a table of S shards x P slots (see
 ``csrc/kv_window.cuh`` for the per-op rules). Every program of
 :class:`~rabia_tpu_torch.apps.device_kv.DeviceKVTable` is this scan with
-its own kind plane: a SET window passes kind 1 for every op, a lookup
-kind 2 where the key is non-empty, a mixed window its real kinds.
+its own kinds: a SET window passes ``kind=None`` (every op a SET), a
+lookup and the consensus-free probe ``kind=KIND_GET`` (a read of every
+non-empty key) and no output table, a mixed window its kind plane.
+
+The op planes come in the row form (``klen``/``vlen`` i16[W, S],
+``kwin``/``vwin`` i32[W, S, *]) or, with ``idx`` u8[W, S], in the
+dictionary form: the same four arguments are each shard's D distinct
+rows (i16[S, D], i32[S, D, *]) and op (t, s) is row ``idx[t, s]`` of its
+shard (:func:`expand_dict`). ``vlen`` and ``vwin`` may be None where
+every value is empty (the lookups upload no value planes).
 
 ``kv_window_plain`` is the plain PyTorch version (a loop over the waves,
 each wave vectorised over the shards). ``KV_WINDOW`` wraps the
@@ -40,6 +48,7 @@ from rabia_tpu_torch.kernel.phase_driver import coin_threshold
 
 I8, I16, I32 = torch.int8, torch.int16, torch.int32
 KIND_SET, KIND_GET, KIND_DEL = 1, 2, 3  # 4 is EXISTS: a read, like GET
+I64 = torch.int64
 VERSION_WRAP = 2**31 - 2  # a shard counter this high demotes (i32 table)
 MAX_REPLICAS = 64  # csrc/mesh_window.cuh: one bit per replica in a uint64_t
 
@@ -76,27 +85,84 @@ def _pad_words(w: torch.Tensor, width: int) -> torch.Tensor:
     return out
 
 
+def expand_dict(idx: torch.Tensor, dkl: torch.Tensor, dvl: Optional[torch.Tensor],
+                dk: torch.Tensor, dv: Optional[torch.Tensor]) -> tuple:
+    """The row planes ``(klen, vlen, kwin, vwin)`` that a dictionary-form
+    window stands for: op (t, s) is row ``idx[t, s]`` of shard s's
+    dictionary, and a rank at or past D is an empty op (the reference's
+    one-hot expansion gives zeros there). None stays None. This is the
+    plain version's reading of the form; the kernel reads the dictionary
+    in place."""
+    W, S = idx.shape
+    D = dkl.shape[1]
+    rank = idx.to(I64)
+    ok = rank < D
+    rank = torch.where(ok, rank, 0)
+    shard = torch.arange(S, device=idx.device)[None, :]
+
+    def take(x):
+        if x is None:
+            return None
+        if D == 0:
+            return torch.zeros((W, S) + tuple(x.shape[2:]), dtype=x.dtype, device=x.device)
+        rows = x[shard, rank]  # [W, S, ...]
+        keep = ok if rows.dim() == 2 else ok[..., None]
+        return torch.where(keep, rows, torch.zeros((), dtype=x.dtype, device=x.device))
+
+    return take(dkl), take(dvl), take(dk), take(dv)
+
+
+def implied_kind(kind, klen: torch.Tensor) -> torch.Tensor:
+    """The kind plane of a window: ``kind`` itself when it is one, else
+    every op a SET (``None`` or ``KIND_SET``) or a read of every
+    non-empty key (``KIND_GET``), from the row-form key lengths."""
+    if isinstance(kind, torch.Tensor):
+        return kind
+    if kind is None or kind == KIND_SET:
+        return torch.full(klen.shape, KIND_SET, dtype=I8, device=klen.device)
+    return torch.where(klen > 0, KIND_GET, 0).to(I8)
+
+
+def _row_ops(kind, klen, vlen, kwin, vwin, idx):
+    """The op planes in the row form with a kind plane and no None."""
+    if idx is not None:
+        klen, vlen, kwin, vwin = expand_dict(idx, klen, vlen, kwin, vwin)
+    dev = klen.device
+    if vlen is None:
+        vlen = torch.zeros(klen.shape, dtype=I16, device=dev)
+    if vwin is None:
+        vwin = torch.zeros(tuple(klen.shape) + (0,), dtype=I32, device=dev)
+    return implied_kind(kind, klen), klen, vlen, kwin, vwin
+
+
+def window_waves(kind, klen: torch.Tensor, idx: Optional[torch.Tensor]) -> int:
+    """W of a window in either form."""
+    if idx is not None:
+        return idx.shape[0]
+    return kind.shape[0] if isinstance(kind, torch.Tensor) else klen.shape[0]
+
+
 def kv_window_plain(
     table: KVTable,
-    kind: Optional[torch.Tensor],  # i8[W, S]; None: every op is a SET
-    klen: torch.Tensor,  # i16[W, S]
-    vlen: torch.Tensor,  # i16[W, S]
-    kwin: torch.Tensor,  # i32[W, S, Ku4]
-    vwin: torch.Tensor,  # i32[W, S, VWu4]
+    kind,  # i8[W, S]; None or KIND_SET: every op a SET; KIND_GET: reads of non-empty keys
+    klen: torch.Tensor,  # i16[W, S] (with idx: i16[S, D])
+    vlen: Optional[torch.Tensor],  # as klen; None: empty values
+    kwin: torch.Tensor,  # i32[W, S, Ku4] (with idx: i32[S, D, Ku4])
+    vwin: Optional[torch.Tensor],  # i32[W, S, VWu4] (with idx: [S, D, VWu4]); None: no words
     depth: int,
     *,
+    idx: Optional[torch.Tensor] = None,  # u8[W, S]: the dictionary form
     want_table: bool = True,
     want_reads: bool = False,
 ) -> tuple[Optional[KVTable], torch.Tensor, Optional[WindowReads]]:
     """The wave scan in plain PyTorch. Returns ``(new table or None,
     overflow bool[S], reads or None)``."""
+    kind, klen, vlen, kwin, vwin = _row_ops(kind, klen, vlen, kwin, vwin, idx)
     used, keyw, kl, ver, valw, vl, sver = table
     S, P, K4 = keyw.shape
     VW4 = valw.shape[2]
     W = klen.shape[0]
     dev = keyw.device
-    if kind is None:
-        kind = torch.full((W, S), KIND_SET, dtype=I8, device=dev)
     kw_full = _pad_words(kwin, K4)
     vw_full = _pad_words(vwin, VW4)
     slots = torch.arange(P, device=dev)
@@ -149,7 +215,7 @@ def kv_window_plain(
     return new, overflow, reads
 
 
-def _check_args(table: KVTable, kind, klen, vlen, kwin, vwin, depth: int) -> None:
+def _check_args(table: KVTable, kind, klen, vlen, kwin, vwin, depth: int, idx=None) -> None:
     used = table.used
     if used.dtype != torch.bool or used.dim() != 2:
         raise ValueError(f"table.used must be bool[S, P], got {used.dtype}{list(used.shape)}")
@@ -166,20 +232,38 @@ def _check_args(table: KVTable, kind, klen, vlen, kwin, vwin, depth: int) -> Non
             raise ValueError(f"table.{name} must be int32[{S}, {P}], got {x.dtype}{list(x.shape)}")
     if table.sver.dtype != I32 or tuple(table.sver.shape) != (S,):
         raise ValueError(f"table.sver must be int32[{S}], got {table.sver.dtype}{list(table.sver.shape)}")
-    if kind is not None and (kind.dtype != I8 or kind.dim() != 2 or kind.shape[1] != S):
+    is_plane = isinstance(kind, torch.Tensor)
+    if not is_plane and kind not in (None, KIND_SET, KIND_GET):
+        raise ValueError(f"kind must be an int8[W, S] plane, None, KIND_SET or KIND_GET, got {kind!r}")
+    if is_plane and (kind.dtype != I8 or kind.dim() != 2 or kind.shape[1] != S):
         raise ValueError(f"kind must be int8[W, {S}], got {kind.dtype}{list(kind.shape)}")
-    W = klen.shape[0] if kind is None else kind.shape[0]
+    if idx is not None:
+        if idx.dtype != torch.uint8 or idx.dim() != 2 or idx.shape[1] != S:
+            raise ValueError(f"idx must be uint8[W, {S}], got {idx.dtype}{list(idx.shape)}")
+        if klen.dim() != 2 or klen.shape[0] != S:
+            raise ValueError(f"klen must be int16[{S}, D] with idx, got {klen.dtype}{list(klen.shape)}")
+        lead = (S, klen.shape[1])
+    else:
+        lead = (window_waves(kind, klen, None), S)
+    W = window_waves(kind, klen, idx)
+    if is_plane and kind.shape[0] != W:
+        raise ValueError(f"kind must be int8[{W}, {S}], got {kind.dtype}{list(kind.shape)}")
     for name, x in (("klen", klen), ("vlen", vlen)):
-        if x.dtype != I16 or tuple(x.shape) != (W, S):
-            raise ValueError(f"{name} must be int16[{W}, {S}], got {x.dtype}{list(x.shape)}")
+        if x is None and name == "vlen":
+            continue
+        if x.dtype != I16 or tuple(x.shape) != lead:
+            raise ValueError(f"{name} must be int16{list(lead)}, got {x.dtype}{list(x.shape)}")
     K4, VW4 = table.keyw.shape[2], table.valw.shape[2]
     for name, x, width in (("kwin", kwin, K4), ("vwin", vwin, VW4)):
-        if x.dtype != I32 or x.dim() != 3 or x.shape[:2] != (W, S) or x.shape[2] > width:
-            raise ValueError(f"{name} must be int32[{W}, {S}, <= {width}], got "
+        if x is None and name == "vwin":
+            continue
+        if x.dtype != I32 or x.dim() != 3 or tuple(x.shape[:2]) != lead or x.shape[2] > width:
+            raise ValueError(f"{name} must be int32[{lead[0]}, {lead[1]}, <= {width}], got "
                              f"{x.dtype}{list(x.shape)}")
     if not 0 <= depth <= W:
         raise ValueError(f"depth {depth} outside 0..{W}")
-    tensors = [*table, klen, vlen, kwin, vwin] + ([] if kind is None else [kind])
+    tensors = [*table, klen, kwin] + [x for x in (kind, vlen, vwin, idx)
+                                      if isinstance(x, torch.Tensor)]
     if any(x.device != used.device for x in tensors):
         raise ValueError("the table and the op planes lie on different devices")
     if not all(x.is_contiguous() for x in tensors):
@@ -195,18 +279,26 @@ def _ptrs(tensors) -> ctypes.Array:
 class KVWindowKernel:
     """ctypes wrapper of ``kvw_window`` and ``kvw_decide_window``
     (csrc/kv_window.cu): the window, and the window with its decision in
-    the same launch (:meth:`decide`).
+    the same launch (:meth:`decide`), on row-form or dictionary-form ops.
 
-    ``launches`` counts kernel launches of both entries; it grows by one
-    exactly where the kernel is launched. The library builds on the first
-    call."""
+    ``launches`` counts kernel launches of both entries, and ``counts``
+    the same launches by form (``rows``, ``dict``, ``rows+decide``,
+    ``dict+decide``); each grows by one exactly where the kernel is
+    launched. The library builds on the first call."""
+
+    FORMS = ("rows", "dict", "rows+decide", "dict+decide")
 
     def __init__(self) -> None:
         self.launches = 0
+        self.counts = dict.fromkeys(self.FORMS, 0)
         self._lib = None
         self._fn = None
         self._decide_fn = None
         self._scratch: dict[torch.device, torch.Tensor] = {}
+
+    def reset_counts(self) -> None:
+        self.launches = 0
+        self.counts = dict.fromkeys(self.FORMS, 0)
 
     def load(self):
         """Build (if needed) and bind the library; returns the C function
@@ -225,14 +317,14 @@ class KVWindowKernel:
             self._lib, self._fn, self._decide_fn = lib, fn, dfn
         return self._fn
 
-    def _launch(self, table, kind, klen, vlen, kwin, vwin, depth, want_table, want_reads,
-                entry, extra=()):
+    def _launch(self, table, kind, klen, vlen, kwin, vwin, depth, idx, want_table, want_reads,
+                entry, form, extra=()):
         """Allocate the outputs and launch ``entry`` with the window's
         arguments followed by ``extra``."""
         dev = table.used.device
         S, P, K4 = table.keyw.shape
         VW4 = table.valw.shape[2]
-        W = klen.shape[0]
+        W = window_waves(kind, klen, idx)
         out = KVTable(*(torch.empty_like(x) for x in table)) if want_table else None
         overflow = torch.empty(S, dtype=torch.bool, device=dev)
         reads = None
@@ -250,46 +342,52 @@ class KVWindowKernel:
                 [None] * 4 if reads is None
                 else [reads.found.view(torch.uint8), reads.ver, reads.vlen, reads.val]
             )
-            dims = (ctypes.c_longlong * 8)(
-                S, W, depth, P, K4, VW4, kwin.shape[2], vwin.shape[2]
+            plane = kind if isinstance(kind, torch.Tensor) else None
+            kind_all = KIND_GET if plane is None and kind == KIND_GET else KIND_SET
+            dims = (ctypes.c_longlong * 10)(
+                S, W, depth, P, K4, VW4, kwin.shape[2], 0 if vwin is None else vwin.shape[2],
+                0 if idx is None else klen.shape[1], kind_all,
             )
             with torch.cuda.device(dev):
                 stream = torch.cuda.current_stream().cuda_stream
-                err = entry(_ptrs(tin), _ptrs(tout), _ptrs([kind, klen, vlen, kwin, vwin]),
+                err = entry(_ptrs(tin), _ptrs(tout), _ptrs([plane, klen, vlen, kwin, vwin, idx]),
                             _ptrs(rd), dims, *extra, stream)
             if err != 0:
                 raise RuntimeError(f"kv window kernel launch failed: cudaError {err}")
             self.launches += 1
+            self.counts[form] += 1
         return out, overflow, reads
 
     def __call__(
         self,
         table: KVTable,
-        kind: Optional[torch.Tensor],
+        kind,
         klen: torch.Tensor,
-        vlen: torch.Tensor,
+        vlen: Optional[torch.Tensor],
         kwin: torch.Tensor,
-        vwin: torch.Tensor,
+        vwin: Optional[torch.Tensor],
         depth: int,
         *,
+        idx: Optional[torch.Tensor] = None,
         want_table: bool = True,
         want_reads: bool = False,
     ) -> tuple[Optional[KVTable], torch.Tensor, Optional[WindowReads]]:
-        _check_args(table, kind, klen, vlen, kwin, vwin, depth)
+        _check_args(table, kind, klen, vlen, kwin, vwin, depth, idx)
         dev = table.used.device
         if dev.type != "cuda":
             raise ValueError(f"kv window kernel needs CUDA tensors, got {dev}")
         fn = self.load()
-        return self._launch(table, kind, klen, vlen, kwin, vwin, depth, want_table, want_reads, fn)
+        return self._launch(table, kind, klen, vlen, kwin, vwin, depth, idx, want_table,
+                            want_reads, fn, "rows" if idx is None else "dict")
 
     def decide(
         self,
         table: KVTable,
-        kind: Optional[torch.Tensor],
+        kind,
         klen: torch.Tensor,
-        vlen: torch.Tensor,
+        vlen: Optional[torch.Tensor],
         kwin: torch.Tensor,
-        vwin: torch.Tensor,
+        vwin: Optional[torch.Tensor],
         depth: int,
         alive: torch.Tensor,  # bool[S, R]
         base: torch.Tensor,  # i32[S]: wave t of shard s is slot base[s] + t
@@ -297,6 +395,7 @@ class KVWindowKernel:
         seed: int,
         coin_p1: float,
         max_phases: int,
+        idx: Optional[torch.Tensor] = None,
         want_table: bool = True,
         want_reads: bool = False,
     ) -> tuple[Optional[KVTable], torch.Tensor, Optional[WindowReads], torch.Tensor]:
@@ -306,7 +405,7 @@ class KVWindowKernel:
         The flags' scratch words are cached per device and left zero by
         every launch, so windows on one device must not run on two
         streams at once."""
-        _check_args(table, kind, klen, vlen, kwin, vwin, depth)
+        _check_args(table, kind, klen, vlen, kwin, vwin, depth, idx)
         S = table.used.shape[0]
         if alive.dtype != torch.bool or alive.dim() != 2 or alive.shape[0] != S:
             raise ValueError(f"alive must be bool[{S}, R], got {alive.dtype}{list(alive.shape)}")
@@ -336,7 +435,8 @@ class KVWindowKernel:
             coin_threshold(coin_p1),
         )
         out, overflow, reads = self._launch(
-            table, kind, klen, vlen, kwin, vwin, depth, want_table, want_reads, self._decide_fn,
+            table, kind, klen, vlen, kwin, vwin, depth, idx, want_table, want_reads,
+            self._decide_fn, "rows+decide" if idx is None else "dict+decide",
             (_ptrs([alive.view(torch.uint8), base, flags, scratch]), params),
         )
         return out, overflow, reads, flags
@@ -346,34 +446,35 @@ KV_WINDOW = KVWindowKernel()
 
 
 def window(table: KVTable, kind, klen, vlen, kwin, vwin, depth: int, *,
-           want_table: bool = True, want_reads: bool = False):
+           idx: Optional[torch.Tensor] = None, want_table: bool = True, want_reads: bool = False):
     """The wave scan: the CUDA kernel for a CUDA table, the plain version
     for a CPU table."""
     dev = table.used.device
     if dev.type == "cuda":
-        return KV_WINDOW(table, kind, klen, vlen, kwin, vwin, depth,
+        return KV_WINDOW(table, kind, klen, vlen, kwin, vwin, depth, idx=idx,
                          want_table=want_table, want_reads=want_reads)
     if dev.type == "cpu":
-        return kv_window_plain(table, kind, klen, vlen, kwin, vwin, depth,
+        return kv_window_plain(table, kind, klen, vlen, kwin, vwin, depth, idx=idx,
                                want_table=want_table, want_reads=want_reads)
     raise ValueError(f"no kv window for device {dev}")
 
 
 def decide_window_plain(mesh, table: KVTable, kind, klen, vlen, kwin, vwin, depth: int,
                         alive: torch.Tensor, base: torch.Tensor, max_phases: int, *,
-                        want_table: bool = True, want_reads: bool = False):
+                        idx: Optional[torch.Tensor] = None, want_table: bool = True,
+                        want_reads: bool = False):
     """The device lane's window in plain PyTorch: every live replica of
     ``mesh`` (a ``MeshPhaseKernel``) votes V1 for the ``depth`` waves that
     carry ops, the plain mesh window decides them, the plain wave scan
     applies the window, and the flags reduce both. Returns what
     :meth:`KVWindowKernel.decide` returns; the flags are ``i32[3] =
     [all_v1, overflow anywhere, a shard version at the wrap]``."""
-    W, S = klen.shape
+    W, S = window_waves(kind, klen, idx), table.used.shape[0]
     votes = torch.zeros((W, S, alive.shape[1]), dtype=I8, device=klen.device)
     votes[:depth] = V1
     decided = mesh.decide_slots_plain(votes, alive, base, max_phases)
     all_v1 = (decided[:depth] == V1).all()
-    new, overflow, reads = kv_window_plain(table, kind, klen, vlen, kwin, vwin, depth,
+    new, overflow, reads = kv_window_plain(table, kind, klen, vlen, kwin, vwin, depth, idx=idx,
                                            want_reads=want_reads)
     flags = torch.stack([all_v1, overflow.any(), (new.sver >= VERSION_WRAP).any()]).to(I32)
     return (new if want_table else None), overflow, reads, flags
@@ -381,7 +482,8 @@ def decide_window_plain(mesh, table: KVTable, kind, klen, vlen, kwin, vwin, dept
 
 def decide_window(mesh, table: KVTable, kind, klen, vlen, kwin, vwin, depth: int,
                   alive: torch.Tensor, base: torch.Tensor, max_phases: int, *,
-                  want_table: bool = True, want_reads: bool = False):
+                  idx: Optional[torch.Tensor] = None, want_table: bool = True,
+                  want_reads: bool = False):
     """The device lane's window, decided and applied: one kernel launch
     for a CUDA table, the plain version for a CPU table. ``mesh`` (a
     ``MeshPhaseKernel``) gives the coin's seed and probability."""
@@ -389,8 +491,9 @@ def decide_window(mesh, table: KVTable, kind, klen, vlen, kwin, vwin, depth: int
     if dev.type == "cuda":
         return KV_WINDOW.decide(table, kind, klen, vlen, kwin, vwin, depth, alive, base,
                                 seed=mesh.seed, coin_p1=mesh.coin_p1, max_phases=max_phases,
-                                want_table=want_table, want_reads=want_reads)
+                                idx=idx, want_table=want_table, want_reads=want_reads)
     if dev.type == "cpu":
         return decide_window_plain(mesh, table, kind, klen, vlen, kwin, vwin, depth, alive, base,
-                                   max_phases, want_table=want_table, want_reads=want_reads)
+                                   max_phases, idx=idx, want_table=want_table,
+                                   want_reads=want_reads)
     raise ValueError(f"no kv window for device {dev}")

@@ -32,11 +32,20 @@ Three lanes:
   memory, and futures settle when a window resolves. Work outside the
   lane's envelope, a table overflow or a fault demotes the lane: the
   table syncs into the host replicas, which own the semantics, and the
-  lane re-promotes after ``device_store_repromote`` clean cycles.
+  lane re-promotes after ``device_store_repromote`` clean cycles. Each
+  window's ops travel in the dictionary form where it pays (at window 16
+  always), else as rows.
+
+With ``device_read_lane=True`` the device lane also serves full-width
+GET blocks off consensus: they skim out of the stream at submit, wait
+behind a write barrier (every block staged before them has dispatched),
+and are served by ``lookup_only`` probe windows that take no votes and
+no slot, chained on the newest in-flight table and settled in FIFO order
+with the writes they saw.
 
 Not ported yet, and refused with ``NotImplementedError`` rather than
-ignored: the consensus-free read lane (``device_read_lane``), the latency
-governor (``latency_target_ms``) and multi-device meshes.
+ignored: the latency governor (``latency_target_ms``) and multi-device
+meshes.
 """
 
 from __future__ import annotations
@@ -84,6 +93,27 @@ class _RowSeg:
     def value(self, s: int, ver: int) -> Optional[bytes]:
         t = ver - int(self.start[s]) - 1
         return self.vwin8[t, s, : int(self.vlen[t, s])].tobytes()
+
+
+class _DictSeg:
+    """Value segment of a dictionary-form SET window: the op's value is
+    the dictionary row its wave's rank names."""
+
+    __slots__ = ("start", "end", "idx", "dvl", "dv8", "nbytes", "provisional")
+
+    def __init__(self, start, end, idx, dvl, dv) -> None:
+        self.start = start
+        self.end = end
+        self.idx = idx  # u8[W, S] within-shard dictionary rank
+        self.dvl = dvl  # i16[S, D]
+        self.dv8 = dv.view(np.uint8)  # u8[S, D, vu]
+        self.nbytes = idx.nbytes + dvl.nbytes + self.dv8.nbytes
+        self.provisional = False
+
+    def value(self, s: int, ver: int) -> Optional[bytes]:
+        t = ver - int(self.start[s]) - 1
+        j = int(self.idx[t, s])
+        return self.dv8[s, j, : int(self.dvl[s, j])].tobytes()
 
 
 class _MixedSeg:
@@ -272,6 +302,12 @@ class MeshEngine:
         (0 stays on the host path).
     device_store_inflight:
         Dispatched-but-unresolved device windows (pipe depth, default 3).
+    device_read_lane:
+        Serve full-width GET blocks of the device lane off consensus, in
+        ``lookup_only`` probe windows (zero slots). A probe read may see
+        writes submitted after it that dispatched first (they are still
+        unsettled, so both orders are linearizable); with a flush between
+        operations its responses equal the consensus GET window's.
     """
 
     def __init__(
@@ -297,11 +333,6 @@ class MeshEngine:
         if mesh is not None:
             raise NotImplementedError(
                 "multi-device meshes are not ported yet (ROADMAP Queue 1, item 5)"
-            )
-        if device_read_lane:
-            raise NotImplementedError(
-                "device_read_lane (lookup_only probe windows) is not ported yet "
-                "(ROADMAP Queue 1, item 2)"
             )
         if latency_target_ms is not None:
             raise NotImplementedError(
@@ -380,6 +411,18 @@ class MeshEngine:
             self._dev_seed_keys = np.empty(0, np.int64)
             # versions <= floor[s] resolve only through the seed
             self._dev_floor = np.zeros(self.S, np.int64)
+        # the read lane: skimmed GET blocks wait in _read_pending as (block,
+        # future, barrier), barrier being _dev_wseq at submit; a read is
+        # eligible once _dev_wdisp reaches it (every write staged before
+        # it has dispatched, so the chained table holds those writes)
+        self._dev_read_lane = bool(device_read_lane)
+        self._read_pending: deque = deque()
+        self._dev_wseq = 0  # full-width blocks staged
+        self._dev_wdisp = 0  # full-width blocks dispatched on the device lane
+        # GET ops served off consensus (probe), GET ops that consumed slots
+        # (slot), value-plane downloads (fallback; overlaps the other
+        # two), probe windows dispatched
+        self._read_stats = {"probe": 0, "slot": 0, "fallback": 0, "probe_windows": 0}
         self._dev_repromote = max(0, int(device_store_repromote))
         self._dev_cooldown = 0
         self._dev_inflight = max(1, int(3 if device_store_inflight is None else device_store_inflight))
@@ -430,10 +473,16 @@ class MeshEngine:
             raise ValidationError("block shards must be unique")
         bfut = MeshBlockFuture(len(shards))
         if len(shards) == self.n_shards and self._queued_entries == 0:
+            if self._dev_read_lane and self._dev_active and _block_op_kind(block) == 2:
+                # the read lane: the GET never enters the consensus
+                # stream; it waits behind every block staged so far
+                self._read_pending.append((block, bfut, self._dev_wseq))
+                return bfut
             # full-width block with nothing queued: the vectorized lane
             inv = np.empty(self.n_shards, np.int64)
             inv[shards] = np.arange(len(shards))
             self._full_blocks.append((block, bfut, inv))
+            self._dev_wseq += 1
             return bfut
         if self._full_blocks:
             self._demote_full_blocks()
@@ -462,7 +511,21 @@ class MeshEngine:
     def run_cycle(self) -> int:
         """Decide up to ``window`` queued slots per shard in ONE device
         dispatch, then apply + settle. Returns batches applied (on the
-        device lane: batches of the windows that resolved)."""
+        device lane: batches of the windows that resolved). With the read
+        lane, the eligible skimmed GETs are served first, in one probe
+        window."""
+        served = 0
+        if (
+            self._dev_active
+            and self._read_pending
+            and self._read_pending[0][2] <= self._dev_wdisp
+        ):
+            # a probe window outside the read envelope demotes in this
+            # call; the flushed blocks then take the host path below
+            served = self._dev_serve_reads()
+        return served + self._run_cycle_body()
+
+    def _run_cycle_body(self) -> int:
         if self._dev_active and self._dev_pipe and not self._full_blocks:
             # no new device work: resolve one in-flight window so flush
             # converges (its applied count is this cycle's progress)
@@ -544,6 +607,8 @@ class MeshEngine:
         bookkeeping only. Anything outside the lane's envelope demotes
         to the host path; the table is adopted only from a clean all-V1
         window, so demotion always re-runs from a consistent table."""
+        from rabia_tpu_torch.apps.device_kv import DeviceDictOps
+
         W = self.window
         n = self.n_shards
         # uniform SET runs take the lean SET program, uniform GET runs the
@@ -565,7 +630,7 @@ class MeshEngine:
         if head_kind == 2:
             return self._run_cycle_fullwidth_device_get(depth)
         entries = [self._full_blocks[i] for i in range(depth)]  # peek
-        ops = self._dev.pack_window([e[0] for e in entries])
+        ops = self._dev.pack_window_auto([e[0] for e in entries])
         if ops is None:
             # drain BEFORE demoting so in-flight windows' applied counts
             # reach the caller
@@ -603,7 +668,10 @@ class MeshEngine:
             seg_start = self._dev_sver.copy()
             seg_end = seg_start.copy()
             seg_end[:n] += depth
-        seg = _RowSeg(seg_start, seg_end, ops.vlen, ops.vwin)
+        if isinstance(ops, DeviceDictOps):
+            seg = _DictSeg(seg_start, seg_end, ops.idx, ops.dvl, ops.dv)
+        else:
+            seg = _RowSeg(seg_start, seg_end, ops.vlen, ops.vwin)
         if deferred:
             seg.provisional = True
             self._dev_defer += 1
@@ -636,6 +704,7 @@ class MeshEngine:
         n = self.n_shards
         for _ in range(depth):
             self._full_blocks.popleft()
+        self._dev_wdisp += depth  # the read lane's write barrier advances
         start = self.next_slot.copy()
         self.next_slot[:n] += depth
         self.decided_v1 += depth * n
@@ -671,11 +740,16 @@ class MeshEngine:
         then settle (clean) or roll back the whole pipe and demote
         (dirty). Returns batches applied by the resolved window."""
         rec = self._dev_pipe[0]
-        flags = rec["flags"].result()  # <= 12 bytes: the readback
-        if rec["kind"] == "get":
-            dirty = not int(flags)  # lookup returns the all_v1 scalar
+        if rec["kind"] == "read":
+            # a probe window decided nothing and cannot be dirty; FIFO
+            # resolution settled every write it chained on first
+            dirty = False
         else:
-            dirty = not flags[0] or flags[1] or flags[2]
+            flags = rec["flags"].result()  # <= 12 bytes: the readback
+            if rec["kind"] == "get":
+                dirty = not int(flags)  # lookup returns the all_v1 scalar
+            else:
+                dirty = not flags[0] or flags[1] or flags[2]
         if dirty:
             # roll back EVERY optimistic window, newest first: the device
             # table was never adopted, so restoring the host bookkeeping
@@ -684,11 +758,23 @@ class MeshEngine:
             while self._dev_pipe:
                 r = self._dev_pipe.pop()
                 d, rn = r["depth"], r["n"]
+                if r["kind"] == "read":
+                    # a probe consumed no slot and no log entry: re-front
+                    # its reads, which the demotion below flushes to the
+                    # host path behind the rolled-back writes (all still
+                    # unsettled, so the order is linearizable); they end
+                    # up host-served, so they leave the probe count
+                    self._read_stats["probe"] -= d * rn
+                    self._read_stats["probe_windows"] -= 1
+                    for e in reversed(r["entries"]):
+                        self._read_pending.appendleft(e)
+                    continue
                 for _ in range(d):
                     if self._bulk_log:
                         self._bulk_log.pop()
                 for e in reversed(r["entries"]):
                     self._full_blocks.appendleft(e)
+                self._dev_wdisp -= d
                 self.next_slot[:rn] -= d
                 if r["sver_delta"] is not None:
                     self._dev_sver -= r["sver_delta"]
@@ -768,6 +854,7 @@ class MeshEngine:
             rsv = self._dev_make_resolver()
         else:
             # eviction edge: this window pays the value-plane download
+            self._read_stats["fallback"] += depth * rec["n"]
             vlen, valw = HostFetch(*rec["val_dev"]).result()
         for t, (block, bfut, _inv) in enumerate(rec["entries"]):
             sh = np.asarray(block.shards, np.int64)
@@ -860,6 +947,61 @@ class MeshEngine:
             applied += self._dev_resolve_one()
         return applied
 
+    def _dev_serve_reads(self) -> int:
+        """Serve every eligible skimmed GET (its write barrier has
+        dispatched), up to a window of them, in one consensus-free
+        ``lookup_only`` probe window: no votes, no slot, found bits and
+        versions back, values from the host-side segments.
+
+        The probe chains on the newest in-flight table, so a read sees
+        every write dispatched before it (its barrier puts every earlier
+        submission among them) and possibly writes submitted after it
+        that dispatched while it waited: those are unsettled, concurrent
+        invocations. The probe joins the FIFO pipe, so it settles only
+        after every write it saw settled cleanly; a dirty write rolls it
+        back unserved (:meth:`_dev_resolve_one`). Returns batches applied
+        by windows the pipe resolved to keep its depth."""
+        W = self.window
+        batch = []
+        while (
+            self._read_pending
+            and len(batch) < W
+            and self._read_pending[0][2] <= self._dev_wdisp
+        ):
+            batch.append(self._read_pending.popleft())
+        if not batch:
+            return 0
+        packed = self._dev.pack_get_window_auto([e[0] for e in batch])
+        if packed is None:
+            # outside the read envelope: put the batch back and demote;
+            # the demotion hands every parked read to the host path
+            for e in reversed(batch):
+                self._read_pending.appendleft(e)
+            applied = self._dev_drain_pipe()
+            self._demote_device_store()
+            return applied
+        state_base = self._dev_chain_base()
+        with torch.profiler.record_function("rabia.devkv.read_probe"):
+            found_d, ver_d, vlen_d, valw_d = self._dev.lookup_only(packed, W=W, state=state_base)
+        self.cycles += 1
+        depth = len(batch)
+        n = self.n_shards
+        self._read_stats["probe"] += depth * n
+        self._read_stats["probe_windows"] += 1
+        return self._dev_push_window(
+            {
+                "kind": "read",
+                "meta": HostFetch(found_d, ver_d),
+                "val_dev": (vlen_d, valw_d),
+                "new_state": state_base,  # read-only: the chained table
+                "entries": batch,
+                "depth": depth,
+                "n": n,
+                "seg": None,
+                "sver_delta": None,
+            }
+        )
+
     def _run_cycle_fullwidth_device_get(self, depth: int) -> int:
         """GET-only full-width windows through the table's read-only
         lookup: consensus decides the slots and the match gathers
@@ -872,7 +1014,7 @@ class MeshEngine:
         W = self.window
         n = self.n_shards
         entries = [self._full_blocks[i] for i in range(depth)]
-        packed = self._dev.pack_get_window([e[0] for e in entries])
+        packed = self._dev.pack_get_window_auto([e[0] for e in entries])
         if packed is None:
             applied = self._dev_drain_pipe()
             self._demote_device_store()
@@ -886,6 +1028,7 @@ class MeshEngine:
                 max_phases=self.max_phases, state=state_base,
             )
         self.cycles += 1
+        self._read_stats["slot"] += depth * n  # GETs that consumed slots
         self._dev_commit_window(entries, depth)
         return self._dev_push_window(
             {
@@ -913,12 +1056,14 @@ class MeshEngine:
         W = self.window
         n = self.n_shards
         entries = [self._full_blocks[i] for i in range(count)]
-        packed = self._dev.pack_mixed_window([e[0] for e in entries])
+        packed = self._dev.pack_mixed_window_auto([e[0] for e in entries])
         if packed is None:
             applied = self._dev_drain_pipe()
             self._demote_device_store()
             return applied + self.run_cycle()
-        kind, ops = packed
+        # the value planes in the row form whatever form the ops travel in:
+        # the segments answer GETs from them
+        kind, ops, vlen_plane, vwin_plane = packed
         # a DEL bumps the shard version only when its key is FOUND: the
         # mirror cannot derive that until the meta readback (DEL waves
         # ride it). Such windows, and every window dispatched while one is
@@ -935,6 +1080,7 @@ class MeshEngine:
                 max_phases=self.max_phases, state=state_base,
             )
         self.cycles += 1
+        self._read_stats["slot"] += int((kind == 2).sum())  # GETs that consumed slots
         # derived SET versions: host mirror + inclusive per-shard SET
         # count. Deferred windows push a PROVISIONAL segment (empty range,
         # exempt from eviction) and leave the mirror untouched
@@ -944,7 +1090,7 @@ class MeshEngine:
             sver_delta = None
             seg = _MixedSeg(
                 np.zeros_like(self._dev_sver), np.zeros_like(self._dev_sver),
-                ops.vlen, ops.vwin, set_cum, kind,
+                vlen_plane, vwin_plane, set_cum, kind,
             )
             seg.provisional = True
             self._dev_push_segment(seg)
@@ -952,7 +1098,8 @@ class MeshEngine:
         else:
             svers = self._dev_sver[None, : self.S] + set_cum
             seg_start = self._dev_sver.copy()
-            seg = _MixedSeg(seg_start, seg_start + set_cum[-1], ops.vlen, ops.vwin, svers, kind)
+            seg = _MixedSeg(seg_start, seg_start + set_cum[-1], vlen_plane, vwin_plane, svers,
+                            kind)
             self._dev_push_segment(seg)
             sver_delta = np.zeros_like(self._dev_sver)
             sver_delta[: self.S] = set_cum[-1]
@@ -1054,6 +1201,14 @@ class MeshEngine:
                 return
         self._dev_active = False
         self._dev_cooldown = self._dev_repromote  # earn the way back
+        # parked reads leave with the lane: they re-enter as full-width
+        # blocks at the back of the staged stream (behind any rolled-back
+        # writes; all unsettled, so the order is linearizable)
+        while self._read_pending:
+            block, bfut, _barrier = self._read_pending.popleft()
+            inv = np.empty(self.n_shards, np.int64)
+            inv[np.asarray(block.shards, np.int64)] = np.arange(len(block))
+            self._full_blocks.append((block, bfut, inv))
         d = self._dev.dump()  # ONE table download for all replicas
         for sm in self.sms:
             self._dev.sync_into(sm, dump=d)
@@ -1084,6 +1239,10 @@ class MeshEngine:
             )
             self._dev_reindex_seed()
             self._dev_active = True
+            # re-arm the read lane's barrier: the staged blocks are the only
+            # writes a fresh read must wait behind
+            self._dev_wseq = len(self._full_blocks)
+            self._dev_wdisp = 0
             logger.info("device KV lane re-promoted from host stores")
         else:
             self._dev_cooldown = self._dev_repromote
@@ -1355,8 +1514,16 @@ class MeshEngine:
         return bool(
             self._queued_entries
             or self._full_blocks
+            or self._read_pending
             or (self._dev is not None and self._dev_pipe)
         )
+
+    def read_lane_stats(self) -> dict:
+        """The read lane's counters as a dict: GET ops served off
+        consensus (``probe``), GET ops that consumed slots (``slot``),
+        value-plane downloads (``fallback``), probe windows dispatched
+        (``probe_windows``)."""
+        return dict(self._read_stats)
 
     # -- checkpoint / restore ------------------------------------------------
 

@@ -88,15 +88,49 @@ def test_unported_engine_lanes_are_refused_not_ignored():
     from rabia_tpu_torch.core.state_machine import InMemoryStateMachine
 
     for kw in (
-        {"device_read_lane": True},
         {"latency_target_ms": 50.0},
         {"mesh": object()},
     ):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             MeshEngine(InMemoryStateMachine, 4, 3, device="cpu", **kw)
-    # the device-resident KV lane is ported: it needs replicas it can
-    # demote to, and runs on them
+    # the device-resident KV lane and its read lane are ported: they need
+    # replicas they can demote to, and run on them
     with pytest.raises(ValidationError, match="VectorShardedKV"):
         MeshEngine(InMemoryStateMachine, 4, 3, device="cpu", device_store=True)
-    eng = MeshEngine(lambda: VectorShardedKV(4), 4, 3, device="cpu", device_store=True)
+    eng = MeshEngine(lambda: VectorShardedKV(4), 4, 3, device="cpu", device_store=True,
+                     device_read_lane=True)
     assert eng.device_lane_active
+
+
+def test_read_lane_and_dictionary_windows_run_with_jax_and_reference_blocked():
+    """The dictionary packers, the dictionary windows and the read lane's
+    probe run with jax and rabia_tpu unimportable."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['rabia_tpu'] = None\n"
+        "from rabia_tpu_torch import MeshEngine\n"
+        "from rabia_tpu_torch.apps.device_kv import DeviceDictOps\n"
+        "from rabia_tpu_torch.apps.kvstore import decode_result_bin, encode_set_bin\n"
+        "from rabia_tpu_torch.apps.vector_kv import VectorShardedKV\n"
+        "from rabia_tpu_torch.core.blocks import build_block\n"
+        "eng = MeshEngine(lambda: VectorShardedKV(4), 4, 3, device='cpu', window=4,\n"
+        "                 device_store=True, device_read_lane=True)\n"
+        "sh = list(range(4))\n"
+        "sets = [build_block(sh, [[encode_set_bin('k%d' % s, 'v')] for s in sh])] * 2\n"
+        "assert isinstance(eng._dev.pack_window_auto(sets), DeviceDictOps)\n"
+        "for b in sets:\n"
+        "    eng.submit_block(b)\n"
+        "eng.flush()\n"
+        "get = bytes((2,)) + (2).to_bytes(2, 'little')\n"
+        "f = eng.submit_block(build_block(sh, [[get + b'k%d' % s] for s in sh]))\n"
+        "eng.flush()\n"
+        "assert [decode_result_bin(r[0]).value for r in f.result()] == ['v'] * 4\n"
+        "print(eng.read_lane_stats()['probe'])\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+        timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split()[-1] == "4"  # the GETs were served off consensus

@@ -1,7 +1,8 @@
 """The whole slice at a small size on the CPU: the twin of chip_smoke.py's
-phases 3-5 and 7 (protocol vs fused entry, the decision core checked
+phases 3-5, 7 and 8 (protocol vs fused entry, the decision core checked
 against both plain windows, the MeshEngine serving lane, the
-device-resident KV lane beside the host block lane), run by the same code
+device-resident KV lane beside the host block lane, the read lane beside
+the device lane without it and the host block lane), run by the same code
 with device="cpu" at S=16, R=5. The same phases on the card are the
 cuda-marked tests at the end."""
 
@@ -52,6 +53,22 @@ def test_device_kv_lane_cpu():
     assert not eng.device_lane_active  # sync_to_host demoted it at the end
     assert eng.device.type == "cpu" and eng._dev.state.used.device.type == "cpu"
     assert kv_window.KV_WINDOW.launches == before  # no kernel on the CPU
+
+
+def test_read_lane_cpu():
+    before = kv_window.KV_WINDOW.launches
+    stats, eng = chip_smoke.device_read_lane("cpu", S, R, groups=2)
+    for stream in ("uniform", "zipf"):
+        assert stats[stream]["read_slots"] == 0 and stats[stream]["probe_windows"] == 2
+    assert eng.read_lane_stats()["probe"] == 2 * 2 * 9 * S
+    assert kv_window.KV_WINDOW.launches == before  # no kernel on the CPU
+
+
+def test_pack_costs_cpu():
+    _, eng = chip_smoke.device_kv_lane("cpu", S, R)
+    costs = chip_smoke.pack_costs(eng._dev, S, reps=1)
+    assert costs["fill set"]["D"] == 16  # every op its own row
+    assert costs["fill set"]["auto_upload_bytes"] == costs["fill set"]["rows_upload_bytes"] + 16 * S
 
 
 @pytest.fixture
@@ -160,3 +177,17 @@ def test_tsr_kernel_matches_plain_on_card(cuda, S, R):
         torch.cuda.synchronize()
         assert torch.equal(d, want_d) and torch.equal(p, want_p)
         assert fused_window.FUSED_WINDOW_TSR.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_dict_kernel_and_probe_match_plain_on_card(cuda):
+    assert chip_smoke.dict_kernel_vs_plain(cuda) == 0
+
+
+@pytest.mark.cuda
+def test_read_lane_on_card(cuda):
+    before = dict(kv_window.KV_WINDOW.counts)
+    stats, eng = chip_smoke.device_read_lane(cuda, 64, R, groups=2)
+    assert stats["zipf"]["read_slots"] == 0 and eng.read_lane_stats()["probe"] == 2 * 2 * 9 * 64
+    assert kv_window.KV_WINDOW.counts["dict"] > before["dict"]
+    assert kv_window.KV_WINDOW.counts["dict+decide"] > before["dict+decide"]
