@@ -7,7 +7,8 @@ Phases (each raises on failure; nothing is caught):
 1. build the CUDA sources of ``rabia_tpu_torch/csrc`` with nvcc (sm_90a),
    one nvcc per source, started together: the fused-window kernels
    (replica-major and [T,S,R]), the kv-window kernel (with and without
-   the folded decision) and the mesh-window kernel;
+   the folded decision), the mesh-window kernel, the packed-window
+   kernel and the round kernel (the scanned weak-MVC protocol);
 2. hold both fused-window kernels against their plain PyTorch versions,
    bit for bit, on random votes over all four codes: R in
    {1,3,4,5,7,8}, S in {17,1000,4096}, odd T, a view that starts one
@@ -17,12 +18,36 @@ Phases (each raises on failure; nothing is caught):
    {1,3,4,5,7,64}, ragged S, T in {1,16}, max_phases in {1,4,8}, coin_p1
    in {0,0.5,1}, votes over all four codes, crash masks with a
    quorum-less shard, per-shard bases near 2^31-1 (``base + t`` wraps);
-3. hold the scanned protocol (``ClusterKernel.slot_pipeline``) against the
-   fused entry on the card (S=4096, R=5, T=64, random votes, crash mask);
+2c. hold the packed-window kernel against the plain packed window, bit
+   for bit: R in {1,3,4,5,7,8}, every quorum from 0 to R+1, S in
+   {17,1000,4096} (ragged pad lanes decide ABSENT), odd T, random codes
+   over all four values, crash masks, a view one word into a buffer;
+2d. hold the round kernel against the plain round, every field of the
+   state after every launch: R in {1,3,4,5,7,8,64}, S in {17,1000,4096},
+   coin_p1 in {0,0.5,1}; ``run_rounds`` chains of 1, 2, 7 and 80 rounds
+   at p_deliver 1.0, 0.6 and 0.3 with a static partition on some, crash
+   masks with a quorum-less shard, inactive shards, slots near 2^31-1,
+   from a state taken mid-protocol; one ``round_step`` under an explicit
+   mask, also in place; ``slot_pipeline`` and ``slot_pipeline_wide`` at
+   1, 2 and 4 rounds a slot with slots that wrap past 2^31-1; then the
+   port's ``WeakMVCOracle`` on four shards of one lossy trace, one launch
+   a step;
+3. hold the scanned protocol (``ClusterKernel.slot_pipeline``, the round
+   kernel) against the fused entry on the card (S=4096, R=5, T=64,
+   random votes, crash mask);
 4. the decision core at full width (S=4096, R=5, T=32768 replica-major
    votes): a timed chain of launches over two buffers, every decision
-   checked on the device, beside the plain closed form and the plain
-   packed window;
+   checked on the device, beside the plain closed form, and the packed
+   window (the packed-window kernel) checked against it and timed
+   beside the plain packed window; the scanned protocol at bench.py's
+   depth (T=8192) through ``slot_pipeline`` held against
+   ``slot_pipeline_fused`` and timed (the plain loop at T=64); the
+   selftest's fault path at full width (replicas [dead, up, up, dead,
+   up], 80 rounds at p_deliver=0.6: every shard decides, the state
+   equals the plain loop's), its one launch timed beside an empty
+   kernel; the packed window at bench.py's packed depth (T=393216, 2.0
+   GB of unanimous-V1 words), every decision checked against the V1
+   row;
 5. the serving lane at full width: ``MeshEngine`` over 4096 shards x 5
    replicas — SET/GET on every shard, replica snapshots, decision logs,
    minority and majority crashes, heal, checkpoint/restore;
@@ -63,12 +88,14 @@ Phases (each raises on failure; nothing is caught):
    window are timed by graph replay, and the packers' host time and
    upload bytes are measured.
 
-The launch counts of the four kernels (the kv-window kernel's by form)
-are reset just before phases 4-5, 7 and 8 (the main path) and read just
-after; phase 4 drives both
+The launch counts of the six kernels (the kv-window kernel's by form,
+the round kernel's by entry) are reset just before phases 4-5, 7 and 8
+(the main path) and read just after; phase 4 drives both
 fused-window entries (replica-major at full depth, and
 ``ClusterKernel.slot_pipeline_fused`` on [T,S,R] votes at full depth and
-at ``__graft_entry__``'s T=8 beside ``slot_pipeline``). After it, phase 7
+at ``__graft_entry__``'s T=8 beside ``slot_pipeline``), the packed
+window, and both round-kernel entries (``slot_pipeline`` and
+``run_rounds``). After it, phase 7
 checks that one ``decide_apply``, ``lookup_window`` and ``mixed_apply``
 each launch the kv-window kernel once and the mesh-window kernel never,
 and the kernels are timed. The last lines are a ``{"kernels": ...}``
@@ -94,11 +121,23 @@ from rabia_tpu_torch.apps.device_kv import DeviceDictOps
 from rabia_tpu_torch.apps.vector_kv import VectorShardedKV
 from rabia_tpu_torch.core.blocks import build_block
 from rabia_tpu_torch.core.errors import RabiaError
+from rabia_tpu_torch.core.oracle import WeakMVCOracle
 from rabia_tpu_torch.core.state_machine import InMemoryStateMachine
 from rabia_tpu_torch.core.types import ABSENT, V1, quorum_size
-from rabia_tpu_torch.kernel import cuda_build, fused_window, kv_window, mesh_window, packed_window
+from rabia_tpu_torch.kernel import (
+    cluster_round,
+    cuda_build,
+    fused_window,
+    kv_window,
+    mesh_window,
+    packed_window,
+)
+from rabia_tpu_torch.kernel.phase_driver import device_coin
 
 S_FULL, R_FULL, T_FULL = 4096, 5, 32768  # BASELINE.json config 3 geometry, bench.py depth
+T_SCAN = 8192  # bench.py's depth for the scanned protocol (slot_pipeline)
+T_PACKED = 393216  # bench.py's depth for the packed window (2.0 GB of votes at S=4096 R=5)
+T_PLAIN_SCAN = 64  # the depth at which the plain slot_pipeline is timed
 CHAIN = 32
 P_FULL = 64  # the reference DeviceKVTable's per_shard_capacity (32 B keys, 64 B values)
 # int32 operations/s of an H100 SXM: 132 SMs x 64 INT32 lanes x 1.98 GHz
@@ -120,7 +159,12 @@ def _alive(shape, gen, device, p_dead=0.3) -> torch.Tensor:
 
 
 def _max_err(a: torch.Tensor, b: torch.Tensor) -> int:
-    return int((a.to(torch.int32) - b.to(torch.int32)).abs().max()) if a.numel() else 0
+    return int((a.to(torch.int64) - b.to(torch.int64)).abs().max()) if a.numel() else 0
+
+
+def _state_err(a, b) -> int:
+    """The largest absolute difference over every field of two states."""
+    return max(_max_err(x, y) for x, y in zip(a, b))
 
 
 # -- phase 2 -----------------------------------------------------------------
@@ -225,6 +269,152 @@ def mesh_work(mk, votes, alive, base, max_phases: int) -> tuple[int, int]:
     return phases, sum(int(u.sum()) for u in undecided[1:])
 
 
+# -- phase 2c ----------------------------------------------------------------
+
+
+def packed_kernel_vs_plain(device) -> int:
+    """The packed-window kernel against the plain packed window, bit for
+    bit; returns the largest absolute difference of the words (must be
+    0)."""
+    gen = torch.Generator(device=device).manual_seed(23)
+    worst = 0
+
+    def shifted(x):  # the same words, starting one word into a buffer
+        buf = torch.empty(x.numel() + 1, dtype=torch.int32, device=device)
+        out = buf[1:].view(x.shape)
+        out.copy_(x)
+        return out
+
+    for R in (1, 3, 4, 5, 7, 8):
+        for S, T in ((17, 33), (1000, 7), (4096, 65)):
+            votes = _random_votes((R, T, S), gen, device)
+            alive = _alive((R, S), gen, device)
+            packed, alive_p = packed_window.pack_codes(votes), packed_window.pack_alive(alive)
+            for q in range(R + 2):
+                want = packed_window.packed_window_rmajor(packed, alive_p, q)
+                for v in (packed, shifted(packed)):
+                    got = packed_window.PACKED_WINDOW(v, alive_p, q)
+                    torch.cuda.synchronize(device)
+                    worst = max(worst, _max_err(got, want))
+                    _check(torch.equal(got, want),
+                           f"packed window kernel != plain at R={R} S={S} T={T} q={q}")
+                if q >= 1 and S % 16:
+                    pads = packed_window.unpack_codes(want, packed.shape[-1] * 16)[:, S:]
+                    _check(bool((pads == ABSENT).all()), "a pad lane decided")
+    return worst
+
+
+# -- phase 2d ----------------------------------------------------------------
+
+
+def round_kernel_vs_plain(device) -> int:
+    """The round kernel against the plain round: ``run_rounds`` chains of
+    1, 2, 7 and 80 rounds at p_deliver 1.0, 0.6 and 0.3 (a static
+    partition on some), one ``round_step`` under an explicit mask, the
+    same launch in place, and ``slot_pipeline`` / ``slot_pipeline_wide``
+    at 1, 2 and 4 rounds a slot with slots that wrap past 2^31-1; every
+    field of every state after every launch. Returns the largest
+    absolute difference seen (must be 0)."""
+    gen = torch.Generator(device=device).manual_seed(24)
+    worst, case = 0, 0
+    for R in (1, 3, 4, 5, 7, 8, 64):
+        q = quorum_size(R)
+        for S in (17, 1000, 4096):
+            p1 = (0.0, 0.5, 1.0)[case % 3]
+            k = ClusterKernel(S, R, coin_p1=p1, seed=S + R, device=device)
+            votes = torch.randint(0, 2, (S, R), generator=gen, device=device, dtype=torch.int8)
+            votes[::7] = _random_votes((votes[::7].shape[0], R), gen, device)  # V? and ABSENT
+            alive = _alive((S, R), gen, device, p_dead=0.2)
+            alive[0, :q] = False  # a quorum-less shard
+            active = torch.ones(S, dtype=torch.bool, device=device)
+            active[1::5] = False  # inactive shards
+            st = k.start_slot(k.init_state(), active, votes)
+            st = st._replace(slot=2**31 - 1 - torch.randint(
+                0, 3, (S,), generator=gen, device=device, dtype=torch.int32))
+            # a state taken mid-protocol: three plain rounds first
+            st = k.run_rounds_plain(st, alive, 3, torch.Generator(device=device).manual_seed(case),
+                                    p_deliver=0.6)
+            side = torch.arange(R, device=device) < max(1, R // 3)
+            part = side[:, None] == side[None, :]  # a static partition
+            for i, p in enumerate((1.0, 0.6, 0.3)):
+                link = part if i == 1 or (i == 0 and case % 2) else None
+                for n in (1, 2, 7, 80):
+                    gens = [torch.Generator(device=device).manual_seed(100 * case + n)
+                            for _ in range(2)]
+                    got = k.run_rounds(st, alive, n, gens[0], p_deliver=p, link_mask=link)
+                    want = k.run_rounds_plain(st, alive, n, gens[1], p_deliver=p, link_mask=link)
+                    torch.cuda.synchronize(device)
+                    err = _state_err(got, want)
+                    worst = max(worst, err)
+                    _check(err == 0, f"run_rounds kernel != plain at R={R} S={S} p={p} n={n} "
+                                     f"coin_p1={p1}")
+                    st = got
+            d = torch.rand((S, R, R), generator=gen, device=device) < 0.5
+            want = k.round_step_plain(st, alive, d)
+            got = k.round_step(st, alive, d)
+            fields = [t.clone() for t in st]  # the same round, in place
+            cluster_round.CLUSTER_ROUND.rounds(fields, alive, d, 1, out=fields,
+                                               **k._kernel_args())
+            torch.cuda.synchronize(device)
+            err = max(_state_err(got, want), _state_err(fields, want))
+            worst = max(worst, err)
+            _check(err == 0, f"round_step kernel != plain at R={R} S={S}")
+            T, start = 9, 2**31 - 5
+            v = _random_votes((T, S, R), gen, device)
+            v[:, 1::3] = torch.randint(0, 2, v[:, 1::3].shape, generator=gen, device=device,
+                                       dtype=torch.int8)  # split V0/V1: the coin
+            for rounds in (1, 2, 4):
+                want = k.slot_pipeline_plain(v, alive, T, rounds, start)
+                got = k.slot_pipeline(v, alive, T, rounds, start)
+                wide = k.slot_pipeline_wide(v, alive, T, rounds, start, block=3)
+                torch.cuda.synchronize(device)
+                err = max(_state_err(got, want), _state_err(wide, want))
+                worst = max(worst, err)
+                _check(err == 0, f"slot_pipeline kernel != plain at R={R} S={S} "
+                                 f"rounds={rounds}")
+            case += 1
+    return worst
+
+
+def round_kernel_vs_oracle(device) -> None:
+    """The port's WeakMVCOracle on four shards of one lossy trace, one
+    round-kernel launch a step (tests/test_kernel.py's conformance
+    check): decisions, decided phases, and every undecided live replica's
+    phase, stage and votes agree after every step."""
+    S, R, T, seed = 4, 5, 30, 5
+    rng = np.random.default_rng(seed)
+    initial = rng.integers(0, 2, size=(S, R)).astype(np.int8)
+    alive = np.ones((S, R), bool)
+    alive[:, 0] = False
+    masks = rng.random((T, S, R, R)) < 0.6
+    k = ClusterKernel(S, R, seed=seed, device=device)
+    st = k.start_slot(k.init_state(), torch.ones(S, dtype=torch.bool, device=device),
+                      torch.from_numpy(initial).to(device))
+    oracles = [WeakMVCOracle(R, list(initial[s]), lambda ph, s=s: device_coin(seed, s, 0, ph),
+                             alive=list(alive[s])) for s in range(S)]
+    on_card = torch.from_numpy(alive).to(device)
+    before = cluster_round.CLUSTER_ROUND.launches
+    for t in range(T):
+        st = k.round_step(st, on_card, torch.from_numpy(masks[t]).to(device))
+        for s in range(S):
+            oracles[s].step(lambda i, j, m=masks[t, s]: bool(m[i, j]))
+        f = {name: getattr(st, name).cpu().numpy() for name in st._fields}
+        for s, o in enumerate(oracles):
+            kd = None if f["decided"][s] == ABSENT else int(f["decided"][s])
+            kp = None if f["decided_phase"][s] < 0 else int(f["decided_phase"][s])
+            _check((kd, kp) == (o.decided_value, o.decided_phase), f"oracle step {t} shard {s}")
+            for r, node in enumerate(o.nodes):
+                if not alive[s, r]:
+                    continue
+                _check(bool(f["done"][s, r]) == (node.decided is not None), f"oracle step {t}")
+                if node.decided is None:
+                    _check((f["phase"][s, r], f["stage"][s, r], f["my_r1"][s, r], f["my_r2"][s, r])
+                           == (node.phase, node.stage, node.my_r1, node.my_r2),
+                           f"oracle step {t} shard {s} replica {r}")
+    _check(cluster_round.CLUSTER_ROUND.launches == before + T, "a step was not one launch")
+    _check(all(o.decided_value is not None for o in oracles), "the oracle trace decided nothing")
+
+
 # -- phase 3 -----------------------------------------------------------------
 
 
@@ -284,6 +474,94 @@ def decision_core_tsr(device, S: int, R: int, T: int, seed: int = 5):
                "[T,S,R] decision core != plain closed form")
         del want_d, want_p
     return k, bufs, alive, worst
+
+
+def scan_vs_fused(device, S: int, R: int, T: int, seed: int = 12):
+    """The scanned protocol at bench.py's depth through ``slot_pipeline``
+    (one round-kernel launch) on each of two buffers of random votes
+    under a crash mask, every decision and phase held against
+    ``slot_pipeline_fused`` on the card (under full delivery the two are
+    identical). Returns (kernel, votes buffers, alive, max error)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    k = ClusterKernel(S, R, seed=seed, device=device)
+    bufs = [_random_votes((T, S, R), gen, device) for _ in range(2)]
+    alive = _alive((S, R), gen, device, p_dead=0.2)
+    worst = 0
+    for votes in bufs:
+        d, ph = k.slot_pipeline(votes, alive, T)
+        wd, wp = k.slot_pipeline_fused(votes, alive, T)
+        worst = max(worst, _max_err(d, wd), _max_err(ph, wp))
+        _check(torch.equal(d, wd) and torch.equal(ph, wp), "slot_pipeline != slot_pipeline_fused")
+    return k, bufs, alive, worst
+
+
+def fault_path(device, S: int, n_rounds: int = 80, p_deliver: float = 0.6, seed: int = 1):
+    """``python -m rabia_tpu --selftest``'s fault path at full width: five
+    replicas [dead, up, up, dead, up], every shard proposes V1, n_rounds
+    rounds at p_deliver through ``run_rounds`` (one round-kernel launch);
+    every shard must decide, and the state must equal the plain loop's
+    under the same generator. Returns (kernel, start state, alive, max
+    error)."""
+    R = 5
+    k = ClusterKernel(S, R, seed=42, device=device)
+    st0 = k.start_slot(k.init_state(), torch.ones(S, dtype=torch.bool, device=device),
+                       torch.full((S, R), V1, dtype=torch.int8, device=device))
+    alive = torch.tensor([False, True, True, False, True], device=device).expand(S, R)
+    got = k.run_rounds(st0, alive, n_rounds, torch.Generator(device=device).manual_seed(seed),
+                       p_deliver=p_deliver)
+    want = k.run_rounds_plain(st0, alive, n_rounds,
+                              torch.Generator(device=device).manual_seed(seed),
+                              p_deliver=p_deliver)
+    _check(bool((got.decided != ABSENT).all()), "the fault path left a shard undecided")
+    err = _state_err(got, want)
+    _check(err == 0, "run_rounds kernel != plain on the fault path")
+    return k, st0, alive, err
+
+
+def packed_deep(device, S: int, R: int, T: int):
+    """The packed window at bench.py's packed depth through
+    ``slot_pipeline_fused_packed`` (the packed-window kernel) on two
+    buffers of unanimous-V1 words, every decision checked on the card
+    against the V1 row (bench.py's check). Returns (kernel, buffers,
+    packed alive, V1 row, max error)."""
+    k = ClusterKernel(S, R, seed=0, device=device)
+    v1_word = int(packed_window.pack_codes(torch.full((16,), V1, dtype=torch.int8))[0])
+    first = torch.full((R, T, packed_window.packed_width(S)), v1_word, dtype=torch.int32,
+                       device=device)
+    bufs = [first, first.clone()]
+    alive_p = packed_window.pack_alive(torch.ones((R, S), dtype=torch.bool, device=device))
+    row = packed_window.pack_codes(torch.full((S,), V1, dtype=torch.int8, device=device))
+    worst = 0
+    for buf in bufs:
+        d = k.slot_pipeline_fused_packed(buf, alive_p, T)
+        worst = max(worst, int((d.to(torch.int64) - row.to(torch.int64)).abs().max()))
+        _check(bool((d == row[None, :]).all()), "packed window != the V1 row")
+        del d
+    return k, bufs, alive_p, row, worst
+
+
+# the least integer operations of the two functions, counted from what
+# each function must compute (not from the kernels' own code)
+
+def packed_ops(R: int, T: int, SW: int) -> int:
+    """``packed_window_rmajor`` per output word, with 3-input logic as one
+    operation (alive bits lie at the lanes' low bits): 3 a replica for its
+    planes (one shift, then V1 = w & ~(w >> 1) & a and V0 = ~(w | w >> 1)
+    & a), 2 for each full adder of the two carry-save trees that sum R
+    one-bit planes into bit_length(R) bits (R - bit_length(R) adders a
+    tree), bit_length(R) for each quorum compare, and 3 for the codes."""
+    cap = R.bit_length()
+    return T * SW * (3 * R + 2 * 2 * (R - cap) + 2 * cap + 3)
+
+
+def pipeline_ops(S: int, R: int, T: int) -> int:
+    """``slot_pipeline`` on T slots under full delivery: its decisions and
+    phases are then the closed form's (``slot_pipeline_fused``'s, held
+    equal in the same run), so the least work a (slot, shard) is that
+    tally: 5 a replica (V1 and V0 tests of its code under alive, two
+    adds) and 8 for the two quorum compares, the decision and its
+    phase."""
+    return T * S * (5 * R + 8)
 
 
 # -- phase 6 -----------------------------------------------------------------
@@ -1018,13 +1296,16 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
     print(f"card: {smi}")
 
-    # 1. build the three sources (one nvcc per source, started together)
+    # 1. build the five sources (one nvcc per source, started together)
     t0 = time.perf_counter()
-    libs = cuda_build.build(["fused_window", "kv_window", "mesh_window"])
+    libs = cuda_build.build(
+        ["fused_window", "kv_window", "mesh_window", "packed_window", "cluster_round"])
     fused_window.FUSED_WINDOW.load()
     fused_window.FUSED_WINDOW_TSR.load()
     kv_window.KV_WINDOW.load()
     mesh_window.MESH_WINDOW.load()
+    packed_window.PACKED_WINDOW.load()
+    cluster_round.CLUSTER_ROUND.load()
     print(f"phase 1 build: {time.perf_counter() - t0:.2f} s "
           f"({', '.join(p.name for p in libs.values())})")
     for lib in libs.values():
@@ -1042,7 +1323,21 @@ def main() -> int:
     print(f"phase 2b mesh_window kernel vs plain: max_abs_err {err2b} "
           f"({time.perf_counter() - t0:.2f} s)")
 
-    # 3. protocol vs kernel
+    # 2c. packed-window kernel vs plain (not counted: before the main path)
+    t0 = time.perf_counter()
+    err2c = packed_kernel_vs_plain(device)
+    print(f"phase 2c packed_window kernel vs plain: max_abs_err {err2c} "
+          f"({time.perf_counter() - t0:.2f} s)")
+
+    # 2d. round kernel vs plain and vs the oracle (not counted)
+    t0 = time.perf_counter()
+    err2d = round_kernel_vs_plain(device)
+    round_kernel_vs_oracle(device)
+    print(f"phase 2d cluster_round kernel vs plain (run_rounds, round_step, in place, "
+          f"slot_pipeline, slot_pipeline_wide): max_abs_err {err2d}; vs the port's "
+          f"WeakMVCOracle on a lossy trace: equal ({time.perf_counter() - t0:.2f} s)")
+
+    # 3. protocol (the round kernel) vs the fused kernel
     t0 = time.perf_counter()
     protocol_vs_fused(device, S_FULL, R_FULL, 64)
     print(f"phase 3 slot_pipeline == slot_pipeline_fused at S={S_FULL} R={R_FULL} T=64 "
@@ -1068,6 +1363,8 @@ def main() -> int:
     fused_window.FUSED_WINDOW_TSR.launches = 0
     kv_window.KV_WINDOW.reset_counts()
     mesh_window.MESH_WINDOW.launches = 0
+    packed_window.PACKED_WINDOW.launches = 0
+    cluster_round.CLUSTER_ROUND.reset_counts()
     t0 = time.perf_counter()
     k, bufs, alive, err4 = decision_core(device, S_FULL, R_FULL, T_FULL)
     kernel_ms = _time_ms(
@@ -1078,6 +1375,16 @@ def main() -> int:
     tsr_ms = _time_ms(lambda i=0: tk.slot_pipeline_fused(tbufs[i % 2], talive, T_FULL), CHAIN)
     # __graft_entry__'s shapes: the scanned protocol and the fused entry agree
     protocol_vs_fused(device, S_FULL, R_FULL, 8)
+    # the scan at bench.py's depth, the selftest's fault path, and the
+    # packed window at bench.py's packed depth
+    sk, sbufs, salive, err_scan = scan_vs_fused(device, S_FULL, R_FULL, T_SCAN)
+    scan_turns = [_time_ms(lambda i=0: sk.slot_pipeline(sbufs[i % 2], salive, T_SCAN), 8)]
+    fk, fst0, falive, err_fault = fault_path(device, S_FULL)
+    pk, pbufs, palive, prow, err_deep = packed_deep(device, S_FULL, R_FULL, T_PACKED)
+    deep_ms = _time_ms(lambda i=0: pk.slot_pipeline_fused_packed(pbufs[i % 2], palive, T_PACKED), 8)
+    d = pk.slot_pipeline_fused_packed(pbufs[0], palive, T_PACKED)
+    _check(bool((d == prow[None, :]).all()), "packed window != the V1 row after the timed chain")
+    del d, pbufs
     lane = serving_lane(device, S_FULL, R_FULL)
     t7 = time.perf_counter()
     kv_lane, kv_eng = device_kv_lane(device, S_FULL, R_FULL)
@@ -1091,6 +1398,9 @@ def main() -> int:
     tsr_launches = fused_window.FUSED_WINDOW_TSR.launches
     kv_counts = dict(kv_window.KV_WINDOW.counts)
     mesh_launches = mesh_window.MESH_WINDOW.launches
+    packed_launches = packed_window.PACKED_WINDOW.launches
+    round_counts = dict(cluster_round.CLUSTER_ROUND.counts)
+    round_launches = cluster_round.CLUSTER_ROUND.launches
     main_s = time.perf_counter() - t0
     _check(launches > 0, "the main path never launched the fused window kernel")
     _check(tsr_launches > 0, "the main path never launched the [T,S,R] fused window kernel")
@@ -1100,6 +1410,9 @@ def main() -> int:
     _check(kv_counts["dict"] + kv_counts["rows"] > 0,
            "the main path never launched the kv window kernel's read-only probe")
     _check(mesh_launches > 0, "the main path never launched the mesh window kernel")
+    _check(packed_launches > 0, "the main path never launched the packed window kernel")
+    _check(round_counts["slot_pipeline"] > 0 and round_counts["rounds"] > 0,
+           "the main path never launched both round kernel entries")
     # ---- end of the main path ----
 
     q = quorum_size(R_FULL)
@@ -1111,6 +1424,60 @@ def main() -> int:
     packed = [packed_window.pack_codes(b) for b in bufs]
     alive_p = packed_window.pack_alive(alive)
     packed_ms = _time_ms(lambda i=0: packed_window.packed_window_rmajor(packed[i % 2], alive_p, q), 4)
+    pw_call = lambda i=0: packed_window.PACKED_WINDOW(packed[i % 2], alive_p, q)  # noqa: E731
+    pw_turns = [_time_ms(pw_call, CHAIN), _time_ms(pw_call, CHAIN)]
+    pw_ms = min(pw_turns)
+    pw_err = _max_err(pw_call(), packed_window.packed_window_rmajor(packed[0], alive_p, q))
+    SW = packed[0].shape[-1]
+    pw_bytes = 4 * (R_FULL * T_FULL * SW + R_FULL * SW + T_FULL * SW)
+    pw_bytes_ms = pw_bytes / _card_rate_bytes_per_s(name) * 1e3
+    pw_ops_ms = packed_ops(R_FULL, T_FULL, SW) / INT32_OPS_PER_S * 1e3
+    deep_bytes = 4 * (R_FULL * T_PACKED * SW + R_FULL * SW + T_PACKED * SW)
+    deep_bound_ms = max(deep_bytes / _card_rate_bytes_per_s(name) * 1e3,
+                        packed_ops(R_FULL, T_PACKED, SW) / INT32_OPS_PER_S * 1e3)
+    # the round kernel: the scan at T_SCAN in turns beside the batched
+    # plain version, the kernel and the plain loop at T_PLAIN_SCAN (each
+    # pair held equal), the fault path's one launch of 80 rounds beside an
+    # empty kernel at its grid, the whole run_rounds call and the plain
+    # loop
+    scan_call = lambda i=0: sk.slot_pipeline(sbufs[i % 2], salive, T_SCAN)  # noqa: E731
+    scan_turns.append(_time_ms(scan_call, 8))
+    scan_ms = min(scan_turns)
+    short = sbufs[0][:T_PLAIN_SCAN]
+    scan_short_ms = _time_ms(lambda i=0: sk.slot_pipeline(short, salive, T_PLAIN_SCAN), 20)
+    scan_short_plain_ms = _time_ms(
+        lambda i=0: sk.slot_pipeline_plain(short, salive, T_PLAIN_SCAN), 2)
+    err_short = max(_max_err(a, b) for a, b in zip(
+        sk.slot_pipeline(short, salive, T_PLAIN_SCAN),
+        sk.slot_pipeline_plain(short, salive, T_PLAIN_SCAN)))
+    _check(err_short == 0, f"slot_pipeline kernel != plain at T={T_PLAIN_SCAN}")
+    # the plain version at the scan's own depth: slot_pipeline_wide_plain,
+    # 256 slots a step (32 steps), the same function bit for bit
+    wide_call = lambda i=0: sk.slot_pipeline_wide_plain(  # noqa: E731
+        sbufs[i % 2], salive, T_SCAN, block=256)
+    scan_plain_ms = _time_ms(wide_call, 1)
+    err_wide = max(_max_err(a, b) for a, b in zip(
+        sk.slot_pipeline(sbufs[0], salive, T_SCAN), wide_call()))
+    _check(err_wide == 0, f"slot_pipeline kernel != slot_pipeline_wide_plain at T={T_SCAN}")
+    scan_bytes = T_SCAN * S_FULL * (R_FULL + 1 + 4) + S_FULL * R_FULL
+    scan_bytes_ms = scan_bytes / _card_rate_bytes_per_s(name) * 1e3
+    scan_ops_ms = pipeline_ops(S_FULL, R_FULL, T_SCAN) / INT32_OPS_PER_S * 1e3
+    fgen = torch.Generator(device=device).manual_seed(1)
+    fmasks = torch.stack([torch.rand((S_FULL, R_FULL, R_FULL), generator=fgen, device=device) < 0.6
+                          for _ in range(80)])
+    ffields = [t.contiguous() for t in fst0]
+    falive_c = falive.contiguous()
+    fault_call = lambda i=0: cluster_round.CLUSTER_ROUND.rounds(  # noqa: E731
+        ffields, falive_c, fmasks, 80, **fk._kernel_args())
+    fempty = lambda i=0: mesh_window.MESH_WINDOW.empty(1, S_FULL, device)  # noqa: E731
+    fault_turns = [_graph_ms(fault_call, 20)]
+    fempty_turns = [_graph_ms(fempty, 200), _graph_ms(fempty, 200)]
+    fault_turns.append(_graph_ms(fault_call, 20))
+    fault_run_ms = _time_ms(lambda i=0: fk.run_rounds(
+        fst0, falive, 80, torch.Generator(device=device).manual_seed(1), p_deliver=0.6), 5)
+    fault_plain_ms = _time_ms(lambda i=0: fk.run_rounds_plain(
+        fst0, falive, 80, torch.Generator(device=device).manual_seed(1), p_deliver=0.6), 2)
+    del sbufs, short, fmasks
     # the [T, S, R] kernel beside the path it replaces (a relayout to
     # replica-major, then the replica-major kernel with phase), in turns
     talive_rm = talive.t().contiguous()
@@ -1289,6 +1656,36 @@ def main() -> int:
           f"{' / '.join(f'{x:.4f}' for x in relayout_ms)} ms (in turns: relayout, kernel, kernel, "
           f"relayout); plain closed_form_window {api_plain_ms:.3f} ms; max_abs_err {err4_tsr}")
     device_share = window_ms * lane["first_flush_cycles"] / (lane["first_flush_s"] * 1e3)
+    print(f"phase 4 packed window S={S} R={R} T={T} (SW={SW}): kernel "
+          f"{' / '.join(f'{x:.4f}' for x in pw_turns)} ms ({pw_bytes / pw_ms / 1e6:.1f} GB/s; "
+          f"bound {max(pw_bytes_ms, pw_ops_ms):.4f} ms: bytes {pw_bytes} -> {pw_bytes_ms:.4f} ms, "
+          f"least int ops {packed_ops(R, T, SW)} -> {pw_ops_ms:.4f} ms; "
+          f"{max(pw_bytes_ms, pw_ops_ms) / pw_ms:.1%}), plain {packed_ms:.3f} ms; beside the "
+          f"replica-major kernel {kernel_ms:.4f} ms and the [T,S,R] kernel {tsr_best:.4f} ms; "
+          f"max_abs_err {pw_err}")
+    print(f"phase 4 packed window at bench.py's depth S={S_FULL} R={R_FULL} T={T_PACKED} "
+          f"({deep_bytes / 1e9:.3f} GB, unanimous V1, every decision = the V1 row): "
+          f"{deep_ms:.4f} ms a window ({S_FULL * T_PACKED / deep_ms * 1e3:.4g} decisions/s, "
+          f"{deep_bytes / deep_ms / 1e6:.1f} GB/s, {deep_bound_ms / deep_ms:.1%} of the "
+          f"{deep_bound_ms:.4f} ms bound); max_abs_err {err_deep}")
+    print(f"phase 4 scanned protocol (slot_pipeline, the round kernel) S={S_FULL} R={R_FULL} "
+          f"T={T_SCAN}, 2 rounds a slot, crash mask: "
+          f"{' / '.join(f'{x:.4f}' for x in scan_turns)} ms a window "
+          f"({S_FULL * T_SCAN / scan_ms * 1e3:.4g} decisions/s; bound {max(scan_bytes_ms, scan_ops_ms):.4f} "
+          f"ms: bytes {scan_bytes} -> {scan_bytes_ms:.4f} ms, least int ops "
+          f"{pipeline_ops(S_FULL, R_FULL, T_SCAN)} -> {scan_ops_ms:.4f} ms; "
+          f"{max(scan_bytes_ms, scan_ops_ms) / scan_ms:.1%}); = slot_pipeline_fused, max_abs_err "
+          f"{err_scan}; = slot_pipeline_wide_plain (block 256) at T={T_SCAN}, max_abs_err "
+          f"{err_wide}, plain {scan_plain_ms:.3f} ms; at T={T_PLAIN_SCAN}: kernel "
+          f"{scan_short_ms:.4f} ms, plain slot_pipeline {scan_short_plain_ms:.3f} ms, max_abs_err "
+          f"{err_short}")
+    print(f"phase 4 fault path (python -m rabia_tpu --selftest's, at full width) S={S_FULL} "
+          f"R={R_FULL} replicas [dead, up, up, dead, up], 80 rounds at p_deliver=0.6: every shard "
+          f"decided, state = the plain loop's (max_abs_err {err_fault}); one launch of 80 rounds "
+          f"(CUDA graph replay), in turns (rounds, empty, empty, rounds): {fault_turns[0]:.4f} / "
+          f"{fempty_turns[0]:.4f} / {fempty_turns[1]:.4f} / {fault_turns[1]:.4f} ms; the whole "
+          f"run_rounds call (80 mask draws, one launch) {fault_run_ms:.4f} ms; plain loop "
+          f"{fault_plain_ms:.3f} ms")
     print(f"phase 5 serving lane S={S_FULL} R={R_FULL} window=16: {json.dumps(lane)}; "
           f"slot_window on the device {window_ms:.4f} ms, {device_share:.2%} of the first submit+flush")
     print(f"phase 7 device KV lane S={S_FULL} R={R_FULL} window=16 P={P_FULL}: "
@@ -1344,7 +1741,8 @@ def main() -> int:
           f"int ops {mw_ops} -> {mw_ops_ms:.5f} ms; {mw_phases} phases, {mw_coins} coins)")
     print(f"main path: {launches} fused-window launches, {tsr_launches} [T,S,R] fused-window "
           f"launches, kv-window launches {json.dumps(kv_counts)}, {mesh_launches} mesh-window "
-          f"launches, {main_s:.2f} s")
+          f"launches, {packed_launches} packed-window launches, round-kernel launches "
+          f"{json.dumps(round_counts)}, {main_s:.2f} s")
 
     kernels = [{
         "name": "fused_window",
@@ -1418,6 +1816,30 @@ def main() -> int:
         "bound_ms": max(mw_bytes_ms, mw_ops_ms),
         "bound_by": "bytes" if mw_bytes_ms >= mw_ops_ms else "operations",
         "library_ms": None,  # no single PyTorch call runs the weak-MVC phases
+    }, {
+        "name": "packed_window",
+        "route": "cuda",
+        "source": "rabia_tpu_torch/csrc/packed_window.cu",
+        "replaces": "rabia_tpu/kernel/packed_window.py:139",
+        "launches": packed_launches,
+        "max_abs_err": max(err2c, pw_err, err_deep),
+        "ms": pw_ms,  # S=4096 R=5 T=32768
+        "plain_ms": packed_ms,
+        "bound_ms": max(pw_bytes_ms, pw_ops_ms),
+        "bound_by": "bytes" if pw_bytes_ms >= pw_ops_ms else "operations",
+        "library_ms": None,  # no single PyTorch call computes a bit-sliced quorum tally
+    }, {
+        "name": "cluster_round",
+        "route": "cuda",
+        "source": "rabia_tpu_torch/csrc/cluster_round.cu",
+        "replaces": "rabia_tpu/kernel/phase_driver.py:234",
+        "launches": round_launches,
+        "max_abs_err": max(err2d, err_scan, err_wide, err_short, err_fault),
+        "ms": scan_ms,  # slot_pipeline, S=4096 R=5 T=8192
+        "plain_ms": scan_plain_ms,  # slot_pipeline_wide_plain on the same votes
+        "bound_ms": max(scan_bytes_ms, scan_ops_ms),
+        "bound_by": "bytes" if scan_bytes_ms >= scan_ops_ms else "operations",
+        "library_ms": None,  # no single PyTorch call runs the weak-MVC rounds
     }]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -1,0 +1,132 @@
+// The packed-vote fault-free window as one CUDA kernel for Hopper
+// (sm_90a).
+//
+// Replaces the reference's packed_window_rmajor
+// (rabia_tpu/kernel/packed_window.py), an XLA program on the TPU: the
+// closed-form quorum tally on votes packed 16 to a 32-bit word, in
+// bit-sliced counters (the per-word math is packed_window.cuh).
+//
+// Bound: bytes. Per window the kernel reads R*T*SW vote words and R*SW
+// alive words and writes T*SW decision words, SW = ceil(S/16): at S=4096
+// R=5 T=32768 that is 201 MB, 0.060 ms at the H100 SXM's 3.35 TB/s. The
+// arithmetic is about 20 integer operations a replica a word, below the
+// bytes time.
+//
+// Design: each thread owns one output word, or four neighbouring words
+// when the row width is a multiple of four and the planes are 16-byte
+// aligned (then every load and the store is a 16-byte vector). A warp's
+// threads sit on neighbouring words of one row, so each replica's load is
+// one coalesced run. The R loads per word are independent, the counters
+// live in registers, nothing is staged. R <= 8 is a template parameter,
+// so the replica loop unrolls and its loads issue together; larger R
+// (up to 127) takes a runtime loop. Offsets are 64-bit: at bench.py's
+// T=393216 one replica plane alone holds 100 M words.
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "packed_window.cuh"
+
+namespace {
+
+constexpr int THREADS = 256;
+constexpr int MAX_R = (1 << pw::MAX_CAP) - 1;
+
+__device__ __forceinline__ bool aligned16(const void* p) {
+    return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
+}
+
+// RT: the replica count when known at compile time (0: runtime R_rt);
+// CAP: counter planes enough for R; W: words a thread (4 needs SW % 4 == 0
+// and 16-byte aligned planes).
+template <int RT, int CAP, int W>
+__global__ void __launch_bounds__(THREADS)
+packed_window_kernel(const uint32_t* __restrict__ votes, const uint32_t* __restrict__ alive,
+                     uint32_t* __restrict__ out, int R_rt, int64_t T, int64_t SW, int q) {
+    const int R = RT > 0 ? RT : R_rt;
+    const int cap = pw::cap_of(R);
+    const int64_t groups = SW / W;
+    const int64_t total = T * groups;
+    const int64_t plane = T * SW;
+    const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+    for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < total;
+         i += stride) {
+        const int64_t t = i / groups;
+        const int64_t w0 = (i - t * groups) * W;
+        const int64_t off = t * SW + w0;
+        uint32_t c1[W][CAP] = {}, c0[W][CAP] = {};
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+            uint32_t w[W], a[W];
+            if constexpr (W == 4) {
+                const uint4 x = __ldg(reinterpret_cast<const uint4*>(votes + r * plane + off));
+                const uint4 y = __ldg(reinterpret_cast<const uint4*>(alive + r * SW + w0));
+                w[0] = x.x; w[1] = x.y; w[2] = x.z; w[3] = x.w;
+                a[0] = y.x; a[1] = y.y; a[2] = y.z; a[3] = y.w;
+            } else {
+                w[0] = __ldg(votes + r * plane + off);
+                a[0] = __ldg(alive + r * SW + w0);
+            }
+#pragma unroll
+            for (int k = 0; k < W; ++k) {
+                pw::add_plane(c1[k], pw::v1_plane(w[k], a[k]), cap);
+                pw::add_plane(c0[k], pw::v0_plane(w[k], a[k]), cap);
+            }
+        }
+        if constexpr (W == 4) {
+            uint4 d;
+            d.x = pw::decide(c1[0], c0[0], cap, q);
+            d.y = pw::decide(c1[1], c0[1], cap, q);
+            d.z = pw::decide(c1[2], c0[2], cap, q);
+            d.w = pw::decide(c1[3], c0[3], cap, q);
+            *reinterpret_cast<uint4*>(out + off) = d;
+        } else {
+            out[off] = pw::decide(c1[0], c0[0], cap, q);
+        }
+    }
+}
+
+template <int RT, int CAP>
+int launch(const uint32_t* v, const uint32_t* a, uint32_t* o, int R, int64_t T, int64_t SW,
+           int q, cudaStream_t stream) {
+    const bool vec = SW % 4 == 0 && ((reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(a) |
+                                      reinterpret_cast<uintptr_t>(o)) & 15u) == 0;
+    const int64_t total = T * (vec ? SW / 4 : SW);
+    int64_t blocks = (total + THREADS - 1) / THREADS;
+    if (blocks > (1 << 20)) blocks = 1 << 20;  // the grid-stride loop covers the rest
+    if (vec) {
+        packed_window_kernel<RT, CAP, 4><<<static_cast<unsigned>(blocks), THREADS, 0, stream>>>(
+            v, a, o, R, T, SW, q);
+    } else {
+        packed_window_kernel<RT, CAP, 1><<<static_cast<unsigned>(blocks), THREADS, 0, stream>>>(
+            v, a, o, R, T, SW, q);
+    }
+    return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// votes u32[R, T, SW] (the words' bit patterns, as torch int32), alive
+// u32[R, SW] (lane-LSB alive bits), out u32[T, SW]; all contiguous.
+// 1 <= R <= 127; any quorum (<= 0: every lane decides V1). Launches on
+// `stream`, returns cudaGetLastError() (0 on success); does not
+// synchronise.
+extern "C" int pw_window(const void* votes, const void* alive, void* out, int R, long long T,
+                         long long SW, int quorum, void* stream) {
+    if (R < 1 || R > MAX_R || T < 0 || SW < 0) return static_cast<int>(cudaErrorInvalidValue);
+    if (T == 0 || SW == 0) return 0;
+    const auto* v = static_cast<const uint32_t*>(votes);
+    const auto* a = static_cast<const uint32_t*>(alive);
+    auto* o = static_cast<uint32_t*>(out);
+    const auto st = static_cast<cudaStream_t>(stream);
+    switch (R) {
+        case 1: return launch<1, pw::cap_of(1)>(v, a, o, R, T, SW, quorum, st);
+        case 2: return launch<2, pw::cap_of(2)>(v, a, o, R, T, SW, quorum, st);
+        case 3: return launch<3, pw::cap_of(3)>(v, a, o, R, T, SW, quorum, st);
+        case 4: return launch<4, pw::cap_of(4)>(v, a, o, R, T, SW, quorum, st);
+        case 5: return launch<5, pw::cap_of(5)>(v, a, o, R, T, SW, quorum, st);
+        case 6: return launch<6, pw::cap_of(6)>(v, a, o, R, T, SW, quorum, st);
+        case 7: return launch<7, pw::cap_of(7)>(v, a, o, R, T, SW, quorum, st);
+        case 8: return launch<8, pw::cap_of(8)>(v, a, o, R, T, SW, quorum, st);
+        default: return launch<0, pw::MAX_CAP>(v, a, o, R, T, SW, quorum, st);
+    }
+}

@@ -12,18 +12,30 @@ Words are ``torch.int32`` holding the uint32 bit pattern (PyTorch's
 uint32 lacks shifts and compares); the arithmetic runs in int64 masked to
 32 bits, so no shift ever sees a sign bit. Compare results as
 ``.numpy().view(np.uint32)``.
+
+``packed_window_rmajor`` is the plain version. ``PACKED_WINDOW`` wraps
+the hand-written CUDA kernel of ``csrc/packed_window.cu``, which replaces
+the reference's ``packed_window_rmajor``; ``window`` dispatches on the
+tensor's device alone: a CUDA tensor goes to the kernel (or the wrapper
+raises), a CPU tensor to the plain version. The packers stay plain
+PyTorch: they are producers outside the window.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from rabia_tpu_torch.core.types import ABSENT
+from rabia_tpu_torch.kernel import cuda_build
 
 LANES = 16  # 2-bit codes per word
 _EVEN = 0x55555555  # lane-LSB positions (bits 0,2,…,30)
 _M32 = 0xFFFFFFFF
+I32 = torch.int32
 I64 = torch.int64
+MAX_REPLICAS = 127  # csrc/packed_window.cuh: at most 7 counter planes
 
 
 def packed_width(S: int) -> int:
@@ -137,3 +149,76 @@ def packed_window_rmajor(
     # lane codes: V1=01 where ge1; else V0=00 where ge0; else ABSENT=11
     babs = (ge1 | ge0) ^ m
     return _to_i32(ge1 | babs | (babs << 1))
+
+
+class PackedWindowKernel:
+    """ctypes wrapper of ``pw_window`` (csrc/packed_window.cu).
+
+    ``launches`` counts kernel launches; it grows by one exactly where
+    the kernel is launched. The library builds on the first call."""
+
+    def __init__(self) -> None:
+        self.launches = 0
+        self._fn = None
+
+    def load(self):
+        """Build (if needed) and bind the library; returns the C function."""
+        if self._fn is None:
+            path = cuda_build.build(["packed_window"])["packed_window"]
+            fn = ctypes.CDLL(str(path)).pw_window
+            fn.argtypes = [
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
+            ]
+            fn.restype = ctypes.c_int
+            self._fn = fn
+        return self._fn
+
+    def __call__(
+        self,
+        packed_rm: torch.Tensor,  # i32[R, T, SW], contiguous (any word offset), on CUDA
+        alive_packed: torch.Tensor,  # i32[R, SW], contiguous, same device
+        quorum: int,
+    ) -> torch.Tensor:
+        if packed_rm.dtype != I32 or packed_rm.dim() != 3:
+            raise ValueError(
+                f"packed_rm must be int32[R, T, SW], got {packed_rm.dtype}{list(packed_rm.shape)}"
+            )
+        R, T, SW = packed_rm.shape
+        if not 1 <= R <= MAX_REPLICAS:
+            raise ValueError(f"packed window kernel takes 1..{MAX_REPLICAS} replicas, got R={R}")
+        if alive_packed.dtype != I32 or tuple(alive_packed.shape) != (R, SW):
+            raise ValueError(
+                f"alive_packed must be int32[{R}, {SW}], got "
+                f"{alive_packed.dtype}{list(alive_packed.shape)}"
+            )
+        if alive_packed.device != packed_rm.device:
+            raise ValueError("the votes and alive lie on different devices")
+        if not (packed_rm.is_contiguous() and alive_packed.is_contiguous()):
+            raise ValueError("packed window kernel needs contiguous votes and alive")
+        if packed_rm.device.type != "cuda":
+            raise ValueError(f"packed window kernel needs a CUDA tensor, got {packed_rm.device}")
+        fn = self.load()
+        out = torch.empty((T, SW), dtype=I32, device=packed_rm.device)
+        if out.numel():
+            with torch.cuda.device(packed_rm.device):
+                stream = torch.cuda.current_stream().cuda_stream
+                err = fn(packed_rm.data_ptr(), alive_packed.data_ptr(), out.data_ptr(), R, T, SW,
+                         int(quorum), stream)
+            if err != 0:
+                raise RuntimeError(f"packed window kernel launch failed: cudaError {err}")
+            self.launches += 1
+        return out
+
+
+PACKED_WINDOW = PackedWindowKernel()
+
+
+def window(packed_rm: torch.Tensor, alive_packed: torch.Tensor, quorum: int) -> torch.Tensor:
+    """The packed closed form: the CUDA kernel for a CUDA tensor, the
+    plain version for a CPU tensor."""
+    if packed_rm.device.type == "cuda":
+        return PACKED_WINDOW(packed_rm, alive_packed, quorum)
+    if packed_rm.device.type == "cpu":
+        return packed_window_rmajor(packed_rm, alive_packed, quorum)
+    raise ValueError(f"no packed window for device {packed_rm.device}")

@@ -8,11 +8,20 @@ replicas at once: vote ledgers are ``int8[S, R, R]`` tensors
 round-2 tie-break is a common coin hashed from (seed, shard, slot,
 phase), and crashes and partitions are boolean masks.
 
-Every function is plain PyTorch on the tensors' own device, except the
-fused fault-free entries, which reach the CUDA kernel of
-:mod:`rabia_tpu_torch.kernel.fused_window` for CUDA tensors. The
-reference's ``lax.scan`` loops are Python loops here, and its ``vmap``
-over slots is a batch of shards written out (``slot_pipeline_wide``).
+For CUDA tensors the protocol runs hand-written CUDA kernels:
+``round_step``, ``run_rounds``, ``slot_pipeline`` and
+``slot_pipeline_wide`` the round kernels of
+:mod:`rabia_tpu_torch.kernel.cluster_round` (a chain of rounds, or a
+whole window of slots, in one launch), the fused fault-free entries those
+of :mod:`rabia_tpu_torch.kernel.fused_window` and
+:mod:`rabia_tpu_torch.kernel.packed_window`; the state constructors
+(``init_state``, ``start_slot``) stay tensor ops. For CPU tensors they
+run the plain PyTorch versions (``round_step_plain``,
+``run_rounds_plain``, ``slot_pipeline_plain``,
+``slot_pipeline_wide_plain``, the closed forms), which own the
+semantics: the reference's ``lax.scan`` loops are Python loops there,
+and its ``vmap`` over slots is a batch of shards written out
+(``slot_pipeline_wide_plain``).
 """
 
 from __future__ import annotations
@@ -23,7 +32,7 @@ import torch
 
 from rabia_tpu_torch.core.device import DeviceLike, resolve_device
 from rabia_tpu_torch.core.types import ABSENT, V0, V1, VQUESTION, f_plus_1, quorum_size
-from rabia_tpu_torch.kernel import fused_window, packed_window
+from rabia_tpu_torch.kernel import cluster_round, fused_window, packed_window
 
 I8 = torch.int8
 I32 = torch.int32
@@ -73,6 +82,11 @@ def _coin_bits(seed: int, shard, slot, phase, p1: float) -> torch.Tensor:
     h = _mix32(h ^ ((slot.to(I64) + _GOLD) & _M32))
     h = _mix32(h ^ ((phase.to(I64) + _GOLD) & _M32))
     return torch.where(h < coin_threshold(p1), V1, V0).to(I8)
+
+
+def _wrap_i32(x: int) -> int:
+    """``x`` as int32 arithmetic wraps it (the reference's int32 slots)."""
+    return (int(x) + 2**31) % 2**32 - 2**31
 
 
 def device_coin(seed: int, shard: int, slot: int, phase: int, p1: float = 0.5) -> int:
@@ -208,8 +222,31 @@ class ClusterKernel:
         """One synchronous communication round for every shard at once:
         (1) deliver outstanding votes under the mask (a sender's current
         votes are re-offered every round), (2) run every enabled R1→R2 and
-        R2→advance transition, (3) propagate decisions."""
+        R2→advance transition, (3) propagate decisions. A state on a card
+        takes one launch of the round kernel, a CPU state
+        :meth:`round_step_plain`."""
+        if state.slot.device.type == "cuda":
+            d = torch.broadcast_to(deliver, (self.S, self.R, self.R))
+            return self._rounds_on_card(state, alive, d, 1)
+        return self.round_step_plain(state, alive, deliver)
+
+    def round_step_plain(self, state: ClusterState, alive, deliver) -> ClusterState:
+        """:meth:`round_step` in plain PyTorch, on any device."""
         return self._round(state, alive, deliver, self._shard_idx)
+
+    def _kernel_args(self) -> dict:
+        return dict(quorum=self.quorum, f1=self.f1, seed=self.seed,
+                    threshold=coin_threshold(self.coin_p1))
+
+    def _rounds_on_card(self, state: ClusterState, alive, masks, n: int) -> ClusterState:
+        """n rounds in one launch of the round kernel; ``masks`` as
+        :meth:`ClusterRoundKernel.rounds` takes them."""
+        alive = torch.broadcast_to(alive, (self.S, self.R)).to(torch.bool).contiguous()
+        if masks is not None:
+            masks = masks.to(torch.bool).contiguous()
+        fields = [t.contiguous() for t in state]
+        return ClusterState(*cluster_round.CLUSTER_ROUND.rounds(
+            fields, alive, masks, n, **self._kernel_args()))
 
     def _round(self, state, alive, deliver, shard_idx) -> ClusterState:
         """:meth:`round_step` over however many shards ``state`` holds;
@@ -334,7 +371,36 @@ class ClusterKernel:
         """Run ``n_rounds`` round_steps, drawing a fresh Bernoulli delivery
         mask per round from ``generator`` (on this kernel's device) ∧ an
         optional static link mask (partitions). The generator seeds
-        delivery only; protocol coins come from the kernel's seed."""
+        delivery only; protocol coins come from the kernel's seed. On a
+        card the masks are drawn as :meth:`run_rounds_plain` draws them
+        (one draw a round), stacked, and the rounds run in one launch of
+        the round kernel."""
+        if state.slot.device.type != "cuda":
+            return self.run_rounds_plain(state, alive, n_rounds, generator, p_deliver, link_mask)
+        if n_rounds == 0:
+            return state
+        shape = (self.S, self.R, self.R)
+        base_link = None if link_mask is None else torch.broadcast_to(link_mask, shape)
+        masks = base_link
+        if p_deliver < 1.0:
+            masks = torch.stack([
+                torch.rand(shape, generator=generator, device=self.device) < p_deliver
+                for _ in range(n_rounds)
+            ])
+            if base_link is not None:
+                masks &= base_link
+        return self._rounds_on_card(state, alive, masks, n_rounds)
+
+    def run_rounds_plain(
+        self,
+        state: ClusterState,
+        alive: torch.Tensor,
+        n_rounds: int,
+        generator: torch.Generator,
+        p_deliver: float = 1.0,
+        link_mask: Optional[torch.Tensor] = None,
+    ) -> ClusterState:
+        """:meth:`run_rounds` in plain PyTorch, one round at a time."""
         S, R = self.S, self.R
         shape = (S, R, R)
         base_link = (
@@ -347,7 +413,7 @@ class ClusterKernel:
             if p_deliver < 1.0:
                 draw = torch.rand(shape, generator=generator, device=self.device)
                 d = base_link & (draw < p_deliver)
-            state = self.round_step(state, alive, d)
+            state = self.round_step_plain(state, alive, d)
         return state
 
     def _check_slots(self, votes: torch.Tensor, n_slots: int, axis: int = 0) -> None:
@@ -363,9 +429,35 @@ class ClusterKernel:
         start_slot_index: int = 0,
     ) -> tuple[torch.Tensor, torch.Tensor]:
         """Decide ``n_slots`` consecutive slots for all S shards: one slot
-        after another, ``rounds_per_slot`` full-delivery rounds each.
-        Returns ``(decided i8[T, S], decided_phase i32[T, S])``. This is
-        the semantics owner of the fused entries."""
+        after another, ``rounds_per_slot`` full-delivery rounds each; slot
+        t is ``start_slot_index + t`` in int32 (it wraps, as the
+        reference's does). Returns ``(decided i8[T, S], decided_phase
+        i32[T, S])``. This is the semantics owner of the fused entries.
+        Votes on a card take one launch of the round kernel (slots are
+        independent: ``start_slot`` resets every field), CPU votes
+        :meth:`slot_pipeline_plain`."""
+        self._check_slots(initial_votes, n_slots)
+        if initial_votes.device.type == "cuda":
+            return self._pipeline_on_card(initial_votes, alive, rounds_per_slot, start_slot_index)
+        return self.slot_pipeline_plain(
+            initial_votes, alive, n_slots, rounds_per_slot, start_slot_index)
+
+    def _pipeline_on_card(self, votes, alive, rounds_per_slot: int, start_slot_index: int):
+        alive = torch.broadcast_to(alive, (self.S, self.R)).to(torch.bool).contiguous()
+        return cluster_round.CLUSTER_ROUND.slot_pipeline(
+            votes.to(I8).contiguous(), alive, base=_wrap_i32(start_slot_index),
+            rounds=rounds_per_slot, **self._kernel_args())
+
+    def slot_pipeline_plain(
+        self,
+        initial_votes: torch.Tensor,  # i8[T, S, R]
+        alive: torch.Tensor,  # bool[S,R]
+        n_slots: int,
+        rounds_per_slot: int = 2,
+        start_slot_index: int = 0,
+    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """:meth:`slot_pipeline` in plain PyTorch, one slot and one round
+        at a time."""
         self._check_slots(initial_votes, n_slots)
         S, R = self.S, self.R
         full = torch.ones((S, R, R), dtype=torch.bool, device=self.device)
@@ -375,9 +467,9 @@ class ClusterKernel:
         state = self.init_state()
         for t in range(n_slots):
             st = self.start_slot(state, every, initial_votes[t])
-            st = st._replace(slot=torch.full_like(st.slot, start_slot_index + t))
+            st = st._replace(slot=torch.full_like(st.slot, _wrap_i32(start_slot_index + t)))
             for _ in range(rounds_per_slot):
-                st = self.round_step(st, alive, full)
+                st = self.round_step_plain(st, alive, full)
             decided[t] = st.decided
             dphase[t] = st.decided_phase
             state = st
@@ -398,7 +490,28 @@ class ClusterKernel:
         starts from fresh state), so a block of B slots runs as one state
         of B*S shards, each row carrying its own shard number and slot for
         the coin. Decisions are bit-identical to :meth:`slot_pipeline`.
-        ``n_slots`` must be a multiple of ``block``."""
+        ``n_slots`` must be a multiple of ``block``. Votes on a card take
+        the round kernel's one launch for the whole window, CPU votes
+        :meth:`slot_pipeline_wide_plain`."""
+        if n_slots % block:
+            raise ValueError(f"n_slots {n_slots} not a multiple of block {block}")
+        self._check_slots(initial_votes, n_slots)
+        if initial_votes.device.type == "cuda":
+            return self._pipeline_on_card(initial_votes, alive, rounds_per_slot, start_slot_index)
+        return self.slot_pipeline_wide_plain(
+            initial_votes, alive, n_slots, rounds_per_slot, start_slot_index, block)
+
+    def slot_pipeline_wide_plain(
+        self,
+        initial_votes: torch.Tensor,  # i8[T, S, R]
+        alive: torch.Tensor,  # bool[S,R]
+        n_slots: int,
+        rounds_per_slot: int = 2,
+        start_slot_index: int = 0,
+        block: int = 256,
+    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """:meth:`slot_pipeline_wide` in plain PyTorch: ``block`` slots a
+        step, as one state of block*S shards."""
         if n_slots % block:
             raise ValueError(f"n_slots {n_slots} not a multiple of block {block}")
         self._check_slots(initial_votes, n_slots)
@@ -468,7 +581,9 @@ class ClusterKernel:
         n_slots: int,
     ) -> torch.Tensor:
         """:meth:`slot_pipeline_fused_rmajor` on word-packed votes
-        (:mod:`packed_window`); returns packed decisions i32[T, SW]."""
+        (:mod:`packed_window`); returns packed decisions i32[T, SW]. CUDA
+        tensors run the packed-window CUDA kernel, CPU tensors the plain
+        version."""
         SW = packed_window.packed_width(self.S)
         self._check_slots(packed_rm, n_slots, axis=1)
         if packed_rm.shape[0] != self.R or packed_rm.shape[2] != SW:
@@ -476,7 +591,7 @@ class ClusterKernel:
                 f"packed_rm is {tuple(packed_rm.shape)}, expected packed "
                 f"replica-major [R={self.R}, T={n_slots}, SW={SW}]"
             )
-        return packed_window.packed_window_rmajor(packed_rm, alive_packed, self.quorum)
+        return packed_window.window(packed_rm, alive_packed, self.quorum)
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,391 @@
+"""The round kernel's per-shard header against the reference's
+``ClusterKernel.round_step`` and ``slot_pipeline``, and the port's
+``WeakMVCOracle`` against the reference's.
+
+``csrc/cluster_round.cuh`` is built for the host with g++, in both of
+its widths (32-bit masks with the replica loops unrolled, which the
+kernel takes for R <= 8, and 64-bit masks), and run on the same inputs
+as the reference's XLA programs: ``round_step`` field by field after
+every step under the same explicit numpy delivery masks (lossy,
+partitioned, with crashes, a quorum-less shard and an inactive shard;
+coin probabilities 0, 0.5 and 1), chains of rounds in one call, a
+reference state taken mid-protocol, and ``slot_pipeline`` at 1, 2 and 4
+rounds a slot with slot numbers that wrap past 2^31-1. The wrapper's
+refusals and the CPU dispatch are checked too; the kernels themselves are
+held against the plain versions by the cuda-marked tests of
+test_torch_slice.py, which import no jax. Tolerance: exact equality
+(every field is an integer)."""
+
+from __future__ import annotations
+
+import ctypes
+import shutil
+import subprocess
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from rabia_tpu.core import oracle as ref_oracle
+from rabia_tpu.kernel.phase_driver import ClusterKernel as RefKernel
+from rabia_tpu_torch import convert
+from rabia_tpu_torch.core import oracle
+from rabia_tpu_torch.core.types import ABSENT, f_plus_1, quorum_size
+from rabia_tpu_torch.kernel import cluster_round, cuda_build
+from rabia_tpu_torch.kernel.phase_driver import ClusterKernel, coin_threshold, device_coin
+
+torch.set_num_threads(1)  # tiny tensors: one thread keeps parallel test workers off each other
+
+FIELDS = [name for name, _, _ in cluster_round.FIELDS]
+
+_HOST_SHIM = r"""
+#include "cluster_round.cuh"
+static cr::Ptrs ptrs(void* const* f) {
+    cr::Ptrs p;
+    p.slot = (int32_t*)f[0]; p.phase = (int32_t*)f[1]; p.stage = (int8_t*)f[2];
+    p.my_r1 = (int8_t*)f[3]; p.my_r2 = (int8_t*)f[4]; p.prev_r1 = (int8_t*)f[5];
+    p.prev_r2 = (int8_t*)f[6]; p.led1 = (int8_t*)f[7]; p.led2 = (int8_t*)f[8];
+    p.decided = (int8_t*)f[9]; p.dphase = (int32_t*)f[10]; p.done = (uint8_t*)f[11];
+    p.active = (uint8_t*)f[12];
+    return p;
+}
+extern "C" void cr_host_rounds(void* const* in, void* const* out, const uint8_t* alive,
+                               const uint8_t* masks, long long stride, int n, long long S, int R,
+                               int q, int f1, unsigned seed, unsigned thr, int wide) {
+    const cr::Ptrs pi = ptrs(in), po = ptrs(out);
+    for (long long s = 0; s < S; ++s) {
+        if (wide) cr::rounds_shard<uint64_t, 64>(pi, po, alive, masks, stride, n, s, R, q, f1, seed, thr);
+        else cr::rounds_shard<uint32_t, 8>(pi, po, alive, masks, stride, n, s, R, q, f1, seed, thr);
+    }
+}
+extern "C" void cr_host_pipeline(const int8_t* votes, const uint8_t* alive, int8_t* dec,
+                                 int32_t* ph, long long T, long long S, int R, int base,
+                                 int rounds, int q, int f1, unsigned seed, unsigned thr, int wide) {
+    for (long long t = 0; t < T; ++t)
+        for (long long s = 0; s < S; ++s) {
+            if (wide) cr::pipeline_entry<uint64_t, 64>(votes, alive, dec, ph, t, s, S, R, base, rounds, q, f1, seed, thr);
+            else cr::pipeline_entry<uint32_t, 8>(votes, alive, dec, ph, t, s, S, R, base, rounds, q, f1, seed, thr);
+        }
+}
+"""
+
+
+class _Host:
+    """The header's host build: ``rounds`` and ``pipeline`` on numpy."""
+
+    def __init__(self, lib_path):
+        lib = ctypes.CDLL(str(lib_path))
+        P, LL, I, U = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_uint
+        lib.cr_host_rounds.argtypes = [P, P, P, P, LL, I, LL, I, I, I, U, U, I]
+        lib.cr_host_pipeline.argtypes = [P, P, P, P, LL, LL, I, I, I, I, I, U, U, I]
+        self.lib = lib
+
+    def rounds(self, fields: dict, alive, masks, n: int, seed: int, p1: float, wide: bool) -> dict:
+        """n rounds of every shard; ``masks`` None, [S,R,R] or [n,S,R,R]."""
+        src = {f: np.ascontiguousarray(fields[f]).copy() for f in FIELDS}
+        out = {f: np.empty_like(v) for f, v in src.items()}
+        S, R = src["phase"].shape
+        alive = np.ascontiguousarray(np.broadcast_to(alive, (S, R)), np.uint8)
+        stride, mp = 0, None
+        if masks is not None:
+            masks = np.ascontiguousarray(masks, np.uint8)
+            stride = S * R * R if masks.ndim == 4 else 0
+            mp = masks.ctypes.data
+        ins = (ctypes.c_void_p * 13)(*(src[f].ctypes.data for f in FIELDS))
+        outs = (ctypes.c_void_p * 13)(*(out[f].ctypes.data for f in FIELDS))
+        self.lib.cr_host_rounds(ins, outs, alive.ctypes.data, mp, stride, n, S, R,
+                                quorum_size(R), f_plus_1(R), seed & 0xFFFFFFFF,
+                                coin_threshold(p1), int(wide))
+        return out
+
+    def pipeline(self, votes, alive, base: int, rounds: int, seed: int, p1: float, wide: bool):
+        votes = np.ascontiguousarray(votes, np.int8)
+        T, S, R = votes.shape
+        alive = np.ascontiguousarray(alive, np.uint8)
+        dec = np.empty((T, S), np.int8)
+        ph = np.empty((T, S), np.int32)
+        self.lib.cr_host_pipeline(votes.ctypes.data, alive.ctypes.data, dec.ctypes.data,
+                                  ph.ctypes.data, T, S, R, base, rounds, quorum_size(R),
+                                  f_plus_1(R), seed & 0xFFFFFFFF, coin_threshold(p1), int(wide))
+        return dec, ph
+
+
+@pytest.fixture(scope="module")
+def host(tmp_path_factory):
+    """The kernel's header compiled for the host with g++."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("g++ not installed: the header's host build cannot run")
+    d = tmp_path_factory.mktemp("cr_host")
+    (d / "shim.cpp").write_text(_HOST_SHIM)
+    lib = d / "libcr_host.so"
+    subprocess.run(
+        [gxx, "-std=c++17", "-O2", "-shared", "-fPIC", f"-I{cuda_build.CSRC}",
+         "-o", str(lib), str(d / "shim.cpp")],
+        check=True, capture_output=True, timeout=120,
+    )
+    return _Host(lib)
+
+
+def _ref_fields(state) -> dict:
+    return {f: np.asarray(getattr(state, f)) for f in state._fields}
+
+
+def _assert_fields(got: dict, want: dict, ctx: str) -> None:
+    for f in FIELDS:
+        assert got[f].dtype == want[f].dtype, (ctx, f)
+        np.testing.assert_array_equal(got[f], want[f], err_msg=f"{ctx} field {f}")
+
+
+def _case(seed: int, S: int, R: int, T: int, p: float, crash: bool, partition: bool):
+    """Initial votes (V0/V1, a few V? and ABSENT), a crash mask (two dead
+    replicas on some shards, shard 1 without a quorum), an active mask
+    with the last shard inactive, and T delivery masks."""
+    rng = np.random.default_rng(seed)
+    initial = rng.integers(0, 2, size=(S, R)).astype(np.int8)
+    initial[0, : R // 2] = rng.integers(2, 4, size=R // 2)
+    alive = np.ones((S, R), bool)
+    if crash:
+        alive[:, 0] = False
+        alive[::2, R - 1] = False
+        alive[1, : quorum_size(R)] = False
+    active = np.ones(S, bool)
+    active[-1] = False
+    masks = rng.random((T, S, R, R)) < p
+    if partition:  # {0,1} | {2..R-1} for the first half of the run
+        side = np.arange(R) < 2
+        masks[: T // 2, :, side[:, None] != side[None, :]] = False
+    return initial, alive, active, masks
+
+
+ROUND_CASES = [
+    # R, p, coin_p1, crash, partition
+    (1, 1.0, 0.5, False, False),
+    (3, 1.0, 0.0, False, False),
+    (3, 0.6, 0.5, True, False),
+    (4, 0.5, 1.0, True, True),
+    (5, 0.6, 0.5, False, True),
+    (5, 0.3, 0.0, True, False),
+    (7, 0.6, 1.0, True, False),
+    (8, 0.3, 0.5, False, True),
+    (8, 1.0, 0.5, True, False),
+]
+
+
+@pytest.mark.parametrize("R,p,p1,crash,partition", ROUND_CASES)
+def test_header_round_matches_reference_every_field_every_step(host, R, p, p1, crash, partition):
+    S, T, seed = 6, 24, 10 * R + int(10 * p)
+    initial, alive, active, masks = _case(seed, S, R, T, p, crash, partition)
+    ref = RefKernel(S, R, coin_p1=p1, seed=seed)
+    rs = ref.start_slot(ref.init_state(), jnp.asarray(active), jnp.asarray(initial))
+    slots = np.arange(S, dtype=np.int64) * 7 + 2**31 - 20  # some slots past 2^31-1, wrapped
+    rs = rs._replace(slot=jnp.asarray(((slots + 2**31) % 2**32 - 2**31).astype(np.int32)))
+    narrow = wide = _ref_fields(rs)
+    for t in range(T):
+        rs = ref.round_step(rs, jnp.asarray(alive), jnp.asarray(masks[t]))
+        want = _ref_fields(rs)
+        narrow = host.rounds(narrow, alive, masks[t], 1, seed, p1, wide=False)
+        wide = host.rounds(wide, alive, masks[t], 1, seed, p1, wide=True)
+        _assert_fields(narrow, want, f"32-bit masks, step {t}")
+        _assert_fields(wide, want, f"64-bit masks, step {t}")
+    assert (want["decided"][:-1] != ABSENT).any() or p < 0.5  # the run got somewhere
+
+
+@pytest.mark.parametrize("wide", [False, True])
+def test_header_chains_of_rounds_and_a_mid_protocol_state(host, wide):
+    """Chains of 1, 2, 7 and 14 rounds in one call, stacked masks and one
+    static mask, starting from a reference state taken mid-protocol."""
+    S, R, seed, p1 = 8, 5, 17, 0.5
+    initial, alive, active, masks = _case(seed, S, R, 40, 0.5, True, True)
+    ref = RefKernel(S, R, coin_p1=p1, seed=seed)
+    rs = ref.start_slot(ref.init_state(), jnp.asarray(active), jnp.asarray(initial))
+    rs = rs._replace(slot=jnp.full((S,), 41, jnp.int32))
+    for t in range(6):  # reference alone, part-way through the protocol
+        rs = ref.round_step(rs, jnp.asarray(alive), jnp.asarray(masks[t]))
+    got, t = _ref_fields(rs), 6
+    for n in (1, 2, 7, 14):
+        for k in range(n):
+            rs = ref.round_step(rs, jnp.asarray(alive), jnp.asarray(masks[t + k]))
+        got = host.rounds(got, alive, masks[t:t + n], n, seed, p1, wide)
+        t += n
+        _assert_fields(got, _ref_fields(rs), f"after a chain of {n}")
+    static = masks[0] | masks[1]
+    for _ in range(3):
+        rs = ref.round_step(rs, jnp.asarray(alive), jnp.asarray(static))
+    got = host.rounds(got, alive, static, 3, seed, p1, wide)
+    _assert_fields(got, _ref_fields(rs), "static mask")
+    full = np.ones((S, R, R), bool)
+    for _ in range(2):
+        rs = ref.round_step(rs, jnp.asarray(alive), jnp.asarray(full))
+    got = host.rounds(got, alive, None, 2, seed, p1, wide)
+    _assert_fields(got, _ref_fields(rs), "full delivery")
+
+
+@pytest.mark.parametrize("rounds", [1, 2, 4])
+@pytest.mark.parametrize("R,p1", [(1, 0.5), (3, 0.0), (5, 0.5), (7, 1.0), (8, 0.5)])
+def test_header_pipeline_matches_reference_slot_pipeline(host, R, p1, rounds):
+    S, T, seed = 9, 8, 3 * R + rounds
+    start = 2**31 - 3  # slots 2^31-3 .. 2^31-1, then -2^31 ..: the slot wraps
+    rng = np.random.default_rng(seed)
+    votes = rng.choice([0, 1, 2, 3], size=(T, S, R), p=[0.4, 0.4, 0.1, 0.1]).astype(np.int8)
+    votes[:, 2::3] = rng.integers(0, 2, size=votes[:, 2::3].shape)  # split V0/V1: the coin
+    alive = rng.random((S, R)) > 0.25
+    alive[0, : quorum_size(R)] = False
+    ref = RefKernel(S, R, coin_p1=p1, seed=seed)
+    want_d, want_p = (np.asarray(x) for x in ref.slot_pipeline(
+        jnp.asarray(votes), jnp.asarray(alive), T, rounds_per_slot=rounds, start_slot_index=start))
+    for wide in (False, True):
+        d, ph = host.pipeline(votes, alive, start, rounds, seed, p1, wide)
+        np.testing.assert_array_equal(d, want_d)
+        np.testing.assert_array_equal(ph, want_p)
+    # the port's plain loop wraps the slot as the reference does
+    port = ClusterKernel(S, R, coin_p1=p1, seed=seed, device="cpu")
+    d, ph = port.slot_pipeline(torch.from_numpy(votes), torch.from_numpy(alive), T,
+                               rounds_per_slot=rounds, start_slot_index=start)
+    np.testing.assert_array_equal(d.numpy(), want_d)
+    np.testing.assert_array_equal(ph.numpy(), want_p)
+
+
+def test_header_64_replicas_matches_the_port_plain_round(host):
+    """R above 8 takes the 64-bit build only; held against the port's
+    plain round (itself held to the reference at R <= 8)."""
+    S, R, seed, p1 = 4, 64, 5, 0.5
+    initial, alive, active, masks = _case(seed, S, R, 12, 0.6, True, True)
+    k = ClusterKernel(S, R, coin_p1=p1, seed=seed, device="cpu")
+    st = k.start_slot(k.init_state(), torch.from_numpy(active), torch.from_numpy(initial))
+    got = convert.cluster_state_to_numpy(st)
+    for t in range(12):
+        st = k.round_step(st, torch.from_numpy(alive), torch.from_numpy(masks[t]))
+        got = host.rounds(got, alive, masks[t], 1, seed, p1, wide=True)
+        _assert_fields(got, convert.cluster_state_to_numpy(st), f"step {t}")
+
+
+def test_wrapper_refuses_what_the_kernel_does_not_take():
+    K = cluster_round.CLUSTER_ROUND
+    k = ClusterKernel(4, 65, device="cpu")
+    st = k.start_slot(k.init_state(), torch.ones(4, dtype=torch.bool),
+                      torch.ones((4, 65), dtype=torch.int8))
+    alive = torch.ones((4, 65), dtype=torch.bool)
+    args = dict(quorum=k.quorum, f1=k.f1, seed=0, threshold=0)
+    with pytest.raises(ValueError, match="1..64 replicas"):
+        K.rounds(list(st), alive, None, 1, **args)
+    with pytest.raises(ValueError, match="1..64 replicas"):
+        K.slot_pipeline(torch.ones((2, 4, 65), dtype=torch.int8), alive, base=0, rounds=2, **args)
+    k = ClusterKernel(4, 3, device="cpu")
+    st = list(k.start_slot(k.init_state(), torch.ones(4, dtype=torch.bool),
+                           torch.ones((4, 3), dtype=torch.int8)))
+    alive = torch.ones((4, 3), dtype=torch.bool)
+    args = dict(quorum=k.quorum, f1=k.f1, seed=0, threshold=0)
+    with pytest.raises(ValueError, match="13 fields"):
+        K.rounds(st[:12], alive, None, 1, **args)
+    bad = list(st)
+    bad[1] = bad[1].to(torch.int64)
+    with pytest.raises(ValueError, match="phase"):
+        K.rounds(bad, alive, None, 1, **args)
+    with pytest.raises(ValueError, match="masks"):
+        K.rounds(st, alive, torch.ones((2, 4, 3, 3), dtype=torch.bool), 1, **args)
+    with pytest.raises(ValueError, match="CUDA"):
+        K.rounds(st, alive, None, 1, **args)
+    with pytest.raises(ValueError, match="int32"):
+        K.slot_pipeline(torch.ones((2, 4, 3), dtype=torch.int8), alive, base=2**31, rounds=2,
+                        **args)
+    with pytest.raises(ValueError, match="CUDA"):
+        K.slot_pipeline(torch.ones((2, 4, 3), dtype=torch.int8), alive, base=0, rounds=2, **args)
+
+
+def test_cpu_tensors_take_the_plain_versions():
+    S, R, T = 8, 5, 4
+    k = ClusterKernel(S, R, seed=2, device="cpu")
+    before = dict(cluster_round.CLUSTER_ROUND.counts)
+    votes = torch.ones((T, S, R), dtype=torch.int8)
+    alive = torch.ones((S, R), dtype=torch.bool)
+    d, _ = k.slot_pipeline(votes, alive, T)
+    k.slot_pipeline_wide(votes, alive, T, block=2)
+    st = k.start_slot(k.init_state(), torch.ones(S, dtype=torch.bool), votes[0])
+    st = k.run_rounds(st, alive, 3, torch.Generator().manual_seed(0), p_deliver=0.5)
+    st = k.round_step(st, alive, torch.ones((S, R, R), dtype=torch.bool))
+    assert cluster_round.CLUSTER_ROUND.counts == before  # no kernel on the CPU
+    assert torch.all(d == 1)
+
+
+# -- the oracle ---------------------------------------------------------------
+
+
+def _oracle_trace(mod, R, initial, alive, masks, seed, shard, slot):
+    """Every node's fields after every step of one shard's trace."""
+    coin = lambda ph: device_coin(seed, shard, slot, ph)  # noqa: E731
+    o = mod.WeakMVCOracle(R, list(initial), coin, alive=list(alive))
+    trace = []
+    for m in masks:
+        o.step(lambda i, j, m=m: bool(m[i, j]))
+        trace.append((o.decided_value, o.decided_phase,
+                      [(n.phase, n.stage, n.my_r1, n.my_r2, n.prev_r1, n.prev_r2,
+                        dict(n.led1), dict(n.led2), n.decided) for n in o.nodes]))
+    return trace
+
+
+@pytest.mark.parametrize("R,p,seed", [(3, 1.0, 0), (4, 0.5, 4), (5, 0.35, 3), (7, 0.6, 5)])
+def test_port_oracle_equals_reference_oracle(R, p, seed):
+    rng = np.random.default_rng(seed)
+    initial = rng.integers(0, 2, size=R)
+    alive = np.ones(R, bool)
+    alive[0] = seed % 2 == 0
+    masks = rng.random((30, R, R)) < p
+    assert _oracle_trace(oracle, R, initial, alive, masks, seed, 2, 9) == _oracle_trace(
+        ref_oracle, R, initial, alive, masks, seed, 2, 9)
+    o = oracle.WeakMVCOracle(R, [1] * R, oracle.seeded_coin(seed))
+    o.run()
+    o.check_agreement()
+    o.check_validity([1] * R)
+    assert o.decided_value == 1
+
+
+def _compare_to_oracles(st: dict, oracles, alive, ctx):
+    """The kernel's state against one oracle a shard (the reference's
+    TestOracleConformance._compare): decisions, decided phases, and every
+    undecided live replica's phase, stage and votes."""
+    for s, o in enumerate(oracles):
+        kd = None if st["decided"][s] == ABSENT else int(st["decided"][s])
+        assert kd == o.decided_value, f"{ctx} shard {s}"
+        kp = None if st["decided_phase"][s] < 0 else int(st["decided_phase"][s])
+        assert kp == o.decided_phase, f"{ctx} shard {s}"
+        for r, node in enumerate(o.nodes):
+            if not alive[s, r]:
+                continue
+            assert st["done"][s, r] == (node.decided is not None), f"{ctx} shard {s} replica {r}"
+            if node.decided is not None:
+                continue
+            assert (st["phase"][s, r], st["stage"][s, r], st["my_r1"][s, r], st["my_r2"][s, r]) == (
+                node.phase, node.stage, node.my_r1, node.my_r2), f"{ctx} shard {s} replica {r}"
+
+
+@pytest.mark.parametrize(
+    "R,p,seed",
+    [(3, 1.0, 0), (3, 0.6, 1), (5, 0.6, 2), (5, 0.35, 3), (4, 0.5, 4), (7, 0.6, 5)],
+)
+def test_plain_round_and_header_conform_to_the_port_oracle(host, R, p, seed):
+    """The port of the reference's TestOracleConformance: the port's plain
+    round_step and the header's round, step by step, against the port's
+    oracle on the same lossy trace."""
+    S, T, slot = 4, 30, 0
+    rng = np.random.default_rng(seed)
+    initial = rng.integers(0, 2, size=(S, R)).astype(np.int8)
+    alive = np.ones((S, R), bool)
+    if seed % 2:
+        alive[:, 0] = False
+    k = ClusterKernel(S, R, seed=seed, device="cpu")
+    st = k.start_slot(k.init_state(), torch.ones(S, dtype=torch.bool), torch.from_numpy(initial))
+    hs = convert.cluster_state_to_numpy(st)
+    oracles = [oracle.WeakMVCOracle(R, list(initial[s]),
+                                    lambda ph, s=s: device_coin(seed, s, slot, ph),
+                                    alive=list(alive[s])) for s in range(S)]
+    masks = rng.random((T, S, R, R)) < p
+    for t in range(T):
+        st = k.round_step(st, torch.from_numpy(alive), torch.from_numpy(masks[t]))
+        hs = host.rounds(hs, alive, masks[t], 1, seed, 0.5, wide=False)
+        for s in range(S):
+            oracles[s].step(lambda i, j, m=masks[t, s]: bool(m[i, j]))
+        _compare_to_oracles(convert.cluster_state_to_numpy(st), oracles, alive, f"plain step {t}")
+        _compare_to_oracles(hs, oracles, alive, f"header step {t}")

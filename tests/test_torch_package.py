@@ -41,7 +41,7 @@ def test_imports_with_jax_and_reference_blocked():
         timeout=120,
     )
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 18  # every submodule was walked
+    assert int(out.stdout.split()[-1]) >= 24  # every submodule was walked
 
 
 @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: p.name)
@@ -58,6 +58,37 @@ def test_no_import_of_jax_or_reference(path):
             # "rabia_tpu_torch" is the port itself; only the exact top-level
             # names jax / rabia_tpu are forbidden
             assert name.split(".")[0] not in FORBIDDEN, f"{path}:{node.lineno} imports {name}"
+
+
+def test_oracle_and_round_kernels_run_with_jax_and_reference_blocked():
+    """The port's copy of the oracle, and the two kernel modules of the
+    decision core's scanned protocol and packed window, import and run
+    (plain versions, on the CPU) with jax and rabia_tpu unimportable."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['rabia_tpu'] = None\n"
+        "import torch\n"
+        "from rabia_tpu_torch.core.oracle import WeakMVCOracle, seeded_coin\n"
+        "from rabia_tpu_torch.kernel import cluster_round, packed_window\n"
+        "from rabia_tpu_torch import ClusterKernel\n"
+        "o = WeakMVCOracle(5, [1, 1, 0, 1, 1], seeded_coin(3))\n"
+        "assert o.run() == 1\n"
+        "k = ClusterKernel(4, 5, device='cpu')\n"
+        "d, _ = k.slot_pipeline(torch.ones((2, 4, 5), dtype=torch.int8),\n"
+        "                       torch.ones((4, 5), dtype=torch.bool), 2)\n"
+        "v = packed_window.pack_codes(torch.ones((5, 2, 4), dtype=torch.int8))\n"
+        "a = packed_window.pack_alive(torch.ones((5, 4), dtype=torch.bool))\n"
+        "p = k.slot_pipeline_fused_packed(v, a, 2)\n"
+        "assert bool((d == 1).all()) and bool((packed_window.unpack_codes(p, 4) == 1).all())\n"
+        "print(cluster_round.CLUSTER_ROUND.launches + packed_window.PACKED_WINDOW.launches)\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+        timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split()[-1] == "0"  # no kernel on the CPU
 
 
 def _entry_points():

@@ -1,6 +1,8 @@
 """The whole slice at a small size on the CPU: the twin of chip_smoke.py's
 phases 3-5, 7 and 8 (protocol vs fused entry, the decision core checked
-against both plain windows, the MeshEngine serving lane, the
+against both plain windows, the scanned protocol against the fused entry,
+the selftest's fault path, the packed window at depth against the V1
+row, the MeshEngine serving lane, the
 device-resident KV lane beside the host block lane, the read lane beside
 the device lane without it and the host block lane), run by the same code
 with device="cpu" at S=16, R=5. The same phases on the card are the
@@ -14,7 +16,8 @@ import torch
 
 import chip_smoke
 from rabia_tpu_torch.core.types import ABSENT, V0, V1
-from rabia_tpu_torch.kernel import fused_window, kv_window, mesh_window
+from rabia_tpu_torch.kernel import cluster_round, fused_window, kv_window, mesh_window, packed_window
+from rabia_tpu_torch.kernel.phase_driver import ClusterKernel
 from rabia_tpu_torch.parallel import MeshPhaseKernel
 
 torch.set_num_threads(1)  # tiny tensors: one thread keeps parallel test workers off each other
@@ -36,6 +39,23 @@ def test_decision_core_cpu_matches_an_independent_count():
     want = np.where(c1 >= k.quorum, V1, np.where(c0 >= k.quorum, V0, ABSENT))
     got = k.slot_pipeline_fused_rmajor(bufs[0], alive, 64, want_phase=False)
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_scan_fault_path_and_deep_packed_window_cpu():
+    before = (dict(cluster_round.CLUSTER_ROUND.counts), packed_window.PACKED_WINDOW.launches)
+    assert chip_smoke.scan_vs_fused("cpu", S, R, 16)[3] == 0
+    k, st0, alive, err = chip_smoke.fault_path("cpu", S)
+    assert err == 0 and bool(st0.active.all()) and alive.shape == (S, R)
+    _, bufs, alive_p, row, err = chip_smoke.packed_deep("cpu", S, R, 64)
+    assert err == 0 and len(bufs) == 2 and row.shape == (1,)
+    assert (dict(cluster_round.CLUSTER_ROUND.counts), packed_window.PACKED_WINDOW.launches) == before
+
+
+def test_operation_counts_follow_the_shapes():
+    assert chip_smoke.pipeline_ops(S, R, 3) == 3 * S * (5 * R + 8)
+    # R=5: 15 for the planes, two trees of 2 full adders, two 3-plane compares, 3 for the codes
+    assert chip_smoke.packed_ops(5, 4, 2) == 4 * 2 * (15 + 8 + 6 + 3)
+    assert [chip_smoke.packed_ops(r, 1, 1) for r in (1, 3, 7)] == [8, 20, 46]
 
 
 def test_serving_lane_cpu():
@@ -120,6 +140,21 @@ def test_slice_on_card(cuda):
 
 
 @pytest.mark.cuda
+def test_packed_and_round_kernels_on_card(cuda):
+    assert chip_smoke.packed_kernel_vs_plain(cuda) == 0
+    assert chip_smoke.round_kernel_vs_plain(cuda) == 0
+    chip_smoke.round_kernel_vs_oracle(cuda)
+    before = dict(cluster_round.CLUSTER_ROUND.counts)
+    assert chip_smoke.scan_vs_fused(cuda, 256, R, 64)[3] == 0
+    assert chip_smoke.fault_path(cuda, 256)[3] == 0
+    assert cluster_round.CLUSTER_ROUND.counts["slot_pipeline"] == before["slot_pipeline"] + 2
+    assert cluster_round.CLUSTER_ROUND.counts["rounds"] == before["rounds"] + 1
+    before = packed_window.PACKED_WINDOW.launches
+    assert chip_smoke.packed_deep(cuda, 256, R, 1024)[4] == 0
+    assert packed_window.PACKED_WINDOW.launches == before + 2
+
+
+@pytest.mark.cuda
 def test_device_kv_lane_on_card(cuda):
     assert chip_smoke.kv_kernel_vs_plain(cuda) == 0
     assert chip_smoke.decide_kernel_vs_plain(cuda) == 0
@@ -191,3 +226,52 @@ def test_read_lane_on_card(cuda):
     assert stats["zipf"]["read_slots"] == 0 and eng.read_lane_stats()["probe"] == 2 * 2 * 9 * 64
     assert kv_window.KV_WINDOW.counts["dict"] > before["dict"]
     assert kv_window.KV_WINDOW.counts["dict+decide"] > before["dict+decide"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,R", [(17, 1), (1000, 3), (4096, 5), (1000, 8), (300, 13)])
+def test_packed_window_kernel_matches_plain_on_card(cuda, S, R):
+    """The kernel equals the plain version at every quorum, also on a
+    view that starts one word into a buffer (the unvectorised path)."""
+    g = torch.Generator(device=cuda).manual_seed(S + R)
+    T = 33
+    votes = torch.randint(0, 4, (R, T, S), generator=g, device=cuda, dtype=torch.int8)
+    alive = torch.rand((R, S), generator=g, device=cuda) < 0.7
+    packed, alive_p = packed_window.pack_codes(votes), packed_window.pack_alive(alive)
+    buf = torch.empty(packed.numel() + 1, dtype=torch.int32, device=cuda)
+    shifted = buf[1:].view(packed.shape)
+    shifted.copy_(packed)
+    for q in range(0, R + 2):
+        want = packed_window.packed_window_rmajor(packed, alive_p, q)
+        for p in (packed, shifted):
+            before = packed_window.PACKED_WINDOW.launches
+            got = packed_window.window(p, alive_p, q)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want) and packed_window.PACKED_WINDOW.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,R", [(17, 1), (1000, 5), (4096, 5), (300, 8), (100, 64)])
+def test_round_kernels_match_plain_on_card(cuda, S, R):
+    """round_step, run_rounds (p 0.6, a static partition) and
+    slot_pipeline on a card, each one launch, equal the plain versions."""
+    g = torch.Generator(device=cuda).manual_seed(S + R)
+    k = ClusterKernel(S, R, seed=S, device=cuda)
+    votes = torch.randint(0, 2, (8, S, R), generator=g, device=cuda, dtype=torch.int8)
+    alive = torch.rand((S, R), generator=g, device=cuda) > 0.2
+    st = k.start_slot(k.init_state(), torch.ones(S, dtype=torch.bool, device=cuda), votes[0])
+    K = cluster_round.CLUSTER_ROUND
+    before = K.launches
+    full = torch.ones((S, R, R), dtype=torch.bool, device=cuda)
+    got, want = k.round_step(st, alive, full), k.round_step_plain(st, alive, full)
+    side = torch.arange(R, device=cuda) < max(1, R // 3)
+    part = side[:, None] == side[None, :]
+    gens = [torch.Generator(device=cuda).manual_seed(7) for _ in range(2)]
+    got2 = k.run_rounds(got, alive, 9, gens[0], p_deliver=0.6, link_mask=part)
+    want2 = k.run_rounds_plain(want, alive, 9, gens[1], p_deliver=0.6, link_mask=part)
+    d, ph = k.slot_pipeline(votes, alive, 8, rounds_per_slot=2, start_slot_index=2**31 - 4)
+    wd, wp = k.slot_pipeline_plain(votes, alive, 8, rounds_per_slot=2, start_slot_index=2**31 - 4)
+    torch.cuda.synchronize()
+    assert K.launches == before + 3
+    for a, b in zip(list(got) + list(got2) + [d, ph], list(want) + list(want2) + [wd, wp]):
+        assert torch.equal(a, b)
