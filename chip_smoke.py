@@ -8,7 +8,8 @@ Phases (each raises on failure; nothing is caught):
    one nvcc per source, started together: the fused-window kernels
    (replica-major and [T,S,R]), the kv-window kernel (with and without
    the folded decision), the mesh-window kernel, the packed-window
-   kernel and the round kernel (the scanned weak-MVC protocol);
+   kernel and the round kernels (the scanned weak-MVC protocol: n
+   rounds a launch, and the slot pipeline's full-delivery rule);
 2. hold both fused-window kernels against their plain PyTorch versions,
    bit for bit, on random votes over all four codes: R in
    {1,3,4,5,7,8}, S in {17,1000,4096}, odd T, a view that starts one
@@ -22,14 +23,15 @@ Phases (each raises on failure; nothing is caught):
    for bit: R in {1,3,4,5,7,8}, every quorum from 0 to R+1, S in
    {17,1000,4096} (ragged pad lanes decide ABSENT), odd T, random codes
    over all four values, crash masks, a view one word into a buffer;
-2d. hold the round kernel against the plain round, every field of the
+2d. hold the round kernels against the plain round, every field of the
    state after every launch: R in {1,3,4,5,7,8,64}, S in {17,1000,4096},
    coin_p1 in {0,0.5,1}; ``run_rounds`` chains of 1, 2, 7 and 80 rounds
    at p_deliver 1.0, 0.6 and 0.3 with a static partition on some, crash
    masks with a quorum-less shard, inactive shards, slots near 2^31-1,
    from a state taken mid-protocol; one ``round_step`` under an explicit
    mask, also in place; ``slot_pipeline`` and ``slot_pipeline_wide`` at
-   1, 2 and 4 rounds a slot with slots that wrap past 2^31-1; then the
+   0 to 6 rounds a slot with slots that wrap past 2^31-1, and for every R
+   from 1 to 64 (one launch a call, S=33); then the
    port's ``WeakMVCOracle`` on four shards of one lossy trace, one launch
    a step;
 3. hold the scanned protocol (``ClusterKernel.slot_pipeline``, the round
@@ -41,7 +43,9 @@ Phases (each raises on failure; nothing is caught):
    window (the packed-window kernel) checked against it and timed
    beside the plain packed window; the scanned protocol at bench.py's
    depth (T=8192) through ``slot_pipeline`` held against
-   ``slot_pipeline_fused`` and timed (the plain loop at T=64); the
+   ``slot_pipeline_fused`` and timed (the plain loop at T=64), then held
+   bit for bit against ``slot_pipeline_wide_plain`` at 2 and at 4 rounds
+   a slot (4 reaches the coin) and timed at both; the
    selftest's fault path at full width (replicas [dead, up, up, dead,
    up], 80 rounds at p_deliver=0.6: every shard decides, the state
    equals the plain loop's), its one launch timed beside an empty
@@ -312,7 +316,7 @@ def round_kernel_vs_plain(device) -> int:
     1, 2, 7 and 80 rounds at p_deliver 1.0, 0.6 and 0.3 (a static
     partition on some), one ``round_step`` under an explicit mask, the
     same launch in place, and ``slot_pipeline`` / ``slot_pipeline_wide``
-    at 1, 2 and 4 rounds a slot with slots that wrap past 2^31-1; every
+    at 0 to 6 rounds a slot with slots that wrap past 2^31-1; every
     field of every state after every launch. Returns the largest
     absolute difference seen (must be 0)."""
     gen = torch.Generator(device=device).manual_seed(24)
@@ -363,7 +367,7 @@ def round_kernel_vs_plain(device) -> int:
             v = _random_votes((T, S, R), gen, device)
             v[:, 1::3] = torch.randint(0, 2, v[:, 1::3].shape, generator=gen, device=device,
                                        dtype=torch.int8)  # split V0/V1: the coin
-            for rounds in (1, 2, 4):
+            for rounds in range(7):
                 want = k.slot_pipeline_plain(v, alive, T, rounds, start)
                 got = k.slot_pipeline(v, alive, T, rounds, start)
                 wide = k.slot_pipeline_wide(v, alive, T, rounds, start, block=3)
@@ -373,6 +377,37 @@ def round_kernel_vs_plain(device) -> int:
                 _check(err == 0, f"slot_pipeline kernel != plain at R={R} S={S} "
                                  f"rounds={rounds}")
             case += 1
+    return worst
+
+
+def pipeline_every_r(device) -> int:
+    """``slot_pipeline`` and ``slot_pipeline_wide`` on the card for every R
+    from 1 to 64 at 0 to 6 rounds a slot (S=33: two chunks of 16 shards
+    and a ragged one; slots that wrap past 2^31-1 at odd R): each call is
+    one launch of the slot-pipeline kernel and no other launch, and both
+    equal ``slot_pipeline_wide_plain`` bit for bit. Returns the largest
+    absolute difference seen (must be 0)."""
+    gen = torch.Generator(device=device).manual_seed(64)
+    K = cluster_round.CLUSTER_ROUND
+    S, T, worst = 33, 4, 0
+    for R in range(1, cluster_round.MAX_REPLICAS + 1):
+        k = ClusterKernel(S, R, coin_p1=(0.0, 0.5, 1.0)[R % 3], seed=R, device=device)
+        votes = _random_votes((T, S, R), gen, device)
+        lean = torch.rand((T, S, R), generator=gen, device=device) < 0.9
+        votes[:, 1::3] = torch.where(lean[:, 1::3], V1, votes[:, 1::3])  # quorums of V1
+        alive = _alive((S, R), gen, device, p_dead=0.2)
+        start = 2**31 - 2 if R % 2 else 0
+        for rounds in range(7):
+            before = dict(K.counts)
+            got = k.slot_pipeline(votes, alive, T, rounds, start)
+            wide = k.slot_pipeline_wide(votes, alive, T, rounds, start, block=2)
+            _check(K.counts == {**before, "slot_pipeline": before["slot_pipeline"] + 2},
+                   f"slot_pipeline at R={R} rounds={rounds} was not one slot-pipeline launch")
+            want = k.slot_pipeline_wide_plain(votes, alive, T, rounds, start, block=T)
+            torch.cuda.synchronize(device)
+            err = max(_state_err(got, want), _state_err(wide, want))
+            worst = max(worst, err)
+            _check(err == 0, f"slot_pipeline kernel != plain at R={R} rounds={rounds}")
     return worst
 
 
@@ -554,14 +589,20 @@ def packed_ops(R: int, T: int, SW: int) -> int:
     return T * SW * (3 * R + 2 * 2 * (R - cap) + 2 * cap + 3)
 
 
-def pipeline_ops(S: int, R: int, T: int) -> int:
-    """``slot_pipeline`` on T slots under full delivery: its decisions and
-    phases are then the closed form's (``slot_pipeline_fused``'s, held
-    equal in the same run), so the least work a (slot, shard) is that
-    tally: 5 a replica (V1 and V0 tests of its code under alive, two
-    adds) and 8 for the two quorum compares, the decision and its
-    phase."""
-    return T * S * (5 * R + 8)
+def pipeline_ops(S: int, R: int, T: int, rounds: int = 2, coins: int = 0) -> int:
+    """``slot_pipeline`` on T slots, ``rounds`` full-delivery rounds each:
+    a fresh slot's rounds then collapse to the rule of
+    ``csrc/cluster_round.cuh`` (``full_delivery``, derived there for every
+    ``rounds``), so the least work a (slot, shard) is: none below 2
+    rounds (every entry is ABSENT); from 2 rounds on 6 a replica (V0, V1
+    and V? tests of its code, three adds under alive) and 8 (the sum of
+    the counts, three quorum compares, the decision and its phase); from
+    4 rounds on, 21 more for each of the ``coins`` entries that take the
+    coin (two 10-operation hash steps past the part fixed by the seed and
+    shard, and the compare)."""
+    if rounds < 2:
+        return 0
+    return T * S * (6 * R + 8) + (21 * coins if rounds >= 4 else 0)
 
 
 # -- phase 6 -----------------------------------------------------------------
@@ -1329,15 +1370,16 @@ def main() -> int:
     print(f"phase 2c packed_window kernel vs plain: max_abs_err {err2c} "
           f"({time.perf_counter() - t0:.2f} s)")
 
-    # 2d. round kernel vs plain and vs the oracle (not counted)
+    # 2d. round kernels vs plain and vs the oracle (not counted)
     t0 = time.perf_counter()
-    err2d = round_kernel_vs_plain(device)
+    err2d = max(round_kernel_vs_plain(device), pipeline_every_r(device))
     round_kernel_vs_oracle(device)
-    print(f"phase 2d cluster_round kernel vs plain (run_rounds, round_step, in place, "
-          f"slot_pipeline, slot_pipeline_wide): max_abs_err {err2d}; vs the port's "
+    print(f"phase 2d cluster_round kernels vs plain (run_rounds, round_step, in place, "
+          f"slot_pipeline, slot_pipeline_wide at 0-6 rounds; the slot pipeline also for every R "
+          f"in 1..64, one launch a call): max_abs_err {err2d}; vs the port's "
           f"WeakMVCOracle on a lossy trace: equal ({time.perf_counter() - t0:.2f} s)")
 
-    # 3. protocol (the round kernel) vs the fused kernel
+    # 3. protocol (the slot-pipeline kernel) vs the fused kernel
     t0 = time.perf_counter()
     protocol_vs_fused(device, S_FULL, R_FULL, 64)
     print(f"phase 3 slot_pipeline == slot_pipeline_fused at S={S_FULL} R={R_FULL} T=64 "
@@ -1435,14 +1477,13 @@ def main() -> int:
     deep_bytes = 4 * (R_FULL * T_PACKED * SW + R_FULL * SW + T_PACKED * SW)
     deep_bound_ms = max(deep_bytes / _card_rate_bytes_per_s(name) * 1e3,
                         packed_ops(R_FULL, T_PACKED, SW) / INT32_OPS_PER_S * 1e3)
-    # the round kernel: the scan at T_SCAN in turns beside the batched
-    # plain version, the kernel and the plain loop at T_PLAIN_SCAN (each
-    # pair held equal), the fault path's one launch of 80 rounds beside an
-    # empty kernel at its grid, the whole run_rounds call and the plain
-    # loop
+    # the round kernels: the scan at T_SCAN at 2 and 4 rounds a slot, in
+    # turns, each held equal to the batched plain version, the kernel and
+    # the plain loop at T_PLAIN_SCAN (held equal), the fault path's one
+    # launch of 80 rounds beside an empty kernel at its grid, the whole
+    # run_rounds call and the plain loop
     scan_call = lambda i=0: sk.slot_pipeline(sbufs[i % 2], salive, T_SCAN)  # noqa: E731
     scan_turns.append(_time_ms(scan_call, 8))
-    scan_ms = min(scan_turns)
     short = sbufs[0][:T_PLAIN_SCAN]
     scan_short_ms = _time_ms(lambda i=0: sk.slot_pipeline(short, salive, T_PLAIN_SCAN), 20)
     scan_short_plain_ms = _time_ms(
@@ -1459,9 +1500,24 @@ def main() -> int:
     err_wide = max(_max_err(a, b) for a, b in zip(
         sk.slot_pipeline(sbufs[0], salive, T_SCAN), wide_call()))
     _check(err_wide == 0, f"slot_pipeline kernel != slot_pipeline_wide_plain at T={T_SCAN}")
+    # 4 rounds a slot: the slots without a quorum of one value take the coin
+    scan4_call = lambda i=0: sk.slot_pipeline(sbufs[i % 2], salive, T_SCAN, 4)  # noqa: E731
+    scan4_turns = [_time_ms(scan4_call, 8)]
+    d4, p4 = scan4_call()
+    coins4 = int((p4 == 1).sum())
+    err_wide4 = max(_max_err(a, b) for a, b in zip(
+        (d4, p4), sk.slot_pipeline_wide_plain(sbufs[0], salive, T_SCAN, 4, block=256)))
+    _check(err_wide4 == 0, f"slot_pipeline kernel != slot_pipeline_wide_plain at T={T_SCAN}, "
+                           f"4 rounds")
+    _check(coins4 > 0, "no slot took the coin at 4 rounds")
+    scan4_turns.append(_time_ms(scan4_call, 8))
+    scan_turns.append(_time_ms(scan_call, 8))
+    scan_ms, scan4_ms = min(scan_turns), min(scan4_turns)
+    del d4, p4
     scan_bytes = T_SCAN * S_FULL * (R_FULL + 1 + 4) + S_FULL * R_FULL
     scan_bytes_ms = scan_bytes / _card_rate_bytes_per_s(name) * 1e3
     scan_ops_ms = pipeline_ops(S_FULL, R_FULL, T_SCAN) / INT32_OPS_PER_S * 1e3
+    scan4_ops_ms = pipeline_ops(S_FULL, R_FULL, T_SCAN, 4, coins4) / INT32_OPS_PER_S * 1e3
     fgen = torch.Generator(device=device).manual_seed(1)
     fmasks = torch.stack([torch.rand((S_FULL, R_FULL, R_FULL), generator=fgen, device=device) < 0.6
                           for _ in range(80)])
@@ -1668,15 +1724,21 @@ def main() -> int:
           f"{deep_ms:.4f} ms a window ({S_FULL * T_PACKED / deep_ms * 1e3:.4g} decisions/s, "
           f"{deep_bytes / deep_ms / 1e6:.1f} GB/s, {deep_bound_ms / deep_ms:.1%} of the "
           f"{deep_bound_ms:.4f} ms bound); max_abs_err {err_deep}")
-    print(f"phase 4 scanned protocol (slot_pipeline, the round kernel) S={S_FULL} R={R_FULL} "
-          f"T={T_SCAN}, 2 rounds a slot, crash mask: "
-          f"{' / '.join(f'{x:.4f}' for x in scan_turns)} ms a window "
+    scan4_bound_ms = max(scan_bytes_ms, scan4_ops_ms)
+    print(f"phase 4 scanned protocol (slot_pipeline, the slot-pipeline kernel) S={S_FULL} "
+          f"R={R_FULL} T={T_SCAN}, crash mask, in turns (2 rounds in the main path; then 2, 4, 4, "
+          f"2): 2 rounds a slot {' / '.join(f'{x:.4f}' for x in scan_turns)} ms a window "
           f"({S_FULL * T_SCAN / scan_ms * 1e3:.4g} decisions/s; bound {max(scan_bytes_ms, scan_ops_ms):.4f} "
           f"ms: bytes {scan_bytes} -> {scan_bytes_ms:.4f} ms, least int ops "
           f"{pipeline_ops(S_FULL, R_FULL, T_SCAN)} -> {scan_ops_ms:.4f} ms; "
-          f"{max(scan_bytes_ms, scan_ops_ms) / scan_ms:.1%}); = slot_pipeline_fused, max_abs_err "
+          f"{max(scan_bytes_ms, scan_ops_ms) / scan_ms:.1%}); 4 rounds a slot "
+          f"{' / '.join(f'{x:.4f}' for x in scan4_turns)} ms ({coins4} entries took the coin; "
+          f"bound {scan4_bound_ms:.4f} ms, least int ops "
+          f"{pipeline_ops(S_FULL, R_FULL, T_SCAN, 4, coins4)} -> {scan4_ops_ms:.4f} ms; "
+          f"{scan4_bound_ms / scan4_ms:.1%}); = slot_pipeline_fused at 2 rounds, max_abs_err "
           f"{err_scan}; = slot_pipeline_wide_plain (block 256) at T={T_SCAN}, max_abs_err "
-          f"{err_wide}, plain {scan_plain_ms:.3f} ms; at T={T_PLAIN_SCAN}: kernel "
+          f"{err_wide} at 2 rounds, {err_wide4} at 4, plain {scan_plain_ms:.3f} ms at 2 rounds; "
+          f"at T={T_PLAIN_SCAN}: kernel "
           f"{scan_short_ms:.4f} ms, plain slot_pipeline {scan_short_plain_ms:.3f} ms, max_abs_err "
           f"{err_short}")
     print(f"phase 4 fault path (python -m rabia_tpu --selftest's, at full width) S={S_FULL} "
@@ -1834,7 +1896,7 @@ def main() -> int:
         "source": "rabia_tpu_torch/csrc/cluster_round.cu",
         "replaces": "rabia_tpu/kernel/phase_driver.py:234",
         "launches": round_launches,
-        "max_abs_err": max(err2d, err_scan, err_wide, err_short, err_fault),
+        "max_abs_err": max(err2d, err_scan, err_wide, err_wide4, err_short, err_fault),
         "ms": scan_ms,  # slot_pipeline, S=4096 R=5 T=8192
         "plain_ms": scan_plain_ms,  # slot_pipeline_wide_plain on the same votes
         "bound_ms": max(scan_bytes_ms, scan_ops_ms),

@@ -1,7 +1,9 @@
 // Per-shard math of the scanned weak-MVC protocol (ClusterKernel's
 // round_step, chained over rounds and slots), shared by the CUDA kernels
 // (cluster_round.cu) and a plain host build (g++) that the CPU tests
-// check against the reference's round_step and slot_pipeline.
+// check against the reference's round_step and slot_pipeline: the round
+// that cr_rounds runs, and at the bottom the rule that slot_pipeline's
+// full-delivery rounds of a fresh slot collapse to.
 //
 // One shard's R replicas live in registers: per-replica phases as int32,
 // everything else as bitmasks over replicas (bit r = replica r). A vote
@@ -32,6 +34,7 @@
 
 #include <stdint.h>
 
+#include "fused_window.cuh"
 #include "mesh_window.cuh"
 
 #if defined(__CUDACC__)
@@ -341,25 +344,141 @@ CR_HD void rounds_shard(const Ptrs& in, const Ptrs& out, const uint8_t* alive,
     store(x, out, s, R);
 }
 
-// Slot t of shard s in slot_pipeline: a fresh slot `base + t` (int32
-// wrapped) from votes i8[T, S, R], `rounds` full-delivery rounds; writes
-// decided[t * S + s] and dphase[t * S + s].
-template <typename M, int RM>
-CR_HD void pipeline_entry(const int8_t* votes, const uint8_t* alive, int8_t* decided,
-                          int32_t* dphase, int64_t t, int64_t s, int64_t S, int R, int32_t base,
-                          int rounds, int quorum, int f1, uint32_t seed, uint32_t threshold) {
-    const int64_t i = t * S + s;
-    const auto slot = static_cast<int32_t>(mw::slot_of(base, static_cast<int>(t)));
-    Shard<M, RM> x;
-    fresh(x, votes + i * R, R, slot);
-    const M a = alive_of<M>(alive, s, R);
-    const uint32_t prefix =
-        mw::coin_prefix(seed, static_cast<uint32_t>(s), static_cast<uint32_t>(slot));
-    M din[RM];
-    senders_of(din, static_cast<const uint8_t*>(nullptr), R);
-    for (int k = 0; k < rounds; ++k) round(x, R, a, din, quorum, f1, prefix, threshold);
-    decided[i] = x.decided;
-    dphase[i] = x.dphase;
+// ---- slot_pipeline: the rounds of a fresh slot under full delivery ----
+//
+// slot_pipeline and slot_pipeline_wide start every (slot, shard) afresh
+// (start_slot) and run `rounds` rounds with every link up. Then the
+// rounds above collapse to a rule on three counts over the replicas that
+// are alive: c0, c1 and cq, the votes V0, V1 and V?, and tot = c0 + c1 +
+// cq (an ABSENT vote, or any code outside 0..2, counts in none of them,
+// as in round_step's tally). With Q the quorum and f1 = f + 1 <= Q (Q =
+// R/2 + 1, f1 = (R-1)/2 + 1), following round_step
+// (rabia_tpu/kernel/phase_driver.py:234-385) one round at a time:
+//
+//  round 1. Delivery: every alive replica's vote that is not ABSENT
+//     reaches every other alive replica (same phase 0, link up, nobody
+//     done), so every alive replica's round-1 ledger holds the same tot
+//     votes: its own, if present, and the others'. Dead replicas neither
+//     send nor step. Transitions: in R1_WAIT with tot >= Q, every alive
+//     replica casts the same round-2 vote r2 = V1 if c1 >= Q, else V0 if
+//     c0 >= Q, else V?; with tot < Q none casts, and since nothing new
+//     is ever offered, no later round changes anything: (ABSENT, -1).
+//  round 2. Delivery: every alive replica now offers r2 (R2_WAIT, same
+//     phase), so each round-2 ledger holds n = #alive >= tot >= Q equal
+//     votes. Transitions: all advance; with r2 = V1 (or V0) the count n
+//     >= Q >= f1 decides it at phase 0: (V1, 0) or (V0, 0), every alive
+//     replica at once, so propagation finds no one left and later rounds
+//     change nothing. With r2 = V? there is no non-? vote to adopt, so
+//     every alive replica takes the common coin of (seed, shard, slot,
+//     phase 0), the slot after int32 wrap, and moves to phase 1 with it
+//     as its round-1 vote: (ABSENT, -1) so far.
+//  round 3. Delivery fills every round-1 ledger with the n coin votes;
+//     n >= Q of one value casts that value in round 2 of phase 1.
+//  round 4. Delivery fills the round-2 ledgers with n equal coin votes,
+//     which decide it: (coin, 1). Rounds 5 and on change nothing.
+//
+// So, with fewer than 2 rounds or tot < Q: (ABSENT, -1); else c1 >= Q:
+// (V1, 0); else c0 >= Q: (V0, 0); else with 4 rounds or more: (coin, 1);
+// else (ABSENT, -1). The CPU tests hold this against fresh + round above
+// on every vote vector and alive mask for R = 1..5 and rounds 0..6.
+//
+// full_delivery is the rule for one (slot, shard); the kernel's byte-wise
+// path (R > 8) runs it. decide_chunk is the same rule on 16 shards at
+// once, four lanes a 32-bit word, on fused_window.cuh's transposition and
+// tally (a byte counts at most R <= 8 votes); the kernel's vector path (R
+// <= 8) runs it.
+
+struct Decision {
+    int8_t decided;
+    int32_t phase;
+};
+
+// votes[0..R): the slot's initial round-1 votes; alive[0..R): nonzero
+// where the replica is alive; prefix: mw::coin_prefix(seed, shard, slot).
+CR_HD Decision full_delivery(const int8_t* votes, const uint8_t* alive, int R, int quorum,
+                             int rounds, uint32_t prefix, uint32_t threshold) {
+    int c0 = 0, c1 = 0, cq = 0;
+    for (int r = 0; r < R; ++r) {
+        if (!alive[r]) continue;
+        c0 += votes[r] == V0;
+        c1 += votes[r] == V1;
+        cq += votes[r] == VQUESTION;
+    }
+    if (rounds < 2 || c0 + c1 + cq < quorum) return {ABSENT, -1};
+    if (c1 >= quorum) return {V1, 0};
+    if (c0 >= quorum) return {V0, 0};
+    if (rounds >= 4) return {static_cast<int8_t>(mw::coin(prefix, 0u, threshold)), 1};
+    return {ABSENT, -1};
+}
+
+// The rule on four lanes: per-byte counts in, decision codes out, with
+// 0x01 in `coin` for each lane that takes the coin (its code left V0 for
+// cast_coins to fill). q <= 128, and every count below 0x80.
+CR_HD uint32_t decide_word(uint32_t c0, uint32_t c1, uint32_t cq, uint32_t q, int rounds,
+                           uint32_t& coin) {
+    const uint32_t ok = rounds >= 2 ? rw::ge_bytes(c0 + c1 + cq, q) : 0u;
+    const uint32_t g1 = rw::ge_bytes(c1, q) & ok;
+    const uint32_t g0 = rw::ge_bytes(c0, q) & ok & ~g1;
+    coin = rounds >= 4 ? ok & ~(g1 | g0) : 0u;
+    return g1 | ((rw::ONES ^ (g1 | g0 | coin)) * static_cast<uint32_t>(ABSENT));
+}
+
+// The coin lanes of word d, for shards shard0..shard0+3 at `slot`.
+CR_HD uint32_t cast_coins(uint32_t d, uint32_t coin, uint32_t seed, uint32_t shard0,
+                          uint32_t slot, uint32_t threshold) {
+    for (int i = 0; i < 4; ++i) {
+        if ((coin >> (8 * i)) & 1u) {
+            const uint32_t prefix = mw::coin_prefix(seed, shard0 + i, slot);
+            d |= static_cast<uint32_t>(mw::coin(prefix, 0u, threshold)) << (8 * i);
+        }
+    }
+    return d;
+}
+
+// The decided phase of lane i: 1 for a coin lane, -1 for ABSENT, else 0.
+CR_HD int32_t phase_of(uint32_t d, uint32_t coin, int i) {
+    return static_cast<int32_t>((coin >> (8 * i)) & 1u) + rw::phase_of(d, i);
+}
+
+// The phases of n <= 16 lanes, one at a time.
+CR_HD void store_phase_lanes(int32_t* p, int n, const uint32_t d[4], const uint32_t coin[4]) {
+    for (int i = 0; i < n; ++i) p[i] = phase_of(d[i / 4], coin[i / 4], i % 4);
+}
+
+// 16 shards shard0.. of one slot row: v the 4*R words of their votes and
+// at the transposed alive words (fused_window.cuh); d and coin out, a
+// word a group of four shards.
+template <int R>
+CR_HD void decide_chunk(const uint32_t* v, const uint32_t (&at)[4][R], uint32_t q, int rounds,
+                        uint32_t seed, uint32_t threshold, uint32_t shard0, uint32_t slot,
+                        uint32_t d[4], uint32_t coin[4]) {
+    RW_UNROLL
+    for (int k = 0; k < 4; ++k) {
+        uint32_t c0 = 0, c1 = 0, cq = 0;
+        RW_UNROLL
+        for (int r = 0; r < R; ++r) {
+            const uint32_t w = rw::lane_word<R>(v, k, r);
+            rw::tally_word(w, at[k][r], c0, c1);
+            cq += rw::eq_bytes(w, VQUESTION * rw::ONES) & at[k][r];
+        }
+        d[k] = decide_word(c0, c1, cq, q, rounds, coin[k]);
+        if (coin[k]) d[k] = cast_coins(d[k], coin[k], seed, shard0 + 4 * k, slot, threshold);
+    }
+}
+
+// One chunk of n <= 16 shards through the byte-wise loads: `votes` at
+// (t, shard0, r=0) of [T, S, R], `alive` at (shard0, r=0) of [S, R].
+template <int R>
+CR_HD void pipeline_chunk_bytes(const int8_t* votes, const uint8_t* alive, int n, uint32_t q,
+                                int rounds, uint32_t seed, uint32_t threshold, uint32_t shard0,
+                                uint32_t slot, int8_t* dec, int32_t* ph) {
+    uint32_t v[4 * R], a[4 * R], at[4][R], d[4], coin[4];
+    rw::load_bytes(reinterpret_cast<const uint8_t*>(votes), n * R, v, 4 * R, rw::CODE_ABSENT);
+    rw::load_bytes(alive, n * R, a, 4 * R, 0);
+    rw::transpose_alive<R>(a, at);
+    decide_chunk<R>(v, at, q, rounds, seed, threshold, shard0, slot, d, coin);
+    rw::store_dec_lanes(dec, n, d);
+    store_phase_lanes(ph, n, d, coin);
 }
 
 }  // namespace cr

@@ -25,15 +25,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <atomic>
-
 #include "fused_window.cuh"
 
 namespace {
 
-__device__ __forceinline__ bool aligned16(const void* p) {
-    return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
-}
+using rw::aligned16;
 
 __device__ __forceinline__ void load16(const uint8_t* p, int n, uint32_t w[4], uint8_t pad) {
     if (n == rw::LANES && aligned16(p)) {
@@ -146,58 +142,9 @@ extern "C" int rw_fused_window(const void* votes, const void* alive, void* dec, 
 
 namespace {
 
-// 4*R words of the n*R bytes at p (pad past them): R vector loads where
-// the chunk is whole and aligned.
-template <int R>
-__device__ __forceinline__ void load_chunk(const uint8_t* p, int n, uint32_t* w, uint8_t pad) {
-    if (n == rw::LANES && aligned16(p)) {
-        const uint4* p4 = reinterpret_cast<const uint4*>(p);
-#pragma unroll
-        for (int j = 0; j < R; ++j) {
-            const uint4 x = __ldg(p4 + j);
-            w[4 * j] = x.x; w[4 * j + 1] = x.y; w[4 * j + 2] = x.z; w[4 * j + 3] = x.w;
-        }
-    } else {
-        rw::load_bytes(p, n * R, w, 4 * R, pad);
-    }
-}
-
-// The warp's 32*R vote vectors at pw (16-byte aligned), lane l loading
-// vectors l, l + 32, ..., into `buf`; then each lane takes its own R.
-template <int R>
-__device__ __forceinline__ void load_warp_row(const uint4* pw, uint4* buf, int lane, uint32_t* w) {
-#pragma unroll
-    for (int j = 0; j < R; ++j) buf[32 * j + lane] = __ldg(pw + 32 * j + lane);
-    __syncwarp();
-#pragma unroll
-    for (int j = 0; j < R; ++j) {
-        const uint4 x = buf[R * lane + j];
-        w[4 * j] = x.x; w[4 * j + 1] = x.y; w[4 * j + 2] = x.z; w[4 * j + 3] = x.w;
-    }
-    __syncwarp();
-}
-
 __device__ __forceinline__ int4 phase_vec(uint32_t d) {
     return make_int4(rw::phase_of(d, 0), rw::phase_of(d, 1), rw::phase_of(d, 2),
                      rw::phase_of(d, 3));
-}
-
-// The warp's 32*16 phases at pw (16-byte aligned): lane l's vector k
-// goes to buf[4l + (k ^ swz(l))], so each quarter warp's stores and reads
-// hit eight distinct 16-byte bank groups; then store k of lane l writes
-// vector 32k + l.
-__device__ __forceinline__ int swz(int l) { return (l >> 1) & 3; }
-
-__device__ __forceinline__ void store_warp_phases(int4* pw, int4* buf, int lane, const uint32_t d[4]) {
-#pragma unroll
-    for (int k = 0; k < 4; ++k) buf[4 * lane + (k ^ swz(lane))] = phase_vec(d[k]);
-    __syncwarp();
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-        const int g = 32 * k + lane, src = g >> 2;
-        pw[g] = buf[4 * src + ((g & 3) ^ swz(src))];
-    }
-    __syncwarp();
 }
 
 template <int R>
@@ -217,7 +164,7 @@ fused_window_tsr_kernel(const int8_t* __restrict__ votes, const uint8_t* __restr
     const int64_t s0 = c * rw::LANES;
     const int n = static_cast<int>(S - s0 < rw::LANES ? S - s0 : rw::LANES);
     uint32_t a[4 * R], at[4][R];
-    load_chunk<R>(alive + s0 * R, n, a, 0);
+    rw::load_chunk<R>(alive + s0 * R, n, a, 0);
     rw::transpose_alive<R>(a, at);
     const int64_t stride = static_cast<int64_t>(gridDim.y) * blockDim.y;
     for (int64_t t = static_cast<int64_t>(blockIdx.y) * blockDim.y + threadIdx.y; t < T;
@@ -226,9 +173,9 @@ fused_window_tsr_kernel(const int8_t* __restrict__ votes, const uint8_t* __restr
         uint32_t v[4 * R], d[4];
         const int8_t* pv = votes + warp_off * R;
         if (warp_whole && aligned16(pv)) {
-            load_warp_row<R>(reinterpret_cast<const uint4*>(pv), buf, lane, v);
+            rw::load_warp_row<R>(reinterpret_cast<const uint4*>(pv), buf, lane, v);
         } else {
-            load_chunk<R>(reinterpret_cast<const uint8_t*>(votes + off * R), n, v, rw::CODE_ABSENT);
+            rw::load_chunk<R>(reinterpret_cast<const uint8_t*>(votes + off * R), n, v, rw::CODE_ABSENT);
         }
         rw::decide_rows<R>(v, at, q, d);
 
@@ -241,8 +188,9 @@ fused_window_tsr_kernel(const int8_t* __restrict__ votes, const uint8_t* __restr
         if (ph == nullptr) continue;
         int32_t* pp = ph + off;
         if (warp_whole && aligned16(ph + warp_off)) {
-            store_warp_phases(reinterpret_cast<int4*>(ph + warp_off), reinterpret_cast<int4*>(buf),
-                              lane, d);
+            const int4 p[4] = {phase_vec(d[0]), phase_vec(d[1]), phase_vec(d[2]), phase_vec(d[3])};
+            rw::store_warp_phases(reinterpret_cast<int4*>(ph + warp_off),
+                                  reinterpret_cast<int4*>(buf), lane, p);
         } else if (n == rw::LANES && aligned16(pp)) {
 #pragma unroll
             for (int k = 0; k < 4; ++k) reinterpret_cast<int4*>(pp)[k] = phase_vec(d[k]);
@@ -252,41 +200,13 @@ fused_window_tsr_kernel(const int8_t* __restrict__ votes, const uint8_t* __restr
     }
 }
 
-// The card's SM count, read once.
-int sm_count() {
-    static std::atomic<int> sms{0};
-    int v = sms.load();
-    if (v == 0) {
-        int dev = 0;
-        if (cudaGetDevice(&dev) != cudaSuccess ||
-            cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) {
-            v = 0;
-        }
-        sms.store(v);
-    }
-    return v;
-}
-
 template <int R>
 int launch_tsr(const int8_t* votes, const uint8_t* alive, int8_t* dec, int32_t* ph,
                int64_t T, int64_t S, uint32_t q, cudaStream_t stream) {
-    // x: chunks of a row (a warp's chunks neighbour), y: rows. About 16
-    // blocks an SM walk the rows, each thread an equal share, so a
-    // thread's transposed alive row serves many rows.
-    const int64_t chunks = (S + rw::LANES - 1) / rw::LANES;
-    const int bx = static_cast<int>(chunks >= 256 ? 256 : (chunks + 31) / 32 * 32);
-    const int by = 256 / bx;
-    const int64_t gx = (chunks + bx - 1) / bx;
-    const int sms = sm_count();
-    if (sms == 0) return static_cast<int>(cudaGetLastError());
-    const int64_t rows_y = (T + by - 1) / by;
-    const int64_t slots_y = (16LL * sms + gx - 1) / gx;  // blocks along y that fill the card
-    const int64_t per = (rows_y + slots_y - 1) / slots_y;
-    int64_t gy = (rows_y + per - 1) / per;
-    if (gy > 65535) gy = 65535;  // the stride loop covers the rest
-    if (gx > 0x7FFFFFFF) return static_cast<int>(cudaErrorInvalidValue);
-    fused_window_tsr_kernel<R><<<dim3(static_cast<unsigned>(gx), static_cast<unsigned>(gy)),
-                                 dim3(bx, by), 0, stream>>>(votes, alive, dec, ph, T, S, q);
+    dim3 grid, block;
+    const int err = rw::tsr_launch_shape(T, S, grid, block);
+    if (err != 0) return err;
+    fused_window_tsr_kernel<R><<<grid, block, 0, stream>>>(votes, alive, dec, ph, T, S, q);
     return static_cast<int>(cudaGetLastError());
 }
 

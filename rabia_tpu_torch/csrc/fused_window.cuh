@@ -17,6 +17,12 @@
 #include <stdint.h>
 
 #if defined(__CUDACC__)
+#include <cuda_runtime.h>
+
+#include <atomic>
+#endif
+
+#if defined(__CUDACC__)
 #define RW_HD __host__ __device__ __forceinline__
 #define RW_UNROLL _Pragma("unroll")
 #else
@@ -206,5 +212,105 @@ RW_HD void tsr_chunk_bytes(const int8_t* votes, const uint8_t* alive, int n, uin
     store_dec_lanes(dec, n, d);
     if (ph) store_phase_lanes(ph, n, d);
 }
+
+#if defined(__CUDACC__)
+// ---- the [T, S, R] layout's vector loads and stores on the card ----
+//
+// Shared by fused_window.cu and cluster_round.cu, which read the same
+// layout: one thread a chunk of 16 shards of one slot row, 16*R
+// contiguous bytes; a warp's 32 chunks are 32*16*R contiguous bytes.
+
+__device__ __forceinline__ bool aligned16(const void* p) {
+    return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
+}
+
+// 4*R words of the n*R bytes at p (pad past them): R vector loads where
+// the chunk is whole and aligned.
+template <int R>
+__device__ __forceinline__ void load_chunk(const uint8_t* p, int n, uint32_t* w, uint8_t pad) {
+    if (n == LANES && aligned16(p)) {
+        const uint4* p4 = reinterpret_cast<const uint4*>(p);
+#pragma unroll
+        for (int j = 0; j < R; ++j) {
+            const uint4 x = __ldg(p4 + j);
+            w[4 * j] = x.x; w[4 * j + 1] = x.y; w[4 * j + 2] = x.z; w[4 * j + 3] = x.w;
+        }
+    } else {
+        load_bytes(p, n * R, w, 4 * R, pad);
+    }
+}
+
+// The warp's 32*R vote vectors at pw (16-byte aligned), lane l loading
+// vectors l, l + 32, ..., into `buf`; then each lane takes its own R.
+template <int R>
+__device__ __forceinline__ void load_warp_row(const uint4* pw, uint4* buf, int lane, uint32_t* w) {
+#pragma unroll
+    for (int j = 0; j < R; ++j) buf[32 * j + lane] = __ldg(pw + 32 * j + lane);
+    __syncwarp();
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+        const uint4 x = buf[R * lane + j];
+        w[4 * j] = x.x; w[4 * j + 1] = x.y; w[4 * j + 2] = x.z; w[4 * j + 3] = x.w;
+    }
+    __syncwarp();
+}
+
+// The warp's 32*16 phases at pw (16-byte aligned), lane l holding the
+// four vectors p[] of its 16 shards: lane l's vector k goes to
+// buf[4l + (k ^ swz(l))], so each quarter warp's stores and reads hit
+// eight distinct 16-byte bank groups; then store k of lane l writes
+// vector 32k + l.
+__device__ __forceinline__ int swz(int l) { return (l >> 1) & 3; }
+
+__device__ __forceinline__ void store_warp_phases(int4* pw, int4* buf, int lane, const int4 p[4]) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) buf[4 * lane + (k ^ swz(lane))] = p[k];
+    __syncwarp();
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+        const int g = 32 * k + lane, src = g >> 2;
+        pw[g] = buf[4 * src + ((g & 3) ^ swz(src))];
+    }
+    __syncwarp();
+}
+
+// The card's SM count, read once.
+inline int sm_count() {
+    static std::atomic<int> sms{0};
+    int v = sms.load();
+    if (v == 0) {
+        int dev = 0;
+        if (cudaGetDevice(&dev) != cudaSuccess ||
+            cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) {
+            v = 0;
+        }
+        sms.store(v);
+    }
+    return v;
+}
+
+// The launch shape of a kernel that walks [T, S, R] rows a chunk a
+// thread: x the chunks of a row (a warp's chunks neighbour), y the rows.
+// About 16 blocks an SM walk the rows, each thread an equal share, so a
+// thread's transposed alive row serves many rows. Returns 0, or the
+// error that keeps the launch from happening.
+inline int tsr_launch_shape(int64_t T, int64_t S, dim3& grid, dim3& block) {
+    const int64_t chunks = (S + LANES - 1) / LANES;
+    const int bx = static_cast<int>(chunks >= 256 ? 256 : (chunks + 31) / 32 * 32);
+    const int by = 256 / bx;
+    const int64_t gx = (chunks + bx - 1) / bx;
+    const int sms = sm_count();
+    if (sms == 0) return static_cast<int>(cudaGetLastError());
+    const int64_t rows_y = (T + by - 1) / by;
+    const int64_t slots_y = (16LL * sms + gx - 1) / gx;  // blocks along y that fill the card
+    const int64_t per = (rows_y + slots_y - 1) / slots_y;
+    int64_t gy = (rows_y + per - 1) / per;
+    if (gy > 65535) gy = 65535;  // the stride loop covers the rest
+    if (gx > 0x7FFFFFFF) return static_cast<int>(cudaErrorInvalidValue);
+    grid = dim3(static_cast<unsigned>(gx), static_cast<unsigned>(gy));
+    block = dim3(bx, by);
+    return 0;
+}
+#endif  // __CUDACC__
 
 }  // namespace rw

@@ -2,18 +2,21 @@
 
 ``CLUSTER_ROUND`` wraps ``csrc/cluster_round.cu``, which replaces the
 reference's ``ClusterKernel.round_step`` (``rabia_tpu/kernel/
-phase_driver.py``) and the scans over it. Two entries share the per-shard
-round of ``csrc/cluster_round.cuh``:
+phase_driver.py``) and the scans over it. Two entries, on the math of
+``csrc/cluster_round.cuh``:
 
 - :meth:`ClusterRoundKernel.rounds`: n rounds over the 13 fields of a
   ``ClusterState`` (in its field order), under full delivery, one
   delivery mask for every round, or a stack of n masks; one thread a
-  shard. ``ClusterKernel.round_step`` launches it with n = 1 and
-  ``run_rounds`` with the n masks it draws.
+  shard runs the per-shard round. ``ClusterKernel.round_step`` launches
+  it with n = 1 and ``run_rounds`` with the n masks it draws.
 - :meth:`ClusterRoundKernel.slot_pipeline`: every (slot, shard) of a
-  window of initial votes, ``rounds`` full-delivery rounds each; one
-  thread a (slot, shard). ``slot_pipeline`` and ``slot_pipeline_wide``
-  launch it.
+  window of initial votes, ``rounds`` full-delivery rounds each, which
+  collapse to a rule on the slot's V0, V1 and V? counts (derived in the
+  header for every ``rounds``); a memory-bound kernel reads the
+  ``[T, S, R]`` votes in place, 16 shards a thread for R <= 8, one
+  (slot, shard) a thread above. ``slot_pipeline`` and
+  ``slot_pipeline_wide`` launch it.
 
 The plain versions are ``ClusterKernel.round_step_plain``,
 ``run_rounds_plain``, ``slot_pipeline_plain`` and
@@ -78,10 +81,11 @@ class ClusterRoundKernel:
         self.launches = 0
         self.counts = dict.fromkeys(self.ENTRIES, 0)
 
-    def load(self):
-        """Build (if needed) and bind the library; returns it."""
+    def load(self, path=None):
+        """Build (if needed) and bind the library, or bind the one built
+        at ``path`` (another build of the same source); returns it."""
         if self._lib is None:
-            path = cuda_build.build(["cluster_round"])["cluster_round"]
+            path = path or cuda_build.build(["cluster_round"])["cluster_round"]
             lib = ctypes.CDLL(str(path))
             P, LL, I, U = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_uint
             lib.cr_rounds.argtypes = [P, P, P, P, LL, I, LL, I, I, I, U, U, P]
@@ -191,7 +195,10 @@ class ClusterRoundKernel:
     ) -> tuple[torch.Tensor, torch.Tensor]:
         """Every (slot, shard): a fresh slot ``base + t`` (int32, wrapped)
         with ``rounds`` full-delivery rounds. Returns ``(decided i8[T, S],
-        decided_phase i32[T, S])``."""
+        decided_phase i32[T, S])``. Votes are codes 0..3; others are
+        outside the contract, and the kernel need not match the plain
+        loop on them. ``f1 <= quorum`` (as ``quorum_size`` and
+        ``f_plus_1`` give), on which the kernel's rule rests."""
         if votes.dtype != I8 or votes.dim() != 3:
             raise ValueError(f"votes must be int8[T, S, R], got {votes.dtype}{list(votes.shape)}")
         T, S, R = votes.shape
@@ -202,6 +209,8 @@ class ClusterRoundKernel:
             raise ValueError(f"rounds must be >= 0, got {rounds}")
         if not -(2**31) <= base < 2**31:
             raise ValueError(f"base {base} is not an int32")
+        if not 1 <= f1 <= quorum:
+            raise ValueError(f"the slot pipeline needs 1 <= f1 <= quorum, got f1={f1} quorum={quorum}")
         self._check_cuda(votes, alive)
         lib = self.load()
         decided = torch.empty((T, S), dtype=I8, device=votes.device)

@@ -10,7 +10,7 @@ phase), and crashes and partitions are boolean masks.
 
 For CUDA tensors the protocol runs hand-written CUDA kernels:
 ``round_step``, ``run_rounds``, ``slot_pipeline`` and
-``slot_pipeline_wide`` the round kernels of
+``slot_pipeline_wide`` the kernels of
 :mod:`rabia_tpu_torch.kernel.cluster_round` (a chain of rounds, or a
 whole window of slots, in one launch), the fused fault-free entries those
 of :mod:`rabia_tpu_torch.kernel.fused_window` and
@@ -433,8 +433,10 @@ class ClusterKernel:
         t is ``start_slot_index + t`` in int32 (it wraps, as the
         reference's does). Returns ``(decided i8[T, S], decided_phase
         i32[T, S])``. This is the semantics owner of the fused entries.
-        Votes on a card take one launch of the round kernel (slots are
-        independent: ``start_slot`` resets every field), CPU votes
+        Votes on a card take one launch of the slot-pipeline kernel (slots
+        are independent: ``start_slot`` resets every field, and a fresh
+        slot's full-delivery rounds collapse to a rule on its vote counts,
+        ``csrc/cluster_round.cuh``), CPU votes
         :meth:`slot_pipeline_plain`."""
         self._check_slots(initial_votes, n_slots)
         if initial_votes.device.type == "cuda":
@@ -491,7 +493,8 @@ class ClusterKernel:
         of B*S shards, each row carrying its own shard number and slot for
         the coin. Decisions are bit-identical to :meth:`slot_pipeline`.
         ``n_slots`` must be a multiple of ``block``. Votes on a card take
-        the round kernel's one launch for the whole window, CPU votes
+        the slot-pipeline kernel's one launch for the whole window, as
+        :meth:`slot_pipeline`'s do, CPU votes
         :meth:`slot_pipeline_wide_plain`."""
         if n_slots % block:
             raise ValueError(f"n_slots {n_slots} not a multiple of block {block}")

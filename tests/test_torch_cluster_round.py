@@ -60,14 +60,78 @@ extern "C" void cr_host_rounds(void* const* in, void* const* out, const uint8_t*
         else cr::rounds_shard<uint32_t, 8>(pi, po, alive, masks, stride, n, s, R, q, f1, seed, thr);
     }
 }
-extern "C" void cr_host_pipeline(const int8_t* votes, const uint8_t* alive, int8_t* dec,
-                                 int32_t* ph, long long T, long long S, int R, int base,
-                                 int rounds, int q, int f1, unsigned seed, unsigned thr, int wide) {
+// slot_pipeline's (slot, shard) entries, by one of four paths: the
+// per-receiver rounds (fresh + round, as cr_rounds runs them) in the
+// 32-bit (0) or 64-bit (1) build, the full-delivery rule once a (slot,
+// shard) (2; the kernel's path for R > 8), or the rule on chunks of 16
+// shards, four lanes a word (3; the kernel's path for R <= 8).
+template <typename M, int RM>
+static void receivers(const int8_t* votes, const uint8_t* alive, int8_t* dec, int32_t* ph,
+                      long long T, long long S, int R, int base, int rounds, int q, int f1,
+                      unsigned seed, unsigned thr) {
+    M din[RM];
+    cr::senders_of(din, static_cast<const uint8_t*>(nullptr), R);
     for (long long t = 0; t < T; ++t)
         for (long long s = 0; s < S; ++s) {
-            if (wide) cr::pipeline_entry<uint64_t, 64>(votes, alive, dec, ph, t, s, S, R, base, rounds, q, f1, seed, thr);
-            else cr::pipeline_entry<uint32_t, 8>(votes, alive, dec, ph, t, s, S, R, base, rounds, q, f1, seed, thr);
+            const long long i = t * S + s;
+            const int32_t slot = (int32_t)mw::slot_of(base, (int)t);
+            cr::Shard<M, RM> x;
+            cr::fresh(x, votes + i * R, R, slot);
+            const M a = cr::alive_of<M>(alive, s, R);
+            const uint32_t prefix = mw::coin_prefix(seed, (uint32_t)s, (uint32_t)slot);
+            for (int k = 0; k < rounds; ++k) cr::round(x, R, a, din, q, f1, prefix, thr);
+            dec[i] = x.decided;
+            ph[i] = x.dphase;
         }
+}
+template <int R>
+static void chunks(const int8_t* votes, const uint8_t* alive, int8_t* dec, int32_t* ph,
+                   long long T, long long S, int base, int rounds, int q, unsigned seed,
+                   unsigned thr) {
+    for (long long t = 0; t < T; ++t)
+        for (long long s0 = 0; s0 < S; s0 += 16) {
+            const int n = (int)(S - s0 < 16 ? S - s0 : 16);
+            const long long i = t * S + s0;
+            cr::pipeline_chunk_bytes<R>(votes + i * R, alive + s0 * R, n, (uint32_t)q, rounds, seed,
+                                        thr, (uint32_t)s0, mw::slot_of(base, (int)t), dec + i,
+                                        ph + i);
+        }
+}
+static void pipeline(int path, const int8_t* votes, const uint8_t* alive, int8_t* dec,
+                     int32_t* ph, long long T, long long S, int R, int base, int rounds, int q,
+                     int f1, unsigned seed, unsigned thr) {
+    if (path == 0) return receivers<uint32_t, 8>(votes, alive, dec, ph, T, S, R, base, rounds, q, f1, seed, thr);
+    if (path == 1) return receivers<uint64_t, 64>(votes, alive, dec, ph, T, S, R, base, rounds, q, f1, seed, thr);
+    if (path == 2) {
+        for (long long i = 0; i < T * S; ++i) {
+            const long long t = i / S, s = i % S;
+            const uint32_t prefix = mw::coin_prefix(seed, (uint32_t)s, mw::slot_of(base, (int)t));
+            const cr::Decision x = cr::full_delivery(votes + i * R, alive + s * R, R, q, rounds, prefix, thr);
+            dec[i] = x.decided;
+            ph[i] = x.phase;
+        }
+        return;
+    }
+    switch (R) {
+        case 1: return chunks<1>(votes, alive, dec, ph, T, S, base, rounds, q, seed, thr);
+        case 2: return chunks<2>(votes, alive, dec, ph, T, S, base, rounds, q, seed, thr);
+        case 3: return chunks<3>(votes, alive, dec, ph, T, S, base, rounds, q, seed, thr);
+        case 4: return chunks<4>(votes, alive, dec, ph, T, S, base, rounds, q, seed, thr);
+        case 5: return chunks<5>(votes, alive, dec, ph, T, S, base, rounds, q, seed, thr);
+        case 6: return chunks<6>(votes, alive, dec, ph, T, S, base, rounds, q, seed, thr);
+        case 7: return chunks<7>(votes, alive, dec, ph, T, S, base, rounds, q, seed, thr);
+        default: return chunks<8>(votes, alive, dec, ph, T, S, base, rounds, q, seed, thr);
+    }
+}
+// n configurations (rounds, base, threshold) of one case set in one call;
+// configuration c writes dec[c*T*S ..) and ph[c*T*S ..).
+extern "C" void cr_host_pipeline(int path, const int8_t* votes, const uint8_t* alive, int8_t* dec,
+                                 int32_t* ph, long long T, long long S, int R, int n,
+                                 const int* rounds, const int* bases, const unsigned* thrs,
+                                 int q, int f1, unsigned seed) {
+    for (int c = 0; c < n; ++c)
+        pipeline(path, votes, alive, dec + c * T * S, ph + c * T * S, T, S, R, bases[c],
+                 rounds[c], q, f1, seed, thrs[c]);
 }
 """
 
@@ -79,7 +143,7 @@ class _Host:
         lib = ctypes.CDLL(str(lib_path))
         P, LL, I, U = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_uint
         lib.cr_host_rounds.argtypes = [P, P, P, P, LL, I, LL, I, I, I, U, U, I]
-        lib.cr_host_pipeline.argtypes = [P, P, P, P, LL, LL, I, I, I, I, I, U, U, I]
+        lib.cr_host_pipeline.argtypes = [I, P, P, P, P, LL, LL, I, I, P, P, P, I, I, U]
         self.lib = lib
 
     def rounds(self, fields: dict, alive, masks, n: int, seed: int, p1: float, wide: bool) -> dict:
@@ -100,15 +164,23 @@ class _Host:
                                 coin_threshold(p1), int(wide))
         return out
 
-    def pipeline(self, votes, alive, base: int, rounds: int, seed: int, p1: float, wide: bool):
+    def pipeline(self, path: int, votes, alive, configs, seed: int):
+        """slot_pipeline's decisions and phases by ``path`` (0, 1: the
+        per-receiver rounds in the 32- and 64-bit builds; 2: the
+        full-delivery rule; 3: the rule on chunks of 16 shards, R <= 8)
+        for each ``(rounds, base, coin_p1)`` of ``configs``, in one call:
+        ``(decided i8[C, T, S], phase i32[C, T, S])``."""
         votes = np.ascontiguousarray(votes, np.int8)
         T, S, R = votes.shape
-        alive = np.ascontiguousarray(alive, np.uint8)
-        dec = np.empty((T, S), np.int8)
-        ph = np.empty((T, S), np.int32)
-        self.lib.cr_host_pipeline(votes.ctypes.data, alive.ctypes.data, dec.ctypes.data,
-                                  ph.ctypes.data, T, S, R, base, rounds, quorum_size(R),
-                                  f_plus_1(R), seed & 0xFFFFFFFF, coin_threshold(p1), int(wide))
+        alive = np.ascontiguousarray(np.broadcast_to(alive, (S, R)), np.uint8)
+        rounds, bases, thrs = (np.ascontiguousarray(x) for x in zip(*(
+            (np.int32(r), np.int32(b), np.uint32(coin_threshold(p1))) for r, b, p1 in configs)))
+        dec = np.empty((len(configs), T, S), np.int8)
+        ph = np.empty((len(configs), T, S), np.int32)
+        self.lib.cr_host_pipeline(path, votes.ctypes.data, alive.ctypes.data, dec.ctypes.data,
+                                  ph.ctypes.data, T, S, R, len(configs), rounds.ctypes.data,
+                                  bases.ctypes.data, thrs.ctypes.data, quorum_size(R),
+                                  f_plus_1(R), seed & 0xFFFFFFFF)
         return dec, ph
 
 
@@ -223,9 +295,24 @@ def test_header_chains_of_rounds_and_a_mid_protocol_state(host, wide):
     _assert_fields(got, _ref_fields(rs), "full delivery")
 
 
+# the host build's slot_pipeline paths (_Host.pipeline)
+RECEIVERS32, RECEIVERS64, RULE, CHUNKS = 0, 1, 2, 3
+PATHS = {RECEIVERS32: "rounds, 32-bit", RECEIVERS64: "rounds, 64-bit",
+         RULE: "full_delivery", CHUNKS: "decide_chunk"}
+
+
+def _assert_pipeline(host, path, votes, alive, configs, seed, want_d, want_p, ctx):
+    d, ph = host.pipeline(path, votes, alive, configs, seed)
+    np.testing.assert_array_equal(d, want_d, err_msg=f"{ctx}: {PATHS[path]} decisions")
+    np.testing.assert_array_equal(ph, want_p, err_msg=f"{ctx}: {PATHS[path]} phases")
+
+
 @pytest.mark.parametrize("rounds", [1, 2, 4])
 @pytest.mark.parametrize("R,p1", [(1, 0.5), (3, 0.0), (5, 0.5), (7, 1.0), (8, 0.5)])
 def test_header_pipeline_matches_reference_slot_pipeline(host, R, p1, rounds):
+    """The full-delivery rule (once a (slot, shard), and on chunks of 16
+    shards) and the per-receiver rounds in both widths against the
+    reference's slot_pipeline, slots wrapping past 2^31-1."""
     S, T, seed = 9, 8, 3 * R + rounds
     start = 2**31 - 3  # slots 2^31-3 .. 2^31-1, then -2^31 ..: the slot wraps
     rng = np.random.default_rng(seed)
@@ -236,16 +323,63 @@ def test_header_pipeline_matches_reference_slot_pipeline(host, R, p1, rounds):
     ref = RefKernel(S, R, coin_p1=p1, seed=seed)
     want_d, want_p = (np.asarray(x) for x in ref.slot_pipeline(
         jnp.asarray(votes), jnp.asarray(alive), T, rounds_per_slot=rounds, start_slot_index=start))
-    for wide in (False, True):
-        d, ph = host.pipeline(votes, alive, start, rounds, seed, p1, wide)
-        np.testing.assert_array_equal(d, want_d)
-        np.testing.assert_array_equal(ph, want_p)
+    for path in (RULE, CHUNKS, RECEIVERS32, RECEIVERS64):
+        _assert_pipeline(host, path, votes, alive, [(rounds, start, p1)], seed, want_d[None],
+                         want_p[None], f"R={R} rounds={rounds}")
     # the port's plain loop wraps the slot as the reference does
     port = ClusterKernel(S, R, coin_p1=p1, seed=seed, device="cpu")
     d, ph = port.slot_pipeline(torch.from_numpy(votes), torch.from_numpy(alive), T,
                                rounds_per_slot=rounds, start_slot_index=start)
     np.testing.assert_array_equal(d.numpy(), want_d)
     np.testing.assert_array_equal(ph.numpy(), want_p)
+
+
+@pytest.mark.parametrize("R", [1, 2, 3, 4, 5])
+def test_full_delivery_rule_equals_the_rounds_on_every_case(host, R):
+    """Exhaustive: every vote vector in {V0, V1, V?, ABSENT}^R (one a slot)
+    under every alive mask (one a shard), rounds 0..6, coin_p1 0, 0.5 and
+    1, first slots 0, 7 and 2^31-1; the rule once a (slot, shard) and on
+    chunks of 16 shards against fresh + round, the per-receiver rounds
+    that cr_rounds runs."""
+    T, S, seed = 4**R, 2**R, 11 * R
+    codes = (np.arange(T)[:, None] >> (2 * np.arange(R))[None, :]) & 3
+    votes = np.broadcast_to(codes[:, None, :], (T, S, R)).astype(np.int8)
+    alive = ((np.arange(S)[:, None] >> np.arange(R)[None, :]) & 1).astype(bool)
+    configs = [(rounds, base, p1) for rounds in range(7) for p1 in (0.0, 0.5, 1.0)
+               for base in (0, 7, 2**31 - 1)]
+    want_d, want_p = host.pipeline(RECEIVERS32, votes, alive, configs, seed)
+    for path in (RULE, CHUNKS):
+        _assert_pipeline(host, path, votes, alive, configs, seed, want_d, want_p,
+                         f"exhaustive R={R}")
+    outcomes = set(zip(want_d.ravel().tolist(), want_p.ravel().tolist()))
+    assert outcomes == {(ABSENT, -1), (0, 0), (1, 0), (0, 1), (1, 1)}  # every branch, both coins
+
+
+@pytest.mark.parametrize("rounds", range(6))
+@pytest.mark.parametrize("R", [1, 3, 5, 7, 8, 13, 64])
+def test_full_delivery_rule_matches_reference_slot_pipeline(host, R, rounds):
+    """Random votes against the reference's slot_pipeline up to R = 64:
+    shards leaning V1, leaning V0, split or mostly ABSENT, crashes and a
+    quorum-less shard, S = 21 (a chunk of 16 and a ragged one), and slots
+    that wrap past 2^31-1 at odd rounds."""
+    S, T, seed = 21, 6, 1000 + 10 * R + rounds
+    p1 = (0.0, 0.5, 1.0)[(R + rounds) % 3]
+    start = 2**31 - 3 if rounds % 2 else 5
+    rng = np.random.default_rng(seed)
+    lean = np.array([[0.05, 0.85, 0.05, 0.05], [0.85, 0.05, 0.05, 0.05],
+                     [0.4, 0.4, 0.15, 0.05], [0.1, 0.1, 0.1, 0.7]])
+    kind = np.arange(S) % len(lean)
+    votes = np.stack([rng.choice(4, size=(T, R), p=lean[k]) for k in kind], axis=1).astype(np.int8)
+    alive = rng.random((S, R)) > 0.3
+    alive[0, : quorum_size(R)] = False
+    ref = RefKernel(S, R, coin_p1=p1, seed=seed)
+    want_d, want_p = (np.asarray(x) for x in ref.slot_pipeline(
+        jnp.asarray(votes), jnp.asarray(alive), T, rounds_per_slot=rounds, start_slot_index=start))
+    for path in (RULE, CHUNKS) if R <= 8 else (RULE,):
+        _assert_pipeline(host, path, votes, alive, [(rounds, start, p1)], seed, want_d[None],
+                         want_p[None], f"R={R} rounds={rounds}")
+    if rounds >= 2:
+        assert (want_d != ABSENT).any()
 
 
 def test_header_64_replicas_matches_the_port_plain_round(host):

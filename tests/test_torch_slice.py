@@ -52,7 +52,12 @@ def test_scan_fault_path_and_deep_packed_window_cpu():
 
 
 def test_operation_counts_follow_the_shapes():
-    assert chip_smoke.pipeline_ops(S, R, 3) == 3 * S * (5 * R + 8)
+    # the full-delivery rule: nothing below 2 rounds, the counts from 2,
+    # and from 4 the coin of each entry that takes it
+    assert chip_smoke.pipeline_ops(S, R, 3) == 3 * S * (6 * R + 8)
+    assert chip_smoke.pipeline_ops(S, R, 3, rounds=1) == 0
+    assert chip_smoke.pipeline_ops(S, R, 3, 3, coins=5) == 3 * S * (6 * R + 8)
+    assert chip_smoke.pipeline_ops(S, R, 3, 4, coins=5) == 3 * S * (6 * R + 8) + 5 * 21
     # R=5: 15 for the planes, two trees of 2 full adders, two 3-plane compares, 3 for the codes
     assert chip_smoke.packed_ops(5, 4, 2) == 4 * 2 * (15 + 8 + 6 + 3)
     assert [chip_smoke.packed_ops(r, 1, 1) for r in (1, 3, 7)] == [8, 20, 46]
@@ -143,6 +148,7 @@ def test_slice_on_card(cuda):
 def test_packed_and_round_kernels_on_card(cuda):
     assert chip_smoke.packed_kernel_vs_plain(cuda) == 0
     assert chip_smoke.round_kernel_vs_plain(cuda) == 0
+    assert chip_smoke.pipeline_every_r(cuda) == 0
     chip_smoke.round_kernel_vs_oracle(cuda)
     before = dict(cluster_round.CLUSTER_ROUND.counts)
     assert chip_smoke.scan_vs_fused(cuda, 256, R, 64)[3] == 0
