@@ -6,10 +6,13 @@ Phases (each raises on failure; nothing is caught):
 
 1. build the CUDA sources of ``rabia_tpu_torch/csrc`` with nvcc (sm_90a),
    one nvcc per source, started together: the fused-window kernels
-   (replica-major and [T,S,R]), the kv-window kernel (with and without
-   the folded decision), the mesh-window kernel, the packed-window
-   kernel and the round kernels (the scanned weak-MVC protocol: n
-   rounds a launch, and the slot pipeline's full-delivery rule);
+   (replica-major and [T,S,R]), the kv-window kernel (windows that write
+   a table, with and without the folded decision), the kv-read kernel
+   (windows that only read: the probe, and the GET window with its
+   decision), the mesh-window kernel, the packed-window kernel and the
+   round kernels (the scanned weak-MVC protocol: n rounds a launch, one
+   lane a receiver for R <= 8, and the slot pipeline's full-delivery
+   rule);
 2. hold both fused-window kernels against their plain PyTorch versions,
    bit for bit, on random votes over all four codes: R in
    {1,3,4,5,7,8}, S in {17,1000,4096}, odd T, a view that starts one
@@ -24,7 +27,8 @@ Phases (each raises on failure; nothing is caught):
    {17,1000,4096} (ragged pad lanes decide ABSENT), odd T, random codes
    over all four values, crash masks, a view one word into a buffer;
 2d. hold the round kernels against the plain round, every field of the
-   state after every launch: R in {1,3,4,5,7,8,64}, S in {17,1000,4096},
+   state after every launch: R in 1..8 and 64 (S in {17,1000,4096}; R 2
+   and 6 at S=1000),
    coin_p1 in {0,0.5,1}; ``run_rounds`` chains of 1, 2, 7 and 80 rounds
    at p_deliver 1.0, 0.6 and 0.3 with a static partition on some, crash
    masks with a quorum-less shard, inactive shards, slots near 2^31-1,
@@ -61,16 +65,18 @@ Phases (each raises on failure; nothing is caught):
    widths of 8 and 16 words and odd ones (3 and 5, 4 and 7), op widths
    below the table's, W in {1, 16}, and wider tables and longer windows
    (P of 130 and 200, W of 40 and 70); every output plane and the
-   untouched input table are compared. Then the same kernel with the
-   window's decision folded in, against the plain composition (mesh
-   window, wave scan, flags): SET (no kind plane), mixed and read-only
+   untouched input table are compared; on the same keys the kv-read
+   kernel (a read of every non-empty key, no output table), and the
+   wrapper refuses a window with no table that writes. Then both kernels
+   with the window's decision folded in, against the plain composition
+   (mesh window, wave scan, flags): SET (no kind plane), mixed and GET
    windows, crash masks with quorum-less and all-dead shards, bases near
    2^31-1, depth in {0,1,W}, max_phases in {0,1,4}, W in {1,16,40,70},
    every output plane, the flags and the untouched input table;
 7. the device-resident KV lane at full width: a ``device_store=True``
    engine beside a host-lane engine (``VectorShardedKV`` replicas) over
    4096 shards x 5 replicas, window 16, 64-slot tables (32 B keys, 64 B
-   values): 64 SET waves fill every slot, then GET waves, mixed
+   values): 64 SET waves fill every slot, then 8 GET waves, 8 mixed
    SET/GET/DEL/EXISTS waves, an overflow (dirty -> rollback -> demote),
    clean waves until re-promotion, a majority crash (stall, demote) and
    heal; every response frame, the slot counters, the decision logs and
@@ -87,22 +93,31 @@ Phases (each raises on failure; nothing is caught):
    it and a host-lane engine at 4096 shards x 5 replicas: phase 7's fill,
    then groups of 9 GET blocks and 1 SET block, flushed, under a uniform
    and a Zipf(1.2) key stream; reads take no slot and every response
-   equals the other lanes'. Then the dictionary SET window (fill and
-   Zipf streams) beside the row form and the probe beside the lookup
-   window are timed by graph replay, and the packers' host time and
-   upload bytes are measured.
+   equals the read-lane-off engine's (the first group's first 3 GET
+   blocks and its SET block also the host lane's). After the main path, the kv-read kernel on
+   phase 7's table: the probe and the GET window, row and dictionary
+   form, on phase 7's keys and on Zipf(1.2) keys, every wave and the
+   flags against the plain versions. Then the dictionary SET window
+   (fill and Zipf streams) beside the row form, and the probe beside the
+   GET window (both forms) and an empty kernel at its grid, are timed by
+   graph replay, and the packers' host time and upload bytes are
+   measured.
 
-The launch counts of the six kernels (the kv-window kernel's by form,
-the round kernel's by entry) are reset just before phases 4-5, 7 and 8
+The launch counts of the seven kernels (the kv-window and kv-read
+kernels' by form, the round kernels' by entry) are reset just before
+phases 4-5, 7 and 8
 (the main path) and read just after; phase 4 drives both
 fused-window entries (replica-major at full depth, and
 ``ClusterKernel.slot_pipeline_fused`` on [T,S,R] votes at full depth and
 at ``__graft_entry__``'s T=8 beside ``slot_pipeline``), the packed
 window, and both round-kernel entries (``slot_pipeline`` and
 ``run_rounds``). After it, phase 7
-checks that one ``decide_apply``, ``lookup_window`` and ``mixed_apply``
-each launch the kv-window kernel once and the mesh-window kernel never,
-and the kernels are timed. The last lines are a ``{"kernels": ...}``
+checks that one ``decide_apply`` and ``mixed_apply`` each launch the
+kv-window kernel once, ``lookup_window`` and ``lookup_only`` the kv-read
+kernel once, and none the mesh-window kernel, and the kernels are timed:
+the fault path's one launch also with one mask for every round and with
+none, beside an empty kernel, and its bound counted over the rounds each
+shard runs before it settles. The last lines are a ``{"kernels": ...}``
 JSON line, the card's name and power limit as nvidia-smi reports them,
 and ``{"ok": true, "device": {...}}``. Exits non-zero without a GPU.
 
@@ -144,6 +159,10 @@ T_PACKED = 393216  # bench.py's depth for the packed window (2.0 GB of votes at 
 T_PLAIN_SCAN = 64  # the depth at which the plain slot_pipeline is timed
 CHAIN = 32
 P_FULL = 64  # the reference DeviceKVTable's per_shard_capacity (32 B keys, 64 B values)
+# phase 7's GET and mixed waves: the host block lane serves reads op by op
+# (about 2k ops/s), so these waves set most of the run's time
+LANE_READ_WAVES = 8
+LANE_HOST_GETS = 3  # phase 8: GET blocks of each stream's first group also sent to the host lane
 # int32 operations/s of an H100 SXM: 132 SMs x 64 INT32 lanes x 1.98 GHz
 # (the Hopper white paper's per-SM unit count and the SXM boost clock)
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
@@ -321,9 +340,9 @@ def round_kernel_vs_plain(device) -> int:
     absolute difference seen (must be 0)."""
     gen = torch.Generator(device=device).manual_seed(24)
     worst, case = 0, 0
-    for R in (1, 3, 4, 5, 7, 8, 64):
+    for R in (1, 2, 3, 4, 5, 6, 7, 8, 64):
         q = quorum_size(R)
-        for S in (17, 1000, 4096):
+        for S in (17, 1000, 4096) if R not in (2, 6) else (1000,):
             p1 = (0.0, 0.5, 1.0)[case % 3]
             k = ClusterKernel(S, R, coin_p1=p1, seed=S + R, device=device)
             votes = torch.randint(0, 2, (S, R), generator=gen, device=device, dtype=torch.int8)
@@ -605,6 +624,31 @@ def pipeline_ops(S: int, R: int, T: int, rounds: int = 2, coins: int = 0) -> int
     return T * S * (6 * R + 8) + (21 * coins if rounds >= 4 else 0)
 
 
+def rounds_ops(R: int, shard_rounds: int) -> int:
+    """The fault path's least integer operations: for each round a shard
+    runs, 24 a receiver (the two ledgers' fills: an offer mask and a
+    select of two code planes each, 8; the tallies: four popcounts and
+    four quorum compares, 8; the step's selects, 8)."""
+    return shard_rounds * R * 24
+
+
+def settle_rounds(k, st0, alive, masks) -> torch.Tensor:
+    """For each shard, the rounds of ``masks`` it runs before every live
+    replica has decided: after that the shard is a fixed point
+    (``csrc/cluster_round.cuh``, (d)) and needs neither work nor masks.
+    Counted with the plain round on the same masks."""
+    unsettled = lambda st: (alive & ~st.done).any(1)  # noqa: E731
+    need = torch.zeros(k.S, dtype=torch.int64, device=masks.device)
+    st, live = st0, unsettled(st0)
+    for m in masks:
+        if not bool(live.any()):
+            break
+        need += live
+        st = k.round_step_plain(st, alive, m)
+        live &= unsettled(st)
+    return need
+
+
 # -- phase 6 -----------------------------------------------------------------
 
 
@@ -674,12 +718,24 @@ def _kv_case_vs_plain(gen, device, S, P, K4, VW4, W, ku4, vwu4, p_used, kinds) -
         _check(torch.equal(a, b),
                f"kv_window kernel != plain at S={S} P={P} K4={K4} "
                f"VW4={VW4} W={W} ku4={ku4} vwu4={vwu4} kinds={kinds}")
-    # read-only form (lookup): no output table
-    none, over, reads = kv_window.KV_WINDOW(table, *ops, depth, want_table=False, want_reads=True)
+    # the read-only kernel (no output table): a read of every non-empty
+    # key; a window that writes has no read-only form
+    kind, klen, _, kw, _ = ops
+    want = kv_window.kv_window_plain(table, kv_window.KIND_GET, klen, None, kw, None, depth,
+                                     want_table=False, want_reads=True)
+    none, over, reads = kv_window.KV_WINDOW(table, kv_window.KIND_GET, klen, None, kw, None, depth,
+                                            want_table=False, want_reads=True)
     torch.cuda.synchronize(device)
     _check(none is None and torch.equal(over, want[1])
            and all(torch.equal(a, b) for a, b in zip(reads, want[2])),
-           "kv_window read-only form differs")
+           f"kv_window read-only kernel != plain at S={S} P={P} K4={K4} VW4={VW4} W={W} "
+           f"ku4={ku4}")
+    try:
+        kv_window.KV_WINDOW(table, kind, *ops[1:], depth, want_table=False, want_reads=True)
+    except ValueError:
+        pass
+    else:
+        _check(False, "a window without an output table was taken with a kind plane")
     return worst
 
 
@@ -726,7 +782,8 @@ def decide_kernel_vs_plain(device) -> int:
                     kinds = {"set": (1,), "mixed": (0, 1, 2, 3, 4), "lookup": (0, 2)}[mode]
                     table, ops, _ = random_kv_case(gen, S, P, K4, VW4, W, K4, VW4, device,
                                                    kinds=kinds)
-                    kind = None if mode == "set" else ops[0]
+                    kind = {"set": None, "mixed": ops[0], "lookup": kv_window.KIND_GET}[mode]
+                    planes = ops[1:] if mode != "lookup" else (ops[1], None, ops[3], None)
                     mk = MeshPhaseKernel(S, R, coin_p1=(0.0, 0.5, 1.0)[i % 3], seed=S + i,
                                          device=device)
                     _, alive, base = mesh_case(gen, S, R, 1, device)
@@ -736,9 +793,9 @@ def decide_kernel_vs_plain(device) -> int:
                         alive[1 % S] = False
                     before = [x.clone() for x in table]
                     kw = dict(want_table=mode != "lookup", want_reads=mode != "set")
-                    want = kv_window.decide_window_plain(mk, table, kind, *ops[1:], depth, alive,
+                    want = kv_window.decide_window_plain(mk, table, kind, *planes, depth, alive,
                                                          base, max_phases, **kw)
-                    got = kv_window.KV_WINDOW.decide(table, kind, *ops[1:], depth, alive, base,
+                    got = kv_window.KV_WINDOW.decide(table, kind, *planes, depth, alive, base,
                                                      seed=mk.seed, coin_p1=mk.coin_p1,
                                                      max_phases=max_phases, **kw)
                     torch.cuda.synchronize(device)
@@ -839,6 +896,47 @@ def dict_kernel_vs_plain(device) -> int:
                         _check(torch.equal(a, b),
                                f"kv_window {mode} on the dictionary form != plain at S={S} P={P} "
                                f"D={D} W={W} depth={depth} ku4={ku4} vwu4={vwu4} R={R}")
+    return worst
+
+
+def read_kernel_on_lane_table(dkv, mk, win: dict, zipf_get: list, W: int = 16) -> int:
+    """The read-only kernel on phase 7's full table at the lane's shapes:
+    the probe and the GET window (with its decision), in the row and the
+    dictionary form, on phase 7's key stream (uniform) and on a Zipf(1.2)
+    one, every wave and the flags, against ``kv_window_plain`` and
+    ``decide_window_plain``. Returns the largest absolute difference seen
+    (must be 0)."""
+    S, R, dev = dkv.S, mk.R, dkv.device
+    alive = torch.ones((S, R), dtype=torch.bool, device=dev)
+    base = torch.zeros(S, dtype=torch.int32, device=dev)
+    kw = dict(want_table=False, want_reads=True)
+    worst = 0
+    windows = {"uniform rows": win["get rows"], "uniform dict": win["get dict"],
+               "zipf rows": dkv.pack_get_window(zipf_get),
+               "zipf dict": dkv.pack_get_window_auto(zipf_get)}
+    _check(isinstance(windows["zipf dict"], DeviceDictOps),
+           "the Zipf GET window was not a dictionary")
+    for name, ops in windows.items():
+        idx, klen, _, kwin, _ = dkv._upload(dkv._host_ops(ops, W, values=False))
+        cases = [("probe", kv_window.kv_window_plain(dkv.state, kv_window.KIND_GET, klen, None,
+                                                     kwin, None, 0, idx=idx, **kw),
+                  kv_window.KV_WINDOW(dkv.state, kv_window.KIND_GET, klen, None, kwin, None, 0,
+                                      idx=idx, **kw)),
+                 ("GET window", kv_window.decide_window_plain(
+                     mk, dkv.state, kv_window.KIND_GET, klen, None, kwin, None, W, alive, base, 4,
+                     idx=idx, **kw),
+                  kv_window.KV_WINDOW.decide(dkv.state, kv_window.KIND_GET, klen, None, kwin, None,
+                                             W, alive, base, seed=mk.seed, coin_p1=mk.coin_p1,
+                                             max_phases=4, idx=idx, **kw))]
+        torch.cuda.synchronize(dev)
+        for what, want, got in cases:
+            want, got = _flat(want), _flat(got)
+            _check(len(want) == len(got), f"{what} outputs differ in kind ({name})")
+            for a, b in zip(want, got):
+                worst = max(worst, _max_err(a, b))
+                _check(torch.equal(a, b), f"read-only kernel {what} != plain on the lane's table "
+                                          f"({name})")
+            _check(bool(got[1].any()), f"{what} ({name}) found nothing")
     return worst
 
 
@@ -1048,10 +1146,11 @@ def device_kv_lane(device, S: int, R: int, window: int = 16, P: int = P_FULL, se
              "device_set_ops_per_s": P * S / dev_s, "host_set_ops_per_s": P * S / host_s}
     # b. GET waves, some of keys never set
     gets = [wave([_key_op(2, _key(s, int(rng.integers(0, P + 8)))) for s in shards])
-            for _ in range(16)]
+            for _ in range(LANE_READ_WAVES)]
     dev_s, host_s = both(gets)
     lane_is(True, "after the GET waves")
-    stats.update(device_get_ops_per_s=16 * S / dev_s, host_get_ops_per_s=16 * S / host_s)
+    stats.update(device_get_ops_per_s=LANE_READ_WAVES * S / dev_s,
+                 host_get_ops_per_s=LANE_READ_WAVES * S / host_s)
 
     # c. mixed waves: per op SET (of a known key), GET, DEL, EXISTS; shard
     # 0 never deletes, so it stays full for the overflow below
@@ -1062,10 +1161,11 @@ def device_kv_lane(device, S: int, R: int, window: int = 16, P: int = P_FULL, se
             return _set_op(_key(s, j % P), _value(rng, 100 + w, s))
         return _key_op((2, 4, 3)[k - 1], _key(s, j))
 
-    mixed = [wave([mixed_op(w, s) for s in shards]) for w in range(16)]
+    mixed = [wave([mixed_op(w, s) for s in shards]) for w in range(LANE_READ_WAVES)]
     dev_s, host_s = both(mixed)
     lane_is(True, "after the mixed waves")
-    stats.update(device_mixed_ops_per_s=16 * S / dev_s, host_mixed_ops_per_s=16 * S / host_s)
+    stats.update(device_mixed_ops_per_s=LANE_READ_WAVES * S / dev_s,
+                 host_mixed_ops_per_s=LANE_READ_WAVES * S / host_s)
 
     # d. a fresh key on full shard 0: overflow -> dirty -> rollback -> demote
     both([wave([_set_op(b"fresh", b"!")] + [_key_op(2, _key(s, 0)) for s in shards[1:]])])
@@ -1162,8 +1262,9 @@ def lane_programs(dkv, S: int, R: int, W: int = 16) -> dict:
             "mixed_apply": lambda: dkv.mixed_apply(alive, base, W, kind, get_waves, mixed, W=W),
             "lookup_only": lambda: dkv.lookup_only(win[f"get {form}"], W=W),
         }
+        keys = {"lookup_only": f"probe {form}", "lookup_window": f"lookup {form}"}
         for what, call in calls.items():
-            key = form + ("" if what == "lookup_only" else "+decide")
+            key = keys.get(what, f"{form}+decide")
             counts, mw0 = dict(kv_window.KV_WINDOW.counts), mesh_window.MESH_WINDOW.launches
             out = call()
             torch.cuda.synchronize()
@@ -1198,9 +1299,10 @@ def device_read_lane(device, S: int, R: int, window: int = 16, P: int = P_FULL, 
     phase 7's (uniform keys, some never set, a fresh value per op) and a
     Zipf(1.2) one (a key repeats its value within a group). Every
     response of the read lane equals the read-lane-off engine's; the
-    first group of each stream is also held against the host lane (whose
-    GETs are Python per op; the later groups give it their SET block
-    only, so the stores stay equal). Returns (stats, read-lane engine)."""
+    first LANE_HOST_GETS GET blocks and the SET block of each stream's
+    first group are also held against the host lane (whose GETs are
+    Python per op; the other blocks give it only their SET blocks, so the
+    stores stay equal). Returns (stats, read-lane engine)."""
     rng = np.random.default_rng(seed)
     shards = list(range(S))
 
@@ -1240,7 +1342,7 @@ def device_read_lane(device, S: int, R: int, window: int = 16, P: int = P_FULL, 
             futs[name] = []
             t0 = time.perf_counter()
             for g, grp in enumerate(grps):
-                sent = grp if name != "host" or g == 0 else grp[-1:]
+                sent = grp if name != "host" else grp[:LANE_HOST_GETS if g == 0 else 0] + grp[-1:]
                 futs[name].append([eng.submit_block(b) for b in sent])
                 eng.flush()
             secs[name] = time.perf_counter() - t0
@@ -1250,7 +1352,8 @@ def device_read_lane(device, S: int, R: int, window: int = 16, P: int = P_FULL, 
                        == [list(map(bytes, x)) for x in fs.result()],
                        f"read lane responses differ from the consensus GET window's ({stream}, "
                        f"group {g})")
-        for fl, fh in zip(futs["lane"][0], futs["host"][0]):
+        for fl, fh in zip(futs["lane"][0][:LANE_HOST_GETS] + futs["lane"][0][-1:],
+                          futs["host"][0]):
             _check([list(map(bytes, x)) for x in fl.result()]
                    == [list(map(bytes, x)) for x in fh.result()],
                    f"read lane responses differ from the host lane's ({stream})")
@@ -1337,10 +1440,10 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
     print(f"card: {smi}")
 
-    # 1. build the five sources (one nvcc per source, started together)
+    # 1. build the six sources (one nvcc per source, started together)
     t0 = time.perf_counter()
     libs = cuda_build.build(
-        ["fused_window", "kv_window", "mesh_window", "packed_window", "cluster_round"])
+        ["fused_window", "kv_window", "kv_read", "mesh_window", "packed_window", "cluster_round"])
     fused_window.FUSED_WINDOW.load()
     fused_window.FUSED_WINDOW_TSR.load()
     kv_window.KV_WINDOW.load()
@@ -1442,15 +1545,16 @@ def main() -> int:
     mesh_launches = mesh_window.MESH_WINDOW.launches
     packed_launches = packed_window.PACKED_WINDOW.launches
     round_counts = dict(cluster_round.CLUSTER_ROUND.counts)
-    round_launches = cluster_round.CLUSTER_ROUND.launches
     main_s = time.perf_counter() - t0
     _check(launches > 0, "the main path never launched the fused window kernel")
     _check(tsr_launches > 0, "the main path never launched the [T,S,R] fused window kernel")
     _check(kv_counts["rows+decide"] > 0, "the main path never launched the kv window kernel")
     _check(kv_counts["dict+decide"] > 0,
            "the main path never launched the kv window kernel on the dictionary form")
-    _check(kv_counts["dict"] + kv_counts["rows"] > 0,
-           "the main path never launched the kv window kernel's read-only probe")
+    _check(kv_counts["probe dict"] + kv_counts["probe rows"] > 0,
+           "the main path never launched the read-only kernel as the probe")
+    _check(kv_counts["lookup dict"] + kv_counts["lookup rows"] > 0,
+           "the main path never launched the read-only kernel as the GET window")
     _check(mesh_launches > 0, "the main path never launched the mesh window kernel")
     _check(packed_launches > 0, "the main path never launched the packed window kernel")
     _check(round_counts["slot_pipeline"] > 0 and round_counts["rounds"] > 0,
@@ -1525,14 +1629,46 @@ def main() -> int:
     falive_c = falive.contiguous()
     fault_call = lambda i=0: cluster_round.CLUSTER_ROUND.rounds(  # noqa: E731
         ffields, falive_c, fmasks, 80, **fk._kernel_args())
-    fempty = lambda i=0: mesh_window.MESH_WINDOW.empty(1, S_FULL, device)  # noqa: E731
-    fault_turns = [_graph_ms(fault_call, 20)]
+    # an empty kernel of as many threads as the round kernel's 256 blocks of 128
+    fempty = lambda i=0: mesh_window.MESH_WINDOW.empty(1, S_FULL * 8, device)  # noqa: E731
+    # the same launch with one mask for every round (mask stride 0) and
+    # with none (full delivery): the share of the masks in its time
+    fstatic = fmasks[0].contiguous()
+    fault_split = {
+        "stack": lambda i=0: fault_call(),
+        "stride 0": lambda i=0: cluster_round.CLUSTER_ROUND.rounds(
+            ffields, falive_c, fstatic, 80, **fk._kernel_args()),
+        "none": lambda i=0: cluster_round.CLUSTER_ROUND.rounds(
+            ffields, falive_c, None, 80, **fk._kernel_args()),
+    }
+    fault_times = {form: [] for form in fault_split}
+    for form in [*fault_split, *list(fault_split)[::-1]]:
+        fault_times[form].append(_graph_ms(fault_split[form], 20))
+    fault_turns = fault_times["stack"]
     fempty_turns = [_graph_ms(fempty, 200), _graph_ms(fempty, 200)]
-    fault_turns.append(_graph_ms(fault_call, 20))
+    fault_err = max(_max_err(a, b) for a, b in zip(fault_call(), fk.run_rounds_plain(
+        fst0, falive, 80, torch.Generator(device=device).manual_seed(1), p_deliver=0.6)))
+    _check(fault_err == 0, "the timed fault-path launch != run_rounds_plain")
     fault_run_ms = _time_ms(lambda i=0: fk.run_rounds(
         fst0, falive, 80, torch.Generator(device=device).manual_seed(1), p_deliver=0.6), 5)
-    fault_plain_ms = _time_ms(lambda i=0: fk.run_rounds_plain(
+    fault_plain_run_ms = _time_ms(lambda i=0: fk.run_rounds_plain(
         fst0, falive, 80, torch.Generator(device=device).manual_seed(1), p_deliver=0.6), 2)
+
+    def fault_plain_loop(i=0):  # the kernel's function in plain PyTorch: 80 rounds on its masks
+        st = fst0
+        for m in fmasks:
+            st = fk.round_step_plain(st, falive, m)
+        return st
+
+    fault_plain_ms = _time_ms(fault_plain_loop, 2)
+    fneed = settle_rounds(fk, fst0, falive, fmasks)
+    shard_rounds = int(fneed.sum())
+    state_bytes = 2 * sum(t.numel() * t.element_size() for t in ffields)  # read once, written once
+    fault_bytes = state_bytes + falive_c.numel() + shard_rounds * R_FULL * R_FULL
+    fault_bytes_all = state_bytes + falive_c.numel() + fmasks.numel()  # every round's masks
+    fault_bytes_ms = fault_bytes / _card_rate_bytes_per_s(name) * 1e3
+    fault_ops_ms = rounds_ops(R_FULL, shard_rounds) / INT32_OPS_PER_S * 1e3
+    fault_bound_ms = max(fault_bytes_ms, fault_ops_ms)
     del sbufs, short, fmasks
     # the [T, S, R] kernel beside the path it replaces (a relayout to
     # replica-major, then the replica-major kernel with phase), in turns
@@ -1646,7 +1782,14 @@ def main() -> int:
         want = kv_window.decide_window_plain(mk, state, None, *planes[1:], W, walive, wbase, 4,
                                              idx=planes[0])
         dict_err = max([dict_err] + [_max_err(a, b) for a, b in zip(_flat(want), _flat(got))])
-    # the probe on the GET window of lane_programs (D = 16), beside the lookup window's kernel
+    # the read-only kernel on the phase-7 table, every wave of the probe and
+    # the GET window in both forms, on phase 7's keys and on Zipf keys
+    zget = [build_block(range(S_FULL), [[_key_op(2, _key(s, int(zk[t, s])))]
+                                        for s in range(S_FULL)]) for t in range(W)]
+    read_err = read_kernel_on_lane_table(dkv, mk, win, zget, W)
+    # the probe on the GET window of lane_programs (D = 16), beside the GET
+    # window (the read kernel with the decision) on the row and dictionary
+    # forms of the same keys, beside an empty kernel at its grid
     gidx, gklen, _, gkw, _ = on_card(win["get dict"], values=False)
     _, rklen, _, rkw, _ = on_card(win["get rows"], values=False)
     probe_kw = dict(want_table=False, want_reads=True)
@@ -1655,11 +1798,23 @@ def main() -> int:
     lookup_call = lambda i=0: kv_window.KV_WINDOW.decide(  # noqa: E731
         state, kv_window.KIND_GET, rklen, None, rkw, None, W, walive, wbase, **decide_kw,
         **probe_kw)
-    probe_turns, lookup_turns = [_graph_ms(probe_call, 50)], []
+    dlookup_call = lambda i=0: kv_window.KV_WINDOW.decide(  # noqa: E731
+        state, kv_window.KIND_GET, gklen, None, gkw, None, W, walive, wbase, idx=gidx,
+        **decide_kw, **probe_kw)
+    rempty = lambda i=0: mesh_window.MESH_WINDOW.empty(1, S_FULL * 32, device)  # noqa: E731
+    probe_turns, lookup_turns, dlookup_turns = [_graph_ms(probe_call, 50)], [], []
+    rempty_ms = _graph_ms(rempty, 200)
     for _ in range(2):
         lookup_turns.append(_graph_ms(lookup_call, 50))
+        dlookup_turns.append(_graph_ms(dlookup_call, 50))
     probe_turns.append(_graph_ms(probe_call, 50))
-    probe_ms = min(probe_turns)
+    probe_ms, lookup_ms = min(probe_turns), min(lookup_turns)
+    lookup_plain_ms = _time_ms(lambda i=0: kv_window.decide_window_plain(
+        mk, state, kv_window.KIND_GET, rklen, None, rkw, None, W, walive, wbase, 4, **probe_kw), 3)
+    lookup_err = max(_max_err(a, b) for a, b in zip(
+        _flat(kv_window.decide_window_plain(mk, state, kv_window.KIND_GET, rklen, None, rkw, None,
+                                            W, walive, wbase, 4, **probe_kw)),
+        _flat(lookup_call())))
     probe_plain_ms = _time_ms(lambda i=0: kv_window.kv_window_plain(
         state, kv_window.KIND_GET, gklen, None, gkw, None, 0, idx=gidx, **probe_kw), 3)
     probe_want = kv_window.kv_window_plain(state, kv_window.KIND_GET, gklen, None, gkw, None, 0,
@@ -1680,6 +1835,10 @@ def main() -> int:
                 + hit_slots * (8 + 4 * state.valw.shape[2]))
     probe_out = W * S_FULL * (1 + 4 + 4 + 4 * state.valw.shape[2]) + S_FULL
     probe_bound_ms = (probe_in + nbytes((gidx, gklen, gkw)) + probe_out) / rate * 1e3
+    # the GET window (row form, the same keys) adds the alive rows, the
+    # bases, the flags and each shard's version counter (the wrap flag)
+    lookup_bound_ms = (probe_in + nbytes((rklen, rkw)) + probe_out + decide_bytes
+                       + 4 * S_FULL) / rate * 1e3
 
     # one whole SET window of the device lane (one upload, one launch) on
     # the phase-7 table, under the profiler
@@ -1743,11 +1902,20 @@ def main() -> int:
           f"{err_short}")
     print(f"phase 4 fault path (python -m rabia_tpu --selftest's, at full width) S={S_FULL} "
           f"R={R_FULL} replicas [dead, up, up, dead, up], 80 rounds at p_deliver=0.6: every shard "
-          f"decided, state = the plain loop's (max_abs_err {err_fault}); one launch of 80 rounds "
-          f"(CUDA graph replay), in turns (rounds, empty, empty, rounds): {fault_turns[0]:.4f} / "
-          f"{fempty_turns[0]:.4f} / {fempty_turns[1]:.4f} / {fault_turns[1]:.4f} ms; the whole "
-          f"run_rounds call (80 mask draws, one launch) {fault_run_ms:.4f} ms; plain loop "
-          f"{fault_plain_ms:.3f} ms")
+          f"decided, state = the plain loop's (max_abs_err {max(err_fault, fault_err)}); one "
+          f"launch of 80 rounds (CUDA graph replay), in turns (stack, stride 0, none, none, stride 0, "
+          f"stack): the 80-mask stack {' / '.join(f'{x:.4f}' for x in fault_times['stack'])} ms, "
+          f"one mask for every round {' / '.join(f'{x:.4f}' for x in fault_times['stride 0'])} "
+          f"ms, no mask (full delivery) {' / '.join(f'{x:.4f}' for x in fault_times['none'])} ms; "
+          f"an empty kernel of as many threads {fempty_turns[0]:.4f} / {fempty_turns[1]:.4f} ms; "
+          f"rounds before each shard settles: max {int(fneed.max())}, mean "
+          f"{shard_rounds / S_FULL:.2f} ({shard_rounds} shard-rounds); bound "
+          f"{fault_bound_ms:.5f} ms (bytes {fault_bytes} -> {fault_bytes_ms:.5f} ms, least int "
+          f"ops {rounds_ops(R_FULL, shard_rounds)} -> {fault_ops_ms:.5f} ms; every round's masks: "
+          f"{fault_bytes_all} bytes -> "
+          f"{fault_bytes_all / _card_rate_bytes_per_s(name) * 1e3:.5f} ms); the whole run_rounds "
+          f"call (80 mask draws, one launch) {fault_run_ms:.4f} ms; plain: 80 round_step_plain on "
+          f"the same masks {fault_plain_ms:.3f} ms, run_rounds_plain {fault_plain_run_ms:.3f} ms")
     print(f"phase 5 serving lane S={S_FULL} R={R_FULL} window=16: {json.dumps(lane)}; "
           f"slot_window on the device {window_ms:.4f} ms, {device_share:.2%} of the first submit+flush")
     print(f"phase 7 device KV lane S={S_FULL} R={R_FULL} window=16 P={P_FULL}: "
@@ -1781,12 +1949,18 @@ def main() -> int:
           f"Zipf dictionary D={int(zipf_dict[1].shape[1])} {set_turns['zipf'][0]:.4f} / "
           f"{set_turns['zipf'][1]:.4f} ms ({zdict_bound_ms / zdict_ms:.1%} of "
           f"{zdict_bound_ms:.4f} ms); plain {dict_plain_ms:.3f} ms; max_abs_err {dict_err}")
+    print(f"phase 8 read-only kernel on the phase-7 table (probe and GET window, rows and "
+          f"dictionary, uniform and Zipf keys) vs plain: max_abs_err {read_err}")
     print(f"phase 8 lookup_only probe S={S_FULL} W={W} D={int(gklen.shape[1])}, device time "
-          f"(CUDA graph replay), in turns (probe, lookup, lookup, probe): "
-          f"{probe_turns[0]:.4f} / {lookup_turns[0]:.4f} / {lookup_turns[1]:.4f} / "
-          f"{probe_turns[1]:.4f} ms; bytes bound {probe_bound_ms:.5f} ms ({hit_slots} slots "
-          f"read); plain {probe_plain_ms:.3f} ms; one lookup_only call under the profiler: "
-          f"{_fmt(probe_prof)}; max_abs_err {probe_err}")
+          f"(CUDA graph replay), in turns (probe, empty, GET window rows, dict, rows, dict, "
+          f"probe): {probe_turns[0]:.4f} / {rempty_ms:.4f} / {lookup_turns[0]:.4f} / "
+          f"{dlookup_turns[0]:.4f} / {lookup_turns[1]:.4f} / {dlookup_turns[1]:.4f} / "
+          f"{probe_turns[1]:.4f} ms (the empty kernel at the read kernel's grid, {S_FULL // 8} "
+          f"blocks of 256); probe bytes bound {probe_bound_ms:.5f} ms "
+          f"({probe_bound_ms / probe_ms:.1%}; {hit_slots} slots read), GET window (rows) {lookup_bound_ms:.5f} ms "
+          f"({lookup_bound_ms / lookup_ms:.1%}); plain {probe_plain_ms:.3f} ms probe, "
+          f"{lookup_plain_ms:.3f} ms GET window; one lookup_only call under the profiler: "
+          f"{_fmt(probe_prof)}; max_abs_err {probe_err} probe, {lookup_err} GET window")
     print(f"phase 7 one device-lane SET window (one upload, one kv_window launch with the "
           f"decision, dictionary form) under the profiler: {_fmt(lane_prof)}"
           + ("" if lane_prof["kernel_ms"] is None else f", kv_window {lane_prof['kernel_ms']:.4f} ms")
@@ -1855,15 +2029,27 @@ def main() -> int:
         "bound_by": "bytes",
         "library_ms": None,  # no single PyTorch call computes an associative match-and-update
     }, {
-        "name": "kv_window_probe",
+        "name": "kv_read_probe",
         "route": "cuda",
-        "source": "rabia_tpu_torch/csrc/kv_window.cu",
+        "source": "rabia_tpu_torch/csrc/kv_read.cu",
         "replaces": "rabia_tpu/apps/device_kv.py:850",
-        "launches": kv_counts["dict"] + kv_counts["rows"],
-        "max_abs_err": max(err8, probe_err),
+        "launches": kv_counts["probe dict"] + kv_counts["probe rows"],
+        "max_abs_err": max(err8, probe_err, read_err),
         "ms": probe_ms,
         "plain_ms": probe_plain_ms,
         "bound_ms": probe_bound_ms,
+        "bound_by": "bytes",
+        "library_ms": None,  # no single PyTorch call matches keys against a slot table
+    }, {
+        "name": "kv_read_get_window",
+        "route": "cuda",
+        "source": "rabia_tpu_torch/csrc/kv_read.cu",
+        "replaces": "rabia_tpu/apps/device_kv.py:692",
+        "launches": kv_counts["lookup dict"] + kv_counts["lookup rows"],
+        "max_abs_err": max(err6_fold, err8, lookup_err, read_err),
+        "ms": lookup_ms,  # the row form with its decision, W=16 on the phase-7 table
+        "plain_ms": lookup_plain_ms,
+        "bound_ms": lookup_bound_ms,
         "bound_by": "bytes",
         "library_ms": None,  # no single PyTorch call matches keys against a slot table
     }, {
@@ -1891,12 +2077,24 @@ def main() -> int:
         "bound_by": "bytes" if pw_bytes_ms >= pw_ops_ms else "operations",
         "library_ms": None,  # no single PyTorch call computes a bit-sliced quorum tally
     }, {
-        "name": "cluster_round",
+        "name": "cr_rounds",
         "route": "cuda",
         "source": "rabia_tpu_torch/csrc/cluster_round.cu",
-        "replaces": "rabia_tpu/kernel/phase_driver.py:234",
-        "launches": round_launches,
-        "max_abs_err": max(err2d, err_scan, err_wide, err_wide4, err_short, err_fault),
+        "replaces": "rabia_tpu/kernel/phase_driver.py:386",
+        "launches": round_counts["rounds"],
+        "max_abs_err": max(err2d, err_fault, fault_err),
+        "ms": min(fault_turns),  # the fault path: 80 rounds, S=4096 R=5, one launch
+        "plain_ms": fault_plain_ms,  # 80 round_step_plain on the same masks
+        "bound_ms": fault_bound_ms,
+        "bound_by": "bytes" if fault_bytes_ms >= fault_ops_ms else "operations",
+        "library_ms": None,  # no single PyTorch call runs the weak-MVC rounds
+    }, {
+        "name": "cr_slot_pipeline",
+        "route": "cuda",
+        "source": "rabia_tpu_torch/csrc/cluster_round.cu",
+        "replaces": "rabia_tpu/kernel/phase_driver.py:420",
+        "launches": round_counts["slot_pipeline"],
+        "max_abs_err": max(err2d, err_scan, err_wide, err_wide4, err_short),
         "ms": scan_ms,  # slot_pipeline, S=4096 R=5 T=8192
         "plain_ms": scan_plain_ms,  # slot_pipeline_wide_plain on the same votes
         "bound_ms": max(scan_bytes_ms, scan_ops_ms),

@@ -7,13 +7,30 @@
 // slot, rounds_per_slot rounds of full delivery each). The per-shard
 // math is cluster_round.cuh; its common coin is mesh_window.cuh's.
 //
-// cr_rounds (run_rounds, round_step). Bound: latency. It runs n
-// dependent rounds of one thread a shard, 4096 threads at S=4096, so its
-// time is the chain's latency, not a rate. Design: the shard's state
-// sits in registers as bitmasks over replicas (cluster_round.cuh) for
-// the whole chain, so each launch reads and writes the state once. R <= 8
-// runs on 32-bit masks with the replica loops unrolled; R <= 64 on 64-bit
-// masks with the arrays in local memory.
+// cr_rounds (run_rounds, round_step). Bound: bytes. The function must
+// read and write each shard's 13 state fields (110 bytes at R=5), read
+// the alive rows and the delivery masks of the rounds it runs (R*R bytes
+// a shard a round; at S=4096 R=5 and 80 rounds, 8.2 MB), about 9.2 MB,
+// 0.0027 ms at the H100 SXM's 3.35 TB/s. A round is a few hundred integer
+// operations a shard, below that. But the rounds are a dependent chain,
+// so the time is the chain's latency: each link is to be short. A shard
+// whose live replicas have all decided is a fixed point
+// (cluster_round.cuh, (d)), so its later rounds need no work and no mask.
+// Design, R <= 8 (rounds_lanes_kernel): one 8-lane segment a shard, four
+// shards a warp, lane j receiver j (cluster_round.cuh, the round by
+// receivers): its phase, stage, votes and ledgers in registers, its
+// delivery, tally, transition and coin in parallel with the others'.
+// What crosses receivers is ballots and width-8 shuffles: every sender's
+// codes, stage and phase before delivery, the shard's decision (the
+// largest value, the least phase) and its done set after the
+// transitions. A block of 4 warps (16 shards; 256 blocks at S=4096, so
+// every SM has work) stages its shards' masks into shared memory with
+// cp.async, 16 rounds at a time in a ring of two, the next 16 in flight
+// while these run; lane j turns round k's bytes into its sender bitmask
+// from shared memory, so no round waits on device memory. A warp stops
+// once its four shards have settled, a block once its warps have. For
+// R > 8 (rounds_kernel) one thread a shard runs round() on 64-bit masks,
+// its arrays in local memory.
 //
 // cr_slot_pipeline (slot_pipeline, slot_pipeline_wide). Bound: bytes.
 // Under full delivery a fresh slot's rounds collapse to a rule on three
@@ -43,8 +60,13 @@
 
 namespace {
 
-constexpr int ROUNDS_BLOCK = 64;  // 4096 shards: 64 blocks, one thread a shard
+constexpr unsigned FULL = 0xFFFFFFFFu;
+constexpr int ROUNDS_BLOCK = 64;  // R > 8: one thread a shard
 constexpr int PIPE_BLOCK = 256;
+constexpr int LANES_WARPS = 4;                      // R <= 8: a block of 4 warps,
+constexpr int LANES_SHARDS = 4 * LANES_WARPS;       // 4 shards a warp
+constexpr int LANES_CHUNK = 16;                     // rounds of masks staged at once
+constexpr int ROUND_BYTES = LANES_SHARDS * cr::LANE_RM * cr::LANE_RM;  // a round's masks, R <= 8
 
 struct Params {
     int64_t S, T, mask_stride;
@@ -61,6 +83,147 @@ rounds_kernel(cr::Ptrs in, cr::Ptrs out, const uint8_t* __restrict__ alive,
     if (s >= p.S) return;
     cr::rounds_shard<M, RM>(in, out, alive, masks, p.mask_stride, p.n, s, p.R, p.quorum, p.f1,
                             p.seed, p.threshold);
+}
+
+__device__ __forceinline__ uint32_t sptr(const void* p) {
+    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Bits of one shard's segment (lanes off..off+7) of a warp-wide ballot.
+__device__ __forceinline__ uint32_t seg_bits(bool b, int off, uint32_t keep) {
+    return (__ballot_sync(FULL, b) >> off) & keep;
+}
+
+// Rounds k0..k0+nk-1 of the block's nsh shards' masks (the block's bytes
+// of each round are contiguous: [shard, sender, receiver]) into buf,
+// round k at k * ROUND_BYTES. With async16 (masks and their round stride
+// 16-byte aligned) as cp.async pieces, the last of a round zero-filled;
+// else as byte loads and stores.
+__device__ void stage_masks(uint8_t* buf, const uint8_t* masks, int64_t stride, int k0, int nk,
+                            int64_t s0, int nsh, int R, bool async16) {
+    const int per_round = nsh * R * R;
+    const uint8_t* src0 = masks + static_cast<int64_t>(k0) * stride + s0 * R * R;
+    if (async16) {
+        const int pieces = (per_round + 15) / 16;
+        for (int i = threadIdx.x; i < nk * pieces; i += blockDim.x) {
+            const int k = i / pieces, c = i - k * pieces;
+            const int bytes = min(16, per_round - 16 * c);
+            asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                             sptr(buf + k * ROUND_BYTES + 16 * c)),
+                         "l"(src0 + k * stride + 16 * c), "r"(bytes)
+                         : "memory");
+        }
+        return;
+    }
+    for (int i = threadIdx.x; i < nk * per_round; i += blockDim.x) {
+        const int k = i / per_round, c = i - k * per_round;
+        buf[k * ROUND_BYTES + c] = src0[k * stride + c];
+    }
+}
+
+// One round of the shard of lane j's segment (lanes off..off+7), lane j
+// receiver j: cluster_round.cuh's round by receivers, its exchanges as
+// ballots and shuffles within the segment. alive: the shard's live
+// replicas; din: receiver j's senders this round.
+__device__ __forceinline__ void round_lane(cr::RLane& x, cr::Scalars& c, int j, int off, int R,
+                                           uint32_t all, uint32_t alive, bool alive_j,
+                                           uint32_t din, uint32_t prefix, const Params& p) {
+    cr::View v;  // (a) every sender's offers, and its phase
+    v.r1lo = seg_bits(x.r1 & 1, off, all);
+    v.r1hi = seg_bits(x.r1 & 2, off, all);
+    v.r2lo = seg_bits(x.r2 & 1, off, all);
+    v.r2hi = seg_bits(x.r2 & 2, off, all);
+    v.p1lo = seg_bits(x.p1 & 1, off, all);
+    v.p1hi = seg_bits(x.p1 & 2, off, all);
+    v.p2lo = seg_bits(x.p2 & 1, off, all);
+    v.p2hi = seg_bits(x.p2 & 2, off, all);
+    v.st2 = seg_bits(x.st2, off, all);
+    int32_t ph[cr::LANE_RM];
+#pragma unroll
+    for (int i = 0; i < cr::LANE_RM; ++i) ph[i] = __shfl_sync(FULL, x.phase, i, cr::LANE_RM);
+    uint32_t same, ahead;
+    cr::phase_masks(ph, R, x.phase, same, ahead);
+    const bool open = alive_j && !x.done;
+    cr::deliver_lane(x, v, all, same, ahead, open ? din & alive & ~(1u << j) : 0u);
+    int32_t at;
+    const int d = cr::step_lane(x, j, all, c.active && open, p.quorum, p.f1, prefix, p.threshold,
+                                at);
+    // (b) the largest value decided, the least phase it was decided at
+    const unsigned any = __ballot_sync(FULL, d >= 0), v1 = __ballot_sync(FULL, d == cr::V1);
+    const uint32_t d1 = (v1 >> off) & 0xFFu, d0 = ((any & ~v1) >> off) & 0xFFu;
+    if (any != 0) {
+#pragma unroll
+        for (int o = cr::LANE_RM / 2; o > 0; o >>= 1) {
+            const int32_t y = __shfl_xor_sync(FULL, at, o, cr::LANE_RM);
+            at = y < at ? y : at;
+        }
+    }
+    cr::merge_decision(c, d1 ? cr::V1 : d0 ? cr::V0 : -1, at);
+    // (c) the done set after the transitions, then propagation
+    const uint32_t done = seg_bits(x.done, off, all);
+    if (cr::adopts(c, alive_j, x, din, done, alive)) x.done = true;
+}
+
+// cr_rounds for R <= 8: one 8-lane segment a shard (see the top).
+__global__ void __launch_bounds__(32 * LANES_WARPS)
+rounds_lanes_kernel(cr::Ptrs in, cr::Ptrs out, const uint8_t* __restrict__ alive,
+                    const uint8_t* __restrict__ masks, Params p) {
+    __shared__ __align__(16) uint8_t ring[2][LANES_CHUNK * ROUND_BYTES];
+    const int lane = threadIdx.x & 31, j = lane & 7, off = lane & ~7;
+    const int sh = (threadIdx.x >> 5) * 4 + (lane >> 3);  // the shard within the block
+    const int R = p.R;
+    const int64_t s0 = static_cast<int64_t>(blockIdx.x) * LANES_SHARDS, s = s0 + sh;
+    const bool mine = s < p.S && j < R;  // lane j is a receiver of a shard of the launch
+    const uint32_t all = cr::all_of<uint32_t>(R);
+    // the masks: none (full delivery), one for every round, or staged; the
+    // first chunk's copies are issued before the state loads
+    const bool staged = masks != nullptr && p.mask_stride != 0;
+    const int nsh = static_cast<int>(p.S - s0 < LANES_SHARDS ? p.S - s0 : LANES_SHARDS);
+    const bool async16 = staged && (reinterpret_cast<uintptr_t>(masks) & 15) == 0 &&
+                         p.mask_stride % 16 == 0;
+    if (staged) {
+        stage_masks(ring[0], masks, p.mask_stride, 0, min(LANES_CHUNK, p.n), s0, nsh, R, async16);
+        asm volatile("cp.async.commit_group;\n" ::: "memory");
+    }
+    cr::RLane x{};
+    cr::Scalars c{};
+    if (s < p.S) cr::load_scalars(c, in, s);
+    if (mine) cr::load_lane(x, in, s, j, R);
+    const bool alive_j = mine && alive[s * R + j] != 0;
+    const uint32_t a = seg_bits(alive_j, off, all);
+    const uint32_t prefix =
+        mw::coin_prefix(p.seed, static_cast<uint32_t>(s), static_cast<uint32_t>(c.slot));
+    uint32_t din = all;
+    if (masks != nullptr && !staged && mine) din = cr::din_of(masks + s * R * R, R, j);
+    bool settled = __all_sync(FULL, !(alive_j && !x.done));  // (d), over the warp's shards
+    for (int k0 = 0; k0 < p.n; k0 += LANES_CHUNK) {
+        const int nk = min(LANES_CHUNK, p.n - k0);
+        const uint8_t* col = ring[(k0 / LANES_CHUNK) & 1] + sh * R * R + j;
+        if (staged) {  // the next chunk in flight, this one landed and visible
+            if (k0 + LANES_CHUNK < p.n) {
+                stage_masks(ring[((k0 / LANES_CHUNK) & 1) ^ 1], masks, p.mask_stride,
+                            k0 + LANES_CHUNK, min(LANES_CHUNK, p.n - k0 - LANES_CHUNK), s0, nsh,
+                            R, async16);
+            }
+            asm volatile("cp.async.commit_group;\ncp.async.wait_group 1;\n" ::: "memory");
+            __syncthreads();
+        }
+        for (int k = 0; k < nk && !settled; ++k) {
+            if (staged) {  // receiver j's senders: column j of round k's R x R bytes
+                din = 0;
+#pragma unroll
+                for (int i = 0; i < cr::LANE_RM; ++i)
+                    din |= i < R && col[k * ROUND_BYTES + i * R] != 0 ? 1u << i : 0u;
+            }
+            round_lane(x, c, j, off, R, all, a, alive_j, din, prefix, p);
+            settled = __all_sync(FULL, !(alive_j && !x.done));
+        }
+        // every warp is done with this chunk's buffer before it is refilled
+        if (staged ? __syncthreads_and(settled) != 0 : settled) break;
+    }
+    if (staged) asm volatile("cp.async.wait_all;\n" ::: "memory");
+    if (s < p.S && j == 0) cr::store_scalars(c, out, s);
+    if (mine) cr::store_lane(x, out, s, j, R);
 }
 
 // The rule's phase plane of four lanes.
@@ -199,13 +362,14 @@ extern "C" int cr_rounds(void* const* in, void* const* out, const void* alive, c
     p.f1 = f1;
     p.seed = seed;
     p.threshold = threshold;
-    const auto blocks = static_cast<unsigned>((S + ROUNDS_BLOCK - 1) / ROUNDS_BLOCK);
     const auto st = static_cast<cudaStream_t>(stream);
     const auto* a = static_cast<const uint8_t*>(alive);
     const auto* m = static_cast<const uint8_t*>(masks);
-    if (R <= 8) {
-        rounds_kernel<uint32_t, 8><<<blocks, ROUNDS_BLOCK, 0, st>>>(ptrs(in), ptrs(out), a, m, p);
+    if (R <= cr::LANE_RM) {
+        const auto blocks = static_cast<unsigned>((S + LANES_SHARDS - 1) / LANES_SHARDS);
+        rounds_lanes_kernel<<<blocks, 32 * LANES_WARPS, 0, st>>>(ptrs(in), ptrs(out), a, m, p);
     } else {
+        const auto blocks = static_cast<unsigned>((S + ROUNDS_BLOCK - 1) / ROUNDS_BLOCK);
         rounds_kernel<uint64_t, 64><<<blocks, ROUNDS_BLOCK, 0, st>>>(ptrs(in), ptrs(out), a, m, p);
     }
     return static_cast<int>(cudaGetLastError());

@@ -344,6 +344,268 @@ CR_HD void rounds_shard(const Ptrs& in, const Ptrs& out, const uint8_t* alive,
     store(x, out, s, R);
 }
 
+// ---- the round by receivers: one lane a receiver (cr_rounds, R <= 8) ----
+//
+// round() runs a shard's receivers one after another on one thread. Each
+// of its steps is a receiver's own: delivery fills receiver j's ledgers,
+// the transition moves receiver j's stage, votes and phase, propagation
+// marks receiver j done. What crosses receivers is four exchanges:
+//   (a) before delivery, every receiver reads every sender's phase, stage
+//       and offered votes (the View, taken on the pre-step state);
+//   (b) after the transitions, the shard's decision: the largest value
+//       any receiver decided this round, the least phase it did so at;
+//   (c) the shard's done set after the transitions, which propagation
+//       reads;
+//   (d) whether any live receiver is still undecided: a shard with none
+//       is a fixed point (no delivery, no transition, no propagation
+//       reaches a done or dead receiver), so later rounds may be skipped.
+// Lane j of a shard's segment holds receiver j's fields (RLane, codes as
+// ints, ledgers as planes over senders) and the shard's own (Scalars),
+// the same in every lane. The kernel runs the lanes in parallel with the
+// exchanges as ballots and shuffles; round_lanes below runs them in turn
+// with the exchanges as loops, and the CPU tests hold it against round()
+// and the reference's round_step.
+
+constexpr int LANE_RM = 8;  // replicas a segment holds
+
+struct RLane {
+    int32_t phase;
+    int r1, r2, p1, p2;  // my_r1, my_r2, prev_r1, prev_r2 codes
+    bool st2;            // in R2_WAIT
+    bool done;
+    uint32_t l1lo, l1hi, l2lo, l2hi;  // led1, led2 of this receiver, bit = sender
+};
+
+struct Scalars {
+    int32_t slot;
+    int8_t decided;
+    int32_t dphase;
+    bool active;
+};
+
+// (a) every sender's offered votes as planes over senders, and who is in
+// R2_WAIT (bits of replicas past R read as zero).
+struct View {
+    uint32_t r1lo, r1hi, r2lo, r2hi, p1lo, p1hi, p2lo, p2hi, st2;
+};
+
+// Receiver j's field of shard s (j < R), in ClusterState's layout.
+CR_HD void load_lane(RLane& x, const Ptrs& p, int64_t s, int j, int R) {
+    const int64_t k = s * R + j;
+    x.phase = p.phase[k];
+    x.st2 = p.stage[k] == R2_WAIT;
+    x.r1 = p.my_r1[k] & 3;
+    x.r2 = p.my_r2[k] & 3;
+    x.p1 = p.prev_r1[k] & 3;
+    x.p2 = p.prev_r2[k] & 3;
+    x.done = p.done[k] != 0;
+    x.l1lo = x.l1hi = x.l2lo = x.l2hi = 0;
+    for (int i = 0; i < R; ++i) {
+        set_code(x.l1lo, x.l1hi, i, p.led1[k * R + i]);
+        set_code(x.l2lo, x.l2hi, i, p.led2[k * R + i]);
+    }
+}
+
+CR_HD void store_lane(const RLane& x, const Ptrs& p, int64_t s, int j, int R) {
+    const int64_t k = s * R + j;
+    p.phase[k] = x.phase;
+    p.stage[k] = static_cast<int8_t>(x.st2 ? 1 : 0);
+    p.my_r1[k] = static_cast<int8_t>(x.r1);
+    p.my_r2[k] = static_cast<int8_t>(x.r2);
+    p.prev_r1[k] = static_cast<int8_t>(x.p1);
+    p.prev_r2[k] = static_cast<int8_t>(x.p2);
+    p.done[k] = static_cast<uint8_t>(x.done ? 1 : 0);
+    for (int i = 0; i < R; ++i) {
+        p.led1[k * R + i] = static_cast<int8_t>(get_code(x.l1lo, x.l1hi, i));
+        p.led2[k * R + i] = static_cast<int8_t>(get_code(x.l2lo, x.l2hi, i));
+    }
+}
+
+CR_HD void load_scalars(Scalars& c, const Ptrs& p, int64_t s) {
+    c.slot = p.slot[s];
+    c.decided = p.decided[s];
+    c.dphase = p.dphase[s];
+    c.active = p.active[s] != 0;
+}
+
+CR_HD void store_scalars(const Scalars& c, const Ptrs& p, int64_t s) {
+    p.slot[s] = c.slot;
+    p.decided[s] = c.decided;
+    p.dphase[s] = c.dphase;
+    p.active[s] = c.active ? 1 : 0;
+}
+
+// Receiver j's senders from one bool[R][R] (sender-major) mask: bit i
+// where deliver[i][j]; every replica where mask is null.
+CR_HD uint32_t din_of(const uint8_t* mask, int R, int j) {
+    if (!mask) return all_of<uint32_t>(R);
+    uint32_t d = 0;
+    for (int i = 0; i < R; ++i) d |= mask[i * R + j] ? 1u << i : 0u;
+    return d;
+}
+
+// (a) The senders whose phase is receiver j's (same) and one past it
+// (ahead), from every sender's phase ph[0..R).
+CR_HD void phase_masks(const int32_t (&ph)[LANE_RM], int R, int32_t pj, uint32_t& same,
+                       uint32_t& ahead) {
+    same = ahead = 0;
+    CR_PRAGMA(unroll)
+    for (int i = 0; i < LANE_RM; ++i) {
+        if (i < R) {
+            const uint32_t pi = static_cast<uint32_t>(ph[i]);
+            same |= pi == static_cast<uint32_t>(pj) ? 1u << i : 0u;
+            ahead |= pi == static_cast<uint32_t>(pj) + 1u ? 1u << i : 0u;
+        }
+    }
+}
+
+// 1. Delivery into receiver j's ledgers: link is the senders that reach
+// it (deliver, alive, not itself), 0 where j is dead or done.
+CR_HD void deliver_lane(RLane& x, const View& v, uint32_t all, uint32_t same, uint32_t ahead,
+                        uint32_t link) {
+    const uint32_t has_r1 = ~(v.r1lo & v.r1hi) & all;
+    const uint32_t has_p1 = ~(v.p1lo & v.p1hi) & all;
+    const uint32_t has_r2 = v.st2 & ~(v.r2lo & v.r2hi) & all;
+    const uint32_t has_p2 = ~(v.p2lo & v.p2hi) & all;
+    const uint32_t n1 = link & ((same & has_r1) | (ahead & has_p1)) & x.l1lo & x.l1hi;
+    const uint32_t n2 = link & ((same & has_r2) | (ahead & has_p2)) & x.l2lo & x.l2hi;
+    x.l1lo = (x.l1lo & ~n1) | (((same & v.r1lo) | (~same & v.p1lo)) & n1);
+    x.l1hi = (x.l1hi & ~n1) | (((same & v.r1hi) | (~same & v.p1hi)) & n1);
+    x.l2lo = (x.l2lo & ~n2) | (((same & v.r2lo) | (~same & v.p2lo)) & n2);
+    x.l2hi = (x.l2hi & ~n2) | (((same & v.r2hi) | (~same & v.p2hi)) & n2);
+}
+
+// 2. Receiver j's transition when enabled (active shard, alive, not
+// done), on its pre-step stage. Returns the value it decided (V0, V1) and
+// sets *at to the phase it decided at, or returns -1.
+CR_HD int step_lane(RLane& x, int j, uint32_t all, bool enabled, int quorum, int f1,
+                    uint32_t prefix, uint32_t threshold, int32_t& at) {
+    at = INT32_MAX_;
+    if (!enabled) return -1;
+    if (!x.st2) {  // R1_WAIT: cast the round-2 vote on a quorum
+        if (popc(~(x.l1lo & x.l1hi) & all) < quorum) return -1;
+        const int c1 = popc(x.l1lo & ~x.l1hi), c0 = popc(~(x.l1lo | x.l1hi) & all);
+        x.r2 = c1 >= quorum ? V1 : (c0 >= quorum ? V0 : VQUESTION);
+        set_code(x.l2lo, x.l2hi, j, x.r2);
+        x.st2 = true;
+        return -1;
+    }
+    // R2_WAIT: decide / adopt / coin, and advance
+    if (popc(~(x.l2lo & x.l2hi) & all) < quorum) return -1;
+    const int d1 = popc(x.l2lo & ~x.l2hi), d0 = popc(~(x.l2lo | x.l2hi) & all);
+    const bool dec1 = d1 >= f1, dec0 = d0 >= f1;
+    const int next = dec1 ? V1
+                   : dec0 ? V0
+                   : d1 > 0 ? V1
+                   : d0 > 0 ? V0
+                   : mw::coin(prefix, static_cast<uint32_t>(x.phase), threshold);
+    int decided = -1;
+    if (dec1 || dec0) {
+        decided = dec1 ? V1 : V0;
+        at = x.phase;
+        x.done = true;
+    }
+    x.phase = static_cast<int32_t>(static_cast<uint32_t>(x.phase) + 1u);
+    x.p1 = x.r1;
+    x.p2 = x.r2;
+    x.r1 = next;
+    x.r2 = ABSENT;
+    x.st2 = false;
+    x.l1lo = x.l1hi = all;
+    set_code(x.l1lo, x.l1hi, j, next);
+    x.l2lo = x.l2hi = all;
+    return decided;
+}
+
+// (b) The shard's decision after the round, from the largest value
+// decided in it (-1: none) and the least phase it was decided at.
+CR_HD void merge_decision(Scalars& c, int shard_dec, int32_t round_min) {
+    if (c.decided == ABSENT && shard_dec >= 0) c.decided = static_cast<int8_t>(shard_dec);
+    const int32_t existing = c.dphase < 0 ? INT32_MAX_ : c.dphase;
+    const int32_t merged = existing < round_min ? existing : round_min;
+    c.dphase = merged == INT32_MAX_ ? -1 : merged;
+}
+
+// 3. Does live, undecided receiver j learn the shard's decision? From a
+// decided live sender that reaches it under raw deliver (din: its
+// senders; done: the shard's done set after the transitions).
+CR_HD bool adopts(const Scalars& c, bool live_j, const RLane& x, uint32_t din, uint32_t done,
+                  uint32_t alive) {
+    return c.active && c.decided != ABSENT && live_j && !x.done && (din & done & alive) != 0;
+}
+
+// One round of one shard, receiver by receiver (the kernel's lanes, in
+// turn): x[0..R) the receivers, din[j] receiver j's senders, alive the
+// live replicas, prefix mw::coin_prefix(seed, shard, slot).
+CR_HD void round_lanes(RLane (&x)[LANE_RM], Scalars& c, int R, uint32_t alive,
+                       const uint32_t (&din)[LANE_RM], int quorum, int f1, uint32_t prefix,
+                       uint32_t threshold) {
+    const uint32_t all = all_of<uint32_t>(R);
+    View v{};  // (a)
+    int32_t ph[LANE_RM] = {};
+    for (int i = 0; i < R; ++i) {
+        set_code(v.r1lo, v.r1hi, i, x[i].r1);
+        set_code(v.r2lo, v.r2hi, i, x[i].r2);
+        set_code(v.p1lo, v.p1hi, i, x[i].p1);
+        set_code(v.p2lo, v.p2hi, i, x[i].p2);
+        v.st2 |= x[i].st2 ? 1u << i : 0u;
+        ph[i] = x[i].phase;
+    }
+    bool open[LANE_RM] = {};
+    for (int j = 0; j < R; ++j) {
+        open[j] = ((alive >> j) & 1u) && !x[j].done;
+        uint32_t same, ahead;
+        phase_masks(ph, R, x[j].phase, same, ahead);
+        deliver_lane(x[j], v, all, same, ahead, open[j] ? din[j] & alive & ~(1u << j) : 0u);
+    }
+    int shard_dec = -1;  // (b)
+    int32_t round_min = INT32_MAX_;
+    for (int j = 0; j < R; ++j) {
+        int32_t at;
+        const int d = step_lane(x[j], j, all, c.active && open[j], quorum, f1, prefix, threshold,
+                                at);
+        shard_dec = d > shard_dec ? d : shard_dec;
+        round_min = at < round_min ? at : round_min;
+    }
+    merge_decision(c, shard_dec, round_min);
+    uint32_t done = 0;  // (c)
+    for (int j = 0; j < R; ++j) done |= x[j].done ? 1u << j : 0u;
+    for (int j = 0; j < R; ++j) {
+        if (adopts(c, (alive >> j) & 1u, x[j], din[j], done, alive)) x[j].done = true;
+    }
+}
+
+// (d) No live receiver is undecided: later rounds change nothing.
+CR_HD bool settled(const RLane (&x)[LANE_RM], int R, uint32_t alive) {
+    for (int j = 0; j < R; ++j) {
+        if (((alive >> j) & 1u) && !x[j].done) return false;
+    }
+    return true;
+}
+
+// n rounds of shard s by receivers (R <= 8), as rounds_shard: the host
+// build's definition of what the kernel's lanes compute, skipping the
+// rounds after the shard settles as the kernel does.
+CR_HD void rounds_shard_lanes(const Ptrs& in, const Ptrs& out, const uint8_t* alive,
+                              const uint8_t* masks, int64_t mask_stride, int n, int64_t s, int R,
+                              int quorum, int f1, uint32_t seed, uint32_t threshold) {
+    RLane x[LANE_RM] = {};
+    Scalars c;
+    load_scalars(c, in, s);
+    for (int j = 0; j < R; ++j) load_lane(x[j], in, s, j, R);
+    const uint32_t a = alive_of<uint32_t>(alive, s, R);
+    const uint32_t prefix =
+        mw::coin_prefix(seed, static_cast<uint32_t>(s), static_cast<uint32_t>(c.slot));
+    uint32_t din[LANE_RM] = {};
+    for (int k = 0; k < n && !settled(x, R, a); ++k) {
+        const uint8_t* m = masks ? masks + k * mask_stride + s * R * R : nullptr;
+        for (int j = 0; j < R; ++j) din[j] = din_of(m, R, j);
+        round_lanes(x, c, R, a, din, quorum, f1, prefix, threshold);
+    }
+    store_scalars(c, out, s);
+    for (int j = 0; j < R; ++j) store_lane(x[j], out, s, j, R);
+}
+
 // ---- slot_pipeline: the rounds of a fresh slot under full delivery ----
 //
 // slot_pipeline and slot_pipeline_wide start every (slot, shard) afresh

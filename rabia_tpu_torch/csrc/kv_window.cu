@@ -1,19 +1,18 @@
-// The device KV table's window programs as one CUDA kernel for Hopper
+// The device KV table's write windows as one CUDA kernel for Hopper
 // (sm_90a).
 //
 // Replaces the wave scans of the reference's XLA programs in
-// rabia_tpu/apps/device_kv.py: `_apply_set_wave` scanned by
-// `_build_fused` (decide_apply), the lookup scan of `_build_lookup`
-// (lookup_window) and `step_body` scanned by `_build_mixed`
-// (mixed_apply), and of the consensus-free probe `_build_lookup_only`
-// (lookup_only). A SET window passes no kind plane (every op a SET), a
-// lookup and the probe no kind plane either (a read of every non-empty
-// key) and no output table, a mixed window its real kinds. The per-op
-// rules are kv_window.cuh.
+// rabia_tpu/apps/device_kv.py that write a table: `_apply_set_wave`
+// scanned by `_build_fused` (decide_apply) and `step_body` scanned by
+// `_build_mixed` (mixed_apply). A SET window passes no kind plane (every
+// op a SET), a mixed window its real kinds. Windows that only read (the
+// probe `_build_lookup_only` and the GET window `_build_lookup`) have a
+// kernel of their own, kv_read.cu: this one always writes a table. The
+// per-op rules are kv_window.cuh.
 //
 // The op rows come in the row form ([W, S, ...] planes) or in the
-// reference's dictionary form (`_build_fused_dict` and the `D` branches
-// of `_build_lookup`, `_build_lookup_only` and `_build_mixed`): each
+// reference's dictionary form (`_build_fused_dict` and the `D` branch
+// of `_build_mixed`): each
 // shard's D distinct rows ([S, D, ...] planes) and a rank u8[W, S]. The
 // only place that reads op rows, issue_ops, takes each wave's row from
 // kvw::op_row, so the dictionary is read in place; the rest of the
@@ -56,7 +55,7 @@
 //      each written slot's last SET rows into place.
 //   4. Out. The fresh table leaves as TMA bulk stores of the staged
 //      planes (16-byte or 4-byte stores where a plane is not bulk-sized
-//      and aligned); a read-only window writes no table.
+//      and aligned).
 // Waves are staged 32 at a time; at the lane's W=16 there is one chunk.
 // Tables wider than 64 slots keep their masks in shared memory and move
 // rows in place as the waves go (chunk_wide). Measured on an H100 (see
@@ -755,7 +754,6 @@ __device__ uint32_t window(const Smem& m, const Staged& staged, const OutTable& 
 
     if (lane == 0) rd.overflow[s] = overflow;
     const uint32_t bits = kvw::shard_flags(true, overflow, sver);
-    if (out.used == nullptr) return bits;  // a read-only window writes no table
     for (int p = lane; p < P; p += 32)
         m.used[p] = ((SMALL ? U : m.umask[p >> 6]) >> (p & 63)) & 1u;
     // the bulk stores read shared memory through the async proxy, after
@@ -955,8 +953,10 @@ int unpack(void* const* table, void* const* out, void* const* ops, void* const* 
     d.vwu4 = static_cast<int>(dims[7]);
     d.D = static_cast<int>(dims[8]);
     d.kind_all = static_cast<int>(dims[9]);
-    if (d.S < 0 || d.W < 0 || d.P < 1 || d.K4 < 1 || d.VW4 < 1 || d.ku4 < 0 || d.ku4 > d.K4 ||
-        d.vwu4 < 0 || d.vwu4 > d.VW4 || d.depth < 0 || d.depth > d.W || d.D < 0 ||
+    bool has_out = true;
+    for (int i = 0; i < 7; ++i) has_out = has_out && out[i] != nullptr;
+    if (!has_out || d.S < 0 || d.W < 0 || d.P < 1 || d.K4 < 1 || d.VW4 < 1 || d.ku4 < 0 ||
+        d.ku4 > d.K4 || d.vwu4 < 0 || d.vwu4 > d.VW4 || d.depth < 0 || d.depth > d.W || d.D < 0 ||
         (d.kind_all != kvw::KIND_SET && d.kind_all != kvw::KIND_GET) || ops[1] == nullptr ||
         (ops[4] == nullptr && d.vwu4 != 0) || (ops[5] != nullptr && d.D < 1)) {
         return static_cast<int>(cudaErrorInvalidValue);
@@ -992,8 +992,8 @@ int run(Table in, OutTable o, Ops op, Reads rd, Dims d, Decide dc, cudaStream_t 
 
 }  // namespace
 
-// table/out: 7 pointers each (see unpack); out may be all null for a
-// read-only window. ops: kind i8[W,S] (null: every op is of kind_all:
+// table/out: 7 pointers each (see unpack); a window without an output
+// table is kv_read.cu's (kvr_window). ops: kind i8[W,S] (null: every op is of kind_all:
 // 1 a SET, 2 a read of every non-empty key), klen/vlen i16[W,S],
 // kw i32[W,S,ku4], vw i32[W,S,vwu4], idx (null for this row form); or,
 // with idx u8[W,S], the dictionary form: klen/vlen i16[S,D], kw

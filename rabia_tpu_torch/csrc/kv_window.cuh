@@ -190,6 +190,101 @@ KV_HD void scan_shard_ops(int64_t s, int W, int depth, int64_t S, int P, int K4,
     overflow[s] = over;
 }
 
+// ---- the read-only windows (kv_read.cu): the probe and the GET window ----
+//
+// A window with no output table reads the non-empty key of every op
+// (implied_kind of KIND_GET) and writes nothing, so every wave sees the
+// table as it was when the window began and the waves are independent:
+// wave t's match is the lowest used slot holding op t's key, and a found
+// GET reads that slot's version, length and value (wave_step). The kernel
+// finds the match in two steps: a 32-bit tag of each key (its length and
+// words) picks the candidate slots, and the full rows are compared only
+// there, lowest slot first.
+
+// One word more into a tag.
+KV_HD uint32_t tag_add(uint32_t h, int32_t w) { return h * 0x9E3779B1u + static_cast<uint32_t>(w); }
+
+// The tag of a key of length klen: words w[0..wu), then zeros to n words
+// (w may be null with wu 0). Equal keys have equal tags.
+KV_HD uint32_t key_tag(int32_t klen, const int32_t* w, int wu, int n) {
+    uint32_t h = static_cast<uint32_t>(klen);
+    for (int j = 0; j < n; ++j) h = tag_add(h, op_word(w, j, wu));
+    return h;
+}
+
+KV_HD int lowest_bit(uint64_t v) {
+#if defined(__CUDA_ARCH__)
+    return __ffsll(static_cast<long long>(v)) - 1;
+#else
+    return __builtin_ctzll(v);
+#endif
+}
+
+// The match among the candidates: bit i of cand is slot p0 + i, used and
+// with the op's tag. The lowest candidate whose key length and K4 words
+// (slot p's at keyw + p * K4) equal the op's (op_kw's ku4 words, zero
+// past them), or -1.
+KV_HD int read_match(uint64_t cand, int p0, const int32_t* klen, const int32_t* keyw, int K4,
+                     int32_t op_klen, const int32_t* op_kw, int ku4) {
+    for (uint64_t v = cand; v != 0; v &= v - 1) {
+        const int p = p0 + lowest_bit(v);
+        if (klen[p] != op_klen) continue;
+        bool eq = true;
+        for (int j = 0; j < K4 && eq; ++j) eq = keyw[p * K4 + j] == op_word(op_kw, j, ku4);
+        if (eq) return p;
+    }
+    return -1;
+}
+
+// What one read wave writes: its found flag, and the slot it gathers the
+// version, length and value from (-1: zeros).
+struct Read {
+    bool found;
+    int slot;
+};
+
+KV_HD Read read_of(int32_t klen, int match) {
+    const Step st = wave_step(implied_kind(KIND_GET, klen), false, klen, match, -1);
+    return Read{st.rfound, st.get_hit ? match : -1};
+}
+
+// The read-only window of shard s, wave by wave, from the pieces above:
+// the host build's definition of the read kernel's result. Ops in either
+// form (op_row); the table is [S, P, ...] as in scan_shard_ops. The read
+// planes are written for every (wave, shard).
+KV_HD void read_shard(int64_t s, int W, int64_t S, int P, int K4, int VW4, int ku4, int D,
+                      const uint8_t* used, const int32_t* keyw, const int32_t* klen,
+                      const int32_t* ver, const int32_t* valw, const int32_t* vlen,
+                      const uint8_t* idx, const int16_t* op_klen, const int32_t* op_kw,
+                      uint8_t* r_found, int32_t* r_ver, int32_t* r_vlen, int32_t* r_val) {
+    const uint8_t* u = used + s * P;
+    const int32_t* kw = keyw + s * P * K4;
+    const int32_t* kl = klen + s * P;
+    for (int t = 0; t < W; ++t) {
+        const int64_t o = op_index(t, S, s);
+        const int64_t row = op_row(idx, D, t, S, s);
+        const int32_t kl_t = row < 0 ? 0 : op_klen[row];
+        const int32_t* ow = row < 0 ? nullptr : op_kw + row * ku4;
+        const int wu = row < 0 ? 0 : ku4;
+        const uint32_t tag = key_tag(kl_t, ow, wu, K4);
+        int match = -1;
+        for (int p0 = 0; p0 < P && match < 0; p0 += 64) {
+            uint64_t cand = 0;
+            for (int i = 0; i < 64 && p0 + i < P; ++i) {
+                const int p = p0 + i;
+                if (u[p] && key_tag(kl[p], kw + p * K4, K4, K4) == tag) cand |= uint64_t{1} << i;
+            }
+            match = read_match(cand, p0, kl, kw, K4, kl_t, ow, wu);
+        }
+        const Read r = read_of(kl_t, match);
+        const int64_t q = s * P + r.slot;
+        r_found[o] = r.found;
+        r_ver[o] = r.slot < 0 ? 0 : ver[q];
+        r_vlen[o] = r.slot < 0 ? 0 : vlen[q];
+        for (int j = 0; j < VW4; ++j) r_val[o * VW4 + j] = r.slot < 0 ? 0 : valw[q * VW4 + j];
+    }
+}
+
 // scan_shard_ops on row-form ops with a kind plane.
 KV_HD void scan_shard(int64_t s, int W, int depth, int64_t S, int P, int K4, int VW4,
                       int ku4, int vwu4,

@@ -7,9 +7,12 @@ phase_driver.py``) and the scans over it. Two entries, on the math of
 
 - :meth:`ClusterRoundKernel.rounds`: n rounds over the 13 fields of a
   ``ClusterState`` (in its field order), under full delivery, one
-  delivery mask for every round, or a stack of n masks; one thread a
-  shard runs the per-shard round. ``ClusterKernel.round_step`` launches
-  it with n = 1 and ``run_rounds`` with the n masks it draws.
+  delivery mask for every round, or a stack of n masks. For R <= 8 an
+  8-lane segment a shard runs the round one lane a receiver, from masks
+  staged in shared memory, and stops once the shard's live replicas have
+  all decided; above 8, one thread a shard runs the per-shard round.
+  ``ClusterKernel.round_step`` launches it with n = 1 and ``run_rounds``
+  with the n masks it draws.
 - :meth:`ClusterRoundKernel.slot_pipeline`: every (slot, shard) of a
   window of initial votes, ``rounds`` full-delivery rounds each, which
   collapse to a rule on the slot's V0, V1 and V? counts (derived in the

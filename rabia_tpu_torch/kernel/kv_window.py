@@ -15,12 +15,16 @@ shard (:func:`expand_dict`). ``vlen`` and ``vwin`` may be None where
 every value is empty (the lookups upload no value planes).
 
 ``kv_window_plain`` is the plain PyTorch version (a loop over the waves,
-each wave vectorised over the shards). ``KV_WINDOW`` wraps the
-hand-written kernel ``csrc/kv_window.cu`` that replaces the wave scans of
-the reference's XLA programs (``_apply_set_wave`` under ``_build_fused``,
-``_build_lookup``, ``_build_mixed`` in ``rabia_tpu/apps/device_kv.py``).
-``window`` dispatches on the tensor's device alone: a CUDA table goes to
-the kernel (or the wrapper raises), a CPU table to the plain version.
+each wave vectorised over the shards). ``KV_WINDOW`` wraps two
+hand-written kernels that replace the wave scans of the reference's XLA
+programs in ``rabia_tpu/apps/device_kv.py``: ``csrc/kv_window.cu`` the
+windows that write a table (``_apply_set_wave`` under ``_build_fused``,
+``_build_mixed``), ``csrc/kv_read.cu`` the windows that only read
+(``_build_lookup_only``, ``_build_lookup``): a call without an output
+table must read every non-empty key (``kind=KIND_GET``), and its waves
+are then independent. ``window`` dispatches on the tensor's device
+alone: a CUDA table goes to the kernels (or the wrapper raises), a CPU
+table to the plain version.
 
 The device lane's programs also decide the window first (every replica
 votes V1 for the waves that carry ops) and reduce to flags ``i32[3] =
@@ -215,7 +219,8 @@ def kv_window_plain(
     return new, overflow, reads
 
 
-def _check_args(table: KVTable, kind, klen, vlen, kwin, vwin, depth: int, idx=None) -> None:
+def _check_args(table: KVTable, kind, klen, vlen, kwin, vwin, depth: int, idx=None,
+                want_table: bool = True) -> None:
     used = table.used
     if used.dtype != torch.bool or used.dim() != 2:
         raise ValueError(f"table.used must be bool[S, P], got {used.dtype}{list(used.shape)}")
@@ -262,6 +267,9 @@ def _check_args(table: KVTable, kind, klen, vlen, kwin, vwin, depth: int, idx=No
                              f"{x.dtype}{list(x.shape)}")
     if not 0 <= depth <= W:
         raise ValueError(f"depth {depth} outside 0..{W}")
+    if not want_table and (is_plane or kind != KIND_GET):
+        raise ValueError("a window without an output table reads: kind must be KIND_GET "
+                         "(a read of every non-empty key)")
     tensors = [*table, klen, kwin] + [x for x in (kind, vlen, vwin, idx)
                                       if isinstance(x, torch.Tensor)]
     if any(x.device != used.device for x in tensors):
@@ -278,15 +286,22 @@ def _ptrs(tensors) -> ctypes.Array:
 
 class KVWindowKernel:
     """ctypes wrapper of ``kvw_window`` and ``kvw_decide_window``
-    (csrc/kv_window.cu): the window, and the window with its decision in
-    the same launch (:meth:`decide`), on row-form or dictionary-form ops.
+    (csrc/kv_window.cu) and of ``kvr_window`` and ``kvr_decide_window``
+    (csrc/kv_read.cu): the window, and the window with its decision in
+    the same launch (:meth:`decide`), on row-form or dictionary-form ops;
+    a window with an output table goes to the first pair, one without (a
+    read of every non-empty key) to the second.
 
-    ``launches`` counts kernel launches of both entries, and ``counts``
-    the same launches by form (``rows``, ``dict``, ``rows+decide``,
-    ``dict+decide``); each grows by one exactly where the kernel is
-    launched. The library builds on the first call."""
+    ``launches`` counts kernel launches of all four entries, and
+    ``counts`` the same launches by form: ``rows``, ``dict``,
+    ``rows+decide``, ``dict+decide`` (the write kernel), ``probe rows``,
+    ``probe dict`` (the read kernel alone: ``lookup_only``) and ``lookup
+    rows``, ``lookup dict`` (the read kernel with the decision: the GET
+    window); each grows by one exactly where a kernel is launched. The
+    libraries build on the first call."""
 
-    FORMS = ("rows", "dict", "rows+decide", "dict+decide")
+    FORMS = ("rows", "dict", "rows+decide", "dict+decide",
+             "probe rows", "probe dict", "lookup rows", "lookup dict")
 
     def __init__(self) -> None:
         self.launches = 0
@@ -294,6 +309,9 @@ class KVWindowKernel:
         self._lib = None
         self._fn = None
         self._decide_fn = None
+        self._read_lib = None
+        self._read_fn = None
+        self._read_decide_fn = None
         self._scratch: dict[torch.device, torch.Tensor] = {}
 
     def reset_counts(self) -> None:
@@ -301,26 +319,39 @@ class KVWindowKernel:
         self.counts = dict.fromkeys(self.FORMS, 0)
 
     def load(self):
-        """Build (if needed) and bind the library; returns the C function
-        of the plain window."""
+        """Build (if needed) and bind both libraries; returns the C
+        function of the plain window."""
         if self._fn is None:
-            path = cuda_build.build(["kv_window"])["kv_window"]
-            lib = ctypes.CDLL(str(path))
+            paths = cuda_build.build(["kv_window", "kv_read"])
             vpp = ctypes.POINTER(ctypes.c_void_p)
             llp = ctypes.POINTER(ctypes.c_longlong)
-            fn = lib.kvw_window
-            fn.argtypes = [vpp, vpp, vpp, vpp, llp, ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-            dfn = lib.kvw_decide_window
-            dfn.argtypes = [vpp, vpp, vpp, vpp, llp, vpp, llp, ctypes.c_void_p]
-            dfn.restype = ctypes.c_int
-            self._lib, self._fn, self._decide_fn = lib, fn, dfn
+            fns = []
+            for lib, prefix in ((ctypes.CDLL(str(paths["kv_window"])), "kvw"),
+                                (ctypes.CDLL(str(paths["kv_read"])), "kvr")):
+                fn = getattr(lib, f"{prefix}_window")
+                fn.argtypes = [vpp, vpp, vpp, vpp, llp, ctypes.c_void_p]
+                fn.restype = ctypes.c_int
+                dfn = getattr(lib, f"{prefix}_decide_window")
+                dfn.argtypes = [vpp, vpp, vpp, vpp, llp, vpp, llp, ctypes.c_void_p]
+                dfn.restype = ctypes.c_int
+                fns += [lib, fn, dfn]
+            (self._lib, self._fn, self._decide_fn,
+             self._read_lib, self._read_fn, self._read_decide_fn) = fns
         return self._fn
 
     def _launch(self, table, kind, klen, vlen, kwin, vwin, depth, idx, want_table, want_reads,
-                entry, form, extra=()):
-        """Allocate the outputs and launch ``entry`` with the window's
-        arguments followed by ``extra``."""
+                decide, extra=()):
+        """Allocate the outputs and launch the window's entry (the write
+        or the read kernel's, with or without the decision) with the
+        window's arguments followed by ``extra``."""
+        shape = "rows" if idx is None else "dict"
+        if want_table:
+            entry = self._decide_fn if decide else self._fn
+            form = shape + ("+decide" if decide else "")
+        else:  # a read: the op values are not read
+            entry = self._read_decide_fn if decide else self._read_fn
+            form = ("lookup " if decide else "probe ") + shape
+            vlen = vwin = None
         dev = table.used.device
         S, P, K4 = table.keyw.shape
         VW4 = table.valw.shape[2]
@@ -372,13 +403,13 @@ class KVWindowKernel:
         want_table: bool = True,
         want_reads: bool = False,
     ) -> tuple[Optional[KVTable], torch.Tensor, Optional[WindowReads]]:
-        _check_args(table, kind, klen, vlen, kwin, vwin, depth, idx)
+        _check_args(table, kind, klen, vlen, kwin, vwin, depth, idx, want_table)
         dev = table.used.device
         if dev.type != "cuda":
             raise ValueError(f"kv window kernel needs CUDA tensors, got {dev}")
-        fn = self.load()
+        self.load()
         return self._launch(table, kind, klen, vlen, kwin, vwin, depth, idx, want_table,
-                            want_reads, fn, "rows" if idx is None else "dict")
+                            want_reads, False)
 
     def decide(
         self,
@@ -405,7 +436,7 @@ class KVWindowKernel:
         The flags' scratch words are cached per device and left zero by
         every launch, so windows on one device must not run on two
         streams at once."""
-        _check_args(table, kind, klen, vlen, kwin, vwin, depth, idx)
+        _check_args(table, kind, klen, vlen, kwin, vwin, depth, idx, want_table)
         S = table.used.shape[0]
         if alive.dtype != torch.bool or alive.dim() != 2 or alive.shape[0] != S:
             raise ValueError(f"alive must be bool[{S}, R], got {alive.dtype}{list(alive.shape)}")
@@ -435,8 +466,7 @@ class KVWindowKernel:
             coin_threshold(coin_p1),
         )
         out, overflow, reads = self._launch(
-            table, kind, klen, vlen, kwin, vwin, depth, idx, want_table, want_reads,
-            self._decide_fn, "rows+decide" if idx is None else "dict+decide",
+            table, kind, klen, vlen, kwin, vwin, depth, idx, want_table, want_reads, True,
             (_ptrs([alive.view(torch.uint8), base, flags, scratch]), params),
         )
         return out, overflow, reads, flags

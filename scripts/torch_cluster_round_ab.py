@@ -10,11 +10,16 @@ and checked bit for bit against the plain ``slot_pipeline_wide_plain``
 on the scan that ``chip_smoke.py`` times (S=4096, R=5, T=8192 [T, S, R]
 votes under a crash mask, 2 rounds a slot) and against the plain loop on
 the selftest's fault path (80 rounds at p_deliver 0.6, two replicas
-down). Then, in turns (this, others..., others reversed, this) each
+down), and that launch with one mask for every round (mask stride 0)
+and with none (full delivery) against the plain round on the same
+masks. Then, in turns (this, others..., others reversed, this) each
 round, it times the scan at 2 and at 4 rounds a slot (CUDA events around
 a chain of launches over two vote buffers) and the fault path's one
-launch of 80 rounds (CUDA graph replay). Prints the card as nvidia-smi
-names it and one JSON line. Exits non-zero without a GPU.
+launch of 80 rounds under each of the three mask forms (CUDA graph
+replay), and, once a round, an empty kernel of as many threads as the
+round kernel's 256 blocks of 128 (the floor of a launch). Prints the
+card as nvidia-smi names it and one JSON line.
+Exits non-zero without a GPU.
 """
 
 from __future__ import annotations
@@ -31,7 +36,7 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 import chip_smoke  # noqa: E402
-from rabia_tpu_torch.kernel import cluster_round, cuda_build  # noqa: E402
+from rabia_tpu_torch.kernel import cluster_round, cuda_build, mesh_window  # noqa: E402
 
 
 def other_kernel(src: Path, i: int) -> cluster_round.ClusterRoundKernel:
@@ -81,33 +86,53 @@ def main() -> int:
     falive = falive.contiguous()
     fwant = [t.contiguous() for t in fk.run_rounds_plain(
         st0, falive, 80, torch.Generator(device=dev).manual_seed(1), p_deliver=0.6)]
+    masks = {"fault_ms": fmasks, "fault_stride0_ms": fmasks[0].contiguous(),
+             "fault_none_ms": None}
+
+    def plain_rounds(m):
+        st = st0
+        for k in range(80):
+            d = torch.ones((S, R, R), dtype=torch.bool, device=dev) if m is None else (
+                m if m.dim() == 3 else m[k])
+            st = fk.round_step_plain(st, falive, d)
+        return [t.contiguous() for t in st]
+
+    fwants = {key: fwant if key == "fault_ms" else plain_rounds(m) for key, m in masks.items()}
     for name, kern in kernels.items():
         got = kern.slot_pipeline(bufs[0], alive, base=0, rounds=2, **kargs)
-        fgot = kern.rounds(fields, falive, fmasks, 80, **fk._kernel_args())
         torch.cuda.synchronize(dev)
         if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
             raise AssertionError(f"{name} differs from slot_pipeline_wide_plain")
-        if not all(torch.equal(a, b) for a, b in zip(fgot, fwant)):
-            raise AssertionError(f"{name} differs from run_rounds_plain on the fault path")
-    del want, fwant
+        for key, m in masks.items():
+            fgot = kern.rounds(fields, falive, m, 80, **fk._kernel_args())
+            torch.cuda.synchronize(dev)
+            if not all(torch.equal(a, b) for a, b in zip(fgot, fwants[key])):
+                raise AssertionError(f"{name} differs from the plain rounds on the fault path "
+                                     f"({key})")
+    del want, fwant, fwants
 
     order = list(kernels) + list(kernels)[::-1]
-    times = {name: {"scan2_ms": [], "scan4_ms": [], "fault_ms": []} for name in kernels}
+    empty_ms = []
+    times = {name: {"scan2_ms": [], "scan4_ms": [], **{key: [] for key in masks}}
+             for name in kernels}
     for _ in range(args.rounds):
+        empty_ms.append(chip_smoke._graph_ms(
+            lambda: mesh_window.MESH_WINDOW.empty(1, S * 8, dev), 200))
         for name in order:
             kern = kernels[name]
             for key, rounds in (("scan2_ms", 2), ("scan4_ms", 4)):
                 times[name][key].append(chip_smoke._time_ms(
                     lambda i=0, k=kern, r=rounds: k.slot_pipeline(
                         bufs[i % 2], alive, base=0, rounds=r, **kargs), args.reps))
-            times[name]["fault_ms"].append(chip_smoke._graph_ms(
-                lambda k=kern: k.rounds(fields, falive, fmasks, 80, **fk._kernel_args()), 20))
+            for key, m in masks.items():
+                times[name][key].append(chip_smoke._graph_ms(
+                    lambda k=kern, m=m: k.rounds(fields, falive, m, 80, **fk._kernel_args()), 20))
     rate = chip_smoke._card_rate_bytes_per_s(torch.cuda.get_device_name(0))
     bound = (T * S * (R + 1 + 4) + S * R) / rate * 1e3
     print(smi)
     print(json.dumps({
         "shape": {"S": S, "R": R, "T": T}, "scan_bytes_bound_ms": bound,
-        "times": times,
+        "times": times, "empty_kernel_ms": empty_ms,
         "scan_share_of_bound": {name: {key: [bound / t for t in tt[key]]
                                        for key in ("scan2_ms", "scan4_ms")}
                                 for name, tt in times.items()},

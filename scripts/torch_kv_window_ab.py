@@ -1,19 +1,24 @@
-"""Time the port's kv-window kernel beside another build of it, on one GPU.
+"""Time the port's kv-window kernels beside another build of them, on one GPU.
 
-    python3 scripts/torch_kv_window_ab.py OTHER_KV_WINDOW_CU ... [--fold] [--reps 50] [--rounds 2]
+    python3 scripts/torch_kv_window_ab.py OTHER_KV_WINDOW_CU ...
+        [--modes mixed,fold,set,probe,lookup] [--reps 50] [--rounds 2]
 
 Each OTHER_KV_WINDOW_CU is a ``kv_window.cu`` with the same C interface
-(``kvw_window``, and with ``--fold`` ``kvw_decide_window``), its headers
-beside it, for example from an earlier commit unpacked with ``git
-archive`` into a directory that .gitignore lists. Every build is made
-with nvcc (sm_90a), checked bit for bit against the plain version, and
-timed on the W=16 mixed window over a full S=4096 x P=64 table (32 B
-keys, 64 B values) that ``chip_smoke.py`` times (with ``--fold``, the
-window with its decision folded in, R=5, every replica alive): device
-time per window by CUDA graph replay, in turns (others, this, this,
-others reversed) each round. Prints each build's register report, the
-card as nvidia-smi names it and one JSON line. Exits non-zero without a
-GPU.
+(``kvw_window``, ``kvw_decide_window``), its headers beside it, for
+example from an earlier commit unpacked with ``git archive`` into a
+directory that .gitignore lists. Its read-only windows go through its
+``kvw_window`` and ``kvw_decide_window`` with no output table, as
+builds before ``kv_read.cu`` ran them; this tree's go to ``kv_read.cu``.
+Every build is made with nvcc (sm_90a), checked bit for bit against the
+plain version, and timed on windows over a full S=4096 x P=64 table (32
+B keys, 64 B values), W=16, R=5 with every replica alive: ``mixed`` (the
+mixed window ``chip_smoke.py`` times), ``fold`` (the same with its
+decision), ``set`` (a SET window with its decision), ``probe`` (a read of
+every op's key, no decision) and ``lookup`` (the GET window: the same
+with its decision). Device time per window by CUDA graph replay, in
+turns (others, this, this, others reversed) each round. Prints each
+build's register report, the card as nvidia-smi names it and one JSON
+line with each mode's bytes bound. Exits non-zero without a GPU.
 """
 
 from __future__ import annotations
@@ -35,7 +40,7 @@ from rabia_tpu_torch.kernel import cuda_build, kv_window  # noqa: E402
 from rabia_tpu_torch.parallel import MeshPhaseKernel  # noqa: E402
 
 
-def other_kernel(src: Path, i: int, fold: bool) -> kv_window.KVWindowKernel:
+def other_kernel(src: Path, i: int) -> kv_window.KVWindowKernel:
     """A kv-window wrapper bound to ``src`` built into its own library."""
     out = cuda_build.BUILD_DIR / "ab" / f"libkv_window_other{i}.so"
     out.parent.mkdir(parents=True, exist_ok=True)
@@ -53,17 +58,17 @@ def other_kernel(src: Path, i: int, fold: bool) -> kv_window.KVWindowKernel:
     fn.argtypes = [vpp, vpp, vpp, vpp, llp, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     kern._lib, kern._fn = lib, fn
-    if fold:
-        kern._decide_fn = lib.kvw_decide_window
-        kern._decide_fn.argtypes = [vpp, vpp, vpp, vpp, llp, vpp, llp, ctypes.c_void_p]
-        kern._decide_fn.restype = ctypes.c_int
+    kern._decide_fn = lib.kvw_decide_window
+    kern._decide_fn.argtypes = [vpp, vpp, vpp, vpp, llp, vpp, llp, ctypes.c_void_p]
+    kern._decide_fn.restype = ctypes.c_int
+    kern._read_fn, kern._read_decide_fn = kern._fn, kern._decide_fn  # no output table
     return kern
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("others", type=Path, nargs="+")
-    ap.add_argument("--fold", action="store_true", help="time the window with its decision")
+    ap.add_argument("--modes", default="mixed,fold,set,probe,lookup")
     ap.add_argument("--reps", type=int, default=50)
     ap.add_argument("--rounds", type=int, default=2)
     args = ap.parse_args()
@@ -77,49 +82,80 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     kernels = {"this": kv_window.KV_WINDOW}
     kernels["this"].load()
-    print(cuda_build.library_path("kv_window").with_suffix(".log").read_text().strip())
+    for lib in ("kv_window", "kv_read"):
+        print(cuda_build.library_path(lib).with_suffix(".log").read_text().strip())
     for i, src in enumerate(args.others):
-        kernels[str(src)] = other_kernel(src, i, args.fold)
+        kernels[str(src)] = other_kernel(src, i)
 
     S, P, K4, VW4, W = chip_smoke.S_FULL, chip_smoke.P_FULL, 8, 16, 16
     gen = torch.Generator(device=dev).manual_seed(8)
     table, ops, _ = chip_smoke.random_kv_case(gen, S, P, K4, VW4, W, K4, VW4, dev, p_used=1.0)
+    kind, klen, vlen, kw, vw = ops
     mk = MeshPhaseKernel(S, chip_smoke.R_FULL, device=dev)
     alive = torch.ones((S, mk.R), dtype=torch.bool, device=dev)
     base = torch.zeros(S, dtype=torch.int32, device=dev)
+    dk = dict(seed=mk.seed, coin_p1=mk.coin_p1, max_phases=4)
+    rk = dict(want_table=False, want_reads=True)
+    get = kv_window.KIND_GET
+    calls = {  # mode -> (kernel call, plain call)
+        "mixed": (lambda k: k(table, *ops, W, want_reads=True),
+                  lambda: kv_window.kv_window_plain(table, *ops, W, want_reads=True)),
+        "fold": (lambda k: k.decide(table, *ops, W, alive, base, **dk, want_reads=True),
+                 lambda: kv_window.decide_window_plain(mk, table, *ops, W, alive, base, 4,
+                                                       want_reads=True)),
+        "set": (lambda k: k.decide(table, None, klen, vlen, kw, vw, W, alive, base, **dk),
+                lambda: kv_window.decide_window_plain(mk, table, None, klen, vlen, kw, vw, W,
+                                                      alive, base, 4)),
+        "probe": (lambda k: k(table, get, klen, None, kw, None, 0, **rk),
+                  lambda: kv_window.kv_window_plain(table, get, klen, None, kw, None, 0, **rk)),
+        "lookup": (lambda k: k.decide(table, get, klen, None, kw, None, W, alive, base, **dk,
+                                      **rk),
+                   lambda: kv_window.decide_window_plain(mk, table, get, klen, None, kw, None, W,
+                                                         alive, base, 4, **rk)),
+    }
+    modes = args.modes.split(",")
+    for mode in modes:
+        want = chip_smoke._flat(calls[mode][1]())
+        for name, kern in kernels.items():
+            got = chip_smoke._flat(calls[mode][0](kern))
+            torch.cuda.synchronize(dev)
+            if len(got) != len(want) or not all(torch.equal(a, b) for a, b in zip(want, got)):
+                raise AssertionError(f"{name} differs from the plain version ({mode})")
 
-    def call(kern):
-        if args.fold:
-            return kern.decide(table, *ops, W, alive, base, seed=mk.seed, coin_p1=mk.coin_p1,
-                               max_phases=4, want_reads=True)
-        return kern(table, *ops, W, want_reads=True)
-
-    want = chip_smoke._flat(
-        kv_window.decide_window_plain(mk, table, *ops, W, alive, base, 4, want_reads=True)
-        if args.fold else kv_window.kv_window_plain(table, *ops, W, want_reads=True))
-    for name, kern in kernels.items():
-        got = chip_smoke._flat(call(kern))
-        torch.cuda.synchronize(dev)
-        if not all(torch.equal(a, b) for a, b in zip(want, got)):
-            raise AssertionError(f"{name} differs from the plain version")
-
-    times = {name: [] for name in kernels}
+    times = {mode: {name: [] for name in kernels} for mode in modes}
     order = list(kernels)[1:] + ["this", "this"] + list(kernels)[1:][::-1]
     for _ in range(args.rounds):
-        for name in order:
-            times[name].append(chip_smoke._graph_ms(
-                lambda i=0, k=kernels[name]: call(k), args.reps))
-    tbl_bytes = sum(x.numel() * x.element_size() for x in table)
-    op_bytes = sum(x.numel() * x.element_size() for x in ops)
+        for mode in modes:
+            for name in order:
+                times[mode][name].append(chip_smoke._graph_ms(
+                    lambda i=0, k=kernels[name], m=mode: calls[m][0](k), args.reps))
+    nbytes = lambda xs: sum(x.numel() * x.element_size() for x in xs if x is not None)  # noqa: E731
+    tbl_bytes = nbytes(table)
     read_bytes = W * S * (1 + 4 + 4 + 4 * VW4) + S
-    bound_ms = (2 * tbl_bytes + op_bytes + read_bytes) / chip_smoke._card_rate_bytes_per_s(
-        torch.cuda.get_device_name(0)) * 1e3
+    decide_bytes = alive.numel() + 4 * base.numel() + 4 * 3
+    # a read moves the used flags, key lengths and keys, each found slot's
+    # version, length and value, the op keys and the read planes; the GET
+    # window adds the decision's inputs and each shard's version counter
+    reads = calls["probe"][1]()[2]
+    hits = len({(int(t), int(s_)) for t, s_ in zip(*(x.cpu().numpy() for x in (
+        torch.nonzero(reads.found)[:, 1], reads.ver[reads.found])))})
+    probe_bytes = (table.used.numel() + nbytes((table.keyw, table.klen)) + hits * (8 + 4 * VW4)
+                   + nbytes((klen, kw)) + read_bytes)
+    bound_bytes = {
+        "mixed": 2 * tbl_bytes + nbytes(ops) + read_bytes,
+        "fold": 2 * tbl_bytes + nbytes(ops) + read_bytes + decide_bytes,
+        "set": 2 * tbl_bytes + nbytes((klen, vlen, kw, vw)) + S + decide_bytes,
+        "probe": probe_bytes,
+        "lookup": probe_bytes + decide_bytes + 4 * S,
+    }
+    rate = chip_smoke._card_rate_bytes_per_s(torch.cuda.get_device_name(0))
+    bound_ms = {mode: bound_bytes[mode] / rate * 1e3 for mode in modes}
     print(smi)
     print(json.dumps({
-        "shape": {"S": S, "P": P, "K4": K4, "VW4": VW4, "W": W, "kinds": "mixed",
-                  "fold": args.fold},
+        "shape": {"S": S, "P": P, "K4": K4, "VW4": VW4, "W": W, "R": mk.R},
         "bound_ms": bound_ms, "times_ms": times,
-        "share_of_bound": {name: [bound_ms / t for t in ts] for name, ts in times.items()},
+        "share_of_bound": {mode: {name: [bound_ms[mode] / t for t in ts]
+                                  for name, ts in times[mode].items()} for mode in modes},
     }))
     return 0
 
