@@ -101,11 +101,35 @@ Phases (each raises on failure; nothing is caught):
    (fill and Zipf streams) beside the row form, and the probe beside the
    GET window (both forms) and an empty kernel at its grid, are timed by
    graph replay, and the packers' host time and upload bytes are
-   measured.
+   measured;
+9. the latency governor's window ladder and the governed device lane:
+   (a) on phase 7's table, at every window size of the governor's ladder
+   W in {1, 2, 4, ..., 256}, ``decide_apply`` (the SET window with its
+   decision), ``mixed_apply``, ``lookup_window`` (the GET window) and
+   ``lookup_only`` (the probe), each in the row and the dictionary form
+   and each one launch through the table's entry point, and
+   ``slot_window`` at T=W, every output byte against the plain version;
+   after the main path each kernel is timed there by graph replay beside
+   the bytes its function must move at that W; (b) phase 7's SET lane on
+   fresh engines with the C pack gather (``csrc/host_pack.cpp``, built
+   with g++) and under ``RABIA_PY_DEVPACK=1`` (numpy), in turns, equal
+   responses and tables, and the packers' host ms at W=16 and at the
+   largest window (c) reached, the two gathers' planes byte-identical;
+   (c) ``MeshEngine(device_store=True, latency_target_ms=...)`` at 4096
+   shards x 5 replicas under a saturating full-width SET stream and a
+   90/10 GET/SET stream, with a loose target (it must resize the window;
+   every response, the slot counters and the stores equal an ungoverned
+   host block-lane engine's, and on the 90/10 stream an ungoverned
+   device lane's) and a tight one (it must park at ``min_window`` with
+   ``governor_stats()["unachievable"]`` and the floor reported); the
+   governed lane's ladder is capped at ``GOV_MAX_WINDOW`` to keep the
+   run's time, while (a) runs the whole ladder. The C gather must have
+   packed every window of the main path (``pack_stats``; their counts
+   are printed on a line of their own).
 
 The launch counts of the seven kernels (the kv-window and kv-read
 kernels' by form, the round kernels' by entry) are reset just before
-phases 4-5, 7 and 8
+phases 4-5, 7, 8 and 9
 (the main path) and read just after; phase 4 drives both
 fused-window entries (replica-major at full depth, and
 ``ClusterKernel.slot_pipeline_fused`` on [T,S,R] votes at full depth and
@@ -121,13 +145,14 @@ shard runs before it settles. The last lines are a ``{"kernels": ...}``
 JSON line, the card's name and power limit as nvidia-smi reports them,
 and ``{"ok": true, "device": {...}}``. Exits non-zero without a GPU.
 
-Phases 3-5, 7 and 8's lanes also run on the CPU at a small size
+Phases 3-5, 7, 8 and 9's lanes also run on the CPU at a small size
 (tests/test_torch_slice.py).
 """
 
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -136,7 +161,7 @@ import numpy as np
 import torch
 
 from rabia_tpu_torch import ClusterKernel, MeshEngine, MeshPhaseKernel
-from rabia_tpu_torch.apps.device_kv import DeviceDictOps
+from rabia_tpu_torch.apps.device_kv import HOST_PACK, DeviceDictOps
 from rabia_tpu_torch.apps.vector_kv import VectorShardedKV
 from rabia_tpu_torch.core.blocks import build_block
 from rabia_tpu_torch.core.errors import RabiaError
@@ -163,6 +188,15 @@ P_FULL = 64  # the reference DeviceKVTable's per_shard_capacity (32 B keys, 64 B
 # (about 2k ops/s), so these waves set most of the run's time
 LANE_READ_WAVES = 8
 LANE_HOST_GETS = 3  # phase 8: GET blocks of each stream's first group also sent to the host lane
+# phase 9: the governor's window ladder (min_window 1 .. max_window 256),
+# run whole by the ladder of programs; the governed lane's run caps its
+# ladder at GOV_MAX_WINDOW to stay within the run's time
+LADDER = tuple(1 << i for i in range(9))
+GOV_MAX_WINDOW = 64
+GOV_LOOSE_MS = 100.0  # p99 window latency target above the lane's floor
+GOV_TIGHT_MS = 0.05  # below any window's floor: a host pack alone takes longer
+GOV_SET_BLOCKS = 160  # the governed lane's saturating SET stream
+GOV_GROUPS = 6  # its 90/10 GET/SET stream: groups of 9 GET blocks and 1 SET block
 # int32 operations/s of an H100 SXM: 132 SMs x 64 INT32 lanes x 1.98 GHz
 # (the Hopper white paper's per-SM unit count and the SXM boost clock)
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
@@ -1415,6 +1449,387 @@ def pack_costs(dkv, S: int, P: int = P_FULL, W: int = 16, seed: int = 10, reps: 
     return out
 
 
+# -- phase 9 -----------------------------------------------------------------
+
+
+def ladder_blocks(S: int, P: int = P_FULL, seed: int = 13) -> dict:
+    """32 full-width blocks of each kind for the window ladder; wave t of
+    a window is block t % 32, so a window of any W has at most 32
+    distinct op rows a shard (its dictionary form exists at every W).
+    Shard s's wave t names key (3t + s) mod (P + 8): keys past P were
+    never set (a GET misses). SET values are phase 7's; a mixed wave's op
+    is SET, GET, DEL or EXISTS by (t + s) mod 4."""
+    rng = np.random.default_rng(seed)
+    shards = range(S)
+    j = [[(3 * t + s) % (P + 8) for s in shards] for t in range(32)]
+    vals = [[_value(rng, 500 + t, s) for s in shards] for t in range(32)]
+
+    def mixed_op(t, s):
+        k = (t + s) % 4
+        if k == 0:
+            return _set_op(_key(s, j[t][s] % P), vals[t][s])
+        return _key_op((2, 3, 4)[k - 1], _key(s, j[t][s]))
+
+    return {
+        "set": [build_block(shards, [[_set_op(_key(s, j[t][s] % P), vals[t][s])] for s in shards])
+                for t in range(32)],
+        "get": [build_block(shards, [[_key_op(2, _key(s, j[t][s]))] for s in shards])
+                for t in range(32)],
+        "mixed": [build_block(shards, [[mixed_op(t, s)] for s in shards]) for t in range(32)],
+    }
+
+
+def _ladder_planes(dkv, kind, ops, W: int, values: bool = True) -> list:
+    """A window's planes on the device as the table's programs upload
+    them: ``[kind, idx, klen, vlen, kwin, vwin]`` (``kind`` stays what it
+    was unless it is a plane)."""
+    planes = dkv._host_ops(ops, W, values)
+    if isinstance(kind, np.ndarray):
+        return dkv._upload([kind, *planes])
+    return [kind, *dkv._upload(planes)]
+
+
+def _gathered_rows(n: int, device) -> torch.Tensor:
+    """``mixed_apply``'s row index: the GET waves, padded to a power of two."""
+    return torch.zeros(1 << max(0, n - 1).bit_length(), dtype=torch.int64, device=device)
+
+
+def window_ladder(dkv, mk, S: int, R: int, blocks: dict, seed: int = 14):
+    """The device lane's programs at every W of the governor's ladder, on
+    ``dkv``'s table, through the table's entry points (one kernel launch
+    each: ``decide_apply``, ``mixed_apply``, ``lookup_window`` and
+    ``lookup_only`` in the row and the dictionary form), and
+    ``slot_window`` at T = W on phase 2b's votes (all four codes, a crash
+    mask, bases near the wrap). Every output byte is held against the
+    plain version on the same inputs. Returns ({W: (packed windows, the
+    slot window's inputs)}, for timing; the largest error)."""
+    dev = dkv.device
+    alive = np.ones((S, R), bool)
+    base = np.zeros(S, np.int32)
+    alive_d, base_d = dkv._upload([alive, base])
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    state = dkv.state
+    out, worst = {}, 0
+
+    def check(got, want, what):
+        nonlocal worst
+        got, want = _flat(got), _flat(want)
+        _check(len(got) == len(want), f"{what}: {len(got)} outputs, plain {len(want)}")
+        err = max(_max_err(a, b) for a, b in zip(got, want))
+        _check(err == 0, f"{what} != plain (max_abs_err {err})")
+        worst = max(worst, err)
+
+    for W in LADDER:
+        take = {k: [blocks[k][t % 32] for t in range(W)] for k in blocks}
+        win = {
+            "set rows": dkv.pack_window(take["set"]), "set dict": dkv.pack_window_auto(take["set"]),
+            "get rows": dkv.pack_get_window(take["get"]),
+            "get dict": dkv.pack_get_window_auto(take["get"]),
+            "mixed rows": dkv.pack_mixed_window(take["mixed"]),
+            "mixed dict": dkv.pack_mixed_window_auto(take["mixed"])[:2],
+        }
+        _check(all(isinstance(win[f"{k} dict"], DeviceDictOps)
+                   or isinstance(win[f"{k} dict"][1], DeviceDictOps)
+                   for k in ("set", "get", "mixed")),
+               f"a ladder window at W={W} was not packed as a dictionary")
+        for form in ("rows", "dict"):
+            _, idx, klen, vlen, kw, vw = _ladder_planes(dkv, None, win[f"set {form}"], W)
+            new, flags = dkv.decide_apply(alive, base, W, win[f"set {form}"], W=W)
+            want = kv_window.decide_window_plain(mk, state, None, klen, vlen, kw, vw, W, alive_d,
+                                                 base_d, 4, idx=idx)
+            check((new, flags), (want[0], want[3]), f"decide_apply ({form}) W={W}")
+            _check(flags.tolist() == [1, 0, 0], f"decide_apply ({form}) W={W}: flags {flags.tolist()}")
+            kind, mixed = win[f"mixed {form}"]
+            get_waves = np.nonzero((kind >= 2).any(axis=1))[0].astype(np.int32)
+            kind_d, idx, klen, vlen, kw, vw = _ladder_planes(dkv, kind, mixed, W)
+            got = dkv.mixed_apply(alive, base, W, kind, get_waves, mixed, W=W)
+            new, _, reads, flags = kv_window.decide_window_plain(
+                mk, state, kind_d, klen, vlen, kw, vw, W, alive_d, base_d, 4, idx=idx,
+                want_reads=True)
+            g = _gathered_rows(len(get_waves), dev)
+            g[: len(get_waves)] = torch.from_numpy(get_waves).to(dev)
+            meta = torch.stack([reads.ver[g], (reads.vlen[g] << 1) | reads.found[g].to(torch.int32)])
+            check(got, (new, flags, meta, reads.val[g]), f"mixed_apply ({form}) W={W}")
+            _, idx, klen, _, kw, _ = _ladder_planes(dkv, kv_window.KIND_GET, win[f"get {form}"], W,
+                                                    values=False)
+            got = dkv.lookup_window(alive, base, W, win[f"get {form}"], W=W)
+            _, _, reads, flags = kv_window.decide_window_plain(
+                mk, state, kv_window.KIND_GET, klen, None, kw, None, W, alive_d, base_d, 4,
+                idx=idx, want_table=False, want_reads=True)
+            check(got, (flags[0], reads), f"lookup_window ({form}) W={W}")
+            _check(bool(reads.found.any()) and (W < 8 or not bool(reads.found.all())),
+                   f"lookup_window ({form}) W={W}: no hit, or no miss")
+            got = dkv.lookup_only(win[f"get {form}"], W=W)
+            want = kv_window.kv_window_plain(state, kv_window.KIND_GET, klen, None, kw, None, 0,
+                                             idx=idx, want_table=False, want_reads=True)
+            check(got, want[2], f"lookup_only ({form}) W={W}")
+        votes, valive, vbase = mesh_case(gen, S, R, W, dev)
+        check([mk.slot_window(votes, valive, vbase, n_slots=W)],
+              [mk.decide_slots_plain(votes, valive, vbase, 4)], f"slot_window T={W}")
+        out[W] = (win, (votes, valive, vbase))
+    return out, worst
+
+
+def _hits(found: torch.Tensor, ver: torch.Tensor) -> int:
+    """Distinct (shard, version) pairs a read found: the slots whose
+    version, value length and value it must read."""
+    s = torch.nonzero(found)[:, 1].to(torch.int64)
+    return int(torch.unique((s << 32) | ver[found].to(torch.int64)).numel())
+
+
+def ladder_times(dkv, mk, S: int, R: int, ladder: dict, rate: float, reps: int = 20) -> dict:
+    """Device time (CUDA graph replay) of each ladder program's kernel at
+    every W, beside its bound: the bytes that the function must read and
+    write at that W (each input once, each output once; of the table, a
+    read reads the used flags, keys and key lengths and the found slots'
+    rows) over the card's memory rate; the slot window's also its least
+    integer operations. Returns {W: {program: (ms, bound ms)}}."""
+    state = dkv.state
+    tbl = sum(x.numel() * x.element_size() for x in state)
+    alive_d, base_d = dkv._upload([np.ones((S, R), bool), np.zeros(S, np.int32)])
+    decide_kw = dict(seed=mk.seed, coin_p1=mk.coin_p1, max_phases=4)
+    decide_bytes = alive_d.numel() + 4 * S + 4 * 3  # alive, base, flags
+
+    def nbytes(xs) -> int:
+        return sum(x.numel() * x.element_size() for x in xs if isinstance(x, torch.Tensor))
+
+    VW4 = state.valw.shape[2]
+    times = {}
+    for W, (win, (votes, valive, vbase)) in ladder.items():
+        row = {}
+        reads_out = W * S * (1 + 4 + 4 + 4 * VW4)
+        for form in ("rows", "dict"):
+            sp = _ladder_planes(dkv, None, win[f"set {form}"], W)
+            call = lambda i=0, a=sp: kv_window.KV_WINDOW.decide(  # noqa: E731
+                state, None, *a[2:], W, alive_d, base_d, idx=a[1], **decide_kw)
+            row[f"set {form}"] = (_graph_ms(call, reps),
+                                  (2 * tbl + nbytes(sp) + S + decide_bytes) / rate * 1e3)
+            kind, mixed = win[f"mixed {form}"]
+            mp = _ladder_planes(dkv, kind, mixed, W)
+            call = lambda i=0, a=mp: kv_window.KV_WINDOW.decide(  # noqa: E731
+                state, a[0], *a[2:], W, alive_d, base_d, idx=a[1], want_reads=True, **decide_kw)
+            row[f"mixed {form}"] = (_graph_ms(call, reps), (2 * tbl + nbytes(mp) + S + reads_out
+                                                           + decide_bytes) / rate * 1e3)
+            gp = _ladder_planes(dkv, kv_window.KIND_GET, win[f"get {form}"], W, values=False)
+            probe = lambda i=0, a=gp: kv_window.KV_WINDOW(  # noqa: E731
+                state, kv_window.KIND_GET, a[2], None, a[4], None, 0, idx=a[1], want_table=False,
+                want_reads=True)
+            lookup = lambda i=0, a=gp: kv_window.KV_WINDOW.decide(  # noqa: E731
+                state, kv_window.KIND_GET, a[2], None, a[4], None, W, alive_d, base_d, idx=a[1],
+                want_table=False, want_reads=True, **decide_kw)
+            reads = probe()[2]
+            read_in = (state.used.numel() + 4 * (state.keyw.numel() + state.klen.numel())
+                       + _hits(reads.found, reads.ver) * (8 + 4 * VW4) + nbytes(gp))
+            row[f"probe {form}"] = (_graph_ms(probe, reps), (read_in + reads_out + S) / rate * 1e3)
+            row[f"get {form}"] = (_graph_ms(lookup, reps),
+                                  (read_in + reads_out + S + decide_bytes + 4 * S) / rate * 1e3)
+        mw_call = lambda i=0: mesh_window.MESH_WINDOW(  # noqa: E731
+            votes, valive, vbase, seed=mk.seed, coin_p1=mk.coin_p1, max_phases=4)
+        phases, coins = mesh_work(mk, votes, valive, vbase, 4)
+        mw_bytes = votes.numel() + valive.numel() + 4 * vbase.numel() + W * S
+        mw_ops = W * S * 3 * R + 10 * phases + 24 * coins
+        row["slot_window"] = (_graph_ms(mw_call, reps),
+                              max(mw_bytes / rate, mw_ops / INT32_OPS_PER_S) * 1e3)
+        times[W] = row
+    return times
+
+
+def _drive(eng, blocks, walk: list) -> list:
+    """Submit ``blocks`` and run cycles until the engine is idle, noting
+    each window size the governor moves to. Returns the block futures."""
+    futs = [eng.submit_block(b) for b in blocks]
+    for _ in range(100_000):
+        if not eng._has_pending():
+            break
+        eng.run_cycle()
+        if eng.window != walk[-1]:
+            walk.append(eng.window)
+    _check(not eng._has_pending(), "a governed engine did not drain")
+    return futs
+
+
+def _same_responses(fa, fb, what: str) -> None:
+    for i, (a, b) in enumerate(zip(fa, fb)):
+        _check([list(map(bytes, g)) for g in a.result()] == [list(map(bytes, g)) for g in b.result()],
+               f"{what}: the responses of block {i} differ")
+
+
+def governed_lane(device, S: int, R: int, P: int = P_FULL, seed: int = 15,
+                  set_blocks: int = GOV_SET_BLOCKS, groups: int = GOV_GROUPS):
+    """The governed device lane at full width (phase 9c in the module
+    doc). Returns (stats, the engines whose every window the C pack
+    gather must have served)."""
+    rng = np.random.default_rng(seed)
+    shards = list(range(S))
+
+    def make(target=None, device_store=True, **kw) -> MeshEngine:
+        return MeshEngine(
+            lambda: VectorShardedKV(S, capacity=max(1 << 16, 4 * S * P)), S, R, device=device,
+            device_store=device_store, device_store_kw={"per_shard_capacity": P},
+            latency_target_ms=target, **kw)
+
+    loose = make(GOV_LOOSE_MS, window=4, min_window=1, max_window=GOV_MAX_WINDOW)
+    tight = make(GOV_TIGHT_MS, window=16, min_window=1, max_window=GOV_MAX_WINDOW)
+    host, plain = make(device_store=False, window=16), make(window=16)
+    for eng in (loose, tight):
+        _check(eng.governor_stats()["inflight"] == 1, "a governed lane is not one window deep")
+
+    def wave(ops):
+        return build_block(shards, [[op] for op in ops])
+
+    # a saturating full-width SET stream (keys within each shard's P slots)
+    sets = [wave([_set_op(_key(s, int(k)), _value(rng, 700 + t, s))
+                  for s, k in enumerate(rng.integers(0, P, S))]) for t in range(set_blocks)]
+    walks = {"loose": [loose.window], "tight": [tight.window]}
+    t0 = time.perf_counter()
+    f_loose = _drive(loose, sets, walks["loose"])
+    loose_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    f_tight = _drive(tight, sets, walks["tight"])
+    tight_s = time.perf_counter() - t0
+    f_host = [host.submit_block(b) for b in sets]
+    host.flush()
+    _same_responses(f_loose, f_host, "the loose target's SET stream vs the host lane")
+    _same_responses(f_tight, f_host, "the tight target's SET stream vs the host lane")
+    for eng in (loose, tight):
+        _check(bool((eng.next_slot == host.next_slot).all()) and eng.decided_v1 == host.decided_v1,
+               "a governed lane's slot counters differ from the host lane's")
+    loose_set = loose.governor_stats()
+    # the 90/10 GET/SET stream: groups of 9 GET blocks (keys within P + 8,
+    # some never set) and 1 SET block. Every response of the governed lane
+    # equals an ungoverned device lane's; the first GET block and every
+    # SET block also the host lane's (which serves GETs op by op in
+    # Python, about 2k ops/s)
+    for b in sets:
+        plain.submit_block(b)
+    plain.flush()
+    stream = []
+    for g in range(groups):
+        ks = rng.integers(0, P + 8, (10, S))
+        stream += [wave([_key_op(2, _key(s, int(ks[i, s]))) for s in shards]) for i in range(9)]
+        stream.append(wave([_set_op(_key(s, int(ks[9, s]) % P), _value(rng, 800 + g, s))
+                            for s in shards]))
+    slots0 = loose.next_slot.copy()
+    t0 = time.perf_counter()
+    f_loose = _drive(loose, stream, walks["loose"])
+    mixed_s = time.perf_counter() - t0
+    f_plain = [plain.submit_block(b) for b in stream]
+    plain.flush()
+    _same_responses(f_loose, f_plain, "the loose target's 90/10 stream vs the device lane")
+    host_idx = [0] + [10 * g + 9 for g in range(groups)]
+    f_host = [host.submit_block(stream[i]) for i in host_idx]
+    host.flush()
+    _same_responses([f_loose[i] for i in host_idx], f_host,
+                    "the loose target's 90/10 stream vs the host lane")
+    _check(bool((loose.next_slot == plain.next_slot).all())
+           and bool((loose.next_slot - slots0 == len(stream)).all()),
+           "the 90/10 stream's slot counters")
+    for eng in (loose, tight, plain):
+        _check(eng.device_lane_active, "a device lane demoted")
+    loose_st, tight_st = loose.governor_stats(), tight.governor_stats()
+    _check(loose.window_resizes >= 1, f"the loose target never resized the window: {loose_st}")
+    _check(tight.window == tight.min_window and tight_st["unachievable"] is True
+           and tight_st["floor_ms"] is not None,
+           f"the tight target did not park at min_window as unachievable: {tight_st}")
+    prom = [ln for ln in loose.metrics.render_prometheus().splitlines()
+            if ln.startswith(("rabia_mesh_window", "rabia_engine_decided_total",
+                              "rabia_mesh_device_lane_active", "rabia_commit_stage_seconds_count",
+                              "rabia_commit_stage_seconds_sum"))]
+    # every store equals the host lane's (GETs mutate nothing)
+    for eng in (loose, plain):
+        eng.sync_to_host()
+    want = _snapshot_sans_clock(host.sms[0])
+    for eng in (loose, plain):
+        for sm in eng.sms:
+            _check(_snapshot_sans_clock(sm) == want, "a replica store differs from the host lane's")
+    stats = {
+        "loose": {**loose_st, "after_set_stream": loose_set, "walk": walks["loose"],
+                  "set_ops_per_s": set_blocks * S / loose_s,
+                  "90/10_ops_per_s": len(stream) * S / mixed_s},
+        "tight": {**tight_st, "walk": walks["tight"], "set_ops_per_s": set_blocks * S / tight_s},
+        "blocks": {"set": set_blocks, "90/10": len(stream)},
+        "prometheus": prom,
+    }
+    return stats, [loose, tight, plain]
+
+
+def _devpack(gather: str) -> None:
+    """Route the window packers to the C gather or to numpy."""
+    os.environ["RABIA_PY_DEVPACK"] = "1" if gather == "numpy" else "0"
+
+
+def pack_native_vs_numpy(dkv, S: int, Ws, P: int = P_FULL, seed: int = 16, reps: int = 3) -> dict:
+    """Host ms of the row packer and ``pack_window_auto`` on phase 7's
+    fill stream (every op a distinct row) at each W, with the C gather
+    and under ``RABIA_PY_DEVPACK=1`` (numpy), in turns (native, numpy,
+    numpy, native): the two gathers' planes are byte-identical, and
+    ``pack_stats`` shows which one packed each window."""
+    rng = np.random.default_rng(seed)
+    blocks = [build_block(range(S), [[_set_op(_key(s, t % P), _value(rng, t, s))] for s in range(S)])
+              for t in range(max(Ws))]
+    out = {}
+    try:
+        for W in Ws:
+            row, packed = {}, {}
+            for gather in ("native", "numpy", "numpy", "native"):
+                _devpack(gather)
+                before = dict(dkv.pack_stats)
+                for form, fn in (("rows", dkv.pack_window), ("auto", dkv.pack_window_auto)):
+                    t0 = time.perf_counter()
+                    for _ in range(reps):
+                        packed[gather, form] = fn(blocks[:W])
+                    row.setdefault(f"{gather} {form} host ms", []).append(
+                        (time.perf_counter() - t0) * 1e3 / reps)
+                grew = {k: dkv.pack_stats[k] - before[k] for k in before}
+                want = {"native": 2 * reps, "numpy": 0, "bounds_trip": 0}
+                if gather == "numpy":
+                    want = {"native": 0, "numpy": 2 * reps, "bounds_trip": 0}
+                _check(grew == want, f"pack_stats after the {gather} gather at W={W}: {grew}")
+            for form in ("rows", "auto"):
+                a, b = packed["native", form], packed["numpy", form]
+                _check(type(a) is type(b) and all(x.tobytes() == y.tobytes() for x, y in zip(a, b)),
+                       f"the native and numpy {form} planes differ at W={W}")
+            out[W] = row
+    finally:
+        os.environ.pop("RABIA_PY_DEVPACK", None)
+    return out
+
+
+def lane_native_vs_numpy(device, S: int, R: int, P: int = P_FULL, seed: int = 17) -> dict:
+    """Phase 7's SET lane (64 full-width SET waves into empty 64-slot
+    tables, window 16) on fresh device-lane engines, with the C gather and
+    under ``RABIA_PY_DEVPACK=1``, in turns (native, numpy, numpy, native):
+    ops/s of each run; every response and the final table are equal."""
+    rng = np.random.default_rng(seed)
+    fill = [build_block(range(S), [[_set_op(_key(s, j), _value(rng, j, s))] for s in range(S)])
+            for j in range(P)]
+    rates, first = {"native": [], "numpy": []}, None
+    try:
+        for gather in ("native", "numpy", "numpy", "native"):
+            eng = MeshEngine(lambda: VectorShardedKV(S, capacity=max(1 << 16, 4 * S * P)), S, R,
+                             window=16, device=device, device_store=True,
+                             device_store_kw={"per_shard_capacity": P})
+            _devpack(gather)
+            t0 = time.perf_counter()
+            futs = [eng.submit_block(b) for b in fill]
+            eng.flush()
+            rates[gather].append(P * S / (time.perf_counter() - t0))
+            st = eng._dev.pack_stats
+            _check(eng.device_lane_active and st["bounds_trip"] == 0
+                   and (st["numpy"] == 0 < st["native"] if gather == "native"
+                        else st["native"] == 0 < st["numpy"]),
+                   f"pack_stats of the {gather} SET lane: {st}")
+            got = ([[bytes(g[0]) for g in f.result()] for f in futs], eng._dev.dump())
+            if first is None:
+                first = got
+            _check(got[0] == first[0], f"the {gather} SET lane's responses differ")
+            _check(all(np.array_equal(got[1][k], first[1][k]) for k in first[1]),
+                   f"the {gather} SET lane's table differs")
+    finally:
+        os.environ.pop("RABIA_PY_DEVPACK", None)
+    return rates
+
+
 # -- the run -----------------------------------------------------------------
 
 
@@ -1440,10 +1855,13 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
     print(f"card: {smi}")
 
-    # 1. build the six sources (one nvcc per source, started together)
+    # 1. build the six CUDA sources (one nvcc per source, started together)
+    # and the host pack gather (g++)
     t0 = time.perf_counter()
     libs = cuda_build.build(
         ["fused_window", "kv_window", "kv_read", "mesh_window", "packed_window", "cluster_round"])
+    host_lib = cuda_build.build_host("host_pack")
+    HOST_PACK.load()
     fused_window.FUSED_WINDOW.load()
     fused_window.FUSED_WINDOW_TSR.load()
     kv_window.KV_WINDOW.load()
@@ -1451,7 +1869,7 @@ def main() -> int:
     packed_window.PACKED_WINDOW.load()
     cluster_round.CLUSTER_ROUND.load()
     print(f"phase 1 build: {time.perf_counter() - t0:.2f} s "
-          f"({', '.join(p.name for p in libs.values())})")
+          f"({', '.join(p.name for p in [*libs.values(), host_lib])})")
     for lib in libs.values():
         print(lib.with_suffix(".log").read_text().strip())
 
@@ -1539,6 +1957,20 @@ def main() -> int:
     t8 = time.perf_counter()
     read_lane, rl_eng = device_read_lane(device, S_FULL, R_FULL)
     t8 = time.perf_counter() - t8
+    # 9. the governor's window ladder on phase 7's table, every program
+    # through its entry point and held against plain; the governed device
+    # lane under a loose and a tight target; phase 7's SET lane with the C
+    # pack gather and with numpy
+    t9 = time.perf_counter()
+    dkv = kv_eng._dev
+    ladder, err9 = window_ladder(dkv, dkv.kernel, S_FULL, R_FULL, ladder_blocks(S_FULL))
+    t9a = time.perf_counter() - t9
+    gov, gov_engines = governed_lane(device, S_FULL, R_FULL)
+    lane_pack = lane_native_vs_numpy(device, S_FULL, R_FULL)
+    t9 = time.perf_counter() - t9
+    pack_paths = {"phase 7": dict(dkv.pack_stats), "phase 8": dict(rl_eng._dev.pack_stats),
+                  "phase 9 loose, tight, ungoverned": [dict(e._dev.pack_stats)
+                                                       for e in gov_engines]}
     launches = fused_window.FUSED_WINDOW.launches
     tsr_launches = fused_window.FUSED_WINDOW_TSR.launches
     kv_counts = dict(kv_window.KV_WINDOW.counts)
@@ -1559,6 +1991,10 @@ def main() -> int:
     _check(packed_launches > 0, "the main path never launched the packed window kernel")
     _check(round_counts["slot_pipeline"] > 0 and round_counts["rounds"] > 0,
            "the main path never launched both round kernel entries")
+    for eng in (kv_eng, rl_eng, *gov_engines):
+        st = eng._dev.pack_stats
+        _check(st["native"] > 0 and st["numpy"] == 0,
+               f"the C pack gather did not serve every grid window of the main path: {st}")
     # ---- end of the main path ----
 
     q = quorum_size(R_FULL)
@@ -1744,7 +2180,6 @@ def main() -> int:
     # shapes: the SET window with the decision on phase 7's fill stream (D
     # = W: every op its own row) and on the Zipf stream, beside the row
     # form, in turns; the probe beside the lookup window's kernel
-    dkv = kv_eng._dev
     lane_alive = np.ones((S_FULL, R_FULL), bool)
     lane_base = np.zeros(S_FULL, np.int32)
     costs = pack_costs(dkv, S_FULL)
@@ -1847,6 +2282,13 @@ def main() -> int:
     rows_prof = _device_busy(lambda i=0: dkv.decide_apply(
         lane_alive, lane_base, W, win["set rows"], W=W), 10, kernel="kv_window")
     slot_prof = _device_busy(lambda i=0: mk.slot_window(wvotes, walive, wbase, n_slots=16), 10)
+
+    # the ladder's kernels by graph replay beside their bounds, and the
+    # packers with the C gather and with numpy at W=16 and at the largest
+    # window the governed lane reached
+    ladder_ms = ladder_times(dkv, dkv.kernel, S_FULL, R_FULL, ladder, rate)
+    gov_top = max(gov["loose"]["walk"])
+    pack9 = pack_native_vs_numpy(dkv, S_FULL, sorted({16, gov_top}))
 
     R, T, S = votes.shape
     nbytes = R * T * S + R * S + T * S
@@ -1975,6 +2417,21 @@ def main() -> int:
           f"plain {mw_plain_ms:.3f} ms; "
           f"bound {max(mw_bytes_ms, mw_ops_ms):.5f} ms (bytes {mw_bytes} -> {mw_bytes_ms:.5f} ms, "
           f"int ops {mw_ops} -> {mw_ops_ms:.5f} ms; {mw_phases} phases, {mw_coins} coins)")
+    print(f"phase 9 window ladder W={list(LADDER)} on the phase-7 table S={S_FULL} P={P_FULL}: "
+          f"decide_apply, mixed_apply, lookup_window, lookup_only (rows and dictionary) and "
+          f"slot_window at T=W, each one launch through its entry point: max_abs_err {err9} "
+          f"against plain ({t9a:.2f} s)")
+    for Wl, row in ladder_ms.items():
+        print(f"phase 9 ladder W={Wl}: device ms (CUDA graph replay) / bound ms / share: " + ", ".join(
+            f"{k} {ms:.4f} / {b:.5f} / {b / ms:.1%}" for k, (ms, b) in row.items()))
+    print(f"phase 9 governed device lane S={S_FULL} R={R_FULL} P={P_FULL} (loose target "
+          f"{GOV_LOOSE_MS} ms, tight {GOV_TIGHT_MS} ms, max_window {GOV_MAX_WINDOW}): "
+          f"{json.dumps(gov)} ({t9:.2f} s with the ladder and the SET lanes)")
+    print(f"phase 9 SET lane (phase 7's fill) ops/s, in turns (native, numpy, numpy, native): "
+          f"{json.dumps(lane_pack)}")
+    print(f"phase 9 packers, host ms a window of phase 7's fill stream, C gather vs numpy, in turns: "
+          f"{json.dumps(pack9)}")
+    print(f"pack paths (windows by gather, main path): {json.dumps(pack_paths)}")
     print(f"main path: {launches} fused-window launches, {tsr_launches} [T,S,R] fused-window "
           f"launches, kv-window launches {json.dumps(kv_counts)}, {mesh_launches} mesh-window "
           f"launches, {packed_launches} packed-window launches, round-kernel launches "
@@ -2010,7 +2467,7 @@ def main() -> int:
         "source": "rabia_tpu_torch/csrc/kv_window.cu",
         "replaces": "rabia_tpu/apps/device_kv.py:1218",
         "launches": kv_counts["rows+decide"],
-        "max_abs_err": max(err6, err6_fold, fold_err),
+        "max_abs_err": max(err6, err6_fold, fold_err, err9),
         "ms": fold_ms,  # with the decision folded in, as the device lane launches it
         "plain_ms": fold_plain_ms,
         "bound_ms": fold_bound_ms,
@@ -2022,7 +2479,7 @@ def main() -> int:
         "source": "rabia_tpu_torch/csrc/kv_window.cu",
         "replaces": "rabia_tpu/apps/device_kv.py:1003",
         "launches": kv_counts["dict+decide"],
-        "max_abs_err": max(err8, dict_err),
+        "max_abs_err": max(err8, dict_err, err9),
         "ms": dict_ms,  # SET window with the decision, D = W = 16 (phase 7's fill stream)
         "plain_ms": dict_plain_ms,
         "bound_ms": dict_bound_ms,
@@ -2034,7 +2491,7 @@ def main() -> int:
         "source": "rabia_tpu_torch/csrc/kv_read.cu",
         "replaces": "rabia_tpu/apps/device_kv.py:850",
         "launches": kv_counts["probe dict"] + kv_counts["probe rows"],
-        "max_abs_err": max(err8, probe_err, read_err),
+        "max_abs_err": max(err8, probe_err, read_err, err9),
         "ms": probe_ms,
         "plain_ms": probe_plain_ms,
         "bound_ms": probe_bound_ms,
@@ -2046,7 +2503,7 @@ def main() -> int:
         "source": "rabia_tpu_torch/csrc/kv_read.cu",
         "replaces": "rabia_tpu/apps/device_kv.py:692",
         "launches": kv_counts["lookup dict"] + kv_counts["lookup rows"],
-        "max_abs_err": max(err6_fold, err8, lookup_err, read_err),
+        "max_abs_err": max(err6_fold, err8, lookup_err, read_err, err9),
         "ms": lookup_ms,  # the row form with its decision, W=16 on the phase-7 table
         "plain_ms": lookup_plain_ms,
         "bound_ms": lookup_bound_ms,
@@ -2058,7 +2515,7 @@ def main() -> int:
         "source": "rabia_tpu_torch/csrc/mesh_window.cu",
         "replaces": "rabia_tpu/parallel/mesh.py:353",
         "launches": mesh_launches,
-        "max_abs_err": max(err2b, mw_err),
+        "max_abs_err": max(err2b, mw_err, err9),
         "ms": mw_ms,
         "plain_ms": mw_plain_ms,
         "bound_ms": max(mw_bytes_ms, mw_ops_ms),

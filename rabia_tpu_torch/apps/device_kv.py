@@ -27,10 +27,15 @@ of the key and value bytes, zero past their length):
 
 Matching is a full-key compare against all P slots of the op's shard, so
 slot layout differs from the host store but the observable key ->
-(value, version) mapping cannot. The window packers are the reference's
-numpy path (its ``RABIA_PY_DEVPACK=1`` path), byte for byte, including
-its dictionary form (:class:`DeviceDictOps`: each shard's distinct op
-rows once, and a rank per (wave, shard)), which the ``*_auto`` packers
+(value, version) mapping cannot. The window packers are the reference's,
+byte for byte: a window of full-width sorted blocks (the block lane's
+shape) gathers its key and value bytes in one C pass
+(``csrc/host_pack.cpp``, built with g++ on first use; a build or load
+failure raises); every other window, one whose ops trip the C bounds
+check, and every window under ``RABIA_PY_DEVPACK=1`` go through the
+numpy gather, which owns the semantics. They include the dictionary
+form (:class:`DeviceDictOps`: each shard's distinct op rows once, and a
+rank per (wave, shard)), which the ``*_auto`` packers
 choose whenever a window has at most 32 distinct rows per shard: at the
 lane's window of 16 that is every window. Every program takes either
 form; the kernel reads the dictionary in place. ``lookup_only`` is the
@@ -40,6 +45,8 @@ output table.
 
 from __future__ import annotations
 
+import ctypes
+import os
 from collections.abc import Sequence
 from typing import NamedTuple, Optional
 
@@ -49,10 +56,11 @@ import torch
 from rabia_tpu_torch.apps.kvstore import _result_bin
 from rabia_tpu_torch.apps.vector_kv import _RESP_DT, _USED, VectorKVStore
 from rabia_tpu_torch.core.device import to_device, to_device_all
-from rabia_tpu_torch.kernel import kv_window
+from rabia_tpu_torch.kernel import cuda_build, kv_window
 from rabia_tpu_torch.kernel.kv_window import KIND_GET, VERSION_WRAP, KVTable
 
 __all__ = [
+    "HOST_PACK",
     "DeviceDictOps",
     "DeviceKVTable",
     "DeviceWindowOps",
@@ -231,8 +239,47 @@ class MixedFrameGroups(_ShardFrameGroups):
         return self._get._frame(s)
 
 
+class HostPackGather:
+    """ctypes wrapper of ``hp_pack_gather`` (csrc/host_pack.cpp): the
+    window pack's one-pass C gather on the host. The library builds with
+    g++ on the first call of :meth:`load`; a build or load failure
+    raises (the numpy gather takes a window only by rule, never because
+    the library is missing)."""
+
+    def __init__(self) -> None:
+        self._lib = None
+        self._fn = None
+
+    @property
+    def loaded(self) -> bool:
+        return self._fn is not None
+
+    def load(self):
+        """Build (if needed) and bind the library; returns the C function."""
+        if self._fn is None:
+            lib = ctypes.CDLL(str(cuda_build.build_host("host_pack")))
+            fn = lib.hp_pack_gather
+            ll, vp = ctypes.c_longlong, ctypes.c_void_p
+            fn.argtypes = [vp, ll, vp, vp, vp, ll, ll, ll, ll, ll, ll, vp, vp]
+            fn.restype = ctypes.c_int32
+            self._lib, self._fn = lib, fn
+        return self._fn
+
+
+HOST_PACK = HostPackGather()
+
+
 class DeviceKVTable:
-    """Device twin of the vector store's block lane (see module doc)."""
+    """Device twin of the vector store's block lane (see module doc).
+
+    ``pack_stats`` counts the windows each gather packed: ``native`` (the
+    C gather), ``numpy`` (every other window) and ``bounds_trip`` (grid
+    windows the C gather handed to numpy, also counted in ``numpy``).
+    ``compiled_on_last_call`` is True after a program call (a window or a
+    probe) when a library was built or loaded since the previous one: the
+    kv kernels' on first use on a card, the host pack's on the first grid
+    window. The latency governor does not read such a call's wall time
+    as window latency (the reference's flag marks a jit compile)."""
 
     def __init__(
         self,
@@ -258,6 +305,19 @@ class DeviceKVTable:
             torch.zeros((S, P), dtype=torch.bool, device=dev),
             z(S, P, self.K4), z(S, P), z(S, P), z(S, P, self.VW4), z(S, P), z(S),
         )
+        self.pack_stats = {"native": 0, "numpy": 0, "bounds_trip": 0}
+        self.compiled_on_last_call = False
+        self._bound = self._libraries_bound()
+
+    @staticmethod
+    def _libraries_bound() -> tuple[bool, bool]:
+        return HOST_PACK.loaded, kv_window.KV_WINDOW.loaded
+
+    def _note_call(self) -> None:
+        """End of a program call: set ``compiled_on_last_call``."""
+        bound = self._libraries_bound()
+        self.compiled_on_last_call = bound != self._bound
+        self._bound = bound
 
     # -- host-side packing -------------------------------------------------
 
@@ -340,17 +400,23 @@ class DeviceKVTable:
         grid = len(sh_all) == W * n and bool(
             (sh_all.reshape(W, n) == np.arange(n)[None, :]).all()
         )
+        if grid:
+            # full-width sorted blocks (the block lane's shape): the
+            # scatter is a contiguous reshape-assign, and the bytes go in
+            # one C pass
+            kind_w[:, :n] = op_all.reshape(W, n)
+            klen_w[:, :n] = klen_all.reshape(W, n)
+            vlen_w[:, :n] = vlen_all.reshape(W, n)
+            if self._native_pack_gather(dbuf_all, off_all, klen_all, vlen_all, n, kwin_w, vwin_w):
+                self.pack_stats["native"] += 1
+                return kind_w, klen_w, vlen_w, kwin_w, vwin_w
+        self.pack_stats["numpy"] += 1
         kw = dbuf_all[(off_all + _SET_HDR)[:, None] + kcols]
         kw = np.where(kcols < klen_all[:, None], kw, 0)
         vidx = np.minimum((off_all + _SET_HDR + klen_all)[:, None] + vcols, len(dbuf_all) - 1)
         vw = dbuf_all[vidx]
         vw = np.where(vcols < vlen_all[:, None], vw, 0)
         if grid:
-            # full-width sorted blocks (the block lane's shape): the
-            # scatter is a contiguous reshape-assign
-            kind_w[:, :n] = op_all.reshape(W, n)
-            klen_w[:, :n] = klen_all.reshape(W, n)
-            vlen_w[:, :n] = vlen_all.reshape(W, n)
             kwin_w[:, :n] = kw.reshape(W, n, ku)
             vwin_w[:, :n] = vw.reshape(W, n, vu)
         else:
@@ -361,6 +427,39 @@ class DeviceKVTable:
             kwin_w[t_all, sh_all] = kw
             vwin_w[t_all, sh_all] = vw
         return kind_w, klen_w, vlen_w, kwin_w, vwin_w
+
+    def _native_pack_gather(self, dbuf_all, off_all, klen_all, vlen_all, n, kwin_w,
+                            vwin_w) -> bool:
+        """The grid window's key and value bytes into the zeroed planes
+        ``kwin_w`` u8[W, S, ku] and ``vwin_w`` u8[W, S, vu] in one C pass
+        (op i = wave i // n, shard i % n). False hands the window to the
+        numpy gather: under ``RABIA_PY_DEVPACK=1`` (only ``"1"`` opts out),
+        or when the C bounds check trips (the planes are re-zeroed
+        first)."""
+        if os.environ.get("RABIA_PY_DEVPACK") == "1":
+            return False
+        fn = HOST_PACK.load()
+        W, S, ku = kwin_w.shape
+        vu = vwin_w.shape[2]
+        n_ops = len(off_all)
+        if not (0 < n <= S and n_ops == W * n and vwin_w.shape[:2] == (W, S)
+                and kwin_w.dtype == vwin_w.dtype == np.uint8
+                and kwin_w.flags.c_contiguous and vwin_w.flags.c_contiguous
+                and len(klen_all) == len(vlen_all) == n_ops):
+            raise ValueError("the C pack gather takes a grid window and contiguous u8 planes")
+        dbuf = np.ascontiguousarray(dbuf_all, np.uint8)
+        off = np.ascontiguousarray(off_all, np.int64)
+        klen = np.ascontiguousarray(klen_all, np.int64)
+        vlen = np.ascontiguousarray(vlen_all, np.int64)
+        rc = fn(dbuf.ctypes.data, len(dbuf), off.ctypes.data, klen.ctypes.data,
+                vlen.ctypes.data, n_ops, n, S, _SET_HDR, ku, vu,
+                kwin_w.ctypes.data, vwin_w.ctypes.data)
+        if rc != 0:
+            kwin_w[...] = 0
+            vwin_w[...] = 0
+            self.pack_stats["bounds_trip"] += 1
+            return False
+        return True
 
     @staticmethod
     def _rows_from_gathered(g: tuple) -> DeviceWindowOps:
@@ -558,11 +657,13 @@ class DeviceKVTable:
                                                     plane.dtype)])
         dev = self._upload([np.asarray(alive, bool), np.asarray(base, np.int32), plane, *planes])
         alive_d, base_d, plane_d, idx, klen, vlen, kwin, vwin = dev
-        return kv_window.decide_window(
+        out = kv_window.decide_window(
             self.kernel, self.state if state is None else state,
             plane_d if plane is not None else kind, klen, vlen, kwin, vwin, depth, alive_d,
             base_d, max_phases, idx=idx, want_table=want_table, want_reads=want_reads,
         )
+        self._note_call()
+        return out
 
     def decide_apply(self, alive, base, depth: int, ops, W: int, max_phases: int = 4,
                      state: Optional[KVTable] = None):
@@ -601,6 +702,7 @@ class DeviceKVTable:
             self.state if state is None else state, KIND_GET, klen, None, kwin, None, 0,
             idx=idx, want_table=False, want_reads=True,
         )
+        self._note_call()
         return tuple(reads)
 
     def mixed_apply(self, alive, base, depth: int, kind: np.ndarray, get_waves: np.ndarray,

@@ -7,6 +7,10 @@ where ``<digest>`` covers the sources, headers and flags, so an edited
 source never loads a stale library. Nothing is built at import time:
 the first launch of a kernel builds it. ``build`` starts one ``nvcc``
 per source, all at once, and waits for all of them.
+
+The host C++ sources (``csrc/<name>.cpp``: code for the CPU, not the
+card) build with ``g++`` by :func:`build_host` into the same directory,
+under a digest of their own source, compiler and flags.
 """
 
 from __future__ import annotations
@@ -25,6 +29,8 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
+CXX = "g++"  # the host compiler of csrc/*.cpp
+CXX_FLAGS = ("-std=c++17", "-O3", "-shared", "-fPIC")
 
 
 def nvcc() -> str:
@@ -75,3 +81,32 @@ def build(names: Sequence[str]) -> dict[str, Path]:
     if failed:
         raise RuntimeError("\n".join(failed))
     return {name: library_path(name) for name in names}
+
+
+def host_library_path(name: str) -> Path:
+    """Where the library for the host source ``csrc/<name>.cpp`` lives
+    once built: its digest covers that source, the compiler and the
+    flags (the CUDA sources' digest does not include it)."""
+    h = hashlib.sha256(" ".join((CXX, *CXX_FLAGS)).encode())
+    h.update((CSRC / f"{name}.cpp").read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
+
+
+def build_host(name: str) -> Path:
+    """Compile ``csrc/<name>.cpp`` with ``g++`` unless it is built;
+    returns the library path. Raises when the compiler is missing or
+    fails."""
+    out = host_library_path(name)
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = [CXX, *CXX_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cpp")]
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+    except OSError as e:
+        raise RuntimeError(f"cannot run the host compiler {CXX!r} for {name}.cpp: {e}") from e
+    if proc.returncode != 0:
+        raise RuntimeError(f"{CXX} failed for {name}.cpp:\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+    return out

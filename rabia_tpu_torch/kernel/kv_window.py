@@ -318,6 +318,10 @@ class KVWindowKernel:
         self.launches = 0
         self.counts = dict.fromkeys(self.FORMS, 0)
 
+    @property
+    def loaded(self) -> bool:
+        return self._fn is not None
+
     def load(self):
         """Build (if needed) and bind both libraries; returns the C
         function of the plain window."""

@@ -43,9 +43,17 @@ and are served by ``lookup_only`` probe windows that take no votes and
 no slot, chained on the newest in-flight table and settled in FIFO order
 with the writes they saw.
 
+With ``latency_target_ms`` a governor replaces the fixed ``window``: the
+wall time of each cycle that consumed a window walks ``window`` along a
+power-of-two ladder within ``[min_window, max_window]`` to keep the p99
+window latency under the target (:meth:`MeshEngine._govern`), and the
+device lane's pipe is one window deep unless the caller asks otherwise.
+``metrics`` is the engine's :class:`~rabia_tpu_torch.obs.MetricsRegistry`
+(window settle latency, window size and resizes, decided slots, the
+device and read lanes).
+
 Not ported yet, and refused with ``NotImplementedError`` rather than
-ignored: the latency governor (``latency_target_ms``) and multi-device
-meshes.
+ignored: multi-device meshes.
 """
 
 from __future__ import annotations
@@ -57,13 +65,14 @@ from dataclasses import replace
 from typing import Callable, Optional, Sequence, Union
 
 import numpy as np
-import torch
 
 from rabia_tpu_torch.core.device import DeviceLike, HostFetch, to_device
 from rabia_tpu_torch.core.errors import RabiaError, ValidationError
 from rabia_tpu_torch.core.persistence import PersistedEngineState
 from rabia_tpu_torch.core.state_machine import StateMachine
+from rabia_tpu_torch.core.tracing import device_annotation
 from rabia_tpu_torch.core.types import ABSENT, V0, V1, CommandBatch, ShardId, quorum_size
+from rabia_tpu_torch.obs import MetricsRegistry
 from rabia_tpu_torch.parallel.mesh import MeshPhaseKernel
 
 __all__ = ["MeshBlockFuture", "MeshEngine", "MeshFuture"]
@@ -293,6 +302,11 @@ class MeshEngine:
         caller passes another.
     window:
         Slots decided per shard per device dispatch.
+    latency_target_ms:
+        When set, a governor replaces the manual window knob: measured
+        per-window wall time walks ``window`` along a power-of-two
+        ladder within [min_window, max_window] to keep the p99 window
+        latency under the target (see :meth:`run_cycle`).
     device_store:
         Keep the KV table on the device (needs ``VectorShardedKV``
         replicas, the demotion target); ``device_store_kw`` goes to
@@ -301,7 +315,9 @@ class MeshEngine:
         Full-width cycles between re-promotion attempts after a demotion
         (0 stays on the host path).
     device_store_inflight:
-        Dispatched-but-unresolved device windows (pipe depth, default 3).
+        Dispatched-but-unresolved device windows (pipe depth; default 3,
+        or 1 under a latency target: each extra window delays a future's
+        settlement by one more window).
     device_read_lane:
         Serve full-width GET blocks of the device lane off consensus, in
         ``lookup_only`` probe windows (zero slots). A probe read may see
@@ -329,14 +345,12 @@ class MeshEngine:
         device_store_inflight: Optional[int] = None,
         device_read_lane: bool = False,
         latency_target_ms: Optional[float] = None,
+        min_window: int = 1,
+        max_window: int = 256,
     ) -> None:
         if mesh is not None:
             raise NotImplementedError(
                 "multi-device meshes are not ported yet (ROADMAP Queue 1, item 5)"
-            )
-        if latency_target_ms is not None:
-            raise NotImplementedError(
-                "the latency governor and metrics are not ported yet (ROADMAP Queue 1, item 3)"
             )
         if n_shards < 1 or n_replicas < 1:
             raise ValidationError("need at least 1 shard and 1 replica")
@@ -369,6 +383,68 @@ class MeshEngine:
         self.decided_v0 = 0
         self.divergences = 0  # replicas disagreeing on an apply outcome
         self.cycles = 0
+        # latency governor (see run_cycle/_govern): auto-tunes `window`
+        # against a p99 wall-time target instead of the manual knob
+        if latency_target_ms is not None and latency_target_ms <= 0:
+            raise ValidationError("latency_target_ms must be positive")
+        self.latency_target_ms = (
+            float(latency_target_ms) if latency_target_ms is not None else None
+        )
+        self.min_window = max(1, int(min_window))
+        self.max_window = max(self.min_window, int(max_window))
+        if self.latency_target_ms is not None:
+            # the governor walks W within [min_window, max_window]; the
+            # starting size must already be on that ladder
+            self.window = min(self.max_window, max(self.min_window, self.window))
+        self.window_resizes = 0
+        self._lat_samples: deque[float] = deque(maxlen=64)
+        # dispatch->settle wall time of resolved device windows (ms): the
+        # latency a client observes through the pipelined commit (at pipe
+        # depth d a window settles ~d cycles after dispatch, which
+        # per-cycle samples cannot see). Collected in device mode whether
+        # or not a target is set; reported via governor_stats
+        self._lat_settle: deque[float] = deque(maxlen=64)
+        # observability: the mesh plane's slice of the commit-pipeline
+        # breakdown, a window dispatch->settle histogram plus pull gauges
+        m = self.metrics = MetricsRegistry()
+        self._h_window_settle = m.histogram(
+            "commit_stage_seconds",
+            "Device window dispatch→settle latency (the mesh plane's "
+            "propose→apply span)",
+            {"stage": "window_settle"},
+        )
+        m.gauge("mesh_window", "Current window size", fn=lambda: self.window)
+        m.counter(
+            "mesh_window_resizes_total", "Governor window resizes",
+            fn=lambda: self.window_resizes,
+        )
+        m.counter(
+            "engine_decided_total", "Slots decided (bulk device lane)",
+            {"value": "v1"}, fn=lambda: self.decided_v1,
+        )
+        m.gauge(
+            "mesh_device_lane_active",
+            "1 while the device-resident KV lane is serving windows",
+            fn=lambda: 1 if self._dev_active else 0,
+        )
+        self._lat_saturated = False
+        # set by _govern when the target is below the measured floor at
+        # min_window (no window size can meet it); see governor_stats()
+        self.latency_target_unachievable = False
+        self._lat_floor_ms: Optional[float] = None
+        # anti-oscillation: last window size that overshot the target
+        # (upsizing will not re-enter it until the ceiling ages out)
+        self._lat_ceiling: Optional[int] = None
+        self._lat_ceiling_age = 0
+        # cycles to leave untimed: the first cycle at any window size. In
+        # the reference it pays that size's jit compile; the port builds
+        # nothing per size, but keeps the rule so that a governed run
+        # takes the same samples (a library built or loaded on first use
+        # voids its cycle through _lat_invalidate instead)
+        self._lat_skip = 1
+        # set by lane demotions DURING a timed cycle: that sample is void
+        self._lat_invalidate = False
+        self._lat_timing = False  # a governed cycle is being timed now
         # speculative next-window dispatch (full-width lane): (key, host
         # fetch) dispatched before the current window's readback, used only
         # when the engine state it assumed (depth, base slots, alive mask)
@@ -423,9 +499,49 @@ class MeshEngine:
         # (slot), value-plane downloads (fallback; overlaps the other
         # two), probe windows dispatched
         self._read_stats = {"probe": 0, "slot": 0, "fallback": 0, "probe_windows": 0}
+        for _path in ("probe", "slot", "fallback"):
+            m.counter(
+                "devkv_read_total",
+                "Device-lane GET ops by serving path: probe = "
+                "off-consensus lookup_only windows (zero slots), slot = "
+                "consensus-window GETs, fallback = value-plane download "
+                "events (eviction edge; overlaps the other two)",
+                {"path": _path},
+                fn=(lambda p=_path: self._read_stats[p]),
+            )
+        m.counter(
+            "devkv_read_probe_windows_total",
+            "Consensus-free lookup_only probe windows dispatched",
+            fn=lambda: self._read_stats["probe_windows"],
+        )
+        self._h_read_batch = m.histogram(
+            "devkv_read_batch_ops",
+            "GET blocks coalesced per probe window (batching factor of "
+            "the read-index lane)",
+            buckets=tuple(float(1 << i) for i in range(11)),
+        )
+        # randomized-termination evidence: the colocated lockstep mesh
+        # decides every counted slot unanimously in its first phase (a
+        # theorem of the model, not a measurement), so the curve is a
+        # spike at 1 sourced from the decision counter
+        _phase_bounds = tuple(float(b) for b in range(1, 33))
+
+        def _mesh_phase_curve():
+            d = int(self.decided_v1)
+            return [d] + [0] * 31, d, float(d)
+
+        m.histogram(
+            "phases_to_decide",
+            "Weak-MVC phases per decided slot (colocated lockstep: "
+            "every decided slot is unanimous, phase 1 by construction)",
+            buckets=_phase_bounds,
+            fn=_mesh_phase_curve,
+        )
         self._dev_repromote = max(0, int(device_store_repromote))
         self._dev_cooldown = 0
-        self._dev_inflight = max(1, int(3 if device_store_inflight is None else device_store_inflight))
+        if device_store_inflight is None:
+            device_store_inflight = 1 if self.latency_target_ms is not None else 3
+        self._dev_inflight = max(1, int(device_store_inflight))
 
     # -- client surface ------------------------------------------------------
 
@@ -513,7 +629,215 @@ class MeshEngine:
         dispatch, then apply + settle. Returns batches applied (on the
         device lane: batches of the windows that resolved). With the read
         lane, the eligible skimmed GETs are served first, in one probe
-        window."""
+        window.
+
+        With ``latency_target_ms`` set, each working cycle's wall time
+        feeds the window governor (see :meth:`_govern`), which walks
+        ``window`` up and down a power-of-two ladder to keep the p99
+        window latency under the target."""
+        if self.latency_target_ms is None:
+            return self._run_cycle_inner()
+        self._lat_saturated = False
+        self._lat_invalidate = False
+        self._lat_timing = True
+        cycles_before = self.cycles
+        t0 = time.perf_counter()
+        try:
+            applied = self._run_cycle_inner()
+        finally:
+            self._lat_timing = False
+        if self.cycles > cycles_before:
+            # time only cycles that consumed a window (an idle probe
+            # costs ~µs and would drown the window samples). A lane
+            # demotion mid-cycle (device -> host, block -> scalar) runs
+            # a second dispatch inside this one sample: one-off
+            # machinery, not steady-state latency
+            invalid = self._lat_invalidate
+            self._lat_invalidate = False
+            if self._lat_skip:
+                self._lat_skip -= 1  # the first cycle at this size
+            elif not invalid:
+                dt_ms = (time.perf_counter() - t0) * 1e3
+                self._lat_samples.append(dt_ms)
+                self._govern(dt_ms)
+        return applied
+
+    def _p99(self) -> float:
+        """Interpolated empirical p99 over the current samples (numpy
+        linear interpolation): with n samples it sits between the two
+        top order statistics, weighted toward the max only as n grows
+        past ~100, so one outlier among 30 quiet samples reads as "p99
+        near the second-worst", which is what a latency SLO tracks."""
+        return float(np.percentile(np.asarray(self._lat_samples), 99))
+
+    def _p99_decision(self) -> float:
+        """The p99 estimate the governor acts on: one-outlier-trimmed.
+
+        With the <=64 samples a resize decision sees, any interpolated
+        p99 is dominated by the top order statistic, so one glitch would
+        pin it above any target until it left the deque. At n>=8 the
+        decision estimate drops the single worst sample: a lone glitch
+        reads as "p99 near the second-worst", while genuine overload
+        (the second-worst is also over target) still trips it one sample
+        later. Reporting (:meth:`governor_stats`, :meth:`_p99`) stays
+        untrimmed: the SLO view must not hide outliers."""
+        a = np.asarray(self._lat_samples)
+        if a.size >= 8:
+            a = np.sort(a)[:-1]
+        return float(np.percentile(a, 99))
+
+    def _govern(self, dt_ms: float) -> None:
+        """Latency-target window control (multiplicative ladder), rule
+        for rule the reference's.
+
+        Downsize: two >2x overshoots among the last 8 samples, or the
+        trimmed p99 decision estimate (:meth:`_p99_decision`) over the
+        target after 8 samples (so the one-outlier trim is engaged). A
+        downsize drops one rung when the breach is shallow, and
+        fast-descends straight to ``min_window`` when the trimmed p99 is
+        itself >2x the target (with >=4 samples). A lone overshoot does
+        not downsize: genuine overload produces a second one within a
+        sample or two, a glitch does not.
+
+        Upsize: with the trimmed p99 <= 0.7x target AND demand saturating
+        the current window (a deeper window would amortize more), W
+        doubles after 8 samples. Samples clear on every resize, so each
+        decision is measured at the current W.
+
+        Anti-oscillation: a downsize records the size that failed as a
+        CEILING, and upsizing never re-enters a size at or above a live
+        ceiling. The ceiling ages out after 256 governed samples, and is
+        PROBED early when the current size shows sustained deep headroom
+        (trimmed p99 <= 0.5x target over >=16 samples): the ceiling
+        clears and W re-enters the evicted size; if that size cannot
+        hold the target, the downsize path sets the ceiling again within
+        a few samples.
+
+        Unachievability: when W is already ``min_window`` and the
+        trimmed p99 still exceeds the target, no window size can meet it
+        (the floor is the dispatch, not the window's depth).
+        ``latency_target_unachievable`` flips True, a warning logs once
+        with the measured floor, and :meth:`governor_stats` reports it.
+        It clears when the p99 at min_window comes back under target."""
+        s = self._lat_samples
+        t = self.latency_target_ms
+        p99d = self._p99_decision()
+        if self._lat_ceiling is not None:
+            self._lat_ceiling_age += 1
+            if self._lat_ceiling_age > 256:
+                self._lat_ceiling = None
+        if self.window == self.min_window and len(s) >= 8:
+            if p99d > t:
+                self._lat_floor_ms = p99d
+                if not self.latency_target_unachievable:
+                    self.latency_target_unachievable = True
+                    logger.warning(
+                        "latency target %.3gms is unachievable: p99 at "
+                        "min_window=%d is %.3gms (dispatch floor); "
+                        "governor parked",
+                        t,
+                        self.min_window,
+                        p99d,
+                    )
+            elif self.latency_target_unachievable:
+                self.latency_target_unachievable = False
+                self._lat_floor_ms = None
+        # corroboration is RECENT: two >2x overshoots among the last 8
+        # samples, so a stale glitch cannot corroborate a fresh one in
+        # the n<8 regime where the p99 path is still off (at n<8 an
+        # untrimmed estimate IS the glitch). Two glitches within one
+        # >=8-sample window do trip the p99 path: 2 of 64 samples over
+        # 2x target is a >1% exceedance, a genuine p99 breach
+        spikes = sum(1 for x in list(s)[-8:] if x > 2.0 * t)
+        if (
+            (len(s) >= 2 and spikes >= 2)
+            or (len(s) >= 8 and p99d > t)
+        ) and self.window > self.min_window:
+            self._lat_ceiling = self.window  # this size failed
+            self._lat_ceiling_age = 0
+            if p99d > 2.0 * t and len(s) >= 4:
+                # fast descent: overshooting by 2x even on the trimmed
+                # estimate means the target is at or below the dispatch
+                # floor: jump there; if the target is achievable there,
+                # the upsize path climbs back with evidence
+                self.window = self.min_window
+            else:
+                self.window = max(self.min_window, self.window // 2)
+            s.clear()
+            self._lat_skip = 1
+            self.window_resizes += 1
+        elif (
+            len(s) >= 8
+            and p99d <= 0.7 * t
+            and self._lat_saturated
+            and self.window < self.max_window
+        ):
+            blocked = (
+                self._lat_ceiling is not None
+                and self.window * 2 >= self._lat_ceiling
+            )
+            if blocked and len(s) >= 16 and p99d <= 0.5 * t:
+                self._lat_ceiling = None  # probe the evicted size
+                blocked = False
+            if not blocked:
+                self.window = min(self.max_window, self.window * 2)
+                s.clear()
+                self._lat_skip = 1
+                self.window_resizes += 1
+
+    def governor_stats(self) -> dict:
+        """Observable governor state: current window, resize count, the
+        p99 estimate over recent samples, and whether the configured
+        target is below the measured hardware floor."""
+        return {
+            "window": self.window,
+            "resizes": self.window_resizes,
+            "samples": len(self._lat_samples),
+            "p99_ms": (
+                round(self._p99(), 3) if self._lat_samples else None
+            ),
+            # what the control loop acts on (one-outlier-trimmed; see
+            # _p99_decision) — diverges from p99_ms when a lone glitch
+            # is in the sample window
+            "p99_decision_ms": (
+                round(self._p99_decision(), 3)
+                if self._lat_samples
+                else None
+            ),
+            "target_ms": self.latency_target_ms,
+            "unachievable": self.latency_target_unachievable,
+            "floor_ms": (
+                round(self._lat_floor_ms, 3)
+                if self._lat_floor_ms is not None
+                else None
+            ),
+            "ceiling_window": self._lat_ceiling,
+            # client-observed dispatch->settle latency through the
+            # pipelined commit (~inflight x window time when
+            # saturated — the p99 a settle-latency SLO would see).
+            # Both report None while the device lane is inactive: no
+            # pipelined commit exists then, and frozen device-era
+            # samples must not read as live latency
+            "inflight": (
+                self._dev_inflight
+                if self._dev is not None and self._dev_active
+                else None
+            ),
+            "settle_p99_ms": (
+                round(
+                    float(
+                        np.percentile(np.asarray(self._lat_settle), 99)
+                    ),
+                    3,
+                )
+                if self._lat_settle
+                and self._dev is not None
+                and self._dev_active
+                else None
+            ),
+        }
+
+    def _run_cycle_inner(self) -> int:
         served = 0
         if (
             self._dev_active
@@ -550,7 +874,9 @@ class MeshEngine:
             # there (an IDLE cycle must NOT demote)
             self._demote_device_store()
         W = self.window
-        depth = np.minimum([len(q) for q in self.queues], W).astype(np.int64)
+        lens = [len(q) for q in self.queues]
+        depth = np.minimum(lens, W).astype(np.int64)
+        self._lat_saturated |= max(lens) >= W  # a deeper window had demand
         if not depth.any():
             return 0
         # initial votes: every live replica votes V1 for a slot whose
@@ -611,6 +937,7 @@ class MeshEngine:
 
         W = self.window
         n = self.n_shards
+        self._lat_saturated |= len(self._full_blocks) >= W
         # uniform SET runs take the lean SET program, uniform GET runs the
         # read-only lookup; a kind boundary inside the window, a block
         # mixing kinds, or DEL/EXISTS runs take the mixed program over the
@@ -636,7 +963,7 @@ class MeshEngine:
             # reach the caller
             applied = self._dev_drain_pipe()
             self._demote_device_store()
-            return applied + self.run_cycle()
+            return applied + self._run_cycle_inner()
         base = np.zeros(self.S, np.int32)
         base[:n] = self.next_slot
         # PIPELINED COMMIT: dispatch window k chained on the UNRESOLVED
@@ -644,11 +971,14 @@ class MeshEngine:
         # optimistically, and read window k-1's flags only later; a dirty
         # flag rolls back every optimistic window and demotes
         state_base = self._dev_chain_base()
-        with torch.profiler.record_function("rabia.devkv.decide_apply"):
+        with device_annotation("rabia.devkv.decide_apply", self.device):
             new_state, flags_dev = self._dev.decide_apply(
                 self.alive, base, depth, ops, W=W,
                 max_phases=self.max_phases, state=state_base,
             )
+        # a library built or loaded inside this dispatch: one-off
+        # machinery, not window latency
+        self._lat_invalidate |= self._dev.compiled_on_last_call and self._lat_timing
         self.cycles += 1
         # version responses are DERIVED, not transferred: a clean all-V1
         # full-width SET window advances every shard's version by exactly
@@ -721,7 +1051,14 @@ class MeshEngine:
     def _dev_push_window(self, rec) -> int:
         """Append an in-flight window record and enforce the pipe depth:
         beyond ``device_store_inflight`` windows, resolve the oldest."""
+        rec["t0"] = time.perf_counter()
         self._dev_pipe.append(rec)
+        if self._dev.compiled_on_last_call:
+            # a library was built or loaded inside this dispatch: that
+            # one-off time sat between every in-flight window's dispatch
+            # and its resolve, so their settle samples are void
+            for r in self._dev_pipe:
+                r["lat_taint"] = True
         applied = 0
         while len(self._dev_pipe) > self._dev_inflight:
             applied += self._dev_resolve_one()
@@ -793,6 +1130,7 @@ class MeshEngine:
                 # rolled-back blocks predate everything in the queues:
                 # push them to the FRONT, or the host path would apply
                 # out of submission order
+                self._lat_invalidate |= self._lat_timing
                 self._spec = None
                 while self._full_blocks:
                     block, bfut, _inv = self._full_blocks.pop()
@@ -805,6 +1143,13 @@ class MeshEngine:
             self._demote_device_store()
             return 0
         self._dev_pipe.pop(0)
+        # dispatch->settle latency: what a client waits at the current
+        # pipe depth (depth multiplies it, which is why a latency target
+        # defaults to depth 1); surfaced via governor_stats
+        if not rec.get("lat_taint"):
+            dt = time.perf_counter() - rec["t0"]
+            self._lat_settle.append(dt * 1e3)
+            self._h_window_settle.observe(dt)
         # "get" windows are read-only: new_state is the table they
         # chained on, so adopting is a no-op by value
         self._dev.adopt(rec["new_state"])
@@ -981,13 +1326,15 @@ class MeshEngine:
             self._demote_device_store()
             return applied
         state_base = self._dev_chain_base()
-        with torch.profiler.record_function("rabia.devkv.read_probe"):
+        with device_annotation("rabia.devkv.read_probe", self.device):
             found_d, ver_d, vlen_d, valw_d = self._dev.lookup_only(packed, W=W, state=state_base)
+        self._lat_invalidate |= self._dev.compiled_on_last_call and self._lat_timing
         self.cycles += 1
         depth = len(batch)
         n = self.n_shards
         self._read_stats["probe"] += depth * n
         self._read_stats["probe_windows"] += 1
+        self._h_read_batch.observe(float(depth))
         return self._dev_push_window(
             {
                 "kind": "read",
@@ -1018,15 +1365,16 @@ class MeshEngine:
         if packed is None:
             applied = self._dev_drain_pipe()
             self._demote_device_store()
-            return applied + self.run_cycle()
+            return applied + self._run_cycle_inner()
         base = np.zeros(self.S, np.int32)
         base[:n] = self.next_slot
         state_base = self._dev_chain_base()
-        with torch.profiler.record_function("rabia.devkv.lookup_window"):
+        with device_annotation("rabia.devkv.lookup_window", self.device):
             all_v1_d, found_d, ver_d, vlen_d, valw_d = self._dev.lookup_window(
                 self.alive, base, depth, packed, W=W,
                 max_phases=self.max_phases, state=state_base,
             )
+        self._lat_invalidate |= self._dev.compiled_on_last_call and self._lat_timing
         self.cycles += 1
         self._read_stats["slot"] += depth * n  # GETs that consumed slots
         self._dev_commit_window(entries, depth)
@@ -1060,7 +1408,7 @@ class MeshEngine:
         if packed is None:
             applied = self._dev_drain_pipe()
             self._demote_device_store()
-            return applied + self.run_cycle()
+            return applied + self._run_cycle_inner()
         # the value planes in the row form whatever form the ops travel in:
         # the segments answer GETs from them
         kind, ops, vlen_plane, vwin_plane = packed
@@ -1074,11 +1422,12 @@ class MeshEngine:
         base = np.zeros(self.S, np.int32)
         base[:n] = self.next_slot
         state_base = self._dev_chain_base()
-        with torch.profiler.record_function("rabia.devkv.mixed_apply"):
+        with device_annotation("rabia.devkv.mixed_apply", self.device):
             new_state, flags_dev, meta_dev, gval_dev = self._dev.mixed_apply(
                 self.alive, base, count, kind, get_waves, ops, W=W,
                 max_phases=self.max_phases, state=state_base,
             )
+        self._lat_invalidate |= self._dev.compiled_on_last_call and self._lat_timing
         self.cycles += 1
         self._read_stats["slot"] += int((kind == 2).sum())  # GETs that consumed slots
         # derived SET versions: host mirror + inclusive per-shard SET
@@ -1199,7 +1548,13 @@ class MeshEngine:
             self._dev_drain_pipe()
             if not self._dev_active:
                 return
+        # a lane switch DURING a timed cycle voids that cycle's latency
+        # sample; from outside a cycle there is no sample to void
+        self._lat_invalidate |= self._lat_timing
         self._dev_active = False
+        # device-era settle samples must not read as live latency from
+        # the host path (re-promotion starts a fresh population)
+        self._lat_settle.clear()
         self._dev_cooldown = self._dev_repromote  # earn the way back
         # parked reads leave with the lane: they re-enter as full-width
         # blocks at the back of the staged stream (behind any rolled-back
@@ -1243,6 +1598,7 @@ class MeshEngine:
             # writes a fresh read must wait behind
             self._dev_wseq = len(self._full_blocks)
             self._dev_wdisp = 0
+            self._lat_invalidate |= self._lat_timing  # upload, not latency
             logger.info("device KV lane re-promoted from host stores")
         else:
             self._dev_cooldown = self._dev_repromote
@@ -1260,6 +1616,7 @@ class MeshEngine:
         W = self.window
         n = self.n_shards
         depth = min(len(self._full_blocks), W)
+        self._lat_saturated |= len(self._full_blocks) >= W
         base = np.zeros(self.S, np.int32)
         base[:n] = self.next_slot
         key = (depth, base.tobytes(), self.alive.tobytes())
@@ -1288,7 +1645,7 @@ class MeshEngine:
             # general path with the SAME (deterministically re-decided)
             # votes; demotion preserves per-shard FIFO order
             self._demote_full_blocks()
-            return self.run_cycle()  # second dispatch; cycles counts both
+            return self._run_cycle_inner()  # second dispatch; cycles counts both
         entries = [self._full_blocks[i] for i in range(depth)]
         self._dev_commit_window(entries, depth)
         if len(entries) == 1 or not self._apply_entries_multi(entries):
@@ -1305,6 +1662,7 @@ class MeshEngine:
     def _demote_full_blocks(self) -> None:
         """Move staged full-width blocks onto the per-shard queues (the
         general path's representation), preserving submission order."""
+        self._lat_invalidate |= self._lat_timing  # void only mid-cycle
         self._spec = None  # speculated on the full-width lane's slots
         while self._full_blocks:
             block, bfut, _inv = self._full_blocks.popleft()
@@ -1325,7 +1683,7 @@ class MeshEngine:
         plane to the host; returns the fetch (waited on by ``result()``),
         so a caller can dispatch the next window before reading this one.
         The caller accounts ``cycles`` when a window is CONSUMED."""
-        with torch.profiler.record_function("rabia.mesh.slot_window"):
+        with device_annotation("rabia.mesh.slot_window", self.device):
             decided = self.kernel.slot_window(
                 to_device(votes, self.device), to_device(self.alive, self.device),
                 to_device(base, self.device), n_slots=W, max_phases=self.max_phases,
@@ -1556,7 +1914,10 @@ class MeshEngine:
         if self._has_pending():
             raise RabiaError("restore requires an idle engine")
         self._spec = None  # speculated on pre-restore slot counters
+        # the restored snapshot supersedes the device lane, and its settle
+        # samples die with it (a re-promotion starts a fresh population)
         self._dev_active = False
+        self._lat_settle.clear()
         self._dev_cooldown = self._dev_repromote
         committed = np.asarray(state.per_shard_committed[: self.n_shards], np.int64)
         self.next_slot[: len(committed)] = committed

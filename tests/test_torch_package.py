@@ -118,12 +118,13 @@ def test_unported_engine_lanes_are_refused_not_ignored():
     from rabia_tpu_torch.core.errors import ValidationError
     from rabia_tpu_torch.core.state_machine import InMemoryStateMachine
 
-    for kw in (
-        {"latency_target_ms": 50.0},
-        {"mesh": object()},
-    ):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            MeshEngine(InMemoryStateMachine, 4, 3, device="cpu", **kw)
+    # multi-device meshes are refused; the latency governor is ported
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        MeshEngine(InMemoryStateMachine, 4, 3, device="cpu", mesh=object())
+    gov = MeshEngine(lambda: VectorShardedKV(4), 4, 3, device="cpu", device_store=True,
+                     window=64, latency_target_ms=50.0, min_window=2, max_window=32)
+    assert gov.governor_stats()["inflight"] == 1  # one window deep under a target
+    assert gov.min_window <= gov.window <= gov.max_window
     # the device-resident KV lane and its read lane are ported: they need
     # replicas they can demote to, and run on them
     with pytest.raises(ValidationError, match="VectorShardedKV"):

@@ -96,6 +96,29 @@ def test_pack_costs_cpu():
     assert costs["fill set"]["auto_upload_bytes"] == costs["fill set"]["rows_upload_bytes"] + 16 * S
 
 
+def test_window_ladder_cpu():
+    _, eng = chip_smoke.device_kv_lane("cpu", S, R)
+    before = (kv_window.KV_WINDOW.launches, mesh_window.MESH_WINDOW.launches)
+    ladder, err = chip_smoke.window_ladder(eng._dev, eng._dev.kernel, S, R,
+                                           chip_smoke.ladder_blocks(S))
+    assert err == 0 and sorted(ladder) == [1, 2, 4, 8, 16, 32, 64, 128, 256]
+    assert eng._dev.pack_stats["numpy"] == 0  # every ladder window went through the C gather
+    assert (kv_window.KV_WINDOW.launches, mesh_window.MESH_WINDOW.launches) == before
+
+
+def test_governed_lane_and_pack_gathers_cpu():
+    stats, engines = chip_smoke.governed_lane("cpu", S, R, groups=2)
+    assert stats["loose"]["resizes"] >= 1 and stats["loose"]["inflight"] == 1
+    assert stats["tight"]["window"] == 1 and stats["tight"]["unachievable"] is True
+    assert stats["tight"]["walk"] == [16, 8, 4, 2, 1]
+    assert any(ln.startswith("rabia_mesh_window_resizes_total") for ln in stats["prometheus"])
+    assert all(e._dev.pack_stats["numpy"] == 0 < e._dev.pack_stats["native"] for e in engines)
+    rates = chip_smoke.lane_native_vs_numpy("cpu", S, R)
+    assert [len(v) for v in rates.values()] == [2, 2]
+    costs = chip_smoke.pack_native_vs_numpy(engines[0]._dev, S, (16, 32), reps=1)
+    assert sorted(costs) == [16, 32] and len(costs[32]["native rows host ms"]) == 2
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
