@@ -7,7 +7,10 @@ Phases (each raises on failure; nothing is caught):
 1. build the CUDA sources of ``rabia_tpu_torch/csrc`` with nvcc (sm_90a),
    one nvcc per source, started together: the fused-window kernels
    (replica-major and [T,S,R]), the kv-window kernel (windows that write
-   a table, with and without the folded decision), the kv-read kernel
+   a table in the row form, and in the dictionary form on tables wider
+   than 64 slots, with and without the folded decision), the kv-dict
+   kernel (dictionary windows that write a table of at most 64 slots:
+   the waves on the dictionary's key classes), the kv-read kernel
    (windows that only read: the probe, and the GET window with its
    decision), the mesh-window kernel, the packed-window kernel and the
    round kernels (the scanned weak-MVC protocol: n rounds a launch, one
@@ -55,7 +58,10 @@ Phases (each raises on failure; nothing is caught):
    equals the plain loop's), its one launch timed beside an empty
    kernel; the packed window at bench.py's packed depth (T=393216, 2.0
    GB of unanimous-V1 words), every decision checked against the V1
-   row;
+   row; after the main path the programs still in plain PyTorch
+   (``pack_codes``, ``unpack_codes`` and ``pack_alive`` at T=32768, and
+   ``ClusterKernel.start_slot`` at S=4096 R=5) are timed by graph replay
+   beside an empty kernel;
 5. the serving lane at full width: ``MeshEngine`` over 4096 shards x 5
    replicas — SET/GET on every shard, replica snapshots, decision logs,
    minority and majority crashes, heal, checkpoint/restore;
@@ -72,7 +78,9 @@ Phases (each raises on failure; nothing is caught):
    (mesh window, wave scan, flags): SET (no kind plane), mixed and GET
    windows, crash masks with quorum-less and all-dead shards, bases near
    2^31-1, depth in {0,1,W}, max_phases in {0,1,4}, W in {1,16,40,70},
-   every output plane, the flags and the untouched input table;
+   the mixed windows also with their reads gathered to their GET waves
+   (``mixed_apply``'s meta and gval rows), every output plane, the flags
+   and the untouched input table;
 7. the device-resident KV lane at full width: a ``device_store=True``
    engine beside a host-lane engine (``VectorShardedKV`` replicas) over
    4096 shards x 5 replicas, window 16, 64-slot tables (32 B keys, 64 B
@@ -82,13 +90,16 @@ Phases (each raises on failure; nothing is caught):
    heal; every response frame, the slot counters, the decision logs and
    all replica stores are compared with the host engine's;
 8. the dictionary form and the read lane: before the main path, the
-   kv-window kernel on dictionary-form ops (the plain window; with the
-   decision as SET, mixed and lookup windows) and its read-only probe in
-   both forms, against their plain versions (ragged S, P in {7, 64,
-   130}, D in {1, 2, 17, 32}, ranks past D, W in {16, 40}); on the main
-   path, ``decide_apply``, ``lookup_window``, ``mixed_apply`` and
+   write kernels on dictionary-form ops (the kv-dict kernel for P <= 64,
+   the kv-window kernel's wide path for P = 130; the plain window, and
+   with the decision SET, mixed, mixed with gathered reads and lookup
+   windows) and the read-only probe in both forms, against their plain
+   versions (ragged S, P in {7, 64, 130}, D in {1, 2, 17, 32}, rows
+   that share a key, ranks past D, W in {1, 16, 40, 64, 256}); on the
+   main path, ``decide_apply``, ``lookup_window``, ``mixed_apply`` and
    ``lookup_only`` in the row and the dictionary form on phase 7's table
-   (one launch of their form each, no mesh launch), and a
+   (one launch of their form each, no mesh launch, one host-to-device
+   upload), and a
    ``device_read_lane=True`` engine beside a device-lane engine without
    it and a host-lane engine at 4096 shards x 5 replicas: phase 7's fill,
    then groups of 9 GET blocks and 1 SET block, flushed, under a uniform
@@ -110,7 +121,9 @@ Phases (each raises on failure; nothing is caught):
    and each one launch through the table's entry point, and
    ``slot_window`` at T=W, every output byte against the plain version;
    after the main path each kernel is timed there by graph replay beside
-   the bytes its function must move at that W; (b) phase 7's SET lane on
+   the bytes its function must move at that W (the dictionary form's
+   write windows also beside their least integer operations); (b) phase
+   7's SET lane on
    fresh engines with the C pack gather (``csrc/host_pack.cpp``, built
    with g++) and under ``RABIA_PY_DEVPACK=1`` (numpy), in turns, equal
    responses and tables, and the packers' host ms at W=16 and at the
@@ -127,8 +140,8 @@ Phases (each raises on failure; nothing is caught):
    packed every window of the main path (``pack_stats``; their counts
    are printed on a line of their own).
 
-The launch counts of the seven kernels (the kv-window and kv-read
-kernels' by form, the round kernels' by entry) are reset just before
+The launch counts of the eight kernels (the kv-window, kv-dict and
+kv-read kernels' by form, the round kernels' by entry) are reset just before
 phases 4-5, 7, 8 and 9
 (the main path) and read just after; phase 4 drives both
 fused-window entries (replica-major at full depth, and
@@ -137,8 +150,9 @@ at ``__graft_entry__``'s T=8 beside ``slot_pipeline``), the packed
 window, and both round-kernel entries (``slot_pipeline`` and
 ``run_rounds``). After it, phase 7
 checks that one ``decide_apply`` and ``mixed_apply`` each launch the
-kv-window kernel once, ``lookup_window`` and ``lookup_only`` the kv-read
-kernel once, and none the mesh-window kernel, and the kernels are timed:
+kv-window kernel (rows) or the kv-dict kernel (dictionary) once,
+``lookup_window`` and ``lookup_only`` the kv-read kernel once, and none
+the mesh-window kernel, each after one upload, and the kernels are timed:
 the fault path's one launch also with one mask for every round and with
 none, beside an empty kernel, and its bound counted over the rounds each
 shard runs before it settles. The last lines are a ``{"kernels": ...}``
@@ -658,6 +672,16 @@ def pipeline_ops(S: int, R: int, T: int, rounds: int = 2, coins: int = 0) -> int
     return T * S * (6 * R + 8) + (21 * coins if rounds >= 4 else 0)
 
 
+def dict_window_ops(S: int, P: int, D: int, W: int, K4: int) -> int:
+    """Least integer operations of a dictionary-form write window, counted
+    from what the function needs: each shard's D row keys and P slot keys
+    hashed once to a 32-bit tag (a multiply and an add a word, and the
+    length), every row's tag compared with every slot's, and 8 a wave
+    (the rank's class, an AND, two lowest-bit finds, the step's compares
+    and the mask updates)."""
+    return S * ((D + P) * (2 * K4 + 1) + D * P + 8 * W)
+
+
 def rounds_ops(R: int, shard_rounds: int) -> int:
     """The fault path's least integer operations: for each round a shard
     runs, 24 a receiver (the two ledgers' fills: an offer mask and a
@@ -832,6 +856,13 @@ def decide_kernel_vs_plain(device) -> int:
                     got = kv_window.KV_WINDOW.decide(table, kind, *planes, depth, alive, base,
                                                      seed=mk.seed, coin_p1=mk.coin_p1,
                                                      max_phases=max_phases, **kw)
+                    if mode == "mixed":  # and its reads gathered, as mixed_apply takes them
+                        g = dict(kw, gidx=_gidx(kind))
+                        want = (*want, *kv_window.decide_window_plain(
+                            mk, table, kind, *planes, depth, alive, base, max_phases, **g))
+                        got = (*got, *kv_window.KV_WINDOW.decide(
+                            table, kind, *planes, depth, alive, base, seed=mk.seed,
+                            coin_p1=mk.coin_p1, max_phases=max_phases, **g))
                     torch.cuda.synchronize(device)
                     want, got = _flat(want), _flat(got)
                     _check(len(want) == len(got), "decide window outputs differ in kind")
@@ -848,8 +879,9 @@ def random_dict_case(gen, S: int, P: int, K4: int, VW4: int, W: int, ku4: int, v
     """``random_kv_case``'s table and a window in the dictionary form:
     each shard's D rows are ``random_kv_case``'s ops of D waves, and the
     ranks pick among them (about one in thirty is D, which names no row).
-    Returns (table, kind i8[W, S], (dkl, dvl, dk, dv), idx u8[W, S],
-    depth)."""
+    About one row in four takes the key of the row before it, keeping its
+    own value: rows that share a key. Returns (table, kind i8[W, S],
+    (dkl, dvl, dk, dv), idx u8[W, S], depth)."""
     table, rows, _ = random_kv_case(gen, S, P, K4, VW4, D, ku4, vwu4, device, p_used=p_used,
                                     kinds=kinds)
     _, klen, vlen, kw, vw = rows
@@ -860,6 +892,12 @@ def random_dict_case(gen, S: int, P: int, K4: int, VW4: int, W: int, ku4: int, v
     kind = torch.tensor(kinds, dtype=torch.int8, device=device)[
         torch.randint(0, len(kinds), (W, S), generator=gen, device=device)]
     depth = int(torch.randint(0, W + 1, (), generator=gen, device=device))
+    share = torch.rand((S, D), generator=gen, device=device) < 0.25
+    share[:, 0] = False
+    dkl, _, dk, _ = dict_ops
+    for r in range(1, D):  # in order, so a run of shared rows keeps one key
+        dkl[:, r] = torch.where(share[:, r], dkl[:, r - 1], dkl[:, r])
+        dk[:, r] = torch.where(share[:, r, None], dk[:, r - 1], dk[:, r])
     return table, kind, dict_ops, idx.to(torch.uint8), depth
 
 
@@ -877,18 +915,31 @@ def _flat(outputs) -> list:
 # -- phase 8 -----------------------------------------------------------------
 
 
+def _gidx(kind: torch.Tensor) -> torch.Tensor:
+    """``mixed_apply``'s row index of a kind plane: the waves with a read,
+    padded to a power of two with wave 0 (one row where there is none)."""
+    waves = torch.nonzero((kind >= 2).any(dim=1))[:, 0].to(torch.int32)
+    out = torch.zeros(1 << max(0, len(waves) - 1).bit_length(), dtype=torch.int32,
+                      device=kind.device)
+    out[: len(waves)] = waves
+    return out
+
+
 def dict_kernel_vs_plain(device) -> int:
-    """The kv-window kernel on dictionary-form ops (plain window, with the
-    decision as SET, mixed and lookup windows) and the read-only probe in
-    both forms, against their plain versions: every output plane, the
-    flags and the untouched input table. Ragged S, P of 7, 64 and 130, D
-    in {1, 2, 17, 32}, W of 16 and 40, op widths at and below the
-    table's. Returns the largest absolute difference seen (must be 0)."""
+    """The write kernels on dictionary-form ops (``kv_dict.cu`` for P <=
+    64, ``kv_window.cu``'s wide path for P = 130): the plain window, and
+    with the decision the SET, mixed (every wave's reads, and gathered
+    to its GET waves as ``mixed_apply`` takes them) and lookup windows; and the
+    read-only probe in both forms; against their plain versions: every
+    output plane, the flags and the untouched input table. Ragged S, P of
+    7, 64 and 130, D in {1, 2, 17, 32}, W in {1, 16, 40, 64, 256}, rows
+    that share a key, op widths at and below the table's. Returns the
+    largest absolute difference seen (must be 0)."""
     gen = torch.Generator(device=device).manual_seed(18)
     worst, i = 0, 0
     for S, P, K4, VW4 in ((17, 7, 8, 16), (1000, 64, 8, 16), (33, 130, 3, 5)):
         for D in (1, 2, 17, 32):
-            for W in (16, 40):
+            for W in (1, 16, 40, 64, 256):
                 i += 1
                 ku4, vwu4 = (K4, VW4) if i % 2 else (min(2, K4), min(4, VW4))
                 table, kind, dops, idx, depth = random_dict_case(gen, S, P, K4, VW4, W, ku4, vwu4,
@@ -907,6 +958,7 @@ def dict_kernel_vs_plain(device) -> int:
                 for mode, k, planes, kw in (
                     ("set", None, dops, {}),
                     ("mixed", kind, dops, {"want_reads": True}),
+                    ("mixed gathered", kind, dops, {"want_reads": True, "gidx": _gidx(kind)}),
                     ("lookup", kv_window.KIND_GET, keys_only,
                      {"want_table": False, "want_reads": True}),
                 ):
@@ -1268,8 +1320,9 @@ def lane_programs(dkv, S: int, R: int, W: int = 16) -> dict:
     ``lookup_only`` through a device table (on its current table, read
     and written functionally: nothing is adopted), each in the row form
     and in the dictionary form: each call must be one kv-window launch
-    of its form and no mesh-window launch, and a clean window's flags
-    must be clean. Returns the packed windows, for timing."""
+    of its form, no mesh-window launch and one host-to-device upload,
+    and a clean window's flags must be clean. Returns the packed windows,
+    for timing."""
     alive, base = np.ones((S, R), bool), np.zeros(S, np.int32)
     shards = range(S)
     set_blocks = [build_block(shards, [[_set_op(_key(s, j), b"timed")] for s in shards])
@@ -1300,12 +1353,15 @@ def lane_programs(dkv, S: int, R: int, W: int = 16) -> dict:
         for what, call in calls.items():
             key = keys.get(what, f"{form}+decide")
             counts, mw0 = dict(kv_window.KV_WINDOW.counts), mesh_window.MESH_WINDOW.launches
+            up0 = dkv.uploads
             out = call()
             torch.cuda.synchronize()
             counts[key] += 1
             _check(kv_window.KV_WINDOW.counts == counts
                    and mesh_window.MESH_WINDOW.launches == mw0,
                    f"{what} ({form}) was not one kv-window launch of its form and no mesh launch")
+            _check(dkv.uploads - up0 == 1,
+                   f"{what} ({form}) made {dkv.uploads - up0} host-to-device uploads, not one")
             if what == "lookup_only":
                 _check(bool(out[0].any()), f"{what} ({form}) found nothing")
                 continue
@@ -1577,13 +1633,16 @@ def _hits(found: torch.Tensor, ver: torch.Tensor) -> int:
     return int(torch.unique((s << 32) | ver[found].to(torch.int64)).numel())
 
 
-def ladder_times(dkv, mk, S: int, R: int, ladder: dict, rate: float, reps: int = 20) -> dict:
+def ladder_times(dkv, mk, S: int, R: int, ladder: dict, rate: float,
+                 reps: int = 20) -> tuple[dict, dict]:
     """Device time (CUDA graph replay) of each ladder program's kernel at
     every W, beside its bound: the bytes that the function must read and
     write at that W (each input once, each output once; of the table, a
     read reads the used flags, keys and key lengths and the found slots'
     rows) over the card's memory rate; the slot window's also its least
-    integer operations. Returns {W: {program: (ms, bound ms)}}."""
+    integer operations. Returns {W: {program: (ms, bound ms)}}, and {W:
+    {program: ms}} of the dictionary form's write windows' least integer
+    operations (``dict_window_ops``), which their bytes outweigh."""
     state = dkv.state
     tbl = sum(x.numel() * x.element_size() for x in state)
     alive_d, base_d = dkv._upload([np.ones((S, R), bool), np.zeros(S, np.int32)])
@@ -1593,10 +1652,10 @@ def ladder_times(dkv, mk, S: int, R: int, ladder: dict, rate: float, reps: int =
     def nbytes(xs) -> int:
         return sum(x.numel() * x.element_size() for x in xs if isinstance(x, torch.Tensor))
 
-    VW4 = state.valw.shape[2]
-    times = {}
+    VW4, K4 = state.valw.shape[2], state.keyw.shape[2]
+    times, ops_ms = {}, {}
     for W, (win, (votes, valive, vbase)) in ladder.items():
-        row = {}
+        row, ops_ms[W] = {}, {}
         reads_out = W * S * (1 + 4 + 4 + 4 * VW4)
         for form in ("rows", "dict"):
             sp = _ladder_planes(dkv, None, win[f"set {form}"], W)
@@ -1604,12 +1663,21 @@ def ladder_times(dkv, mk, S: int, R: int, ladder: dict, rate: float, reps: int =
                 state, None, *a[2:], W, alive_d, base_d, idx=a[1], **decide_kw)
             row[f"set {form}"] = (_graph_ms(call, reps),
                                   (2 * tbl + nbytes(sp) + S + decide_bytes) / rate * 1e3)
+            # the mixed window as mixed_apply launches it: its reads gathered
+            # to the GET waves (G rows: version, (vlen << 1) | found, value)
             kind, mixed = win[f"mixed {form}"]
             mp = _ladder_planes(dkv, kind, mixed, W)
-            call = lambda i=0, a=mp: kv_window.KV_WINDOW.decide(  # noqa: E731
-                state, a[0], *a[2:], W, alive_d, base_d, idx=a[1], want_reads=True, **decide_kw)
-            row[f"mixed {form}"] = (_graph_ms(call, reps), (2 * tbl + nbytes(mp) + S + reads_out
-                                                           + decide_bytes) / rate * 1e3)
+            g = _gidx(mp[0])
+            call = lambda i=0, a=mp, g=g: kv_window.KV_WINDOW.decide(  # noqa: E731
+                state, a[0], *a[2:], W, alive_d, base_d, idx=a[1], want_reads=True, gidx=g,
+                **decide_kw)
+            gathered = g.numel() * S * (8 + 4 * VW4)
+            row[f"mixed {form}"] = (_graph_ms(call, reps), (2 * tbl + nbytes((*mp, g)) + S
+                                                           + gathered + decide_bytes) / rate * 1e3)
+            if form == "dict":
+                for k, planes in (("set dict", sp), ("mixed dict", mp)):
+                    ops_ms[W][k] = dict_window_ops(S, state.used.shape[1], planes[2].shape[1], W,
+                                                   K4) / INT32_OPS_PER_S * 1e3
             gp = _ladder_planes(dkv, kv_window.KIND_GET, win[f"get {form}"], W, values=False)
             probe = lambda i=0, a=gp: kv_window.KV_WINDOW(  # noqa: E731
                 state, kv_window.KIND_GET, a[2], None, a[4], None, 0, idx=a[1], want_table=False,
@@ -1631,7 +1699,7 @@ def ladder_times(dkv, mk, S: int, R: int, ladder: dict, rate: float, reps: int =
         row["slot_window"] = (_graph_ms(mw_call, reps),
                               max(mw_bytes / rate, mw_ops / INT32_OPS_PER_S) * 1e3)
         times[W] = row
-    return times
+    return times, ops_ms
 
 
 def _drive(eng, blocks, walk: list) -> list:
@@ -1855,11 +1923,11 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
     print(f"card: {smi}")
 
-    # 1. build the six CUDA sources (one nvcc per source, started together)
-    # and the host pack gather (g++)
+    # 1. build the seven CUDA sources (one nvcc per source, started
+    # together) and the host pack gather (g++)
     t0 = time.perf_counter()
-    libs = cuda_build.build(
-        ["fused_window", "kv_window", "kv_read", "mesh_window", "packed_window", "cluster_round"])
+    libs = cuda_build.build(["fused_window", "kv_window", "kv_dict", "kv_read", "mesh_window",
+                             "packed_window", "cluster_round"])
     host_lib = cuda_build.build_host("host_pack")
     HOST_PACK.load()
     fused_window.FUSED_WINDOW.load()
@@ -1982,7 +2050,7 @@ def main() -> int:
     _check(tsr_launches > 0, "the main path never launched the [T,S,R] fused window kernel")
     _check(kv_counts["rows+decide"] > 0, "the main path never launched the kv window kernel")
     _check(kv_counts["dict+decide"] > 0,
-           "the main path never launched the kv window kernel on the dictionary form")
+           "the main path never launched the dictionary kernel (kv_dict.cu)")
     _check(kv_counts["probe dict"] + kv_counts["probe rows"] > 0,
            "the main path never launched the read-only kernel as the probe")
     _check(kv_counts["lookup dict"] + kv_counts["lookup rows"] > 0,
@@ -2014,6 +2082,29 @@ def main() -> int:
     pw_bytes = 4 * (R_FULL * T_FULL * SW + R_FULL * SW + T_FULL * SW)
     pw_bytes_ms = pw_bytes / _card_rate_bytes_per_s(name) * 1e3
     pw_ops_ms = packed_ops(R_FULL, T_FULL, SW) / INT32_OPS_PER_S * 1e3
+    # the programs still in plain PyTorch: the packers of the packed
+    # window at T_FULL, and ClusterKernel.start_slot at S_FULL x R_FULL,
+    # by graph replay beside an empty kernel, with their kernel counts
+    st_start = k.init_state()
+    st_mask = torch.ones(S_FULL, dtype=torch.bool, device=device)
+    st_votes = torch.full((S_FULL, R_FULL), V1, dtype=torch.int8, device=device)
+    plain_programs = {
+        "pack_codes": (lambda i=0: packed_window.pack_codes(bufs[i % 2]),
+                       votes.numel() + 4 * packed[0].numel()),
+        "unpack_codes": (lambda i=0: packed_window.unpack_codes(packed[i % 2], S_FULL),
+                         4 * packed[0].numel() + votes.numel()),
+        "pack_alive": (lambda i=0: packed_window.pack_alive(alive), alive.numel() + 4 * alive_p.numel()),
+        "start_slot": (lambda i=0: k.start_slot(st_start, st_mask, st_votes),
+                       2 * sum(x.numel() * x.element_size() for x in st_start)
+                       + st_mask.numel() + st_votes.numel()),
+    }
+    plain_prog = {"empty kernel": (_graph_ms(lambda i=0: mesh_window.MESH_WINDOW.empty(
+        1, S_FULL, device), 200), None, 1)}
+    for pname, (fn, pbytes) in plain_programs.items():
+        prof = _device_busy(fn, 5)
+        plain_prog[pname] = (_graph_ms(fn, 20), pbytes / _card_rate_bytes_per_s(name) * 1e3,
+                             prof["kernels"])
+    del st_start
     deep_bytes = 4 * (R_FULL * T_PACKED * SW + R_FULL * SW + T_PACKED * SW)
     deep_bound_ms = max(deep_bytes / _card_rate_bytes_per_s(name) * 1e3,
                         packed_ops(R_FULL, T_PACKED, SW) / INT32_OPS_PER_S * 1e3)
@@ -2147,30 +2238,31 @@ def main() -> int:
     mw_ops_ms = mw_ops / INT32_OPS_PER_S * 1e3
 
     # the kv window at the lane's shapes: a full random table (every op
-    # scans all P slots), W=16 mixed ops at the table's widths; alone and
-    # with the window's decision folded in, in turns
+    # scans all P slots), W=16 mixed ops at the table's widths, the reads
+    # gathered to the GET waves as mixed_apply launches it; alone and with
+    # the window's decision folded in, in turns
     gen = torch.Generator(device=device).manual_seed(8)
     K4, VW4, W = 8, 16, 16
     table, ops, _ = random_kv_case(gen, S_FULL, P_FULL, K4, VW4, W, K4, VW4, device, p_used=1.0)
-    kv_call = lambda i=0: kv_window.KV_WINDOW(table, *ops, W, want_reads=True)  # noqa: E731
+    rkw = dict(want_reads=True, gidx=_gidx(ops[0]))
+    kv_call = lambda i=0: kv_window.KV_WINDOW(table, *ops, W, **rkw)  # noqa: E731
     fold_call = lambda i=0: kv_window.KV_WINDOW.decide(  # noqa: E731
-        table, *ops, W, walive, wbase, seed=mk.seed, coin_p1=mk.coin_p1, max_phases=4,
-        want_reads=True)
+        table, *ops, W, walive, wbase, seed=mk.seed, coin_p1=mk.coin_p1, max_phases=4, **rkw)
     kv_turns = [_graph_ms(kv_call, 50)]  # device time of the kernel alone
     fold_turns = [_graph_ms(fold_call, 50), _graph_ms(fold_call, 50)]
     kv_turns.append(_graph_ms(kv_call, 50))
     kv_ms, fold_ms = min(kv_turns), min(fold_turns)
     kv_call_ms = _time_ms(kv_call, 20)  # one wrapper call, host launch time included
     fold_call_ms = _time_ms(fold_call, 20)
-    kv_plain_ms = _time_ms(lambda i=0: kv_window.kv_window_plain(table, *ops, W, want_reads=True), 3)
+    kv_plain_ms = _time_ms(lambda i=0: kv_window.kv_window_plain(table, *ops, W, **rkw), 3)
     fold_plain_ms = _time_ms(lambda i=0: kv_window.decide_window_plain(
-        mk, table, *ops, W, walive, wbase, 4, want_reads=True), 3)
+        mk, table, *ops, W, walive, wbase, 4, **rkw), 3)
     fold_err = max(_max_err(a, b) for a, b in zip(
-        _flat(kv_window.decide_window_plain(mk, table, *ops, W, walive, wbase, 4, want_reads=True)),
+        _flat(kv_window.decide_window_plain(mk, table, *ops, W, walive, wbase, 4, **rkw)),
         _flat(fold_call())))
     tbl_bytes = sum(x.numel() * x.element_size() for x in table)
-    op_bytes = sum(x.numel() * x.element_size() for x in ops)
-    read_bytes = W * S_FULL * (1 + 4 + 4 + 4 * VW4) + S_FULL
+    op_bytes = sum(x.numel() * x.element_size() for x in (*ops, rkw["gidx"]))
+    read_bytes = rkw["gidx"].numel() * S_FULL * (8 + 4 * VW4) + S_FULL
     decide_bytes = walive.numel() + 4 * wbase.numel() + 4 * 3  # alive, base, flags
     rate = _card_rate_bytes_per_s(name)
     kv_bound_ms = (2 * tbl_bytes + op_bytes + read_bytes) / rate * 1e3
@@ -2260,6 +2352,8 @@ def main() -> int:
     # bounds: each input byte read once, each output byte written once
     nbytes = lambda xs: sum(x.numel() * x.element_size() for x in xs if x is not None)  # noqa: E731
     dict_bound_ms = (2 * tbl_bytes + nbytes(fill_dict) + S_FULL + decide_bytes) / rate * 1e3
+    dict_ops_ms = dict_window_ops(S_FULL, P_FULL, int(fill_dict[1].shape[1]), W,
+                                  state.keyw.shape[2]) / INT32_OPS_PER_S * 1e3
     zdict_bound_ms = (2 * tbl_bytes + nbytes(zipf_dict) + S_FULL + decide_bytes) / rate * 1e3
     # the probe reads the shards' used flags, keys and key lengths, and for
     # each distinct slot a GET finds, its version, value length and value
@@ -2278,7 +2372,7 @@ def main() -> int:
     # one whole SET window of the device lane (one upload, one launch) on
     # the phase-7 table, under the profiler
     lane_prof = _device_busy(lambda i=0: dkv.decide_apply(
-        lane_alive, lane_base, W, win["set dict"], W=W), 10, kernel="kv_window")
+        lane_alive, lane_base, W, win["set dict"], W=W), 10, kernel="kv_dict")
     rows_prof = _device_busy(lambda i=0: dkv.decide_apply(
         lane_alive, lane_base, W, win["set rows"], W=W), 10, kernel="kv_window")
     slot_prof = _device_busy(lambda i=0: mk.slot_window(wvotes, walive, wbase, n_slots=16), 10)
@@ -2286,7 +2380,7 @@ def main() -> int:
     # the ladder's kernels by graph replay beside their bounds, and the
     # packers with the C gather and with numpy at W=16 and at the largest
     # window the governed lane reached
-    ladder_ms = ladder_times(dkv, dkv.kernel, S_FULL, R_FULL, ladder, rate)
+    ladder_ms, ladder_ops_ms = ladder_times(dkv, dkv.kernel, S_FULL, R_FULL, ladder, rate)
     gov_top = max(gov["loose"]["walk"])
     pack9 = pack_native_vs_numpy(dkv, S_FULL, sorted({16, gov_top}))
 
@@ -2358,6 +2452,12 @@ def main() -> int:
           f"{fault_bytes_all / _card_rate_bytes_per_s(name) * 1e3:.5f} ms); the whole run_rounds "
           f"call (80 mask draws, one launch) {fault_run_ms:.4f} ms; plain: 80 round_step_plain on "
           f"the same masks {fault_plain_ms:.3f} ms, run_rounds_plain {fault_plain_run_ms:.3f} ms")
+    print(f"phase 4 plain programs (device ms by CUDA graph replay / bytes bound ms / kernels a "
+          f"call under the profiler): pack_codes, unpack_codes at S={S_FULL} R={R_FULL} "
+          f"T={T_FULL}, pack_alive, start_slot at S={S_FULL} R={R_FULL}, beside an empty kernel "
+          f"of the mesh window's grid: " + ", ".join(
+              f"{pname} {ms:.4f} / " + ("-" if b is None else f"{b:.5f}") + f" / {nk}"
+              for pname, (ms, b, nk) in plain_prog.items()))
     print(f"phase 5 serving lane S={S_FULL} R={R_FULL} window=16: {json.dumps(lane)}; "
           f"slot_window on the device {window_ms:.4f} ms, {device_share:.2%} of the first submit+flush")
     print(f"phase 7 device KV lane S={S_FULL} R={R_FULL} window=16 P={P_FULL}: "
@@ -2387,7 +2487,8 @@ def main() -> int:
           f"device time (CUDA graph replay), in turns (rows, dict, zipf, dict, zipf, rows): rows "
           f"{set_turns['rows'][0]:.4f} / {set_turns['rows'][1]:.4f} ms, dictionary D=16 "
           f"{set_turns['dict'][0]:.4f} / {set_turns['dict'][1]:.4f} ms "
-          f"({dict_bound_ms / dict_ms:.1%} of its {dict_bound_ms:.4f} ms bytes bound), "
+          f"({dict_bound_ms / dict_ms:.1%} of its {dict_bound_ms:.4f} ms bytes bound; least int "
+          f"ops {dict_ops_ms:.5f} ms), "
           f"Zipf dictionary D={int(zipf_dict[1].shape[1])} {set_turns['zipf'][0]:.4f} / "
           f"{set_turns['zipf'][1]:.4f} ms ({zdict_bound_ms / zdict_ms:.1%} of "
           f"{zdict_bound_ms:.4f} ms); plain {dict_plain_ms:.3f} ms; max_abs_err {dict_err}")
@@ -2403,9 +2504,9 @@ def main() -> int:
           f"({lookup_bound_ms / lookup_ms:.1%}); plain {probe_plain_ms:.3f} ms probe, "
           f"{lookup_plain_ms:.3f} ms GET window; one lookup_only call under the profiler: "
           f"{_fmt(probe_prof)}; max_abs_err {probe_err} probe, {lookup_err} GET window")
-    print(f"phase 7 one device-lane SET window (one upload, one kv_window launch with the "
+    print(f"phase 7 one device-lane SET window (one upload, one kv_dict launch with the "
           f"decision, dictionary form) under the profiler: {_fmt(lane_prof)}"
-          + ("" if lane_prof["kernel_ms"] is None else f", kv_window {lane_prof['kernel_ms']:.4f} ms")
+          + ("" if lane_prof["kernel_ms"] is None else f", kv_dict {lane_prof['kernel_ms']:.4f} ms")
           + f"; the row form {_fmt(rows_prof)}"
           + ("" if rows_prof["kernel_ms"] is None else f", kv_window {rows_prof['kernel_ms']:.4f} ms"))
     print(f"phase 7 slot_window alone (S={S_FULL} R={R_FULL} 16 slots; the queue and host block "
@@ -2423,7 +2524,9 @@ def main() -> int:
           f"against plain ({t9a:.2f} s)")
     for Wl, row in ladder_ms.items():
         print(f"phase 9 ladder W={Wl}: device ms (CUDA graph replay) / bound ms / share: " + ", ".join(
-            f"{k} {ms:.4f} / {b:.5f} / {b / ms:.1%}" for k, (ms, b) in row.items()))
+            f"{k} {ms:.4f} / {b:.5f} / {b / ms:.1%}" for k, (ms, b) in row.items())
+            + "; the dictionary form's least int ops: " + ", ".join(
+                f"{k} {o:.5f} ms" for k, o in ladder_ops_ms[Wl].items()))
     print(f"phase 9 governed device lane S={S_FULL} R={R_FULL} P={P_FULL} (loose target "
           f"{GOV_LOOSE_MS} ms, tight {GOV_TIGHT_MS} ms, max_window {GOV_MAX_WINDOW}): "
           f"{json.dumps(gov)} ({t9:.2f} s with the ladder and the SET lanes)")
@@ -2476,14 +2579,16 @@ def main() -> int:
     }, {
         "name": "kv_window_dict",
         "route": "cuda",
-        "source": "rabia_tpu_torch/csrc/kv_window.cu",
+        "source": "rabia_tpu_torch/csrc/kv_dict.cu",
         "replaces": "rabia_tpu/apps/device_kv.py:1003",
-        "launches": kv_counts["dict+decide"],
+        "launches": kv_counts["dict"] + kv_counts["dict+decide"],
         "max_abs_err": max(err8, dict_err, err9),
         "ms": dict_ms,  # SET window with the decision, D = W = 16 (phase 7's fill stream)
         "plain_ms": dict_plain_ms,
-        "bound_ms": dict_bound_ms,
-        "bound_by": "bytes",
+        "bound_ms": max(dict_bound_ms, dict_ops_ms),
+        "bound_by": "bytes" if dict_bound_ms >= dict_ops_ms else "operations",
+        "bytes_bound_ms": dict_bound_ms,
+        "ops_bound_ms": dict_ops_ms,
         "library_ms": None,  # no single PyTorch call computes an associative match-and-update
     }, {
         "name": "kv_read_probe",

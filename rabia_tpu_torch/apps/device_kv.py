@@ -38,7 +38,9 @@ form (:class:`DeviceDictOps`: each shard's distinct op rows once, and a
 rank per (wave, shard)), which the ``*_auto`` packers
 choose whenever a window has at most 32 distinct rows per shard: at the
 lane's window of 16 that is every window. Every program takes either
-form; the kernel reads the dictionary in place. ``lookup_only`` is the
+form; a card runs dictionary windows that write the table on
+``csrc/kv_dict.cu`` (the waves on the dictionary's key classes) and
+reads the dictionary in place. ``lookup_only`` is the
 consensus-free read window of the read lane: no decision, no slot, no
 output table.
 """
@@ -55,7 +57,7 @@ import torch
 
 from rabia_tpu_torch.apps.kvstore import _result_bin
 from rabia_tpu_torch.apps.vector_kv import _RESP_DT, _USED, VectorKVStore
-from rabia_tpu_torch.core.device import to_device, to_device_all
+from rabia_tpu_torch.core.device import to_device_all
 from rabia_tpu_torch.kernel import cuda_build, kv_window
 from rabia_tpu_torch.kernel.kv_window import KIND_GET, VERSION_WRAP, KVTable
 
@@ -306,6 +308,7 @@ class DeviceKVTable:
             z(S, P, self.K4), z(S, P), z(S, P), z(S, P, self.VW4), z(S, P), z(S),
         )
         self.pack_stats = {"native": 0, "numpy": 0, "bounds_trip": 0}
+        self.uploads = 0  # host-to-device copies (_upload): one a program call
         self.compiled_on_last_call = False
         self._bound = self._libraries_bound()
 
@@ -640,27 +643,31 @@ class DeviceKVTable:
     def _upload(self, arrays: list) -> list:
         """Host arrays on the device as one copy; None stays None."""
         sent = iter(to_device_all([a for a in arrays if a is not None], self.device))
+        self.uploads += 1
         return [None if a is None else next(sent) for a in arrays]
 
     def _window(self, alive, base, depth: int, kind, ops, W: int, max_phases: int,
                 state: Optional[KVTable], *, values: bool = True, want_table: bool = True,
-                want_reads: bool = False):
+                want_reads: bool = False, gidx: Optional[np.ndarray] = None):
         """Upload one window's host arrays (ops of either form, padded to
-        W waves) in one copy, then decide and apply it
-        (:func:`kv_window.decide_window`). ``kind``: an i8[W', S] plane,
-        None (every op a SET) or ``KIND_GET`` (a read of every non-empty
-        key). Returns ``(new table or None, overflow, reads, flags)``."""
+        W waves, and ``gidx`` where the reads are gathered) in one copy,
+        then decide and apply it (:func:`kv_window.decide_window`).
+        ``kind``: an i8[W', S] plane, None (every op a SET) or
+        ``KIND_GET`` (a read of every non-empty key). Returns ``(new table
+        or None, overflow, reads, flags)``."""
         planes = self._host_ops(ops, W, values)
         plane = kind if isinstance(kind, np.ndarray) else None
         if plane is not None and plane.shape[0] < W:
             plane = np.concatenate([plane, np.zeros((W - plane.shape[0], plane.shape[1]),
                                                     plane.dtype)])
-        dev = self._upload([np.asarray(alive, bool), np.asarray(base, np.int32), plane, *planes])
-        alive_d, base_d, plane_d, idx, klen, vlen, kwin, vwin = dev
+        dev = self._upload([np.asarray(alive, bool), np.asarray(base, np.int32), plane, gidx,
+                            *planes])
+        alive_d, base_d, plane_d, gidx_d, idx, klen, vlen, kwin, vwin = dev
         out = kv_window.decide_window(
             self.kernel, self.state if state is None else state,
             plane_d if plane is not None else kind, klen, vlen, kwin, vwin, depth, alive_d,
             base_d, max_phases, idx=idx, want_table=want_table, want_reads=want_reads,
+            gidx=gidx_d,
         )
         self._note_call()
         return out
@@ -712,21 +719,19 @@ class DeviceKVTable:
         device tensors ``(new_state, flags, meta, gval)``: ``meta`` i32[2,
         Gp, S] (``[0]`` = version, ``[1]`` = ``(vlen << 1) | found``) and
         ``gval`` i32[Gp, S, VW4], gathered to the ``get_waves`` rows
-        padded to a power of two Gp."""
-        new, _, reads, flags = self._window(
-            alive, base, depth, kind, ops, W, max_phases, state, want_reads=True,
-        )
+        padded to a power of two Gp (the pad rows are wave 0's, as the
+        reference's). The wave-to-row map goes up with the ops in one
+        copy, and a card writes the gathered rows in the window's one
+        launch."""
         Gp = 1
         while Gp < max(1, len(get_waves)):
             Gp <<= 1
-        gidx = np.zeros(Gp, np.int64)
+        gidx = np.zeros(Gp, np.int32)
         gidx[: len(get_waves)] = get_waves
-        g = to_device(gidx, self.device)
-        meta = torch.stack([
-            reads.ver.index_select(0, g),
-            (reads.vlen.index_select(0, g) << 1) | reads.found.index_select(0, g).to(torch.int32),
-        ])
-        return new, flags, meta, reads.val.index_select(0, g)
+        new, _, reads, flags = self._window(
+            alive, base, depth, kind, ops, W, max_phases, state, want_reads=True, gidx=gidx,
+        )
+        return new, flags, reads.meta, reads.val
 
     def adopt(self, new_state: KVTable) -> None:
         self.state = new_state

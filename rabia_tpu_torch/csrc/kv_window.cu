@@ -16,13 +16,21 @@
 // shard's D distinct rows ([S, D, ...] planes) and a rank u8[W, S]. The
 // only place that reads op rows, issue_ops, takes each wave's row from
 // kvw::op_row, so the dictionary is read in place; the rest of the
-// kernel does not see the form.
+// kernel does not see the form. The wrapper sends dictionary windows on
+// tables of at most 64 slots to kv_dict.cu, which runs the waves on the
+// dictionary's key classes; here they come only on wider tables ("dict
+// wide" in the wrapper's counts).
+//
+// A window's reads come gathered to the waves gidx names (row g is
+// wave gidx[g]; Reads): mixed_apply's meta and gval, written by the
+// launch itself, so a mixed window is one launch and one upload. A
+// caller that wants every wave's reads passes gidx = 0..W-1.
 //
 // Bound: bytes. A window reads the table once and writes a fresh copy
 // (the programs are functional: a dirty window rolls back by keeping
 // the input table), reads the op planes once, and writes the read
-// planes when asked for. At S=4096, P=64, K=32 B, VW=64 B that is
-// ~28 MB of table each way and ~11 MB of op and read planes, ~20 us at
+// rows when asked for. At S=4096, P=64, K=32 B, VW=64 B that is
+// ~28 MB of table each way and ~11 MB of op planes and read rows, ~20 us at
 // the H100 SXM's 3.35 TB/s; the compares are a few integer operations
 // per byte.
 //
@@ -51,7 +59,7 @@
 //      every later op's cand, by whether that op's key is this one. No
 //      wave compares keys or moves a row: a GET records the slot it read
 //      and that slot's writer then, and after the loop all lanes write
-//      the read planes (16-byte stores of the value rows) and then copy
+//      the read rows (16-byte stores of the value rows) and then copy
 //      each written slot's last SET rows into place.
 //   4. Out. The fresh table leaves as TMA bulk stores of the staged
 //      planes (16-byte or 4-byte stores where a plane is not bulk-sized
@@ -124,10 +132,14 @@ struct Ops {
 
 struct Reads {
     uint8_t* overflow;  // [S], always written
-    uint8_t* found;     // [W, S] or null (with ver, vlen, val)
+    // the reads, gathered (ver null: none): row g of ver and vlen (meta
+    // i32[2, G, S]: the version, (vlen << 1) | found) and of val (gval
+    // i32[G, S, VW4]) is wave gidx[g]
     int32_t* ver;
     int32_t* vlen;
-    int32_t* val;  // [W, S, VW4]
+    int32_t* val;
+    const int32_t* gidx;
+    int G;
 };
 
 struct Dims {
@@ -414,32 +426,38 @@ __device__ void chunk_small(const Smem& m, const Dims& d, const Reads& rd, int64
         overflow = overflow || st.overflow;
     }
 
-    // ---- the read planes, from the wave-entry rows ----
-    if (rd.found != nullptr) {
+    // ---- the read rows, from the wave-entry rows: lane l takes row g0 + l,
+    // if its wave gidx[g] is in this chunk (a row a lane: a chunk walks
+    // the G rows once, and moves only its own rows' values) ----
+    if (rd.ver != nullptr) {
         const int src_c = r_src < 0 ? 0 : r_src;
         const int32_t sv = __shfl_sync(FULL, wver, src_c);
         const int32_t sl = __shfl_sync(FULL, rec.z, src_c);
-        if (lane < nw) {
-            const int64_t o = kvw::op_index(t0 + lane, d.S, s);
-            const int slot_c = r_slot < 0 ? 0 : r_slot;
-            rd.found[o] = r_found;
-            rd.ver[o] = r_slot < 0 ? 0 : (r_src < 0 ? m.ver[slot_c] : sv);
-            rd.vlen[o] = r_slot < 0 ? 0 : (r_src < 0 ? m.vlen[slot_c] : sl);
-        }
+        const int slot_c = r_slot < 0 ? 0 : r_slot;
+        const int32_t my_ver = r_slot < 0 ? 0 : (r_src < 0 ? m.ver[slot_c] : sv);
+        const int32_t my_vlen = r_slot < 0 ? 0 : (r_src < 0 ? m.vlen[slot_c] : sl);
         const bool vec = VW4 % 4 == 0 && aligned16(rd.val);
-        const int per_row = vec ? VW4 / 4 : VW4, n = nw * per_row;
-        for (int q0 = 0; q0 < n; q0 += 32) {  // piece q of wave q / per_row's row
-            const int q = q0 + lane;
-            const int i = min(q / per_row, nw - 1), c = q - (q / per_row) * per_row;
-            const int rs = __shfl_sync(FULL, r_slot, i), rsrc = __shfl_sync(FULL, r_src, i);
-            if (q >= n) continue;
+        for (int g0 = 0; g0 < rd.G; g0 += 32) {
+            const int g = g0 + lane;
+            const int i = g < rd.G ? rd.gidx[g] - t0 : -1;
+            const bool mine = i >= 0 && i < nw;
+            const int ic = mine ? i : 0;
+            const int32_t v = __shfl_sync(FULL, my_ver, ic);
+            const int32_t l = __shfl_sync(FULL, my_vlen, ic);
+            const int f = __shfl_sync(FULL, r_found ? 1 : 0, ic);
+            const int rs = __shfl_sync(FULL, r_slot, ic), rsrc = __shfl_sync(FULL, r_src, ic);
+            if (!mine) continue;
+            const int64_t o = kvw::op_index(g, d.S, s);
+            rd.ver[o] = v;
+            rd.vlen[o] = static_cast<int32_t>(static_cast<uint32_t>(l) << 1) | f;
             const int32_t* row = rs < 0 ? nullptr : rsrc < 0 ? m.vals + rs * VW4p : m.opv + rsrc * VW4p;
-            const int64_t o = kvw::op_index(t0 + i, d.S, s);
             if (vec) {
-                reinterpret_cast<int4*>(rd.val + o * VW4)[c] =
-                    row == nullptr ? make_int4(0, 0, 0, 0) : reinterpret_cast<const int4*>(row)[c];
+                int4* dst = reinterpret_cast<int4*>(rd.val + o * VW4);
+                for (int c = 0; c < VW4 / 4; ++c)
+                    dst[c] = row == nullptr ? make_int4(0, 0, 0, 0)
+                                            : reinterpret_cast<const int4*>(row)[c];
             } else {
-                rd.val[o * VW4 + c] = row == nullptr ? 0 : row[c];
+                for (int c = 0; c < VW4; ++c) rd.val[o * VW4 + c] = row == nullptr ? 0 : row[c];
             }
         }
     }
@@ -521,22 +539,19 @@ __device__ void chunk_wide(const Smem& m, const Dims& d, const Reads& rd, int64_
             if (match >= 0 && free_slot >= 0) break;
         }
         const kvw::Step st = kvw::wave_step(rec.x, t < d.depth, rec.y, match, free_slot);
-        const int64_t o = kvw::op_index(t, d.S, s);
-        if (rd.found != nullptr) {  // reads see the wave-entry state
+        if (rd.ver != nullptr) {  // every row g whose wave is t: the wave-entry state
             const int mm = st.get_hit ? match : 0;
-            if (VW4 % 4 == 0 && aligned16(rd.val)) {
-                int4* dst = reinterpret_cast<int4*>(rd.val + o * VW4);
-                const int4* src = reinterpret_cast<const int4*>(m.vals + mm * VW4p);
-                for (int c = lane; c < VW4 / 4; c += 32)
-                    dst[c] = st.get_hit ? src[c] : make_int4(0, 0, 0, 0);
-            } else {
+            for (int g = 0; g < rd.G; ++g) {
+                if (rd.gidx[g] != t) continue;
+                const int64_t og = kvw::op_index(g, d.S, s);
                 for (int j = lane; j < VW4; j += 32)
-                    rd.val[o * VW4 + j] = st.get_hit ? m.vals[mm * VW4p + j] : 0;
-            }
-            if (lane == 0) {
-                rd.found[o] = st.rfound;
-                rd.ver[o] = st.get_hit ? m.ver[mm] : 0;
-                rd.vlen[o] = st.get_hit ? m.vlen[mm] : 0;
+                    rd.val[og * VW4 + j] = st.get_hit ? m.vals[mm * VW4p + j] : 0;
+                if (lane == 0) {
+                    const int32_t vl = st.get_hit ? m.vlen[mm] : 0;
+                    rd.ver[og] = st.get_hit ? m.ver[mm] : 0;
+                    rd.vlen[og] = static_cast<int32_t>(static_cast<uint32_t>(vl) << 1) |
+                                  (st.rfound ? 1 : 0);
+                }
             }
         }
         if (st.del_hit) {
@@ -715,7 +730,7 @@ __device__ Staged stage(const Smem& m, uint32_t bar, const Table& in, const Ops&
     return st;
 }
 
-// The window on one staged shard: the waves with their read planes, then
+// The window on one staged shard: the waves with their read rows, then
 // the fresh table, out of shared memory by TMA bulk stores (16-byte or
 // 4-byte stores where a plane is not bulk-sized and aligned). Returns the
 // shard's overflow and version-wrap flag bits (the same on every lane).
@@ -824,8 +839,8 @@ __device__ bool decide_shard(const Smem& m, const Dims& d, const Decide& dc, int
 
 // One warp a shard. SMALL: tables of at most 64 slots (chunk_small);
 // else chunk_wide. FOLD: the launch also decides the window and writes
-// its flags. At most 128 registers a thread: a tighter cap spills in the
-// wave loop, which costs more than the warps it would add.
+// its flags. At most 128 registers a thread: a tighter cap spills in
+// the wave loop, which costs more than the warps it would add.
 template <bool SMALL, bool FOLD>
 __global__ void __launch_bounds__(32 * MAX_WARPS_PER_BLOCK, 2)
 kv_window_kernel(Table in, OutTable out, Ops ops, Reads rd, Dims d, Decide dc) {
@@ -977,9 +992,13 @@ int unpack(void* const* table, void* const* out, void* const* ops, void* const* 
     op = Ops{static_cast<const int8_t*>(ops[0]), static_cast<const int16_t*>(ops[1]),
              static_cast<const int16_t*>(ops[2]), static_cast<const int32_t*>(ops[3]),
              static_cast<const int32_t*>(ops[4]), static_cast<const uint8_t*>(ops[5])};
-    rd = Reads{static_cast<uint8_t*>(reads[0]), static_cast<uint8_t*>(reads[1]),
-               static_cast<int32_t*>(reads[2]), static_cast<int32_t*>(reads[3]),
-               static_cast<int32_t*>(reads[4])};
+    rd = Reads{static_cast<uint8_t*>(reads[0]), static_cast<int32_t*>(reads[2]),
+               static_cast<int32_t*>(reads[3]), static_cast<int32_t*>(reads[4]),
+               static_cast<const int32_t*>(reads[5]), static_cast<int>(dims[10])};
+    if (reads[1] != nullptr ||
+        (rd.ver != nullptr && (rd.vlen == nullptr || rd.val == nullptr || rd.gidx == nullptr))) {
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
     return 0;
 }
 
@@ -998,9 +1017,11 @@ int run(Table in, OutTable o, Ops op, Reads rd, Dims d, Decide dc, cudaStream_t 
 // kw i32[W,S,ku4], vw i32[W,S,vwu4], idx (null for this row form); or,
 // with idx u8[W,S], the dictionary form: klen/vlen i16[S,D], kw
 // i32[S,D,ku4], vw i32[S,D,vwu4]. vlen may be null (empty values), vw
-// null with vwu4 0. reads: overflow u8[S], then found u8[W,S], ver/vlen
-// i32[W,S], val i32[W,S,VW4] (those four may be null). dims: S, W,
-// depth, P, K4, VW4, ku4, vwu4, D, kind_all. All contiguous. Launches on `stream`, returns cudaGetLastError() (0 on
+// null with vwu4 0. reads: overflow u8[S], then null (kv_read.cu's found
+// plane), the two planes of meta i32[2,G,S], gval i32[G,S,VW4] and gidx
+// i32[G] (see Reads; the four null: no reads). dims: S, W, depth, P, K4,
+// VW4, ku4, vwu4, D, kind_all, G. All contiguous. Launches on `stream`,
+// returns cudaGetLastError() (0 on
 // success; cudaErrorInvalidValue where one shard does not fit in a
 // block's shared memory); does not synchronise.
 extern "C" int kvw_window(void* const* table, void* const* out, void* const* ops,

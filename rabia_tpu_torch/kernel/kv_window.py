@@ -15,16 +15,28 @@ shard (:func:`expand_dict`). ``vlen`` and ``vwin`` may be None where
 every value is empty (the lookups upload no value planes).
 
 ``kv_window_plain`` is the plain PyTorch version (a loop over the waves,
-each wave vectorised over the shards). ``KV_WINDOW`` wraps two
+each wave vectorised over the shards). ``KV_WINDOW`` wraps three
 hand-written kernels that replace the wave scans of the reference's XLA
 programs in ``rabia_tpu/apps/device_kv.py``: ``csrc/kv_window.cu`` the
-windows that write a table (``_apply_set_wave`` under ``_build_fused``,
-``_build_mixed``), ``csrc/kv_read.cu`` the windows that only read
-(``_build_lookup_only``, ``_build_lookup``): a call without an output
-table must read every non-empty key (``kind=KIND_GET``), and its waves
-are then independent. ``window`` dispatches on the tensor's device
-alone: a CUDA table goes to the kernels (or the wrapper raises), a CPU
-table to the plain version.
+windows that write a table in the row form (``_apply_set_wave`` under
+``_build_fused``, ``_build_mixed``) and in the dictionary form on tables
+wider than 64 slots or with more than 32 rows a shard;
+``csrc/kv_dict.cu`` the other windows that write a table in the
+dictionary form (``_build_fused_dict``, the ``D`` branch of
+``_build_mixed``); and
+``csrc/kv_read.cu`` the windows that only read (``_build_lookup_only``,
+``_build_lookup``): a call without an output table must read every
+non-empty key (``kind=KIND_GET``), and its waves are then independent.
+``window`` dispatches on the tensor's device alone: a CUDA table goes to
+the kernels (or the wrapper raises), a CPU table to the plain version.
+
+A window that writes a table can return its reads gathered to given
+waves (``gidx`` i32[G]: row g is wave ``gidx[g]``), as ``mixed_apply``
+returns them: :class:`GatheredReads`, ``meta`` i32[2, G, S] (the
+version, and ``(vlen << 1) | found``) and ``val`` i32[G, S, VW4]. The
+write kernels write their reads only so, in the same launch; without
+``gidx`` the wrapper has them gather every wave and splits ``meta``
+into :class:`WindowReads`.
 
 The device lane's programs also decide the window first (every replica
 votes V1 for the waves that carry ops) and reduce to flags ``i32[3] =
@@ -77,6 +89,22 @@ class WindowReads(NamedTuple):
     ver: torch.Tensor  # i32[W, S]
     vlen: torch.Tensor  # i32[W, S]
     val: torch.Tensor  # i32[W, S, VW4]
+
+
+class GatheredReads(NamedTuple):
+    """The read outputs of the waves ``gidx`` names, row g for wave
+    ``gidx[g]``: ``mixed_apply``'s ``meta`` and ``gval``."""
+
+    meta: torch.Tensor  # i32[2, G, S]: [0] the version, [1] (vlen << 1) | found
+    val: torch.Tensor  # i32[G, S, VW4]
+
+
+def gather_reads(reads: WindowReads, gidx: torch.Tensor) -> GatheredReads:
+    """The plain gather of ``reads`` to the waves ``gidx``."""
+    g = gidx.to(I64)
+    meta = torch.stack([reads.ver.index_select(0, g),
+                        (reads.vlen.index_select(0, g) << 1) | reads.found.index_select(0, g).to(I32)])
+    return GatheredReads(meta, reads.val.index_select(0, g))
 
 
 def _pad_words(w: torch.Tensor, width: int) -> torch.Tensor:
@@ -158,9 +186,11 @@ def kv_window_plain(
     idx: Optional[torch.Tensor] = None,  # u8[W, S]: the dictionary form
     want_table: bool = True,
     want_reads: bool = False,
+    gidx: Optional[torch.Tensor] = None,  # i32[G]: reads gathered to these waves
 ) -> tuple[Optional[KVTable], torch.Tensor, Optional[WindowReads]]:
     """The wave scan in plain PyTorch. Returns ``(new table or None,
-    overflow bool[S], reads or None)``."""
+    overflow bool[S], reads or None)``; the reads are
+    :class:`GatheredReads` with ``gidx``."""
     kind, klen, vlen, kwin, vwin = _row_ops(kind, klen, vlen, kwin, vwin, idx)
     used, keyw, kl, ver, valw, vl, sver = table
     S, P, K4 = keyw.shape
@@ -216,11 +246,13 @@ def kv_window_plain(
         vl = torch.where(onehot, vlen[t].to(I32)[:, None], vl)
         sver = torch.where(apply, new_ver, sver)
     new = KVTable(used, keyw, kl, ver, valw, vl, sver) if want_table else None
+    if gidx is not None:
+        reads = gather_reads(reads, gidx)
     return new, overflow, reads
 
 
 def _check_args(table: KVTable, kind, klen, vlen, kwin, vwin, depth: int, idx=None,
-                want_table: bool = True) -> None:
+                want_table: bool = True, want_reads: bool = False, gidx=None) -> None:
     used = table.used
     if used.dtype != torch.bool or used.dim() != 2:
         raise ValueError(f"table.used must be bool[S, P], got {used.dtype}{list(used.shape)}")
@@ -270,7 +302,12 @@ def _check_args(table: KVTable, kind, klen, vlen, kwin, vwin, depth: int, idx=No
     if not want_table and (is_plane or kind != KIND_GET):
         raise ValueError("a window without an output table reads: kind must be KIND_GET "
                          "(a read of every non-empty key)")
-    tensors = [*table, klen, kwin] + [x for x in (kind, vlen, vwin, idx)
+    if gidx is not None:
+        if not (want_table and want_reads):
+            raise ValueError("gathered reads (gidx) need want_table and want_reads")
+        if gidx.dtype != I32 or gidx.dim() != 1:
+            raise ValueError(f"gidx must be int32[G], got {gidx.dtype}{list(gidx.shape)}")
+    tensors = [*table, klen, kwin] + [x for x in (kind, vlen, vwin, idx, gidx)
                                       if isinstance(x, torch.Tensor)]
     if any(x.device != used.device for x in tensors):
         raise ValueError("the table and the op planes lie on different devices")
@@ -285,31 +322,49 @@ def _ptrs(tensors) -> ctypes.Array:
 
 
 class KVWindowKernel:
-    """ctypes wrapper of ``kvw_window`` and ``kvw_decide_window``
-    (csrc/kv_window.cu) and of ``kvr_window`` and ``kvr_decide_window``
-    (csrc/kv_read.cu): the window, and the window with its decision in
-    the same launch (:meth:`decide`), on row-form or dictionary-form ops;
-    a window with an output table goes to the first pair, one without (a
-    read of every non-empty key) to the second.
+    """ctypes wrapper of the kv kernels' C entries, each as a window and as
+    the window with its decision in the same launch (:meth:`decide`):
+    ``kvw_window`` / ``kvw_decide_window`` (csrc/kv_window.cu),
+    ``kvd_window`` / ``kvd_decide_window`` (csrc/kv_dict.cu) and
+    ``kvr_window`` / ``kvr_decide_window`` (csrc/kv_read.cu). Where a
+    window goes is decided here, from its form alone:
 
-    ``launches`` counts kernel launches of all four entries, and
-    ``counts`` the same launches by form: ``rows``, ``dict``,
-    ``rows+decide``, ``dict+decide`` (the write kernel), ``probe rows``,
+    - a window without an output table (a read of every non-empty key) to
+      ``kv_read.cu``;
+    - a window that writes a table, with dictionary-form ops, a table of
+      at most ``DICT_MAX_SLOTS`` slots and at most ``DICT_MAX_ROWS`` rows a
+      shard (the packers' ``max_dict``), to ``kv_dict.cu``;
+    - every other window that writes a table (the row form, and the
+      dictionary form on wider tables or larger dictionaries) to
+      ``kv_window.cu``.
+
+    ``launches`` counts kernel launches of all six entries, and ``counts``
+    the same launches by form: ``rows``, ``rows+decide`` (kv_window.cu),
+    ``dict``, ``dict+decide`` (kv_dict.cu), ``dict wide``, ``dict
+    wide+decide`` (kv_window.cu on the dictionary form), ``probe rows``,
     ``probe dict`` (the read kernel alone: ``lookup_only``) and ``lookup
     rows``, ``lookup dict`` (the read kernel with the decision: the GET
     window); each grows by one exactly where a kernel is launched. The
     libraries build on the first call."""
 
-    FORMS = ("rows", "dict", "rows+decide", "dict+decide",
+    FORMS = ("rows", "dict", "dict wide", "rows+decide", "dict+decide", "dict wide+decide",
              "probe rows", "probe dict", "lookup rows", "lookup dict")
+    DICT_MAX_SLOTS = 64  # kv_dict.cu keeps a shard's slots in one 64-bit mask
+    DICT_MAX_ROWS = 32  # and its rows' keys and tag tables in shared memory
+    # The write kernels write their reads gathered (``gidx``; a window
+    # without one gets every wave's, rows 0..W-1, as read planes). False
+    # binds builds of kv_window.cu that write read planes instead, as
+    # ``scripts/torch_kv_window_ab.py`` binds an earlier commit's.
+    gathered_reads = True
 
     def __init__(self) -> None:
         self.launches = 0
         self.counts = dict.fromkeys(self.FORMS, 0)
-        self._lib = None
+        self._libs = []
         self._fn = None
         self._decide_fn = None
-        self._read_lib = None
+        self._dict_fn = None
+        self._dict_decide_fn = None
         self._read_fn = None
         self._read_decide_fn = None
         self._scratch: dict[torch.device, torch.Tensor] = {}
@@ -323,74 +378,91 @@ class KVWindowKernel:
         return self._fn is not None
 
     def load(self):
-        """Build (if needed) and bind both libraries; returns the C
-        function of the plain window."""
+        """Build (if needed) and bind the three libraries; returns the C
+        function of the plain row-form window."""
         if self._fn is None:
-            paths = cuda_build.build(["kv_window", "kv_read"])
+            paths = cuda_build.build(["kv_window", "kv_dict", "kv_read"])
             vpp = ctypes.POINTER(ctypes.c_void_p)
             llp = ctypes.POINTER(ctypes.c_longlong)
             fns = []
-            for lib, prefix in ((ctypes.CDLL(str(paths["kv_window"])), "kvw"),
-                                (ctypes.CDLL(str(paths["kv_read"])), "kvr")):
+            for name, prefix in (("kv_window", "kvw"), ("kv_dict", "kvd"), ("kv_read", "kvr")):
+                lib = ctypes.CDLL(str(paths[name]))
                 fn = getattr(lib, f"{prefix}_window")
                 fn.argtypes = [vpp, vpp, vpp, vpp, llp, ctypes.c_void_p]
                 fn.restype = ctypes.c_int
                 dfn = getattr(lib, f"{prefix}_decide_window")
                 dfn.argtypes = [vpp, vpp, vpp, vpp, llp, vpp, llp, ctypes.c_void_p]
                 dfn.restype = ctypes.c_int
-                fns += [lib, fn, dfn]
-            (self._lib, self._fn, self._decide_fn,
-             self._read_lib, self._read_fn, self._read_decide_fn) = fns
+                self._libs.append(lib)
+                fns += [fn, dfn]
+            (self._fn, self._decide_fn, self._dict_fn, self._dict_decide_fn,
+             self._read_fn, self._read_decide_fn) = fns
         return self._fn
 
+    def _route(self, idx, P: int, D: int, want_table: bool, decide: bool):
+        """The C entry and the count key of a window (D: the dictionary's
+        rows a shard)."""
+        if not want_table:  # a read: the op values are not read
+            return ((self._read_decide_fn if decide else self._read_fn),
+                    ("lookup " if decide else "probe ") + ("rows" if idx is None else "dict"))
+        if idx is None:
+            entry, form = (self._decide_fn if decide else self._fn), "rows"
+        elif P <= self.DICT_MAX_SLOTS and D <= self.DICT_MAX_ROWS:
+            entry, form = (self._dict_decide_fn if decide else self._dict_fn), "dict"
+        else:
+            entry, form = (self._decide_fn if decide else self._fn), "dict wide"
+        return entry, form + ("+decide" if decide else "")
+
     def _launch(self, table, kind, klen, vlen, kwin, vwin, depth, idx, want_table, want_reads,
-                decide, extra=()):
-        """Allocate the outputs and launch the window's entry (the write
-        or the read kernel's, with or without the decision) with the
-        window's arguments followed by ``extra``."""
-        shape = "rows" if idx is None else "dict"
-        if want_table:
-            entry = self._decide_fn if decide else self._fn
-            form = shape + ("+decide" if decide else "")
-        else:  # a read: the op values are not read
-            entry = self._read_decide_fn if decide else self._read_fn
-            form = ("lookup " if decide else "probe ") + shape
-            vlen = vwin = None
+                gidx, decide, extra=()):
+        """Allocate the outputs and launch the window's entry (see
+        :meth:`_route`) with the window's arguments followed by
+        ``extra``."""
         dev = table.used.device
         S, P, K4 = table.keyw.shape
         VW4 = table.valw.shape[2]
+        entry, form = self._route(idx, P, 0 if idx is None else klen.shape[1], want_table, decide)
+        if not want_table:
+            vlen = vwin = None
         W = window_waves(kind, klen, idx)
         out = KVTable(*(torch.empty_like(x) for x in table)) if want_table else None
         overflow = torch.empty(S, dtype=torch.bool, device=dev)
-        reads = None
-        if want_reads:
+        reads, g = None, None
+        rd = [overflow.view(torch.uint8), None, None, None, None, None]
+        if want_reads and (not want_table or (gidx is None and not self.gathered_reads)):
             reads = WindowReads(
                 torch.empty((W, S), dtype=torch.bool, device=dev),
                 torch.empty((W, S), dtype=I32, device=dev),
                 torch.empty((W, S), dtype=I32, device=dev),
                 torch.empty((W, S, VW4), dtype=I32, device=dev),
             )
+            rd[1:5] = [reads.found.view(torch.uint8), reads.ver, reads.vlen, reads.val]
+        elif want_reads:  # gathered to gidx; every wave's reads are rows 0..W-1
+            g = gidx if gidx is not None else torch.arange(W, dtype=I32, device=dev)
+            reads = GatheredReads(torch.empty((2, g.shape[0], S), dtype=I32, device=dev),
+                                  torch.empty((g.shape[0], S, VW4), dtype=I32, device=dev))
+            rd[2:] = [reads.meta[0], reads.meta[1], reads.val, g]
         if S:
             tin = [table.used.view(torch.uint8), *table[1:]]
             tout = [None] * 7 if out is None else [out.used.view(torch.uint8), *out[1:]]
-            rd = [overflow.view(torch.uint8)] + (
-                [None] * 4 if reads is None
-                else [reads.found.view(torch.uint8), reads.ver, reads.vlen, reads.val]
-            )
             plane = kind if isinstance(kind, torch.Tensor) else None
             kind_all = KIND_GET if plane is None and kind == KIND_GET else KIND_SET
-            dims = (ctypes.c_longlong * 10)(
+            dims = (ctypes.c_longlong * 11)(
                 S, W, depth, P, K4, VW4, kwin.shape[2], 0 if vwin is None else vwin.shape[2],
                 0 if idx is None else klen.shape[1], kind_all,
+                0 if g is None else g.shape[0],
             )
             with torch.cuda.device(dev):
                 stream = torch.cuda.current_stream().cuda_stream
                 err = entry(_ptrs(tin), _ptrs(tout), _ptrs([plane, klen, vlen, kwin, vwin, idx]),
                             _ptrs(rd), dims, *extra, stream)
             if err != 0:
-                raise RuntimeError(f"kv window kernel launch failed: cudaError {err}")
+                raise RuntimeError(f"kv window kernel launch failed ({form}): cudaError {err}")
             self.launches += 1
             self.counts[form] += 1
+        if g is not None and gidx is None:  # every wave's reads, as read planes
+            meta, val = reads
+            reads = WindowReads((meta[1] & 1).bool(), meta[0], meta[1] >> 1, val)
         return out, overflow, reads
 
     def __call__(
@@ -406,14 +478,16 @@ class KVWindowKernel:
         idx: Optional[torch.Tensor] = None,
         want_table: bool = True,
         want_reads: bool = False,
+        gidx: Optional[torch.Tensor] = None,
     ) -> tuple[Optional[KVTable], torch.Tensor, Optional[WindowReads]]:
-        _check_args(table, kind, klen, vlen, kwin, vwin, depth, idx, want_table)
+        _check_args(table, kind, klen, vlen, kwin, vwin, depth, idx, want_table, want_reads,
+                    gidx)
         dev = table.used.device
         if dev.type != "cuda":
             raise ValueError(f"kv window kernel needs CUDA tensors, got {dev}")
         self.load()
         return self._launch(table, kind, klen, vlen, kwin, vwin, depth, idx, want_table,
-                            want_reads, False)
+                            want_reads, gidx, False)
 
     def decide(
         self,
@@ -433,14 +507,17 @@ class KVWindowKernel:
         idx: Optional[torch.Tensor] = None,
         want_table: bool = True,
         want_reads: bool = False,
+        gidx: Optional[torch.Tensor] = None,
     ) -> tuple[Optional[KVTable], torch.Tensor, Optional[WindowReads], torch.Tensor]:
         """The window with its decision, one launch. Returns ``(new table
-        or None, overflow bool[S], reads or None, flags i32[3])``.
+        or None, overflow bool[S], reads or None, flags i32[3])``; the
+        reads are :class:`GatheredReads` with ``gidx``.
 
         The flags' scratch words are cached per device and left zero by
         every launch, so windows on one device must not run on two
         streams at once."""
-        _check_args(table, kind, klen, vlen, kwin, vwin, depth, idx, want_table)
+        _check_args(table, kind, klen, vlen, kwin, vwin, depth, idx, want_table, want_reads,
+                    gidx)
         S = table.used.shape[0]
         if alive.dtype != torch.bool or alive.dim() != 2 or alive.shape[0] != S:
             raise ValueError(f"alive must be bool[{S}, R], got {alive.dtype}{list(alive.shape)}")
@@ -470,7 +547,7 @@ class KVWindowKernel:
             coin_threshold(coin_p1),
         )
         out, overflow, reads = self._launch(
-            table, kind, klen, vlen, kwin, vwin, depth, idx, want_table, want_reads, True,
+            table, kind, klen, vlen, kwin, vwin, depth, idx, want_table, want_reads, gidx, True,
             (_ptrs([alive.view(torch.uint8), base, flags, scratch]), params),
         )
         return out, overflow, reads, flags
@@ -480,23 +557,23 @@ KV_WINDOW = KVWindowKernel()
 
 
 def window(table: KVTable, kind, klen, vlen, kwin, vwin, depth: int, *,
-           idx: Optional[torch.Tensor] = None, want_table: bool = True, want_reads: bool = False):
+           idx: Optional[torch.Tensor] = None, want_table: bool = True, want_reads: bool = False,
+           gidx: Optional[torch.Tensor] = None):
     """The wave scan: the CUDA kernel for a CUDA table, the plain version
     for a CPU table."""
     dev = table.used.device
+    kw = dict(idx=idx, want_table=want_table, want_reads=want_reads, gidx=gidx)
     if dev.type == "cuda":
-        return KV_WINDOW(table, kind, klen, vlen, kwin, vwin, depth, idx=idx,
-                         want_table=want_table, want_reads=want_reads)
+        return KV_WINDOW(table, kind, klen, vlen, kwin, vwin, depth, **kw)
     if dev.type == "cpu":
-        return kv_window_plain(table, kind, klen, vlen, kwin, vwin, depth, idx=idx,
-                               want_table=want_table, want_reads=want_reads)
+        return kv_window_plain(table, kind, klen, vlen, kwin, vwin, depth, **kw)
     raise ValueError(f"no kv window for device {dev}")
 
 
 def decide_window_plain(mesh, table: KVTable, kind, klen, vlen, kwin, vwin, depth: int,
                         alive: torch.Tensor, base: torch.Tensor, max_phases: int, *,
                         idx: Optional[torch.Tensor] = None, want_table: bool = True,
-                        want_reads: bool = False):
+                        want_reads: bool = False, gidx: Optional[torch.Tensor] = None):
     """The device lane's window in plain PyTorch: every live replica of
     ``mesh`` (a ``MeshPhaseKernel``) votes V1 for the ``depth`` waves that
     carry ops, the plain mesh window decides them, the plain wave scan
@@ -509,7 +586,7 @@ def decide_window_plain(mesh, table: KVTable, kind, klen, vlen, kwin, vwin, dept
     decided = mesh.decide_slots_plain(votes, alive, base, max_phases)
     all_v1 = (decided[:depth] == V1).all()
     new, overflow, reads = kv_window_plain(table, kind, klen, vlen, kwin, vwin, depth, idx=idx,
-                                           want_reads=want_reads)
+                                           want_reads=want_reads, gidx=gidx)
     flags = torch.stack([all_v1, overflow.any(), (new.sver >= VERSION_WRAP).any()]).to(I32)
     return (new if want_table else None), overflow, reads, flags
 
@@ -517,17 +594,16 @@ def decide_window_plain(mesh, table: KVTable, kind, klen, vlen, kwin, vwin, dept
 def decide_window(mesh, table: KVTable, kind, klen, vlen, kwin, vwin, depth: int,
                   alive: torch.Tensor, base: torch.Tensor, max_phases: int, *,
                   idx: Optional[torch.Tensor] = None, want_table: bool = True,
-                  want_reads: bool = False):
+                  want_reads: bool = False, gidx: Optional[torch.Tensor] = None):
     """The device lane's window, decided and applied: one kernel launch
     for a CUDA table, the plain version for a CPU table. ``mesh`` (a
     ``MeshPhaseKernel``) gives the coin's seed and probability."""
     dev = table.used.device
+    kw = dict(idx=idx, want_table=want_table, want_reads=want_reads, gidx=gidx)
     if dev.type == "cuda":
         return KV_WINDOW.decide(table, kind, klen, vlen, kwin, vwin, depth, alive, base,
-                                seed=mesh.seed, coin_p1=mesh.coin_p1, max_phases=max_phases,
-                                idx=idx, want_table=want_table, want_reads=want_reads)
+                                seed=mesh.seed, coin_p1=mesh.coin_p1, max_phases=max_phases, **kw)
     if dev.type == "cpu":
         return decide_window_plain(mesh, table, kind, klen, vlen, kwin, vwin, depth, alive, base,
-                                   max_phases, idx=idx, want_table=want_table,
-                                   want_reads=want_reads)
+                                   max_phases, **kw)
     raise ValueError(f"no kv window for device {dev}")

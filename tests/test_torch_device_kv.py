@@ -458,6 +458,28 @@ def test_mixed_apply_matches_reference(port_table, ref_table, host_scan, name):
     assert int(over.any()) == int(np.asarray(want[1])[1])
 
 
+@pytest.mark.parametrize("get_waves", [[], [2], [1, 2, 3], [0, 1, 2, 3], [3, 0, 2]])
+def test_mixed_apply_gathered_rows_match_reference(port_table, ref_table, get_waves):
+    """``mixed_apply``'s gathered rows for any list of GET waves: none (Gp
+    = 1: the one row is wave 0's), one, three (Gp = 4: the pad row is wave
+    0's again), all, and out of order; the rows, meta and gval equal the
+    reference's."""
+    rng = np.random.default_rng(70 + len(get_waves))
+    arrays = _random_table(rng)
+    _load(port_table, ref_table, arrays)
+    pb, rb = _both(_blocks(rng, W))
+    (kind, ops), (rkind, rops) = port_table.pack_mixed_window(pb), ref_table.pack_mixed_window(rb)
+    gw = np.asarray(get_waves, np.int32)
+    base = rng.integers(0, 50, N).astype(np.int32)
+    got = port_table.mixed_apply(_alive(False), base, W, kind, gw, ops, W=W)
+    want = ref_table.mixed_apply(_alive(False), base, W, rkind, gw, rops, W=W)
+    _assert_state(got[0], want[0])
+    Gp = 1 << max(0, len(get_waves) - 1).bit_length()
+    assert got[2].shape == (2, Gp, N) and got[3].shape == (Gp, N, 16)
+    for a, b in zip(got[1:], want[1:]):
+        np.testing.assert_array_equal(a.numpy(), _np(b))
+
+
 def test_empty_key_reads_match_reference(port_table, ref_table, host_scan):
     """The host store accepts the empty key, so a re-promoted table can
     hold one. The packers never emit a zero-length key, but the programs

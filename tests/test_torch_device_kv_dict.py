@@ -213,6 +213,32 @@ def test_dict_mixed_apply_matches_reference_and_rows(port_table, ref_table, nump
         np.testing.assert_array_equal(a.numpy(), b.numpy())
 
 
+@pytest.mark.parametrize("get_waves", [[], [1], [0, 2, 3], [0, 1, 2, 3]])
+def test_dict_mixed_apply_gathered_rows_match_reference(port_table, ref_table, numpy_pack,
+                                                        get_waves):
+    """The dictionary form's gathered rows for any list of GET waves: none
+    (Gp = 1, wave 0's row), one, three (a pad row: wave 0's), all; equal
+    to the reference's and to the row form's."""
+    rng = np.random.default_rng(90 + len(get_waves))
+    arrays = _random_table(rng)
+    _load(port_table, ref_table, arrays)
+    pb, rb = _both(_dict_blocks(rng, W))
+    (kind, ops, _, _), (rkind, rops, _, _) = (port_table.pack_mixed_window_auto(pb),
+                                              ref_table.pack_mixed_window_auto(rb))
+    assert isinstance(ops, DeviceDictOps)
+    gw = np.asarray(get_waves, np.int32)
+    base = rng.integers(0, 50, N).astype(np.int32)
+    got = port_table.mixed_apply(_alive(False), base, W, kind, gw, ops, W=W)
+    want = ref_table.mixed_apply(_alive(False), base, W, rkind, gw, rops, W=W)
+    _assert_state(got[0], want[0])
+    for a, b in zip(got[1:], want[1:]):
+        np.testing.assert_array_equal(a.numpy(), _np(b))
+    _, rows = port_table.pack_mixed_window(pb)
+    got2 = port_table.mixed_apply(_alive(False), base, W, kind, gw, rows, W=W)
+    for a, b in zip(got[1:], got2[1:]):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+
+
 @pytest.mark.parametrize("form", ["dict", "rows"])
 @pytest.mark.parametrize("depth", [W, 2])
 def test_lookup_only_matches_reference_on_every_wave(port_table, ref_table, numpy_pack, form,

@@ -327,5 +327,6 @@ def test_wrapper_refuses_a_window_without_a_table_that_writes():
         kv_window.KV_WINDOW(table, kv_window.KIND_GET, klen, None, kw, None, 2,
                             want_table=False, want_reads=True)
     assert kv_window.KV_WINDOW.counts == before
-    assert set(before) == {"rows", "dict", "rows+decide", "dict+decide", "probe rows",
-                           "probe dict", "lookup rows", "lookup dict"}
+    assert set(before) == {"rows", "dict", "dict wide", "rows+decide", "dict+decide",
+                           "dict wide+decide", "probe rows", "probe dict", "lookup rows",
+                           "lookup dict"}
