@@ -138,7 +138,26 @@ Phases (each raises on failure; nothing is caught):
    governed lane's ladder is capped at ``GOV_MAX_WINDOW`` to keep the
    run's time, while (a) runs the whole ladder. The C gather must have
    packed every window of the main path (``pack_stats``; their counts
-   are printed on a line of their own).
+   are printed on a line of their own);
+10. the transport engine beside the device plane, after the main path
+   with its own counts (reset just before, read just after; its
+   mesh-window launches join that kernel's count): (a) the port's
+   plane-conformance gate (``run_schedule_on_both_planes``) at
+   BASELINE.json config 3's shape, 4096 shards x 5 replicas, 3 waves of a
+   batch of 4 SETs on every shard, through a cluster of the port's
+   ``RabiaEngine`` (the Python tick and asyncio orchestration, numpy
+   ``HostNodeKernel``, in-memory hub, ``InMemoryStateMachine`` replicas)
+   and through a ``MeshEngine`` on the card: per-shard decisions,
+   futures and replica state must be equal; it prints the transport
+   cluster's decisions/s, p50/p99 submit-to-settle latency, each wave's
+   and the whole wall time beside the card and the host CPU; (b) the same
+   gate at config 2's shape, 64 shards x 3 replicas, 8 waves; (c)
+   ``MeshEngine.save_to`` / ``load_from`` through
+   ``FileSystemPersistence`` of (a)'s engine into a fresh one on the card
+   (slot counters and stores equal, and a further wave decides the same
+   slots and batches on both), and a transport replica shut down and
+   restarted from its persistence layer, after which a further wave
+   commits on every replica.
 
 The launch counts of the eight kernels (the kv-window, kv-dict and
 kv-read kernels' by form, the round kernels' by entry) are reset just before
@@ -160,15 +179,19 @@ JSON line, the card's name and power limit as nvidia-smi reports them,
 and ``{"ok": true, "device": {...}}``. Exits non-zero without a GPU.
 
 Phases 3-5, 7, 8 and 9's lanes also run on the CPU at a small size
-(tests/test_torch_slice.py).
+(tests/test_torch_slice.py), and phase 10 at config 2's shape
+(tests/test_torch_engine_conformance.py).
 """
 
 from __future__ import annotations
 
+import asyncio
+import gc
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -179,9 +202,13 @@ from rabia_tpu_torch.apps.device_kv import HOST_PACK, DeviceDictOps
 from rabia_tpu_torch.apps.vector_kv import VectorShardedKV
 from rabia_tpu_torch.core.blocks import build_block
 from rabia_tpu_torch.core.errors import RabiaError
+from rabia_tpu_torch.core.config import RabiaConfig
+from rabia_tpu_torch.core.network import ClusterConfig
 from rabia_tpu_torch.core.oracle import WeakMVCOracle
+from rabia_tpu_torch.core.persistence import PersistedEngineState
 from rabia_tpu_torch.core.state_machine import InMemoryStateMachine
-from rabia_tpu_torch.core.types import ABSENT, V1, quorum_size
+from rabia_tpu_torch.core.types import ABSENT, V1, CommandBatch, NodeId, quorum_size
+from rabia_tpu_torch.engine import RabiaEngine
 from rabia_tpu_torch.kernel import (
     cluster_round,
     cuda_build,
@@ -191,6 +218,9 @@ from rabia_tpu_torch.kernel import (
     packed_window,
 )
 from rabia_tpu_torch.kernel.phase_driver import device_coin
+from rabia_tpu_torch.net import InMemoryHub
+from rabia_tpu_torch.persistence import FileSystemPersistence
+from rabia_tpu_torch.testing.conformance import run_schedule_on_both_planes, settle_quantiles
 
 S_FULL, R_FULL, T_FULL = 4096, 5, 32768  # BASELINE.json config 3 geometry, bench.py depth
 T_SCAN = 8192  # bench.py's depth for the scanned protocol (slot_pipeline)
@@ -211,6 +241,11 @@ GOV_LOOSE_MS = 100.0  # p99 window latency target above the lane's floor
 GOV_TIGHT_MS = 0.05  # below any window's floor: a host pack alone takes longer
 GOV_SET_BLOCKS = 160  # the governed lane's saturating SET stream
 GOV_GROUPS = 6  # its 90/10 GET/SET stream: groups of 9 GET blocks and 1 SET block
+# phase 10: the transport engine beside the device plane, at BASELINE.json
+# config 3's shape (4096 shards x 5 replicas, 4 SETs a shard a wave) and
+# config 2's (64 shards x 3 replicas)
+TRANSPORT_WAVES = 3
+CFG2_S, CFG2_R, CFG2_WAVES = 64, 3, 8
 # int32 operations/s of an H100 SXM: 132 SMs x 64 INT32 lanes x 1.98 GHz
 # (the Hopper white paper's per-SM unit count and the SXM boost clock)
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
@@ -1901,6 +1936,174 @@ def lane_native_vs_numpy(device, S: int, R: int, P: int = P_FULL, seed: int = 17
 # -- the run -----------------------------------------------------------------
 
 
+# -- phase 10 ----------------------------------------------------------------
+
+
+def _set_waves(S: int, waves: int, per: int = 4, tag: str = "k") -> list:
+    """Per wave {shard: [per SET commands]} on every shard."""
+    return [{s: [f"SET {tag}{s}_{i} w{w}" for i in range(per)] for s in range(S)}
+            for w in range(waves)]
+
+
+def host_cpu() -> str:
+    """The host CPU as /proc/cpuinfo names it (this path is bound to the
+    host): model name, vendor, family and model, and the cores this
+    process may use."""
+    fields = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                key, _, val = line.partition(":")
+                key = key.strip()
+                if key in ("model name", "vendor_id", "cpu family", "model") and key not in fields:
+                    fields[key] = val.strip()
+    except OSError:
+        pass
+    return (f"{fields.get('model name', 'unknown')} ({fields.get('vendor_id', '?')} family "
+            f"{fields.get('cpu family', '?')} model {fields.get('model', '?')}, "
+            f"{len(os.sched_getaffinity(0))} cores)")
+
+
+def planes_gate(device, S: int, R: int, waves: int) -> tuple[dict, MeshEngine]:
+    """The port's plane-conformance gate: one schedule of SET waves through
+    a cluster of transport engines over the in-memory hub (the Python
+    tick and the asyncio orchestration on the host) and through a
+    MeshEngine on the card; decisions, futures and replica state must be
+    equal (the gate raises otherwise). Returns the transport plane's
+    figures and the MeshEngine."""
+    t0 = time.perf_counter()
+    out = asyncio.run(run_schedule_on_both_planes(
+        _set_waves(S, waves), S, R, tag=f"planes S={S} R={R}", device=device))
+    gate_s = time.perf_counter() - t0
+    eng = out["mesh_engine"]
+    _check(eng.device.type == torch.device(device).type,
+           f"the planes gate's MeshEngine is on {eng.device}, not {device}")
+    p50, p99 = settle_quantiles(out["settle_s"])
+    _check(out["decided_slots"] == S * waves, "the transport plane decided a slot per batch")
+    wall = out["transport_wall_s"]
+    return {
+        "shards": S, "replicas": R, "waves": waves,
+        "decided_slots": out["decided_slots"],
+        "transport_wall_s": wall,
+        "wave_s": out["wave_s"],
+        "transport_decisions_per_s": out["decided_slots"] / wall,
+        "settle_p50_s": p50, "settle_p99_s": p99,
+        "gate_s": gate_s,
+    }, eng
+
+
+def _mesh_log(eng, S: int) -> dict:
+    return {s: {slot: (v, tuple(c.data for c in b.commands) if b is not None else None)
+                for slot, (v, b) in eng.decisions_for(s).items()} for s in range(S)}
+
+
+def mesh_persistence(device, eng, S: int, R: int) -> dict:
+    """save_to / load_from on the card: the engine that decided the
+    planes gate saves through FileSystemPersistence, a fresh engine loads
+    it; slot counters and every replica's store must be equal, and a
+    further wave must decide the same slots with the same batches and
+    leave the same stores on both."""
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        asyncio.run(eng.save_to(FileSystemPersistence(d)))
+        save_s = time.perf_counter() - t0
+        nbytes = os.path.getsize(os.path.join(d, "state.dat"))
+        fresh = MeshEngine(InMemoryStateMachine, n_shards=S, n_replicas=R, window=2, device=device)
+        t0 = time.perf_counter()
+        _check(asyncio.run(fresh.load_from(FileSystemPersistence(d))), "load_from found no state")
+        load_s = time.perf_counter() - t0
+    stores = lambda e: [sm.create_snapshot().data for sm in e.sms]  # noqa: E731
+    _check(list(fresh.next_slot) == list(eng.next_slot), "restored slot counters")
+    _check(stores(fresh) == stores(eng), "restored replica stores")
+    before = _mesh_log(eng, S)
+    for e in (eng, fresh):
+        futs = [e.submit([f"SET p{s} after"], s) for s in range(S)]
+        e.flush()
+        _check(all(f.result() == [b"OK"] for f in futs), "the wave after restore")
+    after = {s: {k: v for k, v in d.items() if k not in before[s]}
+             for s, d in _mesh_log(eng, S).items()}
+    _check(_mesh_log(fresh, S) == after, "decision logs after restore")
+    _check(stores(fresh) == stores(eng), "replica stores after restore")
+    return {"state_bytes": nbytes, "save_s": save_s, "load_s": load_s}
+
+
+async def _transport_restart(S: int, R: int, root: str) -> dict:
+    config = RabiaConfig(phase_timeout=3.0, heartbeat_interval=0.05,
+                         round_interval=0.002).with_kernel(num_shards=S, shard_pad_multiple=2)
+    hub = InMemoryHub()
+    nodes = [NodeId.from_int(i + 1) for i in range(R)]
+    persists = [FileSystemPersistence(os.path.join(root, str(i))) for i in range(R)]
+    sms = [InMemoryStateMachine() for _ in nodes]
+    transports = [hub.register(n) for n in nodes]
+
+    def start(i):
+        return RabiaEngine(ClusterConfig.new(nodes[i], nodes), sms[i], transports[i],
+                           persistence=persists[i], config=config)
+
+    async def quorum(engs):
+        for _ in range(500):
+            await asyncio.sleep(0.01)
+            if all([(await e.get_statistics()).has_quorum for e in engs]):
+                return
+        raise AssertionError("phase 10: the transport cluster never formed quorum")
+
+    async def wave(eng, tag):
+        futs = [await eng.submit_batch(CommandBatch.new([f"SET {tag}{s} v{s}"]), shard=s)
+                for s in range(S)]
+        for f in futs:
+            _check(await asyncio.wait_for(f, 30.0) == [b"OK"], f"phase 10: wave {tag}")
+
+    async def converged(tag):
+        for _ in range(1000):
+            if all(sm.get(f"{tag}{s}") == f"v{s}" for sm in sms for s in range(S)):
+                return
+            await asyncio.sleep(0.01)
+        raise AssertionError(f"phase 10: wave {tag} did not reach every replica")
+
+    engines = [start(i) for i in range(R)]
+    tasks = [asyncio.ensure_future(e.run()) for e in engines]
+    try:
+        await quorum(engines)
+        await wave(engines[0], "a")
+        await converged("a")
+        # the last replica shuts down (a clean shutdown saves its state),
+        # leaves the hub, and restarts from its persistence layer with a
+        # fresh state machine
+        await engines[-1].shutdown()
+        tasks[-1].cancel()
+        await asyncio.gather(tasks[-1], return_exceptions=True)
+        hub.set_connected(nodes[-1], False)
+        saved = PersistedEngineState.from_bytes(await persists[-1].load_state())
+        _check(sum(saved.per_shard_committed) == S, "phase 10: the saved slot counters")
+        sms[-1] = InMemoryStateMachine()
+        hub.set_connected(nodes[-1], True)
+        engines[-1] = start(R - 1)
+        t0 = time.perf_counter()
+        tasks[-1] = asyncio.ensure_future(engines[-1].run())
+        await quorum(engines)
+        _check(all(sms[-1].get(f"a{s}") == f"v{s}" for s in range(S)),
+               "phase 10: the restarted replica's restored state")
+        # a further wave commits on every replica, the restarted one too
+        await wave(engines[0], "b")
+        await converged("b")
+        return {"shards": S, "replicas": R, "rejoin_and_wave_s": time.perf_counter() - t0,
+                "tainted_shards": int((engines[-1].rt.tainted_upto[:S] > 0).sum())}
+    finally:
+        for e in engines:
+            await e.shutdown()
+        for t in tasks:
+            t.cancel()
+        await asyncio.gather(*tasks, return_exceptions=True)
+
+
+def transport_restart(S: int, R: int) -> dict:
+    """A transport engine shut down and restarted from its persistence
+    layer (FileSystemPersistence) rejoins its peers; a further wave
+    commits on every replica."""
+    with tempfile.TemporaryDirectory() as d:
+        return asyncio.run(_transport_restart(S, R, d))
+
+
 def _card_rate_bytes_per_s(name: str) -> float:
     """Peak device-memory rate of the card, from its name (data sheets)."""
     if "PCIe" in name:
@@ -2064,6 +2267,45 @@ def main() -> int:
         _check(st["native"] > 0 and st["numpy"] == 0,
                f"the C pack gather did not serve every grid window of the main path: {st}")
     # ---- end of the main path ----
+
+    # ---- phase 10, the transport engine beside the device plane: its own
+    # path, counts reset just before and read just after ----
+    fused_window.FUSED_WINDOW.launches = 0
+    fused_window.FUSED_WINDOW_TSR.launches = 0
+    kv_window.KV_WINDOW.reset_counts()
+    mesh_window.MESH_WINDOW.launches = 0
+    packed_window.PACKED_WINDOW.launches = 0
+    cluster_round.CLUSTER_ROUND.reset_counts()
+    # the earlier phases' objects stay alive for the timings below: keep
+    # the collector from rescanning them during the transport engine's run
+    gc.collect()
+    gc.freeze()
+    t10 = time.perf_counter()
+    gate3, gate3_eng = planes_gate(device, S_FULL, R_FULL, TRANSPORT_WAVES)
+    gate2, _ = planes_gate(device, CFG2_S, CFG2_R, CFG2_WAVES)
+    mesh_ckpt = mesh_persistence(device, gate3_eng, S_FULL, R_FULL)
+    restart = transport_restart(CFG2_S, CFG2_R)
+    p10_mesh = mesh_window.MESH_WINDOW.launches
+    p10_other = (fused_window.FUSED_WINDOW.launches + fused_window.FUSED_WINDOW_TSR.launches
+                 + sum(kv_window.KV_WINDOW.counts.values()) + packed_window.PACKED_WINDOW.launches
+                 + sum(cluster_round.CLUSTER_ROUND.counts.values()))
+    t10 = time.perf_counter() - t10
+    gc.unfreeze()
+    _check(p10_mesh > 0, "phase 10 never launched the mesh window kernel")
+    del gate3_eng
+    cpu = host_cpu()
+    print(f"phase 10 (a) planes gate at BASELINE.json config 3's shape S={S_FULL} R={R_FULL}, "
+          f"{TRANSPORT_WAVES} waves of 4 SETs on every shard, transport cluster (Python tick, "
+          f"in-memory hub, host CPU: {cpu}) vs MeshEngine on the card ({smi}): decisions, "
+          f"futures and replica stores equal; {json.dumps(gate3)}")
+    print(f"phase 10 (b) planes gate at config 2's shape S={CFG2_S} R={CFG2_R}, {CFG2_WAVES} "
+          f"waves: equal; {json.dumps(gate2)}")
+    print(f"phase 10 (c) persistence: MeshEngine.save_to / load_from on the card after (a) "
+          f"(FileSystemPersistence; stores, slot counters and a further wave's decision logs "
+          f"equal): {json.dumps(mesh_ckpt)}; transport engine shut down and restarted from its "
+          f"persistence layer, a further wave on every replica: {json.dumps(restart)}")
+    print(f"phase 10 path: {p10_mesh} mesh-window launches, {p10_other} launches of the other "
+          f"kernels, {t10:.2f} s")
 
     q = quorum_size(R_FULL)
     votes = bufs[0]
@@ -2619,7 +2861,7 @@ def main() -> int:
         "route": "cuda",
         "source": "rabia_tpu_torch/csrc/mesh_window.cu",
         "replaces": "rabia_tpu/parallel/mesh.py:353",
-        "launches": mesh_launches,
+        "launches": mesh_launches + p10_mesh,  # the main path's and phase 10's
         "max_abs_err": max(err2b, mw_err, err9),
         "ms": mw_ms,
         "plain_ms": mw_plain_ms,

@@ -1,12 +1,15 @@
-"""The persisted engine-state blob.
+"""Persistence trait and the persisted engine-state blob.
 
-A copy of the reference package's ``PersistedEngineState``: phase
-counters, the per-shard slot vectors and the replica snapshot, as JSON.
-The encoding is the reference's, byte for byte.
+A copy of the reference package's ``rabia_tpu/core/persistence.py``: the
+single-blob ``PersistenceLayer`` trait (save one opaque state blob, load
+it back, plus small named *aux* blobs) and ``PersistedEngineState``
+(phase counters, the per-shard slot vectors and the replica snapshot, as
+JSON). The encoding is the reference's, byte for byte.
 """
 
 from __future__ import annotations
 
+import abc
 import base64
 import json
 from dataclasses import dataclass, field
@@ -18,7 +21,7 @@ from rabia_tpu_torch.core.state_machine import Snapshot
 
 @dataclass
 class PersistedEngineState:
-    """Durable engine record."""
+    """Durable engine record (persistence.rs:9-42)."""
 
     current_phase: int = 0
     last_committed_phase: int = 0
@@ -69,3 +72,40 @@ class PersistedEngineState:
             )
         except (ValueError, KeyError) as e:
             raise PersistenceError(f"corrupt engine state: {e}") from None
+
+
+class PersistenceLayer(abc.ABC):
+    """Single-blob durability trait (persistence.rs:49-68).
+
+    Beyond the reference's single blob, backends may support small named
+    *aux* blobs via :meth:`save_aux` / :meth:`load_aux`. The engine uses one
+    ("vote_barrier") as a write-ahead record of the highest slot each shard
+    may have voted in, so a restarted replica can avoid equivocating —
+    casting a different vote in a (slot, phase) it already voted in before
+    the crash. Aux blobs are tiny (bytes of an int64[S] array) and written
+    far more often than the full snapshot, hence the separate channel. The
+    defaults are no-ops (load returns None): a backend that ignores them
+    degrades to the reference's behavior (no restart-equivocation guard),
+    it does not break.
+    """
+
+    @abc.abstractmethod
+    async def save_state(self, data: bytes) -> None:
+        ...
+
+    @abc.abstractmethod
+    async def load_state(self) -> Optional[bytes]:
+        ...
+
+    async def save_aux(self, key: str, data: bytes) -> None:
+        return None
+
+    async def load_aux(self, key: str) -> Optional[bytes]:
+        return None
+
+    async def save_engine_state(self, state: PersistedEngineState) -> None:
+        await self.save_state(state.to_bytes())
+
+    async def load_engine_state(self) -> Optional[PersistedEngineState]:
+        raw = await self.load_state()
+        return PersistedEngineState.from_bytes(raw) if raw is not None else None

@@ -1,8 +1,11 @@
 """Observability: the metrics registry and its Prometheus-text exporter
-(:mod:`rabia_tpu_torch.obs.registry`, the port of the reference's
-``rabia_tpu/obs/registry.py``). The reference's journal, admin HTTP shim,
-flight recorder, telemetry and fleet planes are not ported yet."""
+(:mod:`rabia_tpu_torch.obs.registry`), the anomaly journal
+(:mod:`rabia_tpu_torch.obs.journal`) and the flight recorder
+(:mod:`rabia_tpu_torch.obs.flight`), ports of the reference's modules of
+those names. The reference's admin HTTP shim, telemetry, critical-path
+and fleet planes are not ported yet."""
 
+from rabia_tpu_torch.obs.journal import AnomalyJournal
 from rabia_tpu_torch.obs.registry import (
     LATENCY_BUCKETS,
     RUNTIME_STAGES,
@@ -17,6 +20,7 @@ from rabia_tpu_torch.obs.registry import (
 )
 
 __all__ = [
+    "AnomalyJournal",
     "Counter",
     "Gauge",
     "Histogram",

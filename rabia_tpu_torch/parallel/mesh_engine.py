@@ -52,6 +52,11 @@ device lane's pipe is one window deep unless the caller asks otherwise.
 (window settle latency, window size and resizes, decided slots, the
 device and read lanes).
 
+:meth:`MeshEngine.checkpoint` / :meth:`MeshEngine.restore` take and adopt
+the transport engine's ``PersistedEngineState``; :meth:`MeshEngine.save_to`
+/ :meth:`MeshEngine.load_from` carry it through a
+:class:`~rabia_tpu_torch.core.persistence.PersistenceLayer`.
+
 Not ported yet, and refused with ``NotImplementedError`` rather than
 ignored: multi-device meshes.
 """
@@ -1504,6 +1509,11 @@ class MeshEngine:
         settled window; built only after the resolvability check."""
         return _SegResolver(tuple(self._dev_vseg), self._dev_seed)
 
+    def _dev_resolve(self, s: int, ver: int) -> bytes:
+        """Value bytes for (shard, version) against the live engine
+        state (test/debug convenience; settled views carry snapshots)."""
+        return self._dev_make_resolver()(s, ver)
+
     def _dev_unresolvable(self, found: np.ndarray, ver: np.ndarray) -> bool:
         """True when ANY found (wave, shard) op's version cannot be
         resolved host-side: the caller then downloads the value planes.
@@ -1930,6 +1940,20 @@ class MeshEngine:
         self._bulk_log.clear()
         for d in self.decisions:
             d.clear()
+
+    async def save_to(self, persistence) -> None:
+        """Save :meth:`checkpoint` through a persistence layer
+        (:mod:`rabia_tpu_torch.persistence`)."""
+        await persistence.save_engine_state(self.checkpoint())
+
+    async def load_from(self, persistence) -> bool:
+        """:meth:`restore` the state a persistence layer holds; False when
+        it holds none."""
+        state = await persistence.load_engine_state()
+        if state is None:
+            return False
+        self.restore(state)
+        return True
 
     # -- introspection -------------------------------------------------------
 

@@ -1,0 +1,908 @@
+"""The port's transport engine: N real engines over in-process transports.
+
+The scenarios of tests/test_engine.py, driven through
+``rabia_tpu_torch``'s ``RabiaEngine`` on its Python paths: three nodes
+in memory, submissions from every node, one replica, membership join and
+leave, no quorum, loss/latency/minority crash under the simulator,
+proposer rotation and validation, the dedup ledger, apply-failure
+containment, partition pause and heal, tracing spans, mixed-progress
+sync, and the refusal of the unported device backend. These tests
+REQUIRE every commit to actually hold.
+"""
+
+import asyncio
+
+import pytest
+
+from rabia_tpu_torch.core.config import RabiaConfig
+from rabia_tpu_torch.core.errors import QuorumNotAvailableError
+from rabia_tpu_torch.core.network import ClusterConfig
+from rabia_tpu_torch.core.state_machine import InMemoryStateMachine
+from rabia_tpu_torch.core.types import CommandBatch, NodeId
+from rabia_tpu_torch.engine import RabiaEngine, slot_proposer
+from rabia_tpu_torch.net import (
+    InMemoryHub,
+    NetworkConditions,
+    NetworkSimulator,
+)
+
+
+def _mk_config(n_shards: int = 2) -> RabiaConfig:
+    return RabiaConfig(
+        phase_timeout=0.4,
+        heartbeat_interval=0.05,
+        round_interval=0.002,
+        cleanup_interval=1.0,
+    ).with_kernel(num_shards=n_shards, shard_pad_multiple=2)
+
+
+async def _spin_cluster(n, config, transport_factory):
+    nodes = [NodeId.from_int(i + 1) for i in range(n)]
+    engines, sms, tasks = [], [], []
+    for node in nodes:
+        sm = InMemoryStateMachine()
+        transport = transport_factory(node)
+        eng = RabiaEngine(
+            ClusterConfig.new(node, nodes), sm, transport, config=config
+        )
+        engines.append(eng)
+        sms.append(sm)
+        tasks.append(asyncio.ensure_future(eng.run()))
+    # let heartbeats establish quorum
+    for _ in range(200):
+        await asyncio.sleep(0.01)
+        stats = [await e.get_statistics() for e in engines]
+        if all(s.has_quorum for s in stats):
+            break
+    return nodes, engines, sms, tasks
+
+
+async def _teardown(engines, tasks):
+    for e in engines:
+        await e.shutdown()
+    for t in tasks:
+        t.cancel()
+    await asyncio.gather(*tasks, return_exceptions=True)
+
+
+async def _converged(sms, key, value, timeout=10.0):
+    async def wait():
+        while not all(sm.get(key) == value for sm in sms):
+            await asyncio.sleep(0.02)
+
+    await asyncio.wait_for(wait(), timeout)
+
+
+class TestThreeNodeInMemory:
+    @pytest.mark.asyncio
+    async def test_single_batch_commits_everywhere(self):
+        hub = InMemoryHub()
+        _, engines, sms, tasks = await _spin_cluster(
+            3, _mk_config(), hub.register
+        )
+        try:
+            fut = await engines[0].submit_batch(
+                CommandBatch.new(["SET a 1", "SET b 2"]), shard=0
+            )
+            responses = await asyncio.wait_for(fut, 10.0)
+            assert responses == [b"OK", b"OK"]
+            await _converged(sms, "a", "1")
+            await _converged(sms, "b", "2")
+        finally:
+            await _teardown(engines, tasks)
+
+    @pytest.mark.asyncio
+    async def test_submissions_from_every_node(self):
+        hub = InMemoryHub()
+        _, engines, sms, tasks = await _spin_cluster(
+            3, _mk_config(), hub.register
+        )
+        try:
+            futs = []
+            for i, e in enumerate(engines):
+                futs.append(
+                    await e.submit_batch(
+                        CommandBatch.new([f"SET k{i} v{i}"]), shard=i % 2
+                    )
+                )
+            for f in futs:
+                await asyncio.wait_for(f, 15.0)
+            for i in range(3):
+                await _converged(sms, f"k{i}", f"v{i}")
+            stats = [await e.get_statistics() for e in engines]
+            assert all(s.decided_v1 >= 3 for s in stats)
+        finally:
+            await _teardown(engines, tasks)
+
+    @pytest.mark.asyncio
+    async def test_single_replica_cluster_keeps_committing(self):
+        # regression: R==1 gets no peer traffic, so the input-gated kernel
+        # step wedged after the R1 cast — the follow-up step (_restep) must
+        # carry each slot through R2 and decision on its own
+        hub = InMemoryHub()
+        _, engines, sms, tasks = await _spin_cluster(
+            1, _mk_config(), hub.register
+        )
+        try:
+            for i in range(3):
+                fut = await engines[0].submit_batch(
+                    CommandBatch.new([f"SET solo{i} v{i}"]), shard=i % 2
+                )
+                assert await asyncio.wait_for(fut, 10.0) == [b"OK"]
+            for i in range(3):
+                await _converged(sms, f"solo{i}", f"v{i}")
+        finally:
+            await _teardown(engines, tasks)
+
+    @pytest.mark.asyncio
+    async def test_live_membership_join_and_leave(self):
+        """A configured replica joins MID-RUN (quorum + leader recompute,
+        joiner catches up via sync) and another leaves (leader recomputes
+        again, survivors keep committing). Reference parity:
+        rabia-engine/src/engine.rs:142-153 (update_nodes),
+        leader.rs:61-87 (recompute), and the dynamic-topology arm of
+        examples/tcp_networking.rs:20-43."""
+        hub = InMemoryHub()
+        config = _mk_config()
+        nodes = [NodeId.from_int(i + 1) for i in range(3)]
+        engines, sms, tasks = [], [], []
+
+        def start(node):
+            sm = InMemoryStateMachine()
+            eng = RabiaEngine(
+                ClusterConfig.new(node, nodes), sm, hub.register(node),
+                config=config,
+            )
+            engines.append(eng)
+            sms.append(sm)
+            tasks.append(asyncio.ensure_future(eng.run()))
+            return eng
+
+        # phase 1: only 2 of the 3 configured replicas run (quorum = 2)
+        for node in nodes[:2]:
+            start(node)
+        try:
+            for _ in range(300):
+                await asyncio.sleep(0.01)
+                stats = [await e.get_statistics() for e in engines]
+                if all(s.has_quorum for s in stats):
+                    break
+            for i in range(4):
+                fut = await engines[0].submit_batch(
+                    CommandBatch.new([f"SET pre{i} v{i}"]), shard=i % 2
+                )
+                await asyncio.wait_for(fut, 10.0)
+            assert engines[0].leader.current_leader == nodes[0]
+
+            # phase 2: node 3 JOINS mid-run
+            joiner = start(nodes[2])
+            for _ in range(500):
+                await asyncio.sleep(0.01)
+                st = await joiner.get_statistics()
+                if st.has_quorum and st.active_nodes == 3:
+                    break
+            # membership view refreshed on every running engine
+            assert (await engines[0].get_statistics()).active_nodes == 3
+            # commits continue with the larger membership...
+            fut = await engines[1].submit_batch(
+                CommandBatch.new(["SET mid x"]), shard=0
+            )
+            await asyncio.wait_for(fut, 10.0)
+            # ...and the joiner catches up on everything it missed (sync)
+            await _converged(sms, "pre3", "v3", timeout=15.0)
+            await _converged(sms, "mid", "x", timeout=15.0)
+
+            # phase 3: the leader LEAVES mid-run
+            await engines[0].shutdown()
+            hub.set_connected(nodes[0], False)
+            for _ in range(500):
+                await asyncio.sleep(0.01)
+                if engines[1].leader.current_leader == nodes[1]:
+                    break
+            assert engines[1].leader.current_leader == nodes[1]
+            st = await engines[1].get_statistics()
+            assert st.has_quorum  # 2 of 3 configured still up
+            fut = await engines[1].submit_batch(
+                CommandBatch.new(["SET post y"]), shard=1
+            )
+            await asyncio.wait_for(fut, 10.0)
+            await _converged(sms[1:], "post", "y", timeout=15.0)
+        finally:
+            await _teardown(engines, tasks)
+
+    @pytest.mark.asyncio
+    async def test_no_quorum_rejects_submission(self):
+        hub = InMemoryHub()
+        nodes = [NodeId.from_int(i + 1) for i in range(3)]
+        sm = InMemoryStateMachine()
+        eng = RabiaEngine(
+            ClusterConfig.new(nodes[0], nodes),
+            sm,
+            hub.register(nodes[0]),
+            config=_mk_config(),
+        )
+        # never started peers: no quorum
+        with pytest.raises(QuorumNotAvailableError):
+            await eng.submit_batch(CommandBatch.new(["SET x 1"]))
+
+    @pytest.mark.asyncio
+    async def test_shutdown_without_run_returns(self):
+        hub = InMemoryHub()
+        nodes = [NodeId.from_int(1)]
+        eng = RabiaEngine(
+            ClusterConfig.new(nodes[0], nodes),
+            InMemoryStateMachine(),
+            hub.register(nodes[0]),
+            config=_mk_config(),
+        )
+        await asyncio.wait_for(eng.shutdown(), 1.0)
+
+
+class TestSimulatedConditions:
+    @pytest.mark.asyncio
+    async def test_commits_under_packet_loss(self):
+        sim = NetworkSimulator(NetworkConditions.lossy(0.20), seed=7)
+        _, engines, sms, tasks = await _spin_cluster(
+            3, _mk_config(), sim.register
+        )
+        try:
+            fut = await engines[1].submit_batch(
+                CommandBatch.new(["SET lossy yes"]), shard=0
+            )
+            # under loss the submitter itself can fall behind and receive
+            # its own batch's effects via snapshot sync — then the future
+            # fails with the documented "responses unavailable" error while
+            # the COMMIT is still real; convergence below is the actual
+            # assertion either way
+            try:
+                await asyncio.wait_for(fut, 20.0)
+            except Exception as e:  # noqa: BLE001
+                assert "responses unavailable" in str(e)
+            await _converged(sms, "lossy", "yes", timeout=20.0)
+        finally:
+            await _teardown(engines, tasks)
+            await sim.close()
+
+    @pytest.mark.asyncio
+    async def test_commits_under_latency(self):
+        sim = NetworkSimulator(
+            NetworkConditions(latency_min=0.005, latency_max=0.02), seed=7
+        )
+        _, engines, sms, tasks = await _spin_cluster(
+            3, _mk_config(), sim.register
+        )
+        try:
+            fut = await engines[0].submit_batch(
+                CommandBatch.new(["SET slow ok"]), shard=1
+            )
+            await asyncio.wait_for(fut, 20.0)
+            await _converged(sms, "slow", "ok", timeout=20.0)
+            assert sim.stats.average_latency > 0.001
+        finally:
+            await _teardown(engines, tasks)
+            await sim.close()
+
+    @pytest.mark.asyncio
+    async def test_minority_crash_still_commits(self):
+        sim = NetworkSimulator(seed=3)
+        nodes_all, engines, sms, tasks = await _spin_cluster(
+            3, _mk_config(), sim.register
+        )
+        try:
+            sim.crash(nodes_all[2])
+            await asyncio.sleep(0.2)
+            fut = await engines[0].submit_batch(
+                CommandBatch.new(["SET crashy fine"]), shard=0
+            )
+            await asyncio.wait_for(fut, 20.0)
+            await _converged(sms[:2], "crashy", "fine", timeout=20.0)
+        finally:
+            await _teardown(engines, tasks)
+            await sim.close()
+
+
+class TestSlotProposer:
+    def test_rotation_covers_all_replicas(self):
+        rows = {slot_proposer(0, slot, 5) for slot in range(5)}
+        assert rows == set(range(5))
+
+    def test_deterministic(self):
+        assert slot_proposer(3, 7, 5) == slot_proposer(3, 7, 5)
+
+
+def _single_engine(n=3, n_shards=1):
+    nodes = [NodeId.from_int(i + 1) for i in range(n)]
+    hub = InMemoryHub()
+    eng = RabiaEngine(
+        ClusterConfig.new(nodes[0], nodes),
+        InMemoryStateMachine(),
+        hub.register(nodes[0]),
+        config=_mk_config(n_shards),
+    )
+    return eng
+
+
+class TestProposerValidation:
+    """Only the rotation proposer of (shard, slot) may bind a batch to it —
+    a non-proposer's Propose must be dropped (ADVICE: divergent batch_id
+    bindings on a V1-decided slot cause state divergence)."""
+
+    @pytest.mark.asyncio
+    async def test_non_proposer_propose_dropped(self):
+        from rabia_tpu_torch.core.messages import Propose
+        from rabia_tpu_torch.core.types import StateValue
+        from rabia_tpu_torch.kernel.phase_driver import pack_phase
+
+        eng = _single_engine()
+        batch = CommandBatch.new(["SET a 1"])
+        # slot 0 of shard 0 belongs to row 0; rows 1/2 must be rejected
+        for bad_row in (1, 2):
+            eng._on_propose(
+                bad_row,
+                Propose(
+                    shard=0,
+                    phase=pack_phase(0, 0),
+                    batch_id=batch.id,
+                    value=StateValue.V1,
+                    batch=batch,
+                ),
+            )
+        assert eng.rt.shards[0].buf_propose == {}
+        # slot 1 belongs to row 1: accepted
+        eng._on_propose(
+            1,
+            Propose(
+                shard=0,
+                phase=pack_phase(1, 0),
+                batch_id=batch.id,
+                value=StateValue.V1,
+                batch=batch,
+            ),
+        )
+        assert 1 in eng.rt.shards[0].buf_propose
+
+    @pytest.mark.asyncio
+    async def test_open_slots_never_rebinds(self):
+        """Once a slot carries a binding, the proposer must not swap in a
+        different queued batch."""
+        eng = _single_engine()
+        eng.rt.has_quorum = True
+        sh = eng.rt.shards[0]
+        bound = CommandBatch.new(["SET first 1"])
+        sh.buf_propose[0] = (bound.id, bound)
+        await eng.submit_batch(CommandBatch.new(["SET second 2"]), shard=0)
+        opened = eng._open_slots()
+        assert [(s, slot) for s, slot, _v in opened] == [(0, 0)]
+        assert sh.buf_propose[0][0] == bound.id  # binding unchanged
+
+
+class TestDedupLedger:
+    """applied_ids is the duplicate-commit guard; evicting the bounded
+    response cache must not re-enable a duplicate apply (ADVICE low)."""
+
+    @pytest.mark.asyncio
+    async def test_dedup_survives_response_cache_eviction(self):
+        from rabia_tpu_torch.core.types import BatchId
+
+        eng = _single_engine()
+        sh = eng.rt.shards[0]
+        ids = [BatchId.new() for _ in range(3 * eng.config.max_pending_batches)]
+        for bid in ids:
+            sh.applied_ids[bid] = None
+            sh.applied_results[bid] = [b"ok"]
+        eng._gc()
+        # response cache bounded...
+        assert len(sh.applied_results) <= 2 * eng.config.max_pending_batches
+        # ...but every id still known to the dedup ledger
+        assert all(bid in sh.applied_ids for bid in ids)
+
+
+class _StrictSM(InMemoryStateMachine):
+    """InMemoryStateMachine that raises on a command outside its grammar
+    (the role the reference test gives its sharded KV store, which the
+    port has not ported yet)."""
+
+    def apply_command(self, command):
+        from rabia_tpu_torch.core.errors import StateMachineError
+
+        if command.data.split(b" ", 1)[0] not in (b"SET", b"GET", b"DEL"):
+            raise StateMachineError(f"undecodable command {command.data!r}")
+        return super().apply_command(command)
+
+
+class TestApplyFailureContainment:
+    """A committed batch the state machine rejects must fail the submitter
+    deterministically — never kill the consensus loop (a poisoned command
+    would otherwise crash every replica identically: cluster outage)."""
+
+    @pytest.mark.asyncio
+    async def test_undecodable_command_fails_future_not_engine(self):
+        from rabia_tpu_torch.core.errors import RabiaError
+        from rabia_tpu_torch.core.types import Command, CommandBatch
+
+        nodes = [NodeId.from_int(i + 1) for i in range(3)]
+        hub = InMemoryHub()
+        engines, tasks = [], []
+        for n in nodes:
+            sm = _StrictSM()
+            engines.append(
+                RabiaEngine(
+                    ClusterConfig.new(n, nodes),
+                    sm,
+                    hub.register(n),
+                    config=_mk_config(2),
+                )
+            )
+            tasks.append(asyncio.ensure_future(engines[-1].run()))
+        try:
+            for _ in range(300):
+                await asyncio.sleep(0.01)
+                sts = [await e.get_statistics() for e in engines]
+                if all(s.has_quorum for s in sts):
+                    break
+            # poisoned: the state machine refuses it
+            bad = CommandBatch.new([Command.new(b"NOT A VALID COMMAND")], shard=0)
+            fut = await engines[0].submit_batch(bad, shard=0)
+            with pytest.raises(RabiaError):
+                await asyncio.wait_for(fut, 20.0)
+            # the cluster is still alive: a good batch commits after it
+            good = CommandBatch.new([Command.new(b"SET k v")], shard=0)
+            fut2 = await engines[0].submit_batch(good, shard=0)
+            responses = await asyncio.wait_for(fut2, 20.0)
+            assert responses == [b"OK"]
+        finally:
+            for e in engines:
+                await e.shutdown()
+            for t in tasks:
+                t.cancel()
+            await asyncio.gather(*tasks, return_exceptions=True)
+
+
+class TestQuorumEventPlumbing:
+    """NetworkMonitor events drive engine pause/resume (engine.rs:983-997)
+    and QuorumNotification broadcasts (messages.rs:132-136)."""
+
+    @pytest.mark.asyncio
+    async def test_partition_pauses_and_heal_resumes(self):
+        from rabia_tpu_torch.core.state_machine import InMemoryStateMachine
+        from rabia_tpu_torch.core.types import Command, CommandBatch
+
+        nodes = [NodeId.from_int(i + 1) for i in range(3)]
+        hub = InMemoryHub()
+        cfg = _mk_config(1)
+        engines, tasks = [], []
+        for n in nodes:
+            engines.append(
+                RabiaEngine(
+                    ClusterConfig.new(n, nodes),
+                    InMemoryStateMachine(),
+                    hub.register(n),
+                    config=cfg,
+                )
+            )
+            tasks.append(asyncio.ensure_future(engines[-1].run()))
+        try:
+            for _ in range(300):
+                await asyncio.sleep(0.01)
+                sts = [await e.get_statistics() for e in engines]
+                if all(s.has_quorum for s in sts):
+                    break
+            # commit one batch while healthy
+            fut = await engines[0].submit_batch(
+                CommandBatch.new([Command.new(b"SET a 1")], shard=0), shard=0
+            )
+            await asyncio.wait_for(fut, 20.0)
+
+            # partition node 0 away from both peers
+            hub.set_connected(nodes[1], False)
+            hub.set_connected(nodes[2], False)
+            for _ in range(400):
+                await asyncio.sleep(0.01)
+                if engines[0]._paused:
+                    break
+            assert engines[0]._paused, "quorum loss must pause consensus"
+            st = await engines[0].get_statistics()
+            assert not st.is_active and not st.has_quorum
+            from rabia_tpu_torch.core.errors import QuorumNotAvailableError
+
+            with pytest.raises(QuorumNotAvailableError):
+                await engines[0].submit_batch(
+                    CommandBatch.new([Command.new(b"SET b 2")], shard=0), shard=0
+                )
+
+            # heal: quorum restored resumes consensus and commits again
+            hub.set_connected(nodes[1], True)
+            hub.set_connected(nodes[2], True)
+            for _ in range(400):
+                await asyncio.sleep(0.01)
+                sts = [await e.get_statistics() for e in engines]
+                if not engines[0]._paused and all(s.has_quorum for s in sts):
+                    break
+            assert not engines[0]._paused
+            fut = await engines[0].submit_batch(
+                CommandBatch.new([Command.new(b"SET c 3")], shard=0), shard=0
+            )
+            await asyncio.wait_for(fut, 20.0)
+            # peers observed the lost/restored notifications
+            seen = any(
+                nodes[0] in e._peer_quorum_views for e in engines[1:]
+            )
+            assert seen, "QuorumNotification broadcasts were not received"
+        finally:
+            for e in engines:
+                await e.shutdown()
+            for t in tasks:
+                t.cancel()
+            await asyncio.gather(*tasks, return_exceptions=True)
+
+
+class TestTracing:
+    @pytest.mark.asyncio
+    async def test_spans_record_engine_phases(self):
+        from rabia_tpu_torch.core.state_machine import InMemoryStateMachine
+        from rabia_tpu_torch.core.tracing import tracer
+        from rabia_tpu_torch.core.types import Command, CommandBatch
+
+        nodes = [NodeId.from_int(i + 1) for i in range(3)]
+        hub = InMemoryHub()
+        engines, tasks = [], []
+        for n in nodes:
+            engines.append(
+                RabiaEngine(
+                    ClusterConfig.new(n, nodes),
+                    InMemoryStateMachine(),
+                    hub.register(n),
+                    config=_mk_config(1),
+                )
+            )
+            tasks.append(asyncio.ensure_future(engines[-1].run()))
+        tracer.reset()
+        tracer.enabled = True
+        try:
+            for _ in range(300):
+                await asyncio.sleep(0.01)
+                sts = [await e.get_statistics() for e in engines]
+                if all(s.has_quorum for s in sts):
+                    break
+            fut = await engines[0].submit_batch(
+                CommandBatch.new([Command.new(b"SET t 1")], shard=0), shard=0
+            )
+            await asyncio.wait_for(fut, 20.0)
+        finally:
+            tracer.enabled = False
+            for e in engines:
+                await e.shutdown()
+            for t in tasks:
+                t.cancel()
+            await asyncio.gather(*tasks, return_exceptions=True)
+        report = tracer.report()
+        for name in (
+            "engine.tick.drain",
+            "engine.tick.kernel",
+            "engine.kernel.step",
+            "engine.tick.apply",
+        ):
+            assert name in report and report[name]["count"] > 0, report.keys()
+        tracer.reset()
+
+
+class TestMixedProgressSync:
+    """Sync adoption must be PER SHARD: a responder ahead on some shards
+    must not regress shards where the syncing replica is ahead (wholesale
+    snapshot restore under mixed progress poisons state/counter
+    consistency)."""
+
+    def _mk(self, S, sm):
+        nodes = [NodeId.from_int(i + 1) for i in range(3)]
+        hub = InMemoryHub()
+        return RabiaEngine(
+            ClusterConfig.new(nodes[0], nodes),
+            sm,
+            hub.register(nodes[0]),
+            config=_mk_config(S),
+        ), nodes
+
+    @pytest.mark.asyncio
+    async def test_sharded_sm_adopts_only_ahead_shards(self):
+        from rabia_tpu_torch.apps.kvstore import encode_set_bin
+        from rabia_tpu_torch.apps.vector_kv import VectorShardedKV
+        from rabia_tpu_torch.core.messages import SyncResponse
+        from rabia_tpu_torch.core.types import Command, CommandBatch, ShardId
+
+        S = 2
+        # a per-shard-restoring store (the reference test's sharded KV
+        # is not ported yet; VectorShardedKV has the same restore_shards)
+        sm_a = VectorShardedKV(S, capacity=64)  # the responder's state
+        sm_b = VectorShardedKV(S, capacity=64)  # the syncing replica's
+
+        def put(sm, shard, key, val):
+            sm.apply_batch(
+                CommandBatch.new(
+                    [Command.new(encode_set_bin(key, val))], shard=ShardId(shard)
+                )
+            )
+
+        # responder A: ahead on shard 0 (3 slots), empty shard 1
+        for i in range(3):
+            put(sm_a, 0, f"a{i}", f"A{i}")
+        # syncer B: ahead on shard 1 (2 slots), empty shard 0
+        put(sm_b, 1, "b0", "B0")
+        put(sm_b, 1, "b1", "B1")
+
+        eng, nodes = self._mk(S, sm_b)
+        eng.rt.shards[1].applied_upto = 2
+        eng.rt.shards[1].next_slot = 2
+
+        snap = sm_a.create_snapshot()
+        resp = SyncResponse(
+            responder_phase=3,
+            state_version=3,
+            snapshot=snap.to_bytes(),
+            per_shard_phase=(3, 0),
+            applied_ids=(),
+        )
+        eng.rt.sync_started_at = 0.0
+        eng._on_sync_response(nodes[1], resp)
+        # shard 0 adopted from A...
+        assert eng.rt.shards[0].applied_upto == 3
+        assert sm_b.store.get(0, b"a2") == (b"A2", 3)
+        # ...while shard 1's OWN state and counters survive
+        assert eng.rt.shards[1].applied_upto == 2
+        assert sm_b.store.get(1, b"b1") == (b"B1", 2)
+
+    @pytest.mark.asyncio
+    async def test_monolithic_sm_requires_superset_responder(self):
+        from rabia_tpu_torch.core.messages import SyncResponse
+        from rabia_tpu_torch.core.state_machine import InMemoryStateMachine
+
+        S = 2
+        sm = InMemoryStateMachine()
+        eng, nodes = self._mk(S, sm)
+        # we are ahead on shard 1
+        eng.rt.shards[1].applied_upto = 2
+        responder_sm = InMemoryStateMachine()
+        snap = responder_sm.create_snapshot()
+        resp = SyncResponse(
+            responder_phase=3,
+            state_version=3,
+            snapshot=snap.to_bytes(),
+            per_shard_phase=(3, 0),  # ahead on 0, BEHIND on 1
+            applied_ids=(),
+        )
+        eng.rt.sync_started_at = 0.0
+        eng._on_sync_response(nodes[1], resp)
+        # not a superset + no per-shard restore => nothing adopted
+        assert eng.rt.shards[0].applied_upto == 0
+        assert eng.rt.shards[1].applied_upto == 2
+
+    def test_vector_store_restore_shards(self):
+        from rabia_tpu_torch.apps.vector_kv import VectorShardedKV
+        from rabia_tpu_torch.apps.kvstore import encode_set_bin
+        from rabia_tpu_torch.core.blocks import build_block
+        import numpy as np
+
+        a = VectorShardedKV(3, capacity=64)
+        b = VectorShardedKV(3, capacity=64)
+        a.apply_block(
+            build_block([0, 2], [[encode_set_bin("x", "Ax")], [encode_set_bin("z", "Az")]]),
+            np.arange(2),
+        )
+        b.apply_block(
+            build_block([1], [[encode_set_bin("y", "By")]]), np.arange(1)
+        )
+        snap = a.create_snapshot()
+        b.restore_shards(snap, [0])  # adopt only shard 0 from A
+        assert b.store.get(0, b"x") == (b"Ax", 1)
+        assert b.store.get(1, b"y") == (b"By", 1)  # kept
+        assert b.store.get(2, b"z") is None  # NOT adopted
+
+
+class TestBackendRefusal:
+    def _engine(self, config):
+        nodes = [NodeId.from_int(i + 1) for i in range(3)]
+        hub = InMemoryHub()
+        return RabiaEngine(
+            ClusterConfig.new(nodes[0], nodes),
+            InMemoryStateMachine(),
+            hub.register(nodes[0]),
+            config=config,
+        )
+
+    @pytest.mark.asyncio
+    async def test_default_engine_is_host_kernel_on_python_paths(self):
+        """The engine runs the numpy HostNodeKernel, and every native
+        handle is None: its reports say the Python paths run."""
+        from rabia_tpu_torch.kernel.host_driver import HostNodeKernel
+
+        eng = self._engine(RabiaConfig())
+        assert type(eng.kernel) is HostNodeKernel
+        assert (eng._rk, eng._rtm, eng._wal, eng._hk_lib) == (None,) * 4
+        health = eng.health()
+        assert health["native_tick"] is False
+        assert health["native_runtime"] is False
+        assert health["planes"] == {
+            "runtime": "python", "tick": "python", "apply": "python",
+            "runtime_workers": 1, "wal": "none",
+        }
+        assert eng.serializer._binary._native is None
+        assert "rabia_engine_native_tick 0" in eng.metrics.render_prometheus()
+
+    @pytest.mark.parametrize(
+        "kernel_kw",
+        [{"backend": "jax"}, {"zero_copy_inbox": True}],
+        ids=["backend_jax", "zero_copy_inbox"],
+    )
+    def test_device_backend_is_refused_not_ignored(self, kernel_kw):
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 8"):
+            self._engine(
+                RabiaConfig().with_kernel(
+                    num_shards=2, shard_pad_multiple=2, **kernel_kw
+                )
+            )
+
+
+class TestDeferredApplyCommitsOnce:
+    """A batch commits in one slot even when its apply is deferred past the
+    next tick. The apply plane defers slots past its inline budget to a
+    drain that yields between chunks; the dedup ledger learns of a batch
+    only when it applies, so a submission still at its queue's head was
+    forwarded and proposed again in the next slot. The reference engine
+    does that (its planes gate fails once a wave passes the apply plane's
+    inline budget and first drain chunk, and here with the apply fully
+    deferred); the port's does not."""
+
+    @pytest.mark.asyncio
+    async def test_each_batch_commits_once_under_deferred_apply(self, monkeypatch):
+        from rabia_tpu_torch.engine.apply_plane import ApplyPlane
+
+        monkeypatch.setenv("RABIA_APPLY_INLINE", "0")  # defer every apply
+        monkeypatch.setattr(ApplyPlane, "CHUNK", 1)  # one slot a drain step
+        S, waves = 8, 3
+        hub = InMemoryHub()
+        cfg = RabiaConfig(
+            phase_timeout=3.0, heartbeat_interval=0.05, round_interval=0.002
+        ).with_kernel(num_shards=S, shard_pad_multiple=2)
+        _, engines, sms, tasks = await _spin_cluster(3, cfg, hub.register)
+        try:
+            assert all(e._apply_plane.inline_budget == 0 for e in engines)
+            for w in range(waves):
+                futs = [
+                    await engines[0].submit_batch(
+                        CommandBatch.new([f"SET k{s} w{w}"]), shard=s
+                    )
+                    for s in range(S)
+                ]
+                for f in futs:
+                    assert await asyncio.wait_for(f, 15.0) == [b"OK"]
+            for s in range(S):
+                await _converged(sms, f"k{s}", f"w{waves - 1}")
+            assert sum(e._apply_plane.deferred_slots for e in engines) > 0
+            for e in engines:
+                for s in range(S):
+                    log = e.rt.shards[s].decisions
+                    assert sorted(log) == list(range(waves)), (s, sorted(log))
+                    assert len({rec.batch_id for rec in log.values()}) == waves
+        finally:
+            await _teardown(engines, tasks)
+
+
+class TestTickReadsAMessageAShard:
+    """A tick drains at least one inbound message per shard. A wave brings
+    every replica per-shard messages (NewBatch, Propose) while the forward
+    timeout runs in wall time; the reference's fixed cap of 256 left a
+    wide engine reading a wave over many ticks, and it forced null slots
+    on proposers whose Propose sat unread in its own inbox (its planes
+    gate at 4096 shards x 5 replicas)."""
+
+    @pytest.mark.parametrize("pkg", ["rabia_tpu", "rabia_tpu_torch"])
+    @pytest.mark.asyncio
+    async def test_one_tick_drains_a_wave_of_per_shard_messages(self, pkg):
+        import importlib
+
+        imp = lambda m: importlib.import_module(f"{pkg}.{m}")  # noqa: E731
+        types, msgs = imp("core.types"), imp("core.messages")
+        S, sent = 1024, 900
+        nodes = [types.NodeId.from_int(i + 1) for i in range(3)]
+        hub = imp("net").InMemoryHub()
+        eng = imp("engine").RabiaEngine(
+            imp("core.network").ClusterConfig.new(nodes[0], nodes),
+            imp("core.state_machine").InMemoryStateMachine(),
+            hub.register(nodes[0]),
+            config=imp("core.config").RabiaConfig().with_kernel(num_shards=S),
+        )
+        peer = hub.register(nodes[1])
+        ser = imp("core.serialization").Serializer()
+        for i in range(sent):
+            frame = ser.serialize(msgs.ProtocolMessage.new(
+                nodes[1], msgs.HeartBeat(current_phase=i, committed_phase=0)))
+            peer.send_to_nowait(nodes[0], frame)
+        await eng._tick()
+        left = hub.queue_of(nodes[0]).qsize()
+        # the port reads the whole wave in one tick; the reference, 256
+        assert left == (0 if pkg == "rabia_tpu_torch" else sent - 256)
+
+
+def _typed_counter(smr_module):
+    """A typed counter over ``smr_module``'s TypedStateMachine: commands
+    are signed ints, the response the new total."""
+
+    class Counter(smr_module.TypedStateMachine):
+        def __init__(self):
+            self.total = 0
+
+        def apply_command(self, command):
+            self.total += command
+            return self.total
+
+        def get_state(self):
+            return self.total
+
+        def set_state(self, state):
+            self.total = state
+
+        def encode_command(self, command):
+            return str(command).encode()
+
+        def decode_command(self, data):
+            return int(data.decode())
+
+        def encode_response(self, response):
+            return str(response).encode()
+
+        def decode_response(self, data):
+            return int(data.decode())
+
+        def serialize_state(self):
+            return str(self.total).encode()
+
+        def deserialize_state(self, data):
+            self.total = int(data.decode())
+
+    return Counter
+
+
+class TestTypedSMRBridge:
+    @pytest.mark.asyncio
+    async def test_typed_counter_replicates_and_snapshots_like_the_reference(self):
+        """A TypedStateMachine behind SMRBridge on a 3-node cluster of the
+        port's engines: every replica reaches the same total, and its
+        snapshot is the bytes the reference's bridge makes."""
+        import rabia_tpu.core.smr as ref_smr
+        import rabia_tpu_torch.core.smr as smr
+
+        Counter = _typed_counter(smr)
+        nodes = [NodeId.from_int(i + 1) for i in range(3)]
+        hub = InMemoryHub()
+        bridges = [smr.SMRBridge(Counter()) for _ in nodes]
+        engines = [
+            RabiaEngine(ClusterConfig.new(n, nodes), b, hub.register(n), config=_mk_config(1))
+            for n, b in zip(nodes, bridges)
+        ]
+        tasks = [asyncio.ensure_future(e.run()) for e in engines]
+        try:
+            for _ in range(300):
+                await asyncio.sleep(0.01)
+                if all([(await e.get_statistics()).has_quorum for e in engines]):
+                    break
+            codec = Counter()
+            fut = await engines[1].submit_batch(
+                CommandBatch.new([codec.encode_command(v) for v in (5, -2, 10)]), shard=0
+            )
+            assert [codec.decode_response(r) for r in await asyncio.wait_for(fut, 10.0)] == [5, 3, 13]
+            for _ in range(500):
+                if all(b.typed.get_state() == 13 for b in bridges):
+                    break
+                await asyncio.sleep(0.01)
+            assert [b.typed.get_state() for b in bridges] == [13, 13, 13]
+        finally:
+            await _teardown(engines, tasks)
+        ref = ref_smr.SMRBridge(_typed_counter(ref_smr)())
+        from rabia_tpu.core.types import Command as RefCommand
+
+        for v in (5, -2, 10):
+            ref.apply_command(RefCommand.new(str(v).encode()))
+        snap = bridges[0].create_snapshot()
+        assert snap.to_bytes() == ref.create_snapshot().to_bytes()
+        fresh = smr.SMRBridge(Counter())
+        fresh.restore_snapshot(snap)
+        assert fresh.typed.get_state() == 13

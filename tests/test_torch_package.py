@@ -41,7 +41,7 @@ def test_imports_with_jax_and_reference_blocked():
         timeout=120,
     )
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 24  # every submodule was walked
+    assert int(out.stdout.split()[-1]) >= 45  # every submodule was walked
 
 
 @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: p.name)
@@ -121,6 +121,21 @@ def test_unported_engine_lanes_are_refused_not_ignored():
     # multi-device meshes are refused; the latency governor is ported
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         MeshEngine(InMemoryStateMachine, 4, 3, device="cpu", mesh=object())
+    # the transport engine's node kernel on the device is refused
+    from rabia_tpu_torch.core.config import RabiaConfig
+    from rabia_tpu_torch.core.network import ClusterConfig
+    from rabia_tpu_torch.core.types import NodeId
+    from rabia_tpu_torch.engine import RabiaEngine
+    from rabia_tpu_torch.net import InMemoryHub
+
+    nodes = [NodeId.from_int(i + 1) for i in range(3)]
+    for kernel_kw in ({"backend": "jax"}, {"zero_copy_inbox": True}):
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 8"):
+            RabiaEngine(
+                ClusterConfig.new(nodes[0], nodes), InMemoryStateMachine(),
+                InMemoryHub().register(nodes[0]),
+                config=RabiaConfig().with_kernel(**kernel_kw),
+            )
     gov = MeshEngine(lambda: VectorShardedKV(4), 4, 3, device="cpu", device_store=True,
                      window=64, latency_target_ms=50.0, min_window=2, max_window=32)
     assert gov.governor_stats()["inflight"] == 1  # one window deep under a target
@@ -166,3 +181,65 @@ def test_read_lane_and_dictionary_windows_run_with_jax_and_reference_blocked():
     )
     assert out.returncode == 0, out.stderr
     assert out.stdout.split()[-1] == "4"  # the GETs were served off consensus
+
+
+def test_transport_cluster_commits_with_jax_and_reference_blocked():
+    """A 3-node cluster of the port's transport engines over the in-memory
+    hub commits a batch on every replica, and MeshEngine.save_to /
+    load_from round-trip through the port's persistence, with jax and
+    rabia_tpu unimportable."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['rabia_tpu'] = None\n"
+        "import asyncio\n"
+        "from rabia_tpu_torch.core.config import RabiaConfig\n"
+        "from rabia_tpu_torch.core.network import ClusterConfig\n"
+        "from rabia_tpu_torch.core.state_machine import InMemoryStateMachine\n"
+        "from rabia_tpu_torch.core.types import CommandBatch, NodeId\n"
+        "from rabia_tpu_torch.engine import RabiaEngine\n"
+        "from rabia_tpu_torch.net import InMemoryHub\n"
+        "from rabia_tpu_torch.parallel import MeshEngine\n"
+        "from rabia_tpu_torch.persistence import InMemoryPersistence\n"
+        "async def main():\n"
+        "    cfg = RabiaConfig(phase_timeout=3.0, heartbeat_interval=0.05,\n"
+        "                      round_interval=0.002).with_kernel(num_shards=2, shard_pad_multiple=2)\n"
+        "    hub = InMemoryHub()\n"
+        "    nodes = [NodeId.from_int(i + 1) for i in range(3)]\n"
+        "    sms = [InMemoryStateMachine() for _ in nodes]\n"
+        "    engs = [RabiaEngine(ClusterConfig.new(n, nodes), sm, hub.register(n), config=cfg)\n"
+        "            for n, sm in zip(nodes, sms)]\n"
+        "    tasks = [asyncio.ensure_future(e.run()) for e in engs]\n"
+        "    for _ in range(300):\n"
+        "        await asyncio.sleep(0.01)\n"
+        "        if all([(await e.get_statistics()).has_quorum for e in engs]):\n"
+        "            break\n"
+        "    f = await engs[1].submit_batch(CommandBatch.new(['SET a 1', 'SET b 2']), shard=1)\n"
+        "    assert await asyncio.wait_for(f, 15.0) == [b'OK', b'OK']\n"
+        "    for _ in range(500):\n"
+        "        if all(sm.get('b') == '2' for sm in sms):\n"
+        "            break\n"
+        "        await asyncio.sleep(0.01)\n"
+        "    assert [sm.get('b') for sm in sms] == ['2'] * 3\n"
+        "    assert engs[0].health()['native_tick'] is False\n"
+        "    for e in engs:\n"
+        "        await e.shutdown()\n"
+        "    for t in tasks:\n"
+        "        t.cancel()\n"
+        "    await asyncio.gather(*tasks, return_exceptions=True)\n"
+        "    mesh = MeshEngine(InMemoryStateMachine, 2, 3, device='cpu')\n"
+        "    mesh.submit([b'SET m 1'], 0)\n"
+        "    mesh.flush()\n"
+        "    p = InMemoryPersistence()\n"
+        "    await mesh.save_to(p)\n"
+        "    back = MeshEngine(InMemoryStateMachine, 2, 3, device='cpu')\n"
+        "    assert await back.load_from(p) and back.sms[2].get('m') == '1'\n"
+        "    print(sum(len(e.rt.shards[1].decisions) for e in engs))\n"
+        "asyncio.run(main())\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+        timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split()[-1] == "3"  # one decided slot on each replica
