@@ -178,9 +178,21 @@ shard runs before it settles. The last lines are a ``{"kernels": ...}``
 JSON line, the card's name and power limit as nvidia-smi reports them,
 and ``{"ok": true, "device": {...}}``. Exits non-zero without a GPU.
 
+Phase 11 (after phase 10, with its own counts) drives the apps over the
+engine at ``BASELINE.json`` configs 1-4, each on a transport cluster
+(host code) beside a ``MeshEngine`` on the card fed the same commands:
+(a) counter_smr, 3 replicas x 1 shard; (b) kvstore_smr, 3 x 64, through
+``ShardedKVService`` with its block lane; (c) kvstore_smr, 5 x 4096 with
+adaptive batching, beside the device KV lane (``kv_dict.cu``); (d)
+banking_smr, 7 x 1024 on the fault-injection harness with 3 replicas
+crashed. It prints one line a part (decisions/s, commands/s, p50/p99
+submit-to-settle, (c)'s batch statistics and V0 openings, (d)'s commits
+after the crash, the host CPU and the card), then its launches.
+
 Phases 3-5, 7, 8 and 9's lanes also run on the CPU at a small size
-(tests/test_torch_slice.py), and phase 10 at config 2's shape
-(tests/test_torch_engine_conformance.py).
+(tests/test_torch_slice.py), phase 10 at config 2's shape
+(tests/test_torch_engine_conformance.py), and phase 11 at a small size
+(tests/test_torch_apps_engine.py).
 """
 
 from __future__ import annotations
@@ -198,16 +210,28 @@ import numpy as np
 import torch
 
 from rabia_tpu_torch import ClusterKernel, MeshEngine, MeshPhaseKernel
+from rabia_tpu_torch.apps.banking import BankCommand, BankingSMR, BankOp
+from rabia_tpu_torch.apps.counter import CounterCommand, CounterSMR
 from rabia_tpu_torch.apps.device_kv import HOST_PACK, DeviceDictOps
+from rabia_tpu_torch.apps.kvstore import (
+    KVOperation,
+    KVStoreSMR,
+    decode_kv_response,
+    encode_op_bin,
+    encode_set_bin,
+    shard_for_key,
+)
+from rabia_tpu_torch.apps.sharded import ShardedKVService, ShardedStateMachine, make_sharded_kv
 from rabia_tpu_torch.apps.vector_kv import VectorShardedKV
 from rabia_tpu_torch.core.blocks import build_block
 from rabia_tpu_torch.core.errors import RabiaError
-from rabia_tpu_torch.core.config import RabiaConfig
+from rabia_tpu_torch.core.config import BatchConfig, RabiaConfig
 from rabia_tpu_torch.core.network import ClusterConfig
 from rabia_tpu_torch.core.oracle import WeakMVCOracle
 from rabia_tpu_torch.core.persistence import PersistedEngineState
 from rabia_tpu_torch.core.state_machine import InMemoryStateMachine
-from rabia_tpu_torch.core.types import ABSENT, V1, CommandBatch, NodeId, quorum_size
+from rabia_tpu_torch.core.smr import SMRBridge
+from rabia_tpu_torch.core.types import ABSENT, V0, V1, Command, CommandBatch, NodeId, quorum_size
 from rabia_tpu_torch.engine import RabiaEngine
 from rabia_tpu_torch.kernel import (
     cluster_round,
@@ -221,6 +245,7 @@ from rabia_tpu_torch.kernel.phase_driver import device_coin
 from rabia_tpu_torch.net import InMemoryHub
 from rabia_tpu_torch.persistence import FileSystemPersistence
 from rabia_tpu_torch.testing.conformance import run_schedule_on_both_planes, settle_quantiles
+from rabia_tpu_torch.testing.fault_injection import ConsensusTestHarness, Fault, FaultType
 
 S_FULL, R_FULL, T_FULL = 4096, 5, 32768  # BASELINE.json config 3 geometry, bench.py depth
 T_SCAN = 8192  # bench.py's depth for the scanned protocol (slot_pipeline)
@@ -246,6 +271,15 @@ GOV_GROUPS = 6  # its 90/10 GET/SET stream: groups of 9 GET blocks and 1 SET blo
 # config 2's (64 shards x 3 replicas)
 TRANSPORT_WAVES = 3
 CFG2_S, CFG2_R, CFG2_WAVES = 64, 3, 8
+# phase 11: the apps over the transport engine beside MeshEngine, at
+# BASELINE.json configs 1-4 (config 2 reuses phase 10 (b)'s shape)
+CFG1_R, CFG1_CMDS = 3, 48  # counter_smr: 3 replicas, one shard, one command a slot
+CFG2_OP_WAVES = 6  # config 2: waves of one op a shard, then a set_many and a get_many
+APP_WAVES = 3  # config 3: waves of concurrent set() calls (the only cut allowed: fewer)
+APP_PER, APP_KEY, APP_VAL = 8, 32, 64  # keys a shard a wave; key and value bytes
+# config 4: banking_smr, 7 replicas x 1024 shards, 3 crashed (no two of them
+# adjacent in the slot proposer rotation), 2 waves after the crash
+CFG4_S, CFG4_R, CFG4_CRASH, CFG4_POST = 1024, 7, (1, 3, 5), 2
 # int32 operations/s of an H100 SXM: 132 SMs x 64 INT32 lanes x 1.98 GHz
 # (the Hopper white paper's per-SM unit count and the SXM boost clock)
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
@@ -2027,6 +2061,22 @@ def mesh_persistence(device, eng, S: int, R: int) -> dict:
     return {"state_bytes": nbytes, "save_s": save_s, "load_s": load_s}
 
 
+async def _quorum(engines, what: str) -> None:
+    for _ in range(1000):
+        await asyncio.sleep(0.01)
+        if all([(await e.get_statistics()).has_quorum for e in engines]):
+            return
+    raise AssertionError(f"{what}: the transport cluster never formed quorum")
+
+
+async def _stop(engines, tasks) -> None:
+    for e in engines:
+        await e.shutdown()
+    for t in tasks:
+        t.cancel()
+    await asyncio.gather(*tasks, return_exceptions=True)
+
+
 async def _transport_restart(S: int, R: int, root: str) -> dict:
     config = RabiaConfig(phase_timeout=3.0, heartbeat_interval=0.05,
                          round_interval=0.002).with_kernel(num_shards=S, shard_pad_multiple=2)
@@ -2039,13 +2089,6 @@ async def _transport_restart(S: int, R: int, root: str) -> dict:
     def start(i):
         return RabiaEngine(ClusterConfig.new(nodes[i], nodes), sms[i], transports[i],
                            persistence=persists[i], config=config)
-
-    async def quorum(engs):
-        for _ in range(500):
-            await asyncio.sleep(0.01)
-            if all([(await e.get_statistics()).has_quorum for e in engs]):
-                return
-        raise AssertionError("phase 10: the transport cluster never formed quorum")
 
     async def wave(eng, tag):
         futs = [await eng.submit_batch(CommandBatch.new([f"SET {tag}{s} v{s}"]), shard=s)
@@ -2063,7 +2106,7 @@ async def _transport_restart(S: int, R: int, root: str) -> dict:
     engines = [start(i) for i in range(R)]
     tasks = [asyncio.ensure_future(e.run()) for e in engines]
     try:
-        await quorum(engines)
+        await _quorum(engines, "phase 10")
         await wave(engines[0], "a")
         await converged("a")
         # the last replica shuts down (a clean shutdown saves its state),
@@ -2080,7 +2123,7 @@ async def _transport_restart(S: int, R: int, root: str) -> dict:
         engines[-1] = start(R - 1)
         t0 = time.perf_counter()
         tasks[-1] = asyncio.ensure_future(engines[-1].run())
-        await quorum(engines)
+        await _quorum(engines, "phase 10")
         _check(all(sms[-1].get(f"a{s}") == f"v{s}" for s in range(S)),
                "phase 10: the restarted replica's restored state")
         # a further wave commits on every replica, the restarted one too
@@ -2089,11 +2132,7 @@ async def _transport_restart(S: int, R: int, root: str) -> dict:
         return {"shards": S, "replicas": R, "rejoin_and_wave_s": time.perf_counter() - t0,
                 "tainted_shards": int((engines[-1].rt.tainted_upto[:S] > 0).sum())}
     finally:
-        for e in engines:
-            await e.shutdown()
-        for t in tasks:
-            t.cancel()
-        await asyncio.gather(*tasks, return_exceptions=True)
+        await _stop(engines, tasks)
 
 
 def transport_restart(S: int, R: int) -> dict:
@@ -2102,6 +2141,517 @@ def transport_restart(S: int, R: int) -> dict:
     commits on every replica."""
     with tempfile.TemporaryDirectory() as d:
         return asyncio.run(_transport_restart(S, R, d))
+
+
+# -- phase 11 ----------------------------------------------------------------
+
+
+class _AppEngine(RabiaEngine):
+    """A transport engine that counts the slots it opens with V0, by
+    reason: its peers were already voting in the slot, or the forward
+    timeout on a proposer that did not propose (the counters of
+    scripts/torch_transport_gate.py)."""
+
+    def __init__(self, *args, **kw):
+        super().__init__(*args, **kw)
+        self.v0_opened = {"votes_seen": 0, "forward_timeout": 0, "other": 0}
+
+    def _open_slots(self):
+        seen = self.rt.votes_seen_slot[: self.n_shards].copy()
+        out = super()._open_slots()
+        for s, slot, v in out:
+            if v == V0:
+                sh = self.rt.shards[s]
+                why = ("votes_seen" if seen[s] >= slot else "forward_timeout"
+                       if sh.queue and sh.queue[0].first_forwarded_at else "other")
+                self.v0_opened[why] += 1
+        return out
+
+
+def _app_config(S: int) -> RabiaConfig:
+    """The planes gate's timing (phase_timeout is the forward timer)."""
+    return RabiaConfig(phase_timeout=3.0, heartbeat_interval=0.05,
+                       round_interval=0.002).with_kernel(num_shards=S, shard_pad_multiple=2)
+
+
+async def _hub_cluster(S: int, R: int, sm_factory, what: str):
+    """R transport engines over one InMemoryHub, one state machine each."""
+    hub = InMemoryHub()
+    nodes = [NodeId.from_int(i + 1) for i in range(R)]
+    sms = [sm_factory() for _ in nodes]
+    engines = [_AppEngine(ClusterConfig.new(n, nodes), sm, hub.register(n), config=_app_config(S))
+               for n, sm in zip(nodes, sms)]
+    tasks = [asyncio.ensure_future(e.run()) for e in engines]
+    await _quorum(engines, f"phase 11 {what}")
+    return engines, sms, tasks
+
+
+async def _converge(probe, what: str, seconds: float = 60.0) -> None:
+    """Poll until probe() holds (peers apply after the submitter settles)."""
+    deadline = time.perf_counter() + seconds
+    while not probe():
+        if time.perf_counter() > deadline:
+            raise AssertionError(f"phase 11 {what}: the replicas did not converge")
+        await asyncio.sleep(0.02)
+
+
+async def _decided(engine) -> tuple[int, int]:
+    st = await engine.get_statistics()
+    return st.decided_v1, st.decided_v0
+
+
+def _timed(fut, lat: list) -> None:
+    t0 = time.perf_counter()
+    fut.add_done_callback(lambda _f: lat.append(time.perf_counter() - t0))
+
+
+def _rates(wall: float, decided: int, commands: int, lat: list, **extra) -> dict:
+    p50, p99 = settle_quantiles(lat)
+    return {"wall_s": wall, "decided_slots": decided, "commands": commands,
+            "decisions_per_s": decided / wall, "commands_per_s": commands / wall,
+            "settle_p50_s": p50, "settle_p99_s": p99, **extra}
+
+
+def _keys_by_shard(S: int, per: int, prefix: str, width: int = 0) -> list:
+    """``per`` distinct keys for each of S shards, routed by shard_for_key
+    (keys padded to ``width`` bytes when it is given)."""
+    out: list = [[] for _ in range(S)]
+    short = S * per
+    i = 0
+    while short:
+        k = f"{prefix}{i}"
+        k = k.ljust(width, "~") if width else k
+        i += 1
+        s = shard_for_key(k, S)
+        if len(out[s]) < per:
+            out[s].append(k)
+            short -= 1
+    return out
+
+
+def _kv(r) -> tuple:
+    return (r.kind.value, r.value, r.version, r.error)
+
+
+def _counter_cmds(n: int, seed: int) -> list:
+    """Increments and decrements with seeded amounts, a set at a third,
+    a reset at two thirds, and a read at the end."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n - 1):
+        amount = int(rng.integers(1, 1000))
+        if i == n // 3:
+            out.append(CounterCommand.set(amount * 1000))
+        elif i == 2 * n // 3:
+            out.append(CounterCommand.reset())
+        else:
+            out.append(CounterCommand.increment(amount) if rng.random() < 0.6
+                       else CounterCommand.decrement(amount))
+    return out + [CounterCommand.get()]
+
+
+async def _counter_transport(R: int, cmds: list) -> tuple[dict, list, CounterSMR]:
+    counters = [CounterSMR() for _ in range(R)]
+    it = iter(counters)
+    engines, _sms, tasks = await _hub_cluster(1, R, lambda: SMRBridge(next(it)), "(a)")
+    codec = counters[0]
+    lat: list = []
+    try:
+        d0 = await _decided(engines[0])
+        t0 = time.perf_counter()
+        responses = []
+        for i, cmd in enumerate(cmds):
+            # one command a slot, submitted from every replica in turn
+            batch = CommandBatch.new([Command.new(codec.encode_command(cmd))])
+            fut = await engines[i % R].submit_batch(batch, shard=0)
+            _timed(fut, lat)
+            responses.append((await asyncio.wait_for(fut, 30.0))[0])
+        wall = time.perf_counter() - t0
+        want = (codec.value, codec.operations)
+        await _converge(lambda: all((c.value, c.operations) == want for c in counters), "(a)")
+        d1 = await _decided(engines[0])
+    finally:
+        await _stop(engines, tasks)
+    stats = _rates(wall, sum(d1) - sum(d0), len(cmds), lat, null_slots=d1[1] - d0[1])
+    return stats, responses, counters[0]
+
+
+def counter_config1(device, R: int = CFG1_R, n: int = CFG1_CMDS, seed: int = 21) -> dict:
+    """BASELINE.json config 1, counter_smr: 3 replicas, one shard, in
+    memory. The commands go through SMRBridge(CounterSMR) over a
+    transport cluster, one at a time from every replica in turn, and the
+    same commands through a MeshEngine on the device with CounterSMR
+    replicas: every response equal to a local counter's, and the state
+    equal on every replica of both sides."""
+    cmds = _counter_cmds(n, seed)
+    local = CounterSMR()
+    want = [local.encode_response(local.apply_command(c)) for c in cmds]
+    stats, got, counter = asyncio.run(_counter_transport(R, cmds))
+    _check(got == want, "phase 11 (a): transport responses")
+    bridges: list = []
+
+    def replica():
+        bridges.append(SMRBridge(CounterSMR()))
+        return bridges[-1]
+
+    eng = MeshEngine(replica, 1, R, window=2, device=device)
+    futs = [eng.submit([local.encode_command(c)], 0) for c in cmds]
+    eng.flush()
+    _check([f.result()[0] for f in futs] == want, "phase 11 (a): MeshEngine responses")
+    state = (local.value, local.operations)
+    _check((counter.value, counter.operations) == state, "phase 11 (a): transport counter")
+    _check(all((b.typed.value, b.typed.operations) == state for b in bridges),
+           "phase 11 (a): MeshEngine counters")
+    stats.update(replicas=R, shards=1, value=local.value)
+    return stats
+
+
+def _kv_stream(S: int, waves: int, seed: int) -> tuple[list, list]:
+    """Config 2's stream: ``waves`` of one operation a shard (SET, GET,
+    DELETE, EXISTS, CAS over 4 keys a shard), and two block waves
+    (set_many of 2 keys a shard, get_many of 3, one never set)."""
+    rng = np.random.default_rng(seed)
+    keys = _keys_by_shard(S, 4, "c2-")
+    scalar = []
+    for w in range(waves):
+        wave = {}
+        for s in range(S):
+            k = keys[s][int(rng.integers(0, 4))]
+            kind = ("set", "get", "delete", "exists", "cas")[int(rng.choice(5, p=[.4, .2, .1, .1, .2]))]
+            wave[s] = (kind, k, f"v{w}.{s}.{int(rng.integers(0, 1 << 20))}", int(rng.integers(0, 4)))
+        scalar.append(wave)
+    sets = [(keys[s][j], f"b{s}.{j}") for s in range(S) for j in (1, 3)]
+    gets = [keys[s][j] for s in range(S) for j in (0, 1, 2)]
+    return scalar, [sets, gets]
+
+
+def _kv_op(kind: str, k: str, v: str, ev: int) -> KVOperation:
+    if kind == "set":
+        return KVOperation.set(k, v)
+    if kind == "cas":
+        return KVOperation.cas(k, v, ev)
+    return getattr(KVOperation, kind)(k)
+
+
+async def _kv_transport(S: int, R: int, scalar: list, blocks: list):
+    engines, sms, tasks = await _hub_cluster(S, R, lambda: make_sharded_kv(S)[0], "(b)")
+    machines = [sm.machines for sm in sms]
+    svc = ShardedKVService(S, engines[0].submit_batch, machines[0],
+                           submit_block=engines[0].submit_block)
+    lat: list = []
+
+    async def one(kind, k, v, ev):
+        t0 = time.perf_counter()
+        if kind == "cas":  # no service method: the service's own codec path
+            s = svc.shard_of(k)
+            batch = CommandBatch.new([Command.new(machines[0][s].encode_command(
+                KVOperation.cas(k, v, ev)))], shard=s)
+            fut = await engines[0].submit_batch(batch, shard=s)
+            out = _kv(machines[0][s].decode_response((await fut)[0]))
+        elif kind == "set":
+            out = _kv(await svc.set(k, v))
+        elif kind == "exists":
+            out = await svc.exists(k)
+        else:
+            out = _kv(await getattr(svc, kind)(k))
+        lat.append(time.perf_counter() - t0)
+        return out
+
+    try:
+        d0 = await _decided(engines[0])
+        t0 = time.perf_counter()
+        got = []
+        for wave in scalar:
+            got.append(await asyncio.wait_for(asyncio.gather(
+                *[one(*wave[s]) for s in sorted(wave)]), 60.0))
+        for call, arg in ((svc.set_many, blocks[0]), (svc.get_many, blocks[1])):
+            t1 = time.perf_counter()
+            got.append([_kv(r) for r in await asyncio.wait_for(call(arg), 60.0)])
+            lat += [time.perf_counter() - t1] * len(arg)  # one round trip for the block's ops
+        wall = time.perf_counter() - t0
+        sums = lambda ms: [m.store.checksum() for m in ms]  # noqa: E731
+        await _converge(lambda: all(sums(ms) == sums(machines[0]) for ms in machines), "(b)")
+        d1 = await _decided(engines[0])
+        await svc.close()
+    finally:
+        await _stop(engines, tasks)
+    n_cmds = sum(len(w) for w in scalar) + len(blocks[0]) + len(blocks[1])
+    stats = _rates(wall, sum(d1) - sum(d0), n_cmds, lat, null_slots=d1[1] - d0[1],
+                   v0_opened=_v0_sum(engines))
+    return stats, got, sums(machines[0])
+
+
+def _v0_sum(engines) -> dict:
+    out: dict = {}
+    for e in engines:
+        for k, v in e.v0_opened.items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def kv_config2(device, S: int = CFG2_S, R: int = CFG2_R, waves: int = CFG2_OP_WAVES,
+               seed: int = 22) -> dict:
+    """BASELINE.json config 2, kvstore_smr at 64 shards x 3 replicas: a
+    seeded stream of SET, GET, DELETE, EXISTS and CAS through
+    ShardedKVService over make_sharded_kv stores on a transport cluster,
+    with set_many and get_many on the engine's block lane, and the same
+    commands, grouped by shard_for_key, through a MeshEngine on the device
+    with make_sharded_kv replicas: every response and every shard's
+    checksum() equal on every replica of both sides."""
+    scalar, blocks = _kv_stream(S, waves, seed)
+    stats, got, sums = asyncio.run(_kv_transport(S, R, scalar, blocks))
+    eng = MeshEngine(lambda: make_sharded_kv(S)[0], S, R, window=2, device=device)
+    codec = KVStoreSMR()
+    mesh = []
+    for wave in scalar:
+        futs = {s: eng.submit([codec.encode_command(_kv_op(*wave[s]))], s) for s in sorted(wave)}
+        eng.flush()
+        mesh.append([decode_kv_response(futs[s].result()[0]).value == "true"
+                     if wave[s][0] == "exists" else _kv(decode_kv_response(futs[s].result()[0]))
+                     for s in sorted(wave)])
+    sets, gets = blocks
+    for ops in ([(k, encode_set_bin(k, v)) for k, v in sets],
+                [(k, encode_op_bin(KVOperation.get(k))) for k in gets]):
+        by_shard: dict = {}
+        for pos, (k, op) in enumerate(ops):
+            by_shard.setdefault(shard_for_key(k, S), []).append((pos, op))
+        shards = sorted(by_shard)
+        fut = eng.submit_block(build_block(shards, [[op for _p, op in by_shard[s]] for s in shards]))
+        eng.flush()
+        out = [None] * len(ops)
+        for s, frames in zip(shards, fut.result()):
+            for (pos, _op), raw in zip(by_shard[s], frames):
+                out[pos] = _kv(decode_kv_response(raw))
+        mesh.append(out)
+    _check(mesh == [list(w) for w in got], "phase 11 (b): MeshEngine responses")
+    _check(all([m.store.checksum() for m in sm.machines] == sums for sm in eng.sms),
+           "phase 11 (b): MeshEngine replicas' shard checksums")
+    stats.update(shards=S, replicas=R, scalar_waves=waves, block_waves=2,
+                 ok_responses=sum(1 for w in got for r in w if r is True or (
+                     isinstance(r, tuple) and r[0] == "success")))
+    return stats
+
+
+async def _batched_transport(S: int, R: int, waves: list) -> tuple:
+    engines, sms, tasks = await _hub_cluster(S, R, lambda: make_sharded_kv(S)[0], "(c)")
+    machines = [sm.machines for sm in sms]
+    svc = ShardedKVService(S, engines[0].submit_batch, machines[0], batching=BatchConfig())
+    lat: list = []
+
+    async def one(k, v):
+        t0 = time.perf_counter()
+        r = await svc.set(k, v)
+        lat.append(time.perf_counter() - t0)
+        return r
+
+    try:
+        d0 = await _decided(engines[0])
+        t0 = time.perf_counter()
+        wave_s, results = [], []
+        for pairs in waves:
+            t = time.perf_counter()
+            results.append(await asyncio.wait_for(asyncio.gather(*[one(k, v) for k, v in pairs]),
+                                                  300.0))
+            wave_s.append(time.perf_counter() - t)
+        wall = time.perf_counter() - t0
+        sums = lambda ms: [m.store.checksum() for m in ms]  # noqa: E731
+        await _converge(lambda: all(sums(ms) == sums(machines[0]) for ms in machines), "(c)")
+        d1 = await _decided(engines[0])
+    finally:
+        await svc.close()
+        await _stop(engines, tasks)
+    bs = svc.batch_stats
+    created = sum(b.batches_created for b in bs)
+    batched = sum(b.commands_batched for b in bs)
+    targets = [b.current_target_size for b in bs]
+    n_cmds = sum(len(p) for p in waves)
+    stats = _rates(wall, sum(d1) - sum(d0), n_cmds, lat, wave_s=wave_s, null_slots=d1[1] - d0[1],
+                   v0_opened=_v0_sum(engines),
+                   batch_stats={"batches_created": created, "commands_batched": batched,
+                                "avg_batch_size": batched / created if created else 0.0,
+                                "size_flushes": sum(b.size_flushes for b in bs),
+                                "timeout_flushes": sum(b.timeout_flushes for b in bs),
+                                "manual_flushes": sum(b.manual_flushes for b in bs),
+                                "target_size_min": min(targets), "target_size_max": max(targets)})
+    return stats, results, machines[0]
+
+
+def kv_config3(device, S: int = S_FULL, R: int = R_FULL, waves: int = APP_WAVES,
+               per: int = APP_PER, P: int = P_FULL, seed: int = 23) -> dict:
+    """BASELINE.json config 3, kvstore_smr at 4096 shards x 5 replicas with
+    adaptive batching on: waves of concurrent set() calls (``per`` keys a
+    shard, 32-byte keys, 64-byte values, in a seeded order) through
+    ShardedKVService(batching=BatchConfig()) over a transport cluster, and
+    the same SETs, as full-width blocks routed by shard_for_key in the
+    order the cluster committed them, through MeshEngine(device_store=True)
+    (the device KV lane, one SET a shard a block: kv_dict.cu decides and
+    applies each window).
+    Every set() must succeed; every key's value and version in the device
+    table must equal the sharded KV's, and the device lane must serve it."""
+    rng = np.random.default_rng(seed)
+    keys = _keys_by_shard(S, per * waves, "c3-", APP_KEY)
+    order = []
+    for w in range(waves):
+        pairs = [(keys[s][w * per + j], f"w{w}.{s}.{j}.".ljust(APP_VAL, "v"))
+                 for s in range(S) for j in range(per)]
+        order.append([pairs[i] for i in rng.permutation(len(pairs))])
+    stats, results, machines = asyncio.run(_batched_transport(S, R, order))
+    _check(all(r.ok for rs in results for r in rs), "phase 11 (c): a set() failed")
+    # the committed order: versions count a shard's writes from 1
+    version = {k: r.version for pairs, rs in zip(order, results) for (k, _v), r in zip(pairs, rs)}
+    value = dict(p for pairs in order for p in pairs)
+    per_shard = [sorted(ks, key=version.__getitem__) for ks in keys]
+    _check(all([version[k] for k in ks] == list(range(1, len(ks) + 1)) for ks in per_shard),
+           "phase 11 (c): a shard's versions are not 1..n")
+    eng = MeshEngine(lambda: VectorShardedKV(S, capacity=max(1 << 16, 4 * S * P)), S, R,
+                     window=16, device=device, device_store=True,
+                     device_store_kw={"per_shard_capacity": P})
+    # the device lane takes one op a shard a block: block j holds every
+    # shard's j-th write in the committed order
+    n = waves * per
+    t0 = time.perf_counter()
+    futs = [eng.submit_block(build_block(list(range(S)), [
+        [_set_op(ks[j].encode(), value[ks[j]].encode())] for ks in per_shard])) for j in range(n)]
+    eng.flush()
+    dev_s = time.perf_counter() - t0
+    _check(eng.device_lane_active, "phase 11 (c): the device lane was demoted")
+    got = [[decode_kv_response(fr[0]).version for fr in f.result()] for f in futs]
+    _check(got == [[j + 1] * S for j in range(n)], "phase 11 (c): device lane responses")
+    d = eng._dev.dump()
+    table = {(int(s), bytes(k[:kl]).decode()): (bytes(v[:vl]).decode(), int(ver))
+             for s, k, kl, v, vl, ver in zip(d["shard"], d["key"], d["key_len"], d["value"],
+                                             d["value_len"], d["version"])}
+    host = {(s, k): (e.value, e.version) for s, m in enumerate(machines)
+            for k in m.store.keys() for e in [m.store.get_with_metadata(k)]}
+    _check(table == host, "phase 11 (c): the device table differs from the sharded KV")
+    stats.update(shards=S, replicas=R, waves=waves, keys_per_shard_wave=per, key_bytes=APP_KEY,
+                 value_bytes=APP_VAL, device_lane_s=dev_s, device_table_entries=len(table))
+    return stats
+
+
+def _bank_stream(S: int, post: int, seed: int) -> tuple[list, list, list]:
+    """Config 4's stream: two accounts a shard (routed by shard_for_key);
+    a first wave opens them and moves money inside the shard, then
+    ``post`` waves of deposits, withdrawals and transfers."""
+    rng = np.random.default_rng(seed)
+    accts = _keys_by_shard(S, 2, "acct-")
+    amt = lambda lo, hi: int(rng.integers(lo, hi))  # noqa: E731
+    first = [[BankCommand.create(a, amt(1, 100_000)), BankCommand.create(b, amt(0, 50_000)),
+              BankCommand.deposit(a, amt(1, 20_000)), BankCommand.transfer(a, b, amt(1, 60_000)),
+              BankCommand.withdraw(b, amt(1, 40_000))] for a, b in accts]
+    later = [[[BankCommand.deposit(a, amt(1, 9_000)), BankCommand.transfer(b, a, amt(1, 30_000)),
+               BankCommand.withdraw(a, amt(1, 50_000)), BankCommand.transfer(a, b, amt(1, 20_000))]
+              for a, b in accts] for _ in range(post)]
+    return accts, first, later
+
+
+def _bank_state(sm) -> list:
+    """Per shard: balances and transaction counts, and the transaction log."""
+    return [(sorted((k, a.balance_cents, a.transactions) for k, a in m.accounts.items()),
+             [(t.op, t.account, t.to_account, t.amount_cents, t.seq) for t in m.history()])
+            for m in sm.machines]
+
+
+class _BankHarness(ConsensusTestHarness):
+    """The fault-injection harness with ShardedStateMachine(BankingSMR)
+    replicas."""
+
+    def __init__(self, S: int, R: int, seed: int):
+        super().__init__(R, config=_app_config(S), seed=seed)
+        self._sm_factory = lambda: ShardedStateMachine([BankingSMR() for _ in range(S)])
+
+
+async def _bank_transport(S: int, R: int, crash: tuple, waves: list) -> tuple:
+    h = _BankHarness(S, R, seed=24)
+    await h.start(quorum_wait=30.0)
+    codec = BankingSMR()
+    lat: list = []
+
+    async def wave(cmds, submitters):
+        futs = []
+        for s, batch_cmds in enumerate(cmds):
+            batch = CommandBatch.new([Command.new(codec.encode_command(c)) for c in batch_cmds],
+                                     shard=s)
+            f = await submitters[s % len(submitters)].submit_batch(batch, shard=s)
+            _timed(f, lat)
+            futs.append(f)
+        return [[bytes(r) for r in x] for x in await asyncio.wait_for(asyncio.gather(*futs), 120.0)]
+
+    try:
+        t0 = time.perf_counter()
+        got = [await wave(waves[0], h.engines)]
+        pre_wall = time.perf_counter() - t0
+        await _converge(lambda: all(_bank_state(sm) == _bank_state(h.sms[0]) for sm in h.sms),
+                        "(d) before the crash")
+        h.inject(Fault(delay=0.0, fault=FaultType.NodeCrash, nodes=crash))
+        live = [i for i in range(R) if i not in crash]
+        _check([i for i, n in enumerate(h.nodes) if not h.sim.is_crashed(n)] == live,
+               "phase 11 (d): the crashed replicas")
+        c0 = (await h.engines[live[0]].get_statistics()).committed_slots
+        d0 = await _decided(h.engines[live[0]])
+        lat.clear()
+        t1 = time.perf_counter()
+        for cmds in waves[1:]:
+            got.append(await wave(cmds, [h.engines[i] for i in live]))
+        post_wall = time.perf_counter() - t1
+        want = lambda: _bank_state(h.sms[live[0]])  # noqa: E731
+        await _converge(lambda: all(_bank_state(h.sms[i]) == want() for i in live),
+                        "(d) after the crash")
+        c1 = (await h.engines[live[0]].get_statistics()).committed_slots
+        d1 = await _decided(h.engines[live[0]])
+        state = want()
+    finally:
+        await h.stop()
+    n_cmds = sum(len(b) for w in waves[1:] for b in w)
+    stats = _rates(post_wall, sum(d1) - sum(d0), n_cmds, lat, pre_crash_wall_s=pre_wall,
+                   commits_after_crash=c1 - c0, null_slots_after_crash=d1[1] - d0[1])
+    return stats, got, state
+
+
+def bank_config4(device, S: int = CFG4_S, R: int = CFG4_R, crash: tuple = CFG4_CRASH,
+                 post: int = CFG4_POST, seed: int = 25) -> dict:
+    """BASELINE.json config 4, banking_smr at 1024 shards x 7 replicas
+    with a minority crash: ShardedStateMachine(BankingSMR) replicas on the
+    fault-injection harness, accounts routed by shard_for_key; open,
+    deposit, withdraw and transfer inside each shard, crash 3 replicas
+    (FaultType.NodeCrash) and keep submitting. Every command after the
+    crash commits on the live replicas, whose balances and transaction
+    logs agree; money is conserved (balances sum to what was opened and
+    deposited less what was withdrawn). A MeshEngine on the device with the
+    same replicas, the same 3 crashed (crash_replica) and the same stream:
+    its live replicas equal the transport cluster's."""
+    _accts, first, later = _bank_stream(S, post, seed)
+    waves = [first] + later
+    stats, got, state = asyncio.run(_bank_transport(S, R, crash, waves))
+    cmds = [c for w in waves for b in w for c in b]
+    resp = [r for w in got for b in w for r in b]
+    codec = BankingSMR()
+    money = 0
+    for c, raw in zip(cmds, resp):
+        r = codec.decode_response(raw)
+        if r.ok and c.op in (BankOp.CreateAccount, BankOp.Deposit):
+            money += c.amount_cents
+        elif r.ok and c.op == BankOp.Withdraw:
+            money -= c.amount_cents
+    total = sum(b for shard, _log in state for _k, b, _n in shard)
+    _check(total == money, f"phase 11 (d): money not conserved ({total} != {money})")
+    eng = MeshEngine(lambda: ShardedStateMachine([BankingSMR() for _ in range(S)]), S, R,
+                     window=2, device=device)
+    mesh = []
+    for w, cmds_w in enumerate(waves):
+        if w == 1:
+            for r in crash:
+                eng.crash_replica(r)
+        futs = [eng.submit([codec.encode_command(c) for c in b], s) for s, b in enumerate(cmds_w)]
+        eng.flush()
+        mesh.append([[bytes(x) for x in f.result()] for f in futs])
+    _check(mesh == got, "phase 11 (d): MeshEngine responses")
+    live = [i for i in range(R) if i not in crash]
+    _check(all(_bank_state(eng.sms[i]) == state for i in live),
+           "phase 11 (d): MeshEngine live replicas' balances and logs")
+    stats.update(shards=S, replicas=R, crashed=list(crash), accounts=2 * S, waves_after_crash=post,
+                 money_cents=money)
+    return stats
 
 
 def _card_rate_bytes_per_s(name: str) -> float:
@@ -2306,6 +2856,57 @@ def main() -> int:
           f"persistence layer, a further wave on every replica: {json.dumps(restart)}")
     print(f"phase 10 path: {p10_mesh} mesh-window launches, {p10_other} launches of the other "
           f"kernels, {t10:.2f} s")
+
+    # ---- phase 11, the apps over the engine at BASELINE.json configs 1-4:
+    # its own path, counts reset just before and read just after ----
+    fused_window.FUSED_WINDOW.launches = 0
+    fused_window.FUSED_WINDOW_TSR.launches = 0
+    kv_window.KV_WINDOW.reset_counts()
+    mesh_window.MESH_WINDOW.launches = 0
+    packed_window.PACKED_WINDOW.launches = 0
+    cluster_round.CLUSTER_ROUND.reset_counts()
+    gc.collect()
+    gc.freeze()
+    t11 = time.perf_counter()
+    app1 = counter_config1(device)
+    app2 = kv_config2(device)
+    app3 = kv_config3(device)
+    app4 = bank_config4(device)
+    p11_mesh = mesh_window.MESH_WINDOW.launches
+    p11_kv = dict(kv_window.KV_WINDOW.counts)
+    p11_other = (fused_window.FUSED_WINDOW.launches + fused_window.FUSED_WINDOW_TSR.launches
+                 + packed_window.PACKED_WINDOW.launches
+                 + sum(cluster_round.CLUSTER_ROUND.counts.values()))
+    t11 = time.perf_counter() - t11
+    gc.unfreeze()
+    p11_dict = p11_kv["dict"] + p11_kv["dict+decide"]
+    _check(p11_mesh > 0, "phase 11 never launched the mesh window kernel")
+    _check(p11_dict > 0, "phase 11 (c) never launched the dictionary kernel (kv_dict.cu)")
+    where = f"host CPU: {cpu}; card: {smi}"
+    print(f"phase 11 (a) BASELINE.json config 1, counter_smr {CFG1_R} replicas x 1 shard, "
+          f"{CFG1_CMDS} increments, decrements, a set and a reset through SMRBridge(CounterSMR) "
+          f"over a transport cluster (in-memory hub), one command a slot from every replica in "
+          f"turn, and through MeshEngine on the card: responses and every replica's counter "
+          f"equal; {where}; {json.dumps(app1)}")
+    print(f"phase 11 (b) config 2, kvstore_smr {CFG2_R} replicas x {CFG2_S} shards: "
+          f"ShardedKVService over make_sharded_kv, {CFG2_OP_WAVES} waves of one SET/GET/DELETE/"
+          f"EXISTS/CAS a shard, a set_many and a get_many (block lane), and the same commands "
+          f"through MeshEngine on the card: responses and every shard's checksum() on every "
+          f"replica equal; {where}; {json.dumps(app2)}")
+    print(f"phase 11 (c) config 3, kvstore_smr {R_FULL} replicas x {S_FULL} shards, adaptive "
+          f"batching on (BatchConfig()): {APP_WAVES} waves of concurrent set() calls, {APP_PER} "
+          f"keys a shard, {APP_KEY}-byte keys, {APP_VAL}-byte values (cut: none), beside "
+          f"MeshEngine(device_store=True) on the card fed the same SETs (kv_dict.cu): every "
+          f"set() ok, the device table's values and versions equal the sharded KV's; {where}; "
+          f"{json.dumps(app3)}")
+    print(f"phase 11 (d) config 4, banking_smr {CFG4_R} replicas x {CFG4_S} shards, replicas "
+          f"{list(CFG4_CRASH)} crashed (FaultType.NodeCrash) after the first wave, "
+          f"{CFG4_POST} waves after: every command committed on the live replicas, balances and "
+          f"transaction logs equal, money conserved; MeshEngine on the card with the same "
+          f"replicas crashed: live replicas equal; {where}; {json.dumps(app4)}")
+    print(f"phase 11 path: {p11_mesh} mesh-window launches, {p11_dict} kv-dict launches "
+          f"({json.dumps({k: v for k, v in p11_kv.items() if v})}), {p11_other} launches of the "
+          f"other kernels, {t11:.2f} s")
 
     q = quorum_size(R_FULL)
     votes = bufs[0]
@@ -2823,7 +3424,7 @@ def main() -> int:
         "route": "cuda",
         "source": "rabia_tpu_torch/csrc/kv_dict.cu",
         "replaces": "rabia_tpu/apps/device_kv.py:1003",
-        "launches": kv_counts["dict"] + kv_counts["dict+decide"],
+        "launches": kv_counts["dict"] + kv_counts["dict+decide"] + p11_dict,  # and phase 11 (c)
         "max_abs_err": max(err8, dict_err, err9),
         "ms": dict_ms,  # SET window with the decision, D = W = 16 (phase 7's fill stream)
         "plain_ms": dict_plain_ms,
@@ -2861,7 +3462,7 @@ def main() -> int:
         "route": "cuda",
         "source": "rabia_tpu_torch/csrc/mesh_window.cu",
         "replaces": "rabia_tpu/parallel/mesh.py:353",
-        "launches": mesh_launches + p10_mesh,  # the main path's and phase 10's
+        "launches": mesh_launches + p10_mesh + p11_mesh,  # the main path's, phases 10 and 11
         "max_abs_err": max(err2b, mw_err, err9),
         "ms": mw_ms,
         "plain_ms": mw_plain_ms,

@@ -399,8 +399,7 @@ class TestDedupLedger:
 
 class _StrictSM(InMemoryStateMachine):
     """InMemoryStateMachine that raises on a command outside its grammar
-    (the role the reference test gives its sharded KV store, which the
-    port has not ported yet)."""
+    (a stand-in beside the sharded KV store the reference test uses)."""
 
     def apply_command(self, command):
         from rabia_tpu_torch.core.errors import StateMachineError
@@ -416,7 +415,10 @@ class TestApplyFailureContainment:
     would otherwise crash every replica identically: cluster outage)."""
 
     @pytest.mark.asyncio
-    async def test_undecodable_command_fails_future_not_engine(self):
+    @pytest.mark.parametrize("store", ["strict_sm", "sharded_kv"])
+    async def test_undecodable_command_fails_future_not_engine(self, store):
+        from rabia_tpu_torch.apps import make_sharded_kv
+        from rabia_tpu_torch.apps.kvstore import encode_set_bin
         from rabia_tpu_torch.core.errors import RabiaError
         from rabia_tpu_torch.core.types import Command, CommandBatch
 
@@ -424,7 +426,9 @@ class TestApplyFailureContainment:
         hub = InMemoryHub()
         engines, tasks = [], []
         for n in nodes:
-            sm = _StrictSM()
+            # the sharded KV store, as the reference test has it, and the
+            # strict stand-in the port's test had before it
+            sm = make_sharded_kv(2)[0] if store == "sharded_kv" else _StrictSM()
             engines.append(
                 RabiaEngine(
                     ClusterConfig.new(n, nodes),
@@ -446,10 +450,12 @@ class TestApplyFailureContainment:
             with pytest.raises(RabiaError):
                 await asyncio.wait_for(fut, 20.0)
             # the cluster is still alive: a good batch commits after it
-            good = CommandBatch.new([Command.new(b"SET k v")], shard=0)
+            cmd = encode_set_bin("k", "v") if store == "sharded_kv" else b"SET k v"
+            good = CommandBatch.new([Command.new(cmd)], shard=0)
             fut2 = await engines[0].submit_batch(good, shard=0)
             responses = await asyncio.wait_for(fut2, 20.0)
-            assert responses == [b"OK"]
+            assert responses == ([b"\x00\x01\x00\x00\x00\x00"] if store == "sharded_kv"
+                                 else [b"OK"])
         finally:
             for e in engines:
                 await e.shutdown()
@@ -603,17 +609,29 @@ class TestMixedProgressSync:
         ), nodes
 
     @pytest.mark.asyncio
-    async def test_sharded_sm_adopts_only_ahead_shards(self):
+    @pytest.mark.parametrize("store", ["vector_kv", "sharded_kv"])
+    async def test_sharded_sm_adopts_only_ahead_shards(self, store):
+        from rabia_tpu_torch.apps import make_sharded_kv
         from rabia_tpu_torch.apps.kvstore import encode_set_bin
         from rabia_tpu_torch.apps.vector_kv import VectorShardedKV
         from rabia_tpu_torch.core.messages import SyncResponse
         from rabia_tpu_torch.core.types import Command, CommandBatch, ShardId
 
         S = 2
-        # a per-shard-restoring store (the reference test's sharded KV
-        # is not ported yet; VectorShardedKV has the same restore_shards)
-        sm_a = VectorShardedKV(S, capacity=64)  # the responder's state
-        sm_b = VectorShardedKV(S, capacity=64)  # the syncing replica's
+        # two per-shard-restoring stores: the sharded KV store the
+        # reference test uses, and VectorShardedKV (the same restore_shards)
+        if store == "sharded_kv":
+            (sm_a, stores_a), (sm_b, stores_b) = make_sharded_kv(S), make_sharded_kv(S)
+
+            def entry(shard, key):
+                e = stores_b[shard].store.get_with_metadata(key)
+                return None if e is None else (e.value.encode(), e.version)
+        else:
+            sm_a = VectorShardedKV(S, capacity=64)  # the responder's state
+            sm_b = VectorShardedKV(S, capacity=64)  # the syncing replica's
+
+            def entry(shard, key):
+                return sm_b.store.get(shard, key.encode())
 
         def put(sm, shard, key, val):
             sm.apply_batch(
@@ -645,10 +663,10 @@ class TestMixedProgressSync:
         eng._on_sync_response(nodes[1], resp)
         # shard 0 adopted from A...
         assert eng.rt.shards[0].applied_upto == 3
-        assert sm_b.store.get(0, b"a2") == (b"A2", 3)
+        assert entry(0, "a2") == (b"A2", 3)
         # ...while shard 1's OWN state and counters survive
         assert eng.rt.shards[1].applied_upto == 2
-        assert sm_b.store.get(1, b"b1") == (b"B1", 2)
+        assert entry(1, "b1") == (b"B1", 2)
 
     @pytest.mark.asyncio
     async def test_monolithic_sm_requires_superset_responder(self):
