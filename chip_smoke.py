@@ -5,7 +5,9 @@
 Phases (each raises on failure; nothing is caught):
 
 1. build the CUDA sources of ``rabia_tpu_torch/csrc`` with nvcc (sm_90a),
-   one nvcc per source, started together: the fused-window kernels
+   one nvcc per source, started together, while g++ builds the native
+   host plane of ``rabia_tpu_torch/native`` (transport, codec, host
+   kernel, state kernel, runtime; one g++ a source): the fused-window kernels
    (replica-major and [T,S,R]), the kv-window kernel (windows that write
    a table in the row form, and in the dictionary form on tables wider
    than 64 slots, with and without the folded decision), the kv-dict
@@ -145,8 +147,8 @@ Phases (each raises on failure; nothing is caught):
    plane-conformance gate (``run_schedule_on_both_planes``) at
    BASELINE.json config 3's shape, 4096 shards x 5 replicas, 3 waves of a
    batch of 4 SETs on every shard, through a cluster of the port's
-   ``RabiaEngine`` (the Python tick and asyncio orchestration, numpy
-   ``HostNodeKernel``, in-memory hub, ``InMemoryStateMachine`` replicas)
+   ``RabiaEngine`` (the native tick and codec, the asyncio
+   orchestration, in-memory hub, ``InMemoryStateMachine`` replicas)
    and through a ``MeshEngine`` on the card: per-shard decisions,
    futures and replica state must be equal; it prints the transport
    cluster's decisions/s, p50/p99 submit-to-settle latency, each wave's
@@ -189,15 +191,32 @@ crashed. It prints one line a part (decisions/s, commands/s, p50/p99
 submit-to-settle, (c)'s batch statistics and V0 openings, (d)'s commits
 after the crash, the host CPU and the card), then its launches.
 
+Phase 12 (after phase 11, with its own counts) runs ``BASELINE.json``
+config 5 and the reference sweep's config 6 over TCP on 127.0.0.1 on the
+card's host, beside the card: (a) kvstore (``VectorShardedKV``), 16384
+shards x 5 replicas, Zipf(1.2) keys, the reference sweep's block pump for
+8 s (the native tick and codec must run, the runtime declines a store
+that is not native); (b) kvstore_smr on the native store, 4096 x 5, one
+SET a shard a slot, on the GIL-free runtime (runtime, tick and apply
+native, ``waves_native`` growing, ``gil_handoffs`` flat) and then on the
+asyncio owner (``RABIA_PY_RUNTIME=1``). Each part's replicas must agree,
+and a ``MeshEngine(device_store=True)`` on the card fed each shard's
+committed SETs must hold the replicas' table. It prints decisions/s,
+commands/s, p50/p99 submit-to-settle, V0 openings by reason, each
+replica's planes, the runtime's counters and the launches by kernel with
+their device ms.
+
 Phases 3-5, 7, 8 and 9's lanes also run on the CPU at a small size
 (tests/test_torch_slice.py), phase 10 at config 2's shape
-(tests/test_torch_engine_conformance.py), and phase 11 at a small size
-(tests/test_torch_apps_engine.py).
+(tests/test_torch_engine_conformance.py), phase 11 at a small size
+(tests/test_torch_apps_engine.py) and phase 12 at a small size
+(tests/test_torch_native_conformance.py).
 """
 
 from __future__ import annotations
 
 import asyncio
+import concurrent.futures
 import gc
 import json
 import os
@@ -222,10 +241,10 @@ from rabia_tpu_torch.apps.kvstore import (
     shard_for_key,
 )
 from rabia_tpu_torch.apps.sharded import ShardedKVService, ShardedStateMachine, make_sharded_kv
-from rabia_tpu_torch.apps.vector_kv import VectorShardedKV
+from rabia_tpu_torch.apps.vector_kv import VectorKVStore, VectorShardedKV
 from rabia_tpu_torch.core.blocks import build_block
 from rabia_tpu_torch.core.errors import RabiaError
-from rabia_tpu_torch.core.config import BatchConfig, RabiaConfig
+from rabia_tpu_torch.core.config import BatchConfig, RabiaConfig, TcpNetworkConfig
 from rabia_tpu_torch.core.network import ClusterConfig
 from rabia_tpu_torch.core.oracle import WeakMVCOracle
 from rabia_tpu_torch.core.persistence import PersistedEngineState
@@ -233,6 +252,7 @@ from rabia_tpu_torch.core.state_machine import InMemoryStateMachine
 from rabia_tpu_torch.core.smr import SMRBridge
 from rabia_tpu_torch.core.types import ABSENT, V0, V1, Command, CommandBatch, NodeId, quorum_size
 from rabia_tpu_torch.engine import RabiaEngine
+from rabia_tpu_torch.engine.leader import slot_proposer_vec
 from rabia_tpu_torch.kernel import (
     cluster_round,
     cuda_build,
@@ -242,7 +262,8 @@ from rabia_tpu_torch.kernel import (
     packed_window,
 )
 from rabia_tpu_torch.kernel.phase_driver import device_coin
-from rabia_tpu_torch.net import InMemoryHub
+from rabia_tpu_torch.native import build as native_build
+from rabia_tpu_torch.net import InMemoryHub, TcpNetwork
 from rabia_tpu_torch.persistence import FileSystemPersistence
 from rabia_tpu_torch.testing.conformance import run_schedule_on_both_planes, settle_quantiles
 from rabia_tpu_torch.testing.fault_injection import ConsensusTestHarness, Fault, FaultType
@@ -280,6 +301,14 @@ APP_PER, APP_KEY, APP_VAL = 8, 32, 64  # keys a shard a wave; key and value byte
 # config 4: banking_smr, 7 replicas x 1024 shards, 3 crashed (no two of them
 # adjacent in the slot proposer rotation), 2 waves after the crash
 CFG4_S, CFG4_R, CFG4_CRASH, CFG4_POST = 1024, 7, (1, 3, 5), 2
+# phase 12: BASELINE.json config 5 (kvstore_smr, 5 replicas, 16384 shards,
+# TCP, Zipf keys) and config 6 (the reference's native runtime's home
+# configuration, 4096 x 5 over TCP), the reference sweep's settings
+CFG5_S, CFG5_R, CFG5_CAPACITY = 16384, 5, 1 << 18
+CFG5_ZIPF_S, CFG5_DRAWS, CFG5_KEYS, CFG5_MAX_CMDS = 1.2, 30000, 99999, 32
+CFG6_S, CFG6_R = 4096, 5
+PUMP_S = 8.0  # the block pump's seconds in each leg
+NATIVE_LIBS = ("transport", "codec", "hostkernel", "statekernel", "runtime")
 # int32 operations/s of an H100 SXM: 132 SMs x 64 INT32 lanes x 1.98 GHz
 # (the Hopper white paper's per-SM unit count and the SXM boost clock)
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
@@ -2654,6 +2683,345 @@ def bank_config4(device, S: int = CFG4_S, R: int = CFG4_R, crash: tuple = CFG4_C
     return stats
 
 
+# -- phase 12 ----------------------------------------------------------------
+
+
+def _tcp_config(S: int) -> RabiaConfig:
+    """The reference sweep's cluster settings for configs 5 and 6."""
+    return RabiaConfig(phase_timeout=2.0, heartbeat_interval=0.5,
+                       round_interval=0.0002).with_kernel(
+        num_shards=S, shard_pad_multiple=max(1, S), backend="host")
+
+
+async def _tcp_cluster(S: int, R: int, sm_factory, what: str):
+    """R transport engines meshed over TCP on 127.0.0.1, one state machine
+    each."""
+    ids = [NodeId.from_int(i + 1) for i in range(R)]
+    nets = [TcpNetwork(i, TcpNetworkConfig(bind_port=0)) for i in ids]
+    for i in range(R):
+        for j in range(R):
+            if i != j:
+                nets[i].add_peer(ids[j], "127.0.0.1", nets[j].port)
+    sms = [sm_factory() for _ in ids]
+    engines = [_AppEngine(ClusterConfig.new(n, ids), sm, nets[i], config=_tcp_config(S))
+               for i, (n, sm) in enumerate(zip(ids, sms))]
+    tasks = [asyncio.ensure_future(e.run()) for e in engines]
+    await _quorum(engines, f"phase 12 {what}")
+    return engines, sms, tasks, nets
+
+
+async def _tcp_stop(engines, tasks, nets) -> None:
+    await _stop(engines, tasks)
+    for n in nets:
+        await n.close()
+
+
+async def _block_pump(engines, S: int, R: int, dur: float, shard_cmds, lat: list) -> int:
+    """The reference sweep's block pump: each cycle every engine proposes
+    one block over the shards it proposes next and that are idle, and the
+    cycle waits for all of them. Appends each block's submit-to-settle
+    time to ``lat``; returns the commands acknowledged."""
+    shard_ids = np.arange(S)
+    stop_at = time.perf_counter() + dur
+    acked = 0
+
+    def settled(t_sub):
+        return lambda _f: lat.append(time.perf_counter() - t_sub)
+
+    while time.perf_counter() < stop_at:
+        futs = []
+        for e in engines:
+            head = np.maximum(e.rt.next_slot[:S], e.rt.applied_upto[:S])
+            mine = shard_ids[(slot_proposer_vec(shard_ids, head, R) == e.me)
+                             & (e.rt.queue_len[:S] == 0) & ~e.rt.in_flight[:S]]
+            if len(mine):
+                t_sub = time.perf_counter()
+                fut = asyncio.ensure_future(await e.submit_block(
+                    build_block(mine, [shard_cmds(int(s)) for s in mine])))
+                fut.add_done_callback(settled(t_sub))
+                futs.append(fut)
+        if not futs:
+            await asyncio.sleep(0.001)
+            continue
+        results = await asyncio.wait_for(asyncio.gather(*futs), max(10.0, dur))
+        for res in results:
+            counts = getattr(res, "group_counts", None)
+            acked += int(counts().sum()) if counts is not None else sum(
+                len(r) for r in res if not isinstance(r, Exception))
+    return acked
+
+
+async def _committed(engines) -> float:
+    sts = [await e.get_statistics() for e in engines]
+    return sum(st.committed_slots for st in sts) / len(engines)
+
+
+def _planes(engines) -> list:
+    return [e.health()["planes"] for e in engines]
+
+
+def _check_planes(planes: list, want: dict, what: str) -> None:
+    for i, p in enumerate(planes):
+        for k, v in want.items():
+            _check(p[k] == v, f"phase 12 {what}: replica {i} runs {k} {p[k]}, not {v}")
+
+
+def _vector_rows(sm) -> tuple[dict, np.ndarray]:
+    """({(shard, key): (value, version)}, shard write counts) of a
+    VectorShardedKV replica."""
+    vers, rows, over = VectorKVStore._parse_snapshot(sm.store.snapshot_bytes())
+    out = {(int(s), bytes(k)): (bytes(v), int(ver))
+           for s, k, v, ver in zip(rows[0], rows[1], rows[2], rows[3])}
+    for d in over:
+        out[(int(d["shard"]), bytes.fromhex(d["key"]))] = (bytes.fromhex(d["value"]),
+                                                           int(d["version"]))
+    return out, vers
+
+
+def _device_feed(device, S: int, R: int, streams: list) -> tuple[dict, dict]:
+    """Feed each shard's committed SETs, in committed order, to a
+    ``MeshEngine(device_store=True)`` on the card (the reference
+    ``DeviceKVTable``'s defaults: 64 slots a shard, 32-byte keys, 64-byte
+    values) as full-width blocks of one op a shard: block j carries every
+    shard's j-th SET, and a GET of the shard's first key where its stream
+    has ended (a read leaves the table as it is). Returns the device
+    table as {(shard, key): (value, version)} and what the feed took."""
+    eng = MeshEngine(lambda: VectorShardedKV(S, capacity=CFG5_CAPACITY), S, R, window=16,
+                     device=device, device_store=True,
+                     device_store_kw={"per_shard_capacity": P_FULL})
+    filler = [_key_op(2, _op_key(st[0]) if st else b"cold") for st in streams]
+    n = max(len(st) for st in streams)
+    on_card = torch.device(device).type == "cuda"
+    # each launch of the feed timed by the wrappers' CUDA events
+    kv_window.KV_WINDOW.events = [] if on_card else None
+    mesh_window.MESH_WINDOW.events = [] if on_card else None
+    n0 = _kernel_counts()
+    t0 = time.perf_counter()
+    futs = []
+    try:
+        for j in range(n):
+            col = [[st[j] if j < len(st) else filler[s]] for s, st in enumerate(streams)]
+            futs.append(eng.submit_block(build_block(np.arange(S), col)))
+        eng.flush()
+        if on_card:
+            torch.cuda.synchronize()
+        feed_s = time.perf_counter() - t0
+        timed = [(_KV_FORM_KERNEL[form], a, b) for form, a, b in kv_window.KV_WINDOW.events or ()]
+        timed += [("mesh_window", a, b) for a, b in mesh_window.MESH_WINDOW.events or ()]
+    finally:
+        kv_window.KV_WINDOW.events = mesh_window.MESH_WINDOW.events = None
+    launched = {k: v - n0[k] for k, v in _kernel_counts().items() if v > n0[k]}
+    dev_ms: dict = {}
+    for tag, a, b in timed:
+        dev_ms[tag] = dev_ms.get(tag, 0.0) + a.elapsed_time(b)
+    if on_card:
+        _check(set(dev_ms) == set(launched) and len(timed) == sum(launched.values()),
+               f"phase 12: the feed's launches {launched} were not all timed ({len(timed)})")
+    _check(eng.device_lane_active, "phase 12: the device lane was demoted")
+    for f in futs:  # a filler GET may find nothing; no op may fail
+        _check(all(decode_kv_response(fr[0]).kind.value != "error" for fr in f.result()),
+               "phase 12: a device lane op failed")
+    d = eng._dev.dump()
+    table = {(int(s), bytes(k[:kl])): (bytes(v[:vl]), int(ver))
+             for s, k, kl, v, vl, ver in zip(d["shard"], d["key"], d["key_len"], d["value"],
+                                             d["value_len"], d["version"])}
+    return table, {"blocks": n, "device_feed_s": feed_s, "device_table_entries": len(table),
+                   "launches_by_kernel": launched,
+                   "device_ms_by_kernel": dev_ms if on_card else "not measured (CPU)"}
+
+
+def _op_key(op: bytes) -> bytes:
+    klen = int.from_bytes(op[1:3], "little")
+    return op[3:3 + klen]
+
+
+def _zipf_cmds(S: int) -> list:
+    """Config 5's slot payloads, the reference sweep's: keys
+    ``key{min(z, 99999)}`` for 30000 draws of ``default_rng(0).zipf(1.2)``,
+    routed by shard_for_key; a shard's slot carries up to 32 of its hot
+    keys' SETs of "v", or one SET of "cold"."""
+    rng = np.random.default_rng(0)
+    per_shard: dict = {}
+    for z in rng.zipf(CFG5_ZIPF_S, size=CFG5_DRAWS):
+        k = f"key{min(int(z), CFG5_KEYS)}"
+        per_shard.setdefault(shard_for_key(k, S), []).append(encode_set_bin(k, "v"))
+    cold = [encode_set_bin("cold", "v")]
+    return [per_shard.get(s, cold)[:CFG5_MAX_CMDS] for s in range(S)]
+
+
+def _streams_from_rows(rows: dict, writes: np.ndarray, cmds: list, what: str) -> tuple[list, int]:
+    """Each shard's committed SETs in committed order, from a replica's
+    store: every slot of shard s carries ``cmds[s]`` (L SETs), so after n_s
+    slots the shard counts n_s * L writes and a key holds the version of
+    its last write, (n_s - 1) * L + 1 + its last index in ``cmds[s]``.
+    Checks that the shard holds exactly those keys at those versions, and
+    returns the streams and the committed slots."""
+    by_shard: dict = {}
+    for (s, k), (v, ver) in rows.items():
+        by_shard.setdefault(s, {})[k] = (v, ver)
+    streams, slots = [], 0
+    for s, ops in enumerate(cmds):
+        L = len(ops)
+        n_s = int(writes[s]) // L
+        last = {_op_key(op): i for i, op in enumerate(ops)}
+        want = {k: (b"v", (n_s - 1) * L + i + 1) for k, i in last.items()} if n_s else {}
+        _check(int(writes[s]) == n_s * L and by_shard.get(s, {}) == want,
+               f"phase 12 {what}: shard {s}'s store is not {n_s} slots of its payload")
+        streams.append(list(ops) * n_s)
+        slots += n_s
+    return streams, slots
+
+
+# kv_window.KV_WINDOW's count forms by the kernel that runs them
+_KV_FORM_KERNEL = {
+    "dict": "kv_dict", "dict+decide": "kv_dict",
+    "rows": "kv_window", "rows+decide": "kv_window",
+    "dict wide": "kv_window", "dict wide+decide": "kv_window",
+    "probe rows": "kv_read", "probe dict": "kv_read",
+    "lookup rows": "kv_read", "lookup dict": "kv_read",
+}
+
+
+def _kernel_counts() -> dict:
+    out = {"mesh_window": mesh_window.MESH_WINDOW.launches,
+           "kv_dict": 0, "kv_window": 0, "kv_read": 0}
+    for form, n in kv_window.KV_WINDOW.counts.items():
+        out[_KV_FORM_KERNEL[form]] += n
+    return out
+
+
+def _reset_counts() -> None:
+    """Every kernel's launch counts to 0 (just before a path is driven)."""
+    fused_window.FUSED_WINDOW.launches = 0
+    fused_window.FUSED_WINDOW_TSR.launches = 0
+    kv_window.KV_WINDOW.reset_counts()
+    mesh_window.MESH_WINDOW.launches = 0
+    packed_window.PACKED_WINDOW.launches = 0
+    cluster_round.CLUSTER_ROUND.reset_counts()
+
+
+async def _config5_cluster(S: int, R: int, cmds: list, dur: float) -> tuple:
+    engines, sms, tasks, nets = await _tcp_cluster(
+        S, R, lambda: VectorShardedKV(S, capacity=CFG5_CAPACITY), "(a)")
+    lat: list = []
+    try:
+        planes = _planes(engines)
+        base = await _committed(engines)
+        t0 = time.perf_counter()
+        acked = await _block_pump(engines, S, R, dur, lambda s: cmds[s], lat)
+        top = await _committed(engines)
+        wall = time.perf_counter() - t0
+        # peers apply after the submitter settles
+        await _converge(lambda: len({_snapshot_sans_clock(sm) for sm in sms}) == 1,
+                        "12 (a)")
+        d = [await _decided(e) for e in engines]
+    finally:
+        await _tcp_stop(engines, tasks, nets)
+    stats = {"wall_s": wall, "decisions_per_s": (top - base) / wall, "commands_acked": acked,
+             "commands_per_s": acked / wall, "blocks_settled": len(lat)}
+    p50, p99 = settle_quantiles(lat)
+    stats.update(settle_p50_s=p50, settle_p99_s=p99, null_slots=sum(v0 for _v1, v0 in d) / R,
+                 v0_opened=_v0_sum(engines), planes=planes)
+    return stats, sms
+
+
+def tcp_config5(device, S: int = CFG5_S, R: int = CFG5_R, dur: float = PUMP_S) -> dict:
+    """BASELINE.json config 5 at full width: kvstore (VectorShardedKV, the
+    reference sweep's store), 16384 shards x 5 replicas over TCP on
+    127.0.0.1, Zipf(1.2) keys, the block pump for ``dur`` seconds. The
+    native tick and codec must run on every replica (the runtime declines
+    a store that is not native, as the reference's does). The replicas'
+    stores must equal each other, and a ``MeshEngine(device_store=True)``
+    on the card fed each shard's committed SETs must hold the same table."""
+    cmds = _zipf_cmds(S)
+    stats, sms = asyncio.run(_config5_cluster(S, R, cmds, dur))
+    _check_planes(stats["planes"], {"tick": "native", "codec": "native", "apply": "python",
+                                    "runtime": "python"}, "(a)")
+    rows, writes = _vector_rows(sms[0])
+    streams, slots = _streams_from_rows(rows, writes, cmds, "(a)")
+    table, feed = _device_feed(device, S, R, streams)
+    _check(table == rows, "phase 12 (a): the device table differs from the replicas' stores")
+    stats.update(shards=S, replicas=R, committed_slots=slots,
+                 committed_commands=sum(len(st) for st in streams), hot_shards=sum(
+                     len(c) > 1 or _op_key(c[0]) != b"cold" for c in cmds), **feed)
+    return stats
+
+
+async def _config6_cluster(S: int, R: int, dur: float, native: bool) -> tuple:
+    engines, sms, tasks, nets = await _tcp_cluster(S, R, lambda: make_sharded_kv(S)[0], "(b)")
+    one_op = [[encode_set_bin(f"k{s}", "v")] for s in range(S)]
+    lat: list = []
+    try:
+        planes = _planes(engines)
+        rtm0 = [e._rtm.counters_dict() if e._rtm is not None else {} for e in engines]
+        base = await _committed(engines)
+        t0 = time.perf_counter()
+        acked = await _block_pump(engines, S, R, dur, lambda s: one_op[s], lat)
+        top = await _committed(engines)
+        wall = time.perf_counter() - t0
+        rtm1 = [e._rtm.counters_dict() if e._rtm is not None else {} for e in engines]
+        sums = lambda sm: [m.store.checksum() for m in sm.machines]  # noqa: E731
+        await _converge(lambda: all(sums(sm) == sums(sms[0]) for sm in sms), "12 (b)")
+        versions = [sms[0].machines[s].store.get_with_metadata(f"k{s}") for s in range(S)]
+    finally:
+        await _tcp_stop(engines, tasks, nets)
+    keep = ("waves_native", "waves_py", "slots_applied", "gil_handoffs", "frames_native",
+            "frames_escalated", "ev_stalls", "decided_scalar")
+    deltas = [{k: r1.get(k, 0) - r0.get(k, 0) for k in keep} for r0, r1 in zip(rtm0, rtm1)]
+    if native:
+        for i, dl in enumerate(deltas):
+            _check(dl["waves_native"] > 0, f"phase 12 (b): replica {i} applied no native wave")
+            _check(dl["waves_py"] == 0,
+                   f"phase 12 (b): replica {i} applied {dl['waves_py']} waves in Python")
+            # a slot still in flight on a lagging replica when the next
+            # proposer's block arrives escalates and decides on the scalar
+            # lane: one handoff each, named by decided_scalar. main() holds
+            # the card's host to none at all.
+            _check(dl["gil_handoffs"] == dl["decided_scalar"],
+                   f"phase 12 (b): replica {i} took {dl['gil_handoffs']} GIL handoffs, "
+                   f"{dl['decided_scalar']} of them scalar decides")
+    p50, p99 = settle_quantiles(lat)
+    stats = {"wall_s": wall, "decisions_per_s": (top - base) / wall, "commands_acked": acked,
+             "commands_per_s": acked / wall, "blocks_settled": len(lat), "settle_p50_s": p50,
+             "settle_p99_s": p99, "planes": planes, "runtime_counter_deltas": deltas}
+    n = [e.version if e is not None else 0 for e in versions]
+    return stats, n
+
+
+def tcp_config6(device, S: int = CFG6_S, R: int = CFG6_R, dur: float = PUMP_S) -> dict:
+    """The reference sweep's config 6, its native runtime's home
+    configuration: kvstore_smr (``make_sharded_kv``: the native store),
+    4096 shards x 5 replicas over TCP, the block pump with one SET a shard
+    for ``dur`` seconds. On the native runtime (runtime, tick and apply
+    native on every replica, ``waves_native`` growing and
+    ``gil_handoffs`` flat), then on the asyncio owner
+    (``RABIA_PY_RUNTIME=1``); each leg's replicas agree, and a
+    ``MeshEngine(device_store=True)`` on the card fed each leg's committed
+    SETs holds the same table."""
+    out = {}
+    for leg, native in (("runtime", True), ("asyncio", False)):
+        prev = os.environ.pop("RABIA_PY_RUNTIME", None)
+        if not native:
+            os.environ["RABIA_PY_RUNTIME"] = "1"
+        try:
+            stats, n = asyncio.run(_config6_cluster(S, R, dur, native))
+        finally:
+            os.environ.pop("RABIA_PY_RUNTIME", None)
+            if prev is not None:
+                os.environ["RABIA_PY_RUNTIME"] = prev
+        _check_planes(stats["planes"], {"tick": "native", "codec": "native", "apply": "native",
+                                        "runtime": "native" if native else "python"}, f"(b) {leg}")
+        streams = [[encode_set_bin(f"k{s}", "v")] * n[s] for s in range(S)]
+        table, feed = _device_feed(device, S, R, streams)
+        want = {(s, f"k{s}".encode()): (b"v", n[s]) for s in range(S) if n[s]}
+        _check(table == want, f"phase 12 (b) {leg}: the device table differs from the replicas")
+        stats.update(committed_slots=sum(n), **feed)
+        out[leg] = stats
+    out.update(shards=S, replicas=R)
+    return out
+
+
+
 def _card_rate_bytes_per_s(name: str) -> float:
     """Peak device-memory rate of the card, from its name (data sheets)."""
     if "PCIe" in name:
@@ -2679,9 +3047,14 @@ def main() -> int:
     # 1. build the seven CUDA sources (one nvcc per source, started
     # together) and the host pack gather (g++)
     t0 = time.perf_counter()
-    libs = cuda_build.build(["fused_window", "kv_window", "kv_dict", "kv_read", "mesh_window",
-                             "packed_window", "cluster_round"])
-    host_lib = cuda_build.build_host("host_pack")
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        # the native host plane (g++, one process a source) while nvcc runs
+        native = pool.submit(native_build.build, *NATIVE_LIBS)
+        libs = cuda_build.build(["fused_window", "kv_window", "kv_dict", "kv_read",
+                                 "mesh_window", "packed_window", "cluster_round"])
+        host_lib = cuda_build.build_host("host_pack")
+        native.result()  # raises the compiler's output when a build failed
+    native_libs = [native_build.library_path(n) for n in NATIVE_LIBS]
     HOST_PACK.load()
     fused_window.FUSED_WINDOW.load()
     fused_window.FUSED_WINDOW_TSR.load()
@@ -2690,7 +3063,7 @@ def main() -> int:
     packed_window.PACKED_WINDOW.load()
     cluster_round.CLUSTER_ROUND.load()
     print(f"phase 1 build: {time.perf_counter() - t0:.2f} s "
-          f"({', '.join(p.name for p in [*libs.values(), host_lib])})")
+          f"({', '.join(p.name for p in [*libs.values(), host_lib, *native_libs])})")
     for lib in libs.values():
         print(lib.with_suffix(".log").read_text().strip())
 
@@ -2743,12 +3116,7 @@ def main() -> int:
           f"({time.perf_counter() - t0:.2f} s)")
 
     # ---- the main path: counts reset just before, read just after ----
-    fused_window.FUSED_WINDOW.launches = 0
-    fused_window.FUSED_WINDOW_TSR.launches = 0
-    kv_window.KV_WINDOW.reset_counts()
-    mesh_window.MESH_WINDOW.launches = 0
-    packed_window.PACKED_WINDOW.launches = 0
-    cluster_round.CLUSTER_ROUND.reset_counts()
+    _reset_counts()
     t0 = time.perf_counter()
     k, bufs, alive, err4 = decision_core(device, S_FULL, R_FULL, T_FULL)
     kernel_ms = _time_ms(
@@ -2820,12 +3188,7 @@ def main() -> int:
 
     # ---- phase 10, the transport engine beside the device plane: its own
     # path, counts reset just before and read just after ----
-    fused_window.FUSED_WINDOW.launches = 0
-    fused_window.FUSED_WINDOW_TSR.launches = 0
-    kv_window.KV_WINDOW.reset_counts()
-    mesh_window.MESH_WINDOW.launches = 0
-    packed_window.PACKED_WINDOW.launches = 0
-    cluster_round.CLUSTER_ROUND.reset_counts()
+    _reset_counts()
     # the earlier phases' objects stay alive for the timings below: keep
     # the collector from rescanning them during the transport engine's run
     gc.collect()
@@ -2845,8 +3208,8 @@ def main() -> int:
     del gate3_eng
     cpu = host_cpu()
     print(f"phase 10 (a) planes gate at BASELINE.json config 3's shape S={S_FULL} R={R_FULL}, "
-          f"{TRANSPORT_WAVES} waves of 4 SETs on every shard, transport cluster (Python tick, "
-          f"in-memory hub, host CPU: {cpu}) vs MeshEngine on the card ({smi}): decisions, "
+          f"{TRANSPORT_WAVES} waves of 4 SETs on every shard, transport cluster (native tick and "
+          f"codec, in-memory hub, host CPU: {cpu}) vs MeshEngine on the card ({smi}): decisions, "
           f"futures and replica stores equal; {json.dumps(gate3)}")
     print(f"phase 10 (b) planes gate at config 2's shape S={CFG2_S} R={CFG2_R}, {CFG2_WAVES} "
           f"waves: equal; {json.dumps(gate2)}")
@@ -2859,12 +3222,7 @@ def main() -> int:
 
     # ---- phase 11, the apps over the engine at BASELINE.json configs 1-4:
     # its own path, counts reset just before and read just after ----
-    fused_window.FUSED_WINDOW.launches = 0
-    fused_window.FUSED_WINDOW_TSR.launches = 0
-    kv_window.KV_WINDOW.reset_counts()
-    mesh_window.MESH_WINDOW.launches = 0
-    packed_window.PACKED_WINDOW.launches = 0
-    cluster_round.CLUSTER_ROUND.reset_counts()
+    _reset_counts()
     gc.collect()
     gc.freeze()
     t11 = time.perf_counter()
@@ -2907,6 +3265,36 @@ def main() -> int:
     print(f"phase 11 path: {p11_mesh} mesh-window launches, {p11_dict} kv-dict launches "
           f"({json.dumps({k: v for k, v in p11_kv.items() if v})}), {p11_other} launches of the "
           f"other kernels, {t11:.2f} s")
+
+    # ---- phase 12, BASELINE.json configs 5 and 6 over TCP on the card's
+    # host, beside the card: its own path, counts reset just before and
+    # read just after ----
+    _reset_counts()
+    gc.collect()
+    gc.freeze()
+    t12 = time.perf_counter()
+    tcp5 = tcp_config5(device)
+    p12a = _kernel_counts()
+    tcp6 = tcp_config6(device)
+    p12 = _kernel_counts()
+    for i, dl in enumerate(tcp6["runtime"]["runtime_counter_deltas"]):
+        _check(dl["gil_handoffs"] == 0,
+               f"phase 12 (b): replica {i} took {dl['gil_handoffs']} GIL handoffs")
+    t12 = time.perf_counter() - t12
+    gc.unfreeze()
+    _check(p12["kv_dict"] + p12["kv_window"] > 0, "phase 12 never launched a kv kernel")
+    print(f"phase 12 (a) BASELINE.json config 5, kvstore (VectorShardedKV) {CFG5_R} replicas x "
+          f"{CFG5_S} shards over TCP (127.0.0.1), Zipf({CFG5_ZIPF_S}) keys, the block pump for "
+          f"{PUMP_S} s (cut: none), beside MeshEngine(device_store=True) on the card fed each "
+          f"shard's committed SETs: replicas equal, device table equal; planes as asserted; "
+          f"{where}; {json.dumps(tcp5)}")
+    print(f"phase 12 (a) launches by kernel: {json.dumps(p12a)}")
+    print(f"phase 12 (b) config 6, kvstore_smr (native store) {CFG6_R} replicas x {CFG6_S} "
+          f"shards over TCP, one SET a shard a slot, the block pump for {PUMP_S} s on the native "
+          f"runtime and on the asyncio owner (RABIA_PY_RUNTIME=1): decisions/s "
+          f"{tcp6['runtime']['decisions_per_s']:.1f} / {tcp6['asyncio']['decisions_per_s']:.1f}; "
+          f"{where}; {json.dumps(tcp6)}")
+    print(f"phase 12 path: launches by kernel {json.dumps(p12)}, {t12:.2f} s")
 
     q = quorum_size(R_FULL)
     votes = bufs[0]
@@ -3412,7 +3800,7 @@ def main() -> int:
         "route": "cuda",
         "source": "rabia_tpu_torch/csrc/kv_window.cu",
         "replaces": "rabia_tpu/apps/device_kv.py:1218",
-        "launches": kv_counts["rows+decide"],
+        "launches": kv_counts["rows+decide"] + p12["kv_window"],  # and phase 12's
         "max_abs_err": max(err6, err6_fold, fold_err, err9),
         "ms": fold_ms,  # with the decision folded in, as the device lane launches it
         "plain_ms": fold_plain_ms,
@@ -3424,7 +3812,8 @@ def main() -> int:
         "route": "cuda",
         "source": "rabia_tpu_torch/csrc/kv_dict.cu",
         "replaces": "rabia_tpu/apps/device_kv.py:1003",
-        "launches": kv_counts["dict"] + kv_counts["dict+decide"] + p11_dict,  # and phase 11 (c)
+        # and phases 11 (c) and 12
+        "launches": kv_counts["dict"] + kv_counts["dict+decide"] + p11_dict + p12["kv_dict"],
         "max_abs_err": max(err8, dict_err, err9),
         "ms": dict_ms,  # SET window with the decision, D = W = 16 (phase 7's fill stream)
         "plain_ms": dict_plain_ms,
@@ -3462,7 +3851,8 @@ def main() -> int:
         "route": "cuda",
         "source": "rabia_tpu_torch/csrc/mesh_window.cu",
         "replaces": "rabia_tpu/parallel/mesh.py:353",
-        "launches": mesh_launches + p10_mesh + p11_mesh,  # the main path's, phases 10 and 11
+        # the main path's, phases 10, 11 and 12
+        "launches": mesh_launches + p10_mesh + p11_mesh + p12["mesh_window"],
         "max_abs_err": max(err2b, mw_err, err9),
         "ms": mw_ms,
         "plain_ms": mw_plain_ms,

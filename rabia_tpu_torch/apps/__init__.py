@@ -4,8 +4,8 @@ The port's copy of the reference's ``rabia_tpu/apps``: the counter, the
 KV store with its notifications and binary op codec, banking, the
 shard-routing state machine and the sharded KV service, the columnar
 vector KV store and (in :mod:`rabia_tpu_torch.apps.device_kv`) the
-device-resident KV table. The native apply plane
-(``apps/native_store.py``) is not ported yet (ROADMAP Queue 1 item 7.3).
+device-resident KV table, and the native apply plane
+(:mod:`rabia_tpu_torch.apps.native_store`, over ``native/statekernel.cpp``).
 """
 
 from rabia_tpu_torch.apps.banking import (

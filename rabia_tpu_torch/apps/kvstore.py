@@ -8,9 +8,9 @@ the device lane return, byte for byte the reference's), the operation
 batches, the error taxonomy, the change-notification bus, the versioned
 :class:`KVStore` with its snapshots and content checksum, the bulk binary
 apply (:func:`apply_ops_bin`, :func:`apply_op_bin`) and :class:`KVStoreSMR`.
-The ``is_native`` branches stay where the reference has them, for the
-native apply plane (ROADMAP Queue 1 item 7.3); the port builds no native
-store.
+Its ``is_native`` branches hand a native store
+(:class:`~rabia_tpu_torch.apps.native_store.NativeKVStore`) to the
+statekernel, as the reference does.
 
 The store is sharded by key range (stable hash -> shard index): each shard
 is an independent consensus instance, the ``S`` axis the device kernels
@@ -825,8 +825,8 @@ def apply_ops_bin(store: "KVStore", ops, now: Optional[float] = None) -> list[by
     objects on the SET fast path. Non-SET / limit-violating ops fall back
     to :func:`apply_op_bin` per op.
 
-    Native stores (``is_native``; not ported yet, ROADMAP Queue 1 item
-    7.3) take the statekernel wave path — same records in, byte-identical
+    Native stores (:class:`~rabia_tpu_torch.apps.native_store.
+    NativeKVStore`) take the statekernel wave path — same records in, byte-identical
     result frames out."""
     if getattr(store, "is_native", False):
         return store.apply_bin_many(ops, now)
@@ -954,9 +954,8 @@ class KVStoreSMR(TypedStateMachine[KVOperation, KVResult, dict]):
     `num_shards` of these behind :class:`ShardedKVService`.
 
     ``store`` may be a :class:`KVStore` (default) or a native store view
-    (``is_native``; the native apply plane is not ported yet, ROADMAP
-    Queue 1 item 7.3) — the typed surface and the binary apply path work
-    identically over either.
+    (:class:`~rabia_tpu_torch.apps.native_store.NativeKVStore`) — the
+    typed surface and the binary apply path work identically over either.
     """
 
     def __init__(

@@ -1,9 +1,9 @@
 """Shard-routing state machine + the client-facing sharded KV service.
 
-The port's copy of the reference's ``rabia_tpu/apps/sharded.py``. The
-native apply plane's hooks (``is_native`` stores, ``_native_plane``) stay
-where the reference has them; the port builds Python stores only
-(:func:`make_sharded_kv`).
+The port's copy of the reference's ``rabia_tpu/apps/sharded.py``:
+:func:`make_sharded_kv` builds native stores over one
+:class:`~rabia_tpu_torch.apps.native_store.NativeStorePlane` by default,
+as the reference does.
 
 No direct reference analog: the reference runs ONE consensus instance per
 cluster (its kvstore_smr bridges a single store — smr_impl.rs:22-100). Here
@@ -219,17 +219,28 @@ def make_sharded_kv(
 ) -> tuple[ShardedStateMachine, list[KVStoreSMR]]:
     """Build one `KVStoreSMR` per shard behind a routing SM.
 
-    ``native`` selects the apply plane. None (default) and False build the
-    Python :class:`KVStore` per shard (the semantics owner). True asks for
-    the reference's statekernel-backed native store, which the port has
-    not ported (ROADMAP Queue 1 item 7.3): it raises rather than building
-    Python stores in its place."""
+    ``native`` selects the apply plane: True = the statekernel-backed
+    :class:`~rabia_tpu_torch.apps.native_store.NativeKVStore` per shard
+    (one shared plane; decided waves apply in one C call), False = the
+    Python :class:`KVStore` (the semantics owner), None (default) = native
+    unless ``RABIA_PY_APPLY=1``. A failed native build raises."""
+    if native is None:
+        from rabia_tpu_torch.apps.native_store import native_apply_available
+
+        native = native_apply_available()
     if native:
-        raise NotImplementedError(
-            "the native apply plane (NativeKVStore) is not ported yet "
-            "(ROADMAP Queue 1 item 7.3); pass native=False or None"
+        from rabia_tpu_torch.apps.native_store import (
+            NativeKVStore,
+            NativeStorePlane,
         )
-    machines = [KVStoreSMR(config) for _ in range(num_shards)]
+
+        plane = NativeStorePlane(num_shards, config)
+        machines = [
+            KVStoreSMR(config, store=NativeKVStore(config, plane, s))
+            for s in range(num_shards)
+        ]
+    else:
+        machines = [KVStoreSMR(config) for _ in range(num_shards)]
     return ShardedStateMachine(machines), machines
 
 

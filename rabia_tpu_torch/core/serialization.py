@@ -9,12 +9,14 @@ The binary codec here is hand-rolled little-endian (not bincode — no Rust):
 fixed-width header + per-payload-type body, with zlib compression above
 ``SerializationConfig.compression_threshold`` for the scalar payload-
 bearing types only (Propose/NewBatch/SyncResponse — consensus-round
-vectors decode via ``numpy.frombuffer`` and stay uncompressed). The
-vectorized numpy codecs below are the hot decode path.
+vectors decode via ``numpy.frombuffer`` and stay uncompressed). The C++
+data plane (``rabia_tpu_torch/native``) frames and transports these bytes
+opaquely (u32-LE length prefix); the C codec (``native/codec.cpp``)
+encodes and decodes the hot frame types byte for byte as the Python paths
+below do, which stay the owners of the wire format.
 
-The port of the reference's ``rabia_tpu/core/serialization.py``: the
-Python codec, byte for byte (tests/test_torch_serialization.py holds both
-packages' bytes equal).
+The port of the reference's ``rabia_tpu/core/serialization.py``, byte for
+byte (tests/test_torch_serialization.py holds both packages' bytes equal).
 
 Binary layout (version 3):
   u8  version | u8 msg_type | u8 flags (bit0 compressed, bit1 has_recipient)
@@ -26,6 +28,7 @@ from __future__ import annotations
 
 import base64
 import json
+import os
 import struct
 import uuid
 import zlib
@@ -555,18 +558,69 @@ def _decode_payload(msg_type: MessageType, r: _Reader):
     raise SerializationError(f"unknown message type {msg_type}")
 
 
+_NATIVE_CODEC = None
+_NATIVE_TRIED = False
+
+
+def _native_codec():
+    """The C-extension codec for hot frames (rabia_tpu_torch/native/codec.cpp),
+    bound to this module's classes on first use; None when
+    ``RABIA_PY_CODEC`` is set. A failed build raises.
+    Byte-for-byte compatible with the Python codec below (pinned by
+    tests/test_torch_native_codec.py); the Python codec remains the semantics
+    owner and handles the remaining message types."""
+    global _NATIVE_CODEC, _NATIVE_TRIED
+    if os.environ.get("RABIA_PY_CODEC"):
+        return None  # checked per serializer: the switch holds mid-process
+    if not _NATIVE_TRIED:
+        from rabia_tpu_torch.native.build import load_codec
+
+        mod = load_codec()  # raises when the build fails: tried again
+        _NATIVE_TRIED = True
+        if mod is not None:
+            mod.bind(
+                ProtocolMessage=ProtocolMessage,
+                VoteRound1=VoteRound1,
+                VoteRound2=VoteRound2,
+                Decision=Decision,
+                HeartBeat=HeartBeat,
+                SyncRequest=SyncRequest,
+                ProposeBlock=ProposeBlock,
+                PayloadBlock=PayloadBlock,
+                NodeId=NodeId,
+                BatchId=BatchId,
+                UUID=uuid.UUID,
+                safe_unknown=uuid.SafeUUID.unknown,
+                SerializationError=SerializationError,
+                crc32=zlib.crc32,
+                Propose=Propose,
+                NewBatch=NewBatch,
+                CommandBatch=CommandBatch,
+                Command=Command,
+                ShardId=ShardId,
+                StateValue=StateValue,
+                SyncResponse=SyncResponse,
+                ClientHello=ClientHello,
+                Submit=Submit,
+                Result=Result,
+                ReadIndex=ReadIndex,
+            )
+            _NATIVE_CODEC = mod
+    return _NATIVE_CODEC
+
+
 class BinarySerializer:
     """Compact binary codec (serialization.rs:66-98 analog; custom layout).
 
-    Every frame type encodes and decodes through the Python paths below,
-    which own every byte of the wire format. The reference routes its hot
-    frame types through a C codec first; the port keeps the hook and
-    leaves it empty."""
+    Hot frame types (vote vectors, Decision, Propose/NewBatch command
+    batches, ProposeBlock, HeartBeat, SyncRequest) encode/decode through
+    the native C extension unless ``RABIA_PY_CODEC`` is set; everything
+    else — and every byte of wire format — stays owned by the Python
+    paths below."""
 
     def __init__(self, config: SerializationConfig | None = None):
         self.config = config or SerializationConfig()
-        # the native codec is not ported (ROADMAP Queue 1 item 7.3)
-        self._native = None
+        self._native = _native_codec()
 
     def serialize(self, msg: ProtocolMessage) -> bytes:
         if self._native is not None:

@@ -20,7 +20,7 @@ log; it only moves WHEN the tail of a backlog applies).
 
 The port of the reference's ``rabia_tpu/engine/apply_plane.py``. The
 state-machine work itself is the state machine's own ``apply_batch`` /
-``apply_block`` (the reference's native store plane is not ported).
+``apply_block`` (a native store applies a wave in one C call).
 """
 
 from __future__ import annotations

@@ -1,8 +1,6 @@
 """RabiaEngine: the host event loop around the vectorized consensus kernel.
 
-The port of the reference's ``rabia_tpu/engine/engine.py`` on its Python
-paths: the Python tick and the asyncio orchestration, which the reference
-names the semantics owners of its native twins. The engine drives
+The port of the reference's ``rabia_tpu/engine/engine.py``. The engine drives
 propose → vote-R1 → vote-R2 → decide → apply. The consensus *math* of
 those handlers (vote rules, tallies, coin, decision) lives in the node
 kernel — :class:`rabia_tpu_torch.kernel.host_driver.HostNodeKernel`
@@ -11,12 +9,16 @@ round; this module is everything around it: message routing, slot
 lifecycle, batch payloads, state-machine application, persistence,
 heartbeats, sync and stats.
 
-Not ported: the reference's ``backend="jax"`` (its node kernel on the
-device, ROADMAP Queue 1 item 8), which the constructor refuses, and its
-native handles — the C tick, the GIL-free runtime, the C columnar scans
-and the WAL (ROADMAP Queue 1 item 7.3). Their handles stay, set to None,
-so the engine keeps the reference's structure and its reports
-(``get_statistics()``, ``health()``) say which paths run.
+The native host plane runs under it as in the reference: the C columnar
+helpers and tick context (``native/hostkernel.cpp``, ``_hk_lib`` and
+``_rk``; ``RABIA_PY_TICK=1`` forces the Python tick), the C codec (the
+serializer's ``_binary._native``) and, on a TCP cluster with a native store and no
+persistence, the GIL-free runtime (``_rtm``; ``RABIA_PY_RUNTIME=1`` forces
+the asyncio orchestration). The Python paths stay the semantics owners;
+``health()["planes"]`` says which paths run. Not ported: the reference's
+``backend="jax"`` (its node kernel on the device, ROADMAP Queue 1 item 8),
+which the constructor refuses, and the WAL of the durability plane
+(``_wal`` stays None).
 
 Hot-path design (SURVEY.md §7.4.4): everything per-round is **columnar** —
 vote vectors arrive as numpy arrays (:class:`~rabia_tpu_torch.core.messages.
@@ -377,9 +379,11 @@ class RabiaEngine:
         from rabia_tpu_torch.engine.apply_plane import ApplyPlane
 
         self._apply_plane = ApplyPlane(self)
-        # native columnar helpers: not ported (ROADMAP Queue 1 item
-        # 7.3); None -> numpy paths
-        self._hk_lib = None
+        # native columnar helpers (native/hostkernel.cpp); None (only with
+        # RABIA_PY_HOSTKERNEL=1) -> numpy paths. A failed build raises.
+        from rabia_tpu_torch.native.build import load_hostkernel
+
+        self._hk_lib = load_hostkernel()
         self._open_bufs = (
             np.zeros(self.n_shards, np.int64),
             np.zeros(self.n_shards, np.uint8),
@@ -434,15 +438,40 @@ class RabiaEngine:
 
         self._row_to_node = {i: n for i, n in enumerate(cluster.all_nodes)}
         self._node_to_row = {n: i for i, n in enumerate(cluster.all_nodes)}
-        # The reference's native handles, none of them ported (ROADMAP
-        # Queue 1 item 7.3): the C tick context (ingest→route→tally→
-        # outbox in one C call), the GIL-free engine runtime, and the
-        # WAL of the durability plane. Set to None outright: nothing is
-        # tried, nothing fails over, and every path they guard runs its
-        # Python twin — the reference's semantics owners.
+        # native per-tick fast path (ingest→route→tally→outbox in one C
+        # call; Python only on events). RABIA_PY_TICK=1 forces the Python
+        # paths, which stay the semantics owner (pinned by
+        # tests/test_torch_native_tick.py and the conformance gates).
         self._rk = None
+        if (
+            self._hk_lib is not None
+            and os.environ.get("RABIA_PY_TICK") != "1"
+            and self.R <= 64
+        ):
+            from rabia_tpu_torch.engine.native_tick import NativeTick
+
+            self._rk = NativeTick(self, self._hk_lib)
+        # the durability plane's WAL (the reference's walkernel.cpp and
+        # persistence/native_wal.py) is not ported yet (ROADMAP Queue 1):
+        # no persistence layer of the port is a WAL
         self._wal = None
+        # native engine runtime (native/runtime.cpp): a GIL-free io/tick
+        # thread runs ingest→route→tally→decide→apply→result end to end
+        # for TCP clusters with a native store and no persistence; Python
+        # is the control plane (engine/runtime_bridge.py).
+        # RABIA_PY_RUNTIME=1 forces the asyncio orchestration, which stays
+        # the semantics owner (testing.conformance.
+        # run_schedule_on_runtime_paths).
         self._rtm = None
+        if self._rk is not None and persistence is None:
+            from rabia_tpu_torch.engine.runtime_bridge import (
+                RuntimeBridge,
+                runtime_available,
+            )
+            from rabia_tpu_torch.native.build import load_runtime
+
+            if runtime_available(self):
+                self._rtm = RuntimeBridge(self, load_runtime())
         self._seen_batches: set = set()  # dedup of forwarded batch ids
         self._seen_order: list = []  # insertion order for bounded eviction
         # decided-frontier hook (rabia_tpu_torch/gateway): callbacks fired once
@@ -909,9 +938,17 @@ class RabiaEngine:
                             else 0.0
                         ),
                     )
-        # -- the durability plane's WAL counters and the native
-        #    transport's counter block come with the WAL and the TCP
-        #    transport (ROADMAP Queue 1 item 7.3): neither is ported
+        # -- transport (native counter block, when the transport has one)
+        tc = getattr(self.transport, "transport_counters", None)
+        if callable(tc):
+            from rabia_tpu_torch.net.tcp import RT_COUNTER_NAMES
+
+            for name in RT_COUNTER_NAMES:
+                m.counter(
+                    f"transport_{name}_total",
+                    "Native transport counter (transport.cpp RTC block)",
+                    fn=lambda r=name: tc().get(r, 0),
+                )
 
     def health(self) -> dict:
         """The /healthz document (served by the gateway admin surface and
@@ -931,6 +968,13 @@ class RabiaEngine:
             "planes": {
                 "runtime": "native" if self._rtm is not None else "python",
                 "tick": "native" if self._rk is not None else "python",
+                # the message codec: the C extension for the hot frames,
+                # or the Python codec alone (RABIA_PY_CODEC)
+                "codec": (
+                    "native"
+                    if self.serializer._binary._native is not None
+                    else "python"
+                ),
                 "apply": (
                     "native"
                     if getattr(self.sm, "_native_plane", None) is not None
@@ -2598,21 +2642,26 @@ class RabiaEngine:
 
     @staticmethod
     def _decided_unapplied(sh, batch_id) -> bool:
-        """True when ``batch_id`` is bound to a slot of ``sh`` decided V1
-        but not applied yet (the apply plane defers slots past its inline
-        budget to its drain). The dedup ledger (``applied_ids``) learns
-        of a batch only at apply, so without this a submission still at
-        its queue's head in that window is forwarded and proposed again,
-        and commits in a second slot. The reference engine has no such
-        check (its planes gate then fails once a wave passes the apply
-        plane's inline budget and first drain chunk)."""
+        """True when a slot of ``sh`` decided V1 but not applied yet may
+        hold ``batch_id``: its batch is ``batch_id``, or not known yet (the
+        decision landed before its Propose, as on the native runtime,
+        where votes decide in C while the Propose escalates to Python).
+        The dedup ledger (``applied_ids``) learns of a batch only at apply
+        (and the apply plane defers slots past its inline budget to its
+        drain), so without this a submission still at its queue's head in
+        that window is forwarded and proposed again, and commits in a
+        second slot. The reference engine has no such check (its planes
+        gate then fails once a wave passes the apply plane's inline budget
+        and first drain chunk, and its runtime gate needs a retry)."""
         for slot in range(sh.applied_upto, sh.next_slot):
             rec = sh.decisions.get(slot)
-            if (
-                rec is not None
-                and rec.batch_id == batch_id
-                and int(rec.value) == V1
-            ):
+            if rec is None or rec.applied or int(rec.value) != V1:
+                continue
+            bid = rec.batch_id
+            if bid is None:
+                bp = sh.buf_propose.get(slot)
+                bid = bp[0] if bp is not None else None
+            if bid is None or bid == batch_id:
                 return True
         return False
 

@@ -110,3 +110,15 @@ def build_host(name: str) -> Path:
         raise RuntimeError(f"{CXX} failed for {name}.cpp:\n{proc.stdout}{proc.stderr}")
     os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
     return out
+
+
+def record_event(events):
+    """A timing CUDA event recorded on the current stream, or None when
+    the caller of a kernel wrapper times nothing (``events`` is None)."""
+    if events is None:
+        return None
+    import torch
+
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record()
+    return ev

@@ -14,9 +14,11 @@ inbox materialization at all.
 Bit-identity contract: every transition, the common coin included, is
 element for element the reference's ``HostNodeKernel`` (and so its
 ``NodeKernel``); tests/test_torch_host_kernel.py holds every state field
-after every step against the reference. The reference also has a C step
-(``native/hostkernel.cpp``); the port has not ported it (ROADMAP Queue 1
-item 7.3), so the numpy step below is the only one.
+after every step against the reference. The reference also runs a C
+step here (``native/hostkernel.cpp``'s ``rk_node_step``); the port runs the
+numpy step below on the Python tick, and the C step inside the native tick
+context (:mod:`rabia_tpu_torch.engine.native_tick`), which the engine uses
+unless ``RABIA_PY_TICK=1``.
 """
 
 from __future__ import annotations
@@ -141,6 +143,9 @@ class HostNodeKernel:
         self.f1 = f_plus_1(self.R)
         self.coin_p1 = float(coin_p1)
         self.seed = int(seed)
+        # the coin's integer threshold, as the C step takes it
+        self._coin_threshold = coin_threshold(coin_p1)
+        self._native_lib: object = False  # False = not probed yet
         # consensus-health telemetry: common-coin flip outcomes ([V0, V1]
         # counts) and the phases-to-decide distribution of
         # locally tally-decided slots (bin p = decisions taking p
@@ -195,6 +200,32 @@ class HostNodeKernel:
         slot_index: np.ndarray,  # i32[S]
         initial_votes: np.ndarray,  # i8[S]
     ) -> HostNodeState:
+        lib = self._native()
+        if lib is not None:
+            m = np.ascontiguousarray(shard_mask, bool)
+            sl = np.ascontiguousarray(slot_index, I32)
+            iv = np.ascontiguousarray(initial_votes, I8)
+            st = HostNodeState(*(a.copy() for a in state))
+            lib.rk_start_slots(
+                self.S, self.R, self.me,
+                m.ctypes.data, sl.ctypes.data, iv.ctypes.data,
+                st.slot.ctypes.data, st.phase.ctypes.data,
+                st.stage.ctypes.data, st.my_r1.ctypes.data,
+                st.my_r2.ctypes.data, st.led1.ctypes.data,
+                st.led2.ctypes.data, st.decided.ctypes.data,
+                st.done.ctypes.data, st.active.ctypes.data,
+            )
+            return st
+        return self._start_slots_np(state, shard_mask, slot_index,
+                                    initial_votes)
+
+    def _start_slots_np(
+        self,
+        state: HostNodeState,
+        shard_mask: np.ndarray,
+        slot_index: np.ndarray,
+        initial_votes: np.ndarray,
+    ) -> HostNodeState:
         m = np.asarray(shard_mask, bool)
         slot_index = np.asarray(slot_index)
         initial_votes = np.asarray(initial_votes, I8)
@@ -232,6 +263,122 @@ class HostNodeKernel:
         inbox_r1: Optional[np.ndarray] = None,  # i8[S,R] (compat path)
         inbox_r2: Optional[np.ndarray] = None,
         decision_in: Optional[np.ndarray] = None,  # i8[S]
+    ) -> tuple[HostNodeState, NodeOutbox]:
+        lib = self._native()
+        if lib is not None:
+            return self._node_step_c(
+                lib, state, inbox_r1, inbox_r2, decision_in
+            )
+        return self._node_step_np(state, inbox_r1, inbox_r2, decision_in)
+
+    def _native(self):
+        """The C step library, or None (``RABIA_PY_HOSTKERNEL`` set, or
+        ``_native_lib`` set to None by a caller that wants the numpy
+        step)."""
+        lib = self._native_lib
+        if lib is False:
+            from rabia_tpu_torch.native.build import load_hostkernel
+
+            lib = self._native_lib = load_hostkernel()
+            if lib is not None:
+                self._mk_workspaces()
+        return lib
+
+    def _node_step_c(
+        self,
+        lib,
+        state: HostNodeState,
+        inbox_r1: Optional[np.ndarray],
+        inbox_r2: Optional[np.ndarray],
+        decision_in: Optional[np.ndarray],
+    ) -> tuple[HostNodeState, NodeOutbox]:
+        """One C call instead of ~40 numpy dispatches (the per-activation
+        floor under serial commit latency; see native/hostkernel.cpp).
+
+        Output arrays come from two ping-ponged workspaces with cached
+        raw pointers — a returned state/outbox stays valid until the
+        *second* following ``node_step`` (strictly wider than the
+        documented one-step aliasing contract). The C routine mutates the
+        workspace in place and fills the outbox extras."""
+        ws = self._ws[self._ws_flip]
+        self._ws_flip ^= 1
+        st_out, out_extra, ptrs = ws
+        # copy current state into the workspace (the functional step);
+        # np.copyto(a, a) when the caller passes the same workspace back
+        # after an offer_votes-only mutation is a safe no-op-by-value
+        for dst, src in zip(st_out, state):
+            np.copyto(dst, src, casting="unsafe")
+        led1, led2 = st_out.led1, st_out.led2
+        if inbox_r1 is not None:
+            ib = np.asarray(inbox_r1, I8).T
+            np.copyto(led1, ib, where=(led1 == ABSENT) & (ib != ABSENT))
+        if inbox_r2 is not None:
+            ib = np.asarray(inbox_r2, I8).T
+            np.copyto(led2, ib, where=(led2 == ABSENT) & (ib != ABSENT))
+        if decision_in is None:
+            dec_ptr = 0
+        else:
+            decision_in = np.ascontiguousarray(decision_in, I8)
+            dec_ptr = decision_in.ctypes.data
+        lib.rk_node_step_ex(
+            *self._const_args, *ptrs[:10], dec_ptr, *ptrs[10:],
+            self._coin_ptr,
+        )
+        self._acct_decided(out_extra[3], st_out.phase)
+        outbox = NodeOutbox(
+            cast_r2=out_extra[0],
+            r2_vals=out_extra[1],
+            advanced=out_extra[2],
+            new_r1=st_out.my_r1,
+            new_phase=st_out.phase,
+            newly_decided=out_extra[3],
+            decided_vals=st_out.decided,
+        )
+        return st_out, outbox
+
+    def _mk_workspaces(self) -> None:
+        """Two ping-ponged output workspaces for the C step: state arrays,
+        outbox extras, and their raw pointers precomputed once (ctypes
+        marshalling of ``ndarray.ctypes.data`` per call costs more than
+        the C step itself at small S)."""
+        S, R = self.S, self.R
+        self._ws = []
+        for _ in range(2):
+            st = HostNodeState(
+                slot=np.zeros((S,), I32),
+                phase=np.zeros((S,), I32),
+                stage=np.full((S,), R1_WAIT, I8),
+                my_r1=np.full((S,), ABSENT, I8),
+                my_r2=np.full((S,), ABSENT, I8),
+                led1=np.full((R, S), ABSENT, I8),
+                led2=np.full((R, S), ABSENT, I8),
+                decided=np.full((S,), ABSENT, I8),
+                done=np.zeros((S,), bool),
+                active=np.zeros((S,), bool),
+            )
+            extra = (
+                np.empty(S, bool),  # cast_r2
+                np.empty(S, I8),  # r2_vals
+                np.empty(S, bool),  # advanced
+                np.empty(S, bool),  # newly_decided
+            )
+            ptrs = tuple(a.ctypes.data for a in st) + tuple(
+                a.ctypes.data for a in extra
+            )
+            self._ws.append((st, extra, ptrs))
+        self._ws_flip = 0
+        self._const_args = (
+            S, R, self.me, self.quorum, self.f1,
+            self.seed & 0xFFFFFFFF, self._coin_threshold,
+        )
+        self._coin_ptr = self.coin_flips.ctypes.data
+
+    def _node_step_np(
+        self,
+        state: HostNodeState,
+        inbox_r1: Optional[np.ndarray] = None,
+        inbox_r2: Optional[np.ndarray] = None,
+        decision_in: Optional[np.ndarray] = None,
     ) -> tuple[HostNodeState, NodeOutbox]:
         Q, F1 = self.quorum, self.f1
 

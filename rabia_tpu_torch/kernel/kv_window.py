@@ -345,7 +345,9 @@ class KVWindowKernel:
     ``probe dict`` (the read kernel alone: ``lookup_only``) and ``lookup
     rows``, ``lookup dict`` (the read kernel with the decision: the GET
     window); each grows by one exactly where a kernel is launched. The
-    libraries build on the first call."""
+    libraries build on the first call. A caller that sets ``events`` to
+    a list gets, for each launch, (form, start, end): CUDA events recorded
+    on the launch's stream just before and after it."""
 
     FORMS = ("rows", "dict", "dict wide", "rows+decide", "dict+decide", "dict wide+decide",
              "probe rows", "probe dict", "lookup rows", "lookup dict")
@@ -360,6 +362,7 @@ class KVWindowKernel:
     def __init__(self) -> None:
         self.launches = 0
         self.counts = dict.fromkeys(self.FORMS, 0)
+        self.events: list | None = None
         self._libs = []
         self._fn = None
         self._decide_fn = None
@@ -454,8 +457,11 @@ class KVWindowKernel:
             )
             with torch.cuda.device(dev):
                 stream = torch.cuda.current_stream().cuda_stream
+                marks = cuda_build.record_event(self.events)
                 err = entry(_ptrs(tin), _ptrs(tout), _ptrs([plane, klen, vlen, kwin, vwin, idx]),
                             _ptrs(rd), dims, *extra, stream)
+                if marks is not None:
+                    self.events.append((form, marks, cuda_build.record_event(self.events)))
             if err != 0:
                 raise RuntimeError(f"kv window kernel launch failed ({form}): cudaError {err}")
             self.launches += 1

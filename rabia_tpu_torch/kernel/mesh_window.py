@@ -31,10 +31,13 @@ class MeshWindowKernel:
     """ctypes wrapper of ``mw_window`` (csrc/mesh_window.cu).
 
     ``launches`` counts kernel launches; it grows by one exactly where
-    the kernel is launched. The library builds on the first call."""
+    the kernel is launched. The library builds on the first call. A caller
+    that sets ``events`` to a list gets, for each launch, (start, end):
+    CUDA events recorded on the launch's stream just before and after it."""
 
     def __init__(self) -> None:
         self.launches = 0
+        self.events: list | None = None
         self._lib = None
         self._fn = None
 
@@ -99,11 +102,14 @@ class MeshWindowKernel:
         if decided.numel():
             with torch.cuda.device(votes.device):
                 stream = torch.cuda.current_stream().cuda_stream
+                marks = cuda_build.record_event(self.events)
                 err = fn(
                     votes.data_ptr(), alive.view(torch.uint8).data_ptr(), base_slots.data_ptr(),
                     decided.data_ptr(), T, S, R, quorum_size(R), f_plus_1(R),
                     int(seed) & 0xFFFFFFFF, coin_threshold(coin_p1), int(max_phases), stream,
                 )
+                if marks is not None:
+                    self.events.append((marks, cuda_build.record_event(self.events)))
             if err != 0:
                 raise RuntimeError(f"mesh window kernel launch failed: cudaError {err}")
             self.launches += 1

@@ -1,0 +1,418 @@
+"""Build and load the port's native host plane.
+
+Five libraries, each built with ``g++`` from this directory's sources on
+first use into ``build/rabia_tpu_torch/`` (``kernel/cuda_build.BUILD_DIR``)
+under a digest of the source, the headers, the compiler, the flags and,
+for the codec, the interpreter and numpy it is built against:
+
+- ``transport.cpp``   -> ctypes CDLL (the TCP data plane, ``net/tcp.py``)
+- ``codec.cpp``       -> CPython extension module (the binary message
+  codec; ``core/serialization.py``'s Python codec stays the owner of every
+  byte, ``RABIA_PY_CODEC=1`` forces it)
+- ``hostkernel.cpp``  -> ctypes CDLL (the engine's columnar helpers and the
+  native tick context; ``RABIA_PY_HOSTKERNEL=1`` forces the numpy paths,
+  ``RABIA_PY_TICK=1`` only the Python tick)
+- ``statekernel.cpp`` -> ctypes CDLL (the native apply plane,
+  ``apps/native_store.py``; ``RABIA_PY_APPLY=1`` forces the Python apply)
+- ``runtime.cpp``     -> ctypes CDLL (the GIL-free engine runtime,
+  ``engine/runtime_bridge.py``; ``RABIA_PY_RUNTIME=1`` forces the asyncio
+  orchestration)
+
+A build that fails raises with the compiler's output: nothing falls back
+quietly. ``RABIA_NATIVE_DEBUG=1`` builds the debug flavor (the lock-order
+checker of ``annotations.h`` and debug symbols) beside the regular one.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import importlib.util
+import os
+import subprocess
+import sys
+import sysconfig
+import threading
+from pathlib import Path
+
+from rabia_tpu_torch.core.errors import InternalError
+from rabia_tpu_torch.kernel.cuda_build import BUILD_DIR
+
+HERE = Path(__file__).resolve().parent
+CXX = "g++"
+CXX_FLAGS = ("-std=c++17", "-shared", "-fPIC")
+# the codec's module name: distinct from the reference's, so both
+# packages' codecs load in one process
+CODEC_MODULE = "rabia_torch_native_codec"
+_HEADERS = ("annotations.h", "transport.h")
+# name -> (extra compile flags, link flags), the reference's per library
+_FLAGS = {
+    "transport": (("-O2", "-pthread"), ()),
+    "codec": (("-O2",), ("-lz",)),
+    "hostkernel": (("-O3",), ()),
+    "statekernel": (("-O3",), ()),
+    "runtime": (("-O2", "-pthread"), ("-lz",)),
+}
+_LOCK = threading.Lock()
+_LOADED: dict[str, object] = {}
+_COMPILER_ID: str | None = None
+
+
+def _flavor() -> tuple[str, tuple[str, ...]]:
+    """(suffix, flags) of the build flavor: ``RABIA_NATIVE_DEBUG=1``
+    compiles the lock-order checker in, with debug symbols."""
+    if os.environ.get("RABIA_NATIVE_DEBUG") == "1":
+        return "-dbg", ("-DRABIA_NATIVE_DEBUG=1", "-g")
+    return "", ()
+
+
+def _compiler_id() -> str:
+    global _COMPILER_ID
+    if _COMPILER_ID is None:
+        try:
+            proc = subprocess.run(
+                [CXX, "--version"], capture_output=True, text=True
+            )
+        except OSError as e:
+            raise InternalError(
+                f"cannot run the host compiler {CXX!r}: {e}"
+            ) from e
+        _COMPILER_ID = proc.stdout.splitlines()[0] if proc.stdout else CXX
+    return _COMPILER_ID
+
+
+def _command(name: str, out: Path) -> list[str]:
+    extra, link = _FLAGS[name]
+    inc: tuple[str, ...] = ()
+    if name == "codec":
+        import numpy as np
+
+        inc = (
+            f"-I{sysconfig.get_paths()['include']}",
+            f"-I{np.get_include()}",
+        )
+    # libraries follow the objects that use them (GNU ld resolves left
+    # to right)
+    return [
+        CXX, *CXX_FLAGS, *_flavor()[1], *extra, *inc,
+        str(HERE / f"{name}.cpp"), "-o", str(out), *link,
+    ]
+
+
+def library_path(name: str) -> Path:
+    """Where ``<name>.cpp``'s library lives once built."""
+    h = hashlib.sha256(_compiler_id().encode())
+    h.update(" ".join(_command(name, Path("out"))).encode())
+    for src in (f"{name}.cpp", *_HEADERS):
+        h.update((HERE / src).read_bytes())
+    if name == "codec":
+        import numpy as np
+
+        h.update(f"{sys.version}|{np.__version__}".encode())
+    ext = sysconfig.get_config_var("EXT_SUFFIX") if name == "codec" else ".so"
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}{_flavor()[0]}{ext}"
+
+
+def build(*names: str) -> Path:
+    """Compile every named source that is not built yet, one ``g++`` per
+    source, started together; returns the last name's library path.
+    Raises :class:`InternalError` with the compiler's output when a build
+    fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    running = []
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            continue
+        # a private temp path renamed into place: a concurrent loader sees
+        # the whole library or none
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        proc = subprocess.Popen(
+            _command(name, tmp), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True,
+        )
+        running.append((name, proc, tmp, out))
+    failed = []
+    for name, proc, tmp, out in running:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failed.append(f"native {name} build failed:\n{log}")
+            continue
+        os.replace(tmp, out)
+    if failed:
+        raise InternalError("\n".join(failed))
+    return library_path(names[-1])
+
+
+def _load(name: str, bind) -> object:
+    with _LOCK:
+        lib = _LOADED.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(os.fspath(build(name)))
+            bind(lib)
+            _LOADED[name] = lib
+        return lib
+
+
+def load_codec():
+    """The codec extension module, built and imported on first use; None
+    when ``RABIA_PY_CODEC`` is set (the Python codec then runs alone)."""
+    if os.environ.get("RABIA_PY_CODEC"):
+        return None
+    with _LOCK:
+        mod = _LOADED.get("codec")
+        if mod is None:
+            spec = importlib.util.spec_from_file_location(
+                CODEC_MODULE, build("codec")
+            )
+            mod = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(mod)
+            _LOADED["codec"] = mod
+        return mod
+
+
+def _bind_hostkernel(lib: ctypes.CDLL) -> None:
+    # pointer args are c_void_p: callers pass raw ndarray.ctypes.data ints
+    # (the cheapest ctypes marshalling on the per-activation path)
+    p = ctypes.c_void_p
+    i32, u32, i64 = ctypes.c_int32, ctypes.c_uint32, ctypes.c_int64
+    dbl = ctypes.c_double
+    sig = {
+        "rk_node_step": (None, [i32] * 5 + [u32] * 2 + [p] * 15),
+        # rk_node_step + coin-flip accounting
+        "rk_node_step_ex": (None, [i32] * 5 + [u32] * 2 + [p] * 16),
+        "rk_start_slots": (None, [i32] * 3 + [p] * 13),
+        "rk_open_scan": (i32, [i32] + [p] * 10),
+        "rk_pack_gather": (
+            i32, [p, i64, p, p, p] + [i64] * 6 + [p, p],
+        ),
+        "rk_stall_scan": (i32, [i32, p, p, dbl, dbl]),
+        # the native tick context
+        "rk_ctx_create": (p, [p] * 4),
+        "rk_ctx_destroy": (None, [p]),
+        # shard-group range (thread-per-shard-group runtime)
+        "rk_set_range": (None, [p, i32, i32, u32]),
+        "rk_rows_seen": (ctypes.c_uint64, [p]),
+        "rk_dropped": (ctypes.c_uint64, [p]),
+        "rk_carry_count": (i64, [p]),
+        "rk_drain_stale": (i64, [p, p, p, p, i64]),
+        "rk_ingest": (i32, [p, p, i64, i32, dbl]),
+        "rk_tick": (None, [p, dbl, p, i64, i32, p, p, p, p]),
+        "rk_retransmit": (None, [p, dbl, dbl, p, i64, p]),
+        # observability counter block (versioned, append-only)
+        "rk_counters_version": (i32, []),
+        "rk_counters_count": (i32, []),
+        "rk_counters": (p, [p]),
+        # phases-to-decide histogram
+        "rk_phase_hist_len": (i32, []),
+        "rk_phase_hist": (p, [p]),
+        # flight recorder (fixed-size binary event ring, versioned ABI)
+        "rk_flight_version": (i32, []),
+        "rk_flight_cap": (i32, []),
+        "rk_flight_record_size": (i32, []),
+        "rk_flight": (p, [p]),
+        "rk_flight_head": (ctypes.c_uint64, [p]),
+        # per-phase consensus dwell histograms
+        "rk_dwell_version": (i32, []),
+        "rk_dwell_phases": (i32, []),
+        "rk_dwell_buckets": (i32, []),
+        "rk_dwell_sub_bits": (i32, []),
+        "rk_dwell_min_exp": (i32, []),
+        "rk_dwell": (p, [p]),
+    }
+    _set(lib, sig)
+
+
+def _set(lib: ctypes.CDLL, sig: dict) -> None:
+    for fn, (res, args) in sig.items():
+        f = getattr(lib, fn)
+        f.restype = res
+        f.argtypes = args
+
+
+def load_hostkernel() -> ctypes.CDLL | None:
+    """The host kernel's library (columnar helpers and the native tick
+    context); None when ``RABIA_PY_HOSTKERNEL`` is set (the numpy paths
+    then run)."""
+    if os.environ.get("RABIA_PY_HOSTKERNEL"):
+        return None
+    return _load("hostkernel", _bind_hostkernel)
+
+
+def _bind_statekernel(lib: ctypes.CDLL) -> None:
+    p = ctypes.c_void_p
+    i32, i64, u64 = ctypes.c_int32, ctypes.c_int64, ctypes.c_uint64
+    dbl = ctypes.c_double
+    sig = {
+        "sk_plane_create": (p, [i64] * 4),
+        "sk_plane_destroy": (None, [p]),
+        "sk_counters_version": (i32, []),
+        "sk_counters_count": (i32, []),
+        "sk_counters": (p, [p]),
+        "sk_flight_version": (i32, []),
+        "sk_flight_cap": (i32, []),
+        "sk_flight_record_size": (i32, []),
+        "sk_flight": (p, [p]),
+        "sk_flight_head": (u64, [p]),
+        "sk_store_count": (i64, [p]),
+        "sk_store_size": (i64, [p, i64]),
+        "sk_store_version": (u64, [p, i64]),
+        "sk_set_version": (None, [p, i64, u64]),
+        "sk_store_stats": (None, [p, i64, p]),
+        "sk_add_stats": (None, [p, i64, u64, u64, u64]),
+        "sk_get": (
+            i64,
+            [p, i64, p, i64, ctypes.POINTER(p), ctypes.POINTER(u64)],
+        ),
+        "sk_export_size": (i64, [p, i64]),
+        "sk_export": (i64, [p, i64, p, i64]),
+        "sk_clear_store": (None, [p, i64]),
+        "sk_delete_raw": (i32, [p, i64, p, i64]),
+        "sk_insert_raw": (i32, [p, i64, p, i64, p, i64, u64, dbl, dbl]),
+        "sk_apply_wave": (i64, [p] * 6 + [i64, dbl, i32]),
+        "sk_apply_ops": (i64, [p, i64, p, p, i64, dbl, i32]),
+        "sk_out_buf": (p, [p]),
+        "sk_out_offs": (p, [p]),
+        "sk_out_count": (i64, [p]),
+        # thread-per-shard-group apply lanes (runtime workers > 1)
+        "sk_set_groups": (i32, [p, i32]),
+        "sk_apply_wave_lane": (i64, [p, i32] + [p] * 5 + [i64, dbl, i32]),
+        "sk_out_buf_lane": (p, [p, i32]),
+        "sk_out_offs_lane": (p, [p, i32]),
+        # incremental snapshots
+        "sk_snapshot_delta_size": (i64, [p, i64]),
+        "sk_snapshot_delta": (i64, [p, i64, p, i64]),
+        "sk_snapshot_mark": (None, [p, i64]),
+        # read-side critical-section brackets (native-runtime hook)
+        "sk_plane_lock": (None, [p]),
+        "sk_plane_unlock": (None, [p]),
+    }
+    _set(lib, sig)
+
+
+def load_statekernel() -> ctypes.CDLL | None:
+    """The native apply plane's library; None when ``RABIA_PY_APPLY=1``
+    (the Python binary-op apply of ``apps/kvstore.py`` then runs)."""
+    if os.environ.get("RABIA_PY_APPLY") == "1":
+        return None
+    return _load("statekernel", _bind_statekernel)
+
+
+def _bind_transport(lib: ctypes.CDLL) -> None:
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    p = ctypes.c_void_p
+    i32, i64, u64 = ctypes.c_int32, ctypes.c_int64, ctypes.c_uint64
+    c_int = ctypes.c_int
+    sig = {
+        "rt_create": (
+            p, [u8p, ctypes.c_char_p, ctypes.c_uint16,
+                ctypes.POINTER(ctypes.c_uint16)],
+        ),
+        "rt_add_peer": (c_int, [p, u8p, ctypes.c_char_p, ctypes.c_uint16]),
+        "rt_remove_peer": (c_int, [p, u8p]),
+        # chaos shaping layer
+        "rt_set_shaping": (
+            c_int, [p, u8p, ctypes.c_uint32, ctypes.c_uint32,
+                    ctypes.c_double, u64],
+        ),
+        "rt_clear_shaping": (c_int, [p]),
+        "rt_send": (c_int, [p, u8p, ctypes.c_char_p, ctypes.c_uint32]),
+        "rt_broadcast": (c_int, [p, ctypes.c_char_p, ctypes.c_uint32]),
+        # batch-staged broadcast of the native tick's outbound buffer
+        # ([u32 record_len][frame]... records, one lock + one kick)
+        "rt_broadcast_frames": (c_int, [p, p, i64]),
+        "rt_recv": (c_int, [p, u8p, u8p, ctypes.c_uint32, c_int]),
+        "rt_recv_borrow": (
+            i64, [p, u8p, ctypes.POINTER(p),
+                  ctypes.POINTER(ctypes.c_uint32), c_int],
+        ),
+        "rt_recv_release": (None, [p, i64]),
+        # thread-per-shard-group routing (runtime workers > 1)
+        "rt_set_groups": (c_int, [p, i32, p, p]),
+        "rt_recv_borrow_group": (
+            i64, [p, i32, u8p, ctypes.POINTER(p),
+                  ctypes.POINTER(ctypes.c_uint32), c_int],
+        ),
+        "rt_connected": (c_int, [p, u8p, c_int]),
+        "rt_port": (ctypes.c_uint16, [p]),
+        "rt_dropped": (u64, [p]),
+        "rt_pool_stats": (
+            None, [p, ctypes.POINTER(u64), ctypes.POINTER(u64)],
+        ),
+        "rt_out_pool_stats": (
+            None, [p, ctypes.POINTER(u64), ctypes.POINTER(u64)],
+        ),
+        # observability counter block (versioned, append-only)
+        "rt_counters_version": (i32, []),
+        "rt_counters_count": (i32, []),
+        "rt_counters": (p, [p]),
+        # flight recorder (frame in/out ring, consistent copy under mu)
+        "rt_flight_version": (i32, []),
+        "rt_flight_record_size": (i32, []),
+        "rt_flight_copy": (i64, [p, p, i64]),
+        "rt_inbox_kick": (None, [p]),
+        "rt_stop": (None, [p]),
+        "rt_close": (None, [p]),
+    }
+    _set(lib, sig)
+
+
+def load_library() -> ctypes.CDLL:
+    """The TCP transport's library (always native: the transport has no
+    Python twin)."""
+    return _load("transport", _bind_transport)
+
+
+def _bind_runtime(lib: ctypes.CDLL) -> None:
+    p = ctypes.c_void_p
+    i32, i64 = ctypes.c_int32, ctypes.c_int64
+    sig = {
+        "rtm_create": (p, [p] * 5),
+        "rtm_start": (i32, [p]),
+        "rtm_stop": (None, [p]),
+        "rtm_destroy": (None, [p]),
+        "rtm_state": (i32, [p]),
+        "rtm_pause": (None, [p]),
+        "rtm_resume": (None, [p]),
+        "rtm_event_fd": (ctypes.c_int, [p]),
+        "rtm_cmd_push": (i32, [p, p, i64]),
+        "rtm_ev_drain": (i64, [p, p, i64]),
+        "rtm_counters_version": (i32, []),
+        "rtm_counters_count": (i32, []),
+        "rtm_counters": (p, [p]),
+        # stage profiler block (RTS_*: cumulative ns per loop stage)
+        "rtm_stages_version": (i32, []),
+        "rtm_stages_count": (i32, []),
+        "rtm_stages": (p, [p]),
+        # SLO latency histogram block (RTH_*: log-bucketed, fixed size)
+        "rtm_hist_version": (i32, []),
+        "rtm_hist_stages": (i32, []),
+        "rtm_hist_buckets": (i32, []),
+        "rtm_hist_sub_bits": (i32, []),
+        "rtm_hist_min_exp": (i32, []),
+        "rtm_hist": (p, [p]),
+        "rtm_flight_version": (i32, []),
+        "rtm_flight_cap": (i32, []),
+        "rtm_flight_record_size": (i32, []),
+        "rtm_flight": (p, [p]),
+        "rtm_flight_head": (ctypes.c_uint64, [p]),
+        # thread-per-shard-group workers: geometry + per-worker blocks
+        "rtm_workers": (i32, [p]),
+        "rtm_group_chunk": (i64, [p]),
+        "rtm_frame_group_mask": (ctypes.c_uint64, [p, p, ctypes.c_uint32]),
+        "rtm_counters_w": (p, [p, i32]),
+        "rtm_stages_w": (p, [p, i32]),
+        "rtm_hist_w": (p, [p, i32]),
+        "rtm_flight_w": (p, [p, i32]),
+        "rtm_flight_head_w": (ctypes.c_uint64, [p, i32]),
+    }
+    _set(lib, sig)
+
+
+def load_runtime() -> ctypes.CDLL | None:
+    """The GIL-free runtime's library; None when ``RABIA_PY_RUNTIME=1``
+    (the asyncio orchestration then runs)."""
+    if os.environ.get("RABIA_PY_RUNTIME") == "1":
+        return None
+    return _load("runtime", _bind_runtime)

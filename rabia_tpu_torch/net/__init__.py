@@ -1,7 +1,6 @@
-"""Transports: the in-memory hub and the fault-injecting simulator, both
-behind :class:`rabia_tpu_torch.core.network.NetworkTransport`. The
-reference's TCP transport (``rabia_tpu/net/tcp.py``) is not ported yet
-(ROADMAP Queue 1 item 7.3).
+"""Transports: the in-memory hub, the fault-injecting simulator and the
+TCP transport over the C++ data plane (:mod:`rabia_tpu_torch.net.tcp`),
+all behind :class:`rabia_tpu_torch.core.network.NetworkTransport`.
 """
 
 from rabia_tpu_torch.net.in_memory import HubStats, InMemoryHub, InMemoryNetwork
@@ -11,6 +10,7 @@ from rabia_tpu_torch.net.simulator import (
     NetworkStats,
     SimulatedNetwork,
 )
+from rabia_tpu_torch.net.tcp import TcpNetwork
 
 __all__ = [
     "HubStats",
@@ -20,4 +20,5 @@ __all__ = [
     "NetworkSimulator",
     "NetworkStats",
     "SimulatedNetwork",
+    "TcpNetwork",
 ]

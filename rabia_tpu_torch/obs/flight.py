@@ -2,8 +2,9 @@
 
 The port of the reference's ``rabia_tpu/obs/flight.py``, less its
 cross-node fetch over the gateway client (``collect_trace``), which comes
-with the gateway (ROADMAP Queue 1 item 7.7). The port has no native
-rings yet: its engine feeds the Python ring on every path.
+with the gateway (ROADMAP Queue 1 item 7.7). The native rings of the
+tick context, the state kernel and the runtime merge with the Python ring
+as in the reference.
 
 Two halves (docs/OBSERVABILITY.md, "Flight recorder"):
 

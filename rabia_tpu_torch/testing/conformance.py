@@ -1,7 +1,18 @@
-"""Engine-level plane-conformance gate.
+"""Conformance gates: each drives one schedule through two paths that
+must agree.
 
-The port of the reference's ``run_schedule_on_both_planes``
-(``rabia_tpu/testing/conformance.py``): one submission schedule driven
+- :func:`run_schedule_on_both_planes`: the transport cluster and the
+  ``MeshEngine`` (below);
+- :func:`run_schedule_on_both_tick_paths`: the native tick beside the
+  Python tick;
+- :func:`run_schedule_on_runtime_paths`: the GIL-free runtime beside the
+  asyncio orchestration, over TCP;
+- :func:`run_ops_on_both_apply_paths`: the native store beside the Python
+  ``KVStore``.
+
+The native gates are the port's copies of the reference's
+(``rabia_tpu/testing/conformance.py``). The plane gate is the port of
+the reference's ``run_schedule_on_both_planes``: one submission schedule driven
 through BOTH deployment planes — a transport-engine cluster over the
 in-memory hub, then a :class:`~rabia_tpu_torch.parallel.MeshEngine` —
 must produce bit-identical per-shard decisions, successful client
@@ -18,6 +29,9 @@ using the engine.
 from __future__ import annotations
 
 import asyncio
+import json
+import os
+import re
 import time
 from typing import Optional, Sequence
 
@@ -165,6 +179,788 @@ async def run_schedule_on_both_planes(
         "snapshot": snap,
         "mesh_engine": mesh_eng,
     }
+
+
+async def _run_transport_schedule(
+    schedule: Sequence[dict[int, list[str]]],
+    n_shards: int,
+    n_replicas: int,
+    *,
+    tag: str,
+):
+    """One transport-plane cluster through `schedule`; returns
+    (decisions{shard: {slot: value}}, state digest bytes, native_active,
+    obs) where ``obs`` is {"parity": deterministic counter subset,
+    "flight_lifecycle": per-shard propose/decide/apply flight sequences,
+    "flight": the full merged flight capture, "context": cheap
+    non-deterministic tick counters} — parity and flight_lifecycle are
+    what the tick-path gate asserts on; everything lands in the
+    divergence message/dumps (which the fuzz prints beside the repro
+    seed)."""
+    from rabia_tpu_torch.core.config import RabiaConfig
+    from rabia_tpu_torch.core.network import ClusterConfig
+    from rabia_tpu_torch.core.state_machine import InMemoryStateMachine
+    from rabia_tpu_torch.core.types import CommandBatch, NodeId
+    from rabia_tpu_torch.engine import RabiaEngine
+    from rabia_tpu_torch.net import InMemoryHub
+
+    config = RabiaConfig(
+        phase_timeout=3.0,
+        heartbeat_interval=0.05,
+        round_interval=0.002,
+    ).with_kernel(num_shards=n_shards, shard_pad_multiple=2)
+    hub = InMemoryHub()
+    nodes = [NodeId.from_int(i + 1) for i in range(n_replicas)]
+    engines, sms, tasks = [], [], []
+    for node in nodes:
+        sm = InMemoryStateMachine()
+        eng = RabiaEngine(
+            ClusterConfig.new(node, nodes), sm, hub.register(node),
+            config=config,
+        )
+        engines.append(eng)
+        sms.append(sm)
+        tasks.append(asyncio.ensure_future(eng.run()))
+    try:
+        quorum = False
+        for _ in range(300):
+            await asyncio.sleep(0.01)
+            if all(
+                [(await e.get_statistics()).has_quorum for e in engines]
+            ):
+                quorum = True
+                break
+        assert quorum, f"{tag}: cluster never formed quorum"
+        for w, wave in enumerate(schedule):
+            futs = {
+                s: await engines[w % n_replicas].submit_batch(
+                    CommandBatch.new(list(cmds)), shard=s
+                )
+                for s, cmds in wave.items()
+            }
+            for s, f in futs.items():
+                got = await asyncio.wait_for(f, 15.0)
+                want = [b"OK"] * len(wave[s])
+                assert got == want, f"{tag}: wave {w} shard {s}: {got!r}"
+        decisions = {
+            s: {
+                slot: int(rec.value)
+                for slot, rec in engines[0].rt.shards[s].decisions.items()
+            }
+            for s in range(n_shards)
+        }
+        snap = sms[0].create_snapshot().data
+        for _ in range(500):
+            if all(sm.create_snapshot().data == snap for sm in sms):
+                break
+            await asyncio.sleep(0.01)
+        assert all(
+            sm.create_snapshot().data == snap for sm in sms
+        ), f"{tag}: replicas diverged"
+        native = all(e._rk is not None for e in engines)
+        # Counter context: BOTH tick paths feed the same metric names
+        # (rk counter block on native, _py_* event tallies on Python) —
+        # the deterministic subset below must agree across paths on a
+        # fixed schedule; the rest (frame/tick counts ride retransmit
+        # timing) is carried for triage only.
+        e0 = engines[0]
+        rk = e0._rk
+        # Flight recorder capture (before shutdown frees the native
+        # ring). The LIFECYCLE subset — per-shard (kind, slot, value)
+        # sequences of propose/decide/apply — is deterministic on a
+        # fixed fault-free schedule (it is the decision ledger's event
+        # shadow) and is what the tick-path gate asserts; the full event
+        # list rides along for the divergence dumps (timing-dependent
+        # kinds like ingest/route/carry are excluded from parity exactly
+        # like the frame counters are).
+        flight = e0.flight_events()
+        lifecycle: dict[int, list] = {}
+        for ev in flight:
+            if ev["kind"] in ("propose", "decide", "apply"):
+                lifecycle.setdefault(int(ev["shard"]), []).append(
+                    (ev["kind"], int(ev["slot"]), int(ev["arg"]))
+                )
+        obs = {
+            "parity": {
+                "decided_v1": int(e0.rt.decided_v1),
+                "decided_v0": int(e0.rt.decided_v0),
+                "state_version": int(e0.rt.state_version),
+            },
+            "flight_lifecycle": lifecycle,
+            "flight": flight,
+            "flight_native_records": (rk.flight_head() if rk else 0),
+            "context": {
+                "ticks": int(e0._tick_count),
+                "stale": e0._py_stale
+                + (rk.counter("stale_votes") if rk else 0),
+                "frames": {
+                    k: e0._py_frames[k]
+                    + (rk.counter(f"frames_{k}") if rk else 0)
+                    for k in ("vote1", "vote2", "decision")
+                },
+            },
+        }
+        return decisions, snap, native, obs
+    finally:
+        for e in engines:
+            await e.shutdown()
+        for t in tasks:
+            t.cancel()
+        await asyncio.gather(*tasks, return_exceptions=True)
+
+
+async def run_schedule_on_both_tick_paths(
+    schedule: Sequence[dict[int, list[str]]],
+    n_shards: int,
+    n_replicas: int = 3,
+    *,
+    tag: str = "",
+    require_native: bool = True,
+) -> None:
+    """Native-vs-Python tick-path conformance (the fast-path gate).
+
+    The same submission schedule runs through two transport clusters —
+    the native per-tick fast path (hostkernel.cpp rk_tick) and the Python
+    semantics owner (``RABIA_PY_TICK=1``) — and must produce identical
+    per-shard decision ledgers and byte-identical replica state
+    (tests/test_torch_native_tick.py, test_torch_native_conformance.py).
+    """
+    import os
+
+    prev = os.environ.pop("RABIA_PY_TICK", None)
+    try:
+        dec_native, snap_native, native, obs_native = (
+            await _run_transport_schedule(
+                schedule, n_shards, n_replicas, tag=f"{tag}[native]"
+            )
+        )
+        if require_native:
+            assert native, (
+                f"{tag}: native tick path inactive (hostkernel build "
+                "failure?) — conformance gate would be vacuous"
+            )
+        os.environ["RABIA_PY_TICK"] = "1"
+        dec_py, snap_py, _, obs_py = await _run_transport_schedule(
+            schedule, n_shards, n_replicas, tag=f"{tag}[python]"
+        )
+    finally:
+        if prev is None:
+            os.environ.pop("RABIA_PY_TICK", None)
+        else:
+            os.environ["RABIA_PY_TICK"] = prev
+    ctx = (
+        f"counters[native]={obs_native['parity']} "
+        f"counters[python]={obs_py['parity']} "
+        f"context[native]={obs_native['context']} "
+        f"context[python]={obs_py['context']}"
+    )
+    try:
+        assert dec_native == dec_py, (
+            f"{tag}: decision ledgers diverge across tick paths "
+            f"(native={dec_native}, python={dec_py}); {ctx}"
+        )
+        assert snap_native == snap_py, (
+            f"{tag}: replica state diverges across tick paths; {ctx}"
+        )
+        # counter parity: the deterministic subset of the shared metric
+        # namespace must agree across tick paths on an identical schedule
+        assert obs_native["parity"] == obs_py["parity"], (
+            f"{tag}: counter parity broken across tick paths; {ctx}"
+        )
+        assert obs_native["parity"]["decided_v1"] > 0, (
+            f"{tag}: no decisions recorded — vacuous schedule"
+        )
+        # flight-recorder parity: both tick paths must emit the same
+        # ordered per-shard sequence of lifecycle flight event kinds
+        # (propose/decide/apply with slot + decided value; timestamps and
+        # timing-dependent kinds — ingest/route/carry ride retransmit
+        # timing — excluded, like the frame counters above)
+        assert (
+            obs_native["flight_lifecycle"] == obs_py["flight_lifecycle"]
+        ), (
+            f"{tag}: flight lifecycle sequences diverge across tick "
+            f"paths (native={obs_native['flight_lifecycle']}, "
+            f"python={obs_py['flight_lifecycle']}); {ctx}"
+        )
+        if require_native:
+            # the native ring must actually have recorded the fast path
+            # (a silently-empty recorder would make trace collection and
+            # the auto-dumps vacuous on the path that matters most)
+            assert obs_native["flight_native_records"] > 0, (
+                f"{tag}: native flight ring empty after a native-tick run"
+            )
+    except AssertionError as e:
+        paths = _dump_divergence_flight(tag, obs_native, obs_py)
+        raise AssertionError(
+            f"{e}; flight dumps: {paths}"
+        ) from None
+
+
+# a client response the gate leaves out: the submitting replica adopted
+# the slot through a snapshot sync, so its future settles with
+# ResponsesUnavailableError by design (peers that applied hold the bytes)
+UNAVAILABLE = ("unavailable",)
+
+
+def runtime_api():
+    """The names the runtime gate drives. A cross-package test hands
+    :func:`_run_runtime_schedule` another package's namespace of the same
+    names, so each package's engine runs through this one runner."""
+    from types import SimpleNamespace
+
+    from rabia_tpu_torch.apps.kvstore import encode_set_bin
+    from rabia_tpu_torch.apps.sharded import make_sharded_kv
+    from rabia_tpu_torch.core.blocks import build_block
+    from rabia_tpu_torch.core.config import RabiaConfig, TcpNetworkConfig
+    from rabia_tpu_torch.core.errors import ResponsesUnavailableError
+    from rabia_tpu_torch.core.network import ClusterConfig
+    from rabia_tpu_torch.core.types import Command, CommandBatch, NodeId
+    from rabia_tpu_torch.engine import RabiaEngine
+    from rabia_tpu_torch.engine.leader import slot_proposer
+    from rabia_tpu_torch.net.tcp import TcpNetwork
+
+    return SimpleNamespace(**{
+        k: v for k, v in locals().items() if k != "SimpleNamespace"
+    })
+
+
+def _ledger_without_dedup_slots(engine, n_shards: int):
+    """``engine``'s decided values by shard with every deduplicated slot
+    left out, and the slots after it renumbered down, plus the (shard,
+    slot) list of what was left out. A deduplicated slot is a V1 slot
+    whose batch an earlier slot of the shard already committed: a
+    retransmit racing a decide on a loaded host re-proposes a committed
+    batch, the replicas decide it again and skip its apply (exactly-once
+    holds; the slot only shifts the shard's numbering by one)."""
+    ledger: dict[int, dict[int, int]] = {}
+    dedup: list[tuple[int, int]] = []
+    for s in range(n_shards):
+        seen: set = set()
+        out: dict[int, int] = {}
+        skipped = 0
+        for slot in sorted(engine.rt.shards[s].decisions):
+            rec = engine.rt.shards[s].decisions[slot]
+            value = int(rec.value)
+            if value == 1 and rec.batch_id is not None:
+                if rec.batch_id in seen:
+                    dedup.append((s, slot))
+                    skipped += 1
+                    continue
+                seen.add(rec.batch_id)
+            out[slot - skipped] = value
+        ledger[s] = out
+    return ledger, dedup
+
+
+async def _run_runtime_schedule(
+    schedule: Sequence[dict[int, list[tuple[str, str]]]],
+    n_shards: int,
+    n_replicas: int,
+    *,
+    tag: str,
+    block_every: int = 2,
+    api=None,
+):
+    """One native-TCP cluster (sharded native-KV stores) through a
+    schedule of SET waves: even waves ride the scalar lane, every
+    ``block_every``-th the block lane (submit_block), so BOTH the
+    runtime's scalar decide escalation and its native wave apply are
+    exercised. ``api`` is :func:`runtime_api`'s namespace (the port's by
+    default). Returns (decisions, checksums, responses, runtime_active,
+    obs).
+
+    Two effects of a loaded host are named and left out of what the
+    legs compare, and ``obs["left_out"]`` lists them:
+
+    - a client future that a snapshot sync overtook settles with
+      ResponsesUnavailableError; its entry reads :data:`UNAVAILABLE`;
+    - the ledger and the counter parity come from the first replica that
+      initiated no snapshot sync (a sync adopts slots without their
+      per-slot accounting and prunes the ledger below the adopted
+      frontier), with its deduplicated slots left out
+      (:func:`_ledger_without_dedup_slots`)."""
+    import numpy as np
+
+    if api is None:
+        api = runtime_api()
+    config = api.RabiaConfig(
+        phase_timeout=3.0,
+        heartbeat_interval=0.05,
+        round_interval=0.002,
+    ).with_kernel(num_shards=n_shards, shard_pad_multiple=2)
+    ids = [api.NodeId.from_int(i + 1) for i in range(n_replicas)]
+    nets = [api.TcpNetwork(i, api.TcpNetworkConfig(bind_port=0)) for i in ids]
+    for i in range(n_replicas):
+        for j in range(n_replicas):
+            if i != j:
+                nets[i].add_peer(ids[j], "127.0.0.1", nets[j].port)
+    engines, machines, tasks = [], [], []
+    for i, node in enumerate(ids):
+        sm, ms = api.make_sharded_kv(n_shards)
+        machines.append(ms)
+        eng = api.RabiaEngine(
+            api.ClusterConfig.new(node, ids), sm, nets[i], config=config
+        )
+        engines.append(eng)
+        tasks.append(asyncio.ensure_future(eng.run()))
+
+    def entry(r):
+        if isinstance(r, api.ResponsesUnavailableError):
+            return UNAVAILABLE
+        if isinstance(r, Exception):
+            return ("error", type(r).__name__)
+        return [bytes(x) for x in r]
+
+    try:
+        quorum = False
+        for _ in range(500):
+            await asyncio.sleep(0.01)
+            if all(
+                [(await e.get_statistics()).has_quorum for e in engines]
+            ):
+                quorum = True
+                break
+        assert quorum, f"{tag}: TCP cluster never formed quorum"
+        responses: list = []
+        for w, wave in enumerate(schedule):
+            shards = sorted(wave)
+            if block_every and w % block_every == 1:
+                # block lane: submit on the engine whose row is the
+                # UPCOMING PROPOSER of the first covered shard, so its
+                # entry is wave-eligible there (other shards' entries —
+                # and near-misses when next_slot advances under us —
+                # demote to the scalar lane, which is also a valid,
+                # conformant path). A blind round-robin choice can
+                # demote EVERY entry at some schedule geometries,
+                # leaving the native apply lane unexercised and the
+                # require_native guard red on a conformant run.
+                s0 = shards[0]
+                for cand in engines:
+                    # an engine's eligibility is judged against ITS OWN
+                    # next_slot view (submit_block checks synchronously
+                    # at call entry), so match each candidate's view to
+                    # its own row rather than engines[0]'s possibly-
+                    # lagging frontier
+                    if api.slot_proposer(
+                        s0, int(cand.rt.next_slot[s0]), n_replicas
+                    ) == cand.me:
+                        e = cand
+                        break
+                else:
+                    e = engines[w % n_replicas]
+                cmds = [
+                    [api.encode_set_bin(k, v) for k, v in wave[s]]
+                    for s in shards
+                ]
+                fut = await e.submit_block(
+                    api.build_block(np.asarray(shards, np.int64), cmds)
+                )
+                res = await asyncio.wait_for(fut, 20.0)
+                responses.append([entry(r) for r in res])
+            else:
+                e = engines[w % n_replicas]
+                futs = {}
+                for s in shards:
+                    batch = api.CommandBatch.new(
+                        [
+                            api.Command.new(api.encode_set_bin(k, v))
+                            for k, v in wave[s]
+                        ],
+                        shard=s,
+                    )
+                    futs[s] = await e.submit_batch(batch, shard=s)
+                got = []
+                for s in shards:
+                    try:
+                        got.append(entry(await asyncio.wait_for(futs[s], 20.0)))
+                    except api.ResponsesUnavailableError as err:
+                        got.append(entry(err))
+                responses.append(got)
+
+        # replica convergence on state checksums
+        def sums(ms):
+            return [m.store.checksum() for m in ms]
+
+        # re-read the first replica's sums on every pass: it may itself
+        # still be applying the last wave (a value read once before the
+        # loop goes stale and reads as a divergence). A replica that
+        # decided a slot before its batch reached it recovers the batch
+        # by snapshot sync, and a sync that went out too early is retried
+        # only after the engine's retry window: the wait covers one.
+        deadline = time.monotonic() + 3.0 + min(
+            config.sync_timeout, 4 * config.phase_timeout
+        )
+        while True:
+            want = sums(machines[0])
+            if all(sums(ms) == want for ms in machines):
+                break
+            if time.monotonic() > deadline:
+                break
+            await asyncio.sleep(0.01)
+        assert all(
+            sums(ms) == want for ms in machines
+        ), f"{tag}: replicas diverged"
+        unsynced = [i for i, e in enumerate(engines) if e._syncs == 0]
+        assert unsynced, f"{tag}: every replica initiated a snapshot sync"
+        row = unsynced[0]
+        e0 = engines[row]
+        # decision records can trail the last client response (escalated
+        # decisions and stale-vote repairs land asynchronously): settle
+        # the ledger before snapshotting, or the two legs race their own
+        # tails and the comparison flakes on a capture gap the counters
+        # disprove
+        prev = -1
+        for _ in range(100):
+            cur = sum(
+                len(e0.rt.shards[s].decisions) for s in range(n_shards)
+            )
+            if cur == prev:
+                break
+            prev = cur
+            await asyncio.sleep(0.02)
+        decisions, dedup = _ledger_without_dedup_slots(e0, n_shards)
+        runtime_active = all(e._rtm is not None for e in engines)
+        lifecycle: dict[int, list] = {}
+        for ev in e0.flight_events():
+            if ev["kind"] in ("propose", "decide", "apply"):
+                lifecycle.setdefault(int(ev["shard"]), []).append(
+                    (ev["kind"], int(ev["slot"]), int(ev["arg"]))
+                )
+        obs = {
+            "parity": {
+                "decided_v1": int(e0.rt.decided_v1) - len(dedup),
+                "decided_v0": int(e0.rt.decided_v0),
+                "state_version": int(e0.rt.state_version),
+            },
+            "left_out": {
+                "dedup_slots": dedup,
+                "synced_replicas": [
+                    i for i in range(n_replicas) if i not in unsynced
+                ],
+                "unavailable_responses": sum(
+                    r == UNAVAILABLE for wave in responses for r in wave
+                ),
+                "ledger_replica": row,
+            },
+            "flight_lifecycle": lifecycle,
+            "flight": e0.flight_events(),
+            "runtime": (
+                e0._rtm.counters_dict() if e0._rtm is not None else {}
+            ),
+            "context": {"ticks": int(e0._tick_count)},
+        }
+        return decisions, want, responses, runtime_active, obs
+    finally:
+        for e in engines:
+            await e.shutdown()
+        for t in tasks:
+            t.cancel()
+        await asyncio.gather(*tasks, return_exceptions=True)
+        for n in nets:
+            await n.close()
+
+
+def runtime_legs_agree(a, b, tag: str) -> None:
+    """Assert that two :func:`_run_runtime_schedule` results agree:
+    decided values on the slots both ledgers hold, client responses on
+    the entries neither leg left out, replica state checksums and counter
+    parity."""
+    dec_a, sums_a, resp_a, _, obs_a = a
+    dec_b, sums_b, resp_b, _, obs_b = b
+    ctx = (
+        f"counters={obs_a['parity']} / {obs_b['parity']} "
+        f"left_out={obs_a['left_out']} / {obs_b['left_out']}"
+    )
+    overlap = 0
+    for s in set(dec_a) | set(dec_b):
+        both = set(dec_a.get(s, ())) & set(dec_b.get(s, ()))
+        overlap += len(both)
+        for slot in both:
+            assert dec_a[s][slot] == dec_b[s][slot], (
+                f"{tag}: decision value diverges at shard {s} slot "
+                f"{slot} ({dec_a[s][slot]} / {dec_b[s][slot]}); {ctx}"
+            )
+    assert overlap > 0, (
+        f"{tag}: decision ledgers share no slots ({dec_a} / {dec_b}) — "
+        f"vacuous compare; {ctx}"
+    )
+    assert len(resp_a) == len(resp_b), f"{tag}: response waves; {ctx}"
+    compared = 0
+    for w, (wa, wb) in enumerate(zip(resp_a, resp_b)):
+        assert len(wa) == len(wb), f"{tag}: wave {w} entries; {ctx}"
+        for i, (ra, rb) in enumerate(zip(wa, wb)):
+            if UNAVAILABLE in (ra, rb):
+                continue
+            compared += 1
+            assert ra == rb, (
+                f"{tag}: client response diverges at wave {w} entry {i} "
+                f"({ra} / {rb}); {ctx}"
+            )
+    assert compared > 0, f"{tag}: every response left out; {ctx}"
+    assert sums_a == sums_b, f"{tag}: replica state diverges; {ctx}"
+    assert obs_a["parity"] == obs_b["parity"], (
+        f"{tag}: counter parity broken; {ctx}"
+    )
+    assert obs_a["parity"]["decided_v1"] > 0, (
+        f"{tag}: no decisions recorded — vacuous schedule"
+    )
+
+
+async def run_schedule_on_runtime_paths(
+    schedule: Sequence[dict[int, list[tuple[str, str]]]],
+    n_shards: int,
+    n_replicas: int = 3,
+    *,
+    tag: str = "",
+    require_native: bool = True,
+    workers: Optional[int] = None,
+) -> None:
+    """Native-runtime vs asyncio-orchestration conformance (the engine
+    runtime gate, extending the tick-path gate family).
+
+    The same schedule of SET waves (scalar + block lanes) runs through
+    two native-TCP clusters — the GIL-free runtime thread
+    (native/runtime.cpp) and the asyncio semantics owner
+    (``RABIA_PY_RUNTIME=1``) — and must produce identical per-shard
+    decision ledgers, byte-identical client responses, identical replica
+    state checksums and counter parity (:func:`runtime_legs_agree`, less
+    what :func:`_run_runtime_schedule` names and leaves out). ``workers``
+    pins the runtime leg's thread-per-shard-group worker count (via
+    ``RABIA_RT_WORKERS``; None = inherit the environment), so the same
+    gate pins workers=N vs asyncio, and a caller comparing two
+    ``workers`` values transitively pins workers=N vs workers=1
+    (tests/test_torch_runtime.py, test_torch_native_conformance.py).
+    Divergence dumps both legs' flight captures to ``$RABIA_FLIGHT_DIR``.
+    """
+    prev = os.environ.pop("RABIA_PY_RUNTIME", None)
+    prev_w = os.environ.get("RABIA_RT_WORKERS")
+    try:
+        if workers is not None:
+            os.environ["RABIA_RT_WORKERS"] = str(workers)
+        leg_rt = await _run_runtime_schedule(
+            schedule, n_shards, n_replicas, tag=f"{tag}[runtime]"
+        )
+        if require_native:
+            assert leg_rt[3], (
+                f"{tag}: native runtime inactive (runtime.cpp build "
+                "failure?) — conformance gate would be vacuous"
+            )
+        os.environ["RABIA_PY_RUNTIME"] = "1"
+        leg_py = await _run_runtime_schedule(
+            schedule, n_shards, n_replicas, tag=f"{tag}[asyncio]"
+        )
+    finally:
+        if prev is None:
+            os.environ.pop("RABIA_PY_RUNTIME", None)
+        else:
+            os.environ["RABIA_PY_RUNTIME"] = prev
+        if workers is not None:
+            if prev_w is None:
+                os.environ.pop("RABIA_RT_WORKERS", None)
+            else:
+                os.environ["RABIA_RT_WORKERS"] = prev_w
+    obs_rt, obs_py = leg_rt[4], leg_py[4]
+    try:
+        runtime_legs_agree(leg_rt, leg_py, tag)
+        if require_native:
+            rtm = obs_rt["runtime"]
+            assert rtm.get("waves_native", 0) > 0, (
+                f"{tag}: no native waves — block lane never hit the "
+                f"runtime apply path; rtm={rtm}"
+            )
+    except AssertionError as e:
+        paths = _dump_divergence_flight(
+            tag,
+            {**obs_rt, "context": obs_rt.get("context", {})},
+            {**obs_py, "context": obs_py.get("context", {})},
+        )
+        raise AssertionError(f"{e}; flight dumps: {paths}") from None
+
+
+def run_ops_on_both_apply_paths(
+    schedule: Sequence[dict[int, list[bytes]]],
+    n_shards: int,
+    *,
+    tag: str = "",
+    require_native: bool = True,
+) -> None:
+    """Native-vs-Python APPLY-path conformance (the apply-plane gate).
+
+    The same schedule of binary KV op waves drives two
+    :class:`~rabia_tpu_torch.apps.sharded.ShardedStateMachine` instances — one
+    on the statekernel-backed native stores, one on the Python
+    :class:`KVStore` (the semantics owner, what ``RABIA_PY_APPLY=1``
+    forces) — through the engine-visible apply surfaces: whole waves ride
+    ``apply_block`` (the decided-wave path), with every third wave routed
+    per shard through ``apply_batch`` (the scalar lane). Required:
+    byte-identical per-op result frames on every wave, and — at the end —
+    bit-identical per-shard state hashes, store versions and op-stats,
+    plus a native-snapshot → Python-restore round trip landing on the
+    same hash (tests/test_torch_native_apply.py,
+    test_torch_native_conformance.py). On divergence, both paths' context dumps land in
+    ``$RABIA_FLIGHT_DIR`` (default ``flight-dumps/`` — a CI failure
+    artifact), like the tick-path gate's flight dumps.
+    """
+    import numpy as np
+
+    from rabia_tpu_torch.apps.kvstore import KVStore
+    from rabia_tpu_torch.apps.native_store import native_apply_available
+    from rabia_tpu_torch.apps.sharded import make_sharded_kv
+    from rabia_tpu_torch.core.blocks import build_block
+    from rabia_tpu_torch.core.config import KVStoreConfig
+    from rabia_tpu_torch.core.types import Command, CommandBatch, ShardId
+
+    if not native_apply_available():
+        assert not require_native, (
+            f"{tag}: native apply plane unavailable (statekernel build "
+            "failure?) — conformance gate would be vacuous"
+        )
+        return
+    # small limits so fuzz schedules actually HIT the validation edges
+    # (oversized value, key too long, store full — max_keys must sit
+    # BELOW the fuzz generator's ~10-key pool or the store_full branch
+    # is never differentially exercised)
+    cfg = KVStoreConfig(
+        max_keys=8, max_key_length=24, max_value_size=128
+    )
+    sm_nat, m_nat = make_sharded_kv(n_shards, cfg, native=True)
+    sm_py, m_py = make_sharded_kv(n_shards, cfg, native=False)
+    assert sm_nat._native_plane is not None, (
+        f"{tag}: native plane not wired — gate would be vacuous"
+    )
+
+    def _ctx(wave_i: int) -> dict:
+        return {
+            "tag": tag,
+            "wave": wave_i,
+            "native_counters": sm_nat._native_plane.counters_dict(),
+            "checksums_native": [m.store.checksum() for m in m_nat],
+            "checksums_python": [m.store.checksum() for m in m_py],
+        }
+
+    for w, wave in enumerate(schedule):
+        shards = sorted(wave)
+        ops_per_shard = [list(wave[s]) for s in shards]
+        try:
+            if w % 3 == 2:
+                # scalar lane: one CommandBatch per covered shard. A
+                # batch the state machine REJECTS (e.g. an unknown
+                # opcode routed through the typed path) must reject
+                # identically on both paths — the engine turns that
+                # into a deterministic per-replica apply failure.
+                for s, ops in zip(shards, ops_per_shard):
+                    batch = CommandBatch.new(
+                        [Command.new(b) for b in ops], shard=ShardId(s)
+                    )
+                    outcomes = []
+                    for sm in (sm_nat, sm_py):
+                        try:
+                            outcomes.append(list(sm.apply_batch(batch)))
+                        except Exception as e:  # noqa: BLE001
+                            outcomes.append(
+                                (type(e).__name__, str(e))
+                            )
+                    r_nat, r_py = outcomes
+                    assert r_nat == r_py, (
+                        f"{tag}: wave {w} shard {s} scalar-lane outcomes "
+                        f"diverge (native={r_nat!r}, python={r_py!r})"
+                    )
+            else:
+                # block lane. A wave the SM rejects wholesale (e.g. a
+                # "{"-prefixed undecodable command in the Python
+                # fallback) must reject identically on both paths — the
+                # engine turns that into a deterministic apply failure.
+                block = build_block(np.asarray(shards), ops_per_shard)
+                idxs = np.arange(len(shards))
+                outcomes = []
+                for sm in (sm_nat, sm_py):
+                    try:
+                        rs = sm.apply_block(block, idxs, want_responses=True)
+                        outcomes.append([list(r) for r in rs])
+                    except Exception as e:  # noqa: BLE001
+                        outcomes.append((type(e).__name__, str(e)))
+                r_nat, r_py = outcomes
+                assert r_nat == r_py, (
+                    f"{tag}: wave {w} block-lane outcomes diverge "
+                    f"(native={r_nat!r}, python={r_py!r})"
+                )
+        except AssertionError:
+            _dump_apply_divergence(tag, _ctx(w))
+            raise
+    try:
+        for s in range(n_shards):
+            st_n, st_p = m_nat[s].store, m_py[s].store
+            assert st_n.checksum() == st_p.checksum(), (
+                f"{tag}: shard {s} state hash diverges across apply paths"
+            )
+            assert st_n.version == st_p.version, (
+                f"{tag}: shard {s} store version diverges "
+                f"(native={st_n.version}, python={st_p.version})"
+            )
+            sn, sp = st_n.stats, st_p.stats
+            assert (
+                sn.total_operations, sn.reads, sn.writes
+            ) == (sp.total_operations, sp.reads, sp.writes), (
+                f"{tag}: shard {s} op stats diverge across apply paths"
+            )
+            # cross-path snapshot adoption (mixed-cluster sync): a Python
+            # store restored from the NATIVE snapshot lands on the hash
+            restored = KVStore(cfg)
+            restored.restore_bytes(st_n.snapshot_bytes())
+            assert restored.checksum() == st_p.checksum(), (
+                f"{tag}: shard {s} native snapshot does not restore to "
+                "the Python state"
+            )
+    except AssertionError:
+        _dump_apply_divergence(tag, _ctx(len(schedule)))
+        raise
+
+
+def _dump_apply_divergence(tag: str, ctx: dict) -> None:
+    """Write the apply-path divergence context next to the repro seed
+    (``$RABIA_FLIGHT_DIR``, default ``flight-dumps/`` — uploaded as a CI
+    failure artifact like the flight dumps)."""
+    d = os.environ.get("RABIA_FLIGHT_DIR") or "flight-dumps"
+    safe = re.sub(r"[^\w.=-]+", "_", tag) or "apply-divergence"
+    try:
+        os.makedirs(d, exist_ok=True)
+        with open(os.path.join(d, f"apply_{safe}.json"), "w") as f:
+            json.dump(ctx, f)
+    except OSError:
+        pass  # a read-only CWD must not mask the divergence
+
+
+def _dump_divergence_flight(tag: str, obs_native: dict, obs_py: dict) -> list:
+    """Write BOTH tick paths' flight-recorder captures next to the repro
+    seed on divergence (beside the counter snapshots in the assertion
+    message). Directory: $RABIA_FLIGHT_DIR, default ``flight-dumps/``
+    (CI uploads it as a failure artifact)."""
+    d = os.environ.get("RABIA_FLIGHT_DIR") or "flight-dumps"
+    safe = re.sub(r"[^\w.=-]+", "_", tag) or "divergence"
+    paths = []
+    try:
+        os.makedirs(d, exist_ok=True)
+        for name, obs in (("native", obs_native), ("python", obs_py)):
+            p = os.path.join(d, f"flight_{safe}_{name}.json")
+            with open(p, "w") as f:
+                json.dump(
+                    {
+                        "tag": tag,
+                        "tick_path": name,
+                        "parity": obs["parity"],
+                        "context": obs["context"],
+                        "flight_lifecycle": {
+                            str(k): v
+                            for k, v in obs["flight_lifecycle"].items()
+                        },
+                        "events": obs["flight"],
+                    },
+                    f,
+                )
+            paths.append(p)
+    except OSError as e:  # a read-only CWD must not mask the divergence
+        paths.append(f"<dump failed: {e}>")
+    return paths
 
 
 def settle_quantiles(settle_s: Sequence[float], qs=(0.5, 0.99)) -> list[Optional[float]]:

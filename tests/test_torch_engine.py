@@ -727,20 +727,32 @@ class TestBackendRefusal:
         )
 
     @pytest.mark.asyncio
-    async def test_default_engine_is_host_kernel_on_python_paths(self):
-        """The engine runs the numpy HostNodeKernel, and every native
-        handle is None: its reports say the Python paths run."""
+    async def test_default_engine_is_host_kernel_on_python_paths(self, monkeypatch):
+        """The engine runs the HostNodeKernel. By default the native tick
+        and codec run under it (the runtime declines the in-memory hub);
+        with RABIA_PY_HOSTKERNEL, RABIA_PY_TICK and RABIA_PY_CODEC every
+        native handle is None and its reports say the Python paths run."""
         from rabia_tpu_torch.kernel.host_driver import HostNodeKernel
 
         eng = self._engine(RabiaConfig())
         assert type(eng.kernel) is HostNodeKernel
+        assert eng._hk_lib is not None and eng._rk is not None
+        assert (eng._rtm, eng._wal) == (None, None)
+        assert eng.health()["planes"] == {
+            "runtime": "python", "tick": "native", "codec": "native",
+            "apply": "python", "runtime_workers": 1, "wal": "none",
+        }
+        assert "rabia_engine_native_tick 1" in eng.metrics.render_prometheus()
+        for var in ("RABIA_PY_HOSTKERNEL", "RABIA_PY_TICK", "RABIA_PY_CODEC"):
+            monkeypatch.setenv(var, "1")
+        eng = self._engine(RabiaConfig())
         assert (eng._rk, eng._rtm, eng._wal, eng._hk_lib) == (None,) * 4
         health = eng.health()
         assert health["native_tick"] is False
         assert health["native_runtime"] is False
         assert health["planes"] == {
-            "runtime": "python", "tick": "python", "apply": "python",
-            "runtime_workers": 1, "wal": "none",
+            "runtime": "python", "tick": "python", "codec": "python",
+            "apply": "python", "runtime_workers": 1, "wal": "none",
         }
         assert eng.serializer._binary._native is None
         assert "rabia_engine_native_tick 0" in eng.metrics.render_prometheus()

@@ -5,9 +5,9 @@
    in-memory hub and through the port's ``MeshEngine`` on the CPU; per-shard
    decisions, futures and replica state must be identical.
 2. One seeded schedule through a cluster of the reference's
-   ``RabiaEngine`` (on its Python tick, ``RABIA_PY_TICK=1``, and on its
-   defaults, the native tick where its library loads) and through a
-   cluster of the port's: per-shard decision logs (slot, value and batch
+   ``RabiaEngine`` and through a cluster of the port's, both on their
+   Python tick (``RABIA_PY_TICK=1``) and both on their defaults (the
+   native tick): per-shard decision logs (slot, value and batch
    payload), every future's responses and every replica's snapshot must
    be identical.
 
@@ -159,9 +159,9 @@ def test_reference_and_port_engines_agree(n_shards, n_replicas, seed, ref_tick, 
     port = asyncio.run(_run_cluster("rabia_tpu_torch", sched, n_shards, n_replicas))
     ref_logs, ref_resp, ref_snaps, ref_native = ref
     port_logs, port_resp, port_snaps, port_native = port
-    if ref_tick == "python":
-        assert not any(ref_native)
-    assert not any(port_native)
+    # RABIA_PY_TICK holds for both packages: both tick in Python, or both
+    # run their native tick
+    assert ref_native == port_native == [ref_tick == "default"] * n_replicas
     assert port_resp == ref_resp  # every future, in order
     for r in range(n_replicas):
         assert port_logs[r] == ref_logs[r], f"replica {r}: decision logs differ"

@@ -1,9 +1,10 @@
 """The port's HostNodeKernel against the reference's, bit for bit.
 
 The transport engine steps one replica's weak-MVC state per round with
-``HostNodeKernel`` (numpy). The port's copy runs its numpy path with its
-own numpy coin; the reference's runs its C step where its native library
-loads, else its numpy path. Seeded inbox sequences (valid votes, V?,
+``HostNodeKernel``. Here the port's copy runs its numpy path with its own
+numpy coin (its C step is held against that in
+test_torch_native_hostkernel.py); the reference's runs its C step where
+its native library loads, else its numpy path. Seeded inbox sequences (valid votes, V?,
 ABSENT and a garbage code) go through both, and every state field, every
 outbox field and the coin/phase telemetry must agree after every
 ``start_slots`` and every ``node_step``. The numpy coin is held against
@@ -97,6 +98,7 @@ def test_node_steps_match_reference_every_field(R, me, seed, p_absent, ref_path)
     S = 48
     rk = _ref_kernel(S, R, me, seed, ref_path)
     pk = port_hd.HostNodeKernel(S, R, me, seed=seed, coin_p1=0.5)
+    pk._native_lib = None  # the port's numpy step (its C step: test_torch_native_hostkernel.py)
     rs, ps = rk.init_state(), pk.init_state()
     _assert_same(rs, ps, "init")
     rng = np.random.default_rng(R * 1000 + me)
@@ -127,6 +129,7 @@ def test_zero_copy_ingest_matches_reference(ref_path):
     S, R = 32, 5
     rk = _ref_kernel(S, R, 2, 7, ref_path)
     pk = port_hd.HostNodeKernel(S, R, 2, seed=7, coin_p1=0.5)
+    pk._native_lib = None  # the port's numpy step (its C step: test_torch_native_hostkernel.py)
     rs, ps = rk.init_state(), pk.init_state()
     rng = np.random.default_rng(17)
     slot_counter = np.zeros(S, np.int64)
@@ -156,6 +159,7 @@ def test_clean_two_round_decision():
     """All-V1 unanimous inboxes decide V1 in two rounds."""
     S, R = 8, 5
     hk = port_hd.HostNodeKernel(S, R, me=0, seed=0)
+    hk._native_lib = None  # the port's numpy step (its C step: test_torch_native_hostkernel.py)
     st = hk.start_slots(
         hk.init_state(), np.ones(S, bool), np.zeros(S, np.int32), np.full(S, V1, np.int8)
     )

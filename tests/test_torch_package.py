@@ -221,7 +221,7 @@ def test_transport_cluster_commits_with_jax_and_reference_blocked():
         "            break\n"
         "        await asyncio.sleep(0.01)\n"
         "    assert [sm.get('b') for sm in sms] == ['2'] * 3\n"
-        "    assert engs[0].health()['native_tick'] is False\n"
+        "    assert engs[0].health()['planes']['tick'] == 'native'\n"
         "    for e in engs:\n"
         "        await e.shutdown()\n"
         "    for t in tasks:\n"
@@ -289,12 +289,25 @@ def test_apps_and_harnesses_run_with_jax_and_reference_blocked():
     assert 2 <= int(out.stdout.split()[-1]) < 8  # the 8 SETs rode fewer batches than SETs
 
 
-def test_native_kv_store_is_refused_not_replaced():
-    """make_sharded_kv(native=True) names the ROADMAP item and never
-    quietly builds Python stores; the default builds Python stores."""
+def test_native_kv_store_is_refused_not_replaced(monkeypatch):
+    """make_sharded_kv builds native stores over one plane by default and
+    with native=True, Python stores with native=False. With the native
+    apply plane switched off (RABIA_PY_APPLY=1) the default builds Python
+    stores, and native=True raises: it never quietly builds Python stores
+    in place of the native ones asked for."""
     from rabia_tpu_torch.apps import KVStore, make_sharded_kv
+    from rabia_tpu_torch.apps.native_store import NativeKVStore
+    from rabia_tpu_torch.apps.kvstore import StoreError
 
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7.3"):
+    for native in (None, True):
+        sm, machines = make_sharded_kv(4, native=native)
+        assert all(type(m.store) is NativeKVStore for m in machines)
+        assert sm._native_plane is machines[0].store.plane
+    sm, machines = make_sharded_kv(4, native=False)
+    assert all(type(m.store) is KVStore for m in machines)
+    assert sm._native_plane is None
+    monkeypatch.setenv("RABIA_PY_APPLY", "1")
+    with pytest.raises(StoreError, match="statekernel unavailable"):
         make_sharded_kv(4, native=True)
     for native in (None, False):
         sm, machines = make_sharded_kv(4, native=native)
