@@ -7,7 +7,8 @@ Phases (each raises on failure; nothing is caught):
 1. build the CUDA sources of ``rabia_tpu_torch/csrc`` with nvcc (sm_90a),
    one nvcc per source, started together, while g++ builds the native
    host plane of ``rabia_tpu_torch/native`` (transport, codec, host
-   kernel, state kernel, runtime; one g++ a source): the fused-window kernels
+   kernel, state kernel, runtime, WAL kernel, session kernel; one g++ a
+   source): the fused-window kernels
    (replica-major and [T,S,R]), the kv-window kernel (windows that write
    a table in the row form, and in the dictionary form on tables wider
    than 64 slots, with and without the folded decision), the kv-dict
@@ -206,11 +207,36 @@ commands/s, p50/p99 submit-to-settle, V0 openings by reason, each
 replica's planes, the runtime's counters and the launches by kernel with
 their device ms.
 
+Phase 13 (after phase 12, with its own counts) runs the durability plane
+and the gateway at config 3's width, 4096 shards x 5 replicas, over TCP on
+the card's host, beside the card: (a) ``GatewayCluster(5, 4096,
+persistence="wal")`` (the WAL in a temporary directory, group-commit
+fsync; every replica's runtime, tick, codec, store and WAL native), 64
+``RabiaClient`` sessions, 4 waves of one SET on every shard (32-byte
+keys, 64-byte values, one writer a key), the replay of every (client,
+seq) answered from the session cache with no new slot, then every key
+read by ReadIndex through a gateway whose reader is
+``devkv_read_handler`` over a ``MeshEngine(device_store=True)`` on the
+card fed every committed SET (one ``kv_read`` launch a probe round) and
+through a gateway over a replica's native store: byte-equal answers,
+equal to the last acknowledged write; (b) ``RecoveryHarness(5, 4096)``,
+five replica processes on ``WalPersistence``, 20000 keys preloaded,
+replica 1 killed by SIGKILL under load and restarted; every
+acknowledged write reads back through its gateway and equals the answer
+of ``devkv_read_handler(...).read_many`` over a ``MeshEngine`` on the
+card fed the acknowledged writes. It prints acknowledged durable
+writes/s, submit-to-ack and read p50/p99, the WAL's fsyncs, bytes and
+records a fsync with its filesystem, the durable LSN, the probe rounds
+and the ``kv_read`` device ms by CUDA events, the ratio of (a)'s
+writes/s to phase 12 (b)'s runtime decisions/s, and (b)'s restore, WAL
+replay, torn tail, rejoin-under-load and post-rejoin goodput.
+
 Phases 3-5, 7, 8 and 9's lanes also run on the CPU at a small size
 (tests/test_torch_slice.py), phase 10 at config 2's shape
 (tests/test_torch_engine_conformance.py), phase 11 at a small size
-(tests/test_torch_apps_engine.py) and phase 12 at a small size
-(tests/test_torch_native_conformance.py).
+(tests/test_torch_apps_engine.py), phase 12 at a small size
+(tests/test_torch_native_conformance.py) and phase 13 (a) at 3 x 8
+(tests/test_torch_gateway.py).
 """
 
 from __future__ import annotations
@@ -236,6 +262,7 @@ from rabia_tpu_torch.apps.kvstore import (
     KVOperation,
     KVStoreSMR,
     decode_kv_response,
+    decode_result_bin,
     encode_op_bin,
     encode_set_bin,
     shard_for_key,
@@ -244,6 +271,7 @@ from rabia_tpu_torch.apps.sharded import ShardedKVService, ShardedStateMachine, 
 from rabia_tpu_torch.apps.vector_kv import VectorKVStore, VectorShardedKV
 from rabia_tpu_torch.core.blocks import build_block
 from rabia_tpu_torch.core.errors import RabiaError
+from rabia_tpu_torch.core.messages import ResultStatus, Submit
 from rabia_tpu_torch.core.config import BatchConfig, RabiaConfig, TcpNetworkConfig
 from rabia_tpu_torch.core.network import ClusterConfig
 from rabia_tpu_torch.core.oracle import WeakMVCOracle
@@ -253,6 +281,12 @@ from rabia_tpu_torch.core.smr import SMRBridge
 from rabia_tpu_torch.core.types import ABSENT, V0, V1, Command, CommandBatch, NodeId, quorum_size
 from rabia_tpu_torch.engine import RabiaEngine
 from rabia_tpu_torch.engine.leader import slot_proposer_vec
+from rabia_tpu_torch.gateway import (
+    GatewayConfig,
+    GatewayServer,
+    RabiaClient,
+    devkv_read_handler,
+)
 from rabia_tpu_torch.kernel import (
     cluster_round,
     cuda_build,
@@ -267,6 +301,8 @@ from rabia_tpu_torch.net import InMemoryHub, TcpNetwork
 from rabia_tpu_torch.persistence import FileSystemPersistence
 from rabia_tpu_torch.testing.conformance import run_schedule_on_both_planes, settle_quantiles
 from rabia_tpu_torch.testing.fault_injection import ConsensusTestHarness, Fault, FaultType
+from rabia_tpu_torch.testing.gateway_cluster import GatewayCluster
+from rabia_tpu_torch.testing.recovery import RecoveryHarness
 
 S_FULL, R_FULL, T_FULL = 4096, 5, 32768  # BASELINE.json config 3 geometry, bench.py depth
 T_SCAN = 8192  # bench.py's depth for the scanned protocol (slot_pipeline)
@@ -308,7 +344,15 @@ CFG5_S, CFG5_R, CFG5_CAPACITY = 16384, 5, 1 << 18
 CFG5_ZIPF_S, CFG5_DRAWS, CFG5_KEYS, CFG5_MAX_CMDS = 1.2, 30000, 99999, 32
 CFG6_S, CFG6_R = 4096, 5
 PUMP_S = 8.0  # the block pump's seconds in each leg
-NATIVE_LIBS = ("transport", "codec", "hostkernel", "statekernel", "runtime")
+NATIVE_LIBS = ("transport", "codec", "hostkernel", "statekernel", "runtime", "walkernel",
+               "sessionkernel")
+# phase 13: the durability plane and the gateway at config 3's width (4096
+# shards x 5 replicas): 64 client sessions, 4 waves of one SET a shard
+# (32-byte keys, 64-byte values); the kill -9 trial preloads
+# benchmarks/recovery_bench.py's 100x point (RB_BASE_KEYS 200 x 100)
+P13_SESSIONS, P13_WAVES, P13_KEY, P13_VAL = 64, 4, 32, 64
+P13_PRELOAD = 20000
+P13_LOAD_RATE = 50.0  # the load generator's SETs a second (the trial's)
 # int32 operations/s of an H100 SXM: 132 SMs x 64 INT32 lanes x 1.98 GHz
 # (the Hopper white paper's per-SM unit count and the SXM boost clock)
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
@@ -2779,13 +2823,21 @@ def _vector_rows(sm) -> tuple[dict, np.ndarray]:
 
 
 def _device_feed(device, S: int, R: int, streams: list) -> tuple[dict, dict]:
+    """:func:`_device_feed_engine` without the engine."""
+    table, stats, _eng = _device_feed_engine(device, S, R, streams, "12")
+    return table, stats
+
+
+def _device_feed_engine(device, S: int, R: int, streams: list,
+                        phase: str) -> tuple[dict, dict, MeshEngine]:
     """Feed each shard's committed SETs, in committed order, to a
     ``MeshEngine(device_store=True)`` on the card (the reference
     ``DeviceKVTable``'s defaults: 64 slots a shard, 32-byte keys, 64-byte
     values) as full-width blocks of one op a shard: block j carries every
     shard's j-th SET, and a GET of the shard's first key where its stream
     has ended (a read leaves the table as it is). Returns the device
-    table as {(shard, key): (value, version)} and what the feed took."""
+    table as {(shard, key): (value, version)}, what the feed took and the
+    engine."""
     eng = MeshEngine(lambda: VectorShardedKV(S, capacity=CFG5_CAPACITY), S, R, window=16,
                      device=device, device_store=True,
                      device_store_kw={"per_shard_capacity": P_FULL})
@@ -2816,18 +2868,18 @@ def _device_feed(device, S: int, R: int, streams: list) -> tuple[dict, dict]:
         dev_ms[tag] = dev_ms.get(tag, 0.0) + a.elapsed_time(b)
     if on_card:
         _check(set(dev_ms) == set(launched) and len(timed) == sum(launched.values()),
-               f"phase 12: the feed's launches {launched} were not all timed ({len(timed)})")
-    _check(eng.device_lane_active, "phase 12: the device lane was demoted")
+               f"phase {phase}: the feed's launches {launched} were not all timed ({len(timed)})")
+    _check(eng.device_lane_active, f"phase {phase}: the device lane was demoted")
     for f in futs:  # a filler GET may find nothing; no op may fail
         _check(all(decode_kv_response(fr[0]).kind.value != "error" for fr in f.result()),
-               "phase 12: a device lane op failed")
+               f"phase {phase}: a device lane op failed")
     d = eng._dev.dump()
     table = {(int(s), bytes(k[:kl])): (bytes(v[:vl]), int(ver))
              for s, k, kl, v, vl, ver in zip(d["shard"], d["key"], d["key_len"], d["value"],
                                              d["value_len"], d["version"])}
     return table, {"blocks": n, "device_feed_s": feed_s, "device_table_entries": len(table),
                    "launches_by_kernel": launched,
-                   "device_ms_by_kernel": dev_ms if on_card else "not measured (CPU)"}
+                   "device_ms_by_kernel": dev_ms if on_card else "not measured (CPU)"}, eng
 
 
 def _op_key(op: bytes) -> bytes:
@@ -3019,6 +3071,371 @@ def tcp_config6(device, S: int = CFG6_S, R: int = CFG6_R, dur: float = PUMP_S) -
         out[leg] = stats
     out.update(shards=S, replicas=R)
     return out
+
+
+# ---- phase 13: the durability plane and the gateway -----------------------
+
+def _p13_key(s: int, tag: str = "g") -> str:
+    """A 32-byte key of shard s (one writer: the session that owns s)."""
+    return f"{tag}{s:07d}".ljust(P13_KEY, "k")
+
+
+def _p13_val(w: int, s: int) -> str:
+    return f"w{w}s{s}".ljust(P13_VAL, "v")
+
+
+def _fs_type(path: str) -> str:
+    """The filesystem type of the mount that holds ``path``
+    (``/proc/mounts``), for the fsync figures."""
+    path = os.path.realpath(path)
+    best, kind = "", "unknown"
+    try:
+        with open("/proc/mounts") as f:
+            for line in f:
+                parts = line.split()
+                if len(parts) >= 3 and path.startswith(parts[1]) and len(parts[1]) > len(best):
+                    best, kind = parts[1], parts[2]
+    except OSError:
+        pass
+    return f"{kind} at {best or '?'}"
+
+
+_P13_PLANES = {"runtime": "native", "tick": "native", "codec": "native", "apply": "native",
+               "wal": "native"}
+
+
+def _p13_check_planes(planes: list, what: str) -> None:
+    for i, p in enumerate(planes):
+        for k, v in _P13_PLANES.items():
+            _check(p.get(k) == v, f"phase 13 {what}: replica {i} runs {k} {p.get(k)}, not {v}")
+
+
+def _wal_totals(engines) -> dict:
+    tot: dict = {}
+    for e in engines:
+        for k, v in e._wal.counters_dict().items():
+            tot[k] = tot.get(k, 0) + int(v)
+    return tot
+
+
+async def _committed_slots(engines) -> list:
+    return [(await e.get_statistics()).committed_slots for e in engines]
+
+
+async def _p13_reads(clients, items: list, lat: list) -> list:
+    """Every (shard, key) of ``items`` read by ReadIndex, the items dealt
+    to the sessions in turn, each session reading its share in order."""
+    out: list = [None] * len(items)
+
+    async def one(ci: int) -> None:
+        c = clients[ci]
+        for i in range(ci, len(items), len(clients)):
+            s, k = items[i]
+            t = time.perf_counter()
+            out[i] = await c.get(s, k)
+            lat.append(time.perf_counter() - t)
+
+    await asyncio.gather(*(one(ci) for ci in range(len(clients))))
+    return out
+
+
+async def durable_gateway_run(device, S: int = S_FULL, R: int = R_FULL, waves: int = P13_WAVES,
+                              sessions: int = P13_SESSIONS) -> dict:
+    """Phase 13 (a): a durable gateway cluster (``GatewayCluster(R, S,
+    persistence="wal")``, every replica's runtime, tick, codec, store and
+    WAL native, TCP on 127.0.0.1, group-commit fsync into a temporary
+    directory) under ``sessions`` ``RabiaClient`` sessions: ``waves``
+    waves of one SET on every shard (32-byte keys, 64-byte values, shard s
+    written only by session s % sessions), every ack checked; then the
+    replay of every (client, seq), answered CACHED from the session table
+    with the original bytes and no new decided slot; then every key read
+    by ReadIndex through a gateway whose reader is ``devkv_read_handler``
+    over a ``MeshEngine(device_store=True)`` on ``device`` fed every
+    committed SET, and through a gateway over a replica's native store
+    (``kv_read_handler``): both answers byte-equal and equal to the last
+    acknowledged value and version. The engine, the gateways and the
+    ``MeshEngine`` run on this one event-loop thread."""
+    # result caches kept for the replay: no session GC inside the phase
+    gw_cfg = GatewayConfig(gc_interval=3600.0)
+    cluster = GatewayCluster(R, S, config=_tcp_config(S), gateway_config=gw_cfg,
+                             persistence="wal")
+    await cluster.start(quorum_wait=120.0)
+    clients: list = []
+    devgw = None
+    try:
+        planes = [e.health()["planes"] for e in cluster.engines]
+        _p13_check_planes(planes, "(a)")
+        eps = cluster.endpoints()
+        clients = [RabiaClient([eps[i % R]], call_timeout=120.0) for i in range(sessions)]
+        for c in clients:
+            await c.connect()
+        logs: list = [[] for _ in clients]  # (seq, shard, commands, response)
+        lat: list = []
+        wal0 = _wal_totals(cluster.engines)
+        slots0 = await _committed_slots(cluster.engines)
+
+        async def writer(ci: int, w: int) -> None:
+            c = clients[ci]
+            for s in range(ci, S, sessions):
+                cmds = [encode_set_bin(_p13_key(s), _p13_val(w, s))]
+                t = time.perf_counter()
+                resp = await c.submit(s, cmds)
+                lat.append(time.perf_counter() - t)
+                _check(decode_kv_response(resp[0]).ok, f"phase 13 (a): SET on shard {s} failed")
+                logs[ci].append((c._seq, s, cmds, resp))  # sessions submit in order
+
+        t0 = time.perf_counter()
+        for w in range(waves):
+            await asyncio.gather(*(writer(ci, w) for ci in range(sessions)))
+        write_s = time.perf_counter() - t0
+        wal1 = _wal_totals(cluster.engines)
+        durable = [int(e._wal.durable_lsn()) for e in cluster.engines]
+        acked = sum(len(lg) for lg in logs)
+        _check(acked == waves * S, f"phase 13 (a): {acked} acks, not {waves * S}")
+
+        # the replay: every (client, seq) again, from the session cache
+        slots1 = await _committed_slots(cluster.engines)
+
+        async def replay(ci: int) -> int:
+            c, n = clients[ci], 0
+            for seq, s, cmds, resp in logs[ci]:
+                res = await c._call(seq, Submit(client_id=c.client_id, seq=seq, shard=s,
+                                                commands=tuple(cmds), ack_upto=c._ack_upto))
+                _check(res.status == ResultStatus.CACHED and list(res.payload) == resp,
+                       f"phase 13 (a): replay of ({ci}, {seq}) not answered from the cache")
+                n += 1
+            return n
+
+        t0 = time.perf_counter()
+        replayed = sum(await asyncio.gather(*(replay(ci) for ci in range(sessions))))
+        replay_s = time.perf_counter() - t0
+        await asyncio.sleep(0.5)
+        slots2 = await _committed_slots(cluster.engines)
+        _check(slots2 == slots1, f"phase 13 (a): the replay decided new slots {slots1} -> {slots2}")
+
+        # the device table: every committed SET of each shard, in order
+        streams = [[encode_set_bin(_p13_key(s), _p13_val(w, s)) for w in range(waves)]
+                   for s in range(S)]
+        table, feed, mesh = _device_feed_engine(device, S, R, streams, "13 (a)")
+        want = {(s, _p13_key(s).encode()): (_p13_val(waves - 1, s).encode(), waves)
+                for s in range(S)}
+        _check(table == want, "phase 13 (a): the device table differs from the acked writes")
+        devgw = GatewayServer(cluster.engines[0], reader=devkv_read_handler(mesh),
+                              config=GatewayConfig(gc_interval=3600.0))
+        await devgw.start()
+        for g in cluster.gateways:
+            devgw.add_peer_gateway(g.node_id, "127.0.0.1", g.port)
+            g.add_peer_gateway(devgw.node_id, "127.0.0.1", devgw.port)
+        items = [(s, _p13_key(s).encode()) for s in range(S)]
+        on_card = torch.device(device).type == "cuda"
+        dev_clients = [RabiaClient([devgw.endpoint], call_timeout=120.0) for _ in range(sessions)]
+        host_clients = [RabiaClient([eps[1 % R]], call_timeout=120.0) for _ in range(sessions)]
+        for c in dev_clients + host_clients:
+            await c.connect()
+        clients += dev_clients + host_clients
+        kv_window.KV_WINDOW.events = [] if on_card else None
+        n0 = _kernel_counts()
+        rounds0 = devgw.stats.probe_rounds
+        dev_lat: list = []
+        try:
+            t0 = time.perf_counter()
+            dev_ans = await _p13_reads(dev_clients, items, dev_lat)
+            dev_read_s = time.perf_counter() - t0
+            timed = [(_KV_FORM_KERNEL[f], a, b) for f, a, b in kv_window.KV_WINDOW.events or ()]
+        finally:
+            kv_window.KV_WINDOW.events = None
+        kvr = _kernel_counts()["kv_read"] - n0["kv_read"]
+        rounds = devgw.stats.probe_rounds - rounds0
+        kvr_ms = sum(a.elapsed_time(b) for k, a, b in timed if k == "kv_read") if on_card else None
+        host_lat: list = []
+        t0 = time.perf_counter()
+        host_ans = await _p13_reads(host_clients, items, host_lat)
+        host_read_s = time.perf_counter() - t0
+        equal = 0
+        for (s, k), a, b in zip(items, dev_ans, host_ans):
+            r = decode_result_bin(a)
+            _check(a == b, f"phase 13 (a): shard {s}: device and host answers differ")
+            _check(r.value == _p13_val(waves - 1, s) and r.version == waves,
+                   f"phase 13 (a): shard {s} reads {r}, not the last acked write")
+            equal += 1
+        # a probe round's covered reads are one read_many (one kv_read
+        # launch); reads waiting for the replica's apply go per shard
+        if on_card:
+            _check(0 < kvr <= rounds + S - devgw.stats.reads_batched,
+                   f"phase 13 (a): {kvr} kv_read launches for {rounds} probe rounds")
+        _check(devgw.stats.reads >= S and devgw.stats.reads_failed == 0,
+               f"phase 13 (a): the device reader served {devgw.stats.reads} reads, "
+               f"{devgw.stats.reads_failed} failed")
+        wp50, wp99 = settle_quantiles(lat)
+        rp50, rp99 = settle_quantiles(dev_lat)
+        hp50, hp99 = settle_quantiles(host_lat)
+        fsyncs = wal1.get("fsyncs", 0) - wal0.get("fsyncs", 0)
+        recs = wal1.get("group_records", 0) - wal0.get("group_records", 0)
+        return {
+            "shards": S, "replicas": R, "sessions": sessions, "waves": waves,
+            "acked_writes": acked, "write_s": write_s, "writes_per_s": acked / write_s,
+            "submit_ack_p50_s": wp50, "submit_ack_p99_s": wp99,
+            "decided_slots": [b - a for a, b in zip(slots0, slots1)],
+            "wal_fsyncs": fsyncs,
+            "wal_bytes": wal1.get("flush_bytes", 0) - wal0.get("flush_bytes", 0),
+            "wal_records": recs,
+            "wal_records_per_fsync": recs / fsyncs if fsyncs else None,
+            "wal_fsync_s": (wal1.get("fsync_ns", 0) - wal0.get("fsync_ns", 0)) / 1e9,
+            "durable_lsn": min(durable), "durable_lsn_by_replica": durable,
+            "wal_fs": _fs_type(cluster.wal_dir),
+            "replayed_from_cache": replayed, "replay_s": replay_s,
+            "reads_equal": equal, "probe_rounds": rounds, "kv_read_launches": kvr,
+            "reads_batched": devgw.stats.reads_batched,
+            "kv_read_device_ms": kvr_ms if on_card else "not measured (CPU)",
+            "devkv_read_s": dev_read_s, "devkv_read_p50_s": rp50, "devkv_read_p99_s": rp99,
+            "host_read_s": host_read_s, "host_read_p50_s": hp50, "host_read_p99_s": hp99,
+            "planes": planes[0], **{f"feed_{k}": v for k, v in feed.items()},
+        }
+    finally:
+        for c in clients:
+            await c.close()
+        if devgw is not None:
+            await devgw.close()
+        await cluster.stop()
+        import shutil
+
+        shutil.rmtree(cluster.wal_dir, ignore_errors=True)
+
+
+async def _recovery_trial(device, S: int, R: int, preload: int, kill: int) -> dict:
+    h = RecoveryHarness(R, S)
+    loop = asyncio.get_running_loop()
+    clients: list = []
+    try:
+        t0 = time.perf_counter()
+        ready = await loop.run_in_executor(None, lambda: h.start(timeout=600.0))
+        start_s = time.perf_counter() - t0
+        _p13_check_planes([r["planes"] for r in ready], "(b)")
+        eps = h.endpoints()
+        acked: dict = {}  # shard -> [SET ops in ack order]
+        clients = [RabiaClient([eps[i % R]], call_timeout=120.0) for i in range(16)]
+        for c in clients:
+            await c.connect()
+        by_shard: dict = {}
+        for k in range(preload):
+            by_shard.setdefault(k % S, []).append(
+                encode_set_bin(_p13_key(k, "p"), _p13_val(0, k)))
+        shard_list = sorted(by_shard)
+
+        async def preloader(ci: int) -> None:
+            c = clients[ci]
+            for s in shard_list[ci::len(clients)]:
+                resp = await c.submit(s, by_shard[s])
+                _check(all(decode_kv_response(x).ok for x in resp),
+                       f"phase 13 (b): preload of shard {s} failed")
+                acked.setdefault(s, []).extend(by_shard[s])
+
+        t0 = time.perf_counter()
+        await asyncio.gather(*(preloader(ci) for ci in range(len(clients))))
+        preload_s = time.perf_counter() - t0
+
+        survivors = [eps[j] for j in range(R) if j != kill]
+        load_cli = RabiaClient(survivors, call_timeout=120.0)
+        await load_cli.connect()
+        clients.append(load_cli)
+        stop = asyncio.Event()
+        load_ok = [0]
+
+        async def loadgen() -> None:
+            k = 0
+            while not stop.is_set():
+                s = k % S
+                op = encode_set_bin(_p13_key(k, "l"), _p13_val(1, k))
+                resp = await load_cli.submit(s, [op])
+                _check(decode_kv_response(resp[0]).ok, "phase 13 (b): a load SET failed")
+                acked.setdefault(s, []).append(op)
+                load_ok[0] += 1
+                k += 1
+                await asyncio.sleep(1.0 / P13_LOAD_RATE)
+
+        load_task = asyncio.ensure_future(loadgen())
+        await asyncio.sleep(0.5)
+        h.kill9(kill)
+        await asyncio.sleep(1.0)  # decided waves the dead replica misses
+        t_restart = time.perf_counter()
+        report = await loop.run_in_executor(None, lambda: h.restart(kill, 600.0))
+        ready_s = time.perf_counter() - t_restart
+        _p13_check_planes([report["planes"]], "(b) restarted")
+        rejoin_cli = RabiaClient([h.endpoints()[kill]], call_timeout=120.0)
+        await rejoin_cli.connect()
+        clients.append(rejoin_cli)
+        probe = encode_set_bin(_p13_key(0, "r"), _p13_val(2, 0))
+        resp = await rejoin_cli.submit(0, [probe])
+        _check(decode_kv_response(resp[0]).ok, "phase 13 (b): the restarted replica's SET failed")
+        acked.setdefault(0, []).append(probe)
+        rejoin_s = time.perf_counter() - t_restart
+        before = load_ok[0]
+        await asyncio.sleep(1.0)
+        goodput = load_ok[0] - before
+        stop.set()
+        await load_task
+        _check(goodput > 0, "phase 13 (b): no goodput after the rejoin")
+
+        # every acked write read back through the restarted replica's gateway
+        last: dict = {}
+        for s, ops in acked.items():
+            for op in ops:
+                last[(s, _op_key(op))] = op
+        items = sorted(last)
+        readers = [RabiaClient([h.endpoints()[kill]], call_timeout=120.0) for _ in range(32)]
+        for c in readers:
+            await c.connect()
+        clients += readers
+        lat: list = []
+        t0 = time.perf_counter()
+        answers = await _p13_reads(readers, items, lat)
+        read_s = time.perf_counter() - t0
+        table, feed, mesh = _device_feed_engine(
+            device, S, R, [acked.get(s, []) for s in range(S)], "13 (b)")
+        dev_answers = devkv_read_handler(mesh).read_many(items)
+        for (s, k), a, d in zip(items, answers, dev_answers):
+            op = last[(s, k)]
+            r = decode_result_bin(a)
+            _check(r.ok and r.value.encode() == op[3 + len(k):],
+                   f"phase 13 (b): shard {s} key {k!r} reads {r} after the restart")
+            _check(a == d, f"phase 13 (b): shard {s} key {k!r}: gateway and device table differ")
+        rec = report.get("recovery") or {}
+        p50, p99 = settle_quantiles(lat)
+        return {
+            "shards": S, "replicas": R, "preload_keys": preload, "killed": kill,
+            "start_s": start_s, "preload_s": preload_s,
+            "snapshot_restore_s": rec.get("snapshot_restore_s"),
+            "wal_replay_s": rec.get("wal_replay_s"), "waves_replayed": rec.get("waves_replayed"),
+            "wal_records": rec.get("wal_records"), "chain_files": rec.get("chain_files"),
+            "torn": rec.get("torn"), "process_ready_s": ready_s, "rejoin_under_load_s": rejoin_s,
+            "post_rejoin_goodput_per_s": goodput, "load_acked": load_ok[0],
+            "reads": len(items), "read_s": read_s, "read_p50_s": p50, "read_p99_s": p99,
+            "wal_fs": _fs_type(h.wal_root), **{f"feed_{k}": v for k, v in feed.items()},
+        }
+    finally:
+        for c in clients:
+            await c.close()
+        h.stop()
+        import shutil
+
+        shutil.rmtree(h.wal_root, ignore_errors=True)
+
+
+def recovery_run(device, S: int = S_FULL, R: int = R_FULL, preload: int = P13_PRELOAD,
+                 kill: int = 1) -> dict:
+    """Phase 13 (b): kill -9 and recovery at the same shape.
+    ``RecoveryHarness(R, S)``: R replica processes on ``WalPersistence``,
+    each behind its gateway (every plane native); ``preload`` keys with
+    64-byte values sent as concurrent multi-op submits (one a shard);
+    replica ``kill`` killed by SIGKILL under a load generator's traffic
+    on the survivors, restarted, and timed (snapshot restore, WAL replay,
+    rejoin under load, goodput after the rejoin). Every acknowledged
+    write reads back by ReadIndex through the restarted replica's
+    gateway, and equals ``devkv_read_handler(...).read_many`` over a
+    ``MeshEngine(device_store=True)`` on ``device`` fed the acknowledged
+    writes in order. The children are host replicas, spawned as new
+    interpreters (never forked from this process, which holds the card)."""
+    return asyncio.run(_recovery_trial(device, S, R, preload, kill))
 
 
 
@@ -3295,6 +3712,50 @@ def main() -> int:
           f"{tcp6['runtime']['decisions_per_s']:.1f} / {tcp6['asyncio']['decisions_per_s']:.1f}; "
           f"{where}; {json.dumps(tcp6)}")
     print(f"phase 12 path: launches by kernel {json.dumps(p12)}, {t12:.2f} s")
+
+    # ---- phase 13, the durability plane and the gateway at config 3's
+    # width, beside the card: its own path, counts reset just before and
+    # read just after ----
+    _reset_counts()
+    gc.collect()
+    gc.freeze()
+    t13 = time.perf_counter()
+    gw13 = asyncio.run(durable_gateway_run(device))
+    t13a = time.perf_counter() - t13
+    rec13 = recovery_run(device)
+    p13 = _kernel_counts()
+    t13 = time.perf_counter() - t13
+    gc.unfreeze()
+    _check(p13["kv_read"] > 0, "phase 13 never launched the kv-read kernel")
+    _check(p13["kv_dict"] > 0, "phase 13 never launched the kv-dict kernel")
+    durable_cost = gw13["writes_per_s"] / tcp6["runtime"]["decisions_per_s"]
+    print(f"phase 13 (a) durable gateway cluster, kvstore_smr (native store) {R_FULL} replicas x "
+          f"{S_FULL} shards over TCP (127.0.0.1), WalPersistence with group-commit fsync "
+          f"(WAL on {gw13['wal_fs']}), {P13_SESSIONS} RabiaClient sessions, {P13_WAVES} waves of "
+          f"one SET a shard ({P13_KEY}-byte keys, {P13_VAL}-byte values; cut: none): "
+          f"{gw13['writes_per_s']:.1f} acknowledged durable writes/s, submit-to-ack p50 "
+          f"{gw13['submit_ack_p50_s']:.4f} s p99 {gw13['submit_ack_p99_s']:.4f} s; "
+          f"{gw13['wal_fsyncs']} fsyncs, {gw13['wal_bytes']} bytes, "
+          f"{gw13['wal_records_per_fsync']} records a fsync, durable LSN {gw13['durable_lsn']}; "
+          f"replay of every (client, seq): {gw13['replayed_from_cache']} answered from the "
+          f"session cache, no new slot; ReadIndex reads of every key through "
+          f"devkv_read_handler over MeshEngine(device_store=True) on the card and through "
+          f"kv_read_handler over a replica's store: {gw13['reads_equal']} equal, "
+          f"{gw13['probe_rounds']} probe rounds, {gw13['kv_read_launches']} kv_read launches, "
+          f"{gw13['kv_read_device_ms']} device ms (CUDA events), read p50 "
+          f"{gw13['devkv_read_p50_s']:.4f} s p99 {gw13['devkv_read_p99_s']:.4f} s; durable "
+          f"writes/s over phase 12 (b)'s runtime decisions/s {durable_cost:.4f}; {t13a:.2f} s; "
+          f"{where}; {json.dumps(gw13)}")
+    print(f"phase 13 (b) kill -9 and recovery, {R_FULL} replica processes x {S_FULL} shards on "
+          f"WalPersistence (WAL on {rec13['wal_fs']}), {P13_PRELOAD} keys preloaded (cut: none), "
+          f"replica {rec13['killed']} killed under load and restarted: snapshot_restore_s "
+          f"{rec13['snapshot_restore_s']}, wal_replay_s {rec13['wal_replay_s']}, waves_replayed "
+          f"{rec13['waves_replayed']}, torn {rec13['torn']}, rejoin_under_load_s "
+          f"{rec13['rejoin_under_load_s']:.3f}, post-rejoin goodput "
+          f"{rec13['post_rejoin_goodput_per_s']}/s; every acknowledged write ({rec13['reads']}) "
+          f"read back through the restarted gateway equals the device table's answer; {where}; "
+          f"{json.dumps(rec13)}")
+    print(f"phase 13 path: launches by kernel {json.dumps(p13)}, {t13:.2f} s")
 
     q = quorum_size(R_FULL)
     votes = bufs[0]
@@ -3800,7 +4261,8 @@ def main() -> int:
         "route": "cuda",
         "source": "rabia_tpu_torch/csrc/kv_window.cu",
         "replaces": "rabia_tpu/apps/device_kv.py:1218",
-        "launches": kv_counts["rows+decide"] + p12["kv_window"],  # and phase 12's
+        # and phases 12 and 13's
+        "launches": kv_counts["rows+decide"] + p12["kv_window"] + p13["kv_window"],
         "max_abs_err": max(err6, err6_fold, fold_err, err9),
         "ms": fold_ms,  # with the decision folded in, as the device lane launches it
         "plain_ms": fold_plain_ms,
@@ -3812,8 +4274,9 @@ def main() -> int:
         "route": "cuda",
         "source": "rabia_tpu_torch/csrc/kv_dict.cu",
         "replaces": "rabia_tpu/apps/device_kv.py:1003",
-        # and phases 11 (c) and 12
-        "launches": kv_counts["dict"] + kv_counts["dict+decide"] + p11_dict + p12["kv_dict"],
+        # and phases 11 (c), 12 and 13
+        "launches": (kv_counts["dict"] + kv_counts["dict+decide"] + p11_dict + p12["kv_dict"]
+                     + p13["kv_dict"]),
         "max_abs_err": max(err8, dict_err, err9),
         "ms": dict_ms,  # SET window with the decision, D = W = 16 (phase 7's fill stream)
         "plain_ms": dict_plain_ms,
@@ -3827,7 +4290,8 @@ def main() -> int:
         "route": "cuda",
         "source": "rabia_tpu_torch/csrc/kv_read.cu",
         "replaces": "rabia_tpu/apps/device_kv.py:850",
-        "launches": kv_counts["probe dict"] + kv_counts["probe rows"],
+        # and phase 13's, the gateway's ReadIndex reads (one a probe round)
+        "launches": kv_counts["probe dict"] + kv_counts["probe rows"] + p13["kv_read"],
         "max_abs_err": max(err8, probe_err, read_err, err9),
         "ms": probe_ms,
         "plain_ms": probe_plain_ms,
@@ -3851,8 +4315,8 @@ def main() -> int:
         "route": "cuda",
         "source": "rabia_tpu_torch/csrc/mesh_window.cu",
         "replaces": "rabia_tpu/parallel/mesh.py:353",
-        # the main path's, phases 10, 11 and 12
-        "launches": mesh_launches + p10_mesh + p11_mesh + p12["mesh_window"],
+        # the main path's, phases 10, 11, 12 and 13
+        "launches": mesh_launches + p10_mesh + p11_mesh + p12["mesh_window"] + p13["mesh_window"],
         "max_abs_err": max(err2b, mw_err, err9),
         "ms": mw_ms,
         "plain_ms": mw_plain_ms,

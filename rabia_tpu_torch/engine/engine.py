@@ -15,10 +15,12 @@ helpers and tick context (``native/hostkernel.cpp``, ``_hk_lib`` and
 serializer's ``_binary._native``) and, on a TCP cluster with a native store and no
 persistence, the GIL-free runtime (``_rtm``; ``RABIA_PY_RUNTIME=1`` forces
 the asyncio orchestration). The Python paths stay the semantics owners;
-``health()["planes"]`` says which paths run. Not ported: the reference's
-``backend="jax"`` (its node kernel on the device, ROADMAP Queue 1 item 8),
-which the constructor refuses, and the WAL of the durability plane
-(``_wal`` stays None).
+``health()["planes"]`` says which paths run. With a WAL persistence layer
+(``persistence/native_wal.WalPersistence``) decided waves stage into the
+log, recovery runs at ``initialize()``, and the runtime engages when the
+WAL's writer is native. Not ported: the reference's ``backend="jax"``
+(its node kernel on the device, ROADMAP Queue 1 item 8), which the
+constructor refuses.
 
 Hot-path design (SURVEY.md §7.4.4): everything per-round is **columnar** —
 vote vectors arrive as numpy arrays (:class:`~rabia_tpu_torch.core.messages.
@@ -451,19 +453,28 @@ class RabiaEngine:
             from rabia_tpu_torch.engine.native_tick import NativeTick
 
             self._rk = NativeTick(self, self._hk_lib)
-        # the durability plane's WAL (the reference's walkernel.cpp and
-        # persistence/native_wal.py) is not ported yet (ROADMAP Queue 1):
-        # no persistence layer of the port is a WAL
-        self._wal = None
         # native engine runtime (native/runtime.cpp): a GIL-free io/tick
         # thread runs ingest→route→tally→decide→apply→result end to end
-        # for TCP clusters with a native store and no persistence; Python
-        # is the control plane (engine/runtime_bridge.py).
-        # RABIA_PY_RUNTIME=1 forces the asyncio orchestration, which stays
-        # the semantics owner (testing.conformance.
-        # run_schedule_on_runtime_paths).
+        # for TCP clusters with a native store and no persistence or a
+        # native WAL; Python is the control plane
+        # (engine/runtime_bridge.py). RABIA_PY_RUNTIME=1 forces the
+        # asyncio orchestration, which stays the semantics owner
+        # (testing.conformance.run_schedule_on_runtime_paths).
+        # durability plane (persistence/native_wal.py): when the
+        # persistence layer is a WAL, decided waves stage into it from
+        # the apply paths and the vote barrier rides its group-commit
+        # lane — which is what lets the native runtime engage on a
+        # durable cluster
+        self._wal = (
+            persistence
+            if getattr(persistence, "supports_wal", False)
+            else None
+        )
         self._rtm = None
-        if self._rk is not None and persistence is None:
+        if self._rk is not None and (
+            persistence is None
+            or (self._wal is not None and getattr(self._wal, "native", False))
+        ):
             from rabia_tpu_torch.engine.runtime_bridge import (
                 RuntimeBridge,
                 runtime_available,
@@ -764,6 +775,7 @@ class RabiaEngine:
             fn=lambda: self._slow_ticks,
         )
         self._syncs = 0
+        self._payload_wait: Optional[tuple[int, int]] = None
         m.counter(
             "engine_syncs_total", "Snapshot syncs initiated",
             fn=lambda: self._syncs,
@@ -938,6 +950,77 @@ class RabiaEngine:
                             else 0.0
                         ),
                     )
+        # -- durability plane (walkernel WLC counter block / Python twin
+        #    tallies — persistence/native_wal.py), when the persistence
+        #    layer is a WAL --------------------------------------------
+        wal = self._wal
+        if wal is not None:
+            from rabia_tpu_torch.persistence.native_wal import WAL_COUNTER_NAMES
+
+            m.gauge(
+                "wal_native",
+                "1 when walkernel.cpp owns the WAL writer (0 = the "
+                "RABIA_PY_WAL Python twin)",
+                fn=lambda: 1 if wal.native else 0,
+            )
+            for name in WAL_COUNTER_NAMES:
+                if name == "fsync_ns":
+                    continue  # exported as wal_fsync_seconds_total below
+                m.counter(
+                    f"wal_{name}_total",
+                    "Durability-plane counter (walkernel WLC block)",
+                    fn=lambda r=name: wal.counters_dict().get(r, 0),
+                )
+            m.counter(
+                "wal_fsync_seconds_total",
+                "Cumulative seconds spent in WAL fsync (flush thread)",
+                fn=lambda: wal.counters_dict().get("fsync_ns", 0) / 1e9,
+            )
+            m.gauge(
+                "wal_staged_lsn", "Last staged WAL record LSN",
+                fn=wal.staged_lsn,
+            )
+            m.gauge(
+                "wal_durable_lsn",
+                "Durability watermark: last fsynced WAL record LSN",
+                fn=wal.durable_lsn,
+            )
+            m.counter(
+                "wal_checkpoints_total",
+                "Incremental snapshot checkpoints written",
+                fn=lambda: wal.checkpoints,
+            )
+            m.counter(
+                "wal_barrier_waits_total",
+                "Durability-barrier watermark waits entered",
+                fn=lambda: getattr(wal, "barrier_waits", 0),
+            )
+            m.counter(
+                "wal_barrier_covered_total",
+                "Client Results released by durability-barrier waits "
+                "(covered/waits = the cross-session batching factor)",
+                fn=lambda: getattr(wal, "barrier_covered", 0),
+            )
+            m.counter(
+                "wal_gc_segments_total",
+                "WAL segments garbage-collected below the snapshot frontier",
+                fn=lambda: wal.gc_segments,
+            )
+
+            def wal_hist():
+                h = wal.fsync_hist()
+                if h is None:
+                    return None
+                counts, count, sum_ns = h
+                return counts, count, sum_ns / 1e9
+
+            m.histogram(
+                "wal_fsync_seconds",
+                "WAL fsync latency (group-commit flush thread; native "
+                "WLH block, SLO bucket geometry)",
+                buckets=SLO_BUCKETS,
+                fn=wal_hist,
+            )
         # -- transport (native counter block, when the transport has one)
         tc = getattr(self.transport, "transport_counters", None)
         if callable(tc):
@@ -1310,12 +1393,30 @@ class RabiaEngine:
         vote can sit above the restored ``next_slot`` (cast after the
         last checkpoint), but never at-or-above the persisted barrier."""
         n = self.n_shards
+        return np.maximum(self._own_frontier(), self._frontier_floor[:n])
+
+    def _own_frontier(self) -> np.ndarray:
+        """:meth:`decided_frontier` without the restored barrier's floor."""
+        n = self.n_shards
         rt = self.rt
-        return np.maximum(
+        return (
             np.maximum(rt.next_slot[:n], rt.applied_upto[:n])
-            + rt.in_flight[:n].astype(np.int64),
-            self._frontier_floor[:n],
+            + rt.in_flight[:n].astype(np.int64)
         )
+
+    def frontier_floored(self) -> bool:
+        """True while the restored vote barrier lifts this replica's
+        reported frontier above what it knows on some shard (a restarted
+        replica, until its slots pass the barrier). Its own gateway then
+        takes a read index from a quorum of OTHER replicas
+        (``GatewayServer._run_probe_round``): a write committed by a
+        quorum has at least a quorum less one voters besides this replica,
+        and any quorum of the other replicas meets them, so the index
+        covers it without the floor. With the floor, a shard that saw
+        fewer than the barrier stride's slots since the crash would hold
+        every read of it until traffic passed the barrier."""
+        n = self.n_shards
+        return bool((self._frontier_floor[:n] > self._own_frontier()).any())
 
     def applied_frontier(self) -> np.ndarray:
         """Per-shard count of contiguously applied slots (a copy)."""
@@ -1990,17 +2091,29 @@ class RabiaEngine:
         # of the same block id each register their own handle — bindings
         # index into the exact announced subset, and already-bound shards
         # are skipped here
-        free = (
-            (self._blk_pending_ref[shards] == -1)
-            & (self._cur_blk_ref[shards] == -1)
-            & ~self.rt.prop_flag[shards]
-        )
         # only bind at-or-ahead of our head; behind-head slots are decided
-        # or being decided without the payload (repair rides Propose/sync)
+        # or being decided without the payload (repaired below)
         head = np.maximum(
             self.rt.next_slot[shards], self.rt.applied_upto[shards]
         )
+        # one pending binding a shard; behind a current binding only for
+        # a later slot (the next slot's announce can arrive while this
+        # replica still decides the current one: dropping it would leave
+        # that slot to decide here without its payload)
+        free = (
+            (self._blk_pending_ref[shards] == -1)
+            & ((self._cur_blk_ref[shards] == -1) | (slots > head))
+            & ~self.rt.prop_flag[shards]
+        )
         accept = ok & free & (slots >= head)
+        unbound = ok & ~accept
+        if unbound.any():
+            # decided here before this announce arrived (a peer's
+            # Decision overtook it), or the shard's binding is busy: keep
+            # the payloads for those slots' decisions
+            self._apply_dirty.update(
+                self._repair_from_block(b, np.nonzero(unbound)[0])
+            )
         idxs = np.nonzero(accept)[0]
         if len(idxs) == 0:
             return
@@ -2009,6 +2122,47 @@ class RabiaEngine:
         self._blk_pending_ref[sh_a] = ref
         self._blk_pending_idx[sh_a] = idxs
         self._blk_pending_slot[sh_a] = slots[idxs]
+
+    def _repair_from_block(self, block, idxs=None, stash: bool = True) -> list[int]:
+        """Bind the payloads of ``block`` (its entries ``idxs``, default
+        all) to slots this replica decided V1 without them, and return
+        the shards repaired. The block-lane twin of ``_on_propose``'s
+        late-Propose repair, in place of a snapshot sync for bytes already
+        on hand (which would also overtake this replica's own pending
+        outcomes). With ``stash``, an entry whose slot has no decision
+        yet keeps its payload in ``payloads`` and ``buf_propose`` for the
+        decision to come (the shard's binding was busy when it arrived)."""
+        n = self.n_shards
+        repaired = []
+        for i in range(len(block)) if idxs is None else idxs.tolist():
+            s = int(block.shards[i])
+            slot = int(block.slots[i])
+            if not (0 <= s < n) or slot < 0:
+                continue
+            sh = self.rt.shards[s]
+            rec = sh.decisions.get(slot)
+            if rec is None:
+                if stash and slot >= sh.applied_upto and slot not in sh.buf_propose:
+                    bid = block.batch_id_for(i)
+                    sh.payloads[bid] = block.materialize_batch(i)
+                    sh.buf_propose[slot] = (bid, None)
+                continue
+            if (
+                not rec.applied
+                and rec.value == StateValue.V1
+                and (
+                    rec.batch_id is None
+                    or (
+                        rec.batch_id not in sh.payloads
+                        and rec.batch_id not in sh.applied_ids
+                    )
+                )
+            ):
+                bid = block.batch_id_for(i)
+                sh.payloads[bid] = block.materialize_batch(i)
+                rec.batch_id = bid
+                repaired.append(s)
+        return repaired
 
     def _open_block_slots(self):
         """Vectorized bulk open: every shard whose pending block binding
@@ -2078,10 +2232,21 @@ class RabiaEngine:
                     sh.payloads[bid] = rec.block.materialize_batch(bi)
                     sh.buf_propose.setdefault(int(slots[j]), (bid, None))
                     if rec.out is not None:
-                        rec.out.settle(
-                            bi,
-                            ResponsesUnavailableError("block shard overtaken by sync"),
-                        )
+                        if (
+                            int(vals[j]) == V1
+                            and rt.applied_upto[s] < int(slots[j])
+                        ):
+                            # not overtaken: an earlier slot of the shard
+                            # waits for its payload. The scalar lane applies
+                            # this entry after it and settles the outcome
+                            sh.block_waiters[bid] = (int(slots[j]), rec.out, bi)
+                        else:
+                            rec.out.settle(
+                                bi,
+                                ResponsesUnavailableError(
+                                    "block shard overtaken by sync"
+                                ),
+                            )
                     if rt.applied_upto[s] > int(slots[j]):
                         # the snapshot already covered this slot: the
                         # scalar lane will never apply the demoted batch
@@ -2629,7 +2794,9 @@ class RabiaEngine:
             if sub.forwarded_at and now - sub.forwarded_at < self.config.phase_timeout:
                 rt.head_fwd_at[s] = sub.forwarded_at
                 continue
-            if self._decided_unapplied(sh, sub.batch.id):
+            if self._decided_unapplied(
+                sh, sub.batch.id, unseen_holds=self._rtm is not None
+            ):
                 continue  # committed already: settles when it applies
             sub.forwarded_at = now
             rt.head_fwd_at[s] = now
@@ -2641,11 +2808,17 @@ class RabiaEngine:
             )
 
     @staticmethod
-    def _decided_unapplied(sh, batch_id) -> bool:
+    def _decided_unapplied(sh, batch_id, unseen_holds: bool = False) -> bool:
         """True when a slot of ``sh`` decided V1 but not applied yet may
         hold ``batch_id``: its batch is ``batch_id``, or not known yet (the
         decision landed before its Propose, as on the native runtime,
         where votes decide in C while the Propose escalates to Python).
+        With ``unseen_holds`` (the native runtime) a decided slot whose
+        record has not reached Python yet counts too: the runtime thread
+        moves ``next_slot`` at the decision, and the record follows
+        through its mailbox, so in that window the head's proposer is
+        already the next slot's and a forward or a proposal of the head
+        commits it a second time.
         The dedup ledger (``applied_ids``) learns of a batch only at apply
         (and the apply plane defers slots past its inline budget to its
         drain), so without this a submission still at its queue's head in
@@ -2655,7 +2828,11 @@ class RabiaEngine:
         and first drain chunk, and its runtime gate needs a retry)."""
         for slot in range(sh.applied_upto, sh.next_slot):
             rec = sh.decisions.get(slot)
-            if rec is None or rec.applied or int(rec.value) != V1:
+            if rec is None:
+                if unseen_holds:
+                    return True
+                continue
+            if rec.applied or int(rec.value) != V1:
                 continue
             bid = rec.batch_id
             if bid is None:
@@ -3360,10 +3537,12 @@ class RabiaEngine:
                             del sh.queue[i]
                             self._settle_from_ledger(sh, sub)
                             break
+                    self._settle_block_waiter_from_ledger(sh, rec.batch_id)
                 elif batch is None:
                     # decided V1 but never saw the payload: snapshot sync
-                    # is the recovery path (engine.rs:748-844, §3.3)
-                    self._spawn(self._initiate_sync())
+                    # is the recovery path (engine.rs:748-844, §3.3),
+                    # after the payload's grace
+                    self._sync_for_missing_payload(s, slot)
                     break
                 else:
                     try:
@@ -3531,8 +3710,29 @@ class RabiaEngine:
         else:
             sub.future.set_result(responses)
 
+    @staticmethod
+    def _settle_block_waiter(sh, batch_id, result) -> None:
+        """Settle the block outcome entry waiting on ``batch_id`` (see
+        ``ShardState.block_waiters``), if any."""
+        if sh.block_waiters:
+            w = sh.block_waiters.pop(batch_id, None)
+            if w is not None:
+                w[1].settle(w[2], result)
+
+    def _settle_block_waiter_from_ledger(self, sh, batch_id) -> None:
+        """A waiting block entry whose batch the dedup ledger says is
+        applied: its cached responses, or responses unavailable."""
+        if sh.block_waiters and batch_id in sh.block_waiters:
+            responses = sh.applied_results.get(batch_id)
+            if responses is None:
+                responses = ResponsesUnavailableError(
+                    "batch committed but responses unavailable"
+                )
+            self._settle_block_waiter(sh, batch_id, responses)
+
     def _resolve_local(self, sh, batch: CommandBatch, responses: list[bytes]) -> None:
         """Resolve the submitter future if this batch was queued locally."""
+        self._settle_block_waiter(sh, batch.id, responses)
         for i, sub in enumerate(list(sh.queue)):
             if sub.batch.id == batch.id:
                 self._h_stage["submit_apply"].observe(
@@ -3544,6 +3744,7 @@ class RabiaEngine:
                 break
 
     def _fail_local(self, sh, batch_id, err: Exception) -> None:
+        self._settle_block_waiter(sh, batch_id, err)
         for i, sub in enumerate(list(sh.queue)):
             if sub.batch.id == batch_id:
                 if sub.future is not None and not sub.future.done():
@@ -3665,6 +3866,30 @@ class RabiaEngine:
         rt.last_progress[idxs] = now
 
     # -- sync protocol (engine.rs:748-844) -----------------------------------
+
+    def _sync_for_missing_payload(self, s: int, slot: int) -> None:
+        """Slot ``slot`` of shard ``s`` decided V1 and its payload is not
+        here. Its Propose or block announce is usually still in flight
+        (a peer's Decision can overtake it on a loaded host), and a
+        snapshot sync now would overtake this replica's own pending
+        outcomes with "responses unavailable". So sync only if the slot
+        still waits after a grace of ``min(0.5, phase_timeout / 4)``;
+        one wait at a time, as one sync runs at a time."""
+        if self._payload_wait is not None or self.rt.sync_started_at is not None:
+            return
+        self._payload_wait = (s, slot)
+        grace = min(0.5, self.config.phase_timeout / 4)
+
+        async def later() -> None:
+            try:
+                await asyncio.sleep(grace)
+                rec = self.rt.shards[s].decisions.get(slot)
+                if rec is not None and not rec.applied:
+                    await self._initiate_sync()
+            finally:
+                self._payload_wait = None
+
+        self._spawn(later())
 
     async def _initiate_sync(self) -> None:
         # retry window: a lost SyncRequest/Response must not gate recovery
@@ -3876,6 +4101,14 @@ class RabiaEngine:
                     self._cur_blk_ref[s] = -1
                 if self._blk_pending_slot[s] != -1 and self._blk_pending_slot[s] < applied:
                     self._void_pending_block(s)
+                for bid, (w_slot, _o, _i) in list(sh.block_waiters.items()):
+                    if w_slot < applied:
+                        self._settle_block_waiter(
+                            sh, bid,
+                            ResponsesUnavailableError(
+                                "block shard overtaken by sync"
+                            ),
+                        )
                 self._apply_dirty.add(s)
                 sh.gc_upto(applied)
         # inherit the responder's dedup ledger: batches already applied via

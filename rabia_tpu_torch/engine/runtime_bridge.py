@@ -1,10 +1,17 @@
 """Control-plane bridge to the native engine runtime (native/runtime.cpp).
 
 The port's copy of the reference's ``rabia_tpu/engine/runtime_bridge.py``,
-over the port's own build of ``runtime.cpp``, with two repairs: the split
-into shard groups (:func:`shard_groups`) leaves no group empty, and the
-scalar pump holds back a queue head that a decided slot may already hold
-(``RabiaEngine._decided_unapplied``).
+over the port's own build of ``runtime.cpp``, with these repairs: the
+split into shard groups (:func:`shard_groups`) leaves no group empty; the
+scalar pump holds back a queue head that a decided slot may already hold,
+including a slot the runtime decided whose record is still in the mailbox
+(``RabiaEngine._decided_unapplied(unseen_holds=True)``); a block entry
+that decides above an earlier slot still waiting for its payload waits
+for it (``ShardState.block_waiters``) instead of failing its client as
+overtaken by a sync; and the payloads of a peer's block announce that the
+C binder could not bind (``EV_REPAIR``: its slot decided here first, or
+the shard's binding busy) reach the scalar ledger, so the slot applies
+without a snapshot sync.
 
 When active, a dedicated GIL-free C thread owns the commit path —
 transport ingest -> rk_tick consensus -> statekernel apply -> staged
@@ -55,6 +62,7 @@ EV_WAVE = 3
 EV_REJECT = 4
 EV_STALL = 5
 EV_LEDGER = 6
+EV_REPAIR = 7
 
 CMD_OPEN_SCALAR = 1
 CMD_OPEN_WAVE = 2
@@ -774,7 +782,9 @@ class RuntimeBridge:
                 e._settle_from_ledger(sh, done_sub)
             if not sh.queue:
                 continue
-            if e._decided_unapplied(sh, sh.queue[0].batch.id):
+            if e._decided_unapplied(
+                sh, sh.queue[0].batch.id, unseen_holds=True
+            ):
                 # committed in an earlier slot that has not applied yet:
                 # it settles when it applies (the asyncio owner's
                 # _open_slots guard); proposing it again commits it twice
@@ -1105,6 +1115,10 @@ class RuntimeBridge:
             self._on_stall(int(kind), int(s), int(arg))
         elif t == EV_LEDGER:
             self._on_ledger(rec)
+        elif t == EV_REPAIR:
+            (n,) = struct.unpack_from("<I", rec, 3)
+            idxs = np.frombuffer(rec, "<u4", n, 7).astype(np.int64)
+            self._on_repair_frame(idxs, rec[7 + 4 * n :])
 
     # -- decision / apply handlers ------------------------------------------
 
@@ -1200,12 +1214,12 @@ class RuntimeBridge:
                             del sh.queue[i]
                             e._settle_from_ledger(sh, sub)
                             break
+                    e._settle_block_waiter_from_ledger(sh, rec.batch_id)
                 elif batch is None:
-                    # payload not here yet: wait for the Propose / sync.
-                    # One spawned sync at a time — per-slot spawns under
-                    # a wide adopted backlog measurably tax the loop
-                    if e.rt.sync_started_at is None:
-                        e._spawn(e._initiate_sync())
+                    # payload not here yet: wait for the Propose / sync
+                    # (one wait at a time — per-slot spawns under a wide
+                    # adopted backlog measurably tax the loop)
+                    e._sync_for_missing_payload(s, applied)
                     break
                 else:
                     try:
@@ -1532,14 +1546,22 @@ class RuntimeBridge:
                     sh.payloads[bid] = block.materialize_batch(int(bidx))
                     sh.buf_propose.setdefault(slot, (bid, None))
                     if breg.out is not None:
-                        from rabia_tpu_torch.core.errors import (
-                            ResponsesUnavailableError,
-                        )
+                        if int(self._applied[s]) < slot:
+                            # not overtaken: an earlier slot of the shard
+                            # waits for its payload. _try_apply applies this
+                            # entry after it and settles the outcome
+                            sh.block_waiters[bid] = (slot, breg.out, int(bidx))
+                        else:
+                            from rabia_tpu_torch.core.errors import (
+                                ResponsesUnavailableError,
+                            )
 
-                        breg.out.settle(
-                            int(bidx),
-                            ResponsesUnavailableError("block shard overtaken by sync"),
-                        )
+                            breg.out.settle(
+                                int(bidx),
+                                ResponsesUnavailableError(
+                                    "block shard overtaken by sync"
+                                ),
+                            )
                     if int(self._applied[s]) > slot:
                         # snapshot already covered the slot — the scalar
                         # lane will never apply the demoted batch, so
@@ -1682,6 +1704,24 @@ class RuntimeBridge:
         elif isinstance(p, ProposeBlock):
             self._repair_from_block(p.block)
 
+    def _on_repair_frame(self, idxs: np.ndarray, frame: bytes) -> None:
+        """EV_REPAIR: a ProposeBlock whose entries ``idxs`` the C binder
+        could not bind (decided here before it arrived, or the shard's
+        binding busy). Only those entries' payloads are used (the binder
+        bound the others)."""
+        e = self.engine
+        try:
+            msg = e.serializer.deserialize(frame)
+        except Exception as exc:
+            e._py_drops["malformed"] += 1
+            logger.warning("dropping bad repair frame: %s", exc)
+            return
+        if isinstance(msg.payload, ProposeBlock):
+            block = msg.payload.block
+            idxs = idxs[idxs < len(block)]
+            for s in e._repair_from_block(block, idxs):
+                self._try_apply(s)
+
     def _repair_from_block(self, block) -> None:
         """Late ProposeBlock vs an already-decided slot: a shard that
         V0-grace-opened and then adopted the peers' V1 decision holds a
@@ -1689,31 +1729,8 @@ class RuntimeBridge:
         head). Use the announce as the payload source directly — the
         block-lane twin of the scalar lane's late-Propose repair —
         instead of riding a snapshot sync for bytes already on hand."""
-        e = self.engine
-        n = e.n_shards
-        for i in range(len(block)):
-            s = int(block.shards[i])
-            slot = int(block.slots[i])
-            if not (0 <= s < n) or slot < 0:
-                continue
-            sh = e.rt.shards[s]
-            rec = sh.decisions.get(slot)
-            if (
-                rec is not None
-                and not rec.applied
-                and rec.value == StateValue.V1
-                and (
-                    rec.batch_id is None
-                    or (
-                        rec.batch_id not in sh.payloads
-                        and rec.batch_id not in sh.applied_ids
-                    )
-                )
-            ):
-                bid = block.batch_id_for(i)
-                sh.payloads[bid] = block.materialize_batch(i)
-                rec.batch_id = bid
-                self._try_apply(s)
+        for s in self.engine._repair_from_block(block, stash=False):
+            self._try_apply(s)
 
     def _on_reject(
         self, token: int, bidx: int, s: int, slot: int, why: int = 1

@@ -192,6 +192,7 @@ class ShardRuntime:
         "applied_results",
         "alias_subs",
         "alias_ledger",
+        "block_waiters",
         "decisions",
         "buf_decision",
         "buf_propose",
@@ -230,6 +231,12 @@ class ShardRuntime:
         # apply-time dedup-skip on one replica that its peers don't
         # take would diverge replica state permanently.
         self.alias_ledger: dict[BatchId, Optional[int]] = {}
+        # block entries decided V1 above an earlier slot still waiting to
+        # apply (its payload not here yet): batch id -> (slot, outcome,
+        # entry index). The scalar lane applies them in order and settles
+        # the proposer's outcome with their responses
+        # (RabiaEngine._settle_block_waiter)
+        self.block_waiters: dict[BatchId, tuple] = {}
         self.decisions: dict[int, SlotRecord] = {}
         # decision notices not yet consumed: slot -> (value_code, batch_id)
         self.buf_decision: _FlagDict = _FlagDict(rt.dec_flag, shard)

@@ -17,6 +17,15 @@ for the codec, the interpreter and numpy it is built against:
 - ``runtime.cpp``     -> ctypes CDLL (the GIL-free engine runtime,
   ``engine/runtime_bridge.py``; ``RABIA_PY_RUNTIME=1`` forces the asyncio
   orchestration)
+- ``walkernel.cpp``   -> ctypes CDLL (the group-commit write-ahead log,
+  ``persistence/native_wal.py``; ``RABIA_PY_WAL=1`` forces the Python
+  writer, which owns the byte format). Links zlib for CRC-32.
+- ``sessionkernel.cpp`` -> ctypes CDLL (the gateway's session and dedup
+  table, ``gateway/native_session.py``; ``RABIA_PY_GATEWAY=1`` forces the
+  Python ``SessionTable``, the semantics owner)
+
+Each library loads ``RTLD_LOCAL`` under its own file name, so the
+reference's copies load beside them in one process.
 
 A build that fails raises with the compiler's output: nothing falls back
 quietly. ``RABIA_NATIVE_DEBUG=1`` builds the debug flavor (the lock-order
@@ -52,6 +61,8 @@ _FLAGS = {
     "hostkernel": (("-O3",), ()),
     "statekernel": (("-O3",), ()),
     "runtime": (("-O2", "-pthread"), ("-lz",)),
+    "walkernel": (("-O2", "-pthread"), ("-lz",)),
+    "sessionkernel": (("-O3",), ()),
 }
 _LOCK = threading.Lock()
 _LOADED: dict[str, object] = {}
@@ -416,3 +427,433 @@ def load_runtime() -> ctypes.CDLL | None:
     if os.environ.get("RABIA_PY_RUNTIME") == "1":
         return None
     return _load("runtime", _bind_runtime)
+
+
+def _bind_walkernel(lib: ctypes.CDLL) -> None:
+    p = ctypes.c_void_p
+    i32, i64, u64 = ctypes.c_int32, ctypes.c_int64, ctypes.c_uint64
+    sig = {
+        "wal_create": (p, [ctypes.c_char_p, i64, i64, i64, u64, u64]),
+        "wal_start": (i32, [p]),
+        "wal_stop": (None, [p]),
+        "wal_destroy": (None, [p]),
+        "wal_append": (i64, [p, p, i64]),
+        "wal_durable": (u64, [p]),
+        "wal_staged": (u64, [p]),
+        "wal_io_error": (i32, [p]),
+        "wal_event_fd": (ctypes.c_int, [p]),
+        "wal_sync": (i32, [p, ctypes.c_double]),
+        "wal_barrier_covered": (i64, [p, i64, i64]),
+        "wal_set_barrier": (None, [p, p, i64]),
+        "wal_get_barrier": (None, [p, p, i64]),
+        "wal_counters_version": (i32, []),
+        "wal_counters_count": (i32, []),
+        "wal_counters": (p, [p]),
+        "wal_hist_version": (i32, []),
+        "wal_hist_buckets": (i32, []),
+        "wal_hist_sub_bits": (i32, []),
+        "wal_hist_min_exp": (i32, []),
+        "wal_hist": (p, [p]),
+        "wal_segment_index": (i64, [p]),
+        "wal_segment_bytes": (i64, [p]),
+    }
+    _set(lib, sig)
+
+
+def load_walkernel() -> ctypes.CDLL | None:
+    """The write-ahead log's library; None when ``RABIA_PY_WAL=1`` (the
+    Python writer of ``persistence/native_wal.py`` then runs)."""
+    if os.environ.get("RABIA_PY_WAL") == "1":
+        return None
+    return _load("walkernel", _bind_walkernel)
+
+
+def _bind_sessionkernel(lib: ctypes.CDLL) -> None:
+    p = ctypes.c_void_p
+    i32, i64, u64 = ctypes.c_int32, ctypes.c_int64, ctypes.c_uint64
+    dbl = ctypes.c_double
+    P = ctypes.POINTER
+    sig = {
+        "gws_create": (p, [i64, dbl, i64, dbl]),
+        "gws_destroy": (None, [p]),
+        "gws_counters_version": (i32, []),
+        "gws_counters_count": (i32, []),
+        "gws_counters": (p, [p]),
+        "gws_len": (i64, [p]),
+        "gws_clear": (None, [p]),
+        "gws_stats": (None, [p, p]),
+        "gws_hello": (i64, [p, p, i64, dbl, P(u64)]),
+        "gws_submit": (i32, [p, p, u64, u64, dbl, P(i32), P(p), P(i64)]),
+        "gws_complete": (i32, [p, p, u64, i32, u64, p, i64, dbl]),
+        "gws_abort": (None, [p, p, u64]),
+        "gws_gc": (i64, [p, u64, dbl]),
+        "gws_session_info": (
+            i32, [p, p, P(i64), P(u64), P(u64), P(i64), P(i64)],
+        ),
+        "gws_get_result": (i32, [p, p, u64, P(i32), P(u64), P(p), P(i64)]),
+        "gws_session_ids": (i64, [p, p, i64]),
+        "gws_result_seqs": (i64, [p, p, p, i64]),
+        "gws_inflight_seqs": (i64, [p, p, p, i64]),
+    }
+    _set(lib, sig)
+
+
+def load_sessionkernel() -> ctypes.CDLL | None:
+    """The gateway session table's library; None when
+    ``RABIA_PY_GATEWAY=1`` (the Python ``SessionTable`` then runs)."""
+    if os.environ.get("RABIA_PY_GATEWAY") == "1":
+        return None
+    return _load("sessionkernel", _bind_sessionkernel)
+
+
+# ---------------------------------------------------------------------------
+# the sanitizer half: toolchains and the native stress programs, the
+# reference's (rabia_tpu/native/build.py), built from this package's own
+# sources into build/rabia_tpu_torch/stress/
+# ---------------------------------------------------------------------------
+
+STRESS_DIR = HERE / "stress"
+_STRESS_BUILD = BUILD_DIR / "stress"
+
+# The gcc libtsan may not intercept pthread_cond_clockwait (libstdc++'s
+# timed condvar path on glibc >= 2.30), so the unlock/relock inside a wait
+# is invisible to TSan and reads as a double lock. The shim routes
+# clockwait to the intercepted pthread_cond_timedwait; linking it into
+# every TSan stress binary makes gcc a viable TSan toolchain.
+_TSAN_COMPAT = STRESS_DIR / "tsan_compat.cpp"
+
+SAN_FLAGS: dict[str, list[str]] = {
+    "tsan": ["-fsanitize=thread", "-O1", "-g"],
+    "asan": [
+        "-fsanitize=address", "-fno-omit-frame-pointer", "-O1", "-g",
+    ],
+    "ubsan": [
+        "-fsanitize=undefined", "-fno-sanitize-recover=undefined",
+        "-O1", "-g",
+    ],
+}
+
+
+def stress_env(flavor: str) -> dict[str, str]:
+    """Runtime env for a `flavor` stress binary: halt_on_error so any
+    finding is a nonzero exit (an enforced gate, not a log line), plus
+    the vetted suppression file for TSan (each entry justified inline)."""
+    env = {"PATH": os.environ.get("PATH", "/usr/bin:/bin")}
+    if flavor == "tsan":
+        env["TSAN_OPTIONS"] = (
+            f"halt_on_error=1:suppressions={STRESS_DIR / 'tsan.supp'}"
+        )
+    elif flavor == "asan":
+        env["ASAN_OPTIONS"] = "halt_on_error=1:detect_leaks=1"
+        env["LSAN_OPTIONS"] = f"suppressions={STRESS_DIR / 'lsan.supp'}"
+    elif flavor == "ubsan":
+        env["UBSAN_OPTIONS"] = "halt_on_error=1:print_stacktrace=1"
+    return env
+
+
+# name -> kernel sources linked into stress/stress_<name>.cpp. Each
+# program hammers one cross-thread seam the thread-per-shard-group
+# runtime (ROADMAP item 1) will multiply.
+STRESS_PROGRAMS: dict[str, dict] = {
+    "transport": {"srcs": ["transport.cpp"], "libs": []},
+    "wal": {"srcs": ["walkernel.cpp"], "libs": ["-lz"]},
+    "session": {"srcs": ["sessionkernel.cpp"], "libs": []},
+    "statekernel": {"srcs": ["statekernel.cpp"], "libs": []},
+    "runtime": {"srcs": ["runtime.cpp", "transport.cpp"], "libs": ["-lz"]},
+    # thread-per-shard-group seams: 2 workers vs per-group inbox
+    # routing, per-lane statekernel applies, shared WAL staging lanes,
+    # cross-worker result staging and the multi-worker pause barrier
+    "runtime_mt": {
+        "srcs": [
+            "runtime.cpp", "transport.cpp", "statekernel.cpp",
+            "walkernel.cpp",
+        ],
+        "libs": ["-lz"],
+    },
+}
+
+# deliberately-broken probes: the test suite builds these and asserts the
+# gate EXITS NONZERO — proof the matrix is red-on-failure, not
+# green-by-silence
+SELFCHECK_PROGRAMS: dict[str, str] = {
+    "tsan": "selfcheck_race",
+    "asan": "selfcheck_uaf",
+}
+
+_PROBE_CLEAN = r"""
+// race-free by construction: mutex churn + TIMED condvar waits (the
+// exact primitives the kernels use; a toolchain that flags this is not
+// viable and the gate skips with this program's own output)
+#include <chrono>
+#include <condition_variable>
+#include <cstdio>
+#include <mutex>
+#include <thread>
+#include <vector>
+int main() {
+  std::mutex mu;
+  std::condition_variable cv;
+  bool done = false;
+  long shared = 0;
+  std::vector<std::thread> ts;
+  for (int t = 0; t < 3; t++) {
+    ts.emplace_back([&] {
+      for (int i = 0; i < 20000; i++) {
+        std::lock_guard<std::mutex> lk(mu);
+        shared++;
+        if ((shared & 1023) == 0) cv.notify_all();
+      }
+    });
+  }
+  {
+    std::unique_lock<std::mutex> lk(mu);
+    while (!cv.wait_for(lk, std::chrono::milliseconds(2),
+                        [&] { return shared >= 60000; })) {
+    }
+    done = true;
+  }
+  for (auto& t : ts) t.join();
+  std::printf("probe ok %ld %d\n", shared, (int)done);
+  return shared == 60000 ? 0 : 3;
+}
+"""
+
+_PROBE_BROKEN = {
+    # a real data race: the sanitizer must catch it or it cannot be
+    # trusted to gate anything
+    "tsan": r"""
+#include <cstdio>
+#include <thread>
+long shared = 0;
+int main() {
+  std::thread a([] { for (int i = 0; i < 200000; i++) shared++; });
+  std::thread b([] { for (int i = 0; i < 200000; i++) shared++; });
+  a.join();
+  b.join();
+  std::printf("done %ld\n", shared);
+  return 0;
+}
+""",
+    "asan": r"""
+#include <cstdio>
+#include <cstdlib>
+int main() {
+  volatile int* p = (volatile int*)malloc(32);
+  p[0] = 7;
+  free((void*)p);
+  std::printf("uaf %d\n", p[0]);  // heap-use-after-free
+  return 0;
+}
+""",
+    "ubsan": r"""
+#include <cstdio>
+int main(int argc, char**) {
+  volatile int s = 40 + argc;
+  volatile int v = 1 << s;  // shift exponent out of range
+  std::printf("ub %d\n", v);
+  return 0;
+}
+""",
+}
+
+_TOOLCHAIN_CACHE: dict[str, dict | None] = {}
+
+
+def _compiler_candidates() -> list[str]:
+    import shutil as _sh
+
+    out = []
+    for name in (
+        "clang++", "clang++-20", "clang++-19", "clang++-18", "clang++-17",
+        "clang++-16", "clang++-15", "clang++-14", "g++",
+    ):
+        if _sh.which(name):
+            out.append(name)
+    return out
+
+
+def find_sanitizer_toolchain(flavor: str) -> dict | None:
+    """Find a compiler whose `flavor` sanitizer is VIABLE here.
+
+    Viable means BOTH halves hold, probed with real binaries:
+      - the clean probe (mutex + timed-condvar churn) runs clean three
+        times — a toolchain that false-positives on it (gcc-10 libtsan
+        without the clockwait shim) would make every stress verdict
+        noise;
+      - the broken probe (a planted race / use-after-free / UB shift)
+        exits NONZERO — a sanitizer that cannot catch the planted bug
+        cannot be trusted to gate the real ones.
+
+    clang is preferred; gcc's TSan qualifies via the clockwait shim.
+    Returns {"cxx", "flags", "extra_sources", "reason"} or None (the
+    last probe failure lands in find_sanitizer_toolchain.reason for the
+    one-line SKIP)."""
+    import subprocess as sp
+    import tempfile
+
+    if flavor in _TOOLCHAIN_CACHE:
+        return _TOOLCHAIN_CACHE[flavor]
+    reasons = []
+    result = None
+    for cxx in _compiler_candidates():
+        extra = []
+        if flavor == "tsan":
+            extra = [str(_TSAN_COMPAT)]
+        with tempfile.TemporaryDirectory() as td:
+            probe = Path(td) / "probe.cpp"
+            probe.write_text(_PROBE_CLEAN)
+            exe = Path(td) / "probe"
+            cmd = [
+                cxx, "-std=c++17", *SAN_FLAGS[flavor], "-pthread",
+                str(probe), *extra, "-o", str(exe),
+            ]
+            rc = sp.run(cmd, capture_output=True, text=True, timeout=180)
+            if rc.returncode != 0:
+                reasons.append(f"{cxx}: probe build failed")
+                continue
+            env = stress_env(flavor)
+            ok = True
+            for _ in range(3):
+                run = sp.run(
+                    [str(exe)], capture_output=True, text=True,
+                    timeout=120, env=env,
+                )
+                if run.returncode != 0 or "probe ok" not in run.stdout:
+                    reasons.append(
+                        f"{cxx}: clean probe flagged "
+                        f"(rc={run.returncode}): "
+                        + (run.stderr or run.stdout)[-300:].replace(
+                            "\n", " | "
+                        )
+                    )
+                    ok = False
+                    break
+            if not ok:
+                continue
+            broken = Path(td) / "broken.cpp"
+            broken.write_text(_PROBE_BROKEN[flavor])
+            bexe = Path(td) / "broken"
+            rc = sp.run(
+                [
+                    cxx, "-std=c++17", *SAN_FLAGS[flavor], "-pthread",
+                    str(broken), *extra, "-o", str(bexe),
+                ],
+                capture_output=True, text=True, timeout=180,
+            )
+            if rc.returncode != 0:
+                reasons.append(f"{cxx}: broken probe build failed")
+                continue
+            caught = False
+            for _ in range(5):
+                run = sp.run(
+                    [str(bexe)], capture_output=True, text=True,
+                    timeout=120, env=env,
+                )
+                if run.returncode != 0:
+                    caught = True
+                    break
+            if not caught:
+                reasons.append(f"{cxx}: planted bug not detected")
+                continue
+            result = {
+                "cxx": cxx,
+                "flags": list(SAN_FLAGS[flavor]),
+                "extra_sources": [str(p) for p in extra],
+                "reason": "",
+            }
+            break
+    if result is None:
+        find_sanitizer_toolchain.reason = (  # type: ignore[attr-defined]
+            "; ".join(reasons) or "no C++ compiler found"
+        )
+    _TOOLCHAIN_CACHE[flavor] = result
+    return result
+
+
+def build_stress(name: str, flavor: str) -> Path:
+    """Build stress/stress_<name>.cpp + its kernel sources under
+    `flavor`; returns the binary path (digest-cached like the .so
+    builds). Raises InternalError on build failure — a kernel edit that
+    breaks the sanitizer build must FAIL the gate, never skip it."""
+    import subprocess as sp
+
+    spec = STRESS_PROGRAMS[name]
+    tc = find_sanitizer_toolchain(flavor)
+    if tc is None:
+        raise InternalError(
+            f"no viable {flavor} toolchain: "
+            + getattr(find_sanitizer_toolchain, "reason", "")
+        )
+    main_src = STRESS_DIR / f"stress_{name}.cpp"
+    # every header an included source can pull in participates in the
+    # digest — a header-only ABI edit must never reuse a stale cached
+    # stress binary (the silent-stale-artifact class this gate exists
+    # to kill)
+    srcs = [
+        main_src, STRESS_DIR / "stress_common.h", HERE / "annotations.h",
+        HERE / "transport.h",
+    ]
+    srcs += [HERE / s for s in spec["srcs"]]
+    h = hashlib.blake2s(digest_size=8)
+    for s in srcs:
+        h.update(s.read_bytes())
+    for p in tc["extra_sources"]:
+        h.update(Path(p).read_bytes())
+    h.update((tc["cxx"] + flavor).encode())
+    _STRESS_BUILD.mkdir(parents=True, exist_ok=True)
+    out = _STRESS_BUILD / f"{name}-{flavor}-{h.hexdigest()}"
+    if out.exists():
+        return out
+    # compile to a private temp path, then atomically rename (the
+    # _compile pattern): a build killed mid-link must never leave a
+    # truncated binary at the digest-keyed path, which the exists()
+    # fast path would trust forever
+    tmp = out.with_suffix(f".tmp{os.getpid()}")
+    cmd = [
+        tc["cxx"], "-std=c++17", *tc["flags"], "-pthread",
+        f"-I{HERE}",
+        str(main_src),
+        *[str(HERE / s) for s in spec["srcs"]],
+        *tc["extra_sources"],
+        "-o", str(tmp),
+        *spec["libs"],
+    ]
+    proc = sp.run(cmd, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise InternalError(
+            f"{flavor} build of stress_{name} failed:\n"
+            + proc.stderr[-2000:]
+        )
+    os.replace(tmp, out)
+    for old in _STRESS_BUILD.glob(f"{name}-{flavor}-*"):
+        if old != out:
+            try:
+                old.unlink()
+            except OSError:
+                pass
+    return out
+
+
+def build_selfcheck(flavor: str) -> Path:
+    """Build the deliberately-broken probe for `flavor` (the gate's
+    red-on-failure proof)."""
+    import subprocess as sp
+
+    tc = find_sanitizer_toolchain(flavor)
+    if tc is None:
+        raise InternalError(f"no viable {flavor} toolchain")
+    _STRESS_BUILD.mkdir(parents=True, exist_ok=True)
+    src = _STRESS_BUILD / f"selfcheck_{flavor}.cpp"
+    src.write_text(_PROBE_BROKEN[flavor])
+    out = _STRESS_BUILD / f"selfcheck_{flavor}"
+    cmd = [
+        tc["cxx"], "-std=c++17", *tc["flags"], "-pthread", str(src),
+        *tc["extra_sources"], "-o", str(out),
+    ]
+    proc = sp.run(cmd, capture_output=True, text=True, timeout=180)
+    if proc.returncode != 0:
+        raise InternalError(
+            f"selfcheck build failed:\n{proc.stderr[-1000:]}"
+        )
+    return out

@@ -228,6 +228,11 @@ enum : uint8_t {
                    // kind 0: scalar propose retransmit wanted
                    // kind 1: block announce retransmit wanted (token)
                    // kind 2: peer votes waiting, no binding (V0 candidate)
+  EV_REPAIR = 7,   // u16 row | u32 n | n * u32 entry | frame bytes: a
+                   // ProposeBlock whose listed entries took no binding
+                   // (their slot decided here before the announce came,
+                   // or the shard's binding is busy): Python keeps their
+                   // payloads for the slots' decisions
   EV_LEDGER = 6,   // 16B block id | u32 count | count * (u32 shard |
                    // u64 slot): natively applied PEER-block wave entries
                    // (token 0 — no Python owner) whose K_WAVE records
@@ -743,6 +748,7 @@ static int parse_propose_block(RtmCtx* c, RtmWorker* w, const uint8_t* data,
   // group only — sibling workers bind their own entries from their copy)
   std::vector<uint32_t> acc;
   acc.reserve(k);
+  std::vector<uint32_t> repair;
   for (uint32_t i = 0; i < k; i++) {
     const int64_t s = (int64_t)rd_u32(sh_arr + (size_t)i * 4);
     const int64_t slot = (int64_t)rd_u64(sl_arr + (size_t)i * 8);
@@ -750,11 +756,36 @@ static int parse_propose_block(RtmCtx* c, RtmWorker* w, const uint8_t* data,
     if (s < w->lo || s >= w->hi) continue;  // another group's entry
     if ((s + slot) % c->R != row) continue;  // slot_proposer parity
     if (slot < c->applied[s]) continue;
-    if (c->blk_pend_ref[s] != -1 || c->blk_cur_ref[s] != -1) continue;
     const int64_t head =
         c->next_slot[s] > c->applied[s] ? c->next_slot[s] : c->applied[s];
-    if (slot < head) continue;
+    if (slot < head) {
+      // decided here before this announce arrived (a peer's Decision
+      // overtook it) and not applied yet: the scalar record waits for
+      // this payload
+      repair.push_back(i);
+      continue;
+    }
+    // one pending binding a shard; behind a current binding only for a
+    // later slot (the next slot's announce can arrive while this replica
+    // still decides the current one)
+    if (c->blk_pend_ref[s] != -1 ||
+        (c->blk_cur_ref[s] != -1 && slot <= head)) {
+      // unbound: without its payload the slot would decide here with
+      // nothing to apply
+      repair.push_back(i);
+      continue;
+    }
     acc.push_back(i);
+  }
+  if (!repair.empty()) {
+    std::vector<uint8_t> rec;
+    rec.push_back(EV_REPAIR);
+    rec.push_back((uint8_t)(row & 0xFF));
+    rec.push_back((uint8_t)((row >> 8) & 0xFF));
+    wr_u32(rec, (uint32_t)repair.size());
+    for (uint32_t i : repair) wr_u32(rec, i);
+    rec.insert(rec.end(), data, data + len);
+    ev_push(c, w, rec);
   }
   if (acc.empty()) return 0;
   const int64_t ref = w->next_blk++;

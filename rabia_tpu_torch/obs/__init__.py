@@ -1,9 +1,11 @@
 """Observability: the metrics registry and its Prometheus-text exporter
 (:mod:`rabia_tpu_torch.obs.registry`), the anomaly journal
-(:mod:`rabia_tpu_torch.obs.journal`) and the flight recorder
-(:mod:`rabia_tpu_torch.obs.flight`), ports of the reference's modules of
-those names. The reference's admin HTTP shim, telemetry, critical-path
-and fleet planes are not ported yet."""
+(:mod:`rabia_tpu_torch.obs.journal`), the flight recorder and its
+cross-replica trace collection (:mod:`rabia_tpu_torch.obs.flight`), the
+admin HTTP shim (:mod:`rabia_tpu_torch.obs.http`) and the per-replica
+telemetry ring (:mod:`rabia_tpu_torch.obs.telemetry`), ports of the
+reference's modules of those names. The reference's critical-path and
+fleet planes are not ported yet (ROADMAP Queue 1)."""
 
 from rabia_tpu_torch.obs.journal import AnomalyJournal
 from rabia_tpu_torch.obs.registry import (
@@ -18,9 +20,43 @@ from rabia_tpu_torch.obs.registry import (
     parse_prometheus_text,
     slo_bucket_index,
 )
+from rabia_tpu_torch.obs.http import AdminHTTPServer
+from rabia_tpu_torch.obs.flight import (
+    FR_DTYPE,
+    FR_KIND_NAMES,
+    TF_DTYPE,
+    FlightRecorder,
+    batch_id_for,
+    build_trace_slice,
+    collect_trace,
+    fr_hash,
+    merge_slices,
+    render_timeline,
+)
+from rabia_tpu_torch.obs.telemetry import (
+    TelemetrySampler,
+    collect_timeline,
+    merge_timelines,
+    render_timeline_table,
+)
 
 __all__ = [
+    "AdminHTTPServer",
     "AnomalyJournal",
+    "FR_DTYPE",
+    "FR_KIND_NAMES",
+    "FlightRecorder",
+    "TF_DTYPE",
+    "TelemetrySampler",
+    "batch_id_for",
+    "build_trace_slice",
+    "collect_timeline",
+    "collect_trace",
+    "fr_hash",
+    "merge_slices",
+    "merge_timelines",
+    "render_timeline",
+    "render_timeline_table",
     "Counter",
     "Gauge",
     "Histogram",

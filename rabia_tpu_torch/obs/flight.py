@@ -1,10 +1,9 @@
 """Flight recorder + cross-replica commit traces.
 
-The port of the reference's ``rabia_tpu/obs/flight.py``, less its
-cross-node fetch over the gateway client (``collect_trace``), which comes
-with the gateway (ROADMAP Queue 1 item 7.7). The native rings of the
-tick context, the state kernel and the runtime merge with the Python ring
-as in the reference.
+The port of the reference's ``rabia_tpu/obs/flight.py``, with its
+cross-node fetch over the gateway's admin frames (:func:`collect_trace`).
+The native rings of the tick context, the state kernel and the runtime
+merge with the Python ring as in the reference.
 
 Two halves (docs/OBSERVABILITY.md, "Flight recorder"):
 
@@ -18,10 +17,11 @@ Two halves (docs/OBSERVABILITY.md, "Flight recorder"):
    it on BOTH tick paths. ``RabiaEngine.flight_events()`` merges all
    rings into one monotonic-ns-ordered list.
 
-2. **Trace slices.** Batch ids derive deterministically from
+2. **Trace collection.** Batch ids derive deterministically from
    ``(client_id, seq)`` (:func:`batch_id_for`), so consensus frames need
-   no new wire fields: a replica's flight-ring slice filtered by batch
-   (:func:`build_trace_slice`) and :func:`merge_slices` aligns the
+   no new wire fields: a ``TraceQuery`` (AdminKind.TRACE on the existing
+   admin frames) asks each replica for its flight-ring slice filtered by
+   batch (:func:`build_trace_slice`), and :func:`merge_slices` aligns the
    per-replica monotonic clocks via RTT-midpoint offset estimation and
    renders a single commit timeline.
 
@@ -40,7 +40,7 @@ import json
 import time
 import uuid
 from collections import deque
-from typing import Optional, Sequence
+from typing import Iterable, Optional, Sequence
 
 import numpy as np
 
@@ -443,6 +443,48 @@ def merge_slices(slices: Sequence[dict]) -> list[dict]:
             merged.append(entry)
     merged.sort(key=lambda e: (e["t"], e["row"], e["t_ns"]))
     return merged
+
+
+async def collect_trace(
+    addrs: Iterable[tuple[str, int]],
+    client_id: uuid.UUID,
+    seq: int,
+    timeout: float = 10.0,
+) -> list[dict]:
+    """Fetch + align + merge TraceSlices from every gateway in ``addrs``
+    for the command ``(client_id, seq)``. Replicas that cannot be
+    reached are skipped (a trace from the surviving quorum is still a
+    trace); raises only if NO replica answered."""
+    from rabia_tpu_torch.core.messages import AdminKind
+    from rabia_tpu_torch.gateway.client import admin_fetch_timed
+
+    import asyncio
+
+    query = json.dumps({"client": client_id.hex, "seq": int(seq)}).encode()
+    addrs = list(addrs)
+    results = await asyncio.gather(
+        *(
+            admin_fetch_timed(
+                host, port, int(AdminKind.TRACE), query=query,
+                timeout=timeout,
+            )
+            for host, port in addrs
+        ),
+        return_exceptions=True,
+    )
+    slices = []
+    errors = []
+    for (host, port), res in zip(addrs, results):
+        if isinstance(res, BaseException):
+            errors.append(f"{host}:{port}: {type(res).__name__}: {res}")
+            continue
+        body, send_wall, recv_wall = res
+        slices.append(align_slice(json.loads(body), send_wall, recv_wall))
+    if not slices:
+        raise RuntimeError(
+            "trace: no replica answered (" + "; ".join(errors) + ")"
+        )
+    return merge_slices(slices)
 
 
 # ---------------------------------------------------------------------------

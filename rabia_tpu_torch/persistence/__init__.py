@@ -6,5 +6,6 @@ from peers via sync, rabia-core/src/persistence.rs:44-48).
 """
 
 from rabia_tpu_torch.persistence.backends import FileSystemPersistence, InMemoryPersistence
+from rabia_tpu_torch.persistence.native_wal import WalPersistence
 
-__all__ = ["FileSystemPersistence", "InMemoryPersistence"]
+__all__ = ["FileSystemPersistence", "InMemoryPersistence", "WalPersistence"]

@@ -9,8 +9,7 @@ the engine's thread) so fsync never blocks the consensus round loop.
 
 The port of the reference's ``rabia_tpu/persistence/backends.py``: the
 files it writes are the reference's, so a state saved by either package
-loads in the other. The reference's WAL backend
-(``rabia_tpu/persistence/native_wal.py``) is not ported.
+loads in the other. The WAL backend is ``persistence/native_wal.py``.
 """
 
 from __future__ import annotations

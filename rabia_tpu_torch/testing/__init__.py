@@ -1,11 +1,13 @@
 """Test & benchmark harnesses of the port: the cluster bootstrap, fault
-injection, the performance scenarios and the engine-level
-plane-conformance gate.
+injection, the performance scenarios, the conformance gates, the gateway
+cluster, the load sessions, the multi-process harness and the kill -9
+recovery harness.
 
-The port's copy of the reference's ``rabia_tpu/testing`` (its
-gateway, load-session, multi-process and recovery harnesses are not
-ported). Re-exports are lazy (PEP 562): the harness submodules pull the
-engine on first attribute access.
+The port's copy of the reference's ``rabia_tpu/testing``. Re-exports are
+lazy (PEP 562): the harness submodules pull the engine on first
+attribute access, so stdlib-only members like
+:mod:`rabia_tpu_torch.testing.multiproc` stay importable from light
+parent programs.
 """
 
 _EXPORTS = {

@@ -8,10 +8,16 @@ must agree.
 - :func:`run_schedule_on_runtime_paths`: the GIL-free runtime beside the
   asyncio orchestration, over TCP;
 - :func:`run_ops_on_both_apply_paths`: the native store beside the Python
-  ``KVStore``.
+  ``KVStore``;
+- :func:`run_gateway_ops_on_both_tables`: the native session table beside
+  the Python ``SessionTable``;
+- :func:`run_waves_on_both_wal_paths`: the C WAL writer beside the Python
+  writer (byte-identical segments, equal recovery);
+- :func:`run_submits_on_coalesce_paths`: the gateway's coalescing lane on
+  and off, over a durable cluster.
 
-The native gates are the port's copies of the reference's
-(``rabia_tpu/testing/conformance.py``). The plane gate is the port of
+The native, gateway, WAL and coalescing gates are the port's copies of
+the reference's (``rabia_tpu/testing/conformance.py``). The plane gate is the port of
 the reference's ``run_schedule_on_both_planes``: one submission schedule driven
 through BOTH deployment planes — a transport-engine cluster over the
 in-memory hub, then a :class:`~rabia_tpu_torch.parallel.MeshEngine` —
@@ -969,3 +975,785 @@ def settle_quantiles(settle_s: Sequence[float], qs=(0.5, 0.99)) -> list[Optional
     if not xs:
         return [None for _ in qs]
     return [xs[min(len(xs) - 1, max(0, int(round(q * len(xs))) - 1))] for q in qs]
+
+
+def apply_ledger_record(
+    table, client_id, seq: int, status: int, payload, frontier_mark: int,
+    now=None,
+) -> int:
+    """Import one replicated completed-result record into a session table
+    (Python or native) through its op surface, and return the
+    ``submit_check`` decision: a ``FRESH`` reservation or a
+    ``DUP_INFLIGHT`` one is completed with the record, a ``DUP_CACHED``
+    seq is left alone, a full window drops the record. A copy of the
+    fleet tier's ``apply_record`` (the reference's
+    ``rabia_tpu/fleet/ledger.py``), which the gateway gate drives; the
+    fleet tier itself is not ported yet (ROADMAP Queue 1)."""
+    from rabia_tpu_torch.gateway.session import (
+        SUBMIT_DUP_CACHED,
+        SUBMIT_DUP_INFLIGHT,
+        SUBMIT_FRESH,
+    )
+
+    decision, _st, _pl = table.submit_check(client_id, seq, 0, now=now)
+    if decision in (SUBMIT_FRESH, SUBMIT_DUP_INFLIGHT):
+        table.complete_op(
+            client_id, seq, status, payload, frontier_mark, now=now
+        )
+    elif decision == SUBMIT_DUP_CACHED:
+        pass  # already answered here, byte-identity guaranteed upstream
+    return decision
+
+
+def run_gateway_ops_on_both_tables(
+    ops: Sequence[dict],
+    *,
+    default_window: int = 4,
+    session_ttl: float = 30.0,
+    lease_ttl: float = 120.0,
+    result_cache_cap: int = 4,
+    tag: str = "",
+    require_native: bool = True,
+) -> None:
+    """Native-vs-Python GATEWAY session-table conformance (the gateway
+    plane gate).
+
+    The same op schedule drives the C session/dedup table
+    (native/sessionkernel.cpp via
+    :class:`~rabia_tpu_torch.gateway.native_session.NativeSessionTable`) and
+    the Python :class:`~rabia_tpu_torch.gateway.session.SessionTable` (the
+    semantics owner, what ``RABIA_PY_GATEWAY=1`` forces) through the
+    op-level API the gateway server calls — hello / submit_check /
+    complete_op / abort / gc. Required: identical return values for
+    EVERY op (dedup decisions, byte-identical cached reply payloads,
+    hello grants, gc eviction counts), and — at the end — identical
+    surviving-session sets with identical per-session state (window,
+    ack frontier, highest seq, inflight set, cached seqs, and every
+    cached result byte-for-byte) plus SessionStats parity. Shared by
+    the fixed gate (tests/test_gateway.py) and the randomized fuzz
+    (``fuzz_conformance.py --gateway``), so the two checks cannot
+    drift.
+
+    Each op is a dict: ``{"op": "hello"|"submit"|"complete"|"abort"|
+    "gc"|"ledger", "t": <time>, ...}`` with op-specific fields
+    (``cid``, ``seq``, ``window``, ``ack``, ``status``, ``payload``,
+    ``frontier``, ``sv``). The ``ledger`` op is the fleet tier's
+    replicated completed-result record
+    (:func:`apply_ledger_record`, the reference's
+    ``rabia_tpu/fleet/ledger.apply_record`` — reserve-if-absent +
+    complete in one step): a gateway-failover replay must find the
+    byte-identical cached result on the successor's table whichever
+    backend that table runs, so the record's landing decision is part
+    of the conformance surface.
+    """
+    from rabia_tpu_torch.gateway.native_session import NativeSessionTable
+    from rabia_tpu_torch.gateway.session import SessionTable
+    from rabia_tpu_torch.native.build import load_sessionkernel
+
+    lib = load_sessionkernel()
+    if lib is None:
+        if os.environ.get("RABIA_PY_GATEWAY") == "1":
+            # env-forced Python table: the differential is vacuous BY
+            # DESIGN here (the RABIA_PY_GATEWAY matrix cell exercises
+            # the semantics owner; the main gate runs the differential)
+            return
+        assert not require_native, (
+            f"{tag}: sessionkernel unavailable (build failure?) — "
+            "gateway conformance gate would be vacuous"
+        )
+        return
+    kw = dict(
+        default_window=default_window,
+        session_ttl=session_ttl,
+        result_cache_cap=result_cache_cap,
+        lease_ttl=lease_ttl,
+    )
+    nat = NativeSessionTable(lib, **kw)
+    py = SessionTable(**kw)
+    try:
+        for i, op in enumerate(ops):
+            kind, t = op["op"], op["t"]
+            if kind == "hello":
+                a = py.hello(op["cid"], op.get("window", 0), now=t)
+                b = nat.hello(op["cid"], op.get("window", 0), now=t)
+            elif kind == "submit":
+                a = py.submit_check(
+                    op["cid"], op["seq"], op.get("ack", 0), now=t
+                )
+                b = nat.submit_check(
+                    op["cid"], op["seq"], op.get("ack", 0), now=t
+                )
+            elif kind == "complete":
+                a = py.complete_op(
+                    op["cid"], op["seq"], op["status"], op["payload"],
+                    op["frontier"], now=t,
+                )
+                b = nat.complete_op(
+                    op["cid"], op["seq"], op["status"], op["payload"],
+                    op["frontier"], now=t,
+                )
+            elif kind == "abort":
+                a = py.abort(op["cid"], op["seq"])
+                b = nat.abort(op["cid"], op["seq"])
+            elif kind == "gc":
+                a = py.gc(op["sv"], now=t)
+                b = nat.gc(op["sv"], now=t)
+            elif kind == "ledger":
+                a = apply_ledger_record(
+                    py, op["cid"], op["seq"], op["status"],
+                    op["payload"], op["frontier"], now=t,
+                )
+                b = apply_ledger_record(
+                    nat, op["cid"], op["seq"], op["status"],
+                    op["payload"], op["frontier"], now=t,
+                )
+            else:  # pragma: no cover - schedule generator bug
+                raise ValueError(f"unknown gateway op {kind!r}")
+            assert a == b, (
+                f"{tag}: op {i} ({kind}) diverged: python={a!r} "
+                f"native={b!r}"
+            )
+        # -- end state ------------------------------------------------------
+        py_cids = set(py.sessions.keys())
+        nat_cids = set(nat.session_ids())
+        assert py_cids == nat_cids, (
+            f"{tag}: surviving sessions diverge: python-only="
+            f"{py_cids - nat_cids} native-only={nat_cids - py_cids}"
+        )
+        assert len(py) == len(nat)
+        for cid in sorted(py_cids, key=lambda c: c.bytes):
+            sess = py.sessions[cid]
+            info = nat._info(cid)
+            assert info is not None, f"{tag}: {cid} missing natively"
+            window, ack, highest, n_inflight, n_results = info
+            assert (sess.window, sess.ack_upto, sess.highest_completed) == (
+                window, ack, highest,
+            ), f"{tag}: session {cid} header diverged"
+            assert sorted(sess.inflight) == sorted(
+                nat.inflight_seqs(cid)
+            ), f"{tag}: session {cid} inflight set diverged"
+            assert sorted(sess.results) == nat.result_seqs(cid), (
+                f"{tag}: session {cid} cached seqs diverged"
+            )
+            assert len(sess.results) == n_results
+            for seq, rec in sess.results.items():
+                got = nat.cached_result(cid, seq)
+                assert got == rec, (
+                    f"{tag}: cached result ({cid}, {seq}) diverged: "
+                    f"python={rec!r} native={got!r}"
+                )
+        assert py.stats == nat.stats, (
+            f"{tag}: SessionStats diverged: python={py.stats} "
+            f"native={nat.stats}"
+        )
+    finally:
+        nat.close()
+
+
+def random_gateway_ops(seed: int, n_ops: int = 400) -> list[dict]:
+    """Draw one random gateway-table op schedule (the fuzz generator):
+    a small client pool, seqs from a narrow range (so dup/cached/
+    inflight branches are hit constantly), random completes/aborts that
+    need not match reservations (invalid transitions must diverge
+    NOWHERE), time advancing with occasional jumps past the idle ttl
+    and the hard lease, gc at random frontiers, and fleet ledger
+    records (reserve+complete in one step) racing the client's own
+    submits over the same narrow seq range."""
+    import random
+    import uuid as _uuid
+
+    rng = random.Random(seed)
+    cids = [
+        _uuid.UUID(bytes=rng.getrandbits(128).to_bytes(16, "big"))
+        for _ in range(rng.randint(2, 6))
+    ]
+    t = 1000.0
+    sv = 0
+    ops: list[dict] = []
+    for _ in range(n_ops):
+        t += rng.choice([0.0, 0.01, 0.5, 2.0])
+        if rng.random() < 0.02:
+            t += rng.choice([40.0, 150.0])  # past ttl / past lease
+        r = rng.random()
+        cid = rng.choice(cids)
+        seq = rng.randint(1, 12)
+        if r < 0.10:
+            ops.append({
+                "op": "hello", "t": t, "cid": cid,
+                "window": rng.choice([0, 1, 2, 3, 99]),
+            })
+        elif r < 0.55:
+            ops.append({
+                "op": "submit", "t": t, "cid": cid, "seq": seq,
+                "ack": rng.choice([0, 0, seq - 1, seq]),
+            })
+        elif r < 0.80:
+            nparts = rng.randint(0, 3)
+            payload = tuple(
+                bytes(rng.getrandbits(8) for _ in range(rng.randint(0, 40)))
+                for _ in range(nparts)
+            )
+            sv += rng.randint(0, 3)
+            ops.append({
+                "op": "complete", "t": t, "cid": cid, "seq": seq,
+                "status": rng.choice([0, 1, 2, 3]),
+                "payload": payload, "frontier": sv,
+            })
+        elif r < 0.88:
+            ops.append({"op": "abort", "t": t, "cid": cid, "seq": seq})
+        elif r < 0.95:
+            nparts = rng.randint(0, 2)
+            payload = tuple(
+                bytes(rng.getrandbits(8) for _ in range(rng.randint(0, 24)))
+                for _ in range(nparts)
+            )
+            sv += rng.randint(0, 2)
+            ops.append({
+                "op": "ledger", "t": t, "cid": cid, "seq": seq,
+                "status": rng.choice([0, 1]),
+                "payload": payload, "frontier": sv,
+            })
+        else:
+            sv += rng.randint(0, 5)
+            ops.append({"op": "gc", "t": t, "sv": sv})
+    ops.append({"op": "gc", "t": t + 1.0, "sv": sv + 1})
+    return ops
+
+
+# ---------------------------------------------------------------------------
+# durability-plane conformance (the WAL gate — docs/DURABILITY.md)
+# ---------------------------------------------------------------------------
+
+
+def random_wal_records(
+    seed: int, n_records: int = 300, n_shards: int = 4
+) -> list[bytes]:
+    """A randomized record sequence for the WAL byte-parity gate:
+    encoded payloads in the native_wal record format — decided waves
+    (valid binary KV ops, occasional garbage ops, V0 gaps), barrier
+    vectors, ledger backfills and frontier marks, with per-shard slots
+    advancing in order (the staging invariant both apply paths hold)."""
+    import random as _random
+
+    from rabia_tpu_torch.persistence.native_wal import (
+        encode_barrier,
+        encode_frontier,
+        encode_ledger,
+        encode_wave,
+    )
+
+    rng = _random.Random(seed)
+    slots = [0] * n_shards
+    keys = [f"k{i}".encode() for i in range(10)]
+
+    def one_op() -> bytes:
+        r = rng.random()
+        key = rng.choice(keys)
+        if r < 0.70:
+            val = bytes(
+                rng.getrandbits(8) % 26 + 97
+                for _ in range(rng.randint(0, 24))
+            )
+            return bytes([1]) + len(key).to_bytes(2, "little") + key + val
+        if r < 0.85:
+            return bytes([3]) + len(key).to_bytes(2, "little") + key
+        if r < 0.95:
+            return bytes([2]) + len(key).to_bytes(2, "little") + key
+        # garbage op: must frame/replay identically on both writers
+        return bytes(rng.getrandbits(8) for _ in range(rng.randint(0, 12)))
+
+    out: list[bytes] = []
+    for _ in range(n_records):
+        r = rng.random()
+        s = rng.randrange(n_shards)
+        if r < 0.78:
+            slot = slots[s]
+            slots[s] += 1
+            if rng.random() < 0.15:
+                out.append(encode_wave(s, slot, 0, None, None))
+            else:
+                bid = bytes(rng.getrandbits(8) for _ in range(16))
+                ops = [one_op() for _ in range(rng.randint(1, 4))]
+                out.append(
+                    encode_wave(
+                        s, slot, 1, bid if rng.random() < 0.7 else None, ops
+                    )
+                )
+        elif r < 0.88:
+            vec = bytes().join(
+                int(slots[i] + rng.randint(0, 32)).to_bytes(
+                    8, "little", signed=True
+                )
+                for i in range(n_shards)
+            )
+            out.append(encode_barrier(vec))
+        elif r < 0.95:
+            out.append(
+                encode_ledger(
+                    s, max(0, slots[s] - 1),
+                    bytes(rng.getrandbits(8) for _ in range(16)),
+                )
+            )
+        else:
+            out.append(
+                encode_frontier(
+                    rng.randint(0, 5), sum(slots), list(slots)
+                )
+            )
+    return out
+
+
+def run_waves_on_both_wal_paths(
+    records: Sequence[bytes],
+    *,
+    tag: str = "",
+    segment_bytes: int = 2048,
+    n_shards: int = 4,
+    require_native: bool = True,
+) -> None:
+    """Durability-plane conformance: the SAME record sequence staged
+    through the C walkernel writer AND the pure-Python twin (the byte
+    format's semantics owner, what ``RABIA_PY_WAL=1`` forces) must
+    produce BYTE-IDENTICAL segment files; the shared recovery scan must
+    read back the exact sequence from both; a torn tail cut at an
+    arbitrary byte offset must truncate both recoveries to the same
+    whole-record prefix; and replaying the recovered wave records
+    through the native statekernel stores and the Python ``KVStore``
+    must land on identical state (checksums, versions, op stats) — the
+    byte-identical-recovery acceptance pin. Shared by the fixed gate
+    (tests/test_wal.py) and ``fuzz_conformance.py --wal``.
+
+    Under ``RABIA_PY_WAL=1`` the native writer is unavailable by DESIGN
+    and the gate returns without comparing anything (vacuous, like the
+    gateway gate under its env); with ``require_native`` (the default)
+    any OTHER build failure of walkernel raises instead of passing
+    vacuously.
+    """
+    import random as _random
+    import shutil
+    import tempfile
+    import uuid as _uuid
+    from pathlib import Path
+
+    from rabia_tpu_torch.apps.kvstore import KVStore
+    from rabia_tpu_torch.apps.sharded import make_sharded_kv
+    from rabia_tpu_torch.core.config import KVStoreConfig
+    from rabia_tpu_torch.core.types import BatchId, Command, CommandBatch, ShardId
+    from rabia_tpu_torch.native.build import load_walkernel
+    from rabia_tpu_torch.persistence.native_wal import (
+        K_WAVE,
+        WalPersistence,
+        decode_record,
+        scan_wal,
+        truncate_torn_tail,
+    )
+
+    if load_walkernel() is None:
+        assert not require_native or os.environ.get("RABIA_PY_WAL") == "1", (
+            f"{tag}: walkernel unavailable (build failure?) — the WAL "
+            "conformance gate would be vacuous"
+        )
+        return  # vacuous by design under RABIA_PY_WAL=1 / opted-out
+
+    root = Path(tempfile.mkdtemp(prefix="rabia-walgate-"))
+    try:
+        dirs = {"native": root / "c", "python": root / "py"}
+        for which, d in dirs.items():
+            d.mkdir()
+            p = WalPersistence(
+                d, segment_bytes=segment_bytes, n_shards=n_shards,
+                force_python=(which == "python"),
+            )
+            assert p.native == (which == "native"), (
+                f"{tag}: {which} writer backend not engaged"
+            )
+            for payload in records:
+                p._writer.append(payload)
+            p.flush_sync()
+            p.close()
+
+        files_c = sorted(x.name for x in dirs["native"].glob("wal-*.seg"))
+        files_p = sorted(x.name for x in dirs["python"].glob("wal-*.seg"))
+        assert files_c == files_p, (
+            f"{tag}: segment file sets diverge "
+            f"(native={files_c}, python={files_p})"
+        )
+        for name in files_c:
+            bc = (dirs["native"] / name).read_bytes()
+            bp = (dirs["python"] / name).read_bytes()
+            assert bc == bp, (
+                f"{tag}: segment {name} bytes diverge "
+                f"(native {len(bc)}B vs python {len(bp)}B, first diff at "
+                f"{next(i for i in range(min(len(bc), len(bp)) + 1) if i >= min(len(bc), len(bp)) or bc[i] != bp[i])})"
+            )
+
+        scan_c = scan_wal(dirs["native"])
+        scan_p = scan_wal(dirs["python"])
+        assert scan_c.torn is None and scan_p.torn is None, (
+            f"{tag}: clean log scanned as torn "
+            f"(native={scan_c.torn}, python={scan_p.torn})"
+        )
+        payloads = [r[3] for r in scan_c.records]
+        assert payloads == list(records), (
+            f"{tag}: native scan does not round-trip the staged records "
+            f"({len(payloads)} of {len(records)})"
+        )
+        assert [r[3] for r in scan_p.records] == list(records), (
+            f"{tag}: python scan does not round-trip the staged records"
+        )
+
+        # torn-tail differential: cut the log at a random byte offset in
+        # its tail region; both recoveries must land on the SAME
+        # whole-record prefix (and flag, not crash)
+        rng = _random.Random(len(records))
+        total = sum((dirs["native"] / n).stat().st_size for n in files_c)
+        cut = rng.randint(1, min(200, max(2, total // 4)))
+        torn_recs = {}
+        for which, d in dirs.items():
+            td = root / f"torn-{which}"
+            shutil.copytree(d, td)
+            segs = sorted(td.glob("wal-*.seg"))
+            left = cut
+            for seg in reversed(segs):
+                size = seg.stat().st_size
+                if size > left:
+                    with open(seg, "rb+") as f:
+                        f.truncate(size - left)
+                    break
+                seg.unlink()
+                left -= size
+            scan_t = scan_wal(td)
+            truncate_torn_tail(td, scan_t)
+            rescanned = scan_wal(td)
+            assert rescanned.torn is None, (
+                f"{tag}: {which} torn-tail truncation left a torn log "
+                f"({rescanned.torn})"
+            )
+            torn_recs[which] = [r[3] for r in scan_t.records]
+        assert torn_recs["native"] == torn_recs["python"], (
+            f"{tag}: torn-tail recovery prefixes diverge "
+            f"(native={len(torn_recs['native'])} records, "
+            f"python={len(torn_recs['python'])})"
+        )
+        assert torn_recs["native"] == payloads[: len(torn_recs["native"])], (
+            f"{tag}: torn-tail recovery is not a prefix of the full log"
+        )
+
+        # replay parity: recovered waves through the native statekernel
+        # stores AND the Python KVStore — identical state by construction
+        cfg = KVStoreConfig(max_keys=64, max_key_length=24, max_value_size=128)
+        sm_nat, m_nat = make_sharded_kv(n_shards, cfg, native=True)
+        sm_py, m_py = make_sharded_kv(n_shards, cfg, native=False)
+        null_id = _uuid.UUID(int=0)
+        applied = [0] * n_shards
+        for payload in payloads:
+            rec = decode_record(payload)
+            if rec["kind"] != K_WAVE:
+                continue
+            s = rec["shard"]
+            if s >= n_shards or rec["slot"] < applied[s]:
+                continue
+            if rec["value"] == 1 and rec["ops"] is not None:
+                bid_b = rec["bid"] or bytes(16)
+                batch = CommandBatch(
+                    id=BatchId(_uuid.UUID(bytes=bytes(bid_b))),
+                    commands=tuple(
+                        Command(id=null_id, data=bytes(op))
+                        for op in rec["ops"]
+                    ),
+                    shard=ShardId(s),
+                )
+                outcomes = []
+                for sm in (sm_nat, sm_py):
+                    try:
+                        outcomes.append(list(sm.apply_batch(batch)))
+                    except Exception as e:  # noqa: BLE001
+                        outcomes.append((type(e).__name__, str(e)))
+                assert outcomes[0] == outcomes[1], (
+                    f"{tag}: replay responses diverge at shard {s} slot "
+                    f"{rec['slot']} (native={outcomes[0]!r}, "
+                    f"python={outcomes[1]!r})"
+                )
+            applied[s] = rec["slot"] + 1
+        for s in range(n_shards):
+            st_n, st_p = m_nat[s].store, m_py[s].store
+            assert st_n.checksum() == st_p.checksum(), (
+                f"{tag}: shard {s} replayed state hash diverges"
+            )
+            assert st_n.version == st_p.version, (
+                f"{tag}: shard {s} replayed store version diverges"
+            )
+            sn, sp = st_n.stats, st_p.stats
+            assert (
+                sn.total_operations, sn.reads, sn.writes
+            ) == (sp.total_operations, sp.reads, sp.writes), (
+                f"{tag}: shard {s} replayed op stats diverge"
+            )
+        # restore path parity: Python KVStore restored from a fresh
+        # KVStore(cfg) is covered by the apply gate; here pin that BOTH
+        # recovered directories agree on the snapshot-frontier barrier
+        pn = WalPersistence(
+            dirs["native"], segment_bytes=segment_bytes, n_shards=n_shards
+        )
+        pp = WalPersistence(
+            dirs["python"], segment_bytes=segment_bytes, n_shards=n_shards,
+            force_python=True,
+        )
+        try:
+            assert pn.recovered.barrier == pp.recovered.barrier, (
+                f"{tag}: recovered vote barriers diverge"
+            )
+            assert pn.recovered.ledger == pp.recovered.ledger, (
+                f"{tag}: recovered ledgers diverge"
+            )
+        finally:
+            pn.close()
+            pp.close()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
+# Cross-session coalescing conformance (the round-15 gate)
+# ---------------------------------------------------------------------------
+
+def random_coalesce_schedule(
+    seed: int,
+) -> tuple[list[list[tuple[int, int, list[bytes]]]], int, int]:
+    """Random multi-client submit schedule for the coalescing gate.
+
+    Returns ``(rounds, n_clients, n_shards)`` — each round is a list of
+    ``(client, shard, ops)`` submissions launched CONCURRENTLY (one per
+    client at most, so per-client seqs stay sequential). Shard counts
+    are kept tiny so concurrent rounds collide on shards and the
+    coalescing windows actually pack. Every client writes only its own
+    key namespace and CAS uses only expected_version=0, so concurrent
+    submissions commute: outcomes are deterministic regardless of the
+    interleaving either lane picks.
+    """
+    import numpy as np
+
+    from rabia_tpu_torch.apps.kvstore import (
+        KVOperation,
+        encode_cas_bin,
+        encode_op_bin,
+        encode_set_bin,
+    )
+
+    rng = np.random.default_rng(seed + 1517)
+    n_clients = int(rng.integers(4, 9))
+    n_shards = int(rng.choice([1, 2]))
+    n_rounds = int(rng.integers(3, 7))
+
+    def one_op(ci: int) -> bytes:
+        k = f"c{ci}-k{int(rng.integers(0, 4))}"
+        r = float(rng.random())
+        if r < 0.50:
+            return encode_set_bin(k, "v%d" % int(rng.integers(0, 99)))
+        if r < 0.62:
+            return encode_op_bin(KVOperation.get(k))
+        if r < 0.72:
+            return encode_op_bin(KVOperation.delete(k))
+        if r < 0.80:
+            return encode_op_bin(KVOperation.exists(k))
+        if r < 0.92:
+            # create-if-absent CAS (expected_version=0): deterministic
+            # under any cross-client interleaving
+            return encode_cas_bin(k + "cas", "c", 0)
+        # invalid utf-8 key: packs (first byte = SET) and produces a
+        # deterministic per-op error result on both lanes. Unknown
+        # OPCODES are deliberately absent: they bypass packing onto the
+        # scalar-command lane, where an undecodable command fails the
+        # whole batch — identically on both legs, but as a client-level
+        # error this harness would mistake for a divergence.
+        return b"\x01\x03\x00\xff\xfe\xfd"
+
+    rounds = []
+    for _ in range(n_rounds):
+        who = rng.permutation(n_clients)[: int(rng.integers(2, n_clients + 1))]
+        rounds.append(
+            [
+                (
+                    int(ci),
+                    int(rng.integers(0, n_shards)),
+                    [one_op(int(ci)) for _ in range(int(rng.integers(1, 4)))],
+                )
+                for ci in who
+            ]
+        )
+    return rounds, n_clients, n_shards
+
+
+async def _run_coalesce_leg(
+    rounds, n_clients: int, n_shards: int, coalesce: bool, tag: str
+) -> dict:
+    import uuid as _uuid
+
+    from rabia_tpu_torch.core.messages import Submit
+    from rabia_tpu_torch.gateway import GatewayConfig, RabiaClient
+    from rabia_tpu_torch.testing.gateway_cluster import GatewayCluster
+
+    cfg = GatewayConfig(
+        coalesce=coalesce,
+        # pinned windows (no adaptive shrink): concurrent round
+        # submissions must land in one flush for the gate to be
+        # non-vacuous
+        coalesce_window=0.03,
+        coalesce_window_min=0.03,
+    )
+    cluster = GatewayCluster(
+        n_replicas=3, n_shards=n_shards, gateway_config=cfg
+    )
+    await cluster.start()
+    clients = []
+    out: dict = {"responses": {}, "cmds": {}}
+    try:
+        for i in range(n_clients):
+            # every client on ONE gateway: the consistent-hash-routed
+            # fleet shape (ROADMAP item 2) — and the only shape where
+            # same-shard windows reliably pack for the gate
+            c = RabiaClient(
+                [cluster.endpoint(0)],
+                call_timeout=30.0,
+                client_id=_uuid.UUID(int=(0xC0A1E5CE << 32) | i),
+            )
+            await c.connect()
+            clients.append(c)
+        seqs = [0] * n_clients
+
+        async def one(ci: int, shard: int, ops: list) -> None:
+            seqs[ci] += 1
+            seq = seqs[ci]
+            r = await clients[ci].submit(shard, ops)
+            out["responses"][(ci, seq)] = tuple(bytes(x) for x in r)
+            out["cmds"][(ci, seq)] = (shard, tuple(ops))
+
+        for rnd in rounds:
+            await asyncio.gather(
+                *(one(ci, s, ops) for ci, s, ops in rnd)
+            )
+        await cluster.wait_converged()
+        # replay EVERY (client, seq) raw: exactly-once requires a
+        # byte-identical answer (dedup cache or ledger) and ZERO state
+        # mutation — mutation counts are the race-free double-apply
+        # detector (decided-slot counts can grow from benign duplicate-
+        # forwarding races that dedup at apply)
+        muts_before = [
+            [m.store.version for m in ms] for ms in cluster.machines
+        ]
+        for (ci, seq), (shard, ops) in out["cmds"].items():
+            res = await clients[ci]._call(
+                seq,
+                Submit(
+                    client_id=clients[ci].client_id, seq=seq,
+                    shard=shard, commands=ops,
+                ),
+            )
+            replay = tuple(bytes(x) for x in res.payload)
+            assert replay == out["responses"][(ci, seq)], (
+                f"{tag}: replay of client {ci} seq {seq} returned "
+                f"different bytes (coalesce={coalesce})"
+            )
+        await asyncio.sleep(0.2)
+        assert [
+            [m.store.version for m in ms] for ms in cluster.machines
+        ] == muts_before, (
+            f"{tag}: replays mutated state — double apply "
+            f"(coalesce={coalesce})"
+        )
+        out["checksums"] = [
+            [m.store.checksum() for m in ms] for ms in cluster.machines
+        ]
+        out["versions"] = [
+            m.store.version for m in cluster.machines[0]
+        ]
+        # version-INSENSITIVE key/value state: entry version stamps are
+        # interleaving-dependent, so enumerate the schedule's key
+        # namespace through the store API instead of hashing entries
+        keys = [
+            f"c{ci}-k{j}{suffix}"
+            for ci in range(n_clients)
+            for j in range(4)
+            for suffix in ("", "cas")
+        ]
+        state = []
+        for s in range(n_shards):
+            store = cluster.machines[0][s].store
+            vals = {}
+            for k in keys:
+                res = store.get(k)
+                if getattr(res, "value", None) is not None:
+                    vals[k] = res.value
+            state.append(sorted(vals.items()))
+        out["state"] = state
+        gw_stats = [g.stats for g in cluster.gateways]
+        out["coalesced"] = sum(s.submits_coalesced for s in gw_stats)
+        out["waves"] = sum(s.coalesce_waves for s in gw_stats)
+    finally:
+        for c in clients:
+            await c.close()
+        await cluster.stop()
+    return out
+
+
+async def run_submits_on_coalesce_paths(
+    rounds, n_clients: int, n_shards: int, *, tag: str = ""
+) -> None:
+    """Coalescing-lane conformance: the SAME multi-client submit
+    schedule through a coalesce-ON cluster and a coalesce-OFF cluster
+    (the per-submit round-10 lane) must produce:
+
+    - semantically identical per-client responses (result kind + value;
+      version stamps are interleaving-dependent in BOTH lanes and are
+      excluded — see KVStore._version),
+    - identical final key/value state and per-shard store MUTATION
+      COUNTS across paths and replicas (a double apply anywhere bumps a
+      count),
+    - and, within each leg, byte-identical answers to a full replay of
+      every (client, seq) with zero new proposals (exactly-once).
+
+    The ON leg must actually coalesce (non-vacuousness) — the schedule
+    generator keeps shard counts tiny so windows pack.
+    """
+    from rabia_tpu_torch.apps.kvstore import decode_result_bin
+
+    on = await _run_coalesce_leg(
+        rounds, n_clients, n_shards, True, f"{tag}[coalesce]"
+    )
+    off = await _run_coalesce_leg(
+        rounds, n_clients, n_shards, False, f"{tag}[per-submit]"
+    )
+    assert on["waves"] >= 1 and on["coalesced"] >= 2, (
+        f"{tag}: coalesce leg never packed a multi-client wave "
+        f"(coalesced={on['coalesced']}) — gate vacuous"
+    )
+    assert off["coalesced"] == 0, (
+        f"{tag}: per-submit leg coalesced — legs misconfigured"
+    )
+    assert set(on["responses"]) == set(off["responses"]), (
+        f"{tag}: completed submit sets diverge"
+    )
+    for key in on["responses"]:
+        a, b = on["responses"][key], off["responses"][key]
+        assert len(a) == len(b), (
+            f"{tag}: response arity diverges for {key}"
+        )
+        for ra, rb in zip(a, b):
+            da, db = decode_result_bin(ra), decode_result_bin(rb)
+            ka = (da.kind, da.value, da.error)
+            kb = (db.kind, db.value, db.error)
+            assert ka == kb, (
+                f"{tag}: response diverges for {key}: {ka} != {kb}"
+            )
+    assert on["state"] == off["state"], (
+        f"{tag}: final key/value state diverges across lanes"
+    )
+    assert on["versions"] == off["versions"], (
+        f"{tag}: per-shard mutation counts diverge across lanes "
+        f"(double apply): {on['versions']} != {off['versions']}"
+    )
+    for leg in (on, off):
+        sums = leg["checksums"]
+        assert all(s == sums[0] for s in sums[1:]), (
+            f"{tag}: replicas diverge within a leg"
+        )

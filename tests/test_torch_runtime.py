@@ -86,6 +86,19 @@ async def _teardown(engines, tasks, nets):
         await n.close()
 
 
+async def _steady(engines, S: int) -> None:
+    """Wait until every replica has applied every slot decided anywhere.
+    The futures of a wave settle on its proposers first; a replica still
+    deciding the last wave when the next one's announce lands is a loaded
+    host's race (the decision can overtake the announce and take the
+    scalar lane), not the steady state the GIL-handoff tests measure."""
+    for _ in range(1000):
+        top = np.max([e.rt.next_slot[:S] for e in engines], 0)
+        if all((e.rt.applied_upto[:S] >= top).all() for e in engines):
+            return
+        await asyncio.sleep(0.01)
+
+
 def _own_shards(e, S: int) -> np.ndarray:
     shard_ids = np.arange(S)
     head = np.maximum(e.rt.next_slot[:S], e.rt.applied_upto[:S])
@@ -194,6 +207,7 @@ class TestRuntimeCommit:
                     for r in results:
                         for entry in r:
                             assert not isinstance(entry, Exception)
+                    await _steady(engines, S)
                 assert e0._rtm.counter("waves_native") > waves_before
                 assert e0._rtm.counter("gil_handoffs") == gil_before, (
                     "steady-state native waves took a GIL handoff"
@@ -264,6 +278,49 @@ class TestRuntimeConformance:
                 schedule, n_shards=3, n_replicas=3, tag="fixed-runtime"
             )
         )
+
+
+class TestNoDeduplicatedSlot:
+    """A decided slot whose record has not reached Python yet holds the
+    queue head back (``RabiaEngine._decided_unapplied(unseen_holds=True)``
+    on the runtime path): the runtime thread moves ``next_slot`` at the
+    decision, so a head forwarded or proposed in that window commits a
+    second time (the deduplicated slot of ROADMAP Queue 3)."""
+
+    def test_unseen_decided_slot_holds_the_head(self):
+        from rabia_tpu_torch.core.types import BatchId
+        from rabia_tpu_torch.engine.state import EngineRuntime
+
+        rt = EngineRuntime(2)
+        sh = rt.shards[0]
+        sh.applied_upto = 3
+        sh.next_slot = 4  # slot 3 decided, its record still in the mailbox
+        bid = BatchId.new()
+        assert RabiaEngine._decided_unapplied(sh, bid, unseen_holds=True)
+        assert not RabiaEngine._decided_unapplied(sh, bid)
+        sh.applied_upto = 4
+        assert not RabiaEngine._decided_unapplied(sh, bid, unseen_holds=True)
+
+    @pytest.mark.parametrize("rep", range(3))
+    def test_runtime_leg_decides_each_batch_once(self, rep, monkeypatch):
+        """The runtime gate's 9 × 3 schedule on 7 workers: no slot
+        commits a batch an earlier slot of its shard committed."""
+        from rabia_tpu_torch.testing.conformance import _run_runtime_schedule
+
+        monkeypatch.setenv("RABIA_RT_WORKERS", "7")
+        monkeypatch.delenv("RABIA_PY_RUNTIME", raising=False)
+        n = 9
+        rng = np.random.default_rng(100 + rep)
+        schedule = [
+            {
+                int(s): [(f"k{int(s)}-{w}", f"v{w}")]
+                for s in rng.choice(n, size=n // 2, replace=False)
+            }
+            for w in range(4)
+        ]
+        leg = asyncio.run(_run_runtime_schedule(schedule, n, 3, tag="once"))
+        assert leg[3], "runtime inactive"
+        assert leg[4]["left_out"]["dedup_slots"] == []
 
 
 class TestRuntimeShutdown:
@@ -457,6 +514,7 @@ class TestShardGroupRuntime:
                                 continue
                             assert not isinstance(entry, Exception)
                             settled += 1
+                    await _steady(engines, S)
                 assert settled > 0
                 assert rtm.counter("waves_native") > waves_before
                 assert rtm.counter("gil_handoffs") == gil_before, (
