@@ -220,7 +220,7 @@ read by ReadIndex through a gateway whose reader is
 card fed every committed SET (one ``kv_read`` launch a probe round) and
 through a gateway over a replica's native store: byte-equal answers,
 equal to the last acknowledged write; (b) ``RecoveryHarness(5, 4096)``,
-five replica processes on ``WalPersistence``, 20000 keys preloaded,
+five replica processes on ``WalPersistence``, 2000 keys preloaded,
 replica 1 killed by SIGKILL under load and restarted; every
 acknowledged write reads back through its gateway and equals the answer
 of ``devkv_read_handler(...).read_many`` over a ``MeshEngine`` on the
@@ -229,20 +229,58 @@ writes/s, submit-to-ack and read p50/p99, the WAL's fsyncs, bytes and
 records a fsync with its filesystem, the durable LSN, the probe rounds
 and the ``kv_read`` device ms by CUDA events, the ratio of (a)'s
 writes/s to phase 12 (b)'s runtime decisions/s, and (b)'s restore, WAL
-replay, torn tail, rejoin-under-load and post-rejoin goodput.
+replay, torn tail, rejoin-under-load and post-rejoin goodput. While (a)'s
+writes run, the gateways' slow Submits are decomposed into critical-path
+segments (``obs/critpath``: gateway queue, coalesce park, propose to
+open, consensus phases, decide to apply, fsync barrier, result fanout,
+unattributed), printed beside the runtime's stage clocks (RTS).
+
+Phase 14 (after phase 13, with its own counts) runs a routed fleet at
+config 3's width over phase 13's durable cluster: ``FleetHarness(3, 5,
+4096, persistence="wal")``, 64 ``FleetSession`` clients through one
+``FleetConnPool``, one wave of one SET a shard; a third of the way in
+the ring drops a member (``rebalance``, sessions handed off, clients
+follow MOVED), at two thirds gateway 0 is killed (``kill_gateway``; its
+clients fail over to the ring's successor with the same seq). Every (client, seq) is replayed through the fleet (CACHED,
+the original bytes, no new slot); the committed SETs feed a
+``MeshEngine(device_store=True)`` on the card, the fleet gateways' reads
+go to a replica gateway whose reader is ``devkv_read_handler`` over it,
+and every key read by ReadIndex through the fleet equals a replica's
+native store and the last acknowledged write. It prints the acknowledged
+writes/s through the fleet, submit-to-ack p50/p99, MOVED redirects,
+failovers and ledger records, the ``kv_read`` launches with their device
+ms by CUDA events and the probe's by graph replay, the fleet aggregator's
+table (``obs/fleet_obs``) and the critical path of the fleet's slow
+Submits.
+
+Phase 15 (after phase 14, with its own counts) runs the chaos smoke set's
+profile that uses the card (``chaos.smoke_profiles()``'s
+``mesh_device_read_lane``) at 4096 shards x 5 replicas with its engine on
+the card, its events, rate and time scale as the reference defines them;
+its pass, availability and problems are printed and checked (its verify:
+probe reads, no lockstep divergence, the forced demotion). Then the mesh
+fabric at that width is demoted (``demote_device``) and driven until its
+device lane re-promotes, with probe reads after it and its verify sweep.
+The set's six host-only profiles (simulator, real-TCP, membership,
+coalescing, routed-fleet, shard-group) run in the CPU tests
+(tests/test_torch_chaos.py) and through scripts/torch_chaos_probe.py.
 
 Phases 3-5, 7, 8 and 9's lanes also run on the CPU at a small size
 (tests/test_torch_slice.py), phase 10 at config 2's shape
 (tests/test_torch_engine_conformance.py), phase 11 at a small size
 (tests/test_torch_apps_engine.py), phase 12 at a small size
-(tests/test_torch_native_conformance.py) and phase 13 (a) at 3 x 8
-(tests/test_torch_gateway.py).
+(tests/test_torch_native_conformance.py), phase 13 (a) at 3 x 8
+(tests/test_torch_gateway.py), phase 14 at 3 fleet gateways over 3 x 32
+(tests/test_torch_fleet.py), and phase 15's smoke profiles and lane cycle
+(tests/test_torch_chaos.py; the mesh profile and the lane cycle at a
+small size, tests/test_torch_fleet.py).
 """
 
 from __future__ import annotations
 
 import asyncio
 import concurrent.futures
+import dataclasses
 import gc
 import json
 import os
@@ -269,6 +307,8 @@ from rabia_tpu_torch.apps.kvstore import (
 )
 from rabia_tpu_torch.apps.sharded import ShardedKVService, ShardedStateMachine, make_sharded_kv
 from rabia_tpu_torch.apps.vector_kv import VectorKVStore, VectorShardedKV
+from rabia_tpu_torch.chaos import run_profile, smoke_profiles
+from rabia_tpu_torch.chaos.runner import _MeshFabric
 from rabia_tpu_torch.core.blocks import build_block
 from rabia_tpu_torch.core.errors import RabiaError
 from rabia_tpu_torch.core.messages import ResultStatus, Submit
@@ -281,6 +321,8 @@ from rabia_tpu_torch.core.smr import SMRBridge
 from rabia_tpu_torch.core.types import ABSENT, V0, V1, Command, CommandBatch, NodeId, quorum_size
 from rabia_tpu_torch.engine import RabiaEngine
 from rabia_tpu_torch.engine.leader import slot_proposer_vec
+from rabia_tpu_torch.fleet.gateway_proc import _UpstreamLink
+from rabia_tpu_torch.fleet.harness import FleetConnPool, FleetHarness, FleetSession
 from rabia_tpu_torch.gateway import (
     GatewayConfig,
     GatewayServer,
@@ -298,10 +340,18 @@ from rabia_tpu_torch.kernel import (
 from rabia_tpu_torch.kernel.phase_driver import device_coin
 from rabia_tpu_torch.native import build as native_build
 from rabia_tpu_torch.net import InMemoryHub, TcpNetwork
+from rabia_tpu_torch.obs.critpath import (
+    CritpathAggregator,
+    decompose,
+    dominant_segment,
+    inprocess_exemplar_timeline,
+)
+from rabia_tpu_torch.obs.fleet_obs import FleetAggregator, render_fleet_table
 from rabia_tpu_torch.persistence import FileSystemPersistence
 from rabia_tpu_torch.testing.conformance import run_schedule_on_both_planes, settle_quantiles
 from rabia_tpu_torch.testing.fault_injection import ConsensusTestHarness, Fault, FaultType
 from rabia_tpu_torch.testing.gateway_cluster import GatewayCluster
+from rabia_tpu_torch.testing.loadsession import LoadSession
 from rabia_tpu_torch.testing.recovery import RecoveryHarness
 
 S_FULL, R_FULL, T_FULL = 4096, 5, 32768  # BASELINE.json config 3 geometry, bench.py depth
@@ -349,10 +399,21 @@ NATIVE_LIBS = ("transport", "codec", "hostkernel", "statekernel", "runtime", "wa
 # phase 13: the durability plane and the gateway at config 3's width (4096
 # shards x 5 replicas): 64 client sessions, 4 waves of one SET a shard
 # (32-byte keys, 64-byte values); the kill -9 trial preloads
-# benchmarks/recovery_bench.py's 100x point (RB_BASE_KEYS 200 x 100)
+# benchmarks/recovery_bench.py's 10x point (RB_BASE_KEYS 200 x 10; its 100x
+# point, 20000 keys, until the script outgrew its time: PERF.md section 4)
 P13_SESSIONS, P13_WAVES, P13_KEY, P13_VAL = 64, 4, 32, 64
-P13_PRELOAD = 20000
+P13_PRELOAD = 2000
 P13_LOAD_RATE = 50.0  # the load generator's SETs a second (the trial's)
+# phase 14: a routed fleet of 3 gateways over phase 13's durable cluster at
+# config 3's width: 64 sessions through one connection pool, one wave of one
+# SET a shard (2 until the script outgrew its time: PERF.md section 4); the
+# ring drops a member a third of the way in, a gateway is killed at two
+# thirds
+P14_GATEWAYS, P14_SESSIONS, P14_WAVES = 3, 64, 1
+# phase 15: the chaos smoke set's profiles that run on the card (the mesh
+# fabric's) at config 3's width; its host-only profiles run in the CPU tests
+# (tests/test_torch_chaos.py), cut from here for the script's time
+P15_MESH_S, P15_MESH_R = S_FULL, R_FULL
 # int32 operations/s of an H100 SXM: 132 SMs x 64 INT32 lanes x 1.98 GHz
 # (the Hopper white paper's per-SM unit count and the SXM boost clock)
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
@@ -3153,8 +3214,11 @@ async def durable_gateway_run(device, S: int = S_FULL, R: int = R_FULL, waves: i
     over a ``MeshEngine(device_store=True)`` on ``device`` fed every
     committed SET, and through a gateway over a replica's native store
     (``kv_read_handler``): both answers byte-equal and equal to the last
-    acknowledged value and version. The engine, the gateways and the
-    ``MeshEngine`` run on this one event-loop thread."""
+    acknowledged value and version. While the writes run, the gateways'
+    slow Submits are decomposed into critical-path segments
+    (``obs/critpath``), beside the runtime's stage clocks (RTS) over the
+    same span. The engine, the gateways and the ``MeshEngine`` run on this
+    one event-loop thread."""
     # result caches kept for the replay: no session GC inside the phase
     gw_cfg = GatewayConfig(gc_interval=3600.0)
     cluster = GatewayCluster(R, S, config=_tcp_config(S), gateway_config=gw_cfg,
@@ -3173,6 +3237,9 @@ async def durable_gateway_run(device, S: int = S_FULL, R: int = R_FULL, waves: i
         lat: list = []
         wal0 = _wal_totals(cluster.engines)
         slots0 = await _committed_slots(cluster.engines)
+        rts0 = _rts_seconds(cluster.engines)
+        sampler = _CritpathSampler(lambda: cluster.gateways, lambda: cluster.engines,
+                                   lambda: ()).start()
 
         async def writer(ci: int, w: int) -> None:
             c = clients[ci]
@@ -3188,6 +3255,8 @@ async def durable_gateway_run(device, S: int = S_FULL, R: int = R_FULL, waves: i
         for w in range(waves):
             await asyncio.gather(*(writer(ci, w) for ci in range(sessions)))
         write_s = time.perf_counter() - t0
+        cp = await sampler.stop()
+        rts = _rts_delta(rts0, _rts_seconds(cluster.engines))
         wal1 = _wal_totals(cluster.engines)
         durable = [int(e._wal.durable_lsn()) for e in cluster.engines]
         acked = sum(len(lg) for lg in logs)
@@ -3289,6 +3358,7 @@ async def durable_gateway_run(device, S: int = S_FULL, R: int = R_FULL, waves: i
             "kv_read_device_ms": kvr_ms if on_card else "not measured (CPU)",
             "devkv_read_s": dev_read_s, "devkv_read_p50_s": rp50, "devkv_read_p99_s": rp99,
             "host_read_s": host_read_s, "host_read_p50_s": hp50, "host_read_p99_s": hp99,
+            "critpath": cp, "rts_stages": rts,
             "planes": planes[0], **{f"feed_{k}": v for k, v in feed.items()},
         }
     finally:
@@ -3437,6 +3507,456 @@ def recovery_run(device, S: int = S_FULL, R: int = R_FULL, preload: int = P13_PR
     interpreters (never forked from this process, which holds the card)."""
     return asyncio.run(_recovery_trial(device, S, R, preload, kill))
 
+
+
+# -- critical-path sampling (phases 13 (a) and 14) ----------------------------
+
+
+class _CritpathSampler:
+    """Decomposes the gateways' young slowlog exemplars while a phase runs
+    (``obs/critpath``): every ``interval`` s, the ``per_tick`` slowest of
+    the gateways' recent fresh-Submit completions (each reservoir's top
+    ``per_gateway``) not seen yet are decomposed from the engines' (and
+    fleet gateways') flight rings while the rings still hold them, and fed
+    to one ``CritpathAggregator`` (a wrapped ring counts as truncated, a
+    missing anchor as unanchored: neither enters the means). It runs on
+    the phase's event loop; ``busy_s`` is what it took there."""
+
+    def __init__(self, gateways, engines, fleet=(), interval: float = 2.0,
+                 max_age_s: float = 3.0, per_gateway: int = 4, per_tick: int = 2) -> None:
+        self.gateways, self.engines, self.fleet = gateways, engines, fleet
+        self.interval, self.max_age_s = interval, max_age_s
+        self.per_gateway, self.per_tick = per_gateway, per_tick
+        self.agg = CritpathAggregator()
+        self.seen: set = set()
+        self.walls: list = []
+        self.dominants: dict = {}
+        self.busy_s = 0.0
+        self.ticks = 0
+        self._task = None
+
+    def sample(self) -> None:
+        t0 = time.perf_counter()
+        fresh = []
+        for g in self.gateways():
+            if g is None:
+                continue
+            for ex in g.slowlog.document(self.per_gateway).get("exemplars", []):
+                key = (ex.get("batch"), ex.get("wave"))
+                if key not in self.seen and float(ex.get("age_s", 0.0)) <= self.max_age_s:
+                    self.seen.add(key)
+                    fresh.append(ex)
+        # the slowest few a tick: each costs a pass over every engine's rings
+        fresh = sorted(fresh, key=lambda e: -float(e.get("wall_s") or 0.0))[:self.per_tick]
+        if fresh:
+            engines = [e for e in self.engines() if e is not None]
+            events = [e.flight_events() for e in engines]  # each ring read once a tick
+            rec = [(g.flight, g.config.name, g._row) for g in self.fleet() if g is not None]
+            for ex in fresh:
+                d = decompose(inprocess_exemplar_timeline(engines, ex, rec, events=events),
+                              coalesced=ex.get("coalesced"), wall_s=ex.get("wall_s"))
+                if self.agg.add(d):
+                    self.walls.append(float(ex.get("wall_s") or d["total_s"]))
+                    dom = dominant_segment(d)
+                    self.dominants[dom] = self.dominants.get(dom, 0) + 1
+        self.ticks += 1
+        self.busy_s += time.perf_counter() - t0
+
+    async def _run(self) -> None:
+        while True:
+            await asyncio.sleep(self.interval)
+            self.sample()
+
+    def start(self) -> "_CritpathSampler":
+        self._task = asyncio.ensure_future(self._run())
+        return self
+
+    async def stop(self) -> dict:
+        self._task.cancel()
+        try:
+            await self._task
+        except asyncio.CancelledError:
+            pass
+        self.sample()
+        s = self.agg.summary()
+        segs = s["segments"]
+        total = sum(segs.values())
+        return {
+            "exemplars": s["exemplars"], "decomposed": len(self.walls),
+            "truncated": s["truncated"], "unanchored": s["unanchored"],
+            "exemplar_wall_p50_s": settle_quantiles(self.walls)[0],
+            "segments_mean_ms": {k: round(v * 1e3, 3) for k, v in segs.items()},
+            "segments_share": {k: round(v / total, 4) for k, v in segs.items()} if total else {},
+            "dominant_counts": self.dominants,
+            "sampler_ticks": self.ticks, "sampler_busy_s": round(self.busy_s, 3),
+        }
+
+
+def _rts_seconds(engines) -> dict:
+    """The native runtime's stage clocks (RTS, ns) summed over replicas."""
+    out: dict = {}
+    for e in engines:
+        if e is not None and e._rtm is not None:
+            for k, v in e._rtm.stages_dict().items():
+                out[k] = out.get(k, 0) + int(v)
+    return out
+
+
+def _rts_delta(a: dict, b: dict) -> dict:
+    d = {k: (b.get(k, 0) - a.get(k, 0)) / 1e9 for k in b}
+    tot = sum(d.values())
+    return {"seconds": {k: round(v, 4) for k, v in d.items()},
+            "share": {k: round(v / tot, 4) for k, v in d.items()} if tot else {}}
+
+
+def _fmt_critpath(cp: dict) -> str:
+    segs = sorted(cp["segments_mean_ms"].items(), key=lambda kv: -kv[1])
+    return (f"{cp['decomposed']} slow Submits decomposed ({cp['truncated']} truncated, "
+            f"{cp['unanchored']} unanchored), mean ms by segment "
+            + ", ".join(f"{k} {v:.1f} ({cp['segments_share'].get(k, 0) * 100:.0f}%)"
+                        for k, v in segs))
+
+
+# -- phase 14 ------------------------------------------------------------------
+
+
+def _fleet_upstreams(gw, addrs: list) -> None:
+    """Point a fleet gateway's proxied traffic (its reads' too) at
+    ``addrs``, closing its links to the old upstreams."""
+    old = gw._upstreams
+    gw.config = dataclasses.replace(gw.config, upstreams=tuple(addrs))
+    gw._upstreams = [_UpstreamLink(gw, h, p) for h, p in addrs]
+    for up in old:
+        asyncio.ensure_future(up.close())
+
+
+async def _fleet_reads(readers, items: list, lat: list, retries: list) -> list:
+    """Every (shard, key) read by ReadIndex through the fleet gateways, the
+    items dealt to the readers in turn. A RETRY (a probe round that timed
+    out) is read again and counted."""
+    out: list = [None] * len(items)
+
+    async def one(ri: int) -> None:
+        r = readers[ri]
+        for i in range(ri, len(items), len(readers)):
+            s, k = items[i]
+            t = time.perf_counter()
+            for _ in range(10):
+                res = await r.read(s, k, 120.0)
+                if res.status != ResultStatus.RETRY:
+                    break
+                retries[0] += 1
+            lat.append(time.perf_counter() - t)
+            _check(res.status == ResultStatus.OK, f"phase 14: read of shard {s}: {res.status}")
+            out[i] = bytes(res.payload[0])
+
+    await asyncio.gather(*(one(ri) for ri in range(len(readers))))
+    return out
+
+
+async def fleet_run(device, S: int = S_FULL, R: int = R_FULL, waves: int = P14_WAVES,
+                    sessions: int = P14_SESSIONS, n_gateways: int = P14_GATEWAYS) -> dict:
+    """Phase 14: a routed fleet (``FleetHarness(n_gateways, R, S,
+    persistence="wal")``: phase 13's durable cluster as the replica tier,
+    ``n_gateways`` fleet gateways on a hash ring in front of it) under
+    ``sessions`` ``FleetSession`` clients sharing one ``FleetConnPool``:
+    ``waves`` waves of one SET on every shard (32-byte keys, 64-byte
+    values, shard s written only by session s % sessions). Between the
+    waves the ring drops its last member (``rebalance``: it hands its
+    sessions off and answers MOVED); halfway through the last wave
+    gateway 0 is killed (``kill_gateway``: no handoff, the survivors
+    adopt the shrunken ring) and its clients fail over to the ring's
+    successor with the same seq. With one wave the drop comes a third of
+    the way in, the kill two thirds. Then every (client, seq) is replayed
+    through the fleet and must answer CACHED with the original bytes and
+    no new decided slot; the cluster's committed SETs feed a
+    ``MeshEngine(device_store=True)`` on ``device``, the fleet gateways'
+    reads go to a replica gateway whose reader is ``devkv_read_handler``
+    over it, and every key read by ReadIndex through the fleet must equal
+    a replica's native store byte for byte and the last acknowledged
+    write (its version ``waves``: no write applied twice). The slow
+    Submits are decomposed along the way (``obs/critpath``), and the
+    fleet aggregator's table (``obs/fleet_obs``) is printed."""
+    h = FleetHarness(n_gateways=n_gateways, n_replicas=R, n_shards=S, persistence="wal",
+                     gateway_config=GatewayConfig(gc_interval=3600.0))
+    h.cluster.config = _tcp_config(S)  # phase 12's engine settings, as in phase 13
+    await h.start()
+    pool = FleetConnPool(h.ser)
+    clients: list = []
+    readers: list = []
+    devgw = None
+    try:
+        resolver = h.resolver()
+        sess = [FleetSession(h.ser, resolver, pool=pool, call_timeout=120.0)
+                for _ in range(sessions)]
+        # a member that does not answer within the timeout is marked stale
+        agg = FleetAggregator(("127.0.0.1", h.gateways[0].port), timeout=3.0)
+        await agg.refresh()
+        await agg.sample()
+        sampler = _CritpathSampler(lambda: h.cluster.gateways, lambda: h.cluster.engines,
+                                   lambda: h.gateways).start()
+        logs: list = [[] for _ in sess]  # (seq, shard, commands, payload)
+        lat: list = []
+        acked = [0]
+        total = waves * S
+        marks = ([S, S + S // 2] if waves > 1 else [S // 3, 2 * S // 3])
+        hit = [asyncio.Event(), asyncio.Event()]
+        slots0 = await _committed_slots(h.cluster.engines)
+
+        async def writer(ci: int, w: int) -> None:
+            c = sess[ci]
+            for s in range(ci, S, sessions):
+                cmds = [encode_set_bin(_p13_key(s, "f"), _p13_val(w, s))]
+                t = time.perf_counter()
+                res = await c.submit(s, cmds, timeout=600.0)
+                lat.append(time.perf_counter() - t)
+                _check(res.status in (ResultStatus.OK, ResultStatus.CACHED)
+                       and decode_kv_response(res.payload[0]).ok,
+                       f"phase 14: SET on shard {s} answered {res.status}")
+                logs[ci].append((res.seq, s, cmds, tuple(bytes(p) for p in res.payload)))
+                acked[0] += 1
+                for m, ev in zip(marks, hit):
+                    if acked[0] == m:
+                        ev.set()
+
+        async def events() -> None:
+            if waves == 1:
+                await hit[0].wait()
+                await h.rebalance(range(n_gateways - 1))
+            await hit[1].wait()
+            await h.kill_gateway(0)
+
+        ev_task = asyncio.ensure_future(events())
+        t0 = time.perf_counter()
+        for w in range(waves):
+            await asyncio.gather(*(writer(ci, w) for ci in range(sessions)))
+            if w == 0 and waves > 1:
+                await h.rebalance(range(n_gateways - 1))
+        write_s = time.perf_counter() - t0
+        await ev_task
+        cp = await sampler.stop()
+        _check(acked[0] == total, f"phase 14: {acked[0]} acks, not {total}")
+        fleet_doc = await agg.sample()  # its inventory still lists the killed member
+        table_txt = render_fleet_table(fleet_doc)
+        redirects = sum(c.redirects for c in sess)
+        failovers = sum(c.failovers for c in sess)
+        live = [g for g in h.gateways if g is not None]
+        st = {k: sum(getattr(g.stats, k) for g in live)
+              for k in ("moved", "ledger_sent", "ledger_applied", "handoff_out_sessions",
+                        "handoff_in_sessions", "forwarded", "cached_replays")}
+        _check(redirects > 0, "phase 14: no client followed a MOVED")
+        _check(failovers > 0, "phase 14: no client failed over after the kill")
+
+        # the replay: every (client, seq) again through the fleet
+        slots1 = await _committed_slots(h.cluster.engines)
+
+        async def replay(ci: int) -> int:
+            c, n = sess[ci], 0
+            for seq, s, cmds, payload in logs[ci]:
+                res = await c.submit_seq(seq, s, cmds, timeout=600.0)
+                _check(res.status == ResultStatus.CACHED
+                       and tuple(bytes(p) for p in res.payload) == payload,
+                       f"phase 14: replay of ({ci}, {seq}) answered {res.status}")
+                n += 1
+            return n
+
+        t0 = time.perf_counter()
+        replayed = sum(await asyncio.gather(*(replay(ci) for ci in range(sessions))))
+        replay_s = time.perf_counter() - t0
+        await asyncio.sleep(0.5)
+        slots2 = await _committed_slots(h.cluster.engines)
+        _check(slots2 == slots1, f"phase 14: the replay decided new slots {slots1} -> {slots2}")
+
+        # the card's table behind the fleet's reads
+        await h.cluster.wait_converged(120)
+        streams = [[encode_set_bin(_p13_key(s, "f"), _p13_val(w, s)) for w in range(waves)]
+                   for s in range(S)]
+        table, feed, mesh = _device_feed_engine(device, S, R, streams, "14")
+        want = {(s, _p13_key(s, "f").encode()): (_p13_val(waves - 1, s).encode(), waves)
+                for s in range(S)}
+        _check(table == want, "phase 14: the device table differs from the acked writes")
+        devgw = GatewayServer(h.cluster.engines[0], reader=devkv_read_handler(mesh),
+                              config=GatewayConfig(gc_interval=3600.0))
+        await devgw.start()
+        for g in h.cluster.gateways:
+            devgw.add_peer_gateway(g.node_id, "127.0.0.1", g.port)
+            g.add_peer_gateway(devgw.node_id, "127.0.0.1", devgw.port)
+        for g in live:
+            _fleet_upstreams(g, [("127.0.0.1", devgw.port)])
+        items = [(s, _p13_key(s, "f").encode()) for s in range(S)]
+        readers = [LoadSession(h.ser) for _ in range(sessions)]
+        for i, r in enumerate(readers):
+            g = live[i % len(live)]
+            await pool.attach(r, ("127.0.0.1", g.port), 60.0)
+        on_card = torch.device(device).type == "cuda"
+        kv_window.KV_WINDOW.events = [] if on_card else None
+        n0 = _kernel_counts()
+        rounds0 = devgw.stats.probe_rounds
+        read_lat: list = []
+        retries = [0]
+        try:
+            t0 = time.perf_counter()
+            fleet_ans = await _fleet_reads(readers, items, read_lat, retries)
+            read_s = time.perf_counter() - t0
+            timed = [(_KV_FORM_KERNEL[f], a, b) for f, a, b in kv_window.KV_WINDOW.events or ()]
+        finally:
+            kv_window.KV_WINDOW.events = None
+        kvr = _kernel_counts()["kv_read"] - n0["kv_read"]
+        rounds = devgw.stats.probe_rounds - rounds0
+        kvr_ms = sum(a.elapsed_time(b) for k, a, b in timed if k == "kv_read") if on_card else None
+        _check(devgw.stats.reads >= S and devgw.stats.reads_failed == 0,
+               f"phase 14: the device reader served {devgw.stats.reads} reads, "
+               f"{devgw.stats.reads_failed} failed")
+        if on_card:
+            _check(0 < kvr <= rounds + S - devgw.stats.reads_batched,
+                   f"phase 14: {kvr} kv_read launches for {rounds} probe rounds")
+        hosts = [RabiaClient([h.cluster.endpoint(1)], call_timeout=120.0)
+                 for _ in range(sessions)]
+        for c in hosts:
+            await c.connect()
+        clients += hosts
+        host_ans = await _p13_reads(hosts, items, [])
+        equal = 0
+        for (s, k), a, b in zip(items, fleet_ans, host_ans):
+            r = decode_result_bin(a)
+            _check(a == b, f"phase 14: shard {s}: the fleet's answer differs from a replica's")
+            _check(r.value == _p13_val(waves - 1, s) and r.version == waves,
+                   f"phase 14: shard {s} reads {r}, not the last acked write")
+            equal += 1
+        wp50, wp99 = settle_quantiles(lat)
+        rp50, rp99 = settle_quantiles(read_lat)
+        return {
+            "shards": S, "replicas": R, "fleet_gateways": n_gateways, "sessions": sessions,
+            "waves": waves, "acked_writes": acked[0], "write_s": write_s,
+            "writes_per_s": acked[0] / write_s,
+            "submit_ack_p50_s": wp50, "submit_ack_p99_s": wp99,
+            "decided_slots": [b - a for a, b in zip(slots0, slots1)],
+            "moved_redirects": redirects, "failovers": failovers, "fleet_stats": st,
+            "replayed_from_cache": replayed, "replay_s": replay_s,
+            "reads_equal": equal, "read_retries": retries[0], "read_s": read_s,
+            "read_p50_s": rp50, "read_p99_s": rp99,
+            "probe_rounds": rounds, "kv_read_launches": kvr,
+            "reads_batched": devgw.stats.reads_batched,
+            "kv_read_device_ms": kvr_ms if on_card else "not measured (CPU)",
+            "critpath": cp, "fleet_table": table_txt,
+            **{f"feed_{k}": v for k, v in feed.items()},
+            "_mesh": mesh,
+        }
+    finally:
+        for r in readers:
+            await r.close()
+        for c in clients:
+            await c.close()
+        if devgw is not None:
+            await devgw.close()
+        await pool.close()
+        await h.stop()
+        import shutil
+
+        shutil.rmtree(h.cluster.wal_dir, ignore_errors=True)
+
+
+def probe_graph_ms(mesh, S: int) -> tuple[float, int]:
+    """The probe kernel at phase 14's shape (one key a shard, the engine's
+    window) on its table, by graph replay, and its largest difference
+    from the plain version (must be 0). Called after the phase's counts
+    are read: these launches compare and time, they are not the path's."""
+    dkv = mesh._dev
+    ops = dkv.pack_get_window_auto([build_block(
+        np.arange(S), [[_key_op(2, _p13_key(s, "f").encode())] for s in range(S)])])
+    idx, klen, _, kwin, _ = dkv._upload(dkv._host_ops(ops, mesh.window, values=False))
+    kw = dict(want_table=False, want_reads=True, idx=idx)
+    call = lambda i=0: kv_window.KV_WINDOW(dkv.state, kv_window.KIND_GET, klen, None,  # noqa: E731
+                                           kwin, None, 0, **kw)
+    want = _flat(kv_window.kv_window_plain(dkv.state, kv_window.KIND_GET, klen, None, kwin,
+                                           None, 0, **kw))
+    got = _flat(call())
+    torch.cuda.synchronize()
+    err = max(_max_err(a, b) for a, b in zip(want, got))
+    _check(len(want) == len(got) and err == 0, "phase 14: the probe kernel != plain")
+    return _graph_ms(call, 50), err
+
+
+# -- phase 15 ------------------------------------------------------------------
+
+
+async def _mesh_lane_cycle(device, S: int, R: int) -> dict:
+    """The mesh fabric's forced demotion and re-promotion at S x R on
+    ``device``: its SET waves on 8 keys a shard (inside the device
+    table's 64 slots), a GET wave every third arrival (the read lane),
+    ``demote_device``, arrivals until the lane re-promotes, then the
+    fabric's verify sweep and convergence."""
+    prof = dataclasses.replace(smoke_profiles()["mesh_device_read_lane"], n_shards=S,
+                               n_replicas=R)
+    fab = _MeshFabric(prof, device=device)
+    await fab.start()
+    try:
+        i = 1
+        for _ in range(12):
+            _check(await fab.submit(i, [(f"c{i % 8}", f"v{i}")], 120.0) == "ok",
+                   "phase 15 lane cycle: an arrival failed")
+            i += 1
+        _check(fab.eng.device_lane_active, "phase 15 lane cycle: the lane was down before the demotion")
+        probes0 = fab.eng.read_lane_stats()["probe"]
+        fab.apply_event("demote_device", {})
+        _check(not fab.eng.device_lane_active, "phase 15 lane cycle: demote_device left the lane up")
+        t0 = time.perf_counter()
+        demoted_arrivals = 0
+        while not fab.eng.device_lane_active and demoted_arrivals < 200:
+            _check(await fab.submit(i, [(f"c{i % 8}", f"v{i}")], 120.0) == "ok",
+                   "phase 15 lane cycle: an arrival failed while demoted")
+            i += 1
+            demoted_arrivals += 1
+        repromote_s = time.perf_counter() - t0
+        _check(fab.eng.device_lane_active, "phase 15 lane cycle: the lane never re-promoted")
+        for _ in range(3):
+            _check(await fab.submit(i, [(f"c{i % 8}", f"v{i}")], 120.0) == "ok",
+                   "phase 15 lane cycle: an arrival failed after the re-promotion")
+            i += 1
+        problems = await fab.verify()
+        _check(not problems, f"phase 15 lane cycle: {problems}")
+        _check(fab.eng.read_lane_stats()["probe"] > probes0,
+               "phase 15 lane cycle: no probe read after the re-promotion")
+        summary = fab.summary()
+        _check(summary["forced_demotions"] == 1 and summary["lane_promotions"] >= 1,
+               f"phase 15 lane cycle: {summary}")
+        _check(await fab.converged(120.0), "phase 15 lane cycle: the replicas differ")
+        return {**summary, "arrivals": i - 1, "demoted_arrivals": demoted_arrivals,
+                "repromote_s": repromote_s}
+    finally:
+        await fab.stop()
+
+
+def chaos_run(device, mesh_S: int = P15_MESH_S, mesh_R: int = P15_MESH_R) -> dict:
+    """Phase 15: the chaos smoke set's (``smoke_profiles()``) profiles
+    that use the card, the mesh fabric's, through ``run_profile``, each
+    with the reference's events, rate and time scale at ``mesh_S``
+    shards x ``mesh_R`` replicas, its engine on ``device``; then the
+    mesh fabric's demotion and re-promotion at that width
+    (:func:`_mesh_lane_cycle`). The set's host-only profiles run in the
+    CPU tests. Every profile runs; the phase fails after them if any
+    failed."""
+    out: dict = {}
+    for name, prof in smoke_profiles().items():
+        if prof.fabric != "mesh":
+            continue
+        prof = dataclasses.replace(prof, n_shards=mesh_S, n_replicas=mesh_R)
+        t0 = time.perf_counter()
+        rep = asyncio.run(run_profile(prof, verbose=True, device=device))
+        out[name] = {
+            "fabric": rep["fabric"], "pass": rep["pass"], "problems": rep["problems"],
+            "availability": rep["availability"],
+            "final_quarter_availability": rep["final_quarter_availability"],
+            "arrivals": rep["arrivals"], "outcomes": rep["outcomes"],
+            "settle_ms": rep["settle_ms"], "decisions": rep["phases_to_decide"]["decisions"],
+            "shards": rep["shards"], "replicas": rep["replicas"],
+            "watchdog_fired": (rep["watchdog"] or {}).get("fired"),
+            "fabric_summary": rep["fabric_summary"], "s": time.perf_counter() - t0,
+        }
+    t0 = time.perf_counter()
+    lane = asyncio.run(_mesh_lane_cycle(device, mesh_S, mesh_R))
+    lane["s"] = time.perf_counter() - t0
+    return {"profiles": out, "lane_cycle": lane}
 
 
 def _card_rate_bytes_per_s(name: str) -> float:
@@ -3747,7 +4267,7 @@ def main() -> int:
           f"writes/s over phase 12 (b)'s runtime decisions/s {durable_cost:.4f}; {t13a:.2f} s; "
           f"{where}; {json.dumps(gw13)}")
     print(f"phase 13 (b) kill -9 and recovery, {R_FULL} replica processes x {S_FULL} shards on "
-          f"WalPersistence (WAL on {rec13['wal_fs']}), {P13_PRELOAD} keys preloaded (cut: none), "
+          f"WalPersistence (WAL on {rec13['wal_fs']}), {P13_PRELOAD} keys preloaded (cut: from 20000), "
           f"replica {rec13['killed']} killed under load and restarted: snapshot_restore_s "
           f"{rec13['snapshot_restore_s']}, wal_replay_s {rec13['wal_replay_s']}, waves_replayed "
           f"{rec13['waves_replayed']}, torn {rec13['torn']}, rejoin_under_load_s "
@@ -3755,7 +4275,79 @@ def main() -> int:
           f"{rec13['post_rejoin_goodput_per_s']}/s; every acknowledged write ({rec13['reads']}) "
           f"read back through the restarted gateway equals the device table's answer; {where}; "
           f"{json.dumps(rec13)}")
+    print(f"phase 13 (a) critical path of the slow Submits during the writes (obs/critpath, "
+          f"CritpathAggregator over the gateways' slowlog exemplars): "
+          f"{_fmt_critpath(gw13['critpath'])}; the runtime's stage clocks (RTS) over the same "
+          f"span, seconds summed over the replicas: {json.dumps(gw13['rts_stages'])}; "
+          f"{json.dumps(gw13['critpath'])}")
     print(f"phase 13 path: launches by kernel {json.dumps(p13)}, {t13:.2f} s")
+
+    # ---- phase 14, a routed fleet over the durable cluster at config 3's
+    # width, its reads from the card's table: its own path, counts reset
+    # just before and read just after ----
+    _reset_counts()
+    gc.collect()
+    gc.freeze()
+    t14 = time.perf_counter()
+    fl14 = asyncio.run(fleet_run(device))
+    p14 = _kernel_counts()
+    p14_forms = dict(kv_window.KV_WINDOW.counts)
+    t14 = time.perf_counter() - t14
+    gc.unfreeze()
+    _check(p14["kv_read"] > 0, "phase 14 never launched the kv-read kernel")
+    _check(p14["kv_dict"] > 0, "phase 14 never launched the kv-dict kernel")
+    mesh14 = fl14.pop("_mesh")
+    table14 = fl14.pop("fleet_table")
+    probe14_ms, probe14_err = probe_graph_ms(mesh14, S_FULL)
+    del mesh14
+    print(f"phase 14 routed fleet, {P14_GATEWAYS} fleet gateways (FleetHarness) over "
+          f"GatewayCluster({R_FULL}, {S_FULL}, persistence=\"wal\"), {P14_SESSIONS} FleetSessions "
+          f"through one FleetConnPool, {P14_WAVES} wave(s) of one SET a shard (cut: from 2); the ring "
+          f"dropped gw{P14_GATEWAYS - 1}, gw0 killed mid-wave: "
+          f"{fl14['writes_per_s']:.1f} acknowledged writes/s through the fleet, submit-to-ack "
+          f"p50 {fl14['submit_ack_p50_s']:.4f} s p99 {fl14['submit_ack_p99_s']:.4f} s; "
+          f"{fl14['moved_redirects']} MOVED redirects, {fl14['failovers']} failovers, "
+          f"{fl14['fleet_stats']['ledger_sent']} ledger records sent / "
+          f"{fl14['fleet_stats']['ledger_applied']} applied; replay of every (client, seq): "
+          f"{fl14['replayed_from_cache']} answered CACHED, no new slot; ReadIndex reads of every "
+          f"key through the fleet, served by devkv_read_handler over MeshEngine(device_store=True) "
+          f"on the card: {fl14['reads_equal']} equal to a replica's store and the last acked "
+          f"write, {fl14['probe_rounds']} probe rounds, {fl14['kv_read_launches']} kv_read "
+          f"launches, {fl14['kv_read_device_ms']} device ms (CUDA events), the probe at this "
+          f"shape {probe14_ms:.4f} ms by graph replay (max_abs_err {probe14_err}), read p50 "
+          f"{fl14['read_p50_s']:.4f} s p99 {fl14['read_p99_s']:.4f} s; {t14:.2f} s; {where}; "
+          f"{json.dumps(fl14)}")
+    print("phase 14 fleet aggregator (render_fleet_table):")
+    print(table14)
+    print(f"phase 14 critical path of the fleet's slow Submits: {_fmt_critpath(fl14['critpath'])}")
+    print(f"phase 14 path: launches by kernel {json.dumps(p14)}, {t14:.2f} s")
+
+    # ---- phase 15, the chaos smoke set, the mesh profile at config 3's
+    # width on the card: its own path, counts reset just before and read
+    # just after ----
+    _reset_counts()
+    gc.collect()
+    gc.freeze()
+    t15 = time.perf_counter()
+    ch15 = chaos_run(device)
+    p15 = _kernel_counts()
+    p15_forms = dict(kv_window.KV_WINDOW.counts)
+    t15 = time.perf_counter() - t15
+    gc.unfreeze()
+    for pname, r in ch15["profiles"].items():
+        print(f"phase 15 {pname} ({r['fabric']}, {r['replicas']} x {r['shards']}): pass "
+              f"{r['pass']}, availability {r['availability']}, final quarter "
+              f"{r['final_quarter_availability']}, problems {r['problems']}; {json.dumps(r)}")
+    print(f"phase 15 mesh fabric lane cycle at {P15_MESH_R} x {P15_MESH_S} on the card: "
+          f"{json.dumps(ch15['lane_cycle'])}")
+    failed = [n for n, r in ch15["profiles"].items() if not r["pass"]]
+    _check(not failed, f"phase 15: profiles failed: {failed}")
+    mesh15 = ch15["profiles"]["mesh_device_read_lane"]["fabric_summary"]
+    _check(mesh15["read_lane"]["probe"] > 0 and mesh15["divergences"] == 0
+           and mesh15["forced_demotions"] == 1,
+           f"phase 15: the mesh profile's verify read {mesh15}")
+    _check(p15["kv_read"] > 0, "phase 15 never launched the kv-read kernel")
+    print(f"phase 15 path: launches by kernel {json.dumps(p15)}, {t15:.2f} s")
 
     q = quorum_size(R_FULL)
     votes = bufs[0]
@@ -4262,7 +4854,8 @@ def main() -> int:
         "source": "rabia_tpu_torch/csrc/kv_window.cu",
         "replaces": "rabia_tpu/apps/device_kv.py:1218",
         # and phases 12 and 13's
-        "launches": kv_counts["rows+decide"] + p12["kv_window"] + p13["kv_window"],
+        "launches": (kv_counts["rows+decide"] + p12["kv_window"] + p13["kv_window"]
+                     + p14["kv_window"] + p15["kv_window"]),
         "max_abs_err": max(err6, err6_fold, fold_err, err9),
         "ms": fold_ms,  # with the decision folded in, as the device lane launches it
         "plain_ms": fold_plain_ms,
@@ -4276,7 +4869,7 @@ def main() -> int:
         "replaces": "rabia_tpu/apps/device_kv.py:1003",
         # and phases 11 (c), 12 and 13
         "launches": (kv_counts["dict"] + kv_counts["dict+decide"] + p11_dict + p12["kv_dict"]
-                     + p13["kv_dict"]),
+                     + p13["kv_dict"] + p14["kv_dict"] + p15["kv_dict"]),
         "max_abs_err": max(err8, dict_err, err9),
         "ms": dict_ms,  # SET window with the decision, D = W = 16 (phase 7's fill stream)
         "plain_ms": dict_plain_ms,
@@ -4290,9 +4883,12 @@ def main() -> int:
         "route": "cuda",
         "source": "rabia_tpu_torch/csrc/kv_read.cu",
         "replaces": "rabia_tpu/apps/device_kv.py:850",
-        # and phase 13's, the gateway's ReadIndex reads (one a probe round)
-        "launches": kv_counts["probe dict"] + kv_counts["probe rows"] + p13["kv_read"],
-        "max_abs_err": max(err8, probe_err, read_err, err9),
+        # and phases 13-15's: the gateway's ReadIndex reads (one a probe
+        # round) and the mesh fabric's read lane
+        "launches": (kv_counts["probe dict"] + kv_counts["probe rows"] + p13["kv_read"]
+                     + sum(f.get("probe dict", 0) + f.get("probe rows", 0)
+                           for f in (p14_forms, p15_forms))),
+        "max_abs_err": max(err8, probe_err, read_err, err9, probe14_err),
         "ms": probe_ms,
         "plain_ms": probe_plain_ms,
         "bound_ms": probe_bound_ms,
@@ -4303,7 +4899,9 @@ def main() -> int:
         "route": "cuda",
         "source": "rabia_tpu_torch/csrc/kv_read.cu",
         "replaces": "rabia_tpu/apps/device_kv.py:692",
-        "launches": kv_counts["lookup dict"] + kv_counts["lookup rows"],
+        # and phases 14-15's GET windows with their decision
+        "launches": sum(f.get("lookup dict", 0) + f.get("lookup rows", 0)
+                        for f in (kv_counts, p14_forms, p15_forms)),
         "max_abs_err": max(err6_fold, err8, lookup_err, read_err, err9),
         "ms": lookup_ms,  # the row form with its decision, W=16 on the phase-7 table
         "plain_ms": lookup_plain_ms,
@@ -4315,8 +4913,9 @@ def main() -> int:
         "route": "cuda",
         "source": "rabia_tpu_torch/csrc/mesh_window.cu",
         "replaces": "rabia_tpu/parallel/mesh.py:353",
-        # the main path's, phases 10, 11, 12 and 13
-        "launches": mesh_launches + p10_mesh + p11_mesh + p12["mesh_window"] + p13["mesh_window"],
+        # the main path's, phases 10 to 15
+        "launches": (mesh_launches + p10_mesh + p11_mesh + p12["mesh_window"] + p13["mesh_window"]
+                     + p14["mesh_window"] + p15["mesh_window"]),
         "max_abs_err": max(err2b, mw_err, err9),
         "ms": mw_ms,
         "plain_ms": mw_plain_ms,

@@ -807,14 +807,28 @@ class DeviceKVTable:
             key_bytes = store.key_lanes[src].view(np.uint8)  # [n, L*8], zero tails
             kb_w = min(self.K, key_bytes.shape[1])
             keyb[sh_sorted, pos, :kb_w] = key_bytes[:, :kb_w]
-            for j in range(idx.size):
-                i = src[j]
-                buf = store.val_buf[i]
-                a = int(store.val_off[i])
-                v = buf[a : a + int(store.val_len[i])] if buf is not None else b""
-                valb[sh_sorted[j], pos[j], : len(v)] = np.frombuffer(v, np.uint8)
-                if seed_cache is not None:
-                    seed_cache[(int(sh_sorted[j]), int(store.version[i]))] = bytes(v)
+            # each value lies at val_off in its arrival buffer (one buffer
+            # a decided block, shared by its entries): gather them all from
+            # the distinct buffers laid end to end. The reference copies
+            # them one entry at a time, 6 s for a million entries
+            bufs = store.val_buf[src]
+            ids = np.fromiter((id(b) for b in bufs), np.int64, idx.size)
+            _, first, inv = np.unique(ids, return_index=True, return_inverse=True)
+            blobs = [bufs[i] if bufs[i] is not None else b"" for i in first]
+            base = np.zeros(len(blobs) + 1, np.int64)
+            np.cumsum([len(b) for b in blobs], out=base[1:])
+            flat = np.frombuffer(b"".join(blobs) + bytes(self.VW), np.uint8)
+            lens = store.val_len[src]
+            cols = np.arange(self.VW)
+            vals = flat[(base[inv] + store.val_off[src])[:, None] + cols[None, :]]
+            vals[cols[None, :] >= lens[:, None]] = 0
+            valb[sh_sorted, pos] = vals
+            if seed_cache is not None:
+                blob, w = vals.tobytes(), self.VW
+                seed_cache.update(zip(
+                    zip(sh_sorted.tolist(), store.version[src].tolist()),
+                    [blob[i * w : i * w + n] for i, n in enumerate(lens.tolist())],
+                ))
         sver = np.asarray(store.shard_version[: self.n_shards], np.int32)
         put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(self.device)  # noqa: E731
         self.state = KVTable(
@@ -829,7 +843,12 @@ class DeviceKVTable:
         replicas saw none of the device lane's applies). Pass a
         precomputed :meth:`dump` when syncing several replicas. One bulk
         insert of every entry, then the versions and counters pinned."""
-        d = dump if dump is not None else self.dump()
+        sm.store = self.host_store(dump if dump is not None else self.dump())
+
+    def host_store(self, d: dict) -> VectorKVStore:
+        """The host replica store (``VectorKVStore``) a :meth:`dump` holds:
+        one bulk insert of every entry, then the versions and counters
+        pinned."""
         n = len(d["shard"])
         store = VectorKVStore(self.n_shards, capacity=max(1 << 10, 2 * n))
         if n:
@@ -845,4 +864,4 @@ class DeviceKVTable:
             store.version[store._lookup(shards, lanes, d["key_len"])] = d["version"]
         store.shard_version[:] = 0
         store.shard_version[: self.n_shards] = d["shard_version"]
-        sm.store = store
+        return store

@@ -35,6 +35,7 @@ the host store the device-resident lane demotes to.
 
 from __future__ import annotations
 
+import copy
 import json
 import struct
 import time
@@ -177,6 +178,17 @@ class VectorKVStore:
         self.total_operations = 0
         self.writes = 0
         self.reads = 0
+
+    def clone(self) -> "VectorKVStore":
+        """An independent copy: every column copied (values stay shared
+        by reference, as bytes are immutable), the side-store's entries
+        copied."""
+        out = copy.copy(self)
+        for k, v in vars(self).items():
+            if isinstance(v, np.ndarray):
+                setattr(out, k, v.copy())
+        out._overflow = {k: list(v) for k, v in self._overflow.items()}
+        return out
 
     def _alloc(self, C: int) -> None:
         self.C = C
@@ -969,10 +981,50 @@ class VectorShardedKV(StateMachine, VectorStateMachine):
             )
             for i, r in zip(set_idx.tolist(), sub):
                 resp[i] = r
-        for i in np.nonzero(~is_set)[0].tolist():
+        rest = np.nonzero(~is_set)[0]
+        if len(rest):
+            kl = klen[rest]
+            is_get = (
+                (dbuf[op_off[rest]] == 2)
+                & (3 + kl <= op_len[rest])
+                & (kl <= self.store.K)
+            )
+            if bool(is_get.all()):
+                # every other op is a well-formed GET of a table-width
+                # key: one vectorized lookup answers them all, each as
+                # _apply_one answers it (a GET wave on the host lane)
+                for i, r in zip(
+                    rest.tolist(),
+                    self._apply_gets(op_shards[rest], dbuf, op_off[rest], kl),
+                ):
+                    resp[i] = r
+                return resp  # type: ignore[return-value]
+        for i in rest.tolist():
             a, b = int(op_off[i]), int(op_off[i] + op_len[i])
             resp[i] = self._apply_one(int(op_shards[i]), raw[a:b])
         return resp  # type: ignore[return-value]
+
+    def _apply_gets(
+        self, op_shards, dbuf, op_off, klen
+    ) -> list[bytes]:
+        """Well-formed GETs of keys at most the table's key width, in one
+        ``bulk_get``: the responses (and read counters) of one
+        :meth:`_apply_one` a GET. The port's addition: the reference's
+        host lane answers a GET wave op by op."""
+        lanes = self._lanes_of(dbuf, op_off, klen)
+        vers, vals = self.store.bulk_get(op_shards, lanes, klen)
+        out: list[bytes] = []
+        for ver, val in zip(vers.tolist(), vals):
+            if ver < 0:
+                out.append(_result_bin(1, 0))
+                continue
+            try:
+                text = val.decode("utf-8")
+            except UnicodeDecodeError:
+                out.append(_result_bin(2, ver, "value is not utf-8 text"))
+                continue
+            out.append(_result_bin(0, ver, text))
+        return out
 
     def _apply_one(self, shard: int, op: bytes) -> bytes:
         try:

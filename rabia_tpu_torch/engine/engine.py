@@ -2776,6 +2776,19 @@ class RabiaEngine:
         now = time.time()
         head = np.maximum(rt.next_slot[:n], rt.applied_upto[:n])
         proposer = slot_proposer_vec(self._shard_ids[:n], head, self.R)
+        # a restarted replica never proposes in its tainted slots. Where
+        # the head slot is its own, the batch goes to the next slot's
+        # proposer: that peer's forward back here times out and nulls
+        # the head slot, and it proposes the batch in its own. (The
+        # reference forwards nothing there, so the submission waits for
+        # the taint release, taint_release_factor * phase_timeout of no
+        # tainted-slot traffic.)
+        mine_tainted = (proposer == self.me) & (head < rt.tainted_upto[:n])
+        for k in range(1, self.R if mine_tainted.any() else 1):
+            nxt = slot_proposer_vec(self._shard_ids[:n], head + k, self.R)
+            proposer = np.where(
+                mine_tainted & (proposer == self.me), nxt, proposer
+            )
         need = (
             queued
             & ~rt.in_flight[:n]
@@ -2790,6 +2803,13 @@ class RabiaEngine:
         for s in np.nonzero(need)[0]:
             s = int(s)
             sh = rt.shards[s]
+            # settle what already applied first: a tainted head never
+            # reaches the settling in _open_slots / the runtime's pump,
+            # and forwarding an applied batch only makes peers drop it
+            while sh.queue and sh.queue[0].batch.id in sh.applied_ids:
+                self._settle_from_ledger(sh, sh.queue.popleft())
+            if not sh.queue:
+                continue
             sub = sh.queue[0]
             if sub.forwarded_at and now - sub.forwarded_at < self.config.phase_timeout:
                 rt.head_fwd_at[s] = sub.forwarded_at

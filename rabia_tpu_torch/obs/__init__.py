@@ -2,10 +2,13 @@
 (:mod:`rabia_tpu_torch.obs.registry`), the anomaly journal
 (:mod:`rabia_tpu_torch.obs.journal`), the flight recorder and its
 cross-replica trace collection (:mod:`rabia_tpu_torch.obs.flight`), the
-admin HTTP shim (:mod:`rabia_tpu_torch.obs.http`) and the per-replica
-telemetry ring (:mod:`rabia_tpu_torch.obs.telemetry`), ports of the
-reference's modules of those names. The reference's critical-path and
-fleet planes are not ported yet (ROADMAP Queue 1)."""
+admin HTTP shim (:mod:`rabia_tpu_torch.obs.http`), the per-replica
+telemetry ring (:mod:`rabia_tpu_torch.obs.telemetry`), the critical-path
+decomposition of slow Submits (:mod:`rabia_tpu_torch.obs.critpath`) and
+the fleet plane (:mod:`rabia_tpu_torch.obs.fleet_obs`: the
+ring-discovered :class:`FleetAggregator`, :func:`collect_fleet_trace`
+and the :class:`BurnRateWatchdog`), ports of the reference's modules of
+those names."""
 
 from rabia_tpu_torch.obs.journal import AnomalyJournal
 from rabia_tpu_torch.obs.registry import (
@@ -39,8 +42,24 @@ from rabia_tpu_torch.obs.telemetry import (
     merge_timelines,
     render_timeline_table,
 )
+from rabia_tpu_torch.obs.fleet_obs import (
+    BurnRateWatchdog,
+    FleetAggregator,
+    SLOPolicy,
+    collect_fleet_trace,
+    derive_fleet_sample,
+    derive_gateway_figures,
+    discover_fleet,
+)
 
 __all__ = [
+    "BurnRateWatchdog",
+    "FleetAggregator",
+    "SLOPolicy",
+    "collect_fleet_trace",
+    "derive_fleet_sample",
+    "derive_gateway_figures",
+    "discover_fleet",
     "AdminHTTPServer",
     "AnomalyJournal",
     "FR_DTYPE",

@@ -28,9 +28,11 @@ Two halves (docs/OBSERVABILITY.md, "Flight recorder"):
 Clock alignment: each replica reports ``(wall, mono_ns)`` sampled at
 serve time; the collector timestamps the request send/receive on its own
 wall clock and maps the replica's monotonic domain onto collector wall
-time via the RTT midpoint — ``offset = (send+recv)/2 - mono_ns``. The
-error bound is ±RTT/2 per replica (reported as ``err_s`` on each slice);
-events on the SAME replica keep their exact monotonic order regardless.
+time via the RTT midpoint — ``offset = (send+recv)/2 - mono_ns`` — or,
+when the replica's ``wall`` lies inside the round trip, via its own
+``wall - mono_ns`` (:func:`align_slice`). The error bound is reported as
+``err_s`` on each slice; events on the SAME replica keep their exact
+monotonic order regardless.
 """
 
 from __future__ import annotations
@@ -241,18 +243,26 @@ class FlightRecorder:
 
 
 def native_ring_events(records: np.ndarray) -> list[dict]:
-    """Convert a native FR_DTYPE snapshot into merged-view dicts."""
+    """Convert a native FR_DTYPE snapshot into merged-view dicts (the
+    columns go to Python ints in one ``tolist`` each: the reference's
+    per-record conversion, a few times faster)."""
+    names = FR_KIND_NAMES
     return [
         {
-            "t_ns": int(r["t_ns"]),
-            "kind": FR_KIND_NAMES.get(int(r["kind"]), str(int(r["kind"]))),
-            "shard": int(r["shard"]),
-            "slot": int(r["slot"]),
-            "peer": int(r["peer"]),
-            "arg": int(r["arg"]),
-            "batch": int(r["batch"]),
+            "t_ns": t,
+            "kind": names.get(k, str(k)),
+            "shard": sh,
+            "slot": sl,
+            "peer": pe,
+            "arg": a,
+            "batch": b,
         }
-        for r in records
+        for t, k, sh, sl, pe, a, b in zip(
+            records["t_ns"].tolist(), records["kind"].tolist(),
+            records["shard"].tolist(), records["slot"].tolist(),
+            records["peer"].tolist(), records["arg"].tolist(),
+            records["batch"].tolist(),
+        )
     ]
 
 
@@ -262,17 +272,21 @@ def transport_ring_events(records: np.ndarray) -> list[dict]:
     domain than the consensus rows — kept under ``peer_tail``."""
     return [
         {
-            "t_ns": int(r["t_ns"]),
-            "kind": "tf_in" if int(r["dir"]) == 0 else "tf_out",
+            "t_ns": t,
+            "kind": "tf_in" if d == 0 else "tf_out",
             "shard": 0,
             "slot": 0,
             "peer": NO_PEER,
-            "peer_tail": int(r["peer"]),
-            "arg": int(r["msg_type"]),
+            "peer_tail": pe,
+            "arg": m,
             "batch": 0,
-            "len": int(r["len"]),
+            "len": ln,
         }
-        for r in records
+        for t, d, pe, m, ln in zip(
+            records["t_ns"].tolist(), records["dir"].tolist(),
+            records["peer"].tolist(), records["msg_type"].tolist(),
+            records["len"].tolist(),
+        )
     ]
 
 
@@ -324,6 +338,7 @@ def build_trace_slice(
     engine,
     batch_hash: int,
     window_ns: int = 50_000_000,
+    events: Optional[list] = None,
 ) -> dict:
     """One replica's flight-ring slice for a batch.
 
@@ -331,8 +346,13 @@ def build_trace_slice(
     event on a ``(shard, slot)`` the batch's lifecycle events name; and
     transport frame events within ``window_ns`` of the batch's event
     span (a transport stall near the commit is exactly what the trace is
-    for). Returns the TraceSlice document (JSON-serializable)."""
-    events = engine.flight_events()
+    for). Returns the TraceSlice document (JSON-serializable).
+
+    ``events``: the engine's ``flight_events()`` already read (the port's
+    addition), so slicing many batches at one instant reads its rings
+    once."""
+    if events is None:
+        events = engine.flight_events()
     hits = [e for e in events if batch_hash and e.get("batch") == batch_hash]
     slots = {
         (e["shard"], e["slot"]) for e in hits if e["kind"] in _SLOT_BEARING
@@ -413,12 +433,28 @@ def align_slice(slice_doc: dict, send_wall: float, recv_wall: float) -> dict:
     """Annotate a TraceSlice with its monotonic→collector-wall offset.
 
     ``send_wall``/``recv_wall`` bracket the admin round trip on the
-    collector's clock; the replica's ``mono_ns`` was sampled in between,
-    estimated at the midpoint. Error bound: ±(recv-send)/2."""
+    collector's clock; the replica's ``mono_ns`` was sampled in between.
+    When the replica's own ``wall``, read together with ``mono_ns``,
+    falls inside the bracket, its clock agrees with the collector's to
+    within the measurement and its own pairing places the sample (exact
+    when both share a clock, as every node of one host does); the error
+    bound is then the larger distance from ``wall`` to either end.
+    Otherwise the sample is estimated at the midpoint, error bound
+    ±(recv-send)/2.
+
+    The reference always takes the midpoint. A loaded host answers
+    unevenly inside the bracket, so two nodes' midpoint offsets can
+    differ by milliseconds and reorder events that causality orders
+    (a MOVED hop and the owner's forward, a few ms apart)."""
     rtt = max(0.0, recv_wall - send_wall)
-    midpoint = (send_wall + recv_wall) / 2.0
-    slice_doc["offset_s"] = midpoint - slice_doc["mono_ns"] * 1e-9
-    slice_doc["err_s"] = rtt / 2.0
+    mono = slice_doc["mono_ns"] * 1e-9
+    wall = slice_doc.get("wall")
+    if wall is not None and send_wall <= wall <= recv_wall:
+        slice_doc["offset_s"] = wall - mono
+        slice_doc["err_s"] = max(wall - send_wall, recv_wall - wall)
+    else:
+        slice_doc["offset_s"] = (send_wall + recv_wall) / 2.0 - mono
+        slice_doc["err_s"] = rtt / 2.0
     return slice_doc
 
 

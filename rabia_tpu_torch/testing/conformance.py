@@ -977,34 +977,6 @@ def settle_quantiles(settle_s: Sequence[float], qs=(0.5, 0.99)) -> list[Optional
     return [xs[min(len(xs) - 1, max(0, int(round(q * len(xs))) - 1))] for q in qs]
 
 
-def apply_ledger_record(
-    table, client_id, seq: int, status: int, payload, frontier_mark: int,
-    now=None,
-) -> int:
-    """Import one replicated completed-result record into a session table
-    (Python or native) through its op surface, and return the
-    ``submit_check`` decision: a ``FRESH`` reservation or a
-    ``DUP_INFLIGHT`` one is completed with the record, a ``DUP_CACHED``
-    seq is left alone, a full window drops the record. A copy of the
-    fleet tier's ``apply_record`` (the reference's
-    ``rabia_tpu/fleet/ledger.py``), which the gateway gate drives; the
-    fleet tier itself is not ported yet (ROADMAP Queue 1)."""
-    from rabia_tpu_torch.gateway.session import (
-        SUBMIT_DUP_CACHED,
-        SUBMIT_DUP_INFLIGHT,
-        SUBMIT_FRESH,
-    )
-
-    decision, _st, _pl = table.submit_check(client_id, seq, 0, now=now)
-    if decision in (SUBMIT_FRESH, SUBMIT_DUP_INFLIGHT):
-        table.complete_op(
-            client_id, seq, status, payload, frontier_mark, now=now
-        )
-    elif decision == SUBMIT_DUP_CACHED:
-        pass  # already answered here, byte-identity guaranteed upstream
-    return decision
-
-
 def run_gateway_ops_on_both_tables(
     ops: Sequence[dict],
     *,
@@ -1039,13 +1011,13 @@ def run_gateway_ops_on_both_tables(
     (``cid``, ``seq``, ``window``, ``ack``, ``status``, ``payload``,
     ``frontier``, ``sv``). The ``ledger`` op is the fleet tier's
     replicated completed-result record
-    (:func:`apply_ledger_record`, the reference's
-    ``rabia_tpu/fleet/ledger.apply_record`` — reserve-if-absent +
+    (:func:`rabia_tpu_torch.fleet.apply_record` — reserve-if-absent +
     complete in one step): a gateway-failover replay must find the
     byte-identical cached result on the successor's table whichever
     backend that table runs, so the record's landing decision is part
     of the conformance surface.
     """
+    from rabia_tpu_torch.fleet.ledger import apply_record
     from rabia_tpu_torch.gateway.native_session import NativeSessionTable
     from rabia_tpu_torch.gateway.session import SessionTable
     from rabia_tpu_torch.native.build import load_sessionkernel
@@ -1099,11 +1071,11 @@ def run_gateway_ops_on_both_tables(
                 a = py.gc(op["sv"], now=t)
                 b = nat.gc(op["sv"], now=t)
             elif kind == "ledger":
-                a = apply_ledger_record(
+                a = apply_record(
                     py, op["cid"], op["seq"], op["status"],
                     op["payload"], op["frontier"], now=t,
                 )
-                b = apply_ledger_record(
+                b = apply_record(
                     nat, op["cid"], op["seq"], op["status"],
                     op["payload"], op["frontier"], now=t,
                 )

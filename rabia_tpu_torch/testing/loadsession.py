@@ -5,8 +5,9 @@ only if a session costs a dict entry, not a native transport instance —
 these classes implement the gateway wire protocol (16-byte node-id
 handshake or the MUX_MAGIC session-mux lane, then ``[u32 LE length]
 [payload]`` frames) directly on ``asyncio.open_connection``. Used by
-the gateway tests (tests/test_torch_gateway.py); the reference's
-open-loop loadgen and chaos fabric use its own copy.
+the gateway tests (tests/test_torch_gateway.py), the chaos plane's
+real-TCP fabrics (rabia_tpu_torch/chaos/runner.py) and the fleet tier's
+sessions (rabia_tpu_torch/fleet/harness.py).
 
 The mux wire contract (one socket, frames prefixed with a 16-byte
 session id both ways) is defined by the C transport —
@@ -14,8 +15,12 @@ session id both ways) is defined by the C transport —
 :class:`MuxConn` here and ``gateway/client._MuxLink`` are the two
 client-side speakers of that contract.
 
-The port's copy of the reference's ``rabia_tpu/testing/loadsession.py``, its imports
-retargeted to ``rabia_tpu_torch``.
+The port's copy of the reference's ``rabia_tpu/testing/loadsession.py``,
+its imports retargeted to ``rabia_tpu_torch``. Unlike the reference's, a
+connection that closes (its gateway died, or the pool dropped it) fails
+every request waiting on it and refuses new ones with
+:class:`ConnectionError`, so a caller fails over at once instead of
+waiting out its call timeout on a dead socket.
 """
 
 from __future__ import annotations
@@ -117,7 +122,21 @@ class LoadSession:
                         f"session hello to {where} timed out"
                     ) from None
 
+    @property
+    def alive(self) -> bool:
+        """Whether the connection can still carry a request."""
+        if self._mux is not None:
+            return not self._mux.closed
+        return (
+            self.writer is not None
+            and not self.writer.is_closing()
+            and self._read_task is not None
+            and not self._read_task.done()
+        )
+
     def _send(self, payload) -> None:
+        if not self.alive:
+            raise ConnectionError("session connection closed")
         data = self.ser.serialize(
             ProtocolMessage.new(self.node_id, payload, self.gateway)
         )
@@ -125,6 +144,19 @@ class LoadSession:
             self._mux.send(self.client_id.bytes, data)
         else:
             self.writer.write(struct.pack("<I", len(data)) + data)
+
+    def _fail_pending(self, exc: BaseException) -> None:
+        """The connection is gone: every waiting request (and a hello in
+        flight) fails now rather than at its timeout."""
+        waiting = list(self.pending.values())
+        if self._hello is not None:
+            waiting.append(self._hello)
+        for fut in waiting:
+            if not fut.done():
+                fut.set_exception(exc)
+                # a waiter that gave up already is not told: no
+                # "exception was never retrieved" for it
+                fut.exception()
 
     def _on_payload(self, p) -> None:
         if isinstance(p, ClientHello) and p.ack:
@@ -149,6 +181,8 @@ class LoadSession:
         except (asyncio.IncompleteReadError, asyncio.CancelledError,
                 ConnectionError, OSError):
             return
+        finally:
+            self._fail_pending(ConnectionError("session connection closed"))
 
     async def submit(
         self, shard: int, commands: Sequence[bytes], timeout: float
@@ -236,6 +270,7 @@ class MuxConn:
         self.sessions: dict[bytes, LoadSession] = {}
         self.where = "?"
         self._read_task: Optional[asyncio.Task] = None
+        self.closed = False
 
     async def connect(self, host: str, port: int, timeout: float = 10.0):
         from rabia_tpu_torch.net.tcp import MUX_MAGIC
@@ -251,6 +286,9 @@ class MuxConn:
         return self
 
     def send(self, session_id: bytes, data: bytes) -> None:
+        if self.closed or self.writer.is_closing():
+            self._mark_closed()
+            raise ConnectionError(f"mux connection {self.where} closed")
         self.writer.write(
             struct.pack("<I", 16 + len(data)) + session_id + data
         )
@@ -274,8 +312,21 @@ class MuxConn:
         except (asyncio.IncompleteReadError, asyncio.CancelledError,
                 ConnectionError, OSError):
             return
+        finally:
+            self._mark_closed()
+
+    def _mark_closed(self) -> None:
+        """The shared socket is gone: every bound session's waiting
+        requests fail now, and later sends raise."""
+        if self.closed:
+            return
+        self.closed = True
+        exc = ConnectionError(f"mux connection {self.where} closed")
+        for sess in list(self.sessions.values()):
+            sess._fail_pending(exc)
 
     async def close(self) -> None:
+        self._mark_closed()
         if self._read_task is not None:
             self._read_task.cancel()
             try:

@@ -182,6 +182,46 @@ def test_set_only_multi_wave_bulk_path_matches_reference(fixed_clock):
     assert sm.store.snapshot_bytes() == rsm.store.snapshot_bytes()
 
 
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+def test_get_waves_match_reference(fixed_clock, seed):
+    """Blocks whose ops other than SETs are all GETs (the mesh fabric's
+    GET waves on a demoted lane) take the port's one-lookup GET path:
+    responses, read counters and snapshot bytes equal the reference's,
+    which answers each GET op by op. Hits, misses, the empty key, values
+    that are not UTF-8, GETs with trailing bytes, and blocks that leave
+    the path (a key past the 32-byte inline width, a truncated op)."""
+    n = 8
+    rng = np.random.default_rng(seed)
+    port, ref = vkv.VectorShardedKV(n, capacity=16), ref_vkv.VectorShardedKV(n, capacity=16)
+    for w in range(12):
+        shards = list(range(n)) if w % 2 else sorted(
+            rng.choice(n, size=int(rng.integers(1, n + 1)), replace=False).tolist())
+        cmds = []
+        for s in shards:
+            ops = []
+            for _ in range(int(rng.integers(1, 4))):
+                j = int(rng.integers(0, 7))
+                key = b"" if j == 6 else b"g%d" % j
+                if rng.random() < 0.35:
+                    val = bytes(rng.integers(0, 256, int(rng.integers(0, 9))).astype(np.uint8))
+                    ops.append(_raw_op(1, key, val if rng.random() < 0.4 else b"v%d.%d" % (w, s)))
+                else:
+                    ops.append(_raw_op(2, key, b"xx" if rng.random() < 0.1 else b""))
+            if w == 7 and s == shards[0]:
+                ops.append(_raw_op(2, b"L" * 40))  # past the inline width
+            if w == 9 and s == shards[-1]:
+                ops.append(b"\x02\x09")  # a truncated GET
+            cmds.append(ops)
+        b = blocks.build_block(shards, cmds, block_id=uuid.UUID(int=w))
+        r = ref_blocks.build_block(shards, cmds, block_id=uuid.UUID(int=w))
+        idx = np.arange(len(b))
+        assert _frames(port.apply_block(b, idx)) == _frames(ref.apply_block(r, idx))
+        assert (port.store.reads, port.store.total_operations) == (
+            ref.store.reads, ref.store.total_operations)
+    assert port.store.snapshot_bytes() == ref.store.snapshot_bytes()
+    assert port.get_state_summary() == ref.get_state_summary()
+
+
 def test_snapshot_restore_round_trips_across_packages(fixed_clock):
     n = 4
     rng = np.random.default_rng(9)
@@ -201,3 +241,23 @@ def test_snapshot_restore_round_trips_across_packages(fixed_clock):
     ref_part = ref_vkv.VectorShardedKV(n)
     ref_part.store.restore_shards_bytes(raw, [1, 3])
     assert part.store.snapshot_bytes() == ref_part.store.snapshot_bytes()
+
+
+def test_clone_is_independent_and_equal(fixed_clock):
+    """``VectorKVStore.clone`` (each replica's store after a device-lane
+    demotion is a clone of one rebuilt store): the same snapshot bytes
+    and counters, and writes to one copy, long keys included, leave the
+    other as it was."""
+    n = 6
+    rng = np.random.default_rng(4)
+    sm = vkv.VectorShardedKV(n, capacity=16)
+    for w, (s, c) in enumerate(_random_blocks(rng, n, 8, multi=True)):
+        b = blocks.build_block(s, c, block_id=uuid.UUID(int=w))
+        sm.apply_block(b, np.arange(len(b)))
+    a, b = sm.store, sm.store.clone()
+    assert a.snapshot_bytes() == b.snapshot_bytes()
+    before = a.snapshot_bytes()
+    b.set(0, b"key0", b"changed")
+    b.set(1, b"L" * 40, b"long")
+    assert a.snapshot_bytes() == before != b.snapshot_bytes()
+    assert a.get(0, b"key0") != b.get(0, b"key0")

@@ -3,9 +3,8 @@ Submits packed into one multi-client PayloadBlock entry, per-client alias
 ids in the dedup ledger, and one durability-barrier wait releasing every
 covered Result.
 
-The port's copy of the reference's tests/test_coalesce.py, less
-``TestFleetLedgerFailover``, whose fleet tier is not ported yet (ROADMAP
-Queue 1).
+The port's copy of the reference's tests/test_coalesce.py, with
+``TestFleetLedgerFailover`` over the port's fleet tier.
 
 Exactly-once gates (the round-15 acceptance):
 - a replayed Submit whose original rode a coalesced wave answers from
@@ -406,6 +405,82 @@ class TestWindowTeardown:
             for c in clients:
                 await c.close()
             await cluster.stop()
+
+
+class TestFleetLedgerFailover:
+    @pytest.mark.asyncio
+    async def test_replay_on_other_fleet_gateway_is_byte_identical(self):
+        """The round-16 dedup-replication gate: a coalesced submit's
+        completed result replicates to the shard's fleet gateway group,
+        so a replay landing on a DIFFERENT fleet gateway (failover,
+        re-route) answers byte-identically from the replicated ledger —
+        with ZERO store mutation on any replica (the race-free
+        double-apply detector) and without waiting out session
+        leases."""
+        from rabia_tpu_torch.fleet.harness import FleetHarness, FleetSession
+
+        h = FleetHarness(
+            n_gateways=2,
+            n_shards=SHARDS,
+            persistence=False,
+            gateway_config=GatewayConfig(
+                coalesce=True, coalesce_window=0.01
+            ),
+        )
+        await h.start()
+        try:
+            shard = 0
+            ring = h.gateways[0].ring
+            owner, succ = ring.successors(shard, 2)
+            owner_i = int(owner.name.removeprefix("gw"))
+            succ_i = int(succ.name.removeprefix("gw"))
+            # several sessions on the same shard so the upstream
+            # coalescing window actually packs multi-client waves
+            sessions = [FleetSession(h.ser, h.resolver()) for _ in range(4)]
+            results = await asyncio.gather(*(
+                s.submit(shard, [encode_set_bin(f"fl{i}", f"v{i}")])
+                for i, s in enumerate(sessions)
+            ))
+            assert all(r.status == ResultStatus.OK for r in results)
+            want = [tuple(bytes(p) for p in r.payload) for r in results]
+            # wait for every fire-and-forget ledger record to land on
+            # the successor
+            succ_gw = h.gateways[succ_i]
+            for _ in range(200):
+                if all(
+                    succ_gw.sessions.cached_result(s.client_id, 1)
+                    for s in sessions
+                ):
+                    break
+                await asyncio.sleep(0.02)
+            await h.cluster.wait_converged()
+            vers = [
+                [h.cluster.store(r, s).version for s in range(SHARDS)]
+                for r in range(3)
+            ]
+            # re-route every session to the OTHER gateway and replay
+            m = succ_gw.member()
+            for s in sessions:
+                s.resolver.note_moved(shard, (m.host, m.port))
+            for i, s in enumerate(sessions):
+                replay = await s.submit_seq(
+                    1, shard, [encode_set_bin(f"fl{i}", "X")]
+                )
+                assert replay.status == ResultStatus.CACHED, (
+                    f"session {i}: {replay.status}"
+                )
+                assert tuple(bytes(p) for p in replay.payload) == want[i]
+            await asyncio.sleep(0.3)
+            assert [
+                [h.cluster.store(r, s).version for s in range(SHARDS)]
+                for r in range(3)
+            ] == vers, "cross-gateway replay mutated state (double apply)"
+            assert h.gateways[owner_i].stats.ledger_sent >= 4
+            assert succ_gw.stats.ledger_applied >= 4
+            for s in sessions:
+                await s.close()
+        finally:
+            await h.stop()
 
 
 class TestAliasRecovery:

@@ -547,6 +547,32 @@ def test_dump_sync_upload_round_trip(port_table, ref_table, fixed_clock):
     assert _dump_rows(port_table.dump()) == ref_table.dump()["rows"]
 
 
+def test_upload_from_block_applied_stores(port_table, ref_table, fixed_clock):
+    """A host store filled by decided SET blocks holds each value inside
+    its block's buffer, several entries a buffer: the port's upload
+    gathers them from the buffers laid end to end, the reference copies
+    them one by one; the tables and the seed caches come out equal
+    (empty values, values of the full width, overwrites)."""
+    rng = np.random.default_rng(12)
+    sm, rsm = vector_kv.VectorShardedKV(N), ref_vkv.VectorShardedKV(N)
+    for w in range(9):
+        shards = sorted(rng.choice(N, size=int(rng.integers(1, N + 1)), replace=False).tolist())
+        cmds = []
+        for s in shards:
+            key = b"u%d" % int(rng.integers(0, 5))
+            val = bytes(rng.integers(0, 256, int(rng.choice([0, 3, 17, 64]))).astype(np.uint8))
+            cmds.append([bytes((1,)) + len(key).to_bytes(2, "little") + key + val])
+        for m, build in ((sm, build_block), (rsm, ref_build_block)):
+            b = build(shards, cmds)
+            m.apply_block(b, np.arange(len(b)))
+    assert sm.store.snapshot_bytes() == rsm.store.snapshot_bytes()
+    seed, ref_seed = {}, {}
+    assert port_table.upload_from(sm, seed_cache=seed)
+    assert ref_table.upload_from(rsm, seed_cache=ref_seed)
+    assert seed == ref_seed and len(seed) == len(sm.store)
+    _assert_state(port_table.state, ref_table.state)
+
+
 @pytest.mark.parametrize("case", ["long_key", "too_many", "wide_value", "near_wrap"])
 def test_upload_declines_outside_the_envelope(port_table, ref_table, case):
     sm, rsm = vector_kv.VectorShardedKV(N), ref_vkv.VectorShardedKV(N)

@@ -970,6 +970,7 @@ def _gw_pkg(name: str):
         types=mod("core.types"),
         cluster=mod("testing.gateway_cluster"),
         conformance=mod("testing.conformance"),
+        ledger=mod("fleet.ledger"),
     )
 
 
@@ -1023,8 +1024,6 @@ class TestAcrossPackages:
         schedule (both packages' generators draw the same ops): every
         op returns the same value, and the Python tables end in the same
         sessions, results and stats."""
-        from rabia_tpu.fleet.ledger import apply_record as ref_apply_record
-
         port, ref = _gw_pkg("port"), _gw_pkg("reference")
         ops = port.conformance.random_gateway_ops(seed, 600)
         assert ops == ref.conformance.random_gateway_ops(seed, 600)
@@ -1043,16 +1042,16 @@ class TestAcrossPackages:
         try:
             legs = {
                 "port python": _drive_table(
-                    port_py, ops, port.conformance.apply_ledger_record
+                    port_py, ops, port.ledger.apply_record
                 ),
                 "port native": _drive_table(
-                    port_nat, ops, port.conformance.apply_ledger_record
+                    port_nat, ops, port.ledger.apply_record
                 ),
                 "reference python": _drive_table(
-                    ref_py, ops, ref_apply_record
+                    ref_py, ops, ref.ledger.apply_record
                 ),
                 "reference native": _drive_table(
-                    ref_nat, ops, ref_apply_record
+                    ref_nat, ops, ref.ledger.apply_record
                 ),
             }
             want = legs["reference python"]
@@ -1179,6 +1178,69 @@ class TestPhase13Small:
         assert st["replayed_from_cache"] == 4 * 8
         assert st["reads_equal"] == 8
         assert st["wal_fsyncs"] > 0 and st["durable_lsn"] > 0
+        # the slow Submits decomposed while the writes ran, beside the
+        # runtime's stage clocks over the same span
+        cp = st["critpath"]
+        assert cp["decomposed"] > 0 and cp["segments_mean_ms"]
+        assert sum(cp["segments_share"].values()) == pytest.approx(1.0, abs=1e-3)
+        assert sum(st["rts_stages"]["seconds"].values()) > 0
+
+
+class TestSubmitsAfterRestart:
+    """A restarted replica never proposes in the slots its restored vote
+    barrier taints. A submission through its gateway on a shard whose
+    head slot is its own to propose is now handed to the next slot's
+    proposer, which nulls the head slot and commits the batch in its own;
+    the reference forwarded nothing there, and the submission waited
+    for the taint release (``taint_release_factor * phase_timeout`` with
+    no tainted-slot traffic; 6.4 s at the gateway cluster's settings,
+    400 s here)."""
+
+    @pytest.mark.asyncio
+    async def test_submit_on_a_tainted_own_slot_commits(self):
+        from dataclasses import replace
+
+        from rabia_tpu_torch.engine.leader import slot_proposer
+        from rabia_tpu_torch.testing.gateway_cluster import (
+            default_gateway_test_config,
+        )
+
+        cfg = replace(default_gateway_test_config(4), taint_release_factor=1000.0)
+        c = GatewayCluster(3, 4, config=cfg, persistence="wal")
+        await c.start()
+        cli = None
+        try:
+            cli = RabiaClient([c.endpoint(1)], call_timeout=10.0)
+            await cli.connect()
+            for k in range(3):
+                for s in range(4):
+                    resp = await cli.submit(s, [encode_set_bin(f"t{s}", f"v{k}")])
+                    assert decode_kv_response(resp[0]).ok
+            await cli.close()
+            cli = None
+            await c.restart_replica(0, settle=0.3)
+            await c.wait_converged(20)
+            e = c.engines[0]
+            rt = e.rt
+            heads = [max(int(rt.next_slot[s]), int(rt.applied_upto[s])) for s in range(4)]
+            own = [s for s in range(4)
+                   if heads[s] < int(rt.tainted_upto[s])
+                   and slot_proposer(s, heads[s], e.R) == e.me]
+            assert own, (heads, rt.tainted_upto[:4].tolist())
+            cli = RabiaClient([c.endpoint(0)], call_timeout=60.0)
+            await cli.connect()
+            for s in own:
+                resp = await asyncio.wait_for(
+                    cli.submit(s, [encode_set_bin(f"t{s}", "after")]), 30.0)
+                assert decode_kv_response(resp[0]).ok
+            await c.wait_converged(20)
+            for s in own:
+                v = c.store(2, s).get(f"t{s}")
+                assert getattr(v, "value", v) == "after"
+        finally:
+            if cli is not None:
+                await cli.close()
+            await c.stop()
 
 
 class TestReadsAfterRestart:

@@ -313,3 +313,54 @@ def test_native_kv_store_is_refused_not_replaced(monkeypatch):
         sm, machines = make_sharded_kv(4, native=native)
         assert len(machines) == 4 and all(type(m.store) is KVStore for m in machines)
         assert sm._native_plane is None
+
+
+def test_fleet_critpath_and_chaos_run_with_jax_and_reference_blocked():
+    """The fleet tier (a MOVED redirect and a replay through two fleet
+    gateways), the critical-path decomposition of the cluster's slowlog
+    exemplars and a chaos profile on the simulator run with jax and
+    rabia_tpu unimportable."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['rabia_tpu'] = None\n"
+        "import asyncio\n"
+        "from rabia_tpu_torch.apps.kvstore import encode_set_bin\n"
+        "from rabia_tpu_torch.chaos import ChaosProfile, run_profile\n"
+        "from rabia_tpu_torch.core.messages import ResultStatus\n"
+        "from rabia_tpu_torch.fleet.harness import FleetHarness, FleetSession\n"
+        "from rabia_tpu_torch.obs.critpath import (CritpathAggregator, decompose_exemplars,\n"
+        "    inprocess_exemplar_timeline)\n"
+        "async def main():\n"
+        "    h = FleetHarness(n_gateways=2, n_shards=4, persistence=False)\n"
+        "    await h.start()\n"
+        "    try:\n"
+        "        owner = h.gateways[0].ring.owner(0).name\n"
+        "        wrong = next(g for g in h.gateways if g.config.name != owner)\n"
+        "        r = h.resolver()\n"
+        "        r.note_moved(0, ('127.0.0.1', wrong.port))\n"
+        "        s = FleetSession(h.ser, r)\n"
+        "        res = await s.submit(0, [encode_set_bin('p', '1')])\n"
+        "        assert res.status == ResultStatus.OK and s.redirects == 1\n"
+        "        again = await s.submit_seq(res.seq, 0, [encode_set_bin('p', '1')])\n"
+        "        assert again.status == ResultStatus.CACHED\n"
+        "        ex = [e for g in h.cluster.gateways for e in g.slowlog.document()['exemplars']]\n"
+        "        agg = CritpathAggregator()\n"
+        "        engines = list(h.cluster.engines)\n"
+        "        d = decompose_exemplars(ex, lambda e: inprocess_exemplar_timeline(engines, e), agg)\n"
+        "        assert any(x['ok'] for x in d)\n"
+        "        await s.close()\n"
+        "    finally:\n"
+        "        await h.stop()\n"
+        "    rep = await run_profile(ChaosProfile(name='p', fabric='sim', description='',\n"
+        "        duration=1.0, warmup=0.5, rate=40.0, min_availability=0.2), verbose=False)\n"
+        "    assert rep['pass'], rep['problems']\n"
+        "    print(agg.summary()['exemplars'])\n"
+        "asyncio.run(main())\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+        timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.split()[-1]) >= 1
