@@ -15,10 +15,11 @@ Phases (each raises on failure; nothing is caught):
    kernel (dictionary windows that write a table of at most 64 slots:
    the waves on the dictionary's key classes), the kv-read kernel
    (windows that only read: the probe, and the GET window with its
-   decision), the mesh-window kernel, the packed-window kernel and the
-   round kernels (the scanned weak-MVC protocol: n rounds a launch, one
-   lane a receiver for R <= 8, and the slot pipeline's full-delivery
-   rule);
+   decision), the mesh-window kernel, the packed-window kernel and its
+   packers, the round kernels (the scanned weak-MVC protocol: n rounds a
+   launch, one lane a receiver for R <= 8, the slot pipeline's
+   full-delivery rule, and start_slot) and the node kernel (one node's
+   weak-MVC tick: start the opened slots, then K chained steps);
 2. hold both fused-window kernels against their plain PyTorch versions,
    bit for bit, on random votes over all four codes: R in
    {1,3,4,5,7,8}, S in {17,1000,4096}, odd T, a view that starts one
@@ -61,10 +62,9 @@ Phases (each raises on failure; nothing is caught):
    equals the plain loop's), its one launch timed beside an empty
    kernel; the packed window at bench.py's packed depth (T=393216, 2.0
    GB of unanimous-V1 words), every decision checked against the V1
-   row; after the main path the programs still in plain PyTorch
-   (``pack_codes``, ``unpack_codes`` and ``pack_alive`` at T=32768, and
-   ``ClusterKernel.start_slot`` at S=4096 R=5) are timed by graph replay
-   beside an empty kernel;
+   row. The packers (``pack_codes``, ``unpack_codes``, ``pack_alive``)
+   and ``ClusterKernel.start_slot`` run their kernels on this path, and
+   their launches count here (phase 16 (c) times them);
 5. the serving lane at full width: ``MeshEngine`` over 4096 shards x 5
    replicas — SET/GET on every shard, replica snapshots, decision logs,
    minority and majority crashes, heal, checkpoint/restore;
@@ -162,15 +162,16 @@ Phases (each raises on failure; nothing is caught):
    restarted from its persistence layer, after which a further wave
    commits on every replica.
 
-The launch counts of the eight kernels (the kv-window, kv-dict and
-kv-read kernels' by form, the round kernels' by entry) are reset just before
+The launch counts of the kernels (the kv-window, kv-dict and kv-read
+kernels' by form, the round kernels', packers' and node kernel's by
+entry) are reset just before
 phases 4-5, 7, 8 and 9
 (the main path) and read just after; phase 4 drives both
 fused-window entries (replica-major at full depth, and
 ``ClusterKernel.slot_pipeline_fused`` on [T,S,R] votes at full depth and
 at ``__graft_entry__``'s T=8 beside ``slot_pipeline``), the packed
-window, and both round-kernel entries (``slot_pipeline`` and
-``run_rounds``). After it, phase 7
+window and its three packers, and the round-kernel entries
+(``slot_pipeline``, ``run_rounds`` and ``start_slot``). After it, phase 7
 checks that one ``decide_apply`` and ``mixed_apply`` each launch the
 kv-window kernel (rows) or the kv-dict kernel (dictionary) once,
 ``lookup_window`` and ``lookup_only`` the kv-read kernel once, and none
@@ -265,7 +266,36 @@ The set's six host-only profiles (simulator, real-TCP, membership,
 coalescing, routed-fleet, shard-group) run in the CPU tests
 (tests/test_torch_chaos.py) and through scripts/torch_chaos_probe.py.
 
-Phases 3-5, 7, 8 and 9's lanes also run on the CPU at a small size
+Phase 16 (after phase 15) puts the transport engine's node kernel on the
+card and runs the command line: (b) the node kernel
+(``csrc/node_kernel.cu``: ``NodeKernel.node_cycle``, ``node_step`` and
+``start_slots``, one launch each) against ``node_cycle_plain`` bit for
+bit, every state field and outbox plane, for R in {1, 3, 4, 5, 7, 8,
+64}, S in {17, 1000, 4096}, K in {0, 1, 3, 8}, coin_p1 in {0, 0.5, 1},
+states over all four codes with slots and phases near 2^31-1, partial
+inboxes, adopted decisions, inactive and done shards, and a
+``node_cycle`` against ``start_slots`` and K ``node_step`` launches;
+(c) the packer kernels and ``start_slot`` against their plain versions
+(R in {1, 5, 8}, ragged S, views one byte and one word into a buffer).
+Then, on its own counts: (a) ``python -m rabia_tpu_torch`` and ``python
+-m rabia_tpu_torch --selftest`` as processes on the card, each exiting
+0, their lines printed; (d) the plane-conformance gate at config 3's
+shape (4096 shards x 5 replicas, 3 waves of 4 SETs a shard) with the
+transport engines on ``backend="jax"`` (their ``NodeKernel`` on the
+card, one ``node_cycle`` launch and one fetch a tick), with
+``zero_copy_inbox`` off and on, each beside a ``MeshEngine``: decisions,
+futures and replica state equal; it prints decisions/s and p50/p99
+submit-to-settle beside phase 10 (a)'s host kernel, ticks and launches,
+bytes up and down, and a tick's upload, launch and fetch spans by CUDA
+events (each holds host code too, so none is a device time). After the timings of phase 4, the packers (T=32768) and
+``start_slot`` (S=4096 R=5) are timed kernel and plain by graph replay
+beside an empty kernel and their bytes bounds, and one engine tick's
+``node_cycle`` at 4096 x 5 with K=3.
+
+Phase 16 runs on the CPU at small sizes in tests/test_torch_node_kernel.py,
+test_torch_engine_device.py (the gate at config 2's shape on the device
+backend), test_torch_zero_copy.py, test_torch_packers.py and
+test_torch_cli.py. Phases 3-5, 7, 8 and 9's lanes also run on the CPU at a small size
 (tests/test_torch_slice.py), phase 10 at config 2's shape
 (tests/test_torch_engine_conformance.py), phase 11 at a small size
 (tests/test_torch_apps_engine.py), phase 12 at a small size
@@ -335,6 +365,7 @@ from rabia_tpu_torch.kernel import (
     fused_window,
     kv_window,
     mesh_window,
+    node_kernel,
     packed_window,
 )
 from rabia_tpu_torch.kernel.phase_driver import device_coin
@@ -2997,7 +3028,10 @@ _KV_FORM_KERNEL = {
 
 def _kernel_counts() -> dict:
     out = {"mesh_window": mesh_window.MESH_WINDOW.launches,
-           "kv_dict": 0, "kv_window": 0, "kv_read": 0}
+           "kv_dict": 0, "kv_window": 0, "kv_read": 0,
+           "node_kernel": node_kernel.NODE_CYCLE.launches,
+           "packers": packed_window.PACKERS.launches,
+           "start_slot": cluster_round.CLUSTER_ROUND.counts["start_slot"]}
     for form, n in kv_window.KV_WINDOW.counts.items():
         out[_KV_FORM_KERNEL[form]] += n
     return out
@@ -3010,7 +3044,9 @@ def _reset_counts() -> None:
     kv_window.KV_WINDOW.reset_counts()
     mesh_window.MESH_WINDOW.launches = 0
     packed_window.PACKED_WINDOW.launches = 0
+    packed_window.PACKERS.reset_counts()
     cluster_round.CLUSTER_ROUND.reset_counts()
+    node_kernel.NODE_CYCLE.reset_counts()
 
 
 async def _config5_cluster(S: int, R: int, cmds: list, dur: float) -> tuple:
@@ -3959,6 +3995,293 @@ def chaos_run(device, mesh_S: int = P15_MESH_S, mesh_R: int = P15_MESH_R) -> dic
     return {"profiles": out, "lane_cycle": lane}
 
 
+# -- phase 16 ----------------------------------------------------------------
+
+
+def cli_run() -> list:
+    """``python -m rabia_tpu_torch`` and ``python -m rabia_tpu_torch
+    --selftest`` as processes of their own on the card, from the root of
+    the checkout; each must exit 0. Returns their output lines."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    lines = []
+    for args in ([], ["--selftest"]):
+        t0 = time.perf_counter()
+        out = subprocess.run([sys.executable, "-m", "rabia_tpu_torch", *args], cwd=root,
+                             capture_output=True, text=True, timeout=600)
+        _check(out.returncode == 0, f"python -m rabia_tpu_torch {' '.join(args)} exited "
+                                    f"{out.returncode}: {out.stderr[-3000:]}")
+        lines.append(f"$ python -m rabia_tpu_torch {' '.join(args)} "
+                     f"({time.perf_counter() - t0:.2f} s)")
+        lines += out.stdout.strip().splitlines()
+    return lines
+
+
+def _codes(shape, gen, device, low: int = 0, high: int = 4) -> torch.Tensor:
+    return torch.randint(low, high, shape, generator=gen, device=device, dtype=torch.int8)
+
+
+def _near_max(n: int, gen, device, span: int = 6) -> torch.Tensor:
+    """int32 values in [2^31-1-span, 2^31-1]: one step more wraps."""
+    top = 2**31 - 1
+    return torch.randint(top - span, top + 1, (n,), generator=gen, device=device,
+                         dtype=torch.int64).to(torch.int32)
+
+
+def random_node_case(gen, S: int, R: int, device):
+    """A node state over all four codes (stages 0/1, done and inactive
+    shards, slots and phases near 2^31-1) and one tick's inputs (a mask,
+    slots near 2^31-1, V0/V1 initial votes, partial inboxes over all four
+    codes, decisions to adopt on a few shards)."""
+    from rabia_tpu_torch.kernel.phase_driver import NodeState
+
+    def rand(shape):
+        return torch.rand(shape, generator=gen, device=device)
+
+    absent = lambda shape: torch.full(shape, ABSENT, dtype=torch.int8, device=device)  # noqa: E731
+    st = NodeState(
+        slot=_near_max(S, gen, device), phase=_near_max(S, gen, device),
+        stage=_codes((S,), gen, device, 0, 2), my_r1=_codes((S,), gen, device),
+        my_r2=_codes((S,), gen, device), led1=_codes((S, R), gen, device),
+        led2=_codes((S, R), gen, device), decided=_codes((S,), gen, device),
+        done=rand((S,)) < 0.2, active=rand((S,)) < 0.8,
+    )
+    ins = (
+        rand((S,)) < 0.4, _near_max(S, gen, device), _codes((S,), gen, device, 0, 2),
+        torch.where(rand((S, R)) < 0.5, _codes((S, R), gen, device), absent((S, R))),
+        torch.where(rand((S, R)) < 0.5, _codes((S, R), gen, device), absent((S, R))),
+        torch.where(rand((S,)) < 0.1, _codes((S,), gen, device, 0, 2), absent((S,))),
+    )
+    return st, ins
+
+
+def node_kernel_vs_plain(device, Rs=(1, 3, 4, 5, 7, 8, 64), Ss=(17, 1000, 4096),
+                         Ks=(0, 1, 3, 8), seed: int = 31) -> tuple[int, int]:
+    """The node kernel (``NodeKernel.node_cycle`` on the card, one launch)
+    against ``node_cycle_plain`` on the same inputs, every state field and
+    every outbox plane (the launch leaves the state it was given as it
+    was, or the plain version would differ); and against ``start_slots``
+    and K ``node_step``s on the card (K + 1 launches, each donating its
+    state, the engine's case). Returns (max_abs_err, cases)."""
+    from rabia_tpu_torch.kernel.phase_driver import NodeKernel
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    worst, cases = 0, 0
+    p1s = (0.0, 0.5, 1.0)
+    for R in Rs:
+        for S in Ss:
+            for K in Ks:
+                p1 = p1s[cases % 3]
+                me = cases % R
+                kw = dict(coin_p1=p1, seed=seed + cases, device=device)
+                st, ins = random_node_case(gen, S, R, device)
+                nk = NodeKernel(S, R, me, **kw)
+                a, oa = nk.node_cycle(st, *ins, K)
+                b, ob = nk.node_cycle_plain(st, *ins, K)
+                err = max(_state_err(a, b), _state_err(oa, ob) if K else 0)
+                # start_slots, then K node_steps (ABSENT inboxes after the first)
+                chain = NodeKernel(S, R, me, **kw)
+                c = chain.start_slots(st, *ins[:3], donate=True)
+                absent = torch.full((S, R), ABSENT, dtype=torch.int8, device=device)
+                no_dec = torch.full((S,), ABSENT, dtype=torch.int8, device=device)
+                steps = []
+                for k in range(K):
+                    first = k == 0
+                    c, o = chain.node_step(c, ins[3] if first else absent,
+                                           ins[4] if first else absent, ins[5] if first else no_dec,
+                                           donate=True)
+                    steps.append([t.clone() for t in o])  # the next step overwrites o
+                err = max(err, _state_err(a, c))
+                if K:
+                    err = max(err, _state_err(oa, [torch.stack(x) for x in zip(*steps)]))
+                _check(err == 0, f"node kernel != plain at R={R} S={S} K={K} p1={p1}")
+                worst = max(worst, err)
+                cases += 1
+    return worst, cases
+
+
+def random_cluster_state(gen, S: int, R: int, device):
+    """A ClusterState of protocol values: slots near 2^31-1, active and
+    inactive shards, phases, stages, votes and ledgers over all codes."""
+    from rabia_tpu_torch.kernel.phase_driver import ClusterState
+
+    def rand(shape):
+        return torch.rand(shape, generator=gen, device=device)
+
+    return ClusterState(
+        slot=_near_max(S, gen, device),
+        phase=torch.randint(0, 9, (S, R), generator=gen, device=device, dtype=torch.int32),
+        stage=_codes((S, R), gen, device, 0, 2), my_r1=_codes((S, R), gen, device),
+        my_r2=_codes((S, R), gen, device), prev_r1=_codes((S, R), gen, device),
+        prev_r2=_codes((S, R), gen, device), led1=_codes((S, R, R), gen, device),
+        led2=_codes((S, R, R), gen, device), decided=_codes((S,), gen, device),
+        decided_phase=torch.randint(-1, 9, (S,), generator=gen, device=device,
+                                    dtype=torch.int32),
+        done=rand((S, R)) < 0.3, active=rand((S,)) < 0.7,
+    )
+
+
+def packers_vs_plain(device, Rs=(1, 5, 8), Ss=(17, 1000, 4095), T: int = 33,
+                     seed: int = 32) -> int:
+    """``pack_codes``, ``pack_alive``, ``unpack_codes`` (the packer
+    kernels) and ``ClusterKernel.start_slot`` (the round kernels' entry)
+    against their plain versions on the card: ragged S, codes over all
+    four values, unpacking to fewer lanes, inputs that start one word and
+    one byte into a buffer. Returns the max_abs_err."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    worst = 0
+    for R in Rs:
+        for S in Ss:
+            votes = _codes((R, T, S), gen, device)
+            alive = torch.rand((R, S), generator=gen, device=device) < 0.7
+            packed = packed_window.pack_codes(votes)
+            errs = [_max_err(packed, packed_window.pack_codes_plain(votes)),
+                    _max_err(packed_window.pack_alive(alive), packed_window.pack_alive_plain(alive)),
+                    _max_err(packed_window.unpack_codes(packed, S), votes),
+                    _max_err(packed_window.unpack_codes(packed, S - 3),
+                             packed_window.unpack_codes_plain(packed, S - 3))]
+            for off in (1, 4):  # one byte, one word into a buffer
+                raw = torch.empty(off + votes.numel(), dtype=torch.int8, device=device)
+                view = raw[off:].view(votes.shape)
+                view.copy_(votes)
+                errs.append(_max_err(packed_window.pack_codes(view), packed))
+            words = torch.empty(1 + packed.numel(), dtype=torch.int32, device=device)
+            wview = words[1:].view(packed.shape)
+            wview.copy_(packed)
+            errs.append(_max_err(packed_window.unpack_codes(wview, S), votes))
+            k = ClusterKernel(S, R, device=device)
+            st = random_cluster_state(gen, S, R, device)
+            mask = torch.rand((S,), generator=gen, device=device) < 0.5
+            init = _codes((S, R), gen, device)
+            errs.append(_state_err(k.start_slot(st, mask, init), k.start_slot_plain(st, mask, init)))
+            err = max(errs)
+            _check(err == 0, f"packers / start_slot kernels != plain at R={R} S={S}: {errs}")
+            worst = max(worst, err)
+    return worst
+
+
+def _start_slot_bytes(st, mask, R: int) -> int:
+    """The bytes ``start_slot`` must move on this mask: every shard's mask,
+    slot and active read (a masked shard bumps its slot by active), a
+    masked shard's R votes (the rest of its fields are constants), an
+    unmasked shard's other fields (it keeps them), and the whole state
+    written."""
+    S = mask.numel()
+    per_shard = sum(x.numel() * x.element_size() for x in st) // S
+    read_all = 1 + st.slot.element_size() + st.active.element_size()
+    masked = int(mask.sum())
+    kept = per_shard - st.slot.element_size() - st.active.element_size()
+    return S * read_all + masked * R + (S - masked) * kept + S * per_shard
+
+
+def packer_times(device, name: str, votes, alive, k) -> dict:
+    """The packers and ``start_slot`` at S=4096 R=5 (T=32768 votes), each
+    kernel and its plain version by CUDA graph replay, beside an empty
+    kernel of the mesh window's grid and the bytes each function must
+    move; the plain versions' kernels a call under the profiler."""
+    packed = packed_window.pack_codes(votes)
+    alive_p = packed_window.pack_alive(alive)
+    S, R = k.S, k.R
+    st = k.init_state()
+    mask = torch.ones(S, dtype=torch.bool, device=device)
+    init = torch.full((S, R), V1, dtype=torch.int8, device=device)
+    rate = _card_rate_bytes_per_s(name)
+    progs = {
+        "pack_codes": (lambda i=0: packed_window.pack_codes(votes),
+                       lambda i=0: packed_window.pack_codes_plain(votes),
+                       votes.numel() + 4 * packed.numel()),
+        "unpack_codes": (lambda i=0: packed_window.unpack_codes(packed, S),
+                         lambda i=0: packed_window.unpack_codes_plain(packed, S),
+                         4 * packed.numel() + votes.numel()),
+        "pack_alive": (lambda i=0: packed_window.pack_alive(alive),
+                       lambda i=0: packed_window.pack_alive_plain(alive),
+                       alive.numel() + 4 * alive_p.numel()),
+        "start_slot": (lambda i=0: k.start_slot(st, mask, init),
+                       lambda i=0: k.start_slot_plain(st, mask, init),
+                       _start_slot_bytes(st, mask, R)),
+    }
+    out = {"empty_kernel_ms": _graph_ms(lambda i=0: mesh_window.MESH_WINDOW.empty(1, S, device),
+                                        200)}
+    for pname, (kern, plain, nbytes) in progs.items():
+        turns = [_graph_ms(kern, 50), _graph_ms(plain, 20), _graph_ms(plain, 20),
+                 _graph_ms(kern, 50)]
+        out[pname] = {"ms": min(turns[0], turns[3]), "plain_ms": min(turns[1], turns[2]),
+                      "turns_ms": turns, "bytes": nbytes, "bound_ms": nbytes / rate * 1e3,
+                      "plain_kernels": _device_busy(plain, 5)["kernels"],
+                      "kernels": _device_busy(kern, 5)["kernels"]}
+    return out
+
+
+def device_backend_gate(device, S: int, R: int, waves: int) -> dict:
+    """The plane-conformance gate with the transport engines on the device
+    backend (``KernelConfig.backend="jax"``: ``NodeKernel`` on the card,
+    one ``node_cycle`` launch and one fetch a tick), once with
+    ``zero_copy_inbox`` off and once on, each beside a ``MeshEngine`` on
+    the card: decisions, futures and replica state equal (the gate
+    raises otherwise). Returns each leg's figures: decisions/s,
+    submit-to-settle p50/p99, ticks, launches, bytes and the tick's
+    upload, launch and fetch spans by CUDA events (host code included)."""
+    from rabia_tpu_torch.kernel import node_kernel
+
+    legs = {}
+    for zc in (False, True):
+        before = dict(node_kernel.NODE_CYCLE.counts)
+        t0 = time.perf_counter()
+        out = asyncio.run(run_schedule_on_both_planes(
+            _set_waves(S, waves), S, R, tag=f"device backend S={S} R={R} zc={zc}",
+            device=device, kernel={"backend": "jax", "zero_copy_inbox": zc},
+            engine_device=device, time_device_ticks=True))
+        gate_s = time.perf_counter() - t0
+        _check(out["decided_slots"] == S * waves,
+               "the device backend decided a slot per batch")
+        launches = {e: node_kernel.NODE_CYCLE.counts[e] - before[e] for e in before}
+        dt = out["device_ticks"]
+        _check(launches["node_cycle"] == dt["ticks"] > 0,
+               f"one node_cycle launch a tick: {launches} over {dt['ticks']} ticks")
+        p50, p99 = settle_quantiles(out["settle_s"])
+        wall = out["transport_wall_s"]
+        timed = max(1, dt["timed_ticks"])
+        legs["zero_copy" if zc else "copy"] = {
+            "decided_slots": out["decided_slots"], "transport_wall_s": wall,
+            "decisions_per_s": out["decided_slots"] / wall,
+            "settle_p50_s": p50, "settle_p99_s": p99,
+            "ticks": dt["ticks"], "launches": launches,
+            "h2d_bytes": dt["h2d_bytes"], "d2h_bytes": dt["d2h_bytes"],
+            "h2d_bytes_per_tick": dt["h2d_bytes"] / max(1, dt["ticks"]),
+            "d2h_bytes_per_tick": dt["d2h_bytes"] / max(1, dt["ticks"]),
+            "upload_span_ms_per_tick": dt["upload_span_ms"] / timed,
+            "launch_span_ms_per_tick": dt["launch_span_ms"] / timed,
+            "fetch_span_ms_per_tick": dt["fetch_span_ms"] / timed,
+            "gate_s": gate_s,
+        }
+        del out
+    return legs
+
+
+def node_cycle_times(device, name: str, S: int, R: int, K: int, seed: int = 33) -> dict:
+    """One engine tick's ``node_cycle`` at S x R with K steps: the kernel
+    (in place, the engine's case) by CUDA graph replay and
+    ``node_cycle_plain`` by CUDA events over a chain of calls, beside the
+    bytes a tick must move."""
+    from rabia_tpu_torch.kernel.phase_driver import NodeKernel
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    nk = NodeKernel(S, R, 0, seed=seed, device=device)
+    st, ins = random_node_case(gen, S, R, device)
+    st, _ = nk.node_cycle(st, *ins, K)  # into a tick buffer of K steps: later calls run in place
+    kern = lambda i=0: nk.node_cycle(st, *ins, K, donate=True)  # noqa: E731
+    plain = lambda i=0: nk.node_cycle_plain(st, *ins, K)  # noqa: E731
+    # the plain version uploads its constants (host scalars) as it runs,
+    # which a CUDA graph cannot capture: a chain of calls between CUDA
+    # events times it
+    turns = [_graph_ms(kern, 100), _time_ms(plain, 20), _time_ms(plain, 20),
+             _graph_ms(kern, 100)]
+    state = sum(t.numel() * t.element_size() for t in st)
+    nbytes = 2 * state + sum(t.numel() * t.element_size() for t in ins) + K * S * 10
+    return {"ms": min(turns[0], turns[3]), "plain_ms": min(turns[1], turns[2]), "turns_ms": turns,
+            "bytes": nbytes, "bound_ms": nbytes / _card_rate_bytes_per_s(name) * 1e3,
+            "plain_kernels": _device_busy(plain, 5)["kernels"]}
+
+
 def _card_rate_bytes_per_s(name: str) -> float:
     """Peak device-memory rate of the card, from its name (data sheets)."""
     if "PCIe" in name:
@@ -3981,14 +4304,15 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
     print(f"card: {smi}")
 
-    # 1. build the seven CUDA sources (one nvcc per source, started
+    # 1. build the eight CUDA sources (one nvcc per source, started
     # together) and the host pack gather (g++)
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
         # the native host plane (g++, one process a source) while nvcc runs
         native = pool.submit(native_build.build, *NATIVE_LIBS)
         libs = cuda_build.build(["fused_window", "kv_window", "kv_dict", "kv_read",
-                                 "mesh_window", "packed_window", "cluster_round"])
+                                 "mesh_window", "packed_window", "cluster_round",
+                                 "node_kernel"])
         host_lib = cuda_build.build_host("host_pack")
         native.result()  # raises the compiler's output when a build failed
     native_libs = [native_build.library_path(n) for n in NATIVE_LIBS]
@@ -3998,7 +4322,9 @@ def main() -> int:
     kv_window.KV_WINDOW.load()
     mesh_window.MESH_WINDOW.load()
     packed_window.PACKED_WINDOW.load()
+    packed_window.PACKERS.load()
     cluster_round.CLUSTER_ROUND.load()
+    node_kernel.NODE_CYCLE.load()
     print(f"phase 1 build: {time.perf_counter() - t0:.2f} s "
           f"({', '.join(p.name for p in [*libs.values(), host_lib, *native_libs])})")
     for lib in libs.values():
@@ -4102,6 +4428,7 @@ def main() -> int:
     kv_counts = dict(kv_window.KV_WINDOW.counts)
     mesh_launches = mesh_window.MESH_WINDOW.launches
     packed_launches = packed_window.PACKED_WINDOW.launches
+    packer_counts = dict(packed_window.PACKERS.counts)
     round_counts = dict(cluster_round.CLUSTER_ROUND.counts)
     main_s = time.perf_counter() - t0
     _check(launches > 0, "the main path never launched the fused window kernel")
@@ -4115,8 +4442,11 @@ def main() -> int:
            "the main path never launched the read-only kernel as the GET window")
     _check(mesh_launches > 0, "the main path never launched the mesh window kernel")
     _check(packed_launches > 0, "the main path never launched the packed window kernel")
-    _check(round_counts["slot_pipeline"] > 0 and round_counts["rounds"] > 0,
-           "the main path never launched both round kernel entries")
+    _check(round_counts["slot_pipeline"] > 0 and round_counts["rounds"] > 0
+           and round_counts["start_slot"] > 0,
+           "the main path never launched the three round kernel entries")
+    _check(all(n > 0 for n in packer_counts.values()),
+           f"the main path never launched every packer kernel: {packer_counts}")
     for eng in (kv_eng, rl_eng, *gov_engines):
         st = eng._dev.pack_stats
         _check(st["native"] > 0 and st["numpy"] == 0,
@@ -4349,6 +4679,61 @@ def main() -> int:
     _check(p15["kv_read"] > 0, "phase 15 never launched the kv-read kernel")
     print(f"phase 15 path: launches by kernel {json.dumps(p15)}, {t15:.2f} s")
 
+    # ---- phase 16, the engine's node kernel on the card, the CLI and the
+    # packers: (b) and (c) compare kernels with their plain versions
+    # (before the counts reset, not counted); then (a) and (d) on their
+    # own counts, reset just before and read just after ----
+    t16 = time.perf_counter()
+    err16b, cases16b = node_kernel_vs_plain(device)
+    t16b = time.perf_counter() - t16
+    err16c = packers_vs_plain(device)
+    t16c = time.perf_counter() - t16 - t16b
+    _reset_counts()
+    gc.collect()
+    gc.freeze()
+    t16d = time.perf_counter()
+    cli16 = cli_run()
+    t16a = time.perf_counter() - t16d
+    t16d = time.perf_counter()
+    dev16 = device_backend_gate(device, S_FULL, R_FULL, TRANSPORT_WAVES)
+    p16 = _kernel_counts()
+    p16_node = dict(node_kernel.NODE_CYCLE.counts)
+    t16d = time.perf_counter() - t16d
+    gc.unfreeze()
+    _check(p16_node["node_cycle"] > 0, "phase 16 (d) never launched the node kernel")
+    for line in cli16:
+        print(f"phase 16 (a) {line}")
+    print(f"phase 16 (a) python -m rabia_tpu_torch and --selftest as processes on the card: "
+          f"exit 0 ({t16a:.2f} s)")
+    print(f"phase 16 (b) node kernel (NodeKernel.node_cycle, one launch of node_kernel.cu) vs "
+          f"node_cycle_plain, every state field and outbox plane, and vs start_slots + K "
+          f"node_steps on the card: {cases16b} cases (R in 1,3,4,5,7,8,64; S in 17,1000,4096; K "
+          f"in 0,1,3,8; coin_p1 0/0.5/1; slots and phases near 2^31-1; all four codes, partial "
+          f"inboxes, adopted decisions, inactive and done shards): max_abs_err {err16b} "
+          f"({t16b:.2f} s)")
+    print(f"phase 16 (c) packer kernels (pack_codes, unpack_codes, pack_alive) and start_slot "
+          f"vs plain: R in 1,5,8, S in 17,1000,4095, views one byte and one word into a buffer: "
+          f"max_abs_err {err16c} ({t16c:.2f} s)")
+    host10 = gate3
+    for leg, r in dev16.items():
+        print(f"phase 16 (d) planes gate at S={S_FULL} R={R_FULL}, {TRANSPORT_WAVES} waves of 4 "
+              f"SETs on every shard, transport cluster on the device backend "
+              f"(KernelConfig.backend='jax', NodeKernel on the card, zero_copy_inbox="
+              f"{leg == 'zero_copy'}) vs MeshEngine on the card: decisions, futures and replica "
+              f"stores equal; {r['decisions_per_s']:.1f} decisions/s, settle p50 "
+              f"{r['settle_p50_s']:.4f} s p99 {r['settle_p99_s']:.4f} s (phase 10 (a)'s host "
+              f"kernel in this run: {host10['transport_decisions_per_s']:.1f} decisions/s, p50 "
+              f"{host10['settle_p50_s']:.4f} s p99 {host10['settle_p99_s']:.4f} s); "
+              f"{r['ticks']} ticks, {r['launches']['node_cycle']} node_cycle launches; "
+              f"H2D {r['h2d_bytes']} bytes ({r['h2d_bytes_per_tick']:.0f} a tick), D2H "
+              f"{r['d2h_bytes']} bytes ({r['d2h_bytes_per_tick']:.0f} a tick); a tick's spans by "
+              f"CUDA events, host code included: upload {r['upload_span_ms_per_tick']:.4f} ms, "
+              f"launch {r['launch_span_ms_per_tick']:.4f} ms, fetch "
+              f"{r['fetch_span_ms_per_tick']:.4f} ms; card: {smi}; host CPU: {cpu}; "
+              f"{json.dumps(r)}")
+    print(f"phase 16 path: launches by kernel {json.dumps(p16)}, node kernel by entry "
+          f"{json.dumps(p16_node)}, {t16d:.2f} s (d), {time.perf_counter() - t16:.2f} s in all")
+
     q = quorum_size(R_FULL)
     votes = bufs[0]
     phase_ms = _time_ms(lambda i=0: fused_window.FUSED_WINDOW(bufs[i % 2], alive, q), 8)
@@ -4366,29 +4751,11 @@ def main() -> int:
     pw_bytes = 4 * (R_FULL * T_FULL * SW + R_FULL * SW + T_FULL * SW)
     pw_bytes_ms = pw_bytes / _card_rate_bytes_per_s(name) * 1e3
     pw_ops_ms = packed_ops(R_FULL, T_FULL, SW) / INT32_OPS_PER_S * 1e3
-    # the programs still in plain PyTorch: the packers of the packed
-    # window at T_FULL, and ClusterKernel.start_slot at S_FULL x R_FULL,
-    # by graph replay beside an empty kernel, with their kernel counts
-    st_start = k.init_state()
-    st_mask = torch.ones(S_FULL, dtype=torch.bool, device=device)
-    st_votes = torch.full((S_FULL, R_FULL), V1, dtype=torch.int8, device=device)
-    plain_programs = {
-        "pack_codes": (lambda i=0: packed_window.pack_codes(bufs[i % 2]),
-                       votes.numel() + 4 * packed[0].numel()),
-        "unpack_codes": (lambda i=0: packed_window.unpack_codes(packed[i % 2], S_FULL),
-                         4 * packed[0].numel() + votes.numel()),
-        "pack_alive": (lambda i=0: packed_window.pack_alive(alive), alive.numel() + 4 * alive_p.numel()),
-        "start_slot": (lambda i=0: k.start_slot(st_start, st_mask, st_votes),
-                       2 * sum(x.numel() * x.element_size() for x in st_start)
-                       + st_mask.numel() + st_votes.numel()),
-    }
-    plain_prog = {"empty kernel": (_graph_ms(lambda i=0: mesh_window.MESH_WINDOW.empty(
-        1, S_FULL, device), 200), None, 1)}
-    for pname, (fn, pbytes) in plain_programs.items():
-        prof = _device_busy(fn, 5)
-        plain_prog[pname] = (_graph_ms(fn, 20), pbytes / _card_rate_bytes_per_s(name) * 1e3,
-                             prof["kernels"])
-    del st_start
+    # phase 16 (c): the packers at T_FULL and ClusterKernel.start_slot at
+    # S_FULL x R_FULL, kernels and plain versions by graph replay; and
+    # one engine tick's node_cycle at S_FULL x R_FULL, 3 steps
+    ptimes = packer_times(device, name, votes, alive, k)
+    nc_times = node_cycle_times(device, name, S_FULL, R_FULL, 3)
     deep_bytes = 4 * (R_FULL * T_PACKED * SW + R_FULL * SW + T_PACKED * SW)
     deep_bound_ms = max(deep_bytes / _card_rate_bytes_per_s(name) * 1e3,
                         packed_ops(R_FULL, T_PACKED, SW) / INT32_OPS_PER_S * 1e3)
@@ -4736,12 +5103,22 @@ def main() -> int:
           f"{fault_bytes_all / _card_rate_bytes_per_s(name) * 1e3:.5f} ms); the whole run_rounds "
           f"call (80 mask draws, one launch) {fault_run_ms:.4f} ms; plain: 80 round_step_plain on "
           f"the same masks {fault_plain_ms:.3f} ms, run_rounds_plain {fault_plain_run_ms:.3f} ms")
-    print(f"phase 4 plain programs (device ms by CUDA graph replay / bytes bound ms / kernels a "
-          f"call under the profiler): pack_codes, unpack_codes at S={S_FULL} R={R_FULL} "
-          f"T={T_FULL}, pack_alive, start_slot at S={S_FULL} R={R_FULL}, beside an empty kernel "
-          f"of the mesh window's grid: " + ", ".join(
-              f"{pname} {ms:.4f} / " + ("-" if b is None else f"{b:.5f}") + f" / {nk}"
-              for pname, (ms, b, nk) in plain_prog.items()))
+    print(f"phase 16 (c) packers at S={S_FULL} R={R_FULL} T={T_FULL} and start_slot at "
+          f"S={S_FULL} R={R_FULL} (device ms by CUDA graph replay, kernel / plain, in turns "
+          f"kernel, plain, plain, kernel; bytes bound; the plain version's kernels a call "
+          f"under the profiler), beside an empty kernel of the mesh window's grid "
+          f"{ptimes['empty_kernel_ms']:.4f} ms: " + ", ".join(
+              f"{pname} {r['ms']:.4f} / {r['plain_ms']:.4f} ms (bound {r['bound_ms']:.5f} ms, "
+              f"{r['bound_ms'] / r['ms']:.1%}; plain {r['plain_kernels']} kernels)"
+              for pname, r in ptimes.items() if pname != "empty_kernel_ms")
+          + f"; {json.dumps(ptimes)}")
+    print(f"phase 16 (b) one engine tick's node_cycle at S={S_FULL} R={R_FULL} K=3, in place "
+          f"(device ms, the kernel by graph replay, the plain version by CUDA events over a "
+          f"chain of calls, in turns kernel, plain, plain, kernel): "
+          f"{nc_times['ms']:.4f} ms, plain {nc_times['plain_ms']:.4f} ms "
+          f"({nc_times['plain_kernels']} kernels); bound {nc_times['bound_ms']:.5f} ms "
+          f"({nc_times['bytes']} bytes, {nc_times['bound_ms'] / nc_times['ms']:.1%}); "
+          f"{json.dumps(nc_times)}")
     print(f"phase 5 serving lane S={S_FULL} R={R_FULL} window=16: {json.dumps(lane)}; "
           f"slot_window on the device {window_ms:.4f} ms, {device_share:.2%} of the first submit+flush")
     print(f"phase 7 device KV lane S={S_FULL} R={R_FULL} window=16 P={P_FULL}: "
@@ -4821,8 +5198,9 @@ def main() -> int:
     print(f"pack paths (windows by gather, main path): {json.dumps(pack_paths)}")
     print(f"main path: {launches} fused-window launches, {tsr_launches} [T,S,R] fused-window "
           f"launches, kv-window launches {json.dumps(kv_counts)}, {mesh_launches} mesh-window "
-          f"launches, {packed_launches} packed-window launches, round-kernel launches "
-          f"{json.dumps(round_counts)}, {main_s:.2f} s")
+          f"launches, {packed_launches} packed-window launches, packer launches "
+          f"{json.dumps(packer_counts)}, round-kernel launches {json.dumps(round_counts)}, "
+          f"{main_s:.2f} s")
 
     kernels = [{
         "name": "fused_window",
@@ -4958,7 +5336,45 @@ def main() -> int:
         "bound_ms": max(scan_bytes_ms, scan_ops_ms),
         "bound_by": "bytes" if scan_bytes_ms >= scan_ops_ms else "operations",
         "library_ms": None,  # no single PyTorch call runs the weak-MVC rounds
-    }]
+    }, {
+        "name": "cr_start_slot",
+        "route": "cuda",
+        "source": "rabia_tpu_torch/csrc/cluster_round.cu",
+        "replaces": "rabia_tpu/kernel/phase_driver.py:202",
+        "launches": round_counts["start_slot"],
+        "max_abs_err": max(err16c, err2d, err_fault),
+        "ms": ptimes["start_slot"]["ms"],  # S=4096 R=5
+        "plain_ms": ptimes["start_slot"]["plain_ms"],
+        "bound_ms": ptimes["start_slot"]["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,  # no single PyTorch call opens a weak-MVC slot
+    }, {
+        "name": "node_cycle",
+        "route": "cuda",
+        "source": "rabia_tpu_torch/csrc/node_kernel.cu",
+        "replaces": "rabia_tpu/kernel/phase_driver.py:761",
+        # phase 16 (d)'s engine ticks (with node_step and start_slots, the
+        # same kernel's launches with no mask and K = 1, and K = 0)
+        "launches": sum(p16_node.values()),
+        "max_abs_err": err16b,
+        "ms": nc_times["ms"],  # one tick, S=4096 R=5 K=3, in place
+        "plain_ms": nc_times["plain_ms"],
+        "bound_ms": nc_times["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,  # no single PyTorch call runs the weak-MVC node step
+    }] + [{
+        "name": pname,
+        "route": "cuda",
+        "source": "rabia_tpu_torch/csrc/packed_window.cu",
+        "replaces": f"rabia_tpu/kernel/packed_window.py:{line}",
+        "launches": packer_counts[pname],
+        "max_abs_err": max(err16c, err2c),
+        "ms": ptimes[pname]["ms"],  # S=4096 R=5 T=32768 (pack_alive: R x S)
+        "plain_ms": ptimes[pname]["plain_ms"],
+        "bound_ms": ptimes[pname]["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,  # no single PyTorch call packs 2-bit codes into words
+    } for pname, line in (("pack_codes", 56), ("unpack_codes", 75), ("pack_alive", 84))]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -7,8 +7,12 @@ and numpy, never jax and nothing of ``rabia_tpu``. Entry points
 (``ClusterKernel``, ``MeshPhaseKernel``, ``MeshEngine``) run on CUDA
 unless the caller passes ``device="cpu"``; the CUDA kernels
 (``csrc/*.cu``) build with nvcc at their first launch. The transport
-engine (``rabia_tpu_torch.engine.RabiaEngine``) is host code.
+engine (``rabia_tpu_torch.engine.RabiaEngine``) is host code, with its
+node kernel on the card under ``KernelConfig.backend="jax"``.
+``python -m rabia_tpu_torch`` is the operations command line.
 """
+
+__version__ = "0.1.0"
 
 from rabia_tpu_torch.kernel.phase_driver import ClusterKernel, ClusterState
 from rabia_tpu_torch.parallel.mesh import MeshPhaseKernel, MeshPhaseState

@@ -9,7 +9,8 @@ bytes, so neither package imports the other:
   to and from the port's tensors, so a reference state taken
   mid-protocol continues under the port's ``round_step``;
 - ``mesh_state_from_numpy`` / ``mesh_state_to_numpy`` do the same for
-  ``MeshPhaseState``;
+  ``MeshPhaseState``, and ``node_state_from_numpy`` /
+  ``node_state_to_numpy`` for one node's ``NodeState``;
 - ``engine_state_from_jax`` builds the port's ``PersistedEngineState``
   from the plain fields of a reference ``MeshEngine.checkpoint()``, so a
   reference engine's checkpoint restores into a port engine;
@@ -31,7 +32,7 @@ from rabia_tpu_torch.core.device import DeviceLike
 from rabia_tpu_torch.core.persistence import PersistedEngineState
 from rabia_tpu_torch.core.state_machine import Snapshot
 from rabia_tpu_torch.kernel.kv_window import KVTable
-from rabia_tpu_torch.kernel.phase_driver import ClusterState
+from rabia_tpu_torch.kernel.phase_driver import ClusterState, NodeState
 from rabia_tpu_torch.parallel.mesh import MeshPhaseState
 
 _CLUSTER_DTYPES = {
@@ -46,6 +47,18 @@ _CLUSTER_DTYPES = {
     "led2": torch.int8,
     "decided": torch.int8,
     "decided_phase": torch.int32,
+    "done": torch.bool,
+    "active": torch.bool,
+}
+_NODE_DTYPES = {
+    "slot": torch.int32,
+    "phase": torch.int32,
+    "stage": torch.int8,
+    "my_r1": torch.int8,
+    "my_r2": torch.int8,
+    "led1": torch.int8,
+    "led2": torch.int8,
+    "decided": torch.int8,
     "done": torch.bool,
     "active": torch.bool,
 }
@@ -76,6 +89,18 @@ def cluster_state_from_numpy(
 
 def cluster_state_to_numpy(state: ClusterState) -> dict[str, np.ndarray]:
     return {name: getattr(state, name).cpu().numpy() for name in ClusterState._fields}
+
+
+def node_state_from_numpy(
+    fields: Mapping[str, np.ndarray], device: DeviceLike
+) -> NodeState:
+    """A ``NodeState`` on ``device`` from numpy arrays keyed by field
+    (ledgers ``[S, R]``, as the reference's ``NodeKernel`` keeps them)."""
+    return NodeState(**_from_numpy(fields, _NODE_DTYPES, device))
+
+
+def node_state_to_numpy(state: NodeState) -> dict[str, np.ndarray]:
+    return {name: getattr(state, name).cpu().numpy() for name in NodeState._fields}
 
 
 def mesh_state_from_numpy(

@@ -136,14 +136,15 @@ class KernelConfig:
     max_phases_per_step: int = 1  # full weak-MVC phases evaluated per kernel call
     dtype_votes: str = "int8"
     # engine kernel implementation: "host" = the numpy HostNodeKernel
-    # (host round pacing, no per-round device dispatch). The reference's
-    # "jax" (its node kernel on the device) is not ported: the port's
-    # engine refuses it (ROADMAP Queue 1 item 8).
+    # (host round pacing, no per-round device dispatch); "jax" (the
+    # reference's spelling, kept so configurations carry over) = the
+    # NodeKernel on the device: one node_cycle launch of
+    # csrc/node_kernel.cu and one fetch a tick, on RabiaEngine's device
     backend: str = "host"
-    # the reference's "jax" backend settings, kept so configurations
-    # carry over: kernel substeps chained in one device dispatch, and the
-    # inbox planes handed to the device by dlpack. The port's engine
-    # refuses zero_copy_inbox=True with backend="jax".
+    # the device backend's settings: kernel substeps chained in one
+    # launch, and the inbox planes adopted in place by dlpack (the CPU)
+    # or sent up from pinned memory (a card); the host backend ignores
+    # zero_copy_inbox
     device_substeps: int = 3
     zero_copy_inbox: bool = False
 

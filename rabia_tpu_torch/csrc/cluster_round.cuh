@@ -743,4 +743,40 @@ CR_HD void pipeline_chunk_bytes(const int8_t* votes, const uint8_t* alive, int n
     store_phase_lanes(ph, n, d, coin);
 }
 
+// ---- start_slot: open a slot on the masked shards ----
+//
+// ClusterKernel.start_slot for shard s, from the state `in` to `out`
+// (which may be `in`): a masked shard opens a slot, its slot number
+// bumped by one where it was active (uint32 arithmetic: int32 wrapping
+// past 2^31-1); every replica at phase 0 in R1_WAIT with its initial
+// vote votes[s, r] as its round-1 vote and as the only entry of its own
+// led1 row; round-2 and previous votes, led2 and the decision ABSENT,
+// decided_phase -1, none done, active. An unmasked shard keeps its state.
+// Any R: the rows are worked on byte by byte.
+CR_HD void start_slot_shard(const Ptrs& in, const Ptrs& out, const uint8_t* mask,
+                            const int8_t* votes, int64_t s, int R) {
+    const int64_t sr = s * R, srr = sr * R;
+    const bool m = mask[s] != 0;
+    const bool active = in.active[s] != 0;
+    out.slot[s] = static_cast<int32_t>(static_cast<uint32_t>(in.slot[s]) + (m && active ? 1u : 0u));
+    for (int r = 0; r < R; ++r) {
+        const int64_t i = sr + r;
+        out.phase[i] = m ? 0 : in.phase[i];
+        out.stage[i] = m ? 0 : in.stage[i];
+        out.my_r1[i] = m ? votes[i] : in.my_r1[i];
+        out.my_r2[i] = m ? ABSENT : in.my_r2[i];
+        out.prev_r1[i] = m ? ABSENT : in.prev_r1[i];
+        out.prev_r2[i] = m ? ABSENT : in.prev_r2[i];
+        out.done[i] = m ? 0 : in.done[i];
+        for (int j = 0; j < R; ++j) {
+            const int64_t k = srr + r * R + j;
+            out.led1[k] = m ? (j == r ? votes[i] : ABSENT) : in.led1[k];
+            out.led2[k] = m ? ABSENT : in.led2[k];
+        }
+    }
+    out.decided[s] = m ? ABSENT : in.decided[s];
+    out.dphase[s] = m ? -1 : in.dphase[s];
+    out.active[s] = (active || m) ? 1 : 0;
+}
+
 }  // namespace cr

@@ -21,6 +21,17 @@
 // so the replica loop unrolls and its loads issue together; larger R
 // (up to 127) takes a runtime loop. Offsets are 64-bit: at bench.py's
 // T=393216 one replica plane alone holds 100 M words.
+//
+// The packers (pw_pack_codes, pw_unpack_codes, pw_pack_alive) replace the
+// reference's pack_codes, unpack_codes and pack_alive
+// (rabia_tpu/kernel/packed_window.py:55-96), XLA programs that feed and
+// read the window. Bound: bytes. pack_codes reads S code bytes and writes
+// S/4 bytes of words a row, unpack_codes the reverse: at S=4096 R=5
+// T=32768, 671 MB + 168 MB, 0.2504 ms at 3.35 TB/s. Design: one thread a
+// 32-bit word, its 16 codes read as one 16-byte vector (bytewise at a
+// ragged row end or an unaligned view) and shifted into place in
+// registers, never widened past 32 bits; unpack_codes writes its 16
+// lanes as one vector where rows are whole words.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -103,6 +114,80 @@ int launch(const uint32_t* v, const uint32_t* a, uint32_t* o, int R, int64_t T, 
     return static_cast<int>(cudaGetLastError());
 }
 
+// The packers: one thread a 32-bit word, reading its 16 bytes (one
+// 16-byte vector where rows are whole words and the input is 16-byte
+// aligned) and writing the word. ALIVE: pack_alive, else pack_codes.
+template <bool ALIVE, bool VEC>
+__global__ void __launch_bounds__(THREADS)
+pack_kernel(const int8_t* __restrict__ x, uint32_t* __restrict__ out, int64_t rows, int64_t S,
+            int64_t SW, int fill) {
+    const int64_t total = rows * SW;
+    const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+    for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < total;
+         i += stride) {
+        const int64_t row = i / SW, w = i - row * SW;
+        const int8_t* src = x + row * S + w * 16;
+        alignas(16) int8_t b[16];
+        int n = 16;
+        if constexpr (VEC) {
+            *reinterpret_cast<uint4*>(b) = __ldg(reinterpret_cast<const uint4*>(src));
+        } else {
+            n = static_cast<int>(S - w * 16 < 16 ? S - w * 16 : 16);
+#pragma unroll
+            for (int k = 0; k < 16; ++k) b[k] = k < n ? src[k] : 0;
+        }
+        out[i] = ALIVE ? pw::pack16_alive(reinterpret_cast<const uint8_t*>(b), n)
+                       : pw::pack16(b, n, fill);
+    }
+}
+
+// unpack_codes: one thread a word, writing its lanes below S (one 16-byte
+// vector where rows are whole words and the output is 16-byte aligned).
+template <bool VEC>
+__global__ void __launch_bounds__(THREADS)
+unpack_kernel(const uint32_t* __restrict__ p, int8_t* __restrict__ out, int64_t rows, int64_t SW,
+              int64_t S) {
+    const int64_t total = rows * SW;
+    const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+    for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < total;
+         i += stride) {
+        const int64_t row = i / SW, w = i - row * SW;
+        if (w * 16 >= S) continue;
+        const uint32_t word = __ldg(p + i);
+        int8_t* dst = out + row * S + w * 16;
+        if constexpr (VEC) {
+            alignas(16) int8_t b[16];
+            pw::unpack16(word, b, 16);
+            *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(b);
+        } else {
+            pw::unpack16(word, dst, static_cast<int>(S - w * 16 < 16 ? S - w * 16 : 16));
+        }
+    }
+}
+
+unsigned grid_for(int64_t total) {
+    int64_t blocks = (total + THREADS - 1) / THREADS;
+    if (blocks > (1 << 20)) blocks = 1 << 20;  // the grid-stride loop covers the rest
+    return static_cast<unsigned>(blocks);
+}
+
+template <bool ALIVE>
+int launch_pack(const void* x, void* out, long long rows, long long S, long long SW, int fill,
+                void* stream) {
+    if (rows < 0 || S < 0 || SW != (S + 15) / 16) return static_cast<int>(cudaErrorInvalidValue);
+    if (rows == 0 || SW == 0) return 0;
+    const auto* xi = static_cast<const int8_t*>(x);
+    auto* o = static_cast<uint32_t*>(out);
+    const auto st = static_cast<cudaStream_t>(stream);
+    const unsigned g = grid_for(rows * SW);
+    if (S % 16 == 0 && (reinterpret_cast<uintptr_t>(x) & 15u) == 0) {
+        pack_kernel<ALIVE, true><<<g, THREADS, 0, st>>>(xi, o, rows, S, SW, fill);
+    } else {
+        pack_kernel<ALIVE, false><<<g, THREADS, 0, st>>>(xi, o, rows, S, SW, fill);
+    }
+    return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // votes u32[R, T, SW] (the words' bit patterns, as torch int32), alive
@@ -129,4 +214,36 @@ extern "C" int pw_window(const void* votes, const void* alive, void* out, int R,
         case 8: return launch<8, pw::cap_of(8)>(v, a, o, R, T, SW, quorum, st);
         default: return launch<0, pw::MAX_CAP>(v, a, o, R, T, SW, quorum, st);
     }
+}
+
+// pack_codes: codes i8[rows, S] (contiguous, any byte offset) to words
+// u32[rows, SW], SW = ceil(S/16), lanes past S ABSENT (3). pack_alive:
+// flags u8[rows, S] (0 or not) to lane-LSB alive words, lanes past S 0.
+// unpack_codes: words u32[rows, SW] to codes i8[rows, S], S <= 16*SW.
+// Each launches on `stream`, returns cudaGetLastError() (0 on success);
+// none synchronises.
+extern "C" int pw_pack_codes(const void* x, void* out, long long rows, long long S, long long SW,
+                             void* stream) {
+    return launch_pack<false>(x, out, rows, S, SW, 3, stream);
+}
+
+extern "C" int pw_pack_alive(const void* x, void* out, long long rows, long long S, long long SW,
+                             void* stream) {
+    return launch_pack<true>(x, out, rows, S, SW, 0, stream);
+}
+
+extern "C" int pw_unpack_codes(const void* p, void* out, long long rows, long long SW, long long S,
+                               void* stream) {
+    if (rows < 0 || SW < 0 || S < 0 || S > 16 * SW) return static_cast<int>(cudaErrorInvalidValue);
+    if (rows == 0 || S == 0) return 0;
+    const auto* pi = static_cast<const uint32_t*>(p);
+    auto* o = static_cast<int8_t*>(out);
+    const auto st = static_cast<cudaStream_t>(stream);
+    const unsigned g = grid_for(rows * SW);
+    if (S == 16 * SW && (reinterpret_cast<uintptr_t>(out) & 15u) == 0) {
+        unpack_kernel<true><<<g, THREADS, 0, st>>>(pi, o, rows, SW, S);
+    } else {
+        unpack_kernel<false><<<g, THREADS, 0, st>>>(pi, o, rows, SW, S);
+    }
+    return static_cast<int>(cudaGetLastError());
 }

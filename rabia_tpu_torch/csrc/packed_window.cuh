@@ -107,4 +107,44 @@ PW_HD uint32_t decide_word(const uint32_t* words, int64_t stride, const uint32_t
     return decide(c1, c0, cap, q);
 }
 
+// ---- the packers (pack_codes, pack_alive, unpack_codes) ----
+//
+// Word w of a row of S one-byte codes holds codes 16w .. 16w+15, lane k
+// in bits 2k..2k+1; lanes past the row's end take `fill` (ABSENT for the
+// votes, 0 for the alive bits). A word is the sum of its lanes' values
+// shifted into place, in uint32 arithmetic: for codes 0..3 that is their
+// bitwise or, and for any byte it is what the plain version's int64 sum
+// leaves in 32 bits.
+
+// The word of the n <= 16 codes c[0..n), the other lanes `fill`.
+PW_HD uint32_t pack16(const int8_t* c, int n, int fill) {
+    uint32_t w = 0;
+    PW_UNROLL
+    for (int k = 0; k < 16; ++k) {
+        const int32_t v = k < n ? static_cast<int32_t>(c[k]) : fill;
+        w += static_cast<uint32_t>(v) << (2 * k);
+    }
+    return w;
+}
+
+// The alive word of the n <= 16 flags a[0..n): the low bit of lane k
+// where a[k] != 0; other lanes and the high bits 0.
+PW_HD uint32_t pack16_alive(const uint8_t* a, int n) {
+    uint32_t w = 0;
+    PW_UNROLL
+    for (int k = 0; k < 16; ++k) {
+        w |= (k < n && a[k] != 0) ? (1u << (2 * k)) : 0u;
+    }
+    return w;
+}
+
+// The n <= 16 codes of word w into out[0..n) (a logical shift of the
+// uint32 pattern, so the top lane never sees a sign bit).
+PW_HD void unpack16(uint32_t w, int8_t* out, int n) {
+    PW_UNROLL
+    for (int k = 0; k < 16; ++k) {
+        if (k < n) out[k] = static_cast<int8_t>((w >> (2 * k)) & 3u);
+    }
+}
+
 }  // namespace pw

@@ -4,10 +4,13 @@ The port of the reference's ``rabia_tpu/engine/engine.py``. The engine drives
 propose → vote-R1 → vote-R2 → decide → apply. The consensus *math* of
 those handlers (vote rules, tallies, coin, decision) lives in the node
 kernel — :class:`rabia_tpu_torch.kernel.host_driver.HostNodeKernel`
-(numpy, the host hot loop) — and runs for all S shards in one call per
-round; this module is everything around it: message routing, slot
-lifecycle, batch payloads, state-machine application, persistence,
-heartbeats, sync and stats.
+(numpy, the host hot loop) or, with ``KernelConfig.backend="jax"``,
+:class:`rabia_tpu_torch.kernel.phase_driver.NodeKernel` on a card (one
+``node_cycle`` launch of ``csrc/node_kernel.cu`` and one fetch a tick;
+the configuration value keeps the reference's spelling) — and runs for
+all S shards in one call per round; this module is everything around
+it: message routing, slot lifecycle, batch payloads, state-machine
+application, persistence, heartbeats, sync and stats.
 
 The native host plane runs under it as in the reference: the C columnar
 helpers and tick context (``native/hostkernel.cpp``, ``_hk_lib`` and
@@ -18,9 +21,11 @@ the asyncio orchestration). The Python paths stay the semantics owners;
 ``health()["planes"]`` says which paths run. With a WAL persistence layer
 (``persistence/native_wal.WalPersistence``) decided waves stage into the
 log, recovery runs at ``initialize()``, and the runtime engages when the
-WAL's writer is native. Not ported: the reference's ``backend="jax"``
-(its node kernel on the device, ROADMAP Queue 1 item 8), which the
-constructor refuses.
+WAL's writer is native. The device backend runs none of the native tick
+and runtime (as in the reference: ``health()["planes"]`` reports both
+as ``python``); its inbox planes go up to the card in one copy a tick,
+or, with ``zero_copy_inbox``, are adopted in place by dlpack on the CPU
+and copied from pinned memory to a card.
 
 Hot-path design (SURVEY.md §7.4.4): everything per-round is **columnar** —
 vote vectors arrive as numpy arrays (:class:`~rabia_tpu_torch.core.messages.
@@ -58,6 +63,7 @@ import uuid
 from typing import Optional, Sequence
 
 import numpy as np
+import torch
 
 from rabia_tpu_torch.core.blocks import PayloadBlock
 from rabia_tpu_torch.core.config import RabiaConfig
@@ -132,12 +138,29 @@ from rabia_tpu_torch.engine.state import (
     SlotRecord,
 )
 from rabia_tpu_torch.kernel.host_driver import HostNodeKernel
-from rabia_tpu_torch.kernel.phase_driver import R2_WAIT, pack_phase, unpack_phase
+from rabia_tpu_torch.kernel.phase_driver import (
+    R1_WAIT,
+    R2_WAIT,
+    NodeKernel,
+    pack_phase,
+    unpack_phase,
+)
 
 logger = logging.getLogger("rabia_tpu_torch.engine")
 
 _MAX_SUBMIT_ATTEMPTS = 3
 _MVC_MASK = (1 << 16) - 1
+
+
+def _aligned_i8(shape, fill: int, align: int = 64) -> np.ndarray:
+    """An i8 array on a 64-byte-aligned base, as the reference keeps the
+    device backend's planes (its XLA CPU client adopted only aligned
+    buffers zero-copy). ``torch.from_dlpack`` shares the memory of any
+    plane; the alignment keeps the planes' layout the reference's."""
+    n = int(np.prod(shape))
+    raw = np.full(n + align, np.int8(fill), np.int8)
+    off = (-raw.ctypes.data) % align
+    return raw[off : off + n].reshape(shape)
 
 
 class _OutBlock:
@@ -317,7 +340,12 @@ class RabiaEngine:
         transport: NetworkTransport,
         persistence: Optional[PersistenceLayer] = None,
         config: Optional[RabiaConfig] = None,
+        device=None,
     ) -> None:
+        """``device`` is where the device backend (``KernelConfig.backend
+        = "jax"``) runs its node kernel: a card unless the caller names
+        another (``"cpu"`` runs the plain versions); with no card and no
+        device it raises. The host backend does not read it."""
         self.cluster = cluster
         self.node_id = cluster.node_id
         self.sm = state_machine
@@ -333,18 +361,39 @@ class RabiaEngine:
         # The coin seed must be identical cluster-wide (it IS the common
         # coin); randomization_seed defaults to 0 for all nodes.
         seed = self.config.randomization_seed or 0
-        if kc.backend == "jax" or kc.zero_copy_inbox:
-            # the reference's node kernel on the device (and its dlpack
-            # inbox adoption) is not ported: refused, never ignored
-            raise NotImplementedError(
-                "KernelConfig.backend='jax' and zero_copy_inbox=True (the "
-                "engine's node kernel on the device) are not ported yet: "
-                "ROADMAP Queue 1 item 8"
+        self._host_kernel = kc.backend != "jax"
+        self._substeps = max(1, int(kc.device_substeps))
+        # the host backend ignores the flag (there is no device boundary)
+        self._zc_inbox = bool(kc.zero_copy_inbox) and not self._host_kernel
+        if self._host_kernel:
+            self.kernel = HostNodeKernel(
+                self.S, self.R, self.me, coin_p1=kc.coin_p1, seed=seed
             )
-        self.kernel = HostNodeKernel(
-            self.S, self.R, self.me, coin_p1=kc.coin_p1, seed=seed
-        )
+        else:
+            # the node kernel on the device: one launch and one fetch a
+            # tick, so the tick pays the device's round trip. The
+            # reference fenced this backend off for tunneled hardware;
+            # a card attached to the host pays far less.
+            logger.warning(
+                "KernelConfig.backend='jax' selected: the node kernel runs "
+                "on the device, one launch and one fetch a tick; intended "
+                "for directly-attached accelerators only"
+            )
+            self.kernel = NodeKernel(
+                self.S, self.R, self.me, coin_p1=kc.coin_p1, seed=seed,
+                device=device,
+            )
         self.kstate = self.kernel.init_state()
+        # the device backend's per-tick figures: ticks, bytes up and
+        # down, and (with device_tick_timing on a card) the upload,
+        # launch and fetch spans by CUDA events. Each span holds the host
+        # code that enqueues its work as well as the device's time, so
+        # it is no device time.
+        self.device_tick_timing = False
+        self.device_tick_stats = {
+            "ticks": 0, "h2d_bytes": 0, "d2h_bytes": 0, "timed_ticks": 0,
+            "upload_span_ms": 0.0, "launch_span_ms": 0.0, "fetch_span_ms": 0.0,
+        }
         self.rt = EngineRuntime(self.S)
         self.serializer = Serializer(self.config.serialization)
         self.validator = MessageValidator(self.config.validation)
@@ -352,7 +401,8 @@ class RabiaEngine:
         self._paused = False
         self.monitor = NetworkMonitor(cluster, handler=_EngineNetHandler(self))
 
-        # host mirrors of kernel arrays (aliases of the host state)
+        # host mirrors of kernel arrays (aliases in host-kernel mode,
+        # fetched copies on the device backend)
         self._refresh_mirrors()
 
         # vote stash: arrays appended at ingest, routed to the kernel in
@@ -365,11 +415,17 @@ class RabiaEngine:
         self._carry1: list[tuple] = []
         self._carry2: list[tuple] = []
         # adopted-decision plane consumed by the next node_step
-        self._dec_plane = np.full(self.S, ABSENT, np.int8)
+        # (64-byte-aligned as the reference's — see _aligned_i8)
+        self._dec_plane = _aligned_i8(self.S, ABSENT)
+        if not self._host_kernel:
+            self._inbox1 = _aligned_i8((self.S, self.R), ABSENT)
+            self._inbox2 = _aligned_i8((self.S, self.R), ABSENT)
+            if self._zc_inbox and self.kernel.device.type == "cuda":
+                self._pin_planes()
         self._shard_ids = np.arange(self.S, dtype=np.int64)
         # reused open planes: (mask, slots_full, init_full) — consumers
-        # only read masked positions (start_slots is mask-gated), so
-        # stale unmasked values are never observed
+        # only read masked positions (start_slots/node_cycle are
+        # mask-gated), so stale unmasked values are never observed
         self._open_planes = (
             np.zeros(self.S, bool),
             np.zeros(self.S, np.int64),
@@ -446,7 +502,8 @@ class RabiaEngine:
         # tests/test_torch_native_tick.py and the conformance gates).
         self._rk = None
         if (
-            self._hk_lib is not None
+            self._host_kernel
+            and self._hk_lib is not None
             and os.environ.get("RABIA_PY_TICK") != "1"
             and self.R <= 64
         ):
@@ -653,10 +710,13 @@ class RabiaEngine:
             fn=lambda: rtm_ctr("gil_handoffs"),
         )
         # -- consensus-health telemetry (chaos plane: the paper's
-        #    randomized-termination curve). Two sources feed ONE metric
+        #    randomized-termination curve). Three sources feed ONE metric
         #    identity, mirroring the tick-path convention above: the rk
-        #    tick context's C bins (None in the port) and HostNodeKernel's
-        #    host bins — each path leaves the other's source at zero.
+        #    tick context's C bins, HostNodeKernel's host bins, and the
+        #    engine's device-backend bins — each path leaves the others'
+        #    sources at zero.
+        self._dev_phase_hist = np.zeros(32, np.int64)
+        self._dev_phase_sum = 0
         phase_bounds = tuple(float(b) for b in range(1, 33))
 
         def phase_curve():
@@ -675,6 +735,8 @@ class RabiaEngine:
             if kh is not None:
                 hist[: len(kh)] += np.asarray(kh, np.int64)
                 ssum += int(kern.phase_sum)
+            hist += self._dev_phase_hist
+            ssum += self._dev_phase_sum
             # bin p (decisions taking p phases) lands in bucket bound p,
             # i.e. index p-1. The sources' top bin (31) is a CLAMP —
             # "exactly 31 OR more" — so it rides the TOP bound (32,
@@ -2591,19 +2653,34 @@ class RabiaEngine:
                         and slots == self._cur_slot[s]
                         and mvcs == self._cur_phase[s]
                     ):
-                        led = (
-                            self.kstate.led1
-                            if round_no == 1
-                            else self.kstate.led2
-                        )
-                        if led[row, s] == ABSENT:
-                            led[row, s] = vals
-                            self.flight.record(
-                                FRE_ROUTE1 if round_no == 1
-                                else FRE_ROUTE2,
-                                shard=s, slot=slots, peer=row,
-                                arg=int(vals),
+                        if self._host_kernel:
+                            led = (
+                                self.kstate.led1
+                                if round_no == 1
+                                else self.kstate.led2
                             )
+                            if led[row, s] == ABSENT:
+                                led[row, s] = vals
+                                self.flight.record(
+                                    FRE_ROUTE1 if round_no == 1
+                                    else FRE_ROUTE2,
+                                    shard=s, slot=slots, peer=row,
+                                    arg=int(vals),
+                                )
+                        else:
+                            plane = (
+                                self._inbox1
+                                if round_no == 1
+                                else self._inbox2
+                            )
+                            if plane[s, row] == ABSENT:
+                                plane[s, row] = vals
+                                self.flight.record(
+                                    FRE_ROUTE1 if round_no == 1
+                                    else FRE_ROUTE2,
+                                    shard=s, slot=slots, peer=row,
+                                    arg=int(vals),
+                                )
                     else:
                         self.flight.record(
                             FRE_CARRY, shard=s, slot=slots, peer=row,
@@ -2636,9 +2713,15 @@ class RabiaEngine:
                             shard=int(sh_c[j]), slot=int(sl_c[j]),
                             peer=row, arg=int(v_c[j]),
                         )
-                    self.kernel.offer_votes(
-                        self.kstate, round_no, row, sh_c, v_c
-                    )
+                    if self._host_kernel:
+                        self.kernel.offer_votes(
+                            self.kstate, round_no, row, sh_c, v_c
+                        )
+                    else:
+                        plane = self._inbox1 if round_no == 1 else self._inbox2
+                        cell = plane[sh_c, row]
+                        w = cell == ABSENT
+                        plane[sh_c[w], row] = v_c[w]
                     if cur.all():
                         continue
                     keep = ~cur
@@ -3098,14 +3181,26 @@ class RabiaEngine:
                 init_arr = np.concatenate(
                     [init_arr, np.full(len(b_idx), V1, np.int8)]
                 )
-            # reused full-width planes (freshly allocating three S-wide
-            # arrays per open tick measurably taxes the serial shape);
-            # consumers only read masked positions
-            mask, slots_full, init_full = self._open_planes
-            mask[:] = False
+            if self._host_kernel:
+                # reused full-width planes (freshly allocating three
+                # S-wide arrays per open tick measurably taxes the serial
+                # shape); consumers only read masked positions
+                mask, slots_full, init_full = self._open_planes
+                mask[:] = False
+            else:
+                # device backend: the CPU's dlpack adoption shares these
+                # buffers with the launch — fresh arrays per tick, as the
+                # reference's
+                mask = np.zeros(self.S, bool)
+                slots_full = np.zeros(self.S, np.int64)
+                init_full = np.full(self.S, V0, np.int8)
             mask[idx] = True
             slots_full[idx] = slots_arr
             init_full[idx] = init_arr
+
+        if not self._host_kernel:
+            return self._device_round(idx, slots_arr, init_arr, mask,
+                                      slots_full, init_full)
 
         if self._rk is not None:
             return self._native_round(
@@ -3152,6 +3247,169 @@ class RabiaEngine:
             if not self._restep:
                 break
             self._restep = False
+
+    def _pin_planes(self) -> None:
+        """zero_copy_inbox on a card: the inbox, decision and open planes
+        become views of one pinned host buffer, which a tick sends up in
+        one non-blocking copy into a device buffer of the same layout."""
+        S, R = self.S, self.R
+        parts = [((S, R), np.int8), ((S, R), np.int8), ((S,), np.int8),
+                 ((S,), np.bool_), ((S,), np.int32), ((S,), np.int8)]
+        offs, n = [], 0
+        for shape, dt in parts:
+            offs.append(n)
+            n += (int(np.prod(shape)) * np.dtype(dt).itemsize + 63) // 64 * 64
+        self._zc_host = torch.empty(n, dtype=torch.uint8, pin_memory=True)
+        self._zc_dev = torch.empty(n, dtype=torch.uint8, device=self.kernel.device)
+        hv = self._zc_host.numpy()
+        views = []
+        for (shape, dt), o in zip(parts, offs):
+            size = int(np.prod(shape)) * np.dtype(dt).itemsize
+            views.append(hv[o:o + size].view(dt).reshape(shape))
+        self._inbox1, self._inbox2, self._dec_plane = views[:3]
+        self._inbox1.fill(ABSENT)
+        self._inbox2.fill(ABSENT)
+        self._dec_plane.fill(ABSENT)
+        self._zc_open = views[3:]
+        tdt = {np.int8: torch.int8, np.bool_: torch.bool, np.int32: torch.int32}
+        self._zc_dev_views = [
+            self._zc_dev[o:o + int(np.prod(shape)) * np.dtype(dt).itemsize]
+            .view(tdt[dt]).view(shape)
+            for (shape, dt), o in zip(parts, offs)
+        ]
+
+    def _upload_planes(self, mask, slots32, init_full) -> list:
+        """The tick's six planes (mask, slots, initial votes, inbox_r1,
+        inbox_r2, decision_in) on the kernel's device. Without
+        zero_copy_inbox they go up through ``to_device_all`` (one copy;
+        the planes may change at once); with it, on the CPU
+        ``torch.from_dlpack`` adopts them in place, and on a card they go
+        up from pinned memory in one non-blocking copy. Either way the
+        host must not touch them until the tick's fetch has completed."""
+        from rabia_tpu_torch.core.device import to_device_all
+
+        dev = self.kernel.device
+        if not self._zc_inbox:
+            return to_device_all(
+                (mask, slots32, init_full, self._inbox1, self._inbox2,
+                 self._dec_plane),
+                dev,
+            )
+        if dev.type == "cuda":
+            zm, zs, zi = self._zc_open
+            zm[:] = mask
+            zs[:] = slots32
+            zi[:] = init_full
+            self._zc_dev.copy_(self._zc_host, non_blocking=True)
+            v = self._zc_dev_views
+            return [v[3], v[4], v[5], v[0], v[1], v[2]]
+        return [torch.from_dlpack(a) for a in (
+            mask, slots32, init_full, self._inbox1, self._inbox2, self._dec_plane)]
+
+    def _device_round(
+        self,
+        idx: Optional[np.ndarray],
+        slots_arr: Optional[np.ndarray],
+        init_arr: Optional[np.ndarray],
+        mask: Optional[np.ndarray],
+        slots_full: Optional[np.ndarray],
+        init_full: Optional[np.ndarray],
+    ) -> None:
+        """One engine tick on the device backend: ONE node_cycle launch
+        (start + ``device_substeps`` chained node_steps) and ONE
+        device→host fetch of the state and its outbox, which lie in one
+        tick buffer."""
+        if idx is not None:
+            # host-side mirror update (the device applies the same open
+            # inside node_cycle): routing below must see the new slots
+            self._cur_slot[idx] = slots_arr
+            self._cur_phase[idx] = 0
+            self._stage[idx] = R1_WAIT
+            self._my_r1[idx] = init_arr
+            self._my_r2[idx] = ABSENT
+            self._decided[idx] = ABSENT
+            self._done[idx] = False
+            self._active[idx] = True
+            self._flight_open(idx, slots_arr, init_arr)
+            self._send(
+                VoteRound1(
+                    shards=idx,
+                    phases=(slots_arr << 16),
+                    vals=init_arr,
+                )
+            )
+        with span("engine.kernel.route"):
+            self._route_votes()
+        prev_phase = self._cur_phase.copy()
+        if mask is None:
+            mask = np.zeros(self.S, bool)
+            slots_full = np.zeros(self.S, np.int64)
+            init_full = np.full(self.S, V0, np.int8)
+        events = self._tick_events()
+        with span("engine.kernel.step"):
+            self._tick_event(events)
+            planes = self._upload_planes(
+                mask, slots_full.astype(np.int32), init_full
+            )
+            h2d = (
+                sum(p.numel() * p.element_size() for p in planes)
+                if self.kernel.device.type == "cuda" else 0
+            )
+            self._tick_event(events)
+            self.kstate, outboxes = self.kernel.node_cycle(
+                self.kstate, *planes, self._substeps, donate=True
+            )
+            self._tick_event(events)
+            if not self._zc_inbox:
+                self._inbox1.fill(ABSENT)
+                self._inbox2.fill(ABSENT)
+        if not self._zc_inbox:
+            adopted = self._dec_plane != ABSENT
+            self._dec_plane.fill(ABSENT)
+        fetched = self.kernel.fetch_bytes
+        with span("engine.kernel.fetch"):
+            pending = self.kernel.fetch_start(self.kstate, outboxes)
+            self._tick_event(events)
+            st_np, ob_np = pending.result()
+        if self._zc_inbox:
+            # the fetch completed, so node_cycle consumed the adopted
+            # planes: only now may the host change them for the next tick
+            del planes
+            adopted = self._dec_plane != ABSENT
+            self._inbox1.fill(ABSENT)
+            self._inbox2.fill(ABSENT)
+            self._dec_plane.fill(ABSENT)
+        self._set_mirrors(st_np)
+        self._tick_account(events, h2d, self.kernel.fetch_bytes - fetched)
+        with span("engine.kernel.outbox"):
+            self._process_outbox_window(ob_np, prev_phase, adopted)
+
+    def _tick_events(self):
+        """A list to collect the tick's CUDA events in, or None when the
+        device ticks are not timed (``device_tick_timing`` off, or a CPU
+        kernel)."""
+        if self.device_tick_timing and self.kernel.device.type == "cuda":
+            return []
+        return None
+
+    @staticmethod
+    def _tick_event(events) -> None:
+        if events is not None:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            events.append(ev)
+
+    def _tick_account(self, events, h2d: int, d2h: int) -> None:
+        st = self.device_tick_stats
+        st["ticks"] += 1
+        st["h2d_bytes"] += h2d
+        st["d2h_bytes"] += d2h
+        if events:
+            events[-1].synchronize()
+            st["timed_ticks"] += 1
+            st["upload_span_ms"] += events[0].elapsed_time(events[1])
+            st["launch_span_ms"] += events[1].elapsed_time(events[2])
+            st["fetch_span_ms"] += events[2].elapsed_time(events[3])
 
     def _native_round(
         self,
@@ -3262,15 +3520,31 @@ class RabiaEngine:
 
     def _refresh_mirrors(self) -> None:
         st = self.kstate
-        # host arrays: mirrors alias the kernel state (no copies)
-        self._cur_slot = st.slot
-        self._cur_phase = st.phase
-        self._stage = st.stage
-        self._my_r1 = st.my_r1
-        self._my_r2 = st.my_r2
-        self._done = st.done
-        self._decided = st.decided
-        self._active = st.active
+        if self._host_kernel:
+            # host arrays: mirrors alias the kernel state (no copies)
+            self._cur_slot = st.slot
+            self._cur_phase = st.phase
+            self._stage = st.stage
+            self._my_r1 = st.my_r1
+            self._my_r2 = st.my_r2
+            self._done = st.done
+            self._decided = st.decided
+            self._active = st.active
+        else:
+            self._set_mirrors(self.kernel.fetch(st)[0])
+
+    def _set_mirrors(self, st) -> None:
+        """Adopt host mirrors from a (fetched) kernel state. Mirrors must
+        be WRITABLE copies: the device round updates them in place for
+        opened slots before the launch."""
+        self._cur_slot = np.array(st.slot, np.int64)
+        self._cur_phase = np.array(st.phase, np.int64)
+        self._stage = np.array(st.stage, np.int8)
+        self._my_r1 = np.array(st.my_r1, np.int8)
+        self._my_r2 = np.array(st.my_r2, np.int8)
+        self._done = np.array(st.done, bool)
+        self._decided = np.array(st.decided, np.int8)
+        self._active = np.array(st.active, bool)
 
     def _process_outbox(self, outbox, prev_phase: np.ndarray) -> None:
         """Turn kernel outbox flags into broadcast messages + decisions —
@@ -3355,6 +3629,118 @@ class RabiaEngine:
                     slot=int(cur[s_new]), arg=int(dec_vals[s_new]),
                 )
             self._process_decided(done, newly)
+
+    def _process_outbox_window(
+        self, ob, prev_phase: np.ndarray, adopted: Optional[np.ndarray] = None
+    ) -> None:
+        """Windowed twin of :meth:`_process_outbox`: one stacked outbox
+        per chained substep (the device backend's node_cycle). Vote transitions
+        are emitted per substep — a shard can legitimately cast R2 in one
+        substep and advance (or decide) in a later one within the same
+        dispatch, each with its own phase tag. ``adopted`` marks shards
+        whose decision_in plane carried a value (they go done at substep
+        0, like the host path's adopt)."""
+        n = self.n_shards
+        rt = self.rt
+        act = rt.in_flight[:n]
+        if not act.any():
+            return
+        now = time.time()
+        K = len(ob.cast_r2)
+        done_final = np.asarray(self._done)[:n] & act
+        cur_slot = np.asarray(self._cur_slot)
+        prev = np.asarray(prev_phase).astype(np.int64)
+        newly_any = np.zeros(n, bool)
+        # running done view, matching the host path's per-step `advanced &
+        # ~done`: a phase-advance R1 is suppressed only if the shard is
+        # done BY THAT SUBSTEP — using the final state would drop votes a
+        # pivotal peer still needs (it decides later in the window)
+        cum_done = (
+            (adopted[:n] & act) if adopted is not None else np.zeros(n, bool)
+        )
+        for k in range(K):
+            cast = ob.cast_r2[k][:n] & act
+            if cast.any():
+                i = np.nonzero(cast)[0]
+                slots = cur_slot[i].astype(np.int64)
+                for j in range(len(i)):
+                    self.flight.record(
+                        FRE_CAST_R2, shard=int(i[j]), slot=int(slots[j]),
+                        arg=int(ob.r2_vals[k][i[j]]),
+                    )
+                self._send(
+                    VoteRound2(
+                        shards=i,
+                        phases=(slots << 16) | prev[i],
+                        vals=ob.r2_vals[k][i],
+                    )
+                )
+                rt.last_progress[i] = now
+            newly_k = ob.newly_decided[k][:n] & act
+            if newly_k.any():
+                # phases-to-decide telemetry for the device-kernel path
+                # (the host paths account inside HostNodeKernel / the rk
+                # tick context): post-advance phase == phases used
+                i_new = np.nonzero(newly_k)[0]
+                ph_new = np.asarray(ob.new_phase[k])[i_new].astype(np.int64)
+                self._dev_phase_sum += int(ph_new.sum())
+                np.add.at(
+                    self._dev_phase_hist,
+                    np.minimum(ph_new, len(self._dev_phase_hist) - 1),
+                    1,
+                )
+            for s_new in np.nonzero(newly_k)[0]:
+                self.flight.record(
+                    FRE_STEP_DECIDE, shard=int(s_new),
+                    slot=int(cur_slot[s_new]),
+                    arg=int(np.asarray(self._decided)[s_new]),
+                )
+            newly_any |= newly_k
+            cum_done |= newly_k
+            adv_all_k = ob.advanced[k][:n] & act
+            if adv_all_k.any():
+                i_adv = np.nonzero(adv_all_k)[0]
+                self._dwell_observe(
+                    i_adv, np.asarray(ob.new_phase[k])[i_adv]
+                )
+            adv = ob.advanced[k][:n] & act & ~cum_done
+            if adv.any():
+                i = np.nonzero(adv)[0]
+                slots = cur_slot[i].astype(np.int64)
+                for j in range(len(i)):
+                    self.flight.record(
+                        FRE_ADVANCE, shard=int(i[j]), slot=int(slots[j]),
+                        arg=int(ob.new_phase[k][i[j]]) & 0xFF,
+                    )
+                self._send(
+                    VoteRound1(
+                        shards=i,
+                        phases=(slots << 16)
+                        | ob.new_phase[k][i].astype(np.int64),
+                        vals=ob.new_r1[k][i],
+                    )
+                )
+                rt.last_progress[i] = now
+            prev = np.where(
+                np.asarray(ob.advanced[k], bool),
+                np.asarray(ob.new_phase[k], np.int64),
+                prev,
+            )
+        # ANY substep's transition schedules a follow-up tick: a phase
+        # advance can make host-side CARRIED votes routable, which later
+        # substeps cannot see (they only cascade on the device ledger) —
+        # the next tick's _route_votes must get a chance to offer them
+        any_trans = False
+        for k in range(K):
+            if (ob.cast_r2[k][:n] & act).any() or (
+                ob.advanced[k][:n] & act
+            ).any():
+                any_trans = True
+                break
+        if any_trans:
+            self._restep = True
+        if done_final.any():
+            self._process_decided(done_final, newly_any)
 
     def _process_decided(
         self, done: np.ndarray, newly: np.ndarray, broadcast: bool = True

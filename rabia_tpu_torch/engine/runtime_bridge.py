@@ -189,7 +189,7 @@ def runtime_available(engine) -> bool:
     asyncio orchestration."""
     if os.environ.get("RABIA_PY_RUNTIME") == "1":
         return False
-    if engine._rk is None:
+    if engine._rk is None or not engine._host_kernel:
         return False
     if engine.persistence is not None:
         # a durable cluster runs the GIL-free commit path only on the

@@ -20,10 +20,12 @@ phase_driver.py``) and the scans over it. Two entries, on the math of
   ``[T, S, R]`` votes in place, 16 shards a thread for R <= 8, one
   (slot, shard) a thread above. ``slot_pipeline`` and
   ``slot_pipeline_wide`` launch it.
+- :meth:`ClusterRoundKernel.start_slot`: ``ClusterKernel.start_slot``,
+  one thread a shard (any R), the state's 13 fields to fresh ones.
 
 The plain versions are ``ClusterKernel.round_step_plain``,
-``run_rounds_plain``, ``slot_pipeline_plain`` and
-``slot_pipeline_wide_plain``; ``ClusterKernel`` dispatches on the
+``run_rounds_plain``, ``slot_pipeline_plain``,
+``slot_pipeline_wide_plain`` and ``start_slot_plain``; ``ClusterKernel`` dispatches on the
 tensors' device alone: a CUDA tensor goes to this kernel (or the wrapper
 raises, for R > 64 too), a CPU tensor to the plain version.
 """
@@ -69,11 +71,12 @@ class ClusterRoundKernel:
     (csrc/cluster_round.cu).
 
     ``launches`` counts kernel launches of both entries, and ``counts``
-    the same launches by entry (``rounds``, ``slot_pipeline``); each grows
+    the same launches by entry (``rounds``, ``slot_pipeline``,
+    ``start_slot``); each grows
     by one exactly where the kernel is launched. The library builds on the
     first call."""
 
-    ENTRIES = ("rounds", "slot_pipeline")
+    ENTRIES = ("rounds", "slot_pipeline", "start_slot")
 
     def __init__(self) -> None:
         self.launches = 0
@@ -95,6 +98,8 @@ class ClusterRoundKernel:
             lib.cr_rounds.restype = I
             lib.cr_slot_pipeline.argtypes = [P, P, P, P, LL, LL, I, I, I, I, I, U, U, P]
             lib.cr_slot_pipeline.restype = I
+            lib.cr_start_slot.argtypes = [P, P, P, P, LL, I, P]
+            lib.cr_start_slot.restype = I
             self._lib = lib
         return self._lib
 
@@ -139,17 +144,8 @@ class ClusterRoundKernel:
         3-d mask holds for every round, a 4-d one gives round k its k-th
         ``[shard, sender, receiver]`` mask."""
         fields = list(fields)
-        if len(fields) != len(FIELDS):
-            raise ValueError(f"a ClusterState has {len(FIELDS)} fields, got {len(fields)}")
-        S = fields[0].shape[0]
-        R = fields[1].shape[1] if fields[1].dim() == 2 else -1
+        S, R = self._check_fields(fields)
         self._check_replicas(R)
-        dims = {"S": (S,), "SR": (S, R), "SRR": (S, R, R)}
-        for t, (name, dtype, shape) in zip(fields, FIELDS):
-            if t.dtype != dtype or tuple(t.shape) != dims[shape]:
-                raise ValueError(
-                    f"{name} must be {dtype}{list(dims[shape])}, got {t.dtype}{list(t.shape)}"
-                )
         if alive.dtype != torch.bool or tuple(alive.shape) != (S, R):
             raise ValueError(f"alive must be bool[{S}, {R}], got {alive.dtype}{list(alive.shape)}")
         if n < 0:
@@ -182,6 +178,50 @@ class ClusterRoundKernel:
                     torch.cuda.current_stream().cuda_stream,
                 )
             self._launched(err, "rounds")
+        return outs
+
+    @staticmethod
+    def _check_fields(fields: Sequence[torch.Tensor]) -> tuple[int, int]:
+        """(S, R) of a ClusterState's 13 fields; raises on a field of the
+        wrong dtype or shape."""
+        if len(fields) != len(FIELDS):
+            raise ValueError(f"a ClusterState has {len(FIELDS)} fields, got {len(fields)}")
+        S = fields[0].shape[0]
+        R = fields[1].shape[1] if fields[1].dim() == 2 else -1
+        dims = {"S": (S,), "SR": (S, R), "SRR": (S, R, R)}
+        for t, (name, dtype, shape) in zip(fields, FIELDS):
+            if t.dtype != dtype or tuple(t.shape) != dims[shape]:
+                raise ValueError(
+                    f"{name} must be {dtype}{list(dims[shape])}, got {t.dtype}{list(t.shape)}"
+                )
+        return S, R
+
+    def start_slot(
+        self,
+        fields: Sequence[torch.Tensor],  # a ClusterState's 13 fields, in order
+        mask: torch.Tensor,  # bool[S]
+        votes: torch.Tensor,  # i8[S, R] initial round-1 votes
+    ) -> list[torch.Tensor]:
+        """``ClusterKernel.start_slot`` in one launch: the 13 fields after
+        it, in fresh tensors (any R >= 1)."""
+        fields = list(fields)
+        S, R = self._check_fields(fields)
+        if R < 1:
+            raise ValueError(f"start_slot takes R >= 1, got R={R}")
+        if mask.dtype != torch.bool or tuple(mask.shape) != (S,):
+            raise ValueError(f"mask must be bool[{S}], got {mask.dtype}{list(mask.shape)}")
+        if votes.dtype != I8 or tuple(votes.shape) != (S, R):
+            raise ValueError(f"votes must be int8[{S}, {R}], got {votes.dtype}{list(votes.shape)}")
+        outs = [torch.empty_like(t) for t in fields]
+        self._check_cuda(*fields, *outs, mask, votes)
+        lib = self.load()
+        if S:
+            ins = (ctypes.c_void_p * 13)(*(_u8_ptr(t) for t in fields))
+            outp = (ctypes.c_void_p * 13)(*(_u8_ptr(t) for t in outs))
+            with torch.cuda.device(mask.device):
+                err = lib.cr_start_slot(ins, outp, _u8_ptr(mask), votes.data_ptr(), S, R,
+                                        torch.cuda.current_stream().cuda_stream)
+            self._launched(err, "start_slot")
         return outs
 
     def slot_pipeline(

@@ -17,8 +17,12 @@ uint32 lacks shifts and compares); the arithmetic runs in int64 masked to
 the hand-written CUDA kernel of ``csrc/packed_window.cu``, which replaces
 the reference's ``packed_window_rmajor``; ``window`` dispatches on the
 tensor's device alone: a CUDA tensor goes to the kernel (or the wrapper
-raises), a CPU tensor to the plain version. The packers stay plain
-PyTorch: they are producers outside the window.
+raises), a CPU tensor to the plain version. The packers, which feed and
+read the window, are entries of the same library (``PACKERS``, one
+thread a 32-bit word); ``pack_codes``, ``unpack_codes`` and
+``pack_alive`` dispatch the same way, and ``pack_codes_plain``,
+``unpack_codes_plain`` and ``pack_alive_plain`` are their plain
+versions.
 """
 
 from __future__ import annotations
@@ -66,7 +70,7 @@ def _pack(x: torch.Tensor, fill: int) -> torch.Tensor:
     return _to_i32((w << shifts).sum(-1))
 
 
-def pack_codes(x: torch.Tensor) -> torch.Tensor:
+def pack_codes_plain(x: torch.Tensor) -> torch.Tensor:
     """Pack 2-bit codes i8[..., S] -> i32[..., ceil(S/16)].
 
     Ragged widths pad with ABSENT: absent votes never tally, so padding
@@ -75,7 +79,7 @@ def pack_codes(x: torch.Tensor) -> torch.Tensor:
     return _pack(x, ABSENT)
 
 
-def unpack_codes(p: torch.Tensor, S: int) -> torch.Tensor:
+def unpack_codes_plain(p: torch.Tensor, S: int) -> torch.Tensor:
     """Inverse of :func:`pack_codes`: i32[..., SW] -> i8[..., S]."""
     shifts = torch.arange(LANES, dtype=I64, device=p.device) * 2
     x = (_u32(p)[..., None] >> shifts) & 3
@@ -83,10 +87,34 @@ def unpack_codes(p: torch.Tensor, S: int) -> torch.Tensor:
     return x[..., :S]
 
 
-def pack_alive(alive: torch.Tensor) -> torch.Tensor:
+def pack_alive_plain(alive: torch.Tensor) -> torch.Tensor:
     """Pack bool[..., S] -> i32[..., SW] with one bit per lane at the
     lane LSB position (dead/padding lanes are 0)."""
     return _pack(alive, 0)
+
+
+def pack_codes(x: torch.Tensor) -> torch.Tensor:
+    """:func:`pack_codes_plain`: the packer kernel for a CUDA tensor, the
+    plain version for a CPU tensor."""
+    if x.device.type == "cuda":
+        return PACKERS.pack_codes(x)
+    return pack_codes_plain(x)
+
+
+def unpack_codes(p: torch.Tensor, S: int) -> torch.Tensor:
+    """:func:`unpack_codes_plain`: the unpacker kernel for a CUDA tensor,
+    the plain version for a CPU tensor."""
+    if p.device.type == "cuda":
+        return PACKERS.unpack_codes(p, S)
+    return unpack_codes_plain(p, S)
+
+
+def pack_alive(alive: torch.Tensor) -> torch.Tensor:
+    """:func:`pack_alive_plain`: the packer kernel for a CUDA tensor, the
+    plain version for a CPU tensor."""
+    if alive.device.type == "cuda":
+        return PACKERS.pack_alive(alive)
+    return pack_alive_plain(alive)
 
 
 def _csa_inc(planes: list, b, cap: int) -> list:
@@ -212,6 +240,92 @@ class PackedWindowKernel:
 
 
 PACKED_WINDOW = PackedWindowKernel()
+
+
+class PackersKernel:
+    """ctypes wrapper of ``pw_pack_codes``, ``pw_unpack_codes`` and
+    ``pw_pack_alive`` (csrc/packed_window.cu).
+
+    ``counts`` holds the launches by entry (``pack_codes``,
+    ``unpack_codes``, ``pack_alive``) and ``launches`` their sum; each
+    grows by one exactly where a kernel is launched. The library builds
+    on the first call."""
+
+    ENTRIES = ("pack_codes", "unpack_codes", "pack_alive")
+
+    def __init__(self) -> None:
+        self.launches = 0
+        self.counts = dict.fromkeys(self.ENTRIES, 0)
+        self._lib = None
+
+    def reset_counts(self) -> None:
+        self.launches = 0
+        self.counts = dict.fromkeys(self.ENTRIES, 0)
+
+    def load(self):
+        """Build (if needed) and bind the library; returns it."""
+        if self._lib is None:
+            path = cuda_build.build(["packed_window"])["packed_window"]
+            lib = ctypes.CDLL(str(path))
+            P, LL = ctypes.c_void_p, ctypes.c_longlong
+            for fn in (lib.pw_pack_codes, lib.pw_pack_alive, lib.pw_unpack_codes):
+                fn.argtypes = [P, P, LL, LL, LL, P]
+                fn.restype = ctypes.c_int
+            self._lib = lib
+        return self._lib
+
+    @staticmethod
+    def _check(t: torch.Tensor, dtype, what: str) -> None:
+        if t.dtype != dtype or t.dim() < 1:
+            raise ValueError(f"{what} must be {dtype}[..., n], got {t.dtype}{list(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{what} must be contiguous")
+        if t.device.type != "cuda":
+            raise ValueError(f"the packer kernels need a CUDA tensor, got {t.device}")
+
+    def _launch(self, entry: str, src: torch.Tensor, out: torch.Tensor, rows: int, a: int,
+                b: int) -> torch.Tensor:
+        lib = self.load()
+        if out.numel():
+            with torch.cuda.device(src.device):
+                err = getattr(lib, f"pw_{entry}")(
+                    src.data_ptr(), out.data_ptr(), rows, a, b,
+                    torch.cuda.current_stream().cuda_stream)
+            if err != 0:
+                raise RuntimeError(f"packer kernel ({entry}) launch failed: cudaError {err}")
+            self.launches += 1
+            self.counts[entry] += 1
+        return out
+
+    def _pack(self, entry: str, x: torch.Tensor) -> torch.Tensor:
+        S = x.shape[-1]
+        SW = packed_width(S)
+        out = torch.empty(x.shape[:-1] + (SW,), dtype=I32, device=x.device)
+        rows = x.numel() // S if S else 0
+        return self._launch(entry, x, out, rows, S, SW)
+
+    def pack_codes(self, x: torch.Tensor) -> torch.Tensor:
+        """Codes i8[..., S] -> words i32[..., ceil(S/16)], pad lanes
+        ABSENT (codes 0..3; any byte packs as the plain sum does)."""
+        self._check(x, torch.int8, "codes")
+        return self._pack("pack_codes", x)
+
+    def pack_alive(self, alive: torch.Tensor) -> torch.Tensor:
+        """Flags bool[..., S] -> lane-LSB alive words i32[..., SW]."""
+        self._check(alive, torch.bool, "alive")
+        return self._pack("pack_alive", alive)
+
+    def unpack_codes(self, p: torch.Tensor, S: int) -> torch.Tensor:
+        """Words i32[..., SW] -> codes i8[..., min(S, 16*SW)]."""
+        self._check(p, I32, "words")
+        SW = p.shape[-1]
+        S = max(0, min(int(S), LANES * SW))
+        out = torch.empty(p.shape[:-1] + (S,), dtype=torch.int8, device=p.device)
+        rows = p.numel() // SW if SW else 0
+        return self._launch("unpack_codes", p, out, rows, SW, S)
+
+
+PACKERS = PackersKernel()
 
 
 def window(packed_rm: torch.Tensor, alive_packed: torch.Tensor, quorum: int) -> torch.Tensor:

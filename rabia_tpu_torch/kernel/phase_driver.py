@@ -14,11 +14,12 @@ For CUDA tensors the protocol runs hand-written CUDA kernels:
 :mod:`rabia_tpu_torch.kernel.cluster_round` (a chain of rounds, or a
 whole window of slots, in one launch), the fused fault-free entries those
 of :mod:`rabia_tpu_torch.kernel.fused_window` and
-:mod:`rabia_tpu_torch.kernel.packed_window`; the state constructors
-(``init_state``, ``start_slot``) stay tensor ops. For CPU tensors they
-run the plain PyTorch versions (``round_step_plain``,
-``run_rounds_plain``, ``slot_pipeline_plain``,
-``slot_pipeline_wide_plain``, the closed forms), which own the
+:mod:`rabia_tpu_torch.kernel.packed_window`, and ``start_slot`` one
+launch of the round kernels' ``start_slot`` entry (``init_state`` stays
+tensor ops). For CPU tensors they run the
+plain PyTorch versions (``round_step_plain``, ``run_rounds_plain``,
+``slot_pipeline_plain``, ``slot_pipeline_wide_plain``,
+``start_slot_plain``, the closed forms), which own the
 semantics: the reference's ``lax.scan`` loops are Python loops there,
 and its ``vmap`` over slots is a batch of shards written out
 (``slot_pipeline_wide_plain``).
@@ -32,7 +33,7 @@ import torch
 
 from rabia_tpu_torch.core.device import DeviceLike, resolve_device
 from rabia_tpu_torch.core.types import ABSENT, V0, V1, VQUESTION, f_plus_1, quorum_size
-from rabia_tpu_torch.kernel import cluster_round, fused_window, packed_window
+from rabia_tpu_torch.kernel import cluster_round, fused_window, node_kernel, packed_window
 
 I8 = torch.int8
 I32 = torch.int32
@@ -190,7 +191,19 @@ class ClusterKernel:
     ) -> ClusterState:
         """Begin a new decision slot on masked shards with the given initial
         round-1 votes (V1 where the replica holds the proposal, V0 where it
-        gave up waiting)."""
+        gave up waiting). A state on a card takes one launch of the round
+        kernels' ``start_slot`` entry, a CPU state :meth:`start_slot_plain`."""
+        if state.slot.device.type == "cuda":
+            votes = torch.broadcast_to(initial_votes, (self.S, self.R)).to(I8).contiguous()
+            mask = torch.broadcast_to(shard_mask, (self.S,)).to(torch.bool).contiguous()
+            return ClusterState(*cluster_round.CLUSTER_ROUND.start_slot(
+                [t.contiguous() for t in state], mask, votes))
+        return self.start_slot_plain(state, shard_mask, initial_votes)
+
+    def start_slot_plain(
+        self, state: ClusterState, shard_mask: torch.Tensor, initial_votes: torch.Tensor
+    ) -> ClusterState:
+        """:meth:`start_slot` in plain PyTorch, on any device."""
         m = shard_mask
         mr = m[:, None]
         votes = initial_votes.to(I8)
@@ -468,7 +481,7 @@ class ClusterKernel:
         dphase = torch.empty((n_slots, S), dtype=I32, device=self.device)
         state = self.init_state()
         for t in range(n_slots):
-            st = self.start_slot(state, every, initial_votes[t])
+            st = self.start_slot_plain(state, every, initial_votes[t])
             st = st._replace(slot=torch.full_like(st.slot, _wrap_i32(start_slot_index + t)))
             for _ in range(rounds_per_slot):
                 st = self.round_step_plain(st, alive, full)
@@ -532,7 +545,7 @@ class ClusterKernel:
             votes = initial_votes[c * B:(c + 1) * B].reshape(rows, R)
             first = start_slot_index + c * B
             slots = torch.arange(first, first + B, dtype=I32, device=dev)
-            st = self.start_slot(state0, every, votes)
+            st = self.start_slot_plain(state0, every, votes)
             st = st._replace(slot=slots.repeat_interleave(S))
             for _ in range(rounds_per_slot):
                 st = self._round(st, alive_rows, full, shard_idx)
@@ -595,6 +608,382 @@ class ClusterKernel:
                 f"replica-major [R={self.R}, T={n_slots}, SW={SW}]"
             )
         return packed_window.window(packed_rm, alive_packed, self.quorum)
+
+
+# ---------------------------------------------------------------------------
+# Per-node kernel (the host engine's device half)
+# ---------------------------------------------------------------------------
+
+
+class NodeState(NamedTuple):
+    """One node's consensus state over its S shards."""
+
+    slot: torch.Tensor  # i32[S]
+    phase: torch.Tensor  # i32[S]
+    stage: torch.Tensor  # i8[S]
+    my_r1: torch.Tensor  # i8[S]
+    my_r2: torch.Tensor  # i8[S]
+    led1: torch.Tensor  # i8[S,R]  votes seen for current (slot, phase)
+    led2: torch.Tensor  # i8[S,R]
+    decided: torch.Tensor  # i8[S]
+    done: torch.Tensor  # bool[S]
+    active: torch.Tensor  # bool[S]
+
+
+class NodeOutbox(NamedTuple):
+    """What the host must transmit after a node_step ([S] planes; [K, S]
+    from node_cycle)."""
+
+    cast_r2: torch.Tensor  # bool — broadcast VoteRound2(phase, my_r2)
+    r2_vals: torch.Tensor  # i8
+    advanced: torch.Tensor  # bool — broadcast VoteRound1(phase+1, my_r1)
+    new_r1: torch.Tensor  # i8
+    new_phase: torch.Tensor  # i32
+    newly_decided: torch.Tensor  # bool — broadcast Decision(slot, value)
+    decided_vals: torch.Tensor  # i8
+
+
+class _NodeFetch:
+    """A node kernel's fetch in flight: ``result()`` waits for the copy
+    and returns ``(NodeState, NodeOutbox or None)`` of numpy arrays."""
+
+    __slots__ = ("_fetch", "_split")
+
+    def __init__(self, fetch, split) -> None:
+        self._fetch, self._split = fetch, split
+
+    def result(self):
+        return self._split(None if self._fetch is None else self._fetch.result())
+
+
+class NodeKernel:
+    """One node's per-shard weak-MVC step: ledgers in, transitions out.
+
+    The host engine owns message routing and slot lifecycle; this kernel
+    owns the per-phase math for all S shards at once. Runs on ``device``
+    (CUDA unless the caller passes another; raises when CUDA is asked for
+    and absent). On a card ``start_slots``, ``node_step`` and
+    ``node_cycle`` are one launch each of ``csrc/node_kernel.cu``
+    (:mod:`rabia_tpu_torch.kernel.node_kernel`), on the CPU the plain
+    versions (``start_slots_plain``, ``node_step_plain``,
+    ``node_cycle_plain``). Both are functional: a launch writes its state
+    and outbox into a new tick buffer, which becomes the kernel's newest,
+    and :meth:`fetch` brings the newest state and outbox to the host in
+    one copy. With ``donate=True`` (the reference's ``donate_argnums``) a
+    launch given the kernel's newest state updates it in place, which
+    overwrites the outbox of the launch before; the caller must not use
+    the state it gave. The CPU ignores ``donate``."""
+
+    def __init__(
+        self,
+        n_shards: int,
+        n_replicas: int,
+        me: int,
+        *,
+        coin_p1: float = 0.5,
+        seed: int = 0,
+        device: DeviceLike = None,
+    ):
+        self.device = resolve_device(device)
+        self.S = int(n_shards)
+        self.R = int(n_replicas)
+        self.me = int(me)
+        self.quorum = quorum_size(self.R)
+        self.f1 = f_plus_1(self.R)
+        self.coin_p1 = float(coin_p1)
+        self.seed = int(seed)
+        self._shard_idx = torch.arange(self.S, dtype=I32, device=self.device)
+        self._own = torch.arange(self.R, device=self.device)[None, :] == self.me
+        # (buffer, TickLayout) of the newest state made on a card
+        self._tick: Optional[tuple[torch.Tensor, node_kernel.TickLayout]] = None
+        self.fetch_bytes = 0  # bytes :meth:`fetch` copied from the card
+
+    def _on_card(self, state) -> bool:
+        return state.slot.device.type == "cuda"
+
+    def _new_tick(self, K: int) -> tuple[torch.Tensor, node_kernel.TickLayout]:
+        """A new tick buffer (contents undefined) for K steps, now the
+        kernel's newest."""
+        layout = node_kernel.TickLayout(self.S, self.R, K)
+        buf = torch.empty(layout.nbytes, dtype=torch.uint8, device=self.device)
+        self._tick = (buf, layout)
+        return self._tick
+
+    def _in_tick(self, fields) -> bool:
+        """True when ``fields`` are the state views of the newest tick
+        buffer."""
+        return self._tick is not None and self._tick[1].owns(self._tick[0], fields)
+
+    def init_state(self) -> NodeState:
+        S, R, dev = self.S, self.R, self.device
+        if dev.type == "cuda":
+            buf, layout = self._new_tick(1)
+            st = NodeState(*layout.state_views(buf))
+            for t, v in zip(st, (0, 0, R1_WAIT, ABSENT, ABSENT, ABSENT, ABSENT, ABSENT,
+                                 False, False)):
+                t.fill_(v)
+            return st
+
+        def full(shape, value, dtype):
+            return torch.full(shape, value, dtype=dtype, device=dev)
+
+        return NodeState(
+            slot=full((S,), 0, I32),
+            phase=full((S,), 0, I32),
+            stage=full((S,), R1_WAIT, I8),
+            my_r1=full((S,), ABSENT, I8),
+            my_r2=full((S,), ABSENT, I8),
+            led1=full((S, R), ABSENT, I8),
+            led2=full((S, R), ABSENT, I8),
+            decided=full((S,), ABSENT, I8),
+            done=full((S,), False, torch.bool),
+            active=full((S,), False, torch.bool),
+        )
+
+    # -- the entry points: one launch on a card, the plain version on the CPU
+
+    def start_slots(
+        self, state: NodeState, shard_mask, slot_index, initial_votes, *, donate: bool = False
+    ) -> NodeState:
+        """Open a slot on the masked shards: ``slot_index[s]`` at phase 0,
+        ``initial_votes[s]`` as the round-1 vote (in the node's own cell of
+        led1)."""
+        if self._on_card(state):
+            st, _ = self._launch("start_slots", state, shard_mask, slot_index, initial_votes,
+                                 None, None, None, 0, donate)
+            return st
+        return self.start_slots_plain(state, shard_mask, slot_index, initial_votes)
+
+    def node_step(
+        self, state: NodeState, inbox_r1, inbox_r2, decision_in, *, donate: bool = False
+    ) -> tuple[NodeState, NodeOutbox]:
+        """Consume routed inboxes (i8[S,R] votes for the current (slot,
+        phase), ABSENT elsewhere; ``decision_in`` i8[S] ABSENT or an
+        adopted decision), run the enabled transitions on every shard."""
+        if self._on_card(state):
+            st, ob = self._launch("node_step", state, None, None, None, inbox_r1, inbox_r2,
+                                  decision_in, 1, donate)
+            return st, NodeOutbox(*(p[0] for p in ob))
+        return self.node_step_plain(state, inbox_r1, inbox_r2, decision_in)
+
+    def node_cycle(
+        self,
+        state: NodeState,
+        shard_mask,  # bool[S] slots to (re)start this tick
+        slot_index,  # i32[S]
+        initial_votes,  # i8[S]
+        inbox_r1,  # i8[S,R]
+        inbox_r2,  # i8[S,R]
+        decision_in,  # i8[S]
+        n_steps: int,
+        *,
+        donate: bool = False,
+    ) -> tuple[NodeState, NodeOutbox]:
+        """One dispatch for a whole engine tick: start newly opened slots,
+        then chain ``n_steps`` node_steps (inboxes consumed by the first;
+        later substeps cascade stage transitions on ledger-resident votes).
+        Returns the final state and a NodeOutbox of ``[n_steps, S]``
+        planes."""
+        if self._on_card(state):
+            return self._launch("node_cycle", state, shard_mask, slot_index, initial_votes,
+                                inbox_r1, inbox_r2, decision_in, int(n_steps), donate)
+        return self.node_cycle_plain(state, shard_mask, slot_index, initial_votes, inbox_r1,
+                                     inbox_r2, decision_in, n_steps)
+
+    def _launch(self, entry, state, mask, slot_index, init, ib1, ib2, dec, K: int,
+                donate: bool):
+        """One launch of the node kernel on the state's card; returns the
+        state and outbox views of the tick buffer it wrote: the newest one
+        in place when ``donate`` and the state lies there with room for K
+        steps, else a new one."""
+        if self.device.type != "cuda":
+            raise ValueError(f"a node kernel on {self.device} has no card to launch on")
+        fields = list(state)
+        if donate and self._in_tick(fields) and self._tick[1].K >= K:
+            buf, layout = self._tick
+            out = fields
+        else:
+            buf, layout = self._new_tick(K)
+            out = layout.state_views(buf)
+        outbox = layout.outbox_views(buf, K) if K else None
+
+        def arg(x, dtype, shape):
+            if x is None:
+                return None
+            t = torch.as_tensor(x, device=self.device)
+            return torch.broadcast_to(t, shape).to(dtype).contiguous()
+
+        S, R = self.S, self.R
+        node_kernel.NODE_CYCLE(
+            entry, fields, out, outbox,
+            arg(mask, torch.bool, (S,)), arg(slot_index, I32, (S,)), arg(init, I8, (S,)),
+            arg(ib1, I8, (S, R)), arg(ib2, I8, (S, R)), arg(dec, I8, (S,)), K,
+            me=self.me, quorum=self.quorum, f1=self.f1, seed=self.seed,
+            threshold=coin_threshold(self.coin_p1),
+        )
+        if outbox is None:  # no steps: node_cycle's outbox has no rows
+            outbox = [torch.empty((0, S), dtype=dtype, device=self.device)
+                      for _, dtype in node_kernel.OUTBOX_FIELDS]
+        return NodeState(*out), NodeOutbox(*outbox)
+
+    def fetch(self, state: NodeState, outbox: Optional[NodeOutbox] = None):
+        """``(state, outbox)`` as numpy arrays on the host (``outbox`` None
+        when not given). On a card they must be the kernel's newest state
+        and outbox, which lie in one tick buffer and come back in one
+        copy; a CPU state's arrays share its tensors' memory."""
+        return self.fetch_start(state, outbox).result()
+
+    def fetch_start(self, state: NodeState, outbox: Optional[NodeOutbox] = None) -> "_NodeFetch":
+        """:meth:`fetch` in two halves: the copy is queued behind the work
+        on the stream now, and ``result()`` of what this returns waits for
+        it."""
+        from rabia_tpu_torch.core.device import HostFetch
+
+        if not self._on_card(state):
+            return _NodeFetch(None, lambda _: (
+                NodeState(*(t.numpy() for t in state)),
+                None if outbox is None else NodeOutbox(*(t.numpy() for t in outbox))))
+        if not self._in_tick(list(state)) or (outbox is not None and not all(
+            p.data_ptr() == self._tick[0].data_ptr() + off
+            for p, (off, _, _) in zip(outbox, self._tick[1].outbox)
+        )):
+            raise ValueError("fetch takes the kernel's newest state and outbox on a card")
+        buf, layout = self._tick
+        nbytes = layout.state[-1][0] + self.S if outbox is None else layout.nbytes
+        self.fetch_bytes += nbytes
+        rows = None if outbox is None or outbox[0].dim() == 1 else outbox[0].shape[0]
+
+        def split(host):
+            st = NodeState(*layout.state_views(host))
+            if outbox is None:
+                return st, None
+            planes = layout.outbox_views(host, rows)
+            if rows is None:
+                planes = [p[0] for p in planes]
+            return st, NodeOutbox(*planes)
+
+        return _NodeFetch(HostFetch(buf[:nbytes]), split)
+
+    # -- the plain versions (any device)
+
+    def start_slots_plain(self, state: NodeState, shard_mask, slot_index, initial_votes) -> NodeState:
+        """:meth:`start_slots` in plain PyTorch."""
+        dev = state.slot.device
+        m = torch.as_tensor(shard_mask, device=dev).to(torch.bool)
+        slot_index = torch.as_tensor(slot_index, device=dev).to(I32)
+        votes = torch.as_tensor(initial_votes, device=dev).to(I8)
+        own = self._own.to(dev)
+        led1 = torch.where(
+            m[:, None], torch.where(own, votes[:, None], ABSENT).to(I8), state.led1
+        )
+        return NodeState(
+            slot=torch.where(m, slot_index, state.slot),
+            phase=torch.where(m, 0, state.phase),
+            stage=torch.where(m, R1_WAIT, state.stage),
+            my_r1=torch.where(m, votes, state.my_r1),
+            my_r2=torch.where(m, ABSENT, state.my_r2),
+            led1=led1,
+            led2=torch.where(m[:, None], ABSENT, state.led2),
+            decided=torch.where(m, ABSENT, state.decided),
+            done=state.done & ~m,
+            active=state.active | m,
+        )
+
+    def node_cycle_plain(
+        self, state: NodeState, shard_mask, slot_index, initial_votes, inbox_r1, inbox_r2,
+        decision_in, n_steps: int,
+    ) -> tuple[NodeState, NodeOutbox]:
+        """:meth:`node_cycle` in plain PyTorch: start, then ``n_steps``
+        steps, ABSENT inboxes after the first."""
+        state = self.start_slots_plain(state, shard_mask, slot_index, initial_votes)
+        dev = state.slot.device
+        absent_sr = torch.full((self.S, self.R), ABSENT, dtype=I8, device=dev)
+        absent_s = torch.full((self.S,), ABSENT, dtype=I8, device=dev)
+        outs = []
+        for k in range(int(n_steps)):
+            first = k == 0
+            state, ob = self.node_step_plain(
+                state, inbox_r1 if first else absent_sr, inbox_r2 if first else absent_sr,
+                decision_in if first else absent_s,
+            )
+            outs.append(ob)
+        if not outs:
+            return state, NodeOutbox(*(
+                torch.empty((0, self.S), dtype=dtype, device=dev)
+                for _, dtype in node_kernel.OUTBOX_FIELDS))
+        return state, NodeOutbox(*(torch.stack(planes) for planes in zip(*outs)))
+
+    def node_step_plain(
+        self, state: NodeState, inbox_r1, inbox_r2, decision_in
+    ) -> tuple[NodeState, NodeOutbox]:
+        """:meth:`node_step` in plain PyTorch."""
+        Q, F1 = self.quorum, self.f1
+        dev = state.slot.device
+        own = self._own.to(dev)
+        inbox_r1 = torch.as_tensor(inbox_r1, device=dev).to(I8)
+        inbox_r2 = torch.as_tensor(inbox_r2, device=dev).to(I8)
+        decision_in = torch.as_tensor(decision_in, device=dev).to(I8)
+
+        led1 = torch.where((state.led1 == ABSENT) & (inbox_r1 != ABSENT), inbox_r1, state.led1)
+        led2 = torch.where((state.led2 == ABSENT) & (inbox_r2 != ABSENT), inbox_r2, state.led2)
+
+        enabled = state.active & ~state.done
+
+        c0, c1, _, tot1 = _tally(led1)
+        cast_r2 = enabled & (state.stage == R1_WAIT) & (tot1 >= Q)
+        r2_val = _pick(c1 >= Q, V1, c0 >= Q, V0, VQUESTION)
+        my_r2 = torch.where(cast_r2, r2_val, state.my_r2)
+        stage = torch.where(cast_r2, R2_WAIT, state.stage).to(I8)
+        led2 = torch.where(cast_r2[:, None] & own, my_r2[:, None], led2)
+
+        d0, d1, _, tot2 = _tally(led2)
+        advance = enabled & (state.stage == R2_WAIT) & (tot2 >= Q)
+        decide1 = d1 >= F1
+        decide0 = d0 >= F1
+        coin = _coin_bits(self.seed, self._shard_idx.to(dev), state.slot, state.phase, self.coin_p1)
+        next_v = _pick(decide1, V1, decide0, V0, _pick(d1 > 0, V1, d0 > 0, V0, coin))
+        newly_decided = advance & (decide1 | decide0)
+        dec_val = torch.where(decide1, V1, V0).to(I8)
+
+        # external decision adoption (Decision broadcast / sync)
+        adopt = enabled & ~newly_decided & (decision_in != ABSENT)
+        decided = torch.where(
+            newly_decided, dec_val, torch.where(adopt, decision_in, state.decided)
+        )
+        done = state.done | newly_decided | adopt
+
+        phase = torch.where(advance, state.phase + 1, state.phase)
+        my_r1 = torch.where(advance, next_v, state.my_r1)
+        stage = torch.where(advance, R1_WAIT, stage).to(I8)
+        my_r2_out = my_r2
+        my_r2 = torch.where(advance, ABSENT, my_r2).to(I8)
+        led1 = torch.where(
+            advance[:, None], torch.where(own, next_v[:, None], ABSENT).to(I8), led1
+        )
+        led2 = torch.where(advance[:, None], ABSENT, led2).to(I8)
+
+        new_state = NodeState(
+            slot=state.slot,
+            phase=phase,
+            stage=stage,
+            my_r1=my_r1,
+            my_r2=my_r2,
+            led1=led1,
+            led2=led2,
+            decided=decided,
+            done=done,
+            active=state.active,
+        )
+        outbox = NodeOutbox(
+            cast_r2=cast_r2,
+            r2_vals=my_r2_out,
+            advanced=advance,
+            new_r1=my_r1,
+            new_phase=phase,
+            newly_decided=newly_decided,
+            decided_vals=decided,
+        )
+        return new_state, outbox
 
 
 # ---------------------------------------------------------------------------

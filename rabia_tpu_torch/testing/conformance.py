@@ -49,16 +49,24 @@ async def run_schedule_on_both_planes(
     *,
     tag: str = "",
     device=None,
+    kernel: Optional[dict] = None,
+    engine_device=None,
+    time_device_ticks: bool = False,
 ) -> dict:
     """Raise AssertionError (prefixed with ``tag``) on any divergence.
 
     ``schedule``: per wave, {shard: [command strings]} — submitted in
     wave order on both planes. Fault-free only (faults are masked
     differently per plane; they have their own gates). ``device`` is the
-    ``MeshEngine``'s. Returns ``transport_wall_s`` (first submit to last
+    ``MeshEngine``'s. ``kernel`` adds ``KernelConfig`` fields to the
+    transport engines' configuration (``{"backend": "jax"}`` runs their
+    node kernel on ``engine_device``, which they take as their
+    ``device``; ``time_device_ticks`` times their ticks on a card by CUDA
+    events). Returns ``transport_wall_s`` (first submit to last
     settle), ``wave_s`` (each wave's), ``settle_s`` (each future's
     submit-to-settle seconds), ``decided_slots`` (slots decided over all
-    shards, on the submitting replica), ``snapshot`` (the replicas'
+    shards, on the submitting replica), ``device_ticks`` (the transport
+    engines' ``device_tick_stats``, summed), ``snapshot`` (the replicas'
     agreed state) and ``mesh_engine``.
     """
     from rabia_tpu_torch.core.config import RabiaConfig
@@ -78,7 +86,7 @@ async def run_schedule_on_both_planes(
         phase_timeout=3.0,
         heartbeat_interval=0.05,
         round_interval=0.002,
-    ).with_kernel(num_shards=n_shards, shard_pad_multiple=2)
+    ).with_kernel(num_shards=n_shards, shard_pad_multiple=2, **(kernel or {}))
     hub = InMemoryHub()
     nodes = [NodeId.from_int(i + 1) for i in range(n_replicas)]
     engines, sms, tasks = [], [], []
@@ -86,8 +94,9 @@ async def run_schedule_on_both_planes(
         sm = InMemoryStateMachine()
         eng = RabiaEngine(
             ClusterConfig.new(node, nodes), sm, hub.register(node),
-            config=config,
+            config=config, device=engine_device,
         )
+        eng.device_tick_timing = time_device_ticks
         engines.append(eng)
         sms.append(sm)
         tasks.append(asyncio.ensure_future(eng.run()))
@@ -177,11 +186,16 @@ async def run_schedule_on_both_planes(
     assert all(
         sm.create_snapshot().data == snap for sm in mesh_eng.sms
     ), f"{tag}: replica state diverges across planes"
+    device_ticks: dict = {}
+    for e in engines:
+        for k, v in e.device_tick_stats.items():
+            device_ticks[k] = device_ticks.get(k, 0) + v
     return {
         "transport_wall_s": transport_wall_s,
         "wave_s": wave_s,
         "settle_s": settle_s,
         "decided_slots": sum(len(d) for d in transport_decisions.values()),
+        "device_ticks": device_ticks,
         "snapshot": snap,
         "mesh_engine": mesh_eng,
     }

@@ -15,10 +15,8 @@
   time, and the dwell metric family exposes identical label sets on the
   native and ``RABIA_PY_TICK=1`` planes.
 
-The port's copy of the reference's tests/test_critpath.py, less
-``test_slowlog_cli_end_to_end`` and the helper's command-line branch:
-the port has no ``__main__`` command line yet (ROADMAP Queue 1, item
-7.13).
+The port's copy of the reference's tests/test_critpath.py, the slowlog
+command line (``python -m rabia_tpu_torch slowlog``) included.
 """
 
 from __future__ import annotations
@@ -322,7 +320,7 @@ class TestDwellGeometry:
         assert int(lib.rk_dwell_version()) >= 1
 
 
-async def _run_slowlog_cluster():
+async def _run_slowlog_cluster(via_cli: bool = False):
     """Drive a 3-replica TCP gateway cluster, then decompose its
     slowlog exemplars in-process. Returns (decomps, dwell label keys)
     so plane-parity tests can compare metric universes."""
@@ -347,6 +345,18 @@ async def _run_slowlog_cluster():
                 g.slowlog.document().get("exemplars", [])
             )
         assert exemplars, "no slowlog exemplars captured"
+        if via_cli:
+            from rabia_tpu_torch.__main__ import main as cli_main
+
+            addrs = [f"127.0.0.1:{g.port}" for g in cluster.gateways]
+            rc = await asyncio.to_thread(
+                cli_main,
+                ["slowlog", addrs[0],
+                 *[a for ad in addrs for a in ("--replicas", ad)],
+                 "--last", "4"],
+            )
+            assert rc == 0
+            return [], set()
         engines = list(cluster.engines)
         agg = CritpathAggregator()
         decomps = decompose_exemplars(
@@ -384,6 +394,9 @@ async def _run_slowlog_cluster():
 class TestCritpathLive:
     async def test_exemplars_decompose_in_process(self):
         await _run_slowlog_cluster()
+
+    async def test_slowlog_cli_end_to_end(self):
+        await _run_slowlog_cluster(via_cli=True)
 
     async def test_dwell_names_parity_python_planes(self, monkeypatch):
         """The native tick and the RABIA_PY_TICK=1 / RABIA_PY_GATEWAY=1
@@ -503,12 +516,19 @@ class TestAcrossPackages:
                 compared += got["ok"]
             assert compared, "no exemplar decomposed"
             engines = list(cluster.engines)
+            # each exemplar's timeline is built once and both packages
+            # decompose copies of it: a timeline built anew samples the
+            # wall and monotonic clocks anew, and a thread preempted
+            # between the two reads shifts that node's offset by more
+            # than the tolerance
+            timelines = {
+                id(e): inprocess_exemplar_timeline(engines, e) for e in exemplars
+            }
             agg, ref_agg = CritpathAggregator(), ref.CritpathAggregator()
             got = decompose_exemplars(
-                exemplars, lambda e: inprocess_exemplar_timeline(engines, e), agg)
+                exemplars, lambda e: copy.deepcopy(timelines[id(e)]), agg)
             want = ref.decompose_exemplars(
-                exemplars, lambda e: inprocess_exemplar_timeline(engines, e),
-                ref_agg)
+                exemplars, lambda e: copy.deepcopy(timelines[id(e)]), ref_agg)
             for a, b in zip(got, want):
                 _same_decomposition(a, b)
             s, r = agg.summary(), ref_agg.summary()

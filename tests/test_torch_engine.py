@@ -6,7 +6,7 @@ in memory, submissions from every node, one replica, membership join and
 leave, no quorum, loss/latency/minority crash under the simulator,
 proposer rotation and validation, the dedup ledger, apply-failure
 containment, partition pause and heal, tracing spans, mixed-progress
-sync, and the refusal of the unported device backend. These tests
+sync, and the device backend's refusal without a card. These tests
 REQUIRE every commit to actually hold.
 """
 
@@ -762,13 +762,22 @@ class TestBackendRefusal:
         [{"backend": "jax"}, {"zero_copy_inbox": True}],
         ids=["backend_jax", "zero_copy_inbox"],
     )
-    def test_device_backend_is_refused_not_ignored(self, kernel_kw):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 8"):
-            self._engine(
-                RabiaConfig().with_kernel(
-                    num_shards=2, shard_pad_multiple=2, **kernel_kw
-                )
-            )
+    def test_device_backend_is_refused_not_ignored(self, kernel_kw, monkeypatch):
+        """The device backend without a card and without a device is
+        refused (the engine raises; it never drops to the CPU on its
+        own), and ``zero_copy_inbox`` alone, on the host backend, is
+        ignored as the reference ignores it: there is no device
+        boundary."""
+        import torch
+
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        config = RabiaConfig().with_kernel(num_shards=2, shard_pad_multiple=2, **kernel_kw)
+        if kernel_kw.get("backend") == "jax":
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                self._engine(config)
+        else:
+            eng = self._engine(config)
+            assert eng._host_kernel and not eng._zc_inbox
 
 
 class TestDeferredApplyCommitsOnce:

@@ -6,10 +6,7 @@ the aggregator + cross-tier trace against a live in-process fleet
 (ring discovery, scrape alignment, trace-hop ordering across a MOVED
 redirect); and the fleet-top series / chaos-profile plumbing.
 
-The port's copy of the reference's tests/test_fleet_obs.py. The port has
-no ``__main__`` command line yet (ROADMAP Queue 1, item 7.13), so the
-fleet-top smoke checks the series the command writes and leaves out its
-argparse wiring.
+The port's copy of the reference's tests/test_fleet_obs.py.
 """
 
 from __future__ import annotations
@@ -385,8 +382,9 @@ async def test_aggregator_and_trace_against_live_fleet(tmp_path):
 
 @pytest.mark.asyncio
 async def test_fleet_top_cli_smoke(tmp_path, capsys):
-    """What `fleet-top --json --out` writes, against a live fleet: the
-    last sample's JSON and the full series in the out file."""
+    """`python -m rabia_tpu_torch fleet-top --json --out` against a live
+    fleet: last-sample JSON on stdout, full series in the out file."""
+    from rabia_tpu_torch import __main__ as cli
     from rabia_tpu_torch.fleet.harness import FleetHarness
 
     h = FleetHarness(n_gateways=2, n_shards=4, persistence=False)
@@ -407,6 +405,8 @@ async def test_fleet_top_cli_smoke(tmp_path, capsys):
         assert json.loads(out.read_text())["series"][-1]["t"] == doc["t"]
         assert len(series) == 2
         assert series[-1]["interval_s"] > 0
+        # the argparse wiring exists and names the knobs
+        assert cli._fleet_top is not None
     finally:
         await h.stop()
         if h.cluster.wal_dir:

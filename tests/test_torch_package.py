@@ -121,21 +121,25 @@ def test_unported_engine_lanes_are_refused_not_ignored():
     # multi-device meshes are refused; the latency governor is ported
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         MeshEngine(InMemoryStateMachine, 4, 3, device="cpu", mesh=object())
-    # the transport engine's node kernel on the device is refused
+    # the transport engine's node kernel runs on the device it is given
+    # (the plain versions on the CPU); zero_copy_inbox on the host
+    # backend is ignored, as the reference ignores it
     from rabia_tpu_torch.core.config import RabiaConfig
     from rabia_tpu_torch.core.network import ClusterConfig
     from rabia_tpu_torch.core.types import NodeId
     from rabia_tpu_torch.engine import RabiaEngine
+    from rabia_tpu_torch.kernel.phase_driver import NodeKernel
     from rabia_tpu_torch.net import InMemoryHub
 
     nodes = [NodeId.from_int(i + 1) for i in range(3)]
-    for kernel_kw in ({"backend": "jax"}, {"zero_copy_inbox": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 8"):
-            RabiaEngine(
-                ClusterConfig.new(nodes[0], nodes), InMemoryStateMachine(),
-                InMemoryHub().register(nodes[0]),
-                config=RabiaConfig().with_kernel(**kernel_kw),
-            )
+    for kernel_kw, device in (({"backend": "jax"}, "cpu"), ({"zero_copy_inbox": True}, None)):
+        eng = RabiaEngine(
+            ClusterConfig.new(nodes[0], nodes), InMemoryStateMachine(),
+            InMemoryHub().register(nodes[0]),
+            config=RabiaConfig().with_kernel(**kernel_kw), device=device,
+        )
+        assert isinstance(eng.kernel, NodeKernel) == (device is not None)
+        assert not eng._zc_inbox
     gov = MeshEngine(lambda: VectorShardedKV(4), 4, 3, device="cpu", device_store=True,
                      window=64, latency_target_ms=50.0, min_window=2, max_window=32)
     assert gov.governor_stats()["inflight"] == 1  # one window deep under a target

@@ -3,8 +3,8 @@ over the port's ``native/walkernel.cpp``).
 
 The port's copy of the reference's tests/test_wal.py (WAL format,
 torn-write recovery, incremental snapshots, native-runtime engagement on
-a durable cluster, the kill -9 crash-recovery smoke), less
-``TestWalDumpCli``, whose CLI is not ported yet. Then the cross-package
+a durable cluster, the kill -9 crash-recovery smoke, the ``wal-dump``
+command line). Then the cross-package
 checks (``TestAcrossPackages``): the port's C writer, its Python writer
 and the reference's C writer write byte-identical segments from one
 record sequence; a WAL directory written by either package recovers in
@@ -536,6 +536,27 @@ class TestCrashRecoverySmoke:
         assert (report["waves_replayed"] or 0) + (
             report["chain_files"] or 0
         ) > 0, f"nothing recovered: {report}"
+
+
+class TestWalDumpCli:
+    def test_wal_dump_renders_and_flags_torn_tail(self, tmp_path, capsys):
+        from rabia_tpu_torch.__main__ import main as cli_main
+
+        p = WalPersistence(tmp_path, n_shards=2)
+        for i in range(8):
+            p.stage_wave(i % 2, i // 2, 1, bytes(16), [b"\x01\x01\x00kv"])
+        p.flush_sync()
+        p.close()
+        assert cli_main(["wal-dump", str(tmp_path)]) == 0
+        out = capsys.readouterr().out
+        assert "records: 8" in out and "crc=ok" in out
+        # torn tail flags, never crashes
+        seg = sorted(tmp_path.glob("wal-*.seg"))[-1]
+        with open(seg, "ab") as f:
+            f.write(b"\x55" * 9)
+        assert cli_main(["wal-dump", str(tmp_path), "--records"]) == 0
+        out = capsys.readouterr().out
+        assert "torn tail" in out and "TORN" in out
 
 
 class TestChildrenFollowTheirParent:
