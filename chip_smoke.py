@@ -292,6 +292,32 @@ events (each holds host code too, so none is a device time). After the timings o
 beside an empty kernel and their bytes bounds, and one engine tick's
 ``node_cycle`` at 4096 x 5 with K=3.
 
+Phase 17 (after phase 16) runs the device mesh on the card, which serves
+as every device of a logical mesh and as the device of one rank and of
+two: (b) before the counts, ``slot_window`` at S=4096 R=5 T=16 on logical
+meshes of 4x1, 1x5 and 4x5 (votes over all four codes, crash masks with
+a quorum-less shard, bases near 2^31-1, 4 phases, so the coin is
+reached) bit for bit against the one-device ``mw_window`` and the plain
+loop, one launch a shard block, and ``phase_step`` over 4x5 against one
+device's. Then, on its own counts: (a) ``MeshEngine(mesh=make_mesh())``
+(1x1 on the card) beside ``MeshEngine()`` on a part of phase 5's
+workload (SET and GET on every shard, a minority crash with SETs, heal,
+GETs), decisions, futures and replica snapshots equal, and the 4x5
+mesh's engine equal to them; (c) ``ShardedClusterKernel(4096, 5, 4x1)``:
+``slot_pipeline`` at T=64 with 4 rounds a slot and the fault path's
+``run_rounds``, bit for bit ``ClusterKernel``'s; (d) the multi-controller
+engine, one rank on an NCCL group and two ranks sharing the card on a
+gloo group (NCCL takes one card a rank), each a process running (a)'s
+submissions through ``_run_window_multihost``, every rank equal to (a).
+It prints each mesh shape's window time and the exchange's alone by CUDA
+events, and mw_window launches a window, beside the card's name and
+power limit. No time across cards exists here: one card stands in for
+every device.
+
+Phase 17 runs on the CPU over logical meshes of up to 8 blocks and over
+gloo ranks in tests/test_torch_parallel.py, test_torch_mesh_engine_mesh.py
+and test_torch_dcn.py.
+
 Phase 16 runs on the CPU at small sizes in tests/test_torch_node_kernel.py,
 test_torch_engine_device.py (the gate at config 2's shape on the device
 backend), test_torch_zero_copy.py, test_torch_packers.py and
@@ -371,6 +397,7 @@ from rabia_tpu_torch.kernel import (
 from rabia_tpu_torch.kernel.phase_driver import device_coin
 from rabia_tpu_torch.native import build as native_build
 from rabia_tpu_torch.net import InMemoryHub, TcpNetwork
+from rabia_tpu_torch.parallel import MeshArray, ShardedClusterKernel, make_mesh
 from rabia_tpu_torch.obs.critpath import (
     CritpathAggregator,
     decompose,
@@ -379,6 +406,7 @@ from rabia_tpu_torch.obs.critpath import (
 )
 from rabia_tpu_torch.obs.fleet_obs import FleetAggregator, render_fleet_table
 from rabia_tpu_torch.persistence import FileSystemPersistence
+from rabia_tpu_torch.testing import dcn
 from rabia_tpu_torch.testing.conformance import run_schedule_on_both_planes, settle_quantiles
 from rabia_tpu_torch.testing.fault_injection import ConsensusTestHarness, Fault, FaultType
 from rabia_tpu_torch.testing.gateway_cluster import GatewayCluster
@@ -4282,6 +4310,218 @@ def node_cycle_times(device, name: str, S: int, R: int, K: int, seed: int = 33) 
             "plain_kernels": _device_busy(plain, 5)["kernels"]}
 
 
+# -- phase 17 ----------------------------------------------------------------
+
+P17_SHAPES = ((4, 1), (1, 5), (4, 5))  # logical meshes of the card: (shard, replica) axes
+P17_T = 16  # the window's depth (the engine's window)
+P17_SEED = 17
+
+
+def mesh_windows_vs_one_device(device, S: int, R: int) -> dict:
+    """(b), before the counts: on logical meshes of the card (the card
+    is every device of the mesh, each block a tensor of its own),
+    ``slot_window`` at T = 16 on votes over all four codes, crash masks
+    with a quorum-less shard, bases near 2^31 - 1 and 4 phases (the coin
+    is reached) is bit for bit the one-device ``mw_window`` and the plain
+    loop, in one launch a shard block; ``phase_step`` over 4 x 5 (its
+    two exchanges over the replica axis) equals one device's for 4
+    phases."""
+    gen = torch.Generator(device=device).manual_seed(71)
+    votes, alive, base = mesh_case(gen, S, R, P17_T, device)
+    one = MeshPhaseKernel(S, R, seed=P17_SEED, device=device)
+    want = mesh_window.MESH_WINDOW(votes, alive, base, seed=P17_SEED, coin_p1=0.5, max_phases=4)
+    plain = one.decide_slots_plain(votes, alive, base, 4)
+    _check(torch.equal(want, plain), "phase 17 (b): the one-device mw_window != plain")
+    phases, coins = mesh_work(one, votes, alive, base, 4)
+    _check(coins > 0, "phase 17 (b): the window never reached the coin")
+    worst = _max_err(want, plain)
+    for a, b in P17_SHAPES:
+        mk = MeshPhaseKernel(S, R, make_mesh([device] * (a * b), a, b), seed=P17_SEED)
+        n0 = mesh_window.MESH_WINDOW.launches
+        got = mk.slot_window(votes, alive, base, n_slots=P17_T, max_phases=4)
+        torch.cuda.synchronize(device)
+        _check(mesh_window.MESH_WINDOW.launches - n0 == a,
+               f"phase 17 (b): a {a}x{b} window is not one launch a shard block")
+        worst = max(worst, _max_err(got, want), _max_err(got, plain))
+        _check(torch.equal(got, want), f"phase 17 (b): the {a}x{b} window != mw_window")
+    mk = MeshPhaseKernel(S, R, make_mesh([device] * 20, 4, 5), seed=P17_SEED)
+    slots = base[:, None].expand(S, R).contiguous()
+    st = mk.init_state(votes[0])._replace(slot=mk.place(slots))
+    st1 = one.init_state(votes[0])._replace(slot=slots)
+    for _ in range(4):
+        st = mk.phase_step(st, mk.place(alive), mk.shard_index_array())
+        st1 = one.phase_step(st1, alive, one.shard_index_array())
+    for f, g, w in zip(st._fields, st, st1):
+        worst = max(worst, _max_err(g.full(), w))
+        _check(torch.equal(g.full(), w), f"phase 17 (b): phase_step 4x5 {f} != one device")
+    return {"max_abs_err": worst, "phases": phases, "coins": coins}
+
+
+def _p17_engine(device, mesh=None):
+    kw = {"device": device} if mesh is None else {"mesh": mesh}
+    eng = MeshEngine(InMemoryStateMachine, S_FULL, R_FULL, window=P17_T, **kw)
+    return eng, dcn.engine_workload(eng)
+
+
+def mesh_engines(device) -> dict:
+    """(a) ``MeshEngine(mesh=make_mesh())`` beside ``MeshEngine()`` on a
+    part of phase 5's workload (SET and GET on every shard, a minority
+    crash, heal): decisions, futures and replica snapshots equal; (b) the
+    4 x 5 logical mesh's engine on the same workload, equal to (a)."""
+    t0 = time.perf_counter()
+    _, want = _p17_engine(device)
+    t_one = time.perf_counter() - t0
+    mesh = make_mesh()
+    _check(mesh.shape == {"shard": torch.cuda.device_count(), "replica": 1},
+           f"phase 17 (a): make_mesh() is {mesh.shape}")
+    t0 = time.perf_counter()
+    eng11, got = _p17_engine(device, mesh)
+    t_mesh = time.perf_counter() - t0
+    _check(got == want, "phase 17 (a): MeshEngine(mesh=make_mesh()) != MeshEngine()")
+    t0 = time.perf_counter()
+    eng45, got45 = _p17_engine(device, make_mesh([device] * 20, 4, 5))
+    t_45 = time.perf_counter() - t0
+    _check(got45 == want, "phase 17 (b): the 4x5 mesh engine != MeshEngine()")
+    return {"digest": dcn.digest(want), "seconds": {"one device": t_one, "1x1": t_mesh,
+                                                   "4x5": t_45},
+            "windows": {"1x1": eng11.cycles, "4x5": eng45.cycles},
+            "decided_v1": eng11.decided_v1, "S": {"1x1": eng11.S, "4x5": eng45.S}}
+
+
+def sharded_cluster(device, S: int, R: int, T: int = 64) -> dict:
+    """(c) ``ShardedClusterKernel(S, R, 4 x 1)``: ``slot_pipeline`` at
+    T = 64, 4 rounds a slot, votes over all four codes with split rows and
+    a crash mask (the coin decides some slots), and the fault path's
+    ``run_rounds`` (80 rounds at p = 0.6 from the selftest's start), each
+    block on its device's round kernels with its global shard base: bit
+    for bit ``ClusterKernel``'s. The same at 1024 x 9 (the kernels' paths
+    above 8 replicas), with lossy rounds on split votes."""
+    mesh = make_mesh([device] * 4, 4, 1)
+    gen = torch.Generator(device=device).manual_seed(72)
+    start = 2**31 - 5
+    err = coins = 0
+    # the main shape, and R = 9 for the kernels' paths above 8 replicas
+    for Sx, Rx, Tx in ((S, R, T), (1024, 9, 16)):
+        sk = ShardedClusterKernel(Sx, Rx, mesh, seed=P17_SEED)
+        ck = ClusterKernel(Sx, Rx, seed=P17_SEED, device=device)
+        votes, alive, _ = mesh_case(gen, Sx, Rx, Tx, device)
+        got = sk.slot_pipeline(sk.place_votes(votes), alive, Tx, rounds_per_slot=4,
+                               start_slot_index=start)
+        want = ck.slot_pipeline(votes, alive, Tx, rounds_per_slot=4, start_slot_index=start)
+        err = max(err, *(_max_err(g.full(), w) for g, w in zip(got, want)))
+        _check(err == 0, f"phase 17 (c): sharded slot_pipeline != ClusterKernel's at R={Rx}")
+        coins += int((want[1] == 1).sum())
+        if Rx == 9:  # lossy rounds on split votes: replicas reach the coin
+            st0 = ck.start_slot(ck.init_state(), torch.ones(Sx, dtype=torch.bool, device=device),
+                                votes[0])
+            sst0 = sk.start_slot(sk.init_state(), torch.ones(Sx, dtype=torch.bool, device=device),
+                                 votes[0])
+            a = ck.run_rounds(st0, alive, 40, torch.Generator(device=device).manual_seed(2), 0.7)
+            b = sk.run_rounds(sst0, alive, 40, torch.Generator(device=device).manual_seed(2), 0.7)
+            err = max(err, *(_max_err(g.full(), w) for g, w in zip(b, a)))
+            _check(err == 0, "phase 17 (c): sharded run_rounds != ClusterKernel's at R=9")
+    sk = ShardedClusterKernel(S, R, mesh, seed=P17_SEED)
+    ck = ClusterKernel(S, R, seed=P17_SEED, device=device)
+    _check(coins > 0, "phase 17 (c): the pipeline never reached the coin")
+    every = torch.ones(S, dtype=torch.bool, device=device)
+    v1 = torch.full((S, R), V1, dtype=torch.int8, device=device)
+    falive = torch.tensor([False, True, True, False, True], device=device).expand(S, R)
+    st = sk.run_rounds(sk.start_slot(sk.init_state(), every, v1), falive, 80,
+                       torch.Generator(device=device).manual_seed(1), p_deliver=0.6)
+    st1 = ck.run_rounds(ck.start_slot(ck.init_state(), every, v1), falive, 80,
+                        torch.Generator(device=device).manual_seed(1), p_deliver=0.6)
+    ferr = max(_max_err(g.full(), w) for g, w in zip(st, st1))
+    _check(ferr == 0, "phase 17 (c): sharded run_rounds != ClusterKernel's")
+    _check(bool((st1.decided != ABSENT).all()), "phase 17 (c): the fault path left a shard")
+    return {"max_abs_err": max(err, ferr), "coin_slots": coins,
+            "blocks": len(sk.blocks)}
+
+
+def mesh_ranks(want_digest: str) -> dict:
+    """(d) the multi-controller engine: one rank on an NCCL group, and
+    two ranks sharing the card on a gloo group (NCCL takes one card a
+    rank), each rank a process running (a)'s submissions through
+    ``_run_window_multihost``; every rank's decisions, futures and
+    stores equal (a)'s. Returns each leg's ranks' results (their window
+    and exchange times by CUDA events, mw_window launches a window)."""
+    legs = {}
+    for world, backend in ((1, "nccl"), (2, "gloo")):
+        t0 = time.perf_counter()
+        ranks = dcn.spawn_ranks(world, backend=backend, device="cuda", workload="engine",
+                                timeout=300, args=(S_FULL, R_FULL, P17_T))
+        for r in ranks:
+            _check(r["digest"] == want_digest,
+                   f"phase 17 (d): rank {r['rank']} of {world} ({backend}) != (a)")
+        legs[f"{world}x{backend}"] = {"ranks": ranks, "seconds": time.perf_counter() - t0}
+    return legs
+
+
+def mesh_times(device, S: int, R: int) -> dict:
+    """The window's time on each logical mesh shape of the card by CUDA
+    events (cut inputs in, the decided ``[T, S]`` out: the exchange and
+    the launches), the exchange's time alone, and mw_window launches a
+    window; the one-device window beside them."""
+    gen = torch.Generator(device=device).manual_seed(73)
+    votes, alive, base = mesh_case(gen, S, R, P17_T, device)
+    one = MeshPhaseKernel(S, R, seed=P17_SEED, device=device)
+    out = {"1 device": {"window_ms": _time_ms(lambda i=0: one.slot_window(
+        votes, alive, base, n_slots=P17_T, max_phases=4), 20)}}
+    for a, b in ((1, 1), *P17_SHAPES):
+        mesh = make_mesh([device] * (a * b), a, b)
+        mk = MeshPhaseKernel(S, R, mesh, seed=P17_SEED)
+        V, A = MeshArray.cut(mesh, votes, 1, 2), MeshArray.cut(mesh, alive, 0, 1)
+        n0 = mesh_window.MESH_WINDOW.launches
+        win = _time_ms(lambda i=0: mk.slot_window(V, A, base, n_slots=P17_T, max_phases=4), 20)
+        out[f"{a}x{b}"] = {"window_ms": win,
+                           "exchange_ms": _time_ms(lambda i=0: mk.exchange_window(V, A), 20),
+                           "launches_per_window": (mesh_window.MESH_WINDOW.launches - n0) / 21}
+    # the plain version over 4 x 5: every shard block's rows by
+    # decide_blocks_plain on what the exchange gathered
+    rows = mk.exchange_window(V, A)
+    out["4x5"]["plain_ms"] = _time_ms(lambda i=0: [mk.decide_blocks_plain(
+        v, al, base[r * mk.S_blk:(r + 1) * mk.S_blk], 4, r * mk.S_blk)
+        for r, (v, al) in rows.items()], 3)
+    return out
+
+
+def sharded_times(device, S: int, R: int) -> dict:
+    """``ShardedClusterKernel(S, R, 4 x 1)``'s programs by CUDA events
+    (a chain of calls; each call four launches, a block of S/4 shards
+    each with its shard0) in turns with ``ClusterKernel``'s one launch on
+    the same inputs (one, sharded, sharded, one): ``slot_pipeline`` at
+    T=8192 with 2 rounds a slot, ``start_slot`` on every shard, and the
+    fault path's ``run_rounds`` (80 rounds at p=0.6, its mask draws
+    included)."""
+    mesh = make_mesh([device] * 4, 4, 1)
+    sk = ShardedClusterKernel(S, R, mesh, seed=P17_SEED)
+    ck = ClusterKernel(S, R, seed=P17_SEED, device=device)
+    gen = torch.Generator(device=device).manual_seed(74)
+    votes = _random_votes((T_SCAN, S, R), gen, device)
+    alive = _alive((S, R), gen, device)
+    V, A = sk.place_votes(votes), MeshArray.cut(mesh, alive, 0)
+    every = torch.ones(S, dtype=torch.bool, device=device)
+    v1 = torch.full((S, R), V1, dtype=torch.int8, device=device)
+    falive = torch.tensor([False, True, True, False, True], device=device).expand(S, R)
+    st, sst = ck.start_slot(ck.init_state(), every, v1), sk.start_slot(sk.init_state(), every, v1)
+    fgen = lambda: torch.Generator(device=device).manual_seed(1)  # noqa: E731
+    calls = {
+        "slot_pipeline": (lambda i=0: ck.slot_pipeline(votes, alive, T_SCAN),
+                          lambda i=0: sk.slot_pipeline(V, A, T_SCAN)),
+        "start_slot": (lambda i=0: ck.start_slot(st, every, v1),
+                       lambda i=0: sk.start_slot(sst, every, v1)),
+        "run_rounds": (lambda i=0: ck.run_rounds(st, falive, 80, fgen(), p_deliver=0.6),
+                       lambda i=0: sk.run_rounds(sst, falive, 80, fgen(), p_deliver=0.6)),
+    }
+    out = {}
+    for name, (one, sharded) in calls.items():
+        reps = 4 if name == "run_rounds" else 10
+        turns = [_time_ms(one, reps), _time_ms(sharded, reps), _time_ms(sharded, reps),
+                 _time_ms(one, reps)]
+        out[name] = {"one_ms": min(turns[0], turns[3]), "sharded_ms": min(turns[1], turns[2]),
+                     "turns_ms": turns}
+    return out
+
+
 def _card_rate_bytes_per_s(name: str) -> float:
     """Peak device-memory rate of the card, from its name (data sheets)."""
     if "PCIe" in name:
@@ -4733,6 +4973,75 @@ def main() -> int:
               f"{json.dumps(r)}")
     print(f"phase 16 path: launches by kernel {json.dumps(p16)}, node kernel by entry "
           f"{json.dumps(p16_node)}, {t16d:.2f} s (d), {time.perf_counter() - t16:.2f} s in all")
+
+    # ---- phase 17, the device mesh on the card (the card is every device
+    # of a logical mesh, and the device of one rank and of two): (b)'s
+    # windows against the one-device kernel and plain before the counts
+    # (not counted); then (a), (b)'s engine, (c) and (d) on their own
+    # counts, reset just before and read just after ----
+    t17 = time.perf_counter()
+    win17 = mesh_windows_vs_one_device(device, S_FULL, R_FULL)
+    t17b = time.perf_counter() - t17
+    _reset_counts()
+    t17m = time.perf_counter()
+    eng17 = mesh_engines(device)
+    sc17 = sharded_cluster(device, S_FULL, R_FULL)
+    ranks17 = mesh_ranks(eng17["digest"])
+    p17 = _kernel_counts()
+    p17_round = dict(cluster_round.CLUSTER_ROUND.counts)
+    p17_ranks = sum(r["launches"] for leg in ranks17.values() for r in leg["ranks"])
+    t17m = time.perf_counter() - t17m
+    _check(p17["mesh_window"] > 0, "phase 17 never launched the mesh window kernel")
+    _check(p17_ranks > 0, "phase 17 (d): the ranks never launched the mesh window kernel")
+    _check(p17_round["slot_pipeline"] > 0 and p17_round["rounds"] > 0
+           and p17_round["start_slot"] > 0, "phase 17 (c) never launched the round kernels")
+    times17 = mesh_times(device, S_FULL, R_FULL)
+    stimes17 = sharded_times(device, S_FULL, R_FULL)
+    print(f"phase 17 (b) logical meshes of the card {', '.join(f'{a}x{b}' for a, b in P17_SHAPES)} "
+          f"(shard x replica): slot_window at S={S_FULL} R={R_FULL} T={P17_T}, votes over all four "
+          f"codes, crash masks with a quorum-less shard, bases near 2^31-1, 4 phases "
+          f"({win17['phases']} phases, {win17['coins']} coins) == the one-device mw_window == the "
+          f"plain loop, one launch a shard block; phase_step on 4x5 (two exchanges over the "
+          f"replica axis) == one device's for 4 phases: max_abs_err {win17['max_abs_err']} "
+          f"({t17b:.2f} s)")
+    print(f"phase 17 (a) MeshEngine(mesh=make_mesh()) (1x1 on the card) == MeshEngine() at "
+          f"S={S_FULL} R={R_FULL} window={P17_T} (SET and GET on every shard, a minority crash "
+          f"with SETs, heal, GETs): decisions, futures and replica snapshots equal; (b) the 4x5 "
+          f"logical mesh's engine == (a); {json.dumps(eng17)}")
+    print(f"phase 17 (c) ShardedClusterKernel({S_FULL}, {R_FULL}, 4x1) vs ClusterKernel: "
+          f"slot_pipeline T=64 at 4 rounds a slot ({sc17['coin_slots']} slots by the coin) and "
+          f"the fault path's run_rounds (80 rounds, p=0.6), block by block with each block's "
+          f"global shard base: max_abs_err {sc17['max_abs_err']}")
+    for leg, r in ranks17.items():
+        world, backend = leg.split("x")
+        for rank in r["ranks"]:
+            times = ("" if "window_ms" not in rank else
+                     f"window {rank['window_ms']:.4f} ms by CUDA events (cut, exchange, "
+                     f"{rank['launches_per_window']:.0f} mw_window launch a window, gather over "
+                     f"the shard group, copy to the host), exchange alone "
+                     f"{rank['exchange_ms']:.4f} ms; ")
+            print(f"phase 17 (d) {world} rank(s) on a {backend} group, rank {rank['rank']}: "
+                  f"{rank['mesh']}, (a)'s submissions through _run_window_multihost == (a) "
+                  f"({rank['windows']} windows, {rank['launches']} mw_window launches); {times}"
+                  f"card: {smi}; leg {r['seconds']:.2f} s")
+    for shape, r in times17.items():
+        extra = ("" if "exchange_ms" not in r else
+                 f", exchange alone {r['exchange_ms']:.4f} ms, "
+                 f"{r['launches_per_window']:.0f} mw_window launches a window")
+        print(f"phase 17 window times at S={S_FULL} R={R_FULL} T={P17_T}, {shape}: window "
+              f"{r['window_ms']:.4f} ms by CUDA events (a chain of 20){extra}; card: {smi}")
+    print(f"phase 17 window times: the 4x5 plain version (decide_blocks_plain a shard block "
+          f"on the gathered layout) {times17['4x5']['plain_ms']:.3f} ms; card: {smi}")
+    for prog, r in stimes17.items():
+        print(f"phase 17 (c) ShardedClusterKernel(4096, 5, 4x1).{prog} by CUDA events, in turns "
+              f"with ClusterKernel's (one, sharded, sharded, one): "
+              f"{' / '.join(f'{t:.4f}' for t in r['turns_ms'])} ms (four launches, one a shard "
+              f"block, against one){' at T=8192, 2 rounds' if prog == 'slot_pipeline' else ''}"
+              f"{', 80 rounds with their mask draws' if prog == 'run_rounds' else ''}; "
+              f"card: {smi}")
+    print(f"phase 17 path: launches by kernel {json.dumps(p17)}, round kernel by entry "
+          f"{json.dumps(p17_round)}, the ranks' mw_window launches {p17_ranks}; "
+          f"{t17m:.2f} s (a)-(d), {time.perf_counter() - t17:.2f} s in all")
 
     q = quorum_size(R_FULL)
     votes = bufs[0]
@@ -5293,8 +5602,8 @@ def main() -> int:
         "replaces": "rabia_tpu/parallel/mesh.py:353",
         # the main path's, phases 10 to 15
         "launches": (mesh_launches + p10_mesh + p11_mesh + p12["mesh_window"] + p13["mesh_window"]
-                     + p14["mesh_window"] + p15["mesh_window"]),
-        "max_abs_err": max(err2b, mw_err, err9),
+                     + p14["mesh_window"] + p15["mesh_window"] + p17["mesh_window"] + p17_ranks),
+        "max_abs_err": max(err2b, mw_err, err9, win17["max_abs_err"]),
         "ms": mw_ms,
         "plain_ms": mw_plain_ms,
         "bound_ms": max(mw_bytes_ms, mw_ops_ms),
@@ -5317,8 +5626,8 @@ def main() -> int:
         "route": "cuda",
         "source": "rabia_tpu_torch/csrc/cluster_round.cu",
         "replaces": "rabia_tpu/kernel/phase_driver.py:386",
-        "launches": round_counts["rounds"],
-        "max_abs_err": max(err2d, err_fault, fault_err),
+        "launches": round_counts["rounds"] + p17_round["rounds"],  # and phase 17 (c)'s blocks
+        "max_abs_err": max(err2d, err_fault, fault_err, sc17["max_abs_err"]),
         "ms": min(fault_turns),  # the fault path: 80 rounds, S=4096 R=5, one launch
         "plain_ms": fault_plain_ms,  # 80 round_step_plain on the same masks
         "bound_ms": fault_bound_ms,
@@ -5329,8 +5638,8 @@ def main() -> int:
         "route": "cuda",
         "source": "rabia_tpu_torch/csrc/cluster_round.cu",
         "replaces": "rabia_tpu/kernel/phase_driver.py:420",
-        "launches": round_counts["slot_pipeline"],
-        "max_abs_err": max(err2d, err_scan, err_wide, err_wide4, err_short),
+        "launches": round_counts["slot_pipeline"] + p17_round["slot_pipeline"],
+        "max_abs_err": max(err2d, err_scan, err_wide, err_wide4, err_short, sc17["max_abs_err"]),
         "ms": scan_ms,  # slot_pipeline, S=4096 R=5 T=8192
         "plain_ms": scan_plain_ms,  # slot_pipeline_wide_plain on the same votes
         "bound_ms": max(scan_bytes_ms, scan_ops_ms),
@@ -5341,8 +5650,8 @@ def main() -> int:
         "route": "cuda",
         "source": "rabia_tpu_torch/csrc/cluster_round.cu",
         "replaces": "rabia_tpu/kernel/phase_driver.py:202",
-        "launches": round_counts["start_slot"],
-        "max_abs_err": max(err16c, err2d, err_fault),
+        "launches": round_counts["start_slot"] + p17_round["start_slot"],
+        "max_abs_err": max(err16c, err2d, err_fault, sc17["max_abs_err"]),
         "ms": ptimes["start_slot"]["ms"],  # S=4096 R=5
         "plain_ms": ptimes["start_slot"]["plain_ms"],
         "bound_ms": ptimes["start_slot"]["bound_ms"],

@@ -774,10 +774,9 @@ class _MeshFabric:
     consensus path, and the auto-repromote must re-engage the lane —
     with correct write barriers — while arrivals keep firing.
 
-    The engine runs on ``device`` (CUDA unless the caller passes
-    another). The reference passes ``mesh=make_mesh()``, which on one
-    device is the one-device engine; the port's ``MeshEngine`` takes no
-    mesh yet (ROADMAP Queue 1, item 5), so none is passed."""
+    The engine runs over ``mesh=make_mesh(...)``, as the reference's: a
+    1 x 1 mesh of ``device`` (CUDA unless the caller passes another), on
+    which the device KV lane runs."""
 
     name = "mesh"
 
@@ -788,7 +787,8 @@ class _MeshFabric:
 
     def __init__(self, profile: ChaosProfile, device=None) -> None:
         from rabia_tpu_torch.apps.vector_kv import VectorShardedKV
-        from rabia_tpu_torch.parallel import MeshEngine
+        from rabia_tpu_torch.core.device import resolve_device
+        from rabia_tpu_torch.parallel import MeshEngine, make_mesh
 
         self.profile = profile
         n_shards = profile.n_shards
@@ -796,7 +796,7 @@ class _MeshFabric:
             lambda: VectorShardedKV(n_shards, capacity=1 << 14),
             n_shards=n_shards,
             n_replicas=profile.n_replicas,
-            device=device,
+            mesh=make_mesh([resolve_device(device)]),
             window=8,
             device_store=True,
             # a device table that holds every key the fabric writes: a

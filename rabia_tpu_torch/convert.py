@@ -9,7 +9,9 @@ bytes, so neither package imports the other:
   to and from the port's tensors, so a reference state taken
   mid-protocol continues under the port's ``round_step``;
 - ``mesh_state_from_numpy`` / ``mesh_state_to_numpy`` do the same for
-  ``MeshPhaseState``, and ``node_state_from_numpy`` /
+  ``MeshPhaseState``, ``mesh_state_to_blocks`` / ``mesh_state_from_blocks``
+  cut its full ``[S, R]`` fields into a mesh's blocks and join them
+  back, and ``node_state_from_numpy`` /
   ``node_state_to_numpy`` for one node's ``NodeState``;
 - ``engine_state_from_jax`` builds the port's ``PersistedEngineState``
   from the plain fields of a reference ``MeshEngine.checkpoint()``, so a
@@ -112,6 +114,28 @@ def mesh_state_from_numpy(
 
 def mesh_state_to_numpy(state: MeshPhaseState) -> dict[str, np.ndarray]:
     return {name: getattr(state, name).cpu().numpy() for name in MeshPhaseState._fields}
+
+
+def mesh_state_to_blocks(fields: Mapping[str, np.ndarray], mesh) -> MeshPhaseState:
+    """A ``MeshPhaseState`` over ``mesh`` from full ``[S, R]`` numpy arrays
+    keyed by field: each field cut in ``[S/a, R/b]`` blocks, each block on
+    its position's device (the layout ``MeshPhaseKernel`` keeps over a
+    mesh, and the reference's ``P("shard", "replica")``)."""
+    from rabia_tpu_torch.parallel.mesh import MeshArray
+
+    missing = set(_MESH_DTYPES) - set(fields)
+    if missing:
+        raise ValueError(f"state fields missing: {sorted(missing)}")
+    return MeshPhaseState(**{
+        name: MeshArray.cut(mesh, np.asarray(fields[name]), 0, 1, dtype)
+        for name, dtype in _MESH_DTYPES.items()
+    })
+
+
+def mesh_state_from_blocks(state: MeshPhaseState) -> dict[str, np.ndarray]:
+    """The full ``[S, R]`` numpy arrays of a blocked ``MeshPhaseState``
+    (one controller: every block is local)."""
+    return {name: getattr(state, name).numpy() for name in MeshPhaseState._fields}
 
 
 def engine_state_from_jax(ckpt: Mapping) -> PersistedEngineState:

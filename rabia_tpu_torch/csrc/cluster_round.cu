@@ -6,6 +6,10 @@
 // delivery) and slot_pipeline / slot_pipeline_wide (:420 and :466, every
 // slot, rounds_per_slot rounds of full delivery each). The per-shard
 // math is cluster_round.cuh; its common coin is mesh_window.cuh's.
+// cr_rounds and cr_slot_pipeline take shard0, the global index of their
+// first shard: a block of a mesh's shard axis (ShardedClusterKernel) runs
+// them on its own shards with the coin of the whole mesh's numbering.
+// cr_start_slot draws no coin and reads no shard coordinate.
 //
 // cr_rounds (run_rounds, round_step). Bound: bytes. The function must
 // read and write each shard's 13 state fields (110 bytes at R=5), read
@@ -81,7 +85,7 @@ struct Params {
     int64_t S, T, mask_stride;
     int R, n, quorum, f1;
     int32_t base;
-    uint32_t seed, threshold;
+    uint32_t seed, threshold, shard0;  // shard0: the coin's shard coordinate of shard 0
 };
 
 template <typename M, int RM>
@@ -91,7 +95,7 @@ rounds_kernel(cr::Ptrs in, cr::Ptrs out, const uint8_t* __restrict__ alive,
     const int64_t s = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
     if (s >= p.S) return;
     cr::rounds_shard<M, RM>(in, out, alive, masks, p.mask_stride, p.n, s, p.R, p.quorum, p.f1,
-                            p.seed, p.threshold);
+                            p.seed, p.threshold, p.shard0);
 }
 
 __device__ __forceinline__ uint32_t sptr(const void* p) {
@@ -200,8 +204,8 @@ rounds_lanes_kernel(cr::Ptrs in, cr::Ptrs out, const uint8_t* __restrict__ alive
     if (mine) cr::load_lane(x, in, s, j, R);
     const bool alive_j = mine && alive[s * R + j] != 0;
     const uint32_t a = seg_bits(alive_j, off, all);
-    const uint32_t prefix =
-        mw::coin_prefix(p.seed, static_cast<uint32_t>(s), static_cast<uint32_t>(c.slot));
+    const uint32_t prefix = mw::coin_prefix(p.seed, p.shard0 + static_cast<uint32_t>(s),
+                                            static_cast<uint32_t>(c.slot));
     uint32_t din = all;
     if (masks != nullptr && !staged && mine) din = cr::din_of(masks + s * R * R, R, j);
     bool settled = __all_sync(FULL, !(alive_j && !x.done));  // (d), over the warp's shards
@@ -274,7 +278,8 @@ pipeline_tsr_kernel(const int8_t* __restrict__ votes, const uint8_t* __restrict_
             rw::load_chunk<R>(reinterpret_cast<const uint8_t*>(votes + off * R), n, v,
                               rw::CODE_ABSENT);
         }
-        cr::decide_chunk<R>(v, at, q, p.n, p.seed, p.threshold, static_cast<uint32_t>(s0),
+        cr::decide_chunk<R>(v, at, q, p.n, p.seed, p.threshold,
+                            p.shard0 + static_cast<uint32_t>(s0),
                             mw::slot_of(p.base, static_cast<int>(t)), d, coin);
 
         int8_t* dp = dec + off;
@@ -303,7 +308,7 @@ pipeline_bytes_kernel(const int8_t* __restrict__ votes, const uint8_t* __restric
     for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < total;
          i += stride) {
         const int64_t t = i / p.S, s = i - t * p.S;
-        const uint32_t prefix = mw::coin_prefix(p.seed, static_cast<uint32_t>(s),
+        const uint32_t prefix = mw::coin_prefix(p.seed, p.shard0 + static_cast<uint32_t>(s),
                                                 mw::slot_of(p.base, static_cast<int>(t)));
         const cr::Decision x = cr::full_delivery(votes + i * p.R, alive + s * p.R, p.R, p.quorum,
                                                  p.n, prefix, p.threshold);
@@ -363,10 +368,12 @@ bool bad_shape(long long S, int R, int quorum, int f1) {
 // full delivery. 1 <= R <= 64; quorum and f1 from R; seed is the coin
 // seed masked to 32 bits; threshold = coin_threshold(coin_p1). Launches
 // on `stream`, returns cudaGetLastError() (0 on success); does not
-// synchronise.
+// synchronise. Shard s is global shard shard0 + s in the common coin (a
+// block of a mesh's shard axis; 0 on one device).
 extern "C" int cr_rounds(void* const* in, void* const* out, const void* alive, const void* masks,
                          long long mask_stride, int n, long long S, int R, int quorum, int f1,
-                         unsigned int seed, unsigned int threshold, void* stream) {
+                         unsigned int seed, unsigned int threshold, unsigned int shard0,
+                         void* stream) {
     if (bad_shape(S, R, quorum, f1) || n < 0 || mask_stride < 0) {
         return static_cast<int>(cudaErrorInvalidValue);
     }
@@ -380,6 +387,7 @@ extern "C" int cr_rounds(void* const* in, void* const* out, const void* alive, c
     p.f1 = f1;
     p.seed = seed;
     p.threshold = threshold;
+    p.shard0 = shard0;
     const auto st = static_cast<cudaStream_t>(stream);
     const auto* a = static_cast<const uint8_t*>(alive);
     const auto* m = static_cast<const uint8_t*>(masks);
@@ -397,10 +405,11 @@ extern "C" int cr_rounds(void* const* in, void* const* out, const void* alive, c
 // in; decided i8[T, S] and decided_phase i32[T, S] out; slot t is base +
 // t (int32 wrapped), with `rounds` full-delivery rounds. Needs f1 <=
 // quorum (the rule's derivation), as quorum_size and f_plus_1 give. Other
-// arguments as cr_rounds'.
+// arguments (shard0 too) as cr_rounds'.
 extern "C" int cr_slot_pipeline(const void* votes, const void* alive, void* decided, void* dphase,
                                 long long T, long long S, int R, int base, int rounds, int quorum,
-                                int f1, unsigned int seed, unsigned int threshold, void* stream) {
+                                int f1, unsigned int seed, unsigned int threshold,
+                                unsigned int shard0, void* stream) {
     if (bad_shape(S, R, quorum, f1) || f1 > quorum || T < 0 || T > INT32_MAX || rounds < 0) {
         return static_cast<int>(cudaErrorInvalidValue);
     }
@@ -415,6 +424,7 @@ extern "C" int cr_slot_pipeline(const void* votes, const void* alive, void* deci
     p.f1 = f1;
     p.seed = seed;
     p.threshold = threshold;
+    p.shard0 = shard0;
     const auto st = static_cast<cudaStream_t>(stream);
     const auto* v = static_cast<const int8_t*>(votes);
     const auto* a = static_cast<const uint8_t*>(alive);

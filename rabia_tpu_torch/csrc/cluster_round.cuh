@@ -326,16 +326,19 @@ CR_HD M alive_of(const uint8_t* alive, int64_t s, int R) {
 
 // n rounds of shard s: state from `in`, into `out` (which may be `in`).
 // Round k reads its mask at masks + k * mask_stride (bool[S, R, R],
-// [shard, sender, receiver]); null masks: full delivery.
+// [shard, sender, receiver]); null masks: full delivery. Shard s is global
+// shard shard0 + s, the coin's shard coordinate (shard0 > 0 for a block of
+// a mesh's shard axis).
 template <typename M, int RM>
 CR_HD void rounds_shard(const Ptrs& in, const Ptrs& out, const uint8_t* alive,
                         const uint8_t* masks, int64_t mask_stride, int n, int64_t s, int R,
-                        int quorum, int f1, uint32_t seed, uint32_t threshold) {
+                        int quorum, int f1, uint32_t seed, uint32_t threshold,
+                        uint32_t shard0 = 0) {
     Shard<M, RM> x;
     load(x, in, s, R);
     const M a = alive_of<M>(alive, s, R);
-    const uint32_t prefix =
-        mw::coin_prefix(seed, static_cast<uint32_t>(s), static_cast<uint32_t>(x.slot));
+    const uint32_t prefix = mw::coin_prefix(seed, shard0 + static_cast<uint32_t>(s),
+                                            static_cast<uint32_t>(x.slot));
     M din[RM];
     for (int k = 0; k < n; ++k) {
         senders_of(din, masks ? masks + k * mask_stride + s * R * R : nullptr, R);
@@ -588,14 +591,15 @@ CR_HD bool settled(const RLane (&x)[LANE_RM], int R, uint32_t alive) {
 // rounds after the shard settles as the kernel does.
 CR_HD void rounds_shard_lanes(const Ptrs& in, const Ptrs& out, const uint8_t* alive,
                               const uint8_t* masks, int64_t mask_stride, int n, int64_t s, int R,
-                              int quorum, int f1, uint32_t seed, uint32_t threshold) {
+                              int quorum, int f1, uint32_t seed, uint32_t threshold,
+                              uint32_t shard0 = 0) {
     RLane x[LANE_RM] = {};
     Scalars c;
     load_scalars(c, in, s);
     for (int j = 0; j < R; ++j) load_lane(x[j], in, s, j, R);
     const uint32_t a = alive_of<uint32_t>(alive, s, R);
-    const uint32_t prefix =
-        mw::coin_prefix(seed, static_cast<uint32_t>(s), static_cast<uint32_t>(c.slot));
+    const uint32_t prefix = mw::coin_prefix(seed, shard0 + static_cast<uint32_t>(s),
+                                            static_cast<uint32_t>(c.slot));
     uint32_t din[LANE_RM] = {};
     for (int k = 0; k < n && !settled(x, R, a); ++k) {
         const uint8_t* m = masks ? masks + k * mask_stride + s * R * R : nullptr;

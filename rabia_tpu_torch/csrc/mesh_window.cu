@@ -6,17 +6,29 @@
 // the window's slots of a scan of phase_step. The per-(slot, shard) math
 // is mesh_window.cuh.
 //
+// Over a (shard x replica) mesh the reference's phase_step exchanges each
+// round's votes with an all_gather over the replica axis. A replica's
+// next fields depend only on its own and on the tallies of its whole
+// row, so once a shard block's window votes and alive rows have been
+// gathered over the replica axis (one exchange a window), the window is
+// this kernel's function of them: the launch reads the votes and alive
+// rows in the B replica blocks that the gather leaves ([B, T, S, R/B]
+// and [B, S, R/B], each block at its own stride, so nothing is copied
+// into [T, S, R] first), and numbers its shards from shard0, the block's
+// first global shard, which keys the common coin. B = 1 with shard0 = 0
+// is one device's [T, S, R] window.
+//
 // Bound: launch latency. At S=4096, R=5, T=16 the kernel moves 430 KB
 // (votes T*S*R, alive S*R, base 4*S, decisions T*S), 0.13 us at the
 // H100 SXM's 3.35 TB/s, and a fault-free entry decides in one phase of a
 // few integer operations. A launch costs a few microseconds.
 //
 // Design: one thread per (t, s); a block takes 256 consecutive shards of
-// one window entry, so its votes ([T, S, R] bytes) and alive rows are two
-// contiguous byte runs. R-byte rows do not coalesce as per-thread loads,
-// so the block stages both runs in shared memory with 16-byte loads,
-// then each thread folds its rows into replica bitmasks and runs the
-// phases on them in registers, stopping at the first deciding phase.
+// one window entry, so in each replica block its votes and alive rows are
+// two contiguous byte runs. R-byte rows do not coalesce as per-thread
+// loads, so the block stages the 2 * B runs in shared memory with 16-byte
+// loads, then each thread folds its rows into replica bitmasks and runs
+// the phases on them in registers, stopping at the first deciding phase.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -26,13 +38,18 @@ namespace {
 
 constexpr int BLOCK = 256;
 
+// Where stage() lands src[0] in its region: src's offset from 16 bytes.
+__device__ __forceinline__ int landing(const uint8_t* src) {
+    return static_cast<int>(reinterpret_cast<uintptr_t>(src) & 15);
+}
+
 // Copy n bytes from src to shared memory so that src[0] lands at
-// dst + (src & 15): 16-byte aligned pieces of the source then fill
+// dst + landing(src): 16-byte aligned pieces of the source then fill
 // 16-byte aligned pieces of dst, and move as 16-byte loads; the unaligned
 // head and tail move bytewise. dst is 16-byte aligned and has n + 16
-// bytes. Returns where src[0] landed.
-__device__ const uint8_t* stage(uint8_t* dst, const uint8_t* src, int n) {
-    const int shift = static_cast<int>(reinterpret_cast<uintptr_t>(src) & 15);
+// bytes.
+__device__ void stage(uint8_t* dst, const uint8_t* src, int n) {
+    const int shift = landing(src);
     const int head = min((16 - shift) & 15, n);
     const int body = (n - head) / 16;
     const int tail_at = head + 16 * body;
@@ -42,13 +59,12 @@ __device__ const uint8_t* stage(uint8_t* dst, const uint8_t* src, int n) {
     for (int i = threadIdx.x; i < body; i += blockDim.x) dst4[i] = src4[i];
     if (static_cast<int>(threadIdx.x) < head) out[threadIdx.x] = src[threadIdx.x];
     for (int i = tail_at + threadIdx.x; i < n; i += blockDim.x) out[i] = src[i];
-    return out;
 }
 
 struct Params {
-    int64_t S;
-    int R, quorum, f1, max_phases, chunks;  // chunks: blocks per window entry
-    uint32_t seed, threshold;
+    int64_t S, vstride, astride;  // strides: bytes between replica blocks
+    int B, Rb, quorum, f1, max_phases, chunks;  // chunks: blocks per window entry
+    uint32_t seed, threshold, shard0;
 };
 
 __global__ void __launch_bounds__(BLOCK)
@@ -58,17 +74,31 @@ mesh_window_kernel(const int8_t* votes, const uint8_t* alive, const int32_t* bas
     const int t = static_cast<int>(blockIdx.x / p.chunks);
     const int64_t s0 = static_cast<int64_t>(blockIdx.x % p.chunks) * BLOCK;
     const int n = static_cast<int>(min(static_cast<int64_t>(BLOCK), p.S - s0));
-    const int R = p.R;
-    const int region = BLOCK * R + 16;
-    const uint8_t* sv = stage(smem, reinterpret_cast<const uint8_t*>(votes) + (t * p.S + s0) * R,
-                              n * R);
-    const uint8_t* sa = stage(smem + (region + 15) / 16 * 16, alive + s0 * R, n * R);
+    const int Rb = p.Rb;
+    const int region = (BLOCK * Rb + 16 + 15) / 16 * 16;  // a run and 16 bytes of slack
+    // replica block b's runs: its votes in region b, its alive rows in
+    // region B + b, each where stage() lands it
+    const uint8_t* vsrc = reinterpret_cast<const uint8_t*>(votes) + (t * p.S + s0) * Rb;
+    const uint8_t* asrc = alive + s0 * Rb;
+    for (int b = 0; b < p.B; ++b) {
+        stage(smem + b * region, vsrc + b * p.vstride, n * Rb);
+        stage(smem + (p.B + b) * region, asrc + b * p.astride, n * Rb);
+    }
     __syncthreads();
     const int i = threadIdx.x;
     if (i >= n) return;
+    mw::Masks m{0, 0, 0};
+    for (int b = 0; b < p.B; ++b) {
+        const uint8_t* sv = smem + b * region + landing(vsrc + b * p.vstride) + i * Rb;
+        const uint8_t* sa = smem + (p.B + b) * region + landing(asrc + b * p.astride) + i * Rb;
+        const mw::Masks q = mw::row_masks(reinterpret_cast<const int8_t*>(sv), sa, Rb);
+        m.v0 |= q.v0 << (b * Rb);
+        m.v1 |= q.v1 << (b * Rb);
+        m.alive |= q.alive << (b * Rb);
+    }
     const int64_t s = s0 + i;
-    const mw::Masks m = mw::row_masks(reinterpret_cast<const int8_t*>(sv) + i * R, sa + i * R, R);
-    const uint32_t prefix = mw::coin_prefix(p.seed, static_cast<uint32_t>(s), mw::slot_of(base[s], t));
+    const uint32_t prefix = mw::coin_prefix(p.seed, p.shard0 + static_cast<uint32_t>(s),
+                                            mw::slot_of(base[s], t));
     decided[t * p.S + s] =
         static_cast<int8_t>(mw::decide(m, p.quorum, p.f1, prefix, p.threshold, p.max_phases));
 }
@@ -79,21 +109,31 @@ __global__ void empty_kernel() {}
 
 }  // namespace
 
-// votes i8[T, S, R], alive u8[S, R] (0 or 1), base i32[S], decided
-// i8[T, S]; all contiguous. 1 <= R <= 64; quorum and f1 from R; seed is
-// the coin seed masked to 32 bits; threshold = coin_threshold(coin_p1).
-// Launches on `stream`, returns cudaGetLastError() (0 on success); does
-// not synchronise.
+// votes i8[B, T, S, Rb] and alive u8[B, S, Rb] (0 or 1): the window's
+// R = B * Rb replicas in B blocks, block b holding replicas b * Rb ..
+// b * Rb + Rb - 1; within a block the rows are contiguous, and block b
+// starts vstride (votes) and astride (alive) bytes after block b - 1 (B = 1
+// is votes i8[T, S, R] and alive u8[S, R], the strides unread). base
+// i32[S] and decided i8[T, S] contiguous. Shard s of the launch is global
+// shard shard0 + s (uint32, the coin's shard coordinate). 1 <= R <= 64;
+// quorum and f1 from R; seed is the coin seed masked to 32 bits;
+// threshold = coin_threshold(coin_p1). Launches on `stream`, returns
+// cudaGetLastError() (0 on success); does not synchronise.
 extern "C" int mw_window(const void* votes, const void* alive, const void* base, void* decided,
-                         long long T, long long S, int R, int quorum, int f1,
+                         long long T, long long S, int B, int Rb, long long vstride,
+                         long long astride, unsigned int shard0, int quorum, int f1,
                          unsigned int seed, unsigned int threshold, int max_phases, void* stream) {
-    if (T < 0 || S < 0 || R < 1 || R > mw::MAX_REPLICAS || max_phases < 0 || T > INT32_MAX) {
+    if (T < 0 || S < 0 || B < 1 || Rb < 1 || static_cast<long long>(B) * Rb > mw::MAX_REPLICAS ||
+        max_phases < 0 || T > INT32_MAX || vstride < 0 || astride < 0) {
         return static_cast<int>(cudaErrorInvalidValue);
     }
     if (T == 0 || S == 0) return 0;
     Params p;
     p.S = S;
-    p.R = R;
+    p.vstride = vstride;
+    p.astride = astride;
+    p.B = B;
+    p.Rb = Rb;
     p.quorum = quorum;
     p.f1 = f1;
     p.max_phases = max_phases;
@@ -102,8 +142,10 @@ extern "C" int mw_window(const void* votes, const void* alive, const void* base,
     p.chunks = static_cast<int>(chunks);
     p.seed = seed;
     p.threshold = threshold;
-    const int region = (BLOCK * R + 16 + 15) / 16 * 16;
-    mesh_window_kernel<<<static_cast<unsigned>(chunks * T), BLOCK, 2 * region,
+    p.shard0 = shard0;
+    // 2 * B runs of at most BLOCK * Rb bytes: at most 36,864 bytes (B * Rb <= 64)
+    const int region = (BLOCK * Rb + 16 + 15) / 16 * 16;
+    mesh_window_kernel<<<static_cast<unsigned>(chunks * T), BLOCK, 2 * B * region,
                          static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int8_t*>(votes), static_cast<const uint8_t*>(alive),
         static_cast<const int32_t*>(base), static_cast<int8_t*>(decided), p);

@@ -123,13 +123,43 @@ MW_HD int decide_v1_wave(const int8_t* v1_row, const uint8_t* alive_row, int R, 
     return decide(m, quorum, f1, prefix, threshold, max_phases);
 }
 
-// Window entry (t, s) of votes i8[T, S, R], alive u8[S, R], base i32[S].
+// The replica bitmasks of a row whose R = B * Rb replicas lie in B
+// blocks of Rb, as an all_gather over the replica axis leaves them:
+// block b's Rb vote bytes at votes_row + b * vstride and its alive bytes
+// at alive_row + b * astride hold replicas b * Rb .. b * Rb + Rb - 1.
+// B = 1 is row_masks. B * Rb <= MAX_REPLICAS.
+MW_HD Masks blocked_masks(const int8_t* votes_row, int64_t vstride, const uint8_t* alive_row,
+                          int64_t astride, int B, int Rb) {
+    Masks m{0, 0, 0};
+    for (int b = 0; b < B; ++b) {
+        const Masks p = row_masks(votes_row + b * vstride, alive_row + b * astride, Rb);
+        m.v0 |= p.v0 << (b * Rb);
+        m.v1 |= p.v1 << (b * Rb);
+        m.alive |= p.alive << (b * Rb);
+    }
+    return m;
+}
+
+// Window entry (t, s) of a shard block whose replicas lie in B blocks:
+// votes i8[B, T, S, Rb] (block stride vstride bytes), alive u8[B, S, Rb]
+// (block stride astride), base i32[S]; the block's first shard is global
+// shard shard0, which keys the common coin.
+MW_HD int8_t decide_entry_blocks(const int8_t* votes, int64_t vstride, const uint8_t* alive,
+                                 int64_t astride, const int32_t* base, int B, int64_t S, int Rb,
+                                 int t, int64_t s, uint32_t shard0, int quorum, int f1,
+                                 uint32_t seed, uint32_t threshold, int max_phases) {
+    const Masks m = blocked_masks(votes + (t * S + s) * Rb, vstride, alive + s * Rb, astride, B, Rb);
+    const uint32_t prefix = coin_prefix(seed, shard0 + static_cast<uint32_t>(s), slot_of(base[s], t));
+    return static_cast<int8_t>(decide(m, quorum, f1, prefix, threshold, max_phases));
+}
+
+// Window entry (t, s) of votes i8[T, S, R], alive u8[S, R], base i32[S]:
+// one replica block, shards numbered from 0.
 MW_HD int8_t decide_entry(const int8_t* votes, const uint8_t* alive, const int32_t* base,
                           int64_t S, int R, int t, int64_t s, int quorum, int f1,
                           uint32_t seed, uint32_t threshold, int max_phases) {
-    const Masks m = row_masks(votes + (t * S + s) * R, alive + s * R, R);
-    const uint32_t prefix = coin_prefix(seed, static_cast<uint32_t>(s), slot_of(base[s], t));
-    return static_cast<int8_t>(decide(m, quorum, f1, prefix, threshold, max_phases));
+    return decide_entry_blocks(votes, 0, alive, 0, base, 1, S, R, t, s, 0u, quorum, f1, seed,
+                               threshold, max_phases);
 }
 
 }  // namespace mw

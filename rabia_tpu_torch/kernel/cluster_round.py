@@ -62,6 +62,13 @@ FIELDS = (
 )
 
 
+def _uint32(shard0: int) -> int:
+    """A block's first global shard, checked to fit the kernels' uint32."""
+    if not 0 <= shard0 < 2**32:
+        raise ValueError(f"shard0 {shard0} is not a uint32")
+    return int(shard0)
+
+
 def _u8_ptr(t: torch.Tensor) -> int:
     return (t.view(torch.uint8) if t.dtype == torch.bool else t).data_ptr()
 
@@ -94,9 +101,9 @@ class ClusterRoundKernel:
             path = path or cuda_build.build(["cluster_round"])["cluster_round"]
             lib = ctypes.CDLL(str(path))
             P, LL, I, U = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_uint
-            lib.cr_rounds.argtypes = [P, P, P, P, LL, I, LL, I, I, I, U, U, P]
+            lib.cr_rounds.argtypes = [P, P, P, P, LL, I, LL, I, I, I, U, U, U, P]
             lib.cr_rounds.restype = I
-            lib.cr_slot_pipeline.argtypes = [P, P, P, P, LL, LL, I, I, I, I, I, U, U, P]
+            lib.cr_slot_pipeline.argtypes = [P, P, P, P, LL, LL, I, I, I, I, I, U, U, U, P]
             lib.cr_slot_pipeline.restype = I
             lib.cr_start_slot.argtypes = [P, P, P, P, LL, I, P]
             lib.cr_start_slot.restype = I
@@ -137,12 +144,14 @@ class ClusterRoundKernel:
         seed: int,
         threshold: int,
         out: Optional[Sequence[torch.Tensor]] = None,
+        shard0: int = 0,
     ) -> list[torch.Tensor]:
         """n rounds; returns the 13 fields after them, in ``out`` when
         given (``out`` may be ``fields``: the state is then updated in
         place), else in fresh tensors. ``masks`` None is full delivery, a
         3-d mask holds for every round, a 4-d one gives round k its k-th
-        ``[shard, sender, receiver]`` mask."""
+        ``[shard, sender, receiver]`` mask. Shard s is global shard
+        ``shard0 + s`` in the common coin."""
         fields = list(fields)
         S, R = self._check_fields(fields)
         self._check_replicas(R)
@@ -174,7 +183,7 @@ class ClusterRoundKernel:
             with torch.cuda.device(alive.device):
                 err = lib.cr_rounds(
                     ins, outp, _u8_ptr(alive), None if masks is None else _u8_ptr(masks), stride,
-                    n, S, R, quorum, f1, int(seed) & 0xFFFFFFFF, threshold,
+                    n, S, R, quorum, f1, int(seed) & 0xFFFFFFFF, threshold, _uint32(shard0),
                     torch.cuda.current_stream().cuda_stream,
                 )
             self._launched(err, "rounds")
@@ -235,13 +244,15 @@ class ClusterRoundKernel:
         f1: int,
         seed: int,
         threshold: int,
+        shard0: int = 0,
     ) -> tuple[torch.Tensor, torch.Tensor]:
         """Every (slot, shard): a fresh slot ``base + t`` (int32, wrapped)
         with ``rounds`` full-delivery rounds. Returns ``(decided i8[T, S],
         decided_phase i32[T, S])``. Votes are codes 0..3; others are
         outside the contract, and the kernel need not match the plain
         loop on them. ``f1 <= quorum`` (as ``quorum_size`` and
-        ``f_plus_1`` give), on which the kernel's rule rests."""
+        ``f_plus_1`` give), on which the kernel's rule rests. Shard s is
+        global shard ``shard0 + s`` in the common coin."""
         if votes.dtype != I8 or votes.dim() != 3:
             raise ValueError(f"votes must be int8[T, S, R], got {votes.dtype}{list(votes.shape)}")
         T, S, R = votes.shape
@@ -263,7 +274,7 @@ class ClusterRoundKernel:
                 err = lib.cr_slot_pipeline(
                     votes.data_ptr(), _u8_ptr(alive), decided.data_ptr(), dphase.data_ptr(), T, S,
                     R, base, rounds, quorum, f1, int(seed) & 0xFFFFFFFF, threshold,
-                    torch.cuda.current_stream().cuda_stream,
+                    _uint32(shard0), torch.cuda.current_stream().cuda_stream,
                 )
             self._launched(err, "slot_pipeline")
         return decided, dphase

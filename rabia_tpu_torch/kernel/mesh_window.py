@@ -10,6 +10,12 @@ decide_slots_plain`, the loop over ``phase_step``;
 ``MeshPhaseKernel._decide_slots`` dispatches on the tensor's device: a
 CUDA tensor goes to this kernel (or the wrapper raises), a CPU tensor to
 the plain loop.
+
+Over a mesh, ``MeshPhaseKernel`` gathers a shard block's window votes and
+alive rows over the replica axis and launches the kernel once a shard
+block on what the gather left: votes ``[B, T, S_blk, R/B]`` and alive
+``[B, S_blk, R/B]``, each replica block at its own stride, with
+``shard0`` the block's first global shard (the coin's shard coordinate).
 """
 
 from __future__ import annotations
@@ -49,7 +55,8 @@ class MeshWindowKernel:
             fn = lib.mw_window
             fn.argtypes = [
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                ctypes.c_longlong, ctypes.c_longlong, ctypes.c_uint, ctypes.c_int, ctypes.c_int,
                 ctypes.c_uint, ctypes.c_uint, ctypes.c_int, ctypes.c_void_p,
             ]
             fn.restype = ctypes.c_int
@@ -68,33 +75,57 @@ class MeshWindowKernel:
         if err != 0:
             raise RuntimeError(f"empty kernel launch failed: cudaError {err}")
 
+    @staticmethod
+    def blocks_of(votes: torch.Tensor, alive: torch.Tensor) -> tuple[int, int, int, int, int, int]:
+        """``(B, T, S, Rb, vstride, astride)`` of votes ``i8[T, S, R]`` and
+        alive ``bool[S, R]`` (B = 1), or of votes ``i8[B, T, S, Rb]`` and
+        alive ``bool[B, S, Rb]`` whose replica blocks lie at any stride
+        and whose rows are contiguous within a block; raises on anything
+        else."""
+        if votes.dtype != I8 or votes.dim() not in (3, 4):
+            raise ValueError(
+                f"votes must be int8[T, S, R] or int8[B, T, S, Rb], got "
+                f"{votes.dtype}{list(votes.shape)}")
+        blocked = votes.dim() == 4
+        B, T, S, Rb = votes.shape if blocked else (1, *votes.shape)
+        want = (B, S, Rb) if blocked else (S, Rb)
+        if alive.dtype != torch.bool or tuple(alive.shape) != want:
+            raise ValueError(f"alive must be bool{list(want)}, got {alive.dtype}{list(alive.shape)}")
+        if not 1 <= B * Rb <= MAX_REPLICAS:
+            raise ValueError(f"mesh window kernel takes 1..{MAX_REPLICAS} replicas, got R={B * Rb}")
+        if blocked and not (votes[0].is_contiguous() and alive[0].is_contiguous()):
+            raise ValueError("mesh window kernel needs each replica block contiguous")
+        if not blocked and not (votes.is_contiguous() and alive.is_contiguous()):
+            raise ValueError("mesh window kernel needs contiguous votes and alive")
+        vstride = votes.stride(0) if blocked and B > 1 else 0
+        astride = alive.stride(0) if blocked and B > 1 else 0
+        return B, T, S, Rb, vstride, astride
+
     def __call__(
         self,
-        votes: torch.Tensor,  # i8[T, S, R] initial R1 votes, contiguous, on CUDA
-        alive: torch.Tensor,  # bool[S, R]
+        votes: torch.Tensor,  # i8[T, S, R], or i8[B, T, S, R/B] in replica blocks, on CUDA
+        alive: torch.Tensor,  # bool[S, R], or bool[B, S, R/B]
         base_slots: torch.Tensor,  # i32[S]: entry t of shard s is slot base_slots[s] + t
         *,
         seed: int,
         coin_p1: float,
         max_phases: int,
+        shard0: int = 0,  # global index of the first shard (the coin's shard coordinate)
     ) -> torch.Tensor:
-        if votes.dtype != I8 or votes.dim() != 3:
-            raise ValueError(f"votes must be int8[T, S, R], got {votes.dtype}{list(votes.shape)}")
-        T, S, R = votes.shape
-        if not 1 <= R <= MAX_REPLICAS:
-            raise ValueError(f"mesh window kernel takes 1..{MAX_REPLICAS} replicas, got R={R}")
-        if alive.dtype != torch.bool or tuple(alive.shape) != (S, R):
-            raise ValueError(f"alive must be bool[{S}, {R}], got {alive.dtype}{list(alive.shape)}")
+        B, T, S, Rb, vstride, astride = self.blocks_of(votes, alive)
+        R = B * Rb
         if base_slots.dtype != I32 or tuple(base_slots.shape) != (S,):
             raise ValueError(
                 f"base_slots must be int32[{S}], got {base_slots.dtype}{list(base_slots.shape)}"
             )
         if max_phases < 0:
             raise ValueError(f"max_phases must be >= 0, got {max_phases}")
+        if not 0 <= shard0 < 2**32:
+            raise ValueError(f"shard0 {shard0} is not a uint32")
         if alive.device != votes.device or base_slots.device != votes.device:
             raise ValueError("votes, alive and base_slots lie on different devices")
-        if not (votes.is_contiguous() and alive.is_contiguous() and base_slots.is_contiguous()):
-            raise ValueError("mesh window kernel needs contiguous votes, alive and base_slots")
+        if not base_slots.is_contiguous():
+            raise ValueError("mesh window kernel needs contiguous base_slots")
         if votes.device.type != "cuda":
             raise ValueError(f"mesh window kernel needs CUDA tensors, got {votes.device}")
         fn = self.load()
@@ -105,8 +136,9 @@ class MeshWindowKernel:
                 marks = cuda_build.record_event(self.events)
                 err = fn(
                     votes.data_ptr(), alive.view(torch.uint8).data_ptr(), base_slots.data_ptr(),
-                    decided.data_ptr(), T, S, R, quorum_size(R), f_plus_1(R),
-                    int(seed) & 0xFFFFFFFF, coin_threshold(coin_p1), int(max_phases), stream,
+                    decided.data_ptr(), T, S, B, Rb, vstride, astride, int(shard0),
+                    quorum_size(R), f_plus_1(R), int(seed) & 0xFFFFFFFF,
+                    coin_threshold(coin_p1), int(max_phases), stream,
                 )
                 if marks is not None:
                     self.events.append((marks, cuda_build.record_event(self.events)))

@@ -104,6 +104,24 @@ def _tally(ledger: torch.Tensor):
     return c0, c1, cq, c0 + c1 + cq
 
 
+def delivery_masks(shape, n_rounds: int, generator: torch.Generator, device,
+                   p_deliver: float = 1.0, link_mask: Optional[torch.Tensor] = None):
+    """The delivery masks of ``run_rounds``: None (full delivery), the
+    static ``link_mask`` for every round, or ``bool[n_rounds, *shape]``
+    drawn as ``run_rounds_plain`` draws them (one Bernoulli draw of
+    ``shape`` a round from ``generator``) and anded with the link mask."""
+    base_link = None if link_mask is None else torch.broadcast_to(link_mask, shape)
+    if p_deliver >= 1.0:
+        return base_link
+    masks = torch.stack([
+        torch.rand(shape, generator=generator, device=device) < p_deliver
+        for _ in range(n_rounds)
+    ])
+    if base_link is not None:
+        masks &= base_link
+    return masks
+
+
 def _pick(cond_a, a: int, cond_b, b: int, other) -> torch.Tensor:
     """int8 ``a`` where cond_a, else ``b`` where cond_b, else ``other``."""
     other = torch.as_tensor(other, dtype=I8, device=cond_a.device)
@@ -138,7 +156,10 @@ class ClusterKernel:
     """Whole-cluster weak-MVC simulation over S shards × R replicas.
 
     Runs on ``device`` (CUDA unless the caller passes another; raises
-    when CUDA is asked for and absent)."""
+    when CUDA is asked for and absent). ``shard_base`` is the global
+    index of its first shard, the common coin's shard coordinate: 0 for a
+    whole cluster, the block's first shard for one block of a mesh's shard
+    axis (:class:`~rabia_tpu_torch.parallel.ShardedClusterKernel`)."""
 
     def __init__(
         self,
@@ -148,6 +169,7 @@ class ClusterKernel:
         coin_p1: float = 0.5,
         seed: int = 0,
         device: DeviceLike = None,
+        shard_base: int = 0,
     ):
         self.device = resolve_device(device)
         self.S = int(n_shards)
@@ -156,7 +178,9 @@ class ClusterKernel:
         self.f1 = f_plus_1(self.R)
         self.coin_p1 = float(coin_p1)
         self.seed = int(seed)
-        self._shard_idx = torch.arange(self.S, dtype=I32, device=self.device)
+        self.shard_base = int(shard_base)
+        self._shard_idx = torch.arange(
+            self.shard_base, self.shard_base + self.S, dtype=I32, device=self.device)
         self._eye = torch.eye(self.R, dtype=torch.bool, device=self.device)
 
     # -- state constructors -------------------------------------------------
@@ -249,7 +273,7 @@ class ClusterKernel:
 
     def _kernel_args(self) -> dict:
         return dict(quorum=self.quorum, f1=self.f1, seed=self.seed,
-                    threshold=coin_threshold(self.coin_p1))
+                    threshold=coin_threshold(self.coin_p1), shard0=self.shard_base)
 
     def _rounds_on_card(self, state: ClusterState, alive, masks, n: int) -> ClusterState:
         """n rounds in one launch of the round kernel; ``masks`` as
@@ -392,17 +416,24 @@ class ClusterKernel:
             return self.run_rounds_plain(state, alive, n_rounds, generator, p_deliver, link_mask)
         if n_rounds == 0:
             return state
-        shape = (self.S, self.R, self.R)
-        base_link = None if link_mask is None else torch.broadcast_to(link_mask, shape)
-        masks = base_link
-        if p_deliver < 1.0:
-            masks = torch.stack([
-                torch.rand(shape, generator=generator, device=self.device) < p_deliver
-                for _ in range(n_rounds)
-            ])
-            if base_link is not None:
-                masks &= base_link
+        masks = delivery_masks((self.S, self.R, self.R), n_rounds, generator, self.device,
+                               p_deliver, link_mask)
         return self._rounds_on_card(state, alive, masks, n_rounds)
+
+    def rounds_masked(
+        self, state: ClusterState, alive: torch.Tensor, masks: Optional[torch.Tensor], n: int
+    ) -> ClusterState:
+        """n rounds under ``masks`` as :func:`delivery_masks` gives them
+        (None: full delivery; ``[S, R, R]``: one mask for every round;
+        ``[n, S, R, R]``: round k's k-th). A state on a card takes one
+        launch of the round kernel, a CPU state n ``round_step_plain``."""
+        if state.slot.device.type == "cuda":
+            return self._rounds_on_card(state, alive, masks, n) if n else state
+        full = torch.ones((self.S, self.R, self.R), dtype=torch.bool, device=self.device)
+        for k in range(n):
+            d = full if masks is None else masks if masks.dim() == 3 else masks[k]
+            state = self.round_step_plain(state, alive, d)
+        return state
 
     def run_rounds_plain(
         self,

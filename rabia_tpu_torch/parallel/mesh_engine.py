@@ -1,10 +1,23 @@
 """MeshEngine: state machine replication with consensus on the device.
 
-The port of the reference's ``rabia_tpu/parallel/mesh_engine.py`` on one
-device. All R replicas of the cluster run in one process: client work
-queues per shard, one :meth:`MeshPhaseKernel.slot_window` call decides a
-window of slots for every shard on the device, and the decided batches
-apply on every replica's state machine in slot order.
+The port of the reference's ``rabia_tpu/parallel/mesh_engine.py``. All R
+replicas of the cluster run in one process: client work queues per
+shard, one :meth:`MeshPhaseKernel.slot_window` call decides a window of
+slots for every shard, and the decided batches apply on every replica's
+state machine in slot order.
+
+Where consensus runs: on ``device`` (one device, ``mesh=None``), or over
+a (shard × replica) ``mesh`` from :func:`~rabia_tpu_torch.parallel.
+make_mesh`, whose shard axis S is padded up to (the padded shards decide
+V0 in every window and carry no work). A window over a mesh is one
+exchange of its votes over the replica axis and one launch a shard
+block. A mesh built under a ``torch.distributed`` process group is the
+multi-controller form: every rank runs this engine with the same
+submissions in the same order, each window's votes are cut by every rank
+from the full host votes (its own block), and the decided plane is
+all-gathered so that every rank applies the same log
+(``_run_window_multihost``; ``scripts/torch_dcn_dryrun.py`` runs it
+across processes).
 
 Slot semantics: a slot decides V1 (the batch applies, its future
 settles) or V0 (a null slot: the batch retries in the next window). An
@@ -58,7 +71,9 @@ the transport engine's ``PersistedEngineState``; :meth:`MeshEngine.save_to`
 :class:`~rabia_tpu_torch.core.persistence.PersistenceLayer`.
 
 Not ported yet, and refused with ``NotImplementedError`` rather than
-ignored: multi-device meshes.
+ignored: the device-resident KV lane on a mesh of more than one block
+(ROADMAP Queue 1, item 5b). A multi-controller mesh refuses it with the
+reference's ``ValidationError``.
 """
 
 from __future__ import annotations
@@ -301,10 +316,13 @@ class MeshEngine:
     n_shards, n_replicas:
         Consensus geometry.
     mesh:
-        Only ``None`` (one device) is supported in this port.
+        A 2-D (shard × replica) mesh from :func:`make_mesh`, or ``None``:
+        one device, ``device``. Shards are padded up to the mesh's shard
+        axis.
     device:
-        Where consensus (and the device KV table) runs: CUDA unless the
-        caller passes another.
+        Where consensus (and the device KV table) runs without a mesh:
+        CUDA unless the caller passes another. With a mesh, its devices
+        decide.
     window:
         Slots decided per shard per device dispatch.
     latency_target_ms:
@@ -353,19 +371,21 @@ class MeshEngine:
         min_window: int = 1,
         max_window: int = 256,
     ) -> None:
-        if mesh is not None:
-            raise NotImplementedError(
-                "multi-device meshes are not ported yet (ROADMAP Queue 1, item 5)"
-            )
         if n_shards < 1 or n_replicas < 1:
             raise ValidationError("need at least 1 shard and 1 replica")
+        self.mesh = mesh
+        axis = 1 if mesh is None else mesh.shape["shard"]
         self.n_shards = int(n_shards)
-        self.S = self.n_shards  # one device: no padding to a mesh axis
+        self.S = ((self.n_shards + axis - 1) // axis) * axis  # padded
         self.R = int(n_replicas)
         self.window = int(window)
         self.max_phases = int(max_phases)
-        self.kernel = MeshPhaseKernel(self.S, self.R, coin_p1=coin_p1, seed=seed, device=device)
+        self.kernel = MeshPhaseKernel(self.S, self.R, mesh, coin_p1=coin_p1, seed=seed,
+                                      device=device)
         self.device = self.kernel.device
+        # the multi-controller form: a mesh over a process group (one rank
+        # too: its windows still go through the group's collectives)
+        self._multi = mesh is not None and mesh.distributed
         self.sms: list[StateMachine] = [sm_factory() for _ in range(self.R)]
         self._vector = all(callable(getattr(sm, "apply_block", None)) for sm in self.sms)
         self.queues: list[deque[_Pending]] = [deque() for _ in range(self.n_shards)]
@@ -460,6 +480,19 @@ class MeshEngine:
         if device_store:
             from rabia_tpu_torch.apps.device_kv import DeviceKVTable
 
+            if self._multi:
+                # the device lane dispatches host-local inputs against the
+                # whole table; multi-controller runs use the host-apply
+                # lane and its collectives (_run_window_multihost)
+                raise ValidationError(
+                    "device_store is single-controller only; multi-host runs use the "
+                    "host-apply lane"
+                )
+            if mesh is not None and mesh.size > 1:
+                raise NotImplementedError(
+                    "device_store on a mesh of more than one block is not ported yet "
+                    "(ROADMAP Queue 1, item 5b)"
+                )
             if not all(
                 hasattr(sm, "store") and callable(getattr(sm, "apply_block", None))
                 for sm in self.sms
@@ -1633,6 +1666,12 @@ class MeshEngine:
         self._lat_saturated |= len(self._full_blocks) >= W
         base = np.zeros(self.S, np.int32)
         base[:n] = self.next_slot
+        if self._multi:
+            # multi-controller: every rank cuts its block and the decided
+            # plane is gathered (no speculation: the blocking collective
+            # is the step)
+            decided = self._decide_window(self._fullwidth_votes(depth), W)
+            return self._finish_cycle_fullwidth(decided, depth)
         key = (depth, base.tobytes(), self.alive.tobytes())
         if self._spec is not None and self._spec[0] == key:
             fetch = self._spec[1]  # the previous cycle already dispatched us
@@ -1688,7 +1727,10 @@ class MeshEngine:
         """One consumed consensus window; returns decided i8[W, S]."""
         base = np.zeros(self.S, np.int32)
         base[: self.n_shards] = self.next_slot
-        decided = self._dispatch_window(votes, base, W).result()
+        if self._multi:
+            decided = self._run_window_multihost(votes, base, W)
+        else:
+            decided = self._dispatch_window(votes, base, W).result()
         self.cycles += 1
         return decided
 
@@ -1698,11 +1740,28 @@ class MeshEngine:
         so a caller can dispatch the next window before reading this one.
         The caller accounts ``cycles`` when a window is CONSUMED."""
         with device_annotation("rabia.mesh.slot_window", self.device):
+            if self.mesh is None:
+                votes, alive, base = (to_device(a, self.device) for a in (votes, self.alive, base))
+            else:
+                alive = self.alive  # the mesh kernel cuts host arrays into its blocks
             decided = self.kernel.slot_window(
-                to_device(votes, self.device), to_device(self.alive, self.device),
-                to_device(base, self.device), n_slots=W, max_phases=self.max_phases,
+                votes, alive, base, n_slots=W, max_phases=self.max_phases,
             )
         return HostFetch(decided)
+
+    def _run_window_multihost(self, votes: np.ndarray, base: np.ndarray, W: int) -> np.ndarray:
+        """One consensus window as a multi-controller step: every rank
+        cuts its own block from the full host votes, alive mask and base
+        slots (they are equal on every rank, which runs the same
+        submissions in the same order), the window exchanges over the
+        replica group, and the decided plane is all-gathered over the
+        shard group, so every rank returns the whole ``[W, S]``."""
+        with device_annotation("rabia.mesh.slot_window", self.device):
+            decided = self.kernel.slot_window(
+                votes.astype(np.int8), self.alive, base.astype(np.int32),
+                n_slots=W, max_phases=self.max_phases,
+            )
+        return HostFetch(decided).result()
 
     def _record(self, s: int, slot: int, value: int, batch) -> None:
         d = self.decisions[s]

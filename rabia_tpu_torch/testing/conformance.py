@@ -22,9 +22,9 @@ the reference's ``run_schedule_on_both_planes``: one submission schedule driven
 through BOTH deployment planes — a transport-engine cluster over the
 in-memory hub, then a :class:`~rabia_tpu_torch.parallel.MeshEngine` —
 must produce bit-identical per-shard decisions, successful client
-futures, and byte-identical replica state. The port's ``MeshEngine``
-takes a ``device`` (CUDA unless the caller passes another) in place of
-the reference's ``mesh=``.
+futures, and byte-identical replica state. The ``MeshEngine`` runs over
+``mesh=make_mesh(...)`` as the reference's does: a 1 x 1 mesh of
+``device`` (CUDA unless the caller passes another).
 
 Beyond the reference, the gate returns what it timed on the transport
 plane (wall time, submit-to-settle latencies, decided slots) and the
@@ -75,7 +75,8 @@ async def run_schedule_on_both_planes(
     from rabia_tpu_torch.core.types import CommandBatch, NodeId
     from rabia_tpu_torch.engine import RabiaEngine
     from rabia_tpu_torch.net import InMemoryHub
-    from rabia_tpu_torch.parallel import MeshEngine
+    from rabia_tpu_torch.core.device import resolve_device
+    from rabia_tpu_torch.parallel import MeshEngine, make_mesh
 
     # -- transport plane ----------------------------------------------------
     # phase_timeout is a retransmit/lag timer only — the lossless hub never
@@ -158,10 +159,9 @@ async def run_schedule_on_both_planes(
         await asyncio.gather(*tasks, return_exceptions=True)
 
     # -- device plane -------------------------------------------------------
-    kw = {} if device is None else {"device": device}
     mesh_eng = MeshEngine(
         InMemoryStateMachine, n_shards=n_shards, n_replicas=n_replicas,
-        window=2, **kw,
+        mesh=make_mesh([resolve_device(device)]), window=2,
     )
     for w, wave in enumerate(schedule):
         futs = {s: mesh_eng.submit(list(cmds), s) for s, cmds in wave.items()}

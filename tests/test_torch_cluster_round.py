@@ -523,3 +523,157 @@ def test_plain_round_and_header_conform_to_the_port_oracle(host, R, p, seed):
             oracles[s].step(lambda i, j, m=masks[t, s]: bool(m[i, j]))
         _compare_to_oracles(convert.cluster_state_to_numpy(st), oracles, alive, f"plain step {t}")
         _compare_to_oracles(hs, oracles, alive, f"header step {t}")
+
+
+# ---- a block of a mesh's shard axis: the coin keyed by global shards --------
+
+_SHARD0_SHIM = r"""
+#include "cluster_round.cuh"
+static cr::Ptrs ptrs(void* const* f) {
+    cr::Ptrs p;
+    p.slot = (int32_t*)f[0]; p.phase = (int32_t*)f[1]; p.stage = (int8_t*)f[2];
+    p.my_r1 = (int8_t*)f[3]; p.my_r2 = (int8_t*)f[4]; p.prev_r1 = (int8_t*)f[5];
+    p.prev_r2 = (int8_t*)f[6]; p.led1 = (int8_t*)f[7]; p.led2 = (int8_t*)f[8];
+    p.decided = (int8_t*)f[9]; p.dphase = (int32_t*)f[10]; p.done = (uint8_t*)f[11];
+    p.active = (uint8_t*)f[12];
+    return p;
+}
+// n rounds of a block of S shards whose first is global shard shard0:
+// path 0 rounds_shard (32-bit), 1 rounds_shard (64-bit), 2 rounds_shard_lanes
+extern "C" void cr_block_rounds(int path, void* const* in, void* const* out, const uint8_t* alive,
+                                const uint8_t* masks, long long stride, int n, long long S, int R,
+                                int q, int f1, unsigned seed, unsigned thr, unsigned shard0) {
+    const cr::Ptrs pi = ptrs(in), po = ptrs(out);
+    for (long long s = 0; s < S; ++s) {
+        if (path == 0) cr::rounds_shard<uint32_t, 8>(pi, po, alive, masks, stride, n, s, R, q, f1, seed, thr, shard0);
+        else if (path == 1) cr::rounds_shard<uint64_t, 64>(pi, po, alive, masks, stride, n, s, R, q, f1, seed, thr, shard0);
+        else cr::rounds_shard_lanes(pi, po, alive, masks, stride, n, s, R, q, f1, seed, thr, shard0);
+    }
+}
+// slot_pipeline of such a block: path 2 the rule once a (slot, shard), path
+// 3 the rule on chunks of 16 shards (R = 5), as the kernel keys their coins
+extern "C" void cr_block_pipeline(int path, const int8_t* votes, const uint8_t* alive,
+                                  int8_t* dec, int32_t* ph, long long T, long long S, int R,
+                                  int base, int rounds, int q, unsigned seed, unsigned thr,
+                                  unsigned shard0) {
+    for (long long t = 0; t < T; ++t) {
+        if (path == 2) {
+            for (long long s = 0; s < S; ++s) {
+                const long long i = t * S + s;
+                const uint32_t prefix = mw::coin_prefix(seed, shard0 + (uint32_t)s,
+                                                        mw::slot_of(base, (int)t));
+                const cr::Decision x = cr::full_delivery(votes + i * R, alive + s * R, R, q,
+                                                         rounds, prefix, thr);
+                dec[i] = x.decided;
+                ph[i] = x.phase;
+            }
+            continue;
+        }
+        for (long long s0 = 0; s0 < S; s0 += 16) {
+            const int n = (int)(S - s0 < 16 ? S - s0 : 16);
+            const long long i = t * S + s0;
+            cr::pipeline_chunk_bytes<5>(votes + i * R, alive + s0 * R, n, (uint32_t)q, rounds,
+                                        seed, thr, shard0 + (uint32_t)s0,
+                                        mw::slot_of(base, (int)t), dec + i, ph + i);
+        }
+    }
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def host_blocks(tmp_path_factory):
+    """The header's entries for a block of shards (shard0 > 0), built for
+    the host with g++."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("g++ not installed: the header's host build cannot run")
+    d = tmp_path_factory.mktemp("cr_blocks")
+    (d / "shim.cpp").write_text(_SHARD0_SHIM)
+    lib_path = d / "libcr_blocks.so"
+    subprocess.run(
+        [gxx, "-std=c++17", "-O2", "-shared", "-fPIC", f"-I{cuda_build.CSRC}",
+         "-o", str(lib_path), str(d / "shim.cpp")],
+        check=True, capture_output=True, timeout=120,
+    )
+    lib = ctypes.CDLL(str(lib_path))
+    P, LL, I, U = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_uint
+    lib.cr_block_rounds.argtypes = [I, P, P, P, P, LL, I, LL, I, I, I, U, U, U]
+    lib.cr_block_pipeline.argtypes = [I, P, P, P, P, LL, LL, I, I, I, I, U, U, U]
+    return lib
+
+
+@pytest.mark.parametrize("blocks", [2, 4])
+@pytest.mark.parametrize("path", [0, 1, 2])
+def test_header_block_rounds_key_the_coin_by_global_shard(host_blocks, path, blocks):
+    """A reference state over S shards, run round by round under lossy
+    masks with split votes and crashes (so replicas reach the coin), and
+    the header run on each block of S / blocks shards with its global
+    base shard0: every field of every block equals the reference's rows.
+    Numbering the block's shards from 0 would flip coins."""
+    S, R, T, seed, p1 = 16, 5, 30, 7 * blocks + path, 0.5
+    initial, alive, active, masks = _case(seed, S, R, T, 0.6, True, False)
+    initial[:, :] = np.random.default_rng(seed).integers(0, 2, size=(S, R))  # split: the coin
+    active[:] = True
+    ref = RefKernel(S, R, coin_p1=p1, seed=seed)
+    rs = ref.start_slot(ref.init_state(), jnp.asarray(active), jnp.asarray(initial))
+    rs = rs._replace(slot=jnp.full((S,), 2**31 - 2, jnp.int32))
+    start = _ref_fields(rs)
+    for t in range(T):
+        rs = ref.round_step(rs, jnp.asarray(alive), jnp.asarray(masks[t]))
+    want = _ref_fields(rs)
+    assert (want["phase"] > 1).any()  # some replicas went past a coin
+    Sb = S // blocks
+    for i in range(blocks):
+        rows = slice(i * Sb, (i + 1) * Sb)
+        src = {f: np.ascontiguousarray(start[f][rows]) for f in FIELDS}
+        out = {f: np.empty_like(v) for f, v in src.items()}
+        m = np.ascontiguousarray(masks[:, rows], np.uint8)
+        a = np.ascontiguousarray(alive[rows], np.uint8)
+        host_blocks.cr_block_rounds(
+            path, (ctypes.c_void_p * 13)(*(src[f].ctypes.data for f in FIELDS)),
+            (ctypes.c_void_p * 13)(*(out[f].ctypes.data for f in FIELDS)), a.ctypes.data,
+            m.ctypes.data, Sb * R * R, T, Sb, R, quorum_size(R), f_plus_1(R), seed,
+            coin_threshold(p1), i * Sb)
+        _assert_fields(out, {f: want[f][rows] for f in FIELDS}, f"block {i} path {path}")
+
+
+@pytest.mark.parametrize("path", [2, 3])
+@pytest.mark.parametrize("rounds", [2, 4])
+def test_header_block_pipeline_keys_the_coin_by_global_shard(host_blocks, path, rounds):
+    """slot_pipeline on each of 4 blocks of 32 shards (R = 5, split votes,
+    a quorum-less shard, slots wrapping past 2^31-1) with its base
+    shard0: the reference's columns of the whole window."""
+    S, R, T, seed, p1 = 128, 5, 6, 31 + rounds, 0.5
+    start = 2**31 - 3
+    rng = np.random.default_rng(seed)
+    votes = rng.integers(0, 2, size=(T, S, R)).astype(np.int8)
+    votes[:, ::5] = rng.integers(0, 4, size=votes[:, ::5].shape)
+    alive = rng.random((S, R)) > 0.2
+    alive[40, : quorum_size(R)] = False
+    ref = RefKernel(S, R, coin_p1=p1, seed=seed)
+    want_d, want_p = (np.asarray(x) for x in ref.slot_pipeline(
+        jnp.asarray(votes), jnp.asarray(alive), T, rounds_per_slot=rounds, start_slot_index=start))
+    if rounds == 4:
+        assert (want_p == 1).any()  # the coin decided some slots
+    Sb = S // 4
+    for i in range(4):
+        cols = slice(i * Sb, (i + 1) * Sb)
+        v = np.ascontiguousarray(votes[:, cols])
+        a = np.ascontiguousarray(alive[cols], np.uint8)
+        d = np.empty((T, Sb), np.int8)
+        ph = np.empty((T, Sb), np.int32)
+        host_blocks.cr_block_pipeline(path, v.ctypes.data, a.ctypes.data, d.ctypes.data,
+                                      ph.ctypes.data, T, Sb, R, start, rounds, quorum_size(R),
+                                      seed, coin_threshold(p1), i * Sb)
+        np.testing.assert_array_equal(d, want_d[:, cols], err_msg=f"block {i}")
+        np.testing.assert_array_equal(ph, want_p[:, cols], err_msg=f"block {i}")
+    # and the port's ClusterKernel on each block with shard_base
+    for i in range(4):
+        cols = slice(i * Sb, (i + 1) * Sb)
+        k = ClusterKernel(Sb, R, coin_p1=p1, seed=seed, device="cpu", shard_base=i * Sb)
+        d, ph = k.slot_pipeline(torch.from_numpy(np.ascontiguousarray(votes[:, cols])),
+                                torch.from_numpy(np.ascontiguousarray(alive[cols])), T,
+                                rounds_per_slot=rounds, start_slot_index=start)
+        np.testing.assert_array_equal(d.numpy(), want_d[:, cols])
+        np.testing.assert_array_equal(ph.numpy(), want_p[:, cols])

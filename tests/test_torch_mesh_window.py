@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from rabia_tpu.parallel import MeshPhaseKernel as RefMesh
@@ -193,3 +194,117 @@ def test_wrapper_refusals():
     with pytest.raises(ValueError, match="needs CUDA tensors"):
         kern(votes, alive, base, **kw)
     assert kern.launches == 0 and kern._fn is None  # nothing was built or launched
+
+
+# ---- a shard block over a mesh: replica blocks and the global shard base ----
+
+_BLOCKS_SHIM = r"""
+#include "mesh_window.cuh"
+extern "C" void mw_host_blocks(const int8_t* votes, long long vstride, const uint8_t* alive,
+                               long long astride, const int32_t* base, int8_t* out, int B,
+                               long long T, long long S, int Rb, unsigned shard0, int quorum,
+                               int f1, unsigned seed, unsigned threshold, int max_phases) {
+    for (int t = 0; t < T; ++t)
+        for (long long s = 0; s < S; ++s)
+            out[t * S + s] = mw::decide_entry_blocks(votes, vstride, alive, astride, base, B, S,
+                                                     Rb, t, s, shard0, quorum, f1, seed,
+                                                     threshold, max_phases);
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def host_blocks(tmp_path_factory):
+    """``decide_entry_blocks`` built for the host with g++: ``run(votes,
+    alive, base, shard0, seed, p1, max_phases)`` on a block's votes
+    ``[B, T, S, Rb]`` and alive ``[B, S, Rb]`` tensors (views at any
+    block stride, as the exchange leaves them)."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("g++ not installed: the header's host build cannot run")
+    d = tmp_path_factory.mktemp("mw_blocks")
+    (d / "shim.cpp").write_text(_BLOCKS_SHIM)
+    lib = d / "libmw_blocks.so"
+    subprocess.run(
+        [gxx, "-std=c++17", "-O2", "-shared", "-fPIC", f"-I{cuda_build.CSRC}",
+         "-o", str(lib), str(d / "shim.cpp")],
+        check=True, capture_output=True, timeout=120,
+    )
+    fn = ctypes.CDLL(str(lib)).mw_host_blocks
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                   ctypes.c_longlong, ctypes.c_int, ctypes.c_uint, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_uint, ctypes.c_uint, ctypes.c_int]
+    fn.restype = None
+
+    def run(votes, alive, base, shard0, seed, p1, max_phases):
+        B, Tn, Sb, Rb, vstride, astride = mesh_window.MeshWindowKernel.blocks_of(votes, alive)
+        base = np.ascontiguousarray(base, np.int32)
+        out = np.empty((Tn, Sb), np.int8)
+        R = B * Rb
+        fn(votes.data_ptr(), vstride, alive.view(torch.uint8).data_ptr(), astride,
+           base.ctypes.data, out.ctypes.data, B, Tn, Sb, Rb, shard0, quorum_size(R),
+           f_plus_1(R), seed & 0xFFFFFFFF, coin_threshold(p1), max_phases)
+        return out
+
+    return run
+
+
+@pytest.mark.parametrize("p1", [0.0, 0.5])
+@pytest.mark.parametrize("a,b,R", [(2, 4, 4), (2, 4, 8), (4, 2, 6), (1, 8, 8), (8, 1, 5),
+                                   (2, 1, 5)])
+def test_header_blocks_match_reference_slot_window_on_the_mesh(host_blocks, a, b, R, p1):
+    """Each shard block's window, read by the header straight from the
+    layout that the port's exchange over the replica axis leaves (B = b
+    replica blocks, each at the buffer's row stride), with its global
+    shard base, equals the reference's ``slot_window`` on the same mesh
+    shape over that block's columns; the coin is reached (split votes,
+    4 phases) and the quorum-less shard never decides."""
+    from rabia_tpu_torch.parallel import make_mesh as port_make_mesh
+
+    seed = 100 * a + 10 * b + R + int(2 * p1)
+    votes, alive, base = _inputs(seed, R)
+    mesh = make_mesh(jax.devices()[: a * b], shard_axis_size=a, replica_axis_size=b)
+    ref = RefMesh(S, R, mesh, coin_p1=p1, seed=seed)
+    want = np.asarray(ref.slot_window(
+        jnp.asarray(votes), ref.place(jnp.asarray(alive)), jnp.asarray(base),
+        n_slots=T, max_phases=4,
+    ))
+    port = MeshPhaseKernel(S, R, port_make_mesh(["cpu"] * (a * b), a, b), coin_p1=p1, seed=seed)
+    rows = port.exchange_window(votes, alive)
+    Sb = S // a
+    for i, (v, al) in rows.items():
+        assert tuple(v.shape) == (b, T, Sb, R // b)
+        cols = slice(i * Sb, (i + 1) * Sb)
+        got = host_blocks(v, al, base[cols], i * Sb, seed, p1, 4)
+        np.testing.assert_array_equal(got, want[:, cols], err_msg=f"shard block {i}")
+        plain = port._decide_slots(v, al, torch.from_numpy(base[cols]), 4, shard0=i * Sb)
+        np.testing.assert_array_equal(plain.numpy(), want[:, cols])
+    assert (want[:, 0] == ABSENT).all()
+    if p1 == 0.5:
+        assert {0, 1} <= set(np.unique(want))
+
+
+def test_blocked_wrapper_geometry_and_refusals():
+    """The wrapper reads B, the block strides and shard0 from the
+    exchange's views, and refuses what the kernel cannot take."""
+    kern = mesh_window.MeshWindowKernel()
+    buf = torch.zeros((4, 3 * 5 * 2 + 5 * 2), dtype=torch.uint8)
+    votes = buf[:, :30].view(torch.int8).view(4, 3, 5, 2)
+    alive = buf[:, 30:].view(torch.bool).view(4, 5, 2)
+    assert kern.blocks_of(votes, alive) == (4, 3, 5, 2, 40, 40)
+    assert kern.blocks_of(votes[:1], alive[:1]) == (1, 3, 5, 2, 0, 0)
+    kw = dict(seed=0, coin_p1=0.5, max_phases=4)
+    base = torch.zeros(5, dtype=torch.int32)
+    with pytest.raises(ValueError, match="alive must be bool"):
+        kern(votes, alive[:3], base, **kw)
+    with pytest.raises(ValueError, match="1..64 replicas"):
+        kern(torch.zeros((33, 3, 5, 2), dtype=torch.int8),
+             torch.ones((33, 5, 2), dtype=torch.bool), base, **kw)
+    with pytest.raises(ValueError, match="replica block contiguous"):
+        kern(votes.transpose(2, 3), alive.transpose(1, 2), base, **kw)
+    with pytest.raises(ValueError, match="shard0"):
+        kern(votes, alive, base, shard0=-1, **kw)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        kern(votes, alive, base, shard0=5, **kw)
+    assert kern.launches == 0 and kern._fn is None

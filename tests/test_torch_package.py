@@ -118,9 +118,13 @@ def test_unported_engine_lanes_are_refused_not_ignored():
     from rabia_tpu_torch.core.errors import ValidationError
     from rabia_tpu_torch.core.state_machine import InMemoryStateMachine
 
-    # multi-device meshes are refused; the latency governor is ported
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        MeshEngine(InMemoryStateMachine, 4, 3, device="cpu", mesh=object())
+    # the device KV lane on a mesh of more than one block is refused (the
+    # mesh itself is ported); the latency governor is ported
+    from rabia_tpu_torch.parallel import make_mesh
+
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 5b"):
+        MeshEngine(lambda: VectorShardedKV(4, capacity=64), 4, 3, device_store=True,
+                   mesh=make_mesh(["cpu"] * 2))
     # the transport engine's node kernel runs on the device it is given
     # (the plain versions on the CPU); zero_copy_inbox on the host
     # backend is ignored, as the reference ignores it

@@ -304,3 +304,19 @@ def test_round_kernels_match_plain_on_card(cuda, S, R):
     assert K.launches == before + 3
     for a, b in zip(list(got) + list(got2) + [d, ph], list(want) + list(want2) + [wd, wp]):
         assert torch.equal(a, b)
+
+
+def test_sharded_cluster_cpu():
+    """Phase 17 (c) at S=16 on a logical 4 x 1 CPU mesh (and 1024 x 9)."""
+    r = chip_smoke.sharded_cluster(torch.device("cpu"), S, R, T=16)
+    assert r["max_abs_err"] == 0 and r["blocks"] == 4 and r["coin_slots"] > 0
+
+
+@pytest.mark.cuda
+def test_mesh_on_card(cuda):
+    """Phase 17 (a)-(c) on the card: logical meshes of it against the
+    one-device kernel and plain, the 1x1 and 4x5 engines against the
+    one-device engine, ShardedClusterKernel against ClusterKernel."""
+    assert chip_smoke.mesh_windows_vs_one_device(cuda, 4096, 5)["max_abs_err"] == 0
+    assert chip_smoke.sharded_cluster(cuda, 4096, 5)["max_abs_err"] == 0
+    chip_smoke.mesh_engines(cuda)
