@@ -67,7 +67,9 @@ Phases (each raises on failure; nothing is caught):
    their launches count here (phase 16 (c) times them);
 5. the serving lane at full width: ``MeshEngine`` over 4096 shards x 5
    replicas — SET/GET on every shard, replica snapshots, decision logs,
-   minority and majority crashes, heal, checkpoint/restore;
+   minority and majority crashes, heal, checkpoint/restore; each window
+   one ``mw_window`` launch on the engine's pinned staging buffer, and a
+   wave under the profiler one launch a window and no copy;
 6. hold the kv-window kernel against its plain PyTorch version, bit for
    bit: random tables and ops over all four kinds, full shards, versions
    near the wrap, S in {17, 1000, 4096}, P in {1, 7, 64}, key and value
@@ -269,12 +271,16 @@ coalescing, routed-fleet, shard-group) run in the CPU tests
 Phase 16 (after phase 15) puts the transport engine's node kernel on the
 card and runs the command line: (b) the node kernel
 (``csrc/node_kernel.cu``: ``NodeKernel.node_cycle``, ``node_step`` and
-``start_slots``, one launch each) against ``node_cycle_plain`` bit for
-bit, every state field and outbox plane, for R in {1, 3, 4, 5, 7, 8,
-64}, S in {17, 1000, 4096}, K in {0, 1, 3, 8}, coin_p1 in {0, 0.5, 1},
-states over all four codes with slots and phases near 2^31-1, partial
-inboxes, adopted decisions, inactive and done shards, and a
-``node_cycle`` against ``start_slots`` and K ``node_step`` launches;
+``start_slots``, one launch each, reading the tick's planes from the
+kernel's pinned plane buffer and writing the mirrored state and the
+outbox into its pinned host image, both mapped) against
+``node_cycle_plain`` bit for bit, every state field and outbox plane and
+the fetched image's views, for R in {1, 3, 4, 5, 7, 8, 64}, S in {17,
+1000, 4096}, K in {0, 1, 3, 8}, coin_p1 in {0, 0.5, 1}, states over all
+four codes with slots and phases near 2^31-1, partial inboxes, adopted
+decisions, inactive and done shards, on host arrays and on the kernel's
+own plane views (the engine's way), and a ``node_cycle`` against
+``start_slots`` and K ``node_step`` launches;
 (c) the packer kernels and ``start_slot`` against their plain versions
 (R in {1, 5, 8}, ragged S, views one byte and one word into a buffer).
 Then, on its own counts: (a) ``python -m rabia_tpu_torch`` and ``python
@@ -282,15 +288,23 @@ Then, on its own counts: (a) ``python -m rabia_tpu_torch`` and ``python
 0, their lines printed; (d) the plane-conformance gate at config 3's
 shape (4096 shards x 5 replicas, 3 waves of 4 SETs a shard) with the
 transport engines on ``backend="jax"`` (their ``NodeKernel`` on the
-card, one ``node_cycle`` launch and one fetch a tick), with
-``zero_copy_inbox`` off and on, each beside a ``MeshEngine``: decisions,
-futures and replica state equal; it prints decisions/s and p50/p99
-submit-to-settle beside phase 10 (a)'s host kernel, ticks and launches,
-bytes up and down, and a tick's upload, launch and fetch spans by CUDA
-events (each holds host code too, so none is a device time). After the timings of phase 4, the packers (T=32768) and
-``start_slot`` (S=4096 R=5) are timed kernel and plain by graph replay
-beside an empty kernel and their bytes bounds, and one engine tick's
-``node_cycle`` at 4096 x 5 with K=3.
+card, one ``node_cycle`` launch on mapped memory and one event a tick),
+with ``zero_copy_inbox`` off and on, each beside a ``MeshEngine``:
+decisions, futures and replica state equal, one launch a tick, and
+under the profiler (around the transport waves) one kernel launch a tick
+and no copy or pinned allocation, and a tick's bytes over the link its
+planes and host image; it prints decisions/s and p50/p99 submit-to-settle beside phase
+10 (a)'s host kernel, ticks and launches, bytes, and a tick's upload,
+launch and fetch spans by CUDA events (each holds host code too, so none
+is a device time). After the timings of phase 4, the packers (T=32768)
+and ``start_slot`` (S=4096 R=5) are timed kernel and plain by graph
+replay beside an empty kernel and their bytes bounds; one engine tick's
+``node_cycle`` at 4096 x 5 with K=3 and the engine's window
+(``mw_window`` at T=16 on its pinned staging buffer) each alone by graph
+replay beside an empty kernel at its grid, and each round trip by the
+host clock around a chain (one launch and one event, no copy under the
+profiler), beside their bounds over the link (pinned copies of their
+bytes) and in device memory.
 
 Phase 17 (after phase 16) runs the device mesh on the card, which serves
 as every device of a logical mesh and as the device of one rank and of
@@ -336,6 +350,7 @@ from __future__ import annotations
 
 import asyncio
 import concurrent.futures
+import contextlib
 import dataclasses
 import gc
 import json
@@ -394,7 +409,7 @@ from rabia_tpu_torch.kernel import (
     node_kernel,
     packed_window,
 )
-from rabia_tpu_torch.kernel.phase_driver import device_coin
+from rabia_tpu_torch.kernel.phase_driver import coin_threshold, device_coin
 from rabia_tpu_torch.native import build as native_build
 from rabia_tpu_torch.net import InMemoryHub, TcpNetwork
 from rabia_tpu_torch.parallel import MeshArray, ShardedClusterKernel, make_mesh
@@ -1359,6 +1374,7 @@ def _device_busy(fn, reps: int, kernel: str = "") -> dict:
 def serving_lane(device, S: int, R: int, window: int = 16) -> dict:
     """MeshEngine end to end; returns ops/s and cycle counts."""
     eng = MeshEngine(InMemoryStateMachine, n_shards=S, n_replicas=R, window=window, device=device)
+    mw0 = mesh_window.MESH_WINDOW.launches
     t0 = time.perf_counter()
     sets = [eng.submit([f"SET k{s} v{s}"], s) for s in range(S)]
     gets = [eng.submit([f"GET k{s}"], s) for s in range(S)]
@@ -1376,6 +1392,28 @@ def serving_lane(device, S: int, R: int, window: int = 16) -> dict:
         _check([c.data for c in log[0][1].commands] == [f"SET k{s} v{s}".encode()]
                and log[0][0] == V1 and log[1][0] == V1, f"decision log of shard {s}")
     cycles_first = eng.cycles
+    traced_s = None  # the profiled wave's seconds, on a card
+    if torch.device(device).type == "cuda":
+        # the engine's windows: one mw_window launch each on its pinned
+        # staging buffer, and no copy (a further wave under the profiler)
+        _check(mesh_window.MESH_WINDOW.launches - mw0 == eng._ring.windows > 0,
+               f"{mesh_window.MESH_WINDOW.launches - mw0} mw_window launches for "
+               f"{eng._ring.windows} windows")
+        w0 = eng._ring.windows
+
+        def wave():
+            futs = [eng.submit([f"SET t{s} 1"], s) for s in range(S)]
+            eng.flush()
+            _check(all(f.result() == [b"OK"] for f in futs), "the traced wave")
+
+        traced_s = time.perf_counter()
+        with _trace("mesh_window") as trace:
+            wave()
+        traced_s = time.perf_counter() - traced_s
+        _check(trace["launches"] == eng._ring.windows - w0 and trace["copies"] == 0
+               and trace["host_allocs"] == 0,
+               f"a window is one mw_window launch and no copy: {trace} over "
+               f"{eng._ring.windows - w0} windows")
 
     # minority crash: commits continue
     eng.crash_replica(R - 1)
@@ -1409,6 +1447,9 @@ def serving_lane(device, S: int, R: int, window: int = 16) -> dict:
 
     tput = fresh.throughput(batches_per_shard=4)
     return {
+        "windows": eng._ring.windows + fresh._ring.windows,
+        "mapped_bytes": eng._ring.mapped_bytes + fresh._ring.mapped_bytes,
+        "traced_wave_s": traced_s,
         "first_flush_s": dt,
         "first_flush_ops_per_s": 2 * S / dt,
         "first_flush_cycles": cycles_first,
@@ -1466,6 +1507,7 @@ def device_kv_lane(device, S: int, R: int, window: int = 16, P: int = P_FULL, se
         )
 
     dev, host = make(True), make(False)
+    mw0 = mesh_window.MESH_WINDOW.launches
     pairs = []  # (device future, host future) per block
 
     def both(blocks) -> tuple[float, float]:
@@ -1573,7 +1615,8 @@ def device_kv_lane(device, S: int, R: int, window: int = 16, P: int = P_FULL, se
     for eng in (dev, host):
         for sm in eng.sms:
             _check(_snapshot_sans_clock(sm) == want, "replica store differs from the host lane's")
-    stats.update(blocks=len(pairs), entries=len(host.sms[0].store), cycles=dev.cycles)
+    stats.update(blocks=len(pairs), entries=len(host.sms[0].store), cycles=dev.cycles,
+                 mw_windows=_check_window_launches((dev, host), mw0, "phase 7"))
     return stats, dev
 
 
@@ -1666,6 +1709,7 @@ def device_read_lane(device, S: int, R: int, window: int = 16, P: int = P_FULL, 
         )
 
     lane, slots, host = make(True, True), make(True), make(False)
+    mw0 = mesh_window.MESH_WINDOW.launches
 
     def wave(ops) -> object:
         return build_block(shards, [[op] for op in ops])
@@ -1729,6 +1773,7 @@ def device_read_lane(device, S: int, R: int, window: int = 16, P: int = P_FULL, 
     want = _snapshot_sans_clock(host.sms[0])
     for eng in (lane, slots):
         _check(_snapshot_sans_clock(eng.sms[0]) == want, "a store differs from the host lane's")
+    stats["mw_windows"] = _check_window_launches((lane, slots, host), mw0, "phase 8")
     return stats, lane
 
 
@@ -4084,13 +4129,17 @@ def random_node_case(gen, S: int, R: int, device):
 
 def node_kernel_vs_plain(device, Rs=(1, 3, 4, 5, 7, 8, 64), Ss=(17, 1000, 4096),
                          Ks=(0, 1, 3, 8), seed: int = 31) -> tuple[int, int]:
-    """The node kernel (``NodeKernel.node_cycle`` on the card, one launch)
-    against ``node_cycle_plain`` on the same inputs, every state field and
-    every outbox plane (the launch leaves the state it was given as it
-    was, or the plain version would differ); and against ``start_slots``
-    and K ``node_step``s on the card (K + 1 launches, each donating its
-    state, the engine's case). Returns (max_abs_err, cases)."""
-    from rabia_tpu_torch.kernel.phase_driver import NodeKernel
+    """The node kernel (``NodeKernel.node_cycle`` on the card, one launch
+    that reads its planes from pinned host memory and writes the host
+    image there) against ``node_cycle_plain`` on the same inputs (on the
+    card), every state field and every outbox plane (the launch leaves
+    the state it was given as it was, or the plain version would differ),
+    and the fetch's views of the host image against the plain state and
+    outbox; against the same tick on the kernel's own plane views (the
+    engine's way, donating the state); and against ``start_slots`` and K
+    ``node_step``s on the card (K + 1 launches, each donating its state).
+    Returns (max_abs_err, cases)."""
+    from rabia_tpu_torch.kernel.phase_driver import NodeKernel, NodeState
 
     gen = torch.Generator(device=device).manual_seed(seed)
     worst, cases = 0, 0
@@ -4102,26 +4151,46 @@ def node_kernel_vs_plain(device, Rs=(1, 3, 4, 5, 7, 8, 64), Ss=(17, 1000, 4096),
                 me = cases % R
                 kw = dict(coin_p1=p1, seed=seed + cases, device=device)
                 st, ins = random_node_case(gen, S, R, device)
+                host = [x.cpu() for x in ins]
                 nk = NodeKernel(S, R, me, **kw)
-                a, oa = nk.node_cycle(st, *ins, K)
+                a, oa = nk.node_cycle(st, *host, K)
                 b, ob = nk.node_cycle_plain(st, *ins, K)
                 err = max(_state_err(a, b), _state_err(oa, ob) if K else 0)
+                hst, hob = nk.fetch(a, oa if K else None)
+                for got, want in zip(hst, b):
+                    if got is not None:  # the ledgers stay on the card
+                        err = max(err, _max_err(torch.from_numpy(got).to(device), want))
+                if K:
+                    err = max(err, *(_max_err(torch.from_numpy(g).to(device), w)
+                                     for g, w in zip(hob, ob)))
+                # the engine's way: the planes written into the kernel's
+                # views, the state donated (a copy of st in a tick buffer)
+                eng = NodeKernel(S, R, me, **kw)
+                mine = eng.init_state()
+                for t, x in zip(mine, st):
+                    t.copy_(x)
+                for view, x in zip(eng.planes, host):
+                    view[...] = x.numpy()
+                e, oe = eng.node_cycle(NodeState(*mine), *eng.planes, K, donate=True)
+                err = max(err, _state_err(e, b), _state_err(oe, ob) if K else 0)
                 # start_slots, then K node_steps (ABSENT inboxes after the first)
                 chain = NodeKernel(S, R, me, **kw)
-                c = chain.start_slots(st, *ins[:3], donate=True)
-                absent = torch.full((S, R), ABSENT, dtype=torch.int8, device=device)
-                no_dec = torch.full((S,), ABSENT, dtype=torch.int8, device=device)
+                c = chain.start_slots(st, *host[:3], donate=True)
+                absent = np.full((S, R), ABSENT, np.int8)
+                no_dec = np.full((S,), ABSENT, np.int8)
                 steps = []
                 for k in range(K):
                     first = k == 0
-                    c, o = chain.node_step(c, ins[3] if first else absent,
-                                           ins[4] if first else absent, ins[5] if first else no_dec,
+                    c, o = chain.node_step(c, host[3] if first else absent,
+                                           host[4] if first else absent, host[5] if first else no_dec,
                                            donate=True)
                     steps.append([t.clone() for t in o])  # the next step overwrites o
                 err = max(err, _state_err(a, c))
                 if K:
                     err = max(err, _state_err(oa, [torch.stack(x) for x in zip(*steps)]))
                 _check(err == 0, f"node kernel != plain at R={R} S={S} K={K} p1={p1}")
+                _check(nk.fetch_bytes == 0 and eng.fetch_bytes == 0,
+                       "the node kernel's fetch copied bytes")
                 worst = max(worst, err)
                 cases += 1
     return worst, cases
@@ -4245,19 +4314,32 @@ def device_backend_gate(device, S: int, R: int, waves: int) -> dict:
     one ``node_cycle`` launch and one fetch a tick), once with
     ``zero_copy_inbox`` off and once on, each beside a ``MeshEngine`` on
     the card: decisions, futures and replica state equal (the gate
-    raises otherwise). Returns each leg's figures: decisions/s,
-    submit-to-settle p50/p99, ticks, launches, bytes and the tick's
-    upload, launch and fetch spans by CUDA events (host code included)."""
+    raises otherwise). On a card a tick is one launch on mapped pinned
+    memory on both legs: under the profiler (CUDA activity, held around
+    the transport plane's waves, where the ticks are the only device
+    work) the runtime issues one kernel launch a tick and no copy or
+    pinned allocation, and the bytes over the link a tick are its inbox
+    and decision planes, its open planes when it opens a slot, and its
+    host image. Returns each leg's figures:
+    decisions/s, submit-to-settle p50/p99, ticks, launches, bytes and the
+    tick's upload (the open planes written), launch and fetch spans by
+    CUDA events (host code included)."""
+    from rabia_tpu_torch.core.config import KernelConfig
     from rabia_tpu_torch.kernel import node_kernel
 
+    K = KernelConfig().device_substeps
+    per_tick = 2 * S * R + S + 14 * S + 10 * K * S  # inboxes, decisions, image
+    opens = 6 * S  # mask, slots, initial votes
     legs = {}
     for zc in (False, True):
         before = dict(node_kernel.NODE_CYCLE.counts)
+        trace: dict = {}
         t0 = time.perf_counter()
         out = asyncio.run(run_schedule_on_both_planes(
             _set_waves(S, waves), S, R, tag=f"device backend S={S} R={R} zc={zc}",
             device=device, kernel={"backend": "jax", "zero_copy_inbox": zc},
-            engine_device=device, time_device_ticks=True))
+            engine_device=device, time_device_ticks=True,
+            around_transport=lambda engines: _tick_trace(engines, trace)))
         gate_s = time.perf_counter() - t0
         _check(out["decided_slots"] == S * waves,
                "the device backend decided a slot per batch")
@@ -4265,6 +4347,14 @@ def device_backend_gate(device, S: int, R: int, waves: int) -> dict:
         dt = out["device_ticks"]
         _check(launches["node_cycle"] == dt["ticks"] > 0,
                f"one node_cycle launch a tick: {launches} over {dt['ticks']} ticks")
+        extra = dt["mapped_bytes"] - dt["ticks"] * per_tick
+        _check(trace["ticks"] > 0 and trace["launches"] == trace["ticks"]
+               and trace["copies"] == 0 and trace["host_allocs"] == 0,
+               f"under the profiler a tick is one launch, no copy and no pinned allocation: "
+               f"{trace}")
+        _check(0 <= extra <= dt["ticks"] * opens and extra % opens == 0,
+               f"a tick's mapped bytes are not its planes and image: {dt['mapped_bytes']} "
+               f"over {dt['ticks']} ticks")
         p50, p99 = settle_quantiles(out["settle_s"])
         wall = out["transport_wall_s"]
         timed = max(1, dt["timed_ticks"])
@@ -4274,8 +4364,9 @@ def device_backend_gate(device, S: int, R: int, waves: int) -> dict:
             "settle_p50_s": p50, "settle_p99_s": p99,
             "ticks": dt["ticks"], "launches": launches,
             "h2d_bytes": dt["h2d_bytes"], "d2h_bytes": dt["d2h_bytes"],
-            "h2d_bytes_per_tick": dt["h2d_bytes"] / max(1, dt["ticks"]),
-            "d2h_bytes_per_tick": dt["d2h_bytes"] / max(1, dt["ticks"]),
+            "mapped_bytes": dt["mapped_bytes"], "opening_ticks": extra // opens,
+            "trace": trace,
+            "mapped_bytes_per_tick": dt["mapped_bytes"] / max(1, dt["ticks"]),
             "upload_span_ms_per_tick": dt["upload_span_ms"] / timed,
             "launch_span_ms_per_tick": dt["launch_span_ms"] / timed,
             "fetch_span_ms_per_tick": dt["fetch_span_ms"] / timed,
@@ -4285,29 +4376,217 @@ def device_backend_gate(device, S: int, R: int, waves: int) -> dict:
     return legs
 
 
-def node_cycle_times(device, name: str, S: int, R: int, K: int, seed: int = 33) -> dict:
-    """One engine tick's ``node_cycle`` at S x R with K steps: the kernel
-    (in place, the engine's case) by CUDA graph replay and
-    ``node_cycle_plain`` by CUDA events over a chain of calls, beside the
-    bytes a tick must move."""
-    from rabia_tpu_torch.kernel.phase_driver import NodeKernel
+def _pinned_copy_ms(device, nbytes: int, up: bool, reps: int = 100) -> float:
+    """A pinned copy of ``nbytes`` over the link (to the card when ``up``),
+    by CUDA events over a chain of copies: the link's time for that many
+    bytes, each copy's start included."""
+    host = torch.empty(max(nbytes, 1), dtype=torch.uint8, pin_memory=True)
+    card = torch.empty(max(nbytes, 1), dtype=torch.uint8, device=device)
+    src, dst = (host, card) if up else (card, host)
+    return _time_ms(lambda i=0: dst.copy_(src, non_blocking=True), reps)
 
-    gen = torch.Generator(device=device).manual_seed(seed)
+
+def _host_ms(fn, reps: int) -> float:
+    """Host clock around a chain of ``reps`` calls that each end readable
+    on the host, then a synchronise: one call's round trip."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(reps):
+        fn(i)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+@contextlib.contextmanager
+def _trace(kernel: str):
+    """The profiler (device activity and the CUDA runtime calls) around a
+    block. The dict it yields is filled on exit with the kernel launches
+    the block issued (``cudaLaunchKernel`` calls), the device records of
+    the kernel whose name holds ``kernel`` (a short session may lose some),
+    the copies (device Memcpy records and ``cudaMemcpy*`` calls) and the
+    pinned allocations (``cudaHostAlloc`` and ``cudaMallocHost`` calls).
+    Raises when the trace holds no record: a block that launches anything
+    on a card leaves some, so an empty trace is a profiler that saw
+    nothing, and its zero copies would prove nothing."""
+    from torch.profiler import ProfilerActivity, profile
+
+    counts: dict = {}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        yield counts
+        torch.cuda.synchronize()
+    launches = kernels = copies = allocs = records = 0
+    for e in prof.key_averages():
+        records += e.count
+        if e.key.startswith("cudaLaunchKernel"):
+            launches += e.count
+        elif kernel in e.key:
+            kernels += e.count
+        if e.key.startswith(("Memcpy", "cudaMemcpy")):
+            copies += e.count
+        if e.key.startswith(("cudaHostAlloc", "cudaMallocHost")):
+            allocs += e.count
+    _check(records > 0, "the profiler recorded nothing on the card")
+    counts.update(launches=launches, kernels=kernels, copies=copies, host_allocs=allocs)
+
+
+def _traced(fn, reps: int, kernel: str) -> dict:
+    """``reps`` calls of ``fn`` (after one to warm) under the profiler:
+    what :func:`_trace` counts of them."""
+    fn()
+    with _trace(kernel) as counts:
+        for i in range(reps):
+            fn(i)
+    return {"calls": reps, **counts}
+
+
+@contextlib.contextmanager
+def _tick_trace(engines, out: dict):
+    """The device-backend engines' ticks under :func:`_trace`: ``out``
+    gets what it counts and the ticks the engines took meanwhile."""
+    ticks = sum(e.device_tick_stats["ticks"] for e in engines)
+    with _trace("node_cycle") as counts:
+        yield
+    out.update(counts, ticks=sum(e.device_tick_stats["ticks"] for e in engines) - ticks)
+
+
+def _check_window_launches(engines, mw0: int, what: str) -> int:
+    """On a card, the one-device engines' windows were one ``mw_window``
+    launch each on their staging rings (launches since ``mw0`` equal the
+    windows the rings dispatched); returns those windows."""
+    windows = sum(e._ring.windows for e in engines)
+    if any(e.device.type == "cuda" for e in engines):
+        _check(mesh_window.MESH_WINDOW.launches - mw0 == windows,
+               f"{what}: {mesh_window.MESH_WINDOW.launches - mw0} mw_window launches for "
+               f"{windows} windows on the engines' staging rings")
+    return windows
+
+
+def _link_bound(device, name: str, read: int, written: int, hbm: int) -> dict:
+    """The least time for a call that reads ``read`` bytes and writes
+    ``written`` bytes over the link and moves ``hbm`` bytes in device
+    memory: the larger of the link's time and the device memory's. The
+    link's rate each way is measured by pinned copies, of the call's size
+    and of 64 MiB (a copy of a few hundred KB pays the copy engine's start
+    too, so the faster rate of the two is the link's); the link is full
+    duplex, so its time is the longer of the two directions."""
+    big = 64 << 20
+    up, down = _pinned_copy_ms(device, read, True), _pinned_copy_ms(device, written, False)
+    big_up, big_down = _pinned_copy_ms(device, big, True, 10), _pinned_copy_ms(device, big, False, 10)
+    rate_up = max(read / up, big / big_up) / 1e6  # GB/s
+    rate_down = max(written / down, big / big_down) / 1e6
+    link_ms = max(read / rate_up / 1e6, written / rate_down / 1e6)
+    hbm_ms = hbm / _card_rate_bytes_per_s(name) * 1e3
+    return {"link_read_bytes": read, "link_written_bytes": written, "hbm_bytes": hbm,
+            "pinned_up_ms": up, "pinned_down_ms": down, "link_GBps_up": rate_up,
+            "link_GBps_down": rate_down, "link_bound_ms": link_ms, "hbm_bound_ms": hbm_ms,
+            "bound_ms": max(link_ms, hbm_ms)}
+
+
+def node_tick_times(device, name: str, S: int, R: int, K: int, seed: int = 33,
+                    reps: int = 200) -> dict:
+    """One engine tick's ``node_cycle`` at S x R with K steps, as the
+    engine's tick runs it (its planes in the kernel's pinned plane buffer,
+    the state in place, the results into the pinned host image): the
+    kernel alone by CUDA graph replay beside an empty kernel at its grid,
+    ``node_cycle_plain`` by CUDA events over a chain of calls (in turns
+    kernel, empty, plain, plain, empty, kernel); the round trip (planes in
+    host memory -> state and outbox readable on the host: the launch, its
+    event, the image's views) by the host clock around a chain of ticks;
+    the ticks under the profiler (node_cycle launches and copies); the
+    bytes over the link and in device memory and both bounds."""
+    from rabia_tpu_torch.kernel.phase_driver import NodeKernel, NodeState
+
+    gen = torch.Generator(device="cpu").manual_seed(seed)
     nk = NodeKernel(S, R, 0, seed=seed, device=device)
-    st, ins = random_node_case(gen, S, R, device)
-    st, _ = nk.node_cycle(st, *ins, K)  # into a tick buffer of K steps: later calls run in place
-    kern = lambda i=0: nk.node_cycle(st, *ins, K, donate=True)  # noqa: E731
-    plain = lambda i=0: nk.node_cycle_plain(st, *ins, K)  # noqa: E731
-    # the plain version uploads its constants (host scalars) as it runs,
-    # which a CUDA graph cannot capture: a chain of calls between CUDA
-    # events times it
-    turns = [_graph_ms(kern, 100), _time_ms(plain, 20), _time_ms(plain, 20),
-             _graph_ms(kern, 100)]
+    st, ins = random_node_case(gen, S, R, "cpu")
+    for view, x in zip(nk.planes, ins):
+        view[...] = x.numpy()
+    # into a tick buffer of K steps: later ticks run in place
+    st, ob = nk.node_cycle(NodeState(*(t.to(device) for t in st)), *nk.planes, K)
+    buf, layout = nk._tick
+    image, image_layout, _ = nk._image
+    plain_st = NodeState(*(t.clone() for t in st))
+    dev_ins = [x.to(device) for x in ins]
+    kw = dict(me=nk.me, quorum=nk.quorum, f1=nk.f1, seed=nk.seed,
+              threshold=coin_threshold(nk.coin_p1))
+    kern = lambda i=0: node_kernel.NODE_CYCLE(  # noqa: E731
+        "node_cycle", list(st), list(st), list(ob), nk._plane_buf, nk._plane_layout, [True] * 6,
+        image, image_layout, K, **kw)
+    empty = lambda i=0: node_kernel.NODE_CYCLE.empty(S, R, K, device)  # noqa: E731
+    plain = lambda i=0: nk.node_cycle_plain(plain_st, *dev_ins, K)  # noqa: E731
+    turns = [_graph_ms(kern, reps), _graph_ms(empty, reps), _time_ms(plain, 20),
+             _time_ms(plain, 20), _graph_ms(empty, reps), _graph_ms(kern, reps)]
+    cur = [st, ob]
+
+    def tick(i=0):
+        cur[0], cur[1] = nk.node_cycle(cur[0], *nk.planes, K, donate=True)
+        return nk.fetch_start(cur[0], cur[1]).result()
+
+    mapped0, fetched0 = nk.mapped_bytes, nk.fetch_bytes
+    rt = [_host_ms(tick, reps), _host_ms(tick, reps)]
+    ticks = 2 * (reps + 1)
+    per_tick = (nk.mapped_bytes - mapped0) / ticks
+    trace = _traced(tick, 20, "node_cycle")
+    read = sum(nk._plane_layout.size(i) for i in range(6))
+    written = S * (4 + 4 + 6) + K * S * 10
+    _check(per_tick == read + written,
+           f"a tick's mapped bytes {per_tick} != planes {read} + image {written}")
+    _check(nk.fetch_bytes == fetched0, "the ticks' fetches copied bytes")
+    _check(trace["launches"] == trace["calls"] and trace["copies"] == 0
+           and trace["host_allocs"] == 0, f"a tick is one node_cycle launch and no copy: {trace}")
     state = sum(t.numel() * t.element_size() for t in st)
-    nbytes = 2 * state + sum(t.numel() * t.element_size() for t in ins) + K * S * 10
-    return {"ms": min(turns[0], turns[3]), "plain_ms": min(turns[1], turns[2]), "turns_ms": turns,
-            "bytes": nbytes, "bound_ms": nbytes / _card_rate_bytes_per_s(name) * 1e3,
+    hbm = 2 * state + K * S * 10  # the state read and written, the outbox written
+    return {"ms": min(turns[0], turns[5]), "empty_ms": min(turns[1], turns[4]),
+            "plain_ms": min(turns[2], turns[3]), "turns_ms": turns,
+            "round_trip_ms": min(rt), "round_trip_turns_ms": rt,
+            "mapped_bytes_per_tick": per_tick, "trace": trace,
+            **_link_bound(device, name, read, written, hbm),
+            "old_bytes": 2 * state + sum(x.numel() * x.element_size() for x in ins) + K * S * 10,
             "plain_kernels": _device_busy(plain, 5)["kernels"]}
+
+
+def window_times(device, name: str, S: int, R: int, T: int, seed: int = 34,
+                 reps: int = 200) -> dict:
+    """The engine's window as it runs it: ``mw_window`` on a pinned
+    staging buffer (votes over all four codes, a crash mask, bases near
+    2^31-1), the kernel alone by CUDA graph replay beside an empty kernel
+    at its grid, in turns; the round trip (votes staged -> decided
+    readable: the launch, its event, the view) by the host clock around a
+    chain of windows; the windows under the profiler (mw_window launches
+    and copies); the bytes over the link and both bounds. The decisions
+    are held against the plain loop."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    votes, alive, base = mesh_case(gen, S, R, T, "cpu")
+    mk = MeshPhaseKernel(S, R, seed=seed, device=device)
+    stage = mesh_window.WindowStage(S, R, T, pinned=True)
+    stage.votes[...], stage.alive[...], stage.base[...] = votes.numpy(), alive.numpy(), base.numpy()
+    mk.decide_staged(stage, T, 4)
+    stage.wait()
+    want = mk.decide_slots_plain(votes.to(device), alive.to(device), base.to(device), 4)
+    err = _max_err(torch.from_numpy(stage.decided[:T].copy()).to(device), want)
+    _check(err == 0, "the mapped mw_window != plain")
+    kern = lambda i=0: mk.decide_staged(stage, T, 4)  # noqa: E731
+    empty = lambda i=0: mesh_window.MESH_WINDOW.empty(T, S, device)  # noqa: E731
+
+    def window(i=0):
+        mk.decide_staged(stage, T, 4)
+        stage.wait()
+        return stage.decided[:T]
+
+    turns = [_graph_ms(kern, reps), _graph_ms(empty, reps), _graph_ms(empty, reps),
+             _graph_ms(kern, reps)]
+    rt = [_host_ms(window, reps), _host_ms(window, reps)]
+    trace = _traced(window, 20, "mesh_window")
+    _check(trace["launches"] == trace["calls"] and trace["copies"] == 0
+           and trace["host_allocs"] == 0, f"a window is one mw_window launch and no copy: {trace}")
+    read = T * S * R + S * R + 4 * S
+    written = T * S
+    return {"ms": min(turns[0], turns[3]), "empty_ms": min(turns[1], turns[2]),
+            "turns_ms": turns, "round_trip_ms": min(rt), "round_trip_turns_ms": rt,
+            "trace": trace, "max_abs_err": err,
+            **_link_bound(device, name, read, written, read + written)}
 
 
 # -- phase 17 ----------------------------------------------------------------
@@ -4532,6 +4811,7 @@ def _card_rate_bytes_per_s(name: str) -> float:
 
 
 def main() -> int:
+    t_main = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
         return 2
@@ -4945,9 +5225,11 @@ def main() -> int:
         print(f"phase 16 (a) {line}")
     print(f"phase 16 (a) python -m rabia_tpu_torch and --selftest as processes on the card: "
           f"exit 0 ({t16a:.2f} s)")
-    print(f"phase 16 (b) node kernel (NodeKernel.node_cycle, one launch of node_kernel.cu) vs "
-          f"node_cycle_plain, every state field and outbox plane, and vs start_slots + K "
-          f"node_steps on the card: {cases16b} cases (R in 1,3,4,5,7,8,64; S in 17,1000,4096; K "
+    print(f"phase 16 (b) node kernel (NodeKernel.node_cycle, one launch of node_kernel.cu on "
+          f"its pinned plane buffer and host image, mapped) vs node_cycle_plain on the card, "
+          f"every state field and outbox plane and the fetched image's views, on host arrays "
+          f"and on the kernel's own plane views, and vs start_slots + K node_steps: {cases16b} "
+          f"cases (R in 1,3,4,5,7,8,64; S in 17,1000,4096; K "
           f"in 0,1,3,8; coin_p1 0/0.5/1; slots and phases near 2^31-1; all four codes, partial "
           f"inboxes, adopted decisions, inactive and done shards): max_abs_err {err16b} "
           f"({t16b:.2f} s)")
@@ -4964,9 +5246,13 @@ def main() -> int:
               f"{r['settle_p50_s']:.4f} s p99 {r['settle_p99_s']:.4f} s (phase 10 (a)'s host "
               f"kernel in this run: {host10['transport_decisions_per_s']:.1f} decisions/s, p50 "
               f"{host10['settle_p50_s']:.4f} s p99 {host10['settle_p99_s']:.4f} s); "
-              f"{r['ticks']} ticks, {r['launches']['node_cycle']} node_cycle launches; "
-              f"H2D {r['h2d_bytes']} bytes ({r['h2d_bytes_per_tick']:.0f} a tick), D2H "
-              f"{r['d2h_bytes']} bytes ({r['d2h_bytes_per_tick']:.0f} a tick); a tick's spans by "
+              f"{r['ticks']} ticks, {r['launches']['node_cycle']} node_cycle launches (one a "
+              f"tick); under the profiler (CUDA activity) over {r['trace']['ticks']} ticks: "
+              f"{r['trace']['launches']} kernel launches, {r['trace']['copies']} copies, "
+              f"{r['trace']['host_allocs']} pinned allocations; over the "
+              f"link {r['mapped_bytes']} bytes ({r['mapped_bytes_per_tick']:.0f} a tick: the "
+              f"planes and the host image, {r['opening_ticks']} ticks with open planes); a "
+              f"tick's spans by "
               f"CUDA events, host code included: upload {r['upload_span_ms_per_tick']:.4f} ms, "
               f"launch {r['launch_span_ms_per_tick']:.4f} ms, fetch "
               f"{r['fetch_span_ms_per_tick']:.4f} ms; card: {smi}; host CPU: {cpu}; "
@@ -5064,7 +5350,11 @@ def main() -> int:
     # S_FULL x R_FULL, kernels and plain versions by graph replay; and
     # one engine tick's node_cycle at S_FULL x R_FULL, 3 steps
     ptimes = packer_times(device, name, votes, alive, k)
-    nc_times = node_cycle_times(device, name, S_FULL, R_FULL, 3)
+    t_floor = time.perf_counter()
+    nc_times = node_tick_times(device, name, S_FULL, R_FULL, 3)
+    t_tick = time.perf_counter() - t_floor
+    win_times = window_times(device, name, S_FULL, R_FULL, 16)
+    t_window = time.perf_counter() - t_floor - t_tick
     deep_bytes = 4 * (R_FULL * T_PACKED * SW + R_FULL * SW + T_PACKED * SW)
     deep_bound_ms = max(deep_bytes / _card_rate_bytes_per_s(name) * 1e3,
                         packed_ops(R_FULL, T_PACKED, SW) / INT32_OPS_PER_S * 1e3)
@@ -5421,13 +5711,40 @@ def main() -> int:
               f"{r['bound_ms'] / r['ms']:.1%}; plain {r['plain_kernels']} kernels)"
               for pname, r in ptimes.items() if pname != "empty_kernel_ms")
           + f"; {json.dumps(ptimes)}")
-    print(f"phase 16 (b) one engine tick's node_cycle at S={S_FULL} R={R_FULL} K=3, in place "
-          f"(device ms, the kernel by graph replay, the plain version by CUDA events over a "
-          f"chain of calls, in turns kernel, plain, plain, kernel): "
-          f"{nc_times['ms']:.4f} ms, plain {nc_times['plain_ms']:.4f} ms "
-          f"({nc_times['plain_kernels']} kernels); bound {nc_times['bound_ms']:.5f} ms "
-          f"({nc_times['bytes']} bytes, {nc_times['bound_ms'] / nc_times['ms']:.1%}); "
+    print(f"phase 16 (b) one engine tick's node_cycle at S={S_FULL} R={R_FULL} K=3 as the "
+          f"engine runs it (planes in the kernel's pinned buffer, state in place, results into "
+          f"the pinned host image, both mapped), in turns (kernel, empty, plain, plain, empty, "
+          f"kernel; the kernel and an empty kernel at its grid by graph replay, the plain "
+          f"version by CUDA events over a chain): {' / '.join(f'{x:.4f}' for x in nc_times['turns_ms'])} "
+          f"ms; kernel {nc_times['ms']:.4f} ms over the empty kernel's {nc_times['empty_ms']:.4f} "
+          f"ms, plain {nc_times['plain_ms']:.4f} ms ({nc_times['plain_kernels']} kernels); "
+          f"round trip (planes in host memory -> state and outbox readable: one launch, one "
+          f"event) {nc_times['round_trip_ms']:.4f} ms by the host clock over a chain; "
+          f"{nc_times['mapped_bytes_per_tick']:.0f} bytes over the link a tick "
+          f"({nc_times['link_read_bytes']} read, {nc_times['link_written_bytes']} written), "
+          f"{nc_times['hbm_bytes']} in device memory; bound {nc_times['bound_ms']:.5f} ms "
+          f"(the link {nc_times['link_bound_ms']:.5f} ms at {nc_times['link_GBps_up']:.2f} GB/s "
+          f"up and {nc_times['link_GBps_down']:.2f} GB/s down, pinned copies; copies of the "
+          f"tick's sizes alone {nc_times['pinned_up_ms']:.4f} / {nc_times['pinned_down_ms']:.4f} ms; "
+          f"device memory {nc_times['hbm_bound_ms']:.5f} ms; the copy design's bytes bound "
+          f"{nc_times['old_bytes'] / rate * 1e3:.5f} ms), {nc_times['bound_ms'] / nc_times['ms']:.1%}"
+          f"; under the profiler {nc_times['trace']}; card: {smi}; {t_tick:.2f} s; "
           f"{json.dumps(nc_times)}")
+    print(f"phase 16 (b) the engine's window, mw_window at S={S_FULL} R={R_FULL} T=16 on a "
+          f"pinned staging buffer (mapped: votes, alive rows and bases read, decisions written "
+          f"in place), in turns (kernel, empty, empty, kernel; graph replay): "
+          f"{' / '.join(f'{x:.4f}' for x in win_times['turns_ms'])} ms; round trip (votes "
+          f"staged -> decided readable: one launch, one event) {win_times['round_trip_ms']:.4f} "
+          f"ms by the host clock over a chain; {win_times['link_read_bytes']} bytes read and "
+          f"{win_times['link_written_bytes']} written over the link (a block of 16 entries x 16 "
+          f"shards reads each byte once); bound {win_times['bound_ms']:.5f} ms (the link "
+          f"{win_times['link_bound_ms']:.5f} ms at {win_times['link_GBps_up']:.2f} GB/s up and "
+          f"{win_times['link_GBps_down']:.2f} GB/s down, pinned copies; copies of the window's "
+          f"sizes alone {win_times['pinned_up_ms']:.4f} / {win_times['pinned_down_ms']:.4f} ms; "
+          f"device memory "
+          f"{win_times['hbm_bound_ms']:.5f} ms), {win_times['bound_ms'] / win_times['ms']:.1%}; "
+          f"max_abs_err {win_times['max_abs_err']}; under the profiler {win_times['trace']}; "
+          f"card: {smi}; {t_window:.2f} s; {json.dumps(win_times)}")
     print(f"phase 5 serving lane S={S_FULL} R={R_FULL} window=16: {json.dumps(lane)}; "
           f"slot_window on the device {window_ms:.4f} ms, {device_share:.2%} of the first submit+flush")
     print(f"phase 7 device KV lane S={S_FULL} R={R_FULL} window=16 P={P_FULL}: "
@@ -5603,11 +5920,16 @@ def main() -> int:
         # the main path's, phases 10 to 15
         "launches": (mesh_launches + p10_mesh + p11_mesh + p12["mesh_window"] + p13["mesh_window"]
                      + p14["mesh_window"] + p15["mesh_window"] + p17["mesh_window"] + p17_ranks),
-        "max_abs_err": max(err2b, mw_err, err9, win17["max_abs_err"]),
-        "ms": mw_ms,
+        "max_abs_err": max(err2b, mw_err, err9, win17["max_abs_err"], win_times["max_abs_err"]),
+        "ms": mw_ms,  # T=16 on device tensors, the mesh's blocks (as in every earlier line)
         "plain_ms": mw_plain_ms,
         "bound_ms": max(mw_bytes_ms, mw_ops_ms),
         "bound_by": "bytes" if mw_bytes_ms >= mw_ops_ms else "operations",
+        # the engine's window: T=16 on its pinned stage, mapped; its bound
+        # the link's (pinned copies) or device memory's, and its round trip
+        "mapped_ms": win_times["ms"],
+        "mapped_bound_ms": max(win_times["bound_ms"], mw_ops_ms),
+        "round_trip_ms": win_times["round_trip_ms"],
         "library_ms": None,  # no single PyTorch call runs the weak-MVC phases
     }, {
         "name": "packed_window",
@@ -5666,10 +5988,11 @@ def main() -> int:
         # same kernel's launches with no mask and K = 1, and K = 0)
         "launches": sum(p16_node.values()),
         "max_abs_err": err16b,
-        "ms": nc_times["ms"],  # one tick, S=4096 R=5 K=3, in place
+        "ms": nc_times["ms"],  # one tick, S=4096 R=5 K=3, in place, mapped planes and image
         "plain_ms": nc_times["plain_ms"],
-        "bound_ms": nc_times["bound_ms"],
+        "bound_ms": nc_times["bound_ms"],  # the link's, by pinned copies, or device memory's
         "bound_by": "bytes",
+        "round_trip_ms": nc_times["round_trip_ms"],
         "library_ms": None,  # no single PyTorch call runs the weak-MVC node step
     }] + [{
         "name": pname,
@@ -5684,6 +6007,7 @@ def main() -> int:
         "bound_by": "bytes",
         "library_ms": None,  # no single PyTorch call packs 2-bit codes into words
     } for pname, line in (("pack_codes", 56), ("unpack_codes", 75), ("pack_alive", 84))]
+    print(f"chip_smoke: {time.perf_counter() - t_main:.1f} s in all, the build included")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

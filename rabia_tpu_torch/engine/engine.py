@@ -23,9 +23,12 @@ the asyncio orchestration). The Python paths stay the semantics owners;
 log, recovery runs at ``initialize()``, and the runtime engages when the
 WAL's writer is native. The device backend runs none of the native tick
 and runtime (as in the reference: ``health()["planes"]`` reports both
-as ``python``); its inbox planes go up to the card in one copy a tick,
-or, with ``zero_copy_inbox``, are adopted in place by dlpack on the CPU
-and copied from pinned memory to a card.
+as ``python``). On a card its inbox, decision and open planes are views
+of the node kernel's pinned plane buffer, which the tick's one launch
+reads in place over the link, and its results come back in the kernel's
+pinned host image: a tick copies nothing, whatever ``zero_copy_inbox``
+says. On the CPU the planes are copied a tick, or, with
+``zero_copy_inbox``, adopted in place by dlpack.
 
 Hot-path design (SURVEY.md §7.4.4): everything per-round is **columnar** —
 vote vectors arrive as numpy arrays (:class:`~rabia_tpu_torch.core.messages.
@@ -390,8 +393,11 @@ class RabiaEngine:
         # code that enqueues its work as well as the device's time, so
         # it is no device time.
         self.device_tick_timing = False
+        # h2d_bytes and d2h_bytes: what the ticks copied to and from a
+        # card (nothing: the launch reads the planes and writes the image
+        # in place); mapped_bytes: what the launches moved over the link
         self.device_tick_stats = {
-            "ticks": 0, "h2d_bytes": 0, "d2h_bytes": 0, "timed_ticks": 0,
+            "ticks": 0, "h2d_bytes": 0, "d2h_bytes": 0, "mapped_bytes": 0, "timed_ticks": 0,
             "upload_span_ms": 0.0, "launch_span_ms": 0.0, "fetch_span_ms": 0.0,
         }
         self.rt = EngineRuntime(self.S)
@@ -416,12 +422,17 @@ class RabiaEngine:
         self._carry2: list[tuple] = []
         # adopted-decision plane consumed by the next node_step
         # (64-byte-aligned as the reference's — see _aligned_i8)
+        # On a card the inbox and decision planes are views of the node
+        # kernel's pinned plane buffer (64-byte aligned too)
         self._dec_plane = _aligned_i8(self.S, ABSENT)
         if not self._host_kernel:
-            self._inbox1 = _aligned_i8((self.S, self.R), ABSENT)
-            self._inbox2 = _aligned_i8((self.S, self.R), ABSENT)
-            if self._zc_inbox and self.kernel.device.type == "cuda":
-                self._pin_planes()
+            if self.kernel.planes is not None:
+                kp = self.kernel.planes
+                self._inbox1, self._inbox2, self._dec_plane = (
+                    kp.inbox_r1, kp.inbox_r2, kp.decision_in)
+            else:
+                self._inbox1 = _aligned_i8((self.S, self.R), ABSENT)
+                self._inbox2 = _aligned_i8((self.S, self.R), ABSENT)
         self._shard_ids = np.arange(self.S, dtype=np.int64)
         # reused open planes: (mask, slots_full, init_full) — consumers
         # only read masked positions (start_slots/node_cycle are
@@ -3187,10 +3198,16 @@ class RabiaEngine:
                 # shape); consumers only read masked positions
                 mask, slots_full, init_full = self._open_planes
                 mask[:] = False
+            elif self.kernel.planes is not None:
+                # device backend on a card: straight into the node
+                # kernel's pinned plane buffer, which the launch reads
+                kp = self.kernel.planes
+                mask, slots_full, init_full = kp.shard_mask, kp.slot_index, kp.initial_votes
+                mask[:] = False
             else:
-                # device backend: the CPU's dlpack adoption shares these
-                # buffers with the launch — fresh arrays per tick, as the
-                # reference's
+                # device backend on the CPU: the dlpack adoption shares
+                # these buffers with the launch — fresh arrays per tick,
+                # as the reference's
                 mask = np.zeros(self.S, bool)
                 slots_full = np.zeros(self.S, np.int64)
                 init_full = np.full(self.S, V0, np.int8)
@@ -3248,63 +3265,30 @@ class RabiaEngine:
                 break
             self._restep = False
 
-    def _pin_planes(self) -> None:
-        """zero_copy_inbox on a card: the inbox, decision and open planes
-        become views of one pinned host buffer, which a tick sends up in
-        one non-blocking copy into a device buffer of the same layout."""
-        S, R = self.S, self.R
-        parts = [((S, R), np.int8), ((S, R), np.int8), ((S,), np.int8),
-                 ((S,), np.bool_), ((S,), np.int32), ((S,), np.int8)]
-        offs, n = [], 0
-        for shape, dt in parts:
-            offs.append(n)
-            n += (int(np.prod(shape)) * np.dtype(dt).itemsize + 63) // 64 * 64
-        self._zc_host = torch.empty(n, dtype=torch.uint8, pin_memory=True)
-        self._zc_dev = torch.empty(n, dtype=torch.uint8, device=self.kernel.device)
-        hv = self._zc_host.numpy()
-        views = []
-        for (shape, dt), o in zip(parts, offs):
-            size = int(np.prod(shape)) * np.dtype(dt).itemsize
-            views.append(hv[o:o + size].view(dt).reshape(shape))
-        self._inbox1, self._inbox2, self._dec_plane = views[:3]
-        self._inbox1.fill(ABSENT)
-        self._inbox2.fill(ABSENT)
-        self._dec_plane.fill(ABSENT)
-        self._zc_open = views[3:]
-        tdt = {np.int8: torch.int8, np.bool_: torch.bool, np.int32: torch.int32}
-        self._zc_dev_views = [
-            self._zc_dev[o:o + int(np.prod(shape)) * np.dtype(dt).itemsize]
-            .view(tdt[dt]).view(shape)
-            for (shape, dt), o in zip(parts, offs)
-        ]
-
-    def _upload_planes(self, mask, slots32, init_full) -> list:
+    def _tick_planes(self, mask, slots_full, init_full) -> list:
         """The tick's six planes (mask, slots, initial votes, inbox_r1,
-        inbox_r2, decision_in) on the kernel's device. Without
-        zero_copy_inbox they go up through ``to_device_all`` (one copy;
-        the planes may change at once); with it, on the CPU
-        ``torch.from_dlpack`` adopts them in place, and on a card they go
-        up from pinned memory in one non-blocking copy. Either way the
-        host must not touch them until the tick's fetch has completed."""
+        inbox_r2, decision_in) as ``node_cycle`` takes them. On a card
+        they are the node kernel's pinned plane views (the open planes
+        written there by ``_kernel_round``; None when no slot opens),
+        which the launch reads in place over the link: nothing is copied,
+        whatever zero_copy_inbox says. On the CPU, without zero_copy_inbox
+        they are copied (``to_device_all``: the planes may change at
+        once); with it ``torch.from_dlpack`` adopts them in place. Either
+        way the host must not touch them until the tick's fetch has
+        completed."""
         from rabia_tpu_torch.core.device import to_device_all
 
-        dev = self.kernel.device
-        if not self._zc_inbox:
-            return to_device_all(
-                (mask, slots32, init_full, self._inbox1, self._inbox2,
-                 self._dec_plane),
-                dev,
-            )
-        if dev.type == "cuda":
-            zm, zs, zi = self._zc_open
-            zm[:] = mask
-            zs[:] = slots32
-            zi[:] = init_full
-            self._zc_dev.copy_(self._zc_host, non_blocking=True)
-            v = self._zc_dev_views
-            return [v[3], v[4], v[5], v[0], v[1], v[2]]
-        return [torch.from_dlpack(a) for a in (
-            mask, slots32, init_full, self._inbox1, self._inbox2, self._dec_plane)]
+        inboxes = (self._inbox1, self._inbox2, self._dec_plane)
+        if self.kernel.planes is not None:
+            return [mask, slots_full, init_full, *inboxes]
+        if mask is None:
+            mask = np.zeros(self.S, bool)
+            slots_full = np.zeros(self.S, np.int32)
+            init_full = np.full(self.S, V0, np.int8)
+        planes = (mask, slots_full.astype(np.int32), init_full, *inboxes)
+        if self._zc_inbox:
+            return [torch.from_dlpack(a) for a in planes]
+        return to_device_all(planes, self.kernel.device)
 
     def _device_round(
         self,
@@ -3316,9 +3300,9 @@ class RabiaEngine:
         init_full: Optional[np.ndarray],
     ) -> None:
         """One engine tick on the device backend: ONE node_cycle launch
-        (start + ``device_substeps`` chained node_steps) and ONE
-        device→host fetch of the state and its outbox, which lie in one
-        tick buffer."""
+        (start + ``device_substeps`` chained node_steps) and ONE fetch of
+        its mirrored state and outbox (on a card: one event, then views of
+        the node kernel's host image, which the launch wrote in place)."""
         if idx is not None:
             # host-side mirror update (the device applies the same open
             # inside node_cycle): routing below must see the new slots
@@ -3341,46 +3325,30 @@ class RabiaEngine:
         with span("engine.kernel.route"):
             self._route_votes()
         prev_phase = self._cur_phase.copy()
-        if mask is None:
-            mask = np.zeros(self.S, bool)
-            slots_full = np.zeros(self.S, np.int64)
-            init_full = np.full(self.S, V0, np.int8)
         events = self._tick_events()
+        fetched, mapped = self.kernel.fetch_bytes, self.kernel.mapped_bytes
         with span("engine.kernel.step"):
             self._tick_event(events)
-            planes = self._upload_planes(
-                mask, slots_full.astype(np.int32), init_full
-            )
-            h2d = (
-                sum(p.numel() * p.element_size() for p in planes)
-                if self.kernel.device.type == "cuda" else 0
-            )
+            planes = self._tick_planes(mask, slots_full, init_full)
             self._tick_event(events)
             self.kstate, outboxes = self.kernel.node_cycle(
                 self.kstate, *planes, self._substeps, donate=True
             )
             self._tick_event(events)
-            if not self._zc_inbox:
-                self._inbox1.fill(ABSENT)
-                self._inbox2.fill(ABSENT)
-        if not self._zc_inbox:
-            adopted = self._dec_plane != ABSENT
-            self._dec_plane.fill(ABSENT)
-        fetched = self.kernel.fetch_bytes
         with span("engine.kernel.fetch"):
             pending = self.kernel.fetch_start(self.kstate, outboxes)
             self._tick_event(events)
             st_np, ob_np = pending.result()
-        if self._zc_inbox:
-            # the fetch completed, so node_cycle consumed the adopted
-            # planes: only now may the host change them for the next tick
-            del planes
-            adopted = self._dec_plane != ABSENT
-            self._inbox1.fill(ABSENT)
-            self._inbox2.fill(ABSENT)
-            self._dec_plane.fill(ABSENT)
+        # the fetch completed, so node_cycle consumed the planes: only now
+        # may the host change them for the next tick
+        del planes
+        adopted = self._dec_plane != ABSENT
+        self._inbox1.fill(ABSENT)
+        self._inbox2.fill(ABSENT)
+        self._dec_plane.fill(ABSENT)
         self._set_mirrors(st_np)
-        self._tick_account(events, h2d, self.kernel.fetch_bytes - fetched)
+        self._tick_account(events, self.kernel.fetch_bytes - fetched,
+                           self.kernel.mapped_bytes - mapped)
         with span("engine.kernel.outbox"):
             self._process_outbox_window(ob_np, prev_phase, adopted)
 
@@ -3399,11 +3367,11 @@ class RabiaEngine:
             ev.record()
             events.append(ev)
 
-    def _tick_account(self, events, h2d: int, d2h: int) -> None:
+    def _tick_account(self, events, d2h: int, mapped: int) -> None:
         st = self.device_tick_stats
         st["ticks"] += 1
-        st["h2d_bytes"] += h2d
         st["d2h_bytes"] += d2h
+        st["mapped_bytes"] += mapped
         if events:
             events[-1].synchronize()
             st["timed_ticks"] += 1

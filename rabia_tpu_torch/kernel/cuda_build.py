@@ -122,3 +122,35 @@ def record_event(events):
     ev = torch.cuda.Event(enable_timing=True)
     ev.record()
     return ev
+
+
+_STREAMS: dict = {}
+
+
+def current_stream(device):
+    """``(index, stream, raw handle)`` of PyTorch's current stream on the
+    card ``device`` (its current device when it names no index): what
+    ``torch.cuda.current_stream`` gives, with the Stream cached by its
+    id, for the wrappers that launch once an engine tick or window."""
+    import torch
+
+    index = torch.cuda.current_device() if device.index is None else device.index
+    data = torch._C._cuda_getCurrentStream(index)
+    got = _STREAMS.get(data)
+    if got is None:
+        stream = torch.cuda.Stream(stream_id=data[0], device_index=data[1],
+                                   device_type=data[2])
+        got = _STREAMS[data] = (index, stream, stream.cuda_stream)
+    return got
+
+
+def on_device(index: int):
+    """A context that makes card ``index`` current for a launch (nothing
+    to do when it already is)."""
+    import contextlib
+
+    import torch
+
+    if torch.cuda.current_device() == index:
+        return contextlib.nullcontext()
+    return torch.cuda.device(index)

@@ -16,12 +16,20 @@ alive rows over the replica axis and launches the kernel once a shard
 block on what the gather left: votes ``[B, T, S_blk, R/B]`` and alive
 ``[B, S_blk, R/B]``, each replica block at its own stride, with
 ``shard0`` the block's first global shard (the coin's shard coordinate).
+
+A one-device engine's window lies in a :class:`WindowStage`: one host
+buffer holding its votes, alive rows, base slots and decisions, pinned on
+a card, where :meth:`MeshWindowKernel.mapped` launches the same kernel on
+the buffer's device addresses: the window is read and its decisions
+written in place over the link, with no copy. The mapped path is taken
+only for a stage that its caller hands over; a tensor is never mapped.
 """
 
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from rabia_tpu_torch.core.types import f_plus_1, quorum_size
@@ -31,6 +39,45 @@ from rabia_tpu_torch.kernel.phase_driver import coin_threshold
 I8 = torch.int8
 I32 = torch.int32
 MAX_REPLICAS = 64  # csrc/mesh_window.cuh: one bit per replica in a uint64_t
+
+
+class WindowStage:
+    """One window's host buffer: alive rows ``u8[S, R]`` (viewed as bool),
+    base slots ``i32[S]``, votes ``i8[W, S, R]`` and decisions ``i8[W,
+    S]``, each at a 64-byte boundary, for windows of up to ``W`` entries.
+    Pinned memory when ``pinned`` (a card's engine), which the kernel maps;
+    plain host memory otherwise (the CPU's plain loop reads views of it).
+    ``event`` marks the end of the newest launch on the buffer (None:
+    nothing in flight); the buffer may be rewritten only once it has
+    completed."""
+
+    def __init__(self, S: int, R: int, W: int, pinned: bool) -> None:
+        self.S, self.R, self.W = S, R, W
+        parts = ((np.bool_, (S, R)), (np.int32, (S,)), (np.int8, (W, S, R)), (np.int8, (W, S)))
+        offs, n = [], 0
+        for dt, shape in parts:
+            offs.append(n)
+            n += (int(np.prod(shape)) * np.dtype(dt).itemsize + 63) // 64 * 64
+        self.offsets = offs
+        self.buffer = torch.empty(max(n, 64), dtype=torch.uint8, pin_memory=pinned)
+        host = self.buffer.numpy()
+        self.alive, self.base, self.votes, self.decided = (
+            host[o:o + int(np.prod(shape)) * np.dtype(dt).itemsize].view(dt).reshape(shape)
+            for (dt, shape), o in zip(parts, offs))
+        self.event = None
+        self.device_address = None  # the buffer's on the card, once mapped
+        self.votes_key = None  # what the votes hold, for a writer that skips a rewrite
+
+    def wait(self) -> None:
+        """Block until the newest launch on the buffer has completed."""
+        if self.event is not None:
+            self.event.synchronize()
+
+    def nbytes(self, T: int) -> int:
+        """The bytes a T-entry window reads and writes: the votes, alive
+        rows and bases once each, and the decisions."""
+        S, R = self.S, self.R
+        return T * S * R + S * R + 4 * S + T * S
 
 
 class MeshWindowKernel:
@@ -62,6 +109,8 @@ class MeshWindowKernel:
             fn.restype = ctypes.c_int
             lib.mw_empty.argtypes = [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p]
             lib.mw_empty.restype = ctypes.c_int
+            lib.mw_device_pointer.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p)]
+            lib.mw_device_pointer.restype = ctypes.c_int
             self._lib, self._fn = lib, fn
         return self._fn
 
@@ -146,6 +195,49 @@ class MeshWindowKernel:
                 raise RuntimeError(f"mesh window kernel launch failed: cudaError {err}")
             self.launches += 1
         return decided
+
+
+    def mapped(self, stage: WindowStage, T: int, device, *, seed: int, coin_p1: float,
+               max_phases: int) -> None:
+        """One window of T entries on ``stage`` (pinned), one launch on
+        ``device``'s current stream: the kernel reads the stage's votes,
+        alive rows and bases and writes its decisions there, through the
+        buffer's device address, and ``stage.event`` marks the launch's
+        end (read ``stage.decided[:T]`` once it has completed). Raises
+        when the buffer cannot be mapped; nothing is copied."""
+        if not 0 <= T <= stage.W:
+            raise ValueError(f"a window of {T} entries does not fit a stage of {stage.W}")
+        if not 1 <= stage.R <= MAX_REPLICAS:
+            raise ValueError(f"mesh window kernel takes 1..{MAX_REPLICAS} replicas, got R={stage.R}")
+        if max_phases < 0:
+            raise ValueError(f"max_phases must be >= 0, got {max_phases}")
+        if not stage.buffer.is_pinned():
+            raise ValueError("a mapped window needs a pinned stage")
+        fn = self.load()
+        if stage.device_address is None:
+            dev = ctypes.c_void_p()
+            with torch.cuda.device(torch.device(device)):
+                err = self._lib.mw_device_pointer(stage.buffer.data_ptr(), ctypes.byref(dev))
+            if err != 0:
+                raise RuntimeError(f"the window's stage cannot be mapped: cudaError {err}")
+            stage.device_address = dev.value
+        a_off, b_off, v_off, d_off = (stage.device_address + o for o in stage.offsets)
+        S, R = stage.S, stage.R
+        index, stream, raw = cuda_build.current_stream(torch.device(device))
+        with cuda_build.on_device(index):
+            if T and S:
+                marks = cuda_build.record_event(self.events)
+                err = fn(v_off, a_off, b_off, d_off, T, S, 1, R, 0, 0, 0, quorum_size(R),
+                         f_plus_1(R), int(seed) & 0xFFFFFFFF, coin_threshold(coin_p1),
+                         int(max_phases), raw)
+                if marks is not None:
+                    self.events.append((marks, cuda_build.record_event(self.events)))
+                if err != 0:
+                    raise RuntimeError(f"mesh window kernel launch failed: cudaError {err}")
+                self.launches += 1
+            if stage.event is None:
+                stage.event = torch.cuda.Event()
+            stage.event.record(stream)
 
 
 MESH_WINDOW = MeshWindowKernel()

@@ -29,11 +29,12 @@ from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from rabia_tpu_torch.core.device import DeviceLike, resolve_device
 from rabia_tpu_torch.core.types import ABSENT, V0, V1, VQUESTION, f_plus_1, quorum_size
-from rabia_tpu_torch.kernel import cluster_round, fused_window, node_kernel, packed_window
+from rabia_tpu_torch.kernel import cluster_round, cuda_build, fused_window, node_kernel, packed_window
 
 I8 = torch.int8
 I32 = torch.int32
@@ -674,17 +675,33 @@ class NodeOutbox(NamedTuple):
     decided_vals: torch.Tensor  # i8
 
 
+class NodePlanes(NamedTuple):
+    """A tick's six input planes as a card's NodeKernel reads them: numpy
+    views of its pinned plane buffer, which the host writes and the
+    launch reads in place."""
+
+    shard_mask: np.ndarray  # bool[S]
+    slot_index: np.ndarray  # i32[S]
+    initial_votes: np.ndarray  # i8[S]
+    inbox_r1: np.ndarray  # i8[S,R]
+    inbox_r2: np.ndarray  # i8[S,R]
+    decision_in: np.ndarray  # i8[S]
+
+
 class _NodeFetch:
-    """A node kernel's fetch in flight: ``result()`` waits for the copy
-    and returns ``(NodeState, NodeOutbox or None)`` of numpy arrays."""
+    """A node kernel's fetch in flight: ``result()`` waits for the
+    launch's event (None: nothing to wait for) and returns ``(NodeState,
+    NodeOutbox or None)`` of numpy arrays."""
 
-    __slots__ = ("_fetch", "_split")
+    __slots__ = ("_event", "_arrays")
 
-    def __init__(self, fetch, split) -> None:
-        self._fetch, self._split = fetch, split
+    def __init__(self, event, arrays) -> None:
+        self._event, self._arrays = event, arrays
 
     def result(self):
-        return self._split(None if self._fetch is None else self._fetch.result())
+        if self._event is not None:
+            self._event.synchronize()
+        return self._arrays
 
 
 class NodeKernel:
@@ -698,12 +715,21 @@ class NodeKernel:
     (:mod:`rabia_tpu_torch.kernel.node_kernel`), on the CPU the plain
     versions (``start_slots_plain``, ``node_step_plain``,
     ``node_cycle_plain``). Both are functional: a launch writes its state
-    and outbox into a new tick buffer, which becomes the kernel's newest,
-    and :meth:`fetch` brings the newest state and outbox to the host in
-    one copy. With ``donate=True`` (the reference's ``donate_argnums``) a
-    launch given the kernel's newest state updates it in place, which
-    overwrites the outbox of the launch before; the caller must not use
-    the state it gave. The CPU ignores ``donate``."""
+    and outbox into a new tick buffer, which becomes the kernel's newest.
+    With ``donate=True`` (the reference's ``donate_argnums``) a launch
+    given the kernel's newest state updates it in place, which overwrites
+    the outbox of the launch before; the caller must not use the state it
+    gave. The CPU ignores ``donate``.
+
+    On a card the tick's planes are host arrays: the launch reads them
+    from the kernel's pinned plane buffer (:attr:`planes`, views the
+    caller may write into between launches; other host arrays are written
+    there first, after the previous launch has read the buffer), and
+    writes the mirrored state fields and the outbox rows into a pinned
+    host image, which :meth:`fetch` returns once the launch's event has
+    completed: nothing is copied, and :attr:`mapped_bytes` counts what
+    the launches moved over the link. A fetched array is a view of the
+    image, valid until the next launch."""
 
     def __init__(
         self,
@@ -727,7 +753,26 @@ class NodeKernel:
         self._own = torch.arange(self.R, device=self.device)[None, :] == self.me
         # (buffer, TickLayout) of the newest state made on a card
         self._tick: Optional[tuple[torch.Tensor, node_kernel.TickLayout]] = None
-        self.fetch_bytes = 0  # bytes :meth:`fetch` copied from the card
+        self.fetch_bytes = 0  # bytes fetch copied from the card: none, the image is written in place
+        self.mapped_bytes = 0  # bytes the launches read and wrote over the link
+        self.planes: Optional[NodePlanes] = None
+        if self.device.type == "cuda":
+            self._plane_layout = node_kernel.PlaneLayout(self.S, self.R)
+            self._plane_buf = torch.empty(self._plane_layout.nbytes, dtype=torch.uint8,
+                                          pin_memory=True)
+            self.planes = NodePlanes(*self._plane_layout.views(self._plane_buf.numpy()))
+            for p in (self.planes.inbox_r1, self.planes.inbox_r2, self.planes.decision_in):
+                p.fill(ABSENT)
+            # (buffer, TickLayout, numpy view) of the host image
+            self._image: Optional[tuple] = None
+            self._event = None  # the newest launch's, recorded after it
+            # the in-place launches, checked and bound once for their
+            # buffers (a tick that opens slots and one that does not):
+            # key -> (Prepared, its outbox views); and the image's views
+            # that fetch returns, by outbox rows
+            self._prepared: dict = {}
+            self._image_views: dict = {}
+            self._newest: tuple = (None, None)  # what the newest launch returned
 
     def _on_card(self, state) -> bool:
         return state.slot.device.type == "cuda"
@@ -745,14 +790,36 @@ class NodeKernel:
         buffer."""
         return self._tick is not None and self._tick[1].owns(self._tick[0], fields)
 
+    def _wait(self) -> None:
+        """Block until the newest launch has completed: it no longer reads
+        the plane buffer and has written the image."""
+        if self._event is not None:
+            self._event.synchronize()
+
+    def _image_for(self, K: int) -> tuple:
+        """The host image, with room for K outbox rows: allocated anew
+        (pinned) only when K grows past it."""
+        if self._image is None or self._image[1].K < K:
+            self._wait()  # the old image may still be written
+            layout = node_kernel.TickLayout(self.S, self.R, max(K, 1))
+            buf = torch.empty(layout.nbytes, dtype=torch.uint8, pin_memory=True)
+            self._image = (buf, layout, buf.numpy())
+            self._image_views = {}
+        return self._image
+
     def init_state(self) -> NodeState:
         S, R, dev = self.S, self.R, self.device
+        inits = (0, 0, R1_WAIT, ABSENT, ABSENT, ABSENT, ABSENT, ABSENT, False, False)
         if dev.type == "cuda":
             buf, layout = self._new_tick(1)
             st = NodeState(*layout.state_views(buf))
-            for t, v in zip(st, (0, 0, R1_WAIT, ABSENT, ABSENT, ABSENT, ABSENT, ABSENT,
-                                 False, False)):
+            for t, v in zip(st, inits):
                 t.fill_(v)
+            self._newest = (None, None)
+            _, image, host = self._image_for(1)
+            self._wait()
+            for a, v in zip(image.state_views(host), inits):
+                a.fill(v)
             return st
 
         def full(shape, value, dtype):
@@ -800,7 +867,7 @@ class NodeKernel:
     def node_cycle(
         self,
         state: NodeState,
-        shard_mask,  # bool[S] slots to (re)start this tick
+        shard_mask,  # bool[S] slots to (re)start this tick, or None: none
         slot_index,  # i32[S]
         initial_votes,  # i8[S]
         inbox_r1,  # i8[S,R]
@@ -814,86 +881,113 @@ class NodeKernel:
         then chain ``n_steps`` node_steps (inboxes consumed by the first;
         later substeps cascade stage transitions on ledger-resident votes).
         Returns the final state and a NodeOutbox of ``[n_steps, S]``
-        planes."""
+        planes. On a card a mask of None opens no slot (and the open
+        planes are not read)."""
         if self._on_card(state):
             return self._launch("node_cycle", state, shard_mask, slot_index, initial_votes,
                                 inbox_r1, inbox_r2, decision_in, int(n_steps), donate)
         return self.node_cycle_plain(state, shard_mask, slot_index, initial_votes, inbox_r1,
                                      inbox_r2, decision_in, n_steps)
 
+    def _stage_planes(self, given) -> list[bool]:
+        """The tick's planes (``PLANE_FIELDS``' order, None where absent)
+        in the pinned plane buffer: one of its views (:attr:`planes`) is
+        taken as it is, another host array written into it (after the
+        newest launch has read it). Returns which planes are present."""
+        waited = False
+        for x, view in zip(given, self.planes):
+            if x is None or x is view:
+                continue
+            if isinstance(x, torch.Tensor) and x.device.type != "cpu":
+                raise ValueError(f"on a card the node kernel reads its planes from pinned host "
+                                 f"memory: pass host arrays, not a tensor on {x.device}")
+            if not waited:
+                self._wait()
+                waited = True
+            np.copyto(view, np.broadcast_to(np.asarray(x), view.shape), casting="unsafe")
+        return [x is not None for x in given]
+
     def _launch(self, entry, state, mask, slot_index, init, ib1, ib2, dec, K: int,
                 donate: bool):
         """One launch of the node kernel on the state's card; returns the
         state and outbox views of the tick buffer it wrote: the newest one
         in place when ``donate`` and the state lies there with room for K
-        steps, else a new one."""
+        steps, else a new one. The planes come from the pinned plane
+        buffer, the results also go to the host image, and one event marks
+        the launch's end."""
         if self.device.type != "cuda":
             raise ValueError(f"a node kernel on {self.device} has no card to launch on")
         fields = list(state)
-        if donate and self._in_tick(fields) and self._tick[1].K >= K:
+        present = tuple(self._stage_planes((mask, slot_index, init, ib1, ib2, dec)))
+        in_place = donate and (state is self._newest[0] or self._in_tick(fields)) \
+            and self._tick[1].K >= K
+        if in_place:
             buf, layout = self._tick
-            out = fields
         else:
             buf, layout = self._new_tick(K)
-            out = layout.state_views(buf)
-        outbox = layout.outbox_views(buf, K) if K else None
-
-        def arg(x, dtype, shape):
-            if x is None:
-                return None
-            t = torch.as_tensor(x, device=self.device)
-            return torch.broadcast_to(t, shape).to(dtype).contiguous()
-
-        S, R = self.S, self.R
-        node_kernel.NODE_CYCLE(
-            entry, fields, out, outbox,
-            arg(mask, torch.bool, (S,)), arg(slot_index, I32, (S,)), arg(init, I8, (S,)),
-            arg(ib1, I8, (S, R)), arg(ib2, I8, (S, R)), arg(dec, I8, (S,)), K,
-            me=self.me, quorum=self.quorum, f1=self.f1, seed=self.seed,
-            threshold=coin_threshold(self.coin_p1),
-        )
-        if outbox is None:  # no steps: node_cycle's outbox has no rows
-            outbox = [torch.empty((0, S), dtype=dtype, device=self.device)
-                      for _, dtype in node_kernel.OUTBOX_FIELDS]
-        return NodeState(*out), NodeOutbox(*outbox)
+        image, image_layout, _ = self._image_for(K)
+        key = (buf.data_ptr(), K, present, image.data_ptr())
+        if in_place and key in self._prepared:
+            prepared, outbox = self._prepared[key]
+        else:
+            out = fields if in_place else layout.state_views(buf)
+            planes = layout.outbox_views(buf, K) if K else None
+            prepared = node_kernel.NODE_CYCLE.prepare(
+                fields, out, planes, self._plane_buf, self._plane_layout, present, image,
+                image_layout, K, me=self.me, quorum=self.quorum, f1=self.f1, seed=self.seed,
+                threshold=coin_threshold(self.coin_p1),
+            )
+            if planes is None:  # no steps: node_cycle's outbox has no rows
+                planes = [torch.empty((0, self.S), dtype=dtype, device=self.device)
+                          for _, dtype in node_kernel.OUTBOX_FIELDS]
+            outbox = NodeOutbox(*planes)
+            if in_place:  # reads and writes the tick buffer: the same launch next tick
+                if any(k[0] != key[0] or k[3] != key[3] for k in self._prepared):
+                    self._prepared = {}  # bound to an older tick buffer or image
+                self._prepared[key] = (prepared, outbox)
+            fields = out
+        self.mapped_bytes += node_kernel.NODE_CYCLE.launch(entry, prepared)
+        if self._event is None:
+            self._event = torch.cuda.Event()
+        self._event.record(cuda_build.current_stream(self.device)[1])
+        self._newest = (NodeState(*fields), outbox)
+        return self._newest
 
     def fetch(self, state: NodeState, outbox: Optional[NodeOutbox] = None):
         """``(state, outbox)`` as numpy arrays on the host (``outbox`` None
         when not given). On a card they must be the kernel's newest state
-        and outbox, which lie in one tick buffer and come back in one
-        copy; a CPU state's arrays share its tensors' memory."""
+        and outbox: the arrays are views of the host image, which the
+        launch wrote in place (the ledgers stay on the card: the state's
+        led1 and led2 are None); a CPU state's arrays share its tensors'
+        memory."""
         return self.fetch_start(state, outbox).result()
 
     def fetch_start(self, state: NodeState, outbox: Optional[NodeOutbox] = None) -> "_NodeFetch":
-        """:meth:`fetch` in two halves: the copy is queued behind the work
-        on the stream now, and ``result()`` of what this returns waits for
-        it."""
-        from rabia_tpu_torch.core.device import HostFetch
-
+        """:meth:`fetch` in two halves: this returns at once, and
+        ``result()`` of what it returns waits for the newest launch's
+        event."""
         if not self._on_card(state):
-            return _NodeFetch(None, lambda _: (
+            return _NodeFetch(None, (
                 NodeState(*(t.numpy() for t in state)),
                 None if outbox is None else NodeOutbox(*(t.numpy() for t in outbox))))
-        if not self._in_tick(list(state)) or (outbox is not None and not all(
+        newest = state is self._newest[0] and (outbox is None or outbox is self._newest[1])
+        if not newest and (not self._in_tick(list(state)) or (outbox is not None and not all(
             p.data_ptr() == self._tick[0].data_ptr() + off
             for p, (off, _, _) in zip(outbox, self._tick[1].outbox)
-        )):
+        ))):
             raise ValueError("fetch takes the kernel's newest state and outbox on a card")
-        buf, layout = self._tick
-        nbytes = layout.state[-1][0] + self.S if outbox is None else layout.nbytes
-        self.fetch_bytes += nbytes
-        rows = None if outbox is None or outbox[0].dim() == 1 else outbox[0].shape[0]
-
-        def split(host):
-            st = NodeState(*layout.state_views(host))
-            if outbox is None:
-                return st, None
-            planes = layout.outbox_views(host, rows)
-            if rows is None:
-                planes = [p[0] for p in planes]
-            return st, NodeOutbox(*planes)
-
-        return _NodeFetch(HostFetch(buf[:nbytes]), split)
+        rows = None if outbox is None else -1 if outbox[0].dim() == 1 else outbox[0].shape[0]
+        views = self._image_views.get(rows)
+        if views is None:
+            _, layout, host = self._image
+            st = NodeState(*(None if shape == "SR" else v for v, (_, _, shape) in zip(
+                layout.state_views(host), node_kernel.STATE_FIELDS)))
+            ob = None
+            if rows is not None:
+                planes = layout.outbox_views(host, 1 if rows == -1 else rows)
+                ob = NodeOutbox(*(p[0] for p in planes) if rows == -1 else planes)
+            views = self._image_views[rows] = (st, ob)
+        return _NodeFetch(self._event, views)
 
     # -- the plain versions (any device)
 

@@ -730,6 +730,28 @@ class MeshPhaseKernel:
             return plain(votes, alive, base_slots, max_phases, shard0)
         raise ValueError(f"no mesh window for device {votes.device}")
 
+    def decide_staged(self, stage, n_slots: int, max_phases: int) -> None:
+        """One window on a staging buffer that the caller owns
+        (:class:`~rabia_tpu_torch.kernel.mesh_window.WindowStage`, one
+        device only): entry ``t`` of shard ``s`` runs as slot
+        ``stage.base[s] + t`` on ``stage.votes[:n_slots]`` and
+        ``stage.alive``, and the decisions go to ``stage.decided[:n_slots]``.
+        On a card one ``mw_window`` launch reads and writes the pinned
+        buffer in place (``stage.event`` marks its end); on the CPU the
+        plain loop runs on views of it."""
+        if self.mesh is not None:
+            raise ValueError("a staged window runs on one device, not over a mesh")
+        T = int(n_slots)
+        if self.device.type == "cuda":
+            mesh_window.MESH_WINDOW.mapped(stage, T, self.device, seed=self.seed,
+                                           coin_p1=self.coin_p1, max_phases=max_phases)
+            return
+        if self.device.type != "cpu":
+            raise ValueError(f"no mesh window for device {self.device}")
+        stage.decided[:T] = self.decide_slots_plain(
+            torch.from_numpy(stage.votes[:T]), torch.from_numpy(stage.alive),
+            torch.from_numpy(stage.base), max_phases).numpy()
+
     def exchange_window(self, votes, alive) -> dict:
         """The window's one exchange over the replica axis: for each local
         shard row i, ``(votes i8[b, T, S_blk, R_blk], alive bool[b,

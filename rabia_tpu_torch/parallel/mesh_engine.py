@@ -80,18 +80,20 @@ from __future__ import annotations
 
 import logging
 import time
+import weakref
 from collections import deque
 from dataclasses import replace
 from typing import Callable, Optional, Sequence, Union
 
 import numpy as np
 
-from rabia_tpu_torch.core.device import DeviceLike, HostFetch, to_device
+from rabia_tpu_torch.core.device import DeviceLike, HostFetch
 from rabia_tpu_torch.core.errors import RabiaError, ValidationError
 from rabia_tpu_torch.core.persistence import PersistedEngineState
 from rabia_tpu_torch.core.state_machine import StateMachine
 from rabia_tpu_torch.core.tracing import device_annotation
 from rabia_tpu_torch.core.types import ABSENT, V0, V1, CommandBatch, ShardId, quorum_size
+from rabia_tpu_torch.kernel.mesh_window import WindowStage
 from rabia_tpu_torch.obs import MetricsRegistry
 from rabia_tpu_torch.parallel.mesh import MeshPhaseKernel
 
@@ -305,6 +307,80 @@ class _Pending:
             self.bfut._settle(self.bidx, value)
 
 
+class _StagedFetch:
+    """A window dispatched on a staging buffer: ``result()`` waits for
+    its launch's event and returns its decisions ``i8[W, S]``, a view of
+    the buffer that stays valid until the ring hands the buffer out again
+    (the next dispatch after this result)."""
+
+    __slots__ = ("_ring", "_stage", "_T", "__weakref__")
+
+    def __init__(self, ring: "_WindowRing", stage: WindowStage, T: int) -> None:
+        self._ring, self._stage, self._T = ring, stage, T
+
+    def result(self) -> np.ndarray:
+        self._stage.wait()
+        self._ring.release(self._stage)
+        return self._stage.decided[: self._T]
+
+
+class _WindowRing:
+    """The staging buffers of a one-device engine's windows (pinned on a
+    card, plain host memory on the CPU): the engine builds a window's
+    votes and bases straight into the next buffer, and the window is
+    decided in place there. The ring holds as many buffers as windows can
+    be in flight: two on the full-width lane, which dispatches the next
+    window before it reads this one. A buffer is handed out again only
+    once its window's fetch has been read or dropped and its launch has
+    completed; a caller that holds more windows unread than the ring has
+    gets a new buffer."""
+
+    def __init__(self, S: int, R: int, pinned: bool) -> None:
+        self.S, self.R, self.pinned = S, R, pinned
+        self.stages: list[WindowStage] = []
+        self._held: list = []  # a weak reference to each buffer's unread fetch, or None
+        self._next = 0
+        self.windows = 0  # windows dispatched on the ring
+        self.mapped_bytes = 0  # what their launches moved over the link (a card's)
+
+    def take(self, W: int) -> WindowStage:
+        """The next free buffer with room for W entries (its last launch
+        completed); a new one when every buffer holds an unread window."""
+        n = len(self.stages)
+        for j in range(n):
+            i = (self._next + j) % n
+            held = self._held[i]
+            if held is not None and held() is not None:
+                continue  # its window's fetch is still held unread
+            stage = self.stages[i]
+            stage.wait()
+            if stage.W < W:  # the window grew: a deeper buffer in its place
+                stage = self.stages[i] = WindowStage(self.S, self.R, W, self.pinned)
+            self._held[i] = None
+            self._next = (i + 1) % n
+            return stage
+        stage = WindowStage(self.S, self.R, W, self.pinned)
+        self.stages.append(stage)
+        self._held.append(None)
+        self._next = 0
+        return stage
+
+    def fetch(self, stage: WindowStage, T: int) -> _StagedFetch:
+        """The fetch of the window just dispatched on ``stage``."""
+        f = _StagedFetch(self, stage, T)
+        self._held[self.stages.index(stage)] = weakref.ref(f)
+        self.windows += 1
+        if self.pinned:
+            self.mapped_bytes += stage.nbytes(T)
+        return f
+
+    def release(self, stage: WindowStage) -> None:
+        """``stage``'s window has been read: the buffer may go out again."""
+        for i, s in enumerate(self.stages):
+            if s is stage:
+                self._held[i] = None
+
+
 class MeshEngine:
     """R-replica state machine replication with consensus on the device.
 
@@ -383,6 +459,9 @@ class MeshEngine:
         self.kernel = MeshPhaseKernel(self.S, self.R, mesh, coin_p1=coin_p1, seed=seed,
                                       device=device)
         self.device = self.kernel.device
+        # one device: each window is built and decided in a staging buffer
+        self._ring = (None if mesh is not None
+                      else _WindowRing(self.S, self.R, pinned=self.device.type == "cuda"))
         # the multi-controller form: a mesh over a process group (one rank
         # too: its windows still go through the group's collectives)
         self._multi = mesh is not None and mesh.distributed
@@ -921,10 +1000,10 @@ class MeshEngine:
         # payload exists; filler entries beyond a shard's queue depth vote
         # V0 unanimously — they decide V0 in phase 0, are never recorded,
         # and their slot numbers are reused by the next cycle
-        votes = np.zeros((W, self.S, self.R), np.int8)
+        window, votes = self._window_votes(W)
         for s in np.nonzero(depth)[0]:
             votes[: depth[s], s, :] = V1
-        decided = self._decide_window(votes, W)
+        decided = self._decide_window(window, W)
         applied = 0
         # collect (pop + record) first, apply after in window-position
         # order: per-shard apply order is slot order; across shards the
@@ -1706,11 +1785,35 @@ class MeshEngine:
                 self._apply_block_group(block, np.arange(len(block)), None, bulk_future=bfut)
         return depth * n
 
-    def _fullwidth_votes(self, depth: int) -> np.ndarray:
-        """Initial votes for ``depth`` uniform full-width waves."""
-        votes = np.zeros((self.window, self.S, self.R), np.int8)
-        votes[:depth, : self.n_shards, :] = V1
-        return votes
+    def _window_votes(self, W: int) -> tuple:
+        """Where one window's initial votes are built, zeroed (V0): ``(the
+        window's staging buffer, its votes i8[W, S, R])`` on one device,
+        ``(an array, the array)`` over a mesh."""
+        if self._ring is None:
+            votes = np.zeros((W, self.S, self.R), np.int8)
+            return votes, votes
+        stage = self._ring.take(W)
+        votes = stage.votes[:W]
+        votes.fill(V0)
+        stage.votes_key = None
+        return stage, votes
+
+    def _fullwidth_votes(self, depth: int):
+        """Initial votes for ``depth`` uniform full-width waves: the next
+        staging buffer on one device (its votes rewritten only when they
+        differ from these), an array over a mesh."""
+        W = self.window
+        if self._ring is None:
+            votes = np.zeros((W, self.S, self.R), np.int8)
+            votes[:depth, : self.n_shards, :] = V1
+            return votes
+        stage = self._ring.take(W)
+        if stage.votes_key != ("full", W, depth):
+            votes = stage.votes[:W]
+            votes.fill(V0)
+            votes[:depth, : self.n_shards, :] = V1
+            stage.votes_key = ("full", W, depth)
+        return stage
 
     def _demote_full_blocks(self) -> None:
         """Move staged full-width blocks onto the per-shard queues (the
@@ -1723,9 +1826,14 @@ class MeshEngine:
                 self.queues[s].append(_Pending(None, None, block=block, bidx=i, bfut=bfut))
                 self._queued_entries += 1
 
-    def _decide_window(self, votes: np.ndarray, W: int) -> np.ndarray:
-        """One consumed consensus window; returns decided i8[W, S]."""
-        base = np.zeros(self.S, np.int32)
+    def _decide_window(self, votes, W: int) -> np.ndarray:
+        """One consumed consensus window on ``votes`` (a staging buffer on
+        one device, an array over a mesh); returns decided i8[W, S]."""
+        if isinstance(votes, WindowStage):
+            base = votes.base  # built straight into the buffer
+            base[self.n_shards:] = 0
+        else:
+            base = np.zeros(self.S, np.int32)
         base[: self.n_shards] = self.next_slot
         if self._multi:
             decided = self._run_window_multihost(votes, base, W)
@@ -1734,18 +1842,27 @@ class MeshEngine:
         self.cycles += 1
         return decided
 
-    def _dispatch_window(self, votes: np.ndarray, base: np.ndarray, W: int) -> HostFetch:
-        """Enqueue one slot_window dispatch and the copy of its decided
-        plane to the host; returns the fetch (waited on by ``result()``),
-        so a caller can dispatch the next window before reading this one.
-        The caller accounts ``cycles`` when a window is CONSUMED."""
+    def _dispatch_window(self, votes, base: np.ndarray, W: int):
+        """Enqueue one window; returns its fetch (waited on by
+        ``result()``), so a caller can dispatch the next window before
+        reading this one. On one device ``votes`` is a staging buffer: the
+        base slots go into it and the alive rows too when they changed,
+        and the window is decided in place there (on a card one
+        ``mw_window`` launch on the pinned buffer, nothing copied). Over a
+        mesh ``votes`` is an array, and the decided plane comes back by a
+        copy. The caller accounts ``cycles`` when a window is CONSUMED."""
+        if isinstance(votes, WindowStage):
+            if base is not votes.base:
+                votes.base[...] = base
+            if not np.array_equal(votes.alive, self.alive):
+                votes.alive[...] = self.alive
+            with device_annotation("rabia.mesh.slot_window", self.device):
+                self.kernel.decide_staged(votes, W, self.max_phases)
+            return self._ring.fetch(votes, W)
         with device_annotation("rabia.mesh.slot_window", self.device):
-            if self.mesh is None:
-                votes, alive, base = (to_device(a, self.device) for a in (votes, self.alive, base))
-            else:
-                alive = self.alive  # the mesh kernel cuts host arrays into its blocks
+            # the mesh kernel cuts host arrays into its blocks
             decided = self.kernel.slot_window(
-                votes, alive, base, n_slots=W, max_phases=self.max_phases,
+                votes, self.alive, base, n_slots=W, max_phases=self.max_phases,
             )
         return HostFetch(decided)
 

@@ -35,11 +35,12 @@ using the engine.
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import json
 import os
 import re
 import time
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 
 async def run_schedule_on_both_planes(
@@ -52,6 +53,7 @@ async def run_schedule_on_both_planes(
     kernel: Optional[dict] = None,
     engine_device=None,
     time_device_ticks: bool = False,
+    around_transport: Optional[Callable] = None,
 ) -> dict:
     """Raise AssertionError (prefixed with ``tag``) on any divergence.
 
@@ -62,7 +64,9 @@ async def run_schedule_on_both_planes(
     transport engines' configuration (``{"backend": "jax"}`` runs their
     node kernel on ``engine_device``, which they take as their
     ``device``; ``time_device_ticks`` times their ticks on a card by CUDA
-    events). Returns ``transport_wall_s`` (first submit to last
+    events). ``around_transport(engines)``, when given, returns a context
+    manager that is held around the transport plane's waves (a profiler,
+    say). Returns ``transport_wall_s`` (first submit to last
     settle), ``wave_s`` (each wave's), ``settle_s`` (each future's
     submit-to-settle seconds), ``decided_slots`` (slots decided over all
     shards, on the submitting replica), ``device_ticks`` (the transport
@@ -113,27 +117,32 @@ async def run_schedule_on_both_planes(
                 quorum = True
                 break
         assert quorum, f"{tag}: transport cluster never formed quorum"
-        t_start = time.perf_counter()
-        for w, wave in enumerate(schedule):
-            t_wave = time.perf_counter()
-            futs = {}
-            for s, cmds in wave.items():
-                t0 = time.perf_counter()
-                f = await engines[0].submit_batch(
-                    CommandBatch.new(list(cmds)), shard=s
-                )
-                f.add_done_callback(
-                    lambda _f, t0=t0: settle_s.append(time.perf_counter() - t0)
-                )
-                futs[s] = f
-            for s, f in futs.items():
-                got = await asyncio.wait_for(f, 15.0)
-                want = [b"OK"] * len(wave[s])
-                assert got == want, (
-                    f"{tag}: transport wave {w} shard {s}: {got!r}"
-                )
-            wave_s.append(time.perf_counter() - t_wave)
-        transport_wall_s = time.perf_counter() - t_start
+        around = (around_transport(engines) if around_transport is not None
+                  else contextlib.nullcontext())
+        with around:
+            t_start = time.perf_counter()
+            for w, wave in enumerate(schedule):
+                t_wave = time.perf_counter()
+                futs = {}
+                for s, cmds in wave.items():
+                    t0 = time.perf_counter()
+                    f = await engines[0].submit_batch(
+                        CommandBatch.new(list(cmds)), shard=s
+                    )
+                    f.add_done_callback(
+                        lambda _f, t0=t0: settle_s.append(
+                            time.perf_counter() - t0
+                        )
+                    )
+                    futs[s] = f
+                for s, f in futs.items():
+                    got = await asyncio.wait_for(f, 15.0)
+                    want = [b"OK"] * len(wave[s])
+                    assert got == want, (
+                        f"{tag}: transport wave {w} shard {s}: {got!r}"
+                    )
+                wave_s.append(time.perf_counter() - t_wave)
+            transport_wall_s = time.perf_counter() - t_start
         transport_decisions = {
             s: {
                 slot: int(rec.value)

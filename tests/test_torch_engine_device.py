@@ -134,3 +134,89 @@ async def test_planes_gate_config2_on_device_backend(zc):
     assert out["decided_slots"] == S * waves
     assert out["device_ticks"]["ticks"] > 0
     assert out["device_ticks"]["h2d_bytes"] == 0  # nothing crosses to a card here
+
+
+# -- the reference's device backend beside the port's ------------------------
+
+
+async def _device_cluster(pkg: str, schedule, n_shards: int, n_replicas: int, zc: bool):
+    """One transport cluster of ``pkg``'s engines on the device backend
+    (``backend="jax"``, ``zero_copy_inbox=zc``; the port's on
+    ``device="cpu"``) through ``schedule``, each wave from another
+    replica; returns (decision logs, responses, replica snapshots)."""
+    import importlib
+
+    imp = lambda m: importlib.import_module(f"{pkg}.{m}")  # noqa: E731
+    types = imp("core.types")
+    # a long phase timeout: the reference's first ticks compile its programs
+    config = imp("core.config").RabiaConfig(
+        phase_timeout=10.0, heartbeat_interval=0.05, round_interval=0.002
+    ).with_kernel(num_shards=n_shards, shard_pad_multiple=2, backend="jax", zero_copy_inbox=zc)
+    hub = imp("net").InMemoryHub()
+    nodes = [types.NodeId.from_int(i + 1) for i in range(n_replicas)]
+    sms = [imp("core.state_machine").InMemoryStateMachine() for _ in nodes]
+    kw = {"device": "cpu"} if pkg == "rabia_tpu_torch" else {}
+    engines = [imp("engine").RabiaEngine(imp("core.network").ClusterConfig.new(n, nodes), sm,
+                                         hub.register(n), config=config, **kw)
+               for n, sm in zip(nodes, sms)]
+    tasks = [asyncio.ensure_future(e.run()) for e in engines]
+    try:
+        for _ in range(600):
+            await asyncio.sleep(0.01)
+            if all([(await e.get_statistics()).has_quorum for e in engines]):
+                break
+        payload, responses = {}, []
+        for w, wave in enumerate(schedule):
+            futs = {}
+            for s, cmds in wave.items():
+                batch = types.CommandBatch.new(list(cmds))
+                payload[batch.id] = tuple(cmds)
+                futs[s] = await engines[w % n_replicas].submit_batch(batch, shard=s)
+            responses.append({s: await asyncio.wait_for(f, 60.0) for s, f in futs.items()})
+        # peers learn decisions and apply after the submitter settles: wait
+        # until every replica's state and committed batches have caught up
+        def caught_up() -> bool:
+            snap = sms[0].create_snapshot().data
+            return all(sm.create_snapshot().data == snap for sm in sms) and all(
+                sum(int(rec.value) == 1 for rec in e.rt.shards[s].decisions.values())
+                >= len([w for w in schedule if s in w]) for e in engines for s in range(n_shards))
+
+        for _ in range(1500):
+            if caught_up():
+                break
+            await asyncio.sleep(0.01)
+        assert caught_up(), f"{pkg}: the replicas did not catch up"
+        logs = [{s: {slot: (int(rec.value), payload.get(rec.batch_id))
+                     for slot, rec in sorted(e.rt.shards[s].decisions.items())}
+                 for s in range(n_shards)} for e in engines]
+        return logs, responses, [sm.create_snapshot().data for sm in sms]
+    finally:
+        for e in engines:
+            await e.shutdown()
+        for t in tasks:
+            t.cancel()
+        await asyncio.gather(*tasks, return_exceptions=True)
+
+
+@pytest.mark.parametrize("zc", [False, True], ids=["copy", "zero_copy"])
+def test_device_backend_matches_reference_plane_by_plane(zc):
+    """The port's device backend on the CPU (``NodeKernel``'s plain
+    versions, the planes copied or adopted by dlpack) beside the
+    reference's on the same schedule, zero_copy_inbox off and on: every
+    response, every replica's committed log (the batches decided V1,
+    shard by shard, in slot order; a null slot that a timeout opens under
+    load is the protocol's, not the plane's) and every snapshot equal."""
+    S, R = 6, 3
+    sched = [{s: [f"SET k{s}_{w} v{w}", f"GET k{s}_{w}"] for s in range(S) if (s + w) % 3}
+             for w in range(4)]
+    ref = asyncio.run(_device_cluster("rabia_tpu", sched, S, R, zc))
+    port = asyncio.run(_device_cluster("rabia_tpu_torch", sched, S, R, zc))
+    def committed(logs):
+        return [{s: [p for _, (v, p) in sorted(d.items()) if v == 1] for s, d in log.items()}
+                for log in logs]
+
+    assert port[1] == ref[1]
+    for r in range(R):
+        assert committed(port[0])[r] == committed(ref[0])[r], f"replica {r}: logs differ"
+    assert len(set(port[2])) == 1 and port[2] == ref[2]
+    assert sum(len(c) for c in committed(port[0])[0].values()) == sum(len(w) for w in sched)

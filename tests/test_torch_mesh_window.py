@@ -8,7 +8,13 @@ mesh) and the port's plain loop over ``phase_step``: votes split over all
 four codes (so the common coin decides), crash masks with a quorum-less
 shard, coin probabilities 0, 0.5 and 1, and per-shard bases near 2^31-1
 so that ``base + t`` wraps. The wrapper's refusals and the CPU dispatch
-are checked too. Tolerance: exact equality (decisions are codes)."""
+are checked too, and the one-device engine's staging ring (a window's
+votes, alive rows, bases and decisions in one host buffer, which a card
+maps; on the CPU the plain loop runs on views of it): two windows in
+flight decide and settle as the reference's engine, and a buffer whose
+window is unread is not handed out again. The mapped launch itself is
+held against the plain loop on a card (the cuda-marked test). Tolerance:
+exact equality (decisions are codes)."""
 
 from __future__ import annotations
 
@@ -23,12 +29,17 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from rabia_tpu.apps.vector_kv import VectorShardedKV as RefVKV
+from rabia_tpu.core.blocks import build_block as ref_build_block
+from rabia_tpu.parallel import MeshEngine as RefEngine
 from rabia_tpu.parallel import MeshPhaseKernel as RefMesh
 from rabia_tpu.parallel import make_mesh
-from rabia_tpu_torch.core.types import ABSENT, f_plus_1, quorum_size
+from rabia_tpu_torch.apps.vector_kv import VectorShardedKV
+from rabia_tpu_torch.core.blocks import build_block
+from rabia_tpu_torch.core.types import ABSENT, V1, f_plus_1, quorum_size
 from rabia_tpu_torch.kernel import cuda_build, mesh_window
 from rabia_tpu_torch.kernel.phase_driver import coin_threshold
-from rabia_tpu_torch.parallel import MeshPhaseKernel
+from rabia_tpu_torch.parallel import MeshEngine, MeshPhaseKernel
 
 torch.set_num_threads(1)  # tiny tensors: one thread keeps parallel test workers off each other
 
@@ -308,3 +319,175 @@ def test_blocked_wrapper_geometry_and_refusals():
     with pytest.raises(ValueError, match="needs CUDA tensors"):
         kern(votes, alive, base, shard0=5, **kw)
     assert kern.launches == 0 and kern._fn is None
+
+
+# ---- the one-device engine's staging ring ---------------------------------
+
+
+def _set_op(key: str, val: str) -> bytes:
+    kb = key.encode()
+    return bytes((1,)) + len(kb).to_bytes(2, "little") + kb + val.encode()
+
+
+def _frames(res):
+    return [[bytes(f) for f in g] for g in res]
+
+
+def test_engine_ring_two_windows_in_flight_match_reference(monkeypatch):
+    """The full-width lane dispatches the next window before it reads
+    this one (two windows in flight on two staging buffers); a minority
+    crash changes the alive rows under a dispatched speculative window
+    (dropped, its buffer reused once it completes), a per-shard lane's
+    windows take the ring's buffers too. Decisions, futures, slot
+    counters and every replica's store equal the reference engine's."""
+    import time
+
+    monkeypatch.setattr(time, "time", lambda: 1700000000.5)
+    N, Rn, W = 16, 3, 2
+    ref = RefEngine(lambda: RefVKV(N, capacity=1 << 10), N, Rn, mesh=make_mesh(), window=W)
+    port = MeshEngine(lambda: VectorShardedKV(N, capacity=1 << 10), N, Rn, window=W,
+                      device="cpu")
+    futs = []
+
+    def blocks(tag, n):
+        for b in range(n):
+            cmds = [[_set_op(f"k{s}", f"{tag}{b}")] for s in range(N)]
+            futs.append((ref.submit_block(ref_build_block(range(N), cmds)),
+                         port.submit_block(build_block(range(N), cmds))))
+
+    blocks("a", 7)
+    assert ref.flush() == port.flush()
+    assert len(port._ring.stages) == 2 and port._ring.windows == port.cycles  # specs consumed
+    for eng in (ref, port):
+        eng.crash_replica(Rn - 1)
+    blocks("b", 5)
+    assert ref.flush() == port.flush()
+    for eng in (ref, port):
+        eng.heal_replica(Rn - 1)
+    for s in (0, 5, N - 1):  # the per-shard lane
+        futs.append((ref.submit([f"SET q{s} v"], s), port.submit([f"SET q{s} v"], s)))
+    assert ref.flush() == port.flush()
+    for fr, fp in futs:
+        got, want = fp.result(), fr.result()
+        assert (_frames(got) if isinstance(got[0], list) else got) == (
+            _frames(want) if isinstance(want[0], list) else want)
+    assert port.next_slot.tolist() == ref.next_slot.tolist()
+    assert (port.decided_v1, port.decided_v0, port.cycles) == (
+        ref.decided_v1, ref.decided_v0, ref.cycles)
+    for s in range(N):
+        logs = [{slot: v for slot, (v, _) in eng.decisions_for(s).items()} for eng in (ref, port)]
+        assert logs[0] == logs[1], s
+    want = ref.sms[0].store.snapshot_bytes()
+    assert all(sm.store.snapshot_bytes() == want for sm in port.sms)
+    assert len(port._ring.stages) == 2 and port._ring.mapped_bytes == 0  # nothing mapped here
+
+
+def test_engine_ring_never_rewrites_an_unread_window():
+    """A window held unfetched keeps its buffer: later windows take other
+    buffers (the ring grows past its two when the caller holds more), and
+    the held window's decisions, read last, are its own; once read (or
+    dropped), its buffer goes out again."""
+    N, Rn, W = 8, 3, 4
+    eng = MeshEngine(lambda: VectorShardedKV(N, capacity=1 << 8), N, Rn, window=W, device="cpu")
+    k = eng.kernel
+    rng = np.random.default_rng(5)
+
+    def dispatch(votes):
+        stage, view = eng._window_votes(W)
+        view[...] = votes
+        stage.base[...] = (np.arange(N) + 2**31 - 3 + 2**31) % 2**32 - 2**31
+        return stage, eng._dispatch_window(stage, stage.base, W)
+
+    def want(votes):
+        base = torch.from_numpy(((np.arange(N) + 2**31 - 3 + 2**31) % 2**32 - 2**31).astype(np.int32))
+        return k.decide_slots_plain(torch.from_numpy(votes), torch.ones((N, Rn), dtype=torch.bool),
+                                    base, eng.max_phases).numpy()
+
+    held = rng.integers(0, 4, (W, N, Rn)).astype(np.int8)
+    stage_a, fa = dispatch(held)
+    others = [rng.integers(0, 4, (W, N, Rn)).astype(np.int8) for _ in range(3)]
+    taken = []
+    for v in others:
+        st, f = dispatch(v)
+        taken.append(st)
+        np.testing.assert_array_equal(f.result(), want(v))
+    assert all(st is not stage_a for st in taken)
+    np.testing.assert_array_equal(fa.result(), want(held))  # not rewritten
+    np.testing.assert_array_equal(stage_a.votes[:W], held)
+    assert len(eng._ring.stages) == 2
+    # read: stage_a goes out again; a held second window grows the ring
+    st1, f1 = dispatch(others[0])
+    st2, f2 = dispatch(others[1])
+    st3, f3 = dispatch(others[2])
+    assert len({id(st1), id(st2), id(st3)}) == 3 and len(eng._ring.stages) == 3
+    for f, v in ((f3, others[2]), (f1, others[0]), (f2, others[1])):
+        np.testing.assert_array_equal(f.result(), want(v))
+    del f1, f2, f3
+    st4, f4 = dispatch(held)
+    del f4  # dropped unread: its buffer is free again
+    st5, _ = dispatch(held)
+    assert st5 is not None and len(eng._ring.stages) == 3
+
+
+def test_engine_builds_votes_and_bases_in_the_ring():
+    """One device: the full-width lane rewrites a buffer's votes only when
+    its depth changes and its alive rows only when they differ; a mesh
+    engine keeps plain arrays."""
+    N, Rn, W = 8, 3, 4
+    eng = MeshEngine(lambda: VectorShardedKV(N, capacity=1 << 8), N, Rn, window=W, device="cpu")
+    st = eng._fullwidth_votes(3)
+    assert isinstance(st, mesh_window.WindowStage) and st.votes_key == ("full", W, 3)
+    assert (st.votes[:3] == V1).all() and (st.votes[3:W] == 0).all()
+    st.votes[0, 0, 0] = 2  # a rewrite would restore it
+    eng._ring.release(st)
+    again = [eng._fullwidth_votes(3) for _ in range(2)]
+    assert st in again and st.votes[0, 0, 0] == 2
+    eng.crash_replica(1)
+    stage, view = eng._window_votes(W)
+    eng._dispatch_window(stage, stage.base, W).result()
+    np.testing.assert_array_equal(stage.alive, eng.alive)
+    mesh_eng = MeshEngine(lambda: VectorShardedKV(N, capacity=1 << 8), N, Rn,
+                          mesh=_port_mesh(), window=W)
+    assert mesh_eng._ring is None and isinstance(mesh_eng._fullwidth_votes(2), np.ndarray)
+
+
+def _port_mesh():
+    from rabia_tpu_torch.parallel import make_mesh as port_make_mesh
+
+    return port_make_mesh(["cpu"] * 2, 2, 1)
+
+
+def test_mapped_window_refusals():
+    """The mapped launch takes a pinned stage only, and never builds or
+    launches for what it refuses."""
+    kern = mesh_window.MeshWindowKernel()
+    stage = mesh_window.WindowStage(8, 3, 4, pinned=False)
+    kw = dict(seed=0, coin_p1=0.5, max_phases=4)
+    with pytest.raises(ValueError, match="does not fit"):
+        kern.mapped(stage, 5, "cpu", **kw)
+    with pytest.raises(ValueError, match="pinned"):
+        kern.mapped(stage, 4, "cpu", **kw)
+    with pytest.raises(ValueError, match="max_phases"):
+        kern.mapped(stage, 4, "cpu", seed=0, coin_p1=0.5, max_phases=-1)
+    assert kern.launches == 0 and kern._fn is None
+
+
+@pytest.mark.cuda
+def test_mapped_window_on_card_matches_plain():
+    """mw_window on a pinned stage (mapped; decisions written in place)
+    against the plain loop at ragged S, every R the kernel takes a sample
+    of, bases near 2^31-1 (needs a card and nvcc)."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the mapped window runs only on a card")
+    dev = torch.device("cuda", 0)
+    for Sn, Rn, Tn in ((17, 1, 3), (1000, 5, 16), (4096, 5, 16), (300, 64, 2)):
+        votes, alive, base = _inputs(Sn + Rn, Rn, Sn, Tn)
+        k = MeshPhaseKernel(Sn, Rn, seed=9, device=dev)
+        stage = mesh_window.WindowStage(Sn, Rn, Tn, pinned=True)
+        stage.votes[...], stage.alive[...], stage.base[...] = votes, alive, base
+        n0 = mesh_window.MESH_WINDOW.launches
+        k.decide_staged(stage, Tn, 4)
+        stage.wait()
+        assert mesh_window.MESH_WINDOW.launches == n0 + 1
+        want = k.decide_slots_plain(*(torch.from_numpy(a).to(dev) for a in (votes, alive, base)), 4)
+        np.testing.assert_array_equal(stage.decided[:Tn], want.cpu().numpy())

@@ -263,6 +263,9 @@ def test_router_full_delivery_matches_cluster(R, seed):
 # ---- the header, built with g++ ------------------------------------------
 
 _HOST_SHIM = r"""
+#include <algorithm>
+#include <cstring>
+#include <vector>
 #include "node_kernel.cuh"
 static nk::Ptrs ptrs(void* const* f) {
     nk::Ptrs p;
@@ -291,6 +294,60 @@ extern "C" void nk_host_cycle(void* const* in, void* const* out, void* const* ob
         else nk::cycle_shard<true>(pi, po, o, ip, S, K, s, p);
     }
 }
+static nk::OutPtrs outs(uint8_t* base, const long long* off) {
+    nk::OutPtrs o{};
+    if (base == nullptr) return o;
+    o.cast_r2 = base + off[0]; o.r2_vals = (int8_t*)(base + off[1]);
+    o.advanced = base + off[2]; o.new_r1 = (int8_t*)(base + off[3]);
+    o.new_phase = (int32_t*)(base + off[4]); o.newly_decided = base + off[5];
+    o.decided_vals = (int8_t*)(base + off[6]);
+    return o;
+}
+static const uint8_t* at(const uint8_t* base, long long off) {
+    return off < 0 ? nullptr : base + off;
+}
+// node_kernel.cu's launch on the host: every block of T shards as a loop
+// over its threads, phase by phase (stage_in, cycle_tile, put_out), with
+// the shared memory filled with junk first; the planes from a buffer at
+// plane offsets (-1: absent), the results into the device outbox `ob`
+// (may be null) and the image at image offsets (8 mirrored fields, 7
+// outbox planes).
+extern "C" void nk_host_tile_cycle(void* const* in, void* const* out, void* const* ob,
+                                   const uint8_t* planes, const long long* poff, uint8_t* image,
+                                   const long long* ioff, long long S, int R, int K, int me,
+                                   int q, int f1, unsigned seed, unsigned thr, int bytes, int T) {
+    nk::Inputs ip{at(planes, poff[0]), (const int32_t*)at(planes, poff[1]),
+                  (const int8_t*)at(planes, poff[2]), (const int8_t*)at(planes, poff[3]),
+                  (const int8_t*)at(planes, poff[4]), (const int8_t*)at(planes, poff[5])};
+    nk::Params p{R, me, q, f1, seed, thr};
+    nk::OutPtrs o{};
+    if (ob) {
+        o.cast_r2 = (uint8_t*)ob[0]; o.r2_vals = (int8_t*)ob[1]; o.advanced = (uint8_t*)ob[2];
+        o.new_r1 = (int8_t*)ob[3]; o.new_phase = (int32_t*)ob[4];
+        o.newly_decided = (uint8_t*)ob[5]; o.decided_vals = (int8_t*)ob[6];
+    }
+    nk::Ptrs img{};
+    img.slot = (int32_t*)(image + ioff[0]); img.phase = (int32_t*)(image + ioff[1]);
+    img.stage = (int8_t*)(image + ioff[2]); img.my_r1 = (int8_t*)(image + ioff[3]);
+    img.my_r2 = (int8_t*)(image + ioff[4]); img.decided = (int8_t*)(image + ioff[5]);
+    img.done = image + ioff[6]; img.active = image + ioff[7];
+    const nk::OutPtrs iob = K > 0 ? outs(image, ioff + 8) : nk::OutPtrs{};
+    const nk::Ptrs pi = ptrs(in), po = ptrs(out);
+    std::vector<nk::Chunk> smem((nk::tile_bytes(T, R, K) + 15) / 16);
+    for (long long s0 = 0; s0 < S; s0 += T) {
+        const int n = (int)std::min<long long>(T, S - s0);
+        uint8_t* sm = (uint8_t*)smem.data();
+        std::memset(sm, 0xA5, smem.size() * 16);
+        const nk::Tile tile = nk::carve(sm, T, R, K);
+        for (int t = 0; t < T; ++t) nk::stage_in(tile, ip, s0, n, R, t, T);
+        const nk::Inputs tin = nk::tile_inputs(tile, ip, s0, R);
+        for (int t = 0; t < n; ++t) {
+            if (bytes) nk::cycle_tile<false>(pi, po, tile, tin, T, K, s0, t, p);
+            else nk::cycle_tile<true>(pi, po, tile, tin, T, K, s0, t, p);
+        }
+        for (int t = 0; t < T; ++t) nk::put_out(tile, o, img, iob, S, s0, n, T, K, t, T);
+    }
+}
 """
 
 
@@ -301,6 +358,7 @@ class _Host:
         lib = ctypes.CDLL(str(lib_path))
         P, LL, I, U = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_uint
         lib.nk_host_cycle.argtypes = [P, P, P, P, P, P, P, P, P, LL, I, I, I, I, I, U, U, I]
+        lib.nk_host_tile_cycle.argtypes = [P, P, P, P, P, P, P, LL, I, I, I, I, I, U, U, I, I]
         self.lib = lib
 
     def cycle(self, fields: dict, inputs, K: int, me: int, seed: int, p1: float,
@@ -320,6 +378,49 @@ class _Host:
             dec.ctypes.data, S, R, K, me, quorum_size(R), f_plus_1(R), seed & 0xFFFFFFFF,
             coin_threshold(p1), int(bytes_form))
         return out, ob
+
+
+    def tile_cycle(self, fields: dict, inputs, K: int, me: int, seed: int, p1: float,
+                   bytes_form: bool, T: int, image_K: int, in_place: bool = False,
+                   opens: bool = True, device_outbox: bool = True):
+        """node_kernel.cu's launch, block by block: the planes from a
+        PlaneLayout buffer, the results into the state (``out``), the
+        device outbox and a TickLayout image of ``image_K`` steps."""
+        S, R = fields["led1"].shape
+        pl = node_kernel.PlaneLayout(S, R)
+        planes = _aligned_bytes(pl.nbytes)
+        for view, a in zip(pl.views(planes), inputs):
+            view[...] = a
+        present = [opens] * 3 + [K > 0] * 3
+        src = {f: np.ascontiguousarray(fields[f]).copy() for f in STATE}
+        out = src if in_place else {f: np.empty_like(v) for f, v in src.items()}
+        ob = {f: np.empty((K, S), np.dtype(node_kernel._NP[dt]))
+              for f, dt in node_kernel.OUTBOX_FIELDS}
+        for a in ob.values():
+            a.view(np.uint8)[...] = 0x5A
+        layout = node_kernel.TickLayout(S, R, image_K)
+        image = _aligned_bytes(layout.nbytes)
+        image[:] = 0x77
+        mirror = [off for (off, _, _), (_, _, shape) in zip(layout.state, node_kernel.STATE_FIELDS)
+                  if shape == "S"]
+        ioff = mirror + [off for off, _, _ in layout.outbox]
+        poff = [o if p else -1 for o, p in zip(pl.offsets, present)]
+        LL = ctypes.c_longlong
+        ins = (ctypes.c_void_p * 10)(*(src[f].ctypes.data for f in STATE))
+        outs = (ctypes.c_void_p * 10)(*(out[f].ctypes.data for f in STATE))
+        obs = (ctypes.c_void_p * 7)(*(ob[f].ctypes.data for f in OUTBOX))
+        self.lib.nk_host_tile_cycle(
+            ins, outs, obs if K and device_outbox else None, planes.ctypes.data,
+            (LL * 6)(*poff), image.ctypes.data, (LL * 15)(*ioff), S, R, K, me, quorum_size(R),
+            f_plus_1(R), seed & 0xFFFFFFFF, coin_threshold(p1), int(bytes_form), T)
+        return out, ob, layout, image
+
+
+def _aligned_bytes(n: int) -> np.ndarray:
+    """n bytes at a 64-byte boundary (as the pinned buffers lie)."""
+    raw = np.empty(n + 64, np.uint8)
+    off = (-raw.ctypes.data) % 64
+    return raw[off:off + n]
 
 
 @pytest.fixture(scope="module")
@@ -392,6 +493,72 @@ def test_header_step_without_opens_is_node_step(host):
         fields = _np(rst)
 
 
+@pytest.mark.parametrize("R,me,seed,p1,T", [
+    (1, 0, 31, 0.5, 16), (3, 2, 32, 0.5, 32), (5, 4, 33, 0.0, 128), (5, 1, 34, 1.0, 16),
+    (8, 7, 35, 0.5, 64), (64, 9, 36, 0.5, 32), (70, 69, 37, 0.5, 16),
+])
+def test_header_tiles_match_reference(host, R, me, seed, p1, T):
+    """The kernel's block form (node_kernel.cuh's tile section, a block
+    run thread by thread on the host: the planes staged from a PlaneLayout
+    buffer as covering 16-byte chunks, the shards run on the tile, the
+    outputs put back a warp a run): tick after tick, the state, the
+    device outbox and the host image's views (the mirrored fields, the
+    outbox rows of an image as deep as the tick or deeper) equal the
+    reference's node_cycle and start_slots, on S that leave the last
+    block ragged and outbox rows off 16-byte boundaries."""
+    S = 23 if R > 8 else 41 if T < 64 else 300
+    rng = np.random.default_rng(seed)
+    ref = RefNode(S, R, me, seed=seed, coin_p1=p1)
+    fields = _np(ref.init_state())
+    forms = [True] if R > 64 else [False, True]
+    for t, (K, deeper) in enumerate([(0, 1), (1, 0), (3, 2), (8, 0), (1, 3), (3, 0)]):
+        inputs = _tick_inputs(rng, S, R, 2**31 - 6)
+        if R > 8:  # big quorums: fill most rows so shards reach them
+            for i in (3, 4):
+                inputs[i][rng.random((S, R)) < 0.8] = rng.integers(0, 2)
+        jin = list(map(jnp.asarray, inputs))
+        if K == 0:
+            rst, rob = ref.start_slots(_ref_state(fields), *jin[:3]), None
+        else:
+            rst, rob = ref.node_cycle(_ref_state(fields), *jin, K)
+        want = _np(rst)
+        for bytes_form in forms:
+            for in_place in (False, True):
+                got, ob, layout, image = host.tile_cycle(fields, inputs, K, me, seed, p1,
+                                                         bytes_form, T, K + deeper, in_place)
+                ctx = f"tick {t} K={K} T={T} bytes={bytes_form} in_place={in_place}"
+                _assert_same(got, want, STATE, ctx)
+                mirrored = [name for name, _, shape in node_kernel.STATE_FIELDS if shape == "S"]
+                img = dict(zip(STATE, layout.state_views(image)))
+                _assert_same(img, want, mirrored, ctx + " image")
+                if rob is not None:
+                    _assert_same(ob, _np(rob), OUTBOX, ctx + " outbox")
+                    img_ob = dict(zip(OUTBOX, layout.outbox_views(image, K)))
+                    _assert_same(img_ob, _np(rob), OUTBOX, ctx + " image outbox")
+        fields = want
+
+
+def test_header_tiles_without_opens_or_device_outbox(host):
+    """No open planes (a tick that opens no slot reads only the inboxes)
+    and no device outbox: the image alone carries the outbox rows."""
+    S, R, me = 50, 5, 2
+    rng = np.random.default_rng(41)
+    ref = RefNode(S, R, me, seed=4)
+    fields = _np(ref.start_slots(ref.init_state(), *map(jnp.asarray, _tick_inputs(
+        rng, S, R, 9)[:3])))
+    for t in range(4):
+        inputs = _tick_inputs(rng, S, R, 9)
+        rst, rob = ref.node_cycle(_ref_state(fields), jnp.zeros(S, bool),
+                                  *map(jnp.asarray, inputs[1:]), 2)
+        got, ob, layout, image = host.tile_cycle(fields, inputs, 2, me, 4, 0.5, False, 16, 2,
+                                                 opens=False, device_outbox=False)
+        _assert_same(got, _np(rst), STATE, f"tick {t}")
+        assert (ob["new_phase"].view(np.uint8) == 0x5A).all()  # untouched
+        _assert_same(dict(zip(OUTBOX, layout.outbox_views(image))), _np(rob), OUTBOX,
+                     f"tick {t} image outbox")
+        fields = _np(rst)
+
+
 # ---- the tick buffer, fetch and the wrapper -------------------------------
 
 
@@ -459,18 +626,21 @@ def test_wrapper_refuses_cpu_tensors_and_bad_shapes():
     buf = torch.zeros(layout.nbytes, dtype=torch.uint8)
     fields = layout.state_views(buf)
     planes = layout.outbox_views(buf)
-    absent = torch.full((8, 3), ABSENT, dtype=torch.int8)
-    dec = torch.full((8,), ABSENT, dtype=torch.int8)
+    plane_layout = node_kernel.PlaneLayout(8, 3)
+    plane_buf = torch.zeros(plane_layout.nbytes, dtype=torch.uint8)
+    inboxes = [False, False, False, True, True, True]
     kw = dict(me=0, quorum=2, f1=2, seed=0, threshold=0)
+
+    def call(entry, outbox, present):
+        node_kernel.NODE_CYCLE(entry, fields, fields, outbox, plane_buf, plane_layout, present,
+                               buf, layout, 1, **kw)
+
     with pytest.raises(ValueError, match="CUDA"):
-        node_kernel.NODE_CYCLE("node_step", fields, fields, planes, None, None, None,
-                               absent, absent, dec, 1, **kw)
+        call("node_step", planes, inboxes)
     with pytest.raises(ValueError, match="outbox"):
-        node_kernel.NODE_CYCLE("node_step", fields, fields, None, None, None, None,
-                               absent, absent, dec, 1, **kw)
+        call("node_step", None, inboxes)
     with pytest.raises(ValueError, match="unknown entry"):
-        node_kernel.NODE_CYCLE("nope", fields, fields, planes, None, None, None,
-                               absent, absent, dec, 1, **kw)
+        call("nope", planes, inboxes)
     assert node_kernel.NODE_CYCLE.launches == 0
 
 
@@ -484,8 +654,10 @@ def test_default_device_needs_a_card(monkeypatch):
 def test_node_kernel_on_card_matches_plain():
     """The CUDA kernel against the plain versions on the card, every
     field, K in {0, 1, 3}, donating the state (in place, the engine's
-    case) and not (the state given stays as it was; needs a card and
-    nvcc)."""
+    case) and not (the state given stays as it was); the kernel reads its
+    planes from pinned host memory (host arrays, and its own plane views)
+    and the fetch's views of the host image equal the plain state and
+    outbox (needs a card and nvcc)."""
     if not torch.cuda.is_available():
         pytest.skip("no CUDA device: the node kernel runs only on a card")
     dev = torch.device("cuda", 0)
@@ -496,13 +668,24 @@ def test_node_kernel_on_card_matches_plain():
         plain = NodeKernel(S, R, R - 1, seed=3, device=dev)
         a, b = card.init_state(), plain.init_state()
         for K in (0, 1, 3, 3, 1):
-            ins = [t.to(dev) for t in _t(*_tick_inputs(rng, S, R, 2**31 - 4))]
+            host = _tick_inputs(rng, S, R, 2**31 - 4)
+            ins = [t.to(dev) for t in _t(*host)]
             kept = [t.clone() for t in a]
-            f, of = card.node_cycle(a, *ins, K)
+            f, of = card.node_cycle(a, *_t(*host), K)
             assert all(torch.equal(x, y) for x, y in zip(a, kept))
-            a, oa = card.node_cycle(a, *ins, K, donate=True)
+            for view, x in zip(card.planes, host):  # the engine's way: write the views
+                view[...] = x
+            a, oa = card.node_cycle(a, *card.planes, K, donate=True)
             b, ob = plain.node_cycle_plain(b, *ins, K)
             for x, y, z in zip(a, b, f):
                 assert torch.equal(x, y) and torch.equal(z, y)
             for x, y, z in zip(oa, ob, of):
                 assert torch.equal(x, y) and torch.equal(z, y)
+            hst, hob = card.fetch(a, oa if K else None)
+            for name, got in zip(STATE, hst):
+                if got is not None:
+                    np.testing.assert_array_equal(got, getattr(b, name).cpu().numpy())
+            if K:
+                for name, got in zip(OUTBOX, hob):
+                    np.testing.assert_array_equal(got, getattr(ob, name).cpu().numpy())
+        assert card.fetch_bytes == 0 and card.mapped_bytes > 0

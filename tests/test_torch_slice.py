@@ -155,6 +155,40 @@ def test_mesh_window_matches_plain_on_card(cuda, S, R, T, max_phases):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("S,R,T", [(17, 1, 1), (1000, 3, 16), (4096, 5, 16), (999, 64, 3),
+                                   (300, 5, 33)])
+def test_mapped_window_matches_plain_on_card(cuda, S, R, T):
+    """mw_window on a pinned staging buffer (mapped, the engine's window)
+    against the plain loop, one launch a window."""
+    g = torch.Generator().manual_seed(S + R + T)
+    votes, alive, base = chip_smoke.mesh_case(g, S, R, T, "cpu")
+    mk = MeshPhaseKernel(S, R, seed=S, device=cuda)
+    stage = mesh_window.WindowStage(S, R, T, pinned=True)
+    stage.votes[...], stage.alive[...], stage.base[...] = votes.numpy(), alive.numpy(), base.numpy()
+    before = mesh_window.MESH_WINDOW.launches
+    mk.decide_staged(stage, T, 4)
+    stage.wait()
+    want = mk.decide_slots_plain(votes.to(cuda), alive.to(cuda), base.to(cuda), 4)
+    assert np.array_equal(stage.decided[:T], want.cpu().numpy())
+    assert mesh_window.MESH_WINDOW.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_launch_floor_on_card(cuda):
+    """The node kernel on mapped planes and image against plain (host
+    arrays, its own plane views, start_slots + node_steps), and a tick's
+    and a window's timing functions (one launch each, no copy)."""
+    err, cases = chip_smoke.node_kernel_vs_plain(cuda, Rs=(1, 5, 70), Ss=(17, 1000), Ks=(0, 3))
+    assert err == 0 and cases == 12
+    name = torch.cuda.get_device_name(0)
+    tick = chip_smoke.node_tick_times(cuda, name, 1000, 5, 3, reps=10)
+    assert tick["trace"]["copies"] == 0 and tick["trace"]["launches"] == tick["trace"]["calls"]
+    win = chip_smoke.window_times(cuda, name, 1000, 5, 16, reps=10)
+    assert win["max_abs_err"] == 0
+    assert win["trace"]["copies"] == 0 and win["trace"]["launches"] == win["trace"]["calls"]
+
+
+@pytest.mark.cuda
 def test_slice_on_card(cuda):
     assert chip_smoke.kernel_vs_plain(cuda) == (0, 0)  # replica-major, [T,S,R]
     assert chip_smoke.mesh_kernel_vs_plain(cuda) == 0

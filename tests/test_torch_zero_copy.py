@@ -119,7 +119,7 @@ class TestEngineZeroCopy:
         for plane in (eng._inbox1, eng._inbox2, eng._dec_plane):
             assert plane.ctypes.data % 64 == 0
         S = eng.S
-        planes = eng._upload_planes(np.zeros(S, bool), np.zeros(S, np.int32),
+        planes = eng._tick_planes(np.zeros(S, bool), np.zeros(S, np.int32),
                                     np.full(S, V0, np.int8))
         shared = [p.data_ptr() == a.ctypes.data
                   for p, a in zip(planes[3:], (eng._inbox1, eng._inbox2, eng._dec_plane))]
