@@ -215,8 +215,9 @@ and the gateway at config 3's width, 4096 shards x 5 replicas, over TCP on
 the card's host, beside the card: (a) ``GatewayCluster(5, 4096,
 persistence="wal")`` (the WAL in a temporary directory, group-commit
 fsync; every replica's runtime, tick, codec, store and WAL native), 64
-``RabiaClient`` sessions, 4 waves of one SET on every shard (32-byte
-keys, 64-byte values, one writer a key), the replay of every (client,
+``RabiaClient`` sessions, 2 waves of one SET on every shard (cut from 4:
+the depth, to keep the script inside its time; 32-byte keys, 64-byte
+values, one writer a key), the replay of every (client,
 seq) answered from the session cache with no new slot, then every key
 read by ReadIndex through a gateway whose reader is
 ``devkv_read_handler`` over a ``MeshEngine(device_store=True)`` on the
@@ -328,9 +329,28 @@ events, and mw_window launches a window, beside the card's name and
 power limit. No time across cards exists here: one card stands in for
 every device.
 
+Phase 18 (after phase 17) runs the device KV lane and its read lane over
+logical meshes of the card at config 3's width, 4096 shards x 5
+replicas, on its own counts: (a) ``DeviceKVTable`` in shard blocks on the
+4x1, 1x5 and 4x5 meshes against the one-device table on the same inputs
+(four SET windows that fill every slot, two in the row form and two in
+the dictionary form, a GET window, a mixed window and a probe, with a
+replica down and bases near 2^31-1): flags, reads, gathered rows and
+``dump()`` equal, and each window one kv launch a shard block and one
+upload a block; (b) phase 7's device-lane stream on a
+``MeshEngine(device_store=True)`` over the 4x1 mesh (SET, GET and mixed
+windows, the overflow's demotion, re-promotion, a majority crash), every
+response, the slot counters, the decision logs and every replica store
+equal to what phase 7's host lane answered (recorded there, so the host
+lane does not run again), then phase 8's read-lane stream on the same
+mesh, equal to phase 8's with zero slots for probe reads; (c) the
+dictionary SET window and the probe on the one-device table and the 4x1
+table by CUDA events around a chain, host issue included, in turns.
+
 Phase 17 runs on the CPU over logical meshes of up to 8 blocks and over
 gloo ranks in tests/test_torch_parallel.py, test_torch_mesh_engine_mesh.py
-and test_torch_dcn.py.
+and test_torch_dcn.py; phase 18 at 64 shards on logical CPU meshes in
+tests/test_torch_slice.py.
 
 Phase 16 runs on the CPU at small sizes in tests/test_torch_node_kernel.py,
 test_torch_engine_device.py (the gate at config 2's shape on the device
@@ -349,6 +369,7 @@ small size, tests/test_torch_fleet.py).
 from __future__ import annotations
 
 import asyncio
+import collections
 import concurrent.futures
 import contextlib
 import dataclasses
@@ -360,13 +381,15 @@ import sys
 import tempfile
 import time
 
+from typing import Optional
+
 import numpy as np
 import torch
 
 from rabia_tpu_torch import ClusterKernel, MeshEngine, MeshPhaseKernel
 from rabia_tpu_torch.apps.banking import BankCommand, BankingSMR, BankOp
 from rabia_tpu_torch.apps.counter import CounterCommand, CounterSMR
-from rabia_tpu_torch.apps.device_kv import HOST_PACK, DeviceDictOps
+from rabia_tpu_torch.apps.device_kv import HOST_PACK, DeviceDictOps, DeviceKVTable
 from rabia_tpu_torch.apps.kvstore import (
     KVOperation,
     KVStoreSMR,
@@ -471,11 +494,13 @@ PUMP_S = 8.0  # the block pump's seconds in each leg
 NATIVE_LIBS = ("transport", "codec", "hostkernel", "statekernel", "runtime", "walkernel",
                "sessionkernel")
 # phase 13: the durability plane and the gateway at config 3's width (4096
-# shards x 5 replicas): 64 client sessions, 4 waves of one SET a shard
-# (32-byte keys, 64-byte values); the kill -9 trial preloads
+# shards x 5 replicas): 64 client sessions, 2 waves of one SET a shard (cut
+# from 4 to keep the script inside its time: its depth, not its width; its
+# checks read back the last acknowledged write either way), 32-byte keys,
+# 64-byte values; the kill -9 trial preloads
 # benchmarks/recovery_bench.py's 10x point (RB_BASE_KEYS 200 x 10; its 100x
 # point, 20000 keys, until the script outgrew its time: PERF.md section 4)
-P13_SESSIONS, P13_WAVES, P13_KEY, P13_VAL = 64, 4, 32, 64
+P13_SESSIONS, P13_WAVES, P13_KEY, P13_VAL = 64, 2, 32, 64
 P13_PRELOAD = 2000
 P13_LOAD_RATE = 50.0  # the load generator's SETs a second (the trial's)
 # phase 14: a routed fleet of 3 gateways over phase 13's durable cluster at
@@ -1103,8 +1128,10 @@ def kv_kernel_vs_plain(device) -> int:
 def decide_kernel_vs_plain(device) -> int:
     """The kv-window kernel with the window's decision folded in against
     the plain composition (mesh window, wave scan, flags), every output
-    plane, the flags and the untouched input table compared; returns the
-    largest absolute difference seen (must be 0)."""
+    plane, the flags and the untouched input table compared, the table's
+    first shard at global shard 0 or at a shard block's offset
+    (``shard0``); returns the largest absolute difference seen (must be
+    0)."""
     gen = torch.Generator(device=device).manual_seed(16)
     worst, i = 0, 0
     for S, P, K4, VW4 in ((17, 64, 8, 16), (4096, 64, 8, 16), (33, 130, 3, 5)):
@@ -1127,7 +1154,8 @@ def decide_kernel_vs_plain(device) -> int:
                     else:  # shard 0 has no quorum (mesh_case), shard 1 no replica
                         alive[1 % S] = False
                     before = [x.clone() for x in table]
-                    kw = dict(want_table=mode != "lookup", want_reads=mode != "set")
+                    kw = dict(want_table=mode != "lookup", want_reads=mode != "set",
+                              shard0=(0, 1024, 3 * 4096 + 5)[(i // 9) % 3])
                     want = kv_window.decide_window_plain(mk, table, kind, *planes, depth, alive,
                                                          base, max_phases, **kw)
                     got = kv_window.KV_WINDOW.decide(table, kind, *planes, depth, alive, base,
@@ -1210,8 +1238,9 @@ def dict_kernel_vs_plain(device) -> int:
     read-only probe in both forms; against their plain versions: every
     output plane, the flags and the untouched input table. Ragged S, P of
     7, 64 and 130, D in {1, 2, 17, 32}, W in {1, 16, 40, 64, 256}, rows
-    that share a key, op widths at and below the table's. Returns the
-    largest absolute difference seen (must be 0)."""
+    that share a key, op widths at and below the table's, the decisions
+    at global shard 0 or at a shard block's offset (``shard0``). Returns
+    the largest absolute difference seen (must be 0)."""
     gen = torch.Generator(device=device).manual_seed(18)
     worst, i = 0, 0
     for S, P, K4, VW4 in ((17, 7, 8, 16), (1000, 64, 8, 16), (33, 130, 3, 5)):
@@ -1239,6 +1268,7 @@ def dict_kernel_vs_plain(device) -> int:
                     ("lookup", kv_window.KIND_GET, keys_only,
                      {"want_table": False, "want_reads": True}),
                 ):
+                    kw["shard0"] = (0, 2048, 4096 + 17)[i % 3]
                     cases.append((mode, kv_window.decide_window_plain(
                         mk, table, k, *planes, depth, alive, base, 4, idx=idx, **kw),
                         kv_window.KV_WINDOW.decide(
@@ -1492,34 +1522,43 @@ def _snapshot_sans_clock(sm) -> bytes:
     return st.snapshot_bytes()
 
 
-def device_kv_lane(device, S: int, R: int, window: int = 16, P: int = P_FULL, seed: int = 7):
+def device_kv_lane(device, S: int, R: int, window: int = 16, P: int = P_FULL, seed: int = 7,
+                   mesh=None, want: Optional[dict] = None):
     """A device_store=True engine and a host-lane engine, both over
     VectorShardedKV replicas, driven with the same blocks and compared
-    (see phase 7 in the module doc). Returns (stats, device engine)."""
+    (see phase 7 in the module doc). Returns (stats, device engine); the
+    stats hold, under ``"_record"``, the host lane's responses, slot
+    counters, decision logs and store. With ``want`` (such a record) the
+    host lane is not run again: the device engine, over ``mesh`` where one
+    is given, takes the same stream and is held against the record
+    (phase 18 (b))."""
     rng = np.random.default_rng(seed)
     shards = list(range(S))
 
     def make(device_store: bool) -> MeshEngine:
+        where = {"device": device} if mesh is None or not device_store else {"mesh": mesh}
         return MeshEngine(
             lambda: VectorShardedKV(S, capacity=max(1 << 16, 4 * S * P)), S, R,
-            window=window, device=device, device_store=device_store,
-            device_store_kw={"per_shard_capacity": P}, device_store_repromote=2,
+            window=window, device_store=device_store,
+            device_store_kw={"per_shard_capacity": P}, device_store_repromote=2, **where,
         )
 
-    dev, host = make(True), make(False)
+    dev = make(True)
+    host = make(False) if want is None else None
+    engines = (dev,) if host is None else (dev, host)
     mw0 = mesh_window.MESH_WINDOW.launches
-    pairs = []  # (device future, host future) per block
+    pairs = []  # (device future, host future or None) per block
 
-    def both(blocks) -> tuple[float, float]:
-        """Submit + flush on each engine; returns the two wall times."""
+    def both(blocks) -> tuple[float, Optional[float]]:
+        """Submit + flush on each engine; returns the wall times."""
         out = []
-        for eng in (dev, host):
+        for eng in engines:
             t0 = time.perf_counter()
             fs = [eng.submit_block(b) for b in blocks]
             eng.flush()
             out.append((fs, time.perf_counter() - t0))
-        pairs.extend(zip(out[0][0], out[1][0]))
-        return out[0][1], out[1][1]
+        pairs.extend(zip(out[0][0], out[1][0] if host else [None] * len(blocks)))
+        return out[0][1], out[1][1] if host else None
 
     def wave(ops) -> object:
         return build_block(shards, [[op] for op in ops])
@@ -1528,19 +1567,24 @@ def device_kv_lane(device, S: int, R: int, window: int = 16, P: int = P_FULL, se
         _check(dev.device_lane_active == active,
                f"device lane {'inactive' if active else 'active'} {what}")
 
+    def rates(what: str, ops: int, dev_s: float, host_s: Optional[float]) -> dict:
+        out = {f"device_{what}_ops_per_s": ops / dev_s}
+        if host_s is not None:
+            out[f"host_{what}_ops_per_s"] = ops / host_s
+        return out
+
     # a. fill every slot of every shard: 64 full-width SET waves
     fill = [wave([_set_op(_key(s, j), _value(rng, j, s)) for s in shards]) for j in range(P)]
     dev_s, host_s = both(fill)
     lane_is(True, "after the SET waves")
-    stats = {"set_ops": P * S, "device_set_s": dev_s, "host_set_s": host_s,
-             "device_set_ops_per_s": P * S / dev_s, "host_set_ops_per_s": P * S / host_s}
+    stats = {"set_ops": P * S, "device_set_s": dev_s, **rates("set", P * S, dev_s, host_s)}
+    if host_s is not None:
+        stats["host_set_s"] = host_s
     # b. GET waves, some of keys never set
     gets = [wave([_key_op(2, _key(s, int(rng.integers(0, P + 8)))) for s in shards])
             for _ in range(LANE_READ_WAVES)]
-    dev_s, host_s = both(gets)
+    stats.update(rates("get", LANE_READ_WAVES * S, *both(gets)))
     lane_is(True, "after the GET waves")
-    stats.update(device_get_ops_per_s=LANE_READ_WAVES * S / dev_s,
-                 host_get_ops_per_s=LANE_READ_WAVES * S / host_s)
 
     # c. mixed waves: per op SET (of a known key), GET, DEL, EXISTS; shard
     # 0 never deletes, so it stays full for the overflow below
@@ -1552,10 +1596,8 @@ def device_kv_lane(device, S: int, R: int, window: int = 16, P: int = P_FULL, se
         return _key_op((2, 4, 3)[k - 1], _key(s, j))
 
     mixed = [wave([mixed_op(w, s) for s in shards]) for w in range(LANE_READ_WAVES)]
-    dev_s, host_s = both(mixed)
+    stats.update(rates("mixed", LANE_READ_WAVES * S, *both(mixed)))
     lane_is(True, "after the mixed waves")
-    stats.update(device_mixed_ops_per_s=LANE_READ_WAVES * S / dev_s,
-                 host_mixed_ops_per_s=LANE_READ_WAVES * S / host_s)
 
     # d. a fresh key on full shard 0: overflow -> dirty -> rollback -> demote
     both([wave([_set_op(b"fresh", b"!")] + [_key_op(2, _key(s, 0)) for s in shards[1:]])])
@@ -1571,12 +1613,12 @@ def device_kv_lane(device, S: int, R: int, window: int = 16, P: int = P_FULL, se
     stats["repromoted_after_waves"] = w + 1
 
     # f. majority crash: the flush stalls, the block parks; heal commits it
-    for eng in (dev, host):
+    for eng in engines:
         for r in range(R - quorum_size(R) + 1):
             eng.crash_replica(R - 1 - r)
     crash_block = wave([_set_op(_key(s, 2), b"crash") for s in shards])
     parked = []
-    for eng in (dev, host):
+    for eng in engines:
         parked.append(eng.submit_block(crash_block))
         stalled = False
         try:
@@ -1584,11 +1626,11 @@ def device_kv_lane(device, S: int, R: int, window: int = 16, P: int = P_FULL, se
         except RabiaError:
             stalled = True
         _check(stalled and not parked[-1].done(), "flush under a majority crash did not stall")
-    for eng in (dev, host):
+    for eng in engines:
         for r in range(R):
             eng.heal_replica(r)
         eng.flush()
-    pairs.append(tuple(parked))
+    pairs.append((parked[0], parked[1] if host else None))
     lane_is(False, "after the majority crash")
 
     # g. heal: clean waves until the lane re-promotes again
@@ -1598,25 +1640,41 @@ def device_kv_lane(device, S: int, R: int, window: int = 16, P: int = P_FULL, se
             break
     lane_is(True, "after the heal (no re-promotion)")
 
-    # every response frame byte-equal
-    for i, (fd, fh) in enumerate(pairs):
-        _check([list(map(bytes, g)) for g in fd.result()]
-               == [list(map(bytes, g)) for g in fh.result()], f"responses of block {i} differ")
-    _check(bool((dev.next_slot == host.next_slot).all()) and dev.decided_v1 == host.decided_v1,
-           "slot counters differ")
-    for s in sorted({0, 1, S // 2, S - 1}):
-        logs = [{slot: (v, b.id, [c.data for c in b.commands])
-                 for slot, (v, b) in eng.decisions_for(s).items()} for eng in (dev, host)]
-        _check(logs[0] == logs[1], f"decision logs of shard {s} differ")
+    # every response frame byte-equal, the slot counters and decision logs
+    # equal (block ids aside: a replay builds its blocks anew)
+    def frames(f) -> list:
+        return [list(map(bytes, g)) for g in f.result()]
+
+    def logs(eng, ids: bool = False) -> dict:
+        return {s: {slot: (v, b.id if ids else None, [c.data for c in b.commands])
+                    for slot, (v, b) in eng.decisions_for(s).items()}
+                for s in sorted({0, 1, S // 2, S - 1})}
+
+    if host is not None:
+        # both engines took the same block objects: their logs agree on ids too
+        _check(logs(dev, True) == logs(host, True), "decision logs differ")
+        want = {"frames": [frames(fh) for _, fh in pairs], "next_slot": host.next_slot.copy(),
+                "decided_v1": host.decided_v1, "logs": logs(host)}
+    _check(len(pairs) == len(want["frames"]), "the device lane's stream has another length")
+    for i, (fd, _) in enumerate(pairs):
+        _check(frames(fd) == want["frames"][i], f"responses of block {i} differ from the host "
+                                                f"lane's")
+    _check(bool((dev.next_slot == want["next_slot"]).all())
+           and dev.decided_v1 == want["decided_v1"], "slot counters differ")
+    _check(logs(dev) == want["logs"], "decision logs differ")
     # the device table into the replicas: every store equals the host lane's
     dev.sync_to_host()
     lane_is(False, "after sync_to_host")
-    want = _snapshot_sans_clock(host.sms[0])
-    for eng in (dev, host):
+    if host is not None:
+        want["snapshot"] = _snapshot_sans_clock(host.sms[0])
+    for eng in engines:
         for sm in eng.sms:
-            _check(_snapshot_sans_clock(sm) == want, "replica store differs from the host lane's")
-    stats.update(blocks=len(pairs), entries=len(host.sms[0].store), cycles=dev.cycles,
-                 mw_windows=_check_window_launches((dev, host), mw0, "phase 7"))
+            _check(_snapshot_sans_clock(sm) == want["snapshot"],
+                   "replica store differs from the host lane's")
+    stats.update(blocks=len(pairs), entries=len(dev.sms[0].store), cycles=dev.cycles)
+    if mesh is None:
+        stats["mw_windows"] = _check_window_launches(engines, mw0, "phase 7")
+    stats["_record"] = want
     return stats, dev
 
 
@@ -1685,7 +1743,7 @@ def _zipf_keys(rng, n: int, S: int, P: int) -> np.ndarray:
 
 
 def device_read_lane(device, S: int, R: int, window: int = 16, P: int = P_FULL, seed: int = 9,
-                     groups: int = 4):
+                     groups: int = 4, mesh=None, want: Optional[dict] = None):
     """The read lane at full width: a ``device_read_lane=True`` engine, a
     device-lane engine with the read lane off, and a host block-lane
     engine, all filled with phase 7's 64 SET waves, then driven with a
@@ -1697,29 +1755,39 @@ def device_read_lane(device, S: int, R: int, window: int = 16, P: int = P_FULL, 
     first LANE_HOST_GETS GET blocks and the SET block of each stream's
     first group are also held against the host lane (whose GETs are
     Python per op; the other blocks give it only their SET blocks, so the
-    stores stay equal). Returns (stats, read-lane engine)."""
+    stores stay equal). Returns (stats, read-lane engine); the stats hold,
+    under ``"_record"``, the read lane's responses and store. With
+    ``want`` (such a record) only the read-lane engine runs, over ``mesh``
+    where one is given, held against the record (phase 18 (b))."""
     rng = np.random.default_rng(seed)
     shards = list(range(S))
 
     def make(device_store: bool, read_lane: bool = False) -> MeshEngine:
+        where = {"device": device} if mesh is None or not device_store else {"mesh": mesh}
         return MeshEngine(
             lambda: VectorShardedKV(S, capacity=max(1 << 16, 4 * S * P)), S, R,
-            window=window, device=device, device_store=device_store,
-            device_store_kw={"per_shard_capacity": P}, device_read_lane=read_lane,
+            window=window, device_store=device_store,
+            device_store_kw={"per_shard_capacity": P}, device_read_lane=read_lane, **where,
         )
 
-    lane, slots, host = make(True, True), make(True), make(False)
+    lane = make(True, True)
+    slots, host = (make(True), make(False)) if want is None else (None, None)
+    engines = [e for e in (lane, slots, host) if e is not None]
     mw0 = mesh_window.MESH_WINDOW.launches
 
     def wave(ops) -> object:
         return build_block(shards, [[op] for op in ops])
 
+    def frames(f) -> list:
+        return [list(map(bytes, x)) for x in f.result()]
+
     fill = [wave([_set_op(_key(s, j), _value(rng, j, s)) for s in shards]) for j in range(P)]
-    for eng in (lane, slots, host):
+    for eng in engines:
         for b in fill:
             eng.submit_block(b)
         eng.flush()
     stats = {}
+    record = {"frames": []}
     for stream in ("uniform", "zipf"):
         grps = []
         for g in range(groups):
@@ -1733,8 +1801,11 @@ def device_read_lane(device, S: int, R: int, window: int = 16, P: int = P_FULL, 
             grp.append(wave([_set_op(_key(s, int(ks[9, s]) % P), vals[s]) for s in shards]))
             grps.append(grp)
         futs, secs = {}, {}
-        before = (lane.read_lane_stats(), lane.decided_v1, slots.decided_v1)
+        before = (lane.read_lane_stats(), lane.decided_v1,
+                  None if slots is None else slots.decided_v1)
         for name, eng in (("lane", lane), ("slots", slots), ("host", host)):
+            if eng is None:
+                continue
             futs[name] = []
             t0 = time.perf_counter()
             for g, grp in enumerate(grps):
@@ -1742,38 +1813,51 @@ def device_read_lane(device, S: int, R: int, window: int = 16, P: int = P_FULL, 
                 futs[name].append([eng.submit_block(b) for b in sent])
                 eng.flush()
             secs[name] = time.perf_counter() - t0
-        for g in range(groups):
-            for fl, fs in zip(futs["lane"][g], futs["slots"][g]):
-                _check([list(map(bytes, x)) for x in fl.result()]
-                       == [list(map(bytes, x)) for x in fs.result()],
-                       f"read lane responses differ from the consensus GET window's ({stream}, "
-                       f"group {g})")
-        for fl, fh in zip(futs["lane"][0][:LANE_HOST_GETS] + futs["lane"][0][-1:],
-                          futs["host"][0]):
-            _check([list(map(bytes, x)) for x in fl.result()]
-                   == [list(map(bytes, x)) for x in fh.result()],
-                   f"read lane responses differ from the host lane's ({stream})")
+        got = [[frames(f) for f in fs] for fs in futs["lane"]]
+        record["frames"].append(got)
+        if want is not None:
+            _check(got == want["frames"][len(record["frames"]) - 1],
+                   f"read lane responses differ from the recorded lane's ({stream})")
+        else:
+            for g in range(groups):
+                for fl, fs in zip(futs["lane"][g], futs["slots"][g]):
+                    _check(frames(fl) == frames(fs),
+                           f"read lane responses differ from the consensus GET window's "
+                           f"({stream}, group {g})")
+            for fl, fh in zip(futs["lane"][0][:LANE_HOST_GETS] + futs["lane"][0][-1:],
+                              futs["host"][0]):
+                _check(frames(fl) == frames(fh),
+                       f"read lane responses differ from the host lane's ({stream})")
         rl = lane.read_lane_stats()
         read_slots = lane.decided_v1 - before[1] - groups * S  # the SET blocks take S each
         _check(read_slots == 0, f"probe reads consumed {read_slots} slots ({stream})")
         _check(rl["probe"] - before[0]["probe"] == groups * 9 * S,
                f"not every GET was served off consensus ({stream})")
-        _check(slots.decided_v1 - before[2] == groups * 10 * S, "the read-lane-off engine's slots")
+        if slots is not None:
+            _check(slots.decided_v1 - before[2] == groups * 10 * S,
+                   "the read-lane-off engine's slots")
         ops = groups * 10 * S
         stats[stream] = {
             "ops": ops, "probe_windows": rl["probe_windows"] - before[0]["probe_windows"],
             "read_slots": read_slots, "fallback": rl["fallback"] - before[0]["fallback"],
-            "lane_ops_per_s": ops / secs["lane"], "lane_off_ops_per_s": ops / secs["slots"],
+            "lane_ops_per_s": ops / secs["lane"],
         }
-    for eng in (lane, slots, host):
+        if slots is not None:
+            stats[stream]["lane_off_ops_per_s"] = ops / secs["slots"]
+    for eng in engines:
         _check(eng.device_lane_active == (eng is not host), "a device lane demoted")
     # every store equal after the streams
-    for eng in (lane, slots):
-        eng.sync_to_host()
-    want = _snapshot_sans_clock(host.sms[0])
-    for eng in (lane, slots):
-        _check(_snapshot_sans_clock(eng.sms[0]) == want, "a store differs from the host lane's")
-    stats["mw_windows"] = _check_window_launches((lane, slots, host), mw0, "phase 8")
+    for eng in engines:
+        if eng is not host:
+            eng.sync_to_host()
+    record["snapshot"] = (_snapshot_sans_clock(host.sms[0]) if want is None
+                          else want["snapshot"])
+    for eng in engines:
+        _check(_snapshot_sans_clock(eng.sms[0]) == record["snapshot"],
+               "a store differs from the host lane's")
+    if mesh is None:
+        stats["mw_windows"] = _check_window_launches(engines, mw0, "phase 8")
+    stats["_record"] = record
     return stats, lane
 
 
@@ -3292,6 +3376,46 @@ async def _committed_slots(engines) -> list:
     return [(await e.get_statistics()).committed_slots for e in engines]
 
 
+class _CountedReader:
+    """``devkv_read_handler(engine)`` with a tally of its calls: reads the
+    gateway served alone (``reader(shard, key)``) and ``read_many`` calls
+    (the shards of each). A client that hears nothing re-sends its read,
+    and a re-send that arrives after the answer left is served again, so
+    the reads served can exceed the keys read."""
+
+    def __init__(self, engine) -> None:
+        self.engine = engine
+        self.base = devkv_read_handler(engine)
+        self.alone = 0
+        self.calls: list[list[int]] = []
+
+    def __call__(self, shard: int, key: bytes) -> bytes:
+        self.alone += 1
+        return self.base(shard, key)
+
+    def read_many(self, items: list) -> list:
+        self.calls.append([int(s) for s, _ in items])
+        return self.base.read_many(items)
+
+    def launches(self) -> int:
+        """The kv_read launches these calls made: a read alone is one, a
+        ``read_many`` one a window of ``engine.window`` waves (a wave holds
+        at most one read a shard), while the device lane is up."""
+        W = self.engine.window
+        return self.alone + sum(-(-max(collections.Counter(c).values()) // W) for c in self.calls)
+
+    def check(self, kvr: int, rounds: int, what: str) -> None:
+        """On a card: the kv_read launches are exactly the calls' (one a
+        read served alone, one a window of a batch), and the probe rounds'
+        batches carried several reads a call."""
+        _check(self.engine.device_lane_active, f"{what}: the device lane went down")
+        _check(0 < kvr == self.launches(),
+               f"{what}: {kvr} kv_read launches for {len(self.calls)} read_many calls and "
+               f"{self.alone} reads served alone ({rounds} probe rounds)")
+        _check(sum(map(len, self.calls)) > len(self.calls),
+               f"{what}: {len(self.calls)} read_many calls carried no batch")
+
+
 async def _p13_reads(clients, items: list, lat: list) -> list:
     """Every (shard, key) of ``items`` read by ReadIndex, the items dealt
     to the sessions in turn, each session reading its share in order."""
@@ -3398,7 +3522,8 @@ async def durable_gateway_run(device, S: int = S_FULL, R: int = R_FULL, waves: i
         want = {(s, _p13_key(s).encode()): (_p13_val(waves - 1, s).encode(), waves)
                 for s in range(S)}
         _check(table == want, "phase 13 (a): the device table differs from the acked writes")
-        devgw = GatewayServer(cluster.engines[0], reader=devkv_read_handler(mesh),
+        reader = _CountedReader(mesh)
+        devgw = GatewayServer(cluster.engines[0], reader=reader,
                               config=GatewayConfig(gc_interval=3600.0))
         await devgw.start()
         for g in cluster.gateways:
@@ -3439,8 +3564,7 @@ async def durable_gateway_run(device, S: int = S_FULL, R: int = R_FULL, waves: i
         # a probe round's covered reads are one read_many (one kv_read
         # launch); reads waiting for the replica's apply go per shard
         if on_card:
-            _check(0 < kvr <= rounds + S - devgw.stats.reads_batched,
-                   f"phase 13 (a): {kvr} kv_read launches for {rounds} probe rounds")
+            reader.check(kvr, rounds, "phase 13 (a)")
         _check(devgw.stats.reads >= S and devgw.stats.reads_failed == 0,
                f"phase 13 (a): the device reader served {devgw.stats.reads} reads, "
                f"{devgw.stats.reads_failed} failed")
@@ -3463,7 +3587,8 @@ async def durable_gateway_run(device, S: int = S_FULL, R: int = R_FULL, waves: i
             "wal_fs": _fs_type(cluster.wal_dir),
             "replayed_from_cache": replayed, "replay_s": replay_s,
             "reads_equal": equal, "probe_rounds": rounds, "kv_read_launches": kvr,
-            "reads_batched": devgw.stats.reads_batched,
+            "reads_batched": devgw.stats.reads_batched, "read_many_calls": len(reader.calls),
+            "reads_alone": reader.alone,
             "kv_read_device_ms": kvr_ms if on_card else "not measured (CPU)",
             "devkv_read_s": dev_read_s, "devkv_read_p50_s": rp50, "devkv_read_p99_s": rp99,
             "host_read_s": host_read_s, "host_read_p50_s": hp50, "host_read_p99_s": hp99,
@@ -3884,7 +4009,8 @@ async def fleet_run(device, S: int = S_FULL, R: int = R_FULL, waves: int = P14_W
         want = {(s, _p13_key(s, "f").encode()): (_p13_val(waves - 1, s).encode(), waves)
                 for s in range(S)}
         _check(table == want, "phase 14: the device table differs from the acked writes")
-        devgw = GatewayServer(h.cluster.engines[0], reader=devkv_read_handler(mesh),
+        reader = _CountedReader(mesh)
+        devgw = GatewayServer(h.cluster.engines[0], reader=reader,
                               config=GatewayConfig(gc_interval=3600.0))
         await devgw.start()
         for g in h.cluster.gateways:
@@ -3917,8 +4043,7 @@ async def fleet_run(device, S: int = S_FULL, R: int = R_FULL, waves: int = P14_W
                f"phase 14: the device reader served {devgw.stats.reads} reads, "
                f"{devgw.stats.reads_failed} failed")
         if on_card:
-            _check(0 < kvr <= rounds + S - devgw.stats.reads_batched,
-                   f"phase 14: {kvr} kv_read launches for {rounds} probe rounds")
+            reader.check(kvr, rounds, "phase 14")
         hosts = [RabiaClient([h.cluster.endpoint(1)], call_timeout=120.0)
                  for _ in range(sessions)]
         for c in hosts:
@@ -3945,7 +4070,8 @@ async def fleet_run(device, S: int = S_FULL, R: int = R_FULL, waves: int = P14_W
             "reads_equal": equal, "read_retries": retries[0], "read_s": read_s,
             "read_p50_s": rp50, "read_p99_s": rp99,
             "probe_rounds": rounds, "kv_read_launches": kvr,
-            "reads_batched": devgw.stats.reads_batched,
+            "reads_batched": devgw.stats.reads_batched, "read_many_calls": len(reader.calls),
+            "reads_alone": reader.alone,
             "kv_read_device_ms": kvr_ms if on_card else "not measured (CPU)",
             "critpath": cp, "fleet_table": table_txt,
             **{f"feed_{k}": v for k, v in feed.items()},
@@ -3989,15 +4115,15 @@ def probe_graph_ms(mesh, S: int) -> tuple[float, int]:
 # -- phase 15 ------------------------------------------------------------------
 
 
-async def _mesh_lane_cycle(device, S: int, R: int) -> dict:
+async def _mesh_lane_cycle(device, S: int, R: int, mesh=None) -> dict:
     """The mesh fabric's forced demotion and re-promotion at S x R on
-    ``device``: its SET waves on 8 keys a shard (inside the device
-    table's 64 slots), a GET wave every third arrival (the read lane),
-    ``demote_device``, arrivals until the lane re-promotes, then the
-    fabric's verify sweep and convergence."""
+    ``device`` (or over ``mesh``): its SET waves on 8 keys a shard
+    (inside the device table's 64 slots), a GET wave every third arrival
+    (the read lane), ``demote_device``, arrivals until the lane
+    re-promotes, then the fabric's verify sweep and convergence."""
     prof = dataclasses.replace(smoke_profiles()["mesh_device_read_lane"], n_shards=S,
                                n_replicas=R)
-    fab = _MeshFabric(prof, device=device)
+    fab = _MeshFabric(prof, device=None if mesh is not None else device, mesh=mesh)
     await fab.start()
     try:
         i = 1
@@ -4801,6 +4927,149 @@ def sharded_times(device, S: int, R: int) -> dict:
     return out
 
 
+# -- phase 18 ----------------------------------------------------------------
+
+P18_W = 16  # the device lane's window
+P18_SEED = 18
+P18_REPS = 20  # calls in a timed chain
+
+
+def _p18_windows(dkv, S: int, R: int, P: int, seed: int = P18_SEED) -> dict:
+    """Phase 18 (a)'s inputs at S x R, packed by ``dkv``'s packers (host
+    code, the same for every layout): four SET windows that fill P keys a
+    shard (two in the row form, two in the dictionary form), a GET window
+    of keys some never set, a mixed window of SET, GET, DEL and EXISTS, an
+    alive mask with replica R-1 down (a quorum is left) and bases near
+    2^31-1 on every seventh shard."""
+    rng = np.random.default_rng(seed)
+    shards = range(S)
+    W = P18_W
+
+    def wave(ops):
+        return build_block(shards, [[op] for op in ops])
+
+    sets = []
+    for k in range(P // W):
+        blocks = [wave([_set_op(_key(s, k * W + j), _value(rng, k * W + j, s)) for s in shards])
+                  for j in range(W)]
+        sets.append(dkv.pack_window(blocks) if k < 2 else dkv.pack_window_dict(blocks))
+    gets = [wave([_key_op(2, _key(s, int(rng.integers(0, P + 8)))) for s in shards])
+            for _ in range(W)]
+
+    def mixed_op(s):
+        j = int(rng.integers(0, P + 8))
+        k = int(rng.integers(0, 4))
+        return (_set_op(_key(s, j % P), _value(rng, 500, s)) if k == 0
+                else _key_op((2, 3, 4)[k - 1], _key(s, j)))
+
+    kind, mixed = dkv.pack_mixed_window_auto([wave([mixed_op(s) for s in shards])
+                                              for _ in range(W)])[:2]
+    alive = np.ones((S, R), bool)
+    alive[:, R - 1] = False
+    base = rng.integers(0, 2**31 - 1 - W, S).astype(np.int64)
+    base[::7] = 2**31 - 1 - rng.integers(0, W, len(base[::7]))
+    _check(all(isinstance(x, DeviceDictOps) for x in sets[2:]) and isinstance(mixed, DeviceDictOps),
+           "phase 18: a window was not packed as a dictionary")
+    return {"sets": sets, "get": dkv.pack_get_window_auto(gets), "kind": kind, "mixed": mixed,
+            "get_waves": np.nonzero((kind >= 2).any(axis=1))[0].astype(np.int32),
+            "alive": alive, "base": base.astype(np.int32)}
+
+
+def _p18_program(dkv, win: dict, blocks: int, what: str) -> tuple[list, dict]:
+    """Phase 18 (a)'s windows through ``dkv`` in order (each SET and the
+    mixed window adopted): each call must upload once a shard block, and
+    on a card raise the kv kernels' count of its form by ``blocks`` (one
+    launch a shard block) and nothing else, and launch no mesh window
+    (on the CPU the plain versions launch nothing). Returns the outputs
+    on the host and the final ``dump()``."""
+    W, alive, base = P18_W, win["alive"], win["base"]
+    on_card = dkv.device.type == "cuda"
+
+    def form(ops, decide: bool, read: str = "") -> str:
+        f = "dict" if isinstance(ops, DeviceDictOps) else "rows"
+        return f"{read} {f}" if read else f + ("+decide" if decide else "")
+
+    out = []
+
+    def call(key: str, fn):
+        counts, mw0, up0 = dict(kv_window.KV_WINDOW.counts), mesh_window.MESH_WINDOW.launches, \
+            dkv.uploads
+        got = fn()
+        if on_card:
+            torch.cuda.synchronize()
+            counts[key] += blocks
+        _check(kv_window.KV_WINDOW.counts == counts and mesh_window.MESH_WINDOW.launches == mw0,
+               f"phase 18 (a) {what}: a {key} window was not one kv launch a shard block "
+               f"({blocks}) and no mesh launch")
+        _check(dkv.uploads - up0 == blocks,
+               f"phase 18 (a) {what}: a {key} window made {dkv.uploads - up0} uploads")
+        return got
+
+    for ops in win["sets"]:
+        new, flags = call(form(ops, True), lambda ops=ops: dkv.decide_apply(
+            alive, base, W, ops, W=W))
+        dkv.adopt(new)
+        out.append(flags)
+    out += call(form(win["get"], True, "lookup"), lambda: dkv.lookup_window(
+        alive, base, W, win["get"], W=W))
+    new, *rest = call(form(win["mixed"], True), lambda: dkv.mixed_apply(
+        alive, base, W, win["kind"], win["get_waves"], win["mixed"], W=W))
+    dkv.adopt(new)
+    out += rest
+    out += call(form(win["get"], False, "probe"), lambda: dkv.lookup_only(win["get"], W=W))
+    return [x.cpu().numpy() for x in out], dkv.dump()
+
+
+def mesh_tables_vs_one_device(device, S: int, R: int, P: int = P_FULL) -> dict:
+    """Phase 18 (a): the device table in shard blocks on each logical mesh
+    of the card in ``P17_SHAPES`` against the one-device table on the
+    same inputs (:func:`_p18_windows`): flags, reads, gathered rows and
+    ``dump()`` equal after the SET windows in both forms, a GET window, a
+    mixed window and a probe, each one kv launch a shard block. Returns
+    each shape's shard blocks and seconds, and the tables for (c)."""
+    one = DeviceKVTable(S, MeshPhaseKernel(S, R, device=device), per_shard_capacity=P)
+    win = _p18_windows(one, S, R, P)
+    want, want_dump = _p18_program(one, win, 1, "one device")
+    _check(all(f.tolist() == [1, 0, 0] for f in want[:4]), "phase 18 (a): a SET window was dirty")
+    out = {"tables": {"1 device": one}, "win": win}
+    for a, b in P17_SHAPES:
+        t0 = time.perf_counter()
+        mesh = make_mesh([device] * (a * b), a, b)
+        dkv = DeviceKVTable(S, MeshPhaseKernel(S, R, mesh), per_shard_capacity=P)
+        got, dump = _p18_program(dkv, win, a, f"{a}x{b}")
+        for i, (x, y) in enumerate(zip(got, want)):
+            _check(x.shape == y.shape and np.array_equal(x, y),
+                   f"phase 18 (a): output {i} of the {a}x{b} table != one device's")
+        for k, v in want_dump.items():
+            _check(np.array_equal(dump[k], v), f"phase 18 (a): the {a}x{b} table's dump {k} "
+                                               f"!= one device's")
+        out[f"{a}x{b}"] = {"shard_blocks": a, "s": time.perf_counter() - t0}
+        out["tables"][f"{a}x{b}"] = dkv
+    return out
+
+
+def mesh_lane_times(tables: dict, win: dict) -> dict:
+    """Phase 18 (c): the dictionary SET window (``decide_apply``, not
+    adopted) and the probe (``lookup_only``) on the one-device table and
+    the 4 x 1 mesh's, by CUDA events around a chain of calls, host issue
+    included (the copies in, the launches a block, the joins and the flag
+    reduction), in turns (one device, mesh, mesh, one device)."""
+    W, alive, base = P18_W, win["alive"], win["base"]
+    ops = win["sets"][-1]
+    calls = {
+        "dict_set": lambda t: (lambda i=0: t.decide_apply(alive, base, W, ops, W=W)),
+        "probe": lambda t: (lambda i=0: t.lookup_only(win["get"], W=W)),
+    }
+    out = {}
+    for name, make in calls.items():
+        one, mesh = make(tables["1 device"]), make(tables["4x1"])
+        turns = [_time_ms(one, P18_REPS), _time_ms(mesh, P18_REPS), _time_ms(mesh, P18_REPS),
+                 _time_ms(one, P18_REPS)]
+        out[name] = {"one_ms": min(turns[0], turns[3]), "mesh_4x1_ms": min(turns[1], turns[2]),
+                     "turns_ms": turns}
+    return out
+
+
 def _card_rate_bytes_per_s(name: str) -> float:
     """Peak device-memory rate of the card, from its name (data sheets)."""
     if "PCIe" in name:
@@ -4823,6 +5092,15 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
     print(f"card: {smi}")
+    # each phase's seconds, printed on lines of their own before the
+    # kernels line: lap(name) adds the time since the previous lap
+    phase_s: dict = {}
+    t_lap = [t_main]
+
+    def lap(name: str) -> None:
+        now = time.perf_counter()
+        phase_s[name] = phase_s.get(name, 0.0) + now - t_lap[0]
+        t_lap[0] = now
 
     # 1. build the eight CUDA sources (one nvcc per source, started
     # together) and the host pack gather (g++)
@@ -4849,6 +5127,7 @@ def main() -> int:
           f"({', '.join(p.name for p in [*libs.values(), host_lib, *native_libs])})")
     for lib in libs.values():
         print(lib.with_suffix(".log").read_text().strip())
+    lap("1 (build)")
 
     # 2. kernel vs plain, many shapes
     t0 = time.perf_counter()
@@ -4898,6 +5177,8 @@ def main() -> int:
           f"decision) and the read-only probe vs plain: max_abs_err {err8} "
           f"({time.perf_counter() - t0:.2f} s)")
 
+    lap("2, 2b, 2c, 2d, 3, 6, 8 (kernels against their plain versions)")
+
     # ---- the main path: counts reset just before, read just after ----
     _reset_counts()
     t0 = time.perf_counter()
@@ -4923,11 +5204,13 @@ def main() -> int:
     lane = serving_lane(device, S_FULL, R_FULL)
     t7 = time.perf_counter()
     kv_lane, kv_eng = device_kv_lane(device, S_FULL, R_FULL)
+    lane7 = kv_lane.pop("_record")  # the host lane's, for phase 18 (b)
     t7 = time.perf_counter() - t7
     # the device table's programs in both forms, one launch of their form each
     win = lane_programs(kv_eng._dev, S_FULL, R_FULL)
     t8 = time.perf_counter()
     read_lane, rl_eng = device_read_lane(device, S_FULL, R_FULL)
+    lane8 = read_lane.pop("_record")
     t8 = time.perf_counter() - t8
     # 9. the governor's window ladder on phase 7's table, every program
     # through its entry point and held against plain; the governed device
@@ -4972,6 +5255,7 @@ def main() -> int:
         _check(st["native"] > 0 and st["numpy"] == 0,
                f"the C pack gather did not serve every grid window of the main path: {st}")
     # ---- end of the main path ----
+    lap("main path (4, 5, 7, 8, 9)")
 
     # ---- phase 10, the transport engine beside the device plane: its own
     # path, counts reset just before and read just after ----
@@ -5006,6 +5290,7 @@ def main() -> int:
           f"persistence layer, a further wave on every replica: {json.dumps(restart)}")
     print(f"phase 10 path: {p10_mesh} mesh-window launches, {p10_other} launches of the other "
           f"kernels, {t10:.2f} s")
+    lap("10")
 
     # ---- phase 11, the apps over the engine at BASELINE.json configs 1-4:
     # its own path, counts reset just before and read just after ----
@@ -5052,6 +5337,7 @@ def main() -> int:
     print(f"phase 11 path: {p11_mesh} mesh-window launches, {p11_dict} kv-dict launches "
           f"({json.dumps({k: v for k, v in p11_kv.items() if v})}), {p11_other} launches of the "
           f"other kernels, {t11:.2f} s")
+    lap("11")
 
     # ---- phase 12, BASELINE.json configs 5 and 6 over TCP on the card's
     # host, beside the card: its own path, counts reset just before and
@@ -5082,6 +5368,7 @@ def main() -> int:
           f"{tcp6['runtime']['decisions_per_s']:.1f} / {tcp6['asyncio']['decisions_per_s']:.1f}; "
           f"{where}; {json.dumps(tcp6)}")
     print(f"phase 12 path: launches by kernel {json.dumps(p12)}, {t12:.2f} s")
+    lap("12")
 
     # ---- phase 13, the durability plane and the gateway at config 3's
     # width, beside the card: its own path, counts reset just before and
@@ -5102,7 +5389,8 @@ def main() -> int:
     print(f"phase 13 (a) durable gateway cluster, kvstore_smr (native store) {R_FULL} replicas x "
           f"{S_FULL} shards over TCP (127.0.0.1), WalPersistence with group-commit fsync "
           f"(WAL on {gw13['wal_fs']}), {P13_SESSIONS} RabiaClient sessions, {P13_WAVES} waves of "
-          f"one SET a shard ({P13_KEY}-byte keys, {P13_VAL}-byte values; cut: none): "
+          f"one SET a shard ({P13_KEY}-byte keys, {P13_VAL}-byte values; cut: from 4 waves, "
+          f"the depth, to keep the script inside its time): "
           f"{gw13['writes_per_s']:.1f} acknowledged durable writes/s, submit-to-ack p50 "
           f"{gw13['submit_ack_p50_s']:.4f} s p99 {gw13['submit_ack_p99_s']:.4f} s; "
           f"{gw13['wal_fsyncs']} fsyncs, {gw13['wal_bytes']} bytes, "
@@ -5131,6 +5419,7 @@ def main() -> int:
           f"span, seconds summed over the replicas: {json.dumps(gw13['rts_stages'])}; "
           f"{json.dumps(gw13['critpath'])}")
     print(f"phase 13 path: launches by kernel {json.dumps(p13)}, {t13:.2f} s")
+    lap("13")
 
     # ---- phase 14, a routed fleet over the durable cluster at config 3's
     # width, its reads from the card's table: its own path, counts reset
@@ -5171,6 +5460,7 @@ def main() -> int:
     print(table14)
     print(f"phase 14 critical path of the fleet's slow Submits: {_fmt_critpath(fl14['critpath'])}")
     print(f"phase 14 path: launches by kernel {json.dumps(p14)}, {t14:.2f} s")
+    lap("14")
 
     # ---- phase 15, the chaos smoke set, the mesh profile at config 3's
     # width on the card: its own path, counts reset just before and read
@@ -5198,6 +5488,7 @@ def main() -> int:
            f"phase 15: the mesh profile's verify read {mesh15}")
     _check(p15["kv_read"] > 0, "phase 15 never launched the kv-read kernel")
     print(f"phase 15 path: launches by kernel {json.dumps(p15)}, {t15:.2f} s")
+    lap("15")
 
     # ---- phase 16, the engine's node kernel on the card, the CLI and the
     # packers: (b) and (c) compare kernels with their plain versions
@@ -5259,6 +5550,7 @@ def main() -> int:
               f"{json.dumps(r)}")
     print(f"phase 16 path: launches by kernel {json.dumps(p16)}, node kernel by entry "
           f"{json.dumps(p16_node)}, {t16d:.2f} s (d), {time.perf_counter() - t16:.2f} s in all")
+    lap("16")
 
     # ---- phase 17, the device mesh on the card (the card is every device
     # of a logical mesh, and the device of one rank and of two): (b)'s
@@ -5328,6 +5620,56 @@ def main() -> int:
     print(f"phase 17 path: launches by kernel {json.dumps(p17)}, round kernel by entry "
           f"{json.dumps(p17_round)}, the ranks' mw_window launches {p17_ranks}; "
           f"{t17m:.2f} s (a)-(d), {time.perf_counter() - t17:.2f} s in all")
+    lap("17")
+
+    # ---- phase 18, the device KV lane and its read lane over logical
+    # meshes of the card at config 3's width: (a) and (b) on their own
+    # counts, reset just before and read just after; then (c)'s times ----
+    _reset_counts()
+    gc.collect()
+    gc.freeze()
+    t18 = time.perf_counter()
+    tab18 = mesh_tables_vs_one_device(device, S_FULL, R_FULL)
+    t18a = time.perf_counter() - t18
+    mesh18 = make_mesh([device] * 4, 4, 1)
+    lane18, eng18 = device_kv_lane(device, S_FULL, R_FULL, mesh=mesh18, want=lane7)
+    lane18.pop("_record")
+    read18, rl18 = device_read_lane(device, S_FULL, R_FULL, mesh=mesh18, want=lane8)
+    read18.pop("_record")
+    p18 = _kernel_counts()
+    p18_forms = dict(kv_window.KV_WINDOW.counts)
+    t18b = time.perf_counter() - t18 - t18a
+    gc.unfreeze()
+    _check(eng18._dev.mesh is mesh18 and rl18._dev.mesh is mesh18,
+           "phase 18 (b): an engine's table is not in the mesh's shard blocks")
+    _check(p18["kv_dict"] > 0 and p18["kv_window"] > 0 and p18["kv_read"] > 0,
+           f"phase 18 never launched every kv kernel: {p18}")
+    del eng18, rl18
+    times18 = mesh_lane_times(tab18.pop("tables"), tab18.pop("win"))
+    t18 = time.perf_counter() - t18
+    print(f"phase 18 (a) DeviceKVTable at S={S_FULL} R={R_FULL} P={P_FULL} in shard blocks on "
+          f"logical meshes of the card {', '.join(f'{a}x{b}' for a, b in P17_SHAPES)} (shard x "
+          f"replica) against the one-device table on the same inputs: four SET windows filling "
+          f"every slot (two in the row form, two in the dictionary form), a GET window, a mixed "
+          f"window, a probe, replica {R_FULL - 1} down and bases near 2^31-1: flags, reads, "
+          f"gathered rows and dump() equal, each window one kv launch a shard block "
+          f"({json.dumps(tab18)}; {t18a:.2f} s)")
+    print(f"phase 18 (b) phase 7's device KV lane stream on MeshEngine(device_store=True) over "
+          f"the 4x1 mesh (SET, GET and mixed waves, overflow demotion, re-promotion, majority "
+          f"crash): every response, the slot counters, the decision logs and every replica "
+          f"store equal to phase 7's host lane; {json.dumps(lane18)}; phase 8's read-lane "
+          f"stream on the same mesh: responses and store equal to phase 8's, zero slots for "
+          f"probe reads; {json.dumps(read18)} ({t18b:.2f} s)")
+    for prog, r in times18.items():
+        what = ("the dictionary SET window (decide_apply)" if prog == "dict_set"
+                else "the probe (lookup_only)")
+        print(f"phase 18 (c) {what} at S={S_FULL} W={P18_W}, by CUDA events over a chain of "
+              f"{P18_REPS}, host issue included, in turns (one device, 4x1, 4x1, one device): "
+              f"{' / '.join(f'{t:.4f}' for t in r['turns_ms'])} ms; card: {smi}")
+    print(f"phase 18 path: launches by kernel {json.dumps(p18)}, kv kernels by form "
+          f"{json.dumps({k: v for k, v in p18_forms.items() if v})}; {t18a + t18b:.2f} s (a)-(b), "
+          f"{t18:.2f} s in all")
+    lap("18")
 
     q = quorum_size(R_FULL)
     votes = bufs[0]
@@ -5857,9 +6199,9 @@ def main() -> int:
         "route": "cuda",
         "source": "rabia_tpu_torch/csrc/kv_window.cu",
         "replaces": "rabia_tpu/apps/device_kv.py:1218",
-        # and phases 12 and 13's
+        # and phases 12-15's and phase 18's (one a shard block over a mesh)
         "launches": (kv_counts["rows+decide"] + p12["kv_window"] + p13["kv_window"]
-                     + p14["kv_window"] + p15["kv_window"]),
+                     + p14["kv_window"] + p15["kv_window"] + p18["kv_window"]),
         "max_abs_err": max(err6, err6_fold, fold_err, err9),
         "ms": fold_ms,  # with the decision folded in, as the device lane launches it
         "plain_ms": fold_plain_ms,
@@ -5871,9 +6213,9 @@ def main() -> int:
         "route": "cuda",
         "source": "rabia_tpu_torch/csrc/kv_dict.cu",
         "replaces": "rabia_tpu/apps/device_kv.py:1003",
-        # and phases 11 (c), 12 and 13
+        # and phases 11 (c), 12-15 and 18 (one a shard block over a mesh)
         "launches": (kv_counts["dict"] + kv_counts["dict+decide"] + p11_dict + p12["kv_dict"]
-                     + p13["kv_dict"] + p14["kv_dict"] + p15["kv_dict"]),
+                     + p13["kv_dict"] + p14["kv_dict"] + p15["kv_dict"] + p18["kv_dict"]),
         "max_abs_err": max(err8, dict_err, err9),
         "ms": dict_ms,  # SET window with the decision, D = W = 16 (phase 7's fill stream)
         "plain_ms": dict_plain_ms,
@@ -5881,6 +6223,10 @@ def main() -> int:
         "bound_by": "bytes" if dict_bound_ms >= dict_ops_ms else "operations",
         "bytes_bound_ms": dict_bound_ms,
         "ops_bound_ms": dict_ops_ms,
+        # phase 18 (c): the window through DeviceKVTable by CUDA events, host
+        # issue included, on one device and on the 4x1 mesh (a launch a block)
+        "table_ms": times18["dict_set"]["one_ms"],
+        "mesh_4x1_ms": times18["dict_set"]["mesh_4x1_ms"],
         "library_ms": None,  # no single PyTorch call computes an associative match-and-update
     }, {
         "name": "kv_read_probe",
@@ -5888,24 +6234,26 @@ def main() -> int:
         "source": "rabia_tpu_torch/csrc/kv_read.cu",
         "replaces": "rabia_tpu/apps/device_kv.py:850",
         # and phases 13-15's: the gateway's ReadIndex reads (one a probe
-        # round) and the mesh fabric's read lane
+        # round) and the mesh fabric's read lane; and phase 18's
         "launches": (kv_counts["probe dict"] + kv_counts["probe rows"] + p13["kv_read"]
                      + sum(f.get("probe dict", 0) + f.get("probe rows", 0)
-                           for f in (p14_forms, p15_forms))),
+                           for f in (p14_forms, p15_forms, p18_forms))),
         "max_abs_err": max(err8, probe_err, read_err, err9, probe14_err),
         "ms": probe_ms,
         "plain_ms": probe_plain_ms,
         "bound_ms": probe_bound_ms,
         "bound_by": "bytes",
+        "table_ms": times18["probe"]["one_ms"],  # phase 18 (c), as the dictionary row's
+        "mesh_4x1_ms": times18["probe"]["mesh_4x1_ms"],
         "library_ms": None,  # no single PyTorch call matches keys against a slot table
     }, {
         "name": "kv_read_get_window",
         "route": "cuda",
         "source": "rabia_tpu_torch/csrc/kv_read.cu",
         "replaces": "rabia_tpu/apps/device_kv.py:692",
-        # and phases 14-15's GET windows with their decision
+        # and phases 14-15's and 18's GET windows with their decision
         "launches": sum(f.get("lookup dict", 0) + f.get("lookup rows", 0)
-                        for f in (kv_counts, p14_forms, p15_forms)),
+                        for f in (kv_counts, p14_forms, p15_forms, p18_forms)),
         "max_abs_err": max(err6_fold, err8, lookup_err, read_err, err9),
         "ms": lookup_ms,  # the row form with its decision, W=16 on the phase-7 table
         "plain_ms": lookup_plain_ms,
@@ -5917,9 +6265,10 @@ def main() -> int:
         "route": "cuda",
         "source": "rabia_tpu_torch/csrc/mesh_window.cu",
         "replaces": "rabia_tpu/parallel/mesh.py:353",
-        # the main path's, phases 10 to 15
+        # the main path's, phases 10 to 15, 17 and 18 (the demoted lane's host path)
         "launches": (mesh_launches + p10_mesh + p11_mesh + p12["mesh_window"] + p13["mesh_window"]
-                     + p14["mesh_window"] + p15["mesh_window"] + p17["mesh_window"] + p17_ranks),
+                     + p14["mesh_window"] + p15["mesh_window"] + p17["mesh_window"] + p17_ranks
+                     + p18["mesh_window"]),
         "max_abs_err": max(err2b, mw_err, err9, win17["max_abs_err"], win_times["max_abs_err"]),
         "ms": mw_ms,  # T=16 on device tensors, the mesh's blocks (as in every earlier line)
         "plain_ms": mw_plain_ms,
@@ -6007,6 +6356,9 @@ def main() -> int:
         "bound_by": "bytes",
         "library_ms": None,  # no single PyTorch call packs 2-bit codes into words
     } for pname, line in (("pack_codes", 56), ("unpack_codes", 75), ("pack_alive", 84))]
+    lap("timings (phases 4-9, 16 (b)-(c)) and the kernels line")
+    for name_, secs in phase_s.items():
+        print(f"chip_smoke phase {name_}: {secs:.1f} s")
     print(f"chip_smoke: {time.perf_counter() - t_main:.1f} s in all, the build included")
     print(json.dumps({"kernels": kernels}))
     print(smi)

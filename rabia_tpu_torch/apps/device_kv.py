@@ -43,6 +43,23 @@ form; a card runs dictionary windows that write the table on
 reads the dictionary in place. ``lookup_only`` is the
 consensus-free read window of the read lane: no decision, no slot, no
 output table.
+
+Over a mesh the table is cut in shard blocks, as the reference places
+its seven planes with ``P(SHARD_AXIS)``: its width is the decide plane's
+padded ``S``, and shard row i of the mesh holds shards ``[i*S_blk,
+(i+1)*S_blk)`` of every plane on the row's first local device (where
+``MeshPhaseKernel.exchange_window`` leaves the row's gathered window),
+each field a :class:`~rabia_tpu_torch.parallel.mesh.MeshArray`. The
+reference also replicates the table over the replica axis; the port
+keeps one copy a shard row, since every replica of a row applies the
+same decided ops. A window slices its host arrays by block, uploads
+each block's slice in one copy and launches one kernel a shard block,
+with the block's first global shard as the coin's base (``shard0``);
+callers get what one device gives them, on the mesh's first local
+device: the flags reduced (AND of ``all_v1``, OR of overflow and of the
+wrap), the reads joined along the shard axis. A probe crosses no
+replica exchange. One device, or a mesh of one shard row, keeps a single
+:class:`~rabia_tpu_torch.kernel.kv_window.KVTable` of tensors.
 """
 
 from __future__ import annotations
@@ -60,6 +77,7 @@ from rabia_tpu_torch.apps.vector_kv import _RESP_DT, _USED, VectorKVStore
 from rabia_tpu_torch.core.device import to_device_all
 from rabia_tpu_torch.kernel import cuda_build, kv_window
 from rabia_tpu_torch.kernel.kv_window import KIND_GET, VERSION_WRAP, KVTable
+from rabia_tpu_torch.parallel.mesh import SHARD_AXIS, MeshArray
 
 __all__ = [
     "HOST_PACK",
@@ -286,7 +304,7 @@ class DeviceKVTable:
     def __init__(
         self,
         n_shards: int,
-        kernel,  # MeshPhaseKernel: the decide plane and the device
+        kernel,  # MeshPhaseKernel: the decide plane, its mesh or device
         *,
         per_shard_capacity: int = 64,
         key_lanes: int = 4,
@@ -295,18 +313,25 @@ class DeviceKVTable:
         self.n_shards = int(n_shards)
         self.kernel = kernel
         self.device = kernel.device
-        self.S = self.n_shards  # one device: no padding to a mesh axis
+        self.S = int(kernel.S)  # padded shard width (the mesh's shard axis divides it)
+        if self.S < self.n_shards:
+            raise ValueError(f"the decide plane's {self.S} shards hold fewer than {self.n_shards}")
+        mesh = kernel.mesh
+        if mesh is not None and mesh.distributed:
+            raise ValueError("the device table is single-controller only")
+        # the table's shard blocks: None for one device or one shard row
+        self.mesh = mesh if mesh is not None and mesh.shape[SHARD_AXIS] > 1 else None
+        self.S_blk = self.S if self.mesh is None else self.S // mesh.shape[SHARD_AXIS]
         self.P = int(per_shard_capacity)
         self.K = int(key_lanes) * 8
         self.VW = _bucket(int(value_width))
         self.K4 = self.K // 4
         self.VW4 = self.VW // 4
-        S, P, dev = self.S, self.P, self.device
-        z = lambda *shape: torch.zeros(shape, dtype=torch.int32, device=dev)  # noqa: E731
-        self.state = KVTable(
-            torch.zeros((S, P), dtype=torch.bool, device=dev),
-            z(S, P, self.K4), z(S, P), z(S, P), z(S, P, self.VW4), z(S, P), z(S),
-        )
+        S, P = self.S, self.P
+        self.state = self._place([
+            np.zeros((S, P), bool), *(np.zeros(shape, np.int32) for shape in (
+                (S, P, self.K4), (S, P), (S, P), (S, P, self.VW4), (S, P), (S,)))
+        ])
         self.pack_stats = {"native": 0, "numpy": 0, "bounds_trip": 0}
         self.uploads = 0  # host-to-device copies (_upload): one a program call
         self.compiled_on_last_call = False
@@ -640,11 +665,80 @@ class DeviceKVTable:
             planes[2] = planes[4] = None
         return [a if a is None or a.dtype != np.uint32 else a.view(np.int32) for a in planes]
 
-    def _upload(self, arrays: list) -> list:
-        """Host arrays on the device as one copy; None stays None."""
-        sent = iter(to_device_all([a for a in arrays if a is not None], self.device))
+    def _upload(self, arrays: list, device: Optional[torch.device] = None) -> list:
+        """Host arrays on ``device`` (default the table's) as one copy;
+        None stays None."""
+        sent = iter(to_device_all([a for a in arrays if a is not None],
+                                  self.device if device is None else device))
         self.uploads += 1
         return [None if a is None else next(sent) for a in arrays]
+
+    # -- shard blocks (a mesh of more than one shard row) -----------------------
+
+    def _place(self, arrays: list) -> KVTable:
+        """The seven host table arrays of all S shards as the table: on
+        the device, or cut in shard blocks over the mesh."""
+        if self.mesh is None:
+            return KVTable(*(torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+                             for a in arrays))
+        return KVTable(*(MeshArray.cut(self.mesh, np.asarray(a), 0) for a in arrays))
+
+    def _rows(self) -> list:
+        """``(i, position)`` of each shard row in order: block i holds
+        shards ``[i*S_blk, (i+1)*S_blk)`` on the row's first local
+        device."""
+        return sorted(self.mesh.local_rows.items())
+
+    def _join(self, blocks: list) -> KVTable:
+        """A blocked table from each shard row's block table, in row
+        order."""
+        pos = [p for _, p in self._rows()]
+        return KVTable(*(
+            MeshArray(self.mesh, (self.S,) + tuple(blocks[0][f].shape[1:]), 0, None,
+                      dict(zip(pos, (b[f] for b in blocks))))
+            for f in range(len(KVTable._fields))
+        ))
+
+    def _cut(self, arrays: list, axes: list, i: int) -> list:
+        """Block i's slices of host arrays (``axes``: each one's shard
+        axis, None for an array every block takes whole)."""
+        lo, hi = i * self.S_blk, (i + 1) * self.S_blk
+        out = []
+        for a, ax in zip(arrays, axes):
+            if a is not None and ax is not None:
+                a = a[lo:hi] if ax == 0 else a[:, lo:hi]
+            out.append(a)
+        return out
+
+    def _on_blocks(self, host: list, axes: list, state: KVTable, call) -> list:
+        """One upload and one ``call(i, block table, device arrays)`` a
+        shard row; returns each row's result, in row order."""
+        return [
+            call(i, KVTable(*(f.row(i) for f in state)),
+                 self._upload(self._cut(host, axes, i), self.mesh.device_at(p)))
+            for i, p in self._rows()
+        ]
+
+    def _joined(self, parts: list, dim: int) -> torch.Tensor:
+        """Block results (in row order) joined along the shard axis on
+        the table's device."""
+        return torch.cat([t.to(self.device) for t in parts], dim)
+
+    def _joined_reads(self, reads: list):
+        """Per-block :class:`~rabia_tpu_torch.kernel.kv_window.WindowReads`
+        or ``GatheredReads`` joined along the shard axis."""
+        first = reads[0]
+        if isinstance(first, kv_window.GatheredReads):
+            return kv_window.GatheredReads(self._joined([r.meta for r in reads], 2),
+                                           self._joined([r.val for r in reads], 1))
+        return type(first)(*(self._joined([r[f] for r in reads], 1)
+                             for f in range(len(first))))
+
+    def _reduced_flags(self, flags: list) -> torch.Tensor:
+        """The window's flags from its blocks': AND of ``all_v1``, OR of
+        overflow and of the wrap."""
+        f = torch.stack([x.to(self.device) for x in flags])
+        return torch.cat([f[:, :1].amin(0), f[:, 1:].amax(0)])
 
     def _window(self, alive, base, depth: int, kind, ops, W: int, max_phases: int,
                 state: Optional[KVTable], *, values: bool = True, want_table: bool = True,
@@ -656,19 +750,45 @@ class DeviceKVTable:
         ``KIND_GET`` (a read of every non-empty key). Returns ``(new table
         or None, overflow, reads, flags)``."""
         planes = self._host_ops(ops, W, values)
+        n = self.n_shards
+        if self.S > n:
+            # the shards that pad the table to the mesh carry no op and do
+            # not hold the window back (the reference leaves them out of
+            # its votes and of all_v1): every replica of theirs is live,
+            # so they decide whenever the live shards can, and a SET
+            # window's kind plane leaves them empty
+            alive = np.array(alive, bool)
+            alive[n:] = True
+            if kind is None:
+                kind = np.zeros((W, self.S), np.int8)
+                kind[:, :n] = kv_window.KIND_SET
         plane = kind if isinstance(kind, np.ndarray) else None
         if plane is not None and plane.shape[0] < W:
             plane = np.concatenate([plane, np.zeros((W - plane.shape[0], plane.shape[1]),
                                                     plane.dtype)])
-        dev = self._upload([np.asarray(alive, bool), np.asarray(base, np.int32), plane, gidx,
-                            *planes])
-        alive_d, base_d, plane_d, gidx_d, idx, klen, vlen, kwin, vwin = dev
-        out = kv_window.decide_window(
-            self.kernel, self.state if state is None else state,
-            plane_d if plane is not None else kind, klen, vlen, kwin, vwin, depth, alive_d,
-            base_d, max_phases, idx=idx, want_table=want_table, want_reads=want_reads,
-            gidx=gidx_d,
-        )
+        host = [np.asarray(alive, bool), np.asarray(base, np.int32), plane, gidx, *planes]
+        table = self.state if state is None else state
+
+        def run(tbl, dev, shard0=0):
+            alive_d, base_d, plane_d, gidx_d, idx, klen, vlen, kwin, vwin = dev
+            return kv_window.decide_window(
+                self.kernel, tbl, plane_d if plane is not None else kind, klen, vlen, kwin,
+                vwin, depth, alive_d, base_d, max_phases, idx=idx, want_table=want_table,
+                want_reads=want_reads, gidx=gidx_d, shard0=shard0,
+            )
+
+        if self.mesh is None:
+            out = run(table, self._upload(host))
+        else:
+            # the shard axis of each host array: the dictionary's rows
+            # are [S, D], its ranks and every row-form plane [W, S]
+            ops_axis = 0 if planes[0] is not None else 1
+            axes = [0, 0, 1, None, 1] + [ops_axis] * 4
+            parts = self._on_blocks(host, axes, table,
+                                    lambda i, tbl, dev: run(tbl, dev, i * self.S_blk))
+            out = (self._join([p[0] for p in parts]) if want_table else None, None,
+                   self._joined_reads([p[2] for p in parts]) if want_reads else None,
+                   self._reduced_flags([p[3] for p in parts]))
         self._note_call()
         return out
 
@@ -704,11 +824,20 @@ class DeviceKVTable:
         Returns device tensors ``(found[W,S], ver[W,S], vlen[W,S],
         val_words[W,S,VW4])``. A dictionary window's pad waves carry rank
         0 and so read row 0's key, as the reference's probe does."""
-        idx, klen, _, kwin, _ = self._upload(self._host_ops(ops, W, values=False))
-        _, _, reads = kv_window.window(
-            self.state if state is None else state, KIND_GET, klen, None, kwin, None, 0,
-            idx=idx, want_table=False, want_reads=True,
-        )
+        host = self._host_ops(ops, W, values=False)
+        table = self.state if state is None else state
+
+        def run(tbl, dev):
+            idx, klen, _, kwin, _ = dev
+            return kv_window.window(tbl, KIND_GET, klen, None, kwin, None, 0, idx=idx,
+                                    want_table=False, want_reads=True)[2]
+
+        if self.mesh is None:
+            reads = run(table, self._upload(host))
+        else:  # one launch a shard block, no replica exchange
+            axes = [1] + [0 if host[0] is not None else 1] * 4
+            reads = self._joined_reads(
+                self._on_blocks(host, axes, table, lambda i, tbl, dev: run(tbl, dev)))
         self._note_call()
         return tuple(reads)
 
@@ -742,8 +871,9 @@ class DeviceKVTable:
         """The table on the host as columns of its used slots, in (shard,
         slot) order: ``shard``, ``key`` u8[n, K], ``key_len``, ``value``
         u8[n, VW], ``value_len``, ``version``, plus ``shard_version``."""
-        used, keyw, klen, ver, valw, vlen, sver = (x.cpu().numpy() for x in self.state)
-        s_idx, p_idx = np.nonzero(used)
+        used, keyw, klen, ver, valw, vlen, sver = (  # a MeshArray joins its blocks
+            x.numpy() if self.mesh is not None else x.cpu().numpy() for x in self.state)
+        s_idx, p_idx = np.nonzero(used[: self.n_shards])
         S, P = self.S, self.P
         return {
             "shard": s_idx.astype(np.int64),
@@ -752,7 +882,7 @@ class DeviceKVTable:
             "value": valw.view(np.uint8).reshape(S, P, self.VW)[s_idx, p_idx],
             "value_len": vlen[s_idx, p_idx].astype(np.int64),
             "version": ver[s_idx, p_idx].astype(np.int64),
-            "shard_version": sver.astype(np.int64),
+            "shard_version": sver[: self.n_shards].astype(np.int64),
         }
 
     def upload_from(self, sm, seed_cache: Optional[dict] = None) -> bool:
@@ -829,12 +959,10 @@ class DeviceKVTable:
                     zip(sh_sorted.tolist(), store.version[src].tolist()),
                     [blob[i * w : i * w + n] for i, n in enumerate(lens.tolist())],
                 ))
-        sver = np.asarray(store.shard_version[: self.n_shards], np.int32)
-        put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(self.device)  # noqa: E731
-        self.state = KVTable(
-            put(used), put(keyb.view(np.int32)), put(klen), put(ver),
-            put(valb.view(np.int32)), put(vlen), put(sver),
-        )
+        sver = np.zeros(S, np.int32)
+        sver[: self.n_shards] = store.shard_version[: self.n_shards]
+        self.state = self._place([used, keyb.view(np.int32), klen, ver, valb.view(np.int32),
+                                  vlen, sver])
         return True
 
     def sync_into(self, sm, dump: Optional[dict] = None) -> None:

@@ -774,9 +774,10 @@ class _MeshFabric:
     consensus path, and the auto-repromote must re-engage the lane —
     with correct write barriers — while arrivals keep firing.
 
-    The engine runs over ``mesh=make_mesh(...)``, as the reference's: a
-    1 x 1 mesh of ``device`` (CUDA unless the caller passes another), on
-    which the device KV lane runs."""
+    The engine runs over ``mesh``, as the reference's runs over
+    ``make_mesh()``; by default a 1 x 1 mesh of ``device`` (CUDA unless
+    the caller passes another). Over a mesh of several shard blocks the
+    device table is cut in blocks and each window launches once a block."""
 
     name = "mesh"
 
@@ -785,7 +786,7 @@ class _MeshFabric:
     KEY_SPACE = 512
     WARM_KEYS = 64
 
-    def __init__(self, profile: ChaosProfile, device=None) -> None:
+    def __init__(self, profile: ChaosProfile, device=None, mesh=None) -> None:
         from rabia_tpu_torch.apps.vector_kv import VectorShardedKV
         from rabia_tpu_torch.core.device import resolve_device
         from rabia_tpu_torch.parallel import MeshEngine, make_mesh
@@ -796,7 +797,7 @@ class _MeshFabric:
             lambda: VectorShardedKV(n_shards, capacity=1 << 14),
             n_shards=n_shards,
             n_replicas=profile.n_replicas,
-            mesh=make_mesh([resolve_device(device)]),
+            mesh=make_mesh([resolve_device(device)]) if mesh is None else mesh,
             window=8,
             device_store=True,
             # a device table that holds every key the fabric writes: a
@@ -979,6 +980,7 @@ class _MeshFabric:
             "keys_per_shard_max": int(keys.max(initial=0)),
             "device_table_slots": int(self.eng._dev.P),
             "device": str(self.eng.device),
+            "mesh": [self.eng.mesh.shape["shard"], self.eng.mesh.shape["replica"]],
         }
 
     def engines(self) -> list:
@@ -1580,18 +1582,19 @@ def collect_evidence(engines: list) -> dict:
 
 
 async def run_profile(
-    profile: ChaosProfile, verbose: bool = True, *, device=None
+    profile: ChaosProfile, verbose: bool = True, *, device=None, mesh=None
 ) -> dict:
     """Execute one profile end-to-end; returns its scenario report (the
     matrix entry — schema in docs/SCENARIOS.md). ``device`` is where the
-    mesh fabric's engine runs (CUDA unless the caller passes another)."""
+    mesh fabric's engine runs (CUDA unless the caller passes another), or
+    ``mesh`` the mesh it runs over (default a 1 x 1 mesh of ``device``)."""
 
     def log(msg: str) -> None:
         if verbose:
             print(f"# [{profile.name}] {msg}", file=sys.stderr)
 
     if profile.fabric == "mesh":
-        fabric = _MeshFabric(profile, device=device)
+        fabric = _MeshFabric(profile, device=device, mesh=mesh)
     else:
         fabric = {
             "sim": _SimFabric, "tcp": _TcpFabric, "fleet": _FleetFabric,

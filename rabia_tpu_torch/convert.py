@@ -20,7 +20,10 @@ bytes, so neither package imports the other:
   seven arrays of a device KV table (a reference ``DeviceKVTable.state``
   fetched as numpy, u32 words and all) to and from the port's
   ``KVTable``, so a reference table loads into the port and the two are
-  compared field by field.
+  compared field by field; ``device_table_to_blocks`` /
+  ``device_table_from_blocks`` cut them into a mesh's shard blocks (the
+  layout ``DeviceKVTable`` keeps over a mesh, and the reference's
+  ``P("shard")``) and join them back.
 """
 
 from __future__ import annotations
@@ -163,13 +166,10 @@ def engine_state_from_jax(ckpt: Mapping) -> PersistedEngineState:
     )
 
 
-def device_table_from_numpy(fields, device: DeviceLike, n_shards: Optional[int] = None) -> KVTable:
-    """A ``KVTable`` on ``device`` from the seven table arrays: a mapping
-    keyed by ``KVTable`` field names, or a sequence in the reference's
-    ``DeviceKVTable.state`` order (used, key words, key length, version,
-    value words, value length, shard version). Key and value words keep
-    their bits as int32. ``n_shards`` drops the shard columns past it
-    (the reference pads its shards to its mesh)."""
+def _table_arrays(fields, n_shards: Optional[int] = None) -> list[np.ndarray]:
+    """The seven table arrays in the port's dtypes (bool, and int32 bit
+    patterns), from a mapping keyed by ``KVTable`` field names or a
+    sequence in ``KVTable`` order."""
     if isinstance(fields, Mapping):
         arrays = [fields[name] for name in KVTable._fields]
     else:
@@ -187,11 +187,38 @@ def device_table_from_numpy(fields, device: DeviceLike, n_shards: Optional[int] 
             a = a.view(np.int32)
         else:
             a = a.astype(np.int32)
-        out.append(torch.from_numpy(np.ascontiguousarray(a)).to(device))
-    return KVTable(*out)
+        out.append(np.ascontiguousarray(a))
+    return out
+
+
+def device_table_from_numpy(fields, device: DeviceLike, n_shards: Optional[int] = None) -> KVTable:
+    """A ``KVTable`` on ``device`` from the seven table arrays: a mapping
+    keyed by ``KVTable`` field names, or a sequence in the reference's
+    ``DeviceKVTable.state`` order (used, key words, key length, version,
+    value words, value length, shard version). Key and value words keep
+    their bits as int32. ``n_shards`` drops the shard columns past it
+    (the reference pads its shards to its mesh)."""
+    return KVTable(*(torch.from_numpy(a).to(device) for a in _table_arrays(fields, n_shards)))
 
 
 def device_table_to_numpy(table: KVTable) -> dict[str, np.ndarray]:
     """The seven table arrays as numpy, keyed by ``KVTable`` field name
     (key and value words as int32 bit patterns)."""
     return {name: getattr(table, name).cpu().numpy() for name in KVTable._fields}
+
+
+def device_table_to_blocks(fields, mesh) -> KVTable:
+    """A ``KVTable`` over ``mesh`` from the seven full table arrays (as
+    :func:`device_table_from_numpy` takes them, all S shards, S padded to
+    the mesh's shard axis): each field a ``MeshArray`` cut in shard
+    blocks, block i (shards ``[i*S/a, (i+1)*S/a)``) on shard row i's
+    first local device, the layout ``DeviceKVTable`` keeps over a mesh."""
+    from rabia_tpu_torch.parallel.mesh import MeshArray
+
+    return KVTable(*(MeshArray.cut(mesh, a, 0) for a in _table_arrays(fields)))
+
+
+def device_table_from_blocks(table: KVTable) -> dict[str, np.ndarray]:
+    """The seven full table arrays of a blocked ``KVTable`` (one
+    controller: every block is local), keyed by field name."""
+    return {name: getattr(table, name).numpy() for name in KVTable._fields}

@@ -136,6 +136,7 @@ struct Decide {
     uint32_t seed, threshold;
     int32_t* flags;      // i32[3] out
     uint32_t* scratch;   // u32[2], zero between launches
+    uint32_t shard0;     // the global index of shard 0 (the coin's shard is shard0 + s)
 };
 
 __host__ __device__ inline int64_t align16(int64_t x) { return (x + 15) / 16 * 16; }
@@ -676,7 +677,8 @@ kv_dict_kernel(Table in, OutTable out, Ops ops, kvd::ReadOut rd, uint8_t* overfl
                 int n_alive = 0;
                 for (int r = 0; r < d.R; ++r) n_alive += a[r] != 0;
                 if (!kvd::all_v1_at_once(n_alive, dc.quorum, dc.f1, dc.max_phases) &&
-                    mw::decide_v1_wave(m.v1row, a, d.R, m.base[g], static_cast<uint32_t>(s0 + g),
+                    mw::decide_v1_wave(m.v1row, a, d.R, m.base[g],
+                                       dc.shard0 + static_cast<uint32_t>(s0 + g),
                                        t, dc.quorum, dc.f1, dc.seed, dc.threshold,
                                        dc.max_phases) != mw::V1)
                     m.bits[g] = kvw::FLAG_NOT_ALL_V1;
@@ -863,7 +865,7 @@ extern "C" int kvd_decide_window(void* const* table, void* const* out, void* con
               static_cast<int>(params[1]), static_cast<int>(params[2]),
               static_cast<int>(params[3]), static_cast<uint32_t>(params[4]),
               static_cast<uint32_t>(params[5]), static_cast<int32_t*>(decide[2]),
-              static_cast<uint32_t*>(decide[3])};
+              static_cast<uint32_t*>(decide[3]), static_cast<uint32_t>(params[6])};
     if (d.R < 1 || d.R > mw::MAX_REPLICAS || dc.max_phases < 0 || dc.alive == nullptr ||
         dc.base == nullptr || dc.flags == nullptr || dc.scratch == nullptr || d.S == 0) {
         return static_cast<int>(cudaErrorInvalidValue);

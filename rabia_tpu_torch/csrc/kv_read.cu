@@ -99,6 +99,7 @@ struct Decide {
     uint32_t seed, threshold;
     int32_t* flags;     // i32[3] out
     uint32_t* scratch;  // u32[2]: blocks done, OR of shard flag bits; zero between launches
+    uint32_t shard0;    // the global index of shard 0 (the coin's shard is shard0 + s)
 };
 
 __device__ __forceinline__ bool aligned16(const void* p) {
@@ -210,7 +211,8 @@ kv_read_kernel(Table in, Ops ops, Reads rd, Dims d, Decide dc) {
             for (int t0 = 0; t0 < d.depth; t0 += 32) {
                 const int t = t0 + lane;
                 const uint32_t prefix =
-                    mw::coin_prefix(dc.seed, static_cast<uint32_t>(s), mw::slot_of(base, t));
+                    mw::coin_prefix(dc.seed, dc.shard0 + static_cast<uint32_t>(s),
+                                    mw::slot_of(base, t));
                 const bool ok = t >= d.depth || mw::decide(mw::Masks{0, v1, alive}, dc.quorum,
                                                            dc.f1, prefix, dc.threshold,
                                                            dc.max_phases) == mw::V1;
@@ -300,7 +302,7 @@ extern "C" int kvr_window(void* const* table, void* const* out, void* const* ops
 // kvw_decide_window's arguments: decide = alive u8[S,R], base i32[S],
 // flags i32[3] (out), scratch u32[2] (zero before the launch; the launch
 // leaves it zero); params = R (1..64), quorum, f1, max_phases, seed,
-// coin threshold.
+// coin threshold, shard0 (the global index of the table's first shard).
 extern "C" int kvr_decide_window(void* const* table, void* const* out, void* const* ops,
                                  void* const* reads, const long long* dims,
                                  void* const* decide, const long long* params, void* stream) {
@@ -313,7 +315,8 @@ extern "C" int kvr_decide_window(void* const* table, void* const* out, void* con
               static_cast<int>(params[0]), static_cast<int>(params[1]),
               static_cast<int>(params[2]), static_cast<int>(params[3]),
               static_cast<uint32_t>(params[4]), static_cast<uint32_t>(params[5]),
-              static_cast<int32_t*>(decide[2]), static_cast<uint32_t*>(decide[3])};
+              static_cast<int32_t*>(decide[2]), static_cast<uint32_t*>(decide[3]),
+              static_cast<uint32_t>(params[6])};
     if (dc.R < 1 || dc.R > mw::MAX_REPLICAS || dc.max_phases < 0 || dc.alive == nullptr ||
         dc.base == nullptr || dc.flags == nullptr || dc.scratch == nullptr || d.S == 0) {
         return static_cast<int>(cudaErrorInvalidValue);

@@ -161,6 +161,7 @@ struct Decide {
     uint32_t seed, threshold;
     int32_t* flags;      // i32[3] out
     uint32_t* scratch;   // u32[2]: blocks done, OR of shard flag bits; zero between launches
+    uint32_t shard0;     // the global index of shard 0 (the coin's shard is shard0 + s)
 };
 
 __host__ __device__ inline int64_t align16(int64_t x) { return (x + 15) / 16 * 16; }
@@ -829,7 +830,8 @@ __device__ bool decide_shard(const Smem& m, const Dims& d, const Decide& dc, int
     for (int t0 = 0; t0 < d.depth; t0 += 32) {
         const int t = t0 + lane;
         const bool v1 = t >= d.depth ||
-                        mw::decide_v1_wave(m.v1row, m.alive, d.R, base, static_cast<uint32_t>(s),
+                        mw::decide_v1_wave(m.v1row, m.alive, d.R, base,
+                                           dc.shard0 + static_cast<uint32_t>(s),
                                            t, dc.quorum, dc.f1, dc.seed, dc.threshold,
                                            dc.max_phases) == mw::V1;
         all_v1 = __all_sync(FULL, v1) && all_v1;
@@ -1039,7 +1041,8 @@ extern "C" int kvw_window(void* const* table, void* const* out, void* const* ops
 // kvw_window, plus the window's decision in the same launch. decide: alive
 // u8[S,R] (0/1), base i32[S], flags i32[3] (out), scratch u32[2] (zero
 // before the launch; the launch leaves it zero). params: R (1..64),
-// quorum, f1, max_phases, seed (32 bits), coin threshold.
+// quorum, f1, max_phases, seed (32 bits), coin threshold, shard0 (the
+// global index of the table's first shard: a shard block's offset).
 extern "C" int kvw_decide_window(void* const* table, void* const* out, void* const* ops,
                                  void* const* reads, const long long* dims,
                                  void* const* decide, const long long* params, void* stream) {
@@ -1054,7 +1057,7 @@ extern "C" int kvw_decide_window(void* const* table, void* const* out, void* con
               static_cast<int>(params[1]), static_cast<int>(params[2]),
               static_cast<int>(params[3]), static_cast<uint32_t>(params[4]),
               static_cast<uint32_t>(params[5]), static_cast<int32_t*>(decide[2]),
-              static_cast<uint32_t*>(decide[3])};
+              static_cast<uint32_t*>(decide[3]), static_cast<uint32_t>(params[6])};
     if (d.R < 1 || d.R > mw::MAX_REPLICAS || dc.max_phases < 0 || dc.alive == nullptr ||
         dc.base == nullptr || dc.flags == nullptr || dc.scratch == nullptr || d.S == 0) {
         return static_cast<int>(cudaErrorInvalidValue);

@@ -332,7 +332,9 @@ def devkv_read_handler(engine) -> ReadHandler:
 
     The handler also exposes ``read_many`` so the gateway batches ALL
     reads covered by one probe round into a SINGLE device dispatch: one
-    plane fetch per probe window instead of one per read. With the
+    plane fetch per probe window instead of one per read. Over a mesh the
+    table is in shard blocks and the probe is one read-kernel launch a
+    block, with no replica exchange; its reads come back joined. With the
     device lane demoted, reads fall back to the host replica store (the
     semantics owner, synced at demotion). Drive the engine and this
     handler from one thread — the device table is not locked."""

@@ -514,10 +514,13 @@ class KVWindowKernel:
         want_table: bool = True,
         want_reads: bool = False,
         gidx: Optional[torch.Tensor] = None,
+        shard0: int = 0,
     ) -> tuple[Optional[KVTable], torch.Tensor, Optional[WindowReads], torch.Tensor]:
         """The window with its decision, one launch. Returns ``(new table
         or None, overflow bool[S], reads or None, flags i32[3])``; the
-        reads are :class:`GatheredReads` with ``gidx``.
+        reads are :class:`GatheredReads` with ``gidx``. Shard ``s`` of the
+        table is global shard ``shard0 + s`` for the coin (a shard block's
+        offset over a mesh).
 
         The flags' scratch words are cached per device and left zero by
         every launch, so windows on one device must not run on two
@@ -534,6 +537,8 @@ class KVWindowKernel:
             raise ValueError(f"base must be int32[{S}], got {base.dtype}{list(base.shape)}")
         if max_phases < 0:
             raise ValueError(f"max_phases must be >= 0, got {max_phases}")
+        if not 0 <= shard0 < 2**32:
+            raise ValueError(f"shard0 must be a uint32, got {shard0}")
         if S == 0:
             raise ValueError("the window's decision needs at least one shard")
         dev = table.used.device
@@ -548,9 +553,9 @@ class KVWindowKernel:
         if scratch is None:
             scratch = self._scratch[dev] = torch.zeros(2, dtype=I32, device=dev)
         flags = torch.empty(3, dtype=I32, device=dev)
-        params = (ctypes.c_longlong * 6)(
+        params = (ctypes.c_longlong * 7)(
             R, quorum_size(R), f_plus_1(R), max_phases, int(seed) & 0xFFFFFFFF,
-            coin_threshold(coin_p1),
+            coin_threshold(coin_p1), shard0,
         )
         out, overflow, reads = self._launch(
             table, kind, klen, vlen, kwin, vwin, depth, idx, want_table, want_reads, gidx, True,
@@ -579,17 +584,19 @@ def window(table: KVTable, kind, klen, vlen, kwin, vwin, depth: int, *,
 def decide_window_plain(mesh, table: KVTable, kind, klen, vlen, kwin, vwin, depth: int,
                         alive: torch.Tensor, base: torch.Tensor, max_phases: int, *,
                         idx: Optional[torch.Tensor] = None, want_table: bool = True,
-                        want_reads: bool = False, gidx: Optional[torch.Tensor] = None):
+                        want_reads: bool = False, gidx: Optional[torch.Tensor] = None,
+                        shard0: int = 0):
     """The device lane's window in plain PyTorch: every live replica of
     ``mesh`` (a ``MeshPhaseKernel``) votes V1 for the ``depth`` waves that
-    carry ops, the plain mesh window decides them, the plain wave scan
-    applies the window, and the flags reduce both. Returns what
-    :meth:`KVWindowKernel.decide` returns; the flags are ``i32[3] =
-    [all_v1, overflow anywhere, a shard version at the wrap]``."""
+    carry ops, the plain mesh window decides them (shard ``s`` as global
+    shard ``shard0 + s``), the plain wave scan applies the window, and the
+    flags reduce both. Returns what :meth:`KVWindowKernel.decide` returns;
+    the flags are ``i32[3] = [all_v1, overflow anywhere, a shard version
+    at the wrap]``."""
     W, S = window_waves(kind, klen, idx), table.used.shape[0]
     votes = torch.zeros((W, S, alive.shape[1]), dtype=I8, device=klen.device)
     votes[:depth] = V1
-    decided = mesh.decide_slots_plain(votes, alive, base, max_phases)
+    decided = mesh.decide_slots_plain(votes, alive, base, max_phases, shard0)
     all_v1 = (decided[:depth] == V1).all()
     new, overflow, reads = kv_window_plain(table, kind, klen, vlen, kwin, vwin, depth, idx=idx,
                                            want_reads=want_reads, gidx=gidx)
@@ -600,12 +607,14 @@ def decide_window_plain(mesh, table: KVTable, kind, klen, vlen, kwin, vwin, dept
 def decide_window(mesh, table: KVTable, kind, klen, vlen, kwin, vwin, depth: int,
                   alive: torch.Tensor, base: torch.Tensor, max_phases: int, *,
                   idx: Optional[torch.Tensor] = None, want_table: bool = True,
-                  want_reads: bool = False, gidx: Optional[torch.Tensor] = None):
+                  want_reads: bool = False, gidx: Optional[torch.Tensor] = None,
+                  shard0: int = 0):
     """The device lane's window, decided and applied: one kernel launch
     for a CUDA table, the plain version for a CPU table. ``mesh`` (a
-    ``MeshPhaseKernel``) gives the coin's seed and probability."""
+    ``MeshPhaseKernel``) gives the coin's seed and probability; ``shard0``
+    is the table's first global shard (a shard block's offset)."""
     dev = table.used.device
-    kw = dict(idx=idx, want_table=want_table, want_reads=want_reads, gidx=gidx)
+    kw = dict(idx=idx, want_table=want_table, want_reads=want_reads, gidx=gidx, shard0=shard0)
     if dev.type == "cuda":
         return KV_WINDOW.decide(table, kind, klen, vlen, kwin, vwin, depth, alive, base,
                                 seed=mesh.seed, coin_p1=mesh.coin_p1, max_phases=max_phases, **kw)

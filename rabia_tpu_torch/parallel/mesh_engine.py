@@ -38,7 +38,8 @@ Three lanes:
   ``VectorShardedKV`` replicas): the KV table lives on the device
   (:class:`~rabia_tpu_torch.apps.device_kv.DeviceKVTable`) and each
   window is decided and applied there, in one kernel launch on a card
-  (the window's decision is folded into the kv-window kernel, so this
+  (one a shard block over a mesh; the window's decision is folded into
+  the kv-window kernel, so this
   lane makes no ``slot_window`` call). Windows pipeline
   ``device_store_inflight`` deep: window k+1 dispatches on window k's
   unresolved output table while k's 12-byte flags travel to pinned host
@@ -70,10 +71,12 @@ the transport engine's ``PersistedEngineState``; :meth:`MeshEngine.save_to`
 / :meth:`MeshEngine.load_from` carry it through a
 :class:`~rabia_tpu_torch.core.persistence.PersistenceLayer`.
 
-Not ported yet, and refused with ``NotImplementedError`` rather than
-ignored: the device-resident KV lane on a mesh of more than one block
-(ROADMAP Queue 1, item 5b). A multi-controller mesh refuses it with the
-reference's ``ValidationError``.
+The device-resident KV lane runs on one device and on any
+single-controller mesh: over a mesh its table is cut in shard blocks and
+a window is one kv-kernel launch a shard block
+(:class:`~rabia_tpu_torch.apps.device_kv.DeviceKVTable`). A
+multi-controller mesh refuses it with the reference's
+``ValidationError``.
 """
 
 from __future__ import annotations
@@ -566,11 +569,6 @@ class MeshEngine:
                 raise ValidationError(
                     "device_store is single-controller only; multi-host runs use the "
                     "host-apply lane"
-                )
-            if mesh is not None and mesh.size > 1:
-                raise NotImplementedError(
-                    "device_store on a mesh of more than one block is not ported yet "
-                    "(ROADMAP Queue 1, item 5b)"
                 )
             if not all(
                 hasattr(sm, "store") and callable(getattr(sm, "apply_block", None))

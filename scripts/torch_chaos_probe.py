@@ -2,11 +2,14 @@
 
     python3 scripts/torch_chaos_probe.py --profile coalesce_flap_restart --runs 10
     python3 scripts/torch_chaos_probe.py --profile mesh_device_read_lane --shards 4096 --replicas 5 --device cuda
+    python3 scripts/torch_chaos_probe.py --profile mesh_device_read_lane --mesh 4,1 --device cpu
     python3 scripts/torch_chaos_probe.py --phases 14,15 --device cuda
 
 The first two forms run one of ``chaos.smoke_profiles()`` ``--runs`` times
-through ``run_profile`` (the mesh fabric's engine on ``--device``; its
-width from ``--shards`` / ``--replicas``) and print, a run a line, its
+through ``run_profile`` (the mesh fabric's engine on ``--device``, over a
+logical ``--mesh A,B`` of it, A shard blocks x B replica blocks, where
+given; its width from ``--shards`` / ``--replicas``) and print, a run a
+line, its
 pass, problems, outcomes, availability, settle p50/p99 and seconds, the
 critical-path gate's control, fault and recovered milliseconds with the
 recovery probes' segments, and the mesh fabric's summary (with how long
@@ -32,19 +35,25 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
-def run_profiles(name: str, runs: int, device: str, shards: int, replicas: int) -> None:
+def run_profiles(name: str, runs: int, device: str, shards: int, replicas: int,
+                 mesh_shape: str = "") -> None:
     import torch
 
     from rabia_tpu_torch.chaos import run_profile, smoke_profiles
+    from rabia_tpu_torch.parallel import make_mesh
 
     prof = smoke_profiles()[name]
     if prof.fabric == "mesh":
         prof = dataclasses.replace(prof, n_shards=shards or prof.n_shards,
                                    n_replicas=replicas or prof.n_replicas)
     where = torch.cuda.get_device_name(0) if device == "cuda" else "cpu"
+    a, b = (int(x) for x in mesh_shape.split(",")) if mesh_shape else (0, 0)
     for k in range(runs):
+        # a fresh mesh a run: a logical mesh of A x B positions of the one device
+        mesh = make_mesh([device] * (a * b), a, b) if a else None
         t0 = time.perf_counter()
-        rep = asyncio.run(run_profile(prof, verbose=False, device=device))
+        rep = asyncio.run(run_profile(prof, verbose=False, device=None if mesh else device,
+                                      mesh=mesh))
         cp = rep["critpath"] or {}
         print(json.dumps({
             "profile": name, "run": k, "device": where, "pass": rep["pass"],
@@ -112,6 +121,8 @@ def main() -> int:
     ap.add_argument("--runs", type=int, default=1)
     ap.add_argument("--shards", type=int, default=0, help="the mesh profile's width")
     ap.add_argument("--replicas", type=int, default=0)
+    ap.add_argument("--mesh", default="", help="the mesh profile's logical mesh of the device: "
+                    "A,B (shard blocks, replica blocks)")
     ap.add_argument("--phases", default="", help="chip_smoke phases to run: 14, 15")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     a = ap.parse_args()
@@ -119,7 +130,7 @@ def main() -> int:
     if a.phases:
         run_phases(set(a.phases.split(",")), a.device)
     if a.profile:
-        run_profiles(a.profile, a.runs, a.device, a.shards, a.replicas)
+        run_profiles(a.profile, a.runs, a.device, a.shards, a.replicas, a.mesh)
     return 0
 
 

@@ -407,6 +407,38 @@ class TestMeshFabric:
         assert rep["pass"], rep["problems"]
 
 
+    @pytest.mark.asyncio
+    async def test_smoke_mesh_profile_on_a_4x1_mesh(self):
+        """The smoke set's mesh profile with the engine over a logical 4 x
+        1 mesh of the CPU (the device table in four shard blocks, a
+        window one launch a block): it passes as on one device, with
+        probe reads, no divergence and the forced demotion; then the
+        fabric's demotion and re-promotion cycle on the same shape
+        re-promotes the lane and converges."""
+        import sys
+        from pathlib import Path
+
+        from rabia_tpu_torch.chaos.runner import run_profile
+        from rabia_tpu_torch.parallel import make_mesh
+
+        prof = smoke_profiles()["mesh_device_read_lane"]
+        rep = await run_profile(prof, verbose=False, mesh=make_mesh(["cpu"] * 4))
+        fs = rep["fabric_summary"]
+        assert fs["device"] == "cpu" and fs["mesh"] == [4, 1]
+        assert fs["read_lane"]["probe"] > 0
+        assert fs["divergences"] == 0
+        assert fs["forced_demotions"] == 1 and fs["lane_demotions"] >= 1
+        assert rep["outcomes"]["ok"] > 0
+        assert rep["converged"] is True
+        assert rep["pass"], rep["problems"]
+        sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+        import chip_smoke
+
+        st = await chip_smoke._mesh_lane_cycle("cpu", 16, 3, mesh=make_mesh(["cpu"] * 4))
+        assert st["mesh"] == [4, 1]
+        assert st["forced_demotions"] == 1 and st["lane_promotions"] >= 1
+
+
 class TestCritpathSampleCost:
     @pytest.mark.asyncio
     async def test_sample_reads_each_engines_rings_once(self, monkeypatch):

@@ -12,8 +12,14 @@ the same cases; with the mesh window's header it also runs the decision
 that the kernel folds into the same launch, held against the reference's
 flags (quorum-less and all-dead shards, depth 0, max_phases 0, windows
 longer than 32 waves, bases near 2^31-1). n_shards = 8 fills the reference's 8-device CPU mesh, so
-neither side pads. Tolerance: exact equality (every output is an integer
-or bytes)."""
+neither side pads. The programs, the dump / sync / upload round trip and
+the upload's envelope run again with the port's table in shard blocks on
+the logical meshes ``make_mesh(["cpu"] * 8)`` (8x1) and ``make_mesh(["cpu"]
+* 8, 2, 4)`` (R = 4), each against the reference's table on the same
+mesh, and 6 shards on a 4 x 2 mesh pad to 8 on both sides. The header's
+decision at a shard block's global shard (``shard0 + s``) and its coin
+are held against ``decide_slots_plain(..., shard0)`` and the plain coin.
+Tolerance: exact equality (every output is an integer or bytes)."""
 
 from __future__ import annotations
 
@@ -39,8 +45,9 @@ from rabia_tpu_torch.apps.device_kv import DeviceKVTable
 from rabia_tpu_torch.core.blocks import build_block
 from rabia_tpu_torch.core.types import f_plus_1, quorum_size
 from rabia_tpu_torch.kernel import cuda_build, kv_window, mesh_window
-from rabia_tpu_torch.kernel.phase_driver import coin_threshold
-from rabia_tpu_torch.parallel.mesh import MeshPhaseKernel
+from rabia_tpu_torch.kernel.phase_driver import _coin_bits, coin_threshold
+from rabia_tpu_torch.parallel.mesh import MeshArray, MeshPhaseKernel
+from rabia_tpu_torch.parallel.mesh import make_mesh as port_make_mesh
 
 torch.set_num_threads(1)  # tiny tensors: one thread keeps parallel test workers off each other
 
@@ -90,7 +97,10 @@ def _random_table(rng, *, full_shards=(), wrap_shards=()) -> list[np.ndarray]:
 
 
 def _load(port_table, ref_table, arrays):
-    port_table.state = convert.device_table_from_numpy(arrays, "cpu")
+    if port_table.mesh is None:
+        port_table.state = convert.device_table_from_numpy(arrays, "cpu")
+    else:
+        port_table.state = convert.device_table_to_blocks(arrays, port_table.mesh)
     ref_table.state = tuple(jnp.asarray(a) for a in arrays)
 
 
@@ -117,8 +127,15 @@ def _np(a):
     return a.view(np.int32) if a.dtype == np.uint32 else a
 
 
+def _state_np(port_state) -> dict:
+    """The port's table as numpy arrays, one device or shard blocks."""
+    if isinstance(port_state.used, MeshArray):
+        return convert.device_table_from_blocks(port_state)
+    return convert.device_table_to_numpy(port_state)
+
+
 def _assert_state(port_state, ref_state):
-    got = convert.device_table_to_numpy(port_state)
+    got = _state_np(port_state)
     for name, ref_arr in zip(got, ref_state):
         np.testing.assert_array_equal(got[name], _np(ref_arr), err_msg=name)
 
@@ -328,8 +345,8 @@ def test_packers_reject_outside_the_envelope(port_table, ref_table, case, monkey
 # -- the three programs ---------------------------------------------------------
 
 
-def _alive(crash: bool) -> np.ndarray:
-    a = np.ones((N, R), bool)
+def _alive(crash: bool, r: int = R) -> np.ndarray:
+    a = np.ones((N, r), bool)
     if crash:
         a[:, 1:] = False  # one of three: no quorum anywhere
     return a
@@ -345,8 +362,9 @@ CASES = {
 }
 
 
-@pytest.mark.parametrize("name", sorted(CASES))
-def test_decide_apply_matches_reference(port_table, ref_table, host_scan, name):
+def _decide_apply_case(port_table, ref_table, name, r=R):
+    """One SET window of CASES[name] through both tables: the flags, the
+    new table and the untouched input table equal the reference's."""
     seed, opts, _kinds, depth, crash = CASES[name]
     rng = np.random.default_rng(seed)
     arrays = _random_table(rng, **opts)
@@ -354,8 +372,8 @@ def test_decide_apply_matches_reference(port_table, ref_table, host_scan, name):
     pb, rb = _both(_blocks(rng, depth, kinds=(1,)))
     pops, rops = port_table.pack_window(pb), ref_table.pack_window(rb)
     base = rng.integers(0, 50, N).astype(np.int32)
-    new, flags = port_table.decide_apply(_alive(crash), base, depth, pops, W=W)
-    rnew, rflags = ref_table.decide_apply(_alive(crash), base, depth, rops, W=W)
+    new, flags = port_table.decide_apply(_alive(crash, r), base, depth, pops, W=W)
+    rnew, rflags = ref_table.decide_apply(_alive(crash, r), base, depth, rops, W=W)
     np.testing.assert_array_equal(flags.numpy(), np.asarray(rflags))
     _assert_state(new, rnew)
     _assert_state(port_table.state, ref_table.state)  # the input table is untouched
@@ -365,6 +383,12 @@ def test_decide_apply_matches_reference(port_table, ref_table, host_scan, name):
         assert flags[2] == 1
     if name == "crashed_quorum":
         assert flags[0] == 0
+    return arrays, pops, depth, rnew, rflags
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_decide_apply_matches_reference(port_table, ref_table, host_scan, name):
+    arrays, pops, depth, rnew, rflags = _decide_apply_case(port_table, ref_table, name)
     # the g++ build of the kernel's header on the same window
     kind = np.full((W, N), kv_window.KIND_SET, np.int8)
     got, over, _ = host_scan(arrays, kind, _pad(pops.klen, W), _pad(pops.vlen, W),
@@ -374,8 +398,9 @@ def test_decide_apply_matches_reference(port_table, ref_table, host_scan, name):
     assert int(over.any()) == int(np.asarray(rflags)[1])
 
 
-@pytest.mark.parametrize("name", ["clean", "crashed_quorum", "partial_depth"])
-def test_lookup_window_matches_reference(port_table, ref_table, host_scan, name):
+def _lookup_window_case(port_table, ref_table, name, r=R):
+    """One GET window of CASES[name] through both tables; returns the
+    table, the port's ops, the depth and the reference's reads."""
     seed, opts, _kinds, depth, crash = CASES[name]
     rng = np.random.default_rng(seed + 100)
     arrays = _random_table(rng, **opts)
@@ -385,11 +410,17 @@ def test_lookup_window_matches_reference(port_table, ref_table, host_scan, name)
     g = ref_table._gather_window(rb, "get")
     rops = (g[1], np.ascontiguousarray(g[3]).view(np.uint32))
     base = rng.integers(0, 50, N).astype(np.int32)
-    got = port_table.lookup_window(_alive(crash), base, depth, ops, W=W)
-    want = ref_table.lookup_window(_alive(crash), base, depth, rops, W=W)
+    got = port_table.lookup_window(_alive(crash, r), base, depth, ops, W=W)
+    want = ref_table.lookup_window(_alive(crash, r), base, depth, rops, W=W)
     for a, b in zip(got, want):
         np.testing.assert_array_equal(a.numpy(), _np(b))
     assert bool(got[1].any())  # some GETs hit
+    return arrays, ops, depth, want
+
+
+@pytest.mark.parametrize("name", ["clean", "crashed_quorum", "partial_depth"])
+def test_lookup_window_matches_reference(port_table, ref_table, host_scan, name):
+    arrays, ops, depth, want = _lookup_window_case(port_table, ref_table, name)
     klen_p, kwin_p = _pad(ops[0], W), _pad(ops[1], W)
     kind = np.where(klen_p > 0, kv_window.KIND_GET, 0).astype(np.int8)
     _, _, reads = host_scan(arrays, kind, klen_p, np.zeros_like(klen_p), kwin_p,
@@ -411,8 +442,9 @@ def _del_get_stream():
     return out
 
 
-@pytest.mark.parametrize("name", sorted(CASES) + ["del_then_get"])
-def test_mixed_apply_matches_reference(port_table, ref_table, host_scan, name):
+def _mixed_apply_case(port_table, ref_table, name, r=R):
+    """One mixed window of CASES[name] (or the DEL-then-GET stream)
+    through both tables; returns what the header check needs."""
     seed, opts, kinds, depth, crash = CASES.get(name, (8, {}, None, W, False))
     rng = np.random.default_rng(seed + 200)
     arrays = _random_table(rng, **opts)
@@ -434,8 +466,8 @@ def test_mixed_apply_matches_reference(port_table, ref_table, host_scan, name):
     (kind, ops), (rkind, rops) = port_table.pack_mixed_window(pb), ref_table.pack_mixed_window(rb)
     get_waves = np.nonzero((kind >= 2).any(axis=1))[0].astype(np.int32)
     base = rng.integers(0, 50, N).astype(np.int32)
-    got = port_table.mixed_apply(_alive(crash), base, len(stream), kind, get_waves, ops, W=W)
-    want = ref_table.mixed_apply(_alive(crash), base, len(stream), rkind, get_waves, rops, W=W)
+    got = port_table.mixed_apply(_alive(crash, r), base, len(stream), kind, get_waves, ops, W=W)
+    want = ref_table.mixed_apply(_alive(crash, r), base, len(stream), rkind, get_waves, rops, W=W)
     _assert_state(got[0], want[0])
     for a, b in zip(got[1:], want[1:]):
         np.testing.assert_array_equal(a.numpy(), _np(b))
@@ -443,6 +475,12 @@ def test_mixed_apply_matches_reference(port_table, ref_table, host_scan, name):
         meta = got[2].numpy()
         assert not (meta[1, 1] & 1)[:7].any()  # GET after DEL: not found
         assert (meta[1, 3] & 1)[:7].all()  # GET after the re-SET: found
+    return arrays, kind, ops, stream, get_waves, want
+
+
+@pytest.mark.parametrize("name", sorted(CASES) + ["del_then_get"])
+def test_mixed_apply_matches_reference(port_table, ref_table, host_scan, name):
+    arrays, kind, ops, stream, get_waves, want = _mixed_apply_case(port_table, ref_table, name)
     kind_p = _pad(kind, W)
     arr, over, reads = host_scan(arrays, kind_p, _pad(ops.klen, W), _pad(ops.vlen, W),
                                  _pad(ops.kwin, W), _pad(ops.vwin, W), len(stream))
@@ -528,6 +566,10 @@ def fixed_clock(monkeypatch):
 
 
 def test_dump_sync_upload_round_trip(port_table, ref_table, fixed_clock):
+    _dump_sync_upload_case(port_table, ref_table)
+
+
+def _dump_sync_upload_case(port_table, ref_table):
     rng = np.random.default_rng(11)
     arrays = _random_table(rng, full_shards=(3,))
     _load(port_table, ref_table, arrays)
@@ -575,6 +617,10 @@ def test_upload_from_block_applied_stores(port_table, ref_table, fixed_clock):
 
 @pytest.mark.parametrize("case", ["long_key", "too_many", "wide_value", "near_wrap"])
 def test_upload_declines_outside_the_envelope(port_table, ref_table, case):
+    _upload_declines_case(port_table, ref_table, case)
+
+
+def _upload_declines_case(port_table, ref_table, case):
     sm, rsm = vector_kv.VectorShardedKV(N), ref_vkv.VectorShardedKV(N)
     for store in (sm.store, rsm.store):
         if case == "long_key":
@@ -586,11 +632,261 @@ def test_upload_declines_outside_the_envelope(port_table, ref_table, case):
             store.set(0, b"k", b"v" * 65)
         else:
             store.shard_version[4] = 2**31 - 2
-    before = convert.device_table_to_numpy(port_table.state)
+    before = _state_np(port_table.state)
     assert not port_table.upload_from(sm)
     assert not ref_table.upload_from(rsm)
-    after = convert.device_table_to_numpy(port_table.state)
+    after = _state_np(port_table.state)
     assert all(np.array_equal(before[k], after[k]) for k in before)
+
+
+_SHARD0_SHIM = r"""
+#include "mesh_window.cuh"
+extern "C" void wave_host(long long S, int W, const uint8_t* alive, const int32_t* base, int R,
+                          int quorum, int f1, unsigned seed, unsigned threshold, int max_phases,
+                          unsigned shard0, int8_t* decided, int8_t* coins) {
+    int8_t v1_row[mw::MAX_REPLICAS];
+    for (int r = 0; r < R; ++r) v1_row[r] = mw::V1;
+    for (int t = 0; t < W; ++t)
+        for (long long s = 0; s < S; ++s) {
+            const uint32_t shard = shard0 + static_cast<uint32_t>(s);
+            decided[t * S + s] = static_cast<int8_t>(mw::decide_v1_wave(
+                v1_row, alive + s * R, R, base[s], shard, t, quorum, f1, seed, threshold,
+                max_phases));
+            const uint32_t prefix = mw::coin_prefix(seed, shard, mw::slot_of(base[s], t));
+            for (int ph = 0; ph < max_phases; ++ph)
+                coins[(ph * W + t) * S + s] = static_cast<int8_t>(mw::coin(prefix, ph, threshold));
+        }
+}
+"""
+
+
+@pytest.mark.parametrize("shard0", [1, 1024, 2**20 + 7])
+def test_v1_wave_at_a_blocks_global_shard(tmp_path, shard0):
+    """The decision the kv kernels fold in, built with g++ from
+    ``mesh_window.cuh`` as they build it, at a shard block's global shard
+    ``shard0 + s`` (``shard0 != 0``): on alive rows at, above and below
+    quorum, ``decide_v1_wave`` equals ``decide_slots_plain(..., shard0)``
+    on every replica voting V1, and the coin it draws at each phase equals
+    the plain coin of global shard ``shard0 + s``, which differs from
+    block-local shard ``s``'s."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("g++ not installed: the header's host build cannot run")
+    (tmp_path / "shim.cpp").write_text(_SHARD0_SHIM)
+    lib = tmp_path / "libwave_host.so"
+    subprocess.run([gxx, "-std=c++17", "-O2", "-shared", "-fPIC", f"-I{cuda_build.CSRC}",
+                    "-o", str(lib), str(tmp_path / "shim.cpp")],
+                   check=True, capture_output=True, timeout=120)
+    fn = ctypes.CDLL(str(lib)).wave_host
+    fn.argtypes = ([ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+                   + [ctypes.c_int] * 3 + [ctypes.c_uint] * 2 + [ctypes.c_int, ctypes.c_uint]
+                   + [ctypes.c_void_p] * 2)
+    rng = np.random.default_rng(shard0 % 1000)
+    S_blk, Wn, r, max_phases, seed, p1 = 16, 6, 5, 4, 77, 0.5
+    alive = np.zeros((S_blk, r), bool)
+    for s_ in range(S_blk):  # 0..5 live replicas: below, at and above quorum
+        alive[s_, rng.permutation(r)[: s_ % (r + 1)]] = True
+    base = rng.integers(0, 2**31 - 1, S_blk).astype(np.int32)
+    base[::3] = 2**31 - 1 - rng.integers(0, Wn, len(base[::3]))  # slots wrap in the window
+    decided = np.zeros((Wn, S_blk), np.int8)
+    coins = np.zeros((max_phases, Wn, S_blk), np.int8)
+    ptr = lambda a: a.ctypes.data  # noqa: E731
+    fn(S_blk, Wn, ptr(alive.astype(np.uint8)), ptr(base), r, quorum_size(r), f_plus_1(r),
+       seed, coin_threshold(p1), max_phases, shard0, ptr(decided), ptr(coins))
+    mk = MeshPhaseKernel(S_blk, r, device="cpu", seed=seed, coin_p1=p1)
+    votes = torch.ones((Wn, S_blk, r), dtype=torch.int8)  # every replica votes V1
+    want = mk.decide_slots_plain(votes, torch.from_numpy(alive), torch.from_numpy(base),
+                                 max_phases, shard0)
+    np.testing.assert_array_equal(decided, want.numpy())
+    assert (decided == 1).any() and (decided == 3).any()  # rows at and below quorum
+    slots = (torch.from_numpy(base).to(torch.int64)[None, :]
+             + torch.arange(Wn)[:, None]) % 2**32
+    glob = torch.arange(S_blk, dtype=torch.int64) + shard0
+    for ph in range(max_phases):
+        np.testing.assert_array_equal(coins[ph], _coin_bits(seed, glob[None, :], slots, ph,
+                                                            p1).numpy())
+    local = _coin_bits(seed, torch.arange(S_blk)[None, :], slots, 0, p1).numpy()
+    assert (local != coins[0]).any()  # the block-local shard would draw other coins
+
+
+# -- the table in shard blocks over a mesh -------------------------------------------
+
+# layout: (the port's mesh, the reference's mesh, R)
+MESH_LAYOUTS = {
+    "8x1": (lambda: port_make_mesh(["cpu"] * 8), lambda: make_mesh(), R),
+    "2x4": (lambda: port_make_mesh(["cpu"] * 8, 2, 4),
+            lambda: make_mesh(shard_axis_size=2, replica_axis_size=4), 4),
+}
+
+
+@pytest.fixture(scope="module")
+def ref_mesh_tables():
+    """One reference table a mesh layout for the module (its compiled
+    programs are cached per table)."""
+    made = {}
+
+    def get(layout):
+        if layout not in made:
+            _port_mesh, ref_mesh, r = MESH_LAYOUTS[layout]
+            made[layout] = RefTable(N, RefMeshPhaseKernel(N, r, ref_mesh()), per_shard_capacity=P)
+        return made[layout]
+
+    return get
+
+
+@pytest.fixture(params=sorted(MESH_LAYOUTS))
+def mesh_tables(request, ref_mesh_tables):
+    """``(port table in shard blocks, reference table on the same mesh,
+    R)``."""
+    port_mesh, _ref_mesh, r = MESH_LAYOUTS[request.param]
+    mesh = port_mesh()
+    port = DeviceKVTable(N, MeshPhaseKernel(N, r, mesh), per_shard_capacity=P)
+    assert port.mesh is mesh and len(port.state.used.blocks) == mesh.shape["shard"]
+    return port, ref_mesh_tables(request.param), r
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_decide_apply_on_meshes(mesh_tables, name):
+    port, ref, r = mesh_tables
+    _decide_apply_case(port, ref, name, r)
+
+
+@pytest.mark.parametrize("name", ["clean", "crashed_quorum", "partial_depth"])
+def test_lookup_window_on_meshes(mesh_tables, name):
+    port, ref, r = mesh_tables
+    _lookup_window_case(port, ref, name, r)
+
+
+@pytest.mark.parametrize("name", sorted(CASES) + ["del_then_get"])
+def test_mixed_apply_on_meshes(mesh_tables, name):
+    port, ref, r = mesh_tables
+    _mixed_apply_case(port, ref, name, r)
+
+
+def test_dump_sync_upload_round_trip_on_meshes(mesh_tables, fixed_clock):
+    port, ref, _r = mesh_tables
+    _dump_sync_upload_case(port, ref)
+    # the upload placed the table in its shard blocks again
+    assert len(port.state.used.blocks) == port.mesh.shape["shard"]
+
+
+@pytest.mark.parametrize("case", ["long_key", "too_many", "wide_value", "near_wrap"])
+def test_upload_declines_on_meshes(mesh_tables, case):
+    port, ref, _r = mesh_tables
+    _upload_declines_case(port, ref, case)
+
+
+def test_probe_on_meshes_is_one_scan_a_block(mesh_tables, monkeypatch):
+    """``lookup_only`` on a blocked table equals the reference's probe
+    and reads each shard block once, with no decision."""
+    port, ref, _r = mesh_tables
+    rng = np.random.default_rng(51)
+    arrays = _random_table(rng)
+    _load(port, ref, arrays)
+    pb, rb = _both(_blocks(rng, W, kinds=(2,)))
+    ops = port.pack_get_window(pb)
+    g = ref._gather_window(rb, "get")
+    scans = []
+    real = kv_window.kv_window_plain
+    monkeypatch.setattr(kv_window, "kv_window_plain",
+                        lambda *a, **k: scans.append(a[0].used.shape[0]) or real(*a, **k))
+    monkeypatch.setattr(kv_window, "decide_window_plain", None)  # a probe decides nothing
+    got = port.lookup_only(ops, W=W)
+    want = ref.lookup_only((g[1], np.ascontiguousarray(g[3]).view(np.uint32)), W=W)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.numpy(), _np(b))
+    assert scans == [port.S_blk] * port.mesh.shape["shard"]
+
+
+def test_convert_blocks_round_trip_a_reference_mesh_table(ref_mesh_tables):
+    """A reference table on its 2 x 4 mesh (its planes placed
+    ``P("shard")``), filled by one of its SET windows, fetched as numpy:
+    ``device_table_to_blocks`` cuts it into the port's two shard blocks
+    (block i the shards ``[4i, 4i + 4)``), ``device_table_from_blocks``
+    joins them back bit for bit, and a port table holding the blocks
+    dumps the reference's rows."""
+    ref = ref_mesh_tables("2x4")
+    rng = np.random.default_rng(71)
+    ref.state = tuple(jnp.asarray(a) for a in _random_table(rng))
+    _, rb = _both(_blocks(rng, W, kinds=(1,)))
+    new, flags = ref.decide_apply(_alive(False, 4), np.zeros(N, np.int32), W,
+                                  ref.pack_window(rb), W=W)
+    assert np.asarray(flags).tolist() == [1, 0, 0]
+    ref.adopt(new)
+    arrays = [np.asarray(a) for a in ref.state]
+    mesh = port_make_mesh(["cpu"] * 8, 2, 4)
+    table = convert.device_table_to_blocks(arrays, mesh)
+    for f, a in zip(table, arrays):
+        assert f.sdim == 0 and f.rdim is None and len(f.blocks) == 2
+        for i in range(2):
+            np.testing.assert_array_equal(f.row(i).numpy(), _np(a)[4 * i: 4 * i + 4])
+    back = convert.device_table_from_blocks(table)
+    for name, a in zip(kv_window.KVTable._fields, arrays):
+        np.testing.assert_array_equal(back[name], _np(a), err_msg=name)
+    port = DeviceKVTable(N, MeshPhaseKernel(N, 4, mesh), per_shard_capacity=P)
+    port.state = table
+    assert _dump_rows(port.dump()) == ref.dump()["rows"]
+
+
+def test_padded_shards_on_a_4x2_mesh(fixed_clock):
+    """6 shards on a 4 x 2 mesh pad to 8 on both sides (blocks of 2, the
+    last block holding padded shards 6 and 7 only): the packers' planes,
+    SET, GET and mixed windows, the probe, dump, sync and upload equal the
+    reference's on its 4 x 2 mesh."""
+    n, r = 6, 4
+    mesh = port_make_mesh(["cpu"] * 8, 4, 2)
+    port = DeviceKVTable(n, MeshPhaseKernel(8, r, mesh), per_shard_capacity=P)
+    ref = RefTable(n, RefMeshPhaseKernel(8, r, make_mesh(shard_axis_size=4, replica_axis_size=2)),
+                   per_shard_capacity=P)
+    assert port.S == ref.S == 8 and port.S_blk == 2
+    rng = np.random.default_rng(61)
+    arrays = _random_table(rng)
+    for a in arrays:  # the padded shards hold nothing
+        a[n:] = 0
+    _load(port, ref, arrays)
+    alive, base = np.ones((8, r), bool), rng.integers(0, 50, 8).astype(np.int32)
+
+    def stream(kinds):
+        return [(list(range(n)), c[:n]) for _, c in _blocks(rng, W, kinds=kinds)]
+
+    pb, rb = _both(stream((1,)))
+    pops, rops = port.pack_window_auto(pb), ref.pack_window_auto(rb)
+    for a, b in zip(pops, rops):
+        np.testing.assert_array_equal(a, b)
+    new, flags = port.decide_apply(alive, base, W, pops, W=W)
+    rnew, rflags = ref.decide_apply(alive, base, W, rops, W=W)
+    np.testing.assert_array_equal(flags.numpy(), np.asarray(rflags))
+    _assert_state(new, rnew)
+    port.adopt(new)
+    ref.adopt(rnew)
+    pb, rb = _both(stream((2,)))
+    got = port.lookup_window(alive, base, W, port.pack_get_window(pb), W=W)
+    g = ref._gather_window(rb, "get")
+    rget = (g[1], np.ascontiguousarray(g[3]).view(np.uint32))
+    want = ref.lookup_window(alive, base, W, rget, W=W)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.numpy(), _np(b))
+    for a, b in zip(port.lookup_only(port.pack_get_window(pb), W=W), ref.lookup_only(rget, W=W)):
+        np.testing.assert_array_equal(a.numpy(), _np(b))
+    pb, rb = _both(stream((1, 2, 3, 4)))
+    (kind, ops), (rkind, rops) = port.pack_mixed_window(pb), ref.pack_mixed_window(rb)
+    gw = np.nonzero((kind >= 2).any(axis=1))[0].astype(np.int32)
+    got = port.mixed_apply(alive, base, W, kind, gw, ops, W=W)
+    want = ref.mixed_apply(alive, base, W, rkind, gw, rops, W=W)
+    _assert_state(got[0], want[0])
+    for a, b in zip(got[1:], want[1:]):
+        np.testing.assert_array_equal(a.numpy(), _np(b))
+    port.adopt(got[0])
+    ref.adopt(want[0])
+    d = port.dump()
+    assert _dump_rows(d) == ref.dump()["rows"] and int(d["shard"].max()) < n
+    np.testing.assert_array_equal(d["shard_version"], ref.dump()["shard_version"])
+    sm, rsm = vector_kv.VectorShardedKV(n), ref_vkv.VectorShardedKV(n)
+    port.sync_into(sm)
+    ref.sync_into(rsm)
+    assert sm.store.snapshot_bytes() == rsm.store.snapshot_bytes()
+    assert port.upload_from(sm) and ref.upload_from(rsm)
+    _assert_state(port.state, ref.state)
 
 
 # -- the CUDA wrapper ---------------------------------------------------------------

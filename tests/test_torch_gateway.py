@@ -10,7 +10,8 @@ and the reference's on ``random_gateway_ops(seed)``, op for op; the
 reference's ``RabiaClient`` against the port's ``GatewayServer`` and the
 reverse (one wire codec); ``devkv_read_handler`` over a CPU
 ``MeshEngine(device_store=True)`` against ``kv_read_handler``, byte for
-byte; and chip_smoke.py's phase 13 (a) at 3 replicas × 8 shards.
+byte, and over a 2 x 4 logical mesh engine against one device's; and
+chip_smoke.py's phase 13 (a) at 3 replicas × 8 shards.
 """
 
 from __future__ import annotations
@@ -1153,6 +1154,49 @@ class TestAcrossPackages:
         assert dev.read_many(items) == want
         assert [dev(s, k) for s, k in items] == want
         assert sum(decode_kv_response(w).ok for w in want) == 3 * S
+
+    def test_devkv_read_handler_over_a_mesh_engine(self, monkeypatch):
+        """``read_many`` over a ``MeshEngine(device_store=True)`` on a
+        2 x 4 logical mesh (its table in two shard blocks) answers every
+        read as over one device's engine fed the same SETs: one probe a
+        batch, one read scan a shard block, no slot."""
+        from rabia_tpu_torch.apps.vector_kv import VectorShardedKV
+        from rabia_tpu_torch.core.blocks import build_block
+        from rabia_tpu_torch.gateway import devkv_read_handler
+        from rabia_tpu_torch.kernel import kv_window
+        from rabia_tpu_torch.parallel import make_mesh
+        from rabia_tpu_torch.parallel.mesh_engine import MeshEngine
+
+        import numpy as np
+
+        S, R = 8, 4
+        engines = [
+            MeshEngine(lambda: VectorShardedKV(S), S, R, window=16, **where,
+                       device_store=True, device_store_kw={"per_shard_capacity": 64})
+            for where in ({"device": "cpu"}, {"mesh": make_mesh(["cpu"] * 8, 2, 4)})
+        ]
+        for w in range(5):
+            col = [[encode_set_bin(f"key-{s}-{w % 3}", f"w{w}s{s}")] for s in range(S)]
+            for eng in engines:
+                eng.submit_block(build_block(np.arange(S), col))
+        for eng in engines:
+            eng.flush()
+            assert eng.device_lane_active
+        assert len(engines[1]._dev.state.used.blocks) == 2
+        items = [(s, f"key-{s}-{j}".encode()) for s in range(S) for j in range(4)]
+        items += [(3, b"key-3-0"), (9, b"out of range"), (2, b"k" * 40)]
+        one, mesh = (devkv_read_handler(e) for e in engines)
+        want = one.read_many(items)
+        scans = []
+        real = kv_window.kv_window_plain
+        monkeypatch.setattr(kv_window, "kv_window_plain",
+                            lambda *a, **k: scans.append(a[0].used.shape[0]) or real(*a, **k))
+        slots = engines[1].next_slot.copy()
+        assert mesh.read_many(items) == want
+        assert scans == [S // 2] * 2  # one probe: one scan a shard block
+        assert engines[1].next_slot.tolist() == slots.tolist()
+        assert [mesh(s, k) for s, k in items] == want
+        assert sum(decode_kv_response(w).ok for w in want) == 3 * S + 1
 
 
 class TestPhase13Small:

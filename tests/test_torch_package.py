@@ -112,19 +112,44 @@ def test_entry_points_default_to_cuda_and_never_fall_back(name):
     assert make(device="cpu").device == torch.device("cpu")
 
 
-def test_unported_engine_lanes_are_refused_not_ignored():
+def test_device_lane_runs_on_a_mesh_and_refuses_many_controllers(tmp_path, monkeypatch):
+    import torch.distributed as dist
+
     from rabia_tpu_torch import MeshEngine
+    from rabia_tpu_torch.apps.kvstore import decode_result_bin, encode_set_bin
     from rabia_tpu_torch.apps.vector_kv import VectorShardedKV
+    from rabia_tpu_torch.core.blocks import build_block
     from rabia_tpu_torch.core.errors import ValidationError
     from rabia_tpu_torch.core.state_machine import InMemoryStateMachine
-
-    # the device KV lane on a mesh of more than one block is refused (the
-    # mesh itself is ported); the latency governor is ported
+    from rabia_tpu_torch.kernel import kv_window
     from rabia_tpu_torch.parallel import make_mesh
 
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 5b"):
-        MeshEngine(lambda: VectorShardedKV(4, capacity=64), 4, 3, device_store=True,
-                   mesh=make_mesh(["cpu"] * 2))
+    # a multi-controller mesh (one gloo rank here) refuses the device KV
+    # lane with the reference's ValidationError
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'group'}", world_size=1,
+                            rank=0)
+    try:
+        mesh = make_mesh(["cpu"])
+        assert mesh.distributed
+        with pytest.raises(ValidationError, match="single-controller only"):
+            MeshEngine(lambda: VectorShardedKV(4, capacity=64), 4, 3, device_store=True,
+                       mesh=mesh)
+    finally:
+        dist.destroy_process_group()
+    # on one controller a mesh of 2 shard blocks runs the lane: a window
+    # is one decided window a block, its table in two blocks
+    calls = []
+    plain = kv_window.decide_window_plain
+    monkeypatch.setattr(kv_window, "decide_window_plain",
+                        lambda *a, **kw: calls.append(kw["shard0"]) or plain(*a, **kw))
+    eng = MeshEngine(lambda: VectorShardedKV(4, capacity=64), 4, 3, device_store=True,
+                     mesh=make_mesh(["cpu"] * 2))
+    fut = eng.submit_block(build_block([0, 1, 2, 3], [[encode_set_bin(f"k{s}", "v")]
+                                                      for s in range(4)]))
+    eng.flush()
+    assert eng.device_lane_active and len(eng._dev.state.used.blocks) == 2
+    assert calls == [0, 2]  # one window, one block at a time, each at its global shard
+    assert [decode_result_bin(bytes(g[0])).ok for g in fut.result()] == [True] * 4
     # the transport engine's node kernel runs on the device it is given
     # (the plain versions on the CPU); zero_copy_inbox on the host
     # backend is ignored, as the reference ignores it

@@ -13,9 +13,15 @@ that a probe exchanges nothing across replicas is a jaxpr census, which
 the port cannot reuse; here it is three facts: a probe reaches neither
 the decision nor ``slot_window`` (spies on the plain path), it consumes
 no slot (``next_slot`` and the decision log do not move), and it serves
-with a majority of replicas crashed. Every case runs the reference engine
-beside the port's, and compares responses and read-lane counters.
-Tolerance: exact equality."""
+with a majority of replicas crashed. Over a mesh the census claim is
+stated in the port's terms: with the mesh's collectives and the replica
+exchange patched to raise, a probe on a 2 x 4 mesh table still serves,
+one read scan a shard block. Every case runs the reference engine beside
+the port's, and compares responses and read-lane counters; the
+conformance and edge cases run again with the port on the logical meshes
+``make_mesh(["cpu"] * 8)`` (8x1) and ``make_mesh(["cpu"] * 8, 2, 4)``
+(R = 4), each against the reference on the same shape. Tolerance: exact
+equality."""
 
 from __future__ import annotations
 
@@ -33,10 +39,19 @@ from rabia_tpu_torch.apps.vector_kv import VectorShardedKV
 from rabia_tpu_torch.core.blocks import build_block
 from rabia_tpu_torch.kernel import kv_window, mesh_window
 from rabia_tpu_torch.parallel import MeshEngine
+from rabia_tpu_torch.parallel import make_mesh as port_make_mesh
 
 torch.set_num_threads(1)  # tiny tensors: one thread keeps parallel test workers off each other
 
 N_SHARDS = 8
+
+# layout: (the port's mesh or None for one device, the reference's mesh, R)
+LAYOUTS = {
+    "one": (lambda: None, lambda: make_mesh(), 3),
+    "8x1": (lambda: port_make_mesh(["cpu"] * 8), lambda: make_mesh(), 3),
+    "2x4": (lambda: port_make_mesh(["cpu"] * 8, 2, 4),
+            lambda: make_mesh(shard_axis_size=2, replica_axis_size=4), 4),
+}
 
 
 def _op(code: int, key: str, val: str = "") -> bytes:
@@ -55,12 +70,14 @@ def get_ops(tag: str) -> list:
 class Lanes:
     """The reference engine and the port's, fed the same blocks."""
 
-    def __init__(self, read_lane: bool, **kw):
+    def __init__(self, read_lane: bool, layout: str = "one", **kw):
+        port_mesh, ref_mesh, r = LAYOUTS[layout]
+        mesh = port_mesh()
         common = dict(window=4, device_store=True, device_read_lane=read_lane, **kw)
-        self.ref = RefEngine(lambda: RefVKV(N_SHARDS, capacity=1 << 12), N_SHARDS, 3,
-                             mesh=make_mesh(), **common)
-        self.port = MeshEngine(lambda: VectorShardedKV(N_SHARDS, capacity=1 << 12), N_SHARDS, 3,
-                               device="cpu", **common)
+        self.ref = RefEngine(lambda: RefVKV(N_SHARDS, capacity=1 << 12), N_SHARDS, r,
+                             mesh=ref_mesh(), **common)
+        self.port = MeshEngine(lambda: VectorShardedKV(N_SHARDS, capacity=1 << 12), N_SHARDS, r,
+                               **({"device": "cpu"} if mesh is None else {"mesh": mesh}), **common)
 
     def submit(self, cmds):
         """Returns (reference future, port future)."""
@@ -96,11 +113,17 @@ def frames(pair) -> list[bytes]:
 
 
 @pytest.fixture
-def lanes_factory():
+def layout():
+    """The port's layout (a class over meshes overrides it)."""
+    return "one"
+
+
+@pytest.fixture
+def lanes_factory(layout):
     made = []
 
     def make(read_lane: bool, **kw) -> Lanes:
-        made.append(Lanes(read_lane, **kw))
+        made.append(Lanes(read_lane, layout, **kw))
         return made[-1]
 
     yield make
@@ -256,6 +279,57 @@ class TestReadLaneEdges:
         assert [decode_result_bin(x).value for x in frames(fut)] == ["before"] * N_SHARDS
         assert lanes.stats()["probe"] == N_SHARDS
         assert lanes.port.device_lane_active
+
+
+class TestReadLaneConformanceOnMeshes(TestReadLaneConformance):
+    """The conformance cases with the port on a logical mesh."""
+
+    @pytest.fixture(params=["8x1", "2x4"])
+    def layout(self, request):
+        return request.param
+
+
+class TestReadLaneEdgesOnMeshes(TestReadLaneEdges):
+    """The edge cases with the port on a logical mesh."""
+
+    @pytest.fixture(params=["8x1", "2x4"])
+    def layout(self, request):
+        return request.param
+
+
+def test_probe_on_a_mesh_table_exchanges_nothing(monkeypatch):
+    """The reference's census claim (a probe window crosses no collective)
+    in the port's terms: on a 2 x 4 mesh table, with the mesh's
+    collectives and the decide plane's replica exchange patched to raise,
+    the read lane's probe still serves, as one read scan a shard block
+    and no decision; the table is cut in two shard blocks."""
+    mesh = port_make_mesh(["cpu"] * 8, 2, 4)
+    eng = MeshEngine(lambda: VectorShardedKV(N_SHARDS, capacity=1 << 12), N_SHARDS, 4,
+                     mesh=mesh, window=4, device_store=True, device_read_lane=True)
+    assert eng._dev.mesh is mesh and len(eng._dev.state.used.blocks) == 2
+    shards = list(range(N_SHARDS))
+    eng.submit_block(build_block(shards, set_ops("x", "v")))
+    eng.flush()
+
+    def refuse(*a, **k):
+        raise AssertionError("a probe reached a collective")
+
+    for name in ("_all_gather", "gather_replicas", "gather_shards"):
+        monkeypatch.setattr(mesh, name, refuse)
+    for name in ("exchange_window", "_decide_mesh", "decide_slots_plain"):
+        monkeypatch.setattr(eng.kernel, name, refuse)
+    scans = []
+    real_scan = kv_window.kv_window_plain
+    monkeypatch.setattr(kv_window, "kv_window_plain",
+                        lambda *a, **k: scans.append(a[0].used.shape[0]) or real_scan(*a, **k))
+    before = eng.next_slot.copy()
+    futs = [eng.submit_block(build_block(shards, get_ops(tag))) for tag in ("x", "none")]
+    eng.flush()
+    assert [decode_result_bin(bytes(r[0])).value for r in futs[0].result()] == ["v"] * N_SHARDS
+    assert [decode_result_bin(bytes(r[0])).value for r in futs[1].result()] == [None] * N_SHARDS
+    assert scans == [N_SHARDS // 2] * 2  # one probe window: one scan a shard block
+    assert eng.next_slot.tolist() == before.tolist()
+    assert eng.read_lane_stats()["probe"] == 2 * N_SHARDS and eng.device_lane_active
 
 
 def test_probe_takes_no_decision_and_no_slot(monkeypatch):

@@ -1,11 +1,12 @@
 """The whole slice at a small size on the CPU: the twin of chip_smoke.py's
-phases 3-5, 7 and 8 (protocol vs fused entry, the decision core checked
+phases 3-5, 7, 8 and 18 (protocol vs fused entry, the decision core checked
 against both plain windows, the scanned protocol against the fused entry,
 the selftest's fault path, the packed window at depth against the V1
 row, the MeshEngine serving lane, the
 device-resident KV lane beside the host block lane, the read lane beside
-the device lane without it and the host block lane), run by the same code
-with device="cpu" at S=16, R=5. The same phases on the card are the
+the device lane without it and the host block lane, and phase 18's
+tables and lanes over logical meshes), run by the same code with
+device="cpu" at S=16, R=5 (phase 18 at 64 shards). The same phases on the card are the
 cuda-marked tests at the end."""
 
 from __future__ import annotations
@@ -87,6 +88,38 @@ def test_read_lane_cpu():
         assert stats[stream]["read_slots"] == 0 and stats[stream]["probe_windows"] == 2
     assert eng.read_lane_stats()["probe"] == 2 * 2 * 9 * S
     assert kv_window.KV_WINDOW.launches == before  # no kernel on the CPU
+
+
+def test_phase18_mesh_tables_cpu():
+    """Phase 18 (a) at 64 shards on logical CPU meshes 4x1, 1x5 and 4x5:
+    every table in shard blocks equals the one-device table (the function
+    checks flags, reads, gathered rows and dumps, one upload a block)."""
+    before = kv_window.KV_WINDOW.launches
+    out = chip_smoke.mesh_tables_vs_one_device("cpu", 64, R)
+    assert {k: v["shard_blocks"] for k, v in out.items() if "x" in k} == \
+        {"4x1": 4, "1x5": 1, "4x5": 4}
+    assert out["tables"]["4x1"].mesh is not None and out["tables"]["1x5"].mesh is None
+    assert kv_window.KV_WINDOW.launches == before  # no kernel on the CPU
+
+
+def test_phase18_lanes_replayed_on_a_mesh_cpu():
+    """Phase 18 (b) at 64 shards: phase 7's device-lane stream and phase
+    8's read-lane stream replayed on a 4x1 CPU mesh engine against the
+    records of their one-device runs (the host lane runs once)."""
+    from rabia_tpu_torch.parallel import make_mesh
+
+    stats7, _ = chip_smoke.device_kv_lane("cpu", 64, R)
+    stats8, _ = chip_smoke.device_read_lane("cpu", 64, R, groups=2)
+    mesh = make_mesh(["cpu"] * 4, 4, 1)
+    got7, eng7 = chip_smoke.device_kv_lane("cpu", 64, R, mesh=mesh, want=stats7["_record"])
+    got8, eng8 = chip_smoke.device_read_lane("cpu", 64, R, groups=2, mesh=mesh,
+                                             want=stats8["_record"])
+    assert eng7._dev.mesh is mesh and eng8._dev.mesh is mesh
+    assert got7["blocks"] == stats7["blocks"] == 86
+    assert got7["repromoted_after_waves"] == stats7["repromoted_after_waves"]
+    for stream in ("uniform", "zipf"):
+        assert got8[stream]["read_slots"] == 0
+        assert got8[stream]["probe_windows"] == stats8[stream]["probe_windows"]
 
 
 def test_pack_costs_cpu():
