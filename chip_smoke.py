@@ -62,7 +62,8 @@ Phases (each raises on failure; nothing is caught):
    equals the plain loop's), its one launch timed beside an empty
    kernel; the packed window at bench.py's packed depth (T=393216, 2.0
    GB of unanimous-V1 words), every decision checked against the V1
-   row. The packers (``pack_codes``, ``unpack_codes``, ``pack_alive``)
+   row. The packers (``pack_codes``, ``unpack_codes``, ``pack_alive``,
+   and ``pack_inputs``: a window's votes and alive plane in one launch)
    and ``ClusterKernel.start_slot`` run their kernels on this path, and
    their launches count here (phase 16 (c) times them);
 5. the serving lane at full width: ``MeshEngine`` over 4096 shards x 5
@@ -282,8 +283,13 @@ four codes with slots and phases near 2^31-1, partial inboxes, adopted
 decisions, inactive and done shards, on host arrays and on the kernel's
 own plane views (the engine's way), and a ``node_cycle`` against
 ``start_slots`` and K ``node_step`` launches;
-(c) the packer kernels and ``start_slot`` against their plain versions
-(R in {1, 5, 8}, ragged S, views one byte and one word into a buffer).
+(c) the packer kernels (``pack_inputs`` too) against their plain
+versions (R in {1, 5, 8}, ragged S, views one byte and one word into a
+buffer), and ``start_slot`` (16 bytes a thread over each field's plane)
+against ``start_slot_plain``: masks none, all and random, S in {17,
+1000, 4095}, R in {1, 5, 8, 9}, out of place, in place and on buffers
+one byte in, and 20 shard blocks in one call (two launches of its
+table).
 Then, on its own counts: (a) ``python -m rabia_tpu_torch`` and ``python
 -m rabia_tpu_torch --selftest`` as processes on the card, each exiting
 0, their lines printed; (d) the plane-conformance gate at config 3's
@@ -297,9 +303,11 @@ and no copy or pinned allocation, and a tick's bytes over the link its
 planes and host image; it prints decisions/s and p50/p99 submit-to-settle beside phase
 10 (a)'s host kernel, ticks and launches, bytes, and a tick's upload,
 launch and fetch spans by CUDA events (each holds host code too, so none
-is a device time). After the timings of phase 4, the packers (T=32768)
-and ``start_slot`` (S=4096 R=5) are timed kernel and plain by graph
-replay beside an empty kernel and their bytes bounds; one engine tick's
+is a device time). After the timings of phase 4, the packers (T=32768;
+``pack_inputs`` beside ``pack_codes``) and ``start_slot`` (S=4096 R=5)
+are timed kernel and plain by graph replay beside an empty kernel (for
+``start_slot`` one at its own grid and table, in the same turns) and
+their bytes bounds; one engine tick's
 ``node_cycle`` at 4096 x 5 with K=3 and the engine's window
 (``mw_window`` at T=16 on its pinned staging buffer) each alone by graph
 replay beside an empty kernel at its grid, and each round trip by the
@@ -320,7 +328,9 @@ workload (SET and GET on every shard, a minority crash with SETs, heal,
 GETs), decisions, futures and replica snapshots equal, and the 4x5
 mesh's engine equal to them; (c) ``ShardedClusterKernel(4096, 5, 4x1)``:
 ``slot_pipeline`` at T=64 with 4 rounds a slot and the fault path's
-``run_rounds``, bit for bit ``ClusterKernel``'s; (d) the multi-controller
+``run_rounds``, bit for bit ``ClusterKernel``'s, and ``start_slot`` one
+launch for the mesh's four shard blocks (``CLUSTER_ROUND.counts`` and,
+under the profiler, one ``cudaLaunchKernel`` a call); (d) the multi-controller
 engine, one rank on an NCCL group and two ranks sharing the card on a
 gloo group (NCCL takes one card a rank), each a process running (a)'s
 submissions through ``_run_window_multihost``, every rank equal to (a).
@@ -662,7 +672,7 @@ def packed_kernel_vs_plain(device) -> int:
         for S, T in ((17, 33), (1000, 7), (4096, 65)):
             votes = _random_votes((R, T, S), gen, device)
             alive = _alive((R, S), gen, device)
-            packed, alive_p = packed_window.pack_codes(votes), packed_window.pack_alive(alive)
+            packed, alive_p = packed_window.pack_inputs(votes, alive)
             for q in range(R + 2):
                 want = packed_window.packed_window_rmajor(packed, alive_p, q)
                 for v in (packed, shifted(packed)):
@@ -852,9 +862,7 @@ def decision_core(device, S: int, R: int, T: int, seed: int = 4):
         want = fused_window.closed_form_window_rmajor(votes, alive, k.quorum, want_phase=False)
         worst = max(worst, _max_err(dec, want))
         _check(torch.equal(dec, want), "decision core != plain closed form")
-        packed = k.slot_pipeline_fused_packed(
-            packed_window.pack_codes(votes), packed_window.pack_alive(alive), T
-        )
+        packed = k.slot_pipeline_fused_packed(*packed_window.pack_inputs(votes, alive), T)
         _check(torch.equal(packed_window.unpack_codes(packed, S), dec),
                "decision core != plain packed window")
     return k, bufs, alive, worst
@@ -4345,11 +4353,10 @@ def random_cluster_state(gen, S: int, R: int, device):
 
 def packers_vs_plain(device, Rs=(1, 5, 8), Ss=(17, 1000, 4095), T: int = 33,
                      seed: int = 32) -> int:
-    """``pack_codes``, ``pack_alive``, ``unpack_codes`` (the packer
-    kernels) and ``ClusterKernel.start_slot`` (the round kernels' entry)
-    against their plain versions on the card: ragged S, codes over all
-    four values, unpacking to fewer lanes, inputs that start one word and
-    one byte into a buffer. Returns the max_abs_err."""
+    """``pack_codes``, ``pack_alive``, ``pack_inputs`` and ``unpack_codes``
+    (the packer kernels) against their plain versions on the card: ragged
+    S, codes over all four values, unpacking to fewer lanes, inputs that
+    start one word and one byte into a buffer. Returns the max_abs_err."""
     gen = torch.Generator(device=device).manual_seed(seed)
     worst = 0
     for R in Rs:
@@ -4357,8 +4364,11 @@ def packers_vs_plain(device, Rs=(1, 5, 8), Ss=(17, 1000, 4095), T: int = 33,
             votes = _codes((R, T, S), gen, device)
             alive = torch.rand((R, S), generator=gen, device=device) < 0.7
             packed = packed_window.pack_codes(votes)
+            alive_p = packed_window.pack_alive_plain(alive)
+            both = packed_window.pack_inputs(votes, alive)
             errs = [_max_err(packed, packed_window.pack_codes_plain(votes)),
-                    _max_err(packed_window.pack_alive(alive), packed_window.pack_alive_plain(alive)),
+                    _max_err(packed_window.pack_alive(alive), alive_p),
+                    _max_err(both[0], packed), _max_err(both[1], alive_p),
                     _max_err(packed_window.unpack_codes(packed, S), votes),
                     _max_err(packed_window.unpack_codes(packed, S - 3),
                              packed_window.unpack_codes_plain(packed, S - 3))]
@@ -4367,18 +4377,75 @@ def packers_vs_plain(device, Rs=(1, 5, 8), Ss=(17, 1000, 4095), T: int = 33,
                 view = raw[off:].view(votes.shape)
                 view.copy_(votes)
                 errs.append(_max_err(packed_window.pack_codes(view), packed))
+                araw = torch.empty(off + alive.numel(), dtype=torch.bool, device=device)
+                aview = araw[off:].view(alive.shape)
+                aview.copy_(alive)
+                moved = packed_window.pack_inputs(view, aview)
+                errs += [_max_err(moved[0], packed), _max_err(moved[1], alive_p)]
             words = torch.empty(1 + packed.numel(), dtype=torch.int32, device=device)
             wview = words[1:].view(packed.shape)
             wview.copy_(packed)
             errs.append(_max_err(packed_window.unpack_codes(wview, S), votes))
+            err = max(errs)
+            _check(err == 0, f"packer kernels != plain at R={R} S={S}: {errs}")
+            worst = max(worst, err)
+    return worst
+
+
+def start_slot_vs_plain(device, Rs=(1, 5, 8, 9), Ss=(17, 1000, 4095), seed: int = 34) -> int:
+    """``ClusterKernel.start_slot`` (the round kernels' ``start_slot``
+    entry: 16 bytes a thread over each field's plane, the [S] fields 16
+    shards a thread) against ``start_slot_plain`` on the card: masks none,
+    all and random over states of protocol values; ragged S; out of
+    place, in place (``out`` the state itself) and on buffers that start
+    one byte (an int32 field: one element) in; then 20 shard blocks in
+    one call, more than a launch's table holds (two launches). Returns
+    the max_abs_err."""
+    from rabia_tpu_torch.kernel.phase_driver import ClusterState
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    cr = cluster_round.CLUSTER_ROUND
+    worst = 0
+
+    def shifted(t):  # the same values, one element into a buffer
+        raw = torch.empty(t.numel() + 1, dtype=t.dtype, device=device)
+        out = raw[1:].view(t.shape)
+        out.copy_(t)
+        return out
+
+    for R in Rs:
+        for S in Ss:
             k = ClusterKernel(S, R, device=device)
             st = random_cluster_state(gen, S, R, device)
-            mask = torch.rand((S,), generator=gen, device=device) < 0.5
-            init = _codes((S, R), gen, device)
-            errs.append(_state_err(k.start_slot(st, mask, init), k.start_slot_plain(st, mask, init)))
-            err = max(errs)
-            _check(err == 0, f"packers / start_slot kernels != plain at R={R} S={S}: {errs}")
-            worst = max(worst, err)
+            masks = {"none": torch.zeros(S, dtype=torch.bool, device=device),
+                     "all": torch.ones(S, dtype=torch.bool, device=device),
+                     "random": torch.rand((S,), generator=gen, device=device) < 0.5}
+            for mname, mask in masks.items():
+                init = _codes((S, R), gen, device)
+                want = k.start_slot_plain(st, mask, init)
+                errs = [_state_err(k.start_slot(st, mask, init), want)]
+                fields = [t.clone() for t in st]
+                cr.start_slot(fields, mask, init, out=fields)
+                errs.append(_state_err(fields, want))
+                errs.append(_state_err(cr.start_slot([shifted(t) for t in st], shifted(mask),
+                                                     shifted(init)), want))
+                err = max(errs)
+                _check(err == 0, f"start_slot kernel != plain at R={R} S={S} mask {mname} "
+                                 f"(out of place, in place, one byte in): {errs}")
+                worst = max(worst, err)
+    S, R = 1000, 5
+    k = ClusterKernel(S, R, device=device)
+    blocks = [(list(random_cluster_state(gen, S, R, device)),
+               torch.rand((S,), generator=gen, device=device) < 0.5, _codes((S, R), gen, device))
+              for _ in range(20)]
+    n0 = cr.counts["start_slot"]
+    outs = cr.start_slot_blocks(blocks)
+    _check(cr.counts["start_slot"] - n0 == 2,
+           f"20 shard blocks took {cr.counts['start_slot'] - n0} start_slot launches, not 2")
+    for b, ((f, m, v), o) in enumerate(zip(blocks, outs)):
+        err = _state_err(o, k.start_slot_plain(ClusterState(*f), m, v))
+        _check(err == 0, f"start_slot kernel != plain on block {b} of 20")
+        worst = max(worst, err)
     return worst
 
 
@@ -4398,15 +4465,19 @@ def _start_slot_bytes(st, mask, R: int) -> int:
 
 def packer_times(device, name: str, votes, alive, k) -> dict:
     """The packers and ``start_slot`` at S=4096 R=5 (T=32768 votes), each
-    kernel and its plain version by CUDA graph replay, beside an empty
-    kernel of the mesh window's grid and the bytes each function must
-    move; the plain versions' kernels a call under the profiler."""
+    kernel and its plain version by CUDA graph replay in turns (kernel,
+    plain, plain, kernel; ``start_slot`` with an empty kernel at its own
+    grid and table in the same turns: kernel, empty, plain, plain, empty,
+    kernel), beside an empty kernel of the mesh window's grid and the
+    bytes each function must move; the plain versions' kernels a call
+    under the profiler."""
     packed = packed_window.pack_codes(votes)
     alive_p = packed_window.pack_alive(alive)
     S, R = k.S, k.R
     st = k.init_state()
     mask = torch.ones(S, dtype=torch.bool, device=device)
     init = torch.full((S, R), V1, dtype=torch.int8, device=device)
+    fields = list(st)
     rate = _card_rate_bytes_per_s(name)
     progs = {
         "pack_codes": (lambda i=0: packed_window.pack_codes(votes),
@@ -4418,19 +4489,33 @@ def packer_times(device, name: str, votes, alive, k) -> dict:
         "pack_alive": (lambda i=0: packed_window.pack_alive(alive),
                        lambda i=0: packed_window.pack_alive_plain(alive),
                        alive.numel() + 4 * alive_p.numel()),
+        "pack_inputs": (lambda i=0: packed_window.pack_inputs(votes, alive),
+                        lambda i=0: (packed_window.pack_codes_plain(votes),
+                                     packed_window.pack_alive_plain(alive)),
+                        votes.numel() + 4 * packed.numel() + alive.numel() + 4 * alive_p.numel()),
         "start_slot": (lambda i=0: k.start_slot(st, mask, init),
                        lambda i=0: k.start_slot_plain(st, mask, init),
                        _start_slot_bytes(st, mask, R)),
     }
+    empty_grid = lambda i=0: cluster_round.CLUSTER_ROUND.start_slot_blocks(  # noqa: E731
+        [(fields, mask, init)], empty=True)
     out = {"empty_kernel_ms": _graph_ms(lambda i=0: mesh_window.MESH_WINDOW.empty(1, S, device),
                                         200)}
     for pname, (kern, plain, nbytes) in progs.items():
-        turns = [_graph_ms(kern, 50), _graph_ms(plain, 20), _graph_ms(plain, 20),
-                 _graph_ms(kern, 50)]
-        out[pname] = {"ms": min(turns[0], turns[3]), "plain_ms": min(turns[1], turns[2]),
-                      "turns_ms": turns, "bytes": nbytes, "bound_ms": nbytes / rate * 1e3,
+        # start_slot and its empty kernel at the launch floor: as many replays each
+        runs = {"kernel": (kern, 200 if pname == "start_slot" else 50), "plain": (plain, 20),
+                "empty": (empty_grid, 200)}
+        order = (("kernel", "empty", "plain", "plain", "empty", "kernel") if pname == "start_slot"
+                 else ("kernel", "plain", "plain", "kernel"))
+        turns = [_graph_ms(*runs[what]) for what in order]
+        best = {what: min(t for o, t in zip(order, turns) if o == what) for what in order}
+        out[pname] = {"ms": best["kernel"], "plain_ms": best["plain"],
+                      "turns_ms": list(zip(order, turns)), "bytes": nbytes,
+                      "bound_ms": nbytes / rate * 1e3,
                       "plain_kernels": _device_busy(plain, 5)["kernels"],
                       "kernels": _device_busy(kern, 5)["kernels"]}
+        if "empty" in best:
+            out[pname]["empty_ms"] = best["empty"]  # an empty kernel at its grid and table
     return out
 
 
@@ -4828,6 +4913,20 @@ def sharded_cluster(device, S: int, R: int, T: int = 64) -> dict:
     sk = ShardedClusterKernel(S, R, mesh, seed=P17_SEED)
     ck = ClusterKernel(S, R, seed=P17_SEED, device=device)
     _check(coins > 0, "phase 17 (c): the pipeline never reached the coin")
+    # start_slot on a state of protocol values: one launch for the four
+    # shard blocks, row for row one device's plain version
+    rst = random_cluster_state(gen, S, R, device)
+    rmask = torch.rand((S,), generator=gen, device=device) < 0.5
+    rvotes = _codes((S, R), gen, device)
+    n0 = cluster_round.CLUSTER_ROUND.counts["start_slot"]
+    got = sk.start_slot(rst, rmask, rvotes)
+    one_launch = cluster_round.CLUSTER_ROUND.counts["start_slot"] - n0
+    on_card = int(device.type == "cuda")  # the CPU runs each block's plain version
+    _check(one_launch == on_card, f"phase 17 (c): a sharded start_slot over {len(sk.blocks)} "
+                                  f"shard blocks took {one_launch} launches")
+    err = max(err, *(_max_err(g.full(), w) for g, w in zip(
+        got, ck.start_slot_plain(rst, rmask, rvotes))))
+    _check(err == 0, "phase 17 (c): sharded start_slot != ClusterKernel.start_slot_plain")
     every = torch.ones(S, dtype=torch.bool, device=device)
     v1 = torch.full((S, R), V1, dtype=torch.int8, device=device)
     falive = torch.tensor([False, True, True, False, True], device=device).expand(S, R)
@@ -4839,7 +4938,7 @@ def sharded_cluster(device, S: int, R: int, T: int = 64) -> dict:
     _check(ferr == 0, "phase 17 (c): sharded run_rounds != ClusterKernel's")
     _check(bool((st1.decided != ABSENT).all()), "phase 17 (c): the fault path left a shard")
     return {"max_abs_err": max(err, ferr), "coin_slots": coins,
-            "blocks": len(sk.blocks)}
+            "blocks": len(sk.blocks), "start_slot_launches_a_call": one_launch}
 
 
 def mesh_ranks(want_digest: str) -> dict:
@@ -4892,11 +4991,13 @@ def mesh_times(device, S: int, R: int) -> dict:
 def sharded_times(device, S: int, R: int) -> dict:
     """``ShardedClusterKernel(S, R, 4 x 1)``'s programs by CUDA events
     (a chain of calls; each call four launches, a block of S/4 shards
-    each with its shard0) in turns with ``ClusterKernel``'s one launch on
-    the same inputs (one, sharded, sharded, one): ``slot_pipeline`` at
-    T=8192 with 2 rounds a slot, ``start_slot`` on every shard, and the
-    fault path's ``run_rounds`` (80 rounds at p=0.6, its mask draws
-    included)."""
+    each with its shard0, but ``start_slot`` one launch for the four) in
+    turns with ``ClusterKernel``'s one launch on the same inputs (one,
+    sharded, sharded, one): ``slot_pipeline`` at T=8192 with 2 rounds a
+    slot, ``start_slot`` on every shard, and the fault path's
+    ``run_rounds`` (80 rounds at p=0.6, its mask draws included). The
+    sharded ``start_slot`` also under the profiler: one kernel launch
+    (``cudaLaunchKernel``) a call."""
     mesh = make_mesh([device] * 4, 4, 1)
     sk = ShardedClusterKernel(S, R, mesh, seed=P17_SEED)
     ck = ClusterKernel(S, R, seed=P17_SEED, device=device)
@@ -4924,6 +5025,11 @@ def sharded_times(device, S: int, R: int) -> dict:
                  _time_ms(one, reps)]
         out[name] = {"one_ms": min(turns[0], turns[3]), "sharded_ms": min(turns[1], turns[2]),
                      "turns_ms": turns}
+    trace = _traced(calls["start_slot"][1], 10, "start_slot_kernel")
+    _check(trace["launches"] == trace["calls"],
+           f"phase 17: {trace['calls']} sharded start_slot calls over {len(sk.blocks)} shard "
+           f"blocks took {trace['launches']} kernel launches under the profiler, not one a call")
+    out["start_slot"]["trace"] = trace
     return out
 
 
@@ -5497,7 +5603,7 @@ def main() -> int:
     t16 = time.perf_counter()
     err16b, cases16b = node_kernel_vs_plain(device)
     t16b = time.perf_counter() - t16
-    err16c = packers_vs_plain(device)
+    err16c = max(packers_vs_plain(device), start_slot_vs_plain(device))
     t16c = time.perf_counter() - t16 - t16b
     _reset_counts()
     gc.collect()
@@ -5524,9 +5630,11 @@ def main() -> int:
           f"in 0,1,3,8; coin_p1 0/0.5/1; slots and phases near 2^31-1; all four codes, partial "
           f"inboxes, adopted decisions, inactive and done shards): max_abs_err {err16b} "
           f"({t16b:.2f} s)")
-    print(f"phase 16 (c) packer kernels (pack_codes, unpack_codes, pack_alive) and start_slot "
-          f"vs plain: R in 1,5,8, S in 17,1000,4095, views one byte and one word into a buffer: "
-          f"max_abs_err {err16c} ({t16c:.2f} s)")
+    print(f"phase 16 (c) packer kernels (pack_codes, unpack_codes, pack_alive, pack_inputs) vs "
+          f"plain: R in 1,5,8, S in 17,1000,4095, views one byte and one word into a buffer; "
+          f"start_slot vs start_slot_plain: masks none, all and random, R in 1,5,8,9, S in "
+          f"17,1000,4095, out of place, in place and one byte into a buffer, and 20 shard blocks "
+          f"in one call (two launches): max_abs_err {err16c} ({t16c:.2f} s)")
     host10 = gate3
     for leg, r in dev16.items():
         print(f"phase 16 (d) planes gate at S={S_FULL} R={R_FULL}, {TRANSPORT_WAVES} waves of 4 "
@@ -5589,7 +5697,9 @@ def main() -> int:
     print(f"phase 17 (c) ShardedClusterKernel({S_FULL}, {R_FULL}, 4x1) vs ClusterKernel: "
           f"slot_pipeline T=64 at 4 rounds a slot ({sc17['coin_slots']} slots by the coin) and "
           f"the fault path's run_rounds (80 rounds, p=0.6), block by block with each block's "
-          f"global shard base: max_abs_err {sc17['max_abs_err']}")
+          f"global shard base; start_slot on a state of protocol values, one launch for the "
+          f"{sc17['blocks']} shard blocks ({sc17['start_slot_launches_a_call']} by "
+          f"CLUSTER_ROUND.counts): max_abs_err {sc17['max_abs_err']}")
     for leg, r in ranks17.items():
         world, backend = leg.split("x")
         for rank in r["ranks"]:
@@ -5611,10 +5721,13 @@ def main() -> int:
     print(f"phase 17 window times: the 4x5 plain version (decide_blocks_plain a shard block "
           f"on the gathered layout) {times17['4x5']['plain_ms']:.3f} ms; card: {smi}")
     for prog, r in stimes17.items():
+        launches = ("one launch for the four shard blocks, against one; under the profiler "
+                    f"{r['trace']['launches']} kernel launches in {r['trace']['calls']} calls"
+                    if prog == "start_slot" else "four launches, one a shard block, against one")
         print(f"phase 17 (c) ShardedClusterKernel(4096, 5, 4x1).{prog} by CUDA events, in turns "
               f"with ClusterKernel's (one, sharded, sharded, one): "
-              f"{' / '.join(f'{t:.4f}' for t in r['turns_ms'])} ms (four launches, one a shard "
-              f"block, against one){' at T=8192, 2 rounds' if prog == 'slot_pipeline' else ''}"
+              f"{' / '.join(f'{t:.4f}' for t in r['turns_ms'])} ms ({launches})"
+              f"{' at T=8192, 2 rounds' if prog == 'slot_pipeline' else ''}"
               f"{', 80 rounds with their mask draws' if prog == 'run_rounds' else ''}; "
               f"card: {smi}")
     print(f"phase 17 path: launches by kernel {json.dumps(p17)}, round kernel by entry "
@@ -6050,7 +6163,9 @@ def main() -> int:
           f"under the profiler), beside an empty kernel of the mesh window's grid "
           f"{ptimes['empty_kernel_ms']:.4f} ms: " + ", ".join(
               f"{pname} {r['ms']:.4f} / {r['plain_ms']:.4f} ms (bound {r['bound_ms']:.5f} ms, "
-              f"{r['bound_ms'] / r['ms']:.1%}; plain {r['plain_kernels']} kernels)"
+              f"{r['bound_ms'] / r['ms']:.1%}; plain {r['plain_kernels']} kernels"
+              + (f"; an empty kernel at its grid and table {r['empty_ms']:.4f} ms, in turns "
+                 f"kernel, empty, plain, plain, empty, kernel" if "empty_ms" in r else "") + ")"
               for pname, r in ptimes.items() if pname != "empty_kernel_ms")
           + f"; {json.dumps(ptimes)}")
     print(f"phase 16 (b) one engine tick's node_cycle at S={S_FULL} R={R_FULL} K=3 as the "
@@ -6323,7 +6438,9 @@ def main() -> int:
         "replaces": "rabia_tpu/kernel/phase_driver.py:202",
         "launches": round_counts["start_slot"] + p17_round["start_slot"],
         "max_abs_err": max(err16c, err2d, err_fault, sc17["max_abs_err"]),
-        "ms": ptimes["start_slot"]["ms"],  # S=4096 R=5
+        "ms": ptimes["start_slot"]["ms"],  # S=4096 R=5, every shard masked
+        "empty_ms": ptimes["start_slot"]["empty_ms"],  # an empty kernel at its grid and table
+        "sharded_ms": stimes17["start_slot"]["sharded_ms"],  # 4 shard blocks, one launch
         "plain_ms": ptimes["start_slot"]["plain_ms"],
         "bound_ms": ptimes["start_slot"]["bound_ms"],
         "bound_by": "bytes",
@@ -6350,12 +6467,14 @@ def main() -> int:
         "replaces": f"rabia_tpu/kernel/packed_window.py:{line}",
         "launches": packer_counts[pname],
         "max_abs_err": max(err16c, err2c),
-        "ms": ptimes[pname]["ms"],  # S=4096 R=5 T=32768 (pack_alive: R x S)
+        # S=4096 R=5 T=32768 (pack_alive: R x S; pack_inputs: both)
+        "ms": ptimes[pname]["ms"],
         "plain_ms": ptimes[pname]["plain_ms"],
         "bound_ms": ptimes[pname]["bound_ms"],
         "bound_by": "bytes",
         "library_ms": None,  # no single PyTorch call packs 2-bit codes into words
-    } for pname, line in (("pack_codes", 56), ("unpack_codes", 75), ("pack_alive", 84))]
+    } for pname, line in (("pack_codes", 56), ("unpack_codes", 75), ("pack_alive", 84),
+                          ("pack_inputs", 56))]
     lap("timings (phases 4-9, 16 (b)-(c)) and the kernels line")
     for name_, secs in phase_s.items():
         print(f"chip_smoke phase {name_}: {secs:.1f} s")

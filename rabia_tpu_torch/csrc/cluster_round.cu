@@ -63,13 +63,23 @@
 // active; a masked shard also reads its R votes, an unmasked one the
 // rest of its fields. At S=4096 R=5 with every shard masked (the main
 // path's call), 0.50 MB, 0.00015 ms at 3.35 TB/s; with none masked,
-// 0.91 MB; either lies below a launch. Design: one thread a shard
-// (cluster_round.cuh, start_slot_shard), bytewise over its rows, so any
-// R; one launch where the plain version runs some 26 kernels.
+// 0.91 MB; either lies below a launch, so the time is the launch and one
+// dependent read and write of device memory. Design (cluster_round.cuh,
+// ss::): the fields' planes as flat bytes, 16 a thread, stored as one
+// 16-byte vector each (a warp's 32 stores are 512 contiguous bytes),
+// the [S] fields 16 shards a thread; a vector finds its shard by a 32-bit
+// multiply-shift, never a 64-bit division. Every thread issues its loads
+// together and then its one store, in one wave of CTAs. Any R up to
+// ss::MAX_R; ragged ends and unaligned planes element by element. A
+// mesh's shard blocks on one device go in one launch: the kernel's
+// parameter is a table of up to ss::MAX_BLOCKS blocks' field pointers,
+// blockIdx.y the block (cr_start_slot_blocks).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "cluster_round.cuh"
+
+namespace ss = cr::ss;
 
 namespace {
 
@@ -327,14 +337,19 @@ int launch_tsr(const int8_t* v, const uint8_t* a, int8_t* d, int32_t* ph, const 
     return static_cast<int>(cudaGetLastError());
 }
 
-// ClusterKernel.start_slot: one thread a shard (cluster_round.cuh,
-// start_slot_shard).
-__global__ void __launch_bounds__(128)
-start_slot_kernel(cr::Ptrs in, cr::Ptrs out, const uint8_t* mask, const int8_t* votes,
-                  int64_t S, int R) {
-    const int64_t s = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-    if (s < S) cr::start_slot_shard(in, out, mask, votes, s, R);
+// ClusterKernel.start_slot over a table of shard blocks
+// (cluster_round.cuh, ss::thread): the table is the kernel's parameter,
+// read in place from the parameter bank.
+static_assert(sizeof(ss::Args) <= 4000, "the table must fit a kernel's 4 KB of parameters");
+
+__global__ void __launch_bounds__(ss::THREADS)
+start_slot_kernel(const __grid_constant__ ss::Args a) {
+    ss::thread(a, blockIdx.x, blockIdx.y, threadIdx.x);
 }
+
+// The same grid and parameter doing nothing: the launch's own time.
+__global__ void __launch_bounds__(ss::THREADS)
+start_slot_empty_kernel(const __grid_constant__ ss::Args a) {}
 
 cr::Ptrs ptrs(void* const* f) {
     cr::Ptrs p;
@@ -450,17 +465,42 @@ extern "C" int cr_slot_pipeline(const void* votes, const void* alive, void* deci
     }
 }
 
-// ClusterKernel.start_slot over S shards: the 13 state fields `in` to
-// `out` (ClusterState's order and dtypes, contiguous; `out` may be `in`),
-// mask u8[S], votes i8[S, R]; any R >= 1. Launches on `stream`, returns
-// cudaGetLastError() (0 on success); does not synchronise.
+// ClusterKernel.start_slot over nblk shard blocks of S shards each, in
+// one launch for up to 16 blocks (ss::MAX_BLOCKS; more, or a block whose
+// [S, R, R] plane passes 2^31 bytes, take ceil(entries / 16) launches):
+// each block's 13 state fields in[13 b .. 13 b + 12] to out[...]
+// (ClusterState's order and dtypes, contiguous, any alignment; out may be
+// in), its mask u8[S] masks[b] and votes i8[S, R] votes[b]; 1 <= R <=
+// 46340. empty != 0 launches a kernel that does nothing on the same grid
+// and parameter instead (the launch's own time). Launches on `stream`,
+// writes the launches made to *launches, returns cudaGetLastError() (0
+// on success); does not synchronise.
+extern "C" int cr_start_slot_blocks(int nblk, void* const* in, void* const* out,
+                                    const void* const* masks, const void* const* votes,
+                                    long long S, int R, int empty, int* launches, void* stream) {
+    *launches = 0;
+    const auto st = static_cast<cudaStream_t>(stream);
+    int err = 0;
+    const int n = ss::launches(nblk, in, out, masks, votes, S, R,
+                               [&](const ss::Args& a, uint32_t grid_x) {
+        if (err != 0) return;
+        const dim3 grid(grid_x, static_cast<unsigned>(a.nblk));
+        if (empty) {
+            start_slot_empty_kernel<<<grid, ss::THREADS, 0, st>>>(a);
+        } else {
+            start_slot_kernel<<<grid, ss::THREADS, 0, st>>>(a);
+        }
+        err = static_cast<int>(cudaGetLastError());
+        if (err == 0) ++*launches;
+    });
+    if (n < 0) return static_cast<int>(cudaErrorInvalidValue);
+    return err;
+}
+
+// One block: cr_start_slot_blocks with nblk = 1 (the 13 fields in and out,
+// mask u8[S], votes i8[S, R]).
 extern "C" int cr_start_slot(void* const* in, void* const* out, const void* mask,
                              const void* votes, long long S, int R, void* stream) {
-    if (S < 0 || R < 1) return static_cast<int>(cudaErrorInvalidValue);
-    if (S == 0) return 0;
-    const unsigned blocks = static_cast<unsigned>((S + 127) / 128);
-    start_slot_kernel<<<blocks, 128, 0, static_cast<cudaStream_t>(stream)>>>(
-        ptrs(in), ptrs(out), static_cast<const uint8_t*>(mask), static_cast<const int8_t*>(votes),
-        S, R);
-    return static_cast<int>(cudaGetLastError());
+    int launches = 0;
+    return cr_start_slot_blocks(1, in, out, &mask, &votes, S, R, 0, &launches, stream);
 }

@@ -33,6 +33,7 @@
 #pragma once
 
 #include <stdint.h>
+#include <string.h>
 
 #include "fused_window.cuh"
 #include "mesh_window.cuh"
@@ -749,38 +750,348 @@ CR_HD void pipeline_chunk_bytes(const int8_t* votes, const uint8_t* alive, int n
 
 // ---- start_slot: open a slot on the masked shards ----
 //
-// ClusterKernel.start_slot for shard s, from the state `in` to `out`
-// (which may be `in`): a masked shard opens a slot, its slot number
-// bumped by one where it was active (uint32 arithmetic: int32 wrapping
-// past 2^31-1); every replica at phase 0 in R1_WAIT with its initial
-// vote votes[s, r] as its round-1 vote and as the only entry of its own
-// led1 row; round-2 and previous votes, led2 and the decision ABSENT,
-// decided_phase -1, none done, active. An unmasked shard keeps its state.
-// Any R: the rows are worked on byte by byte.
-CR_HD void start_slot_shard(const Ptrs& in, const Ptrs& out, const uint8_t* mask,
-                            const int8_t* votes, int64_t s, int R) {
-    const int64_t sr = s * R, srr = sr * R;
-    const bool m = mask[s] != 0;
-    const bool active = in.active[s] != 0;
-    out.slot[s] = static_cast<int32_t>(static_cast<uint32_t>(in.slot[s]) + (m && active ? 1u : 0u));
-    for (int r = 0; r < R; ++r) {
-        const int64_t i = sr + r;
-        out.phase[i] = m ? 0 : in.phase[i];
-        out.stage[i] = m ? 0 : in.stage[i];
-        out.my_r1[i] = m ? votes[i] : in.my_r1[i];
-        out.my_r2[i] = m ? ABSENT : in.my_r2[i];
-        out.prev_r1[i] = m ? ABSENT : in.prev_r1[i];
-        out.prev_r2[i] = m ? ABSENT : in.prev_r2[i];
-        out.done[i] = m ? 0 : in.done[i];
-        for (int j = 0; j < R; ++j) {
-            const int64_t k = srr + r * R + j;
-            out.led1[k] = m ? (j == r ? votes[i] : ABSENT) : in.led1[k];
-            out.led2[k] = m ? ABSENT : in.led2[k];
+// ClusterKernel.start_slot, from the state `in` to `out` (which may be
+// `in`): a masked shard opens a slot, its slot number bumped by one where
+// it was active (uint32 arithmetic: int32 wrapping past 2^31-1); every
+// replica at phase 0 in R1_WAIT with its initial vote votes[s, r] as its
+// round-1 vote and as the only entry of its own led1 row; round-2 and
+// previous votes, led2 and the decision ABSENT, decided_phase -1, none
+// done, active. An unmasked shard keeps its state.
+//
+// The kernel (cr_start_slot) works over each field's plane as flat
+// bytes, not one shard a thread. A thread takes 16 bytes of one [S, R]
+// or [S, R, R] plane (a 16-byte vector where the plane's bytes in and out
+// are 16-byte aligned and the vector is whole; element by element
+// otherwise, the same math), or the [S] fields of 16 shards: slot and
+// active are read and written by one thread, so the slot's bump sees the
+// active flag from before the call even in place. A vector's first
+// element finds its shard (and in led1 its row and column) by a 32-bit
+// multiply-shift (Div), the next ones by counting. ss::thread is one
+// thread of the launch; ss::launches plans the launches (shard blocks of
+// a mesh's device in one table, MAX_BLOCKS a launch); the g++ build of
+// the tests walks the same grid on the host.
+namespace ss {
+
+constexpr int THREADS = 256;     // threads a CTA
+constexpr int MAX_BLOCKS = 16;   // table entries (shard blocks) a launch
+constexpr int N_FIELDS = 13;
+constexpr int N_PLANES = 9;      // the [S, R] and [S, R, R] fields
+// bytes a plane of an entry may hold (< 2^31: 32-bit offsets); a host
+// build may set a smaller one to exercise the cut of large blocks
+#ifndef CR_SS_MAX_PLANE
+#define CR_SS_MAX_PLANE 0x7FFFFFFFu
+#endif
+constexpr uint32_t MAX_PLANE = CR_SS_MAX_PLANE;
+
+// ClusterState's fields, in order
+enum Field { SLOT, PHASE, STAGE, MY_R1, MY_R2, PREV_R1, PREV_R2, LED1, LED2, DECIDED, DPHASE,
+             DONE, ACTIVE };
+// what a masked shard's element becomes: a constant, its vote, or its
+// vote on the ledger's diagonal (ABSENT elsewhere)
+enum Op { CONST, VOTE, DIAG };
+
+// x / d for x < 2^31: (x * mul) >> shift with mul = ceil(2^(31+l) / d),
+// l = ceil(log2 d). mul < 2^32 and mul * d - 2^(31+l) < d <= 2^l, so the
+// error stays below 1/d and the quotient is exact.
+struct Div {
+    uint32_t mul, shift;
+};
+
+CR_HD uint32_t divide(uint32_t x, Div d) {
+    return static_cast<uint32_t>((static_cast<uint64_t>(x) * d.mul) >> d.shift);
+}
+
+inline Div div_by(uint32_t d) {
+    uint32_t l = 0;
+    while ((uint64_t(1) << l) < d) ++l;
+    return Div{static_cast<uint32_t>(((uint64_t(1) << (31 + l)) + d - 1) / d), 31 + l};
+}
+
+// The [S, R] and [S, R, R] fields: element bytes, elements a shard
+// (1: R, 2: R*R), and what a masked shard's element becomes.
+struct Plane {
+    int field, esize, per, op, value;
+};
+
+CR_HD Plane plane(int p) {
+    switch (p) {
+        case 0: return {PHASE, 4, 1, CONST, 0};
+        case 1: return {STAGE, 1, 1, CONST, 0};  // R1_WAIT
+        case 2: return {MY_R1, 1, 1, VOTE, 0};
+        case 3: return {MY_R2, 1, 1, CONST, ABSENT};
+        case 4: return {PREV_R1, 1, 1, CONST, ABSENT};
+        case 5: return {PREV_R2, 1, 1, CONST, ABSENT};
+        case 6: return {LED1, 1, 2, DIAG, ABSENT};
+        case 7: return {LED2, 1, 2, CONST, ABSENT};
+        default: return {DONE, 1, 1, CONST, 0};
+    }
+}
+
+// One table entry: a shard block's 13 fields in and out (ClusterState's
+// order and dtypes, contiguous), its mask u8[S] and votes i8[S, R].
+struct Block {
+    const void* in[N_FIELDS];
+    void* out[N_FIELDS];
+    const uint8_t* mask;
+    const int8_t* votes;
+    uint32_t S;
+};
+
+// A launch: grid (cta[N_PLANES + 1], nblk) of THREADS threads. Job 0
+// (CTAs [cta[0], cta[1])) takes the [S] fields 16 shards a thread, job
+// p + 1 plane p 16 bytes a thread, each laid out for the largest entry.
+struct Args {
+    int R, nblk;
+    Div by_r, by_rr;
+    uint32_t cta[N_PLANES + 2];
+    Block blk[MAX_BLOCKS];
+};
+
+CR_HD bool aligned16(const void* p) {
+    return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
+}
+
+CR_HD void load16(const void* p, uint32_t (&w)[4]) {
+#if defined(__CUDA_ARCH__)
+    const uint4 q = *reinterpret_cast<const uint4*>(p);
+    w[0] = q.x, w[1] = q.y, w[2] = q.z, w[3] = q.w;
+#else
+    memcpy(w, p, 16);
+#endif
+}
+
+CR_HD void store16(void* p, const uint32_t (&w)[4]) {
+#if defined(__CUDA_ARCH__)
+    *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+#else
+    memcpy(p, w, 16);
+#endif
+}
+
+// Element i of 16 bytes held as four little-endian words.
+template <int E>
+CR_HD uint32_t get(const uint32_t (&w)[4], int i) {
+    return E == 4 ? w[i] : (w[i >> 2] >> (8 * (i & 3))) & 0xFFu;
+}
+
+template <int E>
+CR_HD void put(uint32_t (&w)[4], int i, uint32_t x) {
+    if (E == 4) {
+        w[i] = x;
+    } else {
+        const int sh = 8 * (i & 3);
+        w[i >> 2] = (w[i >> 2] & ~(0xFFu << sh)) | ((x & 0xFFu) << sh);
+    }
+}
+
+// One shard's [S] fields: slot, decided, decided_phase, active.
+CR_HD void shard_fields(bool m, uint32_t& slot, uint32_t& decided, uint32_t& dphase,
+                        uint32_t& active) {
+    const bool was = active != 0;
+    slot += (m && was) ? 1u : 0u;
+    if (m) {
+        decided = ABSENT;
+        dphase = 0xFFFFFFFFu;  // -1
+    }
+    active = (was || m) ? 1u : 0u;
+}
+
+// Job 0: the [S] fields of shards 16c .. 16c + 15 of entry k.
+CR_HD void shards16(const Block& k, uint32_t c) {
+    const uint32_t s0 = 16 * c;
+    if (s0 >= k.S) return;
+    const auto* mask = k.mask + s0;
+    const auto* slot_in = static_cast<const int32_t*>(k.in[SLOT]) + s0;
+    const auto* dph_in = static_cast<const int32_t*>(k.in[DPHASE]) + s0;
+    const auto* dec_in = static_cast<const uint8_t*>(k.in[DECIDED]) + s0;
+    const auto* act_in = static_cast<const uint8_t*>(k.in[ACTIVE]) + s0;
+    auto* slot_out = static_cast<int32_t*>(k.out[SLOT]) + s0;
+    auto* dph_out = static_cast<int32_t*>(k.out[DPHASE]) + s0;
+    auto* dec_out = static_cast<uint8_t*>(k.out[DECIDED]) + s0;
+    auto* act_out = static_cast<uint8_t*>(k.out[ACTIVE]) + s0;
+    const bool vec = s0 + 16 <= k.S && aligned16(mask) && aligned16(slot_in) &&
+                     aligned16(dph_in) && aligned16(dec_in) && aligned16(act_in) &&
+                     aligned16(slot_out) && aligned16(dph_out) && aligned16(dec_out) &&
+                     aligned16(act_out);
+    if (!vec) {
+        const uint32_t n = k.S - s0 < 16 ? k.S - s0 : 16;
+        for (uint32_t i = 0; i < n; ++i) {
+            uint32_t slot = static_cast<uint32_t>(slot_in[i]), dec = dec_in[i];
+            uint32_t dph = static_cast<uint32_t>(dph_in[i]), act = act_in[i];
+            shard_fields(mask[i] != 0, slot, dec, dph, act);
+            slot_out[i] = static_cast<int32_t>(slot);
+            dph_out[i] = static_cast<int32_t>(dph);
+            dec_out[i] = static_cast<uint8_t>(dec);
+            act_out[i] = static_cast<uint8_t>(act);
+        }
+        return;
+    }
+    uint32_t m[4], dec[4], act[4], slot[4][4], dph[4][4];
+    load16(mask, m);
+    load16(dec_in, dec);
+    load16(act_in, act);
+    CR_PRAGMA(unroll)
+    for (int q = 0; q < 4; ++q) {
+        load16(slot_in + 4 * q, slot[q]);
+        load16(dph_in + 4 * q, dph[q]);
+    }
+    CR_PRAGMA(unroll)
+    for (int i = 0; i < 16; ++i) {
+        uint32_t d = get<1>(dec, i), a = get<1>(act, i);
+        shard_fields(get<1>(m, i) != 0, slot[i >> 2][i & 3], d, dph[i >> 2][i & 3], a);
+        put<1>(dec, i, d);
+        put<1>(act, i, a);
+    }
+    CR_PRAGMA(unroll)
+    for (int q = 0; q < 4; ++q) {
+        store16(slot_out + 4 * q, slot[q]);
+        store16(dph_out + 4 * q, dph[q]);
+    }
+    store16(dec_out, dec);
+    store16(act_out, act);
+}
+
+// Plane p's 16 bytes at byte offset o of entry k, elements of E bytes.
+template <int E>
+CR_HD void plane16(const Args& a, const Block& k, const Plane& pl, uint32_t o) {
+    const int R = a.R;
+    const uint32_t D = pl.per == 1 ? R : R * R;
+    const uint32_t nbytes = k.S * D * E;
+    if (o >= nbytes) return;
+    const auto* in = static_cast<const uint8_t*>(k.in[pl.field]) + o;
+    auto* out = static_cast<uint8_t*>(k.out[pl.field]) + o;
+    const int n = static_cast<int>((nbytes - o < 16 ? nbytes - o : 16) / E);
+    const bool vec = n * E == 16 && aligned16(in) && aligned16(out);
+    uint32_t w[4] = {0, 0, 0, 0};
+    if (vec) {
+        load16(in, w);
+    } else {
+        for (int i = 0; i < n; ++i) {
+            uint32_t x;
+            if (E == 4) {
+                int32_t v;
+                memcpy(&v, in + 4 * i, 4);
+                x = static_cast<uint32_t>(v);
+            } else {
+                x = in[i];
+            }
+            put<E>(w, i, x);
         }
     }
-    out.decided[s] = m ? ABSENT : in.decided[s];
-    out.dphase[s] = m ? -1 : in.dphase[s];
-    out.active[s] = (active || m) ? 1 : 0;
+    // element e's shard s, its index k within the shard, and in a ledger
+    // its row r and column j
+    const uint32_t e = o / E;
+    uint32_t s = divide(e, pl.per == 1 ? a.by_r : a.by_rr);
+    uint32_t kk = e - s * D, r = 0, j = 0;
+    if (pl.per == 2) {
+        r = divide(kk, a.by_r);
+        j = kk - r * R;
+    }
+    CR_PRAGMA(unroll)
+    for (int i = 0; i < 16 / E; ++i) {
+        if (i < n) {
+            if (k.mask[s] != 0) {
+                uint32_t x = static_cast<uint32_t>(pl.value);
+                if (pl.op == VOTE) x = static_cast<uint8_t>(k.votes[e + i]);
+                if (pl.op == DIAG && j == r) x = static_cast<uint8_t>(k.votes[s * R + r]);
+                put<E>(w, i, x);
+            }
+            if (++j == static_cast<uint32_t>(R)) j = 0, ++r;
+            if (++kk == D) kk = 0, ++s, r = 0, j = 0;
+        }
+    }
+    if (vec) {
+        store16(out, w);
+    } else {
+        for (int i = 0; i < n; ++i) {
+            if (E == 4) {
+                const int32_t v = static_cast<int32_t>(get<E>(w, i));
+                memcpy(out + 4 * i, &v, 4);
+            } else {
+                out[i] = static_cast<uint8_t>(get<E>(w, i));
+            }
+        }
+    }
 }
+
+// Thread t of CTA (cta, b): entry b's job that the CTA falls in.
+CR_HD void thread(const Args& a, uint32_t cta, uint32_t b, uint32_t t) {
+    const Block& k = a.blk[b];
+    if (cta < a.cta[1]) {
+        shards16(k, cta * THREADS + t);
+        return;
+    }
+    int p = 0;
+    while (cta >= a.cta[p + 2]) ++p;
+    const Plane pl = plane(p);
+    const uint32_t o = 16 * ((cta - a.cta[p + 1]) * THREADS + t);
+    if (pl.esize == 4) {
+        plane16<4>(a, k, pl, o);
+    } else {
+        plane16<1>(a, k, pl, o);
+    }
+}
+
+// Largest R the table takes: a shard's R*R ledger bytes must fit an
+// entry's plane.
+constexpr int MAX_R = 46340;
+
+// The launches over nblk shard blocks of S shards each (in and out: 13
+// field pointers a block, in ClusterState's order; masks and votes: one
+// a block). A block too large for 32-bit plane offsets is cut into
+// entries of fewer shards; the entries go MAX_BLOCKS a launch. Calls
+// fn(args, grid_x) once a launch (grid (grid_x, args.nblk) of THREADS);
+// returns the launches, or -1 on a bad shape.
+template <typename Fn>
+int launches(int nblk, void* const* in, void* const* out, const void* const* masks,
+             const void* const* votes, int64_t S, int R, Fn&& fn) {
+    if (nblk < 0 || S < 0 || R < 1 || R > MAX_R) return -1;
+    if (nblk == 0 || S == 0) return 0;
+    const uint64_t per_shard = static_cast<uint64_t>(R) * R > 4ull * R ? uint64_t(R) * R : 4ull * R;
+    int64_t chunk = static_cast<int64_t>(MAX_PLANE / per_shard);
+    if (chunk >= 16) chunk -= chunk % 16;
+    const int64_t cut = S < chunk ? S : chunk;
+    Args a{};
+    a.R = R;
+    a.by_r = div_by(static_cast<uint32_t>(R));
+    a.by_rr = div_by(static_cast<uint32_t>(R) * R);
+    const uint32_t span = 16 * THREADS;  // bytes a CTA
+    a.cta[0] = 0;
+    a.cta[1] = static_cast<uint32_t>((cut + span - 1) / span);
+    for (int p = 0; p < N_PLANES; ++p) {
+        const Plane pl = plane(p);
+        const uint64_t bytes = uint64_t(cut) * (pl.per == 1 ? R : uint64_t(R) * R) * pl.esize;
+        a.cta[p + 2] = a.cta[p + 1] + static_cast<uint32_t>((bytes + span - 1) / span);
+    }
+    static const int esize[N_FIELDS] = {4, 4, 1, 1, 1, 1, 1, 1, 1, 1, 4, 1, 1};
+    static const int per[N_FIELDS] = {0, 1, 1, 1, 1, 1, 1, 2, 2, 0, 0, 1, 0};
+    int n = 0;
+    for (int b = 0; b < nblk; ++b) {
+        for (int64_t s0 = 0; s0 < S; s0 += cut) {
+            Block& k = a.blk[a.nblk++];
+            k.S = static_cast<uint32_t>(S - s0 < cut ? S - s0 : cut);
+            for (int f = 0; f < N_FIELDS; ++f) {
+                const int64_t off = s0 * (per[f] == 0 ? 1 : per[f] == 1 ? R : int64_t(R) * R) *
+                                    esize[f];
+                k.in[f] = static_cast<const uint8_t*>(in[b * N_FIELDS + f]) + off;
+                k.out[f] = static_cast<uint8_t*>(out[b * N_FIELDS + f]) + off;
+            }
+            k.mask = static_cast<const uint8_t*>(masks[b]) + s0;
+            k.votes = static_cast<const int8_t*>(votes[b]) + s0 * R;
+            if (a.nblk == MAX_BLOCKS) {
+                fn(static_cast<const Args&>(a), a.cta[N_PLANES + 1]);
+                ++n;
+                a.nblk = 0;
+            }
+        }
+    }
+    if (a.nblk > 0) {
+        fn(static_cast<const Args&>(a), a.cta[N_PLANES + 1]);
+        ++n;
+    }
+    return n;
+}
+
+}  // namespace ss
 
 }  // namespace cr

@@ -25,7 +25,9 @@
 // The packers (pw_pack_codes, pw_unpack_codes, pw_pack_alive) replace the
 // reference's pack_codes, unpack_codes and pack_alive
 // (rabia_tpu/kernel/packed_window.py:55-96), XLA programs that feed and
-// read the window. Bound: bytes. pack_codes reads S code bytes and writes
+// read the window; pw_pack_inputs packs a window's votes and alive plane
+// in one launch (pack_alive alone is a launch for a few KB, at the launch
+// floor). Bound: bytes. pack_codes reads S code bytes and writes
 // S/4 bytes of words a row, unpack_codes the reverse: at S=4096 R=5
 // T=32768, 671 MB + 168 MB, 0.2504 ms at 3.35 TB/s. Design: one thread a
 // 32-bit word, its 16 codes read as one 16-byte vector (bytewise at a
@@ -118,6 +120,24 @@ int launch(const uint32_t* v, const uint32_t* a, uint32_t* o, int R, int64_t T, 
 // 16-byte vector where rows are whole words and the input is 16-byte
 // aligned) and writing the word. ALIVE: pack_alive, else pack_codes.
 template <bool ALIVE, bool VEC>
+__device__ __forceinline__ void pack_word(const int8_t* __restrict__ x, uint32_t* __restrict__ out,
+                                          int64_t i, int64_t S, int64_t SW, int fill) {
+    const int64_t row = i / SW, w = i - row * SW;
+    const int8_t* src = x + row * S + w * 16;
+    alignas(16) int8_t b[16];
+    int n = 16;
+    if constexpr (VEC) {
+        *reinterpret_cast<uint4*>(b) = __ldg(reinterpret_cast<const uint4*>(src));
+    } else {
+        n = static_cast<int>(S - w * 16 < 16 ? S - w * 16 : 16);
+#pragma unroll
+        for (int k = 0; k < 16; ++k) b[k] = k < n ? src[k] : 0;
+    }
+    out[i] = ALIVE ? pw::pack16_alive(reinterpret_cast<const uint8_t*>(b), n)
+                   : pw::pack16(b, n, fill);
+}
+
+template <bool ALIVE, bool VEC>
 __global__ void __launch_bounds__(THREADS)
 pack_kernel(const int8_t* __restrict__ x, uint32_t* __restrict__ out, int64_t rows, int64_t S,
             int64_t SW, int fill) {
@@ -125,19 +145,26 @@ pack_kernel(const int8_t* __restrict__ x, uint32_t* __restrict__ out, int64_t ro
     const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
     for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < total;
          i += stride) {
-        const int64_t row = i / SW, w = i - row * SW;
-        const int8_t* src = x + row * S + w * 16;
-        alignas(16) int8_t b[16];
-        int n = 16;
-        if constexpr (VEC) {
-            *reinterpret_cast<uint4*>(b) = __ldg(reinterpret_cast<const uint4*>(src));
-        } else {
-            n = static_cast<int>(S - w * 16 < 16 ? S - w * 16 : 16);
-#pragma unroll
-            for (int k = 0; k < 16; ++k) b[k] = k < n ? src[k] : 0;
-        }
-        out[i] = ALIVE ? pw::pack16_alive(reinterpret_cast<const uint8_t*>(b), n)
-                       : pw::pack16(b, n, fill);
+        pack_word<ALIVE, VEC>(x, out, i, S, SW, fill);
+    }
+}
+
+// pack_codes and pack_alive of one window in one launch: every thread
+// walks the code words as pack_kernel does, then the alive words with the
+// same stride, so the alive words ride on the first CTAs' threads and add
+// no CTA at the grid's tail.
+template <bool VEC_CODES, bool VEC_ALIVE>
+__global__ void __launch_bounds__(THREADS)
+pack_inputs_kernel(const int8_t* __restrict__ codes, uint32_t* __restrict__ codes_out,
+                   const int8_t* __restrict__ alive, uint32_t* __restrict__ alive_out,
+                   int64_t code_words, int64_t alive_words, int64_t S, int64_t SW) {
+    const int64_t first = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+    const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+    for (int64_t i = first; i < code_words; i += stride) {
+        pack_word<false, VEC_CODES>(codes, codes_out, i, S, SW, 3);
+    }
+    for (int64_t i = first; i < alive_words; i += stride) {
+        pack_word<true, VEC_ALIVE>(alive, alive_out, i, S, SW, 0);
     }
 }
 
@@ -230,6 +257,40 @@ extern "C" int pw_pack_codes(const void* x, void* out, long long rows, long long
 extern "C" int pw_pack_alive(const void* x, void* out, long long rows, long long S, long long SW,
                              void* stream) {
     return launch_pack<true>(x, out, rows, S, SW, 0, stream);
+}
+
+// pack_codes of codes i8[code_rows, S] and pack_alive of flags
+// u8[alive_rows, S] (each contiguous, any byte offset) in one launch, to
+// words u32[code_rows, SW] and u32[alive_rows, SW], SW = ceil(S/16): a
+// window's votes and alive plane. The same words as pw_pack_codes and
+// pw_pack_alive. Launches on `stream`, returns cudaGetLastError() (0 on
+// success); does not synchronise.
+extern "C" int pw_pack_inputs(const void* codes, void* codes_out, long long code_rows,
+                              const void* alive, void* alive_out, long long alive_rows,
+                              long long S, long long SW, void* stream) {
+    if (code_rows < 0 || alive_rows < 0 || S < 0 || SW != (S + 15) / 16) {
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+    const int64_t cw = code_rows * SW, aw = alive_rows * SW;
+    if (cw + aw == 0) return 0;
+    const auto* c = static_cast<const int8_t*>(codes);
+    const auto* a = static_cast<const int8_t*>(alive);
+    auto* co = static_cast<uint32_t*>(codes_out);
+    auto* ao = static_cast<uint32_t*>(alive_out);
+    const auto st = static_cast<cudaStream_t>(stream);
+    const unsigned g = grid_for(cw > aw ? cw : aw);
+    const bool vc = S % 16 == 0 && (reinterpret_cast<uintptr_t>(codes) & 15u) == 0;
+    const bool va = S % 16 == 0 && (reinterpret_cast<uintptr_t>(alive) & 15u) == 0;
+    if (vc && va) {
+        pack_inputs_kernel<true, true><<<g, THREADS, 0, st>>>(c, co, a, ao, cw, aw, S, SW);
+    } else if (vc) {
+        pack_inputs_kernel<true, false><<<g, THREADS, 0, st>>>(c, co, a, ao, cw, aw, S, SW);
+    } else if (va) {
+        pack_inputs_kernel<false, true><<<g, THREADS, 0, st>>>(c, co, a, ao, cw, aw, S, SW);
+    } else {
+        pack_inputs_kernel<false, false><<<g, THREADS, 0, st>>>(c, co, a, ao, cw, aw, S, SW);
+    }
+    return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int pw_unpack_codes(const void* p, void* out, long long rows, long long SW, long long S,

@@ -4257,6 +4257,10 @@ class RabiaEngine:
         async def later() -> None:
             try:
                 await asyncio.sleep(grace)
+                if not self._running:
+                    # shut down inside the grace: the caller may have
+                    # closed the transport, so nothing is sent
+                    return
                 rec = self.rt.shards[s].decisions.get(slot)
                 if rec is not None and not rec.applied:
                     await self._initiate_sync()

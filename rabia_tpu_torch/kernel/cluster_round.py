@@ -21,7 +21,12 @@ phase_driver.py``) and the scans over it. Two entries, on the math of
   (slot, shard) a thread above. ``slot_pipeline`` and
   ``slot_pipeline_wide`` launch it.
 - :meth:`ClusterRoundKernel.start_slot`: ``ClusterKernel.start_slot``,
-  one thread a shard (any R), the state's 13 fields to fresh ones.
+  the state's 13 fields to fresh ones, written 16 bytes a thread over
+  each field's plane (any R); the 13 outputs are views of one
+  allocation. :meth:`ClusterRoundKernel.start_slot_blocks` does the same
+  for several shard blocks on one device in one launch (the kernel reads
+  a table of the blocks' field pointers): ``ShardedClusterKernel``'s
+  ``start_slot`` makes one such launch a device.
 
 The plain versions are ``ClusterKernel.round_step_plain``,
 ``run_rounds_plain``, ``slot_pipeline_plain``,
@@ -33,6 +38,7 @@ raises, for R > 64 too), a CPU tensor to the plain version.
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Optional, Sequence
 
 import torch
@@ -73,6 +79,69 @@ def _u8_ptr(t: torch.Tensor) -> int:
     return (t.view(torch.uint8) if t.dtype == torch.bool else t).data_ptr()
 
 
+class StartSlotTable:
+    """The argument table of ``cr_start_slot_blocks`` for ``nblk`` shard
+    blocks of S shards and R replicas, built once per shape: the ctypes
+    pointer arrays the C entry reads (a call writes its blocks' pointers
+    into them), the fields' dtypes and shapes the blocks are checked
+    against, and where the outputs lie in one buffer (each block's field
+    16-byte aligned, with ClusterState's dtype and shape)."""
+
+    def __init__(self, S: int, R: int, nblk: int) -> None:
+        self.S, self.R, self.nblk = S, R, nblk
+        dims = {"S": (S,), "SR": (S, R), "SRR": (S, R, R)}
+        self.want = [(dtype, torch.Size(dims[kind])) for _, dtype, kind in FIELDS]
+        # field by field, the blocks' copies of a field side by side, each
+        # 16-byte aligned: a field's views of every block are one view and
+        # one unbind
+        self._views = []  # (dtype, shape, strides, offset), in elements of the dtype
+        off = 0
+        for dtype, shape in self.want:
+            esize = 4 if dtype == I32 else 1
+            per_block = -(-math.prod(shape) * esize // 16) * 16
+            strides = tuple(math.prod(shape[d + 1:]) for d in range(len(shape)))
+            if nblk > 1:
+                shape, strides = (nblk, *shape), (per_block // esize, *strides)
+            self._views.append((dtype, shape, strides, off // esize))
+            off += nblk * per_block
+        self.nbytes = off
+        P = ctypes.c_void_p
+        self.ins = (P * (13 * nblk))()
+        self.outs = (P * (13 * nblk))()
+        self.masks = (P * nblk)()
+        self.votes = (P * nblk)()
+        self.launches = ctypes.c_int(0)
+
+    def outputs(self, device) -> list:
+        """Each block's 13 fresh output fields: views of one allocation."""
+        buf = torch.empty(self.nbytes, dtype=torch.uint8, device=device)
+        typed = {I32: buf.view(I32), I8: buf.view(I8), torch.bool: buf.view(torch.bool)}
+        fields = [typed[dtype].as_strided(shape, strides, off)
+                  for dtype, shape, strides, off in self._views]
+        if self.nblk == 1:
+            return [fields]
+        return [list(b) for b in zip(*(f.unbind(0) for f in fields))]
+
+    def check(self, fields: Sequence, device) -> None:
+        """Raise unless ``fields`` are a ClusterState's 13 fields of this
+        shape, contiguous, on ``device``."""
+        if len(fields) != len(FIELDS):
+            raise ValueError(f"a ClusterState has {len(FIELDS)} fields, got {len(fields)}")
+        for t, (dtype, shape), (name, _, _) in zip(fields, self.want, FIELDS):
+            if t.dtype != dtype or t.shape != shape:
+                raise ValueError(
+                    f"{name} must be {dtype}{list(shape)}, got {t.dtype}{list(t.shape)}")
+            if not t.is_contiguous() or t.device != device:
+                raise ValueError(f"start_slot needs contiguous fields on one device ({name})")
+
+    def fill(self, fields: Sequence, outs: Sequence, masks: Sequence, votes: Sequence) -> None:
+        """Write the blocks' pointers into the table."""
+        self.ins[:] = [t.data_ptr() for fs in fields for t in fs]
+        self.outs[:] = [t.data_ptr() for fs in outs for t in fs]
+        self.masks[:] = [m.data_ptr() for m in masks]
+        self.votes[:] = [v.data_ptr() for v in votes]
+
+
 class ClusterRoundKernel:
     """ctypes wrapper of ``cr_rounds`` and ``cr_slot_pipeline``
     (csrc/cluster_round.cu).
@@ -89,6 +158,7 @@ class ClusterRoundKernel:
         self.launches = 0
         self.counts = dict.fromkeys(self.ENTRIES, 0)
         self._lib = None
+        self._tables: dict = {}  # (S, R, nblk) -> StartSlotTable
 
     def reset_counts(self) -> None:
         self.launches = 0
@@ -105,8 +175,8 @@ class ClusterRoundKernel:
             lib.cr_rounds.restype = I
             lib.cr_slot_pipeline.argtypes = [P, P, P, P, LL, LL, I, I, I, I, I, U, U, U, P]
             lib.cr_slot_pipeline.restype = I
-            lib.cr_start_slot.argtypes = [P, P, P, P, LL, I, P]
-            lib.cr_start_slot.restype = I
+            lib.cr_start_slot_blocks.argtypes = [I, P, P, P, P, LL, I, I, P, P]
+            lib.cr_start_slot_blocks.restype = I
             self._lib = lib
         return self._lib
 
@@ -210,27 +280,77 @@ class ClusterRoundKernel:
         fields: Sequence[torch.Tensor],  # a ClusterState's 13 fields, in order
         mask: torch.Tensor,  # bool[S]
         votes: torch.Tensor,  # i8[S, R] initial round-1 votes
+        *,
+        out: Optional[Sequence[torch.Tensor]] = None,
     ) -> list[torch.Tensor]:
         """``ClusterKernel.start_slot`` in one launch: the 13 fields after
-        it, in fresh tensors (any R >= 1)."""
-        fields = list(fields)
-        S, R = self._check_fields(fields)
-        if R < 1:
-            raise ValueError(f"start_slot takes R >= 1, got R={R}")
-        if mask.dtype != torch.bool or tuple(mask.shape) != (S,):
-            raise ValueError(f"mask must be bool[{S}], got {mask.dtype}{list(mask.shape)}")
-        if votes.dtype != I8 or tuple(votes.shape) != (S, R):
-            raise ValueError(f"votes must be int8[{S}, {R}], got {votes.dtype}{list(votes.shape)}")
-        outs = [torch.empty_like(t) for t in fields]
-        self._check_cuda(*fields, *outs, mask, votes)
+        it (any R >= 1), in ``out`` when given (``out`` may be ``fields``:
+        the state is then updated in place), else in fresh views of one
+        allocation."""
+        return self.start_slot_blocks(
+            [(fields, mask, votes)], out=None if out is None else [out])[0]
+
+    def table(self, blocks: Sequence, out: Optional[Sequence] = None) -> tuple:
+        """Check ``blocks`` (``(fields, mask, votes)`` of one S and R each,
+        all on one device, contiguous) and fill their shape's
+        :class:`StartSlotTable`; returns ``(table, outs)``, ``outs`` each
+        block's 13 output fields (``out`` when given, else fresh views of
+        one allocation)."""
+        if not blocks:
+            raise ValueError("start_slot takes at least one shard block")
+        f0, mask0, _ = blocks[0]
+        phase = f0[1] if len(f0) == len(FIELDS) else None
+        if phase is None or phase.dim() != 2 or phase.shape[1] < 1:
+            raise ValueError("start_slot takes a ClusterState's 13 fields, phase int32[S, R] "
+                             "with R >= 1")
+        S, R = phase.shape
+        key = (S, R, len(blocks))
+        table = self._tables.get(key)
+        if table is None:
+            table = self._tables[key] = StartSlotTable(S, R, len(blocks))
+        device = mask0.device
+        fields = [f for f, _, _ in blocks]
+        outs = table.outputs(device) if out is None else list(out)
+        if len(outs) != len(blocks):
+            raise ValueError(f"out must hold {len(blocks)} blocks' fields, got {len(outs)}")
+        for f, mask, votes in blocks:
+            table.check(f, device)
+            if mask.dtype != torch.bool or mask.shape != (S,):
+                raise ValueError(f"mask must be bool[{S}], got {mask.dtype}{list(mask.shape)}")
+            if votes.dtype != I8 or votes.shape != (S, R):
+                raise ValueError(
+                    f"votes must be int8[{S}, {R}], got {votes.dtype}{list(votes.shape)}")
+            if not (mask.is_contiguous() and votes.is_contiguous()) or (
+                    mask.device != device or votes.device != device):
+                raise ValueError("start_slot needs a contiguous mask and votes on one device")
+        if out is not None:
+            for o in outs:
+                table.check(o, device)
+        table.fill(fields, outs, [m for _, m, _ in blocks], [v for _, _, v in blocks])
+        return table, outs
+
+    def start_slot_blocks(self, blocks: Sequence, *, out: Optional[Sequence] = None,
+                          empty: bool = False) -> list:
+        """``ClusterKernel.start_slot`` on several shard blocks of one
+        device, each ``(fields, mask, votes)`` as :meth:`start_slot` takes
+        them: one launch for up to 16 blocks (the kernel's table), however
+        their tensors lie. Returns each block's 13 fields after it.
+        ``empty`` launches a kernel that does nothing on the same grid and
+        table instead (its time is the launch's own; not counted)."""
+        table, outs = self.table(blocks, out)
+        device = blocks[0][1].device
+        if device.type != "cuda":
+            raise ValueError(f"cluster round kernel needs CUDA tensors, got {device}")
         lib = self.load()
-        if S:
-            ins = (ctypes.c_void_p * 13)(*(_u8_ptr(t) for t in fields))
-            outp = (ctypes.c_void_p * 13)(*(_u8_ptr(t) for t in outs))
-            with torch.cuda.device(mask.device):
-                err = lib.cr_start_slot(ins, outp, _u8_ptr(mask), votes.data_ptr(), S, R,
-                                        torch.cuda.current_stream().cuda_stream)
-            self._launched(err, "start_slot")
+        with torch.cuda.device(device):
+            err = lib.cr_start_slot_blocks(
+                table.nblk, table.ins, table.outs, table.masks, table.votes, table.S, table.R,
+                int(empty), ctypes.byref(table.launches), torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"cluster round kernel (start_slot) launch failed: cudaError {err}")
+        if not empty:
+            self.launches += table.launches.value
+            self.counts["start_slot"] += table.launches.value
         return outs
 
     def slot_pipeline(

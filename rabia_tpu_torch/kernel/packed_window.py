@@ -22,7 +22,8 @@ read the window, are entries of the same library (``PACKERS``, one
 thread a 32-bit word); ``pack_codes``, ``unpack_codes`` and
 ``pack_alive`` dispatch the same way, and ``pack_codes_plain``,
 ``unpack_codes_plain`` and ``pack_alive_plain`` are their plain
-versions.
+versions. ``pack_inputs`` packs a window's votes and alive plane in one
+launch (``pack_alive`` alone is a launch for a few KB).
 """
 
 from __future__ import annotations
@@ -115,6 +116,15 @@ def pack_alive(alive: torch.Tensor) -> torch.Tensor:
     if alive.device.type == "cuda":
         return PACKERS.pack_alive(alive)
     return pack_alive_plain(alive)
+
+
+def pack_inputs(votes: torch.Tensor, alive: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(pack_codes(votes), pack_alive(alive))`` of a window's votes
+    ``i8[..., S]`` and alive plane ``bool[..., S]``: one packer launch
+    for both on CUDA tensors, the plain versions for CPU tensors."""
+    if votes.device.type == "cuda":
+        return PACKERS.pack_inputs(votes, alive)
+    return pack_codes_plain(votes), pack_alive_plain(alive)
 
 
 def _csa_inc(planes: list, b, cap: int) -> list:
@@ -243,15 +253,15 @@ PACKED_WINDOW = PackedWindowKernel()
 
 
 class PackersKernel:
-    """ctypes wrapper of ``pw_pack_codes``, ``pw_unpack_codes`` and
-    ``pw_pack_alive`` (csrc/packed_window.cu).
+    """ctypes wrapper of ``pw_pack_codes``, ``pw_unpack_codes``,
+    ``pw_pack_alive`` and ``pw_pack_inputs`` (csrc/packed_window.cu).
 
     ``counts`` holds the launches by entry (``pack_codes``,
-    ``unpack_codes``, ``pack_alive``) and ``launches`` their sum; each
-    grows by one exactly where a kernel is launched. The library builds
-    on the first call."""
+    ``unpack_codes``, ``pack_alive``, ``pack_inputs``) and ``launches``
+    their sum; each grows by one exactly where a kernel is launched. The
+    library builds on the first call."""
 
-    ENTRIES = ("pack_codes", "unpack_codes", "pack_alive")
+    ENTRIES = ("pack_codes", "unpack_codes", "pack_alive", "pack_inputs")
 
     def __init__(self) -> None:
         self.launches = 0
@@ -271,6 +281,8 @@ class PackersKernel:
             for fn in (lib.pw_pack_codes, lib.pw_pack_alive, lib.pw_unpack_codes):
                 fn.argtypes = [P, P, LL, LL, LL, P]
                 fn.restype = ctypes.c_int
+            lib.pw_pack_inputs.argtypes = [P, P, LL, P, P, LL, LL, LL, P]
+            lib.pw_pack_inputs.restype = ctypes.c_int
             self._lib = lib
         return self._lib
 
@@ -283,6 +295,12 @@ class PackersKernel:
         if t.device.type != "cuda":
             raise ValueError(f"the packer kernels need a CUDA tensor, got {t.device}")
 
+    def _launched(self, err: int, entry: str) -> None:
+        if err != 0:
+            raise RuntimeError(f"packer kernel ({entry}) launch failed: cudaError {err}")
+        self.launches += 1
+        self.counts[entry] += 1
+
     def _launch(self, entry: str, src: torch.Tensor, out: torch.Tensor, rows: int, a: int,
                 b: int) -> torch.Tensor:
         lib = self.load()
@@ -291,10 +309,7 @@ class PackersKernel:
                 err = getattr(lib, f"pw_{entry}")(
                     src.data_ptr(), out.data_ptr(), rows, a, b,
                     torch.cuda.current_stream().cuda_stream)
-            if err != 0:
-                raise RuntimeError(f"packer kernel ({entry}) launch failed: cudaError {err}")
-            self.launches += 1
-            self.counts[entry] += 1
+            self._launched(err, entry)
         return out
 
     def _pack(self, entry: str, x: torch.Tensor) -> torch.Tensor:
@@ -314,6 +329,30 @@ class PackersKernel:
         """Flags bool[..., S] -> lane-LSB alive words i32[..., SW]."""
         self._check(alive, torch.bool, "alive")
         return self._pack("pack_alive", alive)
+
+    def pack_inputs(self, votes: torch.Tensor,
+                    alive: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """A window's codes i8[..., S] and alive flags bool[..., S] (the
+        same S, one device) -> ``(pack_codes(votes), pack_alive(alive))``
+        in one launch."""
+        self._check(alive, torch.bool, "alive")
+        self._check(votes, torch.int8, "codes")
+        S = votes.shape[-1]
+        if alive.shape[-1] != S or alive.device != votes.device:
+            raise ValueError(f"alive must be bool[..., {S}] on {votes.device}, got "
+                             f"{list(alive.shape)} on {alive.device}")
+        SW = packed_width(S)
+        codes_out = torch.empty(votes.shape[:-1] + (SW,), dtype=I32, device=votes.device)
+        alive_out = torch.empty(alive.shape[:-1] + (SW,), dtype=I32, device=votes.device)
+        lib = self.load()
+        if codes_out.numel() + alive_out.numel():
+            with torch.cuda.device(votes.device):
+                err = lib.pw_pack_inputs(
+                    votes.data_ptr(), codes_out.data_ptr(), votes.numel() // S if S else 0,
+                    alive.data_ptr(), alive_out.data_ptr(), alive.numel() // S if S else 0, S, SW,
+                    torch.cuda.current_stream().cuda_stream)
+            self._launched(err, "pack_inputs")
+        return codes_out, alive_out
 
     def unpack_codes(self, p: torch.Tensor, S: int) -> torch.Tensor:
         """Words i32[..., SW] -> codes i8[..., min(S, 16*SW)]."""

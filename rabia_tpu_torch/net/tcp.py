@@ -298,8 +298,11 @@ class TcpNetwork(NetworkTransport):
         self.broadcast_nowait(data)
 
     def send_to_nowait(self, target: NodeId, data: bytes) -> bool:
+        h = self._handle  # read ONCE: close() swaps it to None
+        if not h:
+            return False  # closed: dropped, as a send to a gone peer is
         pid = (ctypes.c_uint8 * 16).from_buffer_copy(_id_bytes(target))
-        rc = self._lib.rt_send(self._handle, pid, data, len(data))
+        rc = self._lib.rt_send(h, pid, data, len(data))
         if rc == -2:
             raise NetworkError("frame exceeds 16MiB cap")
         # rc == -1 (not connected) is a silent drop, like the reference's
@@ -307,7 +310,10 @@ class TcpNetwork(NetworkTransport):
         return True
 
     def broadcast_nowait(self, data: bytes) -> bool:
-        rc = self._lib.rt_broadcast(self._handle, data, len(data))
+        h = self._handle  # read ONCE: close() swaps it to None
+        if not h:
+            return False  # closed: rt_broadcast would dereference NULL
+        rc = self._lib.rt_broadcast(h, data, len(data))
         if rc == -2:
             raise NetworkError("frame exceeds 16MiB cap")
         return True

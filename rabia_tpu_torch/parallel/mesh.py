@@ -19,7 +19,8 @@ independent consensus instances cut in blocks over its devices.
 - :class:`ShardedClusterKernel`: a ``ClusterKernel`` whose state is cut in
   shard blocks over the shard axis; every method runs block by block, each
   block on its device's kernels with its global shard base (shards never
-  interact, so there is no communication).
+  interact, so there is no communication), except ``start_slot``, one
+  launch a device over all of that device's blocks.
 - :class:`MeshPhaseKernel`: one full weak-MVC phase per ``phase_step``,
   with the reference's two exchanges over the replica axis (the R1 votes,
   then the R2 votes). ``phase_step`` stays plain PyTorch, a block at a
@@ -54,7 +55,7 @@ import torch
 
 from rabia_tpu_torch.core.device import DeviceLike, resolve_device, to_device
 from rabia_tpu_torch.core.types import ABSENT, V0, V1, VQUESTION, f_plus_1, quorum_size
-from rabia_tpu_torch.kernel import mesh_window, packed_window
+from rabia_tpu_torch.kernel import cluster_round, mesh_window, packed_window
 from rabia_tpu_torch.kernel.phase_driver import (
     ClusterKernel,
     ClusterState,
@@ -396,13 +397,34 @@ class ShardedClusterKernel:
         """Cut an ``[T, S, R]`` (or ``[S, R]``) initial-vote array over S."""
         return self._cut(votes, 1 if len(votes.shape) == 3 else 0)
 
-    def start_slot(self, state: ClusterState, shard_mask, initial_votes) -> ClusterState:
+    def start_slot_blocks(self, state: ClusterState, shard_mask, initial_votes) -> dict:
+        """``start_slot``'s shard blocks by device: ``{device: [(row,
+        fields, mask, votes), ...]}``, each block's 13 fields, bool mask
+        and int8 votes contiguous on its device."""
         mask = self._cut(shard_mask, 0, (self.S,), torch.bool)
-        votes = self._cut(initial_votes, 0, (self.S, self.R))
-        rows = self._state_rows(state)
-        return self._state_out({
-            i: k.start_slot(rows[i], mask.row(i), votes.row(i)) for i, k in self.blocks.items()
-        })
+        votes = self._cut(initial_votes, 0, (self.S, self.R), I8)
+        fields = [self._cut(f, 0) for f in state]
+        out: dict = {}
+        for i in self.blocks:
+            dev = self.mesh.device_at(self.mesh.local_rows[i])
+            out.setdefault(dev, []).append(
+                (i, [f.row(i).contiguous() for f in fields], mask.row(i), votes.row(i)))
+        return out
+
+    def start_slot(self, state: ClusterState, shard_mask, initial_votes) -> ClusterState:
+        """``ClusterKernel.start_slot`` on every shard block: on a card one
+        ``cr_start_slot`` launch a device for all of its blocks (the
+        kernel's table of blocks), on the CPU each block's plain version.
+        Opening a slot reads no shard coordinate."""
+        rows = {}
+        for dev, blocks in self.start_slot_blocks(state, shard_mask, initial_votes).items():
+            if dev.type == "cuda":
+                outs = cluster_round.CLUSTER_ROUND.start_slot_blocks([b[1:] for b in blocks])
+                rows.update((b[0], o) for b, o in zip(blocks, outs))
+            else:
+                for i, f, m, v in blocks:
+                    rows[i] = self.blocks[i].start_slot(ClusterState(*f), m, v)
+        return self._state_out(rows)
 
     def round_step(self, state: ClusterState, alive, deliver) -> ClusterState:
         alive = self._alive(alive)

@@ -27,6 +27,7 @@ import pytest
 import torch
 
 import jax.numpy as jnp
+import start_slot_host
 
 from rabia_tpu.core import oracle as ref_oracle
 from rabia_tpu.kernel.phase_driver import ClusterKernel as RefKernel
@@ -677,3 +678,90 @@ def test_header_block_pipeline_keys_the_coin_by_global_shard(host_blocks, path, 
                                 rounds_per_slot=rounds, start_slot_index=start)
         np.testing.assert_array_equal(d.numpy(), want_d[:, cols])
         np.testing.assert_array_equal(ph.numpy(), want_p[:, cols])
+
+
+# ---- start_slot: the kernel's planes as flat bytes (cr::ss) ----------------
+
+
+@pytest.fixture(scope="module")
+def start_host(tmp_path_factory):
+    return start_slot_host.build(tmp_path_factory, "ss_host")
+
+
+@pytest.fixture(scope="module")
+def start_host_cut(tmp_path_factory):
+    """A build whose table entries hold at most 2048 bytes a plane: large
+    blocks are cut into entries and the entries fill several launches."""
+    return start_slot_host.build(tmp_path_factory, "ss_host_cut", max_plane=2048)
+
+
+def _masks(rng, S: int) -> dict:
+    return {"none": np.zeros(S, bool), "all": np.ones(S, bool), "random": rng.random(S) < 0.5}
+
+
+def _shifted(t: torch.Tensor) -> torch.Tensor:
+    """``t``'s values in a view that starts one element (one byte for a
+    byte field) into a buffer: every plane then misses 16-byte
+    alignment."""
+    raw = torch.empty(t.numel() + 1, dtype=t.dtype)
+    out = raw[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.parametrize("R", [1, 2, 5, 8, 9, 33])
+@pytest.mark.parametrize("S", [1, 17, 4095, 4097])
+def test_start_slot_vectors_match_reference(start_host, S, R):
+    """The kernel's threads (16-byte vectors over each plane, the [S]
+    fields 16 shards a thread, ragged ends element by element) against
+    the reference's ``ClusterKernel.start_slot``, masks none, all and
+    random, out of place, in place and on buffers one byte in."""
+    from rabia_tpu.kernel.phase_driver import ClusterState as RefState
+
+    rng = np.random.default_rng(100 * S + R)
+    fields = start_slot_host.random_state_fields(rng, S, R)
+    ref = RefKernel(S, R)
+    for name, mask in _masks(rng, S).items():
+        votes = rng.integers(0, 4, (S, R)).astype(np.int8)
+        want = _ref_fields(ref.start_slot(RefState(**{f: jnp.asarray(v) for f, v in fields.items()}),
+                                          jnp.asarray(mask), jnp.asarray(votes)))
+        src = [torch.from_numpy(fields[f].copy()) for f in FIELDS]
+        m, v = torch.from_numpy(mask), torch.from_numpy(votes)
+        for mode in ("out", "in place", "one byte in"):
+            ins = [t.clone() for t in src]
+            if mode == "one byte in":
+                ins, m, v = [_shifted(t) for t in ins], _shifted(m), _shifted(v)
+            outs, n = start_host.run([(ins, m, v)], out=[ins] if mode == "in place" else None)
+            assert n == 1
+            _assert_fields({f: t.numpy() for f, t in zip(FIELDS, outs[0])}, want,
+                           f"S={S} R={R} mask {name}, {mode}")
+
+
+@pytest.mark.parametrize("R", [5, 33])
+@pytest.mark.parametrize("nblk", [1, 20])
+def test_start_slot_cut_blocks_and_launches_match_reference(start_host_cut, R, nblk):
+    """Blocks whose planes pass an entry's byte limit are cut into
+    entries of fewer shards, and more entries than a launch's table holds
+    (16) take more launches: every block still equals the reference's."""
+    from rabia_tpu.kernel.phase_driver import ClusterState as RefState
+
+    S = 300
+    ref = RefKernel(S, R)
+    rng = np.random.default_rng(R + nblk)
+    blocks, wants = [], []
+    for _ in range(nblk):
+        fields = start_slot_host.random_state_fields(rng, S, R)
+        mask = rng.random(S) < 0.5
+        votes = rng.integers(0, 4, (S, R)).astype(np.int8)
+        wants.append(_ref_fields(ref.start_slot(
+            RefState(**{f: jnp.asarray(v) for f, v in fields.items()}), jnp.asarray(mask),
+            jnp.asarray(votes))))
+        blocks.append(([torch.from_numpy(fields[f].copy()) for f in FIELDS],
+                       torch.from_numpy(mask), torch.from_numpy(votes)))
+    outs, n = start_host_cut.run(blocks)
+    per_entry = max(1, 2048 // max(R * R, 4 * R))
+    per_entry -= per_entry % 16 if per_entry >= 16 else 0
+    entries = nblk * -(-S // per_entry)
+    assert entries > nblk and n == -(-entries // 16)
+    for b, (o, w) in enumerate(zip(outs, wants)):
+        _assert_fields({f: t.numpy() for f, t in zip(FIELDS, o)}, w, f"R={R} block {b}")

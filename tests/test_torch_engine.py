@@ -825,6 +825,39 @@ class TestDeferredApplyCommitsOnce:
             await _teardown(engines, tasks)
 
 
+class TestNoSyncAfterShutdown:
+    """The sync that a V1 decision without its payload asks for waits a
+    grace first (``_sync_for_missing_payload``); the reference syncs at
+    once. An engine shut down inside that grace must not send: its
+    caller closes the transport after ``shutdown()`` returns, and a
+    SyncRequest broadcast on a closed TCP transport crashed the process
+    (the ``coalesce_flap_restart`` chaos profile restarts a replica)."""
+
+    @pytest.mark.asyncio
+    async def test_shutdown_inside_the_grace_sends_nothing(self):
+        import types
+
+        hub = InMemoryHub()
+        _, engines, _, tasks = await _spin_cluster(3, _mk_config(), hub.register)
+        e = engines[0]
+        synced = []
+
+        async def spy() -> None:
+            synced.append(e._running)
+
+        e._initiate_sync = spy
+        slot = 10**6
+        try:
+            e._sync_for_missing_payload(0, slot)
+        finally:
+            await _teardown(engines, tasks)
+        # still undecided-and-unapplied when the grace ends
+        e.rt.shards[0].decisions[slot] = types.SimpleNamespace(applied=False)
+        await asyncio.sleep(min(0.5, e.config.phase_timeout / 4) + 0.2)
+        assert synced == []
+        assert e._payload_wait is None
+
+
 class TestTickReadsAMessageAShard:
     """A tick drains at least one inbound message per shard. A wave brings
     every replica per-shard messages (NewBatch, Propose) while the forward

@@ -9,10 +9,11 @@ their lane math built with g++ against the reference.
   random codes over all four values, ragged S, rows in several leading
   dims, the top lane's sign bit, an input that starts one byte into a
   buffer;
-- ``csrc/cluster_round.cuh``'s ``start_slot_shard`` against the
-  reference's ``ClusterKernel.start_slot`` on states taken mid-protocol
-  (R in 1..8 and 64, masks, inactive shards, slots at 2^31-1 that wrap),
-  out of place and in place;
+- ``csrc/cluster_round.cuh``'s ``start_slot`` (``cr::ss``: the kernel's
+  threads walked over its grid on the host) against the reference's
+  ``ClusterKernel.start_slot`` on states taken mid-protocol (R in 1..8
+  and 64, masks, inactive shards, slots at 2^31-1 that wrap), out of
+  place and in place;
 - the CPU dispatch of the port's entry points, and the wrappers'
   refusals (the kernels themselves are held against the plain versions
   by ``chip_smoke.py`` phase 16 (c)).
@@ -64,19 +65,16 @@ extern "C" void pw_host_unpack(const uint32_t* p, int8_t* out, long long rows, l
             pw::unpack16(p[row * SW + w], out + row * S + w * 16,
                          (int)(S - w * 16 < 16 ? S - w * 16 : 16));
 }
-static cr::Ptrs ptrs(void* const* f) {
-    cr::Ptrs p;
-    p.slot = (int32_t*)f[0]; p.phase = (int32_t*)f[1]; p.stage = (int8_t*)f[2];
-    p.my_r1 = (int8_t*)f[3]; p.my_r2 = (int8_t*)f[4]; p.prev_r1 = (int8_t*)f[5];
-    p.prev_r2 = (int8_t*)f[6]; p.led1 = (int8_t*)f[7]; p.led2 = (int8_t*)f[8];
-    p.decided = (int8_t*)f[9]; p.dphase = (int32_t*)f[10]; p.done = (uint8_t*)f[11];
-    p.active = (uint8_t*)f[12];
-    return p;
-}
-extern "C" void cr_host_start_slot(void* const* in, void* const* out, const uint8_t* mask,
-                                   const int8_t* votes, long long S, int R) {
-    const cr::Ptrs pi = ptrs(in), po = ptrs(out);
-    for (long long s = 0; s < S; ++s) cr::start_slot_shard(pi, po, mask, votes, s, R);
+// ClusterKernel.start_slot as cr_start_slot launches it: every thread of
+// every launch's grid (cr::ss::launches plans them), one after another
+extern "C" int cr_host_start_slot(void* const* in, void* const* out, const void* mask,
+                                  const void* votes, long long S, int R) {
+    return cr::ss::launches(1, in, out, &mask, &votes, S, R,
+                            [](const cr::ss::Args& a, uint32_t grid_x) {
+        for (int b = 0; b < a.nblk; ++b)
+            for (uint32_t c = 0; c < grid_x; ++c)
+                for (int t = 0; t < cr::ss::THREADS; ++t) cr::ss::thread(a, c, b, t);
+    });
 }
 """
 
@@ -88,6 +86,7 @@ class _Host:
         lib.pw_host_pack.argtypes = [P, P, LL, LL, I]
         lib.pw_host_unpack.argtypes = [P, P, LL, LL, LL]
         lib.cr_host_start_slot.argtypes = [P, P, P, P, LL, I]
+        lib.cr_host_start_slot.restype = I
         self.lib = lib
 
     def pack(self, x: np.ndarray, alive: bool) -> np.ndarray:
@@ -111,7 +110,7 @@ class _Host:
         outs = (ctypes.c_void_p * 13)(*(out[f].ctypes.data for f in FIELDS))
         m = np.ascontiguousarray(mask, np.uint8)
         v = np.ascontiguousarray(votes, np.int8)
-        self.lib.cr_host_start_slot(ins, outs, m.ctypes.data, v.ctypes.data, S, R)
+        assert self.lib.cr_host_start_slot(ins, outs, m.ctypes.data, v.ctypes.data, S, R) == 1
         return out
 
 
@@ -160,6 +159,27 @@ def test_packers_match_reference(host, shape):
     cut = max(1, S - 5)
     np.testing.assert_array_equal(host.unpack(want, cut), np.asarray(
         ref_pw.unpack_codes(jnp.asarray(want), cut)))
+
+
+@pytest.mark.parametrize("R,T,S", [(5, 3, 17), (1, 1, 1), (3, 2, 1000), (8, 4, 4095),
+                                   (5, 2, 4096)])
+def test_pack_inputs_matches_reference(R, T, S):
+    """``pack_inputs`` (a window's votes and alive plane, one launch on a
+    card) is the reference's ``pack_codes`` and ``pack_alive`` word for
+    word, ragged S included; the wrapper takes no CPU tensor and no alive
+    plane of another width."""
+    rng = np.random.default_rng(R * T + S)
+    votes = rng.integers(0, 4, (R, T, S)).astype(np.int8)
+    alive = rng.random((R, S)) < 0.7
+    codes_w, alive_w = packed_window.pack_inputs(torch.from_numpy(votes), torch.from_numpy(alive))
+    np.testing.assert_array_equal(_u32(codes_w), np.asarray(ref_pw.pack_codes(jnp.asarray(votes))))
+    np.testing.assert_array_equal(_u32(alive_w), np.asarray(ref_pw.pack_alive(jnp.asarray(alive))))
+    with pytest.raises(ValueError, match="CUDA"):
+        packed_window.PACKERS.pack_inputs(torch.from_numpy(votes), torch.from_numpy(alive))
+    with pytest.raises(ValueError, match="alive"):
+        packed_window.PACKERS.pack_inputs(torch.from_numpy(votes),
+                                          torch.from_numpy(votes).to(torch.int8))
+    assert packed_window.PACKERS.counts["pack_inputs"] == 0
 
 
 def test_packers_top_lane_and_offset_view(host):
@@ -255,6 +275,9 @@ def test_packers_and_start_slot_on_card_match_plain():
         assert torch.equal(p, packed_window.pack_codes_plain(codes))
         assert torch.equal(packed_window.pack_alive(alive), packed_window.pack_alive_plain(alive))
         assert torch.equal(packed_window.unpack_codes(p, shape[-1]), codes)
+        both = packed_window.pack_inputs(codes, alive)
+        assert torch.equal(both[0], p)
+        assert torch.equal(both[1], packed_window.pack_alive_plain(alive))
     k = ClusterKernel(100, 5, device=dev)
     st = k.init_state()
     mask = torch.from_numpy(rng.random(100) < 0.5).to(dev)

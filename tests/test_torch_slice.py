@@ -207,6 +207,15 @@ def test_mapped_window_matches_plain_on_card(cuda, S, R, T):
 
 
 @pytest.mark.cuda
+def test_start_slot_and_packers_on_card(cuda):
+    """Phase 16 (c)'s checks on the card: start_slot (masks none, all and
+    random; ragged S; R up to 9; in place; one byte in; 20 blocks in two
+    launches) and the packers with pack_inputs against plain."""
+    assert chip_smoke.start_slot_vs_plain(cuda, Rs=(1, 9), Ss=(17, 1000)) == 0
+    assert chip_smoke.packers_vs_plain(cuda, Rs=(5,), Ss=(17, 4095)) == 0
+
+
+@pytest.mark.cuda
 def test_launch_floor_on_card(cuda):
     """The node kernel on mapped planes and image against plain (host
     arrays, its own plane views, start_slots + node_steps), and a tick's

@@ -132,6 +132,29 @@ class TestPoolStats:
         assert ta.transport_counters()["out_pool_hits"] == hits
 
 
+class TestClosedTransportDrops:
+    """A send on a closed transport is dropped in Python. ``close()``
+    swaps the native handle to None, and ``rt_send`` / ``rt_broadcast``
+    dereference the handle they are given: the reference's copy passes
+    None through, so a late send (an engine's timer that outlived its
+    shutdown) kills the process with SIGSEGV."""
+
+    @pytest.mark.asyncio
+    async def test_send_after_close_never_reaches_the_native_entry(self):
+        t = TcpNetwork(NodeId.from_int(1), TcpNetworkConfig(bind_port=0))
+        await t.close()
+        calls = []
+
+        class Spy:
+            def __getattr__(self, name):
+                return lambda *args: calls.append((name, args)) or 0
+
+        t._lib = Spy()
+        assert t.broadcast_nowait(b"late") is False
+        assert t.send_to_nowait(NodeId.from_int(2), b"late") is False
+        assert calls == []
+
+
 class TestSimultaneousDialDrain:
     @pytest.mark.asyncio
     async def test_send_in_dup_race_window_not_lost(self):
