@@ -369,6 +369,24 @@ the lane active after the heal). A profiler witness around the card runs
 counts ``cudaLaunchKernel`` records and the device records of the kv,
 mesh-window and slot-pipeline kernels (an empty trace fails).
 
+Phase 20 (after phase 19) runs the port's conformance fuzz and chaos
+soak on the card, on their own counts: (a)
+``scripts/torch_fuzz_conformance.py``'s stepwise and fused trials for
+``P20_FUZZ_S`` seconds after a warm-up, over the reference's geometry
+pool and config 3's width, 4096 x 5 (each round the round kernel
+against ``round_step_plain`` on every shard and the scalar oracle on
+``oracle_sample``'s shards; the closed form, both fused entries, against
+the scanned slot pipeline), its mesh trials over the reference's mesh
+pool and 4096 x 5 on logical 4x1 and 4x5 meshes of the card, and one
+planes trial; (b) ``scripts/torch_soak.py``'s device legs at 4096 x 5,
+``--plane mesh --device-store`` and the transport soak on
+``backend="jax"``, each with its own gates. It checks that every trial
+passed (a divergence raises with its seed), that (a) launched
+``fused_window`` (both entries), ``cr_rounds``, ``cr_start_slot``,
+``cr_slot_pipeline`` and ``mw_window``, that (b) launched a kv write
+kernel, ``kv_read``, ``mw_window`` and ``node_cycle``, and that the
+device lane re-promoted at least once.
+
 Phase 17 runs on the CPU over logical meshes of up to 8 blocks and over
 gloo ranks in tests/test_torch_parallel.py, test_torch_mesh_engine_mesh.py
 and test_torch_dcn.py; phase 18 at 64 shards on logical CPU meshes in
@@ -550,6 +568,20 @@ P19_TIMED = {
 P19_KERNELS = {"kv": ("kv_dict_kernel", "kv_read_kernel", "kv_window_kernel"),
                "mesh_window": ("mesh_window_kernel",),
                "slot_pipeline": ("pipeline_tsr_kernel", "pipeline_bytes_kernel")}
+# phase 20: scripts/torch_fuzz_conformance.py and scripts/torch_soak.py on the
+# card at config 3's width. The fuzz: the stepwise and fused trials for
+# P20_FUZZ_S seconds after a warm-up (the reference's geometry pool and
+# S_FULL x R_FULL with kernel seed P20_KSEED), the mesh trials
+# P20_MESH_ROUNDS times over the mesh pool and 4x1 and 4x5 meshes at
+# S_FULL x R_FULL, one planes trial; seeds from P20_SEED. The soak's mesh
+# leg with the device store for P20_SOAK_MESH_S (seed 93: its chaos loses
+# the quorum on the third wave and heals on the fifth, so a short run
+# demotes and re-promotes the lane; it loses the quorum again from the
+# fifteenth), the transport soak on backend="jax" for P20_SOAK_JAX_S (the
+# reference's default seed)
+P20_FUZZ_S, P20_SEED, P20_KSEED, P20_MESH_ROUNDS = 18.0, 20000, 3, 2
+P20_SOAK_MESH_S, P20_SOAK_MESH_SEED = 10.0, 93
+P20_SOAK_JAX_S, P20_SOAK_JAX_SEED = 8.0, 42
 # int32 operations/s of an H100 SXM: 132 SMs x 64 INT32 lanes x 1.98 GHz
 # (the Hopper white paper's per-SM unit count and the SXM boost clock)
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
@@ -5214,17 +5246,22 @@ def mesh_lane_times(tables: dict, win: dict) -> dict:
 # -- phase 19 ----------------------------------------------------------------
 
 
+def _torch_module(folder: str, name: str):
+    """``<folder>/torch_<name>.py`` of this repo as a module."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), folder, f"torch_{name}.py")
+    spec = importlib.util.spec_from_file_location(f"torch_{folder}_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def _example_main(name: str):
     """``examples/torch_<name>.py``'s ``main`` (the examples import their
     ``_torch_common`` from their own directory)."""
     here = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples")
     if here not in sys.path:
         sys.path.insert(0, here)
-    spec = importlib.util.spec_from_file_location(
-        f"torch_example_{name}", os.path.join(here, f"torch_{name}.py"))
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.main
+    return _torch_module("examples", name).main
 
 
 def _run_example(main, device, **sizes) -> tuple[list, float]:
@@ -5272,6 +5309,106 @@ def device_examples(device) -> dict:
     _check(all(witness["families"].values()),
            f"phase 19: the profiler saw no device record of a kernel family: {witness}")
     out["witness"] = witness
+    return out
+
+
+# -- phase 20 ----------------------------------------------------------------
+
+
+def _p20_counts() -> dict:
+    """Launches by kernel so far: ``_kernel_counts``' with the fused
+    windows' and the round kernel's entries (``cr_<entry>``)."""
+    out = _kernel_counts()
+    out.update(fused_window=fused_window.FUSED_WINDOW.launches,
+               fused_window_tsr=fused_window.FUSED_WINDOW_TSR.launches,
+               **{f"cr_{k}": v for k, v in cluster_round.CLUSTER_ROUND.counts.items()})
+    return out
+
+
+def conformance_fuzz(device, budget_s: float = P20_FUZZ_S, seed0: int = P20_SEED,
+                     mesh_rounds: int = P20_MESH_ROUNDS) -> dict:
+    """Phase 20 (a): ``scripts/torch_fuzz_conformance.py``'s trials on
+    ``device``. Warm-up (each geometry once), then the stepwise and fused
+    trials for ``budget_s`` over the reference's geometry pool and config
+    3's width (the stepwise trial at S_FULL holds every shard against
+    ``round_step_plain`` and the oracle's sample, ``oracle_sample``), the
+    mesh trials over the reference's mesh pool and S_FULL x R_FULL on
+    logical 4x1 and 4x5 meshes of the card, then one planes trial. A
+    divergence raises with its seed. Returns the trials by kind and
+    geometry, the seeds and the seconds."""
+    fz = _torch_module("scripts", "fuzz_conformance")
+    pool = fz.GEOMETRY_POOL + [(S_FULL, R_FULL, P20_KSEED)]
+    sample = fz.oracle_sample(S_FULL)
+    get = fz._kernels(device)
+    trials: collections.Counter = collections.Counter()
+
+    def one(seed: int) -> None:
+        g = pool[seed % len(pool)]
+        fz._trial_stepwise(get, seed, pool, sample if g[0] == S_FULL else None)
+        trials[f"stepwise {g[0]}x{g[1]}"] += 1
+        g = pool[(seed + 1) % len(pool)]
+        fz._trial_fused(get, seed, pool)
+        trials[f"fused {g[0]}x{g[1]}"] += 1
+
+    t0 = time.perf_counter()
+    for i in range(len(pool)):
+        one(seed0 + i)
+    warm_s = time.perf_counter() - t0
+    n = len(pool)
+    deadline = time.perf_counter() + budget_s
+    while time.perf_counter() < deadline:
+        one(seed0 + n)
+        n += 1
+    t1 = time.perf_counter()
+    mesh_pool = fz.MESH_GEOMETRY_POOL + [(S_FULL, R_FULL, 4, 1), (S_FULL, R_FULL, 4, 5)]
+    get_mesh = fz._mesh_kernels(device)
+    for i in range(mesh_rounds * len(mesh_pool)):
+        seed = seed0 + i
+        S, R, a, b = mesh_pool[seed % len(mesh_pool)]
+        fz._trial_mesh_crash(get_mesh, seed, mesh_pool)
+        trials[f"mesh-crash {S}x{R} on {a}x{b}"] += 1
+        S, R, a, b = mesh_pool[(seed + 1) % len(mesh_pool)]
+        fz._trial_sharded_lossy(get_mesh, seed, mesh_pool)
+        trials[f"sharded-lossy {S}x{R} on {a}x{b}"] += 1
+    t2 = time.perf_counter()
+    asyncio.run(fz._trial_planes(seed0, device))
+    trials["planes"] += 1
+    return {"trials": dict(trials), "seeds": [seed0, seed0 + n - 1],
+            "oracle_sample": len(sample), "warmup_s": warm_s, "budget_s": t1 - t0 - warm_s,
+            "mesh_s": t2 - t1, "planes_s": time.perf_counter() - t2}
+
+
+def chaos_soak(device, S: int = S_FULL, mesh_s: float = P20_SOAK_MESH_S,
+               jax_s: float = P20_SOAK_JAX_S) -> dict:
+    """Phase 20 (b): ``scripts/torch_soak.py``'s device legs at S shards x
+    5 replicas, each with all of its own gates: ``--plane mesh
+    --device-store`` (crash/heal cycles through the device KV lane's
+    demotions and re-promotions, DEL and GET-only waves), then the
+    transport soak on ``backend="jax"`` (the engines' node kernel on the
+    card). Their printed lines are kept off this script's output and
+    returned; each leg's launches by kernel are returned too."""
+    sk = _torch_module("scripts", "soak")
+    out: dict = {}
+    for leg, run in (
+        ("mesh --device-store", lambda rep: sk.soak_mesh(
+            mesh_s, S, P20_SOAK_MESH_SEED, device_store=True, device=device,
+            report=rep)),
+        ("transport --backend jax", lambda rep: asyncio.run(sk.soak(
+            jax_s, S, P20_SOAK_JAX_SEED, backend="jax", device=device,
+            report=rep))),
+    ):
+        before = _p20_counts()
+        rep: dict = {}
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = run(rep)
+        lines = buf.getvalue().splitlines()
+        _check(rc == 0, f"phase 20 (b) soak {leg} failed: {lines[-6:]}")
+        after = _p20_counts()
+        out[leg] = {**rep, "seconds": time.perf_counter() - t0, "last": lines[-1],
+                    "chaos": sum(ln.startswith("[chaos]") for ln in lines),
+                    "launches": {k: after[k] - before[k] for k in after if after[k] > before[k]}}
     return out
 
 
@@ -5914,6 +6051,42 @@ def main() -> int:
           f"{json.dumps(p19_round)}; {t19:.2f} s")
     lap("19")
 
+    # ---- phase 20, the conformance fuzz and the chaos soak on the card at
+    # config 3's width (scripts/torch_fuzz_conformance.py, torch_soak.py),
+    # on their own counts, reset just before and read just after ----
+    _reset_counts()
+    t20 = time.perf_counter()
+    fuzz20 = conformance_fuzz(device)
+    p20a = _p20_counts()
+    soak20 = chaos_soak(device)
+    p20 = _p20_counts()
+    p20_forms = dict(kv_window.KV_WINDOW.counts)
+    t20 = time.perf_counter() - t20
+    p20b = {k: p20[k] - p20a[k] for k in p20}
+    for kern in ("fused_window", "fused_window_tsr", "cr_rounds", "cr_start_slot",
+                 "cr_slot_pipeline", "mesh_window"):
+        _check(p20a[kern] > 0, f"phase 20 (a) never launched {kern}: {p20a}")
+    _check(p20b["kv_dict"] + p20b["kv_window"] > 0 and p20b["kv_read"] > 0,
+           f"phase 20 (b) never launched the kv kernels: {p20b}")
+    _check(p20b["mesh_window"] > 0 and p20b["node_kernel"] > 0,
+           f"phase 20 (b) never launched mw_window and node_cycle: {p20b}")
+    reprom = soak20["mesh --device-store"]["repromotions"]
+    _check(reprom >= 1, f"phase 20 (b): the device lane never re-promoted: {soak20}")
+    print(f"phase 20 (a) scripts/torch_fuzz_conformance.py at S={S_FULL} R={R_FULL} and the "
+          f"reference's pools, seeds {fuzz20['seeds'][0]}-{fuzz20['seeds'][1]} (the stepwise "
+          f"trial at {S_FULL} shards against round_step_plain on every shard and the oracle on "
+          f"{fuzz20['oracle_sample']}): every trial conformant; trials by kind and geometry "
+          f"{json.dumps(fuzz20['trials'])}; warm-up {fuzz20['warmup_s']:.2f} s, stepwise and "
+          f"fused {fuzz20['budget_s']:.2f} s, mesh {fuzz20['mesh_s']:.2f} s, planes "
+          f"{fuzz20['planes_s']:.2f} s")
+    for leg, rep20 in soak20.items():
+        print(f"phase 20 (b) scripts/torch_soak.py {leg} at S={S_FULL}: {rep20['last']} "
+              f"({json.dumps({f: v for f, v in rep20.items() if f != 'last'})})")
+    print(f"phase 20 path: launches by kernel (a) {json.dumps(p20a)}, (b) {json.dumps(p20b)}, "
+          f"kv kernels by form {json.dumps({k: v for k, v in p20_forms.items() if v})}; "
+          f"{reprom} re-promotions; {t20:.2f} s")
+    lap("20")
+
     q = quorum_size(R_FULL)
     votes = bufs[0]
     phase_ms = _time_ms(lambda i=0: fused_window.FUSED_WINDOW(bufs[i % 2], alive, q), 8)
@@ -6420,7 +6593,7 @@ def main() -> int:
         "route": "cuda",
         "source": "rabia_tpu_torch/csrc/fused_window.cu",
         "replaces": "rabia_tpu/kernel/fused_window.py:156",
-        "launches": launches,
+        "launches": launches + p20["fused_window"],  # and phase 20's fuzz
         "max_abs_err": max(err2, err4),
         "ms": kernel_ms,
         "plain_ms": plain_ms,
@@ -6432,7 +6605,7 @@ def main() -> int:
         "route": "cuda",
         "source": "rabia_tpu_torch/csrc/fused_window.cu",
         "replaces": "rabia_tpu/kernel/fused_window.py:213",
-        "launches": tsr_launches,
+        "launches": tsr_launches + p20["fused_window_tsr"],  # and phase 20's fuzz
         "max_abs_err": max(err2_tsr, err4_tsr),
         "ms": tsr_best,
         "plain_ms": api_plain_ms,
@@ -6444,9 +6617,10 @@ def main() -> int:
         "route": "cuda",
         "source": "rabia_tpu_torch/csrc/kv_window.cu",
         "replaces": "rabia_tpu/apps/device_kv.py:1218",
-        # and phases 12-15's, phase 18's (one a shard block over a mesh) and 19's
+        # and phases 12-15's, phase 18's (one a shard block over a mesh), 19's and 20's
         "launches": (kv_counts["rows+decide"] + p12["kv_window"] + p13["kv_window"]
-                     + p14["kv_window"] + p15["kv_window"] + p18["kv_window"] + p19["kv_window"]),
+                     + p14["kv_window"] + p15["kv_window"] + p18["kv_window"] + p19["kv_window"]
+                     + p20["kv_window"]),
         "max_abs_err": max(err6, err6_fold, fold_err, err9),
         "ms": fold_ms,  # with the decision folded in, as the device lane launches it
         "plain_ms": fold_plain_ms,
@@ -6458,10 +6632,10 @@ def main() -> int:
         "route": "cuda",
         "source": "rabia_tpu_torch/csrc/kv_dict.cu",
         "replaces": "rabia_tpu/apps/device_kv.py:1003",
-        # and phases 11 (c), 12-15, 18 (one a shard block over a mesh) and 19
+        # and phases 11 (c), 12-15, 18 (one a shard block over a mesh), 19 and 20
         "launches": (kv_counts["dict"] + kv_counts["dict+decide"] + p11_dict + p12["kv_dict"]
                      + p13["kv_dict"] + p14["kv_dict"] + p15["kv_dict"] + p18["kv_dict"]
-                     + p19["kv_dict"]),
+                     + p19["kv_dict"] + p20["kv_dict"]),
         "max_abs_err": max(err8, dict_err, err9),
         "ms": dict_ms,  # SET window with the decision, D = W = 16 (phase 7's fill stream)
         "plain_ms": dict_plain_ms,
@@ -6483,7 +6657,7 @@ def main() -> int:
         # round) and the mesh fabric's read lane; and phase 18's
         "launches": (kv_counts["probe dict"] + kv_counts["probe rows"] + p13["kv_read"]
                      + sum(f.get("probe dict", 0) + f.get("probe rows", 0)
-                           for f in (p14_forms, p15_forms, p18_forms, p19_forms))),
+                           for f in (p14_forms, p15_forms, p18_forms, p19_forms, p20_forms))),
         "max_abs_err": max(err8, probe_err, read_err, err9, probe14_err),
         "ms": probe_ms,
         "plain_ms": probe_plain_ms,
@@ -6499,7 +6673,8 @@ def main() -> int:
         "replaces": "rabia_tpu/apps/device_kv.py:692",
         # and phases 14-15's and 18's GET windows with their decision
         "launches": sum(f.get("lookup dict", 0) + f.get("lookup rows", 0)
-                        for f in (kv_counts, p14_forms, p15_forms, p18_forms, p19_forms)),
+                        for f in (kv_counts, p14_forms, p15_forms, p18_forms, p19_forms,
+                                  p20_forms)),
         "max_abs_err": max(err6_fold, err8, lookup_err, read_err, err9),
         "ms": lookup_ms,  # the row form with its decision, W=16 on the phase-7 table
         "plain_ms": lookup_plain_ms,
@@ -6511,10 +6686,10 @@ def main() -> int:
         "route": "cuda",
         "source": "rabia_tpu_torch/csrc/mesh_window.cu",
         "replaces": "rabia_tpu/parallel/mesh.py:353",
-        # the main path's, phases 10 to 15, 17, 18 (the demoted lane's host path) and 19
+        # the main path's, phases 10 to 15, 17, 18 (the demoted lane's host path), 19 and 20
         "launches": (mesh_launches + p10_mesh + p11_mesh + p12["mesh_window"] + p13["mesh_window"]
                      + p14["mesh_window"] + p15["mesh_window"] + p17["mesh_window"] + p17_ranks
-                     + p18["mesh_window"] + p19["mesh_window"]),
+                     + p18["mesh_window"] + p19["mesh_window"] + p20["mesh_window"]),
         "max_abs_err": max(err2b, mw_err, err9, win17["max_abs_err"], win_times["max_abs_err"]),
         "ms": mw_ms,  # T=16 on device tensors, the mesh's blocks (as in every earlier line)
         "plain_ms": mw_plain_ms,
@@ -6543,8 +6718,9 @@ def main() -> int:
         "route": "cuda",
         "source": "rabia_tpu_torch/csrc/cluster_round.cu",
         "replaces": "rabia_tpu/kernel/phase_driver.py:386",
-        # and phase 17 (c)'s blocks and phase 19's
-        "launches": round_counts["rounds"] + p17_round["rounds"] + p19_round["rounds"],
+        # and phase 17 (c)'s blocks, phase 19's and phase 20's fuzz
+        "launches": (round_counts["rounds"] + p17_round["rounds"] + p19_round["rounds"]
+                     + p20["cr_rounds"]),
         "max_abs_err": max(err2d, err_fault, fault_err, sc17["max_abs_err"]),
         "ms": min(fault_turns),  # the fault path: 80 rounds, S=4096 R=5, one launch
         "plain_ms": fault_plain_ms,  # 80 round_step_plain on the same masks
@@ -6557,7 +6733,7 @@ def main() -> int:
         "source": "rabia_tpu_torch/csrc/cluster_round.cu",
         "replaces": "rabia_tpu/kernel/phase_driver.py:420",
         "launches": (round_counts["slot_pipeline"] + p17_round["slot_pipeline"]
-                     + p19_round["slot_pipeline"]),
+                     + p19_round["slot_pipeline"] + p20["cr_slot_pipeline"]),
         "max_abs_err": max(err2d, err_scan, err_wide, err_wide4, err_short, sc17["max_abs_err"]),
         "ms": scan_ms,  # slot_pipeline, S=4096 R=5 T=8192
         "plain_ms": scan_plain_ms,  # slot_pipeline_wide_plain on the same votes
@@ -6569,7 +6745,8 @@ def main() -> int:
         "route": "cuda",
         "source": "rabia_tpu_torch/csrc/cluster_round.cu",
         "replaces": "rabia_tpu/kernel/phase_driver.py:202",
-        "launches": round_counts["start_slot"] + p17_round["start_slot"] + p19_round["start_slot"],
+        "launches": (round_counts["start_slot"] + p17_round["start_slot"]
+                     + p19_round["start_slot"] + p20["cr_start_slot"]),
         "max_abs_err": max(err16c, err2d, err_fault, sc17["max_abs_err"]),
         "ms": ptimes["start_slot"]["ms"],  # S=4096 R=5, every shard masked
         "empty_ms": ptimes["start_slot"]["empty_ms"],  # an empty kernel at its grid and table
@@ -6584,8 +6761,9 @@ def main() -> int:
         "source": "rabia_tpu_torch/csrc/node_kernel.cu",
         "replaces": "rabia_tpu/kernel/phase_driver.py:761",
         # phase 16 (d)'s engine ticks (with node_step and start_slots, the
-        # same kernel's launches with no mask and K = 1, and K = 0)
-        "launches": sum(p16_node.values()),
+        # same kernel's launches with no mask and K = 1, and K = 0), and
+        # phase 20's soak on backend="jax"
+        "launches": sum(p16_node.values()) + p20["node_kernel"],
         "max_abs_err": err16b,
         "ms": nc_times["ms"],  # one tick, S=4096 R=5 K=3, in place, mapped planes and image
         "plain_ms": nc_times["plain_ms"],

@@ -28,7 +28,6 @@ from rabia_tpu_torch.core.serialization import Serializer
 from rabia_tpu_torch.core.types import NodeId
 from rabia_tpu_torch.fleet import HashRing, RingMember, moved_shards
 from rabia_tpu_torch.fleet.handoff import (
-    SessionExport,
     decode_handoff,
     encode_handoff,
     export_sessions,
@@ -382,9 +381,17 @@ class TestFleetRouting:
                     break
                 await asyncio.sleep(0.02)
             assert succ.sessions.cached_result(sess.client_id, 1)
-            vers = [
-                h.cluster.store(r, shard).version for r in range(3)
-            ]
+            # the baseline waits for every replica to apply the acked
+            # write: a follower may apply it after the ack, and read
+            # early that would pass for a double apply
+            for _ in range(250):
+                vers = [
+                    h.cluster.store(r, shard).version for r in range(3)
+                ]
+                if len(set(vers)) == 1:
+                    break
+                await asyncio.sleep(0.02)
+            assert len(set(vers)) == 1, vers
             await h.kill_gateway(owner_i)
             replay = await sess.submit_seq(
                 1, shard, [encode_set_bin("fk", "X")], timeout=20.0

@@ -24,7 +24,6 @@ from rabia_tpu_torch.obs.fleet_obs import (
     collect_fleet_trace,
     derive_fleet_sample,
     derive_gateway_figures,
-    discover_fleet,
     render_fleet_table,
     shard_coalesce_figures,
 )
