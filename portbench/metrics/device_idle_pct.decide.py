@@ -1,0 +1,4 @@
+"""device_idle_pct.decide: the device's idle share of the traced window, in
+the cells that report ``decisions_per_s`` (``pbench.trace.idle_pct``)."""
+
+from pbench.trace import idle_pct as read  # noqa: F401
