@@ -75,6 +75,7 @@ import torch
 from rabia_tpu_torch.apps.kvstore import _result_bin
 from rabia_tpu_torch.apps.vector_kv import _RESP_DT, _USED, VectorKVStore
 from rabia_tpu_torch.core.device import to_device_all
+from rabia_tpu_torch.core.tracing import span
 from rabia_tpu_torch.kernel import cuda_build, kv_window
 from rabia_tpu_torch.kernel.kv_window import KIND_GET, VERSION_WRAP, KVTable
 from rabia_tpu_torch.parallel.mesh import SHARD_AXIS, MeshArray
@@ -603,11 +604,14 @@ class DeviceKVTable:
         """A SET window in the dictionary form when it has at most 32
         distinct rows per shard, else the row form; None demotes. One
         gather serves both attempts."""
-        g = self._gather_window(blocks, "set")
-        if g is None:
-            return None
-        d = self._dict_from_gathered(g)
-        return d if d is not None else self._rows_from_gathered(g)
+        with span("devkv.pack"):
+            with span("devkv.pack.gather"):
+                g = self._gather_window(blocks, "set")
+            if g is None:
+                return None
+            with span("devkv.pack.dict"):
+                d = self._dict_from_gathered(g)
+            return d if d is not None else self._rows_from_gathered(g)
 
     def pack_mixed_window_auto(self, blocks) -> Optional[tuple]:
         """A mixed window in the dictionary form where it pays, else the
@@ -615,28 +619,34 @@ class DeviceKVTable:
         vwin_plane)``: the two planes are the full per-wave value planes,
         which the engine's host-side value segments need whatever form
         the ops travel in."""
-        g = self._gather_window(blocks, "mixed")
-        if g is None:
-            return None
-        kind_w, klen_w, vlen_w, kwin_w, _ = g
-        vwin_u32 = np.ascontiguousarray(g[4]).view(np.uint32)
-        d = self._dict_from_gathered(g)
-        if d is not None:
-            return kind_w, d, vlen_w, vwin_u32
-        ops = DeviceWindowOps(klen_w, vlen_w, np.ascontiguousarray(kwin_w).view(np.uint32),
-                              vwin_u32)
-        return kind_w, ops, vlen_w, vwin_u32
+        with span("devkv.pack"):
+            with span("devkv.pack.gather"):
+                g = self._gather_window(blocks, "mixed")
+            if g is None:
+                return None
+            kind_w, klen_w, vlen_w, kwin_w, _ = g
+            vwin_u32 = np.ascontiguousarray(g[4]).view(np.uint32)
+            with span("devkv.pack.dict"):
+                d = self._dict_from_gathered(g)
+            if d is not None:
+                return kind_w, d, vlen_w, vwin_u32
+            ops = DeviceWindowOps(klen_w, vlen_w, np.ascontiguousarray(kwin_w).view(np.uint32),
+                                  vwin_u32)
+            return kind_w, ops, vlen_w, vwin_u32
 
     def pack_get_window_auto(self, blocks):
         """A GET window in the dictionary form where the keys repeat
         enough, else the row pair ``(klen, kwin)``; None demotes."""
-        g = self._gather_window(blocks, "get")
-        if g is None:
-            return None
-        d = self._dict_from_gathered(g)
-        if d is not None:
-            return d
-        return g[1], np.ascontiguousarray(g[3]).view(np.uint32)
+        with span("devkv.pack"):
+            with span("devkv.pack.gather"):
+                g = self._gather_window(blocks, "get")
+            if g is None:
+                return None
+            with span("devkv.pack.dict"):
+                d = self._dict_from_gathered(g)
+            if d is not None:
+                return d
+            return g[1], np.ascontiguousarray(g[3]).view(np.uint32)
 
     # -- the programs ----------------------------------------------------------
 
@@ -668,10 +678,11 @@ class DeviceKVTable:
     def _upload(self, arrays: list, device: Optional[torch.device] = None) -> list:
         """Host arrays on ``device`` (default the table's) as one copy;
         None stays None."""
-        sent = iter(to_device_all([a for a in arrays if a is not None],
-                                  self.device if device is None else device))
-        self.uploads += 1
-        return [None if a is None else next(sent) for a in arrays]
+        with span("devkv.upload"):
+            sent = iter(to_device_all([a for a in arrays if a is not None],
+                                      self.device if device is None else device))
+            self.uploads += 1
+            return [None if a is None else next(sent) for a in arrays]
 
     # -- shard blocks (a mesh of more than one shard row) -----------------------
 

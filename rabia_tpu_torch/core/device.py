@@ -7,6 +7,8 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
+from rabia_tpu_torch.core.tracing import span
+
 DeviceLike = Union[str, torch.device, None]
 
 
@@ -75,9 +77,10 @@ class HostFetch:
 
     def result(self):
         """The arrays (one array when one tensor was fetched)."""
-        if self._event is not None:
-            self._event.synchronize()
-        out = [h.numpy() for h in self._host]
+        with span("device.wait"):
+            if self._event is not None:
+                self._event.synchronize()
+            out = [h.numpy() for h in self._host]
         return out[0] if len(out) == 1 else tuple(out)
 
 

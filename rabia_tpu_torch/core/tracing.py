@@ -1,42 +1,64 @@
-"""Span tracing + device profiling hooks.
+"""Spans, the port's one tracing system, and the profiler capture.
 
 The port of the reference's ``rabia_tpu/core/tracing.py``:
 
-- :class:`Tracer` — a process-local span aggregator: per-span count /
-  total / max wall time, read via :meth:`Tracer.report`. Disabled by
-  default; when disabled a span costs one attribute check. Set
-  ``RABIA_TRACE=1`` in the environment to enable it process-wide (or
-  flip ``tracer.enabled`` at runtime). A
-  :class:`~rabia_tpu_torch.obs.MetricsRegistry` with this tracer
-  attached carries ``rabia_span_seconds{span=...}`` summaries in its
-  exposition, so there is one ``report()`` shape, not two.
-- :func:`span` — ``with span("engine.tick.drain"): ...`` context manager
-  against the module singleton.
-- :func:`device_annotation` — names a region in device traces: a
-  ``torch.profiler.record_function`` (seen by :func:`device_trace` and
-  any ``torch.profiler`` session) and, on a CUDA device, an NVTX range;
-  a no-op when neither is available.
+- :func:`span` — ``with span("devkv.pack"): ...`` names a region of the
+  program. A span is in one of three states, checked on each call:
+
+  - off (the tracer disabled, no ``torch.profiler`` session running):
+    the shared no-op, after two flag checks; nothing is recorded or
+    allocated;
+  - a profiler session running: a ``torch.profiler.record_function``
+    range, so the span lands in the session's trace on the clock of the
+    device's kernels and copies (:func:`device_trace`, and any
+    ``torch.profiler.profile``);
+  - the tracer enabled (``RABIA_TRACE=1`` in the environment, or
+    ``tracer.enabled = True`` at run time): the span's wall time adds
+    to :class:`Tracer`'s per-name count / total / max, read by
+    :meth:`Tracer.report`; in a process that has started CUDA it also
+    opens an NVTX range of the same name, for Nsight. A
+    :class:`~rabia_tpu_torch.obs.MetricsRegistry` with this tracer
+    attached carries ``rabia_span_seconds{span=...}`` summaries in its
+    exposition.
+
 - :func:`device_trace` — ``with device_trace(logdir):`` captures a
   ``torch.profiler`` trace of the host and, where there is one, the
   card around a workload, written to ``logdir`` as a Chrome trace.
 
-Span naming taxonomy (dotted, coarse→fine):
+Span naming taxonomy (dotted, coarse to fine):
+
   engine.tick.{drain,open,kernel,apply,timeouts}
-  engine.kernel.{start,route,step,outbox}
-  wire.{serialize,deserialize}
+  engine.kernel.{start,route,step,fetch,outbox}
   sm.apply
+  mesh.cycle            MeshEngine.run_cycle, the whole call
+  mesh.slot_window      the host lane's consensus window
+  devkv.pack            a device KV window's host pack
+  devkv.pack.gather       validate, bucket, fixed-width gather
+  devkv.pack.dict         the dictionary form: hash, sort, rank, compare
+  devkv.dispatch        a device KV window from its pack to its place in
+                        the pipe: host planes, upload, launch, fetches
+  devkv.upload            the window's host arrays to the device
+  devkv.settle          a resolved window's versions, frames, futures
+  device.wait           the host blocked on a device fetch's completion
+  fw.window             the decision core's host side and launch
+
+In a device KV cycle the spans tile ``mesh.cycle``: its seconds are
+``devkv.pack`` + ``devkv.dispatch`` + ``device.wait`` + the self time of
+``devkv.settle`` + the self time of ``mesh.cycle``.
 """
 
 from __future__ import annotations
 
 import contextlib
-import logging
 import os
 import time
 from dataclasses import dataclass, field
 from typing import Iterator
 
-logger = logging.getLogger("rabia_tpu_torch.tracing")
+import torch
+
+# is a torch.profiler session recording this process (a C flag read)
+_profiling = torch._C._autograd._profiler_enabled
 
 
 @dataclass
@@ -82,18 +104,6 @@ class Tracer:
     def reset(self) -> None:
         self.spans.clear()
 
-    def log_report(self, level: int = logging.INFO) -> None:
-        for name, row in self.report().items():
-            logger.log(
-                level,
-                "span %-28s n=%-8d total=%8.3fs avg=%8.1fus max=%8.1fus",
-                name,
-                row["count"],
-                row["total_s"],
-                row["avg_us"],
-                row["max_us"],
-            )
-
 
 tracer = Tracer()
 # the documented enable path: RABIA_TRACE=1 turns span aggregation on for
@@ -103,7 +113,7 @@ if os.environ.get("RABIA_TRACE") == "1":
 
 
 class _NoopSpan:
-    """Shared no-op context: a disabled span costs one attribute check,
+    """Shared no-op context: a span that is off costs two flag checks,
     one call and no allocation."""
 
     __slots__ = ()
@@ -119,55 +129,43 @@ _NOOP = _NoopSpan()
 
 
 class _Span:
-    __slots__ = ("name", "t0")
+    """An enabled tracer's span: its wall time into :data:`tracer`, an
+    NVTX range where CUDA has started, and a profiler range while a
+    session records."""
+
+    __slots__ = ("name", "t0", "nvtx", "rf")
 
     def __init__(self, name: str):
         self.name = name
 
     def __enter__(self):
+        self.nvtx = torch.cuda.is_initialized()
+        if self.nvtx:
+            torch.cuda.nvtx.range_push(self.name)
+        self.rf = torch.profiler.record_function(self.name) if _profiling() else None
+        if self.rf is not None:
+            self.rf.__enter__()
         self.t0 = time.perf_counter()
         return None
 
     def __exit__(self, *exc):
         tracer.record(self.name, time.perf_counter() - self.t0)
+        if self.rf is not None:
+            self.rf.__exit__(*exc)
+        if self.nvtx:
+            torch.cuda.nvtx.range_pop()
         return False
 
 
 def span(name: str):
-    """``with span("engine.tick.drain"): ...`` — aggregated when the
-    tracer is enabled, near-free otherwise."""
-    if not tracer.enabled:
-        return _NOOP
-    return _Span(name)
-
-
-@contextlib.contextmanager
-def device_annotation(name: str, device=None) -> Iterator[None]:
-    """Name a region in device traces: a ``torch.profiler`` range, and
-    an NVTX range when ``device`` is a CUDA device (no-op when neither
-    is available).
-
-    The ranges are opened OUTSIDE the yield so a body exception
-    propagates unharmed (a bare ``except: yield`` around a yield would
-    destroy it with 'generator didn't stop after throw()')."""
-    try:
-        import torch
-
-        ann = torch.profiler.record_function(name)
-        nvtx = torch.cuda.nvtx if torch.device(device or "cpu").type == "cuda" else None
-    except Exception:
-        ann = nvtx = None
-    if ann is None:
-        yield
-        return
-    if nvtx is not None:
-        nvtx.range_push(name)
-    try:
-        with ann:
-            yield
-    finally:
-        if nvtx is not None:
-            nvtx.range_pop()
+    """``with span("devkv.pack"): ...`` — aggregated (and an NVTX range
+    on a card) when the tracer is enabled, a profiler range while a
+    ``torch.profiler`` session records, the shared no-op otherwise."""
+    if tracer.enabled:
+        return _Span(name)
+    if _profiling():
+        return torch.profiler.record_function(name)
+    return _NOOP
 
 
 @contextlib.contextmanager
@@ -175,7 +173,6 @@ def device_trace(logdir: str) -> Iterator[None]:
     """Capture a ``torch.profiler`` trace (host ops, and the card's
     kernels and copies where CUDA is available) around a block, written
     to ``<logdir>/trace.json`` in the Chrome trace format."""
-    import torch
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]

@@ -28,6 +28,7 @@ import ctypes
 
 import torch
 
+from rabia_tpu_torch.core.tracing import span
 from rabia_tpu_torch.core.types import ABSENT, V0, V1
 from rabia_tpu_torch.kernel import cuda_build
 
@@ -194,10 +195,11 @@ def window_rmajor(
 ):
     """The closed form on replica-major votes: the CUDA kernel for a
     CUDA tensor, the plain version for a CPU tensor."""
-    if votes_rm.device.type == "cuda":
-        return FUSED_WINDOW(votes_rm, alive_rm, quorum, want_phase)
-    if votes_rm.device.type == "cpu":
-        return closed_form_window_rmajor(votes_rm, alive_rm, quorum, want_phase)
+    with span("fw.window"):
+        if votes_rm.device.type == "cuda":
+            return FUSED_WINDOW(votes_rm, alive_rm, quorum, want_phase)
+        if votes_rm.device.type == "cpu":
+            return closed_form_window_rmajor(votes_rm, alive_rm, quorum, want_phase)
     raise ValueError(f"no fused window for device {votes_rm.device}")
 
 

@@ -94,7 +94,7 @@ from rabia_tpu_torch.core.device import DeviceLike, HostFetch
 from rabia_tpu_torch.core.errors import RabiaError, ValidationError
 from rabia_tpu_torch.core.persistence import PersistedEngineState
 from rabia_tpu_torch.core.state_machine import StateMachine
-from rabia_tpu_torch.core.tracing import device_annotation
+from rabia_tpu_torch.core.tracing import span
 from rabia_tpu_torch.core.types import ABSENT, V0, V1, CommandBatch, ShardId, quorum_size
 from rabia_tpu_torch.kernel.mesh_window import WindowStage
 from rabia_tpu_torch.obs import MetricsRegistry
@@ -750,32 +750,33 @@ class MeshEngine:
         feeds the window governor (see :meth:`_govern`), which walks
         ``window`` up and down a power-of-two ladder to keep the p99
         window latency under the target."""
-        if self.latency_target_ms is None:
-            return self._run_cycle_inner()
-        self._lat_saturated = False
-        self._lat_invalidate = False
-        self._lat_timing = True
-        cycles_before = self.cycles
-        t0 = time.perf_counter()
-        try:
-            applied = self._run_cycle_inner()
-        finally:
-            self._lat_timing = False
-        if self.cycles > cycles_before:
-            # time only cycles that consumed a window (an idle probe
-            # costs ~µs and would drown the window samples). A lane
-            # demotion mid-cycle (device -> host, block -> scalar) runs
-            # a second dispatch inside this one sample: one-off
-            # machinery, not steady-state latency
-            invalid = self._lat_invalidate
+        with span("mesh.cycle"):
+            if self.latency_target_ms is None:
+                return self._run_cycle_inner()
+            self._lat_saturated = False
             self._lat_invalidate = False
-            if self._lat_skip:
-                self._lat_skip -= 1  # the first cycle at this size
-            elif not invalid:
-                dt_ms = (time.perf_counter() - t0) * 1e3
-                self._lat_samples.append(dt_ms)
-                self._govern(dt_ms)
-        return applied
+            self._lat_timing = True
+            cycles_before = self.cycles
+            t0 = time.perf_counter()
+            try:
+                applied = self._run_cycle_inner()
+            finally:
+                self._lat_timing = False
+            if self.cycles > cycles_before:
+                # time only cycles that consumed a window (an idle probe
+                # costs ~µs and would drown the window samples). A lane
+                # demotion mid-cycle (device -> host, block -> scalar) runs
+                # a second dispatch inside this one sample: one-off
+                # machinery, not steady-state latency
+                invalid = self._lat_invalidate
+                self._lat_invalidate = False
+                if self._lat_skip:
+                    self._lat_skip -= 1  # the first cycle at this size
+                elif not invalid:
+                    dt_ms = (time.perf_counter() - t0) * 1e3
+                    self._lat_samples.append(dt_ms)
+                    self._govern(dt_ms)
+            return applied
 
     def _p99(self) -> float:
         """Interpolated empirical p99 over the current samples (numpy
@@ -1079,55 +1080,54 @@ class MeshEngine:
             applied = self._dev_drain_pipe()
             self._demote_device_store()
             return applied + self._run_cycle_inner()
-        base = np.zeros(self.S, np.int32)
-        base[:n] = self.next_slot
-        # PIPELINED COMMIT: dispatch window k chained on the UNRESOLVED
-        # previous window's output table, advance the bookkeeping
-        # optimistically, and read window k-1's flags only later; a dirty
-        # flag rolls back every optimistic window and demotes
-        state_base = self._dev_chain_base()
-        with device_annotation("rabia.devkv.decide_apply", self.device):
+        with span("devkv.dispatch"):
+            base = np.zeros(self.S, np.int32)
+            base[:n] = self.next_slot
+            # PIPELINED COMMIT: dispatch window k chained on the UNRESOLVED
+            # previous window's output table, advance the bookkeeping
+            # optimistically, and read window k-1's flags only later; a dirty
+            # flag rolls back every optimistic window and demotes
+            state_base = self._dev_chain_base()
             new_state, flags_dev = self._dev.decide_apply(
                 self.alive, base, depth, ops, W=W,
                 max_phases=self.max_phases, state=state_base,
             )
-        # a library built or loaded inside this dispatch: one-off
-        # machinery, not window latency
-        self._lat_invalidate |= self._dev.compiled_on_last_call and self._lat_timing
-        self.cycles += 1
-        # version responses are DERIVED, not transferred: a clean all-V1
-        # full-width SET window advances every shard's version by exactly
-        # one per wave. While a DEL-bearing window is in flight the
-        # mirror base is unknown: derivation defers to settlement
-        deferred = self._dev_defer > 0
-        if deferred:
-            vers = None
-            sver_delta = None
-            seg_start = np.zeros_like(self._dev_sver)
-            seg_end = np.zeros_like(self._dev_sver)
-        else:
-            vers = self._dev_sver[None, : self.S] + np.arange(1, W + 1, dtype=np.int64)[:, None]
-            # retain this window's value bytes host-side: (shard,
-            # version) identifies content, so GETs answer without
-            # downloading values
-            seg_start = self._dev_sver.copy()
-            seg_end = seg_start.copy()
-            seg_end[:n] += depth
-        if isinstance(ops, DeviceDictOps):
-            seg = _DictSeg(seg_start, seg_end, ops.idx, ops.dvl, ops.dv)
-        else:
-            seg = _RowSeg(seg_start, seg_end, ops.vlen, ops.vwin)
-        if deferred:
-            seg.provisional = True
-            self._dev_defer += 1
-        self._dev_push_segment(seg)
-        if not deferred:
-            self._dev_sver[:n] += depth
-            sver_delta = np.zeros_like(self._dev_sver)
-            sver_delta[:n] = depth
-        self._dev_commit_window(entries, depth)
-        return self._dev_push_window(
-            {
+            # a library built or loaded inside this dispatch: one-off
+            # machinery, not window latency
+            self._lat_invalidate |= self._dev.compiled_on_last_call and self._lat_timing
+            self.cycles += 1
+            # version responses are DERIVED, not transferred: a clean all-V1
+            # full-width SET window advances every shard's version by exactly
+            # one per wave. While a DEL-bearing window is in flight the
+            # mirror base is unknown: derivation defers to settlement
+            deferred = self._dev_defer > 0
+            if deferred:
+                vers = None
+                sver_delta = None
+                seg_start = np.zeros_like(self._dev_sver)
+                seg_end = np.zeros_like(self._dev_sver)
+            else:
+                vers = self._dev_sver[None, : self.S] + np.arange(1, W + 1, dtype=np.int64)[:, None]
+                # retain this window's value bytes host-side: (shard,
+                # version) identifies content, so GETs answer without
+                # downloading values
+                seg_start = self._dev_sver.copy()
+                seg_end = seg_start.copy()
+                seg_end[:n] += depth
+            if isinstance(ops, DeviceDictOps):
+                seg = _DictSeg(seg_start, seg_end, ops.idx, ops.dvl, ops.dv)
+            else:
+                seg = _RowSeg(seg_start, seg_end, ops.vlen, ops.vwin)
+            if deferred:
+                seg.provisional = True
+                self._dev_defer += 1
+            self._dev_push_segment(seg)
+            if not deferred:
+                self._dev_sver[:n] += depth
+                sver_delta = np.zeros_like(self._dev_sver)
+                sver_delta[:n] = depth
+            self._dev_commit_window(entries, depth)
+            rec = {
                 "kind": "set",
                 "flags": HostFetch(flags_dev),
                 "new_state": new_state,
@@ -1139,7 +1139,7 @@ class MeshEngine:
                 "sver_delta": sver_delta,
                 "deferred": deferred,
             }
-        )
+        return self._dev_push_window(rec)
 
     def _dev_commit_window(self, entries, depth: int) -> None:
         """Commit bookkeeping of a full-width window, shared by every
@@ -1268,12 +1268,13 @@ class MeshEngine:
         # "get" windows are read-only: new_state is the table they
         # chained on, so adopting is a no-op by value
         self._dev.adopt(rec["new_state"])
-        if rec["kind"] == "set":
-            self._dev_settle_set(rec)
-        elif rec["kind"] == "mixed":
-            self._dev_settle_mixed(rec)
-        else:
-            self._dev_settle_get(rec)
+        with span("devkv.settle"):
+            if rec["kind"] == "set":
+                self._dev_settle_set(rec)
+            elif rec["kind"] == "mixed":
+                self._dev_settle_mixed(rec)
+            else:
+                self._dev_settle_get(rec)
         return rec["depth"] * rec["n"]
 
     def _dev_settle_set(self, rec) -> None:
@@ -1440,18 +1441,17 @@ class MeshEngine:
             applied = self._dev_drain_pipe()
             self._demote_device_store()
             return applied
-        state_base = self._dev_chain_base()
-        with device_annotation("rabia.devkv.read_probe", self.device):
+        with span("devkv.dispatch"):
+            state_base = self._dev_chain_base()
             found_d, ver_d, vlen_d, valw_d = self._dev.lookup_only(packed, W=W, state=state_base)
-        self._lat_invalidate |= self._dev.compiled_on_last_call and self._lat_timing
-        self.cycles += 1
-        depth = len(batch)
-        n = self.n_shards
-        self._read_stats["probe"] += depth * n
-        self._read_stats["probe_windows"] += 1
-        self._h_read_batch.observe(float(depth))
-        return self._dev_push_window(
-            {
+            self._lat_invalidate |= self._dev.compiled_on_last_call and self._lat_timing
+            self.cycles += 1
+            depth = len(batch)
+            n = self.n_shards
+            self._read_stats["probe"] += depth * n
+            self._read_stats["probe_windows"] += 1
+            self._h_read_batch.observe(float(depth))
+            rec = {
                 "kind": "read",
                 "meta": HostFetch(found_d, ver_d),
                 "val_dev": (vlen_d, valw_d),
@@ -1462,7 +1462,7 @@ class MeshEngine:
                 "seg": None,
                 "sver_delta": None,
             }
-        )
+        return self._dev_push_window(rec)
 
     def _run_cycle_fullwidth_device_get(self, depth: int) -> int:
         """GET-only full-width windows through the table's read-only
@@ -1481,20 +1481,19 @@ class MeshEngine:
             applied = self._dev_drain_pipe()
             self._demote_device_store()
             return applied + self._run_cycle_inner()
-        base = np.zeros(self.S, np.int32)
-        base[:n] = self.next_slot
-        state_base = self._dev_chain_base()
-        with device_annotation("rabia.devkv.lookup_window", self.device):
+        with span("devkv.dispatch"):
+            base = np.zeros(self.S, np.int32)
+            base[:n] = self.next_slot
+            state_base = self._dev_chain_base()
             all_v1_d, found_d, ver_d, vlen_d, valw_d = self._dev.lookup_window(
                 self.alive, base, depth, packed, W=W,
                 max_phases=self.max_phases, state=state_base,
             )
-        self._lat_invalidate |= self._dev.compiled_on_last_call and self._lat_timing
-        self.cycles += 1
-        self._read_stats["slot"] += depth * n  # GETs that consumed slots
-        self._dev_commit_window(entries, depth)
-        return self._dev_push_window(
-            {
+            self._lat_invalidate |= self._dev.compiled_on_last_call and self._lat_timing
+            self.cycles += 1
+            self._read_stats["slot"] += depth * n  # GETs that consumed slots
+            self._dev_commit_window(entries, depth)
+            rec = {
                 "kind": "get",
                 "flags": HostFetch(all_v1_d),
                 "meta": HostFetch(found_d, ver_d),
@@ -1506,7 +1505,7 @@ class MeshEngine:
                 "seg": None,
                 "sver_delta": None,
             }
-        )
+        return self._dev_push_window(rec)
 
     def _run_cycle_fullwidth_device_mixed(self, count: int) -> int:
         """Full-width window mixing SET, GET, DEL and EXISTS ops (per op)
@@ -1524,53 +1523,52 @@ class MeshEngine:
             applied = self._dev_drain_pipe()
             self._demote_device_store()
             return applied + self._run_cycle_inner()
-        # the value planes in the row form whatever form the ops travel in:
-        # the segments answer GETs from them
-        kind, ops, vlen_plane, vwin_plane = packed
-        # a DEL bumps the shard version only when its key is FOUND: the
-        # mirror cannot derive that until the meta readback (DEL waves
-        # ride it). Such windows, and every window dispatched while one is
-        # in flight, defer derivation to settlement, where FIFO order
-        # makes the mirror exact again. EXISTS is read-only.
-        deferred = bool((kind == 3).any()) or self._dev_defer > 0
-        get_waves = np.nonzero((kind >= 2).any(axis=1))[0].astype(np.int32)
-        base = np.zeros(self.S, np.int32)
-        base[:n] = self.next_slot
-        state_base = self._dev_chain_base()
-        with device_annotation("rabia.devkv.mixed_apply", self.device):
+        with span("devkv.dispatch"):
+            # the value planes in the row form whatever form the ops travel in:
+            # the segments answer GETs from them
+            kind, ops, vlen_plane, vwin_plane = packed
+            # a DEL bumps the shard version only when its key is FOUND: the
+            # mirror cannot derive that until the meta readback (DEL waves
+            # ride it). Such windows, and every window dispatched while one is
+            # in flight, defer derivation to settlement, where FIFO order
+            # makes the mirror exact again. EXISTS is read-only.
+            deferred = bool((kind == 3).any()) or self._dev_defer > 0
+            get_waves = np.nonzero((kind >= 2).any(axis=1))[0].astype(np.int32)
+            base = np.zeros(self.S, np.int32)
+            base[:n] = self.next_slot
+            state_base = self._dev_chain_base()
             new_state, flags_dev, meta_dev, gval_dev = self._dev.mixed_apply(
                 self.alive, base, count, kind, get_waves, ops, W=W,
                 max_phases=self.max_phases, state=state_base,
             )
-        self._lat_invalidate |= self._dev.compiled_on_last_call and self._lat_timing
-        self.cycles += 1
-        self._read_stats["slot"] += int((kind == 2).sum())  # GETs that consumed slots
-        # derived SET versions: host mirror + inclusive per-shard SET
-        # count. Deferred windows push a PROVISIONAL segment (empty range,
-        # exempt from eviction) and leave the mirror untouched
-        set_cum = np.cumsum(kind == 1, axis=0, dtype=np.int64)
-        if deferred:
-            svers = None
-            sver_delta = None
-            seg = _MixedSeg(
-                np.zeros_like(self._dev_sver), np.zeros_like(self._dev_sver),
-                vlen_plane, vwin_plane, set_cum, kind,
-            )
-            seg.provisional = True
-            self._dev_push_segment(seg)
-            self._dev_defer += 1
-        else:
-            svers = self._dev_sver[None, : self.S] + set_cum
-            seg_start = self._dev_sver.copy()
-            seg = _MixedSeg(seg_start, seg_start + set_cum[-1], vlen_plane, vwin_plane, svers,
-                            kind)
-            self._dev_push_segment(seg)
-            sver_delta = np.zeros_like(self._dev_sver)
-            sver_delta[: self.S] = set_cum[-1]
-            self._dev_sver += sver_delta
-        self._dev_commit_window(entries, count)
-        return self._dev_push_window(
-            {
+            self._lat_invalidate |= self._dev.compiled_on_last_call and self._lat_timing
+            self.cycles += 1
+            self._read_stats["slot"] += int((kind == 2).sum())  # GETs that consumed slots
+            # derived SET versions: host mirror + inclusive per-shard SET
+            # count. Deferred windows push a PROVISIONAL segment (empty range,
+            # exempt from eviction) and leave the mirror untouched
+            set_cum = np.cumsum(kind == 1, axis=0, dtype=np.int64)
+            if deferred:
+                svers = None
+                sver_delta = None
+                seg = _MixedSeg(
+                    np.zeros_like(self._dev_sver), np.zeros_like(self._dev_sver),
+                    vlen_plane, vwin_plane, set_cum, kind,
+                )
+                seg.provisional = True
+                self._dev_push_segment(seg)
+                self._dev_defer += 1
+            else:
+                svers = self._dev_sver[None, : self.S] + set_cum
+                seg_start = self._dev_sver.copy()
+                seg = _MixedSeg(seg_start, seg_start + set_cum[-1], vlen_plane, vwin_plane, svers,
+                                kind)
+                self._dev_push_segment(seg)
+                sver_delta = np.zeros_like(self._dev_sver)
+                sver_delta[: self.S] = set_cum[-1]
+                self._dev_sver += sver_delta
+            self._dev_commit_window(entries, count)
+            rec = {
                 "kind": "mixed",
                 "flags": HostFetch(flags_dev),
                 # meta travels with the flags (a dirty window wastes one
@@ -1589,7 +1587,7 @@ class MeshEngine:
                 "sver_delta": sver_delta,
                 "deferred": deferred,
             }
-        )
+        return self._dev_push_window(rec)
 
     def _dev_push_segment(self, seg) -> None:
         """Retain one committed window's value bytes. ``seg.start`` /
@@ -1854,10 +1852,10 @@ class MeshEngine:
                 votes.base[...] = base
             if not np.array_equal(votes.alive, self.alive):
                 votes.alive[...] = self.alive
-            with device_annotation("rabia.mesh.slot_window", self.device):
+            with span("mesh.slot_window"):
                 self.kernel.decide_staged(votes, W, self.max_phases)
             return self._ring.fetch(votes, W)
-        with device_annotation("rabia.mesh.slot_window", self.device):
+        with span("mesh.slot_window"):
             # the mesh kernel cuts host arrays into its blocks
             decided = self.kernel.slot_window(
                 votes, self.alive, base, n_slots=W, max_phases=self.max_phases,
@@ -1871,7 +1869,7 @@ class MeshEngine:
         submissions in the same order), the window exchanges over the
         replica group, and the decided plane is all-gathered over the
         shard group, so every rank returns the whole ``[W, S]``."""
-        with device_annotation("rabia.mesh.slot_window", self.device):
+        with span("mesh.slot_window"):
             decided = self.kernel.slot_window(
                 votes.astype(np.int8), self.alive, base.astype(np.int32),
                 n_slots=W, max_phases=self.max_phases,

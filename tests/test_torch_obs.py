@@ -232,18 +232,23 @@ def test_engine_metric_families_match_the_reference():
 
 
 def test_device_annotation_names_the_region_and_device_trace_writes(tmp_path):
-    """``device_annotation`` opens a ``torch.profiler`` range that a
-    ``device_trace`` records, passes a body's exception through, and the
-    trace lands in ``logdir`` as a Chrome trace."""
+    """``span``, which names the program's regions in device traces,
+    opens a ``torch.profiler`` range that a ``device_trace`` records and
+    passes a body's exception through, inside the trace and outside it;
+    the trace lands in ``logdir`` as a Chrome trace."""
     import json
 
     import torch
 
     with port_tracing.device_trace(str(tmp_path / "trace")):
-        with port_tracing.device_annotation("rabia.test.region", "cpu"):
+        with port_tracing.span("test.region"):
             torch.ones(4).sum()
+        with pytest.raises(KeyError):
+            with port_tracing.span("test.raises"):
+                raise KeyError("passes through")
     events = json.loads((tmp_path / "trace" / "trace.json").read_text())["traceEvents"]
-    assert any(e.get("name") == "rabia.test.region" for e in events)
+    names = {e.get("name") for e in events}
+    assert {"test.region", "test.raises"} <= names
     with pytest.raises(KeyError):
-        with port_tracing.device_annotation("rabia.test.raises", "cpu"):
+        with port_tracing.span("test.raises"):
             raise KeyError("passes through")
